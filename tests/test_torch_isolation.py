@@ -1,0 +1,156 @@
+"""The port stands alone: it never imports jax, flax or the JAX package,
+its entry points refuse to drop to the CPU unasked, and a kernel wrapper
+counts only launches of its kernel.
+
+  * the CPU serve path runs in a subprocess whose ``import jax`` raises
+    (a poisoned ``jax.py`` first on PYTHONPATH, the test_staticcheck
+    trick), and ``jax`` never reaches ``sys.modules``;
+  * an AST scan of every port module and ``chip_smoke.py`` finds no
+    import of ``jax``, ``flax`` or ``npairloss_tpu``;
+  * entry points called without ``device=`` raise when CUDA is absent;
+  * kernel wrappers given CPU tensors leave their launch counters at 0.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from npairloss_tpu_torch import device as tdevice
+from npairloss_tpu_torch.models import get_model
+from npairloss_tpu_torch.ops import _build, ivf_probe, kmeans, stem
+from npairloss_tpu_torch.serve.index import GalleryIndex, load_index
+from npairloss_tpu_torch.serve.ivf import IVFIndex
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "npairloss_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "npairloss_tpu")
+
+SERVE_SCRIPT = r"""
+import io, json, sys
+import numpy as np
+from npairloss_tpu_torch.serve.engine import EngineConfig, QueryEngine
+from npairloss_tpu_torch.serve.ivf import IVFIndex
+from npairloss_tpu_torch.serve.server import RetrievalServer
+from npairloss_tpu_torch.models import get_model
+rng = np.random.default_rng(0)
+emb = rng.standard_normal((64, 1024)).astype(np.float32)
+idx = IVFIndex.build_ivf(emb, np.arange(64), clusters=4, device="cpu")
+eng = QueryEngine(idx, EngineConfig(top_k=3, buckets=(2,), probes=4,
+                                    probe_impl="fused"),
+                  model=get_model("googlenet_pallas", device="cpu"))
+lines = [json.dumps({"id": 0, "embedding": emb[5].tolist()}),
+         json.dumps({"id": 1, "input": np.zeros((32, 32, 3)).tolist()})]
+out = io.StringIO()
+RetrievalServer(eng).run_jsonl(io.StringIO("\n".join(lines) + "\n"), out)
+ans = [json.loads(x) for x in out.getvalue().splitlines()]
+assert ans[0]["neighbors"][0]["row"] == 5, ans[0]
+assert "neighbors" in ans[1], ans[1]
+assert ans[-1]["queries_dropped"] == 0 and ans[-1]["answered"] == 2
+assert not any(m == "jax" or m.startswith(("jax.", "flax", "npairloss_tpu."))
+               for m in sys.modules), sorted(sys.modules)
+print("ISOLATED-OK")
+"""
+
+
+def test_cpu_serve_path_runs_with_jax_poisoned(tmp_path):
+    poison = tmp_path / "poison"
+    poison.mkdir()
+    for mod in ("jax", "flax"):
+        (poison / f"{mod}.py").write_text(
+            f'raise ImportError("{mod} imported by the torch port")\n')
+    env = dict(os.environ)
+    env["PYTHONPATH"] = f"{poison}{os.pathsep}{REPO}"
+    env.pop("JAX_PLATFORMS", None)
+    proc = subprocess.run([sys.executable, "-c", SERVE_SCRIPT],
+                          capture_output=True, text=True, env=env,
+                          cwd=str(tmp_path), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "ISOLATED-OK" in proc.stdout
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.module
+
+
+def _port_files():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 15
+    return files
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    bad = []
+    for path in _port_files():
+        for name in _imports(path):
+            root = name.split(".")[0]
+            if root in FORBIDDEN:
+                bad.append(f"{path.relative_to(REPO)}: {name}")
+    assert bad == []
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    emb = np.eye(4, dtype=np.float32)
+    lab = np.arange(4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdevice.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GalleryIndex.build(emb, lab)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IVFIndex.build_ivf(emb, lab, clusters=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model("googlenet_pallas")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kmeans.kmeans_fit(emb, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdevice.resolve_device("cuda")
+    assert tdevice.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_load_index_without_device_raises(monkeypatch, tmp_path):
+    idx = GalleryIndex.build(np.eye(4, dtype=np.float32), np.arange(4),
+                             device="cpu")
+    path = idx.save(str(tmp_path / "a.gidx"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_index(path)
+    assert load_index(path, device="cpu").size == 4
+
+
+def test_kernel_wrappers_on_cpu_tensors_count_no_launch():
+    _build.reset_launch_counts()
+    x = torch.randn(2, 6, 6, 64)
+    b = torch.randn(64)
+    stem.fused_lrn(x)
+    stem.fused_bias_relu(x, b)
+    stem.fused_bias_relu_pool(x, b)
+    packed = torch.randn(3, 5, 64)
+    rows = torch.arange(15, dtype=torch.int32).reshape(3, 5)
+    ivf_probe.fused_probe_topk(torch.randn(2, 64), packed, rows,
+                               torch.randn(3, 64),
+                               torch.ones(3, dtype=torch.bool),
+                               k=4, probes=2, scoring="fp32")
+    counts = _build.launch_counts()
+    assert set(counts) == {"fused_lrn", "fused_bias_relu",
+                           "fused_bias_relu_pool", "probe_topk"}
+    assert all(v == 0 for v in counts.values()), counts
+
+
+def test_importing_the_port_builds_nothing():
+    """No kernel is built or loaded at import: the library handle stays
+    empty until a CUDA tensor reaches a wrapper."""
+    assert _build._lib is None
+    assert _build.build_info == {}
