@@ -9,7 +9,7 @@ Phases (any failure raises, exits nonzero and prints no result line):
 
 1. the card: ``nvidia-smi`` name and power limit, torch version and
    compute capability (must be 9.0); TF32 off for fp32 parity;
-2. build the four CUDA kernels from ``npairloss_tpu_torch/csrc/`` with
+2. build the seven CUDA kernels from ``npairloss_tpu_torch/csrc/`` with
    nvcc (one process per source, started together);
 3. hold each kernel against its plain PyTorch version on the card at
    the serving path's shapes — LRN and bias+ReLU at (32,56,56,64) and
@@ -27,8 +27,33 @@ Phases (any failure raises, exits nonzero and prints no result line):
    answer, the top-1 self-match, the drain invariant, all four launch
    counters > 0, an exhaustive-probe recall of 1.0 against the flat
    engine, and the trunk on the card against the trunk on the CPU;
-5. a ``{"kernels": [...]}`` line; then the card line; then the last
-   line ``{"ok": true, "device": {...}}``.
+3b. the LRN training kernels (``lrn_fwd_cached``, ``lrn_bwd_cached``,
+   ``lrn_bwd``) at (120,56,56,64) and (120,56,56,192) in fp32 and bf16
+   against their plain versions, cached and recompute dx bit for bit,
+   timed beside their bound, the plain versions and
+   ``F.local_response_norm`` (forward; its backward alone on a saved
+   graph); then the phase-3 forward kernels again at batch 120;
+5. the training path: ``python -m npairloss_tpu_torch train`` in-process
+   on ``examples/googlenet_cub_solver.prototxt`` cut to 6 iterations
+   (test_iter 2, display 1, snapshot 0), ``googlenet_pallas`` at batch
+   120 (60 x 2), 224x224, fp32, synthetic batches: every loss and
+   metric finite, the training kernels launched by the steps and the
+   uncached LRN forward by the iter-0 TEST, a nonzero gradient on every
+   parameter, and the median step ms over steps 2-6; one more step under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside a
+   step); then a ``torch.profiler`` breakdown of three more steps, and
+   the solver's pinned batch upload against a pageable synchronous copy;
+5b. one step twice from the same weights and batch, LRN cache on and
+   off (``LRN_CACHE_AUTO_BYTES = 0``, which launches ``lrn_bwd``): the
+   gradients bit for bit (cuDNN deterministic); then the step at batch 8
+   on the card against the CPU;
+5c. ``REFERENCE_CONFIG`` mining on 120 x 1024 unit features: from the
+   card's sims, thresholds, masks and counts equal the CPU's exactly,
+   and the loss agrees within 1e-5;
+6. a ``{"kernels": [...]}`` line (launches of the serving kernels from
+   phase 4, of the training kernels from phase 5, of ``lrn_bwd`` from
+   the phase-5b recompute step); then the card line; then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -53,8 +78,19 @@ TOL = {
     "stem_fp32": 1e-5,
     # bf16 storage: one bf16 ulp (2^-8 relative) at values up to ~4.
     "stem_bf16": 3e-2,
+    # LRN training kernels in bf16: dx ~ g * f reaches |7| on randn
+    # inputs, where one bf16 ulp is 2^-5; one ulp below 8 is 2^-4.
+    "lrn_train_bf16": 6.25e-2,
     # probe scores: fp32 sums over D=1024 in another order.
     "probe": 1e-5,
+    # card vs CPU, one training step of googlenet_pallas at batch 8
+    # (fp32, TF32 off): the loss relative; each parameter's gradient error
+    # relative to the norm of the whole step gradient — cuDNN and the CPU
+    # sum ~60 convolutions in other orders (see check_train_step).
+    "step_loss_rel": 1e-5,
+    "step_grad_rel": 1e-3,
+    # REFERENCE_CONFIG loss, card vs CPU, each from its own matmul.
+    "mining_loss": 1e-5,
 }
 
 
@@ -142,7 +178,9 @@ def synthetic_gallery(seed: int, n: int = 60502, ids: int = 11316,
 # -- phase 3: stem kernels ----------------------------------------------------
 
 
-def check_stem(torch, timer, detail):
+def check_stem(torch, timer, detail, batch=32, key="stem"):
+    """The forward stem kernels at ``batch`` (32: one serving bucket;
+    120: one training batch)."""
     import torch.nn.functional as F
 
     from npairloss_tpu_torch.ops import stem
@@ -153,12 +191,12 @@ def check_stem(torch, timer, detail):
         tol = TOL[f"stem_{tag}"]
         size = 4 if tag == "fp32" else 2
         for c in (64, 192):
-            shape = (32, 56, 56, c)
+            shape = (batch, 56, 56, c)
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             b = torch.randn((c,), generator=gen, device="cuda") * 0.1
             n = x.numel()
             for name, kern, plain, args, lib in (
-                    ("lrn", stem.fused_lrn, stem.lrn_plain, (x,),
+                    ("lrn", stem.lrn_fwd, stem.lrn_plain, (x,),
                      lambda: F.local_response_norm(
                          x.permute(0, 3, 1, 2), 5, 1e-4, 0.75, 1.0)),
                     ("bias_relu", stem.fused_bias_relu,
@@ -180,7 +218,7 @@ def check_stem(torch, timer, detail):
                        "library_ms": library_ms(timer, lib)}
                 rows[name].append(row)
                 log(f"[kernel] {name} {tag} {shape}: {json.dumps(row)}")
-        shape = (32, 112, 112, 64)
+        shape = (batch, 112, 112, 64)
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         b = torch.randn((64,), generator=gen, device="cuda") * 0.1
         got = stem.fused_bias_relu_pool(x, b)
@@ -199,7 +237,87 @@ def check_stem(torch, timer, detail):
                "bound_ms": bms, "bound_by": by, "library_ms": None}
         rows["bias_relu_pool"].append(row)
         log(f"[kernel] bias_relu_pool {tag} {shape}: {json.dumps(row)}")
-    detail["stem"] = rows
+    detail[key] = rows
+    return rows
+
+
+# -- phase 3b: LRN training kernels -------------------------------------------
+
+
+def check_lrn_train(torch, timer, detail):
+    """lrn_fwd_cached, lrn_bwd_cached and lrn_bwd at the training path's
+    shapes, against their plain versions; cached and recompute dx must be
+    the same bits."""
+    import torch.nn.functional as F
+
+    from npairloss_tpu_torch.ops import stem
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {"lrn_fwd_cached": [], "lrn_bwd_cached": [], "lrn_bwd": []}
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        tol = TOL["stem_fp32"] if tag == "fp32" else TOL["lrn_train_bf16"]
+        size = 4 if tag == "fp32" else 2
+        for c in (64, 192):
+            shape = (120, 56, 56, c)
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            n = x.numel()
+            out, d = stem.lrn_fwd_cached(x)
+            out_p, d_p = stem.lrn_fwd_cached_plain(x)
+            dx_c = stem.lrn_bwd_cached(x, g, d)
+            dx_r = stem.lrn_bwd(x, g)
+            dx_p = stem.lrn_bwd_plain(x, g, d_p)
+            torch.cuda.synchronize()
+            if not torch.equal(dx_c, dx_r):
+                fail(f"lrn_bwd_cached and lrn_bwd differ {tag} {shape}")
+            errs = {
+                "lrn_fwd_cached": max(
+                    (out.float() - out_p.float()).abs().max().item(),
+                    (d - d_p).abs().max().item()),
+                "lrn_bwd_cached": (dx_c.float() - dx_p.float()).abs().max()
+                .item(),
+                "lrn_bwd": (dx_r.float() - dx_p.float()).abs().max().item(),
+            }
+            for name, err in errs.items():
+                if not err <= tol:
+                    fail(f"{name} {tag} {shape}: max_abs_err {err} > {tol}")
+            # The library yardstick: F.local_response_norm forward, and its
+            # backward alone through autograd on a saved graph.
+            xl = x.detach().requires_grad_()
+            try:
+                yl = F.local_response_norm(xl.permute(0, 3, 1, 2), 5, 1e-4,
+                                           0.75, 1.0)
+                gl = g.permute(0, 3, 1, 2)
+                lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                    yl, xl, gl, retain_graph=True)
+            except (RuntimeError, NotImplementedError) as e:
+                log(f"[kernel] library LRN graph unavailable: {e}")
+                lib_bwd = None
+            lib_fwd = lambda: F.local_response_norm(  # noqa: E731
+                x.permute(0, 3, 1, 2), 5, 1e-4, 0.75, 1.0)
+            cases = (
+                ("lrn_fwd_cached", lambda: stem.lrn_fwd_cached(x),
+                 lambda: stem.lrn_fwd_cached_plain(x), n * (2 * size + 4),
+                 14 * n, lib_fwd),
+                ("lrn_bwd_cached", lambda: stem.lrn_bwd_cached(x, g, d),
+                 lambda: stem.lrn_bwd_plain(x, g, d), n * (3 * size + 4),
+                 24 * n, lib_bwd),
+                ("lrn_bwd", lambda: stem.lrn_bwd(x, g),
+                 lambda: stem.lrn_bwd_plain(x, g), n * 3 * size, 36 * n,
+                 lib_bwd),
+            )
+            for name, kern, plain, nbytes, ops, lib in cases:
+                bms, by = bound_ms(nbytes, ops, "fp32")
+                row = {"shape": list(shape), "dtype": tag,
+                       "max_abs_err": errs[name], "tol": tol,
+                       "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
+                       "bound_ms": bms, "bound_by": by,
+                       "library_ms": library_ms(timer, lib)}
+                rows[name].append(row)
+                log(f"[kernel] {name} {tag} {shape}: {json.dumps(row)}")
+            del xl, lib_bwd
+    log("[kernel] lrn_bwd_cached == lrn_bwd bit for bit at every shape")
+    detail["lrn_train"] = rows
     return rows
 
 
@@ -389,7 +507,7 @@ def drive_path(torch, seed, index, emb, detail):
             + summary["errors"] - summary["errors_refused"]
             + summary["rejected"]):
         fail(f"drain invariant broken: {summary}")
-    for name in ("fused_lrn", "fused_bias_relu", "fused_bias_relu_pool",
+    for name in ("lrn_fwd", "fused_bias_relu", "fused_bias_relu_pool",
                  "probe_topk"):
         if launches.get(name, 0) < 1:
             fail(f"kernel {name} was not launched on the path")
@@ -455,6 +573,377 @@ def drive_path(torch, seed, index, emb, detail):
     return launches, summary, qps
 
 
+# -- phase 5: the training path -----------------------------------------------
+
+
+def drive_train(torch, seed, detail):
+    """``npairloss_tpu_torch.cli train`` on the shipped GoogLeNet/CUB
+    solver, cut to 6 iterations: googlenet_pallas, batch 120 (60 x 2),
+    224x224, fp32, synthetic identity batches."""
+    import contextlib
+    import math
+    import re
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.train import solver as tsolver
+
+    work = os.path.join("build", "train_smoke")
+    os.makedirs(work, exist_ok=True)
+    text = open(os.path.join("examples", "googlenet_cub_solver.prototxt")
+                ).read()
+    for key, val in (("max_iter", 6), ("test_iter", 2), ("display", 1),
+                     ("snapshot", 0)):
+        text, n = re.subn(rf"(?m)^{key}:.*$", f"{key}: {val}", text)
+        if n != 1:
+            fail(f"solver prototxt has {n} '{key}:' lines")
+    solver_path = os.path.join(work, "solver.prototxt")
+    events_path = os.path.join(work, "events.jsonl")
+    with open(solver_path, "w") as f:
+        f.write(text)
+    if os.path.exists(events_path):
+        os.remove(events_path)
+
+    # Time each Solver.step between two synchronizes, and read the
+    # launch counters when the first step starts (after the iter-0 TEST).
+    seen = {"solver": None, "after_test": None, "ms": []}
+    orig_step = tsolver.Solver.step
+
+    def timed_step(self, inputs, labels):
+        if seen["after_test"] is None:
+            seen["after_test"] = _build.launch_counts()
+        seen["solver"] = self
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = orig_step(self, inputs, labels)
+        torch.cuda.synchronize()
+        seen["ms"].append((time.perf_counter() - t0) * 1e3)
+        return m
+
+    out = io.StringIO()
+    tsolver.Solver.step = timed_step
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["train", "--solver", solver_path, "--net",
+                           "examples/googlenet_cub.prototxt", "--model",
+                           "googlenet_pallas", "--synthetic", "--log-json",
+                           events_path, "--seed", str(seed)])
+        torch.cuda.synchronize()
+    finally:
+        tsolver.Solver.step = orig_step
+    wall = time.perf_counter() - t0
+    total = _build.launch_counts()
+    for ln in out.getvalue().splitlines():
+        log(f"[train] {ln}")
+    if rc != 0:
+        fail(f"train returned {rc}")
+    final = json.loads(out.getvalue().strip().splitlines()[-1])
+    events = [json.loads(ln) for ln in open(events_path)]
+    displays = [e for e in events if e["event"] == "display"]
+    tests = [e for e in events if e["event"] == "test"]
+    if [e["iteration"] for e in displays] != [1, 2, 3, 4, 5, 6] \
+            or [e["iteration"] for e in tests] != [0]:
+        fail(f"unexpected event stream: {[(e['event'], e['iteration']) for e in events]}")
+    for rec in events + [final]:
+        bad = {k: v for k, v in rec.items()
+               if isinstance(v, float) and not math.isfinite(v)}
+        if bad:
+            fail(f"non-finite values in {rec.get('event', 'final')}: {bad}")
+    after_test = seen["after_test"]
+    in_train = {k: total[k] - after_test[k] for k in total}
+    log(f"[train] launches during the iter-0 TEST {json.dumps(after_test)}; "
+        f"during the 6 train steps {json.dumps(in_train)}")
+    if after_test["lrn_fwd"] < 1 or after_test["lrn_fwd_cached"] != 0:
+        fail("the TEST forward did not run the uncached LRN kernel alone")
+    for name in ("lrn_fwd_cached", "lrn_bwd_cached", "fused_bias_relu",
+                 "fused_bias_relu_pool"):
+        if in_train[name] < 1:
+            fail(f"kernel {name} was not launched by the train steps")
+    solver = seen["solver"]
+    zero = [n for n, p in solver.params.items()
+            if p.grad is None or not bool((p.grad != 0).any())]
+    if zero or "conv1.Conv_0.weight" not in solver.params:
+        fail(f"parameters without a gradient after a step: {zero}")
+    # The solver keeps the host off the card inside a step (metrics stay
+    # on the device, the batch goes up asynchronously from pinned
+    # memory): one more step with PyTorch's sync debug mode at "error"
+    # raises on any synchronizing call.
+    x, lab = next(synthetic_identity_batches(240, 60, 2, (224, 224, 3),
+                                             seed=seed + 5))
+    solver.step(x, lab)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        solver.step(x, lab)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("[train] a step under torch.cuda.set_sync_debug_mode('error') made "
+        "no host sync")
+    step_ms = statistics.median(seen["ms"][1:])
+    batch = 120
+    log(f"[train] {len(solver.params)} parameters, all with a nonzero "
+        f"gradient; step ms {[round(t, 3) for t in seen['ms']]}; median "
+        f"over steps 2-6 {step_ms:.3f} ms = {batch / step_ms * 1e3:.1f} "
+        f"images/s; whole command {wall:.1f} s")
+    detail["train"] = {"final": final, "events": events,
+                       "launches_test": after_test,
+                       "launches_train": in_train, "step_ms": seen["ms"],
+                       "median_step_ms": step_ms,
+                       "images_per_s": batch / step_ms * 1e3, "wall_s": wall,
+                       "profile": profile_train_step(torch, solver, x, lab),
+                       "upload": compare_batch_upload(torch, solver, seed)}
+    return in_train, step_ms
+
+
+def compare_batch_upload(torch, solver, seed, steps=6):
+    """The solver's batch upload (pinned memory, asynchronous copy)
+    against a synchronous copy from pageable memory: median ms of
+    ``steps`` synchronized steps on the same fresh batches, in turns
+    pinned, pageable, pageable, pinned.  A measurement, not a check."""
+    import numpy as np
+
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+    from npairloss_tpu_torch.train import solver as tsolver
+
+    gen = synthetic_identity_batches(240, 60, 2, (224, 224, 3),
+                                     seed=seed + 6)
+    batches = [next(gen) for _ in range(steps)]
+
+    def pageable(self, inputs, labels):
+        return (torch.as_tensor(np.asarray(inputs), device=self.device),
+                torch.as_tensor(np.asarray(labels), device=self.device))
+
+    pinned = tsolver.Solver._put
+    out = {"pinned": [], "pageable": []}
+    try:
+        for name in ("pinned", "pageable", "pageable", "pinned"):
+            tsolver.Solver._put = pinned if name == "pinned" else pageable
+            ms = []
+            for x, lab in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                solver.step(x, lab)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out[name].append(statistics.median(ms))
+    finally:
+        tsolver.Solver._put = pinned
+    log(f"[upload] median step ms, pinned + async copy {out['pinned']} vs "
+        f"pageable + sync copy {out['pageable']}")
+    return out
+
+
+# Kernel-name patterns of a training step's device time, first match wins.
+STEP_CATEGORIES = (
+    ("stem kernels (csrc/stem.cu)", ("lrn_fwd_kernel", "lrn_bwd_kernel",
+                                     "bias_relu")),
+    ("host-device copies", ("memcpy",)),
+    ("pooling", ("pool",)),
+    ("layout transposes", ("nhwc", "nchw", "transpose")),
+    ("convolution (cuDNN)", ("conv", "xmma", "implicit", "wgrad", "dgrad",
+                             "fprop", "winograd", "fft", "cudnn")),
+    ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass")),
+)
+
+
+def profile_train_step(torch, solver, x, lab, steps=3):
+    """Where a step's device time goes: ``torch.profiler`` over ``steps``
+    more steps of the phase-5 solver on one batch, kernels grouped by
+    name.  A measurement, not a check: with no device records it says
+    'not measured'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            solver.step(x, lab)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    if not kernels:
+        log("[profile] the profiler recorded no device time: not measured")
+        return None
+    by_cat, by_name = {}, {}
+    for e in kernels:
+        ms = (e.time_range.end - e.time_range.start) / 1e3 / steps
+        name = e.name.lower()
+        cat = next((c for c, pats in STEP_CATEGORIES
+                    if any(p in name for p in pats)), "elementwise and other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    busy = sum(by_cat.values())
+    log(f"[profile] per step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall:.1f} %, idle {100 * (1 - busy / wall):.1f} %)")
+    for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+        log(f"[profile]   {cat}: {ms:.3f} ms ({100 * ms / busy:.1f} %)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    for name, ms in top:
+        log(f"[profile]   top kernel {ms:.3f} ms  {name[:110]}")
+    return {"wall_ms": wall, "busy_ms": busy, "by_category_ms": by_cat,
+            "top_kernels_ms": dict(top)}
+
+
+def _grads(torch, model, x, lab, cfg):
+    """Loss and every parameter gradient of one step's forward/backward
+    (no update)."""
+    from npairloss_tpu_torch.ops.npair_loss import npair_loss
+
+    for p in model.parameters():
+        p.grad = None
+    loss = npair_loss(model(x), lab, cfg)
+    loss.backward()
+    return loss.detach(), {n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()}
+
+
+def check_train_step(torch, seed, detail):
+    """Phase 5b: one step with the LRN cache on and off (bitwise equal
+    gradients), then the same step at batch 8 on the card and on the CPU."""
+    import numpy as np
+
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+    from npairloss_tpu_torch.models import get_model
+    from npairloss_tpu_torch.ops import _build, stem
+    from npairloss_tpu_torch.ops.npair_loss import NPairLossConfig
+
+    cfg = NPairLossConfig()  # googlenet_cub.prototxt: LOCAL/RAND both sides
+    model = get_model("googlenet_pallas", device="cuda", seed=seed,
+                      dtype=torch.float32)
+    x_np, lab_np = next(synthetic_identity_batches(240, 60, 2,
+                                                   (224, 224, 3), seed=seed))
+    x = torch.as_tensor(x_np, device="cuda")
+    lab = torch.as_tensor(lab_np, device="cuda")
+    budget = stem.LRN_CACHE_AUTO_BYTES
+    cudnn = torch.backends.cudnn
+    det, bench = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        _build.reset_launch_counts()
+        loss_c, g_c = _grads(torch, model, x, lab, cfg)
+        cached = _build.launch_counts()
+        stem.LRN_CACHE_AUTO_BYTES = 0
+        _build.reset_launch_counts()
+        loss_r, g_r = _grads(torch, model, x, lab, cfg)
+        recompute = _build.launch_counts()
+    finally:
+        stem.LRN_CACHE_AUTO_BYTES = budget
+        cudnn.deterministic, cudnn.benchmark = det, bench
+    torch.cuda.synchronize()
+    if cached["lrn_bwd_cached"] != 2 or cached["lrn_bwd"] != 0 \
+            or recompute["lrn_bwd"] != 2 or recompute["lrn_bwd_cached"] != 0:
+        fail(f"cache switch did not pick the kernels: cached {cached}, "
+             f"recompute {recompute}")
+    differ = [n for n in g_c if not torch.equal(g_c[n], g_r[n])]
+    if differ or not torch.equal(loss_c, loss_r):
+        fail(f"cached vs recompute step: gradients differ in {differ}")
+    log(f"[step] batch 120: LRN cache on and off give bit-identical loss "
+        f"and {len(g_c)} parameter gradients (lrn_bwd_cached "
+        f"{cached['lrn_bwd_cached']} vs lrn_bwd {recompute['lrn_bwd']} "
+        f"launches)")
+    del g_c, g_r
+
+    # The card's step against the CPU's.  A random BN-free GoogLeNet maps
+    # all images to nearly one embedding, so each parameter's gradient is
+    # a sum of near-equal per-image terms that cancel: measured against
+    # its OWN norm, rounding alone moves a gradient by up to a few 1e-3
+    # (the CPU's two convolution backends, oneDNN and native, already
+    # differ by 2.5e-3 on this step).  So each parameter's error is held
+    # against the norm of the whole step gradient (the scale of the
+    # update it feeds); its own-norm error is printed beside it.  Zero
+    # biases and flat-colour images (one random colour each) keep the
+    # trunk furthest from collapse (oneDNN vs native on the CPU: 1e-4 by
+    # this measure); the init's 0.2 biases on noise images put even this
+    # measure at 6e-3 card vs CPU.
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+    m_cpu = get_model("googlenet_pallas", device="cpu", seed=seed,
+                      dtype=torch.float32)
+    m_cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(seed + 11)
+    x8 = torch.as_tensor(rng.uniform(-3, 3, (8, 1, 1, 3)).astype(
+        np.float32)).expand(8, 224, 224, 3).contiguous()
+    lab8 = torch.as_tensor(np.repeat(np.arange(4), 2))
+    loss_g, g_g = _grads(torch, model, x8.cuda(), lab8.cuda(), cfg)
+    loss_h, g_h = _grads(torch, m_cpu, x8, lab8, cfg)
+    loss_rel = abs(loss_g.item() - loss_h.item()) / max(abs(loss_h.item()),
+                                                        1e-30)
+    total = torch.sqrt(sum(g.double().pow(2).sum() for g in g_h.values()))
+    diff = {n: (g_g[n].cpu() - g_h[n]).double().norm() for n in g_h}
+    grad_rel = {n: (d / total).item() for n, d in diff.items()}
+    own_rel = {n: (d / g_h[n].double().norm().clamp_min(1e-30)).item()
+               for n, d in diff.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    worst_own = max(own_rel, key=own_rel.get)
+    log(f"[step] batch 8 card vs CPU: loss {loss_g.item():.8g} vs "
+        f"{loss_h.item():.8g} (rel {loss_rel:.3g}); worst gradient error "
+        f"over the step's gradient norm {grad_rel[worst]:.3g} ({worst}); "
+        f"over its own norm {own_rel[worst_own]:.3g} ({worst_own})")
+    if not loss_rel <= TOL["step_loss_rel"] \
+            or not grad_rel[worst] <= TOL["step_grad_rel"]:
+        fail("the training step on the card disagrees with the CPU")
+    detail["train_step"] = {"cache_launches": cached,
+                            "recompute_launches": recompute,
+                            "batch8_loss_rel": loss_rel,
+                            "batch8_grad_rel_max": grad_rel[worst],
+                            "batch8_worst_param": worst,
+                            "batch8_own_rel_max": own_rel[worst_own],
+                            "batch8_worst_own_param": worst_own}
+    return recompute
+
+
+def check_reference_mining(torch, seed, detail):
+    """Phase 5c: REFERENCE_CONFIG (GLOBAL/RELATIVE_HARD AP, LOCAL/HARD
+    AN) on 120 x 1024 unit features: from the card's sims, thresholds,
+    masks and counts equal the CPU's exactly; the loss within 1e-5."""
+    import numpy as np
+
+    from npairloss_tpu_torch.ops import npair_loss as nl
+
+    rng = np.random.default_rng(seed + 7)
+    feats = rng.standard_normal((120, 1024)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    labels = rng.permutation(np.repeat(np.arange(60), 2)).astype(np.int64)
+    cfg = nl.REFERENCE_CONFIG
+    f_g = torch.as_tensor(feats, device="cuda")
+    l_g = torch.as_tensor(labels, device="cuda")
+    sims_g = f_g @ f_g.T
+
+    def mine(sims, lab):
+        same, diff = nl.pair_masks(lab, lab, 0, lab.shape[0])
+        pos, neg, mx = nl.mining_thresholds(sims, same, diff, cfg)
+        sel = nl.selection_mask(sims, same, diff, pos, neg, cfg)
+        return {"same": same, "diff": diff, "pos_thr": pos, "neg_thr": neg,
+                "max_all": mx, "sel": sel,
+                "ident_num": (same & sel).sum(1), "diff_num": (diff & sel).sum(1)}
+
+    got = mine(sims_g, l_g)
+    want = mine(sims_g.cpu(), l_g.cpu())
+    differ = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
+    if differ:
+        fail(f"REFERENCE_CONFIG mining differs card vs CPU in {differ}")
+    loss_g = nl.npair_loss(f_g, l_g, cfg).item()
+    loss_h = nl.npair_loss(torch.as_tensor(feats), torch.as_tensor(labels),
+                           cfg).item()
+    log(f"[mining] REFERENCE_CONFIG from the card's sims: thresholds, masks "
+        f"and counts equal the CPU's ({int(got['ident_num'].sum())} "
+        f"positive, {int(got['diff_num'].sum())} negative pairs); loss "
+        f"{loss_g:.8g} vs CPU {loss_h:.8g}")
+    if not abs(loss_g - loss_h) <= TOL["mining_loss"]:
+        fail(f"REFERENCE_CONFIG loss differs: {loss_g} vs {loss_h}")
+    detail["reference_mining"] = {"loss_gpu": loss_g, "loss_cpu": loss_h,
+                                  "pairs_pos": int(got["ident_num"].sum()),
+                                  "pairs_neg": int(got["diff_num"].sum())}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -504,12 +993,19 @@ def main() -> int:
     pick = torch.randperm(emb.shape[0], generator=rng_rows)[:32].numpy()
     check_probe_odd_dim(torch, detail)
     probe_rows = check_probe(torch, timer, index, emb[pick], detail)
+    train_rows = check_lrn_train(torch, timer, detail)
+    check_stem(torch, timer, detail, batch=120, key="stem_train")
     del timer
     launches, summary, qps = drive_path(torch, args.seed, index, emb, detail)
+    del index
+    train_launches, _ = drive_train(torch, args.seed, detail)
+    recompute_launches = check_train_step(torch, args.seed, detail)
+    check_reference_mining(torch, args.seed, detail)
 
-    def entry(name, source, replaces, rows, counter):
+    def entry(name, source, replaces, rows, counter, path=None):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[counter],
+                "replaces": replaces,
+                "launches": (path or launches)[counter],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": sum(r["ms"] for r in rows),
                 "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -521,12 +1017,16 @@ def main() -> int:
 
     # One entry per kernel at the path's own calls: bf16 stem shapes for
     # one 32-image encode (LRN and bias+ReLU run twice each), the fp32
-    # probe for one 32-query bucket.
+    # probe for one 32-query bucket; the LRN training kernels at one fp32
+    # batch-120 training step (both LRN sites), with the launches of the
+    # phase-5 train steps (lrn_bwd: of the phase-5b step with the cache
+    # budget at 0, the path's recompute configuration).
     path_bf16 = lambda rows: [r for r in rows if r["dtype"] == "bf16"]  # noqa: E731
+    path_fp32 = lambda rows: [r for r in rows if r["dtype"] == "fp32"]  # noqa: E731
     kernels = [
         entry("lrn_fwd", "npairloss_tpu_torch/csrc/stem.cu",
               "npairloss_tpu/ops/pallas_stem.py:121",
-              path_bf16(stem_rows["lrn"]), "fused_lrn"),
+              path_bf16(stem_rows["lrn"]), "lrn_fwd"),
         entry("bias_relu", "npairloss_tpu_torch/csrc/stem.cu",
               "npairloss_tpu/ops/pallas_stem.py:308",
               path_bf16(stem_rows["bias_relu"]), "fused_bias_relu"),
@@ -537,7 +1037,22 @@ def main() -> int:
         entry("ivf_probe", "npairloss_tpu_torch/csrc/ivf_probe.cu",
               "npairloss_tpu/ops/pallas_ivf.py:110",
               [probe_rows["fp32"]], "probe_topk"),
+        entry("lrn_fwd_cached", "npairloss_tpu_torch/csrc/stem.cu",
+              "npairloss_tpu/ops/pallas_stem.py:128",
+              path_fp32(train_rows["lrn_fwd_cached"]), "lrn_fwd_cached",
+              train_launches),
+        entry("lrn_bwd", "npairloss_tpu_torch/csrc/stem.cu",
+              "npairloss_tpu/ops/pallas_stem.py:136",
+              path_fp32(train_rows["lrn_bwd"]), "lrn_bwd",
+              recompute_launches),
+        entry("lrn_bwd_cached", "npairloss_tpu_torch/csrc/stem.cu",
+              "npairloss_tpu/ops/pallas_stem.py:151",
+              path_fp32(train_rows["lrn_bwd_cached"]), "lrn_bwd_cached",
+              train_launches),
     ]
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        fail(f"kernels not launched on their path: {idle}")
     detail["kernels"] = kernels
     detail["seconds"] = time.perf_counter() - t_start
     try:

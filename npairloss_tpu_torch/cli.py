@@ -1,15 +1,19 @@
-"""``python -m npairloss_tpu_torch index|serve`` — the port's CLI.
+"""``python -m npairloss_tpu_torch index|serve|train`` — the port's CLI.
 
 Flag names follow ``npairloss_tpu``'s CLI for the ported subset; the
 port adds ``--device`` (default: the card; ``cpu`` to run without one),
 ``--weights`` (a flattened flax param tree as ``.npz``, see
 ``models/convert.py``) and ``--seed`` (the k-means seed, and the trunk's
-initialization when no weights are given).
+initialization when no weights are given).  A flag of the JAX CLI that
+is not ported is refused by argparse, never accepted and ignored.
 
   index: build a flat or IVF ``PREFIX.gidx`` from ``PREFIX.emb.npy`` +
          ``PREFIX.labels.npy``;
   serve: load a ``.gidx`` and answer JSONL queries on stdin until EOF,
-         ending with a ``serve_drain`` summary line.
+         ending with a ``serve_drain`` summary line;
+  train: the Caffe solver loop from a solver prototxt on synthetic
+         identity batches (``--synthetic``), with the JAX CLI's display
+         lines, ``--log-json`` events and final JSON line.
 """
 
 from __future__ import annotations
@@ -98,6 +102,104 @@ def cmd_serve(args) -> int:
     return server.run_jsonl(sys.stdin, sys.stdout)
 
 
+def _resolve_net_path(args, net_path: Optional[str]) -> Optional[str]:
+    """``--net``, else the solver's ``net:`` — relative to the CWD as
+    Caffe resolves it, then relative to the solver file."""
+    if args.net:
+        return args.net
+    if net_path and not os.path.isabs(net_path) \
+            and not os.path.exists(net_path):
+        cand = os.path.join(os.path.dirname(args.solver), net_path)
+        if os.path.exists(cand):
+            return cand
+    return net_path
+
+
+def cmd_train(args) -> int:
+    import dataclasses
+
+    import torch
+
+    from npairloss_tpu_torch.config.schema import load_net, load_solver
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+    from npairloss_tpu_torch.device import resolve_device
+    from npairloss_tpu_torch.models import get_model, model_for_net
+    from npairloss_tpu_torch.ops.npair_loss import NPairLossConfig
+    from npairloss_tpu_torch.train.solver import Solver, snapshot_refusal
+
+    solver_cfg, net_path = load_solver(args.solver)
+    net_path = _resolve_net_path(args, net_path)
+    if not net_path or not os.path.exists(net_path):
+        log.error("net prototxt not found (tried %r); pass --net", net_path)
+        return 2
+    net_cfg = load_net(net_path)
+    if args.max_iter is not None:
+        solver_cfg = dataclasses.replace(solver_cfg, max_iter=args.max_iter)
+    refusal = snapshot_refusal(solver_cfg, solver_cfg.max_iter)
+    if refusal:
+        log.error("%s", refusal)
+        return 2
+    if net_cfg.param_mults_conflict:
+        log.error("%s", net_cfg.param_mults_conflict)
+        return 2
+    if not args.synthetic:
+        log.error("only --synthetic data is ported so far: the list-file "
+                  "loader is ROADMAP Queue 1 item 4")
+        return 2
+    d_train = net_cfg.data.get("TRAIN")
+    if d_train is None:
+        log.error("net %s has no TRAIN MultibatchData layer", net_path)
+        return 2
+
+    # Input side from the TRAIN layer's crop, else the TEST layer's.
+    crop = 0
+    for phase in ("TRAIN", "TEST"):
+        d = net_cfg.data.get(phase)
+        if d is not None and d.transform.crop_size:
+            crop = d.transform.crop_size
+            break
+    input_shape = (crop or 224,) * 2 + (3,)
+
+    device = resolve_device(args.device)
+    seed = solver_cfg.random_seed if args.seed is None else args.seed
+    model = get_model(args.model or model_for_net(net_cfg), device=device,
+                      seed=seed, input_shape=input_shape,
+                      dtype=torch.bfloat16 if args.bf16 else torch.float32)
+    solver = Solver(
+        model, net_cfg.loss.loss if net_cfg.loss else NPairLossConfig(),
+        solver_cfg, param_mults=net_cfg.param_mults,
+        loss_weight=(net_cfg.loss.loss_weights[0]
+                     if net_cfg.loss and net_cfg.loss.loss_weights else 1.0))
+
+    def batches(d, seed):
+        if d is None:
+            return None
+        ids = d.identity_num_per_batch or max(2, (d.batch_size or 8) // 2)
+        imgs = d.img_num_per_identity or 2
+        return synthetic_identity_batches(ids * 4, ids, imgs, input_shape,
+                                          seed=seed)
+
+    record_fn, log_file = None, None
+    if args.log_json:
+        parent = os.path.dirname(os.path.abspath(args.log_json))
+        os.makedirs(parent, exist_ok=True)
+        log_file = open(args.log_json, "a", buffering=1)
+
+        def record_fn(rec):
+            log_file.write(json.dumps(rec, default=str) + "\n")
+
+    try:
+        final = solver.train(batches(d_train, 0),
+                             test_batches=batches(net_cfg.data.get("TEST"), 1),
+                             log_fn=lambda s: print(s, flush=True),
+                             record_fn=record_fn)
+    finally:
+        if log_file is not None:
+            log_file.close()
+    print(json.dumps({k: float(v) for k, v in final.items()}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="npairloss_tpu_torch", description=__doc__,
@@ -145,6 +247,27 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--max-queue", dest="max_queue", type=int, default=256)
     common(sv)
     sv.set_defaults(fn=cmd_serve)
+
+    tr = sub.add_parser("train", help="train from a solver prototxt")
+    tr.add_argument("--solver", required=True)
+    tr.add_argument("--net", help="override the solver's net path")
+    tr.add_argument("--model", help="model registry name (default: from "
+                    "the net's name)")
+    tr.add_argument("--max_iter", type=int, help="override solver max_iter")
+    tr.add_argument("--bf16", action="store_true",
+                    help="bf16 compute over fp32 params (default fp32)")
+    tr.add_argument("--synthetic", action="store_true",
+                    help="synthetic identity-balanced batches (required: "
+                    "the list-file loader is not ported yet)")
+    tr.add_argument("--log-json", dest="log_json", metavar="PATH",
+                    help="append one JSON record per display/test event")
+    tr.add_argument("--device", default=None,
+                    help="torch device (default: cuda; raises without a "
+                    "card unless 'cpu' is asked for)")
+    tr.add_argument("--seed", type=int, default=None,
+                    help="trunk init seed (default: the solver's "
+                    "random_seed)")
+    tr.set_defaults(fn=cmd_train)
     return p
 
 

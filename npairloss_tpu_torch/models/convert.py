@@ -8,7 +8,8 @@ HWIO kernels; the port's modules carry the same names, so
 stem (7x7 vs space-to-depth 4x4) and the inception 1x1s (three convs vs
 one fused conv); :func:`adapt_params` converts between them with numpy
 copies of the JAX package's ``conv1_kernel_to_s2d`` and
-``fuse_inception_1x1_params``.
+``fuse_inception_1x1_params``.  The MLP's ``Dense`` kernels are (in,
+out) in flax and (out, in) as ``nn.Linear`` weights.
 
 A weights file (``serve --weights W.npz``) is the flattened tree: one
 array per ``"/"``-joined path.
@@ -27,7 +28,8 @@ from npairloss_tpu_torch.models.layers import conv1_kernel_to_s2d
 __all__ = [
     "adapt_params", "conv1_kernel_to_s2d", "flatten_params",
     "from_jax_params", "fuse_inception_1x1_params", "load_jax_params",
-    "load_weights_npz", "save_weights_npz", "unflatten_params",
+    "load_weights_npz", "save_weights_npz", "to_jax_params",
+    "unflatten_params",
 ]
 
 
@@ -110,11 +112,14 @@ def from_jax_params(params: Mapping[str, Any]) -> "collections.OrderedDict":
         base = ".".join(parts[:-1])
         a = np.asarray(arr, np.float32)
         if leaf == "kernel":
-            if a.ndim != 4:
-                raise ValueError(f"{path}: expected an HWIO kernel, got "
-                                 f"{a.shape}")
-            sd[f"{base}.weight"] = torch.from_numpy(
-                np.ascontiguousarray(a.transpose(3, 2, 0, 1)))
+            if a.ndim == 4:    # conv: HWIO -> OIHW
+                a = a.transpose(3, 2, 0, 1)
+            elif a.ndim == 2:  # Dense: (in, out) -> Linear (out, in)
+                a = a.T
+            else:
+                raise ValueError(f"{path}: expected an HWIO or (in, out) "
+                                 f"kernel, got {a.shape}")
+            sd[f"{base}.weight"] = torch.from_numpy(np.ascontiguousarray(a))
         elif leaf == "bias":
             sd[f"{base}.bias"] = torch.from_numpy(a.copy())
         else:
@@ -124,11 +129,28 @@ def from_jax_params(params: Mapping[str, Any]) -> "collections.OrderedDict":
 
 def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any]
                     ) -> torch.nn.Module:
-    """Load a flax tree (any trunk layout) into ``model`` in place."""
-    tree = adapt_params(params, getattr(model, "stem_s2d", False),
-                        getattr(model, "fuse_1x1", False))
+    """Load a flax tree (any GoogLeNet layout, or the MLP's) into
+    ``model`` in place."""
+    tree = params
+    if hasattr(model, "stem_s2d"):
+        tree = adapt_params(params, model.stem_s2d, model.fuse_1x1)
     model.load_state_dict(from_jax_params(tree), strict=True)
     return model
+
+
+def to_jax_params(model: torch.nn.Module) -> Dict[str, Any]:
+    """The inverse of :func:`from_jax_params` for the model's own layout:
+    a flax-style tree with numpy leaves (OIHW -> HWIO, Linear -> (in,
+    out))."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, t in model.state_dict().items():
+        path, leaf = key.rsplit(".", 1)
+        a = t.detach().float().cpu().numpy()
+        if leaf == "weight":
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            leaf = "kernel"
+        flat[path.replace(".", "/") + "/" + leaf] = np.ascontiguousarray(a)
+    return unflatten_params(flat)
 
 
 def load_weights_npz(model: torch.nn.Module, path: str) -> torch.nn.Module:

@@ -6,6 +6,10 @@ Input NHWC images (224x224x3 canonical), output the 1024-d pool5
 feature, L2-normalized when ``normalize``.  Module and attribute names
 follow the flax parameter tree (``conv1``, ``inception_3a.b1x1``, ...,
 each conv at ``Conv_0``) so :mod:`.convert` maps weights across by path.
+
+The trunk has no dropout and no batch norm, so training and inference
+run the same forward; under autograd the ``pallas_stem`` trunk's
+gradients flow through the stem kernels' backward (``ops/stem.py``).
 """
 
 from __future__ import annotations

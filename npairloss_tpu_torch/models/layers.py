@@ -31,12 +31,15 @@ Padding = Union[str, Sequence[Tuple[int, int]]]
 
 def local_response_norm(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
                         beta: float = 0.75, k: float = 1.0,
-                        fused: bool = False) -> torch.Tensor:
+                        fused: bool = False,
+                        cache: Optional[bool] = None) -> torch.Tensor:
     """Across-channel LRN (Caffe semantics, NHWC).  ``fused=True`` routes
-    through the stem kernel (``ops.stem.fused_lrn``); the default is the
-    plain reference."""
+    through the stem kernels (``ops.stem.fused_lrn``, forward and
+    backward); ``cache`` is their denominator-cache knob (None = auto by
+    size).  The default is the plain reference, which autograd
+    differentiates."""
     if fused:
-        return fused_lrn(x.contiguous(), size, alpha, beta, k)
+        return fused_lrn(x, size, alpha, beta, k, cache=cache)
     return lrn_plain(x, size, alpha, beta, k)
 
 
@@ -72,9 +75,10 @@ class ConvBlock(nn.Module):
     ``Conv_0`` like the flax module's, so weights carry across by name.
 
     ``fused_epilogue`` runs the conv without bias and hands the bias +
-    ReLU to the stem kernel; ``fuse_pool=(window, stride)`` folds the
-    following SAME max-pool into the same kernel (the caller then skips
-    its own pool)."""
+    ReLU to the stem kernel's autograd Function (gradients reach the
+    conv's weight and bias through its backward); ``fuse_pool=(window,
+    stride)`` folds the following SAME max-pool into the same kernel (the
+    caller then skips its own pool)."""
 
     def __init__(self, in_features: int, features: int,
                  kernel: Tuple[int, int], strides: Tuple[int, int] = (1, 1),

@@ -49,6 +49,9 @@ _F = ctypes.c_float
 # c_void_p, so ctypes never truncates a 64-bit address).
 _SIGNATURES = {
     "npl_lrn_fwd": [_VP, _VP, _LL, _I, _I, _F, _F, _F, _I, _VP],
+    "npl_lrn_fwd_cached": [_VP, _VP, _VP, _LL, _I, _I, _F, _F, _F, _I, _VP],
+    "npl_lrn_bwd": [_VP, _VP, _VP, _VP, _LL, _I, _I, _F, _F, _F, _F, _I,
+                    _VP],
     "npl_bias_relu": [_VP, _VP, _VP, _LL, _I, _I, _VP],
     "npl_bias_relu_pool": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _VP],

@@ -1,21 +1,29 @@
-"""GoogLeNet stem kernels: LRN forward, bias + ReLU, bias + ReLU + pool.
+"""GoogLeNet stem kernels: LRN forward and backward (with the denominator
+cache), bias + ReLU, bias + ReLU + pool.
 
-Port of ``npairloss_tpu/ops/pallas_stem.py`` (forward kernels only; the
-LRN backward and its denominator cache belong to the training slice).
-Each public function is the kernel's wrapper: on a CPU tensor it runs
-the plain PyTorch version beside it, on a CUDA tensor it launches the
-hand-written kernel in ``csrc/stem.cu`` or raises — it never falls back.
-All tensors are NHWC (channels last), as in the JAX package.
+Port of ``npairloss_tpu/ops/pallas_stem.py``.  Two layers:
 
-The plain versions repeat the kernels' arithmetic (fp32 math, one
-rounding to the input's type on the store, the same window-sum order),
-so the CPU tests hold them against the JAX package and ``chip_smoke.py``
-holds the kernels against them on the card.
+* Kernel wrappers (``lrn_fwd``, ``lrn_fwd_cached``, ``lrn_bwd``,
+  ``lrn_bwd_cached`` and the forward launches inside ``fused_bias_relu``
+  and ``fused_bias_relu_pool``): on a CPU tensor they run the plain
+  PyTorch version beside them, on a CUDA tensor they launch the
+  hand-written kernel in ``csrc/stem.cu`` or raise — never a fallback.
+  Each carries a ``launches`` counter, bumped where its kernel launches.
+* The differentiable ops ``fused_lrn``, ``fused_bias_relu`` and
+  ``fused_bias_relu_pool``: ``torch.autograd.Function``s (the JAX
+  ``custom_vjp``s) whose forward and backward call the wrappers above,
+  so the CPU tests run the same Functions the card runs.
+
+All tensors are NHWC (channels last), as in the JAX package.  The plain
+versions repeat the kernels' arithmetic (fp32 math, one rounding to the
+input's type on the store, the same window-sum order, no fused
+multiply-add), so the CPU tests hold them against the JAX package and
+``chip_smoke.py`` holds the kernels against them on the card.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +32,17 @@ import torch.nn.functional as F
 from npairloss_tpu_torch.ops._build import check, counted, library, stream_ptr
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# fp32 bytes of the LRN denominator below which a grad-enabled forward
+# caches it for the backward (``cache=None``).  The port budgets its own
+# unpadded ``d`` (``x.numel() * 4``); the JAX package budgets the TPU's
+# 128-lane padded tensor.  The cached and recompute paths give the same
+# bits, so where the switch sits changes no result, only memory and time.
+# Read at every call: setting it to 0 forces the recompute backward.
+LRN_CACHE_AUTO_BYTES = 2 << 30
+
+_LRN_MAX_C = 8192       # the forward kernels' channel tile
+_LRN_BWD_MAX_C = 4096   # the backward kernels stage two fp32 tiles
 
 
 def _f32(v: float) -> float:
@@ -56,13 +75,39 @@ def _check_cuda(what: str, x: torch.Tensor, *others: torch.Tensor) -> int:
     return _DTYPES[x.dtype]
 
 
+def _check_same(what: str, x: torch.Tensor, *others: torch.Tensor) -> None:
+    for o in others:
+        if o.shape != x.shape or not o.is_contiguous():
+            raise ValueError(f"{what}: operand of shape {tuple(o.shape)} "
+                             f"must be contiguous and match {tuple(x.shape)}")
+
+
 def _bias_f32(bias: torch.Tensor, c: int, device) -> torch.Tensor:
     if bias.shape != (c,):
         raise ValueError(f"bias shape {tuple(bias.shape)} != ({c},)")
     return bias.to(device=device, dtype=torch.float32).contiguous()
 
 
-# -- LRN ----------------------------------------------------------------------
+# -- LRN: plain versions --------------------------------------------------------
+
+
+def _win_sum(v: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Channel-window sum with zero fill, ``out[..., i] = sum_{o=-lo..hi}
+    v[..., i+o]``, lowest offset first (the Pallas ``_win_sum`` order)."""
+    c = v.shape[-1]
+    vp = F.pad(v, (lo, hi))
+    out = vp[..., 0:c]
+    for o in range(1, lo + hi + 1):
+        out = out + vp[..., o:o + c]
+    return out
+
+
+def _denominator(xf: torch.Tensor, size: int, alpha: float,
+                 k: float) -> torch.Tensor:
+    """fp32 ``d = k + alpha/size * W(x^2)``, lo = size//2,
+    hi = size-1-size//2."""
+    win = _win_sum(xf * xf, size // 2, size - 1 - size // 2)
+    return _f32(k) + _f32(alpha / size) * win
 
 
 def _pow_neg_beta(d: torch.Tensor, beta: float) -> torch.Tensor:
@@ -75,40 +120,174 @@ def _pow_neg_beta(d: torch.Tensor, beta: float) -> torch.Tensor:
 def lrn_plain(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
               beta: float = 0.75, k: float = 1.0) -> torch.Tensor:
     """Caffe across-channel LRN over the last axis: ``x * (k + alpha/size
-    * W(x^2))^-beta``, the window W zero-filled with lo = size//2,
-    hi = size-1-size//2; the window sum runs lowest offset first."""
+    * W(x^2))^-beta``."""
+    return lrn_fwd_cached_plain(x, size, alpha, beta, k)[0]
+
+
+def lrn_fwd_cached_plain(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
+                         beta: float = 0.75, k: float = 1.0
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(LRN output in x's type, fp32 denominator d)."""
     xf = x.float()
-    c = xf.shape[-1]
-    lo, hi = size // 2, size - 1 - size // 2
-    sqp = F.pad(xf * xf, (lo, hi))
-    win = sqp[..., 0:c]
-    for o in range(1, lo + hi + 1):
-        win = win + sqp[..., o:o + c]
-    d = _f32(k) + _f32(alpha / size) * win
-    return (xf * _pow_neg_beta(d, beta)).to(x.dtype)
+    d = _denominator(xf, size, alpha, k)
+    return (xf * _pow_neg_beta(d, beta)).to(x.dtype), d
+
+
+def lrn_bwd_plain(x: torch.Tensor, g: torch.Tensor,
+                  d: Optional[torch.Tensor] = None, size: int = 5,
+                  alpha: float = 1e-4, beta: float = 0.75,
+                  k: float = 1.0) -> torch.Tensor:
+    """Analytic LRN dx (pallas_stem.py:136-162): with f = d^-beta,
+    ``dx = g f - (2 alpha beta / size) x W^T(g x f / d)``, W^T the window
+    with lo and hi swapped.  ``d=None`` recomputes the denominator with
+    the forward's own function, so both ways give the same bits."""
+    xf = x.float()
+    gf = g.to(x.dtype).float()
+    if d is None:
+        d = _denominator(xf, size, alpha, k)
+    f = _pow_neg_beta(d, beta)
+    t = _win_sum(gf * xf * (f / d), size - 1 - size // 2, size // 2)
+    return (gf * f - _f32(2.0 * alpha / size * beta) * xf * t).to(x.dtype)
+
+
+# -- LRN: kernel wrappers -------------------------------------------------------
+
+
+def _lrn_rows(what: str, x: torch.Tensor, max_c: int) -> Tuple[int, int]:
+    c = int(x.shape[-1])
+    if c > max_c:
+        raise ValueError(f"{what}: {c} channels exceed the kernel's "
+                         f"{max_c}-channel tile")
+    return x.numel() // max(c, 1), c
 
 
 @counted
-def fused_lrn(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
-              beta: float = 0.75, k: float = 1.0) -> torch.Tensor:
-    """Across-channel LRN (NHWC) — the kernel on CUDA, the plain version
-    on the CPU."""
+def lrn_fwd(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
+            beta: float = 0.75, k: float = 1.0) -> torch.Tensor:
+    """The uncached LRN forward kernel (primal and no-grad forwards)."""
     if x.device.type == "cpu":
         return lrn_plain(x, size, alpha, beta, k)
-    code = _check_cuda("fused_lrn", x)
-    c = int(x.shape[-1])
-    if c > 8192:
-        raise ValueError(f"fused_lrn: {c} channels exceed the kernel's "
-                         "8192-channel tile")
+    code = _check_cuda("lrn_fwd", x)
+    rows, c = _lrn_rows("lrn_fwd", x, _LRN_MAX_C)
     out = torch.empty_like(x)
-    rows = x.numel() // c
     err = library().npl_lrn_fwd(
         x.data_ptr(), out.data_ptr(), rows, c, int(size),
         _f32(alpha / size), float(beta), float(k), code,
         stream_ptr(x.device))
-    check(err, "fused_lrn")
-    fused_lrn.launches += 1
+    check(err, "lrn_fwd")
+    lrn_fwd.launches += 1
     return out
+
+
+@counted
+def lrn_fwd_cached(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
+                   beta: float = 0.75, k: float = 1.0
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LRN forward that also returns the fp32 denominator d."""
+    if x.device.type == "cpu":
+        return lrn_fwd_cached_plain(x, size, alpha, beta, k)
+    code = _check_cuda("lrn_fwd_cached", x)
+    rows, c = _lrn_rows("lrn_fwd_cached", x, _LRN_MAX_C)
+    out = torch.empty_like(x)
+    d = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    err = library().npl_lrn_fwd_cached(
+        x.data_ptr(), out.data_ptr(), d.data_ptr(), rows, c, int(size),
+        _f32(alpha / size), float(beta), float(k), code,
+        stream_ptr(x.device))
+    check(err, "lrn_fwd_cached")
+    lrn_fwd_cached.launches += 1
+    return out, d
+
+
+def _launch_lrn_bwd(what: str, x, g, d, size, alpha, beta, k):
+    code = _check_cuda(what, x, g, *(() if d is None else (d,)))
+    _check_same(what, x, g, *(() if d is None else (d,)))
+    if g.dtype != x.dtype or (d is not None and d.dtype != torch.float32):
+        raise TypeError(f"{what}: g must be {x.dtype} and d float32")
+    rows, c = _lrn_rows(what, x, _LRN_BWD_MAX_C)
+    dx = torch.empty_like(x)
+    err = library().npl_lrn_bwd(
+        x.data_ptr(), g.data_ptr(), None if d is None else d.data_ptr(),
+        dx.data_ptr(), rows, c, int(size), _f32(alpha / size), float(beta),
+        float(k), _f32(2.0 * alpha / size * beta), code, stream_ptr(x.device))
+    check(err, what)
+    return dx
+
+
+@counted
+def lrn_bwd(x: torch.Tensor, g: torch.Tensor, size: int = 5,
+            alpha: float = 1e-4, beta: float = 0.75,
+            k: float = 1.0) -> torch.Tensor:
+    """LRN dx from (x, g), recomputing the denominator."""
+    if x.device.type == "cpu":
+        return lrn_bwd_plain(x, g, None, size, alpha, beta, k)
+    dx = _launch_lrn_bwd("lrn_bwd", x, g, None, size, alpha, beta, k)
+    lrn_bwd.launches += 1
+    return dx
+
+
+@counted
+def lrn_bwd_cached(x: torch.Tensor, g: torch.Tensor, d: torch.Tensor,
+                   size: int = 5, alpha: float = 1e-4, beta: float = 0.75,
+                   k: float = 1.0) -> torch.Tensor:
+    """LRN dx from (x, g) and the forward's cached denominator d."""
+    if x.device.type == "cpu":
+        return lrn_bwd_plain(x, g, d, size, alpha, beta, k)
+    dx = _launch_lrn_bwd("lrn_bwd_cached", x, g, d, size, alpha, beta, k)
+    lrn_bwd_cached.launches += 1
+    return dx
+
+
+# -- LRN: the differentiable op --------------------------------------------------
+
+
+def resolve_lrn_cache_auto(nbytes: int, cache: Optional[bool]) -> bool:
+    """Explicit ``cache`` wins; None = cache when the fp32 denominator
+    fits ``LRN_CACHE_AUTO_BYTES``."""
+    if cache is not None:
+        return bool(cache)
+    return nbytes <= LRN_CACHE_AUTO_BYTES
+
+
+class _LRN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, size, alpha, beta, k, cached):
+        ctx.params = (size, alpha, beta, k)
+        if cached:
+            out, d = lrn_fwd_cached(x, size, alpha, beta, k)
+            ctx.save_for_backward(x, d)
+        else:
+            out = lrn_fwd(x, size, alpha, beta, k)
+            ctx.save_for_backward(x)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        x = saved[0]
+        g = g.to(x.dtype).contiguous()
+        if len(saved) == 2:
+            dx = lrn_bwd_cached(x, g, saved[1], *ctx.params)
+        else:
+            dx = lrn_bwd(x, g, *ctx.params)
+        return dx, None, None, None, None, None
+
+
+def fused_lrn(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
+              beta: float = 0.75, k: float = 1.0,
+              cache: Optional[bool] = None) -> torch.Tensor:
+    """Across-channel LRN (NHWC), differentiable.  A forward that records
+    no graph (``no_grad``, or an input that needs no grad) launches the
+    uncached kernel, as the JAX primal does (pallas_stem.py:244-250).
+    With a graph, ``cache`` (None = auto by ``LRN_CACHE_AUTO_BYTES``)
+    picks the cached forward + ``lrn_bwd_cached`` or the uncached forward
+    + the recomputing ``lrn_bwd``, which saves only x."""
+    x = x.contiguous()
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return lrn_fwd(x, size, alpha, beta, k)
+    cached = resolve_lrn_cache_auto(x.numel() * 4, cache)
+    return _LRN.apply(x, int(size), float(alpha), float(beta), float(k),
+                      cached)
 
 
 # -- bias + ReLU --------------------------------------------------------------
@@ -119,10 +298,7 @@ def bias_relu_plain(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(y, 0.0).to(x.dtype)
 
 
-@counted
-def fused_bias_relu(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Conv epilogue ``relu(x + bias)``, bias broadcast over the last
-    axis, fp32 math stored in x's type."""
+def _bias_relu_fwd(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return bias_relu_plain(x, bias)
     code = _check_cuda("fused_bias_relu", x, bias)
@@ -135,6 +311,35 @@ def fused_bias_relu(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     check(err, "fused_bias_relu")
     fused_bias_relu.launches += 1
     return out
+
+
+class _BiasReLU(torch.autograd.Function):
+    """Backward as the JAX VJP (pallas_stem.py:343-355): the output's
+    sign is the mask (strict ``> 0``), db summed in fp32 and cast to the
+    bias's type."""
+
+    @staticmethod
+    def forward(ctx, x, bias):
+        out = _bias_relu_fwd(x, bias)
+        ctx.save_for_backward(out)
+        ctx.bias_dtype = bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        dx = torch.where(out > 0, g, torch.zeros((), dtype=g.dtype,
+                                                 device=g.device))
+        db = dx.float().sum(dim=tuple(range(g.dim() - 1)))
+        return dx, db.to(ctx.bias_dtype)
+
+
+@counted
+def fused_bias_relu(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Conv epilogue ``relu(x + bias)``, bias broadcast over the last
+    axis, fp32 math stored in x's type; differentiable.  ``launches``
+    counts its forward kernel."""
+    return _BiasReLU.apply(x.contiguous(), bias)
 
 
 # -- bias + ReLU + max-pool ---------------------------------------------------
@@ -158,11 +363,25 @@ def bias_relu_pool_plain(x: torch.Tensor, bias: torch.Tensor,
     return m.to(x.dtype)
 
 
-@counted
-def fused_bias_relu_pool(x: torch.Tensor, bias: torch.Tensor,
-                         window: int = 3, stride: int = 2) -> torch.Tensor:
-    """Stem epilogue ``max_pool(relu(x + bias))`` (SAME, NHWC) in one
-    pass: the pre-pool activation never reaches device memory."""
+def bias_relu_pool_reference(x: torch.Tensor, bias: torch.Tensor,
+                             window: int = 3, stride: int = 2
+                             ) -> torch.Tensor:
+    """The backward's recompute, differentiable as XLA's reference
+    (pallas_stem.py:406-413): ``maximum(x + bias, 0)`` (a tie at 0 splits
+    the gradient, as ``jnp.maximum`` does) and a -inf padded max-pool
+    whose gradient goes to the first maximal tap of each window
+    (``F.max_pool2d`` and XLA's select-and-scatter agree)."""
+    _, h, w, _ = x.shape
+    _, ph_lo, ph_hi = same_pads(h, window, stride)
+    _, pw_lo, pw_hi = same_pads(w, window, stride)
+    y = x.float() + bias.float()
+    y = torch.maximum(y, torch.zeros((), dtype=y.dtype, device=y.device))
+    yp = F.pad(y, (0, 0, pw_lo, pw_hi, ph_lo, ph_hi), value=float("-inf"))
+    out = F.max_pool2d(yp.permute(0, 3, 1, 2), window, stride)
+    return out.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def _bias_relu_pool_fwd(x, bias, window, stride):
     if x.device.type == "cpu":
         return bias_relu_pool_plain(x, bias, window, stride)
     code = _check_cuda("fused_bias_relu_pool", x, bias)
@@ -180,3 +399,36 @@ def fused_bias_relu_pool(x: torch.Tensor, bias: torch.Tensor,
     check(err, "fused_bias_relu_pool")
     fused_bias_relu_pool.launches += 1
     return out
+
+
+class _BiasReLUPool(torch.autograd.Function):
+    """Backward: one recompute through ``bias_relu_pool_reference`` and
+    its autograd, as the JAX VJP recomputes through XLA
+    (pallas_stem.py:446-458) — not through the plain version's chain of
+    ``torch.maximum`` taps, which would split a tied window's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, bias, window, stride):
+        ctx.save_for_backward(x, bias)
+        ctx.geom = (window, stride)
+        return _bias_relu_pool_fwd(x, bias, window, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_()
+            br = bias.detach().requires_grad_()
+            out = bias_relu_pool_reference(xr, br, *ctx.geom)
+            dx, db = torch.autograd.grad(out, (xr, br), g)
+        return dx, db.to(bias.dtype), None, None
+
+
+@counted
+def fused_bias_relu_pool(x: torch.Tensor, bias: torch.Tensor,
+                         window: int = 3, stride: int = 2) -> torch.Tensor:
+    """Stem epilogue ``max_pool(relu(x + bias))`` (SAME, NHWC) in one
+    pass — the pre-pool activation never reaches device memory;
+    differentiable.  ``launches`` counts its forward kernel."""
+    return _BiasReLUPool.apply(x.contiguous(), bias, int(window),
+                               int(stride))

@@ -1,0 +1,260 @@
+"""The synchronous solver loop — port of ``npairloss_tpu/train/solver.py``'s
+``Solver`` for one device and the dense engine.
+
+The Caffe Solver contract of usage/solver.prototxt: Caffe SGD (lr folded
+in before momentum, ``train/optim.py``), the ``display`` /
+``average_loss`` sliding window, a TEST phase every ``test_interval``
+iterations over ``test_iter`` batches (the same loss + metrics forward on
+eval batches) and, at iteration 0, when ``test_initialization`` is set.
+
+A step keeps its metrics as device tensors; the host reads them only at
+display and test boundaries and at the end.  ``iteration`` is the
+optimizer's step count, and the lr a step reports is the one it applied
+(read at the pre-update step, as the JAX step does).
+
+Not yet ported (later slices, ROADMAP Queue 1): snapshots and resume
+(item 9), the pipelined loop (item 8), meshes (item 7), telemetry,
+the divergence guard and failpoints.  A run whose ``snapshot`` cadence
+would fire within ``max_iter`` is refused (``SnapshotNotPorted``), never
+run with its snapshots silently skipped.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import logging
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from npairloss_tpu_torch.ops.metrics import retrieval_metrics
+from npairloss_tpu_torch.ops.npair_loss import (
+    NPairLossConfig,
+    npair_loss_with_aux,
+)
+from npairloss_tpu_torch.train.optim import (
+    Mults,
+    caffe_sgd,
+    lr_schedule,
+    param_mults as mult_table,
+)
+
+log = logging.getLogger("npairloss_tpu_torch.solver")
+
+Batches = Iterator[Tuple[np.ndarray, np.ndarray]]
+
+
+@dataclasses.dataclass
+class SolverConfig:
+    """The SolverParameter subset the reference uses
+    (usage/solver.prototxt:1-17); defaults are the shipped values."""
+
+    base_lr: float = 0.001
+    lr_policy: str = "step"
+    gamma: float = 0.5
+    stepsize: int = 10000
+    power: float = 1.0
+    stepvalues: Sequence[int] = ()
+    momentum: float = 0.9
+    weight_decay: float = 0.00002
+    max_iter: int = 2000000
+    display: int = 100
+    average_loss: int = 100
+    test_iter: int = 2000
+    test_interval: int = 2000
+    test_initialization: bool = True
+    snapshot: int = 5000
+    snapshot_prefix: str = "./snap/model_"
+    random_seed: int = 0
+
+
+class SnapshotNotPorted(ValueError):
+    """The solver's snapshot cadence would fire, and snapshots are not
+    ported yet."""
+
+
+def snapshot_refusal(cfg: SolverConfig, num_iters: int) -> Optional[str]:
+    """The refusal message when ``cfg.snapshot`` would fire within
+    ``num_iters`` iterations, else None."""
+    if cfg.snapshot and cfg.snapshot <= num_iters:
+        return (f"snapshot: {cfg.snapshot} would fire within max_iter "
+                f"{num_iters}, and snapshots are not ported yet (ROADMAP "
+                "Queue 1 item 9); set snapshot: 0 or lower max_iter")
+    return None
+
+
+def _fmt(metrics: Dict[str, float]) -> str:
+    return " ".join(f"{k}={float(v):.4g}" for k, v in sorted(metrics.items()))
+
+
+class Solver:
+    """Train an embedding model with the N-pair loss on one device.
+
+    Args:
+      model: an ``nn.Module`` mapping NHWC images to [N, D] embeddings,
+        with a ``reset_parameters(seed)``; it stays on its device.
+      loss_cfg: mining/margin configuration.
+      cfg: solver hyperparameters.
+      top_ks: the Recall@k list every step reports.
+      param_mults: Caffe's ``((w_lr, w_decay), (b_lr, b_decay))`` recipe.
+      loss_weight: the loss top's weight; scales the objective and so
+        the gradient.
+    """
+
+    def __init__(self, model: torch.nn.Module,
+                 loss_cfg: NPairLossConfig = NPairLossConfig(),
+                 cfg: Optional[SolverConfig] = None,
+                 top_ks: Sequence[int] = (1, 5, 10),
+                 param_mults: Optional[Mults] = None,
+                 loss_weight: float = 1.0):
+        self.model = model
+        self.loss_cfg = loss_cfg
+        self.cfg = cfg if cfg is not None else SolverConfig()
+        self.top_ks = tuple(top_ks)
+        self.loss_weight = float(loss_weight)
+        self.device = next(model.parameters()).device
+        self.params = dict(model.named_parameters())
+        self.mults = mult_table(list(self.params), param_mults)
+        self.rate_fn = lr_schedule(
+            self.cfg.lr_policy, self.cfg.base_lr, self.cfg.gamma,
+            self.cfg.stepsize, self.cfg.power, self.cfg.max_iter,
+            self.cfg.stepvalues)
+        self._loss_window: collections.deque = collections.deque(
+            maxlen=max(self.cfg.average_loss, 1))
+        self._reset_optimizer()
+
+    # -- state ------------------------------------------------------------
+
+    def _reset_optimizer(self) -> None:
+        self.momentum = {n: torch.zeros_like(p, dtype=torch.float32)
+                         for n, p in self.params.items()}
+        self.iteration = 0
+
+    def init(self, seed: Optional[int] = None) -> None:
+        """Fresh weights from a ``torch.Generator`` seeded with ``seed``
+        (default ``cfg.random_seed``), zero momentum, iteration 0."""
+        self.model.reset_parameters(
+            self.cfg.random_seed if seed is None else seed)
+        self._reset_optimizer()
+
+    def load_params(self, params: Dict[str, Any]) -> None:
+        """Start from a flax param tree (numpy leaves; the finetune
+        workflow, or the JAX package's own init in the parity tests).
+        The optimizer re-initializes, as the JAX ``load_params`` does."""
+        from npairloss_tpu_torch.models.convert import load_jax_params
+
+        load_jax_params(self.model, params)
+        self._reset_optimizer()
+
+    # -- one step -----------------------------------------------------------
+
+    def _put(self, inputs, labels):
+        """The batch on the solver's device.  To a card it goes through
+        pinned memory with an asynchronous copy: a copy from pageable
+        memory would make the host wait for the stream on every step."""
+        x = torch.from_numpy(np.ascontiguousarray(inputs))
+        lab = torch.from_numpy(np.ascontiguousarray(labels))
+        if self.device.type == "cuda":
+            x, lab = x.pin_memory(), lab.pin_memory()
+        return (x.to(self.device, non_blocking=True),
+                lab.to(self.device, non_blocking=True))
+
+    def compute_loss(self, emb: torch.Tensor, labels: torch.Tensor):
+        """(objective, metrics): the dense N-pair loss scaled by
+        ``loss_weight`` and the metric tops on the detached aux."""
+        loss, aux = npair_loss_with_aux(emb, labels, self.loss_cfg)
+        metrics = retrieval_metrics(aux, labels, emb.detach(), self.top_ks)
+        if self.loss_weight != 1.0:
+            loss = loss * float(np.float32(self.loss_weight))
+        return loss, metrics
+
+    def step(self, inputs, labels) -> Dict[str, Any]:
+        """One training iteration; returns the step's metrics (device
+        tensors, and the applied lr as a float)."""
+        x, lab = self._put(inputs, labels)
+        self.model.train()
+        for p in self.params.values():
+            p.grad = None
+        emb = self.model(x)
+        loss, metrics = self.compute_loss(emb, lab)
+        loss.backward()
+        lr = self.rate_fn(self.iteration)
+        metrics["lr"] = lr
+        caffe_sgd(self.params, {n: p.grad for n, p in self.params.items()},
+                  self.momentum, lr, self.cfg.momentum,
+                  self.cfg.weight_decay, self.mults)
+        self.iteration += 1
+        metrics["loss"] = loss.detach()
+        # Sorted, as a jitted JAX step returns its metric dict.
+        return dict(sorted(metrics.items()))
+
+    @torch.no_grad()
+    def evaluate(self, batches: Batches, num_iters: int) -> Dict[str, float]:
+        """TEST phase: loss and metrics averaged over ``num_iters``
+        batches (a forward without a graph: the stem runs its uncached
+        kernels)."""
+        self.model.eval()
+        acc: Dict[str, float] = collections.defaultdict(float)
+        n = 0
+        for _ in range(num_iters):
+            x, lab = self._put(*next(batches))
+            loss, metrics = self.compute_loss(self.model(x), lab)
+            metrics["loss"] = loss
+            for k, v in sorted(metrics.items()):
+                acc[k] += float(v)
+            n += 1
+        return {k: v / max(n, 1) for k, v in acc.items()}
+
+    # -- the loop -------------------------------------------------------------
+
+    def train(self, train_batches: Batches, num_iters: Optional[int] = None,
+              test_batches: Optional[Batches] = None,
+              log_fn: Callable[[str], None] = log.info,
+              record_fn: Optional[Callable[[Dict[str, Any]], None]] = None,
+              ) -> Dict[str, float]:
+        """The Caffe Solver::Solve loop.  ``num_iters`` is the TOTAL
+        iteration target (``max_iter``).  ``record_fn`` gets one dict per
+        display/test event — the ``--log-json`` stream."""
+        cfg = self.cfg
+        num_iters = num_iters if num_iters is not None else cfg.max_iter
+        refusal = snapshot_refusal(cfg, num_iters)
+        if refusal:
+            raise SnapshotNotPorted(refusal)
+        it = self.iteration
+        if it:
+            log_fn(f"resuming from iteration {it}")
+        if (it == 0 and cfg.test_initialization and test_batches is not None
+                and cfg.test_iter > 0):
+            self._test(0, test_batches, log_fn, record_fn)
+        last: Dict[str, Any] = {}
+        while it < num_iters:
+            metrics = self.step(*next(train_batches))
+            step_num = it + 1
+            self._loss_window.append(metrics["loss"])
+            last = metrics
+            if cfg.display and step_num % cfg.display == 0:
+                self._display(step_num, metrics, log_fn, record_fn)
+            if (test_batches is not None and cfg.test_interval
+                    and step_num % cfg.test_interval == 0):
+                self._test(step_num, test_batches, log_fn, record_fn)
+            it = step_num
+        return {k: float(v) for k, v in last.items()}
+
+    def _display(self, step_num, metrics, log_fn, record_fn) -> None:
+        host = {k: float(v) for k, v in metrics.items()}
+        avg = float(torch.stack(list(self._loss_window)).mean())
+        log_fn(f"iter {step_num} lr={host.get('lr', 0):.6g} "
+               f"loss={avg:.6g} (avg over {len(self._loss_window)}) "
+               + _fmt({k: v for k, v in host.items()
+                       if k not in ("loss", "lr")}))
+        if record_fn is not None:
+            record_fn({"event": "display", "iteration": step_num,
+                       "loss_avg": avg, **host})
+
+    def _test(self, step_num, test_batches, log_fn, record_fn) -> None:
+        m = self.evaluate(test_batches, self.cfg.test_iter)
+        log_fn(f"iter {step_num} TEST {_fmt(m)}")
+        if record_fn is not None:
+            record_fn({"event": "test", "iteration": step_num, **m})

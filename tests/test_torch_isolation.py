@@ -2,8 +2,9 @@
 its entry points refuse to drop to the CPU unasked, and a kernel wrapper
 counts only launches of its kernel.
 
-  * the CPU serve path runs in a subprocess whose ``import jax`` raises
-    (a poisoned ``jax.py`` first on PYTHONPATH, the test_staticcheck
+  * the CPU serve path, and the train CLI with one ``googlenet_pallas``
+    training step, run in subprocesses whose ``import jax`` raises (a
+    poisoned ``jax.py`` first on PYTHONPATH, the test_staticcheck
     trick), and ``jax`` never reaches ``sys.modules``;
   * an AST scan of every port module and ``chip_smoke.py`` finds no
     import of ``jax``, ``flax`` or ``npairloss_tpu``;
@@ -74,6 +75,47 @@ def test_cpu_serve_path_runs_with_jax_poisoned(tmp_path):
     assert "ISOLATED-OK" in proc.stdout
 
 
+TRAIN_SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+from npairloss_tpu_torch import cli
+from npairloss_tpu_torch.models import get_model
+from npairloss_tpu_torch.train.solver import Solver, SolverConfig
+rc = cli.main(["train", "--solver", "examples/tiny_solver.prototxt",
+               "--synthetic", "--device", "cpu", "--max_iter", "2"])
+assert rc == 0, rc
+model = get_model("googlenet_pallas", device="cpu", dtype=torch.float32)
+solver = Solver(model, cfg=SolverConfig(snapshot=0))
+rng = np.random.default_rng(0)
+m = solver.step(rng.standard_normal((4, 32, 32, 3)).astype(np.float32),
+                np.array([0, 0, 1, 1]))
+assert np.isfinite(float(m["loss"]))
+assert solver.params["conv1.Conv_0.weight"].grad is not None
+assert not any(k == "jax" or k.startswith(("jax.", "flax", "npairloss_tpu."))
+               for k in sys.modules), sorted(sys.modules)
+print("ISOLATED-TRAIN-OK")
+"""
+
+
+def test_cpu_train_path_runs_with_jax_poisoned(tmp_path):
+    """The train CLI (config, data, solver, loss, metrics) and one
+    ``googlenet_pallas`` training step through the stem Functions."""
+    poison = tmp_path / "poison"
+    poison.mkdir()
+    for mod in ("jax", "flax"):
+        (poison / f"{mod}.py").write_text(
+            f'raise ImportError("{mod} imported by the torch port")\n')
+    env = dict(os.environ)
+    env["PYTHONPATH"] = f"{poison}{os.pathsep}{REPO}"
+    env.pop("JAX_PLATFORMS", None)
+    proc = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT],
+                          capture_output=True, text=True, env=env,
+                          cwd=str(REPO), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "ISOLATED-TRAIN-OK" in proc.stdout
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -134,9 +176,14 @@ def test_kernel_wrappers_on_cpu_tensors_count_no_launch():
     _build.reset_launch_counts()
     x = torch.randn(2, 6, 6, 64)
     b = torch.randn(64)
-    stem.fused_lrn(x)
-    stem.fused_bias_relu(x, b)
-    stem.fused_bias_relu_pool(x, b)
+    xg = x.clone().requires_grad_()
+    out, d = stem.lrn_fwd_cached(x)
+    stem.lrn_bwd_cached(x, out, d)
+    stem.lrn_bwd(x, out)
+    stem.fused_lrn(xg).sum().backward()
+    stem.fused_lrn(xg, cache=False).sum().backward()
+    stem.fused_bias_relu(xg, b).sum().backward()
+    stem.fused_bias_relu_pool(xg, b).sum().backward()
     packed = torch.randn(3, 5, 64)
     rows = torch.arange(15, dtype=torch.int32).reshape(3, 5)
     ivf_probe.fused_probe_topk(torch.randn(2, 64), packed, rows,
@@ -144,7 +191,8 @@ def test_kernel_wrappers_on_cpu_tensors_count_no_launch():
                                torch.ones(3, dtype=torch.bool),
                                k=4, probes=2, scoring="fp32")
     counts = _build.launch_counts()
-    assert set(counts) == {"fused_lrn", "fused_bias_relu",
+    assert set(counts) == {"lrn_fwd", "lrn_fwd_cached", "lrn_bwd",
+                           "lrn_bwd_cached", "fused_bias_relu",
                            "fused_bias_relu_pool", "probe_topk"}
     assert all(v == 0 for v in counts.values()), counts
 
