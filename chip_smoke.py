@@ -9,8 +9,8 @@ Phases (any failure raises, exits nonzero and prints no result line):
 
 1. the card: ``nvidia-smi`` name and power limit, torch version and
    compute capability (must be 9.0); TF32 off for fp32 parity;
-2. build the seven CUDA kernels from ``npairloss_tpu_torch/csrc/`` with
-   nvcc (one process per source, started together);
+2. build the CUDA kernels from ``npairloss_tpu_torch/csrc/`` with nvcc
+   (one process per source, started together);
 3. hold each kernel against its plain PyTorch version on the card at
    the serving path's shapes — LRN and bias+ReLU at (32,56,56,64) and
    (32,56,56,192), bias+ReLU+pool at (32,112,112,64), in fp32 and bf16;
@@ -50,9 +50,27 @@ Phases (any failure raises, exits nonzero and prints no result line):
 5c. ``REFERENCE_CONFIG`` mining on 120 x 1024 unit features: from the
    card's sims, thresholds, masks and counts equal the CPU's exactly,
    and the loss agrees within 1e-5;
-6. a ``{"kernels": [...]}`` line (launches of the serving kernels from
+6. the five blockwise kernels (``csrc/npair_blockwise.cu``) at N = M =
+   120 and 8192, D = 1024, against their plain sweeps: from the stats
+   kernel's own emitted sims, minima, maxima, counts, histograms and
+   the K-slot buffer bit for bit, I/D sums within 1e-4 relative, gq/gdb
+   within 1e-5 / 1e-4 of their largest entry; the sims within 1e-5 of
+   cuBLAS; cached and recompute variants bit for bit; each timed beside
+   its bound and its plain sweep;
+6b. ``train --engine blockwise`` in-process on the phase-5 solver cut,
+   the net's mining swapped for the reference's (GLOBAL/RELATIVE_HARD
+   AP, LOCAL/HARD AN), zero biases: finite losses and metrics, the
+   kernels launched by the steps, no host sync in a step, selected
+   pairs > 0, ``--pos-topk 0`` (the hist kernel's radix path) equal to
+   the fast path, and one step through the dense and the blockwise
+   engines from the same weights and batch;
+6c. the 32,768 pool x 512 dims of STRETCH.json, loss and backward, for
+   REFERENCE_CONFIG and LOCAL/RAND: sim cache on and off bit for bit,
+   ``pos_topk`` 8 and 0 equal; each kernel's time per call;
+7. a ``{"kernels": [...]}`` line (launches of the serving kernels from
    phase 4, of the training kernels from phase 5, of ``lrn_bwd`` from
-   the phase-5b recompute step); then the card line; then the last line
+   the phase-5b recompute step, of the blockwise kernels from phase
+   6b); then the card line; then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -739,6 +757,7 @@ def compare_batch_upload(torch, solver, seed, steps=6):
 
 # Kernel-name patterns of a training step's device time, first match wins.
 STEP_CATEGORIES = (
+    ("blockwise kernels (csrc/npair_blockwise.cu)", ("npair_",)),
     ("stem kernels (csrc/stem.cu)", ("lrn_fwd_kernel", "lrn_bwd_kernel",
                                      "bias_relu")),
     ("host-device copies", ("memcpy",)),
@@ -944,6 +963,645 @@ def check_reference_mining(torch, seed, detail):
                                   "pairs_neg": int(got["diff_num"].sum())}
 
 
+# -- phase 6: the blockwise N-pair kernels ------------------------------------
+
+BLOCKWISE_KERNELS = ("npair_stats", "npair_hist", "npair_loss", "npair_gq",
+                     "npair_gdb")
+
+
+def unit_batch(torch, seed, n, d):
+    """n unit rows on the card in n/2 identities of 2, shuffled."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f = torch.randn((n, d), generator=gen, device="cuda")
+    f = (f / f.norm(dim=1, keepdim=True)).contiguous()
+    lab = (torch.randperm(n, generator=gen, device="cuda") // 2).to(
+        torch.int32)
+    return f, lab
+
+
+def _rel_close(a, b):
+    """max |a - b| / |b| over entries."""
+    diff = (a - b).abs()
+    scale = b.abs().clamp_min(1e-30)
+    return float((diff / scale).max().item()) if diff.numel() else 0.0
+
+
+def _abs_err(torch, a, b):
+    """max |a - b| over entries in fp64; equal entries add 0, so +-FLT_MAX
+    paddings that agree count as agreeing."""
+    a, b = a.double(), b.double()
+    diff = torch.where(a == b, 0.0, (a - b).abs())
+    return float(diff.max().item()) if diff.numel() else 0.0
+
+
+def check_blockwise_kernels(torch, timer, detail, seed,
+                            sizes=((120, 1024), (8192, 1024))):
+    """The five kernels of csrc/npair_blockwise.cu against their plain
+    sweeps on the card.  From the stats kernel's own emitted sims the
+    plain stats, hist and loss sweeps must give bit-equal minima, maxima,
+    counts, histograms and K-slot buffers; I/D sums within 1e-4
+    relative, gq/gdb within 1e-5 (N = 120) or 1e-4 (N = 8192) of their
+    largest entry (the plain sweeps sum in cuBLAS's and torch's order);
+    the emitted sims within 1e-5 of ``feats @ feats.T`` (cuBLAS, TF32
+    off); cached and recompute variants bit for bit.  Each row's
+    ``max_abs_err`` is the largest absolute difference kernel vs plain
+    over the outputs this run compared.  ``timer`` None: check only."""
+    from npairloss_tpu_torch.ops import blockwise_npair as bw
+    from npairloss_tpu_torch.ops import npair_loss as nl
+    from npairloss_tpu_torch.ops.rank_select import sortable_key
+
+    mm = nl.MiningMethod
+    cfgs = {"reference": nl.REFERENCE_CONFIG,
+            "local_rand": nl.NPairLossConfig(),
+            "relative": nl.NPairLossConfig(
+                ap_mining_method=mm.RELATIVE_EASY, identsn=-0.5,
+                an_mining_method=mm.RELATIVE_HARD, diffsn=-0.3)}
+    rows = {k: [] for k in BLOCKWISE_KERNELS}
+    out = {}
+    for n, d in sizes:
+        f, lab = unit_batch(torch, seed + n, n, d)
+        grad_tol = 1e-5 if n <= 120 else 1e-4
+        bn = bm = min(512, n)
+        rec = {"n": n, "d": d}
+        # -- stats, every option on
+        st = bw.npair_stats(f, lab, f, lab, hist_same=True, hist_diff=True,
+                            topk=8, emit_sims=True)
+        st_r = bw.npair_stats(f, lab, f, lab, hist_same=True,
+                              hist_diff=True, topk=8)
+        sims = st.sims
+        ref = f @ f.T
+        torch.cuda.synchronize()
+        rec["sims_vs_cublas"] = (sims - ref).abs().max().item()
+        if not rec["sims_vs_cublas"] <= 1e-5:
+            fail(f"npair_stats N={n}: emitted sims off cuBLAS by "
+                 f"{rec['sims_vs_cublas']}")
+        pst = bw.stats_plain(f, lab, f, lab, hist_same=True, hist_diff=True,
+                             topk=8, sims=sims, bn=bn, bm=bm)
+        errs = [rec["sims_vs_cublas"]]
+        for name in bw.Stats._fields[:8]:
+            errs.append(_abs_err(torch, getattr(st, name), getattr(pst, name)))
+            if not torch.equal(getattr(st, name), getattr(pst, name)):
+                fail(f"npair_stats N={n}: {name} differs from the plain "
+                     "sweep on the kernel's sims")
+            if not torch.equal(getattr(st, name), getattr(st_r, name)):
+                fail(f"npair_stats N={n}: {name} differs with emit off")
+        rec["stats_abs_err"] = max(errs)
+        del ref, st_r, pst
+        # -- hist: two sides, digits 1 and 5, prefixes of real pairs
+        nxt = (torch.arange(n, device="cuda") + 1) % n
+        keys = sortable_key(sims.gather(1, nxt[:, None])[:, 0])
+        rec["hist_abs_err"] = 0.0
+        for digit in (1, 5):
+            pre = [keys >> (32 - 4 * digit), (keys ^ 1) >> (32 - 4 * digit)]
+            args = (f, lab, f, lab, [True, False], pre, digit)
+            h_c = bw.npair_hist(*args, sims=sims)
+            h_r = bw.npair_hist(*args)
+            h_p = bw.hist_plain(*args, sims=sims, bn=bn, bm=bm)
+            skip = torch.ones((), dtype=torch.bool, device="cuda")
+            h_s = bw.npair_hist(*args, sims=sims, skip=skip)
+            torch.cuda.synchronize()
+            for a, b, c, s in zip(h_c, h_r, h_p, h_s):
+                rec["hist_abs_err"] = max(rec["hist_abs_err"],
+                                          _abs_err(torch, a, c),
+                                          _abs_err(torch, b, c))
+                if not (torch.equal(a, b) and torch.equal(a, c)):
+                    fail(f"npair_hist N={n} digit {digit}: kernel, "
+                         "recompute and plain differ")
+                if bool((s != 0).any()):
+                    fail(f"npair_hist N={n}: skip flag did not zero")
+            rec[f"hist_digit{digit}_counted"] = int(h_c[0].sum() +
+                                                    h_c[1].sum())
+        # -- loss, gq, gdb per mining config, from the engine's own
+        # thresholds
+        g = torch.ones((), device="cuda")
+        for cname, cfg in cfgs.items():
+            _, _, res = bw._forward(f, lab, cfg, bn, bm, True, 8)
+            thr = (res["pos_thr"], res["neg_thr"], res["max_all"])
+            l_c = bw.npair_loss(f, lab, f, lab, *thr, cfg, sims=sims)
+            l_r = bw.npair_loss(f, lab, f, lab, *thr, cfg)
+            l_p = bw.loss_plain(f, lab, f, lab, *thr, cfg, sims=sims,
+                                bn=bn, bm=bm)
+            valid = torch.ones(n, device="cuda")
+            gargs = (f, lab, f, lab, *thr, res["ident_sum"], res["all_sum"],
+                     valid, g, cfg)
+            grads = {}
+            for name, kern, pm in (("npair_gq", bw.npair_gq, False),
+                                   ("npair_gdb", bw.npair_gdb, True)):
+                grads[name] = (kern(*gargs, sims=sims), kern(*gargs),
+                               bw.grad_plain(*gargs, pm, sims=sims, bn=bn,
+                                             bm=bm))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(l_c, l_r)):
+                fail(f"npair_loss N={n} {cname}: cached and recompute differ")
+            if not (torch.equal(l_c[2], l_p[2]) and torch.equal(l_c[3],
+                                                               l_p[3])):
+                fail(f"npair_loss N={n} {cname}: pair counts differ")
+            sum_err = max(_rel_close(l_c[0], l_p[0]),
+                          _rel_close(l_c[1], l_p[1]))
+            if not sum_err <= 1e-4:
+                fail(f"npair_loss N={n} {cname}: I/D sums off by {sum_err}")
+            rec[f"{cname}_sum_rel_err"] = sum_err
+            rec[f"{cname}_loss_abs_err"] = max(
+                _abs_err(torch, a, b) for a, b in zip(l_c, l_p))
+            rec[f"{cname}_pairs"] = [int(l_c[2].sum()), int(l_c[3].sum())]
+            for name, (gc, gr, gp) in grads.items():
+                if not torch.equal(gc, gr):
+                    fail(f"{name} N={n} {cname}: cached and recompute differ")
+                err = ((gc - gp).abs().max() /
+                       gp.abs().max().clamp_min(1e-30)).item()
+                if not err <= grad_tol:
+                    fail(f"{name} N={n} {cname}: {err} of the largest entry")
+                rec[f"{cname}_{name}_err"] = err
+                rec[f"{cname}_{name}_abs_err"] = _abs_err(torch, gc, gp)
+            if cname == "reference":
+                path = (thr, res, gargs)
+        log(f"[blockwise] N={n} D={d}: kernels = plain sweeps on the "
+            f"kernel's sims; cached = recompute; {json.dumps(rec)}")
+        out[n] = rec
+        if timer is None:
+            continue
+        # -- times at the path's variants (REFERENCE_CONFIG, sim cache on)
+        thr, res, gargs = path
+        nm, nd = n * n, n * d
+        flop = 2.0 * n * n * d
+
+        def row(name, kern, plain, nbytes, ops, err, variant):
+            bms, by = bound_ms(nbytes, ops, "fp32")
+            r = {"n": n, "d": d, "variant": variant, "max_abs_err": err,
+                 "ms": timer.ms(kern),
+                 "plain_ms": timer.ms(plain, iters=5, warmup=1),
+                 "bound_ms": bms, "bound_by": by, "library_ms": None}
+            rows[name].append(r)
+            log(f"[kernel] {name} {variant} N={n} D={d}: {json.dumps(r)}")
+
+        row("npair_stats",
+            lambda: bw.npair_stats(f, lab, f, lab, hist_same=True, topk=8,
+                                   emit_sims=True),
+            lambda: bw.stats_plain(f, lab, f, lab, hist_same=True, topk=8,
+                                   emit_sims=True, bn=bn, bm=bm),
+            8 * nd + 4 * nm + 4 * n * (5 + 16 + 8), flop,
+            out[n]["stats_abs_err"], "hist_same+topk8+emit")
+        pre = [keys >> 28, keys >> 28]
+        for cached in (True, False):
+            s_ = sims if cached else None
+            row("npair_hist",
+                lambda: bw.npair_hist(f, lab, f, lab, [True, False], pre, 1,
+                                      sims=s_),
+                lambda: bw.hist_plain(f, lab, f, lab, [True, False], pre, 1,
+                                      sims=s_, bn=bn, bm=bm),
+                (4 * nm if cached else 8 * nd) + 4 * n * (1 + 2 + 32),
+                0.0 if cached else flop, out[n]["hist_abs_err"],
+                "cached" if cached else "recompute")
+            row("npair_loss",
+                lambda: bw.npair_loss(f, lab, f, lab, *thr,
+                                      nl.REFERENCE_CONFIG, sims=s_),
+                lambda: bw.loss_plain(f, lab, f, lab, *thr,
+                                      nl.REFERENCE_CONFIG, sims=s_, bn=bn,
+                                      bm=bm),
+                (4 * nm if cached else 8 * nd) + 4 * n * (1 + 3 + 4),
+                3.0 * nm + (0 if cached else flop),
+                out[n]["reference_loss_abs_err"],
+                "cached" if cached else "recompute")
+            for name, kern, pm in (("npair_gq", bw.npair_gq, False),
+                                   ("npair_gdb", bw.npair_gdb, True)):
+                row(name, lambda: kern(*gargs, sims=s_),
+                    lambda: bw.grad_plain(*gargs, pm, sims=s_, bn=bn, bm=bm),
+                    (4 * nm + 8 * nd if cached else 12 * nd) + 4 * n * 7,
+                    flop * (1 if cached else 2),
+                    out[n][f"reference_{name}_abs_err"],
+                    "cached" if cached else "recompute")
+        out[n]["cublas_sim_ms"] = timer.ms(lambda: f @ f.T)
+        log(f"[kernel] N={n} D={d}: cuBLAS fp32 sim product feats @ "
+            f"feats.T alone (not a yardstick of the fused kernels): "
+            f"{out[n]['cublas_sim_ms']:.4f} ms")
+        del sims, keys
+    detail["blockwise_kernels"] = {"checks": out, "rows": rows}
+    return rows
+
+
+# -- phase 6b: the blockwise training path ------------------------------------
+
+
+def blockwise_net(work):
+    """examples/googlenet_cub.prototxt with its mining swapped for the
+    reference's shipped config (examples/resnet50_global_relhard.prototxt:
+    48-59, usage/def.prototxt's values)."""
+    import re
+
+    net = open(os.path.join("examples", "googlenet_cub.prototxt")).read()
+    mining = ("npair_loss_param {\n        margin_ident: 0\n"
+              "        margin_diff: -0.05\n        identsn: -0.0\n"
+              "        diffsn: -0.3\n        ap_mining_region: GLOBAL\n"
+              "        ap_mining_method: RELATIVE_HARD\n"
+              "        an_mining_region: LOCAL\n"
+              "        an_mining_method: HARD\n    }")
+    net, k = re.subn(r"npair_loss_param \{[^}]*\}", mining, net)
+    if k != 1:
+        fail(f"googlenet_cub.prototxt has {k} npair_loss_param blocks")
+    path = os.path.join(work, "googlenet_cub_relhard.prototxt")
+    with open(path, "w") as fh:
+        fh.write(net)
+    return path
+
+
+def _zero_biases(get_model):
+    """``get_model`` whose trunks start with zero biases: the init's 0.2
+    biases collapse the BN-free trunk onto one embedding, and mining
+    then has nothing to tell apart."""
+    def wrapped(*a, **kw):
+        import torch
+
+        model = get_model(*a, **kw)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("bias"):
+                    p.zero_()
+        return model
+
+    return wrapped
+
+
+def drive_blockwise_train(torch, seed, detail, dense_step_ms):
+    """``train --engine blockwise`` in-process on the GoogLeNet/CUB solver
+    cut as in phase 5, with the reference's mining, zero biases."""
+    import contextlib
+    import math
+    import re
+
+    import npairloss_tpu_torch.models as models
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.ops import blockwise_npair as bw
+    from npairloss_tpu_torch.train import solver as tsolver
+
+    work = os.path.join("build", "train_smoke")
+    os.makedirs(work, exist_ok=True)
+    text = open(os.path.join("examples", "googlenet_cub_solver.prototxt")
+                ).read()
+    for key, val in (("max_iter", 6), ("test_iter", 2), ("display", 1),
+                     ("snapshot", 0)):
+        text, n = re.subn(rf"(?m)^{key}:.*$", f"{key}: {val}", text)
+        if n != 1:
+            fail(f"solver prototxt has {n} '{key}:' lines")
+    solver_path = os.path.join(work, "solver_blockwise.prototxt")
+    with open(solver_path, "w") as fh:
+        fh.write(text)
+    net_path = blockwise_net(work)
+
+    seen = {"solver": None, "after_test": None, "ms": []}
+    orig_step = tsolver.Solver.step
+
+    def timed_step(self, inputs, labels):
+        if seen["after_test"] is None:
+            seen["after_test"] = _build.launch_counts()
+        seen["solver"] = self
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = orig_step(self, inputs, labels)
+        torch.cuda.synchronize()
+        seen["ms"].append((time.perf_counter() - t0) * 1e3)
+        return m
+
+    def run(extra, tag):
+        events = os.path.join(work, f"events_{tag}.jsonl")
+        if os.path.exists(events):
+            os.remove(events)
+        seen.update(after_test=None, ms=[])
+        out = io.StringIO()
+        orig_get = models.get_model
+        tsolver.Solver.step = timed_step
+        models.get_model = _zero_biases(orig_get)
+        _build.reset_launch_counts()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["train", "--solver", solver_path, "--net",
+                               net_path, "--model", "googlenet_pallas",
+                               "--synthetic", "--log-json", events, "--seed",
+                               str(seed), "--engine", "blockwise", *extra])
+            torch.cuda.synchronize()
+        finally:
+            tsolver.Solver.step = orig_step
+            models.get_model = orig_get
+        total = _build.launch_counts()
+        for ln in out.getvalue().splitlines():
+            log(f"[blockwise-train {tag}] {ln}")
+        if rc != 0:
+            fail(f"train --engine blockwise {tag} returned {rc}")
+        evs = [json.loads(ln) for ln in open(events)]
+        final = json.loads(out.getvalue().strip().splitlines()[-1])
+        for r in evs + [final]:
+            bad = {k: v for k, v in r.items()
+                   if isinstance(v, float) and not math.isfinite(v)}
+            if bad:
+                fail(f"non-finite values in {tag} {r.get('event')}: {bad}")
+        after = seen["after_test"]
+        in_train = {k: total[k] - after[k] for k in total}
+        return evs, in_train, list(seen["ms"])
+
+    t0 = time.perf_counter()
+    events, launches, ms = run([], "main")
+    wall = time.perf_counter() - t0
+    displays = [e for e in events if e["event"] == "display"]
+    if [e["iteration"] for e in displays] != [1, 2, 3, 4, 5, 6]:
+        fail(f"unexpected blockwise event stream: {events}")
+    log(f"[blockwise-train] launches during the 6 steps "
+        f"{json.dumps({k: launches[k] for k in BLOCKWISE_KERNELS})}")
+    for name in ("npair_stats", "npair_loss", "npair_gq", "npair_gdb",
+                 "lrn_fwd_cached", "lrn_bwd_cached"):
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched by the blockwise steps")
+    step_ms = statistics.median(ms[1:])
+    log(f"[blockwise-train] step ms {[round(t, 3) for t in ms]}; median over "
+        f"steps 2-6 {step_ms:.3f} ms = {120 / step_ms * 1e3:.1f} images/s "
+        f"(phase 5 dense engine, LOCAL/RAND: {dense_step_ms:.3f} ms); "
+        f"whole command {wall:.1f} s")
+
+    solver = seen["solver"]
+    x_np, lab_np = next(synthetic_identity_batches(240, 60, 2, (224, 224, 3),
+                                                   seed=seed + 21))
+    solver.step(x_np, lab_np)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        solver.step(x_np, lab_np)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("[blockwise-train] a blockwise step under set_sync_debug_mode"
+        "('error') made no host sync")
+
+    # The random trunk maps every image to nearly one embedding (ROADMAP
+    # Queue 3): its sims have next to no spread, and mining on them says
+    # little.  Read the spread here; the mining checks run on features
+    # that have it.
+    cfg = solver.loss_cfg
+    with torch.no_grad():
+        emb = solver.model(torch.as_tensor(x_np, device="cuda"))
+        path_spread = _sim_spread(torch, emb)
+        path_loss = bw.blockwise_npair_loss(
+            emb, torch.as_tensor(lab_np, device="cuda"), cfg).item()
+    log(f"[blockwise-train] the path's embeddings after 8 steps: std of "
+        f"their cosine sims {path_spread:.6g} (random unit rows in "
+        f"{emb.shape[1]} dims: {emb.shape[1] ** -0.5:.4g}), loss "
+        f"{path_loss:.9g} (log {emb.shape[0] - 1} = "
+        f"{math.log(emb.shape[0] - 1):.9g})")
+    mining = check_mining_with_spread(torch, seed, solver)
+
+    # The radix path through the CLI: --pos-topk 0, one step.
+    ev0, launches0, _ = run(["--pos-topk", "0", "--max_iter", "1"], "radix")
+    if launches0["npair_hist"] < 7:
+        fail(f"--pos-topk 0 ran {launches0['npair_hist']} hist sweeps")
+    l_fast = displays[0]["loss"]
+    l_radix = [e for e in ev0 if e["event"] == "display"][0]["loss"]
+    rel = abs(l_fast - l_radix) / max(abs(l_fast), 1e-30)
+    log(f"[blockwise-train] first-step loss, pos_topk 8 {l_fast!r} vs 0 "
+        f"{l_radix!r} (rel {rel:.3g}); hist launches "
+        f"{launches0['npair_hist']}")
+    if not rel <= 1e-6:
+        fail("the radix path's first-step loss differs from the fast path")
+    log("[blockwise-train] profile of the blockwise step:")
+    profile = profile_train_step(torch, solver, x_np, lab_np)
+    detail["blockwise_train"] = {
+        "profile": profile,
+        "events": events, "launches": launches, "launches_radix": launches0,
+        "step_ms": ms, "median_step_ms": step_ms,
+        "dense_median_step_ms": dense_step_ms,
+        "path_sim_spread": path_spread, "path_loss": path_loss,
+        "mining_with_spread": mining,
+        "first_loss_fast": l_fast, "first_loss_radix": l_radix,
+        "engine_check": check_engines_agree(torch, seed, cfg)}
+    return launches, launches0, step_ms
+
+
+# Std of the cosine sims below which a batch's embeddings count as
+# collapsed; random unit rows in 1024 dims give 1024 ** -0.5 = 0.031.
+SPREAD_FLOOR = 0.01
+
+
+def _sim_spread(torch, emb):
+    """Std of the off-diagonal cosine sims of ``emb``'s rows: near 0
+    when they collapse onto one direction."""
+    e = torch.nn.functional.normalize(emb.detach().float(), dim=1)
+    sims = e @ e.T
+    off = ~torch.eye(e.shape[0], dtype=torch.bool, device=e.device)
+    return float(sims[off].std().item())
+
+
+def check_mining_with_spread(torch, seed, solver):
+    """The path's loss, ``Solver.compute_loss`` with the path's mining
+    config, on 120 x 1024 unit features whose sims have spread (std above
+    ``SPREAD_FLOOR``, or the check fails): positive and negative pairs
+    selected; pos_topk 8 vs 0 the same thresholds, counts and loss bit
+    for bit; the dense and blockwise engines' loss within 1e-5 relative
+    and feature gradients within 1e-4 of the dense gradient's norm."""
+    from npairloss_tpu_torch.ops import blockwise_npair as bw
+    from npairloss_tpu_torch.train.solver import Solver
+
+    f, lab = unit_batch(torch, seed + 29, 120, 1024)
+    spread = _sim_spread(torch, f)
+    if not spread > SPREAD_FLOOR:
+        fail(f"mining check features have no spread: std {spread}")
+    cfg = solver.loss_cfg
+    fast = bw.blockwise_npair_loss_with_aux(f, lab, cfg, pos_topk=8)
+    radix = bw.blockwise_npair_loss_with_aux(f, lab, cfg, pos_topk=0)
+    pairs = [int(fast[1]["ident_num"].sum().item()),
+             int(fast[1]["diff_num"].sum().item())]
+    same = torch.equal(fast[0], radix[0]) and all(
+        torch.equal(fast[1][k], radix[1][k]) for k in fast[1])
+    got = {}
+    for engine in ("dense", "blockwise"):
+        s = Solver(solver.model, cfg, solver.cfg, solver.top_ks,
+                   loss_weight=solver.loss_weight, engine=engine,
+                   sim_cache=solver.sim_cache, pos_topk=solver.pos_topk)
+        x = f.clone().requires_grad_()
+        loss, metrics = s.compute_loss(x, lab)
+        loss.backward()
+        got[engine] = (loss.item(), x.grad,
+                       {k: float(v) for k, v in metrics.items()})
+    (l_d, g_d, m_d), (l_b, g_b, m_b) = got["dense"], got["blockwise"]
+    loss_rel = abs(l_b - l_d) / max(abs(l_d), 1e-30)
+    grad_rel = ((g_b - g_d).norm() / g_d.norm().clamp_min(1e-30)).item()
+    log(f"[blockwise-train] mining on 120 x 1024 unit features (sim std "
+        f"{spread:.4g}), the path's config: {pairs[0]} positive and "
+        f"{pairs[1]} negative pairs; pos_topk 8 vs 0 bit-equal {same}; "
+        f"compute_loss dense vs blockwise: loss {l_d:.9g} vs {l_b:.9g} "
+        f"(rel {loss_rel:.3g}), feature gradient error over its norm "
+        f"{grad_rel:.3g}; metrics {m_d} vs {m_b}")
+    if not (pairs[0] > 0 and pairs[1] > 0 and same):
+        fail("blockwise mining on features with spread is off")
+    if not loss_rel <= 1e-5 or not grad_rel <= 1e-4:
+        fail("dense and blockwise engines disagree on features with spread")
+    return {"sim_spread": spread, "pairs": pairs, "fast_eq_radix": same,
+            "loss_dense": l_d, "loss_blockwise": l_b, "loss_rel": loss_rel,
+            "feature_grad_rel": grad_rel, "metrics_dense": m_d,
+            "metrics_blockwise": m_b}
+
+
+def check_engines_agree(torch, seed, cfg):
+    """One step's loss and gradients from the same zero-bias weights and
+    batch through the dense and the blockwise engine (cuDNN
+    deterministic): loss within 1e-5 relative, each parameter's gradient
+    within 1e-4 of the norm of the step's whole gradient.  The random
+    trunk's embeddings have next to no spread (printed), so this holds
+    the engines' plumbing through the trunk, not their mining."""
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+    from npairloss_tpu_torch.models import get_model
+    from npairloss_tpu_torch.ops.blockwise_npair import blockwise_npair_loss
+    from npairloss_tpu_torch.ops.npair_loss import npair_loss
+
+    model = get_model("googlenet_pallas", device="cuda", seed=seed,
+                      dtype=torch.float32)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+    model.train()
+    x_np, lab_np = next(synthetic_identity_batches(240, 60, 2, (224, 224, 3),
+                                                   seed=seed + 23))
+    x = torch.as_tensor(x_np, device="cuda")
+    lab = torch.as_tensor(lab_np, device="cuda")
+    cudnn = torch.backends.cudnn
+    det, bench = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    out = {}
+    try:
+        for engine, fn in (("dense", npair_loss),
+                           ("blockwise", blockwise_npair_loss)):
+            for p in model.parameters():
+                p.grad = None
+            emb = model(x)
+            spread = _sim_spread(torch, emb)
+            loss = fn(emb, lab, cfg)
+            loss.backward()
+            out[engine] = (loss.item(), {n: p.grad.detach().clone()
+                                         for n, p in model.named_parameters()})
+    finally:
+        cudnn.deterministic, cudnn.benchmark = det, bench
+    (l_d, g_d), (l_b, g_b) = out["dense"], out["blockwise"]
+    loss_rel = abs(l_b - l_d) / max(abs(l_d), 1e-30)
+    total = torch.sqrt(sum(g.double().pow(2).sum() for g in g_d.values()))
+    rel = {n: ((g_b[n] - g_d[n]).double().norm() / total).item() for n in g_d}
+    worst = max(rel, key=rel.get)
+    log(f"[blockwise-train] one step dense vs blockwise: loss {l_d:.9g} vs "
+        f"{l_b:.9g} (rel {loss_rel:.3g}); worst gradient error over the "
+        f"step's gradient norm {rel[worst]:.3g} ({worst}); std of the "
+        f"embedding's cosine sims {spread:.6g}")
+    if not loss_rel <= 1e-5 or not rel[worst] <= 1e-4:
+        fail("dense and blockwise engines disagree on one step")
+    return {"loss_dense": l_d, "loss_blockwise": l_b, "loss_rel": loss_rel,
+            "grad_rel_max": rel[worst], "worst_param": worst,
+            "sim_spread": spread}
+
+
+# -- phase 6c: the stretch size --------------------------------------------------
+
+
+def check_stretch(torch, timer, detail, seed, n=32768, d=512):
+    """Loss + backward at the 32,768 pool and 512 dims of STRETCH.json on
+    synthetic unit features: REFERENCE_CONFIG and LOCAL/RAND; sim cache
+    on vs off bit-identical in loss and gradient; pos_topk 8 vs 0 the
+    same thresholds and loss; each kernel's time per call."""
+    import math
+
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.ops import blockwise_npair as bw
+    from npairloss_tpu_torch.ops import npair_loss as nl
+    from npairloss_tpu_torch.ops.rank_select import sortable_key
+
+    f, lab = unit_batch(torch, seed + 3, n, d)
+    out = {"n": n, "d": d,
+           "cache_auto": nl.resolve_sim_cache_auto(n * n * 4, "blockwise",
+                                                   f.device)}
+    if not out["cache_auto"]:
+        fail(f"the sim cache did not auto-enable at N={n}")
+
+    def run(cfg, **kw):
+        x = f.clone().requires_grad_()
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, aux = bw.blockwise_npair_loss_with_aux(x, lab, cfg, **kw)
+        loss.backward()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in _build.launch_counts().items()
+                  if k in BLOCKWISE_KERNELS}
+        return loss.detach(), aux, x.grad, wall, counts
+
+    for cname, cfg in (("reference", nl.REFERENCE_CONFIG),
+                       ("local_rand", nl.NPairLossConfig())):
+        on = run(cfg, sim_cache=True)
+        off = run(cfg, sim_cache=False)
+        if not (torch.equal(on[0], off[0]) and torch.equal(on[2], off[2])
+                and all(torch.equal(on[1][k], off[1][k]) for k in on[1])):
+            fail(f"stretch {cname}: cache on and off differ")
+        rec = {"loss": on[0].item(), "wall_ms_cache_on": on[3],
+               "wall_ms_cache_off": off[3], "launches": on[4],
+               "pairs": [int(on[1]["ident_num"].sum().item()),
+                         int(on[1]["diff_num"].sum().item())]}
+        if cname == "reference":
+            radix = run(cfg, sim_cache=True, pos_topk=0)
+            if not (torch.equal(on[0], radix[0]) and all(
+                    torch.equal(on[1][k], radix[1][k]) for k in on[1])):
+                fail("stretch reference: pos_topk 8 and 0 differ")
+            rec["wall_ms_radix"] = radix[3]
+            rec["launches_radix"] = radix[4]
+        if not (math.isfinite(rec["loss"])
+                and bool(torch.isfinite(on[2]).all())):
+            fail(f"stretch {cname}: non-finite loss or gradient")
+        log(f"[stretch] N={n} D={d} {cname}: cache on = off bit for bit"
+            f"{', pos_topk 8 = 0' if cname == 'reference' else ''}; "
+            f"{json.dumps(rec)}")
+        out[cname] = rec
+        del on, off
+
+    # Each kernel per call at the stretch size (the path's cached
+    # variants, and the recompute variants).
+    cfg = nl.REFERENCE_CONFIG
+    bn = bm = 512
+    _, _, res = bw._forward(f, lab, cfg, bn, bm, True, 8)
+    sims = res["sims"]
+    thr = (res["pos_thr"], res["neg_thr"], res["max_all"])
+    valid = torch.ones(n, device="cuda")
+    g = torch.ones((), device="cuda")
+    gargs = (f, lab, f, lab, *thr, res["ident_sum"], res["all_sum"], valid,
+             g, cfg)
+    pre = [sortable_key(sims[:, 1]) >> 28]  # digit-1 prefixes of real pairs
+    nm, flop = float(n) * n, 2.0 * n * n * d
+    times = {}
+    for name, fn, nbytes, ops in (
+            ("npair_stats+emit", lambda: bw.npair_stats(
+                f, lab, f, lab, hist_same=True, topk=8, emit_sims=True),
+             8 * n * d + 4 * nm, flop),
+            ("npair_hist cached", lambda: bw.npair_hist(
+                f, lab, f, lab, [True], pre, 1, sims=sims), 4 * nm, 0.0),
+            ("npair_hist recompute", lambda: bw.npair_hist(
+                f, lab, f, lab, [True], pre, 1), 8 * n * d, flop),
+            ("npair_loss cached", lambda: bw.npair_loss(
+                f, lab, f, lab, *thr, cfg, sims=sims), 4 * nm, 3 * nm),
+            ("npair_loss recompute", lambda: bw.npair_loss(
+                f, lab, f, lab, *thr, cfg), 8 * n * d, flop + 3 * nm),
+            ("npair_gq cached", lambda: bw.npair_gq(*gargs, sims=sims),
+             4 * nm + 8 * n * d, flop),
+            ("npair_gq recompute", lambda: bw.npair_gq(*gargs),
+             12 * n * d, 2 * flop),
+            ("npair_gdb cached", lambda: bw.npair_gdb(*gargs, sims=sims),
+             4 * nm + 8 * n * d, flop),
+            ("npair_gdb recompute", lambda: bw.npair_gdb(*gargs),
+             12 * n * d, 2 * flop)):
+        bms, by = bound_ms(nbytes, ops, "fp32")
+        times[name] = {"ms": timer.ms(fn, iters=5, warmup=1),
+                       "bound_ms": bms, "bound_by": by}
+        log(f"[stretch] {name} N={n} D={d}: {json.dumps(times[name])}")
+    out["cublas_sim_ms"] = timer.ms(lambda: f @ f.T, iters=5, warmup=1)
+    log(f"[stretch] cuBLAS fp32 sim product feats @ feats.T alone: "
+        f"{out['cublas_sim_ms']:.3f} ms")
+    out["kernel_ms"] = times
+    detail["stretch"] = out
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -998,9 +1656,13 @@ def main() -> int:
     del timer
     launches, summary, qps = drive_path(torch, args.seed, index, emb, detail)
     del index
-    train_launches, _ = drive_train(torch, args.seed, detail)
+    train_launches, dense_step_ms = drive_train(torch, args.seed, detail)
     recompute_launches = check_train_step(torch, args.seed, detail)
     check_reference_mining(torch, args.seed, detail)
+    bw_rows = check_blockwise_kernels(torch, Timer(torch), detail, args.seed)
+    bw_launches, bw_radix_launches, _ = drive_blockwise_train(
+        torch, args.seed, detail, dense_step_ms)
+    check_stretch(torch, Timer(torch), detail, args.seed)
 
     def entry(name, source, replaces, rows, counter, path=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -1049,6 +1711,31 @@ def main() -> int:
               "npairloss_tpu/ops/pallas_stem.py:151",
               path_fp32(train_rows["lrn_bwd_cached"]), "lrn_bwd_cached",
               train_launches),
+    ]
+    # The blockwise kernels at the phase-6b path's shape (N = 120, D =
+    # 1024, sim cache on: the cached variants), with the launches of the
+    # six blockwise train steps — for npair_hist, of the --pos-topk 0
+    # step, where its sweeps do the radix work (with the 8-slot buffer
+    # they return at once).
+    path_120 = lambda rows, variant: [  # noqa: E731
+        r for r in rows if r["n"] == 120 and r["variant"] == variant]
+    src = "npairloss_tpu_torch/csrc/npair_blockwise.cu"
+    kernels += [
+        entry("npair_stats", src, "npairloss_tpu/ops/pallas_npair.py:287",
+              path_120(bw_rows["npair_stats"], "hist_same+topk8+emit"),
+              "npair_stats", bw_launches),
+        entry("npair_hist", src, "npairloss_tpu/ops/pallas_npair.py:355",
+              path_120(bw_rows["npair_hist"], "cached"), "npair_hist",
+              bw_radix_launches),
+        entry("npair_loss", src, "npairloss_tpu/ops/pallas_npair.py:388",
+              path_120(bw_rows["npair_loss"], "cached"), "npair_loss",
+              bw_launches),
+        entry("npair_gq", src, "npairloss_tpu/ops/pallas_npair.py:458",
+              path_120(bw_rows["npair_gq"], "cached"), "npair_gq",
+              bw_launches),
+        entry("npair_gdb", src, "npairloss_tpu/ops/pallas_npair.py:483",
+              path_120(bw_rows["npair_gdb"], "cached"), "npair_gdb",
+              bw_launches),
     ]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

@@ -13,7 +13,8 @@ is not ported is refused by argparse, never accepted and ignored.
          ending with a ``serve_drain`` summary line;
   train: the Caffe solver loop from a solver prototxt on synthetic
          identity batches (``--synthetic``), with the JAX CLI's display
-         lines, ``--log-json`` events and final JSON line.
+         lines, ``--log-json`` events and final JSON line; ``--engine
+         blockwise`` streams the loss through the blockwise kernels.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import os
 import sys
 from typing import Optional
 
+from npairloss_tpu_torch.ops.blockwise_npair import MAX_TOPK
 from npairloss_tpu_torch.ops.ivf_probe import PROBE_IMPLS
 
 log = logging.getLogger("npairloss_tpu_torch")
@@ -169,7 +171,10 @@ def cmd_train(args) -> int:
         model, net_cfg.loss.loss if net_cfg.loss else NPairLossConfig(),
         solver_cfg, param_mults=net_cfg.param_mults,
         loss_weight=(net_cfg.loss.loss_weights[0]
-                     if net_cfg.loss and net_cfg.loss.loss_weights else 1.0))
+                     if net_cfg.loss and net_cfg.loss.loss_weights else 1.0),
+        engine=args.engine or "dense",
+        sim_cache={"auto": None, "on": True, "off": False}[args.sim_cache],
+        pos_topk=None if args.pos_topk == "auto" else int(args.pos_topk))
 
     def batches(d, seed):
         if d is None:
@@ -198,6 +203,21 @@ def cmd_train(args) -> int:
             log_file.close()
     print(json.dumps({k: float(v) for k, v in final.items()}))
     return 0
+
+
+def _pos_topk_arg(v: str):
+    """argparse type for --pos-topk: 'auto' or 0..MAX_TOPK."""
+    if v == "auto":
+        return "auto"
+    try:
+        k = int(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected 'auto' or a non-negative integer, got {v!r}")
+    if not 0 <= k <= MAX_TOPK:
+        raise argparse.ArgumentTypeError(
+            f"buffer slots must be in 0..{MAX_TOPK}, got {k}")
+    return k
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -254,6 +274,19 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--model", help="model registry name (default: from "
                     "the net's name)")
     tr.add_argument("--max_iter", type=int, help="override solver max_iter")
+    # auto and ring wait for distribution (ROADMAP Queue 1 item 7).
+    tr.add_argument("--engine", choices=["dense", "blockwise"],
+                    help="loss engine (default: dense; blockwise streams "
+                    "the pair tiles through the blockwise kernels)")
+    tr.add_argument("--pos-topk", dest="pos_topk", default="auto",
+                    metavar="K", type=_pos_topk_arg,
+                    help="blockwise engine's sparse-positive buffer slots "
+                    "for RELATIVE AP mining, at most 32 (auto = 8; 0 forces "
+                    "radix selection)")
+    tr.add_argument("--sim-cache", dest="sim_cache",
+                    choices=["auto", "on", "off"], default="auto",
+                    help="blockwise engine's fp32 similarity cache (auto = "
+                    "by size)")
     tr.add_argument("--bf16", action="store_true",
                     help="bf16 compute over fp32 params (default fp32)")
     tr.add_argument("--synthetic", action="store_true",

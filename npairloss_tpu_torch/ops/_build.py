@@ -57,6 +57,21 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _VP],
     "npl_ivf_probe": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                       _I, _I, _I, _I, _I, _I, _VP],
+    # feats, labels, pool, pool_labels, n, m, d, self_offset, label_f32,
+    # min_w, max_b, max_a, cnt_s, cnt_d, hist_s, hist_d, topk, k, sims,
+    # stream
+    "npl_npair_stats": [_VP] * 4 + [_I] * 5 + [_VP] * 8 + [_I, _VP, _VP],
+    # ..., sims, n, m, d, self_offset, label_f32, sides, same0, same1,
+    # prefix0, prefix1, digit, skip, out0, out1, stream
+    "npl_npair_hist": [_VP] * 5 + [_I] * 8 + [_VP, _VP, _I] + [_VP] * 4,
+    # ..., sims, n, m, d, self_offset, label_f32, ap, an, margin_ident,
+    # margin_diff, pos_thr, neg_thr, max_all, isum, dsum, inum, dnum,
+    # stream
+    "npl_npair_loss": [_VP] * 5 + [_I] * 7 + [_F, _F] + [_VP] * 8,
+    # ..., margin_diff, pos_thr, neg_thr, max_all, isum, asum, valid, g,
+    # pool_major, out, stream
+    "npl_npair_grad": [_VP] * 5 + [_I] * 7 + [_F, _F] + [_VP] * 7
+                      + [_I, _VP, _VP],
 }
 
 _lock = threading.Lock()

@@ -213,6 +213,94 @@ def mining_thresholds(sims: torch.Tensor, same: torch.Tensor,
     return pos_thr, neg_thr, max_all
 
 
+# -- helpers of the streaming engines --------------------------------------------
+
+
+def absolute_thresholds(min_within: torch.Tensor, max_between: torch.Tensor,
+                        cfg: NPairLossConfig
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pos_thr, neg_thr) from streamed per-query stats, absolute methods
+    (cu:279, 296, 310, 327); GLOBAL reduces over the query axis."""
+    if cfg.ap_mining_region == MiningRegion.LOCAL:
+        pos_thr = max_between
+    else:
+        pos_thr = max_between.amax().expand(max_between.shape)
+    if cfg.an_mining_region == MiningRegion.LOCAL:
+        neg_thr = min_within
+    else:
+        neg_thr = min_within.amin().expand(min_within.shape)
+    return pos_thr, neg_thr
+
+
+def topk_relative_threshold(topk: torch.Tensor, counts: torch.Tensor,
+                            sn: float, region: MiningRegion,
+                            count_dtype: torch.dtype = torch.int32
+                            ) -> torch.Tensor:
+    """RELATIVE_{HARD,EASY} threshold from per-query K-largest candidate
+    buffers ([N, K], padded with -FLT_MAX), valid when every ``counts``
+    fits K: the buffer then IS each query's whole candidate list, and the
+    reference's ascending sorted-list index is a sort of N x K values.
+
+    ``count_dtype`` is the dtype the radix path ranks the same population
+    in (``population_count_dtype`` of the full pair population), so both
+    paths run GLOBAL rank arithmetic in the same widths.  Empty lists
+    give +FLT_MAX, values below 0 clamp to -FLT_MAX."""
+    n, kcap = topk.shape
+    if region == MiningRegion.GLOBAL:
+        total = counts.to(count_dtype).sum(dtype=count_dtype)
+        k = _relative_pos(total[None], sn)[0].to(torch.int32)
+        total32 = total.to(torch.int32)  # <= n*K, always representable
+        flat = torch.sort(topk.reshape(-1)).values  # ascending, padding first
+        pos = torch.clamp(flat.shape[0] - total32 + k, 0, flat.shape[0] - 1)
+        # gather, not flat[pos]: indexing by a 0-dim tensor reads it on
+        # the host, a sync inside the training step.
+        val = flat.gather(0, pos.long().reshape(1))[0]
+        val = torch.where(total32 == 0, FLT_MAX, val)
+        return _clamp_negative(val.expand(n))
+    counts = counts.to(torch.int32)
+    k = _relative_pos(counts, sn)
+    asc = torch.sort(topk, dim=1).values
+    pos = torch.clamp(kcap - counts + k, 0, kcap - 1)
+    val = asc.gather(1, pos.long()[:, None])[:, 0]
+    return _clamp_negative(torch.where(counts == 0, FLT_MAX, val))
+
+
+# Auto-enable a streaming engine's fp32 similarity cache when it needs at
+# most this many bytes — and at most a fifth of the card's memory, so the
+# cache, which lives through the whole model backward, leaves the trunk
+# room.  Where the device reports no memory (the CPU), 2 GiB.
+SIM_CACHE_AUTO_BYTES = 6 << 30
+
+_SIM_CACHE_LOGGED: set = set()
+_CARD_BYTES: Dict[int, int] = {}
+
+
+def resolve_sim_cache_auto(cache_bytes: int, engine: str,
+                           device: Optional[torch.device] = None) -> bool:
+    """Whether a streaming engine's sim cache auto-enables for
+    ``cache_bytes`` on ``device``; every auto-enable is logged once per
+    (engine, size)."""
+    budget = 2 << 30
+    if device is not None and torch.device(device).type == "cuda":
+        index = torch.device(device).index
+        index = torch.cuda.current_device() if index is None else index
+        if index not in _CARD_BYTES:
+            _CARD_BYTES[index] = torch.cuda.mem_get_info(index)[1]
+        budget = _CARD_BYTES[index] // 5
+    budget = min(SIM_CACHE_AUTO_BYTES, budget)
+    enable = cache_bytes <= budget
+    key = (engine, cache_bytes, enable)
+    if enable and key not in _SIM_CACHE_LOGGED:
+        _SIM_CACHE_LOGGED.add(key)
+        import logging
+
+        logging.getLogger("npairloss_tpu_torch").info(
+            "%s: auto-enabling fp32 similarity cache (%.0f MiB <= budget "
+            "%.0f MiB); pass sim_cache=False if memory is tight",
+            engine, cache_bytes / 2**20, budget / 2**20)
+    return enable
+
+
 # -- selection (GetSampledPairMtx, cu:69-122) ------------------------------------
 
 

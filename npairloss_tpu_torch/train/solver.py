@@ -1,5 +1,5 @@
 """The synchronous solver loop — port of ``npairloss_tpu/train/solver.py``'s
-``Solver`` for one device and the dense engine.
+``Solver`` for one device, with the dense or the blockwise loss engine.
 
 The Caffe Solver contract of usage/solver.prototxt: Caffe SGD (lr folded
 in before momentum, ``train/optim.py``), the ``display`` /
@@ -29,6 +29,10 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from npairloss_tpu_torch.ops.blockwise_npair import (
+    blockwise_npair_loss_with_aux,
+    blockwise_retrieval_metrics,
+)
 from npairloss_tpu_torch.ops.metrics import retrieval_metrics
 from npairloss_tpu_torch.ops.npair_loss import (
     NPairLossConfig,
@@ -101,6 +105,13 @@ class Solver:
       param_mults: Caffe's ``((w_lr, w_decay), (b_lr, b_decay))`` recipe.
       loss_weight: the loss top's weight; scales the objective and so
         the gradient.
+      engine: ``"dense"`` materializes the N x N pair matrix;
+        ``"blockwise"`` streams it in tiles through the kernels of
+        ``ops.blockwise_npair``, for pools too large for the matrix.
+      sim_cache: the blockwise engine's fp32 similarity cache (None =
+        auto by size).
+      pos_topk: the blockwise engine's sparse-positive buffer slots
+        (None = 8; 0 forces radix selection).
     """
 
     def __init__(self, model: torch.nn.Module,
@@ -108,7 +119,19 @@ class Solver:
                  cfg: Optional[SolverConfig] = None,
                  top_ks: Sequence[int] = (1, 5, 10),
                  param_mults: Optional[Mults] = None,
-                 loss_weight: float = 1.0):
+                 loss_weight: float = 1.0,
+                 engine: str = "dense",
+                 sim_cache: Optional[bool] = None,
+                 pos_topk: Optional[int] = None):
+        if engine == "ring":
+            raise ValueError('engine="ring" streams the pool over a mesh, '
+                             "and distribution is not ported yet (ROADMAP "
+                             "Queue 1 item 7)")
+        if engine not in ("dense", "blockwise"):
+            raise ValueError(f"unknown engine {engine!r}")
+        self.engine = engine
+        self.sim_cache = sim_cache
+        self.pos_topk = pos_topk
         self.model = model
         self.loss_cfg = loss_cfg
         self.cfg = cfg if cfg is not None else SolverConfig()
@@ -162,10 +185,20 @@ class Solver:
                 lab.to(self.device, non_blocking=True))
 
     def compute_loss(self, emb: torch.Tensor, labels: torch.Tensor):
-        """(objective, metrics): the dense N-pair loss scaled by
-        ``loss_weight`` and the metric tops on the detached aux."""
-        loss, aux = npair_loss_with_aux(emb, labels, self.loss_cfg)
-        metrics = retrieval_metrics(aux, labels, emb.detach(), self.top_ks)
+        """(objective, metrics): the N-pair loss through the configured
+        engine, scaled by ``loss_weight``, and the metric tops — from the
+        dense engine's detached aux, or streamed over the detached
+        embedding for the blockwise engine."""
+        if self.engine == "blockwise":
+            loss, _ = blockwise_npair_loss_with_aux(
+                emb, labels, self.loss_cfg, sim_cache=self.sim_cache,
+                pos_topk=self.pos_topk)
+            metrics = blockwise_retrieval_metrics(emb.detach(), labels,
+                                                  self.top_ks)
+        else:
+            loss, aux = npair_loss_with_aux(emb, labels, self.loss_cfg)
+            metrics = retrieval_metrics(aux, labels, emb.detach(),
+                                        self.top_ks)
         if self.loss_weight != 1.0:
             loss = loss * float(np.float32(self.loss_weight))
         return loss, metrics

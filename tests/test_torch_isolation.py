@@ -2,8 +2,9 @@
 its entry points refuse to drop to the CPU unasked, and a kernel wrapper
 counts only launches of its kernel.
 
-  * the CPU serve path, and the train CLI with one ``googlenet_pallas``
-    training step, run in subprocesses whose ``import jax`` raises (a
+  * the CPU serve path, and the train CLI (dense and ``--engine
+    blockwise``) with one ``googlenet_pallas`` training step on each
+    engine, run in subprocesses whose ``import jax`` raises (a
     poisoned ``jax.py`` first on PYTHONPATH, the test_staticcheck
     trick), and ``jax`` never reaches ``sys.modules``;
   * an AST scan of every port module and ``chip_smoke.py`` finds no
@@ -24,7 +25,14 @@ import torch
 
 from npairloss_tpu_torch import device as tdevice
 from npairloss_tpu_torch.models import get_model
-from npairloss_tpu_torch.ops import _build, ivf_probe, kmeans, stem
+from npairloss_tpu_torch.ops import (
+    _build,
+    blockwise_npair,
+    ivf_probe,
+    kmeans,
+    stem,
+)
+from npairloss_tpu_torch.ops.npair_loss import MiningMethod, NPairLossConfig
 from npairloss_tpu_torch.serve.index import GalleryIndex, load_index
 from npairloss_tpu_torch.serve.ivf import IVFIndex
 
@@ -82,16 +90,18 @@ import torch
 from npairloss_tpu_torch import cli
 from npairloss_tpu_torch.models import get_model
 from npairloss_tpu_torch.train.solver import Solver, SolverConfig
-rc = cli.main(["train", "--solver", "examples/tiny_solver.prototxt",
-               "--synthetic", "--device", "cpu", "--max_iter", "2"])
-assert rc == 0, rc
-model = get_model("googlenet_pallas", device="cpu", dtype=torch.float32)
-solver = Solver(model, cfg=SolverConfig(snapshot=0))
-rng = np.random.default_rng(0)
-m = solver.step(rng.standard_normal((4, 32, 32, 3)).astype(np.float32),
-                np.array([0, 0, 1, 1]))
-assert np.isfinite(float(m["loss"]))
-assert solver.params["conv1.Conv_0.weight"].grad is not None
+for engine in ("dense", "blockwise"):
+    rc = cli.main(["train", "--solver", "examples/tiny_solver.prototxt",
+                   "--synthetic", "--device", "cpu", "--max_iter", "2",
+                   "--engine", engine])
+    assert rc == 0, rc
+    model = get_model("googlenet_pallas", device="cpu", dtype=torch.float32)
+    solver = Solver(model, cfg=SolverConfig(snapshot=0), engine=engine)
+    rng = np.random.default_rng(0)
+    m = solver.step(rng.standard_normal((4, 32, 32, 3)).astype(np.float32),
+                    np.array([0, 0, 1, 1]))
+    assert np.isfinite(float(m["loss"]))
+    assert solver.params["conv1.Conv_0.weight"].grad is not None
 assert not any(k == "jax" or k.startswith(("jax.", "flax", "npairloss_tpu."))
                for k in sys.modules), sorted(sys.modules)
 print("ISOLATED-TRAIN-OK")
@@ -100,7 +110,8 @@ print("ISOLATED-TRAIN-OK")
 
 def test_cpu_train_path_runs_with_jax_poisoned(tmp_path):
     """The train CLI (config, data, solver, loss, metrics) and one
-    ``googlenet_pallas`` training step through the stem Functions."""
+    ``googlenet_pallas`` training step through the stem Functions, on the
+    dense and the blockwise engine."""
     poison = tmp_path / "poison"
     poison.mkdir()
     for mod in ("jax", "flax"):
@@ -190,10 +201,22 @@ def test_kernel_wrappers_on_cpu_tensors_count_no_launch():
                                torch.randn(3, 64),
                                torch.ones(3, dtype=torch.bool),
                                k=4, probes=2, scoring="fp32")
+    # All five blockwise sweeps: stats, the hist digits of the radix
+    # path (pos_topk 0), loss, and gq/gdb in the backward.
+    f = torch.nn.functional.normalize(torch.randn(8, 16), dim=1)
+    f.requires_grad_()
+    loss = blockwise_npair.blockwise_npair_loss(
+        f, torch.tensor([0, 0, 1, 1, 2, 2, 3, 3]),
+        NPairLossConfig(ap_mining_method=MiningMethod.RELATIVE_HARD,
+                        identsn=-0.5), block_size=4, pos_topk=0)
+    loss.backward()
+    assert f.grad is not None
     counts = _build.launch_counts()
     assert set(counts) == {"lrn_fwd", "lrn_fwd_cached", "lrn_bwd",
                            "lrn_bwd_cached", "fused_bias_relu",
-                           "fused_bias_relu_pool", "probe_topk"}
+                           "fused_bias_relu_pool", "probe_topk",
+                           "npair_stats", "npair_hist", "npair_loss",
+                           "npair_gq", "npair_gdb"}
     assert all(v == 0 for v in counts.values()), counts
 
 

@@ -151,7 +151,7 @@ def test_cli_event_stream_matches_jax_cli(tmp_path):
                    if isinstance(v, float))
 
 
-@pytest.mark.parametrize("flag", [["--engine", "blockwise"], ["--mesh", "2"],
+@pytest.mark.parametrize("flag", [["--precision", "mxu"], ["--mesh", "2"],
                                   ["--resume", "auto"], ["--pipeline"],
                                   ["--weights", "w.npz"]])
 def test_unported_train_flags_are_refused(flag, capsys):
