@@ -55,8 +55,11 @@ Phases (any failure raises, exits nonzero and prints no result line):
    kernel's own emitted sims, minima, maxima, counts, histograms and
    the K-slot buffer bit for bit, I/D sums within 1e-4 relative, gq/gdb
    within 1e-5 / 1e-4 of their largest entry; the sims within 1e-5 of
-   cuBLAS; cached and recompute variants bit for bit; each timed beside
-   its bound and its plain sweep;
+   cuBLAS; cached and recompute variants bit for bit; stats, gq and gdb
+   launched twice give the same bits; each timed beside its bound and
+   its plain sweep, stats/gq/gdb also as a multiple of cuBLAS's fp32
+   ``feats @ feats.T`` and a share of the fp32 peak; the hist kernel's
+   early return timed alone;
 6b. ``train --engine blockwise`` in-process on the phase-5 solver cut,
    the net's mining swapped for the reference's (GLOBAL/RELATIVE_HARD
    AP, LOCAL/HARD AN), zero biases: finite losses and metrics, the
@@ -66,7 +69,9 @@ Phases (any failure raises, exits nonzero and prints no result line):
    engines from the same weights and batch;
 6c. the 32,768 pool x 512 dims of STRETCH.json, loss and backward, for
    REFERENCE_CONFIG and LOCAL/RAND: sim cache on and off bit for bit,
-   ``pos_topk`` 8 and 0 equal; each kernel's time per call;
+   ``pos_topk`` 8 and 0 equal; stats, gq and gdb (cached and recompute)
+   launched twice give the same bits; each kernel's time per call (and,
+   as in phase 6, against cuBLAS), the hist kernel's early return;
 7. a ``{"kernels": [...]}`` line (launches of the serving kernels from
    phase 4, of the training kernels from phase 5, of ``lrn_bwd`` from
    the phase-5b recompute step, of the blockwise kernels from phase
@@ -994,6 +999,24 @@ def _abs_err(torch, a, b):
     return float(diff.max().item()) if diff.numel() else 0.0
 
 
+def _same_bits(torch, a, b, what):
+    """Fail unless two launches on the same inputs gave the same bits
+    (tensors, or tuples of tensors and Nones)."""
+    if isinstance(a, torch.Tensor):
+        a, b = (a,), (b,)
+    for x, y in zip(a, b):
+        if (x is None) != (y is None) or (
+                x is not None and not torch.equal(x, y)):
+            fail(f"{what}: two launches on the same inputs differ")
+
+
+def _vs_cublas(ms, cublas_ms, flop):
+    """A fused sweep's time as a multiple of cuBLAS's bare fp32 product
+    in the same run, and its share of the 67 TFLOP/s fp32 peak."""
+    return {"x_cublas": ms / cublas_ms,
+            "fp32_peak_share": flop / (ms * 1e-3) / PEAK_OPS["fp32"]}
+
+
 def check_blockwise_kernels(torch, timer, detail, seed,
                             sizes=((120, 1024), (8192, 1024))):
     """The five kernels of csrc/npair_blockwise.cu against their plain
@@ -1028,6 +1051,10 @@ def check_blockwise_kernels(torch, timer, detail, seed,
                             topk=8, emit_sims=True)
         st_r = bw.npair_stats(f, lab, f, lab, hist_same=True,
                               hist_diff=True, topk=8)
+        st_2 = bw.npair_stats(f, lab, f, lab, hist_same=True,
+                              hist_diff=True, topk=8, emit_sims=True)
+        _same_bits(torch, st, st_2, f"npair_stats N={n}")
+        del st_2
         sims = st.sims
         ref = f @ f.T
         torch.cuda.synchronize()
@@ -1090,6 +1117,10 @@ def check_blockwise_kernels(torch, timer, detail, seed,
                 grads[name] = (kern(*gargs, sims=sims), kern(*gargs),
                                bw.grad_plain(*gargs, pm, sims=sims, bn=bn,
                                              bm=bm))
+                _same_bits(torch, grads[name][0], kern(*gargs, sims=sims),
+                           f"{name} cached N={n} {cname}")
+                _same_bits(torch, grads[name][1], kern(*gargs),
+                           f"{name} recompute N={n} {cname}")
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(l_c, l_r)):
                 fail(f"npair_loss N={n} {cname}: cached and recompute differ")
@@ -1125,6 +1156,11 @@ def check_blockwise_kernels(torch, timer, detail, seed,
         nm, nd = n * n, n * d
         flop = 2.0 * n * n * d
 
+        cublas = out[n]["cublas_sim_ms"] = timer.ms(lambda: f @ f.T)
+        log(f"[kernel] N={n} D={d}: cuBLAS fp32 sim product feats @ "
+            f"feats.T alone (not a yardstick of the fused kernels): "
+            f"{cublas:.4f} ms")
+
         def row(name, kern, plain, nbytes, ops, err, variant):
             bms, by = bound_ms(nbytes, ops, "fp32")
             r = {"n": n, "d": d, "variant": variant, "max_abs_err": err,
@@ -1132,7 +1168,10 @@ def check_blockwise_kernels(torch, timer, detail, seed,
                  "plain_ms": timer.ms(plain, iters=5, warmup=1),
                  "bound_ms": bms, "bound_by": by, "library_ms": None}
             rows[name].append(r)
-            log(f"[kernel] {name} {variant} N={n} D={d}: {json.dumps(r)}")
+            extra = (_vs_cublas(r["ms"], cublas, ops) if name in (
+                "npair_stats", "npair_gq", "npair_gdb") else {})
+            log(f"[kernel] {name} {variant} N={n} D={d}: "
+                f"{json.dumps({**r, **extra})}")
 
         row("npair_stats",
             lambda: bw.npair_stats(f, lab, f, lab, hist_same=True, topk=8,
@@ -1170,10 +1209,13 @@ def check_blockwise_kernels(torch, timer, detail, seed,
                     flop * (1 if cached else 2),
                     out[n][f"reference_{name}_abs_err"],
                     "cached" if cached else "recompute")
-        out[n]["cublas_sim_ms"] = timer.ms(lambda: f @ f.T)
-        log(f"[kernel] N={n} D={d}: cuBLAS fp32 sim product feats @ "
-            f"feats.T alone (not a yardstick of the fused kernels): "
-            f"{out[n]['cublas_sim_ms']:.4f} ms")
+        # The early return of the path's 7 hist launches per step (the
+        # pos_topk fast path holds): one side, the cache on.
+        skip = torch.ones((), dtype=torch.bool, device="cuda")
+        out[n]["hist_skip_ms"] = timer.ms(lambda: bw.npair_hist(
+            f, lab, f, lab, [True], pre[:1], 1, sims=sims, skip=skip))
+        log(f"[kernel] npair_hist early return N={n}: "
+            f"{out[n]['hist_skip_ms']:.4f} ms")
         del sims, keys
     detail["blockwise_kernels"] = {"checks": out, "rows": rows}
     return rows
@@ -1569,6 +1611,26 @@ def check_stretch(torch, timer, detail, seed, n=32768, d=512):
              g, cfg)
     pre = [sortable_key(sims[:, 1]) >> 28]  # digit-1 prefixes of real pairs
     nm, flop = float(n) * n, 2.0 * n * n * d
+    # Each redesigned kernel twice on the same inputs: the same bits.
+    st_kw = dict(hist_same=True, topk=8, emit_sims=True)
+    _same_bits(torch, bw.npair_stats(f, lab, f, lab, **st_kw),
+               bw.npair_stats(f, lab, f, lab, **st_kw),
+               f"stretch npair_stats N={n}")
+    for name, kern in (("npair_gq", bw.npair_gq), ("npair_gdb", bw.npair_gdb)):
+        for s_ in (sims, None):
+            _same_bits(torch, kern(*gargs, sims=s_), kern(*gargs, sims=s_),
+                       f"stretch {name} N={n}")
+    torch.cuda.synchronize()
+    log(f"[stretch] N={n} D={d}: stats, gq, gdb (cached and recompute) "
+        "launched twice give the same bits")
+    out["cublas_sim_ms"] = timer.ms(lambda: f @ f.T, iters=5, warmup=1)
+    log(f"[stretch] cuBLAS fp32 sim product feats @ feats.T alone: "
+        f"{out['cublas_sim_ms']:.3f} ms")
+    skip = torch.ones((), dtype=torch.bool, device="cuda")
+    out["hist_skip_ms"] = timer.ms(lambda: bw.npair_hist(
+        f, lab, f, lab, [True], pre, 1, sims=sims, skip=skip))
+    log(f"[stretch] npair_hist early return N={n}: "
+        f"{out['hist_skip_ms']:.4f} ms")
     times = {}
     for name, fn, nbytes, ops in (
             ("npair_stats+emit", lambda: bw.npair_stats(
@@ -1593,10 +1655,10 @@ def check_stretch(torch, timer, detail, seed, n=32768, d=512):
         bms, by = bound_ms(nbytes, ops, "fp32")
         times[name] = {"ms": timer.ms(fn, iters=5, warmup=1),
                        "bound_ms": bms, "bound_by": by}
+        if name.startswith(("npair_stats", "npair_gq", "npair_gdb")):
+            times[name].update(_vs_cublas(times[name]["ms"],
+                                          out["cublas_sim_ms"], ops))
         log(f"[stretch] {name} N={n} D={d}: {json.dumps(times[name])}")
-    out["cublas_sim_ms"] = timer.ms(lambda: f @ f.T, iters=5, warmup=1)
-    log(f"[stretch] cuBLAS fp32 sim product feats @ feats.T alone: "
-        f"{out['cublas_sim_ms']:.3f} ms")
     out["kernel_ms"] = times
     detail["stretch"] = out
     return out
@@ -1631,8 +1693,11 @@ def main() -> int:
     info = _build.build_info
     log(f"[build] {info['path']} in {time.perf_counter() - t0:.2f} s "
         f"(cached: {info['cached']})")
+    # ptxas -v: each kernel's name, then its spills, registers and shared
+    # memory.
     for ln in str(info.get("log", "")).splitlines():
-        if "registers" in ln or "spill" in ln or "rc " in ln:
+        if ("registers" in ln or "spill" in ln or "rc " in ln
+                or "entry function" in ln):
             log(f"[build] {ln.strip()}")
 
     detail: dict = {"card": card}

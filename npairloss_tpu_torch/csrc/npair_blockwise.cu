@@ -10,31 +10,75 @@
 //   npair_grad_kernel<query-major> <- _make_gq_kernel (:458), _run_bwd (:683)
 //   npair_grad_kernel<pool-major>  <- _make_gdb_kernel (:483), _run_bwd (:683)
 //
-// Bound on an H100 (67 TFLOP/s fp32 outside the tensor cores, 3.35 TB/s
+// Bound on an H100 SXM (67 TFLOP/s fp32 on the FMA pipes, 3.35 TB/s
 // HBM).  Every sweep that recomputes its sims does 2 N M D flop and is
-// bound by operations (at N = M = 32768, D = 512: 16.4 ms); gq and gdb
-// add their own 2 N M D product (16.4 ms with the cache, 32.8 ms
+// bound by operations (N = M = 32768, D = 512: 16.4 ms); gq and gdb add
+// their own 2 N M D product (16.4 ms with the cache, 32.8 ms
 // recomputing).  The cached hist and loss sweeps read the N x M fp32
 // cache once and are bound by bytes (4.29 GB: 1.28 ms).
 //
-// Design.  A block of 256 threads owns a 64-row tile of its output axis
-// (queries; pool rows for gdb) and loops over 64-row tiles of the other
-// axis, keeping its outputs resident — running minima and maxima,
-// counts, histogram bins, the K-slot buffer, the I/D sums — or, for the
-// gradients, read-modify-writing rows of the output that no other block
-// touches.  No atomics anywhere, so repeat runs are bit-identical.
-//   * One sim function, one order: sim(q, i) is one __fmaf_rn chain over
-//     k = 0..D-1 (sim_tile), whichever operand a block owns, so the sims
-//     a pool-major gdb block computes equal the query-major ones, and
-//     the cache the stats kernel writes equals what every recompute
-//     sweep computes.  The cached and recompute variants of a sweep
-//     differ only in produce_tile; everything after it is one code
-//     path, so they give the same bits.
-//   * The sim tile: each thread accumulates a 4 x 4 micro-tile from
-//     16-deep slices of both operands staged in shared memory, then the
-//     tile goes to shared memory, where four threads share each tile row
-//     for the epilogue (16 columns each) and combine with warp shuffles
-//     in a fixed order at the end.
+// One order for every sim, in every kernel: sim(q, i) is one __fmaf_rn
+// chain over k = 0..D-1 in increasing k, starting at +0, whichever
+// operand a block owns (fmaf rounds a*b + c once, so the operands'
+// roles do not matter).  The chain never holds -0, so zero padding past
+// the ends (fmaf(0, 0, acc) == acc) changes no sum.  Each gradient
+// element is one __fmaf_rn chain over the other axis in increasing
+// index.  So the cache the stats kernel writes equals what every
+// recompute sweep computes, pool-major sims equal query-major ones,
+// cached and recompute variants give the same bits, and no atomics
+// appear anywhere: repeat runs are bit-identical.
+//
+// npair_stats_kernel and npair_grad_kernel: the FMA-bound sweeps.
+//   * Shared loads per FMA.  A block of 256 threads computes a 128 x
+//     128 tile; each thread an 8 x 8 micro-tile (rows and columns
+//     {4 l .. 4 l + 3} and {64 + 4 l ..}), reading both operands as
+//     float4 from shared memory: 256 FMAs per 16 LDS.128.  Operand
+//     slices are [rows][32 k] with the 16-byte chunks XOR-swizzled by
+//     row / 4, so the 16 distinct rows a warp reads hit distinct banks.
+//   * Loads overlap the FMAs.  Operands stream through a ring of
+//     kStages = 3 slices of 32 k in dynamic shared memory, filled by
+//     16-byte cp.async.cg copies (zero-filled past the ends), one commit
+//     group per slice, waited with cp.async.wait_group: while a slice
+//     is consumed the next two are in flight — across tile boundaries,
+//     so a tile's epilogue runs while the next tile's first slices load.
+//   * The stats epilogue: the tile goes to shared memory (float4, rows
+//     136 floats apart so a warp's float4 reads are conflict-free) and
+//     to the sim cache straight from registers with 16-byte stores; two
+//     threads then share each row (64 columns each) for the running
+//     min/max, counts, 16-bin digit-0 histograms (16 compares into
+//     registers) and the K-slot buffer (a sorted per-thread buffer in
+//     shared memory, duplicates as distinct entries).
+//   * Filling the card.  A block owns 128 query rows.  Where those row
+//     tiles fill the card badly (N = 8192: 64 tiles for 132 SMs), the
+//     pool axis is split over the CTAs of a thread-block cluster (2, 4
+//     or 8, whichever fills the most SMs); rank 0 combines the ranks'
+//     per-row partials through distributed shared memory in rank order.
+//     Min, max, integer counts, histogram sums and the K-largest
+//     multiset are exact in any order, so the outputs equal the unsplit
+//     sweep's bit for bit (stats_plain(splits=) in blockwise_npair.py
+//     is the plain mirror).
+//   * The gradient keeps its 128 x 128 accumulator (a band of 128 output
+//     rows x a chunk of 128 of the D columns) in registers through the
+//     whole sweep over the other axis and writes each element once, with
+//     16-byte stores: no read-modify-write of the output per tile.
+//   * The weight tile (128 band rows x 128 other rows) is built once per
+//     (band, other tile) and reused for all D columns: the D-chunks of a
+//     band form a cluster of kS = ceil(D / 128) CTAs, rounded up to 4 or
+//     8 (D > 1024 loops over further chunks).  Each CTA builds 128 / kS
+//     of the tile's rows — from the cache (its share staged through the
+//     ring by 4-byte cp.async) plus the pair_weight epilogue, or from its
+//     own sims, so each sim is computed once — and stores them into every
+//     CTA's copy of the tile through distributed shared memory (stores do
+//     not wait on a round trip); the tile is double-buffered, so one
+//     cluster barrier per other tile is the only synchronisation.  The
+//     grid is kS x bands (N = 8192, D = 1024: 512 CTAs; N = 32768, D =
+//     512: 1024).
+//   * The 16-byte copies need D % 4 == 0 and 16-byte aligned rows: the
+//     wrappers zero-pad D (which changes no sim) where it is not.
+//
+// npair_hist_kernel and npair_loss_kernel keep the simple 64 x 64 tile
+// (sim_tile: a 4 x 4 micro-tile from 16-deep slices); their sims are
+// the same chain, so they agree with the cache bit for bit.
 //   * Ragged edges by bounds: rows >= n and columns >= m read 0 and fall
 //     outside both masks; the self pair is column row + self_offset.
 //   * Element-wise maths in explicit __f*_rn intrinsics (expf is the
@@ -42,49 +86,51 @@
 //     rounding; masking is by selection, never by multiplying with a 0
 //     mask (a query with no pairs has max_all = -FLT_MAX and exp
 //     overflows).
-//   * The K-slot buffer keeps the K largest masked same-label sims per
-//     query, duplicates as distinct entries: each thread keeps a sorted
-//     buffer of its columns in shared memory, and the row's four buffers
-//     merge into K descending slots padded with -FLT_MAX.
-//   * The radix histograms count with 16 compares per element into
-//     registers (no scatter).  The hist kernel reads a device flag and,
-//     when the pos_topk fast path already holds, writes zeros and
-//     returns, so the fallback needs no host sync.
+//   * The hist kernel reads a device flag and, when the pos_topk fast
+//     path already holds, writes zeros and returns, so the fallback needs
+//     no host sync.
 
+#include <cooperative_groups.h>
 #include <float.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kT = 64;             // rows of a tile, both axes
-constexpr int kTK = 16;            // depth of a staged operand slice
+constexpr int kT = 64;             // hist/loss: rows of a tile, both axes
+constexpr int kTK = 16;            // hist/loss: depth of a staged slice
 constexpr int kThreads = 256;
-constexpr int kRowThreads = 4;     // threads sharing one tile row
+constexpr int kRowThreads = 4;     // hist/loss: threads sharing one tile row
 constexpr int kCols = kT / kRowThreads;  // columns per thread
 constexpr int kBins = 16;          // 4-bit radix digits
 constexpr int kMaxTopK = 32;  // MAX_TOPK in ops/blockwise_npair.py
+
+constexpr int kBT = 128;           // stats/grad: block tile rows, both axes
+constexpr int kBK = 32;            // depth of one ring slice
+constexpr int kStages = 3;         // ring depth
+constexpr int kSimStride = 136;    // stats: row stride of the sim tile
+constexpr int kWStride = 132;      // grad: row stride of weight tiles
+constexpr int kMaxCluster = 8;     // portable cluster size
+constexpr int kStatFields = 5 + 2 * kBins;  // per-row partials before K
 
 // MiningMethod (ops/npair_loss.py).
 enum Method { HARD = 0, EASY = 1, RAND = 2, RELATIVE_HARD = 3, RELATIVE_EASY = 4 };
 
 struct TileSmem {
-  union {
-    struct {
-      float a[kTK][kT + 4];  // owned rows' slice, k-major
-      float b[kTK][kT + 4];  // other rows' slice, k-major
-    } op;
-    float x[kT][kT + 4];     // the gradient's operand rows
-  } u;
-  float s[kT][kT + 1];       // the sim tile, then the weight tile
+  struct {
+    float a[kTK][kT + 4];  // owned rows' slice, k-major
+    float b[kTK][kT + 4];  // other rows' slice, k-major
+  } op;
+  float s[kT][kT + 1];     // the sim tile
 };
 
-// The one fp32 dot product of every kernel here: for owned rows
-// [o0, o0+64) of `own` and rows [x0, x0+64) of `other` (both row-major,
-// D columns), acc[a][b] = sum_k own[ty+16a][k] * other[tx+16b][k] as one
-// __fmaf_rn chain in increasing k.  Rows past the ends read 0; slices
-// past D are zero-padded, and fmaf(0, 0, acc) == acc exactly because the
-// chain starts at +0 and so never holds -0.
+// The hist and loss sweeps' fp32 dot product: for owned rows [o0, o0+64)
+// of `own` and rows [x0, x0+64) of `other` (both row-major, D columns),
+// acc[a][b] = sum_k own[ty+16a][k] * other[tx+16b][k] as one __fmaf_rn
+// chain in increasing k.  Rows past the ends read 0; slices past D are
+// zero-padded.
 __device__ __forceinline__ void sim_tile(const float* __restrict__ own,
                                          int own_rows, int o0,
                                          const float* __restrict__ other,
@@ -101,21 +147,21 @@ __device__ __forceinline__ void sim_tile(const float* __restrict__ own,
       const int idx = t + e * kThreads, r = idx / kTK, kk = idx % kTK;
       const int k = k0 + kk;
       const bool kin = k < d;
-      sm.u.op.a[kk][r] = (kin && o0 + r < own_rows)
-                             ? own[static_cast<long long>(o0 + r) * d + k]
-                             : 0.f;
-      sm.u.op.b[kk][r] = (kin && x0 + r < other_rows)
-                             ? other[static_cast<long long>(x0 + r) * d + k]
-                             : 0.f;
+      sm.op.a[kk][r] = (kin && o0 + r < own_rows)
+                           ? own[static_cast<long long>(o0 + r) * d + k]
+                           : 0.f;
+      sm.op.b[kk][r] = (kin && x0 + r < other_rows)
+                           ? other[static_cast<long long>(x0 + r) * d + k]
+                           : 0.f;
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kTK; ++kk) {
       float av[4], bv[4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = sm.u.op.a[kk][ty + 16 * a];
+      for (int a = 0; a < 4; ++a) av[a] = sm.op.a[kk][ty + 16 * a];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = sm.u.op.b[kk][tx + 16 * b];
+      for (int b = 0; b < 4; ++b) bv[b] = sm.op.b[kk][tx + 16 * b];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -126,15 +172,13 @@ __device__ __forceinline__ void sim_tile(const float* __restrict__ own,
   }
 }
 
-// Fill sm.s[own][other] for the tile at (q0, i0): recomputed by sim_tile
-// or read from the N x M cache.  kPoolMajor: the block owns pool rows
-// (gdb), so sm.s[r][c] = sim(q0 + c, i0 + r).  emit (query-major only)
-// also writes the recomputed tile to the cache.
-template <bool kCached, bool kPoolMajor>
+// Fill sm.s[q][i] for the query-major tile at (q0, i0): recomputed by
+// sim_tile or read from the N x M cache.
+template <bool kCached>
 __device__ __forceinline__ void produce_tile(
     const float* __restrict__ feats, const float* __restrict__ pool,
-    const float* __restrict__ sims, float* __restrict__ emit, int n, int m,
-    int d, int q0, int i0, TileSmem& sm) {
+    const float* __restrict__ sims, int n, int m, int d, int q0, int i0,
+    TileSmem& sm) {
   const int t = threadIdx.x;
   if (kCached) {
 #pragma unroll
@@ -143,30 +187,18 @@ __device__ __forceinline__ void produce_tile(
       // Consecutive threads read consecutive cache columns (pool rows).
       const int col = idx % kT, row = idx / kT;
       const int q = q0 + row, i = i0 + col;
-      const float v = (q < n && i < m)
-                          ? sims[static_cast<long long>(q) * m + i]
-                          : 0.f;
-      if (kPoolMajor)
-        sm.s[col][row] = v;
-      else
-        sm.s[row][col] = v;
+      sm.s[row][col] = (q < n && i < m)
+                           ? sims[static_cast<long long>(q) * m + i]
+                           : 0.f;
     }
   } else {
     float acc[4][4];
-    if (kPoolMajor)
-      sim_tile(pool, m, i0, feats, n, q0, d, sm, acc);
-    else
-      sim_tile(feats, n, q0, pool, m, i0, d, sm, acc);
+    sim_tile(feats, n, q0, pool, m, i0, d, sm, acc);
     const int ty = t / 16, tx = t % 16;
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int r = ty + 16 * a, c = tx + 16 * b;
-        sm.s[r][c] = acc[a][b];
-        if (!kPoolMajor && emit != nullptr && q0 + r < n && i0 + c < m)
-          emit[static_cast<long long>(q0 + r) * m + i0 + c] = acc[a][b];
-      }
+      for (int b = 0; b < 4; ++b) sm.s[ty + 16 * a][tx + 16 * b] = acc[a][b];
   }
   __syncthreads();
 }
@@ -197,14 +229,6 @@ __device__ __forceinline__ float row_fsum(float v) {
   v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
   v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
   return v;
-}
-__device__ __forceinline__ float row_min(float v) {
-  v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float row_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 // selection_predicates (ops/npair_loss.py), cu:80-119.
@@ -241,23 +265,163 @@ __device__ __forceinline__ Pair pair_of(int q, int i, L lq, L li, int n,
   return {ok && same_lbl, ok && !same_lbl};
 }
 
+// The same for labels held as 32-bit patterns: compared as float32 when
+// f32 (so +0 == -0 and 0.2 != 0.7), else as int32.  The stats and grad
+// kernels take labels so, one instantiation for both label types.
+__device__ __forceinline__ Pair pair_bits(int q, int i, int lq, int li,
+                                          bool f32, int n, int m,
+                                          int self_offset) {
+  const bool ok = q < n && i < m && i != q + self_offset;
+  const bool same_lbl =
+      f32 ? __int_as_float(lq) == __int_as_float(li) : lq == li;
+  return {ok && same_lbl, ok && !same_lbl};
+}
+
+// ------------------------------------------- Hopper building blocks
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !full (the
+// source is then not read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// The oldest in-flight slice has landed (this thread's copies).
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+}
+
+// Row (or column) i in 0..7 of the 8 x 8 micro-tile of lane l (0..15).
+__device__ __forceinline__ int frag(int l, int i) {
+  return ((i >> 2) << 6) + l * 4 + (i & 3);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// Offset of chunk q (k = 4q .. 4q+3) of row r in a [rows][kBK] slice.
+__device__ __forceinline__ int swz(int r, int q) {
+  return r * kBK + 4 * (q ^ ((r >> 2) & 7));
+}
+
+// Rows [r0, r0 + kRows) x k [k0, k0 + kBK) of a row-major [rows, d]
+// matrix into a swizzled slice; past the ends zero-filled.
+template <int kRows>
+__device__ __forceinline__ void load_operand_slice(
+    float* buf, const float* __restrict__ src, int rows, int r0, int d,
+    int k0) {
+  constexpr int kChunks = kRows * (kBK / 4);
+#pragma unroll
+  for (int e = 0; e < (kChunks + kThreads - 1) / kThreads; ++e) {
+    const int idx = threadIdx.x + e * kThreads;
+    if (kChunks % kThreads == 0 || idx < kChunks) {
+      const int r = idx >> 3, q = idx & 7, row = r0 + r, k = k0 + 4 * q;
+      const bool in = row < rows && k < d;
+      cp_async16(buf + swz(r, q),
+                 in ? src + static_cast<long long>(row) * d + k : src, in);
+    }
+  }
+}
+
+// Row i of the kMA rows of a thread's micro-tile in lane ty: the 8 x 8
+// layout when kMA == 8, else kMA consecutive rows.
+template <int kMA>
+__device__ __forceinline__ int arow(int ty, int i) {
+  return kMA == 8 ? frag(ty, i) : ty * kMA + i;
+}
+
+// acc[i][j] continues sim(a row i, b row j) over the slice's 32 k, one
+// __fmaf_rn per k in increasing k.  a rows: arow<kMA>(ty, i); b rows:
+// frag(tx, j).  Within a quarter warp the a
+// reads are one address (broadcast) and the b reads 8 rows whose chunks
+// the swizzle puts in 8 distinct bank groups.
+template <int kMA>
+__device__ __forceinline__ void sim_slice(const float* a, const float* b,
+                                          int ty, int tx,
+                                          float (&acc)[kMA][8]) {
+#pragma unroll 4
+  for (int q = 0; q < kBK / 4; ++q) {
+    float4 av[kMA];
+#pragma unroll
+    for (int i = 0; i < kMA; ++i)
+      av[i] = *reinterpret_cast<const float4*>(
+          a + swz(arow<kMA>(ty, i), q));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 bv =
+          *reinterpret_cast<const float4*>(b + swz(frag(tx, j), q));
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < kMA; ++i)
+          acc[i][j] = __fmaf_rn(comp(av[i], e), comp(bv, e), acc[i][j]);
+    }
+  }
+}
+
 // ------------------------------------------------------------ stats
 
-template <typename L>
-__global__ void __launch_bounds__(kThreads) npair_stats_kernel(
-    const float* __restrict__ feats, const L* __restrict__ labels,
-    const float* __restrict__ pool, const L* __restrict__ pool_labels,
-    int n, int m, int d, int self_offset, float* __restrict__ min_w,
-    float* __restrict__ max_b, float* __restrict__ max_a,
-    int* __restrict__ cnt_s, int* __restrict__ cnt_d,
-    int* __restrict__ hist_s, int* __restrict__ hist_d,
-    float* __restrict__ topk, int k, float* __restrict__ sims_out) {
-  __shared__ TileSmem sm;
-  __shared__ L plab[kT];
-  extern __shared__ float topk_buf[];  // [k][kThreads]
-  const int t = threadIdx.x, r = t / kRowThreads, j = t % kRowThreads;
-  const int q0 = blockIdx.x * kT, q = q0 + r;
-  const L lq = q < n ? labels[q] : L(0);
+// Dynamic shared memory of the stats kernel (floats): the operand ring,
+// the sim tile (later the per-row partials), the K-slot buffers, the
+// pool tile's labels.
+__host__ __device__ constexpr int stats_smem_floats(int k) {
+  return kStages * 2 * kBT * kBK + kBT * kSimStride + k * kThreads + kBT;
+}
+
+// Grid: (splits, row tiles) in clusters of (splits, 1, 1).  Block (s, y)
+// owns queries [128 y, 128 y + 128) and pool tiles [T s / S, T (s+1) / S)
+// of T = ceil(m / 128).
+__global__ void __launch_bounds__(kThreads, 1) npair_stats_kernel(
+    const float* __restrict__ feats, const int* __restrict__ labels,
+    const float* __restrict__ pool, const int* __restrict__ pool_labels,
+    int label_f32, int n, int m, int d, int self_offset,
+    float* __restrict__ min_w, float* __restrict__ max_b,
+    float* __restrict__ max_a, int* __restrict__ cnt_s,
+    int* __restrict__ cnt_d, int* __restrict__ hist_s,
+    int* __restrict__ hist_d, float* __restrict__ topk, int k,
+    float* __restrict__ sims_out) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* tile = ring + kStages * 2 * kBT * kBK;
+  float* topk_buf = tile + kBT * kSimStride;  // [k][kThreads]
+  int* plab = reinterpret_cast<int*>(topk_buf + k * kThreads);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const bool f32 = label_f32 != 0;
+  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
+  const int r = t >> 1, j = t & 1;  // epilogue: row r, half j
+  const int q0 = blockIdx.y * kBT, q = q0 + r;
+  const int lq = q < n ? labels[q] : 0;
+  const int col_tiles = (m + kBT - 1) / kBT;
+  const int ct0 = col_tiles * rank / splits;
+  const int ct1 = col_tiles * (rank + 1) / splits;
+  const int nk = (d + kBK - 1) / kBK;
+  const int total = (ct1 - ct0) * nk;  // ring slices of this block
+  const bool vec_emit = (m & 3) == 0;
+
+  // Slice g: k-slice g % nk of the block's (g / nk)-th pool tile.
+  auto issue = [&](int g) {
+    if (g < total) {
+      float* buf = ring + (g % kStages) * (2 * kBT * kBK);
+      const int k0 = (g % nk) * kBK;
+      load_operand_slice<kBT>(buf, feats, n, q0, d, k0);
+      load_operand_slice<kBT>(buf + kBT * kBK, pool, m,
+                              (ct0 + g / nk) * kBT, d, k0);
+    }
+    cp_async_commit();
+  };
+
   float mn = FLT_MAX, mxb = -FLT_MAX, mxa = -FLT_MAX;
   int cs = 0, cd = 0;
   int hs[kBins], hd[kBins];
@@ -265,80 +429,174 @@ __global__ void __launch_bounds__(kThreads) npair_stats_kernel(
   for (int b = 0; b < kBins; ++b) hs[b] = hd[b] = 0;
   for (int s = 0; s < k; ++s) topk_buf[s * kThreads + t] = -FLT_MAX;
 
-  for (int i0 = 0; i0 < m; i0 += kT) {
-    if (t < kT) plab[t] = i0 + t < m ? pool_labels[i0 + t] : L(0);
-    produce_tile<false, false>(feats, pool, nullptr, sims_out, n, m, d, q0,
-                               i0, sm);
-    for (int u = 0; u < kCols; ++u) {
-      const int c = j * kCols + u, i = i0 + c;
-      const float v = sm.s[r][c];
-      const Pair p = pair_of(q, i, lq, plab[c], n, m, self_offset);
-      if (p.same) {
-        mn = fminf(mn, v);
-        ++cs;
-        if (hist_s != nullptr) hist_add(hs, sortable_key(v), 0, 0u);
-        if (k > 0 && v > topk_buf[(k - 1) * kThreads + t]) {
-          // Sorted insert, descending; equal values stay distinct slots.
-          int at = k - 1;
-          while (at > 0 && topk_buf[(at - 1) * kThreads + t] < v) {
-            topk_buf[at * kThreads + t] = topk_buf[(at - 1) * kThreads + t];
-            --at;
-          }
-          topk_buf[at * kThreads + t] = v;
-        }
-      } else if (p.diff) {
-        mxb = fmaxf(mxb, v);
-        ++cd;
-        if (hist_d != nullptr) hist_add(hd, sortable_key(v), 0, 0u);
-      }
-      if (p.same || p.diff) mxa = fmaxf(mxa, v);
+  for (int g = 0; g < kStages - 1; ++g) issue(g);
+  float acc[8][8];
+  for (int g = 0; g < total; ++g) {
+    const int kk = g % nk;
+    if (kk == 0) {
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
     }
-    __syncthreads();  // sm.s and plab are rewritten by the next tile
+    cp_async_wait_ring();
+    __syncthreads();  // slice g is in; slice g-1's buffer is free
+    issue(g + kStages - 1);
+    const float* buf = ring + (g % kStages) * (2 * kBT * kBK);
+    sim_slice<8>(buf, buf + kBT * kBK, ty, tx, acc);
+    if (kk != nk - 1) continue;
+
+    // The finished tile: to shared memory for the row-wise epilogue, and
+    // to the cache straight from registers.  The sync at the top of this
+    // slice ordered these writes after the last epilogue's reads.
+    const int i0 = (ct0 + g / nk) * kBT;
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const int row = frag(ty, a);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = h * 64 + tx * 4;
+        const float4 v = make_float4(acc[a][4 * h], acc[a][4 * h + 1],
+                                     acc[a][4 * h + 2], acc[a][4 * h + 3]);
+        *reinterpret_cast<float4*>(tile + row * kSimStride + col) = v;
+        if (sims_out != nullptr && q0 + row < n) {
+          float* dst =
+              sims_out + static_cast<long long>(q0 + row) * m + i0 + col;
+          if (vec_emit) {
+            if (i0 + col < m) *reinterpret_cast<float4*>(dst) = v;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (i0 + col + e < m) dst[e] = comp(v, e);
+          }
+        }
+      }
+    }
+    if (t < kBT) plab[t] = i0 + t < m ? pool_labels[i0 + t] : 0;
+    __syncthreads();
+    // Thread (r, j) takes columns 4 (2u + j) .. + 3 of row r.
+#pragma unroll 1
+    for (int u = 0; u < kBT / 8; ++u) {
+      const int c0 = 4 * (2 * u + j);
+      const float4 v4 =
+          *reinterpret_cast<const float4*>(tile + r * kSimStride + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + e;
+        const float v = comp(v4, e);
+        const Pair p =
+            pair_bits(q, i0 + c, lq, plab[c], f32, n, m, self_offset);
+        if (p.same) {
+          mn = fminf(mn, v);
+          ++cs;
+          if (hist_s != nullptr) hist_add(hs, sortable_key(v), 0, 0u);
+          if (k > 0 && v > topk_buf[(k - 1) * kThreads + t]) {
+            // Sorted insert, descending; equal values stay distinct slots.
+            int at = k - 1;
+            while (at > 0 && topk_buf[(at - 1) * kThreads + t] < v) {
+              topk_buf[at * kThreads + t] = topk_buf[(at - 1) * kThreads + t];
+              --at;
+            }
+            topk_buf[at * kThreads + t] = v;
+          }
+        } else if (p.diff) {
+          mxb = fmaxf(mxb, v);
+          ++cd;
+          if (hist_d != nullptr) hist_add(hd, sortable_key(v), 0, 0u);
+        }
+        if (p.same || p.diff) mxa = fmaxf(mxa, v);
+      }
+    }
   }
 
-  mn = row_min(mn);
-  mxb = row_max(mxb);
-  mxa = row_max(mxa);
-  cs = row_sum(cs);
-  cd = row_sum(cd);
+  // The row's two halves (lanes t, t ^ 1 of one warp).
+  mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, 1));
+  mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, 1));
+  mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, 1));
+  cs += __shfl_xor_sync(0xffffffffu, cs, 1);
+  cd += __shfl_xor_sync(0xffffffffu, cd, 1);
 #pragma unroll
   for (int b = 0; b < kBins; ++b) {
-    hs[b] = row_sum(hs[b]);
-    hd[b] = row_sum(hd[b]);
+    hs[b] += __shfl_xor_sync(0xffffffffu, hs[b], 1);
+    hd[b] += __shfl_xor_sync(0xffffffffu, hd[b], 1);
   }
-  if (j == 0 && q < n) {
-    min_w[q] = mn;
-    max_b[q] = mxb;
-    max_a[q] = mxa;
-    cnt_s[q] = cs;
-    cnt_d[q] = cd;
+  __syncthreads();  // the last epilogue is done with the tile
+  // Per-row partials, field-major: part[f * kBT + row].
+  float* part = tile;
+  if (j == 0) {
+    part[0 * kBT + r] = mn;
+    part[1 * kBT + r] = mxb;
+    part[2 * kBT + r] = mxa;
+    part[3 * kBT + r] = __int_as_float(cs);
+    part[4 * kBT + r] = __int_as_float(cd);
 #pragma unroll
     for (int b = 0; b < kBins; ++b) {
-      if (hist_s != nullptr) hist_s[q * kBins + b] = hs[b];
-      if (hist_d != nullptr) hist_d[q * kBins + b] = hd[b];
+      part[(5 + b) * kBT + r] = __int_as_float(hs[b]);
+      part[(5 + kBins + b) * kBT + r] = __int_as_float(hd[b]);
+    }
+    // Merge the row's two descending buffers into K descending slots.
+    int a0 = 0, a1 = 0;
+    for (int s = 0; s < k; ++s) {
+      const float v0 = a0 < k ? topk_buf[a0 * kThreads + t] : -FLT_MAX;
+      const float v1 = a1 < k ? topk_buf[a1 * kThreads + t + 1] : -FLT_MAX;
+      const bool take1 = v1 > v0;
+      part[(kStatFields + s) * kBT + r] = take1 ? v1 : v0;
+      a0 += !take1;
+      a1 += take1;
     }
   }
-  if (k > 0) {
+  if (splits > 1)
+    cluster.sync();  // every rank's partials are written
+  else
     __syncthreads();
-    if (j == 0 && q < n) {
-      // Merge the row's four descending buffers into K descending slots.
-      int at[kRowThreads] = {0, 0, 0, 0};
-      for (int s = 0; s < k; ++s) {
-        int best = 0;
-        float bv = -FLT_MAX;
-        for (int w = 0; w < kRowThreads; ++w) {
-          const float cand =
-              at[w] < k ? topk_buf[at[w] * kThreads + t + w] : -FLT_MAX;
-          if (w == 0 || cand > bv) {
-            bv = cand;
-            best = w;
-          }
-        }
-        ++at[best];
-        topk[static_cast<long long>(q) * k + s] = bv;
+  // Rank 0 combines the ranks' partials in rank order (all exact).
+  if (rank == 0 && t < kBT && q0 + t < n) {
+    const int qq = q0 + t;
+    const float* src[kMaxCluster];
+    for (int s = 0; s < splits; ++s)
+      src[s] = s == 0 ? part : cluster.map_shared_rank(part, s);
+    float a = FLT_MAX, b = -FLT_MAX, c = -FLT_MAX;
+    int ns = 0, nd = 0;
+    for (int s = 0; s < splits; ++s) {
+      a = fminf(a, src[s][0 * kBT + t]);
+      b = fmaxf(b, src[s][1 * kBT + t]);
+      c = fmaxf(c, src[s][2 * kBT + t]);
+      ns += __float_as_int(src[s][3 * kBT + t]);
+      nd += __float_as_int(src[s][4 * kBT + t]);
+    }
+    min_w[qq] = a;
+    max_b[qq] = b;
+    max_a[qq] = c;
+    cnt_s[qq] = ns;
+    cnt_d[qq] = nd;
+    for (int side = 0; side < 2; ++side) {
+      int* h = side == 0 ? hist_s : hist_d;
+      if (h == nullptr) continue;
+      for (int bin = 0; bin < kBins; ++bin) {
+        int sum = 0;
+        for (int s = 0; s < splits; ++s)
+          sum += __float_as_int(src[s][(5 + side * kBins + bin) * kBT + t]);
+        h[static_cast<long long>(qq) * kBins + bin] = sum;
       }
     }
+    int at[kMaxCluster];
+    for (int s = 0; s < splits; ++s) at[s] = 0;
+    for (int slot = 0; slot < k; ++slot) {
+      int best = 0;
+      float bv = -FLT_MAX;
+      for (int s = 0; s < splits; ++s) {
+        const float cand =
+            at[s] < k ? src[s][(kStatFields + at[s]) * kBT + t] : -FLT_MAX;
+        if (s == 0 || cand > bv) {
+          bv = cand;
+          best = s;
+        }
+      }
+      ++at[best];
+      topk[static_cast<long long>(qq) * k + slot] = bv;
+    }
   }
+  if (splits > 1) cluster.sync();  // no rank leaves while rank 0 reads
 }
 
 // ------------------------------------------------------------- hist
@@ -375,8 +633,7 @@ __global__ void __launch_bounds__(kThreads) npair_hist_kernel(
 
   for (int i0 = 0; i0 < m; i0 += kT) {
     if (t < kT) plab[t] = i0 + t < m ? pool_labels[i0 + t] : L(0);
-    produce_tile<kCached, false>(feats, pool, sims, nullptr, n, m, d, q0, i0,
-                                 sm);
+    produce_tile<kCached>(feats, pool, sims, n, m, d, q0, i0, sm);
     for (int u = 0; u < kCols; ++u) {
       const int c = j * kCols + u;
       const Pair p = pair_of(q, i0 + c, lq, plab[c], n, m, self_offset);
@@ -426,8 +683,7 @@ __global__ void __launch_bounds__(kThreads) npair_loss_kernel(
   int ic = 0, dc = 0;
   for (int i0 = 0; i0 < m; i0 += kT) {
     if (t < kT) plab[t] = i0 + t < m ? pool_labels[i0 + t] : L(0);
-    produce_tile<kCached, false>(feats, pool, sims, nullptr, n, m, d, q0, i0,
-                                 sm);
+    produce_tile<kCached>(feats, pool, sims, n, m, d, q0, i0, sm);
     for (int u = 0; u < kCols; ++u) {
       const int c = j * kCols + u;
       const float v = sm.s[r][c];
@@ -465,126 +721,374 @@ __device__ __forceinline__ float inv0(float den) {
   return den != 0.f ? __fdiv_rn(1.f, den) : 0.f;
 }
 
+__device__ __forceinline__ QueryTerms make_terms(
+    float pos_thr, float neg_thr, float max_all, float isum, float asum,
+    float valid, float margin_ident, float margin_diff, float scale_g) {
+  const float scale = __fmul_rn(scale_g, valid);
+  const float ia = inv0(asum);
+  return {__fadd_rn(pos_thr, margin_ident), __fadd_rn(neg_thr, margin_diff),
+          max_all, __fmul_rn(__fadd_rn(-inv0(isum), ia), scale),
+          __fmul_rn(ia, scale)};
+}
+
 __device__ __forceinline__ QueryTerms query_terms(
     int q, float margin_ident, float margin_diff, const float* pos_thr,
     const float* neg_thr, const float* max_all, const float* isum,
     const float* asum, const float* valid, float scale_g) {
-  const float scale = __fmul_rn(scale_g, valid[q]);
-  const float ia = inv0(asum[q]);
-  return {__fadd_rn(pos_thr[q], margin_ident),
-          __fadd_rn(neg_thr[q], margin_diff), max_all[q],
-          __fmul_rn(__fadd_rn(-inv0(isum[q]), ia), scale),
-          __fmul_rn(ia, scale)};
+  return make_terms(pos_thr[q], neg_thr[q], max_all[q], isum[q], asum[q],
+                    valid[q], margin_ident, margin_diff, scale_g);
 }
 
 // w = (-p1 + p2 + p3) * valid * g / N for one pair: a_q on a selected
 // positive, b_q on a selected negative, 0 elsewhere — by selection, never
-// by a multiplied mask.
+// by a multiplied mask (exp overflows to inf where max_all = -FLT_MAX,
+// and is then not selected).  Branch-free: exp is evaluated for every
+// pair, so the 16 weights of a thread interleave.
 __device__ __forceinline__ float pair_weight(float v, Pair p, int ap, int an,
                                              const QueryTerms& qt) {
-  const bool sp = p.same && pos_pred(ap, v, qt.pt);
-  const bool sn = p.diff && neg_pred(an, v, qt.nt);
-  if (!(sp || sn)) return 0.f;
-  return __fmul_rn(expf(__fsub_rn(v, qt.mx)), sp ? qt.a : qt.b);
+  // pos_pred / neg_pred as selections, not a switch.
+  const bool sp =
+      p.same && (ap == HARD            ? v < qt.pt
+                 : ap == RAND          ? true
+                 : ap == RELATIVE_HARD ? v <= qt.pt
+                                       : v >= qt.pt);
+  const bool sn =
+      p.diff && (an == HARD            ? v > qt.nt
+                 : an == RAND          ? true
+                 : an == RELATIVE_HARD ? v >= qt.nt
+                                       : v <= qt.nt);
+  const float e = __fmul_rn(expf(__fsub_rn(v, qt.mx)), sp ? qt.a : qt.b);
+  return (sp || sn) ? e : 0.f;
 }
 
-// kPoolMajor = false: gq = w @ pool, a block owns 64 queries and loops
-// over pool tiles.  kPoolMajor = true: gdb = w^T @ feats, a block owns 64
-// pool rows and loops over query tiles.  Each output element is one
-// __fmaf_rn chain over the other axis in increasing order, read from and
-// written back to the block's own output rows between tiles.
-template <bool kCached, bool kPoolMajor, typename L>
-__global__ void __launch_bounds__(kThreads) npair_grad_kernel(
-    const float* __restrict__ feats, const L* __restrict__ labels,
-    const float* __restrict__ pool, const L* __restrict__ pool_labels,
-    const float* __restrict__ sims, int n, int m, int d, int self_offset,
-    int ap, int an, float margin_ident, float margin_diff,
-    const float* __restrict__ pos_thr, const float* __restrict__ neg_thr,
-    const float* __restrict__ max_all, const float* __restrict__ isum,
-    const float* __restrict__ asum, const float* __restrict__ valid,
-    const float* __restrict__ g, float* __restrict__ out) {
-  __shared__ TileSmem sm;
-  __shared__ QueryTerms qt[kT];
-  __shared__ L qlab[kT], plab[kT];
-  const int t = threadIdx.x, r = t / kRowThreads, j = t % kRowThreads;
-  const int ty = t / 16, tx = t % 16;
-  const int own0 = blockIdx.x * kT;
-  const int own_rows = kPoolMajor ? m : n;
-  const int other_rows = kPoolMajor ? n : m;
-  const float* xop = kPoolMajor ? feats : pool;  // the product's operand
+// Floats of one ring slice's payload: a 32-row X slice of 128 columns;
+// the cached variant's share of one cache tile (kBT / kS rows x 128); or
+// the recompute variant's 32-k slice of the block's kBT / kS weight rows
+// and of the 128 other rows.
+template <bool kCached, int kS>
+__host__ __device__ constexpr int grad_payload_floats() {
+  return kCached ? (kBT / kS * kBT > kBK * kBT ? kBT / kS * kBT : kBK * kBT)
+                 : ((kBT / kS + kBT) * kBK > kBK * kBT ? (kBT / kS + kBT) * kBK
+                                                       : kBK * kBT);
+}
+// The first slice of each other tile also carries the next tile's rows'
+// labels and, pool-major, their six per-query inputs.
+constexpr int kRaw = 7 * kBT;
+
+template <bool kCached, int kS>
+__host__ __device__ constexpr size_t grad_smem_bytes() {
+  return sizeof(float) * (kStages * (grad_payload_floats<kCached, kS>() + kRaw) +
+                          2 * kBT * kWStride) +
+         sizeof(QueryTerms) * (2 * kBT + kBT / kS) +
+         sizeof(int) * (2 * kBT + kBT / kS);
+}
+
+// 4 bytes global -> shared, asynchronously; zero-filled when !full.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+// The gradient of one band of 128 output rows and one chunk of 128 of
+// its D columns.  pool_major = 0: gq = w @ pool, the band is 128
+// queries and the other axis the pool; 1: gdb = w^T @ feats, the band
+// is 128 pool rows and the other axis the queries.  Grid: (kS, bands) in
+// clusters of (kS, 1, 1); rank s takes chunks s, s + kS, ... and builds
+// rows [s kBT / kS, (s+1) kBT / kS) of every weight tile, which it
+// stores into every rank's double-buffered tile (distributed shared
+// memory stores do not wait); one cluster barrier per other tile then
+// makes the whole tile visible everywhere.
+template <bool kCached, int kS>
+__global__ void __launch_bounds__(kThreads, 1) npair_grad_kernel(
+    const float* __restrict__ feats, const int* __restrict__ labels,
+    const float* __restrict__ pool, const int* __restrict__ pool_labels,
+    int label_f32, int pool_major, const float* __restrict__ sims, int n,
+    int m, int d, int self_offset, int ap, int an, float margin_ident,
+    float margin_diff, const float* __restrict__ pos_thr,
+    const float* __restrict__ neg_thr, const float* __restrict__ max_all,
+    const float* __restrict__ isum, const float* __restrict__ asum,
+    const float* __restrict__ valid, const float* __restrict__ g,
+    float* __restrict__ out) {
+  static_assert(kS == 4 || kS == 8, "a cluster of 4 or 8");
+  constexpr int kRs = kBT / kS;   // weight rows this block builds
+  constexpr int kMA = 8 / kS;     // ... per thread (recompute)
+  constexpr int kMain = grad_payload_floats<kCached, kS>();
+  constexpr int kStage = kMain + kRaw;
+  constexpr int kXSlices = kBT / kBK;
+  constexpr int kGroups = kRs * kBT / 4 / kThreads;  // cached: float4s
+  const bool pm = pool_major != 0;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* wl = ring + kStages * kStage;  // 2 x [kBT][kWStride] weight tiles
+  // Per other tile, double-buffered: its rows' labels and (pool-major)
+  // query terms.
+  QueryTerms* xqt = reinterpret_cast<QueryTerms*>(wl + 2 * kBT * kWStride);
+  QueryTerms* oqt = xqt + 2 * kBT;
+  int* xlab = reinterpret_cast<int*>(oqt + kRs);
+  int* olab = xlab + 2 * kBT;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const bool f32 = label_f32 != 0;
+  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
+  const int own_rows = pm ? m : n;
+  const int other_rows = pm ? n : m;
+  const float* own_op = pm ? pool : feats;
+  const float* xop = pm ? feats : pool;  // the product's operand
+  const int o0 = blockIdx.y * kBT;
+  const int sr0 = o0 + rank * kRs;  // the weight rows this block builds
   // dot_normalizer = the query count in the backward (cu:427).
   const float scale_g = __fdiv_rn(g[0], static_cast<float>(n));
+  const int x_tiles = (other_rows + kBT - 1) / kBT;
+  const int nk = (d + kBK - 1) / kBK;
+  const int passes = ((d + kBT - 1) / kBT + kS - 1) / kS;
+  const int n_a = kCached ? 1 : nk;  // weight-source slices per tile
 
-  for (int x0 = 0; x0 < other_rows; x0 += kT) {
-    const int q0 = kPoolMajor ? x0 : own0, i0 = kPoolMajor ? own0 : x0;
-    if (t < kT) {
-      const int q = q0 + t, i = i0 + t;
-      plab[t] = i < m ? pool_labels[i] : L(0);
-      qlab[t] = q < n ? labels[q] : L(0);
-      if (q < n)
-        qt[t] = query_terms(q, margin_ident, margin_diff, pos_thr, neg_thr,
-                            max_all, isum, asum, valid, scale_g);
+  // The ring's slice sequence: per pass, per other tile, n_a slices for
+  // the weight share (the cache share, or the sims' operands) then, when
+  // the pass has columns, kXSlices X slices.
+  auto per_tile = [&](int p) {
+    return n_a + ((p * kS + rank) * kBT < d ? kXSlices : 0);
+  };
+  auto issue = [&](int gi) {
+    int p = 0, rem = gi;
+    for (; p < passes; ++p) {
+      const int per = x_tiles * per_tile(p);
+      if (rem < per) break;
+      rem -= per;
     }
-    produce_tile<kCached, kPoolMajor>(feats, pool, sims, nullptr, n, m, d,
-                                      q0, i0, sm);
-    // The weight tile, in place of the sims.
-    for (int u = 0; u < kCols; ++u) {
-      const int c = j * kCols + u;
-      const int ql = kPoolMajor ? c : r, pl = kPoolMajor ? r : c;
-      const Pair p = pair_of(q0 + ql, i0 + pl, qlab[ql], plab[pl], n, m,
-                             self_offset);
-      sm.s[r][c] = (p.same || p.diff)
-                       ? pair_weight(sm.s[r][c], p, ap, an, qt[ql])
-                       : 0.f;
+    if (p < passes) {
+      const int per = per_tile(p);
+      const int xt = rem / per, x0 = xt * kBT, s = rem % per;
+      float* buf = ring + (gi % kStages) * kStage;
+      const int nx0 = xt + 1 < x_tiles ? x0 + kBT : 0;  // the next tile
+      if (s == 0 && t < kBT) {
+        const int x = nx0 + t;
+        const bool in = x < other_rows, iq = x < n;
+        const int* lab = pm ? labels : pool_labels;
+        cp_async4(buf + kMain + t,
+                  reinterpret_cast<const float*>(in ? lab + x : lab), in);
+        if (pm) {
+          const float* vec[6] = {pos_thr, neg_thr, max_all, isum, asum, valid};
+#pragma unroll
+          for (int j = 0; j < 6; ++j)
+            cp_async4(buf + kMain + (1 + j) * kBT + t,
+                      iq ? vec[j] + x : vec[j], iq);
+        }
+      }
+      if (s < n_a && kCached) {
+        // Query-major: [r][c] = sims[sr0 + r][x0 + c]; pool-major:
+        // [c][r] = sims[x0 + c][sr0 + r] — consecutive threads on
+        // consecutive cache columns either way.
+#pragma unroll
+        for (int e = 0; e < kRs * kBT / kThreads; ++e) {
+          const int idx = t + e * kThreads;
+          const int q = pm ? x0 + idx / kRs : sr0 + idx / kBT;
+          const int i = pm ? sr0 + idx % kRs : x0 + idx % kBT;
+          const bool in = q < n && i < m;
+          cp_async4(buf + idx,
+                    in ? sims + static_cast<long long>(q) * m + i : sims, in);
+        }
+      } else if (s < n_a) {
+        load_operand_slice<kRs>(buf, own_op, own_rows, sr0, d, s * kBK);
+        load_operand_slice<kBT>(buf + kRs * kBK, xop, other_rows, x0, d,
+                                s * kBK);
+      } else {
+        const int c0 = (p * kS + rank) * kBT, xr0 = x0 + (s - n_a) * kBK;
+#pragma unroll
+        for (int e = 0; e < kBK * kBT / 4 / kThreads; ++e) {
+          const int idx = t + e * kThreads, rr = idx >> 5, c4 = idx & 31;
+          const int row = xr0 + rr, col = c0 + 4 * c4;
+          const bool in = row < other_rows && col < d;
+          cp_async16(buf + rr * kBT + 4 * c4,
+                     in ? xop + static_cast<long long>(row) * d + col : xop,
+                     in);
+        }
+      }
     }
-    __syncthreads();
-    // out[own rows] += W @ X[x0 .. x0+64), 64 columns of D at a time.
-    for (int d0 = 0; d0 < d; d0 += kT) {
+    cp_async_commit();
+  };
+
+  // The current other tile's labels and terms (buffer tc & 1).
+  const int* xl = xlab;
+  const QueryTerms* xq = xqt;
+  // Weight of element (r, c) of this block's share: own row sr0 + r,
+  // other row x0 + c, from its sim v.
+  auto weight = [&](int r, int c, int x0, float v) {
+    const int q = pm ? x0 + c : sr0 + r;
+    const int i = pm ? sr0 + r : x0 + c;
+    const Pair p = pair_bits(q, i, pm ? xl[c] : olab[r],
+                             pm ? olab[r] : xl[c], f32, n, m, self_offset);
+    return pair_weight(v, p, ap, an, pm ? xq[c] : oqt[r]);
+  };
+  // The next tile's labels and terms, from the raw rows its first slice
+  // brought, into buffer b.
+  auto next_terms = [&](const float* raw, int b) {
+    if (t < kBT) {
+      xlab[b * kBT + t] = __float_as_int(raw[t]);
+      if (pm)
+        xqt[b * kBT + t] =
+            make_terms(raw[kBT + t], raw[2 * kBT + t], raw[3 * kBT + t],
+                       raw[4 * kBT + t], raw[5 * kBT + t], raw[6 * kBT + t],
+                       margin_ident, margin_diff, scale_g);
+    }
+  };
+  // Four weights of share row r, columns c .. c + 3, into every rank's
+  // weight tile wt.
+  auto push = [&](float* wt, int r, int c, float4 w) {
+    const int off = (rank * kRs + r) * kWStride + c;
 #pragma unroll
-      for (int e = 0; e < kT * kT / kThreads; ++e) {
-        const int idx = t + e * kThreads, row = idx / kT, col = idx % kT;
-        sm.u.x[row][col] =
-            (x0 + row < other_rows && d0 + col < d)
-                ? xop[static_cast<long long>(x0 + row) * d + d0 + col]
-                : 0.f;
-      }
-      __syncthreads();
-      // A 4 x 4 register tile per thread, as in sim_tile; each element
-      // is still one fmaf chain over c in increasing order.
-      float acc[4][4];
+    for (int s = 0; s < kS; ++s) {
+      float* dst = s == rank ? wt : cluster.map_shared_rank(wt, s);
+      *reinterpret_cast<float4*>(dst + off) = w;
+    }
+  };
+
+  if (t < kRs) {
+    const int o = sr0 + t;
+    olab[t] = o < own_rows ? (pm ? pool_labels : labels)[o] : 0;
+    if (!pm && o < n)
+      oqt[t] = query_terms(o, margin_ident, margin_diff, pos_thr, neg_thr,
+                           max_all, isum, asum, valid, scale_g);
+  }
+  if (t < kBT) {  // the first other tile's, into buffer 0
+    xlab[t] = t < other_rows ? (pm ? labels : pool_labels)[t] : 0;
+    if (pm && t < n)
+      xqt[t] = query_terms(t, margin_ident, margin_diff, pos_thr, neg_thr,
+                           max_all, isum, asum, valid, scale_g);
+  }
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+
+  int gi = 0, tc = 0;
+  for (int p = 0; p < passes; ++p) {
+    const int c0 = (p * kS + rank) * kBT;
+    const bool cols = c0 < d;
+    float acc[8][8];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < 8; ++a)
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int row = own0 + ty + 16 * a, col = d0 + tx + 16 * b;
-          acc[a][b] = (x0 > 0 && row < own_rows && col < d)
-                          ? out[static_cast<long long>(row) * d + col]
-                          : 0.f;
+      for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+    for (int xt = 0; xt < x_tiles; ++xt, ++tc) {
+      const int x0 = xt * kBT;
+      // This tile's labels and terms were written during the last tile
+      // (or before the sweep); the next tile's go to the other buffer,
+      // whose last readers passed the previous cluster barrier.
+      xl = xlab + (tc & 1) * kBT;
+      xq = xqt + (tc & 1) * kBT;
+      // The other blocks may still run the product of tile tc - 1 from
+      // their other buffer; tile tc - 2's product, which read this one,
+      // ended before the last cluster barrier.
+      float* wt = wl + (tc & 1) * kBT * kWStride;
+      if (kCached) {
+        cp_async_wait_ring();
+        __syncthreads();  // the cache share is in
+        issue(gi + kStages - 1);
+        const float* cs = ring + (gi % kStages) * kStage;
+        ++gi;
+        next_terms(cs + kMain, (tc + 1) & 1);
+#pragma unroll
+        for (int e = 0; e < kGroups; ++e) {
+          const int idx = t + e * kThreads;
+          // Query-major: a warp takes 128 columns of one row; pool-major:
+          // 32 rows of 4 columns (the share is stored [c][r]).
+          const int r = pm ? idx % kRs : idx / (kBT / 4);
+          const int c = 4 * (pm ? idx / kRs : idx % (kBT / 4));
+          float v[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            v[k] = pm ? cs[(c + k) * kRs + r] : cs[r * kBT + c + k];
+          push(wt, r, c,
+               make_float4(weight(r, c, x0, v[0]), weight(r, c + 1, x0, v[1]),
+                           weight(r, c + 2, x0, v[2]),
+                           weight(r, c + 3, x0, v[3])));
         }
-#pragma unroll 8
-      for (int c = 0; c < kT; ++c) {
-        float wv[4], xv[4];
+      } else {
+        float sacc[kMA][8];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) wv[a] = sm.s[ty + 16 * a][c];
+        for (int a = 0; a < kMA; ++a)
 #pragma unroll
-        for (int b = 0; b < 4; ++b) xv[b] = sm.u.x[c][tx + 16 * b];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b)
-            acc[a][b] = __fmaf_rn(wv[a], xv[b], acc[a][b]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int row = own0 + ty + 16 * a, col = d0 + tx + 16 * b;
-          if (row < own_rows && col < d)
-            out[static_cast<long long>(row) * d + col] = acc[a][b];
+          for (int b = 0; b < 8; ++b) sacc[a][b] = 0.f;
+        for (int s = 0; s < nk; ++s, ++gi) {
+          cp_async_wait_ring();
+          __syncthreads();
+          issue(gi + kStages - 1);
+          const float* buf = ring + (gi % kStages) * kStage;
+          if (s == 0) next_terms(buf + kMain, (tc + 1) & 1);
+          sim_slice<kMA>(buf, buf + kRs * kBK, ty, tx, sacc);
         }
-      __syncthreads();
+#pragma unroll
+        for (int a = 0; a < kMA; ++a) {
+          const int r = arow<kMA>(ty, a);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = h * 64 + tx * 4;
+            push(wt, r, c,
+                 make_float4(weight(r, c, x0, sacc[a][4 * h]),
+                             weight(r, c + 1, x0, sacc[a][4 * h + 1]),
+                             weight(r, c + 2, x0, sacc[a][4 * h + 2]),
+                             weight(r, c + 3, x0, sacc[a][4 * h + 3])));
+          }
+        }
+      }
+      cluster.sync();  // every rank's rows of tile tc are in wt
+      if (!cols) continue;
+      // out[band] += W @ X[x0 .. x0 + 128, c0 .. c0 + 128), in increasing
+      // other index for every element.
+      for (int xs = 0; xs < kXSlices; ++xs, ++gi) {
+        cp_async_wait_ring();
+        __syncthreads();
+        issue(gi + kStages - 1);
+        const float* xb = ring + (gi % kStages) * kStage;
+#pragma unroll 4
+        for (int qd = 0; qd < kBK / 4; ++qd) {
+          float4 wv[8];
+#pragma unroll
+          for (int a = 0; a < 8; ++a)
+            wv[a] = *reinterpret_cast<const float4*>(
+                wt + frag(ty, a) * kWStride + xs * kBK + 4 * qd);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float* xr = xb + (4 * qd + e) * kBT;
+            const float4 b0 = *reinterpret_cast<const float4*>(xr + tx * 4);
+            const float4 b1 =
+                *reinterpret_cast<const float4*>(xr + 64 + tx * 4);
+#pragma unroll
+            for (int a = 0; a < 8; ++a) {
+              const float w = comp(wv[a], e);
+              acc[a][0] = __fmaf_rn(w, b0.x, acc[a][0]);
+              acc[a][1] = __fmaf_rn(w, b0.y, acc[a][1]);
+              acc[a][2] = __fmaf_rn(w, b0.z, acc[a][2]);
+              acc[a][3] = __fmaf_rn(w, b0.w, acc[a][3]);
+              acc[a][4] = __fmaf_rn(w, b1.x, acc[a][4]);
+              acc[a][5] = __fmaf_rn(w, b1.y, acc[a][5]);
+              acc[a][6] = __fmaf_rn(w, b1.z, acc[a][6]);
+              acc[a][7] = __fmaf_rn(w, b1.w, acc[a][7]);
+            }
+          }
+        }
+      }
+    }
+    if (cols) {
+      // Each output element written once, 16 bytes at a time.
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        const int row = o0 + frag(ty, a);
+        if (row >= own_rows) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = c0 + h * 64 + tx * 4;
+          if (col < d)
+            *reinterpret_cast<float4*>(out + static_cast<long long>(row) * d +
+                                       col) =
+                make_float4(acc[a][4 * h], acc[a][4 * h + 1],
+                            acc[a][4 * h + 2], acc[a][4 * h + 3]);
+        }
+      }
     }
   }
+  cluster.sync();  // no block leaves while another may still store to it
 }
 
 // ------------------------------------------------------- launchers
@@ -592,25 +1096,69 @@ __global__ void __launch_bounds__(kThreads) npair_grad_kernel(
 inline unsigned tiles(int rows) {
   return static_cast<unsigned>((rows + kT - 1) / kT);
 }
+inline unsigned tiles128(int rows) {
+  return static_cast<unsigned>((rows + kBT - 1) / kBT);
+}
 
 inline bool bad_dims(int n, int m, int d) { return n < 1 || m < 1 || d < 1; }
 
-template <typename L>
+// The stats kernel's pool-axis split: of 1, 2, 4, 8 (at most the pool's
+// tiles), the one whose blocks fill the card's SMs best over whole
+// waves, the smaller on a tie within 1 %.
+inline int stats_splits(int n, int m) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long rows = tiles128(n), cols = tiles128(m);
+  int best = 1;
+  double best_fill = 0.0;
+  for (int s = 1; s <= kMaxCluster && s <= cols; s *= 2) {
+    const long long blocks = rows * s;
+    const long long waves = (blocks + sms - 1) / sms;
+    const double fill = static_cast<double>(blocks) / (waves * sms);
+    if (fill > best_fill + 0.01) {
+      best = s;
+      best_fill = fill;
+    }
+  }
+  return best;
+}
+
+template <typename K, typename... Args>
+cudaError_t launch_cluster(K kernel, dim3 grid, int cluster_x, size_t smem,
+                           cudaStream_t s, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 int launch_stats(const float* feats, const void* labels, const float* pool,
-                 const void* pool_labels, int n, int m, int d,
+                 const void* pool_labels, int label_f32, int n, int m, int d,
                  int self_offset, float* min_w, float* max_b, float* max_a,
                  int* cnt_s, int* cnt_d, int* hist_s, int* hist_d,
                  float* topk, int k, float* sims_out, cudaStream_t s) {
-  const size_t dyn = static_cast<size_t>(k) * kThreads * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      npair_stats_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(dyn));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  npair_stats_kernel<L><<<tiles(n), kThreads, dyn, s>>>(
-      feats, static_cast<const L*>(labels), pool,
-      static_cast<const L*>(pool_labels), n, m, d, self_offset, min_w, max_b,
-      max_a, cnt_s, cnt_d, hist_s, hist_d, topk, k, sims_out);
-  return static_cast<int>(cudaGetLastError());
+  const int splits = stats_splits(n, m);
+  const size_t smem = sizeof(float) * stats_smem_floats(k);
+  return static_cast<int>(launch_cluster(
+      npair_stats_kernel, dim3(splits, tiles128(n)), splits, smem, s, feats,
+      static_cast<const int*>(labels), pool,
+      static_cast<const int*>(pool_labels), label_f32, n, m, d, self_offset,
+      min_w, max_b, max_a, cnt_s, cnt_d, hist_s, hist_d, topk, k, sims_out));
 }
 
 template <typename L>
@@ -653,26 +1201,44 @@ int launch_loss(const float* feats, const void* labels, const float* pool,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kPoolMajor, typename L>
-int launch_grad(const float* feats, const void* labels, const float* pool,
-                const void* pool_labels, const float* sims, int n, int m,
-                int d, int self_offset, int ap, int an, float mi, float md,
-                const float* pos_thr, const float* neg_thr,
-                const float* max_all, const float* isum, const float* asum,
-                const float* valid, const float* g, float* out,
-                cudaStream_t s) {
-  const L* lq = static_cast<const L*>(labels);
-  const L* lp = static_cast<const L*>(pool_labels);
-  const unsigned grid = tiles(kPoolMajor ? m : n);
-  if (sims != nullptr)
-    npair_grad_kernel<true, kPoolMajor, L><<<grid, kThreads, 0, s>>>(
-        feats, lq, pool, lp, sims, n, m, d, self_offset, ap, an, mi, md,
-        pos_thr, neg_thr, max_all, isum, asum, valid, g, out);
-  else
-    npair_grad_kernel<false, kPoolMajor, L><<<grid, kThreads, 0, s>>>(
-        feats, lq, pool, lp, sims, n, m, d, self_offset, ap, an, mi, md,
-        pos_thr, neg_thr, max_all, isum, asum, valid, g, out);
-  return static_cast<int>(cudaGetLastError());
+// The cluster of D-chunks: ceil(D / 128) rounded up to 4 or 8.  For D <=
+// 384 some blocks have no columns: they build their rows of each
+// weight tile and skip the product (a cache share then fits one ring
+// stage, and the recompute variant's rows stay 2 or 1 per thread).
+inline int grad_cluster(int d) { return (d + kBT - 1) / kBT <= 4 ? 4 : 8; }
+
+template <bool kCached, int kS>
+int launch_grad_s(const float* feats, const int* labels, const float* pool,
+                  const int* pool_labels, int label_f32, int pool_major,
+                  const float* sims, int n, int m, int d, int self_offset,
+                  int ap, int an, float mi, float md, const float* pos_thr,
+                  const float* neg_thr, const float* max_all,
+                  const float* isum, const float* asum, const float* valid,
+                  const float* g, float* out, cudaStream_t s) {
+  const dim3 grid(kS, tiles128(pool_major ? m : n));
+  return static_cast<int>(launch_cluster(
+      npair_grad_kernel<kCached, kS>, grid, kS, grad_smem_bytes<kCached, kS>(),
+      s, feats, labels, pool, pool_labels, label_f32, pool_major, sims, n, m,
+      d, self_offset, ap, an, mi, md, pos_thr, neg_thr, max_all, isum, asum,
+      valid, g, out));
+}
+
+template <bool kCached>
+int launch_grad(const float* feats, const int* labels, const float* pool,
+                const int* pool_labels, int label_f32, int pool_major,
+                const float* sims, int n, int m, int d, int self_offset,
+                int ap, int an, float mi, float md, const float* pos_thr,
+                const float* neg_thr, const float* max_all,
+                const float* isum, const float* asum, const float* valid,
+                const float* g, float* out, cudaStream_t s) {
+#define NPL_GRAD_S(S)                                                       \
+  return launch_grad_s<kCached, S>(                                         \
+      feats, labels, pool, pool_labels, label_f32, pool_major, sims, n, m,  \
+      d, self_offset, ap, an, mi, md, pos_thr, neg_thr, max_all, isum, asum, \
+      valid, g, out, s)
+  if (grad_cluster(d) == 4) NPL_GRAD_S(4);
+  NPL_GRAD_S(8);
+#undef NPL_GRAD_S
 }
 
 }  // namespace
@@ -681,8 +1247,9 @@ int launch_grad(const float* feats, const void* labels, const float* pool,
 //
 // Every pointer is device memory; labels are int32 (label_f32 = 0) or
 // float32 (1); a null `sims` selects the recompute variant, a non-null
-// one the cached variant.  Entries return cudaGetLastError() of their
-// launch.
+// one the cached variant.  npl_npair_stats and npl_npair_grad need D % 4
+// == 0 and 16-byte aligned feats and pool (the wrappers pad).  Entries
+// return the cudaError_t of their launch.
 
 extern "C" {
 
@@ -692,21 +1259,17 @@ int npl_npair_stats(const void* feats, const void* labels, const void* pool,
                     void* max_a, void* cnt_s, void* cnt_d, void* hist_s,
                     void* hist_d, void* topk, int k, void* sims_out,
                     void* stream) {
-  if (bad_dims(n, m, d) || k < 0 || k > kMaxTopK || (k > 0) != (topk != nullptr))
+  if (bad_dims(n, m, d) || d % 4 != 0 || k < 0 || k > kMaxTopK ||
+      (k > 0) != (topk != nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fo = [](void* p) { return static_cast<float*>(p); };
   auto io = [](void* p) { return static_cast<int*>(p); };
-  if (label_f32)
-    return launch_stats<float>(f(feats), labels, f(pool), pool_labels, n, m,
-                               d, self_offset, fo(min_w), fo(max_b),
-                               fo(max_a), io(cnt_s), io(cnt_d), io(hist_s),
-                               io(hist_d), fo(topk), k, fo(sims_out), s);
-  return launch_stats<int>(f(feats), labels, f(pool), pool_labels, n, m, d,
-                           self_offset, fo(min_w), fo(max_b), fo(max_a),
-                           io(cnt_s), io(cnt_d), io(hist_s), io(hist_d),
-                           fo(topk), k, fo(sims_out), s);
+  return launch_stats(f(feats), labels, f(pool), pool_labels, label_f32, n,
+                      m, d, self_offset, fo(min_w), fo(max_b), fo(max_a),
+                      io(cnt_s), io(cnt_d), io(hist_s), io(hist_d), fo(topk),
+                      k, fo(sims_out), s);
 }
 
 int npl_npair_hist(const void* feats, const void* labels, const void* pool,
@@ -763,22 +1326,19 @@ int npl_npair_grad(const void* feats, const void* labels, const void* pool,
                    const void* neg_thr, const void* max_all, const void* isum,
                    const void* asum, const void* valid, const void* g,
                    int pool_major, void* out, void* stream) {
-  if (bad_dims(n, m, d)) return cudaErrorInvalidValue;
+  if (bad_dims(n, m, d) || d % 4 != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto li = [](const void* p) { return static_cast<const int*>(p); };
   float* o = static_cast<float*>(out);
-#define NPL_GRAD(PM, LT)                                                     \
-  return launch_grad<PM, LT>(f(feats), labels, f(pool), pool_labels,         \
-                             f(sims), n, m, d, self_offset, ap, an,          \
-                             margin_ident, margin_diff, f(pos_thr),          \
-                             f(neg_thr), f(max_all), f(isum), f(asum),       \
-                             f(valid), f(g), o, s)
-  if (pool_major) {
-    if (label_f32) NPL_GRAD(true, float);
-    NPL_GRAD(true, int);
-  }
-  if (label_f32) NPL_GRAD(false, float);
-  NPL_GRAD(false, int);
+#define NPL_GRAD(C)                                                          \
+  return launch_grad<C>(f(feats), li(labels), f(pool), li(pool_labels),      \
+                        label_f32, pool_major, f(sims), n, m, d, self_offset, \
+                        ap, an, margin_ident, margin_diff, f(pos_thr),       \
+                        f(neg_thr), f(max_all), f(isum), f(asum), f(valid),  \
+                        f(g), o, s)
+  if (sims != nullptr) NPL_GRAD(true);
+  NPL_GRAD(false);
 #undef NPL_GRAD
 }
 

@@ -21,8 +21,10 @@ Each is a kernel wrapper: on CPU tensors it runs the plain PyTorch sweep
 beside it, over the same (query block x pool block) grid with the same
 arithmetic and tie rules; on CUDA tensors it launches the hand-written
 kernel in ``csrc/npair_blockwise.cu`` or raises — never a fallback.
-Each carries a ``launches`` counter.  The kernels pick their own 64 x 64
-tiles; ``block_size``/``q_block_size`` tile the plain sweeps.
+Each carries a ``launches`` counter.  The kernels pick their own tiles
+(128 x 128 for stats, gq and gdb, split over thread-block clusters; 64 x
+64 for hist and loss); ``block_size``/``q_block_size`` tile the plain
+sweeps.
 
 Around them: the thresholds (absolute from the stats; RELATIVE_* by
 radix selection, with the ``pos_topk`` fast path whose overflow fallback
@@ -124,13 +126,11 @@ def _topk_merge(buf: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     return torch.cat([buf, vals], dim=1).topk(k, dim=1).values
 
 
-def stats_plain(feats, labels, pool, pool_labels, self_offset=0,
-                hist_same=False, hist_diff=False, topk=0, emit_sims=False,
-                bn=512, bm=512, sims=None) -> Stats:
-    """The stats sweep in plain PyTorch.  ``sims`` (an [N, M] matrix)
-    replaces the recomputed tiles — chip_smoke feeds the kernel's own
-    emitted sims here."""
-    n, m = feats.shape[0], pool.shape[0]
+def _stats_range(feats, labels, pool, pool_labels, lo, hi, self_offset,
+                 hist_sides, topk, out, bn, bm, sims):
+    """Running stats of every query over pool columns [lo, hi): the
+    (query block x pool block) sweep, pool blocks starting at ``lo``."""
+    n = feats.shape[0]
     dev = feats.device
     min_w = torch.full((n,), FLT_MAX, device=dev)
     max_b = torch.full((n,), -FLT_MAX, device=dev)
@@ -138,13 +138,12 @@ def stats_plain(feats, labels, pool, pool_labels, self_offset=0,
     cnt_s = torch.zeros(n, dtype=torch.int32, device=dev)
     cnt_d = torch.zeros(n, dtype=torch.int32, device=dev)
     hist = {s: torch.zeros((n, RADIX_BINS), dtype=torch.int32, device=dev)
-            for s, on in (("same", hist_same), ("diff", hist_diff)) if on}
+            for s in hist_sides}
     buf = torch.full((n, topk), -FLT_MAX, device=dev) if topk else None
-    out = torch.empty((n, m), device=dev) if emit_sims else None
     zero = torch.zeros(n, dtype=torch.int64, device=dev)
     for q in _tiles(n, bn):
         qs = slice(*q)
-        for i in _tiles(m, bm):
+        for i in [(lo + a, lo + b) for a, b in _tiles(hi - lo, bm)]:
             s = _sim_tile(feats, pool, sims, q, i)
             if out is not None:
                 out[qs, i[0]:i[1]] = s
@@ -164,6 +163,40 @@ def stats_plain(feats, labels, pool, pool_labels, self_offset=0,
                 buf[qs] = _topk_merge(buf[qs], torch.where(same, s, -FLT_MAX))
     return Stats(min_w, max_b, max_a, cnt_s, cnt_d, hist.get("same"),
                  hist.get("diff"), buf, out)
+
+
+def stats_plain(feats, labels, pool, pool_labels, self_offset=0,
+                hist_same=False, hist_diff=False, topk=0, emit_sims=False,
+                bn=512, bm=512, sims=None, splits=1) -> Stats:
+    """The stats sweep in plain PyTorch.  ``sims`` (an [N, M] matrix)
+    replaces the recomputed tiles — chip_smoke feeds the kernel's own
+    emitted sims here.
+
+    ``splits``: sweep the pool axis as that many contiguous ranges, each
+    from fresh running values, and combine the per-range partials in
+    range order, as the kernel combines the CTAs of a thread-block
+    cluster.  Minima, maxima, integer sums and the K-largest multiset
+    are exact under any combine order, so the result does not depend on
+    ``splits`` (tests/test_torch_blockwise.py holds that bit for bit)."""
+    n, m = feats.shape[0], pool.shape[0]
+    out = torch.empty((n, m), device=feats.device) if emit_sims else None
+    sides = [s for s, on in (("same", hist_same), ("diff", hist_diff)) if on]
+    cuts = [m * s // splits for s in range(splits + 1)]
+    parts = [_stats_range(feats, labels, pool, pool_labels, lo, hi,
+                          self_offset, sides, topk, out, bn, bm, sims)
+             for lo, hi in zip(cuts[:-1], cuts[1:])]
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = Stats(
+            torch.minimum(acc.min_w, p.min_w),
+            torch.maximum(acc.max_b, p.max_b),
+            torch.maximum(acc.max_a, p.max_a),
+            acc.cnt_s + p.cnt_s, acc.cnt_d + p.cnt_d,
+            None if acc.h_s is None else acc.h_s + p.h_s,
+            None if acc.h_d is None else acc.h_d + p.h_d,
+            None if acc.topk is None else _topk_merge(acc.topk, p.topk),
+            out)
+    return acc
 
 
 def hist_plain(feats, labels, pool, pool_labels, sides: Sequence[bool],
@@ -298,6 +331,25 @@ def _vec(t: torch.Tensor) -> torch.Tensor:
     return t.float().contiguous()
 
 
+def _rows16(feats, pool):
+    """(feats, pool, D') for the stats and grad kernels, which copy rows
+    16 bytes at a time: D' = D rounded up to a multiple of 4, and rows
+    zero-padded to it (or copied to an aligned buffer) where they are not
+    already so.  Zero columns change no sim: each is one fmaf(0, 0, acc)
+    == acc in the chain."""
+    d4 = _round_up(feats.shape[1], 4)
+
+    def fit(t):
+        if t.shape[1] == d4 and t.data_ptr() % 16 == 0:
+            return t
+        out = t.new_zeros((t.shape[0], d4))
+        out[:, :t.shape[1]] = t
+        return out
+
+    f = fit(feats)
+    return f, (f if pool is feats else fit(pool)), d4
+
+
 @counted
 def npair_stats(feats, labels, pool, pool_labels, *, self_offset=0,
                 hist_same=False, hist_diff=False, topk=0,
@@ -310,8 +362,8 @@ def npair_stats(feats, labels, pool, pool_labels, *, self_offset=0,
         return stats_plain(feats, labels, pool, pool_labels, self_offset,
                            hist_same, hist_diff, topk, emit_sims)
     lf = _cuda_operands("npair_stats", feats, labels, pool, pool_labels)
-    n, d = feats.shape
-    m = pool.shape[0]
+    n, m = feats.shape[0], pool.shape[0]
+    feats, pool, d = _rows16(feats, pool)
 
     def new(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=feats.device)
@@ -401,16 +453,17 @@ def _launch_grad(what, pool_major, feats, labels, pool, pool_labels,
                         *(() if sims is None else (sims,)))
     n, d = feats.shape
     m = pool.shape[0]
-    out = torch.empty((m if pool_major else n, d), device=feats.device)
+    feats, pool, d4 = _rows16(feats, pool)
+    out = torch.empty((m if pool_major else n, d4), device=feats.device)
     err = library().npl_npair_grad(
         feats.data_ptr(), labels.data_ptr(), pool.data_ptr(),
-        pool_labels.data_ptr(), _ptr(sims), n, m, d, int(self_offset), lf,
+        pool_labels.data_ptr(), _ptr(sims), n, m, d4, int(self_offset), lf,
         int(cfg.ap_mining_method), int(cfg.an_mining_method),
         _f32(cfg.margin_ident), _f32(cfg.margin_diff),
         *(v.data_ptr() for v in vecs), int(pool_major), out.data_ptr(),
         stream_ptr(feats.device))
     check(err, what)
-    return out
+    return out if d4 == d else out[:, :d].contiguous()
 
 
 @counted
@@ -455,7 +508,7 @@ class _Sweeps(NamedTuple):
 
 
 def _sweeps(device: torch.device, bn: int, bm: int) -> _Sweeps:
-    """The kernel wrappers on the card, which tile 64 x 64 themselves; on
+    """The kernel wrappers on the card, which pick their own tiles; on
     the CPU the plain sweeps at the caller's (query, pool) tiles."""
     if device.type != "cpu":
         return _Sweeps(npair_stats, npair_hist, npair_loss, npair_gq,
@@ -637,7 +690,7 @@ def blockwise_npair_loss_with_aux(
     counts, thresholds).
 
     ``block_size``/``q_block_size``: the plain sweeps' pool and query
-    tiles (the kernels tile 64 x 64).  ``sim_cache``: write the fp32 sims
+    tiles (the kernels pick their own).  ``sim_cache``: write the fp32 sims
     once in the stats sweep and stream them back in every later sweep —
     the same bits, O(N^2) memory through the step; ``None`` enables it
     when ``resolve_sim_cache_auto`` admits N x N x 4 bytes.

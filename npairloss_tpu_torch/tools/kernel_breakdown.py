@@ -1,0 +1,167 @@
+"""Where the time of the blockwise stats and gradient kernels goes.
+
+Run on a machine with one H100, from the repository root:
+
+    python -m npairloss_tpu_torch.tools.kernel_breakdown [--sizes 32768x512,8192x1024]
+
+Builds ``csrc/npair_blockwise.cu`` once as it is and once per variant
+with one part of the work taken out (a text edit of the source, checked
+to apply once), each into its own library under
+``build/kernels/breakdown/``, all nvcc processes started together; then
+times, per size and variant, ``npair_stats`` (digit-0 histogram, 8
+slots, sims emitted) and the cached ``npair_gq``/``npair_gdb`` on
+REFERENCE_CONFIG thresholds of seeded unit features, beside cuBLAS's
+fp32 ``f @ f.T``.  A variant's outputs are wrong by construction; only
+its time means anything: full minus variant is what the removed part
+costs where it does not overlap the rest.  Prints one JSON line per
+size with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import statistics
+import subprocess
+import time
+
+# name -> (what it removes, [(text, replacement)] in npair_blockwise.cu)
+VARIANTS = {
+    "full": ("nothing", []),
+    "no_weights": ("the grad's weight epilogue (cached)", [(
+        "        for (int e = 0; e < kGroups; ++e) {",
+        "        for (int e = 0; e < 0; ++e) {")]),
+    "no_cluster_sync": ("the grad's per-tile cluster barrier", [(
+        "      cluster.sync();  // every rank's rows of tile tc are in wt",
+        "")]),
+    "no_fma": ("the grad product's FMAs (its loads and syncs stay)", [(
+        "            for (int a = 0; a < 8; ++a) {\n"
+        "              const float w = comp(wv[a], e);",
+        "            for (int a = 0; a < 0; ++a) {\n"
+        "              const float w = comp(wv[a], e);")]),
+    "no_stats_epilogue": ("the stats kernel's row-wise epilogue", [(
+        "    for (int u = 0; u < kBT / 8; ++u) {",
+        "    for (int u = 0; u < 0; ++u) {")]),
+}
+
+
+def build(names):
+    """One library per variant; returns {name: ctypes.CDLL}."""
+    from npairloss_tpu_torch.ops import _build
+
+    src = _build.CSRC / "npair_blockwise.cu"
+    text = src.read_text()
+    others = [str(p) for p in _build._sources() if p.name != src.name]
+    root = _build.BUILD_DIR / "breakdown"
+    procs = {}
+    for name in names:
+        edited = text
+        for old, new in VARIANTS[name][1]:
+            if edited.count(old) != 1:
+                raise RuntimeError(f"variant {name}: edit does not apply")
+            edited = edited.replace(old, new)
+        d = root / name
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        (d / src.name).write_text(edited)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+             str(_build.CSRC), "-o", str(d / "lib.so"), str(d / src.name),
+             *others],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"variant {name}: nvcc failed\n{out}")
+        lib = ctypes.CDLL(str(root / name / "lib.so"))
+        for fn_name, argtypes in _build._SIGNATURES.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.npl_error_string.argtypes = [ctypes.c_int]
+        lib.npl_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs
+
+
+def median_ms(torch, fn, flush, iters=5):
+    """Median CUDA-event time of fn, L2 flushed before each launch."""
+    fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(statistics.median(times))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sizes", default="32768x512,8192x1024")
+    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    from npairloss_tpu_torch.device import resolve_device
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.ops import blockwise_npair as bw
+    from npairloss_tpu_torch.ops import npair_loss as nl
+
+    if not torch.cuda.is_available():
+        print("kernel_breakdown: no CUDA device is available")
+        return 1
+    resolve_device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    names = args.variants.split(",")
+    t0 = time.perf_counter()
+    libs = build(names)
+    print(f"[breakdown] {card}; built {len(libs)} variants in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    flush = torch.empty(32 << 20, device="cuda")  # 128 MB > the 50 MB L2
+    for size in args.sizes.split(","):
+        n, d = (int(v) for v in size.split("x"))
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + n)
+        f = torch.randn((n, d), generator=gen, device="cuda")
+        f = (f / f.norm(dim=1, keepdim=True)).contiguous()
+        lab = (torch.randperm(n, generator=gen, device="cuda") // 2).to(
+            torch.int32)
+        cfg = nl.REFERENCE_CONFIG
+        _build._lib = libs[names[0]]
+        _, _, res = bw._forward(f, lab, cfg, 512, 512, True, 8)
+        gargs = (f, lab, f, lab, res["pos_thr"], res["neg_thr"],
+                 res["max_all"], res["ident_sum"], res["all_sum"],
+                 torch.ones(n, device="cuda"), torch.ones((), device="cuda"),
+                 cfg)
+        row = {"card": card, "n": n, "d": d,
+               "cublas_ms": median_ms(torch, lambda: f @ f.T, flush)}
+        for name in names:
+            _build._lib = libs[name]
+            row[name] = {
+                "stats_emit_ms": median_ms(torch, lambda: bw.npair_stats(
+                    f, lab, f, lab, hist_same=True, topk=8,
+                    emit_sims=True), flush),
+                "gq_cached_ms": median_ms(torch, lambda: bw.npair_gq(
+                    *gargs, sims=res["sims"]), flush),
+                "gdb_cached_ms": median_ms(torch, lambda: bw.npair_gdb(
+                    *gargs, sims=res["sims"]), flush)}
+        print(json.dumps(row), flush=True)
+        del res, gargs
+    _build._lib = None
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -368,6 +368,37 @@ def test_plain_sweeps_match_the_jax_tile_kernels():
                                rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("cfg", CONFIGS, ids=CFG_IDS)
+def test_stats_pool_split_combines_bit_for_bit(cfg, splits):
+    """The stats kernel's cluster split, in plain PyTorch: the pool axis
+    swept as ``splits`` ranges and the partials combined in range order
+    give the unsplit sweep's Stats bit for bit, with the options the
+    engine asks for under ``cfg`` (digit-0 histograms, the K-slot buffer)
+    and the emitted sims.  18 queries against a pool of 23 rows (the
+    queries and 5 more of their identities) at 5-row tiles: ranges end
+    mid-tile, and 8 ranges of 23 rows are ragged."""
+    f, l = dyadic_batch(30 + splits, num_ids=6, imgs=3)
+    rng = np.random.default_rng(splits)
+    extra = rng.integers(-8, 9, (5, f.shape[1])).astype(np.float32) / 8
+    tf, tl = torch.from_numpy(f), torch.from_numpy(l)
+    tp = torch.from_numpy(np.concatenate([f, extra]))
+    tpl = torch.from_numpy(np.concatenate([l, rng.choice(l, 5)]))
+    ap_rel = cfg.ap_mining_method in bw._RELATIVE
+    an_rel = cfg.an_mining_method in bw._RELATIVE
+    opts = dict(hist_same=ap_rel, hist_diff=an_rel,
+                topk=8 if ap_rel and not an_rel else 0, emit_sims=True,
+                bn=5, bm=5)
+    want = bw.stats_plain(tf, tl, tp, tpl, **opts)
+    got = bw.stats_plain(tf, tl, tp, tpl, splits=splits, **opts)
+    assert int(want.cnt_s.sum()) > 0 and int(want.cnt_d.sum()) > 0
+    for name, g_, w_ in zip(bw.Stats._fields, got, want):
+        if w_ is None:
+            assert g_ is None, name
+        else:
+            assert g_.dtype == w_.dtype and torch.equal(g_, w_), name
+
+
 def test_wrappers_run_the_plain_sweeps_on_cpu_tensors():
     """On CPU tensors a wrapper returns its plain sweep's result and
     counts no launch."""
@@ -393,3 +424,19 @@ def test_wrappers_run_the_plain_sweeps_on_cpu_tensors():
     assert all(counts[k] == 0 for k in ("npair_stats", "npair_hist",
                                         "npair_loss", "npair_gq",
                                         "npair_gdb"))
+
+
+def test_rows16_pads_d_to_a_multiple_of_4_with_zeros():
+    """The stats and grad kernels copy rows 16 bytes at a time: the
+    wrappers zero-pad D to a multiple of 4 (which changes no sim) and
+    leave aligned rows untouched; a self-pool stays one tensor."""
+    f = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (5, 30)).astype(np.float32))
+    p = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (7, 30)).astype(np.float32))
+    ff, pp, d4 = bw._rows16(f, p)
+    assert d4 == 32 and ff.shape == (5, 32) and pp.shape == (7, 32)
+    assert torch.equal(ff[:, :30], f) and not ff[:, 30:].any()
+    assert torch.equal(ff @ pp.T, f @ p.T)
+    same = bw._rows16(ff, ff)
+    assert same[0] is ff and same[1] is ff and same[2] == 32
