@@ -55,8 +55,10 @@ Phases (any failure raises, exits nonzero and prints no result line):
    kernel's own emitted sims, minima, maxima, counts, histograms and
    the K-slot buffer bit for bit, I/D sums within 1e-4 relative, gq/gdb
    within 1e-5 / 1e-4 of their largest entry; the sims within 1e-5 of
-   cuBLAS; cached and recompute variants bit for bit; stats, gq and gdb
-   launched twice give the same bits; each timed beside its bound and
+   cuBLAS; cached and recompute variants bit for bit; every kernel, cached
+   and recompute, launched twice gives the same bits; the plain loss sweep
+   in the kernel's I/D order (its cluster split for this card); each timed
+   beside its bound and
    its plain sweep, stats/gq/gdb also as a multiple of cuBLAS's fp32
    ``feats @ feats.T`` and a share of the fp32 peak; the hist kernel's
    early return timed alone;
@@ -68,10 +70,13 @@ Phases (any failure raises, exits nonzero and prints no result line):
    the fast path, and one step through the dense and the blockwise
    engines from the same weights and batch;
 6c. the 32,768 pool x 512 dims of STRETCH.json, loss and backward, for
-   REFERENCE_CONFIG and LOCAL/RAND: sim cache on and off bit for bit,
-   ``pos_topk`` 8 and 0 equal; stats, gq and gdb (cached and recompute)
-   launched twice give the same bits; each kernel's time per call (and,
-   as in phase 6, against cuBLAS), the hist kernel's early return;
+   REFERENCE_CONFIG, LOCAL/RAND and a two-sided radix config (GLOBAL/
+   RELATIVE_HARD on both sides: 7 hist sweeps of two sides): sim cache on
+   and off bit for bit, ``pos_topk`` 8 and 0 equal; all five kernels
+   (cached and recompute) launched twice give the same bits; each
+   kernel's time per call (and, as in phase 6, against cuBLAS), the hist
+   kernel's early return, and ``torch.amax`` over the cache as a read-rate
+   yardstick for the cached sweeps;
 7. a ``{"kernels": [...]}`` line (launches of the serving kernels from
    phase 4, of the training kernels from phase 5, of ``lrn_bwd`` from
    the phase-5b recompute step, of the blockwise kernels from phase
@@ -1026,7 +1031,8 @@ def check_blockwise_kernels(torch, timer, detail, seed,
     relative, gq/gdb within 1e-5 (N = 120) or 1e-4 (N = 8192) of their
     largest entry (the plain sweeps sum in cuBLAS's and torch's order);
     the emitted sims within 1e-5 of ``feats @ feats.T`` (cuBLAS, TF32
-    off); cached and recompute variants bit for bit.  Each row's
+    off); cached and recompute variants bit for bit, and each launched
+    twice the same bits.  Each row's
     ``max_abs_err`` is the largest absolute difference kernel vs plain
     over the outputs this run compared.  ``timer`` None: check only."""
     from npairloss_tpu_torch.ops import blockwise_npair as bw
@@ -1041,11 +1047,14 @@ def check_blockwise_kernels(torch, timer, detail, seed,
                 an_mining_method=mm.RELATIVE_HARD, diffsn=-0.3)}
     rows = {k: [] for k in BLOCKWISE_KERNELS}
     out = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for n, d in sizes:
         f, lab = unit_batch(torch, seed + n, n, d)
         grad_tol = 1e-5 if n <= 120 else 1e-4
         bn = bm = min(512, n)
-        rec = {"n": n, "d": d}
+        # The plain loss sweep in the kernel's I/D order on this card.
+        splits = bw.pool_splits(n, n, sms)
+        rec = {"n": n, "d": d, "hist_loss_splits": splits}
         # -- stats, every option on
         st = bw.npair_stats(f, lab, f, lab, hist_same=True, hist_diff=True,
                             topk=8, emit_sims=True)
@@ -1086,6 +1095,10 @@ def check_blockwise_kernels(torch, timer, detail, seed,
             h_p = bw.hist_plain(*args, sims=sims, bn=bn, bm=bm)
             skip = torch.ones((), dtype=torch.bool, device="cuda")
             h_s = bw.npair_hist(*args, sims=sims, skip=skip)
+            _same_bits(torch, h_c, bw.npair_hist(*args, sims=sims),
+                       f"npair_hist cached N={n} digit {digit}")
+            _same_bits(torch, h_r, bw.npair_hist(*args),
+                       f"npair_hist recompute N={n} digit {digit}")
             torch.cuda.synchronize()
             for a, b, c, s in zip(h_c, h_r, h_p, h_s):
                 rec["hist_abs_err"] = max(rec["hist_abs_err"],
@@ -1107,7 +1120,12 @@ def check_blockwise_kernels(torch, timer, detail, seed,
             l_c = bw.npair_loss(f, lab, f, lab, *thr, cfg, sims=sims)
             l_r = bw.npair_loss(f, lab, f, lab, *thr, cfg)
             l_p = bw.loss_plain(f, lab, f, lab, *thr, cfg, sims=sims,
-                                bn=bn, bm=bm)
+                                bn=bn, splits=splits)
+            _same_bits(torch, l_c, bw.npair_loss(f, lab, f, lab, *thr, cfg,
+                                                 sims=sims),
+                       f"npair_loss cached N={n} {cname}")
+            _same_bits(torch, l_r, bw.npair_loss(f, lab, f, lab, *thr, cfg),
+                       f"npair_loss recompute N={n} {cname}")
             valid = torch.ones(n, device="cuda")
             gargs = (f, lab, f, lab, *thr, res["ident_sum"], res["all_sum"],
                      valid, g, cfg)
@@ -1132,6 +1150,10 @@ def check_blockwise_kernels(torch, timer, detail, seed,
             if not sum_err <= 1e-4:
                 fail(f"npair_loss N={n} {cname}: I/D sums off by {sum_err}")
             rec[f"{cname}_sum_rel_err"] = sum_err
+            # Rows whose I and D sums equal the kernel-order plain sweep's
+            # bit for bit (the rest differ by their exps' ulps).
+            rec[f"{cname}_sums_bit_equal_rows"] = int(
+                ((l_c[0] == l_p[0]) & (l_c[1] == l_p[1])).sum())
             rec[f"{cname}_loss_abs_err"] = max(
                 _abs_err(torch, a, b) for a, b in zip(l_c, l_p))
             rec[f"{cname}_pairs"] = [int(l_c[2].sum()), int(l_c[3].sum())]
@@ -1147,7 +1169,8 @@ def check_blockwise_kernels(torch, timer, detail, seed,
             if cname == "reference":
                 path = (thr, res, gargs)
         log(f"[blockwise] N={n} D={d}: kernels = plain sweeps on the "
-            f"kernel's sims; cached = recompute; {json.dumps(rec)}")
+            f"kernel's sims; cached = recompute; repeat launches the same "
+            f"bits; {json.dumps(rec)}")
         out[n] = rec
         if timer is None:
             continue
@@ -1196,7 +1219,7 @@ def check_blockwise_kernels(torch, timer, detail, seed,
                                       nl.REFERENCE_CONFIG, sims=s_),
                 lambda: bw.loss_plain(f, lab, f, lab, *thr,
                                       nl.REFERENCE_CONFIG, sims=s_, bn=bn,
-                                      bm=bm),
+                                      splits=splits),
                 (4 * nm if cached else 8 * nd) + 4 * n * (1 + 3 + 4),
                 3.0 * nm + (0 if cached else flop),
                 out[n]["reference_loss_abs_err"],
@@ -1541,9 +1564,10 @@ def check_engines_agree(torch, seed, cfg):
 
 def check_stretch(torch, timer, detail, seed, n=32768, d=512):
     """Loss + backward at the 32,768 pool and 512 dims of STRETCH.json on
-    synthetic unit features: REFERENCE_CONFIG and LOCAL/RAND; sim cache
-    on vs off bit-identical in loss and gradient; pos_topk 8 vs 0 the
-    same thresholds and loss; each kernel's time per call."""
+    synthetic unit features: REFERENCE_CONFIG, LOCAL/RAND and a two-sided
+    radix config; sim cache on vs off bit-identical in loss and gradient;
+    pos_topk 8 vs 0 the same thresholds and loss; each kernel's time per
+    call."""
     import math
 
     from npairloss_tpu_torch.ops import _build
@@ -1571,8 +1595,18 @@ def check_stretch(torch, timer, detail, seed, n=32768, d=512):
                   if k in BLOCKWISE_KERNELS}
         return loss.detach(), aux, x.grad, wall, counts
 
-    for cname, cfg in (("reference", nl.REFERENCE_CONFIG),
-                       ("local_rand", nl.NPairLossConfig())):
+    ref = nl.REFERENCE_CONFIG
+    # Positives and negatives both GLOBAL/RELATIVE_HARD: the radix path,
+    # 7 hist sweeps of two sides each.
+    radix_both = nl.NPairLossConfig(
+        margin_ident=ref.margin_ident, margin_diff=ref.margin_diff,
+        identsn=ref.identsn, diffsn=ref.diffsn,
+        ap_mining_region=nl.MiningRegion.GLOBAL,
+        ap_mining_method=nl.MiningMethod.RELATIVE_HARD,
+        an_mining_region=nl.MiningRegion.GLOBAL,
+        an_mining_method=nl.MiningMethod.RELATIVE_HARD)
+    for cname, cfg in (("reference", ref), ("local_rand", nl.NPairLossConfig()),
+                       ("radix_both", radix_both)):
         on = run(cfg, sim_cache=True)
         off = run(cfg, sim_cache=False)
         if not (torch.equal(on[0], off[0]) and torch.equal(on[2], off[2])
@@ -1582,6 +1616,9 @@ def check_stretch(torch, timer, detail, seed, n=32768, d=512):
                "wall_ms_cache_off": off[3], "launches": on[4],
                "pairs": [int(on[1]["ident_num"].sum().item()),
                          int(on[1]["diff_num"].sum().item())]}
+        if cname == "radix_both" and on[4]["npair_hist"] != 7:
+            fail(f"stretch {cname}: {on[4]['npair_hist']} hist sweeps, "
+                 "expected 7")
         if cname == "reference":
             radix = run(cfg, sim_cache=True, pos_topk=0)
             if not (torch.equal(on[0], radix[0]) and all(
@@ -1611,21 +1648,35 @@ def check_stretch(torch, timer, detail, seed, n=32768, d=512):
              g, cfg)
     pre = [sortable_key(sims[:, 1]) >> 28]  # digit-1 prefixes of real pairs
     nm, flop = float(n) * n, 2.0 * n * n * d
-    # Each redesigned kernel twice on the same inputs: the same bits.
+    # Each kernel twice on the same inputs: the same bits.
     st_kw = dict(hist_same=True, topk=8, emit_sims=True)
     _same_bits(torch, bw.npair_stats(f, lab, f, lab, **st_kw),
                bw.npair_stats(f, lab, f, lab, **st_kw),
                f"stretch npair_stats N={n}")
+    hist_args = (f, lab, f, lab, [True, False], pre * 2, 1)
+    for s_ in (sims, None):
+        _same_bits(torch, bw.npair_hist(*hist_args, sims=s_),
+                   bw.npair_hist(*hist_args, sims=s_),
+                   f"stretch npair_hist N={n}")
+        _same_bits(torch, bw.npair_loss(f, lab, f, lab, *thr, cfg, sims=s_),
+                   bw.npair_loss(f, lab, f, lab, *thr, cfg, sims=s_),
+                   f"stretch npair_loss N={n}")
     for name, kern in (("npair_gq", bw.npair_gq), ("npair_gdb", bw.npair_gdb)):
         for s_ in (sims, None):
             _same_bits(torch, kern(*gargs, sims=s_), kern(*gargs, sims=s_),
                        f"stretch {name} N={n}")
     torch.cuda.synchronize()
-    log(f"[stretch] N={n} D={d}: stats, gq, gdb (cached and recompute) "
-        "launched twice give the same bits")
+    log(f"[stretch] N={n} D={d}: stats, hist, loss, gq, gdb (cached and "
+        "recompute) launched twice give the same bits")
     out["cublas_sim_ms"] = timer.ms(lambda: f @ f.T, iters=5, warmup=1)
     log(f"[stretch] cuBLAS fp32 sim product feats @ feats.T alone: "
         f"{out['cublas_sim_ms']:.3f} ms")
+    # One PyTorch read of the same cache: a read-rate yardstick for the
+    # cached sweeps (not the same function).
+    out["amax_cache_ms"] = timer.ms(lambda: torch.amax(sims, dim=1),
+                                    iters=5, warmup=1)
+    log(f"[stretch] torch.amax over the {n} x {n} cache: "
+        f"{out['amax_cache_ms']:.3f} ms")
     skip = torch.ones((), dtype=torch.bool, device="cuda")
     out["hist_skip_ms"] = timer.ms(lambda: bw.npair_hist(
         f, lab, f, lab, [True], pre, 1, sims=sims, skip=skip))
@@ -1640,6 +1691,10 @@ def check_stretch(torch, timer, detail, seed, n=32768, d=512):
                 f, lab, f, lab, [True], pre, 1, sims=sims), 4 * nm, 0.0),
             ("npair_hist recompute", lambda: bw.npair_hist(
                 f, lab, f, lab, [True], pre, 1), 8 * n * d, flop),
+            ("npair_hist cached, 2 sides", lambda: bw.npair_hist(
+                *hist_args, sims=sims), 4 * nm, 0.0),
+            ("npair_hist recompute, 2 sides", lambda: bw.npair_hist(
+                *hist_args), 8 * n * d, flop),
             ("npair_loss cached", lambda: bw.npair_loss(
                 f, lab, f, lab, *thr, cfg, sims=sims), 4 * nm, 3 * nm),
             ("npair_loss recompute", lambda: bw.npair_loss(

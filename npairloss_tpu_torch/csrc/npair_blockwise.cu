@@ -25,10 +25,11 @@
 // element is one __fmaf_rn chain over the other axis in increasing
 // index.  So the cache the stats kernel writes equals what every
 // recompute sweep computes, pool-major sims equal query-major ones,
-// cached and recompute variants give the same bits, and no atomics
-// appear anywhere: repeat runs are bit-identical.
+// cached and recompute variants give the same bits, and no float
+// atomics appear anywhere: repeat runs are bit-identical.
 //
-// npair_stats_kernel and npair_grad_kernel: the FMA-bound sweeps.
+// The FMA-bound main loop (sim_tiles), shared by stats and the recompute
+// hist and loss sweeps:
 //   * Shared loads per FMA.  A block of 256 threads computes a 128 x
 //     128 tile; each thread an 8 x 8 micro-tile (rows and columns
 //     {4 l .. 4 l + 3} and {64 + 4 l ..}), reading both operands as
@@ -41,22 +42,65 @@
 //     group per slice, waited with cp.async.wait_group: while a slice
 //     is consumed the next two are in flight — across tile boundaries,
 //     so a tile's epilogue runs while the next tile's first slices load.
-//   * The stats epilogue: the tile goes to shared memory (float4, rows
-//     136 floats apart so a warp's float4 reads are conflict-free) and
-//     to the sim cache straight from registers with 16-byte stores; two
-//     threads then share each row (64 columns each) for the running
-//     min/max, counts, 16-bin digit-0 histograms (16 compares into
-//     registers) and the K-slot buffer (a sorted per-thread buffer in
-//     shared memory, duplicates as distinct entries).
+//   * The finished tile goes to shared memory (float4, rows 136 floats
+//     apart so a warp's float4 reads are conflict-free) with its 128 pool
+//     labels; two threads then share each row, thread (r, j) taking the
+//     4-column chunks 2u + j, u = 0..15, for the kernel's epilogue.
 //   * Filling the card.  A block owns 128 query rows.  Where those row
 //     tiles fill the card badly (N = 8192: 64 tiles for 132 SMs), the
 //     pool axis is split over the CTAs of a thread-block cluster (2, 4
-//     or 8, whichever fills the most SMs); rank 0 combines the ranks'
-//     per-row partials through distributed shared memory in rank order.
-//     Min, max, integer counts, histogram sums and the K-largest
-//     multiset are exact in any order, so the outputs equal the unsplit
-//     sweep's bit for bit (stats_plain(splits=) in blockwise_npair.py
-//     is the plain mirror).
+//     or 8, whichever fills the most SMs: pool_splits); rank 0 combines
+//     the ranks' per-row partials through distributed shared memory in
+//     rank order.
+//
+// npair_stats_kernel: the stats epilogue also writes the tile to the sim
+// cache straight from registers with 16-byte stores; per row it keeps the
+// running min/max, counts, 16-bin digit-0 histograms (16 compares into
+// registers) and the K-slot buffer (a sorted per-thread buffer in shared
+// memory, duplicates as distinct entries).  Min, max, integer counts,
+// histogram sums and the K-largest multiset are exact in any order, so
+// the split sweep equals the unsplit one bit for bit (stats_plain(splits=)
+// in blockwise_npair.py is the plain mirror).
+//
+// npair_hist_kernel and npair_loss_kernel replace _make_hist_kernel and
+// _make_loss_kernel: per query row, the prefix-matched 16-bin histogram
+// of one radix digit per active side; the selected pairs' I and D sums of
+// exp(s - max_all) and their counts.  Each has two variants:
+//   * Recompute (no cache): bound by operations, as stats is.  The tiles
+//     come from sim_tiles, the stats kernel's loop, and the epilogue reads
+//     the staged tile row-wise.
+//   * Cached: bound by bytes.  cache_tiles streams the block's rows of the
+//     cache in stages of 128 rows x 32 columns through a kCStages-deep ring
+//     of 16-byte cp.async copies (4-byte where rows are not 16-byte
+//     aligned, M % 4 != 0), with each stage's pool labels, so bytes keep
+//     arriving while the epilogue runs; small enough for two blocks per SM.
+//   * Both variants split the pool axis by pool_splits(n, m, 2) (two
+//     resident blocks per SM: N = 8192 takes 4 ranks, N = 32768 none), so
+//     the split is one function of (n, m) for both.
+//   * One I/D summation order per row, shared by the two variants, so cache
+//     on = off bit for bit (the gradient reads I and I + D): thread (r, j)
+//     sums, in one fp32 chain, the chunks 2u + j of every 128-column tile
+//     of its rank's range, tiles in order; the row's two chains are added,
+//     then the ranks' partials in rank order.  cache_tiles hands its
+//     epilogue the same chunks in the same order as sim_tiles does
+//     (loss_plain in blockwise_npair.py mirrors the order).
+//   * The histogram counts with shared-memory integer atomics per (side,
+//     bin, row): exact in any order, one atomic per matching key and side
+//     where a register histogram spends 16 compare-adds.
+//   * The loss epilogue is branch-free: one exp per pair, added to the I
+//     or the D chain by selection (a branch per pair diverges within a
+//     warp and cost more on the card than the exps it skips).
+//   * Element-wise maths in explicit __f*_rn intrinsics (expf is the
+//     full-precision libdevice exp), so no FMA contraction moves a
+//     rounding; masking is by selection, never by multiplying with a 0
+//     mask (a query with no pairs has max_all = -FLT_MAX and exp
+//     overflows).  Rows >= n and columns >= m read 0 and fall outside
+//     both masks; the self pair is column row + self_offset.
+//   * The hist kernel reads a device flag and, when the pos_topk fast
+//     path already holds, writes zeros and returns, so the fallback needs
+//     no host sync.
+//
+// npair_grad_kernel (gq and gdb):
 //   * The gradient keeps its 128 x 128 accumulator (a band of 128 output
 //     rows x a chunk of 128 of the D columns) in registers through the
 //     whole sweep over the other axis and writes each element once, with
@@ -73,25 +117,14 @@
 //     cluster barrier per other tile is the only synchronisation.  The
 //     grid is kS x bands (N = 8192, D = 1024: 512 CTAs; N = 32768, D =
 //     512: 1024).
-//   * The 16-byte copies need D % 4 == 0 and 16-byte aligned rows: the
-//     wrappers zero-pad D (which changes no sim) where it is not.
 //
-// npair_hist_kernel and npair_loss_kernel keep the simple 64 x 64 tile
-// (sim_tile: a 4 x 4 micro-tile from 16-deep slices); their sims are
-// the same chain, so they agree with the cache bit for bit.
-//   * Ragged edges by bounds: rows >= n and columns >= m read 0 and fall
-//     outside both masks; the self pair is column row + self_offset.
-//   * Element-wise maths in explicit __f*_rn intrinsics (expf is the
-//     full-precision libdevice exp), so no FMA contraction moves a
-//     rounding; masking is by selection, never by multiplying with a 0
-//     mask (a query with no pairs has max_all = -FLT_MAX and exp
-//     overflows).
-//   * The hist kernel reads a device flag and, when the pos_topk fast
-//     path already holds, writes zeros and returns, so the fallback needs
-//     no host sync.
+// The 16-byte operand copies need D % 4 == 0 and 16-byte aligned rows:
+// the wrappers zero-pad D (which changes no sim) where it is not.
 
 #include <cooperative_groups.h>
 #include <float.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -99,156 +132,48 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kT = 64;             // hist/loss: rows of a tile, both axes
-constexpr int kTK = 16;            // hist/loss: depth of a staged slice
 constexpr int kThreads = 256;
-constexpr int kRowThreads = 4;     // hist/loss: threads sharing one tile row
-constexpr int kCols = kT / kRowThreads;  // columns per thread
 constexpr int kBins = 16;          // 4-bit radix digits
 constexpr int kMaxTopK = 32;  // MAX_TOPK in ops/blockwise_npair.py
 
-constexpr int kBT = 128;           // stats/grad: block tile rows, both axes
+constexpr int kBT = 128;           // block tile rows, both axes
 constexpr int kBK = 32;            // depth of one ring slice
 constexpr int kStages = 3;         // ring depth
-constexpr int kSimStride = 136;    // stats: row stride of the sim tile
+constexpr int kSimStride = 136;    // row stride of the staged sim tile
 constexpr int kWStride = 132;      // grad: row stride of weight tiles
 constexpr int kMaxCluster = 8;     // portable cluster size
 constexpr int kStatFields = 5 + 2 * kBins;  // per-row partials before K
+constexpr int kCW = 32;            // cached hist/loss: columns per stage
+constexpr int kCStages = 5;        // cached hist/loss: ring depth
 
 // MiningMethod (ops/npair_loss.py).
 enum Method { HARD = 0, EASY = 1, RAND = 2, RELATIVE_HARD = 3, RELATIVE_EASY = 4 };
-
-struct TileSmem {
-  struct {
-    float a[kTK][kT + 4];  // owned rows' slice, k-major
-    float b[kTK][kT + 4];  // other rows' slice, k-major
-  } op;
-  float s[kT][kT + 1];     // the sim tile
-};
-
-// The hist and loss sweeps' fp32 dot product: for owned rows [o0, o0+64)
-// of `own` and rows [x0, x0+64) of `other` (both row-major, D columns),
-// acc[a][b] = sum_k own[ty+16a][k] * other[tx+16b][k] as one __fmaf_rn
-// chain in increasing k.  Rows past the ends read 0; slices past D are
-// zero-padded.
-__device__ __forceinline__ void sim_tile(const float* __restrict__ own,
-                                         int own_rows, int o0,
-                                         const float* __restrict__ other,
-                                         int other_rows, int x0, int d,
-                                         TileSmem& sm, float acc[4][4]) {
-  const int t = threadIdx.x, ty = t / 16, tx = t % 16;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-  for (int k0 = 0; k0 < d; k0 += kTK) {
-#pragma unroll
-    for (int e = 0; e < kT * kTK / kThreads; ++e) {
-      const int idx = t + e * kThreads, r = idx / kTK, kk = idx % kTK;
-      const int k = k0 + kk;
-      const bool kin = k < d;
-      sm.op.a[kk][r] = (kin && o0 + r < own_rows)
-                           ? own[static_cast<long long>(o0 + r) * d + k]
-                           : 0.f;
-      sm.op.b[kk][r] = (kin && x0 + r < other_rows)
-                           ? other[static_cast<long long>(x0 + r) * d + k]
-                           : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = sm.op.a[kk][ty + 16 * a];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = sm.op.b[kk][tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          acc[a][b] = __fmaf_rn(av[a], bv[b], acc[a][b]);
-    }
-    __syncthreads();
-  }
-}
-
-// Fill sm.s[q][i] for the query-major tile at (q0, i0): recomputed by
-// sim_tile or read from the N x M cache.
-template <bool kCached>
-__device__ __forceinline__ void produce_tile(
-    const float* __restrict__ feats, const float* __restrict__ pool,
-    const float* __restrict__ sims, int n, int m, int d, int q0, int i0,
-    TileSmem& sm) {
-  const int t = threadIdx.x;
-  if (kCached) {
-#pragma unroll
-    for (int e = 0; e < kT * kT / kThreads; ++e) {
-      const int idx = t + e * kThreads;
-      // Consecutive threads read consecutive cache columns (pool rows).
-      const int col = idx % kT, row = idx / kT;
-      const int q = q0 + row, i = i0 + col;
-      sm.s[row][col] = (q < n && i < m)
-                           ? sims[static_cast<long long>(q) * m + i]
-                           : 0.f;
-    }
-  } else {
-    float acc[4][4];
-    sim_tile(feats, n, q0, pool, m, i0, d, sm, acc);
-    const int ty = t / 16, tx = t % 16;
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) sm.s[ty + 16 * a][tx + 16 * b] = acc[a][b];
-  }
-  __syncthreads();
-}
 
 __device__ __forceinline__ unsigned sortable_key(float v) {
   const unsigned u = __float_as_uint(v);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// Add one key's digit to a 16-bin register histogram, if its higher
-// digits match the prefix (digit 0: always).
-__device__ __forceinline__ void hist_add(int h[kBins], unsigned key,
-                                         int digit, unsigned prefix) {
-  if (digit > 0 && (key >> (32 - 4 * digit)) != prefix) return;
-  const unsigned bin = (key >> (28 - 4 * digit)) & (kBins - 1);
+// Add one key's digit 0 to a 16-bin register histogram.
+__device__ __forceinline__ void hist_add(int h[kBins], unsigned key) {
+  const unsigned bin = key >> 28;
 #pragma unroll
   for (int b = 0; b < kBins; ++b) h[b] += (bin == static_cast<unsigned>(b));
 }
 
-// Sum (ints) or reduce across the four threads of a tile row, in a fixed
-// order: lane j ends with (v_j + v_j^1) + (v_j^2 + v_j^3).
-__device__ __forceinline__ int row_sum(int v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v;
-}
-__device__ __forceinline__ float row_fsum(float v) {
-  v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
-  return v;
-}
-
-// selection_predicates (ops/npair_loss.py), cu:80-119.
+// selection_predicates (ops/npair_loss.py), cu:80-119, as selections
+// on the (uniform) method, not a switch.
 __device__ __forceinline__ bool pos_pred(int method, float s, float pt) {
-  switch (method) {
-    case HARD: return s < pt;
-    case EASY: return s >= pt;
-    case RAND: return true;
-    case RELATIVE_HARD: return s <= pt;
-    default: return s >= pt;
-  }
+  return method == HARD            ? s < pt
+         : method == RAND          ? true
+         : method == RELATIVE_HARD ? s <= pt
+                                   : s >= pt;
 }
 __device__ __forceinline__ bool neg_pred(int method, float s, float nt) {
-  switch (method) {
-    case HARD: return s > nt;
-    case EASY: return s <= nt;
-    case RAND: return true;
-    case RELATIVE_HARD: return s >= nt;
-    default: return s <= nt;
-  }
+  return method == HARD            ? s > nt
+         : method == RAND          ? true
+         : method == RELATIVE_HARD ? s >= nt
+                                   : s <= nt;
 }
 
 struct Pair {
@@ -263,6 +188,15 @@ __device__ __forceinline__ Pair pair_of(int q, int i, L lq, L li, int n,
   const bool ok = q < n && i < m && i != q + self_offset;
   const bool same_lbl = lq == li;
   return {ok && same_lbl, ok && !same_lbl};
+}
+
+// A label held as its 32-bit pattern, as the kernel's label type.
+template <typename L>
+__device__ __forceinline__ L label_as(int bits) {
+  if constexpr (std::is_same<L, float>::value)
+    return __int_as_float(bits);
+  else
+    return bits;
 }
 
 // The same for labels held as 32-bit patterns: compared as float32 when
@@ -295,9 +229,23 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-// The oldest in-flight slice has landed (this thread's copies).
+// At most kPending of this thread's newest commit groups are still in
+// flight: with kPending = ring depth - 2, the oldest in-flight stage has
+// landed.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
 __device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+  cp_async_wait<kStages - 2>();
+}
+// 4 bytes global -> shared, asynchronously; zero-filled when !full.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
 }
 
 // Row (or column) i in 0..7 of the 8 x 8 micro-tile of lane l (0..15).
@@ -306,6 +254,9 @@ __device__ __forceinline__ int frag(int l, int i) {
 }
 
 __device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ int comp(const int4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
@@ -369,46 +320,24 @@ __device__ __forceinline__ void sim_slice(const float* a, const float* b,
   }
 }
 
-// ------------------------------------------------------------ stats
+// --------------------------------------------------- the shared sweeps
 
-// Dynamic shared memory of the stats kernel (floats): the operand ring,
-// the sim tile (later the per-row partials), the K-slot buffers, the
-// pool tile's labels.
-__host__ __device__ constexpr int stats_smem_floats(int k) {
-  return kStages * 2 * kBT * kBK + kBT * kSimStride + k * kThreads + kBT;
-}
-
-// Grid: (splits, row tiles) in clusters of (splits, 1, 1).  Block (s, y)
-// owns queries [128 y, 128 y + 128) and pool tiles [T s / S, T (s+1) / S)
-// of T = ceil(m / 128).
-__global__ void __launch_bounds__(kThreads, 1) npair_stats_kernel(
-    const float* __restrict__ feats, const int* __restrict__ labels,
+// The 128 x 128 sim tiles of query rows [q0, q0 + 128) against pool
+// tiles [ct0, ct1), in order, each sim one __fmaf_rn chain (sim_slice
+// over the ring's 32-k slices).  For each finished tile, emit(row, i, v)
+// sees its float4s in registers (row within the block, i the pool
+// column of v.x) as they go to `tile` (row stride kSimStride); the
+// tile's pool labels go to plab; after a __syncthreads, epi(i0) reads
+// both.  The ring runs across tile boundaries, so the next tile's first
+// slices load while epi runs.
+template <typename Emit, typename Epi>
+__device__ __forceinline__ void sim_tiles(
+    float* ring, float* tile, int* plab, const float* __restrict__ feats,
     const float* __restrict__ pool, const int* __restrict__ pool_labels,
-    int label_f32, int n, int m, int d, int self_offset,
-    float* __restrict__ min_w, float* __restrict__ max_b,
-    float* __restrict__ max_a, int* __restrict__ cnt_s,
-    int* __restrict__ cnt_d, int* __restrict__ hist_s,
-    int* __restrict__ hist_d, float* __restrict__ topk, int k,
-    float* __restrict__ sims_out) {
-  extern __shared__ __align__(16) float smem[];
-  float* ring = smem;
-  float* tile = ring + kStages * 2 * kBT * kBK;
-  float* topk_buf = tile + kBT * kSimStride;  // [k][kThreads]
-  int* plab = reinterpret_cast<int*>(topk_buf + k * kThreads);
-  cg::cluster_group cluster = cg::this_cluster();
-  const int splits = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const bool f32 = label_f32 != 0;
+    int n, int m, int d, int q0, int ct0, int ct1, Emit emit, Epi epi) {
   const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
-  const int r = t >> 1, j = t & 1;  // epilogue: row r, half j
-  const int q0 = blockIdx.y * kBT, q = q0 + r;
-  const int lq = q < n ? labels[q] : 0;
-  const int col_tiles = (m + kBT - 1) / kBT;
-  const int ct0 = col_tiles * rank / splits;
-  const int ct1 = col_tiles * (rank + 1) / splits;
   const int nk = (d + kBK - 1) / kBK;
   const int total = (ct1 - ct0) * nk;  // ring slices of this block
-  const bool vec_emit = (m & 3) == 0;
 
   // Slice g: k-slice g % nk of the block's (g / nk)-th pool tile.
   auto issue = [&](int g) {
@@ -421,13 +350,6 @@ __global__ void __launch_bounds__(kThreads, 1) npair_stats_kernel(
     }
     cp_async_commit();
   };
-
-  float mn = FLT_MAX, mxb = -FLT_MAX, mxa = -FLT_MAX;
-  int cs = 0, cd = 0;
-  int hs[kBins], hd[kBins];
-#pragma unroll
-  for (int b = 0; b < kBins; ++b) hs[b] = hd[b] = 0;
-  for (int s = 0; s < k; ++s) topk_buf[s * kThreads + t] = -FLT_MAX;
 
   for (int g = 0; g < kStages - 1; ++g) issue(g);
   float acc[8][8];
@@ -446,8 +368,7 @@ __global__ void __launch_bounds__(kThreads, 1) npair_stats_kernel(
     sim_slice<8>(buf, buf + kBT * kBK, ty, tx, acc);
     if (kk != nk - 1) continue;
 
-    // The finished tile: to shared memory for the row-wise epilogue, and
-    // to the cache straight from registers.  The sync at the top of this
+    // The finished tile to shared memory.  The sync at the top of this
     // slice ordered these writes after the last epilogue's reads.
     const int i0 = (ct0 + g / nk) * kBT;
 #pragma unroll
@@ -459,21 +380,196 @@ __global__ void __launch_bounds__(kThreads, 1) npair_stats_kernel(
         const float4 v = make_float4(acc[a][4 * h], acc[a][4 * h + 1],
                                      acc[a][4 * h + 2], acc[a][4 * h + 3]);
         *reinterpret_cast<float4*>(tile + row * kSimStride + col) = v;
-        if (sims_out != nullptr && q0 + row < n) {
-          float* dst =
-              sims_out + static_cast<long long>(q0 + row) * m + i0 + col;
-          if (vec_emit) {
-            if (i0 + col < m) *reinterpret_cast<float4*>(dst) = v;
-          } else {
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (i0 + col + e < m) dst[e] = comp(v, e);
-          }
-        }
+        emit(row, i0 + col, v);
       }
     }
     if (t < kBT) plab[t] = i0 + t < m ? pool_labels[i0 + t] : 0;
     __syncthreads();
+    epi(i0);
+  }
+}
+
+// Offset of 4-column chunk c of row r in a cached stage ([kBT][kCW]
+// floats): XOR-swizzled by (r & 3) << 1, so the 8 lanes of a quarter
+// warp (rows 4a .. 4a + 3, chunks 2u and 2u + 1) read 8 distinct bank
+// groups.
+__device__ __forceinline__ int stage_at(int r, int c) {
+  return r * kCW + 4 * (c ^ ((r & 3) << 1));
+}
+
+// Rows [q0, q0 + 128) of the N x M sim cache over pool tiles [ct0, ct1),
+// streamed in stages of kCW columns through a kCStages-deep ring of
+// cp.async copies — 16 bytes each when `vec` (M % 4 == 0, an aligned
+// cache), else 4 — with each stage's pool labels; past the ends
+// zero-filled.  Thread (r, j) calls chunk(v, labels, i) for the 4-column
+// chunks 2u + j of each stage in turn (i the pool column of v.x): over a
+// 128-column tile, the chunks sim_tiles' epilogue reads, in its order.
+template <typename Chunk>
+__device__ __forceinline__ void cache_tiles(
+    float* ring, const float* __restrict__ sims,
+    const int* __restrict__ pool_labels, int n, int m, int q0, int ct0,
+    int ct1, bool vec, Chunk chunk) {
+  constexpr int kStage = kBT * kCW + kCW;  // the sims, then the labels
+  constexpr int kVec = kBT * kCW / 4 / kThreads;  // 16-byte copies a stage
+  const int t = threadIdx.x, r = t >> 1, j = t & 1;
+  const int total = (ct1 - ct0) * (kBT / kCW);  // stages of this block
+  // A thread's 16-byte copies land at the same places of every stage;
+  // only their column moves, kCW a stage.
+  const float* src[kVec];
+  int dst[kVec], col[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    const int idx = t + e * kThreads, row = idx >> 3, c = idx & 7;
+    col[e] = ct0 * kBT + 4 * c;
+    // Rows past the end stay at the base pointer and copy nothing.
+    src[e] = q0 + row < n ? sims + static_cast<long long>(q0 + row) * m +
+                                col[e]
+                          : nullptr;
+    dst[e] = stage_at(row, c);
+  }
+  auto issue = [&](int g) {
+    if (g < total) {
+      float* buf = ring + (g % kCStages) * kStage;
+      const int i0 = ct0 * kBT + g * kCW;
+      if (vec) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const bool in = src[e] != nullptr && col[e] + g * kCW < m;
+          cp_async16(buf + dst[e], in ? src[e] + g * kCW : sims, in);
+        }
+      } else {
+#pragma unroll 4
+        for (int e = 0; e < kBT * kCW / kThreads; ++e) {
+          const int idx = t + e * kThreads, row = idx / kCW, col = idx % kCW;
+          const int q = q0 + row, i = i0 + col;
+          const bool in = q < n && i < m;
+          cp_async4(buf + stage_at(row, col >> 2) + (col & 3),
+                    in ? sims + static_cast<long long>(q) * m + i : sims,
+                    in);
+        }
+      }
+      if (t < kCW) {
+        const bool in = i0 + t < m;
+        cp_async4(buf + kBT * kCW + t,
+                  reinterpret_cast<const float*>(pool_labels +
+                                                 (in ? i0 + t : 0)),
+                  in);
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int g = 0; g < kCStages - 1; ++g) issue(g);
+  for (int g = 0; g < total; ++g) {
+    cp_async_wait<kCStages - 2>();
+    __syncthreads();  // stage g is in; stage g-1's buffer is free
+    issue(g + kCStages - 1);
+    const float* buf = ring + (g % kCStages) * kStage;
+    const int i0 = ct0 * kBT + g * kCW;
+#pragma unroll
+    for (int u = 0; u < kCW / 8; ++u) {
+      const int c = 2 * u + j;
+      chunk(*reinterpret_cast<const float4*>(buf + stage_at(r, c)),
+            *reinterpret_cast<const int4*>(buf + kBT * kCW + 4 * c),
+            i0 + 4 * c);
+    }
+  }
+}
+
+// Shared memory (floats) of a hist or loss sweep before the kernel's own
+// partials: the cached ring, or the recompute ring, tile and labels.
+__host__ __device__ constexpr int sweep_smem_floats(bool cached) {
+  return cached ? kCStages * (kBT * kCW + kCW)
+                : kStages * 2 * kBT * kBK + kBT * kSimStride + kBT;
+}
+
+// The block's rows of the pool range [ct0, ct1) through chunk(v, labels,
+// i), from the cache or recomputed: either way thread (r, j) sees row r's
+// chunks 2u + j of each 128-column tile, tiles in order.
+template <bool kCached, typename Chunk>
+__device__ __forceinline__ void sweep(
+    float* smem, const float* __restrict__ feats,
+    const float* __restrict__ pool, const int* __restrict__ pool_labels,
+    const float* __restrict__ sims, bool vec, int n, int m, int d, int q0,
+    int ct0, int ct1, Chunk chunk) {
+  if constexpr (kCached) {
+    cache_tiles(smem, sims, pool_labels, n, m, q0, ct0, ct1, vec, chunk);
+  } else {
+    float* tile = smem + kStages * 2 * kBT * kBK;
+    int* plab = reinterpret_cast<int*>(tile + kBT * kSimStride);
+    const int r = threadIdx.x >> 1, j = threadIdx.x & 1;
+    sim_tiles(smem, tile, plab, feats, pool, pool_labels, n, m, d, q0, ct0,
+              ct1, [](int, int, float4) {}, [&](int i0) {
+#pragma unroll 2
+                for (int u = 0; u < kBT / 8; ++u) {
+                  const int c0 = 4 * (2 * u + j);
+                  chunk(*reinterpret_cast<const float4*>(
+                            tile + r * kSimStride + c0),
+                        *reinterpret_cast<const int4*>(plab + c0), i0 + c0);
+                }
+              });
+  }
+}
+
+// ------------------------------------------------------------ stats
+
+// Dynamic shared memory of the stats kernel (floats): the operand ring,
+// the sim tile (later the per-row partials), the pool tile's labels, the
+// K-slot buffers.
+__host__ __device__ constexpr int stats_smem_floats(int k) {
+  return kStages * 2 * kBT * kBK + kBT * kSimStride + kBT + k * kThreads;
+}
+
+// Grid: (splits, row tiles) in clusters of (splits, 1, 1).  Block (s, y)
+// owns queries [128 y, 128 y + 128) and pool tiles [T s / S, T (s+1) / S)
+// of T = ceil(m / 128).
+__global__ void __launch_bounds__(kThreads, 1) npair_stats_kernel(
+    const float* __restrict__ feats, const int* __restrict__ labels,
+    const float* __restrict__ pool, const int* __restrict__ pool_labels,
+    int label_f32, int n, int m, int d, int self_offset,
+    float* __restrict__ min_w, float* __restrict__ max_b,
+    float* __restrict__ max_a, int* __restrict__ cnt_s,
+    int* __restrict__ cnt_d, int* __restrict__ hist_s,
+    int* __restrict__ hist_d, float* __restrict__ topk, int k,
+    float* __restrict__ sims_out) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* tile = ring + kStages * 2 * kBT * kBK;
+  int* plab = reinterpret_cast<int*>(tile + kBT * kSimStride);
+  float* topk_buf = reinterpret_cast<float*>(plab + kBT);  // [k][kThreads]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const bool f32 = label_f32 != 0;
+  const int t = threadIdx.x;
+  const int r = t >> 1, j = t & 1;  // epilogue: row r, half j
+  const int q0 = blockIdx.y * kBT, q = q0 + r;
+  const int lq = q < n ? labels[q] : 0;
+  const int col_tiles = (m + kBT - 1) / kBT;
+  const int ct0 = col_tiles * rank / splits;
+  const int ct1 = col_tiles * (rank + 1) / splits;
+  const bool vec_emit = (m & 3) == 0;
+
+  float mn = FLT_MAX, mxb = -FLT_MAX, mxa = -FLT_MAX;
+  int cs = 0, cd = 0;
+  int hs[kBins], hd[kBins];
+#pragma unroll
+  for (int b = 0; b < kBins; ++b) hs[b] = hd[b] = 0;
+  for (int s = 0; s < k; ++s) topk_buf[s * kThreads + t] = -FLT_MAX;
+
+  // The finished tile also goes to the cache straight from registers.
+  auto emit = [&](int row, int i, float4 v) {
+    if (sims_out == nullptr || q0 + row >= n) return;
+    float* dst = sims_out + static_cast<long long>(q0 + row) * m + i;
+    if (vec_emit) {
+      if (i < m) *reinterpret_cast<float4*>(dst) = v;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (i + e < m) dst[e] = comp(v, e);
+    }
+  };
+  auto epi = [&](int i0) {
     // Thread (r, j) takes columns 4 (2u + j) .. + 3 of row r.
 #pragma unroll 1
     for (int u = 0; u < kBT / 8; ++u) {
@@ -489,7 +585,7 @@ __global__ void __launch_bounds__(kThreads, 1) npair_stats_kernel(
         if (p.same) {
           mn = fminf(mn, v);
           ++cs;
-          if (hist_s != nullptr) hist_add(hs, sortable_key(v), 0, 0u);
+          if (hist_s != nullptr) hist_add(hs, sortable_key(v));
           if (k > 0 && v > topk_buf[(k - 1) * kThreads + t]) {
             // Sorted insert, descending; equal values stay distinct slots.
             int at = k - 1;
@@ -502,12 +598,14 @@ __global__ void __launch_bounds__(kThreads, 1) npair_stats_kernel(
         } else if (p.diff) {
           mxb = fmaxf(mxb, v);
           ++cd;
-          if (hist_d != nullptr) hist_add(hd, sortable_key(v), 0, 0u);
+          if (hist_d != nullptr) hist_add(hd, sortable_key(v));
         }
         if (p.same || p.diff) mxa = fmaxf(mxa, v);
       }
     }
-  }
+  };
+  sim_tiles(ring, tile, plab, feats, pool, pool_labels, n, m, d, q0, ct0,
+            ct1, emit, epi);
 
   // The row's two halves (lanes t, t ^ 1 of one warp).
   mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, 1));
@@ -599,115 +697,192 @@ __global__ void __launch_bounds__(kThreads, 1) npair_stats_kernel(
   if (splits > 1) cluster.sync();  // no rank leaves while rank 0 reads
 }
 
-// ------------------------------------------------------------- hist
+// ------------------------------------------------------- hist and loss
 
-template <bool kCached, typename L>
-__global__ void __launch_bounds__(kThreads) npair_hist_kernel(
-    const float* __restrict__ feats, const L* __restrict__ labels,
-    const float* __restrict__ pool, const L* __restrict__ pool_labels,
-    const float* __restrict__ sims, int n, int m, int d, int self_offset,
-    int sides, int same0, int same1, const unsigned* __restrict__ prefix0,
-    const unsigned* __restrict__ prefix1, int digit,
-    const unsigned char* __restrict__ skip, int* __restrict__ out0,
-    int* __restrict__ out1) {
-  __shared__ TileSmem sm;
-  __shared__ L plab[kT];
-  const int t = threadIdx.x, r = t / kRowThreads, j = t % kRowThreads;
-  const int q0 = blockIdx.x * kT, q = q0 + r;
-  if (skip != nullptr && *skip) {
-    // The pos_topk fast path holds: this sweep's result is not used.
-    for (int idx = t; idx < kT * kBins; idx += kThreads) {
-      const int qq = q0 + idx / kBins;
-      if (qq >= n) continue;
-      out0[q0 * kBins + idx] = 0;
-      if (sides > 1) out1[q0 * kBins + idx] = 0;
-    }
-    return;
-  }
-  const L lq = q < n ? labels[q] : L(0);
-  const unsigned p0 = q < n ? prefix0[q] : 0u;
-  const unsigned p1 = (sides > 1 && q < n) ? prefix1[q] : 0u;
-  int h0[kBins], h1[kBins];
-#pragma unroll
-  for (int b = 0; b < kBins; ++b) h0[b] = h1[b] = 0;
+// Grid and cluster as the stats kernel's, the pool axis split by
+// pool_splits(n, m, 2) for both variants.  Labels arrive as 32-bit
+// patterns and compare as L (float32: +0 == -0, 0.2 != 0.7).
 
-  for (int i0 = 0; i0 < m; i0 += kT) {
-    if (t < kT) plab[t] = i0 + t < m ? pool_labels[i0 + t] : L(0);
-    produce_tile<kCached>(feats, pool, sims, n, m, d, q0, i0, sm);
-    for (int u = 0; u < kCols; ++u) {
-      const int c = j * kCols + u;
-      const Pair p = pair_of(q, i0 + c, lq, plab[c], n, m, self_offset);
-      if (!(p.same || p.diff)) continue;
-      const unsigned key = sortable_key(sm.s[r][c]);
-      if (same0 ? p.same : p.diff) hist_add(h0, key, digit, p0);
-      if (sides > 1 && (same1 ? p.same : p.diff)) hist_add(h1, key, digit, p1);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int b = 0; b < kBins; ++b) {
-    h0[b] = row_sum(h0[b]);
-    h1[b] = row_sum(h1[b]);
-  }
-  if (j == 0 && q < n) {
-#pragma unroll
-    for (int b = 0; b < kBins; ++b) {
-      out0[q * kBins + b] = h0[b];
-      if (sides > 1) out1[q * kBins + b] = h1[b];
-    }
-  }
+// Dynamic shared memory (bytes): the sweep's, then per (side, bin, row)
+// counters.
+__host__ __device__ constexpr size_t hist_smem_bytes(bool cached) {
+  return sizeof(float) * (sweep_smem_floats(cached) + 2 * kBins * kBT);
 }
 
-// ------------------------------------------------------------- loss
+template <bool kCached, typename L>
+__global__ void __launch_bounds__(kThreads, kCached ? 2 : 1)
+    npair_hist_kernel(const float* __restrict__ feats,
+                      const int* __restrict__ labels,
+                      const float* __restrict__ pool,
+                      const int* __restrict__ pool_labels,
+                      const float* __restrict__ sims, int vec, int n, int m,
+                      int d, int self_offset, int sides, int same0,
+                      int same1, const unsigned* __restrict__ prefix0,
+                      const unsigned* __restrict__ prefix1, int digit,
+                      const unsigned char* __restrict__ skip,
+                      int* __restrict__ out0, int* __restrict__ out1) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int t = threadIdx.x, r = t >> 1;
+  const int q0 = blockIdx.y * kBT, q = q0 + r;
+  if (skip != nullptr && *skip) {
+    // The pos_topk fast path holds: this sweep's result is not used.
+    if (rank == 0)
+      for (int idx = t; idx < kBT * kBins; idx += kThreads) {
+        if (q0 + idx / kBins >= n) break;
+        out0[q0 * kBins + idx] = 0;
+        if (sides > 1) out1[q0 * kBins + idx] = 0;
+      }
+    return;
+  }
+  int* cnt = reinterpret_cast<int*>(smem + sweep_smem_floats(kCached));
+  for (int idx = t; idx < 2 * kBins * kBT; idx += kThreads) cnt[idx] = 0;
+  const int col_tiles = (m + kBT - 1) / kBT;
+  const L lq = label_as<L>(q < n ? labels[q] : 0);
+  const unsigned p0 = q < n ? prefix0[q] : 0u;
+  const unsigned p1 = (sides > 1 && q < n) ? prefix1[q] : 0u;
+  const int hi = 32 - 4 * digit, lo = 28 - 4 * digit;
+
+  // Each key whose higher digits match the side's prefix adds one to its
+  // (side, bin, row) counter.
+  auto chunk = [&](float4 v, int4 l, int i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const Pair p = pair_of(q, i + e, lq, label_as<L>(comp(l, e)), n, m,
+                             self_offset);
+      const unsigned key = sortable_key(comp(v, e));
+      const int bin = static_cast<int>((key >> lo) & (kBins - 1));
+      if ((same0 ? p.same : p.diff) && (key >> hi) == p0)
+        atomicAdd(cnt + bin * kBT + r, 1);
+      if (sides > 1 && (same1 ? p.same : p.diff) && (key >> hi) == p1)
+        atomicAdd(cnt + (kBins + bin) * kBT + r, 1);
+    }
+  };
+  sweep<kCached>(smem, feats, pool, pool_labels, sims, vec != 0, n, m, d,
+                 q0, col_tiles * rank / splits,
+                 col_tiles * (rank + 1) / splits, chunk);
+
+  if (splits > 1)
+    cluster.sync();  // every rank's counters are final
+  else
+    __syncthreads();
+  // Rank 0 sums the ranks' counters (exact in any order); a row's 16
+  // bins go out as four 16-byte stores.
+  if (rank == 0 && t < kBT && q0 + t < n) {
+    for (int side = 0; side < sides; ++side) {
+      int h[kBins];
+#pragma unroll
+      for (int b = 0; b < kBins; ++b) h[b] = 0;
+      for (int s = 0; s < splits; ++s) {
+        const int* src = s == 0 ? cnt : cluster.map_shared_rank(cnt, s);
+#pragma unroll
+        for (int b = 0; b < kBins; ++b)
+          h[b] += src[(side * kBins + b) * kBT + t];
+      }
+      int4* dst = reinterpret_cast<int4*>((side == 0 ? out0 : out1) +
+                                          static_cast<long long>(q0 + t) *
+                                              kBins);
+#pragma unroll
+      for (int b = 0; b < kBins / 4; ++b)
+        dst[b] = make_int4(h[4 * b], h[4 * b + 1], h[4 * b + 2],
+                           h[4 * b + 3]);
+    }
+  }
+  if (splits > 1) cluster.sync();  // no rank leaves while rank 0 reads
+}
+
+// Dynamic shared memory (bytes): the sweep's, then four per-row partials.
+__host__ __device__ constexpr size_t loss_smem_bytes(bool cached) {
+  return sizeof(float) * (sweep_smem_floats(cached) + 4 * kBT);
+}
 
 template <bool kCached, typename L>
-__global__ void __launch_bounds__(kThreads) npair_loss_kernel(
-    const float* __restrict__ feats, const L* __restrict__ labels,
-    const float* __restrict__ pool, const L* __restrict__ pool_labels,
-    const float* __restrict__ sims, int n, int m, int d, int self_offset,
-    int ap, int an, float margin_ident, float margin_diff,
-    const float* __restrict__ pos_thr, const float* __restrict__ neg_thr,
-    const float* __restrict__ max_all, float* __restrict__ isum,
-    float* __restrict__ dsum, float* __restrict__ inum,
-    float* __restrict__ dnum) {
-  __shared__ TileSmem sm;
-  __shared__ L plab[kT];
-  const int t = threadIdx.x, r = t / kRowThreads, j = t % kRowThreads;
-  const int q0 = blockIdx.x * kT, q = q0 + r;
+__global__ void __launch_bounds__(kThreads, kCached ? 2 : 1)
+    npair_loss_kernel(const float* __restrict__ feats,
+                      const int* __restrict__ labels,
+                      const float* __restrict__ pool,
+                      const int* __restrict__ pool_labels,
+                      const float* __restrict__ sims, int vec, int n, int m,
+                      int d, int self_offset, int ap, int an,
+                      float margin_ident, float margin_diff,
+                      const float* __restrict__ pos_thr,
+                      const float* __restrict__ neg_thr,
+                      const float* __restrict__ max_all,
+                      float* __restrict__ isum, float* __restrict__ dsum,
+                      float* __restrict__ inum, float* __restrict__ dnum) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int t = threadIdx.x, r = t >> 1, j = t & 1;
+  const int q0 = blockIdx.y * kBT, q = q0 + r;
   const bool live = q < n;
-  const L lq = live ? labels[q] : L(0);
+  const int col_tiles = (m + kBT - 1) / kBT;
+  const L lq = label_as<L>(live ? labels[q] : 0);
   const float pt = live ? __fadd_rn(pos_thr[q], margin_ident) : 0.f;
   const float nt = live ? __fadd_rn(neg_thr[q], margin_diff) : 0.f;
   const float mx = live ? max_all[q] : 0.f;
+
+  // One fp32 chain per sum and thread, in the sweep's chunk order.
   float is = 0.f, ds = 0.f;
   int ic = 0, dc = 0;
-  for (int i0 = 0; i0 < m; i0 += kT) {
-    if (t < kT) plab[t] = i0 + t < m ? pool_labels[i0 + t] : L(0);
-    produce_tile<kCached>(feats, pool, sims, n, m, d, q0, i0, sm);
-    for (int u = 0; u < kCols; ++u) {
-      const int c = j * kCols + u;
-      const float v = sm.s[r][c];
-      const Pair p = pair_of(q, i0 + c, lq, plab[c], n, m, self_offset);
-      if (p.same && pos_pred(ap, v, pt)) {
-        is = __fadd_rn(is, expf(__fsub_rn(v, mx)));
-        ++ic;
-      } else if (p.diff && neg_pred(an, v, nt)) {
-        ds = __fadd_rn(ds, expf(__fsub_rn(v, mx)));
-        ++dc;
-      }
+  auto chunk = [&](float4 v, int4 l, int i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float s = comp(v, e);
+      const Pair p = pair_of(q, i + e, lq, label_as<L>(comp(l, e)), n, m,
+                             self_offset);
+      const bool sp = p.same && pos_pred(ap, s, pt);
+      const bool sn = p.diff && neg_pred(an, s, nt);
+      // Branch-free: exp for every pair (inf where max_all = -FLT_MAX,
+      // and then not selected), added to a chain by selection.
+      const float x = expf(__fsub_rn(s, mx));
+      is = sp ? __fadd_rn(is, x) : is;
+      ds = sn ? __fadd_rn(ds, x) : ds;
+      ic += sp;
+      dc += sn;
     }
+  };
+  sweep<kCached>(smem, feats, pool, pool_labels, sims, vec != 0, n, m, d,
+                 q0, col_tiles * rank / splits,
+                 col_tiles * (rank + 1) / splits, chunk);
+
+  // The row's two chains (lanes t, t ^ 1 of one warp): chain 0 + chain 1.
+  is = __fadd_rn(is, __shfl_xor_sync(0xffffffffu, is, 1));
+  ds = __fadd_rn(ds, __shfl_xor_sync(0xffffffffu, ds, 1));
+  ic += __shfl_xor_sync(0xffffffffu, ic, 1);
+  dc += __shfl_xor_sync(0xffffffffu, dc, 1);
+  float* part = smem + sweep_smem_floats(kCached);  // [4][kBT]
+  if (j == 0) {
+    part[r] = is;
+    part[kBT + r] = ds;
+    part[2 * kBT + r] = __int_as_float(ic);
+    part[3 * kBT + r] = __int_as_float(dc);
+  }
+  if (splits > 1)
+    cluster.sync();  // every rank's partials are written
+  else
     __syncthreads();
+  // Rank 0 adds the ranks' partials in rank order.
+  if (rank == 0 && t < kBT && q0 + t < n) {
+    float a = part[t], b = part[kBT + t];
+    int na = __float_as_int(part[2 * kBT + t]);
+    int nb = __float_as_int(part[3 * kBT + t]);
+    for (int s = 1; s < splits; ++s) {
+      const float* src = cluster.map_shared_rank(part, s);
+      a = __fadd_rn(a, src[t]);
+      b = __fadd_rn(b, src[kBT + t]);
+      na += __float_as_int(src[2 * kBT + t]);
+      nb += __float_as_int(src[3 * kBT + t]);
+    }
+    isum[q0 + t] = a;
+    dsum[q0 + t] = b;
+    inum[q0 + t] = static_cast<float>(na);
+    dnum[q0 + t] = static_cast<float>(nb);
   }
-  is = row_fsum(is);
-  ds = row_fsum(ds);
-  ic = row_sum(ic);
-  dc = row_sum(dc);
-  if (j == 0 && live) {
-    isum[q] = is;
-    dsum[q] = ds;
-    inum[q] = static_cast<float>(ic);
-    dnum[q] = static_cast<float>(dc);
-  }
+  if (splits > 1) cluster.sync();  // no rank leaves while rank 0 reads
 }
 
 // ------------------------------------------------------- gq and gdb
@@ -746,17 +921,8 @@ __device__ __forceinline__ QueryTerms query_terms(
 // pair, so the 16 weights of a thread interleave.
 __device__ __forceinline__ float pair_weight(float v, Pair p, int ap, int an,
                                              const QueryTerms& qt) {
-  // pos_pred / neg_pred as selections, not a switch.
-  const bool sp =
-      p.same && (ap == HARD            ? v < qt.pt
-                 : ap == RAND          ? true
-                 : ap == RELATIVE_HARD ? v <= qt.pt
-                                       : v >= qt.pt);
-  const bool sn =
-      p.diff && (an == HARD            ? v > qt.nt
-                 : an == RAND          ? true
-                 : an == RELATIVE_HARD ? v >= qt.nt
-                                       : v <= qt.nt);
+  const bool sp = p.same && pos_pred(ap, v, qt.pt);
+  const bool sn = p.diff && neg_pred(an, v, qt.nt);
   const float e = __fmul_rn(expf(__fsub_rn(v, qt.mx)), sp ? qt.a : qt.b);
   return (sp || sn) ? e : 0.f;
 }
@@ -781,15 +947,6 @@ __host__ __device__ constexpr size_t grad_smem_bytes() {
                           2 * kBT * kWStride) +
          sizeof(QueryTerms) * (2 * kBT + kBT / kS) +
          sizeof(int) * (2 * kBT + kBT / kS);
-}
-
-// 4 bytes global -> shared, asynchronously; zero-filled when !full.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(full ? 4 : 0)
-               : "memory");
 }
 
 // The gradient of one band of 128 output rows and one chunk of 128 of
@@ -1093,29 +1250,27 @@ __global__ void __launch_bounds__(kThreads, 1) npair_grad_kernel(
 
 // ------------------------------------------------------- launchers
 
-inline unsigned tiles(int rows) {
-  return static_cast<unsigned>((rows + kT - 1) / kT);
-}
 inline unsigned tiles128(int rows) {
   return static_cast<unsigned>((rows + kBT - 1) / kBT);
 }
 
 inline bool bad_dims(int n, int m, int d) { return n < 1 || m < 1 || d < 1; }
 
-// The stats kernel's pool-axis split: of 1, 2, 4, 8 (at most the pool's
-// tiles), the one whose blocks fill the card's SMs best over whole
-// waves, the smaller on a tie within 1 %.
-inline int stats_splits(int n, int m) {
+// A sweep's pool-axis split: of 1, 2, 4, 8 (at most the pool's tiles),
+// the one whose blocks fill the card's SMs, per_sm resident blocks each,
+// best over whole waves; the smaller on a tie within 1 %.
+inline int pool_splits(int n, int m, int per_sm) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long rows = tiles128(n), cols = tiles128(m);
+  const long long slots = static_cast<long long>(sms) * per_sm;
   int best = 1;
   double best_fill = 0.0;
   for (int s = 1; s <= kMaxCluster && s <= cols; s *= 2) {
     const long long blocks = rows * s;
-    const long long waves = (blocks + sms - 1) / sms;
-    const double fill = static_cast<double>(blocks) / (waves * sms);
+    const long long waves = (blocks + slots - 1) / slots;
+    const double fill = static_cast<double>(blocks) / (waves * slots);
     if (fill > best_fill + 0.01) {
       best = s;
       best_fill = fill;
@@ -1152,7 +1307,7 @@ int launch_stats(const float* feats, const void* labels, const float* pool,
                  int self_offset, float* min_w, float* max_b, float* max_a,
                  int* cnt_s, int* cnt_d, int* hist_s, int* hist_d,
                  float* topk, int k, float* sims_out, cudaStream_t s) {
-  const int splits = stats_splits(n, m);
+  const int splits = pool_splits(n, m, 1);
   const size_t smem = sizeof(float) * stats_smem_floats(k);
   return static_cast<int>(launch_cluster(
       npair_stats_kernel, dim3(splits, tiles128(n)), splits, smem, s, feats,
@@ -1161,44 +1316,46 @@ int launch_stats(const float* feats, const void* labels, const float* pool,
       min_w, max_b, max_a, cnt_s, cnt_d, hist_s, hist_d, topk, k, sims_out));
 }
 
+// The cached variants copy 16 bytes at a time where the cache's rows are
+// 16-byte aligned.
+inline int vec_rows(const float* sims, int m) {
+  return m % 4 == 0 && reinterpret_cast<uintptr_t>(sims) % 16 == 0;
+}
+
 template <typename L>
-int launch_hist(const float* feats, const void* labels, const float* pool,
-                const void* pool_labels, const float* sims, int n, int m,
+int launch_hist(const float* feats, const int* labels, const float* pool,
+                const int* pool_labels, const float* sims, int n, int m,
                 int d, int self_offset, int sides, int same0, int same1,
                 const unsigned* prefix0, const unsigned* prefix1, int digit,
                 const unsigned char* skip, int* out0, int* out1,
                 cudaStream_t s) {
-  const L* lq = static_cast<const L*>(labels);
-  const L* lp = static_cast<const L*>(pool_labels);
-  if (sims != nullptr)
-    npair_hist_kernel<true, L><<<tiles(n), kThreads, 0, s>>>(
-        feats, lq, pool, lp, sims, n, m, d, self_offset, sides, same0, same1,
-        prefix0, prefix1, digit, skip, out0, out1);
-  else
-    npair_hist_kernel<false, L><<<tiles(n), kThreads, 0, s>>>(
-        feats, lq, pool, lp, sims, n, m, d, self_offset, sides, same0, same1,
-        prefix0, prefix1, digit, skip, out0, out1);
-  return static_cast<int>(cudaGetLastError());
+  const int splits = pool_splits(n, m, 2);
+  const dim3 grid(splits, tiles128(n));
+  const bool cached = sims != nullptr;
+  return static_cast<int>(launch_cluster(
+      cached ? npair_hist_kernel<true, L> : npair_hist_kernel<false, L>,
+      grid, splits, hist_smem_bytes(cached), s, feats, labels, pool,
+      pool_labels, sims, cached ? vec_rows(sims, m) : 0, n, m, d,
+      self_offset, sides, same0, same1, prefix0, prefix1, digit, skip, out0,
+      out1));
 }
 
 template <typename L>
-int launch_loss(const float* feats, const void* labels, const float* pool,
-                const void* pool_labels, const float* sims, int n, int m,
+int launch_loss(const float* feats, const int* labels, const float* pool,
+                const int* pool_labels, const float* sims, int n, int m,
                 int d, int self_offset, int ap, int an, float mi, float md,
                 const float* pos_thr, const float* neg_thr,
                 const float* max_all, float* isum, float* dsum, float* inum,
                 float* dnum, cudaStream_t s) {
-  const L* lq = static_cast<const L*>(labels);
-  const L* lp = static_cast<const L*>(pool_labels);
-  if (sims != nullptr)
-    npair_loss_kernel<true, L><<<tiles(n), kThreads, 0, s>>>(
-        feats, lq, pool, lp, sims, n, m, d, self_offset, ap, an, mi, md,
-        pos_thr, neg_thr, max_all, isum, dsum, inum, dnum);
-  else
-    npair_loss_kernel<false, L><<<tiles(n), kThreads, 0, s>>>(
-        feats, lq, pool, lp, sims, n, m, d, self_offset, ap, an, mi, md,
-        pos_thr, neg_thr, max_all, isum, dsum, inum, dnum);
-  return static_cast<int>(cudaGetLastError());
+  const int splits = pool_splits(n, m, 2);
+  const dim3 grid(splits, tiles128(n));
+  const bool cached = sims != nullptr;
+  return static_cast<int>(launch_cluster(
+      cached ? npair_loss_kernel<true, L> : npair_loss_kernel<false, L>,
+      grid, splits, loss_smem_bytes(cached), s, feats, labels, pool,
+      pool_labels, sims, cached ? vec_rows(sims, m) : 0, n, m, d,
+      self_offset, ap, an, mi, md, pos_thr, neg_thr, max_all, isum, dsum,
+      inum, dnum));
 }
 
 // The cluster of D-chunks: ceil(D / 128) rounded up to 4 or 8.  For D <=
@@ -1247,8 +1404,8 @@ int launch_grad(const float* feats, const int* labels, const float* pool,
 //
 // Every pointer is device memory; labels are int32 (label_f32 = 0) or
 // float32 (1); a null `sims` selects the recompute variant, a non-null
-// one the cached variant.  npl_npair_stats and npl_npair_grad need D % 4
-// == 0 and 16-byte aligned feats and pool (the wrappers pad).  Entries
+// one the cached variant.  Every variant that reads feats and pool needs
+// D % 4 == 0 and 16-byte aligned rows (the wrappers pad).  Entries
 // return the cudaError_t of their launch.
 
 extern "C" {
@@ -1278,10 +1435,13 @@ int npl_npair_hist(const void* feats, const void* labels, const void* pool,
                    int same0, int same1, const void* prefix0,
                    const void* prefix1, int digit, const void* skip,
                    void* out0, void* out1, void* stream) {
-  if (bad_dims(n, m, d) || sides < 1 || sides > 2 || digit < 1 || digit > 7)
+  if (bad_dims(n, m, d) || sides < 1 || sides > 2 || digit < 1 ||
+      digit > 7 || (sims == nullptr && d % 4 != 0))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* f = static_cast<const float*>(feats);
+  const int* l = static_cast<const int*>(labels);
+  const int* pl = static_cast<const int*>(pool_labels);
   const float* p = static_cast<const float*>(pool);
   const float* c = static_cast<const float*>(sims);
   const unsigned* p0 = static_cast<const unsigned*>(prefix0);
@@ -1290,11 +1450,10 @@ int npl_npair_hist(const void* feats, const void* labels, const void* pool,
   int* o0 = static_cast<int*>(out0);
   int* o1 = static_cast<int*>(out1);
   if (label_f32)
-    return launch_hist<float>(f, labels, p, pool_labels, c, n, m, d,
-                              self_offset, sides, same0, same1, p0, p1, digit,
-                              sk, o0, o1, s);
-  return launch_hist<int>(f, labels, p, pool_labels, c, n, m, d, self_offset,
-                          sides, same0, same1, p0, p1, digit, sk, o0, o1, s);
+    return launch_hist<float>(f, l, p, pl, c, n, m, d, self_offset, sides,
+                              same0, same1, p0, p1, digit, sk, o0, o1, s);
+  return launch_hist<int>(f, l, p, pl, c, n, m, d, self_offset, sides, same0,
+                          same1, p0, p1, digit, sk, o0, o1, s);
 }
 
 int npl_npair_loss(const void* feats, const void* labels, const void* pool,
@@ -1303,19 +1462,20 @@ int npl_npair_loss(const void* feats, const void* labels, const void* pool,
                    float margin_ident, float margin_diff, const void* pos_thr,
                    const void* neg_thr, const void* max_all, void* isum,
                    void* dsum, void* inum, void* dnum, void* stream) {
-  if (bad_dims(n, m, d)) return cudaErrorInvalidValue;
+  if (bad_dims(n, m, d) || (sims == nullptr && d % 4 != 0))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fo = [](void* p) { return static_cast<float*>(p); };
-  if (label_f32)
-    return launch_loss<float>(f(feats), labels, f(pool), pool_labels, f(sims),
-                              n, m, d, self_offset, ap, an, margin_ident,
-                              margin_diff, f(pos_thr), f(neg_thr), f(max_all),
-                              fo(isum), fo(dsum), fo(inum), fo(dnum), s);
-  return launch_loss<int>(f(feats), labels, f(pool), pool_labels, f(sims), n,
-                          m, d, self_offset, ap, an, margin_ident, margin_diff,
-                          f(pos_thr), f(neg_thr), f(max_all), fo(isum),
-                          fo(dsum), fo(inum), fo(dnum), s);
+  auto li = [](const void* p) { return static_cast<const int*>(p); };
+#define NPL_LOSS(L)                                                          \
+  return launch_loss<L>(f(feats), li(labels), f(pool), li(pool_labels),      \
+                        f(sims), n, m, d, self_offset, ap, an, margin_ident, \
+                        margin_diff, f(pos_thr), f(neg_thr), f(max_all),     \
+                        fo(isum), fo(dsum), fo(inum), fo(dnum), s)
+  if (label_f32) NPL_LOSS(float);
+  NPL_LOSS(int);
+#undef NPL_LOSS
 }
 
 // pool_major = 0: gq [n, d] = w @ pool; 1: gdb [m, d] = w^T @ feats.

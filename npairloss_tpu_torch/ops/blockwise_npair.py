@@ -22,9 +22,11 @@ beside it, over the same (query block x pool block) grid with the same
 arithmetic and tie rules; on CUDA tensors it launches the hand-written
 kernel in ``csrc/npair_blockwise.cu`` or raises — never a fallback.
 Each carries a ``launches`` counter.  The kernels pick their own tiles
-(128 x 128 for stats, gq and gdb, split over thread-block clusters; 64 x
-64 for hist and loss); ``block_size``/``q_block_size`` tile the plain
-sweeps.
+(128 x 128, the pool axis split over thread-block clusters where row
+tiles are few); ``block_size``/``q_block_size`` tile the plain sweeps.
+The loss sweep's I/D sums follow the kernel's summation order
+(``chain_sums``) on both devices, so the CPU and the card differ only by
+their exp.
 
 Around them: the thresholds (absolute from the stats; RELATIVE_* by
 radix selection, with the ``pos_topk`` fast path whose overflow fallback
@@ -71,6 +73,9 @@ _RELATIVE = (MiningMethod.RELATIVE_HARD, MiningMethod.RELATIVE_EASY)
 # memory: at most 32 slots (kMaxTopK in csrc/npair_blockwise.cu), on the
 # CPU as on the card.
 MAX_TOPK = 32
+
+# The kernels' pool tile (kBT in csrc/npair_blockwise.cu).
+KERNEL_TILE = 128
 
 
 class Stats(NamedTuple):
@@ -224,11 +229,60 @@ def _margined(pos_thr, neg_thr, cfg):
     return pos_thr + _f32(cfg.margin_ident), neg_thr + _f32(cfg.margin_diff)
 
 
+def pool_splits(n: int, m: int, sms: int, per_sm: int = 2) -> int:
+    """The hist and loss kernels' pool-axis split (pool_splits in
+    csrc/npair_blockwise.cu, ``per_sm`` resident blocks on ``sms`` SMs):
+    of 1, 2, 4, 8 ranges of whole tiles (at most the pool's tiles), the
+    one that fills the card best over whole waves, the smaller on a tie
+    within 1 %."""
+    rows, cols = -(-n // KERNEL_TILE), -(-m // KERNEL_TILE)
+    slots = sms * per_sm
+    best, best_fill, s = 1, 0.0, 1
+    while s <= 8 and s <= cols:
+        blocks = rows * s
+        fill = blocks / (-(-blocks // slots) * slots)
+        if fill > best_fill + 0.01:
+            best, best_fill = s, fill
+        s *= 2
+    return best
+
+
+def chain_sums(vals: torch.Tensor, splits: int = 1,
+               tile: int = KERNEL_TILE) -> torch.Tensor:
+    """Sums over the last axis of ``vals`` [..., M] in the hist and loss
+    kernels' order: the axis cut into ``splits`` ranges of whole
+    ``tile``-column tiles (the cluster split); in each range two
+    sequential fp32 chains, over the 4-column chunks of even and of odd
+    index within each tile, in column order; the two chains added; then
+    the ranges' partials added in range order.  Zero entries (unselected
+    pairs) leave a chain as it is, as the kernel's skipped adds do."""
+    m = vals.shape[-1]
+    tiles = -(-m // tile)
+    padded = vals.new_zeros(vals.shape[:-1] + (tiles * tile,))
+    padded[..., :m] = vals
+    total = None
+    for s in range(splits):
+        lo = tile * (tiles * s // splits)
+        hi = tile * (tiles * (s + 1) // splits)
+        # [..., chunk pairs, chain, 4] -> [..., chain, elements in order]
+        chains = padded[..., lo:hi].unflatten(-1, (-1, 2, 4)).transpose(
+            -3, -2).flatten(-2)
+        acc = vals.new_zeros(vals.shape[:-1] + (2,))
+        for k in range(chains.shape[-1]):
+            acc = acc + chains[..., k]
+        part = acc[..., 0] + acc[..., 1]
+        total = part if total is None else total + part
+    return total
+
+
 def loss_plain(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
                cfg: NPairLossConfig, self_offset=0, sims=None, bn=512,
-               bm=512) -> Tuple[torch.Tensor, ...]:
+               splits=1, tile=KERNEL_TILE) -> Tuple[torch.Tensor, ...]:
     """(I sum, D sum, selected positives, selected negatives) per query
-    in plain PyTorch."""
+    in plain PyTorch, ``bn`` queries at a time against the whole pool.
+    The I/D sums follow the kernel's order (``chain_sums`` at its
+    ``splits``; ``tile`` other than the kernel's for small tests); the
+    counts are exact in any order."""
     n, m = feats.shape[0], pool.shape[0]
     dev = feats.device
     isum, dsum = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
@@ -236,16 +290,17 @@ def loss_plain(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
     pt, nt = _margined(pos_thr, neg_thr, cfg)
     for q in _tiles(n, bn):
         qs = slice(*q)
-        for i in _tiles(m, bm):
-            s = _sim_tile(feats, pool, sims, q, i)
-            same, diff = _tile_masks(labels, pool_labels, q, i, self_offset)
-            ps, ns = selection_predicates(s, pt[qs, None], nt[qs, None], cfg)
-            sel_pos, sel_neg = same & ps, diff & ns
-            e = torch.exp(s - max_all[qs, None])
-            isum[qs] += torch.where(sel_pos, e, 0.0).sum(dim=1)
-            dsum[qs] += torch.where(sel_neg, e, 0.0).sum(dim=1)
-            inum[qs] += sel_pos.sum(dim=1).float()
-            dnum[qs] += sel_neg.sum(dim=1).float()
+        s = _sim_tile(feats, pool, sims, q, (0, m))
+        same, diff = _tile_masks(labels, pool_labels, q, (0, m), self_offset)
+        ps, ns = selection_predicates(s, pt[qs, None], nt[qs, None], cfg)
+        sel_pos, sel_neg = same & ps, diff & ns
+        e = torch.exp(s - max_all[qs, None])
+        sums = chain_sums(torch.stack([torch.where(sel_pos, e, 0.0),
+                                       torch.where(sel_neg, e, 0.0)]),
+                          splits, tile)
+        isum[qs], dsum[qs] = sums[0], sums[1]
+        inum[qs] = sel_pos.sum(dim=1).float()
+        dnum[qs] = sel_neg.sum(dim=1).float()
     return isum, dsum, inum, dnum
 
 
@@ -332,7 +387,7 @@ def _vec(t: torch.Tensor) -> torch.Tensor:
 
 
 def _rows16(feats, pool):
-    """(feats, pool, D') for the stats and grad kernels, which copy rows
+    """(feats, pool, D') for the kernels that read features, which copy rows
     16 bytes at a time: D' = D rounded up to a multiple of 4, and rows
     zero-padded to it (or copied to an aligned buffer) where they are not
     already so.  Zero columns change no sim: each is one fmaf(0, 0, acc)
@@ -348,6 +403,21 @@ def _rows16(feats, pool):
 
     f = fit(feats)
     return f, (f if pool is feats else fit(pool)), d4
+
+
+def _check_cache(sims, n: int, m: int, what: str) -> None:
+    if sims is not None and sims.shape != (n, m):
+        raise ValueError(f"{what}: the sim cache is {tuple(sims.shape)}, "
+                         f"expected {(n, m)}")
+
+
+def _operands(feats, pool, sims):
+    """(feats, pool, D) as a hist or loss kernel reads them: the cached
+    variants read only the cache; the recompute variants copy rows 16
+    bytes at a time (``_rows16``)."""
+    if sims is not None:
+        return feats, pool, feats.shape[1]
+    return _rows16(feats, pool)
 
 
 @counted
@@ -397,8 +467,9 @@ def npair_hist(feats, labels, pool, pool_labels, sides: Sequence[bool],
                         *(() if sims is None else (sims,)))
     if len(sides) not in (1, 2) or len(prefixes) != len(sides):
         raise ValueError("npair_hist: one or two sides, a prefix each")
-    n, d = feats.shape
-    m = pool.shape[0]
+    n, m = feats.shape[0], pool.shape[0]
+    _check_cache(sims, n, m, "npair_hist")
+    feats, pool, d = _operands(feats, pool, sims)
     # Prefixes hold 4 * digit <= 28 bits: exact in int32.
     pre = [p.to(torch.int32).contiguous() for p in prefixes]
     outs = [torch.empty((n, RADIX_BINS), dtype=torch.int32,
@@ -429,8 +500,9 @@ def npair_loss(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
     vecs = [_vec(v) for v in (pos_thr, neg_thr, max_all)]
     lf = _cuda_operands("npair_loss", feats, labels, pool, pool_labels,
                         *vecs, *(() if sims is None else (sims,)))
-    n, d = feats.shape
-    m = pool.shape[0]
+    n, m = feats.shape[0], pool.shape[0]
+    _check_cache(sims, n, m, "npair_loss")
+    feats, pool, d = _operands(feats, pool, sims)
     outs = [torch.empty(n, device=feats.device) for _ in range(4)]
     err = library().npl_npair_loss(
         feats.data_ptr(), labels.data_ptr(), pool.data_ptr(),
@@ -509,13 +581,14 @@ class _Sweeps(NamedTuple):
 
 def _sweeps(device: torch.device, bn: int, bm: int) -> _Sweeps:
     """The kernel wrappers on the card, which pick their own tiles; on
-    the CPU the plain sweeps at the caller's (query, pool) tiles."""
+    the CPU the plain sweeps at the caller's (query, pool) tiles (the
+    loss sweep's pool axis in the kernel's order)."""
     if device.type != "cpu":
         return _Sweeps(npair_stats, npair_hist, npair_loss, npair_gq,
                        npair_gdb)
     tiles = dict(bn=bn, bm=bm)
     return _Sweeps(partial(stats_plain, **tiles), partial(hist_plain, **tiles),
-                   partial(loss_plain, **tiles),
+                   partial(loss_plain, bn=bn),
                    partial(grad_plain, pool_major=False, **tiles),
                    partial(grad_plain, pool_major=True, **tiles))
 

@@ -1,4 +1,4 @@
-"""Where the time of the blockwise stats and gradient kernels goes.
+"""Where the time of the blockwise kernels goes.
 
 Run on a machine with one H100, from the repository root:
 
@@ -9,9 +9,11 @@ with one part of the work taken out (a text edit of the source, checked
 to apply once), each into its own library under
 ``build/kernels/breakdown/``, all nvcc processes started together; then
 times, per size and variant, ``npair_stats`` (digit-0 histogram, 8
-slots, sims emitted) and the cached ``npair_gq``/``npair_gdb`` on
-REFERENCE_CONFIG thresholds of seeded unit features, beside cuBLAS's
-fp32 ``f @ f.T``.  A variant's outputs are wrong by construction; only
+slots, sims emitted), the cached ``npair_gq``/``npair_gdb``, and
+``npair_hist`` (digit 1, two sides) and ``npair_loss``, cached and
+recompute, on REFERENCE_CONFIG thresholds of seeded unit features,
+beside cuBLAS's fp32 ``f @ f.T`` and ``torch.amax`` over the cache (one
+PyTorch read of the same bytes).  A variant's outputs are wrong by construction; only
 its time means anything: full minus variant is what the removed part
 costs where it does not overlap the rest.  Prints one JSON line per
 size with the card's name and power limit.
@@ -42,8 +44,23 @@ VARIANTS = {
         "            for (int a = 0; a < 0; ++a) {\n"
         "              const float w = comp(wv[a], e);")]),
     "no_stats_epilogue": ("the stats kernel's row-wise epilogue", [(
-        "    for (int u = 0; u < kBT / 8; ++u) {",
-        "    for (int u = 0; u < 0; ++u) {")]),
+        "#pragma unroll 1\n    for (int u = 0; u < kBT / 8; ++u) {",
+        "#pragma unroll 1\n    for (int u = 0; u < 0; ++u) {")]),
+    # The cached sweeps then stream the cache and nothing else (the
+    # recompute sweeps run the bare sim loop).
+    "no_hist_epilogue": ("the hist kernel's per-key epilogue", [(
+        "    for (int e = 0; e < 4; ++e) {\n"
+        "      const Pair p = pair_of(q, i + e, lq, label_as<L>(comp(l, e)), "
+        "n, m,\n                             self_offset);\n"
+        "      const unsigned key",
+        "    for (int e = 0; e < 0; ++e) {\n"
+        "      const Pair p = pair_of(q, i + e, lq, label_as<L>(comp(l, e)), "
+        "n, m,\n                             self_offset);\n"
+        "      const unsigned key")]),
+    "no_loss_epilogue": ("the loss kernel's per-pair epilogue", [(
+        "    for (int e = 0; e < 4; ++e) {\n      const float s = comp(v, e);",
+        "    for (int e = 0; e < 0; ++e) {\n      const float s = comp(v, e);"
+    )]),
 }
 
 
@@ -116,6 +133,7 @@ def main() -> int:
     from npairloss_tpu_torch.ops import _build
     from npairloss_tpu_torch.ops import blockwise_npair as bw
     from npairloss_tpu_torch.ops import npair_loss as nl
+    from npairloss_tpu_torch.ops.rank_select import sortable_key
 
     if not torch.cuda.is_available():
         print("kernel_breakdown: no CUDA device is available")
@@ -141,12 +159,18 @@ def main() -> int:
         cfg = nl.REFERENCE_CONFIG
         _build._lib = libs[names[0]]
         _, _, res = bw._forward(f, lab, cfg, 512, 512, True, 8)
-        gargs = (f, lab, f, lab, res["pos_thr"], res["neg_thr"],
-                 res["max_all"], res["ident_sum"], res["all_sum"],
+        sims = res["sims"]
+        thr = (res["pos_thr"], res["neg_thr"], res["max_all"])
+        gargs = (f, lab, f, lab, *thr, res["ident_sum"], res["all_sum"],
                  torch.ones(n, device="cuda"), torch.ones((), device="cuda"),
                  cfg)
+        # Digit-1 prefixes of real pairs, both sides.
+        hargs = (f, lab, f, lab, [True, False],
+                 [sortable_key(sims[:, 1]) >> 28] * 2, 1)
         row = {"card": card, "n": n, "d": d,
-               "cublas_ms": median_ms(torch, lambda: f @ f.T, flush)}
+               "cublas_ms": median_ms(torch, lambda: f @ f.T, flush),
+               "amax_cache_ms": median_ms(
+                   torch, lambda: torch.amax(sims, dim=1), flush)}
         for name in names:
             _build._lib = libs[name]
             row[name] = {
@@ -156,9 +180,18 @@ def main() -> int:
                 "gq_cached_ms": median_ms(torch, lambda: bw.npair_gq(
                     *gargs, sims=res["sims"]), flush),
                 "gdb_cached_ms": median_ms(torch, lambda: bw.npair_gdb(
-                    *gargs, sims=res["sims"]), flush)}
+                    *gargs, sims=res["sims"]), flush),
+                "hist_cached_ms": median_ms(torch, lambda: bw.npair_hist(
+                    *hargs, sims=sims), flush),
+                "hist_recompute_ms": median_ms(
+                    torch, lambda: bw.npair_hist(*hargs), flush),
+                "loss_cached_ms": median_ms(torch, lambda: bw.npair_loss(
+                    f, lab, f, lab, *thr, cfg, sims=sims), flush),
+                "loss_recompute_ms": median_ms(
+                    torch, lambda: bw.npair_loss(f, lab, f, lab, *thr, cfg),
+                    flush)}
         print(json.dumps(row), flush=True)
-        del res, gargs
+        del res, gargs, sims
     _build._lib = None
     return 0
 

@@ -342,7 +342,7 @@ def test_plain_sweeps_match_the_jax_tile_kernels():
         np.testing.assert_array_equal(g_.numpy(), np.asarray(w_)[:n])
 
     thr = (st.max_b * 0.5, st.min_w - 0.25, st.max_a)
-    got = bw.loss_plain(tf, tl, tf, tl, *thr, cfg, bn=b, bm=b)
+    got = bw.loss_plain(tf, tl, tf, tl, *thr, cfg, bn=b)
     jthr = [jpn._pad_rows(jnp.asarray(t.numpy()), b) for t in thr]
     want = jpn._run_loss(jf, jl, jf, jl, scal, *jthr, jax_cfg(cfg), b, b,
                          True)
@@ -440,3 +440,115 @@ def test_rows16_pads_d_to_a_multiple_of_4_with_zeros():
     assert torch.equal(ff @ pp.T, f @ p.T)
     same = bw._rows16(ff, ff)
     assert same[0] is ff and same[1] is ff and same[2] == 32
+
+
+def _chain_sums_numpy(vals, splits, tile):
+    """The kernels' I/D order spelt out one fp32 add at a time: ranges of
+    whole tiles, in each range a chain per chunk parity (the 4-column
+    chunks 0, 2, 4, ... and 1, 3, 5, ... of every tile, in order), the
+    chains added, the ranges added in order."""
+    rows, m = vals.shape
+    tiles = -(-m // tile)
+    out = np.zeros(rows, np.float32)
+    for r in range(rows):
+        total = None
+        for s in range(splits):
+            lo, hi = tile * (tiles * s // splits), tile * (tiles * (s + 1)
+                                                          // splits)
+            chain = [np.float32(0), np.float32(0)]
+            for c in range(lo, min(hi, m)):
+                j = (c // 4) % 2
+                chain[j] = np.float32(chain[j] + vals[r, c])
+            part = np.float32(chain[0] + chain[1])
+            total = part if total is None else np.float32(total + part)
+        out[r] = total
+    return out
+
+
+@pytest.mark.parametrize("splits,tile", [(1, 128), (1, 8), (2, 8), (3, 8),
+                                         (5, 16)])
+def test_chain_sums_is_the_kernel_order(splits, tile):
+    """``chain_sums`` (the plain loss sweep's I/D sums) adds in exactly
+    the order the hist/loss kernels do: bit-equal to the order spelt out
+    one fp32 add at a time, on 37 ragged columns of values whose sums
+    round differently in other orders."""
+    rng = np.random.default_rng(splits * 100 + tile)
+    vals = rng.exponential(1.0, (5, 37)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.3] = 0.0   # unselected pairs
+    want = _chain_sums_numpy(vals, splits, tile)
+    got = bw.chain_sums(torch.from_numpy(vals), splits, tile).numpy()
+    np.testing.assert_array_equal(got, want)
+    stacked = bw.chain_sums(torch.from_numpy(np.stack([vals, vals[::-1]])),
+                            splits, tile).numpy()
+    np.testing.assert_array_equal(stacked[0], want)
+    np.testing.assert_array_equal(
+        stacked[1], _chain_sums_numpy(vals[::-1], splits, tile))
+
+
+_JAX_LOSS = {}
+
+
+def _jax_loss_sweep(cfg_id, f, l, cfg, thr, b):
+    """JAX's _make_loss_kernel through _run_loss in interpret mode, once
+    per config."""
+    if cfg_id not in _JAX_LOSS:
+        n = len(l)
+        jf = jpn._pad_rows(jnp.asarray(f), b)
+        jl = jpn._pad_rows(jnp.asarray(l), b)
+        jthr = [jpn._pad_rows(jnp.asarray(t.numpy()), b) for t in thr]
+        out = jpn._run_loss(jf, jl, jf, jl, jnp.array([n, 0, n], jnp.int32),
+                            *jthr, jax_cfg(cfg), b, b, True)
+        _JAX_LOSS[cfg_id] = [np.asarray(o)[:n] for o in out]
+    return _JAX_LOSS[cfg_id]
+
+
+@pytest.mark.parametrize("splits,tile", [(1, 128), (1, 8), (2, 8), (3, 8),
+                                         (5, 8)])
+@pytest.mark.parametrize("cfg", [tnl.REFERENCE_CONFIG, ABS_CONFIGS[0],
+                                 ABS_CONFIGS[1]],
+                         ids=["reference", "local_rand", "hard_hard"])
+def test_loss_plain_kernel_orders_match_jax(cfg, splits, tile):
+    """The loss sweep in each mirrored kernel order (the pool split into
+    1..5 ranges of 8- or 128-column tiles) on 40 unit features: the
+    selected pair counts equal JAX's _make_loss_kernel (interpret mode)
+    exactly, and the I/D sums within 4e-6 relative — sums of <= 40
+    positive fp32 terms in two orders, each exp within an ulp of the
+    other package's."""
+    f, l = unit_batch(40, num_ids=10, imgs=4)
+    tf, tl = torch.from_numpy(f), torch.from_numpy(l)
+    st = bw.stats_plain(tf, tl, tf, tl)
+    thr = (st.max_b * 0.5, st.min_w - 0.1, st.max_a)
+    got = bw.loss_plain(tf, tl, tf, tl, *thr, cfg, bn=16, splits=splits,
+                        tile=tile)
+    want = _jax_loss_sweep(cfg.ap_mining_method * 10 + cfg.an_mining_method,
+                           f, l, cfg, thr, 8)
+    assert float(got[2].sum()) > 0 and float(got[3].sum()) > 0
+    np.testing.assert_array_equal(got[2].numpy(), want[2])
+    np.testing.assert_array_equal(got[3].numpy(), want[3])
+    for g_, w_ in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g_.numpy(), w_, rtol=4e-6)
+
+
+@pytest.mark.parametrize("n,sms,want", [(120, 132, 1), (8192, 132, 4),
+                                        (32768, 132, 1), (16384, 132, 2),
+                                        (1000, 5, 8)])
+def test_pool_splits_fill_the_card(n, sms, want):
+    """The hist/loss kernels' cluster split, as ``loss_plain(splits=)``
+    needs it to mirror a card's order: two resident blocks per SM."""
+    assert bw.pool_splits(n, n, sms) == want
+
+
+def test_hist_and_loss_operands_pad_only_to_recompute():
+    """The recompute hist/loss kernels copy feature rows 16 bytes at a
+    time (D padded to a multiple of 4 with zeros); the cached variants
+    read only the cache and leave the features as they are."""
+    f = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (6, 30)).astype(np.float32))
+    ff, pp, d = bw._operands(f, f, None)
+    assert d == 32 and ff is pp and torch.equal(ff[:, :30], f)
+    assert not ff[:, 30:].any()
+    sims = f @ f.T
+    assert bw._operands(f, f, sims) == (f, f, 30)
+    bw._check_cache(sims, 6, 6, "npair_loss")
+    with pytest.raises(ValueError, match="sim cache"):
+        bw._check_cache(sims[:5], 6, 6, "npair_loss")
