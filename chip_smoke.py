@@ -13,7 +13,11 @@ Phases (any failure raises, exits nonzero and prints no result line):
    (one process per source, started together);
 3. hold each kernel against its plain PyTorch version on the card at
    the serving path's shapes — LRN and bias+ReLU at (32,56,56,64) and
-   (32,56,56,192), bias+ReLU+pool at (32,112,112,64), in fp32 and bf16;
+   (32,56,56,192), bias+ReLU+pool at (32,112,112,64), in fp32 and bf16
+   (the pool bit for bit, also with NaN planted, and timed beside
+   ``F.max_pool2d`` over a ``channels_last`` tensor of the same shape, a
+   read-rate yardstick; bias+ReLU keeps NaN where the plain version
+   does);
    the IVF probe at B=32 against the phase-4 index, probes 8, k 10, in
    fp32/bf16/int8 (and once at D = 100, the kernel's element-wise
    path) — with the error against a stated tolerance and the
@@ -32,7 +36,10 @@ Phases (any failure raises, exits nonzero and prints no result line):
    against their plain versions, cached and recompute dx bit for bit,
    timed beside their bound, the plain versions and
    ``F.local_response_norm`` (forward; its backward alone on a saved
-   graph); then the phase-3 forward kernels again at batch 120;
+   graph); the LRN backward and the pool off their vector paths (C =
+   100 at (2,7,9,100), and operands off 16-byte alignment), and the
+   pool's general kernel at a 7 x 7 / s2 window; then the
+   phase-3 forward kernels again at batch 120;
 5. the training path: ``python -m npairloss_tpu_torch train`` in-process
    on ``examples/googlenet_cub_solver.prototxt`` cut to 6 iterations
    (test_iter 2, display 1, snapshot 0), ``googlenet_pallas`` at batch
@@ -206,6 +213,31 @@ def synthetic_gallery(seed: int, n: int = 60502, ids: int = 11316,
 # -- phase 3: stem kernels ----------------------------------------------------
 
 
+def same_nan_and_bits(torch, a, b) -> bool:
+    """Equal as torch.equal, with NaN in the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(
+        torch.equal(a.masked_fill(na, 0), b.masked_fill(nb, 0)))
+
+
+def with_nans(x, step: int = 997):
+    """A copy of x with NaN planted every ``step`` elements."""
+    xn = x.clone()
+    xn.view(-1)[::step] = float("nan")
+    return xn
+
+
+def pool_matches_plain(torch, stem, x, bias, nan_step: int = 997,
+                       window: int = 3, stride: int = 2) -> bool:
+    """The pool kernel gives the plain version's bits on x and on x with
+    NaN planted, NaN positions included (one add and maxima: no rounding
+    order)."""
+    return all(same_nan_and_bits(
+        torch, stem.fused_bias_relu_pool(t, bias, window, stride),
+        stem.bias_relu_pool_plain(t, bias, window, stride))
+        for t in (x, with_nans(x, nan_step)))
+
+
 def check_stem(torch, timer, detail, batch=32, key="stem"):
     """The forward stem kernels at ``batch`` (32: one serving bucket;
     120: one training batch)."""
@@ -235,6 +267,12 @@ def check_stem(torch, timer, detail, batch=32, key="stem"):
                 err = (got.float() - want.float()).abs().max().item()
                 if not err <= tol:
                     fail(f"{name} {tag} {shape}: max_abs_err {err} > {tol}")
+                if name == "bias_relu":  # NaN kept, as the plain version
+                    xn = with_nans(x)
+                    if not torch.equal(torch.isnan(kern(xn, b)),
+                                       torch.isnan(plain(xn, b))):
+                        fail(f"bias_relu {tag} {shape}: NaN positions "
+                             "differ from the plain version")
                 nbytes = 2 * n * size + (4 * c if name == "bias_relu" else 0)
                 ops = n * (14 if name == "lrn" else 2)
                 bms, by = bound_ms(nbytes, ops, "fp32")
@@ -253,16 +291,23 @@ def check_stem(torch, timer, detail, batch=32, key="stem"):
         want = stem.bias_relu_pool_plain(x, b)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        if not err <= tol:
-            fail(f"bias_relu_pool {tag}: max_abs_err {err} > {tol}")
+        if not pool_matches_plain(torch, stem, x, b):
+            fail(f"bias_relu_pool {tag} {shape}: not the plain version's "
+                 "bits")
         nbytes = (x.numel() + got.numel()) * size + 4 * 64
         bms, by = bound_ms(nbytes, 9 * 2 * got.numel(), "fp32")
+        xcl = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC memory
         row = {"shape": list(shape), "dtype": tag, "max_abs_err": err,
-               "tol": tol,
+               "tol": 0.0,
                "ms": timer.ms(lambda: stem.fused_bias_relu_pool(x, b)),
                "plain_ms": timer.ms(
                    lambda: stem.bias_relu_pool_plain(x, b)),
-               "bound_ms": bms, "bound_by": by, "library_ms": None}
+               "bound_ms": bms, "bound_by": by, "library_ms": None,
+               # F.max_pool2d over a channels_last tensor of the same
+               # shape reads and writes the same bytes: a read-rate
+               # yardstick, not the same function.
+               "max_pool2d_yardstick_ms": timer.ms(
+                   lambda: F.max_pool2d(xcl, 3, 2, padding=1))}
         rows["bias_relu_pool"].append(row)
         log(f"[kernel] bias_relu_pool {tag} {shape}: {json.dumps(row)}")
     detail[key] = rows
@@ -347,6 +392,55 @@ def check_lrn_train(torch, timer, detail):
     log("[kernel] lrn_bwd_cached == lrn_bwd bit for bit at every shape")
     detail["lrn_train"] = rows
     return rows
+
+
+def check_stem_scalar_paths(torch, detail, seed: int = 5):
+    """The LRN backward and bias+ReLU+pool kernels off their vector paths:
+    C = 100 (bf16: not a multiple of the 8-wide vector) with odd H/W (the
+    asymmetric SAME pads), and operands one element off 16-byte alignment;
+    and the pool's general kernel at a 7 x 7 / s2 window on aligned
+    operands.  The pool must give the plain version's bits, NaN positions
+    included; the LRN dx cached = recompute bit for bit and within the
+    phase-3b tolerance of the plain version."""
+    from npairloss_tpu_torch.ops import stem
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tols = {"fp32": TOL["stem_fp32"], "bf16": TOL["lrn_train_bf16"]}
+    rows = []
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for shape, offset in (((2, 7, 9, 100), 0), ((2, 7, 9, 100), 1)):
+            n = shape[0] * shape[1] * shape[2] * shape[3]
+
+            def make():
+                buf = torch.randn(n + offset, generator=gen, device="cuda")
+                return buf.to(dtype)[offset:].view(shape)
+
+            x, g = make(), make()
+            b = torch.randn((shape[3],), generator=gen, device="cuda")
+            _, d = stem.lrn_fwd_cached(x)
+            dx_c = stem.lrn_bwd_cached(x, g, d)
+            err = (dx_c.float() - stem.lrn_bwd_plain(x, g, d).float()
+                   ).abs().max().item()
+            same = bool(torch.equal(dx_c, stem.lrn_bwd(x, g)))
+            pool = pool_matches_plain(torch, stem, x, b, nan_step=97)
+            rows.append({"kernel": "scalar_paths", "shape": list(shape),
+                         "dtype": tag, "offset_elems": offset,
+                         "lrn_max_abs_err": err,
+                         "lrn_cached_equals_recompute": same,
+                         "pool_same_bits_as_plain": pool,
+                         "ok": same and pool and err <= tols[tag]})
+        shape = (2, 15, 15, 64)
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        b = torch.randn((64,), generator=gen, device="cuda")
+        pool = pool_matches_plain(torch, stem, x, b, nan_step=97, window=7)
+        rows.append({"kernel": "pool_window_7_stride_2", "shape": list(shape),
+                     "dtype": tag, "pool_same_bits_as_plain": pool,
+                     "ok": pool})
+    log(f"[kernel] scalar paths: {json.dumps(rows)}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"stem kernels off their vector paths: {bad}")
+    detail["stem_scalar_paths"] = rows
 
 
 # -- phase 3: probe kernel ----------------------------------------------------
@@ -769,7 +863,7 @@ def compare_batch_upload(torch, solver, seed, steps=6):
 STEP_CATEGORIES = (
     ("blockwise kernels (csrc/npair_blockwise.cu)", ("npair_",)),
     ("stem kernels (csrc/stem.cu)", ("lrn_fwd_kernel", "lrn_bwd_kernel",
-                                     "bias_relu")),
+                                     "lrn_bwd_vec_kernel", "bias_relu")),
     ("host-device copies", ("memcpy",)),
     ("pooling", ("pool",)),
     ("layout transposes", ("nhwc", "nchw", "transpose")),
@@ -1772,6 +1866,7 @@ def main() -> int:
     check_probe_odd_dim(torch, detail)
     probe_rows = check_probe(torch, timer, index, emb[pick], detail)
     train_rows = check_lrn_train(torch, timer, detail)
+    check_stem_scalar_paths(torch, detail)
     check_stem(torch, timer, detail, batch=120, key="stem_train")
     del timer
     launches, summary, qps = drive_path(torch, args.seed, index, emb, detail)

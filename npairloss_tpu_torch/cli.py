@@ -26,10 +26,20 @@ import os
 import sys
 from typing import Optional
 
-from npairloss_tpu_torch.ops.blockwise_npair import MAX_TOPK
 from npairloss_tpu_torch.ops.ivf_probe import PROBE_IMPLS
 
 log = logging.getLogger("npairloss_tpu_torch")
+
+
+def _unported_model(name: str) -> Optional[str]:
+    """The refusal for a trunk the port's registry lacks, else None."""
+    from npairloss_tpu_torch.models import available_models
+
+    if name.lower() in available_models():
+        return None
+    return (f"model {name!r} is not ported yet (have "
+            f"{available_models()}): the ResNet and ViT trunks are ROADMAP "
+            "Queue 1 item 2")
 
 
 def cmd_index(args) -> int:
@@ -67,6 +77,10 @@ def cmd_serve(args) -> int:
     from npairloss_tpu_torch.serve.index import load_index
     from npairloss_tpu_torch.serve.server import Freshness, RetrievalServer
 
+    refusal = _unported_model(args.model) if args.model else None
+    if refusal:
+        log.error("%s", refusal)
+        return 2
     device = resolve_device(args.device)
     index = load_index(args.index, device=device)
     kind = "ivf" if index.KIND == "ivf-index" else "flat"
@@ -135,6 +149,11 @@ def cmd_train(args) -> int:
         log.error("net prototxt not found (tried %r); pass --net", net_path)
         return 2
     net_cfg = load_net(net_path)
+    model_name = args.model or model_for_net(net_cfg)
+    refusal = _unported_model(model_name)
+    if refusal:
+        log.error("%s", refusal)
+        return 2
     if args.max_iter is not None:
         solver_cfg = dataclasses.replace(solver_cfg, max_iter=args.max_iter)
     refusal = snapshot_refusal(solver_cfg, solver_cfg.max_iter)
@@ -164,7 +183,7 @@ def cmd_train(args) -> int:
 
     device = resolve_device(args.device)
     seed = solver_cfg.random_seed if args.seed is None else args.seed
-    model = get_model(args.model or model_for_net(net_cfg), device=device,
+    model = get_model(model_name, device=device,
                       seed=seed, input_shape=input_shape,
                       dtype=torch.bfloat16 if args.bf16 else torch.float32)
     solver = Solver(
@@ -206,17 +225,16 @@ def cmd_train(args) -> int:
 
 
 def _pos_topk_arg(v: str):
-    """argparse type for --pos-topk: 'auto' or 0..MAX_TOPK."""
+    """argparse type for --pos-topk: 'auto' or any K >= 0, as in JAX."""
     if v == "auto":
         return "auto"
     try:
         k = int(v)
     except ValueError:
+        k = -1
+    if k < 0:
         raise argparse.ArgumentTypeError(
             f"expected 'auto' or a non-negative integer, got {v!r}")
-    if not 0 <= k <= MAX_TOPK:
-        raise argparse.ArgumentTypeError(
-            f"buffer slots must be in 0..{MAX_TOPK}, got {k}")
     return k
 
 
@@ -281,8 +299,9 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--pos-topk", dest="pos_topk", default="auto",
                     metavar="K", type=_pos_topk_arg,
                     help="blockwise engine's sparse-positive buffer slots "
-                    "for RELATIVE AP mining, at most 32 (auto = 8; 0 forces "
-                    "radix selection)")
+                    "for RELATIVE AP mining (auto = 8; 0 forces radix "
+                    "selection; the kernel keeps at most 32, and a query "
+                    "with more positives takes radix selection)")
     tr.add_argument("--sim-cache", dest="sim_cache",
                     choices=["auto", "on", "off"], default="auto",
                     help="blockwise engine's fp32 similarity cache (auto = "

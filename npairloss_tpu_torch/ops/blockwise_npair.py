@@ -71,7 +71,9 @@ _RELATIVE = (MiningMethod.RELATIVE_HARD, MiningMethod.RELATIVE_EASY)
 
 # The kernel keeps each thread's share of the K-slot buffer in shared
 # memory: at most 32 slots (kMaxTopK in csrc/npair_blockwise.cu), on the
-# CPU as on the card.
+# CPU as on the card.  The engine takes any K and gives the kernel at most
+# this many; a query with more positives than slots takes radix selection,
+# so the loss does not depend on K.
 MAX_TOPK = 32
 
 # The kernels' pool tile (kBT in csrc/npair_blockwise.cu).
@@ -768,9 +770,11 @@ def blockwise_npair_loss_with_aux(
     the same bits, O(N^2) memory through the step; ``None`` enables it
     when ``resolve_sim_cache_auto`` admits N x N x 4 bytes.
     ``pos_topk``: slots of the sparse-positive buffer for RELATIVE_* AP
-    mining (``None`` = 8, 0 = radix selection only), rounded up to a
-    multiple of 8 as the JAX package does, so both take the same path
-    for the same labels; at most ``MAX_TOPK`` on every device."""
+    mining (``None`` = 8, 0 = radix selection only), any K >= 0 as in the
+    JAX package, rounded up to a multiple of 8 as it does and capped at
+    the kernel's ``MAX_TOPK`` slots on every device.  The loss does not
+    depend on K: where a query's positives overflow the slots, the AP
+    threshold comes from radix selection."""
     n = features.shape[0]
     bm = int(min(block_size, max(n, 1)))
     bn = int(min(q_block_size or block_size, max(n, 1)))
@@ -779,10 +783,9 @@ def blockwise_npair_loss_with_aux(
                                            features.device)
     if pos_topk is None:
         pos_topk = 8
-    if not 0 <= int(pos_topk) <= MAX_TOPK:
-        raise ValueError(f"pos_topk must be in 0..{MAX_TOPK}, got "
-                         f"{pos_topk}")
-    pos_topk = _round_up(int(pos_topk), 8) if pos_topk else 0
+    if int(pos_topk) < 0:
+        raise ValueError(f"pos_topk must be >= 0, got {pos_topk}")
+    pos_topk = min(_round_up(int(pos_topk), 8), MAX_TOPK) if pos_topk else 0
     aux: Dict[str, torch.Tensor] = {}
     loss = _Blockwise.apply(features, labels, cfg, bn, bm, bool(sim_cache),
                             pos_topk, aux)

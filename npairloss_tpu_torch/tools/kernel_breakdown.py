@@ -7,7 +7,7 @@ Run on a machine with one H100, from the repository root:
 Builds ``csrc/npair_blockwise.cu`` once as it is and once per variant
 with one part of the work taken out (a text edit of the source, checked
 to apply once), each into its own library under
-``build/kernels/breakdown/``, all nvcc processes started together; then
+``build/kernels/variants/``, all nvcc processes started together; then
 times, per size and variant, ``npair_stats`` (digit-0 histogram, 8
 slots, sims emitted), the cached ``npair_gq``/``npair_gdb``, and
 ``npair_hist`` (digit 1, two sides) and ``npair_loss``, cached and
@@ -17,6 +17,9 @@ PyTorch read of the same bytes).  A variant's outputs are wrong by construction;
 its time means anything: full minus variant is what the removed part
 costs where it does not overlap the rest.  Prints one JSON line per
 size with the card's name and power limit.
+
+``build`` and ``median_ms`` are this tool's and ``stem_bench.py``'s:
+``VARIANTS`` holds the edits of each source by its file name.
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ import statistics
 import subprocess
 import time
 
-# name -> (what it removes, [(text, replacement)] in npair_blockwise.cu)
-VARIANTS = {
+# source file -> variant name -> (what it changes, [(text, replacement)])
+VARIANTS = {"npair_blockwise.cu": {
     "full": ("nothing", []),
     "no_weights": ("the grad's weight epilogue (cached)", [(
         "        for (int e = 0; e < kGroups; ++e) {",
@@ -61,32 +64,56 @@ VARIANTS = {
         "    for (int e = 0; e < 4; ++e) {\n      const float s = comp(v, e);",
         "    for (int e = 0; e < 0; ++e) {\n      const float s = comp(v, e);"
     )]),
-}
+}, "stem.cu": {
+    "full": ("nothing", []),
+    "pool_cols1": ("one output column a thread on the 3 x 3 / s2 path", [
+        ("constexpr int kPoolCols = 2;", "constexpr int kPoolCols = 1;")]),
+    "pool_cols4": ("four output columns a thread on the 3 x 3 / s2 path", [
+        ("constexpr int kPoolCols = 2;", "constexpr int kPoolCols = 4;")]),
+    "lrn_no_window": ("the LRN backward's transposed-window sum", [
+        ("          t = __fadd_rn(t, wv[P + j + oo]);", "          t = 0.f;")]),
+    "lrn_no_denominator": ("the recompute LRN backward's window sum of x^2",
+                           [("          dv[j] = lrn_denominator_staged<LO, "
+                             "HI>(xw + P + j, a, k);",
+                             "          dv[j] = k;")]),
+}}
 
 
-def build(names):
-    """One library per variant; returns {name: ctypes.CDLL}."""
+def edited(src_name, name):
+    """(csrc/<src_name> with variant ``name``'s edits, each checked to
+    apply once; the directory of its headers)."""
     from npairloss_tpu_torch.ops import _build
 
-    src = _build.CSRC / "npair_blockwise.cu"
-    text = src.read_text()
-    others = [str(p) for p in _build._sources() if p.name != src.name]
-    root = _build.BUILD_DIR / "breakdown"
+    text = (_build.CSRC / src_name).read_text()
+    for old, new in VARIANTS[src_name][name][1]:
+        if text.count(old) != 1:
+            raise RuntimeError(f"variant {name}: edit does not apply")
+        text = text.replace(old, new)
+    return text, _build.CSRC
+
+
+def build(src_name, sources, others=True):
+    """One library per entry of ``sources`` ({name: (text of
+    ``src_name``, its header directory)}, e.g. from ``edited``), under
+    build/kernels/variants/<src_name>/<name>/, with the other sources of
+    csrc/ linked in unless ``others`` is false, all nvcc processes started
+    together; returns {name: ctypes.CDLL}, each entry of _SIGNATURES that
+    the library defines bound."""
+    from npairloss_tpu_torch.ops import _build
+
+    rest = ([str(p) for p in _build._sources() if p.name != src_name]
+            if others else [])
+    root = _build.BUILD_DIR / "variants" / src_name
     procs = {}
-    for name in names:
-        edited = text
-        for old, new in VARIANTS[name][1]:
-            if edited.count(old) != 1:
-                raise RuntimeError(f"variant {name}: edit does not apply")
-            edited = edited.replace(old, new)
+    for name, (text, include) in sources.items():
         d = root / name
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
-        (d / src.name).write_text(edited)
+        (d / src_name).write_text(text)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-             str(_build.CSRC), "-o", str(d / "lib.so"), str(d / src.name),
-             *others],
+             str(include), "-o", str(d / "lib.so"), str(d / src_name),
+             *rest],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -95,35 +122,46 @@ def build(names):
             raise RuntimeError(f"variant {name}: nvcc failed\n{out}")
         lib = ctypes.CDLL(str(root / name / "lib.so"))
         for fn_name, argtypes in _build._SIGNATURES.items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn = getattr(lib, fn_name, None)
+            if fn is not None:
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         lib.npl_error_string.argtypes = [ctypes.c_int]
         lib.npl_error_string.restype = ctypes.c_char_p
         libs[name] = lib
     return libs
 
 
-def median_ms(torch, fn, flush, iters=5):
-    """Median CUDA-event time of fn, L2 flushed before each launch."""
-    fn()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+def median_ms(torch, fn, flush, iters=5, setups=None):
+    """Median CUDA-event time of fn, ``flush()`` (an L2 flush) before each
+    launch.  With ``setups`` (callables), one median per setup: the setups
+    are taken in turn before every launch, so that the card's drift falls
+    on all alike."""
+    turns = setups or [lambda: None]
+    for setup in turns:
+        setup()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(statistics.median(times))
+    times = [[] for _ in turns]
+    for _ in range(iters):
+        for i, setup in enumerate(turns):
+            setup()
+            flush()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times[i].append(a.elapsed_time(b))
+    meds = [float(statistics.median(t)) for t in times]
+    return meds if setups else meds[0]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sizes", default="32768x512,8192x1024")
-    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--variants",
+                    default=",".join(VARIANTS["npair_blockwise.cu"]))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -145,10 +183,11 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     names = args.variants.split(",")
     t0 = time.perf_counter()
-    libs = build(names)
+    libs = build("npair_blockwise.cu",
+                 {name: edited("npair_blockwise.cu", name) for name in names})
     print(f"[breakdown] {card}; built {len(libs)} variants in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    flush = torch.empty(32 << 20, device="cuda")  # 128 MB > the 50 MB L2
+    flush = torch.empty(32 << 20, device="cuda").zero_  # 128 MB > 50 MB L2
     for size in args.sizes.split(","):
         n, d = (int(v) for v in size.split("x"))
         gen = torch.Generator(device="cuda").manual_seed(args.seed + n)

@@ -270,21 +270,39 @@ def test_negative_pos_topk_is_refused():
 
 
 def test_pos_topk_above_the_kernel_limit_is_refused():
-    """One K-slot limit on every device: the kernel's kMaxTopK, which the
-    wrapper and the engine refuse to exceed on CPU tensors too."""
+    """The kernel's K-slot limit, kMaxTopK, is refused by its wrapper on
+    every device; the engine takes any K >= 0, as JAX does, and gives the
+    kernel at most that many slots.  40 images per identity give 39
+    positives: 64 JAX slots hold them, the port's 32 overflow into radix
+    selection, and the loss is the same — equal to the port at K = 0 bit
+    for bit, and to the JAX blockwise engine at pos_topk=64 (Pallas in
+    interpret mode) within the engine tests' tolerance."""
     src = (Path(bw.__file__).parent.parent / "csrc" /
            "npair_blockwise.cu").read_text()
     assert int(re.search(r"kMaxTopK = (\d+);", src).group(1)) == bw.MAX_TOPK
-    f, l = unit_batch(8, 2, 2)
+    f, l = dyadic_batch(12, num_ids=2, imgs=40)
     tf, tl = torch.from_numpy(f), torch.from_numpy(l)
-    with pytest.raises(ValueError, match="pos_topk"):
-        bw.blockwise_npair_loss(tf, tl, tnl.REFERENCE_CONFIG,
-                                pos_topk=bw.MAX_TOPK + 1)
     with pytest.raises(ValueError, match="top-k slots"):
         bw.npair_stats(tf, tl, tf, tl, topk=bw.MAX_TOPK + 8)
-    loss = bw.blockwise_npair_loss(tf, tl, tnl.REFERENCE_CONFIG,
-                                   pos_topk=bw.MAX_TOPK)
-    assert torch.isfinite(loss)
+    st = bw.npair_stats(tf, tl, tf, tl, hist_same=True, topk=bw.MAX_TOPK)
+    assert int(st.cnt_s.max()) == 39 > bw.MAX_TOPK
+    cfg = tnl.REFERENCE_CONFIG
+    loss, aux, g = port(f, l, cfg, block_size=40, pos_topk=64)
+    radix = port(f, l, cfg, block_size=40, pos_topk=0)
+    assert loss == radix[0]
+    for k in aux:
+        np.testing.assert_array_equal(aux[k], radix[1][k], err_msg=k)
+    np.testing.assert_array_equal(g, radix[2])
+    step = jax.jit(jax.value_and_grad(
+        lambda x: jpn.blockwise_npair_loss_with_aux(
+            x, jnp.asarray(l), jax_cfg(cfg), block_size=128, pos_topk=64,
+            interpret=True),
+        has_aux=True))
+    (loss_j, aux_j), g_j = step(jnp.asarray(f))
+    np.testing.assert_allclose(loss, np.asarray(loss_j), rtol=LOSS_TOL)
+    assert_monitors_equal(aux, aux_j)
+    np.testing.assert_allclose(g, np.asarray(g_j), rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
 
 
 @pytest.mark.parametrize("cfg", [tnl.REFERENCE_CONFIG, ABS_CONFIGS[1]],

@@ -125,7 +125,7 @@ def test_cli_blockwise_event_stream_matches_jax_cli(tmp_path):
                                    ["--engine", "auto"],
                                    ["--pos-topk", "-1"],
                                    ["--sim-cache", "maybe"],
-                                   ["--pos-topk", "33"]])
+                                   ["--pos-topk", "many"]])
 def test_unported_engines_and_bad_values_are_argparse_errors(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["train", "--solver", "examples/tiny_solver.prototxt",

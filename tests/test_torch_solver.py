@@ -169,6 +169,19 @@ def test_train_without_synthetic_exits_2(caplog):
     assert "Queue 1 item 4" in caplog.text
 
 
+def test_unported_trunk_exits_2_naming_its_queue_item(caplog):
+    """The ResNet solver names ``resnet50``, which the port's registry
+    lacks: a refusal naming the queue item, not a traceback."""
+    rc = cli.main(["train", "--solver",
+                   "examples/resnet50_sop_solver.prototxt", "--synthetic",
+                   "--device", "cpu", "--max_iter", "1"])
+    assert rc == 2
+    assert "'resnet50' is not ported" in caplog.text
+    assert "Queue 1 item 2" in caplog.text
+    with pytest.raises(KeyError, match="resnet50"):
+        get_model("resnet50", device="cpu")
+
+
 def test_snapshot_cadence_is_refused_not_skipped(tmp_path, caplog):
     solver = tmp_path / "solver.prototxt"
     solver.write_text(open(TINY_SOLVER).read().replace(

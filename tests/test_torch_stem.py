@@ -9,6 +9,10 @@ within one bf16 ulp (2^-8 relative) of the JAX kernel's, since both round
 one fp32 value once.
 """
 
+import importlib.util
+import types
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -122,6 +126,63 @@ def test_bias_relu_pool_bf16_round_trip():
         _port(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16),
         _port(b))
     np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_bias_relu_ops_keep_nan_as_jax_does(dtype):
+    """Planted NaN pre-activations stay NaN through the ReLU and the
+    pool's max, as ``jnp.maximum`` keeps them: the plain versions (which
+    the kernels must equal on the card) against the Pallas kernels."""
+    x = _rand((1, 7, 9, 64), seed=12)
+    x[0, 0, 0, 3] = x[0, 3, 4, 10] = x[0, 6, 8, 63] = np.nan
+    b = _rand((64,), seed=13, scale=0.5)
+    xj = jnp.asarray(x).astype(dtype)
+    xt = _port(np.asarray(xj.astype(jnp.float32))).to(
+        torch.float32 if dtype is np.float32 else torch.bfloat16)
+    for plain, pallas in ((stem.bias_relu_plain, ps.fused_bias_relu),
+                          (stem.bias_relu_pool_plain,
+                           ps.fused_bias_relu_pool)):
+        got = plain(xt, _port(b)).float().numpy()
+        want = np.asarray(pallas(xj, jnp.asarray(b), interpret=True)
+                          .astype(jnp.float32))
+        assert np.isnan(want).sum() >= 3
+        np.testing.assert_array_equal(got, want)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_pool_check_compares_nan_positions():
+    """chip_smoke.py holds the pool kernel to the plain version's bits,
+    NaN positions included: its comparison accepts the plain version and
+    rejects a pool that drops NaN (the fault of fmaxf) or moves a value."""
+    cs = _chip_smoke()
+    a = torch.tensor([1.0, float("nan"), 0.0])
+    assert cs.same_nan_and_bits(torch, a, a.clone())
+    assert cs.same_nan_and_bits(torch, a, torch.tensor(
+        [1.0, float("nan"), -0.0]))
+    for other in ([1.0, 0.0, 0.0], [1.0, float("nan"), float("nan")],
+                  [1.5, float("nan"), 0.0]):
+        assert not cs.same_nan_and_bits(torch, a, torch.tensor(other))
+    x = torch.from_numpy(_rand((2, 7, 9, 64), seed=14))
+    b = torch.from_numpy(_rand((64,), seed=15))
+    for window in (3, 7):
+        assert cs.pool_matches_plain(torch, stem, x, b, nan_step=97,
+                                     window=window)
+
+    def drops_nan(t, bias, window=3, stride=2):
+        return stem.bias_relu_pool_plain(t.nan_to_num(0.0), bias, window,
+                                         stride)
+
+    fault = types.SimpleNamespace(
+        fused_bias_relu_pool=drops_nan,
+        bias_relu_pool_plain=stem.bias_relu_pool_plain)
+    assert not cs.pool_matches_plain(torch, fault, x, b, nan_step=97)
 
 
 @pytest.mark.parametrize("n,window,stride", [(112, 3, 2), (56, 3, 2),
