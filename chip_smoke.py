@@ -14,15 +14,19 @@ Phases (any failure raises, exits nonzero and prints no result line):
 3. hold each kernel against its plain PyTorch version on the card at
    the serving path's shapes — LRN and bias+ReLU at (32,56,56,64) and
    (32,56,56,192), bias+ReLU+pool at (32,112,112,64), in fp32 and bf16
-   (the pool bit for bit, also with NaN planted, and timed beside
-   ``F.max_pool2d`` over a ``channels_last`` tensor of the same shape, a
-   read-rate yardstick; bias+ReLU keeps NaN where the plain version
-   does);
-   the IVF probe at B=32 against the phase-4 index, probes 8, k 10, in
-   fp32/bf16/int8 (and once at D = 100, the kernel's element-wise
-   path) — with the error against a stated tolerance and the
-   median time from CUDA events (L2 flushed before every timed launch)
-   beside the least time the card could take;
+   (the LRN bit for bit; the pool too, also with NaN planted, and timed
+   beside ``F.max_pool2d`` over a ``channels_last`` tensor of the same
+   shape, a read-rate yardstick; bias+ReLU keeps NaN where the plain
+   version does);
+   the IVF probe against the phase-4 index at buckets B = 1, 8 and 32,
+   probes 8 and 16, k 10, in fp32/bf16/int8 (its plain version, the
+   one-shot key merge, first held to the sequential merge bit for bit),
+   on planted duplicate rows (rows and scores equal in every slot), at a
+   cap of 40,000 (past the old kernel's shared-memory limit) and at D =
+   100 (bf16 and int8 take the kernel's element-wise path) — with the
+   error against a stated tolerance and the median time from CUDA events
+   (L2 flushed before every timed launch) beside the least time the card
+   could take;
 4. the serving path: a synthetic 60,502-row x 1024 gallery in 11,316
    identities (the SOP test split's size), an IVF index (~246 clusters),
    a ``googlenet_pallas`` engine at 224x224 (bf16, seeded trunk) with
@@ -36,8 +40,9 @@ Phases (any failure raises, exits nonzero and prints no result line):
    against their plain versions, cached and recompute dx bit for bit,
    timed beside their bound, the plain versions and
    ``F.local_response_norm`` (forward; its backward alone on a saved
-   graph); the LRN backward and the pool off their vector paths (C =
-   100 at (2,7,9,100), and operands off 16-byte alignment), and the
+   graph), the forward's out and d bit for bit; the LRN forward and
+   backward and the pool off their vector paths (C = 100 at (2,7,9,100),
+   and operands off 16-byte alignment), and the
    pool's general kernel at a 7 x 7 / s2 window; then the
    phase-3 forward kernels again at batch 120;
 5. the training path: ``python -m npairloss_tpu_torch train`` in-process
@@ -267,6 +272,9 @@ def check_stem(torch, timer, detail, batch=32, key="stem"):
                 err = (got.float() - want.float()).abs().max().item()
                 if not err <= tol:
                     fail(f"{name} {tag} {shape}: max_abs_err {err} > {tol}")
+                if name == "lrn" and not torch.equal(got, want):
+                    fail(f"lrn_fwd {tag} {shape}: not the plain version's "
+                         "bits")
                 if name == "bias_relu":  # NaN kept, as the plain version
                     xn = with_nans(x)
                     if not torch.equal(torch.isnan(kern(xn, b)),
@@ -343,6 +351,9 @@ def check_lrn_train(torch, timer, detail):
             torch.cuda.synchronize()
             if not torch.equal(dx_c, dx_r):
                 fail(f"lrn_bwd_cached and lrn_bwd differ {tag} {shape}")
+            if not (torch.equal(out, out_p) and torch.equal(d, d_p)):
+                fail(f"lrn_fwd_cached {tag} {shape}: not the plain "
+                     "version's bits")
             errs = {
                 "lrn_fwd_cached": max(
                     (out.float() - out_p.float()).abs().max().item(),
@@ -395,13 +406,14 @@ def check_lrn_train(torch, timer, detail):
 
 
 def check_stem_scalar_paths(torch, detail, seed: int = 5):
-    """The LRN backward and bias+ReLU+pool kernels off their vector paths:
-    C = 100 (bf16: not a multiple of the 8-wide vector) with odd H/W (the
+    """The LRN and bias+ReLU+pool kernels off their vector paths: C = 100
+    (bf16: not a multiple of the 8-wide vector) with odd H/W (the
     asymmetric SAME pads), and operands one element off 16-byte alignment;
     and the pool's general kernel at a 7 x 7 / s2 window on aligned
-    operands.  The pool must give the plain version's bits, NaN positions
-    included; the LRN dx cached = recompute bit for bit and within the
-    phase-3b tolerance of the plain version."""
+    operands.  The pool and the LRN forward (out and d, cached and not)
+    must give the plain version's bits, the pool's NaN positions included;
+    the LRN dx cached = recompute bit for bit and within the phase-3b
+    tolerance of the plain version."""
     from npairloss_tpu_torch.ops import stem
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -417,7 +429,10 @@ def check_stem_scalar_paths(torch, detail, seed: int = 5):
 
             x, g = make(), make()
             b = torch.randn((shape[3],), generator=gen, device="cuda")
-            _, d = stem.lrn_fwd_cached(x)
+            out, d = stem.lrn_fwd_cached(x)
+            out_p, d_p = stem.lrn_fwd_cached_plain(x)
+            fwd = bool(torch.equal(out, out_p) and torch.equal(d, d_p)
+                       and torch.equal(stem.lrn_fwd(x), out_p))
             dx_c = stem.lrn_bwd_cached(x, g, d)
             err = (dx_c.float() - stem.lrn_bwd_plain(x, g, d).float()
                    ).abs().max().item()
@@ -425,10 +440,11 @@ def check_stem_scalar_paths(torch, detail, seed: int = 5):
             pool = pool_matches_plain(torch, stem, x, b, nan_step=97)
             rows.append({"kernel": "scalar_paths", "shape": list(shape),
                          "dtype": tag, "offset_elems": offset,
+                         "lrn_fwd_same_bits_as_plain": fwd,
                          "lrn_max_abs_err": err,
                          "lrn_cached_equals_recompute": same,
                          "pool_same_bits_as_plain": pool,
-                         "ok": same and pool and err <= tols[tag]})
+                         "ok": fwd and same and pool and err <= tols[tag]})
         shape = (2, 15, 15, 64)
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         b = torch.randn((64,), generator=gen, device="cuda")
@@ -446,15 +462,55 @@ def check_stem_scalar_paths(torch, detail, seed: int = 5):
 # -- phase 3: probe kernel ----------------------------------------------------
 
 
-def check_probe_odd_dim(torch, detail):
-    """The probe kernel's element-wise path: D = 100 is no multiple of a
-    16-byte vector in any scoring dtype.  Ragged clusters, one empty."""
+def _rows_agree_outside_ties(np, s_p, r_k, r_p, real, what):
+    """Rows must agree except inside a score tie (within 2 tol); returns
+    the number of rows that differ inside ties."""
+    sp = s_p.cpu().numpy()
+    mism = (r_k != r_p).cpu().numpy() & real.cpu().numpy()
+    gap = np.full(sp.shape, np.inf, np.float32)
+    diff = np.abs(np.diff(sp, axis=1))
+    gap[:, 1:] = np.minimum(gap[:, 1:], diff)
+    gap[:, :-1] = np.minimum(gap[:, :-1], diff)
+    if (mism & (gap > 2 * TOL["probe"])).any():
+        fail(f"{what}: rows differ outside score ties")
+    return int(mism.sum())
+
+
+def _probe_against_plain(torch, np, args, kl, scoring, what):
+    """The kernel against its plain version (the one-shot merge), which
+    must equal the sequential merge bit for bit; (scores, rows, error,
+    rows differing inside ties)."""
     from npairloss_tpu_torch.ops.ivf_probe import (
         NEG_FILL,
-        probe_select,
         probe_topk,
+        probe_topk_oneshot_plain,
         probe_topk_plain,
     )
+
+    s_k, r_k = probe_topk(*args, kl=kl, scoring=scoring)
+    s_p, r_p = probe_topk_oneshot_plain(*args, kl=kl, scoring=scoring)
+    s_q, r_q = probe_topk_plain(*args, kl=kl, scoring=scoring)
+    torch.cuda.synchronize()
+    if not (torch.equal(s_p, s_q) and torch.equal(r_p, r_q)):
+        fail(f"{what}: the one-shot and sequential plain merges differ")
+    real = s_p > NEG_FILL * 0.5
+    if not (torch.equal(s_k[~real], s_p[~real])
+            and torch.equal(r_k[~real], r_p[~real])):
+        fail(f"{what}: filler slots differ from the plain version's")
+    err = (s_k - s_p).abs()[real].max().item() if real.any() else 0.0
+    if not err <= TOL["probe"]:
+        fail(f"{what}: max_abs_err {err} > {TOL['probe']}")
+    ties = _rows_agree_outside_ties(np, s_p, r_k, r_p, real, what)
+    return s_k, r_k, s_p, r_p, err, ties
+
+
+def check_probe_odd_dim(torch, detail):
+    """The probe kernel's element-wise path: D = 100 is no multiple of a
+    16-byte vector in bf16 and int8 (fp32 rows are 25 vectors).  Ragged
+    clusters, one empty."""
+    import numpy as np
+
+    from npairloss_tpu_torch.ops.ivf_probe import NEG_FILL, probe_select
     from npairloss_tpu_torch.serve.ivf import quantize_int8
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -475,76 +531,170 @@ def check_probe_odd_dim(torch, detail):
             ("bf16", (packed.to(torch.bfloat16), None)),
             ("int8", quantize_int8(packed))):
         args = (q, slab, rows, lids, owned, scale)
-        s_k, r_k = probe_topk(*args, kl=10, scoring=scoring)
-        s_p, r_p = probe_topk_plain(*args, kl=10, scoring=scoring)
-        torch.cuda.synchronize()
+        _, r_k, s_p, r_p, err, _ = _probe_against_plain(
+            torch, np, args, 10, scoring, f"probe D=100 {scoring}")
         real = s_p > NEG_FILL * 0.5
-        err = (s_k - s_p).abs()[real].max().item()
-        if not err <= TOL["probe"] or not torch.equal(r_k[real], r_p[real]):
-            fail(f"probe D=100 {scoring}: err {err}, rows differ: "
-                 f"{not torch.equal(r_k[real], r_p[real])}")
+        if not torch.equal(r_k[real], r_p[real]):
+            fail(f"probe D=100 {scoring}: rows differ")
         errs[scoring] = err
     log(f"[kernel] ivf_probe element-wise path (D=100): {json.dumps(errs)}")
     detail["probe_odd_dim"] = errs
 
 
+def check_probe_duplicates(torch, detail, seed: int = 4):
+    """Planted duplicate rows, within a cluster (positions 3 and 7 of
+    every cluster) and across clusters (row 0 of cluster 2i + 1 copies
+    row 0 of cluster 2i), an empty cluster and ragged tails, probes 8
+    and 16, B = 32 queries of which 16 equal duplicated rows.  Entries
+    are k/8, |k| <= 8, so every score is exact in any summation order:
+    scores and rows must equal the plain version's in every slot, so the
+    tie rule (score, then the lowest position of [probe 0's tile; probe
+    1's; ...]) is the kernel's own."""
+    from npairloss_tpu_torch.ops.ivf_probe import probe_select
+    from npairloss_tpu_torch.serve.ivf import quantize_int8
+
+    import numpy as np
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kc, cap, d, bq = 16, 322, 1024, 32
+
+    def dyadic(*shape):
+        return torch.randint(-8, 9, shape, generator=gen,
+                             device="cuda").float() / 8
+
+    packed = dyadic(kc, cap, d)
+    packed[:, 7] = packed[:, 3]
+    packed[1::2, 0] = packed[0::2, 0]
+    rows = torch.arange(kc * cap, dtype=torch.int32,
+                        device="cuda").reshape(kc, cap)
+    rows[:, 300:] = -1
+    rows[5] = -1
+    q = torch.cat([packed[:8, 3], packed[0::2, 0], dyadic(bq - 16, d)])
+    valid = rows >= 0
+    cents = (packed * valid[:, :, None]).sum(1) / valid.sum(1).clamp(
+        min=1)[:, None]
+    out = {}
+    for probes in (8, 16):
+        _, lids, owned = probe_select(q, cents, valid.any(1), probes, 0, kc)
+        owned = owned.to(torch.int32).contiguous()
+        for scoring, (slab, scale) in (
+                ("fp32", (packed, None)),
+                ("bf16", (packed.to(torch.bfloat16), None)),
+                ("int8", quantize_int8(packed))):
+            args = (q, slab, rows, lids, owned, scale)
+            what = f"probe duplicates probes {probes} {scoring}"
+            s_k, r_k, s_p, r_p, _, _ = _probe_against_plain(
+                torch, np, args, 10, scoring, what)
+            if not (torch.equal(s_k, s_p) and torch.equal(r_k, r_p)):
+                fail(f"{what}: not the plain version's scores and rows")
+            ties = int((s_p[:, 1:] == s_p[:, :-1]).sum().item())
+            if ties < 8:
+                fail(f"{what}: only {ties} tied neighbours")
+            out[f"probes{probes}_{scoring}"] = {"tied_neighbours": ties,
+                                                "equal": True}
+    log(f"[kernel] ivf_probe planted duplicates: {json.dumps(out)}")
+    detail["probe_duplicates"] = out
+
+
+def check_probe_large_cap(torch, timer, detail, seed: int = 6):
+    """A cluster capacity the old kernel refused (its shared memory grew
+    with cap: 28,000 rows at D = 1024): KC = 2, cap 40,000, D = 1024,
+    fp32 (328 MB of slab, unit rows), B = 8, both clusters probed."""
+    import numpy as np
+
+    from npairloss_tpu_torch.ops.ivf_probe import probe_select, probe_topk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kc, cap, d, bq, kl = 2, 40000, 1024, 8, 10
+    packed = torch.randn((kc, cap, d), generator=gen, device="cuda")
+    packed /= packed.norm(dim=2, keepdim=True)  # unit rows, as a gallery's
+    rows = torch.arange(kc * cap, dtype=torch.int32,
+                        device="cuda").reshape(kc, cap)
+    rows[1, 39000:] = -1
+    q = torch.randn((bq, d), generator=gen, device="cuda")
+    q /= q.norm(dim=1, keepdim=True)
+    _, lids, owned = probe_select(q, torch.randn((kc, d), generator=gen,
+                                                 device="cuda"),
+                                  torch.ones(kc, dtype=torch.bool,
+                                             device="cuda"), 2, 0, kc)
+    owned = owned.to(torch.int32).contiguous()
+    args = (q, packed, rows, lids, owned, None)
+    _, _, _, _, err, ties = _probe_against_plain(
+        torch, np, args, kl, "fp32", "probe cap 40000")
+    valid_rows = int((rows[lids.long()] >= 0).sum().item())
+    bms, by = bound_ms(valid_rows * d * 4, 2.0 * valid_rows * d, "fp32")
+    row = {"batch": bq, "probes": 2, "cap": cap, "dim": d,
+           "slab_bytes": packed.numel() * 4, "max_abs_err": err,
+           "row_mismatches_in_ties": ties,
+           "ms": timer.ms(lambda: probe_topk(*args, kl=kl, scoring="fp32")),
+           "bound_ms": bms, "bound_by": by}
+    log(f"[kernel] ivf_probe cap 40000: {json.dumps(row)}")
+    detail["probe_large_cap"] = row
+
+
 def check_probe(torch, timer, index, queries, detail):
+    """The probe at the serving path's buckets B = 1, 8, 32 and probes 8
+    and 16 (16 exceeds a portable cluster: a CTA takes two probes), each
+    scoring against the plain version and timed; the plain version timed
+    at the path's own call (B = 32, probes 8).  Beside each time, the
+    bound over each (query, probe)'s rows and the one over each probed
+    cluster read once (queries sharing a cluster may hit the L2)."""
     import numpy as np
 
     from npairloss_tpu_torch.ops.ivf_probe import (
-        NEG_FILL,
         probe_select,
         probe_topk,
-        probe_topk_plain,
+        probe_topk_oneshot_plain,
     )
 
     layout = index.layout
-    q = torch.as_tensor(queries, device="cuda")
-    probes, k = 8, 10
-    _, lids, owned = probe_select(q, layout.centroids, layout.cluster_valid,
-                                  probes, 0, layout.packed.shape[0])
-    owned = owned.to(torch.int32).contiguous()
-    cap, d = layout.cap, index.dim
-    kl = min(k, probes * cap)
-    lids_np = lids.cpu().numpy()
-    valid_rows = int((layout.rows[lids.long()] >= 0).sum().item())
-    out = {}
-    for scoring in ("fp32", "bf16", "int8"):
-        slab, scale = index.scored_arrays(scoring)
-        args = (q, slab, layout.rows, lids, owned, scale)
-        s_k, r_k = probe_topk(*args, kl=kl, scoring=scoring)
-        s_p, r_p = probe_topk_plain(*args, kl=kl, scoring=scoring)
-        torch.cuda.synchronize()
-        real = s_p > NEG_FILL * 0.5
-        err = (s_k - s_p).abs()[real].max().item()
-        if not err <= TOL["probe"]:
-            fail(f"probe {scoring}: max_abs_err {err} > {TOL['probe']}")
-        # Rows must agree except inside a score tie (within 2 tol).
-        sp = s_p.cpu().numpy()
-        mism = (r_k != r_p).cpu().numpy() & real.cpu().numpy()
-        gap = np.full(sp.shape, np.inf, np.float32)
-        gap[:, 1:] = np.minimum(gap[:, 1:], np.abs(np.diff(sp, axis=1)))
-        gap[:, :-1] = np.minimum(gap[:, :-1], np.abs(np.diff(sp, axis=1)))
-        if (mism & (gap > 2 * TOL["probe"])).any():
-            fail(f"probe {scoring}: rows differ outside score ties")
-        el = slab.element_size()
-        nbytes = (valid_rows * d * el + lids_np.size * cap * 4
-                  + q.numel() * 4 + 2 * lids_np.size * 4
-                  + q.shape[0] * kl * 8
-                  + (lids_np.size * 4 if scale is not None else 0))
-        bms, by = bound_ms(nbytes, 2.0 * valid_rows * d, scoring)
-        row = {"batch": int(q.shape[0]), "probes": probes, "k": k,
-               "cap": cap, "dim": d, "scoring": scoring,
-               "probed_rows": valid_rows, "max_abs_err": err,
-               "tol": TOL["probe"], "row_mismatches_in_ties": int(mism.sum()),
-               "ms": timer.ms(lambda: probe_topk(*args, kl=kl,
-                                                 scoring=scoring)),
-               "plain_ms": timer.ms(lambda: probe_topk_plain(
-                   *args, kl=kl, scoring=scoring)),
-               "bound_ms": bms, "bound_by": by, "library_ms": None}
-        out[scoring] = row
-        log(f"[kernel] ivf_probe {scoring}: {json.dumps(row)}")
+    cap, d, k = layout.cap, index.dim, 10
+    out, sweep = {}, []
+    for probes in (8, 16):
+        for bq in (1, 8, 32):
+            q = torch.as_tensor(queries[:bq], device="cuda")
+            _, lids, owned = probe_select(q, layout.centroids,
+                                          layout.cluster_valid, probes, 0,
+                                          layout.packed.shape[0])
+            owned = owned.to(torch.int32).contiguous()
+            kl = min(k, probes * cap)
+            valid_rows = int((layout.rows[lids.long()] >= 0).sum().item())
+            uniq = torch.unique(lids.long())
+            unique_rows = int((layout.rows[uniq] >= 0).sum().item())
+            main = bq == 32 and probes == 8
+            for scoring in ("fp32", "bf16", "int8"):
+                slab, scale = index.scored_arrays(scoring)
+                args = (q, slab, layout.rows, lids, owned, scale)
+                what = f"probe B={bq} probes {probes} {scoring}"
+                _, _, _, _, err, ties = _probe_against_plain(
+                    torch, np, args, kl, scoring, what)
+                el = slab.element_size()
+                side = (lids.numel() * cap * 4 + q.numel() * 4
+                        + 2 * lids.numel() * 4 + bq * kl * 8
+                        + (lids.numel() * 4 if scale is not None else 0))
+                bms, by = bound_ms(valid_rows * d * el + side,
+                                   2.0 * valid_rows * d, scoring)
+                row = {"batch": bq, "probes": probes, "k": k, "cap": cap,
+                       "dim": d, "scoring": scoring,
+                       "probed_rows": valid_rows,
+                       "probed_unique_rows": unique_rows,
+                       "max_abs_err": err, "tol": TOL["probe"],
+                       "row_mismatches_in_ties": ties,
+                       "ms": timer.ms(lambda: probe_topk(
+                           *args, kl=kl, scoring=scoring)),
+                       "plain_ms": (timer.ms(lambda: probe_topk_oneshot_plain(
+                           *args, kl=kl, scoring=scoring)) if main else None),
+                       "bound_ms": bms, "bound_by": by,
+                       "bound_unique_ms": bound_ms(
+                           unique_rows * d * el + side,
+                           2.0 * valid_rows * d, scoring)[0],
+                       "library_ms": None}
+                sweep.append(row)
+                if main:
+                    out[scoring] = row
+                log(f"[kernel] ivf_probe {what}: {json.dumps(row)}")
     detail["probe"] = out
+    detail["probe_sweep"] = sweep
     return out
 
 
@@ -1864,7 +2014,9 @@ def main() -> int:
     rng_rows = torch.Generator().manual_seed(args.seed)
     pick = torch.randperm(emb.shape[0], generator=rng_rows)[:32].numpy()
     check_probe_odd_dim(torch, detail)
+    check_probe_duplicates(torch, detail)
     probe_rows = check_probe(torch, timer, index, emb[pick], detail)
+    check_probe_large_cap(torch, timer, detail)
     train_rows = check_lrn_train(torch, timer, detail)
     check_stem_scalar_paths(torch, detail)
     check_stem(torch, timer, detail, batch=120, key="stem_train")

@@ -24,13 +24,23 @@
 //
 // Design.  Math is fp32 whatever the storage type; results are rounded
 // once, to the input's type, on the store — the Pallas kernels' rule.
-//   * LRN forward: one block per tile of NHWC rows.  The tile's C channels
-//     per row are staged once in shared memory (coalesced loads along the
-//     contiguous channel axis), then every thread sums its channel window
-//     out of shared memory with zero fill at the edges (lo = size/2,
-//     hi = size-1-size/2), in the same order as the Pallas _win_sum.
+//   * LRN forward (lrn_fwd_vec_kernel): a persistent grid, about the SM
+//     count times the resident blocks per SM, strides over tiles of NHWC
+//     rows.  Each thread owns one 16-byte vector of channels of one row
+//     of a tile and reads x once with 16-byte loads; the next tile's load
+//     is issued before the current tile's math.  x goes to shared memory
+//     in rows padded with zeros (double-buffered: one barrier a tile), so
+//     each channel's window of x^2 is read as aligned float4s into
+//     registers and summed by lrn_denominator_staged with no bounds check;
+//     out (and the cached d) leave by 16-byte stores.  The sum runs in the
+//     Pallas _win_sum's order (lo = size/2, hi = size-1-size/2, zero fill);
 //     d^-beta is (sqrt(rsqrt(d)))^3 for beta = 0.75 and exp(-beta*log d)
-//     otherwise, as the reference computes it.
+//     otherwise, as the reference computes it.  Another window than 5, C
+//     not a multiple of the vector, or operands off 16-byte alignment take
+//     the scalar path (lrn_fwd_kernel: one tile per block staged in shared
+//     memory, element by element), which does the same operations in the
+//     same order: both paths give the same bits, and the cached d is the
+//     backward's recomputed d bit for bit.
 //   * LRN backward (lrn_bwd_vec_kernel): a persistent grid, about the SM
 //     count times the resident blocks per SM, strides over tiles of rows.
 //     Each thread owns one 16-byte vector of channels (4 fp32 or 8 bf16)
@@ -191,6 +201,9 @@ __device__ __forceinline__ float lrn_pow_neg_beta(float d, float beta) {
 }
 
 // kCached: also store the fp32 denominator d (the training residual).
+// The scalar path, for any window, alignment and C: one tile of rows per
+// block, element by element; lrn_fwd_vec_kernel below is the path of
+// aligned vectors.
 template <typename T, bool kCached>
 __global__ void lrn_fwd_kernel(const T* __restrict__ x, T* __restrict__ out,
                                float* __restrict__ dout, long long rows,
@@ -210,6 +223,83 @@ __global__ void lrn_fwd_kernel(const T* __restrict__ x, T* __restrict__ out,
     const float d = lrn_denominator(xs + (i - ch), ch, c, lo, hi, a, k);
     if (kCached) dout[r0 * c + i] = d;
     ob[i] = npl_from_float<T>(xs[i] * lrn_pow_neg_beta(d, beta));
+  }
+}
+
+// The vector path's window and the zeros staged on each side of a row:
+// at least the half window, and a multiple of 4 so the staged vectors
+// stay 16-byte aligned.
+constexpr int kLrnVecSize = 5;
+constexpr int kLrnPad = 4;
+// The same out (and d) as lrn_fwd_kernel, for a window of kLrnVecSize and
+// C a multiple of the vector width (at most kThreads vectors a row), every
+// operand 16-byte aligned.  A tile is tile_rows = kThreads / (C / V) rows;
+// thread (r, ch0) owns channels ch0..ch0+V-1 of tile row r.  x is staged
+// in zero-padded rows, double-buffered (one barrier a tile), and each
+// channel's window of x^2 is summed from registers by
+// lrn_denominator_staged, lrn_denominator's operations in its order: the
+// scalar path's bits.
+template <typename T, bool kCached>
+__global__ void __launch_bounds__(256)
+lrn_fwd_vec_kernel(const T* __restrict__ x, T* __restrict__ out,
+                   float* __restrict__ dout, long long rows, int c,
+                   int tile_rows, long long ntiles, float a, float beta,
+                   float k) {
+  constexpr int V = Vec<T>::kN;
+  constexpr int LO = kLrnVecSize / 2, HI = kLrnVecSize - 1 - kLrnVecSize / 2;
+  constexpr int P = kLrnPad;
+  extern __shared__ float4 lrn_smem4[];
+  float* const smem = reinterpret_cast<float*>(lrn_smem4);
+  const int sc = c + 2 * P;  // a staged row: P zeros, C values, P zeros
+  const int tile_s = tile_rows * sc;
+  const int vpr = c / V;
+  const int r = threadIdx.x / vpr;
+  const int ch0 = (threadIdx.x - r * vpr) * V;
+  const bool active = r < tile_rows;
+  // Zero every staged row's pads once; nothing writes them later.
+  for (int i = threadIdx.x; i < 2 * tile_rows; i += blockDim.x) {
+    float* const row = smem + i * sc;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      row[j] = 0.f;
+      row[P + c + j] = 0.f;
+    }
+  }
+  __syncthreads();
+
+  // The next tile's x (16 bytes), in flight.
+  uint4 nx = make_uint4(0, 0, 0, 0);
+  long long tile = blockIdx.x;
+  {
+    const long long row = tile * tile_rows + r;
+    if (active && row < rows) nx = ld_raw(x + row * c + ch0);
+  }
+  int buf = 0;
+  for (; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+    const long long row = tile * tile_rows + r;
+    const bool valid = active && row < rows;
+    float xv[V];
+    unpack(nx, xv, T());
+    {  // issue the next tile's load before this tile's math
+      const long long nrow = (tile + gridDim.x) * tile_rows + r;
+      if (active && tile + gridDim.x < ntiles && nrow < rows)
+        nx = ld_raw(x + nrow * c + ch0);
+    }
+    float* const xrow = smem + buf * tile_s + r * sc;
+    if (valid) st_f32<V>(xrow + P + ch0, xv);
+    __syncthreads();
+    if (valid) {
+      float xw[V + 2 * P];  // x of channels ch0-P .. ch0+V+P-1, zeros outside
+      ld_f32<V + 2 * P>(xrow + ch0, xw);
+      float dv[V], o[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        dv[j] = lrn_denominator_staged<LO, HI>(xw + P + j, a, k);
+        o[j] = xv[j] * lrn_pow_neg_beta(dv[j], beta);
+      }
+      store_vec(out + row * c + ch0, o);
+      if (kCached) st_f32<V>(dout + row * c + ch0, dv);
+    }
   }
 }
 
@@ -265,12 +355,6 @@ __global__ void lrn_bwd_kernel(const T* __restrict__ x,
         __fsub_rn(__fmul_rn(gv, f), __fmul_rn(__fmul_rn(c2, xs[i]), t)));
   }
 }
-
-// The vector path's window and the zeros staged on each side of a row:
-// at least the half window, and a multiple of 4 so the staged vectors
-// stay 16-byte aligned.
-constexpr int kLrnVecSize = 5;
-constexpr int kLrnPad = 4;
 
 // The same dx as lrn_bwd_kernel, for a window of kLrnVecSize and C a
 // multiple of the vector width (at most kThreads vectors a row), every
@@ -617,34 +701,6 @@ static constexpr int kLrnTileElems = 8192;  // 32 KB of fp32 per block
 // The backward stages two fp32 tiles (x and g x f / d): 2 x 16 KB.
 static constexpr int kLrnBwdTileElems = 4096;
 
-template <bool kCached>
-static int launch_lrn_fwd(const void* x, void* out, float* dout,
-                          long long rows, int c, int size,
-                          float alpha_over_size, float beta, float k,
-                          int dtype, void* stream) {
-  if (rows < 1 || c < 1 || c > kLrnTileElems || size < 1)
-    return cudaErrorInvalidValue;
-  const int tile_rows = kLrnTileElems / c;
-  const unsigned blocks =
-      static_cast<unsigned>((rows + tile_rows - 1) / tile_rows);
-  const size_t smem = static_cast<size_t>(tile_rows) * c * sizeof(float);
-  const int lo = size / 2, hi = size - 1 - size / 2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == NPL_F32) {
-    lrn_fwd_kernel<float, kCached><<<blocks, kThreads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), dout, rows,
-        c, tile_rows, lo, hi, alpha_over_size, beta, k);
-  } else if (dtype == NPL_BF16) {
-    lrn_fwd_kernel<__nv_bfloat16, kCached><<<blocks, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<__nv_bfloat16*>(out), dout, rows, c, tile_rows, lo, hi,
-        alpha_over_size, beta, k);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 static bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -677,6 +733,72 @@ static cudaError_t resident_slots(K kernel, int threads, size_t smem,
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   *slots = known[key] = sms * per_sm;
   return cudaSuccess;
+}
+
+template <typename T, bool kCached>
+static void launch_lrn_fwd_scalar(const void* x, void* out, float* dout,
+                                  long long rows, int c, int size,
+                                  float alpha_over_size, float beta, float k,
+                                  cudaStream_t s) {
+  const int tile_rows = kLrnTileElems / c;
+  const unsigned blocks =
+      static_cast<unsigned>((rows + tile_rows - 1) / tile_rows);
+  const size_t smem = static_cast<size_t>(tile_rows) * c * sizeof(float);
+  const int lo = size / 2, hi = size - 1 - size / 2;
+  lrn_fwd_kernel<T, kCached><<<blocks, kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), dout, rows, c,
+      tile_rows, lo, hi, alpha_over_size, beta, k);
+}
+
+// The vector path where the window is kLrnVecSize, C a multiple of the
+// vector width and every operand 16-byte aligned; else the scalar path.
+template <typename T, bool kCached>
+static cudaError_t launch_lrn_fwd_t(const void* x, void* out, float* dout,
+                                    long long rows, int c, int size,
+                                    float alpha_over_size, float beta,
+                                    float k, cudaStream_t s) {
+  constexpr int V = Vec<T>::kN;
+  if (!(size == kLrnVecSize && c % V == 0 && c / V <= kThreads &&
+        aligned16(x) && aligned16(out) && (!kCached || aligned16(dout)))) {
+    launch_lrn_fwd_scalar<T, kCached>(x, out, dout, rows, c, size,
+                                      alpha_over_size, beta, k, s);
+    return cudaSuccess;
+  }
+  const int tile_rows = kThreads / (c / V);
+  const long long ntiles = (rows + tile_rows - 1) / tile_rows;
+  const size_t smem =
+      2 * static_cast<size_t>(tile_rows) * (c + 2 * kLrnPad) * sizeof(float);
+  auto kern = lrn_fwd_vec_kernel<T, kCached>;
+  int slots = 0;  // smem <= 2 * 256 * (V + 8) floats: under 48 KB
+  const cudaError_t err = resident_slots(kern, kThreads, smem, &slots);
+  if (err != cudaSuccess) return err;
+  const long long grid = std::min<long long>(slots, ntiles);
+  kern<<<static_cast<unsigned>(grid), kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), dout, rows, c,
+      tile_rows, ntiles, alpha_over_size, beta, k);
+  return cudaSuccess;
+}
+
+template <bool kCached>
+static int launch_lrn_fwd(const void* x, void* out, float* dout,
+                          long long rows, int c, int size,
+                          float alpha_over_size, float beta, float k,
+                          int dtype, void* stream) {
+  if (rows < 1 || c < 1 || c > kLrnTileElems || size < 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == NPL_F32) {
+    err = launch_lrn_fwd_t<float, kCached>(x, out, dout, rows, c, size,
+                                           alpha_over_size, beta, k, s);
+  } else if (dtype == NPL_BF16) {
+    err = launch_lrn_fwd_t<__nv_bfloat16, kCached>(
+        x, out, dout, rows, c, size, alpha_over_size, beta, k, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Whether the vector path takes these operands.

@@ -1,16 +1,31 @@
-"""Fused IVF probe: gather + score + running top-k in one kernel launch.
+"""Fused IVF probe: gather + score + top-k in one kernel launch.
 
 Port of ``npairloss_tpu/ops/pallas_ivf.py``.  The probe set comes from
 stage 1 — one small centroid matmul in fp32, invalid clusters masked to
 -FLT_MAX, and a top-C pick with the lowest index winning ties (a stable
 descending sort, because ``torch.topk`` promises no tie order).  Stage 2
 is :func:`probe_topk`, the wrapper of the hand-written kernel in
-``csrc/ivf_probe.cu``: on a CPU tensor it runs :func:`probe_topk_plain`,
-on a CUDA tensor it launches the kernel or raises.
+``csrc/ivf_probe.cu``: on a CPU tensor it runs
+:func:`probe_topk_oneshot_plain`, on a CUDA tensor it launches the
+kernel or raises.
+
+The Pallas kernel merges each probe's tile into a running top-kl, one
+probe after another.  That merge equals one stable top-kl over the
+concatenation ``[kl fillers (-FLT_MAX, row 0); probe 0's cap slots;
+probe 1's; ...]`` (each slot of the running best precedes each slot of
+the next tile, and a dropped slot stays beaten), which the kernel
+computes in parallel over the 64-bit keys of :func:`probe_keys`: one
+thread-block cluster per query, each CTA streaming one row chunk of
+every probed cluster through a ring of bulk copies, the CTAs' top-kl
+merged through distributed shared memory.  Its shared memory no longer
+grows with the cluster capacity, so any cap runs; kl is capped at
+``MAX_KL``.  The bound is the probed rows' bytes, per (query, probe),
+over the card's 3.35 TB/s.
+:func:`probe_topk_oneshot_plain` is that closed form in plain torch,
+:func:`probe_topk_plain` the sequential merge; both give the same bits.
 
 Slots of the ``(B, kl)`` result that hold no real candidate carry
--FLT_MAX; the row id there is unspecified, and the engine's
-``_finalize_topk`` pins it to 0.
+-FLT_MAX and row 0.
 """
 
 from __future__ import annotations
@@ -37,8 +52,9 @@ NEG_FILL = float(-np.finfo(np.float32).max)
 _SCORING_CODES = {"fp32": 0, "bf16": 1, "int8": 2}
 _SLAB_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
                 "int8": torch.int8}
-# Dynamic shared memory one block may use on Hopper (227 KB).
-_SMEM_LIMIT = 232448
+# The kernel's largest kl (its per-warp key lists live in shared memory).
+MAX_KL = 256
+_U32 = 0xFFFFFFFF
 
 
 def resolve_probe_impl(impl: str, device: torch.device) -> str:
@@ -74,25 +90,67 @@ def score_query(scoring: str, q: torch.Tensor) -> torch.Tensor:
     return q if scoring == "fp32" else q.to(torch.bfloat16).float()
 
 
+def _probe_tile(qs, packed, rows, lids, owned, scale, j):
+    """Probe j's (B, cap) scores, masked to -FLT_MAX, and rows."""
+    lid = lids[:, j].long()
+    g = packed[lid].float()           # (B, cap, D), exact upcast
+    r = rows[lid]                     # (B, cap)
+    sims = torch.bmm(g, qs[:, :, None])[:, :, 0]
+    if scale is not None:
+        sims = sims * scale[lid][:, None]
+    ok = (r >= 0) & owned[:, j:j + 1].bool()
+    return torch.where(ok, sims, torch.full_like(sims, NEG_FILL)), r
+
+
+def probe_keys(scores: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The kernel's 64-bit candidate keys, as int64: the order-preserving
+    bits of the fp32 score (-0.0 taken as +0.0, which the merge's ``>``
+    ties with it) in the high word, ``0xFFFFFFFF - pos`` in the low one.
+    A larger key is a higher score, then a lower position."""
+    s = torch.where(scores == 0, torch.zeros_like(scores), scores)
+    u = s.float().contiguous().view(torch.int32).long() & _U32
+    hi = torch.where(u >= 1 << 31, _U32 - u, u | (1 << 31))
+    return ((hi - (1 << 31)) << 32) | (_U32 - pos.long())
+
+
+def probe_topk_oneshot_plain(q, packed, rows, lids, owned, scale, *,
+                             kl: int, scoring: str
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's arithmetic in plain torch: score every probed slot in
+    fp32 (per probe, as :func:`probe_topk_plain`), put the kl fillers
+    (-FLT_MAX, row 0) in front, and keep the kl largest
+    :func:`probe_keys` of the concatenation at once.  A slot whose score
+    is not above -FLT_MAX loses to every filler, as in the kernel."""
+    bq, c = lids.shape
+    qs = score_query(scoring, q)
+    tiles = [_probe_tile(qs, packed, rows, lids, owned, scale, j)
+             for j in range(c)]
+    vals = torch.cat([torch.full((bq, kl), NEG_FILL, dtype=torch.float32,
+                                 device=q.device)]
+                     + [v for v, _ in tiles], dim=1)
+    work_r = torch.cat([torch.zeros((bq, kl), dtype=torch.int32,
+                                    device=q.device)]
+                       + [r for _, r in tiles], dim=1)
+    vals = torch.where(vals > NEG_FILL, vals, torch.full_like(vals,
+                                                              NEG_FILL))
+    pos = torch.arange(vals.shape[1], device=q.device)
+    sel = torch.topk(probe_keys(vals, pos[None, :]), kl, dim=1).indices
+    return torch.gather(vals, 1, sel), torch.gather(work_r, 1, sel)
+
+
 def probe_topk_plain(q, packed, rows, lids, owned, scale, *, kl: int,
                      scoring: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's arithmetic in plain torch: per probe, score the
-    gathered cluster in fp32, mask, and keep the top-kl of [running best ;
-    tile] by a stable descending sort (lowest position wins ties)."""
+    """The Pallas kernel's sequential merge in plain torch: per probe,
+    score the gathered cluster in fp32, mask, and keep the top-kl of
+    [running best ; tile] by a stable descending sort (lowest position
+    wins ties)."""
     bq, c = lids.shape
     qs = score_query(scoring, q)
     best_s = torch.full((bq, kl), NEG_FILL, dtype=torch.float32,
                         device=q.device)
     best_r = torch.zeros((bq, kl), dtype=torch.int32, device=q.device)
     for j in range(c):
-        lid = lids[:, j].long()
-        g = packed[lid].float()           # (B, cap, D), exact upcast
-        r = rows[lid]                     # (B, cap)
-        sims = torch.bmm(g, qs[:, :, None])[:, :, 0]
-        if scale is not None:
-            sims = sims * scale[lid][:, None]
-        ok = (r >= 0) & owned[:, j:j + 1].bool()
-        vals = torch.where(ok, sims, torch.full_like(sims, NEG_FILL))
+        vals, r = _probe_tile(qs, packed, rows, lids, owned, scale, j)
         work_v = torch.cat([best_s, vals], dim=1)
         work_r = torch.cat([best_r, r], dim=1)
         sel = torch.sort(work_v, dim=1, descending=True,
@@ -114,8 +172,8 @@ def probe_topk(q, packed, rows, lids, owned, scale=None, *, kl: int,
     if scoring not in _SCORING_CODES:
         raise ValueError(f"scoring must be one of {sorted(_SCORING_CODES)}")
     if q.device.type == "cpu":
-        return probe_topk_plain(q, packed, rows, lids, owned, scale,
-                                kl=kl, scoring=scoring)
+        return probe_topk_oneshot_plain(q, packed, rows, lids, owned, scale,
+                                        kl=kl, scoring=scoring)
     if q.device.type != "cuda":
         raise ValueError(f"probe_topk: unsupported device {q.device}")
     bq, d = (int(s) for s in q.shape)
@@ -141,11 +199,9 @@ def probe_topk(q, packed, rows, lids, owned, scale=None, *, kl: int,
         raise ValueError(f"probe_topk: slab dim {d2} != query dim {d}")
     if scale is not None and scoring != "int8":
         raise ValueError("probe_topk: a scale goes with int8 scoring only")
-    smem = 4 * (d + 2 * (kl + cap) + 2 * kl)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"probe_topk: cap {cap} x dim {d} needs {smem} bytes of shared "
-            f"memory, over the {_SMEM_LIMIT}-byte limit")
+    if not 1 <= kl <= MAX_KL:
+        raise ValueError(f"probe_topk: kl {kl} outside the kernel's "
+                         f"1..{MAX_KL}")
     out_s = torch.empty((bq, kl), dtype=torch.float32, device=q.device)
     out_r = torch.empty((bq, kl), dtype=torch.int32, device=q.device)
     err = library().npl_ivf_probe(

@@ -18,8 +18,9 @@ its time means anything: full minus variant is what the removed part
 costs where it does not overlap the rest.  Prints one JSON line per
 size with the card's name and power limit.
 
-``build`` and ``median_ms`` are this tool's and ``stem_bench.py``'s:
-``VARIANTS`` holds the edits of each source by its file name.
+``build`` and ``median_ms`` are this tool's, ``stem_bench.py``'s and
+``probe_bench.py``'s: ``VARIANTS`` holds the edits of each source by its
+file name.
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ import shutil
 import statistics
 import subprocess
 import time
+
+_NO_MERGE = ("  cand = cand && key > w.thr;",
+             "  cand = cand && key > ~0ull - 1;")
 
 # source file -> variant name -> (what it changes, [(text, replacement)])
 VARIANTS = {"npair_blockwise.cu": {
@@ -64,6 +68,29 @@ VARIANTS = {"npair_blockwise.cu": {
         "    for (int e = 0; e < 4; ++e) {\n      const float s = comp(v, e);",
         "    for (int e = 0; e < 0; ++e) {\n      const float s = comp(v, e);"
     )]),
+}, "ivf_probe.cu": {
+    "full": ("nothing", []),
+    # Scores are still computed (a real key never reaches ~0 - 1: that is
+    # a NaN score, which is no candidate), so nothing is optimised away;
+    # no candidate reaches a warp's buffer.
+    "no_merge": ("the warp buffers and merges (every score dropped)", [
+        _NO_MERGE]),
+    "stream_only": ("the merges and the scoring FMAs (each vector from the "
+                    "ring folded in by one add)", [_NO_MERGE, (
+                        "              if (ci < rv) acc = dot16(qr + i * kv, "
+                        "row[ci], acc, TG());",
+                        "              if (ci < rv) acc += __uint_as_float("
+                        "row[ci].x ^ row[ci].y ^ row[ci].z ^ row[ci].w);")]),
+    "span4k": ("4 KB spans a slot (twice the slots)", [(
+        "static constexpr size_t kSpanBytes = 8 * 1024;",
+        "static constexpr size_t kSpanBytes = 4 * 1024;")]),
+    "span16k": ("16 KB spans a slot (half the slots)", [(
+        "static constexpr size_t kSpanBytes = 8 * 1024;",
+        "static constexpr size_t kSpanBytes = 16 * 1024;")]),
+    "ring_only": ("the merges and every read of the ring: the bulk copies "
+                  "and the slot handshakes alone", [_NO_MERGE, (
+                      "            for (int i = 0; i < kVecs; ++i) {",
+                      "            for (int i = 0; i < 0; ++i) {")]),
 }, "stem.cu": {
     "full": ("nothing", []),
     "pool_cols1": ("one output column a thread on the 3 x 3 / s2 path", [
@@ -96,13 +123,14 @@ def build(src_name, sources, others=True):
     """One library per entry of ``sources`` ({name: (text of
     ``src_name``, its header directory)}, e.g. from ``edited``), under
     build/kernels/variants/<src_name>/<name>/, with the other sources of
-    csrc/ linked in unless ``others`` is false, all nvcc processes started
-    together; returns {name: ctypes.CDLL}, each entry of _SIGNATURES that
-    the library defines bound."""
+    csrc/ linked in (``others``: True for all, False for none, or a tuple
+    of file names), all nvcc processes started together; returns {name:
+    ctypes.CDLL}, each entry of _SIGNATURES that the library defines
+    bound."""
     from npairloss_tpu_torch.ops import _build
 
-    rest = ([str(p) for p in _build._sources() if p.name != src_name]
-            if others else [])
+    rest = [str(p) for p in _build._sources() if p.name != src_name
+            and (others is True or (others and p.name in others))]
     root = _build.BUILD_DIR / "variants" / src_name
     procs = {}
     for name, (text, include) in sources.items():
@@ -132,11 +160,17 @@ def build(src_name, sources, others=True):
     return libs
 
 
+# Device cycles the stream sleeps before each timed launch (~0.1 ms at
+# the H100's 1.98 GHz): the host dispatches the timed call meanwhile, so
+# the events measure the device, not the wrapper's Python.
+GUARD_CYCLES = 200_000
+
+
 def median_ms(torch, fn, flush, iters=5, setups=None):
-    """Median CUDA-event time of fn, ``flush()`` (an L2 flush) before each
-    launch.  With ``setups`` (callables), one median per setup: the setups
-    are taken in turn before every launch, so that the card's drift falls
-    on all alike."""
+    """Median CUDA-event time of fn, ``flush()`` (an L2 flush) and a
+    device sleep of GUARD_CYCLES before each launch.  With ``setups``
+    (callables), one median per setup: the setups are taken in turn
+    before every launch, so that the card's drift falls on all alike."""
     turns = setups or [lambda: None]
     for setup in turns:
         setup()
@@ -146,6 +180,7 @@ def median_ms(torch, fn, flush, iters=5, setups=None):
         for i, setup in enumerate(turns):
             setup()
             flush()
+            torch.cuda._sleep(GUARD_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()

@@ -1,12 +1,14 @@
-"""Time the LRN backward and bias+ReLU+pool stem kernels at the GoogLeNet
-path's shapes.
+"""Time the LRN and bias+ReLU+pool stem kernels at the GoogLeNet path's
+shapes.
 
 Run on a machine with one H100, from the repository root:
 
     python -m npairloss_tpu_torch.tools.stem_bench [--parent DIR] [--variants full,pool_cols1,...] [--flush write|read] [--iters 15]
 
-Cases: ``lrn_bwd_cached`` and ``lrn_bwd`` at (120,56,56,C), C = 64 and
-192 (the two LRN sites of a batch-120 training step), and the forward
+Cases: ``lrn_fwd_cached``, ``lrn_bwd_cached`` and ``lrn_bwd`` at
+(120,56,56,C), C = 64 and 192 (the two LRN sites of a batch-120
+training step), ``lrn_fwd`` there and at (32,56,56,C) (one serving
+bucket's encode), and the forward
 kernel of ``fused_bias_relu_pool`` at (120,112,112,64) (training) and
 (32,112,112,64) (one serving bucket), each in fp32 and bf16, beside the
 bound (the bytes each call must move over 3.35 TB/s) and, for the pool,
@@ -24,8 +26,10 @@ Every case is timed under every library in turn, in one process: the
 median of ``--iters`` launches from CUDA events, the L2 flushed before
 each by writing a 128 MB buffer (``--flush write``, as chip_smoke.py's
 Timer) or by reading it (``--flush read``: no dirty lines left for the
-timed kernel to evict).  The correctness checks of these kernels are
-chip_smoke.py's phases 3 and 3b.  Prints one JSON line per case and a
+timed kernel to evict), then the stream held by a device sleep while
+the host dispatches the call (``kernel_breakdown.median_ms``).  The
+correctness checks of these kernels are chip_smoke.py's phases 3 and
+3b.  Prints one JSON line per case and a
 last one with the card's name and power limit.
 """
 
@@ -100,13 +104,21 @@ def main(argv=None) -> int:
                 g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
                 _, d = stem.lrn_fwd_cached(x)
                 n = x.numel()
+                xs = x[:32]  # one serving bucket
                 for name, fn, nbytes in (
+                        ("lrn_fwd_cached", lambda: stem.lrn_fwd_cached(x),
+                         n * (2 * size + 4)),
+                        ("lrn_fwd", lambda: stem.lrn_fwd(x), n * 2 * size),
+                        ("lrn_fwd_b32", lambda: stem.lrn_fwd(xs),
+                         xs.numel() * 2 * size),
                         ("lrn_bwd_cached",
                          lambda: stem.lrn_bwd_cached(x, g, d),
                          n * (3 * size + 4)),
                         ("lrn_bwd", lambda: stem.lrn_bwd(x, g),
                          n * 3 * size)):
-                    row = {"kernel": name, "shape": list(shape),
+                    row = {"kernel": name.replace("_b32", ""),
+                           "shape": list(xs.shape if name.endswith("_b32")
+                                         else shape),
                            "dtype": tag,
                            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                            **timed(fn)}

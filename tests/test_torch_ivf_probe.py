@@ -173,3 +173,121 @@ def test_probe_impl_registry_and_resolution():
     assert tivf.resolve_probe_impl("fused", torch.device("cpu")) == "fused"
     with pytest.raises(ValueError):
         tivf.resolve_probe_impl("pallas", torch.device("cpu"))
+
+
+# -- the kernel's one-shot merge against the sequential one ---------------------
+#
+# The CUDA kernel computes the Pallas kernel's probe-by-probe merge in its
+# closed form: one stable top-kl over [kl fillers ; probe 0's tile ; probe
+# 1's ; ...], over the 64-bit keys of ``probe_keys``.  Its plain form,
+# ``probe_topk_oneshot_plain``, must give the sequential ``probe_topk_plain``
+# bit for bit in every slot, the fillers included, on fixtures full of ties.
+
+# Global cluster sizes: an empty cluster (1) and ragged tails.
+TIE_SIZES = (6, 0, 5, 6, 3, 6, 2, 6)
+
+
+def _tie_fixture(seed, d=8):
+    """Entries in {-1/2, 0, 1/2}: every fp32 dot is exact, so equal scores
+    abound; row 3 copies row 0 (one cluster) and cluster 3's first row
+    copies cluster 2's (two clusters), and half the queries are gallery
+    rows."""
+    rng = np.random.default_rng(seed)
+    kc, cap, n = len(TIE_SIZES), max(TIE_SIZES), sum(TIE_SIZES)
+    emb = rng.integers(-1, 2, size=(n, d)).astype(np.float32) * 0.5
+    emb[3] = emb[0]
+    c2 = sum(TIE_SIZES[:2])
+    c3 = sum(TIE_SIZES[:3])
+    emb[c3] = emb[c2]
+    packed = np.zeros((kc, cap, d), np.float32)
+    rows = np.full((kc, cap), -1, np.int32)
+    cents = rng.integers(-1, 2, size=(kc, d)).astype(np.float32) * 0.5
+    start = 0
+    for c, s in enumerate(TIE_SIZES):
+        packed[c, :s] = emb[start:start + s]
+        rows[c, :s] = np.arange(start, start + s)
+        start += s
+    cvalid = np.array([s > 0 for s in TIE_SIZES])
+    q = np.concatenate([
+        emb[rng.choice(n, 4, replace=False)],
+        rng.integers(-1, 2, size=(4, d)).astype(np.float32) * 0.5])
+    return q, packed, rows, cents, cvalid
+
+
+TIE_CASES = [
+    # probes, k, g0, local clusters
+    pytest.param(3, 5, 0, 8, id="owned"),
+    pytest.param(4, 6, 2, 4, id="unowned-g0"),
+    pytest.param(11, 7, 0, 8, id="probes-gt-clusters"),
+    pytest.param(2, 40, 0, 8, id="kl-gt-real"),
+]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("scoring", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("probes,k,g0,kc_local", TIE_CASES)
+def test_oneshot_merge_equals_sequential_merge_bit_for_bit(
+        probes, k, g0, kc_local, scoring, seed):
+    q, packed, rows, cents, cvalid = _tie_fixture(seed)
+    packed, rows = packed[g0:g0 + kc_local], rows[g0:g0 + kc_local]
+    _, _, ts, tsc = _scored(packed, scoring)
+    tq = torch.from_numpy(q)
+    kl = min(k, min(probes, len(TIE_SIZES)) * packed.shape[1])
+    _, lids, owned = tivf.probe_select(tq, torch.from_numpy(cents),
+                                       torch.from_numpy(cvalid), probes, g0,
+                                       kc_local)
+    args = (tq, ts, torch.from_numpy(rows), lids, owned.to(torch.int32),
+            tsc)
+    o_s, o_r = tivf.probe_topk_oneshot_plain(*args, kl=kl, scoring=scoring)
+    s_s, s_r = tivf.probe_topk_plain(*args, kl=kl, scoring=scoring)
+    assert torch.equal(o_s, s_s) and torch.equal(o_r, s_r)
+    real = o_s > NEG * 0.5
+    # Ties really are exercised, and the unfilled slots are the fillers.
+    assert (o_s[:, 1:] == o_s[:, :-1])[real[:, 1:]].any()
+    assert torch.equal(o_r[~real], torch.zeros_like(o_r[~real]))
+    if k == 40:
+        assert (~real).any()
+    # The CPU wrapper runs the one-shot form.
+    w_s, w_r = tivf.probe_topk(*args, kl=kl, scoring=scoring)
+    assert torch.equal(w_s, o_s) and torch.equal(w_r, o_r)
+
+
+@pytest.mark.parametrize("scoring", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("probes,k,g0,kc_local", TIE_CASES)
+def test_oneshot_merge_matches_jax_fused(probes, k, g0, kc_local, scoring):
+    q, packed, rows, cents, cvalid = _tie_fixture(0)
+    packed, rows = packed[g0:g0 + kc_local], rows[g0:g0 + kc_local]
+    js, jsc, ts, tsc = _scored(packed, scoring)
+    kw = dict(k=k, probes=probes, scoring=scoring, g0=g0)
+    j_s, j_r = (np.asarray(a) for a in jivf.fused_probe_topk(
+        jnp.asarray(q), js, jnp.asarray(rows), jnp.asarray(cents),
+        jnp.asarray(cvalid), jsc, **kw))
+    t_s, t_r = tivf.fused_probe_topk(
+        torch.from_numpy(q), ts, torch.from_numpy(rows),
+        torch.from_numpy(cents), torch.from_numpy(cvalid), tsc, **kw)
+    real = j_s > NEG * 0.5
+    np.testing.assert_array_equal(t_s.numpy() > NEG * 0.5, real)
+    np.testing.assert_allclose(t_s.numpy(), j_s, atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(t_r.numpy()[real], j_r[real])
+
+
+def test_probe_keys_order_is_score_then_lowest_position():
+    f32max = float(np.finfo(np.float32).max)
+    scores = torch.tensor([0.0, -0.0, 1.5, 1.5, -f32max, -f32max, -1.0,
+                           float("-inf"), f32max, 1e-45, -1e-45, 0.0, 1.5],
+                          dtype=torch.float32)
+    pos = torch.tensor([7, 3, 12, 2, 0, 9, 5, 1, 11, 4, 6, 8, 10])
+    keys = tivf.probe_keys(scores, pos).tolist()
+    assert len(set(keys)) == len(keys)  # unique
+    by_key = sorted(range(len(keys)), key=lambda i: -keys[i])
+    # -0.0 ties +0.0 (the merge's '>'), so it orders by position alone.
+    want = sorted(range(len(keys)),
+                  key=lambda i: (-(scores[i].item() + 0.0), pos[i].item()))
+    assert by_key == want
+    # The first key is the largest score; among the three 1.5s, the
+    # lowest position; -0.0 at position 3 beats +0.0 at 7 and 8.
+    assert by_key[0] == 8
+    assert [pos[i].item() for i in by_key[1:4]] == [2, 10, 12]
+    zeros = [pos[i].item() for i in by_key if scores[i] == 0]
+    assert zeros == [3, 7, 8]
+

@@ -32,3 +32,16 @@ def test_every_stem_variant_edit_applies_once(name):
     text, include = kb.edited("stem.cu", name)
     assert include == _build.CSRC
     assert (text == src) == (not edits)
+
+
+@pytest.mark.parametrize("name", sorted(kb.VARIANTS["ivf_probe.cu"]))
+def test_every_probe_variant_edit_applies_once(name):
+    src = (_build.CSRC / "ivf_probe.cu").read_text()
+    what, edits = kb.VARIANTS["ivf_probe.cu"][name]
+    assert what
+    for old, new in edits:
+        assert src.count(old) == 1, (name, old)
+        assert old != new
+    text, include = kb.edited("ivf_probe.cu", name)
+    assert include == _build.CSRC
+    assert (text == src) == (not edits)

@@ -196,3 +196,34 @@ def test_same_pads_match_jax(n, window, stride):
 def test_stem_pads_at_the_path_shapes():
     """112 -> 56 pools with (0, 1): the asymmetric pad of the trap list."""
     assert stem.same_pads(112, 3, 2) == (56, 0, 1)
+
+
+# C = 100 and C = 8: on the card, C = 100 takes the LRN forward's scalar
+# path in bf16 (not a multiple of the 8-wide vector) and C = 8 its vector
+# path at a narrow row (one vector a row); here the plain versions both
+# paths are held to, against the Pallas forward kernels (out, and the
+# cached kernel's d).
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 7, 9, 100), (3, 5, 6, 8)])
+def test_lrn_forward_plain_versions_match_pallas(shape, dtype):
+    x = _rand(shape, seed=7, scale=6.0)
+    xj = jnp.asarray(x, dtype)
+    xt = _port(np.asarray(xj.astype(jnp.float32)))
+    if dtype != np.float32:
+        xt = xt.to(torch.bfloat16)
+    rows, c = int(np.prod(shape[:-1])), shape[-1]
+    p = ps._LRNParams(size=5, alpha=1e-4, beta=0.75, k=1.0, cached=True,
+                      interpret=True)
+    want, d2 = ps._fused_lrn_fwd_impl(xj, p)
+    want = np.asarray(want.astype(jnp.float32))
+    want_d = np.asarray(d2)[:rows, :c].reshape(shape)
+    out, d = stem.lrn_fwd_cached_plain(xt)
+    rtol = RTOL if dtype == np.float32 else BF16_RTOL
+    np.testing.assert_allclose(out.float().numpy(), want, rtol=rtol,
+                               atol=ATOL)
+    np.testing.assert_allclose(d.numpy(), want_d, rtol=RTOL, atol=0)
+    assert torch.equal(stem.lrn_plain(xt), out)
+    # The CPU wrappers run these plain versions.
+    assert torch.equal(stem.lrn_fwd(xt), out)
+    o2, d_w = stem.lrn_fwd_cached(xt)
+    assert torch.equal(o2, out) and torch.equal(d_w, d)
