@@ -16,8 +16,8 @@ Phases (any failure raises, exits nonzero and prints no result line):
    (32,56,56,192), bias+ReLU+pool at (32,112,112,64), in fp32 and bf16
    (the LRN bit for bit; the pool too, also with NaN planted, and timed
    beside ``F.max_pool2d`` over a ``channels_last`` tensor of the same
-   shape, a read-rate yardstick; bias+ReLU keeps NaN where the plain
-   version does);
+   shape, a read-rate yardstick; bias+ReLU bit for bit too, NaN planted,
+   on its vector path as its launch counters show);
    the IVF probe against the phase-4 index at buckets B = 1, 8 and 32,
    probes 8 and 16, k 10, in fp32/bf16/int8 (its plain version, the
    one-shot key merge, first held to the sequential merge bit for bit),
@@ -41,8 +41,9 @@ Phases (any failure raises, exits nonzero and prints no result line):
    timed beside their bound, the plain versions and
    ``F.local_response_norm`` (forward; its backward alone on a saved
    graph), the forward's out and d bit for bit; the LRN forward and
-   backward and the pool off their vector paths (C = 100 at (2,7,9,100),
-   and operands off 16-byte alignment), and the
+   backward, bias+ReLU and the pool off their vector paths (C = 100 at
+   (2,7,9,100), and operands off 16-byte alignment; bias+ReLU also at
+   the odd C = 3, each call on the path its counters show), and the
    pool's general kernel at a 7 x 7 / s2 window; then the
    phase-3 forward kernels again at batch 120;
 5. the training path: ``python -m npairloss_tpu_torch train`` in-process
@@ -62,6 +63,16 @@ Phases (any failure raises, exits nonzero and prints no result line):
 5c. ``REFERENCE_CONFIG`` mining on 120 x 1024 unit features: from the
    card's sims, thresholds, masks and counts equal the CPU's exactly,
    and the loss agrees within 1e-5;
+5d. the training path on list files: 100 x 4 TRAIN and 30 x 4 TEST PPM
+   images (240-400 px a side, from the seed) under ``build/data_smoke/``,
+   the GoogLeNet/CUB net with only ``root_folder`` and ``source``
+   rewritten, ``train --native require`` (no ``--synthetic``) on the
+   phase-5 solver cut: the native runtime decodes and resizes to 256²,
+   the card crops, mirrors and subtracts the mean; finite losses, every
+   batch (120,224,224,3) fp32 on the card, an iter-0 TEST pass, the stem
+   kernels launched (bias+ReLU on its vector path), the TEST batch on
+   the card equal to the CPU's, a loader batch with no host sync; the
+   median step ms beside phase 5's and the loader's wait per step;
 6. the five blockwise kernels (``csrc/npair_blockwise.cu``) at N = M =
    120 and 8192, D = 1024, against their plain sweeps: from the stats
    kernel's own emitted sims, minima, maxima, counts, histograms and
@@ -226,8 +237,12 @@ def same_nan_and_bits(torch, a, b) -> bool:
 
 
 def with_nans(x, step: int = 997):
-    """A copy of x with NaN planted every ``step`` elements."""
-    xn = x.clone()
+    """A copy of x with NaN planted every ``step`` elements, at x's
+    storage offset (so with x's alignment: an operand off 16-byte
+    alignment stays off it)."""
+    off = x.storage_offset()
+    xn = x.new_empty(off + x.numel())[off:].view(x.shape)
+    xn.copy_(x)
     xn.view(-1)[::step] = float("nan")
     return xn
 
@@ -241,6 +256,32 @@ def pool_matches_plain(torch, stem, x, bias, nan_step: int = 997,
         torch, stem.fused_bias_relu_pool(t, bias, window, stride),
         stem.bias_relu_pool_plain(t, bias, window, stride))
         for t in (x, with_nans(x, nan_step)))
+
+
+def bias_relu_matches_plain(torch, stem, x, bias, nan_step: int = 997):
+    """fused_bias_relu on x and on x with NaN planted: (the plain
+    version's bits on both, NaN positions included; the launches and
+    scalar-path launches its counters gained)."""
+    f = stem.fused_bias_relu
+    before = (f.launches, f.scalar_launches)
+    same = all(same_nan_and_bits(torch, f(t, bias),
+                                 stem.bias_relu_plain(t, bias))
+               for t in (x, with_nans(x, nan_step)))
+    return same, {"launches": f.launches - before[0],
+                  "scalar_launches": f.scalar_launches - before[1]}
+
+
+def check_bias_relu_path(torch, stem, x, bias, path, what):
+    """Fail unless bias_relu_matches_plain holds and both calls took the
+    kernel's ``path`` ("vector" or "scalar"); returns the counts."""
+    same, counts = bias_relu_matches_plain(torch, stem, x, bias)
+    if not same:
+        fail(f"bias_relu {what}: not the plain version's bits")
+    want = {"launches": 2, "scalar_launches": 2 if path == "scalar" else 0}
+    if counts != want:
+        fail(f"bias_relu {what}: launch counters {counts}, expected the "
+             f"{path} path {want}")
+    return counts
 
 
 def check_stem(torch, timer, detail, batch=32, key="stem"):
@@ -275,12 +316,9 @@ def check_stem(torch, timer, detail, batch=32, key="stem"):
                 if name == "lrn" and not torch.equal(got, want):
                     fail(f"lrn_fwd {tag} {shape}: not the plain version's "
                          "bits")
-                if name == "bias_relu":  # NaN kept, as the plain version
-                    xn = with_nans(x)
-                    if not torch.equal(torch.isnan(kern(xn, b)),
-                                       torch.isnan(plain(xn, b))):
-                        fail(f"bias_relu {tag} {shape}: NaN positions "
-                             "differ from the plain version")
+                if name == "bias_relu":  # bit for bit, NaN kept
+                    check_bias_relu_path(torch, stem, x, b, "vector",
+                                         f"{tag} {shape}")
                 nbytes = 2 * n * size + (4 * c if name == "bias_relu" else 0)
                 ops = n * (14 if name == "lrn" else 2)
                 bms, by = bound_ms(nbytes, ops, "fp32")
@@ -406,12 +444,15 @@ def check_lrn_train(torch, timer, detail):
 
 
 def check_stem_scalar_paths(torch, detail, seed: int = 5):
-    """The LRN and bias+ReLU+pool kernels off their vector paths: C = 100
-    (bf16: not a multiple of the 8-wide vector) with odd H/W (the
-    asymmetric SAME pads), and operands one element off 16-byte alignment;
-    and the pool's general kernel at a 7 x 7 / s2 window on aligned
-    operands.  The pool and the LRN forward (out and d, cached and not)
-    must give the plain version's bits, the pool's NaN positions included;
+    """The LRN, bias+ReLU and bias+ReLU+pool kernels off their vector
+    paths: C = 100 (bf16: not a multiple of the 8-wide vector) with odd
+    H/W (the asymmetric SAME pads), and operands one element off 16-byte
+    alignment; the pool's general kernel at a 7 x 7 / s2 window on aligned
+    operands; bias+ReLU at the odd C = 3 (an odd element count).  The
+    pool, bias+ReLU and the LRN forward (out and d, cached and not) must
+    give the plain version's bits, the pool's and bias+ReLU's NaN
+    positions included, bias+ReLU on the path its launch counters show
+    (fp32 C = 100 aligned: the vector path; the rest: the scalar path);
     the LRN dx cached = recompute bit for bit and within the phase-3b
     tolerance of the plain version."""
     from npairloss_tpu_torch.ops import stem
@@ -438,13 +479,27 @@ def check_stem_scalar_paths(torch, detail, seed: int = 5):
                    ).abs().max().item()
             same = bool(torch.equal(dx_c, stem.lrn_bwd(x, g)))
             pool = pool_matches_plain(torch, stem, x, b, nan_step=97)
+            relu_path = ("vector" if tag == "fp32" and offset == 0
+                         else "scalar")
+            relu = check_bias_relu_path(torch, stem, x, b, relu_path,
+                                        f"{tag} {shape} offset {offset}")
             rows.append({"kernel": "scalar_paths", "shape": list(shape),
                          "dtype": tag, "offset_elems": offset,
                          "lrn_fwd_same_bits_as_plain": fwd,
                          "lrn_max_abs_err": err,
                          "lrn_cached_equals_recompute": same,
                          "pool_same_bits_as_plain": pool,
+                         "bias_relu_path": relu_path,
+                         "bias_relu_counts": relu,
                          "ok": fwd and same and pool and err <= tols[tag]})
+        shape = (3, 5, 7, 3)  # odd C, odd element count
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        b = torch.randn((3,), generator=gen, device="cuda")
+        relu = check_bias_relu_path(torch, stem, x, b, "scalar",
+                                    f"{tag} {shape}")
+        rows.append({"kernel": "bias_relu_odd_c", "shape": list(shape),
+                     "dtype": tag, "bias_relu_path": "scalar",
+                     "bias_relu_counts": relu, "ok": True})
         shape = (2, 15, 15, 64)
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         b = torch.randn((64,), generator=gen, device="cuda")
@@ -848,20 +903,11 @@ def drive_path(torch, seed, index, emb, detail):
 # -- phase 5: the training path -----------------------------------------------
 
 
-def drive_train(torch, seed, detail):
-    """``npairloss_tpu_torch.cli train`` on the shipped GoogLeNet/CUB
-    solver, cut to 6 iterations: googlenet_pallas, batch 120 (60 x 2),
-    224x224, fp32, synthetic identity batches."""
-    import contextlib
-    import math
+def cut_solver(work: str) -> str:
+    """The GoogLeNet/CUB solver cut to 6 iterations (test_iter 2, display
+    1, snapshot 0), written under ``work``; returns its path."""
     import re
 
-    from npairloss_tpu_torch import cli
-    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
-    from npairloss_tpu_torch.ops import _build
-    from npairloss_tpu_torch.train import solver as tsolver
-
-    work = os.path.join("build", "train_smoke")
     os.makedirs(work, exist_ok=True)
     text = open(os.path.join("examples", "googlenet_cub_solver.prototxt")
                 ).read()
@@ -870,10 +916,27 @@ def drive_train(torch, seed, detail):
         text, n = re.subn(rf"(?m)^{key}:.*$", f"{key}: {val}", text)
         if n != 1:
             fail(f"solver prototxt has {n} '{key}:' lines")
-    solver_path = os.path.join(work, "solver.prototxt")
-    events_path = os.path.join(work, "events.jsonl")
-    with open(solver_path, "w") as f:
+    path = os.path.join(work, "solver.prototxt")
+    with open(path, "w") as f:
         f.write(text)
+    return path
+
+
+def drive_train(torch, seed, detail):
+    """``npairloss_tpu_torch.cli train`` on the shipped GoogLeNet/CUB
+    solver, cut to 6 iterations: googlenet_pallas, batch 120 (60 x 2),
+    224x224, fp32, synthetic identity batches."""
+    import contextlib
+    import math
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.train import solver as tsolver
+
+    work = os.path.join("build", "train_smoke")
+    solver_path = cut_solver(work)
+    events_path = os.path.join(work, "events.jsonl")
     if os.path.exists(events_path):
         os.remove(events_path)
 
@@ -966,7 +1029,8 @@ def drive_train(torch, seed, detail):
                        "launches_train": in_train, "step_ms": seen["ms"],
                        "median_step_ms": step_ms,
                        "images_per_s": batch / step_ms * 1e3, "wall_s": wall,
-                       "profile": profile_train_step(torch, solver, x, lab),
+                       "profile": profile_train_step(
+                           torch, lambda: solver.step(x, lab)),
                        "upload": compare_batch_upload(torch, solver, seed)}
     return in_train, step_ms
 
@@ -1012,8 +1076,7 @@ def compare_batch_upload(torch, solver, seed, steps=6):
 # Kernel-name patterns of a training step's device time, first match wins.
 STEP_CATEGORIES = (
     ("blockwise kernels (csrc/npair_blockwise.cu)", ("npair_",)),
-    ("stem kernels (csrc/stem.cu)", ("lrn_fwd_kernel", "lrn_bwd_kernel",
-                                     "lrn_bwd_vec_kernel", "bias_relu")),
+    ("stem kernels (csrc/stem.cu)", ("lrn_fwd_", "lrn_bwd_", "bias_relu_")),
     ("host-device copies", ("memcpy",)),
     ("pooling", ("pool",)),
     ("layout transposes", ("nhwc", "nchw", "transpose")),
@@ -1023,11 +1086,19 @@ STEP_CATEGORIES = (
 )
 
 
-def profile_train_step(torch, solver, x, lab, steps=3):
+def step_category(name: str) -> str:
+    """The STEP_CATEGORIES entry a kernel's name falls in."""
+    name = name.lower()
+    return next((c for c, pats in STEP_CATEGORIES
+                 if any(p in name for p in pats)), "elementwise and other")
+
+
+def profile_train_step(torch, step, steps=3):
     """Where a step's device time goes: ``torch.profiler`` over ``steps``
-    more steps of the phase-5 solver on one batch, kernels grouped by
-    name.  A measurement, not a check: with no device records it says
-    'not measured'."""
+    more calls of ``step`` (a training step, with its batch's loading
+    where that is part of it), kernels grouped by name, the stem kernels
+    also one by one.  A measurement, not a check: with no device records
+    it says 'not measured'."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1035,7 +1106,7 @@ def profile_train_step(torch, solver, x, lab, steps=3):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            solver.step(x, lab)
+            step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
     cuda = torch.autograd.DeviceType.CUDA
@@ -1046,9 +1117,7 @@ def profile_train_step(torch, solver, x, lab, steps=3):
     by_cat, by_name = {}, {}
     for e in kernels:
         ms = (e.time_range.end - e.time_range.start) / 1e3 / steps
-        name = e.name.lower()
-        cat = next((c for c, pats in STEP_CATEGORIES
-                    if any(p in name for p in pats)), "elementwise and other")
+        cat = step_category(e.name)
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
     busy = sum(by_cat.values())
@@ -1059,8 +1128,12 @@ def profile_train_step(torch, solver, x, lab, steps=3):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, ms in top:
         log(f"[profile]   top kernel {ms:.3f} ms  {name[:110]}")
+    stem = {n: ms for n, ms in by_name.items()
+            if step_category(n) == "stem kernels (csrc/stem.cu)"}
+    for name, ms in sorted(stem.items(), key=lambda kv: -kv[1]):
+        log(f"[profile]   stem kernel {ms:.3f} ms  {name[:110]}")
     return {"wall_ms": wall, "busy_ms": busy, "by_category_ms": by_cat,
-            "top_kernels_ms": dict(top)}
+            "top_kernels_ms": dict(top), "stem_kernels_ms": stem}
 
 
 def _grads(torch, model, x, lab, cfg):
@@ -1215,6 +1288,213 @@ def check_reference_mining(torch, seed, detail):
     detail["reference_mining"] = {"loss_gpu": loss_g, "loss_cpu": loss_h,
                                   "pairs_pos": int(got["ident_num"].sum()),
                                   "pairs_neg": int(got["diff_num"].sum())}
+
+
+# -- phase 5d: the training path on list files -------------------------------
+
+
+def write_ppm_dataset(root, prefix, seed, ids, per_id, sides=(240, 400)):
+    """``ids`` identities x ``per_id`` PPM images named ``prefix``* under
+    ``root``, each side drawn from ``sides`` (so the native resize runs),
+    each identity a random colour under uniform noise; writes their list
+    file (``relative/path label`` rows) and returns its path."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    rows = []
+    for ident in range(ids):
+        colour = rng.integers(40, 216, 3).astype(np.int16)
+        for k in range(per_id):
+            h, w = (int(v) for v in rng.integers(sides[0], sides[1] + 1, 2))
+            noise = rng.integers(-40, 41, (h, w, 3), dtype=np.int16)
+            img = (colour + noise).astype(np.uint8)
+            name = f"{prefix}{ident:04d}_{k}.ppm"
+            with open(os.path.join(root, name), "wb") as f:
+                f.write(b"P6\n%d %d\n255\n" % (w, h) + img.tobytes())
+            rows.append(f"{name} {ident}")
+    src = os.path.join(root, f"{prefix}list.txt")
+    with open(src, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return src
+
+
+def drive_list_train(torch, seed, detail, synthetic_step_ms,
+                     net="examples/googlenet_cub.prototxt", train_ids=100,
+                     test_ids=30, per_id=4, sides=(240, 400)):
+    """Phase 5d: ``train`` on list files with ``--native require``, no
+    ``--synthetic``: the shipped GoogLeNet/CUB net with only
+    ``root_folder`` and ``source`` rewritten to PPM images written here
+    (``train_ids`` x ``per_id`` TRAIN, ``test_ids`` x ``per_id`` TEST),
+    the phase-5 solver cut, ``googlenet_pallas`` fp32.  Checks: finite
+    losses and metrics, every batch on the card at the net's shape
+    (random crop and mirror on the card for TRAIN, centre crop for TEST),
+    an iter-0 TEST pass, the stem kernels launched by the steps (bias+ReLU
+    on its vector path), the TEST loader's batch on the card equal to the
+    same loader's on the CPU, and a ``next`` of the loader with no host
+    sync.  Reports the median step ms beside phase 5's synthetic step and
+    the loader's median wait per step."""
+    import contextlib
+    import math
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.config.schema import load_net
+    from npairloss_tpu_torch.data import loader as dloader
+    from npairloss_tpu_torch.ops import _build, stem
+    from npairloss_tpu_torch.train import solver as tsolver
+
+    work = os.path.join("build", "data_smoke")
+    images = os.path.join(work, "images")
+    t0 = time.perf_counter()
+    train_src = write_ppm_dataset(images, "train_", seed + 10, train_ids,
+                                  per_id, sides)
+    test_src = write_ppm_dataset(images, "test_", seed + 11, test_ids,
+                                 per_id, sides)
+    log(f"[data] wrote {train_ids * per_id} TRAIN and {test_ids * per_id} "
+        f"TEST PPM images (sides {sides[0]}-{sides[1]} px) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    text = open(net).read()
+    net_cfg = load_net(net)
+    for phase, src in (("TRAIN", train_src), ("TEST", test_src)):
+        old = f'source: "{net_cfg.data[phase].source}"'
+        if text.count(old) != 1:
+            fail(f"net has {text.count(old)} lines '{old}'")
+        text = text.replace(old, f'source: "{src}"')
+    for phase in ("TRAIN", "TEST"):
+        old = f'root_folder: "{net_cfg.data[phase].root_folder}"'
+        text = text.replace(old, f'root_folder: "{images}/"')
+    net_path = os.path.join(work, "net.prototxt")
+    with open(net_path, "w") as f:
+        f.write(text)
+    net_cfg = load_net(net_path)
+    solver_path = cut_solver(work)
+    events_path = os.path.join(work, "events.jsonl")
+    if os.path.exists(events_path):
+        os.remove(events_path)
+
+    seen = {"after_test": None, "step_ms": [], "wait_ms": [], "batches": [],
+            "solver": None}
+    orig_step = tsolver.Solver.step
+    orig_next = dloader.NativeMultibatchLoader.__next__
+
+    def timed_step(self, inputs, labels):
+        if seen["after_test"] is None:
+            seen["after_test"] = _build.launch_counts()
+        seen["solver"] = self
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = orig_step(self, inputs, labels)
+        torch.cuda.synchronize()
+        seen["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        return m
+
+    def timed_next(self):
+        t0 = time.perf_counter()
+        x, lab = orig_next(self)
+        if self.train:
+            seen["wait_ms"].append((time.perf_counter() - t0) * 1e3)
+        seen["batches"].append(("TRAIN" if self.train else "TEST",
+                                tuple(x.shape), x.device.type, str(x.dtype),
+                                lab.device.type))
+        return x, lab
+
+    out = io.StringIO()
+    tsolver.Solver.step = timed_step
+    dloader.NativeMultibatchLoader.__next__ = timed_next
+    _build.reset_launch_counts()
+    scalar0 = stem.fused_bias_relu.scalar_launches
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["train", "--solver", solver_path, "--net",
+                           net_path, "--model", "googlenet_pallas",
+                           "--native", "require", "--log-json",
+                           events_path, "--seed", str(seed)])
+        torch.cuda.synchronize()
+    finally:
+        tsolver.Solver.step = orig_step
+        dloader.NativeMultibatchLoader.__next__ = orig_next
+    wall = time.perf_counter() - t0
+    total = _build.launch_counts()
+    for ln in out.getvalue().splitlines():
+        log(f"[list-train] {ln}")
+    if rc != 0:
+        fail(f"train on list files returned {rc}")
+    final = json.loads(out.getvalue().strip().splitlines()[-1])
+    events = [json.loads(ln) for ln in open(events_path)]
+    if [(e["event"], e["iteration"]) for e in events] != \
+            [("test", 0)] + [("display", i) for i in range(1, 7)]:
+        fail(f"unexpected event stream: "
+             f"{[(e['event'], e['iteration']) for e in events]}")
+    for rec in events + [final]:
+        bad = {k: v for k, v in rec.items()
+               if isinstance(v, float) and not math.isfinite(v)}
+        if bad:
+            fail(f"non-finite values in {rec.get('event', 'final')}: {bad}")
+    crop = net_cfg.data["TRAIN"].transform.crop_size
+    want = {"TRAIN": (net_cfg.data["TRAIN"].batch_size, crop, crop, 3),
+            "TEST": (net_cfg.data["TEST"].batch_size, crop, crop, 3)}
+    bad = [b for b in seen["batches"]
+           if (b[1], b[2], b[3], b[4]) != (want[b[0]], "cuda",
+                                           "torch.float32", "cuda")]
+    phases = [b[0] for b in seen["batches"]]
+    if bad or phases.count("TEST") < 2 or phases.count("TRAIN") < 6:
+        fail(f"list-file batches off the card or off shape: {bad or phases}")
+    after_test = seen["after_test"]
+    in_train = {k: total[k] - after_test[k] for k in total}
+    for name in ("lrn_fwd_cached", "lrn_bwd_cached", "fused_bias_relu",
+                 "fused_bias_relu_pool"):
+        if in_train[name] < 1:
+            fail(f"kernel {name} was not launched by the list-file steps")
+    scalar = stem.fused_bias_relu.scalar_launches - scalar0
+    if scalar:
+        fail(f"bias_relu took its scalar path {scalar} times on the path")
+
+    # The TEST loader (centre crop, mean, no random draw) on the card
+    # equals the same loader on the CPU; one more batch under PyTorch's
+    # sync debug mode at "error": the loader makes no host sync.
+    d_test = net_cfg.data["TEST"]
+    with dloader.multibatch_loader(d_test, net_cfg.transformer, seed=1,
+                                   native="require", device="cuda") as a, \
+            dloader.multibatch_loader(d_test, net_cfg.transformer, seed=1,
+                                      native="require", device="cpu") as b:
+        (xa, la), (xb, lb) = next(a), next(b)
+        if not (torch.equal(xa.cpu(), xb) and torch.equal(la.cpu(), lb)):
+            fail("the TEST batch on the card differs from the CPU's")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            next(a)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    # Where a step on list files goes, its batch's next() included (the
+    # native runtime's copy out of its ring, the upload, the crop, mirror
+    # and mean on the card).
+    solver = seen["solver"]
+    log("[list-train] profile of a list-file step, its next() included:")
+    with dloader.multibatch_loader(net_cfg.data["TRAIN"],
+                                   net_cfg.transformer, seed=2,
+                                   native="require", device="cuda") as ldr:
+        solver.step(*next(ldr))
+        profile = profile_train_step(torch, lambda: solver.step(*next(ldr)))
+    step_ms = statistics.median(seen["step_ms"][1:])
+    wait_ms = statistics.median(seen["wait_ms"][1:])
+    batch = want["TRAIN"][0]
+    log(f"[list-train] step ms {[round(t, 3) for t in seen['step_ms']]}; "
+        f"median over steps 2-6 {step_ms:.3f} ms = "
+        f"{batch / step_ms * 1e3:.1f} images/s (phase 5, synthetic: "
+        f"{synthetic_step_ms:.3f} ms); loader wait per step "
+        f"{[round(t, 3) for t in seen['wait_ms']]}, median over steps 2-6 "
+        f"{wait_ms:.3f} ms; TEST batch card = CPU; a loader batch made no "
+        f"host sync; whole command {wall:.1f} s")
+    detail["list_train"] = {
+        "final": final, "events": events, "launches_train": in_train,
+        "step_ms": seen["step_ms"], "median_step_ms": step_ms,
+        "synthetic_median_step_ms": synthetic_step_ms,
+        "wait_ms": seen["wait_ms"], "median_wait_ms": wait_ms,
+        "batches": seen["batches"], "wall_s": wall, "profile": profile}
+    return in_train, step_ms
 
 
 # -- phase 6: the blockwise N-pair kernels ------------------------------------
@@ -1670,7 +1950,7 @@ def drive_blockwise_train(torch, seed, detail, dense_step_ms):
     if not rel <= 1e-6:
         fail("the radix path's first-step loss differs from the fast path")
     log("[blockwise-train] profile of the blockwise step:")
-    profile = profile_train_step(torch, solver, x_np, lab_np)
+    profile = profile_train_step(torch, lambda: solver.step(x_np, lab_np))
     detail["blockwise_train"] = {
         "profile": profile,
         "events": events, "launches": launches, "launches_radix": launches0,
@@ -2026,6 +2306,7 @@ def main() -> int:
     train_launches, dense_step_ms = drive_train(torch, args.seed, detail)
     recompute_launches = check_train_step(torch, args.seed, detail)
     check_reference_mining(torch, args.seed, detail)
+    drive_list_train(torch, args.seed, detail, dense_step_ms)
     bw_rows = check_blockwise_kernels(torch, Timer(torch), detail, args.seed)
     bw_launches, bw_radix_launches, _ = drive_blockwise_train(
         torch, args.seed, detail, dense_step_ms)

@@ -11,10 +11,13 @@ is not ported is refused by argparse, never accepted and ignored.
          ``PREFIX.labels.npy``;
   serve: load a ``.gidx`` and answer JSONL queries on stdin until EOF,
          ending with a ``serve_drain`` summary line;
-  train: the Caffe solver loop from a solver prototxt on synthetic
-         identity batches (``--synthetic``), with the JAX CLI's display
-         lines, ``--log-json`` events and final JSON line; ``--engine
-         blockwise`` streams the loss through the blockwise kernels.
+  train: the Caffe solver loop from a solver prototxt on the net's list
+         files (TRAIN and TEST ``source``, decoded by the native runtime
+         or PIL per ``--native``, augmented on the device), or on
+         synthetic identity batches with ``--synthetic``; the JAX CLI's
+         display lines, ``--log-json`` events and final JSON line;
+         ``--engine blockwise`` streams the loss through the blockwise
+         kernels.
 """
 
 from __future__ import annotations
@@ -131,12 +134,28 @@ def _resolve_net_path(args, net_path: Optional[str]) -> Optional[str]:
     return net_path
 
 
+def _data_refusal(net_cfg, phase: str) -> Optional[str]:
+    """Why a phase's data layer cannot feed a run without --synthetic
+    (the JAX CLI's messages), else None."""
+    d = net_cfg.data.get(phase)
+    if d is None:
+        return None
+    if not d.source:
+        return (f"{phase} data layer has no `source` list file; pass "
+                "--synthetic to train on synthetic identity clusters")
+    if not os.path.exists(d.source):
+        return (f"{phase} data source {d.source!r} does not exist; fix the "
+                "net prototxt or pass --synthetic for synthetic data")
+    return None
+
+
 def cmd_train(args) -> int:
     import dataclasses
 
     import torch
 
     from npairloss_tpu_torch.config.schema import load_net, load_solver
+    from npairloss_tpu_torch.data.loader import multibatch_loader
     from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
     from npairloss_tpu_torch.device import resolve_device
     from npairloss_tpu_torch.models import get_model, model_for_net
@@ -163,14 +182,15 @@ def cmd_train(args) -> int:
     if net_cfg.param_mults_conflict:
         log.error("%s", net_cfg.param_mults_conflict)
         return 2
-    if not args.synthetic:
-        log.error("only --synthetic data is ported so far: the list-file "
-                  "loader is ROADMAP Queue 1 item 4")
-        return 2
     d_train = net_cfg.data.get("TRAIN")
     if d_train is None:
         log.error("net %s has no TRAIN MultibatchData layer", net_path)
         return 2
+    for phase in ("TRAIN", "TEST") if not args.synthetic else ():
+        refusal = _data_refusal(net_cfg, phase)
+        if refusal:
+            log.error("%s", refusal)
+            return 2
 
     # Input side from the TRAIN layer's crop, else the TEST layer's.
     crop = 0
@@ -198,6 +218,9 @@ def cmd_train(args) -> int:
     def batches(d, seed):
         if d is None:
             return None
+        if not args.synthetic:
+            return multibatch_loader(d, net_cfg.transformer, seed=seed,
+                                     native=args.native, device=device)
         ids = d.identity_num_per_batch or max(2, (d.batch_size or 8) // 2)
         imgs = d.img_num_per_identity or 2
         return synthetic_identity_batches(ids * 4, ids, imgs, input_shape,
@@ -212,12 +235,17 @@ def cmd_train(args) -> int:
         def record_fn(rec):
             log_file.write(json.dumps(rec, default=str) + "\n")
 
+    loaders = []
     try:
-        final = solver.train(batches(d_train, 0),
-                             test_batches=batches(net_cfg.data.get("TEST"), 1),
+        for d, seed in ((d_train, 0), (net_cfg.data.get("TEST"), 1)):
+            loaders.append(batches(d, seed))
+        final = solver.train(loaders[0], test_batches=loaders[1],
                              log_fn=lambda s: print(s, flush=True),
                              record_fn=record_fn)
     finally:
+        for it in loaders:
+            if hasattr(it, "close"):
+                it.close()
         if log_file is not None:
             log_file.close()
     print(json.dumps({k: float(v) for k, v in final.items()}))
@@ -309,8 +337,15 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--bf16", action="store_true",
                     help="bf16 compute over fp32 params (default fp32)")
     tr.add_argument("--synthetic", action="store_true",
-                    help="synthetic identity-balanced batches (required: "
-                    "the list-file loader is not ported yet)")
+                    help="train on synthetic identity-balanced clusters "
+                    "instead of the net's data source (required opt-in; a "
+                    "missing source is an error)")
+    tr.add_argument("--native", choices=["auto", "never", "require"],
+                    default="auto",
+                    help="C++ data runtime routing: auto (by source "
+                    "suffixes), never (Python/PIL pipeline), require "
+                    "(error if the native runtime cannot serve this "
+                    "source)")
     tr.add_argument("--log-json", dest="log_json", metavar="PATH",
                     help="append one JSON record per display/test event")
     tr.add_argument("--device", default=None,

@@ -28,11 +28,3 @@ __device__ __forceinline__ __nv_bfloat16 npl_from_float<__nv_bfloat16>(
     float v) {
   return __float2bfloat16_rn(v);
 }
-
-// Grid for a grid-stride elementwise loop of n items.
-inline unsigned npl_grid(long long n, int threads) {
-  long long blocks = (n + threads - 1) / threads;
-  const long long cap = 132LL * 32;  // 32 resident blocks per SM is plenty
-  if (blocks > cap) blocks = cap;
-  return static_cast<unsigned>(blocks < 1 ? 1 : blocks);
-}

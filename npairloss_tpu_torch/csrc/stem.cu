@@ -59,7 +59,19 @@
 //     block, element by element).  Both paths do the same operations in
 //     the same order, so the cached and recompute variants and both paths
 //     give the same bits.
-//   * bias + ReLU: grid-stride elementwise, bias read through the cache.
+//   * bias + ReLU (bias_relu_vec_kernel): a persistent grid of one wave
+//     (the resident blocks on the card, fewer for a small call).  x is
+//     read as 16-byte vectors with non-allocating loads, out written with
+//     streaming stores: neither is read again.  The lanes are a multiple
+//     of C / V (V = 4 fp32 or 8 bf16), so the vectors a lane visits all
+//     hold the same V channels: its V bias values are read once, into
+//     registers, and the loop has no index division.  Each lane loads
+//     kBiasReluUnroll vectors before it stores any.  C not a multiple of
+//     the vector, operands off 16-byte alignment, or a grid with fewer
+//     lanes than C / V take the scalar path (bias_relu_kernel: one
+//     element a lane, its channel carried forward by an add and a compare).
+//     Both compute relu(x + b) with one fp32 add, a max that keeps NaN
+//     and one rounding on the store: the plain version's bits.
 //   * bias + ReLU + pool: one wave of resident blocks; each block takes a
 //     run of consecutive output rows of the batch and a chunk of output
 //     columns.  On the stem's 3 x 3 / s2 window with 16-byte vectors
@@ -475,16 +487,84 @@ lrn_bwd_vec_kernel(const T* __restrict__ x, const T* __restrict__ g,
 
 // ------------------------------------------------------ bias + ReLU
 
+// 16 bytes through the non-coherent path, not allocated in L1, and a
+// streaming (evict-first) store: bias + ReLU touches each byte once.
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void st_stream(void* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// relu(x + b) on one vector of T: fp32 add, a max that keeps NaN, one
+// rounding to T.
 template <typename T>
-__global__ void bias_relu_kernel(const T* __restrict__ x,
-                                 const float* __restrict__ bias,
-                                 T* __restrict__ out, long long n, int c) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const float y = npl_to_float(x[i]) + __ldg(bias + i % c);
+__device__ __forceinline__ uint4 bias_relu_vec(uint4 q, const float* b) {
+  constexpr int V = Vec<T>::kN;
+  float v[V];
+  unpack(q, v, T());
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = nan_max(__fadd_rn(v[j], b[j]), 0.f);
+  return pack(v, T());
+}
+
+// The vector path.  Lane l of `lanes` (a multiple of cv = C / V) owns the
+// vectors l, l + lanes, l + 2 lanes, ... of x: all hold channels
+// (l % cv) * V .. + V - 1.
+template <typename T, int kU>
+__global__ void __launch_bounds__(256)
+bias_relu_vec_kernel(const T* __restrict__ x, const float* __restrict__ bias,
+                     T* __restrict__ out, long long nvec, int cv,
+                     long long lanes) {
+  constexpr int V = Vec<T>::kN;
+  const long long lane =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  const int ch0 = static_cast<int>(lane % cv) * V;
+  float b[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) b[j] = __ldg(bias + ch0 + j);
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* ov = reinterpret_cast<uint4*>(out);
+  for (long long v = lane; v < nvec; v += kU * lanes) {
+    uint4 q[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const long long i = v + u * lanes;
+      q[u] = i < nvec ? ld_stream(xv + i) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const long long i = v + u * lanes;
+      if (i < nvec) st_stream(ov + i, bias_relu_vec<T>(q[u], b));
+    }
+  }
+}
+
+// The scalar path (any C and alignment): lane l of `lanes` owns the
+// elements l, l + lanes, ...; its channel advances by step = lanes % c
+// from one to the next.
+template <typename T>
+__global__ void __launch_bounds__(256)
+bias_relu_kernel(const T* __restrict__ x, const float* __restrict__ bias,
+                 T* __restrict__ out, long long n, int c, long long lanes,
+                 int step) {
+  const long long lane =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  int ch = static_cast<int>(lane % c);
+  for (long long i = lane; i < n; i += lanes) {
+    const float y = __fadd_rn(npl_to_float(x[i]), __ldg(bias + ch));
     out[i] = npl_from_float<T>(nan_max(y, 0.f));
+    ch += step;
+    if (ch >= c) ch -= c;
   }
 }
 
@@ -947,6 +1027,59 @@ static int launch_pool_t(const void* x, const float* b, void* out, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Vectors a lane loads before it stores (the vector path).
+static constexpr int kBiasReluUnroll = 4;
+
+// The vector path's grid and lanes where it takes the operands (C and n
+// multiples of the vector width, x and out aligned, and one wave holding
+// at least C / V lanes); *lanes = 0 where they take the scalar path.  One
+// wave of resident blocks, fewer when the call has less work than
+// kBiasReluUnroll vectors a lane.
+template <typename T>
+static cudaError_t bias_relu_vec_plan(const void* x, const void* out,
+                                      long long n, int c, long long* grid,
+                                      long long* lanes) {
+  constexpr int V = Vec<T>::kN;
+  constexpr long long kPerBlock = static_cast<long long>(kThreads) *
+                                  kBiasReluUnroll;
+  *lanes = 0;
+  if (!(c % V == 0 && n % V == 0 && aligned16(x) && aligned16(out)))
+    return cudaSuccess;
+  int slots = 0;
+  const cudaError_t err = resident_slots(
+      bias_relu_vec_kernel<T, kBiasReluUnroll>, kThreads, 0, &slots);
+  if (err != cudaSuccess) return err;
+  const int cv = c / V;
+  *grid = std::min<long long>(slots, (n / V + kPerBlock - 1) / kPerBlock);
+  *lanes = *grid * kThreads / cv * cv;
+  return cudaSuccess;
+}
+
+template <typename T>
+static int launch_bias_relu_t(const void* x, const float* b, void* out,
+                              long long n, int c, cudaStream_t s) {
+  constexpr int V = Vec<T>::kN;
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  long long grid = 0, lanes = 0;
+  cudaError_t err = bias_relu_vec_plan<T>(x, out, n, c, &grid, &lanes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (lanes > 0) {
+    bias_relu_vec_kernel<T, kBiasReluUnroll>
+        <<<static_cast<unsigned>(grid), kThreads, 0, s>>>(xt, b, ot, n / V,
+                                                          c / V, lanes);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int slots = 0;
+  err = resident_slots(bias_relu_kernel<T>, kThreads, 0, &slots);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  grid = std::min<long long>(slots, (n + kThreads - 1) / kThreads);
+  lanes = grid * kThreads;
+  bias_relu_kernel<T><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+      xt, b, ot, n, c, lanes, static_cast<int>(lanes % c));
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" {
 
 const char* npl_error_string(int err) {
@@ -982,21 +1115,31 @@ int npl_lrn_bwd(const void* x, const void* g, const void* d, void* dx,
 
 int npl_bias_relu(const void* x, const void* bias, void* out, long long n,
                   int c, int dtype, void* stream) {
-  if (n < 1 || c < 1) return cudaErrorInvalidValue;
+  if (n < 1 || c < 1 || n % c != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = npl_grid(n, kThreads);
   const float* b = static_cast<const float*>(bias);
-  if (dtype == NPL_F32) {
-    bias_relu_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), b, static_cast<float*>(out), n, c);
-  } else if (dtype == NPL_BF16) {
-    bias_relu_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), b,
-        static_cast<__nv_bfloat16*>(out), n, c);
-  } else {
+  if (dtype == NPL_F32)
+    return launch_bias_relu_t<float>(x, b, out, n, c, s);
+  if (dtype == NPL_BF16)
+    return launch_bias_relu_t<__nv_bfloat16>(x, b, out, n, c, s);
+  return cudaErrorInvalidValue;
+}
+
+// *vector = 1 where npl_bias_relu takes the vector path for these
+// operands, 0 where it takes the scalar path.
+int npl_bias_relu_path(const void* x, const void* out, long long n, int c,
+                       int dtype, int* vector) {
+  if (n < 1 || c < 1 || n % c != 0) return cudaErrorInvalidValue;
+  long long grid = 0, lanes = 0;
+  cudaError_t err;
+  if (dtype == NPL_F32)
+    err = bias_relu_vec_plan<float>(x, out, n, c, &grid, &lanes);
+  else if (dtype == NPL_BF16)
+    err = bias_relu_vec_plan<__nv_bfloat16>(x, out, n, c, &grid, &lanes);
+  else
     return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(cudaGetLastError());
+  *vector = lanes > 0;
+  return static_cast<int>(err);
 }
 
 int npl_bias_relu_pool(const void* x, const void* bias, void* out, int n,

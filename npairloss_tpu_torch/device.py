@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -38,3 +39,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "(CLI: --device cpu) to run on the CPU")
         set_parity_precision()
     return dev
+
+
+def upload(data, device: torch.device) -> torch.Tensor:
+    """A host array or tensor on ``device``.  To a card it goes from
+    pinned memory by an asynchronous copy: a copy from pageable memory
+    would make the host wait for the stream.  A tensor already there is
+    returned as it is."""
+    t = data if isinstance(data, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(data))
+    if device.type == "cuda" and t.device.type == "cpu" \
+            and not t.is_pinned():
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)

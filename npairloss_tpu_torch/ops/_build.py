@@ -53,6 +53,7 @@ _SIGNATURES = {
     "npl_lrn_bwd": [_VP, _VP, _VP, _VP, _LL, _I, _I, _F, _F, _F, _F, _I,
                     _VP],
     "npl_bias_relu": [_VP, _VP, _VP, _LL, _I, _I, _VP],
+    "npl_bias_relu_path": [_VP, _VP, _LL, _I, _I, ctypes.POINTER(_I)],
     "npl_bias_relu_pool": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _VP],
     "npl_ivf_probe": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,

@@ -23,6 +23,7 @@ multiply-add), so the CPU tests hold them against the JAX package and
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
@@ -305,11 +306,18 @@ def _bias_relu_fwd(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     c = int(x.shape[-1])
     b = _bias_f32(bias, c, x.device)
     out = torch.empty_like(x)
-    err = library().npl_bias_relu(
+    lib = library()
+    vector = ctypes.c_int()
+    check(lib.npl_bias_relu_path(x.data_ptr(), out.data_ptr(), x.numel(), c,
+                                 code, ctypes.byref(vector)),
+          "fused_bias_relu")
+    err = lib.npl_bias_relu(
         x.data_ptr(), b.data_ptr(), out.data_ptr(), x.numel(), c, code,
         stream_ptr(x.device))
     check(err, "fused_bias_relu")
     fused_bias_relu.launches += 1
+    if not vector.value:
+        fused_bias_relu.scalar_launches += 1
     return out
 
 
@@ -338,8 +346,13 @@ class _BiasReLU(torch.autograd.Function):
 def fused_bias_relu(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Conv epilogue ``relu(x + bias)``, bias broadcast over the last
     axis, fp32 math stored in x's type; differentiable.  ``launches``
-    counts its forward kernel."""
+    counts its forward kernel, ``scalar_launches`` the launches of those
+    that took the kernel's scalar path (C not a multiple of the 16-byte
+    vector, or operands off 16-byte alignment)."""
     return _BiasReLU.apply(x.contiguous(), bias)
+
+
+fused_bias_relu.scalar_launches = 0
 
 
 # -- bias + ReLU + max-pool ---------------------------------------------------

@@ -14,7 +14,11 @@ kernel of ``fused_bias_relu_pool`` at (120,112,112,64) (training) and
 bound (the bytes each call must move over 3.35 TB/s) and, for the pool,
 ``F.max_pool2d`` over a ``channels_last`` tensor of the same shape (the
 same bytes read and written: a read-rate yardstick, not the same
-function).
+function); then the forward kernel of ``fused_bias_relu`` at its path's
+four shapes (``BIAS_RELU_CASES``, launched through the C entry that the
+wrapper calls, so that a parent's library takes the same call), beside
+``torch.relu(x + b)`` (two launches: a yardstick, not one call of the
+same function).
 
 ``csrc/stem.cu`` is built once per named variant of
 ``kernel_breakdown.VARIANTS["stem.cu"]`` (``full``: as it is; the others
@@ -41,6 +45,26 @@ import subprocess
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12
+
+# fused_bias_relu on its path: the two sites of a batch-120 fp32 training
+# step, and of one 32-image bf16 serving encode.
+BIAS_RELU_CASES = (((120, 56, 56, 64), "fp32"), ((120, 56, 56, 192), "fp32"),
+                   ((32, 56, 56, 64), "bf16"), ((32, 56, 56, 192), "bf16"))
+
+
+def bias_relu_row(shape, tag, times, yardstick_ms) -> dict:
+    """One bias+ReLU row: ``times`` ({"ms_<library>": ms}) beside the byte
+    bound (x read and out written once, the fp32 bias read once) and each
+    library's share of it."""
+    n = 1
+    for s in shape:
+        n *= s
+    size = 4 if tag == "fp32" else 2
+    bound = (2 * n * size + 4 * shape[-1]) / HBM_BYTES_PER_S * 1e3
+    return {"kernel": "bias_relu", "shape": list(shape), "dtype": tag,
+            "bound_ms": bound, **times,
+            **{f"share_{k[3:]}": bound / t for k, t in times.items()},
+            "relu_add_yardstick_ms": yardstick_ms}
 
 
 def main(argv=None) -> int:
@@ -138,6 +162,24 @@ def main(argv=None) -> int:
                            torch, lambda: F.max_pool2d(xcl, 3, 2, padding=1),
                            flush, args.iters)}
                 print(json.dumps(row), flush=True)
+        for shape, tag in BIAS_RELU_CASES:
+            dtype = torch.float32 if tag == "fp32" else torch.bfloat16
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            b = torch.randn((shape[-1],), generator=gen, device="cuda") * 0.1
+            bx = b.to(dtype)  # the yardstick reads and writes x's type
+            out = torch.empty_like(x)
+            code = 0 if tag == "fp32" else 1
+
+            def launch():  # the wrapper's launch, on the library in turn
+                _build.check(_build._lib.npl_bias_relu(
+                    x.data_ptr(), b.data_ptr(), out.data_ptr(), x.numel(),
+                    shape[-1], code, _build.stream_ptr(x.device)),
+                    "bias_relu")
+
+            print(json.dumps(bias_relu_row(
+                shape, tag, timed(launch),
+                median_ms(torch, lambda: torch.relu(x + bx), flush,
+                          args.iters))), flush=True)
         torch.cuda.synchronize()
     finally:
         _build._lib = None

@@ -29,6 +29,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from npairloss_tpu_torch.device import upload
 from npairloss_tpu_torch.ops.blockwise_npair import (
     blockwise_npair_loss_with_aux,
     blockwise_retrieval_metrics,
@@ -174,15 +175,10 @@ class Solver:
     # -- one step -----------------------------------------------------------
 
     def _put(self, inputs, labels):
-        """The batch on the solver's device.  To a card it goes through
-        pinned memory with an asynchronous copy: a copy from pageable
-        memory would make the host wait for the stream on every step."""
-        x = torch.from_numpy(np.ascontiguousarray(inputs))
-        lab = torch.from_numpy(np.ascontiguousarray(labels))
-        if self.device.type == "cuda":
-            x, lab = x.pin_memory(), lab.pin_memory()
-        return (x.to(self.device, non_blocking=True),
-                lab.to(self.device, non_blocking=True))
+        """The batch on the solver's device (``device.upload``): host
+        arrays go up from pinned memory asynchronously; a loader's
+        tensors already on the device stay as they are."""
+        return upload(inputs, self.device), upload(labels, self.device)
 
     def compute_loss(self, emb: torch.Tensor, labels: torch.Tensor):
         """(objective, metrics): the N-pair loss through the configured

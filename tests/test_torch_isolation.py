@@ -2,18 +2,21 @@
 its entry points refuse to drop to the CPU unasked, and a kernel wrapper
 counts only launches of its kernel.
 
-  * the CPU serve path, and the train CLI (dense and ``--engine
+  * the CPU serve path, the train CLI (dense and ``--engine
     blockwise``) with one ``googlenet_pallas`` training step on each
-    engine, run in subprocesses whose ``import jax`` raises (a
-    poisoned ``jax.py`` first on PYTHONPATH, the test_staticcheck
+    engine, and the train CLI on a PPM list file (the Python loader and
+    the native runtime) run in subprocesses whose ``import jax`` raises
+    (a poisoned ``jax.py`` first on PYTHONPATH, the test_staticcheck
     trick), and ``jax`` never reaches ``sys.modules``;
   * an AST scan of every port module and ``chip_smoke.py`` finds no
     import of ``jax``, ``flax`` or ``npairloss_tpu``;
-  * entry points called without ``device=`` raise when CUDA is absent;
+  * entry points called without ``device=`` raise when CUDA is absent,
+    the data loaders too;
   * kernel wrappers given CPU tensors leave their launch counters at 0.
 """
 
 import ast
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -125,6 +128,79 @@ def test_cpu_train_path_runs_with_jax_poisoned(tmp_path):
                           cwd=str(REPO), timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "ISOLATED-TRAIN-OK" in proc.stdout
+
+
+LIST_TRAIN_SCRIPT = r"""
+import pathlib, re, sys
+import numpy as np
+from npairloss_tpu_torch import cli
+root = pathlib.Path("images")
+root.mkdir()
+rng = np.random.default_rng(0)
+rows = []
+for ident in range(8):
+    for k in range(2):
+        name = f"{ident}_{k}.ppm"
+        (root / name).write_bytes(b"P6\n9 11\n255\n" + rng.integers(
+            0, 256, (11, 9, 3), dtype=np.uint8).tobytes())
+        rows.append(f"{name} {ident}")
+pathlib.Path("list.txt").write_text("\n".join(rows) + "\n")
+net = open(sys.argv[1] + "/examples/tiny_net.prototxt").read().replace(
+    "multi_batch_data_param {", 'multi_batch_data_param {\n'
+    'root_folder: "images/"\nsource: "list.txt"\n'
+    "new_height: 10\nnew_width: 10")
+net = net.replace("crop_size: 8", "crop_size: 8 mirror: true")
+pathlib.Path("net.prototxt").write_text(net)
+for native in ("never", "require"):
+    rc = cli.main(["train", "--solver",
+                   sys.argv[1] + "/examples/tiny_solver.prototxt", "--net",
+                   "net.prototxt", "--device", "cpu", "--max_iter", "2",
+                   "--native", native])
+    assert rc == 0, rc
+assert not any(k == "jax" or k.startswith(("jax.", "flax", "npairloss_tpu."))
+               for k in sys.modules), sorted(sys.modules)
+print("ISOLATED-LIST-TRAIN-OK")
+"""
+
+
+def test_cpu_list_file_train_path_runs_with_jax_poisoned(tmp_path):
+    """``train`` on a PPM list file without ``--synthetic``, through the
+    Python loader and the native runtime, with a random crop and mirror
+    on the device side."""
+    poison = tmp_path / "poison"
+    poison.mkdir()
+    for mod in ("jax", "flax"):
+        (poison / f"{mod}.py").write_text(
+            f'raise ImportError("{mod} imported by the torch port")\n')
+    env = dict(os.environ)
+    env["PYTHONPATH"] = f"{poison}{os.pathsep}{REPO}"
+    env.pop("JAX_PLATFORMS", None)
+    proc = subprocess.run([sys.executable, "-c", LIST_TRAIN_SCRIPT,
+                           str(REPO)], capture_output=True, text=True,
+                          env=env, cwd=str(tmp_path), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "ISOLATED-LIST-TRAIN-OK" in proc.stdout
+
+
+def test_data_loaders_raise_without_cuda(monkeypatch, tmp_path):
+    """The loaders resolve ``device=None`` to the card, and raise without
+    one instead of loading onto the CPU."""
+    from npairloss_tpu_torch.config.schema import DataLayerConfig
+    from npairloss_tpu_torch.data import ArrayDataset, multibatch_loader
+    from npairloss_tpu_torch.data.loader import MultibatchLoader
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "l.txt").write_text("a.ppm 0\nb.ppm 1\n")
+    cfg = DataLayerConfig(source=str(tmp_path / "l.txt"),
+                          identity_num_per_batch=2, img_num_per_identity=1)
+    for native in ("never", "require"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            multibatch_loader(dataclasses.replace(cfg, new_height=4,
+                                                  new_width=4),
+                              native=native)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultibatchLoader(ArrayDataset(np.zeros((2, 4, 4, 3), np.uint8),
+                                      np.arange(2)), cfg)
 
 
 def _imports(path: pathlib.Path):

@@ -162,11 +162,25 @@ def test_unported_train_flags_are_refused(flag, capsys):
     assert "unrecognized arguments" in capsys.readouterr().err
 
 
-def test_train_without_synthetic_exits_2(caplog):
+def test_train_without_synthetic_exits_2(tmp_path, caplog):
+    """Without ``--synthetic`` the net's list files feed the run: a data
+    layer whose ``source`` does not exist exits 2 naming the phase and
+    the path, and one with no ``source`` (the tiny net) names the phase,
+    with the JAX CLI's messages."""
+    missing = str(tmp_path / "no_such_list.txt")
+    net = tmp_path / "net.prototxt"
+    net.write_text(open(TINY_NET).read().replace(
+        "multi_batch_data_param {",
+        f'multi_batch_data_param {{\n        source: "{missing}"'))
+    rc = cli.main(["train", "--solver", "examples/tiny_solver.prototxt",
+                   "--net", str(net), "--device", "cpu"])
+    assert rc == 2
+    assert f"TRAIN data source {missing!r} does not exist" in caplog.text
+    caplog.clear()
     rc = cli.main(["train", "--solver", "examples/tiny_solver.prototxt",
                    "--device", "cpu"])
     assert rc == 2
-    assert "Queue 1 item 4" in caplog.text
+    assert "TRAIN data layer has no `source` list file" in caplog.text
 
 
 def test_unported_trunk_exits_2_naming_its_queue_item(caplog):

@@ -10,6 +10,7 @@ one fp32 value once.
 """
 
 import importlib.util
+import re
 import types
 from pathlib import Path
 
@@ -149,6 +150,32 @@ def test_bias_relu_ops_keep_nan_as_jax_does(dtype):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 3, 5, 3), (2, 5, 7, 64),
+                                   (1, 7, 9, 192)])
+def test_bias_relu_plain_is_the_pallas_kernels_bits(shape, dtype):
+    """``bias_relu_plain`` (what the card's kernel must equal bit for bit,
+    on its vector path and its scalar path) against the Pallas kernel in
+    interpret mode: C = 3 (the scalar path's odd C, with an odd element
+    count), 64 and 192, NaN planted, bit for bit."""
+    x = _rand(shape, seed=16, scale=2.0)
+    flat = x.reshape(-1)
+    flat[::7] = np.nan
+    b = _rand(shape[-1:], seed=17, scale=0.5)
+    xj = jnp.asarray(x).astype(dtype)
+    xt = _port(np.asarray(xj.astype(jnp.float32))).to(
+        torch.float32 if dtype is np.float32 else torch.bfloat16)
+    got = stem.bias_relu_plain(xt, _port(b))
+    want = np.asarray(ps.fused_bias_relu(xj, jnp.asarray(b), interpret=True))
+    assert got.dtype == xt.dtype and np.isnan(want.astype(np.float32)).any()
+    if dtype is np.float32:
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      want.view(np.uint32))
+    else:  # bf16 bits, NaN positions compared as NaN
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      want.astype(np.float32))
+
+
 def _chip_smoke():
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
@@ -183,6 +210,52 @@ def test_chip_smoke_pool_check_compares_nan_positions():
         fused_bias_relu_pool=drops_nan,
         bias_relu_pool_plain=stem.bias_relu_pool_plain)
     assert not cs.pool_matches_plain(torch, fault, x, b, nan_step=97)
+
+
+def test_chip_smoke_bias_relu_check_compares_bits_and_nan_positions():
+    """chip_smoke.py's bias+ReLU check accepts the plain version (on the
+    CPU: the wrapper itself) with NaN planted, keeping an operand's
+    storage offset, and rejects a kernel that drops NaN or rounds."""
+    cs = _chip_smoke()
+    buf = torch.from_numpy(_rand((2 * 7 * 9 * 3 + 1,), seed=18))
+    x = buf[1:].view(2, 7, 9, 3)  # one element off 16-byte alignment
+    assert cs.with_nans(x, 5).storage_offset() == 1
+    b = torch.from_numpy(_rand((3,), seed=19))
+    same, counts = cs.bias_relu_matches_plain(torch, stem, x, b, nan_step=5)
+    assert same and counts == {"launches": 0, "scalar_launches": 0}
+
+    def fake(kernel):
+        kernel.launches = kernel.scalar_launches = 0
+        return types.SimpleNamespace(fused_bias_relu=kernel,
+                                     bias_relu_plain=stem.bias_relu_plain)
+
+    for wrong in (lambda t, bias: stem.bias_relu_plain(t.nan_to_num(0.0),
+                                                       bias),
+                  lambda t, bias: stem.bias_relu_plain(t, bias) * (1 + 1e-6)):
+        assert not cs.bias_relu_matches_plain(torch, fake(wrong), x, b,
+                                              nan_step=5)[0]
+
+
+def test_chip_smoke_profile_counts_every_stem_kernel():
+    """Every kernel of csrc/stem.cu falls in chip_smoke's stem category of
+    a step's profile (a kernel that it misses is counted as elementwise
+    glue, and the stem's time per step reads short); the blockwise
+    kernels fall in theirs, PyTorch's pooling in pooling."""
+    cs = _chip_smoke()
+    src = (Path(stem.__file__).resolve().parents[1] / "csrc" / "stem.cu"
+           ).read_text()
+    names = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\(\d+\)\s+)?(\w+)\(",
+        src))
+    assert {"lrn_fwd_vec_kernel", "lrn_bwd_vec_kernel", "bias_relu_kernel",
+            "bias_relu_vec_kernel", "bias_relu_pool3s2_kernel"} <= names
+    for name in names:
+        assert cs.step_category(f"void {name}<float, true>(float const*)") \
+            == "stem kernels (csrc/stem.cu)", name
+    assert cs.step_category("void npair_stats_kernel<8>()") == \
+        "blockwise kernels (csrc/npair_blockwise.cu)"
+    assert cs.step_category("void at::native::max_pool_forward_nhwc") == \
+        "pooling"
 
 
 @pytest.mark.parametrize("n,window,stride", [(112, 3, 2), (56, 3, 2),
