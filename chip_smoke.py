@@ -73,6 +73,24 @@ Phases (any failure raises, exits nonzero and prints no result line):
    kernels launched (bias+ReLU on its vector path), the TEST batch on
    the card equal to the CPU's, a loader batch with no host sync; the
    median step ms beside phase 5's and the loader's wait per step;
+5e. snapshots, resume, preemption and the eval commands, on 5d's data
+   and the phase-5 cut, under ``build/snap_smoke/``: (a) ``train
+   --native require`` in a subprocess (max_iter 6, snapshot 2, display
+   1, --snapshot-keep 2), SIGTERM after ``iter 3``: exit 75, a committed
+   snapshot at the printed iteration k that the validator accepts, no
+   ``.tmp-`` dir; relaunched with ``--resume auto``: "resuming from
+   iteration k", exit 0, the snapshot steps the retention rule leaves;
+   (b) solver A trains 6 steps on six fixed batches (snapshot at 3), a
+   fresh solver B restores iter 3 and trains steps 4-6: parameters,
+   buffers and momentum bit for bit (cuDNN deterministic); the commit
+   and restore ms and the snapshot's bytes; (c) ``extract --resume
+   <iter 6> --phase TEST --batches 4`` (120 x 1024) equals the restored
+   model's eval-mode forward bit for bit, rows of unit norm within 1e-5,
+   the stem's forward kernels launched; ``test`` finite; (d) ``eval
+   --ks 1 10 100 1000`` over phase 4's 60,502 x 1024 gallery, 2,048
+   seeded rows' hits equal to the CPU's outside boundary ties, ``eval
+   --nmi`` on 5,924 rows of 100 identities; (e) ``time`` at batch 120,
+   each stage positive and trunk forward <= forward <= forward+backward;
 6. the five blockwise kernels (``csrc/npair_blockwise.cu``) at N = M =
    120 and 8192, D = 1024, against their plain sweeps: from the stats
    kernel's own emitted sims, minima, maxima, counts, histograms and
@@ -214,7 +232,7 @@ def synthetic_gallery(seed: int, n: int = 60502, ids: int = 11316,
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    sizes = 5 + (np.arange(ids) < n - 5 * ids)
+    sizes = n // ids + (np.arange(ids) < n % ids)
     labels = np.repeat(np.arange(ids, dtype=np.int32), sizes)
     rng.shuffle(labels)
     centres = rng.standard_normal((ids, dim), dtype=np.float32)
@@ -903,20 +921,22 @@ def drive_path(torch, seed, index, emb, detail):
 # -- phase 5: the training path -----------------------------------------------
 
 
-def cut_solver(work: str) -> str:
+def cut_solver(work: str, name: str = "solver.prototxt", **over) -> str:
     """The GoogLeNet/CUB solver cut to 6 iterations (test_iter 2, display
-    1, snapshot 0), written under ``work``; returns its path."""
+    1, snapshot 0; ``over`` replaces these or other keys), written under
+    ``work`` as ``name``; returns its path."""
     import re
 
     os.makedirs(work, exist_ok=True)
     text = open(os.path.join("examples", "googlenet_cub_solver.prototxt")
                 ).read()
-    for key, val in (("max_iter", 6), ("test_iter", 2), ("display", 1),
-                     ("snapshot", 0)):
+    keys = {"max_iter": 6, "test_iter": 2, "display": 1, "snapshot": 0}
+    keys.update(over)
+    for key, val in keys.items():
         text, n = re.subn(rf"(?m)^{key}:.*$", f"{key}: {val}", text)
         if n != 1:
             fail(f"solver prototxt has {n} '{key}:' lines")
-    path = os.path.join(work, "solver.prototxt")
+    path = os.path.join(work, name)
     with open(path, "w") as f:
         f.write(text)
     return path
@@ -1494,7 +1514,431 @@ def drive_list_train(torch, seed, detail, synthetic_step_ms,
         "synthetic_median_step_ms": synthetic_step_ms,
         "wait_ms": seen["wait_ms"], "median_wait_ms": wait_ms,
         "batches": seen["batches"], "wall_s": wall, "profile": profile}
-    return in_train, step_ms
+    return in_train, step_ms, net_path
+
+
+# -- phase 5e: snapshots, resume, preemption and the eval commands -----------
+
+SNAP_WORK = os.path.join("build", "snap_smoke")
+
+
+def retention(k, max_iter=6, every=2, keep=2):
+    """The snapshot steps the JAX package's retention rule leaves after a
+    run preempted at step k (cadence commits, then the emergency commit
+    at k) and after its relaunch to ``max_iter``: GC keeps the newest
+    ``keep`` after every commit."""
+    def commit(steps, s):
+        return sorted(set(steps) | {s})[-keep:]
+
+    first = []
+    for s in range(1, k + 1):
+        if s % every == 0:
+            first = commit(first, s)
+    first = commit(first, k)
+    final = first
+    for s in range(k + 1, max_iter + 1):
+        if s % every == 0:
+            final = commit(final, s)
+    return first, final
+
+
+def preemption_drill(seed, net_path, detail, card):
+    """5e (a): ``train --native require`` in a subprocess on the list
+    files of 5d (max_iter 6, snapshot 2, display 1, --snapshot-keep 2),
+    SIGTERM once it prints ``iter 3``: exit 75, a committed snapshot at
+    the printed iteration k that the validator accepts, no ``.tmp-`` dir;
+    the same command with ``--resume auto``: "resuming from iteration k",
+    exit 0, the snapshot steps the retention rule leaves."""
+    import re
+    import shutil
+    import signal
+
+    from npairloss_tpu_torch.resilience import snapshot as snap
+
+    work = os.path.join(SNAP_WORK, "drill")
+    shutil.rmtree(work, ignore_errors=True)
+    solver_path = cut_solver(work, snapshot=2)
+    prefix = os.path.join(work, "m_")
+    argv = [sys.executable, "-m", "npairloss_tpu_torch", "train",
+            "--solver", solver_path, "--net", net_path, "--model",
+            "googlenet_pallas", "--native", "require", "--snapshot-keep",
+            "2", "--snapshot_prefix", prefix, "--seed", str(seed)]
+    t0 = time.perf_counter()
+    lines, sent = [], None
+    with open(os.path.join(work, "stderr.txt"), "w") as err:
+        proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+        try:
+            for ln in proc.stdout:
+                lines.append(ln.rstrip("\n"))
+                if sent is None and re.match(r"iter 3 lr=", ln):
+                    proc.send_signal(signal.SIGTERM)
+                    sent = time.perf_counter()
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    first_s = time.perf_counter() - t0
+    for ln in lines:
+        log(f"[drill] {ln}")
+    if sent is None:
+        fail("the preempted run never printed 'iter 3'")
+    if rc != 75:
+        err = open(os.path.join(work, "stderr.txt")).read()
+        fail(f"the preempted run exited {rc}, not 75 (stderr: "
+             f"{err[-2000:]})")
+    recs = [json.loads(ln) for ln in lines if ln.startswith('{"preempted"')]
+    if len(recs) != 1:
+        fail(f"no single preempted record in the output: {recs}")
+    k = recs[0]["iteration"]
+    path = os.path.abspath(f"{prefix}iter_{k}.ckpt")
+    if k < 3 or recs[0]["snapshot"] != path:
+        fail(f"unexpected preempted record {recs[0]}")
+    if snap.validate_snapshot(path)["step"] != k:
+        fail(f"the emergency snapshot {path} is not at step {k}")
+    tmp = [n for n in os.listdir(work) if snap.TMP_MARKER in n]
+    want_first, want_final = retention(k)
+    got_first = [s for s, _ in snap.list_snapshots(prefix)]
+    if tmp or got_first != want_first:
+        fail(f"after the preemption: snapshots {got_first} (want "
+             f"{want_first}), tmp dirs {tmp}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv + ["--resume", "auto"], capture_output=True,
+                          text=True, timeout=300)
+    second_s = time.perf_counter() - t0
+    for ln in proc.stdout.splitlines():
+        log(f"[drill-resume] {ln}")
+    got_final = [s for s, _ in snap.list_snapshots(prefix)]
+    if proc.returncode != 0 \
+            or f"resuming from iteration {k}" not in proc.stdout:
+        fail(f"the relaunch exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    if got_final != want_final:
+        fail(f"after the relaunch: snapshots {got_final}, want {want_final}")
+    for _, p in snap.list_snapshots(prefix):
+        snap.validate_snapshot(p)
+    log(f"[drill] SIGTERM after 'iter 3' -> exit 75 with a committed "
+        f"snapshot at iteration {k} (kept {got_first}); the relaunch with "
+        f"--resume auto resumed at {k} and exited 0 (kept {got_final}); "
+        f"{first_s:.1f} s + {second_s:.1f} s of subprocess wall ({card})")
+    detail["drill"] = {"k": k, "first": got_first, "final": got_final,
+                       "first_s": first_s, "second_s": second_s}
+
+
+def _net_solver(torch, seed, solver_cfg, net_cfg):
+    from npairloss_tpu_torch.models import get_model
+    from npairloss_tpu_torch.train.solver import Solver
+
+    model = get_model("googlenet_pallas", device="cuda", seed=seed,
+                      dtype=torch.float32)
+    return Solver(model, net_cfg.loss.loss, solver_cfg,
+                  param_mults=net_cfg.param_mults,
+                  loss_weight=(net_cfg.loss.loss_weights[0]
+                               if net_cfg.loss.loss_weights else 1.0))
+
+
+def check_resume_bits(torch, seed, detail, card):
+    """5e (b): solver A trains 6 steps on six fixed synthetic batches with
+    a snapshot at 3 (and 6); a freshly built solver B restores iter 3 and
+    trains steps 4-6 on batches 3-5: parameters, buffers and momentum
+    equal A's bit for bit (cuDNN deterministic).  Returns A's iter-6
+    snapshot and the launches of A's six steps."""
+    import dataclasses
+    import shutil
+
+    from npairloss_tpu_torch.config.schema import load_net, load_solver
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.resilience import snapshot as snap
+
+    work = os.path.join(SNAP_WORK, "bits")
+    shutil.rmtree(work, ignore_errors=True)
+    solver_cfg, _ = load_solver(cut_solver(work, snapshot=3, display=0))
+    solver_cfg = dataclasses.replace(
+        solver_cfg, test_interval=0, snapshot_prefix=os.path.join(work, "m_"))
+    net_cfg = load_net("examples/googlenet_cub.prototxt")
+    gen = synthetic_identity_batches(240, 60, 2, (224, 224, 3),
+                                     seed=seed + 20)
+    batches = [next(gen) for _ in range(6)]
+    cudnn = torch.backends.cudnn
+    det, bench = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        a = _net_solver(torch, seed, solver_cfg, net_cfg)
+        commit_ms = []
+        commit = a.save_snapshot
+
+        def timed_commit(step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = commit(step)
+            commit_ms.append((time.perf_counter() - t0) * 1e3)
+            return path
+
+        a.save_snapshot = timed_commit
+        _build.reset_launch_counts()
+        a.train(iter(batches), num_iters=6, log_fn=lambda s: None)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        b = _net_solver(torch, seed + 1, solver_cfg, net_cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.restore_snapshot(a.snapshot_path(3))
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if b.iteration != 3:
+            fail(f"restored iteration {b.iteration}, not 3")
+        b.train(iter(batches[3:]), num_iters=6, log_fn=lambda s: None)
+        torch.cuda.synchronize()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = det, bench
+    sa, sb = a.state_dict(), b.state_dict()
+    differ = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    if set(sa) != set(sb) or differ:
+        fail(f"resumed run differs from the uninterrupted one in {differ}")
+    for name in ("lrn_fwd_cached", "lrn_bwd_cached", "fused_bias_relu",
+                 "fused_bias_relu_pool"):
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched by solver A's steps")
+    snap6 = a.snapshot_path(6)
+    mapped = snap.read_state(snap6, torch.device("cuda"))
+    if any(t.device.type != "cuda" for t in mapped.values()):
+        fail("a restore did not map the snapshot onto the card")
+    del mapped
+    state_bytes = os.path.getsize(os.path.join(snap6, snap.STATE_NAME))
+    model_bytes = sum(v.numel() * v.element_size() for k, v in sa.items()
+                      if k.startswith("model/"))
+    mom_bytes = sum(v.numel() * v.element_size() for k, v in sa.items()
+                    if k.startswith("momentum/"))
+    log(f"[resume] solver B restored iter 3 and trained steps 4-6: "
+        f"{len(sa)} tensors equal solver A's bit for bit; commit ms "
+        f"{[round(t, 3) for t in commit_ms]} (iters 3, 6), restore "
+        f"{restore_ms:.3f} ms, snapshot {state_bytes} bytes (trunk "
+        f"parameters and buffers {model_bytes}, momentum {mom_bytes}); "
+        f"launches in A's 6 steps {json.dumps(launches)} ({card})")
+    detail["resume_bits"] = {"commit_ms": commit_ms, "restore_ms": restore_ms,
+                             "state_bytes": state_bytes,
+                             "model_bytes": model_bytes,
+                             "momentum_bytes": mom_bytes,
+                             "launches": launches}
+    return snap6, launches
+
+
+def check_extract_test(torch, seed, detail, net_path, snap6, card):
+    """5e (c): ``extract --resume <iter 6> --phase TEST --batches 4`` on
+    5d's TEST list file (the net's TEST batch is 30, so 120 x 1024 rows)
+    equals the restored model's eval-mode forward on the same batches bit
+    for bit, rows of unit norm within 1e-5, the stem's forward kernels
+    launched; ``test`` prints finite metrics."""
+    import contextlib
+    import math
+
+    import numpy as np
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.data import loader as dloader
+    from npairloss_tpu_torch.ops import _build
+
+    solver_path = os.path.join(SNAP_WORK, "bits", "solver.prototxt")
+    out_prefix = os.path.join(SNAP_WORK, "features")
+    argv = ["extract", "--solver", solver_path, "--net", net_path,
+            "--model", "googlenet_pallas", "--native", "require",
+            "--resume", snap6, "--phase", "TEST", "--batches", "4",
+            "--out", out_prefix, "--seed", str(seed)]
+    cudnn = torch.backends.cudnn
+    det, bench = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    out = io.StringIO()
+    try:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        extract_s = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        if rc != 0:
+            fail(f"extract returned {rc}")
+        solver, net_cfg, _ = cli._build_solver(
+            cli.build_parser().parse_args(argv))
+        with dloader.multibatch_loader(net_cfg.data["TEST"],
+                                       net_cfg.transformer, seed=1,
+                                       native="require",
+                                       device="cuda") as ldr:
+            refs, labs = [], []
+            with torch.no_grad():
+                for _ in range(4):
+                    x, lab = next(ldr)
+                    refs.append(solver.model.eval()(x).float().cpu().numpy())
+                    labs.append(lab.cpu().numpy())
+        ref, ref_lab = np.concatenate(refs), np.concatenate(labs)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = det, bench
+    log(f"[extract] {out.getvalue().strip()}")
+    emb = np.load(out_prefix + ".emb.npy")
+    labels = np.load(out_prefix + ".labels.npy")
+    norms = np.linalg.norm(emb.astype(np.float64), axis=1)
+    if emb.shape != (120, 1024) or not np.array_equal(emb, ref) \
+            or not np.array_equal(labels, ref_lab):
+        fail(f"extract's {emb.shape} embeddings differ from the restored "
+             "model's forward")
+    if not np.abs(norms - 1.0).max() <= 1e-5:
+        fail(f"extracted rows off unit norm by {np.abs(norms - 1).max()}")
+    for name in ("lrn_fwd", "fused_bias_relu", "fused_bias_relu_pool"):
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched by extract")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["test", "--solver", solver_path, "--net", net_path,
+                       "--model", "googlenet_pallas", "--native", "require",
+                       "--resume", snap6, "--iterations", "2", "--seed",
+                       str(seed)])
+    metrics = json.loads(out.getvalue().strip().splitlines()[-1])
+    if rc != 0 or not metrics or not all(math.isfinite(v)
+                                         for v in metrics.values()):
+        fail(f"test returned {rc}: {metrics}")
+    log(f"[extract] {emb.shape[0]} x {emb.shape[1]} embeddings equal the "
+        f"restored model's forward bit for bit, row norms within "
+        f"{np.abs(norms - 1).max():.3g} of 1; launches "
+        f"{json.dumps(launches)}; whole command {extract_s:.2f} s ({card}); "
+        f"test {json.dumps(metrics)}")
+    detail["extract"] = {"launches": launches, "test": metrics,
+                         "wall_s": extract_s,
+                         "norm_err": float(np.abs(norms - 1).max())}
+    return launches
+
+
+def _boundary_tie(np, emb, labels, row, k, tol=1e-5):
+    """Whether query ``row``'s hit at k can flip with rounding: its best
+    same-label sim (fp64) within ``tol`` of its k-th largest sim."""
+    sims = emb @ emb[row].astype(np.float64)
+    sims[row] = -np.inf
+    kth = np.partition(sims, -k)[-k]
+    same = labels == labels[row]
+    same[row] = False
+    return same.any() and abs(sims[same].max() - kth) <= tol
+
+
+def check_eval(torch, seed, detail, emb, labels, card):
+    """5e (d): ``eval --ks 1 10 100 1000`` on the card over phase 4's
+    60,502 x 1024 gallery; for 2,048 seeded query rows the per-row hits
+    equal a CPU computation of the same rows outside boundary ties; then
+    ``eval --nmi`` on a 5,924-row, 100-identity set (CUB-200-2011's test
+    split size)."""
+    import contextlib
+    import math
+
+    import numpy as np
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.ops.eval_retrieval import first_hit_ranks
+
+    os.makedirs(SNAP_WORK, exist_ok=True)
+    prefix = os.path.join(SNAP_WORK, "gallery")
+    np.save(prefix + ".emb.npy", emb)
+    np.save(prefix + ".labels.npy", labels)
+    ks = (1, 10, 100, 1000)
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["eval", "--prefix", prefix, "--ks",
+                       *map(str, ks)])
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    if rc != 0:
+        fail(f"eval returned {rc}")
+    rec = json.loads(out.getvalue().strip().splitlines()[-1])
+    rng = np.random.default_rng(seed + 40)
+    rows = np.sort(rng.choice(emb.shape[0], 2048, replace=False))
+    t0 = time.perf_counter()
+    r_card = first_hit_ranks(torch.as_tensor(emb, device="cuda"),
+                             torch.as_tensor(labels, device="cuda"), max(ks),
+                             rows=torch.as_tensor(rows)).cpu().numpy()
+    torch.cuda.synchronize()
+    rows_ms = (time.perf_counter() - t0) * 1e3
+    r_cpu = first_hit_ranks(torch.as_tensor(emb), torch.as_tensor(labels),
+                            max(ks), query_block=256,
+                            rows=torch.as_tensor(rows)).numpy()
+    ties = 0
+    for k in ks:
+        for i in np.nonzero((r_card < k) != (r_cpu < k))[0]:
+            if not _boundary_tie(np, emb, labels, rows[i], k):
+                fail(f"row {rows[i]}: hit at {k} on the card "
+                     f"{r_card[i] < k}, on the CPU {r_cpu[i] < k}, and no "
+                     "boundary tie")
+            ties += 1
+    sub = {f"recall_at_{k}": float((r_card < k).mean()) for k in ks}
+    # NMI on the size of CUB-200-2011's test split.
+    nmi_emb, nmi_lab = synthetic_gallery(seed + 41, n=5924, ids=100)
+    nmi_prefix = os.path.join(SNAP_WORK, "cub_test")
+    np.save(nmi_prefix + ".emb.npy", nmi_emb)
+    np.save(nmi_prefix + ".labels.npy", nmi_lab)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["eval", "--prefix", nmi_prefix, "--ks", "1", "2",
+                       "4", "8", "--nmi"])
+    nmi_ms = (time.perf_counter() - t0) * 1e3
+    nmi_rec = json.loads(out.getvalue().strip().splitlines()[-1])
+    if rc != 0 or not (math.isfinite(nmi_rec.get("nmi", float("nan")))
+                       and 0.0 <= nmi_rec["nmi"] <= 1.0):
+        fail(f"eval --nmi returned {rc}: {nmi_rec}")
+    log(f"[eval] {json.dumps(rec)} in {eval_ms:.1f} ms ({card}); 2,048 "
+        f"seeded rows: per-row hits card = CPU at every k ({ties} boundary "
+        f"ties), their recall {json.dumps(sub)}, {rows_ms:.1f} ms on the "
+        f"card; --nmi on 5,924 x 1024 (100 identities): "
+        f"{json.dumps(nmi_rec)} in {nmi_ms:.1f} ms")
+    detail["eval"] = {"record": rec, "eval_ms": eval_ms, "ties": ties,
+                      "rows_recall": sub, "rows_ms": rows_ms,
+                      "nmi_record": nmi_rec, "nmi_ms": nmi_ms}
+
+
+def check_time(torch, seed, detail, step_ms, card):
+    """5e (e): ``time`` at batch 120 on the phase-5 cut: every stage
+    positive and trunk forward <= forward <= forward+backward."""
+    import contextlib
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.ops import _build
+
+    out = io.StringIO()
+    _build.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["time", "--solver",
+                       os.path.join(SNAP_WORK, "bits", "solver.prototxt"),
+                       "--net", "examples/googlenet_cub.prototxt", "--model",
+                       "googlenet_pallas", "--iterations", "20", "--batch",
+                       "120", "--seed", str(seed)])
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    if rc != 0:
+        fail(f"time returned {rc}")
+    rec = json.loads(out.getvalue().strip().splitlines()[-1])
+    stages = [rec["trunk_forward_ms"], rec["forward_ms"],
+              rec["forward_backward_ms"]]
+    if min(stages) <= 0 or not stages[0] <= stages[1] <= stages[2]:
+        fail(f"time's stages out of order or not positive: {rec}")
+    log(f"[time] {json.dumps(rec)} ({card}); phase 5's median step "
+        f"{step_ms:.3f} ms; launches {json.dumps(launches)}")
+    detail["time"] = {"record": rec, "launches": launches,
+                      "phase5_step_ms": step_ms}
+
+
+def drive_resilience(torch, seed, detail, net_path, emb, labels, step_ms):
+    """Phase 5e: (a) the preemption drill, (b) resume bit for bit, (c)
+    extract and test from a snapshot, (d) eval over the serving gallery
+    and NMI, (e) time."""
+    card = detail["card"]
+    t0 = time.perf_counter()
+    preemption_drill(seed, net_path, detail, card)
+    snap6, train_launches = check_resume_bits(torch, seed, detail, card)
+    extract_launches = check_extract_test(torch, seed, detail, net_path,
+                                          snap6, card)
+    check_eval(torch, seed, detail, emb, labels, card)
+    check_time(torch, seed, detail, step_ms, card)
+    log(f"[5e] {time.perf_counter() - t0:.1f} s")
+    return train_launches, extract_launches
 
 
 # -- phase 6: the blockwise N-pair kernels ------------------------------------
@@ -2306,7 +2750,11 @@ def main() -> int:
     train_launches, dense_step_ms = drive_train(torch, args.seed, detail)
     recompute_launches = check_train_step(torch, args.seed, detail)
     check_reference_mining(torch, args.seed, detail)
-    drive_list_train(torch, args.seed, detail, dense_step_ms)
+    _, _, list_net = drive_list_train(torch, args.seed, detail,
+                                      dense_step_ms)
+    drive_resilience(torch, args.seed, detail, list_net, emb, labels,
+                     dense_step_ms)
+    del emb, labels
     bw_rows = check_blockwise_kernels(torch, Timer(torch), detail, args.seed)
     bw_launches, bw_radix_launches, _ = drive_blockwise_train(
         torch, args.seed, detail, dense_step_ms)

@@ -11,8 +11,8 @@ copies of the JAX package's ``conv1_kernel_to_s2d`` and
 ``fuse_inception_1x1_params``.  The MLP's ``Dense`` kernels are (in,
 out) in flax and (out, in) as ``nn.Linear`` weights.
 
-A weights file (``serve --weights W.npz``) is the flattened tree: one
-array per ``"/"``-joined path.
+A weights file (``serve --weights W.npz``, ``train --weights W.npz``)
+is the flattened tree: one array per ``"/"``-joined path.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ from npairloss_tpu_torch.models.layers import conv1_kernel_to_s2d
 __all__ = [
     "adapt_params", "conv1_kernel_to_s2d", "flatten_params",
     "from_jax_params", "fuse_inception_1x1_params", "load_jax_params",
-    "load_weights_npz", "save_weights_npz", "to_jax_params",
-    "unflatten_params",
+    "load_weights_npz", "read_weights_npz", "save_weights_npz",
+    "to_jax_params", "unflatten_params",
 ]
 
 
@@ -153,10 +153,14 @@ def to_jax_params(model: torch.nn.Module) -> Dict[str, Any]:
     return unflatten_params(flat)
 
 
-def load_weights_npz(model: torch.nn.Module, path: str) -> torch.nn.Module:
+def read_weights_npz(path: str) -> Dict[str, Any]:
+    """The flax param tree of a weights file (numpy leaves)."""
     with np.load(path) as f:
-        flat = {k: f[k] for k in f.files}
-    return load_jax_params(model, unflatten_params(flat))
+        return unflatten_params({k: f[k] for k in f.files})
+
+
+def load_weights_npz(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    return load_jax_params(model, read_weights_npz(path))
 
 
 def save_weights_npz(params: Mapping[str, Any], path: str) -> None:

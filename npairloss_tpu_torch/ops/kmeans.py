@@ -73,6 +73,17 @@ def lloyd_iterate(x: torch.Tensor, centroids: torch.Tensor,
     return centroids
 
 
+def kmeans_assign(x: torch.Tensor, k: int, iters: int = 20, seed: int = 0,
+                  first: Optional[int] = None) -> torch.Tensor:
+    """Lloyd's k-means over the whole set on ``x``'s device; the (N,)
+    cluster assignment (the NMI protocol's entry, as in JAX: seeding,
+    ``iters`` Lloyd steps and the final argmin over every row)."""
+    x = x.float()
+    centroids = farthest_point_init(x, k, seed, first=first)
+    centroids = lloyd_iterate(x, centroids, iters)
+    return torch.argmin(_sq_dists(x, centroids), dim=1)
+
+
 def assign_to_centroids(embeddings: np.ndarray, centroids: np.ndarray,
                         block: int = 65536,
                         device: DeviceLike = None) -> np.ndarray:

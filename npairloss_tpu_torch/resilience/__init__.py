@@ -1,0 +1,63 @@
+"""Fault tolerance of the port (the first part of
+``npairloss_tpu/resilience``):
+
+  * ``resilience.snapshot`` — atomic snapshot commit (tmp dir + per-
+    tensor CRC-32 manifest + fsync + rename) written with ``torch.save``,
+    torn-snapshot validation, newest-valid discovery, retention GC;
+  * ``resilience.retrying`` — jittered exponential backoff around
+    snapshot I/O;
+  * ``resilience.preempt`` — SIGTERM/SIGINT -> finish the step,
+    emergency snapshot, exit :data:`EXIT_PREEMPTED` so a supervisor
+    relaunches with ``--resume auto``;
+  * ``resilience.failpoints`` — named fault-injection points
+    (``NPAIRLOSS_FAILPOINTS`` or programmatic).
+
+The divergence guard, the WAL and remediation are ROADMAP Queue 1 item
+9's remainder.
+"""
+
+from npairloss_tpu_torch.resilience import failpoints
+from npairloss_tpu_torch.resilience.failpoints import InjectedFault
+from npairloss_tpu_torch.resilience.preempt import (
+    EXIT_PREEMPTED,
+    PreemptionSignal,
+    TrainingPreempted,
+)
+from npairloss_tpu_torch.resilience.retrying import (
+    RetryPolicy,
+    call_with_retry,
+)
+from npairloss_tpu_torch.resilience.snapshot import (
+    SnapshotError,
+    SnapshotValidationError,
+    commit_snapshot,
+    gc_snapshots,
+    list_snapshots,
+    quarantine_snapshots,
+    read_manifest,
+    snapshot_info,
+    state_checksums,
+    validate_snapshot,
+    verify_restored,
+)
+
+__all__ = [
+    "EXIT_PREEMPTED",
+    "InjectedFault",
+    "PreemptionSignal",
+    "RetryPolicy",
+    "SnapshotError",
+    "SnapshotValidationError",
+    "TrainingPreempted",
+    "call_with_retry",
+    "commit_snapshot",
+    "failpoints",
+    "gc_snapshots",
+    "list_snapshots",
+    "quarantine_snapshots",
+    "read_manifest",
+    "snapshot_info",
+    "state_checksums",
+    "validate_snapshot",
+    "verify_restored",
+]

@@ -5,18 +5,25 @@ The Caffe Solver contract of usage/solver.prototxt: Caffe SGD (lr folded
 in before momentum, ``train/optim.py``), the ``display`` /
 ``average_loss`` sliding window, a TEST phase every ``test_interval``
 iterations over ``test_iter`` batches (the same loss + metrics forward on
-eval batches) and, at iteration 0, when ``test_initialization`` is set.
+eval batches) and, at iteration 0, when ``test_initialization`` is set;
+a snapshot every ``snapshot`` iterations, committed atomically with a
+checksum manifest (``resilience/snapshot.py``) and pruned to the newest
+``snapshot_max_keep``.
 
 A step keeps its metrics as device tensors; the host reads them only at
-display and test boundaries and at the end.  ``iteration`` is the
-optimizer's step count, and the lr a step reports is the one it applied
-(read at the pre-update step, as the JAX step does).
+display, test and snapshot boundaries and at the end.  ``iteration`` is
+the optimizer's step count, and the lr a step reports is the one it
+applied (read at the pre-update step, as the JAX step does).  A snapshot
+carries ``iteration``, so a restored solver resumes the lr schedule and
+every cadence where they stood; the data stream restarts, as in JAX.
 
-Not yet ported (later slices, ROADMAP Queue 1): snapshots and resume
-(item 9), the pipelined loop (item 8), meshes (item 7), telemetry,
-the divergence guard and failpoints.  A run whose ``snapshot`` cadence
-would fire within ``max_iter`` is refused (``SnapshotNotPorted``), never
-run with its snapshots silently skipped.
+A ``PreemptionSignal`` attached as ``solver.preempt`` stops the loop
+after the in-flight step: an emergency snapshot, then
+``TrainingPreempted``.
+
+Not yet ported (later slices, ROADMAP Queue 1): the pipelined loop
+(item 8), meshes (item 7), telemetry, the divergence guard and
+requested rollbacks (item 9's remainder).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import os
 from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,6 +46,22 @@ from npairloss_tpu_torch.ops.metrics import retrieval_metrics
 from npairloss_tpu_torch.ops.npair_loss import (
     NPairLossConfig,
     npair_loss_with_aux,
+)
+from npairloss_tpu_torch.resilience import failpoints
+from npairloss_tpu_torch.resilience.preempt import TrainingPreempted
+from npairloss_tpu_torch.resilience.retrying import (
+    RetryPolicy,
+    call_with_retry,
+)
+from npairloss_tpu_torch.resilience.snapshot import (
+    SnapshotValidationError,
+    commit_snapshot,
+    gc_snapshots,
+    list_snapshots,
+    read_manifest,
+    read_state,
+    validate_snapshot,
+    verify_restored,
 )
 from npairloss_tpu_torch.train.optim import (
     Mults,
@@ -73,21 +97,10 @@ class SolverConfig:
     snapshot: int = 5000
     snapshot_prefix: str = "./snap/model_"
     random_seed: int = 0
-
-
-class SnapshotNotPorted(ValueError):
-    """The solver's snapshot cadence would fire, and snapshots are not
-    ported yet."""
-
-
-def snapshot_refusal(cfg: SolverConfig, num_iters: int) -> Optional[str]:
-    """The refusal message when ``cfg.snapshot`` would fire within
-    ``num_iters`` iterations, else None."""
-    if cfg.snapshot and cfg.snapshot <= num_iters:
-        return (f"snapshot: {cfg.snapshot} would fire within max_iter "
-                f"{num_iters}, and snapshots are not ported yet (ROADMAP "
-                "Queue 1 item 9); set snapshot: 0 or lower max_iter")
-    return None
+    # Retention GC: committed snapshots beyond the newest N are deleted
+    # after each commit; 0 keeps all (Caffe's behavior — the JAX
+    # package's own extension, not a SolverParameter field).
+    snapshot_max_keep: int = 0
 
 
 def _fmt(metrics: Dict[str, float]) -> str:
@@ -113,6 +126,8 @@ class Solver:
         auto by size).
       pos_topk: the blockwise engine's sparse-positive buffer slots
         (None = 8; 0 forces radix selection).
+      snapshot_retry: the backoff around snapshot save and restore I/O
+        (None = ``RetryPolicy()``).
     """
 
     def __init__(self, model: torch.nn.Module,
@@ -123,7 +138,8 @@ class Solver:
                  loss_weight: float = 1.0,
                  engine: str = "dense",
                  sim_cache: Optional[bool] = None,
-                 pos_topk: Optional[int] = None):
+                 pos_topk: Optional[int] = None,
+                 snapshot_retry: Optional[RetryPolicy] = None):
         if engine == "ring":
             raise ValueError('engine="ring" streams the pool over a mesh, '
                              "and distribution is not ported yet (ROADMAP "
@@ -147,6 +163,9 @@ class Solver:
             self.cfg.stepvalues)
         self._loss_window: collections.deque = collections.deque(
             maxlen=max(self.cfg.average_loss, 1))
+        self.snapshot_retry = snapshot_retry
+        # A resilience.PreemptionSignal; the loop polls it once a step.
+        self.preempt = None
         self._reset_optimizer()
 
     # -- state ------------------------------------------------------------
@@ -171,6 +190,110 @@ class Solver:
 
         load_jax_params(self.model, params)
         self._reset_optimizer()
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The solver's state as one flat name -> tensor dict: the
+        model's parameters and buffers (``model/<name>``), the momentum
+        buffers (``momentum/<name>``) and ``iteration`` (int64)."""
+        out = {f"model/{k}": v for k, v in self.model.state_dict().items()}
+        out.update({f"momentum/{n}": m for n, m in self.momentum.items()})
+        out["iteration"] = torch.tensor(self.iteration, dtype=torch.int64)
+        return out
+
+    def load_state(self, state: Dict[str, torch.Tensor]) -> None:
+        """Take over a :meth:`state_dict` (a restored snapshot): the same
+        names and shapes, or a ``SnapshotValidationError`` before any
+        tensor is touched."""
+        cur = self.state_dict()
+        if set(state) != set(cur):
+            missing = sorted(set(cur) - set(state))[:3]
+            extra = sorted(set(state) - set(cur))[:3]
+            raise SnapshotValidationError(
+                f"snapshot does not fit this solver (missing={missing}, "
+                f"unexpected={extra})")
+        bad = [k for k in cur if tuple(state[k].shape) != tuple(cur[k].shape)]
+        if bad:
+            raise SnapshotValidationError(
+                f"snapshot shapes do not fit this solver: {bad[:3]}")
+        self.model.load_state_dict(
+            {k[len("model/"):]: v for k, v in state.items()
+             if k.startswith("model/")}, strict=True)
+        with torch.no_grad():
+            for n, buf in self.momentum.items():
+                buf.copy_(state[f"momentum/{n}"])
+        self.iteration = int(state["iteration"])
+
+    # -- snapshots (the Caffe snapshot contract) -----------------------------
+
+    def snapshot_path(self, step: int) -> str:
+        prefix = self.cfg.snapshot_prefix
+        os.makedirs(os.path.dirname(os.path.abspath(prefix)), exist_ok=True)
+        return os.path.abspath(f"{prefix}iter_{step}.ckpt")
+
+    def save_snapshot(self, step: int) -> str:
+        """Commit the snapshot for ``step`` atomically (tmp dir +
+        checksum manifest + rename), retrying transient I/O under
+        ``snapshot_retry``, then apply retention GC
+        (``cfg.snapshot_max_keep``)."""
+        path = self.snapshot_path(step)
+        commit_snapshot(path, self.state_dict(), step,
+                        policy=self.snapshot_retry)
+        log.info("snapshot -> %s", path)
+        gc_snapshots(self.cfg.snapshot_prefix, self.cfg.snapshot_max_keep)
+        return path
+
+    def _load_snapshot(self, path: str) -> Dict[str, torch.Tensor]:
+        def do_restore():
+            failpoints.fire("snapshot.restore.io")
+            return read_state(path, self.device)
+
+        return call_with_retry(do_restore, self.snapshot_retry,
+                               describe=f"snapshot restore ({path})")
+
+    def restore_snapshot(self, path: str) -> str:
+        """Restore an explicit snapshot path onto the solver's device
+        (retrying transient I/O).  A snapshot with a commit manifest is
+        checksum-verified against it and raises
+        ``SnapshotValidationError`` when corrupt; a manifest-less dir
+        restores unverified; a manifest that exists but cannot be read
+        is corruption and raises."""
+        state = self._load_snapshot(path)
+        try:
+            manifest = read_manifest(path)
+        except FileNotFoundError:
+            log.info("restored %s without checksum verification "
+                     "(no commit manifest)", path)
+        except (OSError, ValueError) as e:
+            raise SnapshotValidationError(
+                f"unreadable manifest in {path}: {e}") from e
+        else:
+            verify_restored(state, manifest)
+        self.load_state(state)
+        return path
+
+    def restore_auto(self, max_step: Optional[int] = None) -> Optional[str]:
+        """Restore the newest valid snapshot under ``cfg.snapshot_prefix``:
+        manifests validated newest first, the restored tensors
+        checksum-verified, torn or corrupt candidates skipped with a
+        logged reason.  ``max_step`` bounds the candidates.  Returns the
+        restored path, or None (a fresh start) when none is valid."""
+        prefix = self.cfg.snapshot_prefix
+        for step, path in reversed(list_snapshots(prefix)):
+            if max_step is not None and step > max_step:
+                continue
+            try:
+                manifest = validate_snapshot(path)
+                state = self._load_snapshot(path)
+                verify_restored(state, manifest)
+                self.load_state(state)
+            except Exception as e:  # noqa: BLE001 — skip, try the next
+                log.warning("resume: skipping snapshot %s: %s", path, e)
+                continue
+            log.info("resume: restored %s (iteration %d)", path, step)
+            return path
+        log.info("resume: no valid snapshot under prefix %r — starting "
+                 "fresh", prefix)
+        return None
 
     # -- one step -----------------------------------------------------------
 
@@ -244,16 +367,19 @@ class Solver:
               record_fn: Optional[Callable[[Dict[str, Any]], None]] = None,
               ) -> Dict[str, float]:
         """The Caffe Solver::Solve loop.  ``num_iters`` is the TOTAL
-        iteration target (``max_iter``).  ``record_fn`` gets one dict per
-        display/test event — the ``--log-json`` stream."""
+        iteration target (``max_iter``): a solver restored at iteration k
+        runs ``num_iters - k`` more steps, every cadence aligned.
+        ``record_fn`` gets one dict per display/test/snapshot/preempt
+        event — the ``--log-json`` stream."""
         cfg = self.cfg
         num_iters = num_iters if num_iters is not None else cfg.max_iter
-        refusal = snapshot_refusal(cfg, num_iters)
-        if refusal:
-            raise SnapshotNotPorted(refusal)
         it = self.iteration
         if it:
             log_fn(f"resuming from iteration {it}")
+            if it >= num_iters:
+                log_fn(f"nothing to do: restored iteration {it} >= target "
+                       f"{num_iters} (num_iters is the TOTAL max_iter "
+                       "target, not an increment)")
         if (it == 0 and cfg.test_initialization and test_batches is not None
                 and cfg.test_iter > 0):
             self._test(0, test_batches, log_fn, record_fn)
@@ -265,11 +391,34 @@ class Solver:
             last = metrics
             if cfg.display and step_num % cfg.display == 0:
                 self._display(step_num, metrics, log_fn, record_fn)
-            if (test_batches is not None and cfg.test_interval
-                    and step_num % cfg.test_interval == 0):
-                self._test(step_num, test_batches, log_fn, record_fn)
+            self._boundary_actions(step_num, test_batches, log_fn, record_fn)
             it = step_num
         return {k: float(v) for k, v in last.items()}
+
+    def _boundary_actions(self, step_num, test_batches, log_fn,
+                          record_fn) -> None:
+        """The test/snapshot/preempt cadence after a step.  On a
+        requested preemption: an emergency snapshot (unless the cadence
+        just took one), then ``TrainingPreempted``, which the CLI maps
+        to ``EXIT_PREEMPTED`` for the supervisor."""
+        cfg = self.cfg
+        if (test_batches is not None and cfg.test_interval
+                and step_num % cfg.test_interval == 0):
+            self._test(step_num, test_batches, log_fn, record_fn)
+        snapped = None
+        if cfg.snapshot and step_num % cfg.snapshot == 0:
+            snapped = self.save_snapshot(step_num)
+            if record_fn is not None:
+                record_fn({"event": "snapshot", "iteration": step_num})
+        if self.preempt is not None and self.preempt.requested:
+            path = snapped or self.save_snapshot(step_num)
+            log_fn(f"preempted at iter {step_num}: emergency snapshot "
+                   f"{path}; relaunch with --resume auto")
+            if record_fn is not None:
+                record_fn({"event": "preempt", "iteration": step_num,
+                           "snapshot": path})
+            raise TrainingPreempted(step_num, snapshot_path=path,
+                                    signum=self.preempt.signum)
 
     def _display(self, step_num, metrics, log_fn, record_fn) -> None:
         host = {k: float(v) for k, v in metrics.items()}

@@ -4,7 +4,8 @@ counts only launches of its kernel.
 
   * the CPU serve path, the train CLI (dense and ``--engine
     blockwise``) with one ``googlenet_pallas`` training step on each
-    engine, and the train CLI on a PPM list file (the Python loader and
+    engine, ``train --resume auto`` with snapshots, ``extract`` and
+    ``eval``, and the train CLI on a PPM list file (the Python loader and
     the native runtime) run in subprocesses whose ``import jax`` raises
     (a poisoned ``jax.py`` first on PYTHONPATH, the test_staticcheck
     trick), and ``jax`` never reaches ``sys.modules``;
@@ -105,6 +106,25 @@ for engine in ("dense", "blockwise"):
                     np.array([0, 0, 1, 1]))
     assert np.isfinite(float(m["loss"]))
     assert solver.params["conv1.Conv_0.weight"].grad is not None
+# Snapshots and resume, then extract and eval on what they wrote.
+work = sys.argv[1]
+solver_path = work + "/solver.prototxt"
+open(solver_path, "w").write(
+    open("examples/tiny_solver.prototxt").read()
+    .replace("snapshot: 0", "snapshot: 2")
+    .replace('snapshot_prefix: "/tmp/npair_snap_"',
+             f'snapshot_prefix: "{work}/m_"'))
+for max_iter in ("2", "4"):
+    rc = cli.main(["train", "--solver", solver_path, "--synthetic",
+                   "--device", "cpu", "--max_iter", max_iter, "--resume",
+                   "auto"])
+    assert rc == 0, rc
+rc = cli.main(["extract", "--solver", solver_path, "--synthetic", "--device",
+               "cpu", "--resume", "auto", "--batches", "2", "--out",
+               work + "/f"])
+assert rc == 0, rc
+rc = cli.main(["eval", "--prefix", work + "/f", "--device", "cpu", "--nmi"])
+assert rc == 0, rc
 assert not any(k == "jax" or k.startswith(("jax.", "flax", "npairloss_tpu."))
                for k in sys.modules), sorted(sys.modules)
 print("ISOLATED-TRAIN-OK")
@@ -114,7 +134,8 @@ print("ISOLATED-TRAIN-OK")
 def test_cpu_train_path_runs_with_jax_poisoned(tmp_path):
     """The train CLI (config, data, solver, loss, metrics) and one
     ``googlenet_pallas`` training step through the stem Functions, on the
-    dense and the blockwise engine."""
+    dense and the blockwise engine; then ``train --resume auto`` (a fresh
+    start, then a restore), ``extract`` and ``eval`` on its output."""
     poison = tmp_path / "poison"
     poison.mkdir()
     for mod in ("jax", "flax"):
@@ -123,11 +144,12 @@ def test_cpu_train_path_runs_with_jax_poisoned(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = f"{poison}{os.pathsep}{REPO}"
     env.pop("JAX_PLATFORMS", None)
-    proc = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT],
-                          capture_output=True, text=True, env=env,
-                          cwd=str(REPO), timeout=300)
+    proc = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT,
+                           str(tmp_path)], capture_output=True, text=True,
+                          env=env, cwd=str(REPO), timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "ISOLATED-TRAIN-OK" in proc.stdout
+    assert "resuming from iteration 2" in proc.stdout
 
 
 LIST_TRAIN_SCRIPT = r"""

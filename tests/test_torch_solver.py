@@ -25,16 +25,14 @@ from npairloss_tpu.config import load_net as jax_load_net
 from npairloss_tpu.config import load_solver as jax_load_solver
 from npairloss_tpu.data import synthetic_identity_batches
 from npairloss_tpu.models import get_model as jax_get_model
+from npairloss_tpu.resilience import snapshot as jax_snapshot
 from npairloss_tpu.train import Solver as JaxSolver
 from npairloss_tpu_torch import cli
 from npairloss_tpu_torch.config.schema import load_net, load_solver
 from npairloss_tpu_torch.models import convert, get_model
 from npairloss_tpu_torch.ops.npair_loss import MiningMethod, NPairLossConfig
-from npairloss_tpu_torch.train.solver import (
-    SnapshotNotPorted,
-    Solver,
-    SolverConfig,
-)
+from npairloss_tpu_torch.resilience import snapshot
+from npairloss_tpu_torch.train.solver import Solver, SolverConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_SOLVER = os.path.join(REPO, "examples", "tiny_solver.prototxt")
@@ -152,8 +150,7 @@ def test_cli_event_stream_matches_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--precision", "mxu"], ["--mesh", "2"],
-                                  ["--resume", "auto"], ["--pipeline"],
-                                  ["--weights", "w.npz"]])
+                                  ["--pipeline"]])
 def test_unported_train_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["train", "--solver", "examples/tiny_solver.prototxt",
@@ -196,24 +193,42 @@ def test_unported_trunk_exits_2_naming_its_queue_item(caplog):
         get_model("resnet50", device="cpu")
 
 
-def test_snapshot_cadence_is_refused_not_skipped(tmp_path, caplog):
+def test_snapshot_cadence_fires_as_in_jax(tmp_path):
+    """``snapshot: 5`` within ``max_iter 10`` commits iter 5 and iter 10
+    in both CLIs (the JAX one shards over the 8 test devices), each with
+    a ``snapshot`` event after the step's display and test events; the
+    library's ``train`` does the same."""
     solver = tmp_path / "solver.prototxt"
     solver.write_text(open(TINY_SOLVER).read().replace(
         "snapshot: 0", "snapshot: 5").replace(
         'net: "examples/tiny_net.prototxt"', f'net: "{TINY_NET}"'))
-    rc = cli.main(["train", "--solver", str(solver), "--synthetic",
-                   "--device", "cpu"])
-    assert rc == 2
-    assert "Queue 1 item 9" in caplog.text
-    # Past max_iter the cadence never fires, and the run goes ahead.
-    rc = cli.main(["train", "--solver", str(solver), "--synthetic",
-                   "--device", "cpu", "--max_iter", "4"])
-    assert rc == 0
-    # The library refuses too.
+    streams = {}
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("port", cli.main, ["--device", "cpu"])):
+        events = tmp_path / f"{name}.jsonl"
+        with redirect_stdout(io.StringIO()):
+            rc = main(["train", "--solver", str(solver), "--synthetic",
+                       "--snapshot_prefix", str(tmp_path / name / "m_"),
+                       "--log-json", str(events), *extra])
+        assert rc == 0
+        steps = [s for s, _ in snapshot.list_snapshots(
+            str(tmp_path / name / "m_"))]
+        assert steps == [5, 10], name
+        streams[name] = [(r["event"], r["iteration"]) for r in map(
+            json.loads, events.read_text().splitlines())]
+    assert streams["port"] == streams["jax"] == [
+        ("display", 5), ("test", 5), ("snapshot", 5),
+        ("display", 10), ("test", 10), ("snapshot", 10)]
+    for _, path in snapshot.list_snapshots(str(tmp_path / "port" / "m_")):
+        assert jax_snapshot.validate_snapshot(path)["step"] in (5, 10)
     ts = Solver(get_model("mlp", device="cpu", input_shape=(8, 8, 3)),
-                cfg=SolverConfig(snapshot=5, max_iter=10))
-    with pytest.raises(SnapshotNotPorted, match="Queue 1 item 9"):
-        ts.train(iter(()))
+                cfg=SolverConfig(snapshot=5, max_iter=10, display=0,
+                                 test_interval=0,
+                                 snapshot_prefix=str(tmp_path / "lib_")))
+    ts.train(synthetic_identity_batches(32, 8, 2, (8, 8, 3), seed=1),
+             log_fn=lambda s: None)
+    assert [s for s, _ in snapshot.list_snapshots(
+        str(tmp_path / "lib_"))] == [5, 10]
 
 
 def test_train_needs_a_card_unless_cpu_is_asked_for(monkeypatch):
