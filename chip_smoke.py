@@ -91,12 +91,36 @@ Phases (any failure raises, exits nonzero and prints no result line):
    seeded rows' hits equal to the CPU's outside boundary ties, ``eval
    --nmi`` on 5,924 rows of 100 identities; (e) ``time`` at batch 120,
    each stage positive and trunk forward <= forward <= forward+backward;
+5f. the Inception-BN trunk and the precision policies: ``train --model
+   googlenet_bn --precision mxu`` in-process on the phase-5 solver cut
+   (batch 120, 224², synthetic), on the dense engine, with ``--engine
+   blockwise`` (the reference's mining; the five kernels in their bf16
+   mode, every launch of the steps in that mode by the per-mode
+   counters), with ``--remat``, and ``--precision fp32_parity``: finite
+   losses and metrics, a nonzero gradient on every parameter, every
+   BatchNorm's running statistics moved, no stem kernel launched, no
+   host sync in a step, the median step ms over steps 2-6; one mxu step
+   with and without remat bit for bit (gradients and running
+   statistics, cuDNN deterministic) and their peak allocated memory; a
+   snapshot at iter 3 and a resume equal to the uninterrupted run bit
+   for bit, running statistics included; the std of the init trunks'
+   cosine sims (googlenet_bn beside the BN-free googlenet_pallas);
+5g. the trunk learns: the ACCURACY.md recipe (googlenet_bn at 96², 16
+   identities x 2, REFERENCE_CONFIG, lr 0.05 fixed, momentum 0.9, no
+   weight decay, noise 0.6, seed 0, 200 steps) through the port's
+   Solver under fp32_parity on the dense engine and under mxu on the
+   blockwise engine: each run's last-step Recall@1 >= 0.95, the curves
+   every 20 steps and each run's seconds;
 6. the five blockwise kernels (``csrc/npair_blockwise.cu``) at N = M =
-   120 and 8192, D = 1024, against their plain sweeps: from the stats
+   120 and 8192, D = 1024, in their fp32 mode (matmul precision
+   HIGHEST) and their bf16 mode (DEFAULT: bf16-rounded operands, the
+   gq/gdb weight tile rounded in the kernel), against their plain
+   sweeps in the same mode: from the stats
    kernel's own emitted sims, minima, maxima, counts, histograms and
    the K-slot buffer bit for bit, I/D sums within 1e-4 relative, gq/gdb
    within 1e-5 / 1e-4 of their largest entry; the sims within 1e-5 of
-   cuBLAS; cached and recompute variants bit for bit; every kernel, cached
+   cuBLAS's product of the mode's operands; cached and recompute variants
+   bit for bit; every kernel, cached
    and recompute, launched twice gives the same bits; the plain loss sweep
    in the kernel's I/D order (its cluster split for this card); each timed
    beside its bound and
@@ -117,11 +141,17 @@ Phases (any failure raises, exits nonzero and prints no result line):
    (cached and recompute) launched twice give the same bits; each
    kernel's time per call (and, as in phase 6, against cuBLAS), the hist
    kernel's early return, and ``torch.amax`` over the cache as a read-rate
-   yardstick for the cached sweeps;
+   yardstick for the cached sweeps; then REFERENCE_CONFIG in the bf16
+   mode: cache on = off and ``pos_topk`` 8 = 0 bit for bit, every kernel
+   launched twice the same bits and against its plain sweep on the
+   kernel's own sims, each kernel's time beside the fp32 mode's and its
+   bound at the dense bf16 peak;
 7. a ``{"kernels": [...]}`` line (launches of the serving kernels from
    phase 4, of the training kernels from phase 5, of ``lrn_bwd`` from
    the phase-5b recompute step, of the blockwise kernels from phase
-   6b); then the card line; then the last line
+   6b; the five blockwise kernels again as ``<name>:bf16``, their bf16
+   mode, with its launches in phase 5f's blockwise run); then the card
+   line; then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -711,7 +741,8 @@ def check_probe(torch, timer, index, queries, detail):
     scoring against the plain version and timed; the plain version timed
     at the path's own call (B = 32, probes 8).  Beside each time, the
     bound over each (query, probe)'s rows and the one over each probed
-    cluster read once (queries sharing a cluster may hit the L2)."""
+    cluster read once (queries sharing a cluster may hit the L2); the
+    plain version timed at probes 8."""
     import numpy as np
 
     from npairloss_tpu_torch.ops.ivf_probe import (
@@ -756,7 +787,8 @@ def check_probe(torch, timer, index, queries, detail):
                        "ms": timer.ms(lambda: probe_topk(
                            *args, kl=kl, scoring=scoring)),
                        "plain_ms": (timer.ms(lambda: probe_topk_oneshot_plain(
-                           *args, kl=kl, scoring=scoring)) if main else None),
+                           *args, kl=kl, scoring=scoring))
+                                    if probes == 8 else None),
                        "bound_ms": bms, "bound_by": by,
                        "bound_unique_ms": bound_ms(
                            unique_rows * d * el + side,
@@ -1095,7 +1127,8 @@ def compare_batch_upload(torch, solver, seed, steps=6):
 
 # Kernel-name patterns of a training step's device time, first match wins.
 STEP_CATEGORIES = (
-    ("blockwise kernels (csrc/npair_blockwise.cu)", ("npair_",)),
+    ("blockwise kernels (csrc/npair_blockwise.cu)", ("npair_",
+                                                     "round_bf16_")),
     ("stem kernels (csrc/stem.cu)", ("lrn_fwd_", "lrn_bwd_", "bias_relu_")),
     ("host-device copies", ("memcpy",)),
     ("pooling", ("pool",)),
@@ -1103,6 +1136,10 @@ STEP_CATEGORIES = (
     ("convolution (cuDNN)", ("conv", "xmma", "implicit", "wgrad", "dgrad",
                              "fprop", "winograd", "fft", "cudnn")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass")),
+    # PyTorch's own kernels: BatchNorm's arithmetic and statistics, ReLU,
+    # casts, the optimizer's updates.
+    ("torch elementwise and reductions", ("elementwise_kernel",
+                                          "reduce_kernel")),
 )
 
 
@@ -1110,7 +1147,7 @@ def step_category(name: str) -> str:
     """The STEP_CATEGORIES entry a kernel's name falls in."""
     name = name.lower()
     return next((c for c, pats in STEP_CATEGORIES
-                 if any(p in name for p in pats)), "elementwise and other")
+                 if any(p in name for p in pats)), "other")
 
 
 def profile_train_step(torch, step, steps=3):
@@ -1148,12 +1185,17 @@ def profile_train_step(torch, step, steps=3):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, ms in top:
         log(f"[profile]   top kernel {ms:.3f} ms  {name[:110]}")
+    other = sorted(((n, ms) for n, ms in by_name.items()
+                    if step_category(n) == "other"), key=lambda kv: -kv[1])
+    for name, ms in other[:3]:
+        log(f"[profile]   top other {ms:.3f} ms  {name[:110]}")
     stem = {n: ms for n, ms in by_name.items()
             if step_category(n) == "stem kernels (csrc/stem.cu)"}
     for name, ms in sorted(stem.items(), key=lambda kv: -kv[1]):
         log(f"[profile]   stem kernel {ms:.3f} ms  {name[:110]}")
     return {"wall_ms": wall, "busy_ms": busy, "by_category_ms": by_cat,
-            "top_kernels_ms": dict(top), "stem_kernels_ms": stem}
+            "top_kernels_ms": dict(top), "top_other_ms": dict(other[:3]),
+            "stem_kernels_ms": stem}
 
 
 def _grads(torch, model, x, lab, cfg):
@@ -1941,6 +1983,383 @@ def drive_resilience(torch, seed, detail, net_path, emb, labels, step_ms):
     return train_launches, extract_launches
 
 
+# -- phases 5f and 5g: the Inception-BN trunk, the precision policies -------
+
+BN_RUNS = (
+    # (tag, train argv after the model, net): the blockwise run mines as
+    # the reference does, so its hist sweeps run too.
+    ("mxu", ["--precision", "mxu"], "cub"),
+    ("mxu_blockwise", ["--precision", "mxu", "--engine", "blockwise"],
+     "relhard"),
+    ("mxu_remat", ["--precision", "mxu", "--remat"], "cub"),
+    ("fp32_parity", ["--precision", "fp32_parity"], "cub"),
+)
+
+
+def _bn_solver(torch, seed, policy, **kw):
+    """A googlenet_bn Solver on the GoogLeNet/CUB net's loss."""
+    from npairloss_tpu_torch.config.schema import load_net, load_solver
+    from npairloss_tpu_torch.models import get_model
+    from npairloss_tpu_torch.train.solver import Solver
+
+    solver_cfg, _ = load_solver(cut_solver(os.path.join("build",
+                                                        "train_smoke")))
+    net_cfg = load_net("examples/googlenet_cub.prototxt")
+    remat = kw.pop("remat", False)
+    model = get_model("googlenet_bn", device="cuda", seed=seed, policy=policy,
+                      remat=remat)
+    return Solver(model, net_cfg.loss.loss, kw.pop("cfg", solver_cfg),
+                  param_mults=net_cfg.param_mults, precision=policy, **kw)
+
+
+def _bn_train_run(torch, seed, tag, extra, net_path, work):
+    """One in-process ``train --model googlenet_bn <extra>`` run on the
+    phase-5 solver cut; returns (solver, events, launches of the six
+    steps with the bf16-mode ones as ``<kernel>:bf16``, step ms)."""
+    import contextlib
+    import math
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.train import solver as tsolver
+
+    events_path = os.path.join(work, f"events_bn_{tag}.jsonl")
+    if os.path.exists(events_path):
+        os.remove(events_path)
+    seen = {"solver": None, "after_test": None, "ms": []}
+    orig_step = tsolver.Solver.step
+
+    def timed_step(self, inputs, labels):
+        if seen["after_test"] is None:
+            seen["after_test"] = _build.launch_counts()
+        seen["solver"] = self
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = orig_step(self, inputs, labels)
+        torch.cuda.synchronize()
+        seen["ms"].append((time.perf_counter() - t0) * 1e3)
+        return m
+
+    argv = ["train", "--solver", cut_solver(work), "--net", net_path,
+            "--model", "googlenet_bn", *extra, "--synthetic", "--log-json",
+            events_path, "--seed", str(seed)]
+    out = io.StringIO()
+    tsolver.Solver.step = timed_step
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        tsolver.Solver.step = orig_step
+    for ln in out.getvalue().splitlines():
+        log(f"[bn-train {tag}] {ln}")
+    if rc != 0:
+        fail(f"train --model googlenet_bn {' '.join(extra)} returned {rc}")
+    events = [json.loads(ln) for ln in open(events_path)]
+    final = json.loads(out.getvalue().strip().splitlines()[-1])
+    for rec in events + [final]:
+        bad = {k: v for k, v in rec.items()
+               if isinstance(v, float) and not math.isfinite(v)}
+        if bad:
+            fail(f"non-finite values in bn {tag} {rec.get('event')}: {bad}")
+    if [e["iteration"] for e in events if e["event"] == "display"] != [
+            1, 2, 3, 4, 5, 6]:
+        fail(f"unexpected bn {tag} event stream: {events}")
+    c0, c1 = seen["after_test"], _build.launch_counts()
+    launches = {k: c1[k] - c0[k] for k in c1}
+    return seen["solver"], events, launches, list(seen["ms"])
+
+
+def check_bn_solver_state(torch, solver, tag):
+    """Every parameter has a nonzero gradient after the last step, every
+    BatchNorm's running statistics moved off their init (0, 1), and one
+    more step makes no host sync."""
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+    from npairloss_tpu_torch.models.layers import BatchNorm
+
+    zero = [n for n, p in solver.params.items()
+            if p.grad is None or not bool((p.grad != 0).any())]
+    if zero:
+        fail(f"bn {tag}: parameters without a gradient: {zero[:5]}")
+    bns = [m for m in solver.model.modules() if isinstance(m, BatchNorm)]
+    still = [i for i, m in enumerate(bns)
+             if not bool((m.mean != 0).any()) or not bool((m.var != 1).any())]
+    if not bns or still:
+        fail(f"bn {tag}: running statistics did not move in {still}")
+    x, lab = next(synthetic_identity_batches(240, 60, 2, (224, 224, 3),
+                                             seed=31))
+    solver.step(x, lab)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        solver.step(x, lab)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return len(solver.params), len(bns)
+
+
+def check_remat_bits(torch, seed):
+    """One mxu step from the same weights and batch with and without
+    remat (cuDNN deterministic): gradients and running statistics bit for
+    bit; each step's peak of allocated memory."""
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+
+    x, lab = next(synthetic_identity_batches(240, 60, 2, (224, 224, 3),
+                                             seed=seed + 33))
+    cudnn = torch.backends.cudnn
+    det, bench = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    out = {}
+    try:
+        for remat in (False, True):
+            s = _bn_solver(torch, seed, "mxu", remat=remat)
+            s.step(x, lab)  # warm: cuDNN plans, the allocator
+            s.init(seed)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            s.step(x, lab)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            out[remat] = ({n: p.grad.clone() for n, p in s.params.items()},
+                          {n: b.clone() for n, b in s.model.named_buffers()},
+                          peak, peak - base)
+            del s
+    finally:
+        cudnn.deterministic, cudnn.benchmark = det, bench
+    (g0, b0, p0, d0), (g1, b1, p1, d1) = out[False], out[True]
+    differ = [n for n in g0 if not torch.equal(g0[n], g1[n])]
+    differ += [n for n in b0 if not torch.equal(b0[n], b1[n])]
+    if differ or set(g0) != set(g1) or set(b0) != set(b1):
+        fail(f"remat changed the step in {differ[:5]}")
+    return {"peak_bytes": p0, "peak_bytes_remat": p1,
+            "step_bytes": d0, "step_bytes_remat": d1,
+            "tensors_equal": len(g0) + len(b0)}
+
+
+def check_bn_resume_bits(torch, seed):
+    """mxu solver A trains 6 steps on fixed batches with a snapshot at 3;
+    a fresh solver B restores it and trains steps 4-6: parameters, BN
+    running statistics and momentum equal A's bit for bit (cuDNN
+    deterministic)."""
+    import dataclasses
+    import shutil
+
+    from npairloss_tpu_torch.config.schema import load_solver
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+
+    work = os.path.join(SNAP_WORK, "bn_bits")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg, _ = load_solver(cut_solver(work, snapshot=3, display=0))
+    cfg = dataclasses.replace(cfg, test_interval=0,
+                              snapshot_prefix=os.path.join(work, "bn_"))
+    gen = synthetic_identity_batches(240, 60, 2, (224, 224, 3),
+                                     seed=seed + 34)
+    batches = [next(gen) for _ in range(6)]
+    cudnn = torch.backends.cudnn
+    det, bench = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        a = _bn_solver(torch, seed, "mxu", cfg=cfg)
+        a.train(iter(batches), num_iters=6, log_fn=lambda s: None)
+        b = _bn_solver(torch, seed + 1, "mxu", cfg=cfg)
+        b.restore_snapshot(a.snapshot_path(3))
+        if b.iteration != 3:
+            fail(f"bn resume restored iteration {b.iteration}, not 3")
+        b.train(iter(batches[3:]), num_iters=6, log_fn=lambda s: None)
+        torch.cuda.synchronize()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = det, bench
+    sa, sb = a.state_dict(), b.state_dict()
+    differ = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    stats = [k for k in sa if k.endswith((".mean", ".var"))]
+    if set(sa) != set(sb) or differ or not stats:
+        fail(f"bn resume differs from the uninterrupted run in {differ[:5]}")
+    return {"tensors_equal": len(sa), "running_stats": len(stats)}
+
+
+def profile_bn_step(torch, solver, step_ms):
+    """Where an mxu googlenet_bn step's device time goes: three more
+    steps under ``torch.profiler`` (``profile_train_step``), and the
+    device's busy time against the unprofiled median step of the same
+    run, whose complement is the step's idle share.  None where the
+    profiler recorded no device time."""
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+
+    x, lab = next(synthetic_identity_batches(240, 60, 2, (224, 224, 3),
+                                             seed=32))
+    prof = profile_train_step(torch, lambda: solver.step(x, lab))
+    if prof is None:
+        return None
+    prof["median_step_ms"] = step_ms
+    prof["idle_share"] = 1.0 - prof["busy_ms"] / step_ms
+    log(f"[bn-train mxu] device busy {prof['busy_ms']:.3f} ms of the "
+        f"unprofiled median step {step_ms:.3f} ms: idle "
+        f"{100 * prof['idle_share']:.1f} %")
+    return prof
+
+
+def init_sim_spread(torch, seed):
+    """Std of the cosine sims of the init trunks' embeddings of one
+    batch-120 synthetic batch: googlenet_bn (train mode: batch
+    statistics, as a step sees it; eval mode: the init's running
+    statistics) beside the BN-free googlenet_pallas."""
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+    from npairloss_tpu_torch.models import get_model
+
+    x, _ = next(synthetic_identity_batches(240, 60, 2, (224, 224, 3),
+                                           seed=seed + 35))
+    x = torch.as_tensor(x, device="cuda")
+    out = {}
+    with torch.no_grad():
+        for name, kw in (("googlenet_bn", {"policy": "mxu"}),
+                         ("googlenet_pallas", {"dtype": torch.float32})):
+            m = get_model(name, device="cuda", seed=seed, **kw)
+            out[f"{name}_train"] = _sim_spread(torch, m.train()(x))
+            m = get_model(name, device="cuda", seed=seed, **kw)
+            out[f"{name}_eval"] = _sim_spread(torch, m.eval()(x))
+    return out
+
+
+def drive_bn_train(torch, seed, detail):
+    """Phase 5f: ``train --model googlenet_bn --precision mxu`` at batch
+    120, 224², on the dense and the blockwise engine (the kernels' bf16
+    mode), with ``--remat``, and under ``fp32_parity``; then remat and
+    resume bit for bit and the init trunks' sim spread.  Returns the
+    blockwise run's launches."""
+    card = detail["card"]
+    t_start = time.perf_counter()
+    work = os.path.join("build", "train_smoke")
+    os.makedirs(work, exist_ok=True)
+    nets = {"cub": "examples/googlenet_cub.prototxt",
+            "relhard": blockwise_net(work)}
+    runs = {}
+    for tag, extra, net in BN_RUNS:
+        t0 = time.perf_counter()
+        solver, events, launches, ms = _bn_train_run(
+            torch, seed, tag, extra, nets[net], work)
+        n_params, n_bn = check_bn_solver_state(torch, solver, tag)
+        med = statistics.median(ms[1:])
+        rec = {"step_ms": ms, "median_step_ms": med,
+               "images_per_s": 120 / med * 1e3,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "matmul_precision": solver.matmul_precision,
+               "policy": solver.precision_policy.name,
+               "launches": {k: v for k, v in launches.items() if v},
+               "wall_s": time.perf_counter() - t0,
+               "last": [e for e in events if e["event"] == "display"][-1]}
+        log(f"[bn-train {tag}] {n_params} parameters with a nonzero "
+            f"gradient, {n_bn} BatchNorms' running statistics moved, no "
+            f"host sync in a step; step ms {[round(t, 3) for t in ms]}, "
+            f"median over steps 2-6 {med:.3f} ms = "
+            f"{rec['images_per_s']:.1f} images/s; policy {rec['policy']}, "
+            f"loss gemms {rec['matmul_precision']}; launches "
+            f"{json.dumps(rec['launches'])}; {rec['wall_s']:.1f} s ({card})")
+        runs[tag] = rec
+        if tag == "mxu":
+            rec["profile"] = profile_bn_step(torch, solver, med)
+        if tag == "mxu_blockwise":
+            bw_launches = launches
+            short = [k for k in BLOCKWISE_KERNELS
+                     if launches.get(f"{k}:bf16", 0) < 6
+                     or launches[f"{k}:bf16"] != launches[k]]
+            if short or launches.get("round_bf16", 0) < 6:
+                fail(f"the blockwise mxu run did not launch {short} in "
+                     "their bf16 mode, or round_bf16, on every step")
+        elif any(launches.get(k, 0) for k in BLOCKWISE_KERNELS) or any(
+                launches.get(k, 0) for k in (
+                    "lrn_fwd", "lrn_fwd_cached", "lrn_bwd_cached",
+                    "fused_bias_relu", "fused_bias_relu_pool",
+                    "round_bf16")):
+            fail(f"bn {tag} launched a stem or blockwise kernel: {launches}")
+        del solver
+    remat = check_remat_bits(torch, seed)
+    log(f"[bn-train] one mxu step with and without --remat: "
+        f"{remat['tensors_equal']} gradients and running statistics bit "
+        f"for bit; peak allocated {remat['peak_bytes']} vs "
+        f"{remat['peak_bytes_remat']} bytes with remat (the step's own: "
+        f"{remat['step_bytes']} vs {remat['step_bytes_remat']}) ({card})")
+    resume = check_bn_resume_bits(torch, seed)
+    log(f"[bn-train] mxu resume at iter 3: {resume['tensors_equal']} "
+        f"tensors ({resume['running_stats']} running statistics) equal the "
+        "uninterrupted run's bit for bit")
+    spread = init_sim_spread(torch, seed)
+    log(f"[bn-train] std of the init trunks' cosine sims at batch 120: "
+        f"{json.dumps(spread)}")
+    if not spread["googlenet_bn_train"] > SPREAD_FLOOR:
+        fail(f"the BN trunk's init embeddings collapse: {spread}")
+    wall = time.perf_counter() - t_start
+    log(f"[5f] {wall:.1f} s")
+    detail["bn_train"] = {"runs": runs, "remat": remat, "resume": resume,
+                          "init_sim_spread": spread, "wall_s": wall}
+    return bw_launches
+
+
+# The ACCURACY.md recipe (scripts/accuracy_baseline.py:243-291).
+LEARN_STEPS = 200
+LEARN_BAR = 0.95
+
+
+def drive_bn_learning(torch, seed, detail):
+    """Phase 5g: googlenet_bn at 96², 16 identities x 2, REFERENCE_CONFIG,
+    lr 0.05 fixed, momentum 0.9, no weight decay, noise 0.6, seed 0, 200
+    steps through the port's Solver; once under fp32_parity on the dense
+    engine, once under mxu on the blockwise engine.  Each run's last-step
+    Recall@1 must reach the file's bar."""
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+    from npairloss_tpu_torch.models import get_model
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.ops.npair_loss import REFERENCE_CONFIG
+    from npairloss_tpu_torch.train.solver import Solver, SolverConfig
+
+    card = detail["card"]
+    t_start = time.perf_counter()
+    out = {}
+    for policy, engine in (("fp32_parity", "dense"), ("mxu", "blockwise")):
+        cfg = SolverConfig(base_lr=0.05, lr_policy="fixed", momentum=0.9,
+                           weight_decay=0.0, display=0, test_interval=0,
+                           snapshot=0, random_seed=0)
+        model = get_model("googlenet_bn", device="cuda", seed=0,
+                          policy=policy)
+        solver = Solver(model, REFERENCE_CONFIG, cfg, engine=engine,
+                        precision=policy)
+        batches = synthetic_identity_batches(16, 16, 2, (96, 96, 3),
+                                             noise=0.6, seed=0)
+        _build.reset_launch_counts()
+        curve = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in range(LEARN_STEPS):
+            m = solver.step(*next(batches))
+            if it % 20 == 0 or it == LEARN_STEPS - 1:
+                curve.append((it, float(m["loss"]),
+                              float(m["retrieve_top1"])))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        modes = {k: v for k, v in _build.launch_counts().items()
+                 if k.endswith(":bf16") or k == "round_bf16"}
+        tag = f"{policy}/{engine}"
+        log(f"[bn-learn {tag}] (step, loss, Recall@1) every 20 steps: "
+            f"{curve}; {secs:.2f} s for {LEARN_STEPS} steps ({card})")
+        if engine == "blockwise" and modes["npair_stats:bf16"] < LEARN_STEPS:
+            fail(f"bn-learn {tag}: the stats kernel ran "
+                 f"{modes['npair_stats:bf16']} times in its bf16 mode")
+        out[tag] = {"curve": curve, "seconds": secs,
+                    "last_recall1": curve[-1][2],
+                    "bf16_launches": {k: v for k, v in modes.items() if v}}
+        if not curve[-1][2] >= LEARN_BAR:
+            fail(f"bn-learn {tag}: last-step Recall@1 {curve[-1][2]} below "
+                 f"the bar {LEARN_BAR}")
+        del solver, model
+    wall = time.perf_counter() - t_start
+    log(f"[5g] {wall:.1f} s")
+    detail["bn_learning"] = {**out, "wall_s": wall}
+    return out
+
+
 # -- phase 6: the blockwise N-pair kernels ------------------------------------
 
 BLOCKWISE_KERNELS = ("npair_stats", "npair_hist", "npair_loss", "npair_gq",
@@ -1991,18 +2410,27 @@ def _vs_cublas(ms, cublas_ms, flop):
 
 
 def check_blockwise_kernels(torch, timer, detail, seed,
-                            sizes=((120, 1024), (8192, 1024))):
+                            sizes=((120, 1024), (8192, 1024)),
+                            modes=("fp32", "bf16")):
     """The five kernels of csrc/npair_blockwise.cu against their plain
-    sweeps on the card.  From the stats kernel's own emitted sims the
-    plain stats, hist and loss sweeps must give bit-equal minima, maxima,
-    counts, histograms and K-slot buffers; I/D sums within 1e-4
-    relative, gq/gdb within 1e-5 (N = 120) or 1e-4 (N = 8192) of their
-    largest entry (the plain sweeps sum in cuBLAS's and torch's order);
-    the emitted sims within 1e-5 of ``feats @ feats.T`` (cuBLAS, TF32
-    off); cached and recompute variants bit for bit, and each launched
-    twice the same bits.  Each row's
-    ``max_abs_err`` is the largest absolute difference kernel vs plain
-    over the outputs this run compared.  ``timer`` None: check only."""
+    sweeps on the card, in each mode: ``fp32`` (matmul precision
+    HIGHEST) and ``bf16`` (DEFAULT: the products read bf16-rounded
+    operands, gq/gdb round their weight tile).  In the bf16 mode the
+    kernels get the features rounded by ``round_bf16`` (itself held to
+    ``.to(torch.bfloat16).float()`` bit for bit), the plain sweeps the
+    features as they are, which they round.  From the stats kernel's
+    own emitted sims the plain stats, hist and loss sweeps must give
+    bit-equal minima, maxima, counts, histograms and K-slot buffers; I/D
+    sums within 1e-4 relative, gq/gdb within 1e-5 (N = 120) or 1e-4
+    (N = 8192) of their largest entry (the plain sweeps sum in cuBLAS's
+    and torch's order); the emitted sims within 1e-5 of cuBLAS's product
+    of the mode's operands (``feats @ feats.T``, TF32 off; bf16-rounded
+    in the bf16 mode); cached and recompute variants bit for bit, and
+    each launched twice the same bits.  Each row's ``max_abs_err`` is
+    the largest absolute difference kernel vs plain over the outputs this
+    run compared.  Times: every kernel in both modes; the plain sweeps
+    the median of 5 calls, one call in the bf16 mode at N = 8192.
+    ``timer`` None: check only."""
     from npairloss_tpu_torch.ops import blockwise_npair as bw
     from npairloss_tpu_torch.ops import npair_loss as nl
     from npairloss_tpu_torch.ops.rank_select import sortable_key
@@ -2013,203 +2441,243 @@ def check_blockwise_kernels(torch, timer, detail, seed,
             "relative": nl.NPairLossConfig(
                 ap_mining_method=mm.RELATIVE_EASY, identsn=-0.5,
                 an_mining_method=mm.RELATIVE_HARD, diffsn=-0.3)}
-    rows = {k: [] for k in BLOCKWISE_KERNELS}
+    rows = {k: [] for k in BLOCKWISE_KERNELS + ("round_bf16",)}
     out = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for n, d in sizes:
         f, lab = unit_batch(torch, seed + n, n, d)
-        grad_tol = 1e-5 if n <= 120 else 1e-4
-        bn = bm = min(512, n)
-        # The plain loss sweep in the kernel's I/D order on this card.
-        splits = bw.pool_splits(n, n, sms)
-        rec = {"n": n, "d": d, "hist_loss_splits": splits}
-        # -- stats, every option on
-        st = bw.npair_stats(f, lab, f, lab, hist_same=True, hist_diff=True,
-                            topk=8, emit_sims=True)
-        st_r = bw.npair_stats(f, lab, f, lab, hist_same=True,
-                              hist_diff=True, topk=8)
-        st_2 = bw.npair_stats(f, lab, f, lab, hist_same=True,
-                              hist_diff=True, topk=8, emit_sims=True)
-        _same_bits(torch, st, st_2, f"npair_stats N={n}")
-        del st_2
-        sims = st.sims
-        ref = f @ f.T
-        torch.cuda.synchronize()
-        rec["sims_vs_cublas"] = (sims - ref).abs().max().item()
-        if not rec["sims_vs_cublas"] <= 1e-5:
-            fail(f"npair_stats N={n}: emitted sims off cuBLAS by "
-                 f"{rec['sims_vs_cublas']}")
-        pst = bw.stats_plain(f, lab, f, lab, hist_same=True, hist_diff=True,
-                             topk=8, sims=sims, bn=bn, bm=bm)
-        errs = [rec["sims_vs_cublas"]]
-        for name in bw.Stats._fields[:8]:
-            errs.append(_abs_err(torch, getattr(st, name), getattr(pst, name)))
-            if not torch.equal(getattr(st, name), getattr(pst, name)):
-                fail(f"npair_stats N={n}: {name} differs from the plain "
-                     "sweep on the kernel's sims")
-            if not torch.equal(getattr(st, name), getattr(st_r, name)):
-                fail(f"npair_stats N={n}: {name} differs with emit off")
-        rec["stats_abs_err"] = max(errs)
-        del ref, st_r, pst
-        # -- hist: two sides, digits 1 and 5, prefixes of real pairs
-        nxt = (torch.arange(n, device="cuda") + 1) % n
-        keys = sortable_key(sims.gather(1, nxt[:, None])[:, 0])
-        rec["hist_abs_err"] = 0.0
-        for digit in (1, 5):
-            pre = [keys >> (32 - 4 * digit), (keys ^ 1) >> (32 - 4 * digit)]
-            args = (f, lab, f, lab, [True, False], pre, digit)
-            h_c = bw.npair_hist(*args, sims=sims)
-            h_r = bw.npair_hist(*args)
-            h_p = bw.hist_plain(*args, sims=sims, bn=bn, bm=bm)
-            skip = torch.ones((), dtype=torch.bool, device="cuda")
-            h_s = bw.npair_hist(*args, sims=sims, skip=skip)
-            _same_bits(torch, h_c, bw.npair_hist(*args, sims=sims),
-                       f"npair_hist cached N={n} digit {digit}")
-            _same_bits(torch, h_r, bw.npair_hist(*args),
-                       f"npair_hist recompute N={n} digit {digit}")
-            torch.cuda.synchronize()
-            for a, b, c, s in zip(h_c, h_r, h_p, h_s):
-                rec["hist_abs_err"] = max(rec["hist_abs_err"],
-                                          _abs_err(torch, a, c),
-                                          _abs_err(torch, b, c))
-                if not (torch.equal(a, b) and torch.equal(a, c)):
-                    fail(f"npair_hist N={n} digit {digit}: kernel, "
-                         "recompute and plain differ")
-                if bool((s != 0).any()):
-                    fail(f"npair_hist N={n}: skip flag did not zero")
-            rec[f"hist_digit{digit}_counted"] = int(h_c[0].sum() +
-                                                    h_c[1].sum())
-        # -- loss, gq, gdb per mining config, from the engine's own
-        # thresholds
-        g = torch.ones((), device="cuda")
-        for cname, cfg in cfgs.items():
-            _, _, res = bw._forward(f, lab, cfg, bn, bm, True, 8)
-            thr = (res["pos_thr"], res["neg_thr"], res["max_all"])
-            l_c = bw.npair_loss(f, lab, f, lab, *thr, cfg, sims=sims)
-            l_r = bw.npair_loss(f, lab, f, lab, *thr, cfg)
-            l_p = bw.loss_plain(f, lab, f, lab, *thr, cfg, sims=sims,
-                                bn=bn, splits=splits)
-            _same_bits(torch, l_c, bw.npair_loss(f, lab, f, lab, *thr, cfg,
-                                                 sims=sims),
-                       f"npair_loss cached N={n} {cname}")
-            _same_bits(torch, l_r, bw.npair_loss(f, lab, f, lab, *thr, cfg),
-                       f"npair_loss recompute N={n} {cname}")
-            valid = torch.ones(n, device="cuda")
-            gargs = (f, lab, f, lab, *thr, res["ident_sum"], res["all_sum"],
-                     valid, g, cfg)
-            grads = {}
-            for name, kern, pm in (("npair_gq", bw.npair_gq, False),
-                                   ("npair_gdb", bw.npair_gdb, True)):
-                grads[name] = (kern(*gargs, sims=sims), kern(*gargs),
-                               bw.grad_plain(*gargs, pm, sims=sims, bn=bn,
-                                             bm=bm))
-                _same_bits(torch, grads[name][0], kern(*gargs, sims=sims),
-                           f"{name} cached N={n} {cname}")
-                _same_bits(torch, grads[name][1], kern(*gargs),
-                           f"{name} recompute N={n} {cname}")
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(l_c, l_r)):
-                fail(f"npair_loss N={n} {cname}: cached and recompute differ")
-            if not (torch.equal(l_c[2], l_p[2]) and torch.equal(l_c[3],
-                                                               l_p[3])):
-                fail(f"npair_loss N={n} {cname}: pair counts differ")
-            sum_err = max(_rel_close(l_c[0], l_p[0]),
-                          _rel_close(l_c[1], l_p[1]))
-            if not sum_err <= 1e-4:
-                fail(f"npair_loss N={n} {cname}: I/D sums off by {sum_err}")
-            rec[f"{cname}_sum_rel_err"] = sum_err
-            # Rows whose I and D sums equal the kernel-order plain sweep's
-            # bit for bit (the rest differ by their exps' ulps).
-            rec[f"{cname}_sums_bit_equal_rows"] = int(
-                ((l_c[0] == l_p[0]) & (l_c[1] == l_p[1])).sum())
-            rec[f"{cname}_loss_abs_err"] = max(
-                _abs_err(torch, a, b) for a, b in zip(l_c, l_p))
-            rec[f"{cname}_pairs"] = [int(l_c[2].sum()), int(l_c[3].sum())]
-            for name, (gc, gr, gp) in grads.items():
-                if not torch.equal(gc, gr):
-                    fail(f"{name} N={n} {cname}: cached and recompute differ")
-                err = ((gc - gp).abs().max() /
-                       gp.abs().max().clamp_min(1e-30)).item()
-                if not err <= grad_tol:
-                    fail(f"{name} N={n} {cname}: {err} of the largest entry")
-                rec[f"{cname}_{name}_err"] = err
-                rec[f"{cname}_{name}_abs_err"] = _abs_err(torch, gc, gp)
-            if cname == "reference":
-                path = (thr, res, gargs)
-        log(f"[blockwise] N={n} D={d}: kernels = plain sweeps on the "
-            f"kernel's sims; cached = recompute; repeat launches the same "
-            f"bits; {json.dumps(rec)}")
-        out[n] = rec
-        if timer is None:
-            continue
-        # -- times at the path's variants (REFERENCE_CONFIG, sim cache on)
-        thr, res, gargs = path
-        nm, nd = n * n, n * d
-        flop = 2.0 * n * n * d
+        for mode in modes:
+            rec = _blockwise_size_mode(torch, timer, bw, nl, sortable_key,
+                                       cfgs, rows, f, lab, n, d, mode, sms)
+            out[f"{n}/{mode}"] = rec
+    detail["blockwise_kernels"] = {"checks": out, "rows": rows}
+    return rows
 
-        cublas = out[n]["cublas_sim_ms"] = timer.ms(lambda: f @ f.T)
+
+def _blockwise_size_mode(torch, timer, bw, nl, sortable_key, cfgs, rows, f,
+                         lab, n, d, mode, sms):
+    mp = {"fp32": None, "bf16": "default"}[mode]
+    kw = {"matmul_precision": mp}
+    grad_tol = 1e-5 if n <= 120 else 1e-4
+    bn = bm = min(512, n)
+    # The plain loss sweep in the kernel's I/D order on this card.
+    splits = bw.pool_splits(n, n, sms)
+    rec = {"n": n, "d": d, "mode": mode, "hist_loss_splits": splits}
+    # The kernels' operands: the bf16 mode's rounded once, as the engine
+    # does; the plain sweeps round f themselves.
+    fk = bw.round_bf16(f) if mode == "bf16" else f
+    if mode == "bf16":
+        if not torch.equal(fk.view(torch.int32),
+                           nl.bf16_round(f).view(torch.int32)):
+            fail(f"round_bf16 N={n}: differs from .to(torch.bfloat16)")
+        _same_bits(torch, fk, bw.round_bf16(f), f"round_bf16 N={n}")
+    # -- stats, every option on
+    st = bw.npair_stats(fk, lab, fk, lab, hist_same=True, hist_diff=True,
+                        topk=8, emit_sims=True, **kw)
+    st_r = bw.npair_stats(fk, lab, fk, lab, hist_same=True, hist_diff=True,
+                          topk=8, **kw)
+    st_2 = bw.npair_stats(fk, lab, fk, lab, hist_same=True, hist_diff=True,
+                          topk=8, emit_sims=True, **kw)
+    _same_bits(torch, st, st_2, f"npair_stats N={n} {mode}")
+    del st_2
+    sims = st.sims
+    fo = nl.bf16_round(f) if mode == "bf16" else f
+    ref = fo @ fo.T
+    torch.cuda.synchronize()
+    rec["sims_vs_cublas"] = (sims - ref).abs().max().item()
+    if not rec["sims_vs_cublas"] <= 1e-5:
+        fail(f"npair_stats N={n} {mode}: emitted sims off cuBLAS by "
+             f"{rec['sims_vs_cublas']}")
+    if mode == "bf16":
+        rec["sims_vs_fp32_product"] = (sims - f @ f.T).abs().max().item()
+    pst = bw.stats_plain(f, lab, f, lab, hist_same=True, hist_diff=True,
+                         topk=8, sims=sims, bn=bn, bm=bm, **kw)
+    errs = [rec["sims_vs_cublas"]]
+    for name in bw.Stats._fields[:8]:
+        errs.append(_abs_err(torch, getattr(st, name), getattr(pst, name)))
+        if not torch.equal(getattr(st, name), getattr(pst, name)):
+            fail(f"npair_stats N={n} {mode}: {name} differs from the plain "
+                 "sweep on the kernel's sims")
+        if not torch.equal(getattr(st, name), getattr(st_r, name)):
+            fail(f"npair_stats N={n} {mode}: {name} differs with emit off")
+    rec["stats_abs_err"] = max(errs)
+    del ref, st_r, pst
+    # -- hist: two sides, digits 1 and 5, prefixes of real pairs
+    nxt = (torch.arange(n, device="cuda") + 1) % n
+    keys = sortable_key(sims.gather(1, nxt[:, None])[:, 0])
+    rec["hist_abs_err"] = 0.0
+    for digit in (1, 5):
+        pre = [keys >> (32 - 4 * digit), (keys ^ 1) >> (32 - 4 * digit)]
+        args = (fk, lab, fk, lab, [True, False], pre, digit)
+        h_c = bw.npair_hist(*args, sims=sims, **kw)
+        h_r = bw.npair_hist(*args, **kw)
+        h_p = bw.hist_plain(f, lab, f, lab, *args[4:], sims=sims, bn=bn,
+                            bm=bm, **kw)
+        skip = torch.ones((), dtype=torch.bool, device="cuda")
+        h_s = bw.npair_hist(*args, sims=sims, skip=skip, **kw)
+        _same_bits(torch, h_c, bw.npair_hist(*args, sims=sims, **kw),
+                   f"npair_hist cached N={n} {mode} digit {digit}")
+        _same_bits(torch, h_r, bw.npair_hist(*args, **kw),
+                   f"npair_hist recompute N={n} {mode} digit {digit}")
+        torch.cuda.synchronize()
+        for a, b, c, s in zip(h_c, h_r, h_p, h_s):
+            rec["hist_abs_err"] = max(rec["hist_abs_err"],
+                                      _abs_err(torch, a, c),
+                                      _abs_err(torch, b, c))
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                fail(f"npair_hist N={n} {mode} digit {digit}: kernel, "
+                     "recompute and plain differ")
+            if bool((s != 0).any()):
+                fail(f"npair_hist N={n} {mode}: skip flag did not zero")
+        rec[f"hist_digit{digit}_counted"] = int(h_c[0].sum() + h_c[1].sum())
+    # -- loss, gq, gdb per mining config, from the engine's own
+    # thresholds
+    g = torch.ones((), device="cuda")
+    for cname, cfg in cfgs.items():
+        _, _, res = bw._forward(f, lab, cfg, bn, bm, True, 8, mp)
+        thr = (res["pos_thr"], res["neg_thr"], res["max_all"])
+        l_c = bw.npair_loss(fk, lab, fk, lab, *thr, cfg, sims=sims, **kw)
+        l_r = bw.npair_loss(fk, lab, fk, lab, *thr, cfg, **kw)
+        l_p = bw.loss_plain(f, lab, f, lab, *thr, cfg, sims=sims, bn=bn,
+                            splits=splits, **kw)
+        _same_bits(torch, l_c, bw.npair_loss(fk, lab, fk, lab, *thr, cfg,
+                                             sims=sims, **kw),
+                   f"npair_loss cached N={n} {mode} {cname}")
+        _same_bits(torch, l_r, bw.npair_loss(fk, lab, fk, lab, *thr, cfg,
+                                             **kw),
+                   f"npair_loss recompute N={n} {mode} {cname}")
+        valid = torch.ones(n, device="cuda")
+        rest = (*thr, res["ident_sum"], res["all_sum"], valid, g, cfg)
+        gargs, pargs = (fk, lab, fk, lab, *rest), (f, lab, f, lab, *rest)
+        grads = {}
+        for name, kern, pm in (("npair_gq", bw.npair_gq, False),
+                               ("npair_gdb", bw.npair_gdb, True)):
+            grads[name] = (kern(*gargs, sims=sims, **kw), kern(*gargs, **kw),
+                           bw.grad_plain(*pargs, pm, sims=sims, bn=bn, bm=bm,
+                                         **kw))
+            _same_bits(torch, grads[name][0], kern(*gargs, sims=sims, **kw),
+                       f"{name} cached N={n} {mode} {cname}")
+            _same_bits(torch, grads[name][1], kern(*gargs, **kw),
+                       f"{name} recompute N={n} {mode} {cname}")
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(l_c, l_r)):
+            fail(f"npair_loss N={n} {mode} {cname}: cached and recompute "
+                 "differ")
+        if not (torch.equal(l_c[2], l_p[2]) and torch.equal(l_c[3], l_p[3])):
+            fail(f"npair_loss N={n} {mode} {cname}: pair counts differ")
+        sum_err = max(_rel_close(l_c[0], l_p[0]), _rel_close(l_c[1], l_p[1]))
+        if not sum_err <= 1e-4:
+            fail(f"npair_loss N={n} {mode} {cname}: I/D sums off by "
+                 f"{sum_err}")
+        rec[f"{cname}_sum_rel_err"] = sum_err
+        # Rows whose I and D sums equal the kernel-order plain sweep's bit
+        # for bit (the rest differ by their exps' ulps).
+        rec[f"{cname}_sums_bit_equal_rows"] = int(
+            ((l_c[0] == l_p[0]) & (l_c[1] == l_p[1])).sum())
+        rec[f"{cname}_loss_abs_err"] = max(
+            _abs_err(torch, a, b) for a, b in zip(l_c, l_p))
+        rec[f"{cname}_pairs"] = [int(l_c[2].sum()), int(l_c[3].sum())]
+        for name, (gc, gr, gp) in grads.items():
+            if not torch.equal(gc, gr):
+                fail(f"{name} N={n} {mode} {cname}: cached and recompute "
+                     "differ")
+            err = ((gc - gp).abs().max() /
+                   gp.abs().max().clamp_min(1e-30)).item()
+            if not err <= grad_tol:
+                fail(f"{name} N={n} {mode} {cname}: {err} of the largest "
+                     "entry")
+            rec[f"{cname}_{name}_err"] = err
+            rec[f"{cname}_{name}_abs_err"] = _abs_err(torch, gc, gp)
+        if cname == "reference":
+            path = (thr, gargs, pargs)
+    log(f"[blockwise] N={n} D={d} {mode}: kernels = plain sweeps on the "
+        f"kernel's sims; cached = recompute; repeat launches the same "
+        f"bits; {json.dumps(rec)}")
+    if timer is None:
+        return rec
+    # -- times at the path's variants (REFERENCE_CONFIG, sim cache on)
+    thr, gargs, pargs = path
+    nm, nd = n * n, n * d
+    flop = 2.0 * n * n * d
+    peak = "bf16" if mode == "bf16" else "fp32"
+    # The plain sweeps at N = 8192 take ~0.1-1 s a call: the bf16 mode's
+    # get one call each (the fp32 mode's the median of 5, as before).
+    plain_iters = (5, 1) if n <= 120 or mode == "fp32" else (1, 0)
+
+    if mode == "fp32":
+        cublas = rec["cublas_sim_ms"] = timer.ms(lambda: f @ f.T)
         log(f"[kernel] N={n} D={d}: cuBLAS fp32 sim product feats @ "
             f"feats.T alone (not a yardstick of the fused kernels): "
             f"{cublas:.4f} ms")
+    else:
+        cublas = None
 
-        def row(name, kern, plain, nbytes, ops, err, variant):
-            bms, by = bound_ms(nbytes, ops, "fp32")
-            r = {"n": n, "d": d, "variant": variant, "max_abs_err": err,
-                 "ms": timer.ms(kern),
-                 "plain_ms": timer.ms(plain, iters=5, warmup=1),
-                 "bound_ms": bms, "bound_by": by, "library_ms": None}
-            rows[name].append(r)
-            extra = (_vs_cublas(r["ms"], cublas, ops) if name in (
-                "npair_stats", "npair_gq", "npair_gdb") else {})
-            log(f"[kernel] {name} {variant} N={n} D={d}: "
-                f"{json.dumps({**r, **extra})}")
+    def row(name, kern, plain, nbytes, ops, err, variant):
+        bms, by = bound_ms(nbytes, ops, peak)
+        r = {"n": n, "d": d, "mode": mode, "variant": variant,
+             "max_abs_err": err, "ms": timer.ms(kern),
+             "plain_ms": timer.ms(plain, iters=plain_iters[0],
+                                  warmup=plain_iters[1]),
+             "bound_ms": bms, "bound_by": by, "library_ms": None}
+        fp32_row = [x for x in rows[name] if x["n"] == n
+                    and x["variant"] == variant and x["mode"] == "fp32"]
+        if fp32_row:
+            r["fp32_mode_ms"] = fp32_row[0]["ms"]
+        rows[name].append(r)
+        extra = (_vs_cublas(r["ms"], cublas, ops) if cublas and name in (
+            "npair_stats", "npair_gq", "npair_gdb") else {})
+        log(f"[kernel] {name} {variant} {mode} N={n} D={d}: "
+            f"{json.dumps({**r, **extra})}")
 
-        row("npair_stats",
-            lambda: bw.npair_stats(f, lab, f, lab, hist_same=True, topk=8,
-                                   emit_sims=True),
-            lambda: bw.stats_plain(f, lab, f, lab, hist_same=True, topk=8,
-                                   emit_sims=True, bn=bn, bm=bm),
-            8 * nd + 4 * nm + 4 * n * (5 + 16 + 8), flop,
-            out[n]["stats_abs_err"], "hist_same+topk8+emit")
-        pre = [keys >> 28, keys >> 28]
-        for cached in (True, False):
-            s_ = sims if cached else None
-            row("npair_hist",
-                lambda: bw.npair_hist(f, lab, f, lab, [True, False], pre, 1,
-                                      sims=s_),
-                lambda: bw.hist_plain(f, lab, f, lab, [True, False], pre, 1,
-                                      sims=s_, bn=bn, bm=bm),
-                (4 * nm if cached else 8 * nd) + 4 * n * (1 + 2 + 32),
-                0.0 if cached else flop, out[n]["hist_abs_err"],
+    # Bytes: the self-pool's N x D operand read once (feats is pool).
+    if mode == "bf16":
+        row("round_bf16", lambda: bw.round_bf16(f),
+            lambda: nl.bf16_round(f), 8 * nd, 0.0, 0.0, "N x D")
+    row("npair_stats",
+        lambda: bw.npair_stats(fk, lab, fk, lab, hist_same=True, topk=8,
+                               emit_sims=True, **kw),
+        lambda: bw.stats_plain(f, lab, f, lab, hist_same=True, topk=8,
+                               emit_sims=True, bn=bn, bm=bm, **kw),
+        4 * nd + 4 * nm + 4 * n * (5 + 16 + 8), flop,
+        rec["stats_abs_err"], "hist_same+topk8+emit")
+    pre = [keys >> 28, keys >> 28]
+    for cached in (True, False):
+        s_ = sims if cached else None
+        row("npair_hist",
+            lambda: bw.npair_hist(fk, lab, fk, lab, [True, False], pre, 1,
+                                  sims=s_, **kw),
+            lambda: bw.hist_plain(f, lab, f, lab, [True, False], pre, 1,
+                                  sims=s_, bn=bn, bm=bm, **kw),
+            (4 * nm if cached else 4 * nd) + 4 * n * (1 + 2 + 32),
+            0.0 if cached else flop, rec["hist_abs_err"],
+            "cached" if cached else "recompute")
+        row("npair_loss",
+            lambda: bw.npair_loss(fk, lab, fk, lab, *thr,
+                                  nl.REFERENCE_CONFIG, sims=s_, **kw),
+            lambda: bw.loss_plain(f, lab, f, lab, *thr, nl.REFERENCE_CONFIG,
+                                  sims=s_, bn=bn, splits=splits, **kw),
+            (4 * nm if cached else 4 * nd) + 4 * n * (1 + 3 + 4),
+            3.0 * nm + (0 if cached else flop),
+            rec["reference_loss_abs_err"],
+            "cached" if cached else "recompute")
+        for name, kern, pm in (("npair_gq", bw.npair_gq, False),
+                               ("npair_gdb", bw.npair_gdb, True)):
+            row(name, lambda: kern(*gargs, sims=s_, **kw),
+                lambda: bw.grad_plain(*pargs, pm, sims=s_, bn=bn, bm=bm,
+                                      **kw),
+                (4 * nm + 8 * nd if cached else 8 * nd) + 4 * n * 7,
+                flop * (1 if cached else 2),
+                rec[f"reference_{name}_abs_err"],
                 "cached" if cached else "recompute")
-            row("npair_loss",
-                lambda: bw.npair_loss(f, lab, f, lab, *thr,
-                                      nl.REFERENCE_CONFIG, sims=s_),
-                lambda: bw.loss_plain(f, lab, f, lab, *thr,
-                                      nl.REFERENCE_CONFIG, sims=s_, bn=bn,
-                                      splits=splits),
-                (4 * nm if cached else 8 * nd) + 4 * n * (1 + 3 + 4),
-                3.0 * nm + (0 if cached else flop),
-                out[n]["reference_loss_abs_err"],
-                "cached" if cached else "recompute")
-            for name, kern, pm in (("npair_gq", bw.npair_gq, False),
-                                   ("npair_gdb", bw.npair_gdb, True)):
-                row(name, lambda: kern(*gargs, sims=s_),
-                    lambda: bw.grad_plain(*gargs, pm, sims=s_, bn=bn, bm=bm),
-                    (4 * nm + 8 * nd if cached else 12 * nd) + 4 * n * 7,
-                    flop * (1 if cached else 2),
-                    out[n][f"reference_{name}_abs_err"],
-                    "cached" if cached else "recompute")
+    if mode == "fp32":
         # The early return of the path's 7 hist launches per step (the
         # pos_topk fast path holds): one side, the cache on.
         skip = torch.ones((), dtype=torch.bool, device="cuda")
-        out[n]["hist_skip_ms"] = timer.ms(lambda: bw.npair_hist(
+        rec["hist_skip_ms"] = timer.ms(lambda: bw.npair_hist(
             f, lab, f, lab, [True], pre[:1], 1, sims=sims, skip=skip))
         log(f"[kernel] npair_hist early return N={n}: "
-            f"{out[n]['hist_skip_ms']:.4f} ms")
-        del sims, keys
-    detail["blockwise_kernels"] = {"checks": out, "rows": rows}
-    return rows
+            f"{rec['hist_skip_ms']:.4f} ms")
+    return rec
 
 
 # -- phase 6b: the blockwise training path ------------------------------------
@@ -2530,6 +2998,35 @@ def check_engines_agree(torch, seed, cfg):
 # -- phase 6c: the stretch size --------------------------------------------------
 
 
+def stretch_plain_ms(torch, bw, f, lab, thr, gargs, sims, pre, cfg, splits,
+                     **kw):
+    """One call of each plain sweep at the stretch (4096-row tiles; the
+    plain version of each kernel variant the stretch times), its wall ms
+    between two synchronizes: a median of several calls would take
+    minutes."""
+    big = {"bn": 4096, "bm": 4096}
+
+    def once(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    out = {"npair_stats+emit": once(lambda: bw.stats_plain(
+        f, lab, f, lab, hist_same=True, topk=8, emit_sims=True, **big,
+        **kw))}
+    for cached, s_ in (("cached", sims), ("recompute", None)):
+        out[f"npair_hist {cached}"] = once(lambda: bw.hist_plain(
+            f, lab, f, lab, [True], pre, 1, sims=s_, **big, **kw))
+        out[f"npair_loss {cached}"] = once(lambda: bw.loss_plain(
+            f, lab, f, lab, *thr, cfg, sims=s_, splits=splits, **big, **kw))
+        for name, pm in (("npair_gq", False), ("npair_gdb", True)):
+            out[f"{name} {cached}"] = once(lambda: bw.grad_plain(
+                *gargs, pm, sims=s_, **big, **kw))
+    return out
+
+
 def check_stretch(torch, timer, detail, seed, n=32768, d=512):
     """Loss + backward at the 32,768 pool and 512 dims of STRETCH.json on
     synthetic unit features: REFERENCE_CONFIG, LOCAL/RAND and a two-sided
@@ -2654,27 +3151,27 @@ def check_stretch(torch, timer, detail, seed, n=32768, d=512):
     for name, fn, nbytes, ops in (
             ("npair_stats+emit", lambda: bw.npair_stats(
                 f, lab, f, lab, hist_same=True, topk=8, emit_sims=True),
-             8 * n * d + 4 * nm, flop),
+             4 * n * d + 4 * nm, flop),
             ("npair_hist cached", lambda: bw.npair_hist(
                 f, lab, f, lab, [True], pre, 1, sims=sims), 4 * nm, 0.0),
             ("npair_hist recompute", lambda: bw.npair_hist(
-                f, lab, f, lab, [True], pre, 1), 8 * n * d, flop),
+                f, lab, f, lab, [True], pre, 1), 4 * n * d, flop),
             ("npair_hist cached, 2 sides", lambda: bw.npair_hist(
                 *hist_args, sims=sims), 4 * nm, 0.0),
             ("npair_hist recompute, 2 sides", lambda: bw.npair_hist(
-                *hist_args), 8 * n * d, flop),
+                *hist_args), 4 * n * d, flop),
             ("npair_loss cached", lambda: bw.npair_loss(
                 f, lab, f, lab, *thr, cfg, sims=sims), 4 * nm, 3 * nm),
             ("npair_loss recompute", lambda: bw.npair_loss(
-                f, lab, f, lab, *thr, cfg), 8 * n * d, flop + 3 * nm),
+                f, lab, f, lab, *thr, cfg), 4 * n * d, flop + 3 * nm),
             ("npair_gq cached", lambda: bw.npair_gq(*gargs, sims=sims),
              4 * nm + 8 * n * d, flop),
             ("npair_gq recompute", lambda: bw.npair_gq(*gargs),
-             12 * n * d, 2 * flop),
+             8 * n * d, 2 * flop),
             ("npair_gdb cached", lambda: bw.npair_gdb(*gargs, sims=sims),
              4 * nm + 8 * n * d, flop),
             ("npair_gdb recompute", lambda: bw.npair_gdb(*gargs),
-             12 * n * d, 2 * flop)):
+             8 * n * d, 2 * flop)):
         bms, by = bound_ms(nbytes, ops, "fp32")
         times[name] = {"ms": timer.ms(fn, iters=5, warmup=1),
                        "bound_ms": bms, "bound_by": by}
@@ -2682,8 +3179,197 @@ def check_stretch(torch, timer, detail, seed, n=32768, d=512):
             times[name].update(_vs_cublas(times[name]["ms"],
                                           out["cublas_sim_ms"], ops))
         log(f"[stretch] {name} N={n} D={d}: {json.dumps(times[name])}")
+    splits = bw.pool_splits(n, n, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    plain = stretch_plain_ms(torch, bw, f, lab, thr, gargs, sims, pre, cfg,
+                             splits)
+    for name, ms in plain.items():
+        times[name]["plain_ms"] = ms
+    log(f"[stretch] plain sweeps, one call each (ms): {json.dumps(plain)}")
     out["kernel_ms"] = times
     detail["stretch"] = out
+    return out
+
+
+def check_stretch_bf16(torch, timer, detail, seed, n=32768, d=512):
+    """The stretch in the kernels' bf16 mode (matmul precision DEFAULT):
+    REFERENCE_CONFIG loss + backward with the sim cache on and off and
+    ``pos_topk`` 8 and 0, bit for bit; all five kernels (cached and
+    recompute) launched twice the same bits; each against its plain
+    sweep on the kernel's own emitted sims (4096-row tiles): minima,
+    maxima, counts, histograms and K-slot buffers bit for bit, the sims
+    within 1e-5 of cuBLAS's product of the bf16-rounded features, I/D
+    sums within 1e-4 relative, gq/gdb within 1e-4 of their largest
+    entry; each kernel's time beside the fp32 mode's (phase 6c) and its
+    bound at the dense bf16 peak.  The kernels get the features rounded
+    once by ``round_bf16`` (bit for bit ``.to(torch.bfloat16)``), the
+    plain sweeps the features as they are."""
+    import math
+
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.ops import blockwise_npair as bw
+    from npairloss_tpu_torch.ops import npair_loss as nl
+    from npairloss_tpu_torch.ops.rank_select import sortable_key
+
+    t_start = time.perf_counter()
+    mp = "default"
+    kw = {"matmul_precision": mp}
+    f, lab = unit_batch(torch, seed + 3, n, d)
+    cfg = nl.REFERENCE_CONFIG
+    out = {"n": n, "d": d}
+
+    def run(**kw2):
+        x = f.clone().requires_grad_()
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, aux = bw.blockwise_npair_loss_with_aux(x, lab, cfg, **kw, **kw2)
+        loss.backward()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        return (loss.detach(), aux, x.grad, wall,
+                {k: v for k, v in _build.launch_counts().items() if v})
+
+    on = run(sim_cache=True)
+    for tag, other in (("cache off", run(sim_cache=False)),
+                       ("pos_topk 0", run(sim_cache=True, pos_topk=0))):
+        if not (torch.equal(on[0], other[0]) and torch.equal(on[2], other[2])
+                and all(torch.equal(on[1][k], other[1][k]) for k in on[1])):
+            fail(f"stretch bf16: {tag} differs from cache on, pos_topk 8")
+        out[f"wall_ms_{tag.replace(' ', '_')}"] = other[3]
+    if not (math.isfinite(on[0].item()) and bool(torch.isfinite(on[2]).all())):
+        fail("stretch bf16: non-finite loss or gradient")
+    out.update(loss=on[0].item(), wall_ms_cache_on=on[3], launches=on[4])
+    log(f"[stretch-bf16] N={n} D={d} reference: cache on = off and "
+        f"pos_topk 8 = 0 bit for bit; {json.dumps(out)}")
+    del on
+
+    big = 4096
+    splits = bw.pool_splits(n, n, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    _, _, res = bw._forward(f, lab, cfg, 512, 512, True, 8, mp)
+    thr = (res["pos_thr"], res["neg_thr"], res["max_all"])
+    valid = torch.ones(n, device="cuda")
+    g = torch.ones((), device="cuda")
+    fk = bw.round_bf16(f)
+    fr = nl.bf16_round(f)
+    if not torch.equal(fk.view(torch.int32), fr.view(torch.int32)):
+        fail("stretch bf16: round_bf16 differs from .to(torch.bfloat16)")
+    rest = (*thr, res["ident_sum"], res["all_sum"], valid, g, cfg)
+    gargs, pargs = (fk, lab, fk, lab, *rest), (f, lab, f, lab, *rest)
+    st_kw = dict(hist_same=True, topk=8, emit_sims=True, **kw)
+    st = bw.npair_stats(fk, lab, fk, lab, **st_kw)
+    _same_bits(torch, st, bw.npair_stats(fk, lab, fk, lab, **st_kw),
+               "stretch bf16 npair_stats")
+    sims = st.sims
+    errs = {"sims_vs_cublas": (sims - fr @ fr.T).abs().max().item()}
+    if not errs["sims_vs_cublas"] <= 1e-5:
+        fail(f"stretch bf16: emitted sims off cuBLAS by {errs}")
+    pst = bw.stats_plain(f, lab, f, lab, hist_same=True, topk=8, sims=sims,
+                         bn=big, bm=big, **kw)
+    for name in bw.Stats._fields[:8]:
+        a, b = getattr(st, name), getattr(pst, name)
+        if (a is None) != (b is None) or (a is not None
+                                          and not torch.equal(a, b)):
+            fail(f"stretch bf16 npair_stats: {name} differs from the plain "
+                 "sweep on the kernel's sims")
+    del pst
+    pre = [sortable_key(sims[:, 1]) >> 28]  # digit-1 prefixes of real pairs
+    hist_args = (fk, lab, fk, lab, [True, False], pre * 2, 1)
+    h_c = bw.npair_hist(*hist_args, sims=sims, **kw)
+    h_r = bw.npair_hist(*hist_args, **kw)
+    h_p = bw.hist_plain(f, lab, f, lab, *hist_args[4:], sims=sims, bn=big,
+                        bm=big, **kw)
+    _same_bits(torch, h_c, bw.npair_hist(*hist_args, sims=sims, **kw),
+               "stretch bf16 npair_hist cached")
+    _same_bits(torch, h_r, bw.npair_hist(*hist_args, **kw),
+               "stretch bf16 npair_hist recompute")
+    if not all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(h_c, h_r, h_p)):
+        fail("stretch bf16 npair_hist: kernel, recompute and plain differ")
+    l_c = bw.npair_loss(fk, lab, fk, lab, *thr, cfg, sims=sims, **kw)
+    l_r = bw.npair_loss(fk, lab, fk, lab, *thr, cfg, **kw)
+    _same_bits(torch, l_c, bw.npair_loss(fk, lab, fk, lab, *thr, cfg,
+                                         sims=sims, **kw),
+               "stretch bf16 npair_loss")
+    _same_bits(torch, l_r, bw.npair_loss(fk, lab, fk, lab, *thr, cfg, **kw),
+               "stretch bf16 npair_loss recompute")
+    l_p = bw.loss_plain(f, lab, f, lab, *thr, cfg, sims=sims, bn=big,
+                        bm=big, splits=splits, **kw)
+    if not (all(torch.equal(a, b) for a, b in zip(l_c, l_r))
+            and torch.equal(l_c[2], l_p[2]) and torch.equal(l_c[3], l_p[3])):
+        fail("stretch bf16 npair_loss: cached, recompute and plain counts "
+             "differ")
+    errs["loss_sum_rel_err"] = max(_rel_close(l_c[0], l_p[0]),
+                                   _rel_close(l_c[1], l_p[1]))
+    if not errs["loss_sum_rel_err"] <= 1e-4:
+        fail(f"stretch bf16 npair_loss: I/D sums off by {errs}")
+    del l_p
+    for name, kern, pm in (("npair_gq", bw.npair_gq, False),
+                           ("npair_gdb", bw.npair_gdb, True)):
+        gc = kern(*gargs, sims=sims, **kw)
+        gr = kern(*gargs, **kw)
+        _same_bits(torch, gc, kern(*gargs, sims=sims, **kw),
+                   f"stretch bf16 {name} cached")
+        _same_bits(torch, gr, kern(*gargs, **kw),
+                   f"stretch bf16 {name} recompute")
+        gp = bw.grad_plain(*pargs, pm, sims=sims, bn=big, bm=big, **kw)
+        errs[f"{name}_err"] = ((gc - gp).abs().max()
+                               / gp.abs().max().clamp_min(1e-30)).item()
+        if not torch.equal(gc, gr) or not errs[f"{name}_err"] <= 1e-4:
+            fail(f"stretch bf16 {name}: cached/recompute differ or "
+                 f"{errs[f'{name}_err']} off the plain sweep")
+        del gc, gr, gp
+    torch.cuda.synchronize()
+    log(f"[stretch-bf16] N={n} D={d}: every kernel (cached and recompute) "
+        f"launched twice gives the same bits and agrees with its plain "
+        f"sweep on the kernel's sims: {json.dumps(errs)}")
+    out["errors"] = errs
+
+    fp32_ms = detail.get("stretch", {}).get("kernel_ms", {})
+    nm, flop = float(n) * n, 2.0 * n * n * d
+    times = {}
+    for name, fn, nbytes, ops in (
+            ("round_bf16", lambda: bw.round_bf16(f), 8 * n * d, 0.0),
+            ("npair_stats+emit", lambda: bw.npair_stats(
+                fk, lab, fk, lab, **st_kw), 4 * n * d + 4 * nm, flop),
+            ("npair_hist cached", lambda: bw.npair_hist(
+                fk, lab, fk, lab, [True], pre, 1, sims=sims, **kw), 4 * nm,
+             0.0),
+            ("npair_hist recompute", lambda: bw.npair_hist(
+                fk, lab, fk, lab, [True], pre, 1, **kw), 4 * n * d, flop),
+            ("npair_loss cached", lambda: bw.npair_loss(
+                fk, lab, fk, lab, *thr, cfg, sims=sims, **kw), 4 * nm,
+             3 * nm),
+            ("npair_loss recompute", lambda: bw.npair_loss(
+                fk, lab, fk, lab, *thr, cfg, **kw), 4 * n * d,
+             flop + 3 * nm),
+            ("npair_gq cached", lambda: bw.npair_gq(*gargs, sims=sims, **kw),
+             4 * nm + 8 * n * d, flop),
+            ("npair_gq recompute", lambda: bw.npair_gq(*gargs, **kw),
+             8 * n * d, 2 * flop),
+            ("npair_gdb cached", lambda: bw.npair_gdb(*gargs, sims=sims,
+                                                      **kw),
+             4 * nm + 8 * n * d, flop),
+            ("npair_gdb recompute", lambda: bw.npair_gdb(*gargs, **kw),
+             8 * n * d, 2 * flop)):
+        bms, by = bound_ms(nbytes, ops, "bf16")
+        times[name] = {"ms": timer.ms(fn, iters=5, warmup=1),
+                       "bound_ms": bms, "bound_by": by,
+                       "fp32_mode_ms": fp32_ms.get(name, {}).get("ms")}
+        log(f"[stretch-bf16] {name} N={n} D={d}: {json.dumps(times[name])}")
+    plain = stretch_plain_ms(torch, bw, f, lab, thr, pargs, sims, pre, cfg,
+                             splits, **kw)
+    plain["round_bf16"] = timer.ms(lambda: nl.bf16_round(f), iters=5,
+                                   warmup=1)
+    for name, ms in plain.items():
+        times[name]["plain_ms"] = ms
+    log(f"[stretch-bf16] plain sweeps, one call each (ms): "
+        f"{json.dumps(plain)}")
+    out["kernel_ms"] = times
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"[stretch-bf16] {out['wall_s']:.1f} s")
+    detail["stretch_bf16"] = out
     return out
 
 
@@ -2755,10 +3441,13 @@ def main() -> int:
     drive_resilience(torch, args.seed, detail, list_net, emb, labels,
                      dense_step_ms)
     del emb, labels
+    bn_launches = drive_bn_train(torch, args.seed, detail)
+    drive_bn_learning(torch, args.seed, detail)
     bw_rows = check_blockwise_kernels(torch, Timer(torch), detail, args.seed)
     bw_launches, bw_radix_launches, _ = drive_blockwise_train(
         torch, args.seed, detail, dense_step_ms)
     check_stretch(torch, Timer(torch), detail, args.seed)
+    check_stretch_bf16(torch, Timer(torch), detail, args.seed)
 
     def entry(name, source, replaces, rows, counter, path=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -2813,8 +3502,9 @@ def main() -> int:
     # six blockwise train steps — for npair_hist, of the --pos-topk 0
     # step, where its sweeps do the radix work (with the 8-slot buffer
     # they return at once).
-    path_120 = lambda rows, variant: [  # noqa: E731
-        r for r in rows if r["n"] == 120 and r["variant"] == variant]
+    path_120 = lambda rows, variant, mode="fp32": [  # noqa: E731
+        r for r in rows if r["n"] == 120 and r["variant"] == variant
+        and r["mode"] == mode]
     src = "npairloss_tpu_torch/csrc/npair_blockwise.cu"
     kernels += [
         entry("npair_stats", src, "npairloss_tpu/ops/pallas_npair.py:287",
@@ -2833,6 +3523,22 @@ def main() -> int:
               path_120(bw_rows["npair_gdb"], "cached"), "npair_gdb",
               bw_launches),
     ]
+    # The same five in their bf16 mode (matmul precision DEFAULT), with
+    # their bf16-mode launches in phase 5f's blockwise mxu run.
+    for name, line, variant in (
+            ("npair_stats", 287, "hist_same+topk8+emit"),
+            ("npair_hist", 355, "cached"), ("npair_loss", 388, "cached"),
+            ("npair_gq", 458, "cached"), ("npair_gdb", 483, "cached")):
+        kernels.append(entry(
+            f"{name}:bf16", src, f"npairloss_tpu/ops/pallas_npair.py:{line}",
+            path_120(bw_rows[name], variant, "bf16"), f"{name}:bf16",
+            bn_launches))
+    # The bf16 mode's operand rounding, once per loss: the cast inside the
+    # Pallas kernels' DEFAULT-precision sim tile.
+    kernels.append(entry(
+        "round_bf16", src, "npairloss_tpu/ops/pallas_npair.py:180",
+        path_120(bw_rows["round_bf16"], "N x D", "bf16"), "round_bf16",
+        bn_launches))
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         fail(f"kernels not launched on their path: {idle}")

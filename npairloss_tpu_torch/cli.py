@@ -45,6 +45,10 @@ from npairloss_tpu_torch.ops.ivf_probe import PROBE_IMPLS
 
 log = logging.getLogger("npairloss_tpu_torch")
 
+# --precision's choices: models.precision.available_policies(), pinned
+# by tests/test_torch_precision_policy.py.
+_PRECISION_CHOICES = ("bf16", "fp32_parity", "mxu")
+
 
 def _unported_model(name: str) -> Optional[str]:
     """The refusal for a trunk the port's registry lacks, else None."""
@@ -54,7 +58,7 @@ def _unported_model(name: str) -> Optional[str]:
         return None
     return (f"model {name!r} is not ported yet (have "
             f"{available_models()}): the ResNet and ViT trunks are ROADMAP "
-            "Queue 1 item 2")
+            "Queue 1 item 2 (its remainder)")
 
 
 def cmd_index(args) -> int:
@@ -253,9 +257,23 @@ def _build_solver(args, phases=()):
 
     device = resolve_device(args.device)
     seed = solver_cfg.random_seed if args.seed is None else args.seed
-    model = get_model(model_name, device=device,
-                      seed=seed, input_shape=input_shape,
-                      dtype=torch.bfloat16 if args.bf16 else torch.float32)
+    model_kw = {}
+    if getattr(args, "remat", False):
+        model_kw["remat"] = True  # GoogLeNet trunks; others refuse it
+    precision = getattr(args, "precision", None)
+    if precision:
+        # The policy names the trunk's dtypes and the loss engines' gemm
+        # precision; --bf16 is the older spelling of --precision bf16.
+        model_kw["policy"] = precision
+    else:
+        model_kw["dtype"] = torch.bfloat16 if args.bf16 else torch.float32
+    try:
+        model = get_model(model_name, device=device, seed=seed,
+                          input_shape=input_shape, **model_kw)
+    except TypeError as e:
+        log.error("model %r does not take %s: %s", model_name,
+                  "--remat" if "remat" in model_kw else "these options", e)
+        return 2
     pos_topk = getattr(args, "pos_topk", "auto")
     solver = Solver(
         model, net_cfg.loss.loss if net_cfg.loss else NPairLossConfig(),
@@ -264,7 +282,9 @@ def _build_solver(args, phases=()):
                      if net_cfg.loss and net_cfg.loss.loss_weights else 1.0),
         engine=args.engine or "dense",
         sim_cache={"auto": None, "on": True, "off": False}[args.sim_cache],
-        pos_topk=None if pos_topk == "auto" else int(pos_topk))
+        pos_topk=None if pos_topk == "auto" else int(pos_topk),
+        matmul_precision=getattr(args, "matmul_precision", None),
+        precision=precision or None)
     if args.resume:
         if args.resume == "auto":
             # The supervisor-relaunch contract: first launch and
@@ -662,6 +682,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "(auto = by size)")
         sp.add_argument("--bf16", action="store_true",
                         help="bf16 compute over fp32 params (default fp32)")
+        sp.add_argument(
+            "--precision", choices=_PRECISION_CHOICES, default=None,
+            help="declarative mixed-precision policy (models.precision): "
+            "mxu = the flagship default (bf16 compute over fp32 params, "
+            "single-pass bf16 gemms incl. the loss engines), bf16 = the "
+            "legacy --bf16 recipe as a named policy, fp32_parity = the "
+            "prototxt-parity fp32 fallback; overrides --bf16 and supplies "
+            "--matmul-precision's default")
         sp.add_argument("--resume",
                         help="snapshot path to restore, or 'auto' to scan "
                         "snapshot_prefix for the newest valid snapshot "
@@ -690,6 +718,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "(error if the native runtime cannot serve this "
                         "source)")
 
+    def train_precision_flags(sp):
+        sp.add_argument(
+            "--matmul-precision", dest="matmul_precision",
+            choices=["highest", "default"], default=None,
+            help="loss-engine gemm precision: highest = oracle bit-parity "
+            "(default), default = single-pass bf16 throughput mode")
+        sp.add_argument(
+            "--remat", action="store_true",
+            help="rematerialize inception blocks in the backward (GoogLeNet "
+            "trunks): more trunk FLOPs for much lower activation memory; "
+            "numerically identical")
+
     def pos_topk_flag(sp):
         sp.add_argument("--pos-topk", dest="pos_topk", default="auto",
                         metavar="K", type=_pos_topk_arg,
@@ -703,6 +743,7 @@ def build_parser() -> argparse.ArgumentParser:
     model_flags(tr)
     data_flags(tr)
     pos_topk_flag(tr)
+    train_precision_flags(tr)
     tr.add_argument("--max_iter", type=int, help="override solver max_iter")
     tr.add_argument("--snapshot_prefix", help="override snapshot prefix")
     tr.add_argument("--snapshot-keep", dest="snapshot_keep", type=int,
@@ -764,6 +805,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(the caffe time action)")
     model_flags(tm, solver_required=False)
     pos_topk_flag(tm)
+    train_precision_flags(tm)
     tm.add_argument("--iterations", type=int, default=10,
                     help="calls per timed stage (caffe time -iterations)")
     geom = tm.add_mutually_exclusive_group()

@@ -10,6 +10,17 @@
 //   npair_grad_kernel<query-major> <- _make_gq_kernel (:458), _run_bwd (:683)
 //   npair_grad_kernel<pool-major>  <- _make_gdb_kernel (:483), _run_bwd (:683)
 //
+// The single-pass bf16 mode (the Pallas kernels' matmul precision
+// DEFAULT, pallas_npair.py:170-186, :473-478, :498-503): every product
+// reads bf16-rounded operands and accumulates in fp32.  The caller
+// rounds the features once per loss (npl_round_bf16: round to nearest
+// even, widened back to fp32), and the fp32 loops then run on them: a
+// product of two bf16 values is exact in fp32, so each chain computes
+// "bf16 multiply, fp32 accumulate".  So stats, hist and loss are the
+// same kernels in both modes; gq and gdb also round their weight tile
+// w, which never leaves the kernel, where it is stored
+// (npair_grad_kernel<..., kBf16>).
+//
 // Bound on an H100 SXM (67 TFLOP/s fp32 on the FMA pipes, 3.35 TB/s
 // HBM).  Every sweep that recomputes its sims does 2 N M D flop and is
 // bound by operations (N = M = 32768, D = 512: 16.4 ms); gq and gdb add
@@ -148,6 +159,32 @@ constexpr int kCStages = 5;        // cached hist/loss: ring depth
 
 // MiningMethod (ops/npair_loss.py).
 enum Method { HARD = 0, EASY = 1, RAND = 2, RELATIVE_HARD = 3, RELATIVE_EASY = 4 };
+
+// x rounded to bf16 (round to nearest even) and widened back.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// dst[i] = bf16_round(src[i]) for i < count, 16 bytes at a time where
+// both are 16-byte aligned and count % 4 == 0, one element at a time
+// otherwise.
+__global__ void __launch_bounds__(256) round_bf16_kernel(
+    const float* __restrict__ src, float* __restrict__ dst, long long count,
+    int vec) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (vec) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (; i < count / 4; i += stride) {
+      const float4 v = s4[i];
+      d4[i] = make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z),
+                          bf16_round(v.w));
+    }
+  } else {
+    for (; i < count; i += stride) dst[i] = bf16_round(src[i]);
+  }
+}
 
 __device__ __forceinline__ unsigned sortable_key(float v) {
   const unsigned u = __float_as_uint(v);
@@ -957,8 +994,10 @@ __host__ __device__ constexpr size_t grad_smem_bytes() {
 // rows [s kBT / kS, (s+1) kBT / kS) of every weight tile, which it
 // stores into every rank's double-buffered tile (distributed shared
 // memory stores do not wait); one cluster barrier per other tile then
-// makes the whole tile visible everywhere.
-template <bool kCached, int kS>
+// makes the whole tile visible everywhere.  kBf16: each weight is
+// rounded to bf16 before it is stored (the bf16 mode; the operands come
+// rounded already).
+template <bool kCached, int kS, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1) npair_grad_kernel(
     const float* __restrict__ feats, const int* __restrict__ labels,
     const float* __restrict__ pool, const int* __restrict__ pool_labels,
@@ -1078,7 +1117,9 @@ __global__ void __launch_bounds__(kThreads, 1) npair_grad_kernel(
     const int i = pm ? sr0 + r : x0 + c;
     const Pair p = pair_bits(q, i, pm ? xl[c] : olab[r],
                              pm ? olab[r] : xl[c], f32, n, m, self_offset);
-    return pair_weight(v, p, ap, an, pm ? xq[c] : oqt[r]);
+    const float w = pair_weight(v, p, ap, an, pm ? xq[c] : oqt[r]);
+    if constexpr (kBf16) return bf16_round(w);
+    return w;
   };
   // The next tile's labels and terms, from the raw rows its first slice
   // brought, into buffer b.
@@ -1364,7 +1405,7 @@ int launch_loss(const float* feats, const int* labels, const float* pool,
 // stage, and the recompute variant's rows stay 2 or 1 per thread).
 inline int grad_cluster(int d) { return (d + kBT - 1) / kBT <= 4 ? 4 : 8; }
 
-template <bool kCached, int kS>
+template <bool kCached, int kS, bool kBf16>
 int launch_grad_s(const float* feats, const int* labels, const float* pool,
                   const int* pool_labels, int label_f32, int pool_major,
                   const float* sims, int n, int m, int d, int self_offset,
@@ -1374,13 +1415,14 @@ int launch_grad_s(const float* feats, const int* labels, const float* pool,
                   const float* g, float* out, cudaStream_t s) {
   const dim3 grid(kS, tiles128(pool_major ? m : n));
   return static_cast<int>(launch_cluster(
-      npair_grad_kernel<kCached, kS>, grid, kS, grad_smem_bytes<kCached, kS>(),
+      npair_grad_kernel<kCached, kS, kBf16>, grid, kS,
+      grad_smem_bytes<kCached, kS>(),
       s, feats, labels, pool, pool_labels, label_f32, pool_major, sims, n, m,
       d, self_offset, ap, an, mi, md, pos_thr, neg_thr, max_all, isum, asum,
       valid, g, out));
 }
 
-template <bool kCached>
+template <bool kCached, bool kBf16>
 int launch_grad(const float* feats, const int* labels, const float* pool,
                 const int* pool_labels, int label_f32, int pool_major,
                 const float* sims, int n, int m, int d, int self_offset,
@@ -1389,7 +1431,7 @@ int launch_grad(const float* feats, const int* labels, const float* pool,
                 const float* isum, const float* asum, const float* valid,
                 const float* g, float* out, cudaStream_t s) {
 #define NPL_GRAD_S(S)                                                       \
-  return launch_grad_s<kCached, S>(                                         \
+  return launch_grad_s<kCached, S, kBf16>(                                  \
       feats, labels, pool, pool_labels, label_f32, pool_major, sims, n, m,  \
       d, self_offset, ap, an, mi, md, pos_thr, neg_thr, max_all, isum, asum, \
       valid, g, out, s)
@@ -1479,27 +1521,52 @@ int npl_npair_loss(const void* feats, const void* labels, const void* pool,
 }
 
 // pool_major = 0: gq [n, d] = w @ pool; 1: gdb [m, d] = w^T @ feats.
+// bf16 = 1: each weight is rounded to bf16 before its product (the bf16
+// mode; feats and pool come rounded).
 int npl_npair_grad(const void* feats, const void* labels, const void* pool,
                    const void* pool_labels, const void* sims, int n, int m,
                    int d, int self_offset, int label_f32, int ap, int an,
                    float margin_ident, float margin_diff, const void* pos_thr,
                    const void* neg_thr, const void* max_all, const void* isum,
                    const void* asum, const void* valid, const void* g,
-                   int pool_major, void* out, void* stream) {
+                   int pool_major, void* out, int bf16, void* stream) {
   if (bad_dims(n, m, d) || d % 4 != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto li = [](const void* p) { return static_cast<const int*>(p); };
   float* o = static_cast<float*>(out);
-#define NPL_GRAD(C)                                                          \
-  return launch_grad<C>(f(feats), li(labels), f(pool), li(pool_labels),      \
-                        label_f32, pool_major, f(sims), n, m, d, self_offset, \
-                        ap, an, margin_ident, margin_diff, f(pos_thr),       \
-                        f(neg_thr), f(max_all), f(isum), f(asum), f(valid),  \
-                        f(g), o, s)
-  if (sims != nullptr) NPL_GRAD(true);
-  NPL_GRAD(false);
+#define NPL_GRAD(C, B)                                                       \
+  return launch_grad<C, B>(f(feats), li(labels), f(pool), li(pool_labels),   \
+                           label_f32, pool_major, f(sims), n, m, d,          \
+                           self_offset, ap, an, margin_ident, margin_diff,   \
+                           f(pos_thr), f(neg_thr), f(max_all), f(isum),      \
+                           f(asum), f(valid), f(g), o, s)
+  if (sims != nullptr) {
+    if (bf16) NPL_GRAD(true, true);
+    NPL_GRAD(true, false);
+  }
+  if (bf16) NPL_GRAD(false, true);
+  NPL_GRAD(false, false);
 #undef NPL_GRAD
+}
+
+// dst [count] = src rounded to bf16 (round to nearest even) and widened
+// back to fp32: the bf16 mode's operands, once per loss.
+int npl_round_bf16(const void* src, void* dst, long long count,
+                   void* stream) {
+  if (count < 0) return cudaErrorInvalidValue;
+  if (count == 0) return cudaSuccess;
+  const float* x = static_cast<const float*>(src);
+  float* y = static_cast<float*>(dst);
+  const int vec = count % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const long long work = vec ? count / 4 : count;
+  const long long want = (work + 255) / 256;
+  const int blocks = static_cast<int>(want < 132 * 8 ? want : 132 * 8);
+  round_bf16_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(
+                                               stream)>>>(x, y, count, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

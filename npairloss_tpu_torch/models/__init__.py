@@ -1,12 +1,18 @@
-"""Embedding model zoo of the port — ``get_model(name)`` mirrors
-``npairloss_tpu.models.get_model`` for the trunks ported so far: the
-GoogLeNet bias/LRN trunks and the MLP smoke model.  Without a precision
-policy the JAX GoogLeNet computes in bf16 over fp32 parameters and the
-MLP in fp32, and so do these."""
+"""Embedding model zoo of the port — ``get_model(name, policy=...)``
+mirrors ``npairloss_tpu.models.get_model`` for the trunks ported so far:
+the GoogLeNet bias/LRN trunks, Inception-BN (``googlenet_bn``,
+``inception_bn``, ``googlenet_bn_s2d``) and the MLP smoke model.
+Without a precision policy the JAX GoogLeNet computes in bf16 over fp32
+parameters and the MLP in fp32, and so do these.  A policy
+(``models.precision``: ``"mxu"``, ``"bf16"``, ``"fp32_parity"`` or a
+``PrecisionPolicy``) supplies the default compute dtype, and the
+GoogLeNet trunks (``_POLICY_AWARE``) resolve it per module.  The
+flagship pair is ``googlenet_mxu`` under ``"mxu"`` (``FLAGSHIP_TRUNK``,
+``FLAGSHIP_POLICY``), as in JAX."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -14,16 +20,41 @@ import torch
 from npairloss_tpu_torch.device import DeviceLike, resolve_device
 from npairloss_tpu_torch.models.googlenet import GoogLeNetEmbedding
 from npairloss_tpu_torch.models.mlp import MLPEmbedding
+from npairloss_tpu_torch.models.precision import (
+    DEFAULT_POLICY,
+    PrecisionPolicy,
+    get_policy,
+)
+
+FLAGSHIP_TRUNK = "googlenet_mxu"
+FLAGSHIP_POLICY = DEFAULT_POLICY
 
 _REGISTRY: Dict[str, Callable[..., torch.nn.Module]] = {
     "googlenet": GoogLeNetEmbedding,
+    "googlenet_embedding": GoogLeNetEmbedding,
+    # Inception-BN: BatchNorm after every conv, no LRN — the trunk that
+    # trains from scratch.
+    "googlenet_bn": lambda **kw: GoogLeNetEmbedding(use_bn=True, **kw),
+    "inception_bn": lambda **kw: GoogLeNetEmbedding(use_bn=True, **kw),
+    "googlenet_bn_s2d": lambda **kw: GoogLeNetEmbedding(
+        use_bn=True, stem_s2d=True, **kw),
     "googlenet_s2d": lambda **kw: GoogLeNetEmbedding(stem_s2d=True, **kw),
     "googlenet_fused": lambda **kw: GoogLeNetEmbedding(fuse_1x1=True, **kw),
     "googlenet_mxu": lambda **kw: GoogLeNetEmbedding(
         stem_s2d=True, fuse_1x1=True, **kw),
     "googlenet_pallas": lambda **kw: GoogLeNetEmbedding(
         stem_s2d=True, fuse_1x1=True, pallas_stem=True, **kw),
+    # Resolved through FLAGSHIP_TRUNK at call time.
+    "flagship": lambda **kw: _REGISTRY[FLAGSHIP_TRUNK](**kw),
     "mlp": MLPEmbedding,
+}
+
+# Registry names whose trunks take the policy object and resolve it per
+# module; the rest honour its compute dtype only.
+_POLICY_AWARE = {
+    "googlenet", "googlenet_embedding", "googlenet_bn", "inception_bn",
+    "googlenet_s2d", "googlenet_bn_s2d", "googlenet_fused",
+    "googlenet_mxu", "googlenet_pallas", "flagship",
 }
 
 
@@ -33,16 +64,24 @@ def available_models():
 
 def get_model(name: str, *, device: DeviceLike = None, seed: int = 0,
               input_shape: Optional[Sequence[int]] = None,
+              policy: Optional[Union[str, PrecisionPolicy]] = None,
               **kwargs) -> torch.nn.Module:
     """Build ``name`` on ``device`` (default: the card) in eval mode,
-    initialized from ``seed``.  ``dtype`` defaults to bf16 for the
-    GoogLeNet trunks and fp32 for ``mlp``, as in JAX.  ``mlp`` needs
-    ``input_shape`` (one example's shape) for its first layer's width,
-    which flax infers at init."""
+    initialized from ``seed``.  ``dtype`` defaults to the policy's
+    compute dtype, else bf16 for the GoogLeNet trunks and fp32 for
+    ``mlp``, as in JAX.  ``mlp`` needs ``input_shape`` (one example's
+    shape) for its first layer's width, which flax infers at init.  An
+    option a trunk lacks (``remat=True`` for ``mlp``) raises
+    ``TypeError``."""
     key = name.lower()
     if key not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; have {available_models()}")
     dev = resolve_device(device)
+    if policy is not None:
+        pol = get_policy(policy)
+        kwargs.setdefault("dtype", pol.compute_dtype)
+        if key in _POLICY_AWARE:
+            kwargs["policy"] = pol
     if key == "mlp":
         if input_shape is None:
             raise ValueError("get_model('mlp') needs input_shape")
@@ -52,6 +91,12 @@ def get_model(name: str, *, device: DeviceLike = None, seed: int = 0,
     model = _REGISTRY[key](**kwargs)
     model.reset_parameters(seed)
     return model.to(dev).eval()
+
+
+def flagship_model(policy: Optional[Union[str, PrecisionPolicy]] =
+                   FLAGSHIP_POLICY, **kwargs) -> torch.nn.Module:
+    """The flagship trunk under the default (or given) policy."""
+    return get_model(FLAGSHIP_TRUNK, policy=policy, **kwargs)
 
 
 def model_for_net(net_cfg) -> str:

@@ -11,14 +11,25 @@ copies of the JAX package's ``conv1_kernel_to_s2d`` and
 ``fuse_inception_1x1_params``.  The MLP's ``Dense`` kernels are (in,
 out) in flax and (out, in) as ``nn.Linear`` weights.
 
+BN trunks carry a second tree, flax's ``batch_stats``
+(``{block: {"BatchNorm_0": {"mean", "var"}}}``): the BatchNorm's
+``scale``/``bias`` are parameters and its running ``mean``/``var`` are
+the module's buffers of those names.  Every converter takes and returns
+it beside the params (``from_jax_params``, ``load_jax_params``,
+``to_jax_params(with_batch_stats=True)``), and ``adapt_params``'s fused
+1x1 layout concatenates the statistics too, as JAX's
+``fuse_inception_1x1_params`` does.
+
 A weights file (``serve --weights W.npz``, ``train --weights W.npz``)
-is the flattened tree: one array per ``"/"``-joined path.
+is the flattened tree: one array per ``"/"``-joined path; a file with
+running statistics holds the wrapped ``{"params", "batch_stats"}`` form
+the JAX CLI reads (``params/...`` and ``batch_stats/...`` paths).
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +71,8 @@ def unflatten_params(flat: Mapping[str, Any]) -> Dict[str, Any]:
 def fuse_inception_1x1_params(params: Mapping[str, Any]) -> Dict[str, Any]:
     """Plain-trunk tree -> the ``fuse_1x1`` layout: each block's b1x1,
     b3x3_reduce and b5x5_reduce leaves concatenated on the output axis
-    (in that order) under ``fused_1x1``.  Exact."""
+    (in that order) under ``fused_1x1``.  Exact; a ``batch_stats`` tree
+    converts the same way (its leaves are per output channel too)."""
     out: Dict[str, Any] = {}
     for block, sub in params.items():
         if not block.startswith("inception_") or "b1x1" not in sub:
@@ -79,82 +91,137 @@ def fuse_inception_1x1_params(params: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _split_variables(tree: Mapping[str, Any]
+                    ) -> Tuple[Mapping[str, Any], Optional[Mapping[str, Any]]]:
+    """(params, batch_stats or None) of a bare params tree or of the
+    wrapped ``{"params", "batch_stats"}`` form."""
+    if tree and set(tree) <= {"params", "batch_stats"} and "params" in tree:
+        return tree["params"], tree.get("batch_stats") or None
+    return tree, None
+
+
+def _has_fused(tree: Mapping[str, Any]) -> bool:
+    return any("fused_1x1" in v for k, v in tree.items()
+               if k.startswith("inception_"))
+
+
 def adapt_params(params: Mapping[str, Any], stem_s2d: bool,
                  fuse_1x1: bool) -> Dict[str, Any]:
     """Convert a plain-layout tree to the layout a trunk expects (a tree
-    already in that layout passes through)."""
+    already in that layout passes through).  Only the stem kernel
+    changes under ``stem_s2d``; a BN stem keeps its ``BatchNorm_0``."""
     tree = dict(params)
     kernel = np.asarray(tree["conv1"]["Conv_0"]["kernel"])
     if stem_s2d and kernel.shape[:2] == (7, 7):
-        tree["conv1"] = {"Conv_0": {
-            "kernel": conv1_kernel_to_s2d(kernel),
-            "bias": np.asarray(tree["conv1"]["Conv_0"]["bias"]),
-        }}
+        conv1 = dict(tree["conv1"])
+        conv1["Conv_0"] = dict(conv1["Conv_0"],
+                               kernel=conv1_kernel_to_s2d(kernel))
+        tree["conv1"] = conv1
     elif not stem_s2d and kernel.shape[:2] != (7, 7):
         raise ValueError("a space-to-depth stem kernel cannot feed the "
                          "plain 7x7 stem")
-    if fuse_1x1:
-        tree = fuse_inception_1x1_params(tree)
-    elif any("fused_1x1" in v for k, v in tree.items()
-             if k.startswith("inception_")):
+    return _adapt_1x1(tree, fuse_1x1)
+
+
+def _adapt_1x1(tree: Mapping[str, Any], fuse_1x1: bool) -> Dict[str, Any]:
+    if fuse_1x1 and not _has_fused(tree):
+        return fuse_inception_1x1_params(tree)
+    if not fuse_1x1 and _has_fused(tree):
         raise ValueError("fused 1x1 weights cannot feed an unfused trunk")
-    return tree
+    return dict(tree)
 
 
-def from_jax_params(params: Mapping[str, Any]) -> "collections.OrderedDict":
+def _leaf_key(path: str, arr: np.ndarray, buffers: bool):
+    """(state_dict key, torch array) of one flax leaf."""
+    parts = path.split("/")
+    leaf = parts[-1]
+    base = ".".join(parts[:-1])
+    a = np.asarray(arr, np.float32)
+    if buffers:
+        if leaf not in ("mean", "var"):
+            raise ValueError(f"{path}: unknown batch_stats leaf {leaf!r}")
+        return f"{base}.{leaf}", a.copy()
+    if leaf == "kernel":
+        if a.ndim == 4:    # conv: HWIO -> OIHW
+            a = a.transpose(3, 2, 0, 1)
+        elif a.ndim == 2:  # Dense: (in, out) -> Linear (out, in)
+            a = a.T
+        else:
+            raise ValueError(f"{path}: expected an HWIO or (in, out) "
+                             f"kernel, got {a.shape}")
+        return f"{base}.weight", np.ascontiguousarray(a)
+    if leaf in ("bias", "scale"):
+        return f"{base}.{leaf}", a.copy()
+    raise ValueError(f"{path}: unknown parameter leaf {leaf!r}")
+
+
+def from_jax_params(params: Mapping[str, Any],
+                    batch_stats: Optional[Mapping[str, Any]] = None
+                    ) -> "collections.OrderedDict":
     """Flax param tree (numpy leaves) -> a state_dict: HWIO kernels
-    become OIHW ``weight``s, biases carry over."""
+    become OIHW ``weight``s, biases and BatchNorm scales carry over, and
+    ``batch_stats``' running ``mean``/``var`` become the buffers of
+    those names."""
     sd: "collections.OrderedDict[str, torch.Tensor]" = \
         collections.OrderedDict()
-    for path, arr in flatten_params(params).items():
-        parts = path.split("/")
-        leaf = parts[-1]
-        base = ".".join(parts[:-1])
-        a = np.asarray(arr, np.float32)
-        if leaf == "kernel":
-            if a.ndim == 4:    # conv: HWIO -> OIHW
-                a = a.transpose(3, 2, 0, 1)
-            elif a.ndim == 2:  # Dense: (in, out) -> Linear (out, in)
-                a = a.T
-            else:
-                raise ValueError(f"{path}: expected an HWIO or (in, out) "
-                                 f"kernel, got {a.shape}")
-            sd[f"{base}.weight"] = torch.from_numpy(np.ascontiguousarray(a))
-        elif leaf == "bias":
-            sd[f"{base}.bias"] = torch.from_numpy(a.copy())
-        else:
-            raise ValueError(f"{path}: unknown parameter leaf {leaf!r}")
+    for tree, buffers in ((params, False), (batch_stats or {}, True)):
+        for path, arr in flatten_params(tree).items():
+            key, a = _leaf_key(path, arr, buffers)
+            sd[key] = torch.from_numpy(a)
     return sd
 
 
-def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any]
+def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any],
+                    batch_stats: Optional[Mapping[str, Any]] = None
                     ) -> torch.nn.Module:
-    """Load a flax tree (any GoogLeNet layout, or the MLP's) into
-    ``model`` in place."""
-    tree = params
+    """Load a flax tree (any GoogLeNet layout, or the MLP's; bare or
+    wrapped with its ``batch_stats``) into ``model`` in place.  Without
+    ``batch_stats`` a BN trunk keeps its running statistics, as JAX's
+    ``Solver.load_params`` does."""
+    tree, wrapped_stats = _split_variables(params)
+    if batch_stats is None:
+        batch_stats = wrapped_stats
     if hasattr(model, "stem_s2d"):
-        tree = adapt_params(params, model.stem_s2d, model.fuse_1x1)
-    model.load_state_dict(from_jax_params(tree), strict=True)
+        tree = adapt_params(tree, model.stem_s2d, model.fuse_1x1)
+        if batch_stats is not None:
+            batch_stats = _adapt_1x1(batch_stats, model.fuse_1x1)
+    sd = from_jax_params(tree, batch_stats)
+    buffers = dict(model.named_buffers())
+    missing = [k for k in model.state_dict() if k not in sd]
+    if batch_stats is None and all(k in buffers for k in missing):
+        sd.update({k: buffers[k] for k in missing})
+    model.load_state_dict(sd, strict=True)
     return model
 
 
-def to_jax_params(model: torch.nn.Module) -> Dict[str, Any]:
+def to_jax_params(model: torch.nn.Module, with_batch_stats: bool = False):
     """The inverse of :func:`from_jax_params` for the model's own layout:
-    a flax-style tree with numpy leaves (OIHW -> HWIO, Linear -> (in,
-    out))."""
+    a flax-style params tree with numpy leaves (OIHW -> HWIO, Linear ->
+    (in, out)); with ``with_batch_stats``, ``(params, batch_stats)``
+    (``batch_stats`` None for a trunk without running statistics)."""
     flat: Dict[str, np.ndarray] = {}
+    stats: Dict[str, np.ndarray] = {}
+    buffers = {k for k, _ in model.named_buffers()}
     for key, t in model.state_dict().items():
         path, leaf = key.rsplit(".", 1)
         a = t.detach().float().cpu().numpy()
+        if key in buffers:
+            stats[path.replace(".", "/") + "/" + leaf] = a.copy()
+            continue
         if leaf == "weight":
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
             leaf = "kernel"
         flat[path.replace(".", "/") + "/" + leaf] = np.ascontiguousarray(a)
-    return unflatten_params(flat)
+    params = unflatten_params(flat)
+    if not with_batch_stats:
+        return params
+    return params, (unflatten_params(stats) if stats else None)
 
 
 def read_weights_npz(path: str) -> Dict[str, Any]:
-    """The flax param tree of a weights file (numpy leaves)."""
+    """The flax tree of a weights file (numpy leaves): a bare params
+    tree, or the wrapped ``{"params", "batch_stats"}`` form, which
+    ``load_jax_params`` takes as it is."""
     with np.load(path) as f:
         return unflatten_params({k: f[k] for k in f.files})
 
@@ -163,5 +230,10 @@ def load_weights_npz(model: torch.nn.Module, path: str) -> torch.nn.Module:
     return load_jax_params(model, read_weights_npz(path))
 
 
-def save_weights_npz(params: Mapping[str, Any], path: str) -> None:
+def save_weights_npz(params: Mapping[str, Any], path: str,
+                     batch_stats: Optional[Mapping[str, Any]] = None
+                     ) -> None:
+    """Write a params tree, wrapped with its ``batch_stats`` when given."""
+    if batch_stats is not None:
+        params = {"params": params, "batch_stats": batch_stats}
     np.savez(path, **flatten_params(params))

@@ -11,6 +11,7 @@ with ``F.pad``: zeros for convolutions, -inf for max-pooling.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from npairloss_tpu_torch.models.precision import module_precision
 from npairloss_tpu_torch.ops.stem import (
     fused_bias_relu,
     fused_bias_relu_pool,
@@ -69,39 +71,130 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
     return y.permute(0, 2, 3, 1)
 
 
+class BatchNorm(nn.Module):
+    """BatchNorm over the channel axis of NHWC input, held to flax's
+    ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``, not to
+    ``nn.BatchNorm2d``: statistics in at least fp32 (fp64 stays fp64); the
+    fast variance E[x^2] - E[x]^2 clipped at 0; the biased variance both
+    to normalize and in the running update ``ra = 0.9 ra + 0.1 batch``;
+    output ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` cast to
+    ``dtype``.  Parameters ``scale`` (init 1) and ``bias`` (init 0),
+    buffers ``mean`` (init 0) and ``var`` (init 1), as the flax tree
+    names them; no ``num_batches_tracked``.
+
+    In training mode the running statistics update once per forward,
+    except inside :func:`no_stat_update` (a block's recompute under
+    remat)."""
+
+    momentum = 0.9
+    epsilon = 1e-5
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def reset_parameters(self) -> None:
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+        self.mean.zero_()
+        self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(_at_least_f32(x.dtype))
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=axes)
+            var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean,
+                                  0.0)
+            if not _STAT_UPDATE_OFF[0]:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                    self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.scale.to(xf.dtype)
+        y = (xf - mean) * mul + self.bias.to(xf.dtype)
+        return y.to(self.dtype)
+
+
+def _at_least_f32(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+# Set while a remat'd block recomputes its forward in the backward pass:
+# the running statistics were updated by the first forward already.
+_STAT_UPDATE_OFF = [False]
+
+
+@contextlib.contextmanager
+def no_stat_update():
+    """BatchNorm running statistics stay as they are inside."""
+    prev = _STAT_UPDATE_OFF[0]
+    _STAT_UPDATE_OFF[0] = True
+    try:
+        yield
+    finally:
+        _STAT_UPDATE_OFF[0] = prev
+
+
 class ConvBlock(nn.Module):
     """Conv + bias + ReLU with Caffe 'xavier' init (bias 0.2), computed
     in ``dtype`` over fp32 parameters.  The parameter lives at
     ``Conv_0`` like the flax module's, so weights carry across by name.
 
+    ``use_bn=True`` is the Inception-BN block: conv without bias, then
+    :class:`BatchNorm` (``BatchNorm_0``), then ReLU.  ``policy`` (a
+    ``models.precision.PrecisionPolicy``) resolves the block's parameter
+    and compute dtypes against ``path``, its flax module path
+    (``"inception_3a/b1x1"``); without one the block computes in
+    ``dtype`` over fp32 parameters.
+
     ``fused_epilogue`` runs the conv without bias and hands the bias +
     ReLU to the stem kernel's autograd Function (gradients reach the
     conv's weight and bias through its backward); ``fuse_pool=(window,
     stride)`` folds the following SAME max-pool into the same kernel (the
-    caller then skips its own pool)."""
+    caller then skips its own pool).  A BN block has no bias and ignores
+    both, as in JAX."""
 
     def __init__(self, in_features: int, features: int,
                  kernel: Tuple[int, int], strides: Tuple[int, int] = (1, 1),
                  padding: Padding = "SAME",
                  dtype: torch.dtype = torch.float32,
                  fused_epilogue: bool = False,
-                 fuse_pool: Optional[Tuple[int, int]] = None):
+                 fuse_pool: Optional[Tuple[int, int]] = None,
+                 use_bn: bool = False, policy=None, path: str = ""):
         super().__init__()
+        self.mp = module_precision(policy, path, dtype)
         self.Conv_0 = nn.Conv2d(in_features, features, kernel, strides,
-                                bias=True)
+                                bias=not use_bn).to(self.mp.param_dtype)
+        if use_bn:
+            self.BatchNorm_0 = BatchNorm(features, self.mp.compute_dtype)
+        self.use_bn = use_bn
+        self.path = path
         self.strides = tuple(strides)
         self.padding = padding
-        self.dtype = dtype
-        self.fused_epilogue = fused_epilogue
+        self.dtype = self.mp.compute_dtype
+        self.fused_epilogue = fused_epilogue and not use_bn
         self.fuse_pool = fuse_pool
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.xavier_uniform_(self.Conv_0.weight, generator=generator)
-        nn.init.constant_(self.Conv_0.bias, 0.2)
+        if self.use_bn:
+            self.BatchNorm_0.reset_parameters()
+        else:
+            nn.init.constant_(self.Conv_0.bias, 0.2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.Conv_0.weight.to(self.dtype)
         x = x.to(self.dtype)
+        if self.use_bn:
+            y = conv2d_nhwc(x, w, None, self.strides, self.padding)
+            return F.relu(self.BatchNorm_0(y))
         if self.fused_epilogue:
             y = conv2d_nhwc(x, w, None, self.strides,
                             self.padding).contiguous()
@@ -161,5 +254,6 @@ def max_pool(x: torch.Tensor, window: int = 3,
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """Mean over H, W, summed in fp32 and returned in x's type."""
-    return x.float().mean(dim=(1, 2)).to(x.dtype)
+    """Mean over H, W, summed in at least fp32 and returned in x's
+    type."""
+    return x.to(_at_least_f32(x.dtype)).mean(dim=(1, 2)).to(x.dtype)

@@ -15,7 +15,9 @@ entry returns ``cudaGetLastError()`` after its launch and
 
 Each kernel wrapper carries a plain integer ``launches`` attribute,
 incremented where it launches its kernel and nowhere else; a run reads
-them with :func:`launch_counts` to show which kernels the path used.
+them with :func:`launch_counts` to show which kernels the path used.  A
+wrapper that also carries ``bf16_launches`` (the blockwise sweeps, in
+their bf16 mode) is read there as ``<name>:bf16`` too.
 """
 
 from __future__ import annotations
@@ -70,9 +72,11 @@ _SIGNATURES = {
     # stream
     "npl_npair_loss": [_VP] * 5 + [_I] * 7 + [_F, _F] + [_VP] * 8,
     # ..., margin_diff, pos_thr, neg_thr, max_all, isum, asum, valid, g,
-    # pool_major, out, stream
+    # pool_major, out, bf16, stream
     "npl_npair_grad": [_VP] * 5 + [_I] * 7 + [_F, _F] + [_VP] * 7
-                      + [_I, _VP, _VP],
+                      + [_I, _VP, _I, _VP],
+    # src, dst, count, stream
+    "npl_round_bf16": [_VP, _VP, _LL, _VP],
 }
 
 _lock = threading.Lock()
@@ -91,12 +95,17 @@ def counted(fn: Callable) -> Callable:
 
 
 def launch_counts() -> Dict[str, int]:
-    return {fn.__name__: fn.launches for fn in _counted}
+    counts = {fn.__name__: fn.launches for fn in _counted}
+    counts.update({f"{fn.__name__}:bf16": fn.bf16_launches
+                   for fn in _counted if hasattr(fn, "bf16_launches")})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in _counted:
         fn.launches = 0
+        if hasattr(fn, "bf16_launches"):
+            fn.bf16_launches = 0
 
 
 def _nvcc() -> str:

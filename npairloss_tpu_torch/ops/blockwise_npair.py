@@ -28,6 +28,18 @@ The loss sweep's I/D sums follow the kernel's summation order
 (``chain_sums``) on both devices, so the CPU and the card differ only by
 their exp.
 
+``matmul_precision="default"`` is the Pallas kernels' single-pass bf16
+mode: every product reads feats and pool rounded to bf16 (round to
+nearest even) and accumulates in fp32, and gq/gdb round their weight
+tile too.  The engine rounds the features once per loss
+(``round_bf16``, one launch on the card) and hands the rounded rows to
+every sweep; on the card stats, hist and loss then run as in the fp32
+mode (a product of two bf16 values is exact in fp32) and gq/gdb launch
+their bf16 instantiations.  The plain sweeps round what they are given
+with ``.to(torch.bfloat16).float()``, which leaves rounded rows as they
+are.  ``None``/``"highest"`` is full fp32.  Each wrapper counts its
+launches in the bf16 mode apart (``bf16_launches``).
+
 Around them: the thresholds (absolute from the stats; RELATIVE_* by
 radix selection, with the ``pos_topk`` fast path whose overflow fallback
 is decided on the device), the forward, the reference backward as a
@@ -53,6 +65,8 @@ from npairloss_tpu_torch.ops.npair_loss import (
     _f32,
     _relative_pos,
     absolute_thresholds,
+    bf16_round,
+    resolve_matmul_precision,
     resolve_sim_cache_auto,
     selection_predicates,
     topk_relative_threshold,
@@ -172,12 +186,22 @@ def _stats_range(feats, labels, pool, pool_labels, lo, hi, self_offset,
                  hist.get("diff"), buf, out)
 
 
+def _operands_in(matmul_precision, feats, pool):
+    """(feats, pool) as a product of the given precision reads them."""
+    if not resolve_matmul_precision(matmul_precision):
+        return feats, pool
+    f = bf16_round(feats)
+    return f, (f if pool is feats else bf16_round(pool))
+
+
 def stats_plain(feats, labels, pool, pool_labels, self_offset=0,
                 hist_same=False, hist_diff=False, topk=0, emit_sims=False,
-                bn=512, bm=512, sims=None, splits=1) -> Stats:
+                bn=512, bm=512, sims=None, splits=1,
+                matmul_precision=None) -> Stats:
     """The stats sweep in plain PyTorch.  ``sims`` (an [N, M] matrix)
     replaces the recomputed tiles — chip_smoke feeds the kernel's own
-    emitted sims here.
+    emitted sims here.  ``matmul_precision="default"``: the products
+    read bf16-rounded feats and pool.
 
     ``splits``: sweep the pool axis as that many contiguous ranges, each
     from fresh running values, and combine the per-range partials in
@@ -185,6 +209,7 @@ def stats_plain(feats, labels, pool, pool_labels, self_offset=0,
     cluster.  Minima, maxima, integer sums and the K-largest multiset
     are exact under any combine order, so the result does not depend on
     ``splits`` (tests/test_torch_blockwise.py holds that bit for bit)."""
+    feats, pool = _operands_in(matmul_precision, feats, pool)
     n, m = feats.shape[0], pool.shape[0]
     out = torch.empty((n, m), device=feats.device) if emit_sims else None
     sides = [s for s, on in (("same", hist_same), ("diff", hist_diff)) if on]
@@ -208,9 +233,11 @@ def stats_plain(feats, labels, pool, pool_labels, self_offset=0,
 
 def hist_plain(feats, labels, pool, pool_labels, sides: Sequence[bool],
                prefixes: Sequence[torch.Tensor], digit: int, self_offset=0,
-               sims=None, skip=None, bn=512, bm=512) -> List[torch.Tensor]:
+               sims=None, skip=None, bn=512, bm=512,
+               matmul_precision=None) -> List[torch.Tensor]:
     """One digit's prefix-matched histogram per side (``True`` = the
     same-label population) in plain PyTorch; all zeros when ``skip``."""
+    feats, pool = _operands_in(matmul_precision, feats, pool)
     n, m = feats.shape[0], pool.shape[0]
     outs = [torch.zeros((n, RADIX_BINS), dtype=torch.int32,
                         device=feats.device) for _ in sides]
@@ -279,12 +306,16 @@ def chain_sums(vals: torch.Tensor, splits: int = 1,
 
 def loss_plain(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
                cfg: NPairLossConfig, self_offset=0, sims=None, bn=512,
-               splits=1, tile=KERNEL_TILE) -> Tuple[torch.Tensor, ...]:
+               splits=1, tile=KERNEL_TILE, matmul_precision=None,
+               bm=512) -> Tuple[torch.Tensor, ...]:
     """(I sum, D sum, selected positives, selected negatives) per query
-    in plain PyTorch, ``bn`` queries at a time against the whole pool.
+    in plain PyTorch, ``bn`` queries at a time against the whole pool
+    (recomputed sims from the (``bn``, ``bm``) tile products the other
+    sweeps make, so they are the cache's bits).
     The I/D sums follow the kernel's order (``chain_sums`` at its
     ``splits``; ``tile`` other than the kernel's for small tests); the
     counts are exact in any order."""
+    feats, pool = _operands_in(matmul_precision, feats, pool)
     n, m = feats.shape[0], pool.shape[0]
     dev = feats.device
     isum, dsum = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
@@ -292,7 +323,9 @@ def loss_plain(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
     pt, nt = _margined(pos_thr, neg_thr, cfg)
     for q in _tiles(n, bn):
         qs = slice(*q)
-        s = _sim_tile(feats, pool, sims, q, (0, m))
+        s = _sim_tile(feats, pool, sims, q, (0, m)) if sims is not None \
+            else torch.cat([_sim_tile(feats, pool, None, q, i)
+                            for i in _tiles(m, bm)], dim=1)
         same, diff = _tile_masks(labels, pool_labels, q, (0, m), self_offset)
         ps, ns = selection_predicates(s, pt[qs, None], nt[qs, None], cfg)
         sel_pos, sel_neg = same & ps, diff & ns
@@ -318,20 +351,26 @@ def _query_terms(isum, asum, valid, g, n: int):
     return (-inv(isum) + inv(asum)) * scale, inv(asum) * scale
 
 
-def _weight_tile(s, same, diff, pt, nt, mx, a, b, cfg):
+def _weight_tile(s, same, diff, pt, nt, mx, a, b, cfg, bf16=False):
+    """The gradient's weight tile; rounded to bf16 in the bf16 mode."""
     ps, ns = selection_predicates(s, pt, nt, cfg)
     sel_pos, sel_neg = same & ps, diff & ns
     coef = torch.where(sel_pos, a, torch.where(sel_neg, b, 0.0))
     # By selection, never by a multiplied mask: a query with no pairs has
     # max_all = -FLT_MAX, and exp overflows to inf.
-    return torch.where(sel_pos | sel_neg, torch.exp(s - mx) * coef, 0.0)
+    w = torch.where(sel_pos | sel_neg, torch.exp(s - mx) * coef, 0.0)
+    return bf16_round(w) if bf16 else w
 
 
 def grad_plain(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
                isum, asum, valid, g, cfg: NPairLossConfig, pool_major: bool,
-               self_offset=0, sims=None, bn=512, bm=512) -> torch.Tensor:
+               self_offset=0, sims=None, bn=512, bm=512,
+               matmul_precision=None) -> torch.Tensor:
     """gq = w @ pool (``pool_major=False``) or gdb = w^T @ feats (True) in
-    plain PyTorch, over the same tiles as the kernels' sweeps."""
+    plain PyTorch, over the same tiles as the kernels' sweeps; in the
+    bf16 mode w, feats and pool are rounded to bf16."""
+    bf16 = resolve_matmul_precision(matmul_precision)
+    feats, pool = _operands_in(matmul_precision, feats, pool)
     n, m = feats.shape[0], pool.shape[0]
     pt, nt = _margined(pos_thr, neg_thr, cfg)
     a, b = _query_terms(isum, asum, valid, g, n)
@@ -346,7 +385,8 @@ def grad_plain(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
             s = _sim_tile(feats, pool, sims, q, i)
             same, diff = _tile_masks(labels, pool_labels, q, i, self_offset)
             w = _weight_tile(s, same, diff, pt[qs, None], nt[qs, None],
-                             max_all[qs, None], a[qs, None], b[qs, None], cfg)
+                             max_all[qs, None], a[qs, None], b[qs, None], cfg,
+                             bf16)
             if pool_major:
                 out[i[0]:i[1]] += w.T @ feats[qs]
             else:
@@ -407,6 +447,11 @@ def _rows16(feats, pool):
     return f, (f if pool is feats else fit(pool)), d4
 
 
+def _count(fn, bf16: bool) -> None:
+    fn.launches += 1
+    fn.bf16_launches += int(bf16)
+
+
 def _check_cache(sims, n: int, m: int, what: str) -> None:
     if sims is not None and sims.shape != (n, m):
         raise ValueError(f"{what}: the sim cache is {tuple(sims.shape)}, "
@@ -425,14 +470,18 @@ def _operands(feats, pool, sims):
 @counted
 def npair_stats(feats, labels, pool, pool_labels, *, self_offset=0,
                 hist_same=False, hist_diff=False, topk=0,
-                emit_sims=False) -> Stats:
-    """The stats sweep (one launch)."""
+                emit_sims=False, matmul_precision=None) -> Stats:
+    """The stats sweep (one launch).  In the bf16 mode the card's kernel
+    reads feats and pool as given: pass them rounded (``round_bf16``),
+    as the engine does."""
+    bf16 = resolve_matmul_precision(matmul_precision)
     if not 0 <= topk <= MAX_TOPK:
         raise ValueError(f"npair_stats: {topk} top-k slots exceed the "
                          f"kernel's {MAX_TOPK}")
     if feats.device.type == "cpu":
         return stats_plain(feats, labels, pool, pool_labels, self_offset,
-                           hist_same, hist_diff, topk, emit_sims)
+                           hist_same, hist_diff, topk, emit_sims,
+                           matmul_precision=matmul_precision)
     lf = _cuda_operands("npair_stats", feats, labels, pool, pool_labels)
     n, m = feats.shape[0], pool.shape[0]
     feats, pool, d = _rows16(feats, pool)
@@ -452,19 +501,23 @@ def npair_stats(feats, labels, pool, pool_labels, *, self_offset=0,
         *(_ptr(t) for t in out[:8]), int(topk), _ptr(out.sims),
         stream_ptr(feats.device))
     check(err, "npair_stats")
-    npair_stats.launches += 1
+    _count(npair_stats, bf16)
     return out
 
 
 @counted
 def npair_hist(feats, labels, pool, pool_labels, sides: Sequence[bool],
                prefixes: Sequence[torch.Tensor], digit: int, *,
-               self_offset=0, sims=None, skip=None) -> List[torch.Tensor]:
+               self_offset=0, sims=None, skip=None,
+               matmul_precision=None) -> List[torch.Tensor]:
     """One radix digit's histograms for one or two sides (one launch);
-    ``skip`` (a bool tensor on the device) makes it return zeros."""
+    ``skip`` (a bool tensor on the device) makes it return zeros.  The
+    bf16 mode's operands as ``npair_stats`` takes them."""
+    bf16 = resolve_matmul_precision(matmul_precision)
     if feats.device.type == "cpu":
         return hist_plain(feats, labels, pool, pool_labels, sides, prefixes,
-                          digit, self_offset, sims, skip)
+                          digit, self_offset, sims, skip,
+                          matmul_precision=matmul_precision)
     lf = _cuda_operands("npair_hist", feats, labels, pool, pool_labels,
                         *(() if sims is None else (sims,)))
     if len(sides) not in (1, 2) or len(prefixes) != len(sides):
@@ -486,19 +539,22 @@ def npair_hist(feats, labels, pool, pool_labels, sides: Sequence[bool],
         outs[0].data_ptr(), outs[1].data_ptr() if two else None,
         stream_ptr(feats.device))
     check(err, "npair_hist")
-    npair_hist.launches += 1
+    _count(npair_hist, bf16)
     return outs
 
 
 @counted
 def npair_loss(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
-               cfg: NPairLossConfig, *, self_offset=0,
-               sims=None) -> Tuple[torch.Tensor, ...]:
+               cfg: NPairLossConfig, *, self_offset=0, sims=None,
+               matmul_precision=None) -> Tuple[torch.Tensor, ...]:
     """The loss sweep (one launch): (I sum, D sum, selected positives,
-    selected negatives) per query."""
+    selected negatives) per query.  The bf16 mode's operands as
+    ``npair_stats`` takes them."""
+    bf16 = resolve_matmul_precision(matmul_precision)
     if feats.device.type == "cpu":
         return loss_plain(feats, labels, pool, pool_labels, pos_thr,
-                          neg_thr, max_all, cfg, self_offset, sims)
+                          neg_thr, max_all, cfg, self_offset, sims,
+                          matmul_precision=matmul_precision)
     vecs = [_vec(v) for v in (pos_thr, neg_thr, max_all)]
     lf = _cuda_operands("npair_loss", feats, labels, pool, pool_labels,
                         *vecs, *(() if sims is None else (sims,)))
@@ -514,13 +570,13 @@ def npair_loss(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
         *(v.data_ptr() for v in vecs), *(o.data_ptr() for o in outs),
         stream_ptr(feats.device))
     check(err, "npair_loss")
-    npair_loss.launches += 1
+    _count(npair_loss, bf16)
     return tuple(outs)
 
 
 def _launch_grad(what, pool_major, feats, labels, pool, pool_labels,
                  pos_thr, neg_thr, max_all, isum, asum, valid, g, cfg,
-                 self_offset, sims):
+                 self_offset, sims, bf16):
     vecs = [_vec(v) for v in (pos_thr, neg_thr, max_all, isum, asum, valid,
                               g.reshape(1))]
     lf = _cuda_operands(what, feats, labels, pool, pool_labels, *vecs,
@@ -535,7 +591,7 @@ def _launch_grad(what, pool_major, feats, labels, pool, pool_labels,
         int(cfg.ap_mining_method), int(cfg.an_mining_method),
         _f32(cfg.margin_ident), _f32(cfg.margin_diff),
         *(v.data_ptr() for v in vecs), int(pool_major), out.data_ptr(),
-        stream_ptr(feats.device))
+        int(bf16), stream_ptr(feats.device))
     check(err, what)
     return out if d4 == d else out[:, :d].contiguous()
 
@@ -543,32 +599,60 @@ def _launch_grad(what, pool_major, feats, labels, pool, pool_labels,
 @counted
 def npair_gq(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
              isum, asum, valid, g, cfg: NPairLossConfig, *, self_offset=0,
-             sims=None) -> torch.Tensor:
-    """Query-role gradient ``w @ pool`` [N, D] (one launch)."""
+             sims=None, matmul_precision=None) -> torch.Tensor:
+    """Query-role gradient ``w @ pool`` [N, D] (one launch); in the bf16
+    mode w is rounded in the kernel, feats and pool come rounded (as
+    ``npair_stats`` takes them)."""
+    bf16 = resolve_matmul_precision(matmul_precision)
     if feats.device.type == "cpu":
         return grad_plain(feats, labels, pool, pool_labels, pos_thr,
                           neg_thr, max_all, isum, asum, valid, g, cfg, False,
-                          self_offset, sims)
+                          self_offset, sims,
+                          matmul_precision=matmul_precision)
     out = _launch_grad("npair_gq", False, feats, labels, pool, pool_labels,
                        pos_thr, neg_thr, max_all, isum, asum, valid, g, cfg,
-                       self_offset, sims)
-    npair_gq.launches += 1
+                       self_offset, sims, bf16)
+    _count(npair_gq, bf16)
     return out
 
 
 @counted
 def npair_gdb(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
               isum, asum, valid, g, cfg: NPairLossConfig, *, self_offset=0,
-              sims=None) -> torch.Tensor:
-    """Database-role gradient ``w^T @ feats`` [M, D] (one launch)."""
+              sims=None, matmul_precision=None) -> torch.Tensor:
+    """Database-role gradient ``w^T @ feats`` [M, D] (one launch); the
+    bf16 mode as in ``npair_gq``."""
+    bf16 = resolve_matmul_precision(matmul_precision)
     if feats.device.type == "cpu":
         return grad_plain(feats, labels, pool, pool_labels, pos_thr,
                           neg_thr, max_all, isum, asum, valid, g, cfg, True,
-                          self_offset, sims)
+                          self_offset, sims,
+                          matmul_precision=matmul_precision)
     out = _launch_grad("npair_gdb", True, feats, labels, pool, pool_labels,
                        pos_thr, neg_thr, max_all, isum, asum, valid, g, cfg,
-                       self_offset, sims)
-    npair_gdb.launches += 1
+                       self_offset, sims, bf16)
+    _count(npair_gdb, bf16)
+    return out
+
+
+for _fn in (npair_stats, npair_hist, npair_loss, npair_gq, npair_gdb):
+    _fn.bf16_launches = 0
+
+
+@counted
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) rounded to bf16, round to nearest even, and
+    widened back to float32 (one launch): the bf16 mode's operands."""
+    if x.device.type == "cpu":
+        return bf16_round(x)
+    if x.device.type != "cuda" or x.dtype != torch.float32 \
+            or not x.is_contiguous():
+        raise ValueError("round_bf16: expected a contiguous float32 CUDA "
+                         f"tensor, got {x.dtype} on {x.device}")
+    out = torch.empty_like(x)
+    check(library().npl_round_bf16(x.data_ptr(), out.data_ptr(), x.numel(),
+                                   stream_ptr(x.device)), "round_bf16")
+    round_bf16.launches += 1
     return out
 
 
@@ -581,16 +665,19 @@ class _Sweeps(NamedTuple):
     gdb: Callable
 
 
-def _sweeps(device: torch.device, bn: int, bm: int) -> _Sweeps:
+def _sweeps(device: torch.device, bn: int, bm: int,
+            matmul_precision: Optional[str] = None) -> _Sweeps:
     """The kernel wrappers on the card, which pick their own tiles; on
     the CPU the plain sweeps at the caller's (query, pool) tiles (the
-    loss sweep's pool axis in the kernel's order)."""
+    loss sweep's pool axis in the kernel's order); all in
+    ``matmul_precision``."""
+    mp = dict(matmul_precision=matmul_precision)
     if device.type != "cpu":
-        return _Sweeps(npair_stats, npair_hist, npair_loss, npair_gq,
-                       npair_gdb)
-    tiles = dict(bn=bn, bm=bm)
+        return _Sweeps(*(partial(fn, **mp) for fn in (
+            npair_stats, npair_hist, npair_loss, npair_gq, npair_gdb)))
+    tiles = dict(bn=bn, bm=bm, **mp)
     return _Sweeps(partial(stats_plain, **tiles), partial(hist_plain, **tiles),
-                   partial(loss_plain, bn=bn),
+                   partial(loss_plain, bn=bn, bm=bm, **mp),
                    partial(grad_plain, pool_major=False, **tiles),
                    partial(grad_plain, pool_major=True, **tiles))
 
@@ -678,14 +765,19 @@ def _radix_thresholds(feats, labels, st: Stats, pos_thr, neg_thr,
 
 
 def _forward(features, labels, cfg: NPairLossConfig, bn: int, bm: int,
-             cache: bool, pos_topk: int):
-    """(loss, aux, residuals) — pallas_npair.py:882-941."""
+             cache: bool, pos_topk: int,
+             matmul_precision: Optional[str] = None):
+    """(loss, aux, residuals) — pallas_npair.py:882-941.  In the bf16
+    mode every sweep, the backward's too, reads the features rounded
+    here once."""
     feats = features.float().contiguous()
+    if resolve_matmul_precision(matmul_precision):
+        feats = round_bf16(feats)
     lab = _canon_labels(labels)
     n = feats.shape[0]
     ap_rel = cfg.ap_mining_method in _RELATIVE
     an_rel = cfg.an_mining_method in _RELATIVE
-    sw = _sweeps(feats.device, bn, bm)
+    sw = _sweeps(feats.device, bn, bm, matmul_precision)
     st = sw.stats(feats, lab, feats, lab, hist_same=ap_rel, hist_diff=an_rel,
                   # The buffer only pays when AP is the sole relative side.
                   topk=pos_topk if ap_rel and not an_rel else 0,
@@ -707,7 +799,8 @@ def _forward(features, labels, cfg: NPairLossConfig, bn: int, bm: int,
 
 
 def _backward(res, g: torch.Tensor, cfg: NPairLossConfig, bn: int,
-              bm: int) -> torch.Tensor:
+              bm: int, matmul_precision: Optional[str] = None
+              ) -> torch.Tensor:
     """d loss / d features — pallas_npair.py:959-992."""
     feats, lab = res["feats"], res["labels"]
     if cfg.grad_mode == "reference":
@@ -717,7 +810,7 @@ def _backward(res, g: torch.Tensor, cfg: NPairLossConfig, bn: int,
     args = (feats, lab, feats, lab, res["pos_thr"], res["neg_thr"],
             res["max_all"], res["ident_sum"], res["all_sum"], valid,
             g.float(), cfg)
-    sw = _sweeps(feats.device, bn, bm)
+    sw = _sweeps(feats.device, bn, bm, matmul_precision)
     gq = sw.gq(*args, sims=res["sims"])
     gdb = sw.gdb(*args, sims=res["sims"])
     if cfg.grad_mode == "reference":
@@ -732,18 +825,18 @@ class _Blockwise(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, features, labels, cfg, bn, bm, cache, pos_topk,
-                aux_out):
+                aux_out, matmul_precision):
         loss, aux, res = _forward(features, labels, cfg, bn, bm, cache,
-                                  pos_topk)
+                                  pos_topk, matmul_precision)
         aux_out.update(aux)
-        ctx.res, ctx.args = res, (cfg, bn, bm)
+        ctx.res, ctx.args = res, (cfg, bn, bm, matmul_precision)
         ctx.feature_dtype = features.dtype
         return loss
 
     @staticmethod
     def backward(ctx, g):
         d = _backward(ctx.res, g, *ctx.args)
-        return (d.to(ctx.feature_dtype),) + (None,) * 7
+        return (d.to(ctx.feature_dtype),) + (None,) * 8
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -758,6 +851,7 @@ def blockwise_npair_loss_with_aux(
     q_block_size: Optional[int] = None,
     sim_cache: Optional[bool] = None,
     pos_topk: Optional[int] = None,
+    matmul_precision: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """N-pair loss over a self-pool too large for the dense N x N matrix;
     the same loss and gradient as ``npair_loss_with_aux`` for every
@@ -774,7 +868,10 @@ def blockwise_npair_loss_with_aux(
     JAX package, rounded up to a multiple of 8 as it does and capped at
     the kernel's ``MAX_TOPK`` slots on every device.  The loss does not
     depend on K: where a query's positives overflow the slots, the AP
-    threshold comes from radix selection."""
+    threshold comes from radix selection.
+    ``matmul_precision``: ``None``/``"highest"`` (full fp32) or
+    ``"default"``, the single-pass bf16 mode of every kernel product
+    (a throughput mode, not a parity mode)."""
     n = features.shape[0]
     bm = int(min(block_size, max(n, 1)))
     bn = int(min(q_block_size or block_size, max(n, 1)))
@@ -788,7 +885,7 @@ def blockwise_npair_loss_with_aux(
     pos_topk = min(_round_up(int(pos_topk), 8), MAX_TOPK) if pos_topk else 0
     aux: Dict[str, torch.Tensor] = {}
     loss = _Blockwise.apply(features, labels, cfg, bn, bm, bool(sim_cache),
-                            pos_topk, aux)
+                            pos_topk, aux, matmul_precision)
     return loss, aux
 
 
@@ -796,11 +893,13 @@ def blockwise_npair_loss(features, labels, cfg=NPairLossConfig(),
                          block_size: int = 512,
                          q_block_size: Optional[int] = None,
                          sim_cache: Optional[bool] = None,
-                         pos_topk: Optional[int] = None) -> torch.Tensor:
+                         pos_topk: Optional[int] = None,
+                         matmul_precision: Optional[str] = None
+                         ) -> torch.Tensor:
     """Scalar blockwise N-pair loss (see ``blockwise_npair_loss_with_aux``)."""
     return blockwise_npair_loss_with_aux(features, labels, cfg, block_size,
-                                         q_block_size, sim_cache,
-                                         pos_topk)[0]
+                                         q_block_size, sim_cache, pos_topk,
+                                         matmul_precision)[0]
 
 
 # -- streamed retrieval metrics ---------------------------------------------------

@@ -19,6 +19,14 @@ Semantics are the JAX package's, quirk for quirk:
     scaled by g/N, the database-role grad all-reduced and divided by G,
     then ``0.5 * own rows + 0.5 * query role``.
 
+``matmul_precision`` (the JAX engine's knob): ``None``/``"highest"``
+compute the sim product and both backward products in full fp32;
+``"default"`` is the single-pass bf16 mode — every operand of those
+three products, the backward's coefficient matrix included, rounded to
+bf16 (round to nearest even), the products accumulated in fp32.  A
+product of two bf16 values is exact in fp32, so this is an fp32 product
+of the rounded operands.  It is a throughput mode, not a parity mode.
+
 The relative thresholds need only the k-th smallest masked value; an
 exact sort returns the same element the JAX package's MSD radix
 selection does, so the dense engine needs no ``rank_select`` module.
@@ -344,6 +352,49 @@ def selection_mask(sims, same, diff, pos_thr, neg_thr,
     return torch.where(same, pos_sel, diff & neg_sel)
 
 
+# -- gemm precision ----------------------------------------------------------------
+
+
+def resolve_matmul_precision(precision: Optional[str]) -> bool:
+    """True for the single-pass bf16 mode (``"default"``), False for full
+    fp32 (``None`` or ``"highest"``); anything else raises, as
+    ``npairloss_tpu.ops.npair_loss.resolve_matmul_precision`` does."""
+    if precision is None or precision == "highest":
+        return False
+    if precision == "default":
+        return True
+    raise ValueError(f"matmul_precision must be 'highest' or 'default', "
+                     f"got {precision!r}")
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to bf16 (round to nearest even) and widened
+    back: the operand a single-pass bf16 product reads."""
+    return x.to(torch.bfloat16).float()
+
+
+class _Bf16Matmul(torch.autograd.Function):
+    """``a @ b`` in the single-pass bf16 mode, and its transposes in the
+    same mode (the incoming gradient rounded too), as XLA differentiates
+    a DEFAULT-precision dot."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ar, br = bf16_round(a), bf16_round(b)
+        ctx.save_for_backward(ar, br)
+        return ar @ br
+
+    @staticmethod
+    def backward(ctx, g):
+        ar, br = ctx.saved_tensors
+        gr = bf16_round(g)
+        return gr @ br.T, ar.T @ gr
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor, bf16: bool) -> torch.Tensor:
+    return _Bf16Matmul.apply(a, b) if bf16 else a @ b
+
+
 # -- forward core ------------------------------------------------------------------
 
 
@@ -355,9 +406,11 @@ def _forward_core(
     total_labels: Optional[torch.Tensor] = None,
     rank: int = 0,
     num_shards: int = 1,
+    matmul_precision: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any], Dict[str, Any]]:
     """Shared forward; returns (loss, aux for the metrics, residuals for
     the reference backward)."""
+    bf16 = resolve_matmul_precision(matmul_precision)
     features = features.float()
     n_local = features.shape[0]
     if total_features is None:
@@ -365,7 +418,7 @@ def _forward_core(
     else:
         total_features = total_features.float()
 
-    sims = features @ total_features.T  # cu:218, dot_normalizer 1
+    sims = _matmul(features, total_features.T, bf16)  # cu:218, normalizer 1
     same, diff = pair_masks(labels, total_labels, rank, n_local)
     pos_thr, neg_thr, max_all = mining_thresholds(sims, same, diff, cfg)
     sel = selection_mask(sims, same, diff, pos_thr, neg_thr, cfg)
@@ -405,6 +458,7 @@ def _forward_core(
         "all_sum": all_sum,
         "rank": rank,
         "num_shards": num_shards,
+        "bf16": bf16,
     }
     return loss, aux, residuals
 
@@ -428,7 +482,9 @@ def grad_roles(res: Dict[str, Any], g: torch.Tensor
     p2 = safe_div(res["exp_pos"], res["all_sum"])
     p3 = safe_div(res["exp_neg"], res["all_sum"])
     w = (-p1 + p2 + p3) * (g / _f32(n_local))
-    return w @ res["total_features"], w.T @ res["features"]
+    bf16 = res.get("bf16", False)
+    return (_matmul(w, res["total_features"], bf16),
+            _matmul(w.T, res["features"], bf16))
 
 
 def merge_roles(grad_query: torch.Tensor, grad_db_summed: torch.Tensor,
@@ -455,9 +511,10 @@ class _ReferenceNPair(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, features, labels, cfg, total_features, total_labels,
-                rank, num_shards, all_reduce, aux_out):
+                rank, num_shards, all_reduce, aux_out, matmul_precision):
         loss, aux, res = _forward_core(features, labels, cfg, total_features,
-                                       total_labels, rank, num_shards)
+                                       total_labels, rank, num_shards,
+                                       matmul_precision)
         aux_out.update(aux)
         ctx.res = res
         ctx.all_reduce = all_reduce
@@ -467,7 +524,7 @@ class _ReferenceNPair(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         d = _reference_backward(ctx.res, g, ctx.all_reduce)
-        return (d.to(ctx.feature_dtype),) + (None,) * 8
+        return (d.to(ctx.feature_dtype),) + (None,) * 9
 
 
 def npair_loss_with_aux(
@@ -480,22 +537,25 @@ def npair_loss_with_aux(
     rank: int = 0,
     num_shards: int = 1,
     all_reduce: AllReduce = None,
+    matmul_precision: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Multi-class N-pair loss with mining; returns (loss, aux).
 
     ``features`` [N, D] (L2-normalized upstream) and ``labels`` [N] of
     this shard; for G > 1 shards also the gathered pool, this shard's
     ``rank``, ``num_shards`` and the ``all_reduce`` of the database-role
-    gradient.  ``aux`` feeds ``ops.metrics`` and carries no gradient."""
+    gradient.  ``matmul_precision``: ``None``/``"highest"`` or the
+    single-pass bf16 ``"default"``.  ``aux`` feeds ``ops.metrics`` and
+    carries no gradient."""
     if cfg.grad_mode == "reference":
         aux: Dict[str, Any] = {}
         loss = _ReferenceNPair.apply(features, labels, cfg, total_features,
                                      total_labels, rank, num_shards,
-                                     all_reduce, aux)
+                                     all_reduce, aux, matmul_precision)
         return loss, aux
     loss, aux, _ = _forward_core(features, labels.detach(), cfg,
                                  total_features, total_labels, rank,
-                                 num_shards)
+                                 num_shards, matmul_precision)
     return loss, {k: v.detach() if torch.is_tensor(v) else v
                   for k, v in aux.items()}
 

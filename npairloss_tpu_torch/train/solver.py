@@ -10,6 +10,11 @@ a snapshot every ``snapshot`` iterations, committed atomically with a
 checksum manifest (``resilience/snapshot.py``) and pruned to the newest
 ``snapshot_max_keep``.
 
+A BN trunk trains on batch statistics and updates its running ones
+(``model.train()`` in a step); the TEST phase and ``evaluate`` run it in
+eval mode, on the running statistics, as the JAX ``apply_model`` does.
+The running statistics are buffers, so snapshots carry them.
+
 A step keeps its metrics as device tensors; the host reads them only at
 display, test and snapshot boundaries and at the end.  ``iteration`` is
 the optimizer's step count, and the lr a step reports is the one it
@@ -46,6 +51,7 @@ from npairloss_tpu_torch.ops.metrics import retrieval_metrics
 from npairloss_tpu_torch.ops.npair_loss import (
     NPairLossConfig,
     npair_loss_with_aux,
+    resolve_matmul_precision,
 )
 from npairloss_tpu_torch.resilience import failpoints
 from npairloss_tpu_torch.resilience.preempt import TrainingPreempted
@@ -128,6 +134,13 @@ class Solver:
         (None = 8; 0 forces radix selection).
       snapshot_retry: the backoff around snapshot save and restore I/O
         (None = ``RetryPolicy()``).
+      matmul_precision: both engines' gemm precision: None/"highest"
+        (full fp32) or "default" (single-pass bf16, a throughput mode).
+      precision: a precision policy name ("mxu", "bf16", "fp32_parity")
+        or ``PrecisionPolicy``, kept as ``precision_policy``; it supplies
+        ``matmul_precision`` (its ``loss_matmul_precision``) when that is
+        not given.  The model's dtypes are the model's own
+        (``get_model(policy=...)``).
     """
 
     def __init__(self, model: torch.nn.Module,
@@ -139,7 +152,9 @@ class Solver:
                  engine: str = "dense",
                  sim_cache: Optional[bool] = None,
                  pos_topk: Optional[int] = None,
-                 snapshot_retry: Optional[RetryPolicy] = None):
+                 snapshot_retry: Optional[RetryPolicy] = None,
+                 matmul_precision: Optional[str] = None,
+                 precision=None):
         if engine == "ring":
             raise ValueError('engine="ring" streams the pool over a mesh, '
                              "and distribution is not ported yet (ROADMAP "
@@ -147,6 +162,17 @@ class Solver:
         if engine not in ("dense", "blockwise"):
             raise ValueError(f"unknown engine {engine!r}")
         self.engine = engine
+        if precision is not None:
+            from npairloss_tpu_torch.models.precision import get_policy
+
+            self.precision_policy = get_policy(precision)
+            if matmul_precision is None:
+                matmul_precision = \
+                    self.precision_policy.loss_matmul_precision
+        else:
+            self.precision_policy = None
+        resolve_matmul_precision(matmul_precision)
+        self.matmul_precision = matmul_precision
         self.sim_cache = sim_cache
         self.pos_topk = pos_topk
         self.model = model
@@ -182,13 +208,16 @@ class Solver:
             self.cfg.random_seed if seed is None else seed)
         self._reset_optimizer()
 
-    def load_params(self, params: Dict[str, Any]) -> None:
-        """Start from a flax param tree (numpy leaves; the finetune
-        workflow, or the JAX package's own init in the parity tests).
+    def load_params(self, params: Dict[str, Any],
+                    batch_stats: Optional[Dict[str, Any]] = None) -> None:
+        """Start from a flax param tree (numpy leaves, bare or wrapped
+        with its ``batch_stats``; the finetune workflow, or the JAX
+        package's own init in the parity tests).  ``batch_stats`` (BN
+        trunks' running mean/var) replace the current ones when given.
         The optimizer re-initializes, as the JAX ``load_params`` does."""
         from npairloss_tpu_torch.models.convert import load_jax_params
 
-        load_jax_params(self.model, params)
+        load_jax_params(self.model, params, batch_stats)
         self._reset_optimizer()
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
@@ -311,11 +340,14 @@ class Solver:
         if self.engine == "blockwise":
             loss, _ = blockwise_npair_loss_with_aux(
                 emb, labels, self.loss_cfg, sim_cache=self.sim_cache,
-                pos_topk=self.pos_topk)
+                pos_topk=self.pos_topk,
+                matmul_precision=self.matmul_precision)
             metrics = blockwise_retrieval_metrics(emb.detach(), labels,
                                                   self.top_ks)
         else:
-            loss, aux = npair_loss_with_aux(emb, labels, self.loss_cfg)
+            loss, aux = npair_loss_with_aux(
+                emb, labels, self.loss_cfg,
+                matmul_precision=self.matmul_precision)
             metrics = retrieval_metrics(aux, labels, emb.detach(),
                                         self.top_ks)
         if self.loss_weight != 1.0:
@@ -345,8 +377,8 @@ class Solver:
     @torch.no_grad()
     def evaluate(self, batches: Batches, num_iters: int) -> Dict[str, float]:
         """TEST phase: loss and metrics averaged over ``num_iters``
-        batches (a forward without a graph: the stem runs its uncached
-        kernels)."""
+        batches (a forward without a graph in eval mode: the stem runs
+        its uncached kernels, a BN trunk its running statistics)."""
         self.model.eval()
         acc: Dict[str, float] = collections.defaultdict(float)
         n = 0

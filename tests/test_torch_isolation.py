@@ -314,7 +314,9 @@ def test_kernel_wrappers_on_cpu_tensors_count_no_launch():
                            "lrn_bwd_cached", "fused_bias_relu",
                            "fused_bias_relu_pool", "probe_topk",
                            "npair_stats", "npair_hist", "npair_loss",
-                           "npair_gq", "npair_gdb"}
+                           "npair_gq", "npair_gdb", "round_bf16"} | {
+        f"{k}:bf16" for k in ("npair_stats", "npair_hist", "npair_loss",
+                              "npair_gq", "npair_gdb")}
     assert all(v == 0 for v in counts.values()), counts
 
 

@@ -254,6 +254,10 @@ def test_chip_smoke_profile_counts_every_stem_kernel():
             == "stem kernels (csrc/stem.cu)", name
     assert cs.step_category("void npair_stats_kernel<8>()") == \
         "blockwise kernels (csrc/npair_blockwise.cu)"
+    assert cs.step_category("round_bf16_kernel(float const*, float*)") == \
+        "blockwise kernels (csrc/npair_blockwise.cu)"
+    assert cs.step_category("void at::native::reduce_kernel<128, 4>") == \
+        "torch elementwise and reductions"
     assert cs.step_category("void at::native::max_pool_forward_nhwc") == \
         "pooling"
 
