@@ -111,6 +111,30 @@ Phases (any failure raises, exits nonzero and prints no result line):
    Solver under fp32_parity on the dense engine and under mxu on the
    blockwise engine: each run's last-step Recall@1 >= 0.95, the curves
    every 20 steps and each run's seconds;
+5h. sync-free stepping: ``train`` in-process on the phase-5 solver cut to
+   12 iterations (display 4, snapshot 4; batch 120, 224²; the CLI's own
+   synthetic batches made up front, since the host's generator is slower
+   than a step), once synchronously and once with ``--pipeline``, in four
+   configurations — ``googlenet_bn`` under ``mxu`` dense and blockwise
+   (the reference's mining: the five kernels in their bf16 mode), and
+   ``googlenet_pallas`` fp32 dense and blockwise (stem kernels 7, 9, 10,
+   11 in the graph) — with cuDNN deterministic: display lines and
+   ``--log-json`` records byte for byte, parameters, momentum and
+   running statistics bit for bit, 2 eager warm-up steps then one
+   capture and 10 graph replays, each kernel's launches per replay
+   counted and the run's launches equal to the synchronous run's, no
+   upload and one window read per boundary on the training thread
+   under a strict ``HostSyncMonitor`` (each replay's dispatch under
+   sync debug mode "error"); the median step ms over steps 2-12 (CUDA
+   events after each step), the idle share from a profile of three
+   more steps against it, ``controller.blocked``, the capture's ms and
+   the graph pool's bytes; then the drills on both loops
+   (``googlenet_pallas`` fp32 dense): ``step.nan_loss`` at steps 7-9
+   with ``--divergence-patience 3`` rolls back to iter 4 and
+   quarantines iter 8, ``--divergence-action halt`` exits 1, a
+   ``RollbackRequest`` set from another thread is taken at iter 8, and
+   SIGTERM before step 6 flushes the window, snapshots iter 6 and exits
+   75, and a resume from it equals the uninterrupted run bit for bit;
 6. the five blockwise kernels (``csrc/npair_blockwise.cu``) at N = M =
    120 and 8192, D = 1024, in their fp32 mode (matmul precision
    HIGHEST) and their bf16 mode (DEFAULT: bf16-rounded operands, the
@@ -3373,6 +3397,645 @@ def check_stretch_bf16(torch, timer, detail, seed, n=32768, d=512):
     return out
 
 
+# -- phase 5h: sync-free stepping ---------------------------------------------
+
+PIPE_WORK = os.path.join("build", "pipe_smoke")
+# (tag, train argv after the solver, net): the phase-5 solver cut to 12
+# iterations, display 4, snapshot 4; each run once per loop.
+PIPE_RUNS = (
+    ("bn_mxu", ["--model", "googlenet_bn", "--precision", "mxu"], "cub"),
+    ("bn_mxu_blockwise", ["--model", "googlenet_bn", "--precision", "mxu",
+                          "--engine", "blockwise"], "relhard"),
+    ("pallas_fp32", ["--model", "googlenet_pallas"], "cub"),
+    ("pallas_fp32_blockwise", ["--model", "googlenet_pallas", "--engine",
+                               "blockwise"], "relhard"),
+)
+# Kernels each configuration's captured step must launch on every replay.
+PIPE_KERNELS = {
+    "bn_mxu": (),
+    "bn_mxu_blockwise": tuple(f"{k}:bf16_launches" for k in BLOCKWISE_KERNELS)
+    + ("round_bf16:launches",),
+    "pallas_fp32": ("lrn_fwd_cached:launches", "lrn_bwd_cached:launches",
+                    "fused_bias_relu:launches",
+                    "fused_bias_relu_pool:launches"),
+    "pallas_fp32_blockwise": tuple(f"{k}:launches" for k in BLOCKWISE_KERNELS)
+    + ("lrn_fwd_cached:launches", "lrn_bwd_cached:launches",
+       "fused_bias_relu:launches", "fused_bias_relu_pool:launches"),
+}
+PIPE_ITERS = 12
+# The drills skip the iteration-0 TEST pass (eager in both loops).
+NO_TEST = {"test_initialization": "false"}
+
+
+def _pipe_train(torch, seed, tag, argv, pipeline, batches=None, hook=None,
+                synthetic=True, **cut):
+    """One in-process ``train`` on the phase-5h cut: ``argv`` after the
+    solver, ``--pipeline`` when ``pipeline``.  ``batches`` replaces the
+    TRAIN data (a list, from index 0); ``hook(solver, loop, n)`` runs
+    before the n-th step's dispatch (1-based); a pipelined run carries a
+    strict ``HostSyncMonitor``.  Each step's end is stamped with a CUDA
+    event.  Returns a dict: rc, stdout lines, events, the solver, step
+    ms (steps 2-12), the launches of the steps, the monitor's counts."""
+    import contextlib
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.pipeline import HostSyncMonitor
+    from npairloss_tpu_torch.train import solver as tsolver
+
+    work = os.path.join(PIPE_WORK, f"{tag}_{'pipe' if pipeline else 'sync'}")
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    events_path = os.path.join(work, "events.jsonl")
+    seen = {"solver": None, "marks": [], "after_test": None, "n": 0,
+            "monitor": None}
+    orig = {"train": tsolver.Solver.train, "step": tsolver.Solver.step,
+            "pipe": tsolver.Solver._pipelined_step}
+
+    def train(self, *a, **kw):
+        seen["solver"] = self
+        if pipeline:
+            seen["monitor"] = self.sync_monitor = HostSyncMonitor(
+                strict=True)
+        return orig["train"](self, *a, **kw)
+
+    def stamped(fn, loop):
+        def run(self, *a, **kw):
+            if seen["after_test"] is None:
+                seen["after_test"] = _build.launch_counts()
+            seen["n"] += 1
+            if hook is not None:
+                hook(self, loop, seen["n"])
+            out = fn(self, *a, **kw)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            seen["marks"].append(ev)
+            return out
+        return run
+
+    orig_data = cli._build_data
+
+    def data(args, net_cfg, phase, input_shape, s, device):
+        if phase == "TRAIN" and batches is not None:
+            return iter(batches)
+        return orig_data(args, net_cfg, phase, input_shape, s, device)
+
+    cut = {"max_iter": PIPE_ITERS, "display": 4, "snapshot": 4, **cut}
+    full = ["train", "--solver", cut_solver(work, **cut),
+            *argv, "--log-json", events_path, "--seed", str(seed),
+            "--snapshot_prefix", os.path.join(work, "snap_")]
+    if synthetic:
+        full.append("--synthetic")
+    if pipeline:
+        full.append("--pipeline")
+    out = io.StringIO()
+    tsolver.Solver.train = train
+    tsolver.Solver.step = stamped(orig["step"], "sync")
+    tsolver.Solver._pipelined_step = stamped(orig["pipe"], "pipe")
+    cli._build_data = data
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(full)
+        torch.cuda.synchronize()
+    finally:
+        tsolver.Solver.train = orig["train"]
+        tsolver.Solver.step = orig["step"]
+        tsolver.Solver._pipelined_step = orig["pipe"]
+        cli._build_data = orig_data
+    wall = time.perf_counter() - t0
+    marks = seen["marks"]
+    ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    c0, c1 = seen["after_test"] or {}, _build.launch_counts()
+    events = ([json.loads(ln) for ln in open(events_path)]
+              if os.path.exists(events_path) else [])
+    mon = seen["monitor"]
+    solver = seen["solver"]
+    return {"rc": rc, "lines": out.getvalue().splitlines(),
+            "stats": dict(solver.pipeline_stats) if solver else {},
+            "events": events, "solver": seen["solver"], "step_ms": ms,
+            "launches": {k: c1[k] - c0.get(k, 0) for k in c1
+                         if c1[k] - c0.get(k, 0)},
+            "sync_counts": mon.counts() if mon else None,
+            "violations": mon.violations() if mon else None,
+            "wall_s": wall, "work": work}
+
+
+def _state_equal(torch, a, b):
+    """Names of the tensors where two solvers (or state dicts) differ,
+    and how many were compared."""
+    sa = a if isinstance(a, dict) else a.state_dict()
+    sb = b if isinstance(b, dict) else b.state_dict()
+    differ = [k for k in sa if k not in sb or not torch.equal(sa[k], sb[k])]
+    return differ + sorted(set(sb) - set(sa)), len(sa)
+
+
+def _profile_pipe_step(torch, solver, step_ms):
+    """Three more replays of the captured step under ``torch.profiler``
+    (``profile_train_step``); the idle share against the run's median."""
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+    from npairloss_tpu_torch.device import upload
+
+    x, lab = next(synthetic_identity_batches(240, 60, 2, (224, 224, 3),
+                                             seed=32))
+    x, lab = upload(x, solver.device), upload(lab, solver.device)
+    cap = solver._window.capacity
+    solver._clear_ring()
+    prof = profile_train_step(
+        torch, lambda: solver._pipelined_step(x, lab, cap))
+    if prof is not None:
+        prof["idle_share"] = 1.0 - prof["busy_ms"] / step_ms
+    return prof
+
+
+def _profile_sync_step(torch, solver, step_ms):
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+
+    x, lab = next(synthetic_identity_batches(240, 60, 2, (224, 224, 3),
+                                             seed=32))
+    prof = profile_train_step(torch, lambda: solver.step(x, lab))
+    if prof is not None:
+        prof["idle_share"] = 1.0 - prof["busy_ms"] / step_ms
+    return prof
+
+
+def _masked_events(events, work):
+    """The events as JSON text with the run's own directory masked out
+    (text, so NaN compares equal to NaN)."""
+    return json.dumps(events).replace(os.path.abspath(work), "<work>")
+
+
+def _masked_lines(run):
+    """A run's stdout lines with its own directory masked out."""
+    return [ln.replace(os.path.abspath(run["work"]), "<work>")
+            for ln in run["lines"]]
+
+
+def check_pipeline_config(torch, seed, tag, argv, batches, card):
+    """One phase-5h configuration, once per loop: streams byte for byte,
+    final state bit for bit, replays counted, launches per step equal,
+    no mid-window host sync; step ms, idle share, blocked waits, the
+    capture's ms and the graph pool's bytes."""
+    from npairloss_tpu_torch.train.solver import PIPELINE_WARMUP_STEPS
+
+    runs = {}
+    for loop in ("sync", "pipe"):
+        r = _pipe_train(torch, seed, tag, argv, loop == "pipe",
+                        batches=batches.from_index(0))
+        if r["rc"] != 0:
+            fail(f"5h {tag} {loop}: train returned {r['rc']}: "
+                 f"{r['lines'][-5:]}")
+        if len(r["step_ms"]) != PIPE_ITERS - 1:
+            fail(f"5h {tag} {loop}: {len(r['step_ms']) + 1} steps stamped")
+        r["median_ms"] = statistics.median(r["step_ms"])
+        runs[loop] = r
+    s, p = runs["sync"], runs["pipe"]
+    # The final states before the profiles below step them further.
+    differ, n = _state_equal(torch, s["solver"], p["solver"])
+    if differ:
+        fail(f"5h {tag}: final state differs in {differ[:5]}")
+    final = {k: v.clone() for k, v in s["solver"].state_dict().items()}
+    for loop, r in runs.items():
+        prof = (_profile_pipe_step if loop == "pipe" else _profile_sync_step)
+        r["profile"] = prof(torch, r["solver"], r["median_ms"])
+    if s["lines"] != p["lines"]:
+        diff = [(a, b) for a, b in zip(s["lines"], p["lines"]) if a != b]
+        fail(f"5h {tag}: display lines differ: {diff[:3]}")
+    if _masked_events(s["events"], s["work"]) != \
+            _masked_events(p["events"], p["work"]):
+        fail(f"5h {tag}: --log-json streams differ")
+    stats = p["stats"]
+    replays = PIPE_ITERS - PIPELINE_WARMUP_STEPS
+    if stats["replays"] != replays or stats["captures"] != 1 \
+            or stats["eager_steps"] != PIPELINE_WARMUP_STEPS:
+        fail(f"5h {tag}: expected {PIPELINE_WARMUP_STEPS} warm-up steps, "
+             f"one capture and {replays} replays: {stats}")
+    if s["launches"] != p["launches"]:
+        fail(f"5h {tag}: launches differ: sync {s['launches']} pipe "
+             f"{p['launches']}")
+    per_replay = stats["launches_per_replay"]
+    short = [k for k in PIPE_KERNELS[tag] if per_replay.get(k, 0) < 1]
+    if short:
+        fail(f"5h {tag}: the captured step does not launch {short}: "
+             f"{per_replay}")
+    counts = p["sync_counts"]
+    if p["violations"] or counts["put_guarded"] or \
+            counts["get_guarded"] != PIPE_ITERS // 4:
+        fail(f"5h {tag}: host transfers on the training thread: {counts} "
+             f"{p['violations']}")
+    idle = {k: (r["profile"] or {}).get("idle_share") for k, r in
+            runs.items()}
+    rec = {
+        "sync_median_step_ms": s["median_ms"],
+        "pipe_median_step_ms": p["median_ms"],
+        "pipe_median_replay_ms": statistics.median(
+            p["step_ms"][PIPELINE_WARMUP_STEPS:]),
+        "sync_step_ms": s["step_ms"], "pipe_step_ms": p["step_ms"],
+        "sync_idle_share": idle["sync"], "pipe_idle_share": idle["pipe"],
+        "sync_busy_ms": (s["profile"] or {}).get("busy_ms"),
+        "pipe_busy_ms": (p["profile"] or {}).get("busy_ms"),
+        "blocked": stats["blocked"], "capture_ms": stats["capture_ms"][0],
+        "pool_bytes": stats["pool_bytes"][0], "replays": stats["replays"],
+        "launches": p["launches"], "launches_per_replay": per_replay,
+        "sync_counts": counts, "tensors_equal": n,
+        "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+        "sync_profile": s["profile"], "pipe_profile": p["profile"],
+    }
+    fmt = lambda v: "not measured" if v is None else f"{100 * v:.1f} %"  # noqa: E731
+    log(f"[5h {tag}] streams byte for byte, {n} tensors bit for bit, "
+        f"{stats['replays']} replays after {PIPELINE_WARMUP_STEPS} warm-up "
+        f"steps; median step ms over steps 2-12 sync {s['median_ms']:.3f} "
+        f"pipelined {p['median_ms']:.3f} (replays "
+        f"{rec['pipe_median_replay_ms']:.3f}); idle sync "
+        f"{fmt(idle['sync'])} pipelined {fmt(idle['pipe'])}; blocked "
+        f"{stats['blocked']}; capture {rec['capture_ms']:.1f} ms; graph "
+        f"pool {rec['pool_bytes']} bytes; window reads on the training "
+        f"thread {counts['get_guarded']}, uploads there "
+        f"{counts['put_guarded']}; per replay {json.dumps(per_replay)} "
+        f"({card})")
+    return rec, final
+
+
+def check_pipeline_list_files(torch, seed, net_path, card):
+    """Phase 5d's list files through both loops (``--native require``,
+    googlenet_pallas fp32): the loader's ``__next__`` — its upload from
+    pinned memory and its augmentation on the card, drawn from its
+    device generator — runs on the staging thread's stream in the
+    pipelined loop; the streams and the final state must not move."""
+    from npairloss_tpu_torch.train.solver import PIPELINE_WARMUP_STEPS
+
+    argv = ["--net", net_path, "--model", "googlenet_pallas", "--native",
+            "require"]
+    runs = {loop: _pipe_train(torch, seed, "list", argv, loop == "pipe",
+                              synthetic=False)
+            for loop in ("sync", "pipe")}
+    s, p = runs["sync"], runs["pipe"]
+    if s["rc"] or p["rc"]:
+        fail(f"5h list files: rc {s['rc']} / {p['rc']}")
+    if _masked_lines(s) != _masked_lines(p) or _masked_events(
+            s["events"], s["work"]) != _masked_events(p["events"], p["work"]):
+        fail("5h list files: the streams differ")
+    differ, n = _state_equal(torch, s["solver"], p["solver"])
+    if differ:
+        fail(f"5h list files: final state differs in {differ[:5]}")
+    if p["stats"]["replays"] != PIPE_ITERS - PIPELINE_WARMUP_STEPS:
+        fail(f"5h list files: {p['stats']}")
+    med = {k: statistics.median(r["step_ms"]) for k, r in runs.items()}
+    log(f"[5h list] train --native require on phase 5d's PPM list files: "
+        f"streams byte for byte, {n} tensors bit for bit, "
+        f"{p['stats']['replays']} replays; median step ms over steps 2-12 "
+        f"sync {med['sync']:.3f} pipelined {med['pipe']:.3f} ({card})")
+    return {"sync_median_step_ms": med["sync"],
+            "pipe_median_step_ms": med["pipe"],
+            "sync_step_ms": s["step_ms"], "pipe_step_ms": p["step_ms"],
+            "tensors_equal": n, "stats": p["stats"]}
+
+
+def check_pipeline_refusals(torch, card):
+    """No fallback: a step that cannot be captured (a host read inside
+    it) raises ``PipelineCaptureError`` after the warm-up steps and never
+    runs eagerly in the graph's place; a staging-thread error surfaces
+    from the loop as ``PrefetchStageError`` with its batch index.  A
+    small mlp on the card; run last, after every other phase."""
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+    from npairloss_tpu_torch.models import get_model
+    from npairloss_tpu_torch.pipeline import PrefetchStageError
+    from npairloss_tpu_torch.resilience import failpoints
+    from npairloss_tpu_torch.train.solver import (
+        PIPELINE_WARMUP_STEPS,
+        PipelineCaptureError,
+        Solver,
+        SolverConfig,
+    )
+
+    def solver():
+        cfg = SolverConfig(base_lr=0.1, lr_policy="fixed", display=0,
+                           snapshot=0, test_interval=0, pipeline=True)
+        return Solver(get_model("mlp", device="cuda", input_shape=(16,),
+                                hidden=(32,), embedding_dim=16, seed=0), cfg=cfg)
+
+    def batches():
+        return synthetic_identity_batches(8, 8, 2, (16,), seed=1)
+
+    s = solver()
+    orig = s.compute_loss
+
+    def reading(emb, labels):
+        loss, metrics = orig(emb, labels)
+        loss.item()  # a host read inside the step
+        return loss, metrics
+
+    s.compute_loss = reading
+    try:
+        s.train(batches(), num_iters=6, log_fn=lambda m: None)
+        fail("a step with a host read inside it was not refused")
+    except PipelineCaptureError as e:
+        msg = str(e)
+    if "chip_smoke.py" not in msg:
+        fail(f"the capture error does not name the failing call: {msg}")
+    st = s.pipeline_stats
+    if st["eager_steps"] != PIPELINE_WARMUP_STEPS or st["replays"] \
+            or s.iteration != PIPELINE_WARMUP_STEPS:
+        fail(f"the refused capture ran steps anyway: {st}")
+    torch.cuda.synchronize()
+    s = solver()
+    failpoints.reset()
+    failpoints.arm("pipeline.stage", times=1, delay=4)
+    try:
+        s.train(batches(), num_iters=8, log_fn=lambda m: None)
+        fail("a staging error did not surface")
+    except PrefetchStageError as e:
+        if e.batch_index != 4 or s.iteration != 4:
+            fail(f"staging error at batch {e.batch_index}, iteration "
+                 f"{s.iteration}")
+    finally:
+        failpoints.reset()
+    torch.cuda.synchronize()
+    log(f"[5h refusals] a host read in the step: PipelineCaptureError "
+        f"after {PIPELINE_WARMUP_STEPS} warm-up steps, no replay ({msg}); "
+        f"pipeline.stage at batch 4: PrefetchStageError(batch_index=4) "
+        f"at iteration 4 ({card})")
+    return {"capture_error": msg}
+
+
+class _TrainBatches:
+    """The CLI's own TRAIN batches (``_build_data``'s synthetic stream,
+    seed 0), the first ``n`` made up front and then cycled: the host's
+    generator takes ~0.4 s a batch at 224², longer than a step, so a run
+    fed by it measures the generator.  A resumed run takes them from its
+    snapshot's index."""
+
+    def __init__(self, n=PIPE_ITERS):
+        from npairloss_tpu_torch.data.synthetic import (
+            synthetic_identity_batches,
+        )
+
+        gen = synthetic_identity_batches(240, 60, 2, (224, 224, 3), seed=0)
+        self._made = [next(gen) for _ in range(n)]
+
+    def __getitem__(self, i):
+        return self._made[i % len(self._made)]
+
+    def from_index(self, start=0):
+        i = start
+        while True:
+            yield self[i]
+            i += 1
+
+
+def pipeline_drills(torch, seed, argv, reference, batches, card):
+    """The resilience drills on both loops (googlenet_pallas fp32,
+    dense): a NaN streak rolled back, a halt, a requested rollback set
+    from another thread, SIGTERM mid-window then ``--resume``."""
+    import signal
+    import threading
+
+    from npairloss_tpu_torch.resilience import RollbackRequest, failpoints
+    from npairloss_tpu_torch.train import solver as tsolver
+    from npairloss_tpu_torch.resilience.snapshot import (
+        QUARANTINE_SUFFIX,
+        list_snapshots,
+    )
+
+    out = {}
+
+    def both(name, extra, arm):
+        res = {}
+        for loop in ("sync", "pipe"):
+            failpoints.reset()
+            failpoints.arm(*arm[0], **arm[1])
+            try:
+                res[loop] = _pipe_train(torch, seed, f"drill_{name}",
+                                        argv + extra, loop == "pipe",
+                                        batches=batches.from_index(0),
+                                        **NO_TEST)
+            finally:
+                failpoints.reset()
+        return res["sync"], res["pipe"]
+
+    def ev_keys(r):
+        return [(e["event"], e["iteration"]) for e in r["events"]]
+
+    # (1) step.nan_loss at steps 7-9, patience 3: rollback to iter 4,
+    # the iter-8 snapshot (committed mid-streak) quarantined.
+    quarantined = []
+    orig_q = tsolver.quarantine_snapshots
+
+    def recording(prefix, min_step):
+        moved = orig_q(prefix, min_step)
+        quarantined.append([os.path.basename(m) for m in moved])
+        return moved
+
+    tsolver.quarantine_snapshots = recording
+    try:
+        s, p = both("nan", ["--divergence-patience", "3"],
+                    arm=(("step.nan_loss",), {"times": 3, "delay": 6}))
+    finally:
+        tsolver.quarantine_snapshots = orig_q
+    want_q = ["snap_iter_8.ckpt" + QUARANTINE_SUFFIX]
+    for loop, r, q in (("sync", s, quarantined[:1]),
+                       ("pipe", p, quarantined[1:])):
+        rb = [e for e in r["events"] if e["event"] == "rollback"]
+        snaps = [k for k, _ in list_snapshots(os.path.join(r["work"],
+                                                           "snap_"))]
+        if r["rc"] != 0 or len(rb) != 1 or rb[0]["iteration"] != 9 \
+                or rb[0]["to_iteration"] != 4 or q != [want_q] \
+                or snaps != [4, 8, 12]:
+            fail(f"5h drill nan {loop}: rc {r['rc']}, rollbacks {rb}, "
+                 f"quarantined {q}, snapshots {snaps}")
+    cut = [e["event"] for e in s["events"]].index("rollback") + 1
+    if ev_keys(s) != ev_keys(p) or _masked_events(
+            s["events"][:cut], s["work"]) != _masked_events(
+            p["events"][:cut], p["work"]):
+        fail(f"5h drill nan: streams differ: {ev_keys(s)} vs {ev_keys(p)}")
+    out["nan_rollback"] = ev_keys(s)
+    log(f"[5h drill] step.nan_loss x3 at step 7, patience 3: both loops "
+        f"rolled back at iter 9 to iter 4, quarantined iter 8; events "
+        f"{ev_keys(s)} (the same on both; after the rollback the pipelined "
+        "loop trains on later batches: it spent 10-12 before its window "
+        "read)")
+
+    # (2) --divergence-action halt: DivergenceError, exit 1.
+    s, p = both("halt", ["--divergence-patience", "3",
+                         "--divergence-action", "halt"],
+                arm=(("step.nan_loss",), {"times": 3, "delay": 6}))
+    if s["rc"] != 1 or p["rc"] != 1 or _masked_events(
+            s["events"], s["work"]) != _masked_events(p["events"], p["work"]):
+        fail(f"5h drill halt: rc {s['rc']}/{p['rc']}, events "
+             f"{ev_keys(s)} vs {ev_keys(p)}")
+    out["halt"] = ev_keys(s)
+    log(f"[5h drill] --divergence-action halt: exit 1 on both loops, "
+        f"events {ev_keys(s)}")
+
+    # (3) a RollbackRequest set from another thread when batch 8 is
+    # pulled (by the staging thread, in the pipelined loop): taken at
+    # iter 8 by both loops (display 0: the window closes at the
+    # snapshot cadence, 4).
+    class Requesting:
+        def __init__(self):
+            self.i = 0
+            self.solver = None
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            self.i += 1
+            if self.i == 8:
+                t = threading.Thread(
+                    target=self.solver.request_rollback,
+                    args=(RollbackRequest(reason="drill",
+                                          before_wall_time=time.time()),))
+                t.start()
+                t.join()
+            return batches[self.i - 1]
+
+    res = {}
+    for loop in ("sync", "pipe"):
+        failpoints.reset()
+        req = Requesting()
+
+        def remember(solver, loop, n, req=req):
+            req.solver = solver
+
+        res[loop] = _pipe_train(torch, seed, "drill_request", argv,
+                                loop == "pipe", batches=req,
+                                hook=remember, display=0, **NO_TEST)
+    s, p = res["sync"], res["pipe"]
+    for loop, r in res.items():
+        rb = [e for e in r["events"] if e["event"] == "rollback"]
+        if r["rc"] != 0 or len(rb) != 1 or not rb[0].get("requested") \
+                or rb[0]["iteration"] != 8 or rb[0]["to_iteration"] != 4:
+            fail(f"5h drill request {loop}: rc {r['rc']}, rollbacks {rb}")
+    if _masked_events(s["events"], s["work"]) != _masked_events(
+            p["events"], p["work"]) or _masked_lines(s) != _masked_lines(p):
+        fail(f"5h drill request: streams differ: {ev_keys(s)} vs "
+             f"{ev_keys(p)}")
+    differ, _ = _state_equal(torch, s["solver"], p["solver"])
+    if differ:
+        fail(f"5h drill request: final state differs in {differ[:5]}")
+    out["requested_rollback"] = ev_keys(s)
+    log("[5h drill] RollbackRequest from another thread at batch 8: taken "
+        "at iter 8 on both loops, rolled back to iter 4; streams byte for "
+        "byte, final state bit for bit")
+
+    # (4) SIGTERM before step 6 (mid-window): the partial window flushed,
+    # the emergency snapshot, exit 75; --resume auto from there equals
+    # the uninterrupted run bit for bit.
+    def sigterm(solver, loop, n):
+        if n == 6:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    res = {}
+    for loop in ("sync", "pipe"):
+        r = _pipe_train(torch, seed, "drill_sigterm", argv, loop == "pipe",
+                        batches=batches.from_index(0), hook=sigterm,
+                        **NO_TEST)
+        last = json.loads(r["lines"][-1]) if r["lines"] else {}
+        solver = r["solver"]
+        if r["rc"] != 75 or not last.get("preempted") \
+                or last.get("iteration") != 6 or solver.iteration != 6 \
+                or len(solver._loss_window) != 6:
+            fail(f"5h drill sigterm {loop}: rc {r['rc']}, {last}, loss "
+                 f"window {len(solver._loss_window)}")
+        snaps = [k for k, _ in list_snapshots(os.path.join(r["work"],
+                                                           "snap_"))]
+        if snaps != [4, 6]:
+            fail(f"5h drill sigterm {loop}: snapshots {snaps}")
+        resumed = _pipe_train(torch, seed, "drill_sigterm_resume",
+                              argv + ["--resume", os.path.join(
+                                  r["work"], "snap_iter_6.ckpt")],
+                              loop == "pipe", batches=batches.from_index(6),
+                              **NO_TEST)
+        if resumed["rc"] != 0 or resumed["solver"].iteration != PIPE_ITERS:
+            fail(f"5h drill sigterm {loop}: resume rc {resumed['rc']}")
+        differ, n = _state_equal(torch, resumed["solver"], reference)
+        if differ:
+            fail(f"5h drill sigterm {loop}: resumed state differs from the "
+                 f"uninterrupted run in {differ[:5]}")
+        res[loop] = r
+    if _masked_events(res["sync"]["events"], res["sync"]["work"]) != \
+            _masked_events(res["pipe"]["events"], res["pipe"]["work"]):
+        fail("5h drill sigterm: streams differ")
+    out["sigterm"] = ev_keys(res["sync"])
+    log(f"[5h drill] SIGTERM before step 6: both loops flushed steps 5-6, "
+        f"committed iter 6, exit 75; --resume from it equals the "
+        f"uninterrupted run bit for bit ({n} tensors) ({card})")
+    return out
+
+
+
+def drive_pipeline(torch, seed, detail, list_net):
+    """Phase 5h: ``train --pipeline`` against the synchronous loop in four
+    configurations at batch 120, 224², then the resilience drills on both
+    loops.  cuDNN deterministic for the bitwise comparisons."""
+    card = detail["card"]
+    t_start = time.perf_counter()
+    os.makedirs(PIPE_WORK, exist_ok=True)
+    nets = {"cub": "examples/googlenet_cub.prototxt",
+            "relhard": blockwise_net(PIPE_WORK)}
+    # Whether a wait on a CUDA event counts as a host sync for PyTorch's
+    # sync debug mode (the dispatch controller's wait is one).
+    ev = torch.cuda.Event()
+    ev.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ev.synchronize()
+        event_trips = False
+    except RuntimeError:
+        event_trips = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"[5h] a CUDA event's synchronize under sync debug mode 'error' "
+        f"{'raises' if event_trips else 'passes'} (the controller's wait "
+        "stays outside the guarded dispatch either way)")
+    cudnn = torch.backends.cudnn
+    det, bench = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    configs = {}
+    reference = None
+    t0 = time.perf_counter()
+    batches = _TrainBatches()
+    log(f"[5h] {PIPE_ITERS} synthetic batches made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        for tag, argv, net in PIPE_RUNS:
+            rec, final = check_pipeline_config(
+                torch, seed, tag, ["--net", nets[net], *argv], batches, card)
+            configs[tag] = rec
+            if tag == "pallas_fp32":
+                reference = final
+            del final
+            _release(torch)
+        argv = dict((t, a) for t, a, _ in PIPE_RUNS)["pallas_fp32"]
+        drills = pipeline_drills(torch, seed, ["--net", nets["cub"], *argv],
+                                 reference, batches, card)
+        list_files = check_pipeline_list_files(torch, seed, list_net, card)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = det, bench
+    del reference
+    _release(torch)
+    wall = time.perf_counter() - t_start
+    log(f"[5h] {wall:.1f} s")
+    detail["pipeline"] = {"configs": configs, "drills": drills,
+                          "list_files": list_files,
+                          "event_sync_trips_debug_mode": event_trips,
+                          "wall_s": wall}
+    return configs
+
+
+def _release(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3443,11 +4106,14 @@ def main() -> int:
     del emb, labels
     bn_launches = drive_bn_train(torch, args.seed, detail)
     drive_bn_learning(torch, args.seed, detail)
+    drive_pipeline(torch, args.seed, detail, list_net)
     bw_rows = check_blockwise_kernels(torch, Timer(torch), detail, args.seed)
     bw_launches, bw_radix_launches, _ = drive_blockwise_train(
         torch, args.seed, detail, dense_step_ms)
     check_stretch(torch, Timer(torch), detail, args.seed)
     check_stretch_bf16(torch, Timer(torch), detail, args.seed)
+    detail["pipeline"]["refusals"] = check_pipeline_refusals(
+        torch, detail["card"])
 
     def entry(name, source, replaces, rows, counter, path=None):
         return {"name": name, "route": "cuda", "source": source,

@@ -23,7 +23,10 @@ that is not ported is refused by argparse, never accepted and ignored.
            a weights file.  SIGTERM/SIGINT: the in-flight step finishes,
            an emergency snapshot is committed, a ``{"preempted": true,
            ...}`` line is printed and the exit code is 75 (relaunch with
-           ``--resume auto``);
+           ``--resume auto``).  ``--pipeline`` takes the sync-free loop
+           (on the card: the step captured once as a CUDA graph and
+           replayed); ``--divergence-patience N`` arms the divergence
+           guard (rollback to a valid snapshot, or halt: exit 1);
   test:    the TEST phase from a snapshot or weights (``caffe test``);
   extract: eval-mode embeddings of a phase's batches to
            ``OUT.emb.npy`` + ``OUT.labels.npy``;
@@ -100,6 +103,10 @@ def cmd_serve(args) -> int:
     if refusal:
         log.error("%s", refusal)
         return 2
+    if args.compile_cache:
+        from npairloss_tpu_torch.pipeline import enable_compile_cache
+
+        enable_compile_cache(args.compile_cache)
     device = resolve_device(args.device)
     index = load_index(args.index, device=device)
     kind = "ivf" if index.KIND == "ivf-index" else "flat"
@@ -237,6 +244,20 @@ def _build_solver(args, phases=()):
         val = getattr(args, key, None)
         if val not in (None, ""):
             solver_cfg = dataclasses.replace(solver_cfg, **{field: val})
+    if getattr(args, "pipeline", False):
+        solver_cfg = dataclasses.replace(
+            solver_cfg, pipeline=True,
+            pipeline_depth=getattr(args, "pipeline_depth", 2) or 2,
+            pipeline_window=getattr(args, "pipeline_window", 0) or 0)
+    if getattr(args, "compile_cache", None):
+        solver_cfg = dataclasses.replace(solver_cfg,
+                                         compile_cache=args.compile_cache)
+        # Now, before anything below builds a kernel or the native
+        # runtime: the cache must cover every program this process
+        # builds.
+        from npairloss_tpu_torch.pipeline import enable_compile_cache
+
+        enable_compile_cache(args.compile_cache)
     if net_cfg.param_mults_conflict:
         log.error("%s", net_cfg.param_mults_conflict)
         return 2
@@ -302,8 +323,10 @@ def _build_solver(args, phases=()):
 
 
 def cmd_train(args) -> int:
-    from npairloss_tpu_torch.resilience.preempt import (
+    from npairloss_tpu_torch.resilience import (
         EXIT_PREEMPTED,
+        DivergenceConfig,
+        DivergenceError,
         PreemptionSignal,
         TrainingPreempted,
     )
@@ -315,6 +338,16 @@ def cmd_train(args) -> int:
     if net_cfg.data.get("TRAIN") is None:
         log.error("net has no TRAIN MultibatchData layer")
         return 2
+    if args.divergence_patience:
+        try:
+            solver.divergence = DivergenceConfig(
+                patience=args.divergence_patience,
+                action=args.divergence_action,
+                lr_scale=args.divergence_lr_scale,
+                max_rollbacks=args.divergence_max_rollbacks)
+        except ValueError as e:
+            log.error("%s", e)
+            return 2
 
     # Graceful preemption: SIGTERM/SIGINT finish the in-flight step,
     # commit an emergency snapshot and exit EXIT_PREEMPTED, so a
@@ -345,6 +378,9 @@ def cmd_train(args) -> int:
         except TrainingPreempted as e:
             # The emergency snapshot landed before the raise.
             preempted = e
+        except DivergenceError as e:
+            log.error("%s", e)
+            return 1
     finally:
         if preempt is not None:
             preempt.uninstall()
@@ -659,6 +695,10 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--deadline-ms", dest="deadline_ms", type=float,
                     default=5.0)
     sv.add_argument("--max-queue", dest="max_queue", type=int, default=256)
+    sv.add_argument(
+        "--compile-cache", dest="compile_cache", metavar="DIR",
+        help="shared build directory (see train --compile-cache): replica "
+        "restarts load the kernel library instead of rebuilding it")
     common(sv)
     sv.set_defaults(fn=cmd_serve)
 
@@ -751,6 +791,51 @@ def build_parser() -> argparse.ArgumentParser:
                     help="retention GC: keep only the newest N committed "
                     "snapshots (default: solver snapshot_max_keep; 0 keeps "
                     "all)")
+    tr.add_argument(
+        "--divergence-patience", dest="divergence_patience", type=int,
+        default=0, metavar="N",
+        help="arm the divergence guard: N consecutive non-finite losses "
+        "trigger --divergence-action (0 = off; costs one host sync per "
+        "step when armed)")
+    tr.add_argument(
+        "--divergence-action", dest="divergence_action",
+        choices=["rollback", "halt"], default="rollback",
+        help="guard action: rollback restores the newest valid snapshot "
+        "(bounded by --divergence-max-rollbacks), halt stops with a "
+        "diagnosis")
+    tr.add_argument(
+        "--divergence-lr-scale", dest="divergence_lr_scale", type=float,
+        default=1.0, metavar="S",
+        help="multiply base_lr by S on each rollback (e.g. 0.5 halves "
+        "the lr so the trajectory doesn't re-diverge)")
+    tr.add_argument(
+        "--divergence-max-rollbacks", dest="divergence_max_rollbacks",
+        type=int, default=2, metavar="N",
+        help="rollbacks allowed before the guard halts anyway")
+    tr.add_argument(
+        "--pipeline", action="store_true",
+        help="sync-free stepping: device-resident double-buffered batch "
+        "prefetch, per-step scalars accumulated in a device-side ring "
+        "and read back only at display/test/snapshot window boundaries, "
+        "dispatch depth bounded; on the card the step is captured once "
+        "as a CUDA graph and replayed; bit-identical to the default "
+        "loop")
+    tr.add_argument(
+        "--pipeline-depth", dest="pipeline_depth", type=int, default=2,
+        metavar="K",
+        help="prefetch depth AND max in-flight dispatched steps "
+        "(default 2 — double buffering)")
+    tr.add_argument(
+        "--pipeline-window", dest="pipeline_window", type=int, default=0,
+        metavar="W",
+        help="cap on steps between host syncs (0 = auto: the smallest "
+        "active display/test/snapshot cadence, else 64); bounds the "
+        "divergence guard's detection staleness")
+    tr.add_argument(
+        "--compile-cache", dest="compile_cache", metavar="DIR",
+        help="shared build directory for the kernel library and the "
+        "native data runtime: programs built by ANY process land here, "
+        "so reruns and sibling processes load instead of rebuilding")
     tr.add_argument("--no-preempt-handler", dest="no_preempt_handler",
                     action="store_true",
                     help="do not install the SIGTERM/SIGINT graceful-"

@@ -10,9 +10,11 @@ with a ``torch.Generator`` on the device seeded from ``seed``.  It
 returns (images fp32 [B, H, W, 3], labels int32 [B]), both on the
 device.
 
+The ``data.worker`` failpoint crashes the prefetch worker where the JAX
+loader's does (``_produce_one``), exercising the bounded respawn.
+
 Not ported yet: ``shard_batches`` (the per-process shards of
-distribution, ROADMAP Queue 1 item 7) and the ``data.worker`` failpoint
-(item 8).
+distribution, ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from npairloss_tpu_torch.data.dataset import ListFileDataset
 from npairloss_tpu_torch.data.sampler import IdentityBalancedSampler
 from npairloss_tpu_torch.data.transforms import augment
 from npairloss_tpu_torch.device import DeviceLike, resolve_device
+from npairloss_tpu_torch.resilience import failpoints
 
 log = logging.getLogger("npairloss_tpu_torch.data")
 
@@ -121,6 +124,7 @@ class MultibatchLoader(_DeviceSide):
 
     def _produce_one(self):
         """Host side, on the worker thread: sample, decode, pin."""
+        failpoints.fire("data.worker")
         idx = next(self.sampler)
         images = torch.from_numpy(
             np.ascontiguousarray(self.dataset.load_batch(idx)))

@@ -9,6 +9,11 @@ cuDNN convolutions default to TF32 on Ampere and later, which keeps
 about three decimal digits and would break fp32 parity with the JAX
 reference without a word; :func:`set_parity_precision` turns TF32 off
 for both convolutions and matrix products.
+
+:func:`upload` and :func:`fetch` are the port's own host<->device
+transfer entry points; callers reach them as attributes of this module
+(``device.upload``), so ``pipeline.syncguard.HostSyncMonitor`` can count
+every transfer a loop makes.
 """
 
 from __future__ import annotations
@@ -52,3 +57,11 @@ def upload(data, device: torch.device) -> torch.Tensor:
             and not t.is_pinned():
         t = t.pin_memory()
     return t.to(device, non_blocking=True)
+
+
+def fetch(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host as a NumPy array: from a card, a
+    synchronous device-to-host copy (the host waits for the stream).
+    The pipelined loop's window read goes through here, so a sync
+    monitor (``pipeline.syncguard``) sees it."""
+    return t.detach().to("cpu").numpy()

@@ -17,7 +17,12 @@ Each kernel wrapper carries a plain integer ``launches`` attribute,
 incremented where it launches its kernel and nowhere else; a run reads
 them with :func:`launch_counts` to show which kernels the path used.  A
 wrapper that also carries ``bf16_launches`` (the blockwise sweeps, in
-their bf16 mode) is read there as ``<name>:bf16`` too.
+their bf16 mode) is read there as ``<name>:bf16`` too.  A wrapper's
+Python runs once when a CUDA graph captures it and never when the graph
+replays: the capturing code takes the counters' change across the
+capture (:func:`counter_state`), takes it back out, and adds it once per
+replay (:func:`add_counters`), so a counter still counts launches on the
+card.
 """
 
 from __future__ import annotations
@@ -106,6 +111,23 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "bf16_launches"):
             fn.bf16_launches = 0
+
+
+# Every counter attribute a wrapper may carry.
+_COUNTER_ATTRS = ("launches", "bf16_launches", "scalar_launches")
+
+
+def counter_state() -> Dict[tuple, int]:
+    """Every counter of every wrapper, keyed by (wrapper, attribute)."""
+    return {(fn, a): getattr(fn, a) for fn in _counted
+            for a in _COUNTER_ATTRS if hasattr(fn, a)}
+
+
+def add_counters(delta: Dict[tuple, int], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (a difference of two
+    :func:`counter_state` readings) to the counters."""
+    for (fn, a), n in delta.items():
+        setattr(fn, a, getattr(fn, a) + times * n)
 
 
 def _nvcc() -> str:

@@ -10,14 +10,23 @@
     emergency snapshot, exit :data:`EXIT_PREEMPTED` so a supervisor
     relaunches with ``--resume auto``;
   * ``resilience.failpoints`` — named fault-injection points
-    (``NPAIRLOSS_FAILPOINTS`` or programmatic).
+    (``NPAIRLOSS_FAILPOINTS`` or programmatic);
+  * ``resilience.guard`` — the divergence guard (N consecutive
+    non-finite losses -> rollback to a valid snapshot, or halt) and the
+    externally requested rollback.
 
-The divergence guard, the WAL and remediation are ROADMAP Queue 1 item
-9's remainder.
+The WAL and remediation are ROADMAP Queue 1 item 9's remainder.
 """
 
 from npairloss_tpu_torch.resilience import failpoints
 from npairloss_tpu_torch.resilience.failpoints import InjectedFault
+from npairloss_tpu_torch.resilience.guard import (
+    ACTIONS,
+    DivergenceConfig,
+    DivergenceError,
+    DivergenceGuard,
+    RollbackRequest,
+)
 from npairloss_tpu_torch.resilience.preempt import (
     EXIT_PREEMPTED,
     PreemptionSignal,
@@ -42,10 +51,15 @@ from npairloss_tpu_torch.resilience.snapshot import (
 )
 
 __all__ = [
+    "ACTIONS",
+    "DivergenceConfig",
+    "DivergenceError",
+    "DivergenceGuard",
     "EXIT_PREEMPTED",
     "InjectedFault",
     "PreemptionSignal",
     "RetryPolicy",
+    "RollbackRequest",
     "SnapshotError",
     "SnapshotValidationError",
     "TrainingPreempted",

@@ -22,8 +22,11 @@ Arming, two ways:
 
 The vocabulary is the JAX package's (docs/RESILIENCE.md), so one
 ``NPAIRLOSS_FAILPOINTS`` value arms both packages alike.  The port wires
-the five ``snapshot.*`` seams so far (``resilience/snapshot.py``,
-``train/solver.py``); the others arrive with the modules that fire them.
+the five ``snapshot.*`` seams (``resilience/snapshot.py``,
+``train/solver.py``), ``data.worker`` (``data/loader.py``),
+``pipeline.stage`` (``pipeline/prefetcher.py``), ``step.nan_loss`` and
+``train.collapse`` (``train/solver.py``); the others arrive with the
+modules that fire them.
 
   ==========================  =============================================
   ``snapshot.save.io``        transient OSError inside the snapshot write

@@ -11,7 +11,8 @@ Rates are computed in fp32, as the JAX schedule computes them.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -84,16 +85,31 @@ def param_mults(names: Sequence[str], mults: Optional[Mults] = None
     return {n: (b if n in biases else w) for n in names}
 
 
+def scaled_lr(lr: Union[float, torch.Tensor],
+              lmul: float) -> Union[float, torch.Tensor]:
+    """``lr * lr_mult`` rounded to fp32: a float for a host lr, a 0-d
+    fp32 device tensor for a device lr.  Both are one fp32 product of
+    the same two fp32 operands, so they are equal bit for bit; the
+    device form lets a captured CUDA graph read an lr written before
+    each replay instead of baking the capture step's."""
+    if isinstance(lr, torch.Tensor):
+        return lr.to(torch.float32) * float(_F(lmul))
+    return float(_F(lr) * _F(lmul))
+
+
 @torch.no_grad()
 def caffe_sgd(params: Mapping[str, torch.Tensor],
               grads: Mapping[str, Optional[torch.Tensor]],
-              momentum_buf: Mapping[str, torch.Tensor], lr: float,
+              momentum_buf: Mapping[str, torch.Tensor],
+              lr: Union[float, torch.Tensor],
               momentum: float = 0.9, weight_decay: float = 0.0,
               mults: Optional[Mapping[str, Tuple[float, float]]] = None
               ) -> None:
     """One Caffe SGD update, in place on ``params`` and ``momentum_buf``
     (fp32 buffers), every product and sum rounded on its own as the JAX
-    update computes it.  A missing grad counts as zero."""
+    update computes it.  A missing grad counts as zero.  ``lr`` is a
+    host float or a 0-d fp32 tensor on the parameters' device
+    (:func:`scaled_lr`)."""
     mu = float(_F(momentum))
     for name, w in params.items():
         lmul, dmul = (mults or {}).get(name, (1.0, 1.0))
@@ -103,5 +119,5 @@ def caffe_sgd(params: Mapping[str, torch.Tensor],
         if weight_decay and dmul:
             g = g + w.float() * float(_F(weight_decay) * _F(dmul))
         v = momentum_buf[name]
-        v.mul_(mu).add_(g * float(_F(lr) * _F(lmul)))
+        v.mul_(mu).add_(g * scaled_lr(lr, lmul))
         w.sub_(v.to(w.dtype))

@@ -26,23 +26,47 @@ A ``PreemptionSignal`` attached as ``solver.preempt`` stops the loop
 after the in-flight step: an emergency snapshot, then
 ``TrainingPreempted``.
 
-Not yet ported (later slices, ROADMAP Queue 1): the pipelined loop
-(item 8), meshes (item 7), telemetry, the divergence guard and
-requested rollbacks (item 9's remainder).
+``solver.divergence`` (a ``DivergenceConfig``; None = off) arms the
+divergence guard: N consecutive non-finite losses roll the solver back
+to the newest valid snapshot before the streak (quarantining the later
+ones) or halt with ``DivergenceError``; armed, the synchronous loop
+reads each step's loss on the host (one sync a step).
+``request_rollback`` (any thread) asks the loop to restore a snapshot
+committed before an incident at its next safe point.
+
+``SolverConfig.pipeline`` routes ``train`` through the sync-free loop
+(``_train_pipelined``): a staging thread places batches on the card on
+its own stream (``pipeline.DevicePrefetcher``), the step writes its
+metrics into a device-side ring (``pipeline.MetricWindow``) that the
+host reads only at display/test/snapshot boundaries, and at most
+``pipeline_depth`` steps are in flight (``pipeline.DispatchController``).
+On a card the step — forward, loss through either engine, backward,
+Caffe SGD, the ring write and the non-finite counter — is captured once
+as one CUDA graph after ``PIPELINE_WARMUP_STEPS`` eager steps on a side
+stream, and replayed for every later step; a step that cannot be
+captured raises, it never runs eagerly in the graph's place.  On the
+CPU the same step body runs eagerly.  Both loops emit the same record
+stream, byte for byte, and end on the same parameters bit for bit.
+
+Not yet ported (later slices, ROADMAP Queue 1): meshes (item 7),
+telemetry (item 10), the WAL and remediation engine (items 9 and 12).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import os
+import threading
+import time
 from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from npairloss_tpu_torch.device import upload
+from npairloss_tpu_torch import device as _device
 from npairloss_tpu_torch.ops.blockwise_npair import (
     blockwise_npair_loss_with_aux,
     blockwise_retrieval_metrics,
@@ -53,7 +77,14 @@ from npairloss_tpu_torch.ops.npair_loss import (
     npair_loss_with_aux,
     resolve_matmul_precision,
 )
+from npairloss_tpu_torch.ops import _build
 from npairloss_tpu_torch.resilience import failpoints
+from npairloss_tpu_torch.resilience.guard import (
+    DivergenceConfig,
+    DivergenceError,
+    DivergenceGuard,
+    RollbackRequest,
+)
 from npairloss_tpu_torch.resilience.preempt import TrainingPreempted
 from npairloss_tpu_torch.resilience.retrying import (
     RetryPolicy,
@@ -64,8 +95,10 @@ from npairloss_tpu_torch.resilience.snapshot import (
     commit_snapshot,
     gc_snapshots,
     list_snapshots,
+    quarantine_snapshots,
     read_manifest,
     read_state,
+    snapshot_info,
     validate_snapshot,
     verify_restored,
 )
@@ -79,6 +112,15 @@ from npairloss_tpu_torch.train.optim import (
 log = logging.getLogger("npairloss_tpu_torch.solver")
 
 Batches = Iterator[Tuple[np.ndarray, np.ndarray]]
+
+# Eager steps on a side stream before the pipelined step is captured:
+# cuBLAS and cuDNN set up their workspaces and plans there, never inside
+# the capture.  They are real steps of the run.
+PIPELINE_WARMUP_STEPS = 2
+
+
+class PipelineCaptureError(RuntimeError):
+    """The pipelined step could not be captured as one CUDA graph."""
 
 
 @dataclasses.dataclass
@@ -107,6 +149,46 @@ class SolverConfig:
     # after each commit; 0 keeps all (Caffe's behavior — the JAX
     # package's own extension, not a SolverParameter field).
     snapshot_max_keep: int = 0
+    # Sync-free stepping — extensions, not SolverParameter fields.
+    # ``pipeline`` routes ``train`` through the pipelined loop (staged
+    # batches, a device-side metric ring read at display/test/snapshot
+    # boundaries, at most ``pipeline_depth`` steps in flight; on a card
+    # the step replays one captured CUDA graph).  ``pipeline_window``
+    # caps the steps between host reads (0 = auto: the smallest active
+    # cadence, else 64) — it bounds the divergence guard's staleness.
+    pipeline: bool = False
+    pipeline_depth: int = 2
+    pipeline_window: int = 0
+    # A shared build directory for the kernel library and the native
+    # runtime ("" = the checkout's build/; pipeline.enable_compile_cache).
+    compile_cache: str = ""
+
+
+def _new_pipeline_stats() -> Dict[str, Any]:
+    """A pipelined run's counters: its eager and replayed steps, its
+    captures with their ms and the bytes their graph pools reserved;
+    at the run's end also the controller's waits and the prefetcher's
+    staged/consumed batches."""
+    return {"eager_steps": 0, "replays": 0, "captures": 0,
+            "capture_ms": [], "pool_bytes": []}
+
+
+def _first_failure(exc: BaseException) -> str:
+    """The first error of a failed capture — the op that broke it, with
+    the last call site outside torch — not the invalidated capture's
+    later errors that it chains to."""
+    import traceback
+
+    first = exc
+    while first.__context__ is not None:
+        first = first.__context__
+    msg = f"{type(first).__name__}: {str(first).strip().splitlines()[0]}"
+    frames = [f for f in traceback.extract_tb(first.__traceback__)
+              if f"{os.sep}torch{os.sep}" not in f.filename]
+    if frames:
+        f = frames[-1]
+        msg += f" at {os.path.basename(f.filename)}:{f.lineno} ({f.line})"
+    return msg
 
 
 def _fmt(metrics: Dict[str, float]) -> str:
@@ -177,29 +259,65 @@ class Solver:
         self.pos_topk = pos_topk
         self.model = model
         self.loss_cfg = loss_cfg
-        self.cfg = cfg if cfg is not None else SolverConfig()
         self.top_ks = tuple(top_ks)
         self.loss_weight = float(loss_weight)
         self.device = next(model.parameters()).device
         self.params = dict(model.named_parameters())
         self.mults = mult_table(list(self.params), param_mults)
-        self.rate_fn = lr_schedule(
-            self.cfg.lr_policy, self.cfg.base_lr, self.cfg.gamma,
-            self.cfg.stepsize, self.cfg.power, self.cfg.max_iter,
-            self.cfg.stepvalues)
-        self._loss_window: collections.deque = collections.deque(
-            maxlen=max(self.cfg.average_loss, 1))
+        self.cfg = cfg if cfg is not None else SolverConfig()
         self.snapshot_retry = snapshot_retry
         # A resilience.PreemptionSignal; the loop polls it once a step.
         self.preempt = None
+        # A resilience.DivergenceConfig arms the divergence guard.
+        self.divergence: Optional[DivergenceConfig] = None
+        # A pipeline.HostSyncMonitor for the pipelined loop (None: the
+        # NPAIRLOSS_PIPELINE_SYNC_GUARD environment variable decides).
+        self.sync_monitor = None
+        # An externally requested rollback: any thread sets it through
+        # request_rollback, the loop takes it at its next safe point
+        # (synchronous: each step; pipelined: the window boundary).
+        self._rollback_request: Optional[RollbackRequest] = None
+        self._rollback_lock = threading.Lock()
+        # The pipelined loop's device state: the captured step
+        # (_PipelinedStep), the lr it reads, the metric ring; and the
+        # last pipelined run's counters (pipeline_stats).
+        self._pipe: Optional[_PipelinedStep] = None
+        self._lr_dev: Optional[torch.Tensor] = None
+        self._window = None
+        self._ring: Optional[Dict[str, torch.Tensor]] = None
+        self._side_stream = None
+        self.pipeline_stats: Dict[str, Any] = _new_pipeline_stats()
         self._reset_optimizer()
+
+    # -- config (the schedule and the loss window derive from it) ----------
+
+    @property
+    def cfg(self) -> SolverConfig:
+        return self._cfg
+
+    @cfg.setter
+    def cfg(self, cfg: SolverConfig) -> None:
+        """A new config rebuilds the lr schedule and the loss window.
+        The captured pipelined step reads its lr from a device scalar
+        written before each replay, so an lr change needs no re-capture;
+        a change to what the graph holds as a constant (momentum, weight
+        decay) changes its key, and the next step captures anew."""
+        self._cfg = cfg
+        self.rate_fn = lr_schedule(
+            cfg.lr_policy, cfg.base_lr, cfg.gamma, cfg.stepsize, cfg.power,
+            cfg.max_iter, cfg.stepvalues)
+        self._loss_window: collections.deque = collections.deque(
+            maxlen=max(cfg.average_loss, 1))
 
     # -- state ------------------------------------------------------------
 
     def _reset_optimizer(self) -> None:
+        """Fresh momentum buffers (new tensors: a captured step that
+        held the old ones is dropped) and iteration 0."""
         self.momentum = {n: torch.zeros_like(p, dtype=torch.float32)
                          for n, p in self.params.items()}
         self.iteration = 0
+        self._pipe = None
 
     def init(self, seed: Optional[int] = None) -> None:
         """Fresh weights from a ``torch.Generator`` seeded with ``seed``
@@ -232,7 +350,9 @@ class Solver:
     def load_state(self, state: Dict[str, torch.Tensor]) -> None:
         """Take over a :meth:`state_dict` (a restored snapshot): the same
         names and shapes, or a ``SnapshotValidationError`` before any
-        tensor is touched."""
+        tensor is touched.  Every tensor is copied in place
+        (``load_state_dict``, ``copy_``), so a captured pipelined step
+        stays valid across a restore (a rollback)."""
         cur = self.state_dict()
         if set(state) != set(cur):
             missing = sorted(set(cur) - set(state))[:3]
@@ -324,13 +444,15 @@ class Solver:
                  "fresh", prefix)
         return None
 
+
     # -- one step -----------------------------------------------------------
 
     def _put(self, inputs, labels):
         """The batch on the solver's device (``device.upload``): host
         arrays go up from pinned memory asynchronously; a loader's
         tensors already on the device stay as they are."""
-        return upload(inputs, self.device), upload(labels, self.device)
+        return (_device.upload(inputs, self.device),
+                _device.upload(labels, self.device))
 
     def compute_loss(self, emb: torch.Tensor, labels: torch.Tensor):
         """(objective, metrics): the N-pair loss through the configured
@@ -354,25 +476,31 @@ class Solver:
             loss = loss * float(np.float32(self.loss_weight))
         return loss, metrics
 
-    def step(self, inputs, labels) -> Dict[str, Any]:
-        """One training iteration; returns the step's metrics (device
-        tensors, and the applied lr as a float)."""
-        x, lab = self._put(inputs, labels)
+    def _train_body(self, x, lab, lr) -> Dict[str, Any]:
+        """Forward, loss, backward and the Caffe SGD update at ``lr`` (a
+        host float, or the pipelined step's device scalar); the step's
+        metrics, sorted as a jitted JAX step returns its dict.  Both
+        loops run this body, so they compute the same bits."""
         self.model.train()
         for p in self.params.values():
             p.grad = None
         emb = self.model(x)
         loss, metrics = self.compute_loss(emb, lab)
         loss.backward()
-        lr = self.rate_fn(self.iteration)
         metrics["lr"] = lr
         caffe_sgd(self.params, {n: p.grad for n, p in self.params.items()},
                   self.momentum, lr, self.cfg.momentum,
                   self.cfg.weight_decay, self.mults)
-        self.iteration += 1
         metrics["loss"] = loss.detach()
-        # Sorted, as a jitted JAX step returns its metric dict.
         return dict(sorted(metrics.items()))
+
+    def step(self, inputs, labels) -> Dict[str, Any]:
+        """One training iteration; returns the step's metrics (device
+        tensors, and the applied lr as a float)."""
+        x, lab = self._put(inputs, labels)
+        metrics = self._train_body(x, lab, self.rate_fn(self.iteration))
+        self.iteration += 1
+        return metrics
 
     @torch.no_grad()
     def evaluate(self, batches: Batches, num_iters: int) -> Dict[str, float]:
@@ -401,10 +529,55 @@ class Solver:
         """The Caffe Solver::Solve loop.  ``num_iters`` is the TOTAL
         iteration target (``max_iter``): a solver restored at iteration k
         runs ``num_iters - k`` more steps, every cadence aligned.
-        ``record_fn`` gets one dict per display/test/snapshot/preempt
-        event — the ``--log-json`` stream."""
+        ``record_fn`` gets one dict per display/test/snapshot/rollback/
+        preempt event — the ``--log-json`` stream."""
         cfg = self.cfg
         num_iters = num_iters if num_iters is not None else cfg.max_iter
+        if cfg.compile_cache:
+            from npairloss_tpu_torch.pipeline import enable_compile_cache
+
+            enable_compile_cache(cfg.compile_cache)
+        if cfg.pipeline:
+            return self._train_pipelined(train_batches, num_iters,
+                                         test_batches, log_fn, record_fn)
+        it = self._train_prologue(num_iters, test_batches, log_fn,
+                                  record_fn)
+        guard = (DivergenceGuard(self.divergence)
+                 if self.divergence is not None else None)
+        last: Dict[str, Any] = {}
+        while it < num_iters:
+            metrics = self.step(*next(train_batches))
+            step_num = it + 1
+            if failpoints.should_fire("step.nan_loss"):
+                # The observed loss only; the state is untouched.
+                metrics = dict(metrics)
+                metrics["loss"] = torch.full((), float("nan"),
+                                             device=self.device)
+            self._loss_window.append(metrics["loss"])
+            last = metrics
+            # The guard reads each step's loss on the host: the one
+            # sync a step it costs when armed.
+            if guard is not None and guard.observe(float(metrics["loss"])):
+                it = self._handle_divergence(guard, step_num, log_fn,
+                                             record_fn)
+                continue
+            req = self._take_rollback_request()
+            if req is not None:
+                rolled = self._handle_requested_rollback(
+                    req, step_num, log_fn, record_fn)
+                if rolled is not None:
+                    it = rolled
+                    continue
+            self._emit_step_row(step_num, metrics, log_fn, record_fn)
+            self._boundary_actions(step_num, test_batches, log_fn, record_fn)
+            it = step_num
+        return {k: float(v) for k, v in last.items()}
+
+    def _train_prologue(self, num_iters, test_batches, log_fn,
+                        record_fn) -> int:
+        """Shared entry of both loops: the resume lines and the
+        iteration-0 TEST pass.  Returns the start iteration."""
+        cfg = self.cfg
         it = self.iteration
         if it:
             log_fn(f"resuming from iteration {it}")
@@ -415,24 +588,33 @@ class Solver:
         if (it == 0 and cfg.test_initialization and test_batches is not None
                 and cfg.test_iter > 0):
             self._test(0, test_batches, log_fn, record_fn)
-        last: Dict[str, Any] = {}
-        while it < num_iters:
-            metrics = self.step(*next(train_batches))
-            step_num = it + 1
-            self._loss_window.append(metrics["loss"])
-            last = metrics
-            if cfg.display and step_num % cfg.display == 0:
-                self._display(step_num, metrics, log_fn, record_fn)
-            self._boundary_actions(step_num, test_batches, log_fn, record_fn)
-            it = step_num
-        return {k: float(v) for k, v in last.items()}
+        return it
+
+    def _emit_step_row(self, step_num: int, row, log_fn=None,
+                       record_fn=None) -> None:
+        """Per-step emission after the guard — the display line and
+        record — shared by the synchronous loop, the pipelined window
+        replay and the pending-window flush, so the two loops' streams
+        agree by construction.  ``log_fn=None`` (the flush) skips the
+        display; a pending tail never holds a display step (boundary
+        steps flush in the loop)."""
+        if failpoints.should_fire("train.collapse"):
+            # A degenerate embedding-collapse signal in THIS row only:
+            # the display sees a collapsing space, the state is
+            # untouched.
+            row = {**row, "an_threshold_mean": 1.0}
+        cfg = self.cfg
+        if log_fn is not None and cfg.display \
+                and step_num % cfg.display == 0:
+            self._display(step_num, row, log_fn, record_fn)
 
     def _boundary_actions(self, step_num, test_batches, log_fn,
                           record_fn) -> None:
-        """The test/snapshot/preempt cadence after a step.  On a
-        requested preemption: an emergency snapshot (unless the cadence
-        just took one), then ``TrainingPreempted``, which the CLI maps
-        to ``EXIT_PREEMPTED`` for the supervisor."""
+        """The test/snapshot/preempt cadence after a step (the pipelined
+        loop runs it at window boundaries, which those cadences force).
+        On a requested preemption: an emergency snapshot (unless the
+        cadence just took one), then ``TrainingPreempted``, which the
+        CLI maps to ``EXIT_PREEMPTED`` for the supervisor."""
         cfg = self.cfg
         if (test_batches is not None and cfg.test_interval
                 and step_num % cfg.test_interval == 0):
@@ -452,9 +634,20 @@ class Solver:
             raise TrainingPreempted(step_num, snapshot_path=path,
                                     signum=self.preempt.signum)
 
+    def _loss_avg(self) -> float:
+        """The loss window's mean, taken on the host in fp32 whichever
+        loop filled it (device losses come over in one copy), so both
+        loops print the same bits."""
+        vals = list(self._loss_window)
+        if len({v.device for v in vals}) == 1:
+            host = torch.stack(vals).to("cpu", torch.float32)
+        else:
+            host = torch.stack([v.to("cpu", torch.float32) for v in vals])
+        return float(host.mean())
+
     def _display(self, step_num, metrics, log_fn, record_fn) -> None:
         host = {k: float(v) for k, v in metrics.items()}
-        avg = float(torch.stack(list(self._loss_window)).mean())
+        avg = self._loss_avg()
         log_fn(f"iter {step_num} lr={host.get('lr', 0):.6g} "
                f"loss={avg:.6g} (avg over {len(self._loss_window)}) "
                + _fmt({k: v for k, v in host.items()
@@ -468,3 +661,440 @@ class Solver:
         log_fn(f"iter {step_num} TEST {_fmt(m)}")
         if record_fn is not None:
             record_fn({"event": "test", "iteration": step_num, **m})
+
+    # -- the pipelined loop ---------------------------------------------------
+
+    def _pipeline_window_capacity(self, test_active: bool) -> int:
+        """Steps between host reads: the smallest active cadence (a
+        window read happens AT every display/test/snapshot step, so the
+        ring never spans more than the smallest gap), capped by
+        ``cfg.pipeline_window``; 64 when no cadence is active."""
+        cfg = self.cfg
+        cads = [c for c in (
+            cfg.display,
+            cfg.test_interval if test_active else 0,
+            cfg.snapshot,
+        ) if c]
+        cap = min(cads) if cads else 0
+        user = int(cfg.pipeline_window or 0)
+        if user:
+            cap = min(cap, user) if cap else user
+        return max(int(cap) if cap else 64, 1)
+
+    def _stage_batch(self, inputs, labels):
+        """Device placement on the prefetcher's STAGING THREAD (on its
+        own stream): ``device.upload`` of both halves, as ``_put``
+        places a synchronous step's batch."""
+        return (_device.upload(inputs, self.device),
+                _device.upload(labels, self.device))
+
+    def _pipe_key(self, x, lab, capacity: int) -> tuple:
+        """What a captured step holds fixed: the batch's shapes and
+        dtypes, the engine and its options, the ring's capacity, and the
+        update's constants.  A step whose key differs captures anew."""
+        cfg = self.cfg
+        return (tuple(x.shape), x.dtype, tuple(lab.shape), lab.dtype,
+                self.engine, self.sim_cache, self.pos_topk,
+                self.matmul_precision, self.loss_cfg, self.top_ks,
+                self.loss_weight, capacity, cfg.momentum, cfg.weight_decay)
+
+    def _pipelined_body(self, x, lab, capacity: int) -> None:
+        """One pipelined step on the static batch: the synchronous
+        body at the device lr, then the metrics into the ring.  The
+        first step of a key builds the window from the step's sorted
+        metric names (an eager step: warm-up runs before any capture)."""
+        metrics = self._train_body(x, lab, self._lr_dev)
+        if self._window is None or self._window.keys != tuple(metrics):
+            from npairloss_tpu_torch.pipeline import MetricWindow
+
+            self._window = MetricWindow(tuple(metrics), capacity)
+            self._ring = self._window.init_ring(self.device)
+        self._window.update(self._ring, metrics)
+
+    def _pipelined_step(self, x, lab, capacity: int,
+                        guard: Callable = contextlib.nullcontext) -> None:
+        """Dispatch one pipelined step on the staged batch ``(x, lab)``:
+        copy it into the step's static input, write the lr, then run the
+        step — eagerly on the CPU; on a card eagerly on a side stream
+        for the first ``PIPELINE_WARMUP_STEPS`` steps of a key, then
+        captured once and replayed.  ``guard`` wraps the steady-state
+        dispatch (the sync monitor's strict region); warm-up and capture
+        are set-up and stay outside it."""
+        stats = self.pipeline_stats
+        key = self._pipe_key(x, lab, capacity)
+        p = self._pipe
+        if p is None or p.key != key:
+            p = self._pipe = _PipelinedStep(key, x, lab)
+        if self._lr_dev is None or self._lr_dev.device != self.device:
+            self._lr_dev = torch.zeros((), dtype=torch.float32,
+                                       device=self.device)
+        cuda = self.device.type == "cuda"
+        steady = p.graph is not None or not cuda
+        with (guard() if steady else contextlib.nullcontext()):
+            with torch.no_grad():
+                p.x.copy_(x)
+                p.lab.copy_(lab)
+                self._lr_dev.fill_(self.rate_fn(self.iteration))
+            if not cuda:
+                self._pipelined_body(p.x, p.lab, capacity)
+                stats["eager_steps"] += 1
+            elif p.graph is None and p.eager_steps < PIPELINE_WARMUP_STEPS:
+                self._warmup_step(p, capacity)
+                stats["eager_steps"] += 1
+            else:
+                if p.graph is None:
+                    self._capture(p, capacity)
+                p.graph.replay()
+                _build.add_counters(p.delta)
+                stats["replays"] += 1
+        self.iteration += 1
+
+    def _warmup_step(self, p, capacity: int) -> None:
+        """An eager step on a side stream (the CUDA-graph warm-up)."""
+        cur = torch.cuda.current_stream(self.device)
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        side = self._side_stream
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._pipelined_body(p.x, p.lab, capacity)
+        cur.wait_stream(side)
+        p.eager_steps += 1
+
+    def _capture(self, p, capacity: int) -> None:
+        """Capture the pipelined step as one CUDA graph.  The capture
+        executes nothing, so the caller replays it for this step.  Each
+        kernel wrapper's counters moved once during the capture: that
+        change is taken back out and kept as the graph's launches per
+        replay (``_build.add_counters``)."""
+        dev = self.device
+        for q in self.params.values():
+            q.grad = None
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved(dev)
+        before = _build.counter_state()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            # thread_local: the staging thread's copies and allocations
+            # on its own stream stay legal while this thread captures.
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._pipelined_body(p.x, p.lab, capacity)
+        except Exception as e:
+            raise PipelineCaptureError(
+                f"the pipelined step ({self.engine} engine, batch "
+                f"{tuple(p.x.shape)}) cannot be captured as one CUDA "
+                f"graph: {_first_failure(e)}") from e
+        after = _build.counter_state()
+        p.delta = {k: n - before.get(k, 0) for k, n in after.items()
+                   if n != before.get(k, 0)}
+        _build.add_counters(p.delta, times=-1)
+        p.graph = graph
+        stats = self.pipeline_stats
+        stats["captures"] += 1
+        stats["capture_ms"].append((time.perf_counter() - t0) * 1e3)
+        stats["pool_bytes"].append(torch.cuda.memory_reserved(dev)
+                                   - reserved0)
+        stats["launches_per_replay"] = {
+            f"{fn.__name__}:{a}": n for (fn, a), n in p.delta.items()}
+
+    def _clear_ring(self) -> None:
+        """A fresh ring in place (a rollback, a new run), streak too."""
+        if self._ring is not None:
+            self._window.reset(self._ring)
+            self._ring["streak"].zero_()
+            self._ring["max_streak"].zero_()
+
+    def _train_pipelined(self, train_batches, num_iters, test_batches,
+                         log_fn, record_fn) -> Dict[str, float]:
+        """The sync-free counterpart of the loop in :meth:`train`.
+
+        Steady state makes no host transfer on the training thread:
+        batches arrive staged from the prefetcher's thread, the step
+        writes its scalars into the device-side ring, and the host reads
+        the whole window back in one copy only at display/test/snapshot
+        boundaries.  Per-step records (the loss window, display lines,
+        the divergence guard's observations) are rebuilt from the ring
+        at the boundary with the synchronous loop's keys and values —
+        only their emission is deferred, by at most
+        ``_pipeline_window_capacity()`` steps.  At most
+        ``cfg.pipeline_depth`` dispatched steps are in flight.
+        """
+        from npairloss_tpu_torch.pipeline import (
+            DevicePrefetcher,
+            DispatchController,
+            monitor_from_env,
+        )
+        from npairloss_tpu_torch.pipeline.controller import step_token
+
+        cfg = self.cfg
+        start = self._train_prologue(num_iters, test_batches, log_fn,
+                                     record_fn)
+        guard = (DivergenceGuard(self.divergence)
+                 if self.divergence is not None else None)
+        mon = (self.sync_monitor if self.sync_monitor is not None
+               else monitor_from_env())
+
+        def allowed():
+            return (mon.allowed() if mon is not None
+                    else contextlib.nullcontext())
+
+        def dispatch_guard():
+            return (mon.dispatch_guard(self.device) if mon is not None
+                    else contextlib.nullcontext())
+
+        depth = max(int(cfg.pipeline_depth), 1)
+        window_cap = self._pipeline_window_capacity(test_batches is not None)
+        if self._window is not None and self._window.capacity != window_cap:
+            # A new ring: a step captured with the old one is dropped.
+            self._window = self._ring = self._pipe = None
+        self._clear_ring()
+        self.pipeline_stats = _new_pipeline_stats()
+        controller = DispatchController(depth)
+        prefetcher = DevicePrefetcher(train_batches, self._stage_batch,
+                                      depth=depth, device=self.device)
+        last: Dict[str, Any] = {}
+        it = start
+        window_start = it + 1
+        poisoned: list = []  # step.nan_loss fires, host-side
+        try:
+            with (mon if mon is not None else contextlib.nullcontext()):
+                while it < num_iters:
+                    x, lab = prefetcher.get()
+                    controller.reserve()
+                    self._pipelined_step(x, lab, window_cap, dispatch_guard)
+                    controller.admit(step_token(self.device))
+                    del x, lab
+                    step_num = it + 1
+                    if failpoints.should_fire("step.nan_loss"):
+                        # The synchronous loop poisons the OBSERVED loss
+                        # (state untouched); here the observation lives
+                        # in the ring, so remember the step and poison
+                        # its row when the window is read.
+                        poisoned.append(step_num)
+                    it = step_num
+                    preempt_now = (self.preempt is not None
+                                   and self.preempt.requested)
+                    boundary = (
+                        (cfg.display and step_num % cfg.display == 0)
+                        or (test_batches is not None and cfg.test_interval
+                            and step_num % cfg.test_interval == 0)
+                        or (cfg.snapshot and step_num % cfg.snapshot == 0)
+                        or (step_num - window_start + 1 >= window_cap)
+                        or step_num >= num_iters
+                        or preempt_now
+                    )
+                    if not boundary:
+                        continue
+                    # ---- window boundary: the ONE host read ----------
+                    with allowed():
+                        host_ring = self._window.fetch(self._ring)
+                        self._window.reset(self._ring)
+                        rows = self._window.read(host_ring)
+                        for s in poisoned:
+                            rows[s - window_start]["loss"] = \
+                                np.float32("nan")
+                        # The device counter is the window-edge trip
+                        # check: max_streak == 0 proves every loss in
+                        # (or carried into) this window was finite, so
+                        # the guard's replay can be skipped.  Host-side
+                        # poison is invisible to it, hence ``poisoned``;
+                        # and guard.streak, so an all-finite window
+                        # still replays to RESET a streak in flight.
+                        nonfinite_seen = bool(poisoned) or \
+                            host_ring["max_streak"] > 0 or \
+                            (guard is not None and guard.streak > 0)
+                        tripped = None
+                        for off, row in enumerate(rows):
+                            s = window_start + off
+                            self._loss_window.append(
+                                torch.tensor(row["loss"]))
+                            last = row
+                            if guard is not None and nonfinite_seen and \
+                                    guard.observe(float(row["loss"])):
+                                tripped = s
+                                break
+                            self._emit_step_row(s, row, log_fn, record_fn)
+                        if tripped is not None:
+                            # The steps dispatched past the trip are
+                            # discarded (the bounded-staleness cost).
+                            controller.drain()
+                            it = self._handle_divergence(
+                                guard, tripped, log_fn, record_fn)
+                            self._clear_ring()
+                            window_start = it + 1
+                            poisoned = []
+                            continue
+                        req = self._take_rollback_request()
+                        if req is not None:
+                            controller.drain()
+                            rolled = self._handle_requested_rollback(
+                                req, step_num, log_fn, record_fn)
+                            if rolled is not None:
+                                it = rolled
+                                self._clear_ring()
+                                window_start = it + 1
+                                poisoned = []
+                                continue
+                        self._boundary_actions(step_num, test_batches,
+                                               log_fn, record_fn)
+                    window_start = step_num + 1
+                    poisoned = []
+        finally:
+            prefetcher.close()
+            last = self._flush_pending_window(window_start, poisoned, last)
+            self.pipeline_stats.update(blocked=controller.blocked,
+                                       staged=prefetcher.staged,
+                                       consumed=prefetcher.consumed)
+        return {k: float(v) for k, v in last.items()}
+
+    def _flush_pending_window(self, window_start: int, poisoned, last):
+        """Salvage the unread tail of a window on an abnormal exit (data
+        exhaustion, a staging error, a raised step error): the
+        synchronous loop would already have taken these rows.  Boundary
+        steps always flush in the loop, so a pending tail never holds a
+        display/test/snapshot step: the loss window is the whole debt.
+        Best-effort — teardown must not mask the in-flight exception."""
+        if self._ring is None or self._window is None:
+            return last
+        try:
+            rows = self._window.read(self._window.fetch(self._ring))
+            self._window.reset(self._ring)
+            for s in poisoned:
+                if 0 <= s - window_start < len(rows):
+                    rows[s - window_start]["loss"] = np.float32("nan")
+            for off, row in enumerate(rows):
+                self._loss_window.append(torch.tensor(row["loss"]))
+                last = row
+                self._emit_step_row(window_start + off, row)
+        except Exception as e:  # noqa: BLE001
+            log.error("pending-window flush failed: %s", e)
+        return last
+
+    # -- the divergence guard and requested rollbacks -------------------------
+
+    def _handle_divergence(self, guard: DivergenceGuard, step_num: int,
+                           log_fn, record_fn) -> int:
+        """The guard tripped at ``step_num``: roll back to the newest
+        valid snapshot (optionally lr-scaled) or halt.  Returns the
+        iteration to continue from."""
+        dcfg = self.divergence
+        reason = (f"{guard.streak} consecutive non-finite losses "
+                  f"at iteration {step_num}")
+        if dcfg.action != "rollback" or guard.rollbacks >= dcfg.max_rollbacks:
+            why = (reason if dcfg.action != "rollback"
+                   else f"{reason} (rollback budget "
+                        f"{dcfg.max_rollbacks} exhausted)")
+            raise DivergenceError(f"training diverged: {why}")
+        guard.rollbacks += 1
+        # A snapshot taken during the non-finite streak holds poisoned
+        # params — and so may the one right before it: the first NaN
+        # loss at step f implicates the update of step f-1.  Only
+        # snapshots strictly older than f-1 are rollback targets.
+        max_step = step_num - guard.streak - 1
+        guard.streak = 0
+        restored = self.restore_auto(max_step=max_step)
+        if restored is None:
+            raise DivergenceError(
+                f"training diverged ({reason}) and no valid snapshot "
+                f"at iteration <= {max_step} under "
+                f"{self.cfg.snapshot_prefix!r} to roll back to")
+        # The excluded snapshots are checksum-valid but NaN-poisoned: a
+        # later --resume auto must not restore them.
+        quarantine_snapshots(self.cfg.snapshot_prefix, max_step)
+        resumed = self._post_restore(dcfg.lr_scale)
+        msg = (f"divergence: {reason}; rolled back to iteration {resumed} "
+               f"({restored}), lr={self.cfg.base_lr:.6g} "
+               f"[rollback {guard.rollbacks}/{dcfg.max_rollbacks}]")
+        log.warning(msg)
+        log_fn(msg)
+        if record_fn is not None:
+            record_fn({"event": "rollback", "iteration": step_num,
+                       "to_iteration": resumed, "snapshot": restored})
+        return resumed
+
+    def _post_restore(self, lr_scale: float) -> int:
+        """Shared tail of both rollback paths: an lr damp rebuilds the
+        schedule (and the loss window, through the cfg setter); with the
+        cfg unchanged, the poisoned loss window is cleared by hand.
+        Returns the restored iteration."""
+        if lr_scale != 1.0:
+            self.cfg = dataclasses.replace(
+                self.cfg, base_lr=self.cfg.base_lr * lr_scale)
+        else:
+            self._loss_window.clear()
+        return self.iteration
+
+    def request_rollback(self, request: RollbackRequest) -> None:
+        """Ask the train loop to roll back at its next safe point.
+        Thread-safe; a second request before the first is taken
+        replaces it (the newer context wins)."""
+        with self._rollback_lock:
+            self._rollback_request = request
+
+    def _take_rollback_request(self) -> Optional[RollbackRequest]:
+        if self._rollback_request is None:  # cheap pre-check, hot path
+            return None
+        with self._rollback_lock:
+            req, self._rollback_request = self._rollback_request, None
+            return req
+
+    def _handle_requested_rollback(self, req: RollbackRequest,
+                                   step_num: int, log_fn,
+                                   record_fn) -> Optional[int]:
+        """Restore the newest valid snapshot COMMITTED before
+        ``req.before_wall_time`` (a snapshot captured mid-incident is no
+        recovery target).  Unlike the divergence path this never
+        quarantines, and SKIPS when no snapshot qualifies: training
+        continues.  Returns the resumed iteration, or None on a skip."""
+        max_step = step_num - 1
+        if req.before_wall_time is not None:
+            qualifying = []
+            for step, path in list_snapshots(self.cfg.snapshot_prefix):
+                if step > max_step:
+                    continue
+                created = snapshot_info(path)["created"]
+                if created is not None and created < req.before_wall_time:
+                    qualifying.append(step)
+            if not qualifying:
+                msg = (f"rollback request ({req.reason}) skipped: no "
+                       f"snapshot under {self.cfg.snapshot_prefix!r} "
+                       f"predates the incident")
+                log.warning(msg)
+                log_fn(msg)
+                return None
+            max_step = max(qualifying)
+        restored = self.restore_auto(max_step=max_step)
+        if restored is None:
+            msg = (f"rollback request ({req.reason}) skipped: no valid "
+                   f"snapshot at iteration <= {max_step}")
+            log.warning(msg)
+            log_fn(msg)
+            return None
+        resumed = self._post_restore(req.lr_scale)
+        msg = (f"remediation rollback ({req.reason}): rolled back to "
+               f"iteration {resumed} ({restored}), "
+               f"lr={self.cfg.base_lr:.6g}")
+        log.warning(msg)
+        log_fn(msg)
+        if record_fn is not None:
+            record_fn({"event": "rollback", "iteration": step_num,
+                       "to_iteration": resumed, "snapshot": restored,
+                       "requested": True})
+        return resumed
+
+
+class _PipelinedStep:
+    """The captured pipelined step of one key (``Solver._pipe_key``):
+    its static batch, read at fixed addresses by every replay; the CUDA
+    graph once captured (None on the CPU and during warm-up); and the
+    kernel launches one replay makes (``delta``)."""
+
+    def __init__(self, key: tuple, x: torch.Tensor, lab: torch.Tensor):
+        self.key = key
+        self.x = torch.empty_like(x)
+        self.lab = torch.empty_like(lab)
+        self.graph = None
+        self.delta: Dict[tuple, int] = {}
+        self.eager_steps = 0

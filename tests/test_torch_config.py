@@ -59,13 +59,13 @@ def test_solver_parses_like_jax(path):
 
 
 def test_solver_config_defaults_match_jax():
-    """The port's SolverConfig is the JAX one less the fields of later
-    slices (the pipelined loop, the compile cache)."""
+    """The port's SolverConfig is the JAX one, field for field, in the
+    same order, with the same defaults."""
     got = dataclasses.asdict(SolverConfig())
     want = dataclasses.asdict(JaxSolverConfig())
     assert got == {k: want[k] for k in got}
-    assert set(want) - set(got) == {"pipeline", "pipeline_depth",
-                                    "pipeline_window", "compile_cache"}
+    assert set(want) - set(got) == set()
+    assert list(got) == list(want)
 
 
 TEXTS = [

@@ -5,12 +5,15 @@ counts only launches of its kernel.
   * the CPU serve path, the train CLI (dense and ``--engine
     blockwise``) with one ``googlenet_pallas`` training step on each
     engine, ``train --resume auto`` with snapshots, ``extract`` and
-    ``eval``, and the train CLI on a PPM list file (the Python loader and
-    the native runtime) run in subprocesses whose ``import jax`` raises
+    ``eval``, ``train --pipeline`` with the divergence guard armed, and
+    the train CLI on a PPM list file (the Python loader and the native
+    runtime) run in subprocesses whose ``import jax`` raises
     (a poisoned ``jax.py`` first on PYTHONPATH, the test_staticcheck
     trick), and ``jax`` never reaches ``sys.modules``;
   * an AST scan of every port module and ``chip_smoke.py`` finds no
-    import of ``jax``, ``flax`` or ``npairloss_tpu``;
+    import of ``jax``, ``flax`` or ``npairloss_tpu`` (the ``pipeline/``
+    package and ``resilience/guard.py`` named among the scanned files:
+    the guard is a copy, not an import);
   * entry points called without ``device=`` raise when CUDA is absent,
     the data loaders too;
   * kernel wrappers given CPU tensors leave their launch counters at 0.
@@ -125,6 +128,14 @@ rc = cli.main(["extract", "--solver", solver_path, "--synthetic", "--device",
 assert rc == 0, rc
 rc = cli.main(["eval", "--prefix", work + "/f", "--device", "cpu", "--nmi"])
 assert rc == 0, rc
+# The pipelined loop with the divergence guard armed, on both engines.
+for engine in ("dense", "blockwise"):
+    rc = cli.main(["train", "--solver", solver_path, "--synthetic",
+                   "--device", "cpu", "--max_iter", "4", "--pipeline",
+                   "--divergence-patience", "2", "--engine", engine,
+                   "--snapshot_prefix", work + "/p_" + engine + "_",
+                   "--compile-cache", work + "/cc"])
+    assert rc == 0, rc
 assert not any(k == "jax" or k.startswith(("jax.", "flax", "npairloss_tpu."))
                for k in sys.modules), sorted(sys.modules)
 print("ISOLATED-TRAIN-OK")
@@ -250,6 +261,18 @@ def test_no_port_module_imports_jax_or_the_jax_package():
             if root in FORBIDDEN:
                 bad.append(f"{path.relative_to(REPO)}: {name}")
     assert bad == []
+
+
+@pytest.mark.parametrize("module", [
+    "pipeline/__init__.py", "pipeline/compile_cache.py",
+    "pipeline/controller.py", "pipeline/prefetcher.py",
+    "pipeline/syncguard.py", "pipeline/window.py", "resilience/guard.py",
+])
+def test_pipeline_and_guard_modules_are_scanned_and_clean(module):
+    path = PORT / module
+    assert path in _port_files()
+    roots = {name.split(".")[0] for name in _imports(path)}
+    assert not roots & set(FORBIDDEN), roots
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -149,7 +149,7 @@ def test_cli_event_stream_matches_jax_cli(tmp_path):
                    if isinstance(v, float))
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--pipeline"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2"]])
 def test_unported_train_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["train", "--solver", "examples/tiny_solver.prototxt",
