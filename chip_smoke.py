@@ -135,6 +135,29 @@ Phases (any failure raises, exits nonzero and prints no result line):
    ``RollbackRequest`` set from another thread is taken at iter 8, and
    SIGTERM before step 6 flushes the window, snapshots iter 6 and exits
    75, and a resume from it equals the uninterrupted run bit for bit;
+5i. distribution: (a) ``train --mesh 1 --engine ring`` and ``--engine
+   dense`` in-process on ``googlenet_bn`` under ``mxu`` (the phase-5
+   solver cut, batch 120, 224², the CLI's synthetic stream, cuDNN
+   deterministic) in one NCCL process group of world size 1: per step
+   the losses within ``DIST_TOL``, the Recall@k tops equal, the
+   parameters after 6 steps within ``DIST_TOL`` of their norm; each
+   engine's median step ms, the ring's passes timed on three more
+   steps; in the same group the mesh's all-gather, all-reduces, vote
+   and barrier against the identity, then 2 steps of the dense engine
+   through ``Solver(mesh=build_mesh())`` and of the ring under the
+   reference's mining against dense without a mesh, each run's NCCL
+   calls counted (no ring hop at one rank: ``parallel.meshcheck`` runs
+   those on several cards); (b) what NCCL says when asked for two
+   ranks on the one card
+   (printed), then two spawned ranks on ``cuda:0`` over gloo by
+   declaration (a card's tensors through host memory), global batch 120
+   (60 a rank), dense and ring, 4 steps: the two ranks' parameters bit
+   for bit after every step, ring against dense within ``DIST_TOL``,
+   the synced BatchNorm forward (``fp32_parity``) against one rank's on
+   the whole batch, and the unsynced one beyond that limit, the
+   gloo-through-host step ms; (c) ``train --mesh
+   2`` outside a process group, ``--mp 2`` and ``--pipeline`` over two
+   ranks on the card exit 2 naming their ROADMAP entries;
 6. the five blockwise kernels (``csrc/npair_blockwise.cu``) at N = M =
    120 and 8192, D = 1024, in their fp32 mode (matmul precision
    HIGHEST) and their bf16 mode (DEFAULT: bf16-rounded operands, the
@@ -184,6 +207,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -4028,6 +4052,552 @@ def drive_pipeline(torch, seed, detail, list_net):
     return configs
 
 
+# -- phase 5i: distribution ----------------------------------------------------
+
+DIST_WORK = os.path.join("build", "dist_smoke")
+DIST_STEPS = 4
+DIST_TOL = {
+    # G = 1: both engines form the sims with one N x N product and pick
+    # the same thresholds; the ring adds its one block to zeros.  Loss
+    # relative, parameters against the parameter vector's norm after 6
+    # steps (cuDNN deterministic: the same trunk in both runs).
+    "g1_loss_rel": 1e-5,
+    "g1_param_rel": 1e-4,
+    # G = 2: the ring sums its two blocks in hop order where dense sums
+    # the gathered row at once; 4 steps of the bf16 trunk on top.
+    "g2_loss_rel": 1e-4,
+    "g2_param_rel": 1e-3,
+    # The synced BatchNorm forward (fp32_parity, unit embeddings) at G = 2
+    # against G = 1 on the whole batch.  Sound, the per-rank sums are only
+    # added in another order (3.96e-6 on the H100); with each rank's
+    # statistics over its own 60 rows (the fault this catches) the same
+    # reading must come out above the limit, and the phase checks that.
+    "bn_forward_abs": 1e-4,
+}
+# The collectives of torch.distributed that the port's mesh calls; 5i (a)
+# counts them while the NCCL group of world size 1 runs each path.
+_COLLECTIVES = ("all_gather_into_tensor", "all_reduce", "barrier",
+                "batch_isend_irecv")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _param_rel(torch, a, b) -> float:
+    """||a - b|| / ||b|| over every parameter (host tensors)."""
+    num = sum(float(((a[k].double() - b[k].double()) ** 2).sum())
+              for k in b)
+    den = sum(float((b[k].double() ** 2).sum()) for k in b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _ring_pass_ms(torch, solver, batch, steps=3):
+    """Median ms of each ring pass over ``steps`` extra steps (synchronized
+    around each pass, so these steps are not timed as steps)."""
+    from npairloss_tpu_torch.parallel import ring
+
+    names = ("_stats_pass", "_ring_thresholds", "_loss_pass",
+             "_backward_pass")
+    orig = {n: getattr(ring, n) for n in names}
+    times = {n: [] for n in names}
+
+    def timed(name):
+        def fn(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[name](*a, **k)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return fn
+
+    try:
+        for n in names:
+            setattr(ring, n, timed(n))
+        for _ in range(steps):
+            solver.step(*batch)
+    finally:
+        for n in names:
+            setattr(ring, n, orig[n])
+    return {n.strip("_"): statistics.median(v) for n, v in times.items()}
+
+
+@contextlib.contextmanager
+def _counting_collectives(counts):
+    """Count each call of ``_COLLECTIVES`` made inside."""
+    import torch.distributed as dist
+
+    orig = {n: getattr(dist, n) for n in _COLLECTIVES}
+
+    def counted(name):
+        def fn(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return orig[name](*a, **k)
+        return fn
+
+    try:
+        for n in _COLLECTIVES:
+            setattr(dist, n, counted(n))
+        yield counts
+    finally:
+        for n, f in orig.items():
+            setattr(dist, n, f)
+
+
+def check_dist_nccl_paths(torch, seed, solver_path, card):
+    """5i (a), inside the NCCL group of world size 1: the mesh's
+    collectives held against the identity, then 2 steps of the dense
+    engine through ``Solver(mesh=build_mesh())`` (its gather and the
+    database-role all-reduce) and of the ring under the reference's
+    shipped mining (its overflow vote, an all-reduce max), each against
+    the dense engine without a mesh; the NCCL calls of each run counted.
+    At one rank ``Mesh.shift`` makes no hop, so ``batch_isend_irecv``
+    does not run here."""
+    from npairloss_tpu_torch.ops.npair_loss import REFERENCE_CONFIG
+    from npairloss_tpu_torch.parallel import build_mesh
+
+    mesh = build_mesh()
+    if mesh.backend != "nccl" or mesh.size != 1:
+        fail(f"5i: expected a one-rank NCCL mesh, got {mesh}")
+    gen = torch.Generator(device=mesh.device).manual_seed(seed)
+    x = torch.randn(120, 1024, device=mesh.device, generator=gen)
+    direct: dict = {}
+    with _counting_collectives(direct):
+        identity = {
+            "all_gather": torch.equal(mesh.all_gather(x), x),
+            "all_reduce_sum": torch.equal(mesh.all_reduce_sum(x), x),
+            "all_reduce_max": torch.equal(mesh.all_reduce_max(x), x),
+            "agree": mesh.agree(True) and not mesh.agree(False),
+        }
+        mesh.barrier()
+    torch.cuda.synchronize()
+    if not all(identity.values()) or any(
+            direct.get(n, 0) < 1 for n in _COLLECTIVES[:3]):
+        fail(f"5i: the NCCL collectives at one rank: {identity} {direct}")
+    batches = _dist_batches(seed, 2)
+    runs = {}
+    for tag, engine, m in (("dense_no_mesh", "dense", None),
+                           ("dense_mesh", "dense", mesh),
+                           ("ring_mesh", "ring", mesh)):
+        solver = _dist_solver(torch, seed, "mxu", engine, m, solver_path,
+                              loss=REFERENCE_CONFIG)
+        calls: dict = {}
+        losses = []
+        with _counting_collectives(calls):
+            for xb, lab in batches:
+                losses.append(float(solver.step(xb, lab)["loss"]))
+        torch.cuda.synchronize()
+        runs[tag] = {"losses": losses, "nccl_calls": calls,
+                     "params": {n: p.detach().float().cpu().clone()
+                                for n, p in solver.params.items()}}
+        del solver
+        _release(torch)
+    ref = runs["dense_no_mesh"]
+    steps = len(batches)
+    want = {"dense_mesh": {"all_gather_into_tensor": 2 * steps,
+                           "all_reduce": steps},
+            "ring_mesh": {"all_reduce": steps}}
+    rec = {"backend": mesh.backend, "identity": identity,
+           "direct_nccl_calls": direct}
+    for tag, need in want.items():
+        r = runs[tag]
+        loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                       for a, b in zip(r["losses"], ref["losses"]))
+        prel = _param_rel(torch, r["params"], ref["params"])
+        rec[tag] = {"loss_rel": loss_rel, "param_rel": prel,
+                    "params_bit_equal": all(
+                        torch.equal(r["params"][k], ref["params"][k])
+                        for k in ref["params"]),
+                    "nccl_calls": r["nccl_calls"]}
+        short = {n: c for n, c in need.items()
+                 if r["nccl_calls"].get(n, 0) < c}
+        if short or loss_rel > DIST_TOL["g1_loss_rel"] \
+                or prel > DIST_TOL["g1_param_rel"]:
+            fail(f"5i: {tag} at one NCCL rank vs dense without a mesh "
+                 f"(NCCL calls short of {short}): {rec[tag]}")
+    log(f"[5i nccl] one-rank NCCL group: all_gather, all_reduce sum/max, "
+        f"agree and barrier equal the identity ({direct}); {steps} steps "
+        f"under the reference's mining vs dense without a mesh: dense "
+        f"through the mesh loss rel {rec['dense_mesh']['loss_rel']:.3g}, "
+        f"parameters rel {rec['dense_mesh']['param_rel']:.3g} (bit for "
+        f"bit: {rec['dense_mesh']['params_bit_equal']}), NCCL calls "
+        f"{rec['dense_mesh']['nccl_calls']}; ring loss rel "
+        f"{rec['ring_mesh']['loss_rel']:.3g}, parameters rel "
+        f"{rec['ring_mesh']['param_rel']:.3g}, NCCL calls "
+        f"{rec['ring_mesh']['nccl_calls']} (tol {DIST_TOL['g1_loss_rel']} / "
+        f"{DIST_TOL['g1_param_rel']}; no ring hop at one rank) ({card})")
+    return rec
+
+
+def check_dist_one_rank(torch, seed, detail):
+    """5i (a): ``train --mesh 1 --engine ring`` and ``--engine dense`` on
+    googlenet_bn mxu at batch 120, 224², 6 steps of the CLI's synthetic
+    stream, in one NCCL process group of world size 1; then
+    :func:`check_dist_nccl_paths` in the same group."""
+    from npairloss_tpu_torch.parallel import (
+        initialize_distributed,
+        shutdown_distributed,
+    )
+
+    card = detail["card"]
+    os.makedirs(DIST_WORK, exist_ok=True)
+    cudnn = torch.backends.cudnn
+    det, bench = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    initialize_distributed(f"localhost:{_free_port()}", 1, 0)
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    runs, params, ring_passes = {}, {}, None
+    try:
+        for engine in ("ring", "dense"):
+            solver, events, _, ms = _bn_train_run(
+                torch, seed, f"5i-{engine}",
+                ["--precision", "mxu", "--mesh", "1", "--engine", engine],
+                "examples/googlenet_cub.prototxt", DIST_WORK)
+            if engine == "ring" and (solver.mesh is None
+                                     or solver.mesh.backend != "nccl"):
+                fail(f"the ring ran without the NCCL mesh: {solver.mesh}")
+            rows = [e for e in events if e["event"] == "display"]
+            runs[engine] = {"rows": rows, "step_ms": ms,
+                            "median_step_ms": statistics.median(ms[1:])}
+            params[engine] = {n: p.detach().float().cpu().clone()
+                              for n, p in solver.params.items()}
+            if engine == "ring":
+                from npairloss_tpu_torch.data.synthetic import (
+                    synthetic_identity_batches,
+                )
+
+                x, lab = next(synthetic_identity_batches(
+                    240, 60, 2, (224, 224, 3), seed=seed + 7))
+                ring_passes = _ring_pass_ms(torch, solver, (x, lab))
+            del solver
+            _release(torch)
+        nccl = check_dist_nccl_paths(
+            torch, seed,
+            os.path.abspath(cut_solver(DIST_WORK, "solver_g1.prototxt")),
+            card)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = det, bench
+        shutdown_distributed()
+    loss_rel = max(abs(r["loss"] - d["loss"]) / max(abs(d["loss"]), 1e-30)
+                   for r, d in zip(runs["ring"]["rows"],
+                                   runs["dense"]["rows"]))
+    discrete = [k for k in ("retrieve_top1", "retrieve_top5",
+                            "retrieve_top10")
+                if any(r[k] != d[k] for r, d in zip(runs["ring"]["rows"],
+                                                    runs["dense"]["rows"]))]
+    prel = _param_rel(torch, params["ring"], params["dense"])
+    same_bits = all(torch.equal(params["ring"][k], params["dense"][k])
+                    for k in params["dense"])
+    rec = {"backend": backend, "loss_rel": loss_rel,
+           "metrics_differ": discrete, "param_rel": prel,
+           "params_bit_equal": same_bits,
+           "ring_median_step_ms": runs["ring"]["median_step_ms"],
+           "dense_median_step_ms": runs["dense"]["median_step_ms"],
+           "ring_step_ms": runs["ring"]["step_ms"],
+           "dense_step_ms": runs["dense"]["step_ms"],
+           "ring_pass_ms": ring_passes, "nccl_paths": nccl}
+    log(f"[5i g1] backend {backend}, world size 1: ring vs dense over 6 "
+        f"steps, loss max rel {loss_rel:.3g} (tol {DIST_TOL['g1_loss_rel']}),"
+        f" discrete metrics differ: {discrete or 'none'}, parameters rel "
+        f"{prel:.3g} (tol {DIST_TOL['g1_param_rel']}, bit for bit: "
+        f"{same_bits}); median step ms over steps 2-6: ring "
+        f"{rec['ring_median_step_ms']:.3f}, dense "
+        f"{rec['dense_median_step_ms']:.3f}; the ring's passes (ms, "
+        f"synchronized): {json.dumps({k: round(v, 3) for k, v in ring_passes.items()})} ({card})")
+    if loss_rel > DIST_TOL["g1_loss_rel"] or discrete \
+            or prel > DIST_TOL["g1_param_rel"]:
+        fail(f"5i: ring and dense disagree at G = 1: {rec}")
+    return rec
+
+
+def _dist_solver(torch, seed, policy, engine, mesh, solver_path,
+                 loss=None):
+    """A googlenet_bn Solver of the CUB net (its loss, or ``loss``) on
+    ``mesh`` (None: no mesh, on the card)."""
+    from npairloss_tpu_torch.config.schema import load_net, load_solver
+    from npairloss_tpu_torch.models import get_model
+    from npairloss_tpu_torch.train.solver import Solver
+
+    solver_cfg, _ = load_solver(solver_path)
+    net_cfg = load_net("examples/googlenet_cub.prototxt")
+    model = get_model("googlenet_bn",
+                      device=mesh.device if mesh is not None else "cuda:0",
+                      seed=seed, policy=policy)
+    return Solver(model, loss or net_cfg.loss.loss, solver_cfg,
+                  param_mults=net_cfg.param_mults, precision=policy,
+                  engine=engine, mesh=mesh)
+
+
+def _dist_batches(seed, n):
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+
+    gen = synthetic_identity_batches(240, 60, 2, (224, 224, 3), seed=seed)
+    return [next(gen) for _ in range(n)]
+
+
+def _dist_rank_train(mesh, seed, engine, solver_path):
+    """Rank task of 5i (b): ``DIST_STEPS`` steps of googlenet_bn mxu on
+    this rank's 60 rows of each 120-row global batch; per step the
+    metrics, a digest of every parameter's bytes and the step ms; the
+    final parameters (rank 0)."""
+    import hashlib
+
+    import torch
+
+    from npairloss_tpu_torch.parallel import shard_batch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    solver = _dist_solver(torch, seed, "mxu", engine, mesh, solver_path)
+    rows, digests, ms = [], [], []
+    for x, lab in _dist_batches(seed, DIST_STEPS):
+        xs, ls = shard_batch(mesh, (x, lab))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = solver.step(xs, ls)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append({k: float(v) for k, v in m.items()})
+        h = hashlib.sha256()
+        for p in solver.params.values():
+            h.update(p.detach().cpu().numpy().tobytes())
+        digests.append(h.hexdigest())
+    final = ({n: p.detach().float().cpu().numpy()
+              for n, p in solver.params.items()} if mesh.rank == 0 else None)
+    return rows, digests, ms, final
+
+
+def _dist_rank_bn_forward(mesh, seed):
+    """Rank task: the BatchNorm forward of googlenet_bn under fp32_parity,
+    train mode, on this rank's rows of the first global batch, synced
+    (with the synced running statistics' digest) and, to show what the
+    check would see of that fault, with each rank's own statistics."""
+    import hashlib
+
+    import torch
+
+    from npairloss_tpu_torch.models import get_model
+    from npairloss_tpu_torch.models.layers import sync_batch_norm
+    from npairloss_tpu_torch.parallel import shard_batch
+
+    torch.backends.cudnn.deterministic = True
+    x, lab = _dist_batches(seed, 1)[0]
+    xs, _ = shard_batch(mesh, (x, lab))
+    out = []
+    for over in (mesh, None):
+        model = get_model("googlenet_bn", device=mesh.device, seed=seed,
+                          policy="fp32_parity").train()
+        sync_batch_norm(model, over)
+        with torch.no_grad():
+            out.append(model(xs).float().cpu().numpy())
+        if over is not None:
+            h = hashlib.sha256()
+            for b in model.buffers():
+                h.update(b.cpu().numpy().tobytes())
+        del model
+    return out[0], h.hexdigest(), out[1]
+
+
+def _dist_rank_nccl_probe(mesh):
+    import torch
+
+    t = torch.ones(4, device=mesh.device)
+    return float(mesh.all_reduce_sum(t).sum())
+
+
+def _nccl_two_ranks_probe(card):
+    """What NCCL says when asked for two ranks on one card: its error,
+    printed (the phase then runs over gloo by declaration)."""
+    from npairloss_tpu_torch.parallel.launch import RankPool
+
+    path = os.path.abspath(os.path.join(DIST_WORK, "pg_nccl_probe"))
+    if os.path.exists(path):
+        os.remove(path)
+    t0 = time.perf_counter()
+    try:
+        with RankPool(2, f"file://{path}", device="cuda:0", backend="nccl",
+                      threads=0, timeout_s=90) as pool:
+            out = pool.run(_dist_rank_nccl_probe)
+        said = f"no error: all_reduce gave {out}"
+    except (RuntimeError, TimeoutError) as e:
+        lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+        keep = [ln for ln in lines if "NCCL" in ln or "nccl" in ln
+                or "Error" in ln]
+        said = " | ".join((keep or lines)[-4:])[:600]
+    log(f"[5i nccl probe] two ranks on cuda:0 over NCCL: {said} "
+        f"({time.perf_counter() - t0:.1f} s; {card})")
+    return said
+
+
+def check_dist_two_ranks(torch, seed, detail):
+    """5i (b): two spawned ranks on cuda:0, global batch 120 (60 a rank),
+    googlenet_bn mxu, dense and ring, ``DIST_STEPS`` steps, over gloo
+    through host memory; and the synced BatchNorm forward at G = 2
+    against G = 1 on the whole batch."""
+    from npairloss_tpu_torch.models import get_model
+    from npairloss_tpu_torch.parallel.launch import RankPool
+
+    card = detail["card"]
+    os.makedirs(DIST_WORK, exist_ok=True)
+    probe = _nccl_two_ranks_probe(card)
+    solver_path = os.path.abspath(cut_solver(DIST_WORK, "solver_g2.prototxt"))
+    path = os.path.abspath(os.path.join(DIST_WORK, "pg_gloo"))
+    if os.path.exists(path):
+        os.remove(path)
+    _release(torch)
+    t0 = time.perf_counter()
+    out = {}
+    with RankPool(2, f"file://{path}", device="cuda:0", backend="gloo",
+                  threads=0, timeout_s=300) as pool:
+        spawn_s = time.perf_counter() - t0
+        for engine in ("dense", "ring"):
+            out[engine] = pool.run(_dist_rank_train, seed, engine,
+                                   solver_path)
+        bn = pool.run(_dist_rank_bn_forward, seed)
+    for engine, ranks in out.items():
+        for step in range(DIST_STEPS):
+            if ranks[0][1][step] != ranks[1][1][step]:
+                fail(f"5i: {engine} ranks' parameters differ after step "
+                     f"{step + 1}")
+            if ranks[0][0][step] != ranks[1][0][step]:
+                fail(f"5i: {engine} ranks report different metrics")
+    d_rows, r_rows = out["dense"][0][0], out["ring"][0][0]
+    loss_rel = max(abs(r["loss"] - d["loss"]) / max(abs(d["loss"]), 1e-30)
+                   for r, d in zip(r_rows, d_rows))
+    final = {k: torch.from_numpy(v) for k, v in out["ring"][0][3].items()}
+    ref = {k: torch.from_numpy(v) for k, v in out["dense"][0][3].items()}
+    prel = _param_rel(torch, final, ref)
+    import numpy as np
+
+    emb2 = np.concatenate([bn[0][0], bn[1][0]])
+    emb2_unsynced = np.concatenate([bn[0][2], bn[1][2]])
+    if bn[0][1] != bn[1][1]:
+        fail("5i: the ranks' running statistics differ after the synced "
+             "forward")
+    cudnn = torch.backends.cudnn
+    det = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        model = get_model("googlenet_bn", device="cuda", seed=seed,
+                          policy="fp32_parity").train()
+        x, _ = _dist_batches(seed, 1)[0]
+        with torch.no_grad():
+            emb1 = model(torch.from_numpy(x).cuda()).float().cpu().numpy()
+    finally:
+        cudnn.deterministic = det
+    del model
+    _release(torch)
+    bn_err = float(np.abs(emb2 - emb1).max())
+    bn_unsynced = float(np.abs(emb2_unsynced - emb1).max())
+    rec = {"nccl_probe": probe, "backend": "gloo (through host memory)",
+           "spawn_s": spawn_s, "loss_rel": loss_rel, "param_rel": prel,
+           "bn_forward_max_abs": bn_err,
+           "bn_forward_unsynced_max_abs": bn_unsynced,
+           "ranks_bit_equal_every_step": True,
+           "dense_step_ms": out["dense"][0][2],
+           "ring_step_ms": out["ring"][0][2],
+           "dense_median_step_ms": statistics.median(out["dense"][0][2][1:]),
+           "ring_median_step_ms": statistics.median(out["ring"][0][2][1:]),
+           "wall_s": time.perf_counter() - t0}
+    log(f"[5i g2] two ranks on cuda:0 over gloo through host memory (not "
+        f"NCCL): ranks' parameters bit for bit after each of "
+        f"{DIST_STEPS} steps (dense and ring); ring vs dense loss max rel "
+        f"{loss_rel:.3g} (tol {DIST_TOL['g2_loss_rel']}), parameters rel "
+        f"{prel:.3g} (tol {DIST_TOL['g2_param_rel']}); synced BatchNorm "
+        f"forward G = 2 vs G = 1 max abs {bn_err:.3g} (tol "
+        f"{DIST_TOL['bn_forward_abs']}; each rank's own statistics: "
+        f"{bn_unsynced:.3g}, must exceed it); gloo-through-host median "
+        f"step ms "
+        f"over steps 2-{DIST_STEPS}: dense "
+        f"{rec['dense_median_step_ms']:.1f}, ring "
+        f"{rec['ring_median_step_ms']:.1f}; spawn {spawn_s:.1f} s ({card})")
+    if loss_rel > DIST_TOL["g2_loss_rel"] or prel > DIST_TOL["g2_param_rel"] \
+            or bn_err > DIST_TOL["bn_forward_abs"] \
+            or bn_unsynced <= DIST_TOL["bn_forward_abs"]:
+        fail(f"5i: two-rank checks failed: {rec}")
+    return rec
+
+
+def check_dist_refusals(torch, card):
+    """``train --mesh 2`` outside a process group, ``--mp 2`` and
+    ``--pipeline`` over two ranks on the card exit 2 naming their
+    ROADMAP entries."""
+    import contextlib
+    import logging
+
+    from npairloss_tpu_torch import cli
+
+    solver = cut_solver(DIST_WORK, "solver_refusal.prototxt")
+    base = ["train", "--solver", solver, "--model", "googlenet_bn",
+            "--synthetic"]
+    got = {}
+
+    class _Grab(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    for tag, extra, want in (
+            ("mesh2", ["--mesh", "2"], "torchrun --nproc-per-node 2"),
+            ("mp2", ["--mp", "2"], "entry 'partition.py and --mp'")):
+        grab = _Grab()
+        logging.getLogger("npairloss_tpu_torch").addHandler(grab)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(base + extra)
+        finally:
+            logging.getLogger("npairloss_tpu_torch").removeHandler(grab)
+        msg = " ".join(grab.lines)
+        if rc != 2 or want not in msg:
+            fail(f"5i: train {' '.join(extra)} gave rc {rc}: {msg}")
+        got[tag] = msg
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "npairloss_tpu_torch", *base, "--pipeline",
+         "--mesh", "2", "--coordinator", f"localhost:{port}",
+         "--num-processes", "2", "--process-id", str(i)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    for i, p in enumerate(procs):
+        try:
+            _, err = p.communicate(timeout=180)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail("5i: train --pipeline --mesh 2 did not exit")
+        if p.returncode != 2 or "--pipeline over a mesh on a card" not in err:
+            fail(f"5i: train --pipeline --mesh 2 rank {i} gave rc "
+                 f"{p.returncode}: {err[-800:]}")
+        got[f"pipeline_rank{i}"] = err.strip().splitlines()[-1]
+    log(f"[5i refusals] --mesh 2 without a group, --mp 2, and --pipeline "
+        f"over two ranks on the card each exit 2 naming their ROADMAP "
+        f"entries ({card})")
+    return got
+
+
+def drive_distribution(torch, seed, detail):
+    """Phase 5i: the G = 1 NCCL runs, the two ranks on the card, the
+    refusals."""
+    t_start = time.perf_counter()
+    g1 = check_dist_one_rank(torch, seed, detail)
+    g2 = check_dist_two_ranks(torch, seed, detail)
+    refusals = check_dist_refusals(torch, detail["card"])
+    wall = time.perf_counter() - t_start
+    log(f"[5i] {wall:.1f} s")
+    detail["distribution"] = {"g1": g1, "g2": g2, "refusals": refusals,
+                              "wall_s": wall}
+
+
 def _release(torch):
     import gc
 
@@ -4107,6 +4677,7 @@ def main() -> int:
     bn_launches = drive_bn_train(torch, args.seed, detail)
     drive_bn_learning(torch, args.seed, detail)
     drive_pipeline(torch, args.seed, detail, list_net)
+    drive_distribution(torch, args.seed, detail)
     bw_rows = check_blockwise_kernels(torch, Timer(torch), detail, args.seed)
     bw_launches, bw_radix_launches, _ = drive_blockwise_train(
         torch, args.seed, detail, dense_step_ms)

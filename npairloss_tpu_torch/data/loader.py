@@ -13,8 +13,11 @@ device.
 The ``data.worker`` failpoint crashes the prefetch worker where the JAX
 loader's does (``_produce_one``), exercising the bounded respawn.
 
-Not ported yet: ``shard_batches`` (the per-process shards of
-distribution, ROADMAP Queue 1 item 7).
+Over a mesh every rank builds the same loader (same list file, same
+seed) and :func:`shard_batches` keeps its rows of each global batch.
+The augmentation draws for the whole global batch come first, from the
+one device generator, so a rank's crops are the ones the single-process
+run gives those rows.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import logging
 import queue
 import threading
 import weakref
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -299,6 +302,36 @@ def multibatch_loader(cfg: DataLayerConfig,
                               cfg.new_width)
     return MultibatchLoader(dataset, cfg, transformer, train=train,
                             seed=seed, prefetch=prefetch, device=device)
+
+
+def shard_batches(batches: Iterator, rank: int, count: int) -> Iterator:
+    """Per-process disjoint shards of a deterministic global batch stream
+    (``npairloss_tpu/data/loader.py:326-366``): process ``rank`` gets rows
+    ``[rank*n, (rank+1)*n)`` of every batch (``n = rows // count``).  The
+    shards concatenated in rank order are the global batch, so the
+    single-process run on the unsliced stream is the parity oracle.
+    Loud on a batch whose rows do not divide by ``count``: a silently
+    dropped remainder would change the pool every step.  Batches may be
+    NumPy arrays or tensors (a loader's device batches, augmented
+    whole before the slice)."""
+    if not (0 <= int(rank) < int(count)):
+        raise ValueError(f"rank {rank} outside [0, {count})")
+    rank, count = int(rank), int(count)
+
+    def gen():
+        for inputs, labels in batches:
+            rows = len(labels)
+            if rows % count:
+                raise ValueError(
+                    f"global batch of {rows} rows does not divide over "
+                    f"{count} processes; fix identity_num_per_batch x "
+                    "img_num_per_identity to a multiple of the process "
+                    "count")
+            n = rows // count
+            sl = slice(rank * n, (rank + 1) * n)
+            yield inputs[sl], labels[sl]
+
+    return gen()
 
 
 def _list_file_all_suffixed(source: str, suffixes, sample: int = 4096) -> bool:

@@ -124,6 +124,9 @@ class GoogLeNetEmbedding(nn.Module):
     by its flax path, and the trunk's entry and exit casts from its
     ``compute_dtype`` and ``output_dtype``."""
 
+    # The pool5 width (what engine planning reads as the embedding width).
+    embedding_dim = 1024
+
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
                  normalize: bool = True, fuse_1x1: bool = False,
                  stem_s2d: bool = False, pallas_stem: bool = False,

@@ -84,7 +84,14 @@ class BatchNorm(nn.Module):
 
     In training mode the running statistics update once per forward,
     except inside :func:`no_stat_update` (a block's recompute under
-    remat)."""
+    remat).
+
+    With a mesh of G > 1 shards (``sync_batch_norm``) the batch
+    statistics are the global batch's, as in the JAX package, whose trunk
+    runs on the logical global batch: each rank's per-channel sums of x
+    and x^2 are all-reduced in the forward, and their two gradients in
+    the backward (``parallel.mesh.Mesh.all_reduce_sum``: every rank gets
+    the same bits), so every rank ends on the same running statistics."""
 
     momentum = 0.9
     epsilon = 1e-5
@@ -96,6 +103,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.mesh = None
 
     def reset_parameters(self) -> None:
         nn.init.ones_(self.scale)
@@ -107,9 +115,11 @@ class BatchNorm(nn.Module):
         xf = x.to(_at_least_f32(x.dtype))
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean,
-                                  0.0)
+            if self.mesh is not None and self.mesh.size > 1:
+                mean, mean2 = _global_moments(xf, axes, self.mesh)
+            else:
+                mean, mean2 = xf.mean(dim=axes), (xf * xf).mean(dim=axes)
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
             if not _STAT_UPDATE_OFF[0]:
                 with torch.no_grad():
                     m = self.momentum
@@ -124,6 +134,25 @@ class BatchNorm(nn.Module):
 
 def _at_least_f32(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
+
+
+def _global_moments(xf: torch.Tensor, axes, mesh):
+    """(E[x], E[x^2]) per channel over the global batch of ``mesh``'s
+    equal shards."""
+    from npairloss_tpu_torch.parallel.mesh import mesh_sum
+
+    rows = xf.numel() // xf.shape[-1] * mesh.size
+    sums = mesh_sum(torch.stack([xf.sum(dim=axes),
+                                 (xf * xf).sum(dim=axes)]), mesh)
+    return sums[0] / rows, sums[1] / rows
+
+
+def sync_batch_norm(model: nn.Module, mesh) -> None:
+    """Give every :class:`BatchNorm` of ``model`` the mesh whose global
+    batch its statistics span (None: this rank's batch alone)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
 
 
 # Set while a remat'd block recomputes its forward in the backward pass:

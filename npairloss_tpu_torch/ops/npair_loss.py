@@ -35,7 +35,9 @@ Sharding: the JAX ``axis_name`` becomes explicit arguments.  A rank
 passes its local ``features``/``labels``, the gathered pool
 ``total_features``/``total_labels`` (rank-major, as MPI_Allgather orders
 it), its ``rank`` and ``num_shards``, and an ``all_reduce`` that sums the
-database-role gradient over the ranks (``None`` for one shard).
+database-role gradient over the ranks (``None`` for one shard);
+``parallel.mesh.sharded_npair_loss_fn`` supplies them from a mesh (the
+gather outside autograd: the backward is hand-derived).
 """
 
 from __future__ import annotations

@@ -26,8 +26,11 @@ The names, the manifest format (``npairloss-snapshot-v1``) and the
 package's ``validate_snapshot`` accepts a port snapshot.  The tensors
 themselves are a ``torch.save`` file, which only the port reads.
 
-Not ported yet: ``validate_snapshot_wait`` and the multi-controller
-commit branch, which wait for distribution (ROADMAP Queue 1 item 7).
+Over a mesh of several processes (``commit_snapshot_multi``) every
+rank holds the same state, so rank 0 alone runs the commit above and
+every rank then learns whether it landed; a non-zero rank resuming
+waits for rank 0's manifest (``validate_snapshot_wait``) instead of
+skipping the snapshot as torn.
 """
 
 from __future__ import annotations
@@ -217,6 +220,27 @@ def validate_snapshot(path: str) -> Dict[str, Any]:
     return manifest
 
 
+def validate_snapshot_wait(path: str,
+                           policy: Optional[RetryPolicy] = None
+                           ) -> Dict[str, Any]:
+    """:func:`validate_snapshot` under the shared retry/backoff — the
+    non-zero ranks' side of a multi-process resume
+    (``npairloss_tpu/resilience/snapshot.py:192-223``): a rank that scans
+    the directory before rank 0's manifest lands waits for it instead of
+    reading a valid snapshot as torn.  Rank 0 never calls this: for it a
+    missing manifest is a torn commit."""
+    import dataclasses
+
+    policy = policy if policy is not None else RetryPolicy()
+    # The transient here is the manifest race (a SnapshotValidationError),
+    # not an OSError: widen retry_on for this call only.
+    policy = dataclasses.replace(
+        policy,
+        retry_on=tuple(set(policy.retry_on) | {SnapshotValidationError}))
+    return call_with_retry(lambda: validate_snapshot(path), policy,
+                           describe=f"manifest wait ({path})")
+
+
 def snapshot_info(path: str) -> Dict[str, Any]:
     """Freshness identity of a committed snapshot: ``{"path", "step",
     "created"}`` from its manifest, without loading a tensor.  ``step``
@@ -301,6 +325,29 @@ def commit_snapshot(
     os.replace(tmp, final_path)
     _fsync_dir(parent)
     return final_path
+
+
+def commit_snapshot_multi(final_path: str, state: State, step: int, *,
+                          primary: bool, agree, policy=None, on_retry=None,
+                          extra: Optional[Dict[str, Any]] = None) -> str:
+    """The multi-process commit: the ``primary`` rank (rank 0) commits
+    ``state`` — every rank's state is the same — and writes the
+    manifest; then every rank reaches ``agree(ok) -> bool`` (true iff
+    ``ok`` on every rank), so all of them raise or none does."""
+    err: Optional[BaseException] = None
+    if primary:
+        try:
+            commit_snapshot(final_path, state, step, policy=policy,
+                            on_retry=on_retry, extra=extra)
+        except Exception as e:  # noqa: BLE001 — raised after the vote
+            err = e
+    ok = agree(err is None)
+    if err is not None:
+        raise err
+    if not ok:
+        raise SnapshotError(
+            f"rank 0 failed to commit the snapshot at {final_path}")
+    return os.path.abspath(final_path)
 
 
 # -- discovery + GC -------------------------------------------------------

@@ -1,5 +1,7 @@
 """The synchronous solver loop — port of ``npairloss_tpu/train/solver.py``'s
-``Solver`` for one device, with the dense or the blockwise loss engine.
+``Solver``, on one device with the dense or the blockwise loss engine, or
+over a mesh (``parallel.mesh.Mesh``, one process per device) with the
+dense or the ring engine.
 
 The Caffe Solver contract of usage/solver.prototxt: Caffe SGD (lr folded
 in before momentum, ``train/optim.py``), the ``display`` /
@@ -48,8 +50,19 @@ captured raises, it never runs eagerly in the graph's place.  On the
 CPU the same step body runs eagerly.  Both loops emit the same record
 stream, byte for byte, and end on the same parameters bit for bit.
 
-Not yet ported (later slices, ROADMAP Queue 1): meshes (item 7),
-telemetry (item 10), the WAL and remediation engine (items 9 and 12).
+Over a mesh of G shards every rank runs this loop on its rows of each
+global batch (``data.loader.shard_batches``).  The JAX Solver
+differentiates the mean of the G per-rank losses; here each rank
+back-propagates its own loss (the engines exchange the pool and its
+database-role gradient, BatchNorm its batch statistics), and the
+parameter gradients are all-reduced as a mean, so the update is the
+JAX one and every rank holds the same parameters bit for bit.  The
+reported loss and metrics are the mean over the ranks.  Rank 0 commits
+the snapshots; a stop request (preemption) is agreed by every rank at
+the step boundary.  On a card the pipelined loop refuses a mesh.
+
+Not yet ported (later slices, ROADMAP Queue 1): telemetry (item 10),
+the WAL and remediation engine (items 9 and 12).
 """
 
 from __future__ import annotations
@@ -93,6 +106,7 @@ from npairloss_tpu_torch.resilience.retrying import (
 from npairloss_tpu_torch.resilience.snapshot import (
     SnapshotValidationError,
     commit_snapshot,
+    commit_snapshot_multi,
     gc_snapshots,
     list_snapshots,
     quarantine_snapshots,
@@ -100,6 +114,7 @@ from npairloss_tpu_torch.resilience.snapshot import (
     read_state,
     snapshot_info,
     validate_snapshot,
+    validate_snapshot_wait,
     verify_restored,
 )
 from npairloss_tpu_torch.train.optim import (
@@ -207,9 +222,12 @@ class Solver:
       param_mults: Caffe's ``((w_lr, w_decay), (b_lr, b_decay))`` recipe.
       loss_weight: the loss top's weight; scales the objective and so
         the gradient.
-      engine: ``"dense"`` materializes the N x N pair matrix;
+      engine: ``"dense"`` materializes the N x N pair matrix (over a
+        mesh: N x N*G, after an all-gather of the pool);
         ``"blockwise"`` streams it in tiles through the kernels of
-        ``ops.blockwise_npair``, for pools too large for the matrix.
+        ``ops.blockwise_npair``, for pools too large for the matrix, on
+        one device; ``"ring"`` streams the pool around a mesh
+        (``parallel.ring``).
       sim_cache: the blockwise engine's fp32 similarity cache (None =
         auto by size).
       pos_topk: the blockwise engine's sparse-positive buffer slots
@@ -223,6 +241,9 @@ class Solver:
         ``matmul_precision`` (its ``loss_matmul_precision``) when that is
         not given.  The model's dtypes are the model's own
         (``get_model(policy=...)``).
+      mesh: a ``parallel.mesh.Mesh``: this process is one of its G
+        ranks and trains on its rows of each global batch; None = one
+        device.
     """
 
     def __init__(self, model: torch.nn.Module,
@@ -236,14 +257,19 @@ class Solver:
                  pos_topk: Optional[int] = None,
                  snapshot_retry: Optional[RetryPolicy] = None,
                  matmul_precision: Optional[str] = None,
-                 precision=None):
-        if engine == "ring":
-            raise ValueError('engine="ring" streams the pool over a mesh, '
-                             "and distribution is not ported yet (ROADMAP "
-                             "Queue 1 item 7)")
-        if engine not in ("dense", "blockwise"):
+                 precision=None, mesh=None):
+        if engine not in ("dense", "ring", "blockwise"):
             raise ValueError(f"unknown engine {engine!r}")
+        if engine == "ring" and mesh is None:
+            raise ValueError('engine="ring" requires a mesh')
+        if engine == "blockwise" and mesh is not None:
+            raise ValueError(
+                'engine="blockwise" is the single-device streaming path; '
+                'use engine="ring" to stream across a mesh')
         self.engine = engine
+        self.mesh = mesh
+        # The EnginePlan the CLI resolved for this run, if any.
+        self.engine_plan = None
         if precision is not None:
             from npairloss_tpu_torch.models.precision import get_policy
 
@@ -263,6 +289,10 @@ class Solver:
         self.loss_weight = float(loss_weight)
         self.device = next(model.parameters()).device
         self.params = dict(model.named_parameters())
+        if self._multi():
+            from npairloss_tpu_torch.models.layers import sync_batch_norm
+
+            sync_batch_norm(model, mesh)
         self.mults = mult_table(list(self.params), param_mults)
         self.cfg = cfg if cfg is not None else SolverConfig()
         self.snapshot_retry = snapshot_retry
@@ -385,11 +415,29 @@ class Solver:
         ``snapshot_retry``, then apply retention GC
         (``cfg.snapshot_max_keep``)."""
         path = self.snapshot_path(step)
+        if self._multi():
+            # Every rank holds the same state: rank 0 commits, every
+            # rank learns whether it landed (npairloss_tpu solver.py:
+            # 1715-1724).
+            commit_snapshot_multi(path, self.state_dict(), step,
+                                  primary=self.mesh.is_primary,
+                                  agree=self.mesh.agree,
+                                  policy=self.snapshot_retry)
+            if self.mesh.is_primary:
+                gc_snapshots(self.cfg.snapshot_prefix,
+                             self.cfg.snapshot_max_keep)
+            self.mesh.barrier()
+            log.info("snapshot -> %s", path)
+            return path
         commit_snapshot(path, self.state_dict(), step,
                         policy=self.snapshot_retry)
         log.info("snapshot -> %s", path)
         gc_snapshots(self.cfg.snapshot_prefix, self.cfg.snapshot_max_keep)
         return path
+
+    def _multi(self) -> bool:
+        """A mesh of several processes."""
+        return self.mesh is not None and self.mesh.size > 1
 
     def _load_snapshot(self, path: str) -> Dict[str, torch.Tensor]:
         def do_restore():
@@ -405,7 +453,13 @@ class Solver:
         checksum-verified against it and raises
         ``SnapshotValidationError`` when corrupt; a manifest-less dir
         restores unverified; a manifest that exists but cannot be read
-        is corruption and raises."""
+        is corruption and raises.  Over a mesh a non-zero rank first
+        waits for rank 0's manifest."""
+        if self._multi() and not self.mesh.is_primary:
+            try:
+                validate_snapshot_wait(path, self.snapshot_retry)
+            except Exception:  # noqa: BLE001 — verdict below, per contract
+                pass
         state = self._load_snapshot(path)
         try:
             manifest = read_manifest(path)
@@ -425,13 +479,29 @@ class Solver:
         manifests validated newest first, the restored tensors
         checksum-verified, torn or corrupt candidates skipped with a
         logged reason.  ``max_step`` bounds the candidates.  Returns the
-        restored path, or None (a fresh start) when none is valid."""
+        restored path, or None (a fresh start) when none is valid.  Over
+        a mesh a non-zero rank waits for rank 0's manifest instead of
+        skipping a snapshot as torn, and every rank must restore the
+        same iteration."""
+        path = self._restore_auto(max_step)
+        if self._multi():
+            its = self.mesh.all_gather(torch.tensor(
+                [self.iteration], dtype=torch.int64, device=self.device))
+            if bool((its != its[0]).any()):
+                raise SnapshotValidationError(
+                    f"ranks resumed from different iterations: "
+                    f"{its.tolist()}")
+        return path
+
+    def _restore_auto(self, max_step: Optional[int]) -> Optional[str]:
         prefix = self.cfg.snapshot_prefix
+        wait = self._multi() and not self.mesh.is_primary
         for step, path in reversed(list_snapshots(prefix)):
             if max_step is not None and step > max_step:
                 continue
             try:
-                manifest = validate_snapshot(path)
+                manifest = (validate_snapshot_wait(path, self.snapshot_retry)
+                            if wait else validate_snapshot(path))
                 state = self._load_snapshot(path)
                 verify_restored(state, manifest)
                 self.load_state(state)
@@ -458,8 +528,13 @@ class Solver:
         """(objective, metrics): the N-pair loss through the configured
         engine, scaled by ``loss_weight``, and the metric tops — from the
         dense engine's detached aux, or streamed over the detached
-        embedding for the blockwise engine."""
-        if self.engine == "blockwise":
+        embedding for the blockwise engine.  Over a mesh: this rank's
+        loss over the mesh's pool and its metrics (the ring's without
+        its pair counts, as in JAX); :meth:`_reported` averages them
+        over the ranks."""
+        if self.mesh is not None:
+            loss, metrics = self._sharded_loss(emb, labels)
+        elif self.engine == "blockwise":
             loss, _ = blockwise_npair_loss_with_aux(
                 emb, labels, self.loss_cfg, sim_cache=self.sim_cache,
                 pos_topk=self.pos_topk,
@@ -476,6 +551,61 @@ class Solver:
             loss = loss * float(np.float32(self.loss_weight))
         return loss, metrics
 
+    def _sharded_loss(self, emb: torch.Tensor, labels: torch.Tensor):
+        from npairloss_tpu_torch.parallel.mesh import sharded_npair_loss_fn
+
+        if self.engine == "ring":
+            from npairloss_tpu_torch.parallel.ring import (
+                ring_npair_loss_and_metrics,
+            )
+
+            loss, metrics = ring_npair_loss_and_metrics(
+                emb, labels, self.loss_cfg, self.mesh, self.top_ks,
+                sim_cache=self.sim_cache, pos_topk=self.pos_topk,
+                matmul_precision=self.matmul_precision)
+            return loss, {k: v for k, v in metrics.items()
+                          if k not in ("ident_num", "diff_num")}
+        loss, aux = sharded_npair_loss_fn(
+            self.mesh, self.loss_cfg,
+            matmul_precision=self.matmul_precision)(emb, labels)
+        return loss, retrieval_metrics(aux, labels, emb.detach(),
+                                       self.top_ks)
+
+    def _reported(self, loss: torch.Tensor,
+                  metrics: Dict[str, Any]) -> Dict[str, Any]:
+        """The step's metrics with ``loss``; over a mesh of G > 1 the
+        mean over the ranks (JAX ``stacked.mean()``), the same on every
+        rank."""
+        out = dict(metrics)
+        out["loss"] = loss.detach()
+        if not self._multi():
+            return out
+        keys = sorted(out)
+        per_rank = self.mesh.all_gather(torch.stack(
+            [out[k].detach().float().reshape(()) for k in keys])[None])
+        mean = per_rank.mean(dim=0)
+        return {k: mean[i] for i, k in enumerate(keys)}
+
+    def _sync_grads(self) -> None:
+        """Over a mesh of G > 1: every parameter's gradient becomes the
+        mean over the ranks (one all-reduce of the flattened gradients,
+        the same bits on every rank, then 1/G).  Each
+        rank back-propagated its own loss; JAX differentiates the mean
+        of the G losses, so the sum over ranks is G times its gradient."""
+        if not self._multi():
+            return
+        mesh = self.mesh
+        ps = list(self.params.values())
+        flat = torch.cat([
+            (p.grad if p.grad is not None else torch.zeros_like(p))
+            .reshape(-1).float() for p in ps])
+        total = mesh.all_reduce_sum(flat) / float(mesh.size)
+        off = 0
+        for p in ps:
+            n = p.numel()
+            p.grad = total[off:off + n].view_as(p).to(p.dtype)
+            off += n
+
     def _train_body(self, x, lab, lr) -> Dict[str, Any]:
         """Forward, loss, backward and the Caffe SGD update at ``lr`` (a
         host float, or the pipelined step's device scalar); the step's
@@ -487,11 +617,12 @@ class Solver:
         emb = self.model(x)
         loss, metrics = self.compute_loss(emb, lab)
         loss.backward()
+        self._sync_grads()
+        metrics = self._reported(loss, metrics)
         metrics["lr"] = lr
         caffe_sgd(self.params, {n: p.grad for n, p in self.params.items()},
                   self.momentum, lr, self.cfg.momentum,
                   self.cfg.weight_decay, self.mults)
-        metrics["loss"] = loss.detach()
         return dict(sorted(metrics.items()))
 
     def step(self, inputs, labels) -> Dict[str, Any]:
@@ -513,7 +644,7 @@ class Solver:
         for _ in range(num_iters):
             x, lab = self._put(*next(batches))
             loss, metrics = self.compute_loss(self.model(x), lab)
-            metrics["loss"] = loss
+            metrics = self._reported(loss, metrics)
             for k, v in sorted(metrics.items()):
                 acc[k] += float(v)
             n += 1
@@ -624,7 +755,7 @@ class Solver:
             snapped = self.save_snapshot(step_num)
             if record_fn is not None:
                 record_fn({"event": "snapshot", "iteration": step_num})
-        if self.preempt is not None and self.preempt.requested:
+        if self._stop_requested():
             path = snapped or self.save_snapshot(step_num)
             log_fn(f"preempted at iter {step_num}: emergency snapshot "
                    f"{path}; relaunch with --resume auto")
@@ -633,6 +764,15 @@ class Solver:
                            "snapshot": path})
             raise TrainingPreempted(step_num, snapshot_path=path,
                                     signum=self.preempt.signum)
+
+    def _stop_requested(self) -> bool:
+        """Whether a preemption was requested; over a mesh, on any rank
+        (every rank then stops at the same step)."""
+        if self.preempt is None:
+            return False
+        if self._multi():
+            return self.mesh.any(self.preempt.requested)
+        return self.preempt.requested
 
     def _loss_avg(self) -> float:
         """The loss window's mean, taken on the host in fp32 whichever
@@ -829,6 +969,12 @@ class Solver:
         from npairloss_tpu_torch.pipeline.controller import step_token
 
         cfg = self.cfg
+        if self.mesh is not None and self.device.type == "cuda":
+            raise ValueError(
+                "--pipeline over a mesh on a card is not ported (ROADMAP "
+                "Queue 1, entry '--pipeline over a mesh on a card'): a "
+                "graph that captures collectives cannot be checked on a "
+                "one-card machine, and gloo's cannot be captured")
         start = self._train_prologue(num_iters, test_batches, log_fn,
                                      record_fn)
         guard = (DivergenceGuard(self.divergence)
@@ -874,8 +1020,7 @@ class Solver:
                         # its row when the window is read.
                         poisoned.append(step_num)
                     it = step_num
-                    preempt_now = (self.preempt is not None
-                                   and self.preempt.requested)
+                    preempt_now = self._stop_requested()
                     boundary = (
                         (cfg.display and step_num % cfg.display == 0)
                         or (test_batches is not None and cfg.test_interval
@@ -1002,7 +1147,10 @@ class Solver:
                 f"{self.cfg.snapshot_prefix!r} to roll back to")
         # The excluded snapshots are checksum-valid but NaN-poisoned: a
         # later --resume auto must not restore them.
-        quarantine_snapshots(self.cfg.snapshot_prefix, max_step)
+        if not self._multi() or self.mesh.is_primary:
+            quarantine_snapshots(self.cfg.snapshot_prefix, max_step)
+        if self._multi():
+            self.mesh.barrier()
         resumed = self._post_restore(dcfg.lr_scale)
         msg = (f"divergence: {reason}; rolled back to iteration {resumed} "
                f"({restored}), lr={self.cfg.base_lr:.6g} "
@@ -1029,7 +1177,13 @@ class Solver:
     def request_rollback(self, request: RollbackRequest) -> None:
         """Ask the train loop to roll back at its next safe point.
         Thread-safe; a second request before the first is taken
-        replaces it (the newer context wins)."""
+        replaces it (the newer context wins).  Not over a mesh of several
+        processes, where one rank's request would split the ranks."""
+        if self._multi():
+            raise NotImplementedError(
+                "requested rollbacks over a mesh of several processes are "
+                "not ported (ROADMAP Queue 1, entry 'requested rollbacks "
+                "over a mesh')")
         with self._rollback_lock:
             self._rollback_request = request
 

@@ -121,8 +121,8 @@ def test_cli_blockwise_event_stream_matches_jax_cli(tmp_path):
                    if isinstance(v, float))
 
 
-@pytest.mark.parametrize("flags", [["--engine", "ring"],
-                                   ["--engine", "auto"],
+@pytest.mark.parametrize("flags", [["--engine", "sparse"],
+                                   ["--mesh", "two"],
                                    ["--pos-topk", "-1"],
                                    ["--sim-cache", "maybe"],
                                    ["--pos-topk", "many"]])
@@ -136,7 +136,7 @@ def test_unported_engines_and_bad_values_are_argparse_errors(flags, capsys):
 
 def test_solver_refuses_ring_and_unknown_engines():
     model = get_model("mlp", device="cpu", input_shape=(8, 8, 3))
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
+    with pytest.raises(ValueError, match='engine="ring" requires a mesh'):
         Solver(model, engine="ring")
     with pytest.raises(ValueError, match="unknown engine"):
         Solver(model, engine="sparse")

@@ -312,7 +312,8 @@ def test_divergence_without_snapshot_halts_with_reason(tmp_path, pipeline):
 
 _FLAGS = ("divergence_patience", "divergence_action", "divergence_lr_scale",
           "divergence_max_rollbacks", "pipeline", "pipeline_depth",
-          "pipeline_window", "compile_cache")
+          "pipeline_window", "compile_cache", "engine", "mesh", "mp",
+          "partition_rules", "coordinator", "num_processes", "process_id")
 
 
 def _train_actions(parser):
@@ -351,14 +352,23 @@ def test_train_flags_match_the_jax_cli(dest, monkeypatch):
     assert mine.metavar == theirs.metavar
 
 
-def test_serve_takes_compile_cache_and_train_refuses_mesh(capsys):
+def test_serve_takes_compile_cache_and_train_refuses_mesh(capsys, caplog,
+                                                          monkeypatch):
+    """``serve`` takes ``--compile-cache`` and not ``--mesh`` (the
+    mesh-sharded gallery is not ported); ``train --mesh 2`` parses, and
+    outside a process group exits 2 with the launch recipe."""
     p = cli.build_parser()
     args = p.parse_args(["serve", "--index", "x.gidx", "--compile-cache",
                          "cc"])
     assert args.compile_cache == "cc"
     with pytest.raises(SystemExit):
-        p.parse_args(["train", "--solver", "s", "--mesh", "2"])
+        p.parse_args(["serve", "--index", "x.gidx", "--mesh", "2"])
     assert "unrecognized arguments: --mesh" in capsys.readouterr().err
+    assert p.parse_args(["train", "--solver", "s", "--mesh", "2"]).mesh == 2
+    monkeypatch.chdir(REPO)
+    assert cli.main(["train", "--solver", "examples/tiny_solver.prototxt",
+                     "--synthetic", "--device", "cpu", "--mesh", "2"]) == 2
+    assert "not in a process group" in caplog.text
 
 
 def _write_solver(tmp_path, **kw):

@@ -267,6 +267,9 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     "pipeline/__init__.py", "pipeline/compile_cache.py",
     "pipeline/controller.py", "pipeline/prefetcher.py",
     "pipeline/syncguard.py", "pipeline/window.py", "resilience/guard.py",
+    "parallel/__init__.py", "parallel/distributed.py", "parallel/launch.py",
+    "parallel/mesh.py", "parallel/meshcheck.py", "parallel/plan.py",
+    "parallel/ring.py",
 ])
 def test_pipeline_and_guard_modules_are_scanned_and_clean(module):
     path = PORT / module

@@ -150,12 +150,15 @@ def test_cli_event_stream_matches_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "2"]])
-def test_unported_train_flags_are_refused(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["train", "--solver", "examples/tiny_solver.prototxt",
-                  "--synthetic", "--device", "cpu", *flag])
-    assert exc.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+def test_unported_train_flags_are_refused(flag, caplog):
+    """``--mesh 2`` in a process outside any process group exits 2 with
+    the launch recipe (torchrun, or the three launch flags)."""
+    rc = cli.main(["train", "--solver", "examples/tiny_solver.prototxt",
+                   "--synthetic", "--device", "cpu", *flag])
+    assert rc == 2
+    assert "torchrun --nproc-per-node 2 -m npairloss_tpu_torch train" \
+        in caplog.text
+    assert "--coordinator HOST:PORT --num-processes 2" in caplog.text
 
 
 def test_train_without_synthetic_exits_2(tmp_path, caplog):
