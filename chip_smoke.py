@@ -158,6 +158,27 @@ Phases (any failure raises, exits nonzero and prints no result line):
    gloo-through-host step ms; (c) ``train --mesh
    2`` outside a process group, ``--mp 2`` and ``--pipeline`` over two
    ranks on the card exit 2 naming their ROADMAP entries;
+5j. run telemetry and the perf observatory: ``train`` in-process on the
+   phase-5h cut (12 iterations, display 4, no snapshot, no iteration-0
+   TEST, the CLI's synthetic batches made up front, cuDNN
+   deterministic) on ``googlenet_bn`` under ``mxu``, dense and blockwise
+   (its bf16 mode), with ``--telemetry-dir --health-metrics
+   --mining-health --perf-metrics``: (a) the synchronous loop — the run
+   directory valid (manifest, every row's envelope, the trace), every
+   ``train`` row holding every health key of its engine with finite
+   values, the ``perf`` rows' ``step_flops`` equal to the count of the
+   same configuration's step on the CPU and their ``mfu`` in (0, 1), the
+   decomposition of the run's trace reconciled exactly (its categories
+   printed); (b) the same with ``--pipeline`` — every non-``perf`` row
+   and the ``--log-json`` stream equal to (a)'s byte for byte, the
+   strict sync monitor clean, the blockwise five (bf16 mode) and
+   ``round_bf16`` launched by every replay; (c) dense, in turns in one
+   process: the median step ms over steps 2-6 with telemetry and health
+   against without, synchronous and pipelined; (d) ``prof --step
+   train`` at batch 120 (the report validated, the top regions printed
+   with their bound class) and ``time`` at batch 120 (``step_flops`` and
+   ``mfu`` printed); (e) any failure above, a latched telemetry failure
+   included, fails the phase;
 6. the five blockwise kernels (``csrc/npair_blockwise.cu``) at N = M =
    120 and 8192, D = 1024, in their fp32 mode (matmul precision
    HIGHEST) and their bf16 mode (DEFAULT: bf16-rounded operands, the
@@ -210,6 +231,7 @@ import argparse
 import contextlib
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -4052,6 +4074,260 @@ def drive_pipeline(torch, seed, detail, list_net):
     return configs
 
 
+# -- phase 5j: run telemetry and the perf observatory --------------------------
+
+TEL_WORK = os.path.join("build", "tel_smoke")
+# (tag, train argv after the solver, net): googlenet_bn under mxu, dense
+# on the CUB net's mining, blockwise (bf16 mode) on the reference's.
+TEL_RUNS = (
+    ("bn_mxu", ["--model", "googlenet_bn", "--precision", "mxu"], "cub"),
+    ("bn_mxu_blockwise", ["--model", "googlenet_bn", "--precision", "mxu",
+                          "--engine", "blockwise"], "relhard"),
+)
+TEL_FLAGS = ["--health-metrics", "--mining-health", "--perf-metrics"]
+# The health keys every train row carries, per engine (pair hardness
+# needs the dense engine's pair matrix, as in JAX).
+HEALTH_KEYS = ("grad_norm", "param_norm", "update_norm", "update_ratio",
+               "emb_mag_mean", "emb_mag_max")
+PAIR_KEYS = ("mined_pos_per_query", "mined_neg_per_query",
+             "ap_threshold_mean", "an_threshold_mean", "ap_an_margin_mean",
+             "ap_an_margin_p10", "an_saturation")
+
+
+def _tel_rows(run_dir):
+    rows = [json.loads(ln) for ln in open(os.path.join(run_dir,
+                                                       "metrics.jsonl"))]
+    return rows
+
+
+def _cpu_step_flops(torch, seed, argv, batches):
+    """The count of the same configuration's first step on the CPU
+    (``Solver._counted`` around the step body, as the card's loop
+    counts it)."""
+    from npairloss_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(
+        ["train", "--solver", cut_solver(os.path.join(TEL_WORK, "cpu")),
+         *argv, "--device", "cpu", "--synthetic", "--seed", str(seed)])
+    built = cli._build_solver(args)
+    if isinstance(built, int):
+        fail(f"5j: the CPU solver was refused ({built})")
+    solver = built[0]
+    x, lab = solver._put(*batches[0])
+    solver._counted(solver._train_body, x, lab, solver.rate_fn(0))
+    flops = solver._step_flops
+    del solver, built
+    return flops
+
+
+def check_telemetry_config(torch, seed, tag, argv, batches, card):
+    """5j (a) and (b) for one configuration; returns its record."""
+    from npairloss_tpu_torch.obs import REQUIRED_KEYS, validate_chrome_trace
+    from npairloss_tpu_torch.obs.perf.decompose import decompose_step_time
+    from npairloss_tpu_torch.train.solver import PIPELINE_WARMUP_STEPS
+
+    runs = {}
+    for loop in ("sync", "pipe"):
+        tel = os.path.join(PIPE_WORK, f"{tag}_{loop}", "tel")
+        r = _pipe_train(torch, seed, tag, argv + ["--telemetry-dir", tel,
+                                                  *TEL_FLAGS],
+                        loop == "pipe", batches=batches.from_index(0),
+                        snapshot=0, **NO_TEST)
+        if r["rc"] != 0:
+            fail(f"5j {tag} {loop}: train returned {r['rc']}: "
+                 f"{r['lines'][-5:]}")
+        if r["solver"]._telemetry_failed:
+            fail(f"5j {tag} {loop}: telemetry failed (latched)")
+        man = json.load(open(os.path.join(tel, "manifest.json")))
+        if man["config"]["health_metrics"] is not True:
+            fail(f"5j {tag} {loop}: manifest {man['config']}")
+        rows = _tel_rows(tel)
+        bad = [r_ for r_ in rows if any(k not in r_ for k in REQUIRED_KEYS)]
+        if bad:
+            fail(f"5j {tag} {loop}: rows without the envelope: {bad[:1]}")
+        trace = json.load(open(os.path.join(tel, "trace.json")))
+        err = validate_chrome_trace(trace)
+        if err:
+            fail(f"5j {tag} {loop}: trace.json: {err}")
+        r.update(rows=rows, trace=trace, tel=tel)
+        runs[loop] = r
+    want = HEALTH_KEYS + (PAIR_KEYS if "blockwise" not in tag else ())
+    cpu_flops = _cpu_step_flops(torch, seed, argv, batches)
+    out = {"cpu_step_flops": cpu_flops}
+    for loop, r in runs.items():
+        train = [x for x in r["rows"] if x["phase"] == "train"]
+        if len(train) != PIPE_ITERS:
+            fail(f"5j {tag} {loop}: {len(train)} train rows")
+        for row in train:
+            missing = [k for k in want if k not in row]
+            nonfinite = [k for k, v in row.items() if isinstance(v, float)
+                         and not math.isfinite(v)]
+            if missing or nonfinite:
+                fail(f"5j {tag} {loop} step {row['step']}: missing "
+                     f"{missing}, non-finite {nonfinite}")
+        perf = [x for x in r["rows"] if x["phase"] == "perf"]
+        if [x["step"] for x in perf] != [8, 12]:
+            fail(f"5j {tag} {loop}: perf rows at {[x['step'] for x in perf]}")
+        for row in perf:
+            if row.get("step_flops") != cpu_flops:
+                fail(f"5j {tag} {loop}: step_flops {row.get('step_flops')} "
+                     f"!= the CPU's count {cpu_flops}")
+            if not 0.0 < row.get("mfu", -1.0) < 1.0:
+                fail(f"5j {tag} {loop}: mfu {row.get('mfu')}")
+        events = [e for e in r["trace"]["traceEvents"] if e.get("ph") == "X"]
+        t0 = min(e["ts"] for e in events)
+        wall = (max(e["ts"] + e["dur"] for e in events) - t0) / 1e3
+        dec = decompose_step_time(events, wall)
+        gap = sum(dec["parts"].values()) + dec["unattributed_ms"] \
+            - dec["wall_ms"]
+        if abs(gap) > 1e-6:
+            fail(f"5j {tag} {loop}: decomposition off by {gap} ms")
+        spans = sorted({e["name"] for e in events})
+        windows = [(x["step"], x["ms_per_step"], x.get("mfu"))
+                   for x in perf]
+        log(f"[5j {tag} {loop}] {len(train)} train rows with {len(want)} "
+            f"health keys, finite; perf rows (step, ms_per_step, mfu) "
+            f"{windows}; step_flops {perf[0]['step_flops']:.6e} = CPU count; "
+            f"decomposition of {dec['wall_ms']:.3f} ms: "
+            f"{json.dumps(dec['parts'])}, unattributed "
+            f"{dec['unattributed_ms']:.3f}; spans {spans} ({card})")
+        out[loop] = {"perf": perf, "decomposition": dec, "spans": spans,
+                     "step_ms": r["step_ms"]}
+    s, p = runs["sync"], runs["pipe"]
+
+    def plain(rows):
+        return [json.dumps({k: v for k, v in x.items()
+                            if k not in ("wall_time", "run_id")},
+                           sort_keys=True)
+                for x in rows if x["phase"] != "perf"]
+
+    if plain(s["rows"]) != plain(p["rows"]):
+        diff = [(a, b) for a, b in zip(plain(s["rows"]), plain(p["rows"]))
+                if a != b]
+        fail(f"5j {tag}: sync and pipelined rows differ: {diff[:2]}")
+    if _masked_events(s["events"], s["work"]) != \
+            _masked_events(p["events"], p["work"]):
+        fail(f"5j {tag}: --log-json streams differ")
+    stats, counts = p["stats"], p["sync_counts"]
+    if stats["replays"] != PIPE_ITERS - PIPELINE_WARMUP_STEPS \
+            or stats["captures"] != 1:
+        fail(f"5j {tag}: {stats}")
+    if p["violations"] or counts["put_guarded"] or \
+            counts["get_guarded"] != PIPE_ITERS // 4:
+        fail(f"5j {tag}: host transfers on the training thread: {counts} "
+             f"{p['violations']}")
+    per_replay = stats.get("launches_per_replay", {})
+    short = [k for k in PIPE_KERNELS[tag] if per_replay.get(k, 0) < 1]
+    if short:
+        fail(f"5j {tag}: the captured step does not launch {short}")
+    log(f"[5j {tag}] sync and pipelined rows byte for byte "
+        f"({len(plain(s['rows']))} rows, health included); strict monitor "
+        f"clean ({counts}); per replay {json.dumps(per_replay)}")
+    out["launches_per_replay"] = per_replay
+    return out
+
+
+def telemetry_overhead(torch, seed, argv, batches, card):
+    """5j (c): the dense configuration with and without telemetry and
+    health, synchronous then pipelined, in turns; median step ms over
+    steps 2-6."""
+    out = {}
+    for loop in ("sync", "pipe"):
+        for on in (False, True, False, True):
+            extra = (["--telemetry-dir",
+                      os.path.join(TEL_WORK, f"ovh_{loop}_{len(out)}"),
+                      *TEL_FLAGS] if on else [])
+            r = _pipe_train(torch, seed, "overhead", argv + extra,
+                            loop == "pipe", batches=batches.from_index(0),
+                            max_iter=6, snapshot=0, **NO_TEST)
+            if r["rc"] != 0:
+                fail(f"5j overhead {loop}: train returned {r['rc']}")
+            ms = statistics.median(r["step_ms"][:5])
+            out.setdefault(f"{loop}_{'on' if on else 'off'}", []).append(ms)
+    log(f"[5j overhead] median step ms over steps 2-6, in turns (off, on, "
+        f"off, on): sync off {out['sync_off']} on {out['sync_on']}, "
+        f"pipelined off {out['pipe_off']} on {out['pipe_on']} ({card})")
+    return out
+
+
+def check_prof_and_time(torch, card):
+    """5j (d): ``prof --step train`` and ``time`` at batch 120."""
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.obs.perf.report import validate_report
+
+    out_dir = os.path.join(TEL_WORK, "prof")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["prof", "--step", "train", "--model", "googlenet_bn",
+                       "--precision", "mxu", "--batch", "120", "--steps",
+                       "4", "--out", out_dir])
+    if rc != 0:
+        fail(f"5j prof: rc {rc}: {buf.getvalue()[-500:]}")
+    report = json.load(open(os.path.join(out_dir, "perf_report.json")))
+    err = validate_report(report)
+    if err:
+        fail(f"5j prof: {err}")
+    if not report["peaks"]["known"]:
+        fail(f"5j prof: no peaks for {report['device_kind']!r}")
+    tot = report["totals"]
+    top = [(r["region"], f"{r['flops']:.3e}", f"{r['bytes']:.3e}",
+            r["bound"], r["pct_flops"]) for r in report["regions"][:8]]
+    # The ops that move the bytes, and their time at the HBM roofline.
+    ops = [(o["op"], o["calls"], f"{o['bytes']:.3e}",
+            round(o["bytes"] / HBM_BYTES_PER_S * 1e3, 3))
+           for o in tot["ops"][:10]]
+    log(f"[5j prof] {report['timing']}; totals flops "
+        f"{tot['flops_counted']:.6e} bytes {tot['bytes_counted']:.6e} "
+        f"({tot['bytes_counted'] / HBM_BYTES_PER_S * 1e3:.3f} ms at the "
+        f"HBM peak); decomposition {json.dumps(report['decomposition'])}; "
+        f"top regions (region, flops, bytes, bound, %flops) {top}; top ops "
+        f"by bytes (op, calls, bytes, ms at the HBM peak) {ops} ({card})")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["time", "--net", "examples/googlenet_cub.prototxt",
+                       "--model", "googlenet_bn", "--precision", "mxu",
+                       "--batch", "120", "--iterations", "5"])
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or not rec.get("step_flops") or \
+            not 0.0 < rec.get("mfu", -1.0) < 1.0:
+        fail(f"5j time: rc {rc}, {rec}")
+    log(f"[5j time] {json.dumps(rec)} ({card})")
+    return {"prof": {"timing": report["timing"],
+                     "regions": report["regions"], "totals": tot,
+                     "decomposition": report["decomposition"]},
+            "time": rec}
+
+
+def drive_telemetry(torch, seed, detail):
+    """Phase 5j (see the module docstring)."""
+    card = detail["card"]
+    t_start = time.perf_counter()
+    os.makedirs(TEL_WORK, exist_ok=True)
+    nets = {"cub": "examples/googlenet_cub.prototxt",
+            "relhard": blockwise_net(TEL_WORK)}
+    cudnn = torch.backends.cudnn
+    det, bench = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    batches = _TrainBatches(n=4)
+    out = {}
+    try:
+        for tag, argv, net in TEL_RUNS:
+            out[tag] = check_telemetry_config(
+                torch, seed, tag, ["--net", nets[net], *argv], batches, card)
+            _release(torch)
+        out["overhead"] = telemetry_overhead(
+            torch, seed, ["--net", nets["cub"], *TEL_RUNS[0][1]], batches,
+            card)
+        _release(torch)
+        out.update(check_prof_and_time(torch, card))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = det, bench
+    _release(torch)
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"[5j] {out['wall_s']:.1f} s")
+    detail["telemetry"] = out
+
+
 # -- phase 5i: distribution ----------------------------------------------------
 
 DIST_WORK = os.path.join("build", "dist_smoke")
@@ -4678,6 +4954,7 @@ def main() -> int:
     drive_bn_learning(torch, args.seed, detail)
     drive_pipeline(torch, args.seed, detail, list_net)
     drive_distribution(torch, args.seed, detail)
+    drive_telemetry(torch, args.seed, detail)
     bw_rows = check_blockwise_kernels(torch, Timer(torch), detail, args.seed)
     bw_launches, bw_radix_launches, _ = drive_blockwise_train(
         torch, args.seed, detail, dense_step_ms)

@@ -6,3 +6,5 @@ serving path for an NVIDIA H100 with hand-written CUDA kernels in
 numpy and the stdlib only — never jax, flax or ``npairloss_tpu``.
 Submodules are imported explicitly; importing the package loads nothing.
 """
+
+__version__ = "0.1.0"

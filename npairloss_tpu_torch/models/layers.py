@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from npairloss_tpu_torch.models.precision import module_precision
+from npairloss_tpu_torch.obs.perf import count
 from npairloss_tpu_torch.ops.stem import (
     fused_bias_relu,
     fused_bias_relu_pool,
@@ -39,10 +40,13 @@ def local_response_norm(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
     through the stem kernels (``ops.stem.fused_lrn``, forward and
     backward); ``cache`` is their denominator-cache knob (None = auto by
     size).  The default is the plain reference, which autograd
-    differentiates."""
-    if fused:
-        return fused_lrn(x, size, alpha, beta, k, cache=cache)
-    return lrn_plain(x, size, alpha, beta, k)
+    differentiates.  Its ops, forward and backward, count in region
+    ``lrn`` (``obs.perf.count``), as the JAX trunk's ``named_scope``."""
+    with count.scope("lrn", (x,)) as region:
+        y = (fused_lrn(x, size, alpha, beta, k, cache=cache) if fused
+             else lrn_plain(x, size, alpha, beta, k))
+        region.outputs(y)
+    return y
 
 
 def _resolve_pads(padding: Padding, h: int, w: int, kernel: Tuple[int, int],

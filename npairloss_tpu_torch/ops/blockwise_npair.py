@@ -55,6 +55,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from npairloss_tpu_torch.obs.perf import count
 from npairloss_tpu_torch.ops._build import check, counted, library, stream_ptr
 from npairloss_tpu_torch.ops.npair_loss import (
     FLT_MAX,
@@ -640,6 +641,7 @@ for _fn in (npair_stats, npair_hist, npair_loss, npair_gq, npair_gdb):
 
 
 @counted
+@count.priced("round_bf16", lambda x: (0, x.numel() * 8))
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
     """``x`` (float32) rounded to bf16, round to nearest even, and
     widened back to float32 (one launch): the bf16 mode's operands."""
@@ -665,21 +667,62 @@ class _Sweeps(NamedTuple):
     gdb: Callable
 
 
+def _sweep_cost(name: str, args, kw) -> Tuple[int, int]:
+    """FLOPs and bytes of one sweep (``obs.perf.count``), the kernel's
+    and its plain version's alike: 2·N·M·D per pass of sim products
+    (the stats sweep always; hist and loss without the sim cache), and
+    the gradient's own 2·N·M·D product plus a recompute pass without
+    it.  A hist sweep that a device flag tells to return at once counts
+    in full: the count reads no device value.  Bytes: feats, pool and
+    labels (or the cache) read once, the outputs written once."""
+    feats, pool = args[0], args[2]
+    n, d = int(feats.shape[0]), int(feats.shape[1])
+    m = int(pool.shape[0])
+    cached = kw.get("sims") is not None
+    prod = 2 * n * m * d
+    rows = (n + m) * (4 * d + 4)
+    if name == "npair_stats":
+        sides = int(bool(kw.get("hist_same"))) + int(bool(kw.get("hist_diff")))
+        out = n * (5 + sides * RADIX_BINS + int(kw.get("topk") or 0)) * 4
+        return prod, rows + out + bool(kw.get("emit_sims")) * n * m * 4
+    read = (n + m) * 4 + n * m * 4 if cached else rows
+    if name == "npair_hist":
+        return (0 if cached else prod,
+                read + len(args[4]) * n * (RADIX_BINS + 1) * 4)
+    if name == "npair_loss":
+        return 0 if cached else prod, read + n * 7 * 4
+    # npair_gq / npair_gdb: the weights' product with pool or feats.
+    out_rows = m if name == "npair_gdb" else n
+    return (prod if cached else 2 * prod,
+            read + (n + m) * d * 4 + n * 7 * 4 + out_rows * d * 4)
+
+
+def _priced_sweep(name: str, fn: Callable) -> Callable:
+    def run(*args, **kw):
+        with count.kernel(name, lambda: _sweep_cost(name, args, kw)):
+            return fn(*args, **kw)
+    return run
+
+
 def _sweeps(device: torch.device, bn: int, bm: int,
             matmul_precision: Optional[str] = None) -> _Sweeps:
     """The kernel wrappers on the card, which pick their own tiles; on
     the CPU the plain sweeps at the caller's (query, pool) tiles (the
     loss sweep's pool axis in the kernel's order); all in
-    ``matmul_precision``."""
+    ``matmul_precision``, each priced by ``_sweep_cost``."""
     mp = dict(matmul_precision=matmul_precision)
     if device.type != "cpu":
-        return _Sweeps(*(partial(fn, **mp) for fn in (
-            npair_stats, npair_hist, npair_loss, npair_gq, npair_gdb)))
-    tiles = dict(bn=bn, bm=bm, **mp)
-    return _Sweeps(partial(stats_plain, **tiles), partial(hist_plain, **tiles),
-                   partial(loss_plain, bn=bn, bm=bm, **mp),
-                   partial(grad_plain, pool_major=False, **tiles),
-                   partial(grad_plain, pool_major=True, **tiles))
+        fns = [partial(fn, **mp) for fn in (
+            npair_stats, npair_hist, npair_loss, npair_gq, npair_gdb)]
+    else:
+        tiles = dict(bn=bn, bm=bm, **mp)
+        fns = [partial(stats_plain, **tiles), partial(hist_plain, **tiles),
+               partial(loss_plain, bn=bn, bm=bm, **mp),
+               partial(grad_plain, pool_major=False, **tiles),
+               partial(grad_plain, pool_major=True, **tiles)]
+    return _Sweeps(*(_priced_sweep(name, fn) for name, fn in zip(
+        ("npair_stats", "npair_hist", "npair_loss", "npair_gq", "npair_gdb"),
+        fns)))
 
 
 # -- thresholds ------------------------------------------------------------------

@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from npairloss_tpu_torch.obs.perf.count import priced
 from npairloss_tpu_torch.ops._build import check, counted, library, stream_ptr
 
 # The probe-impl registry: the CLI's --probe-impl vocabulary.
@@ -160,7 +161,21 @@ def probe_topk_plain(q, packed, rows, lids, owned, scale, *, kl: int,
     return best_s, best_r
 
 
+def _probe_cost(q, packed, rows, lids, owned, scale=None, *, kl, scoring):
+    """FLOPs and bytes of one probe (``obs.perf.count``): a 2·D score
+    for every slot of every probed cluster of every query; the queries,
+    those slabs (each query's probes read once), their row ids and the
+    (B, kl) outputs."""
+    bq, d = (int(v) for v in q.shape)
+    cap = int(packed.shape[1])
+    probed = bq * int(lids.shape[1]) * cap
+    return (2 * probed * d,
+            q.numel() * 4 + probed * (d * packed.element_size() + 4)
+            + bq * kl * 8)
+
+
 @counted
+@priced("probe_topk", _probe_cost)
 def probe_topk(q, packed, rows, lids, owned, scale=None, *, kl: int,
                scoring: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stage 2 — score the probed clusters and keep a running top-kl.

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from npairloss_tpu_torch.obs.perf.count import priced
 from npairloss_tpu_torch.ops._build import check, counted, library, stream_ptr
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -154,6 +155,47 @@ def lrn_bwd_plain(x: torch.Tensor, g: torch.Tensor,
 # -- LRN: kernel wrappers -------------------------------------------------------
 
 
+# FLOP and byte formulas of the kernels (``obs.perf.count``), per
+# element of x: the LRN forward squares (1), sums the window (size),
+# scales and adds k (2) and multiplies by the power (1); the backward
+# recomputes that denominator unless it is cached, weights g (2), sums
+# the window again (size) and combines (3).  Bytes: each input read
+# once, each output written once.
+
+
+def _lrn_fwd_cost(x, size=5, *a, cached=False, **kw):
+    n = x.numel()
+    return n * (int(size) + 4), n * 2 * x.element_size() + cached * n * 4
+
+
+def _lrn_fwd_cached_cost(x, size=5, *a, **kw):
+    return _lrn_fwd_cost(x, size, cached=True)
+
+
+def _lrn_bwd_cost(x, g, size=5, *a, **kw):
+    n = x.numel()
+    return n * (2 * int(size) + 9), n * 3 * x.element_size()
+
+
+def _lrn_bwd_cached_cost(x, g, d, size=5, *a, **kw):
+    n = x.numel()
+    return n * (int(size) + 5), n * (3 * x.element_size() + 4)
+
+
+def _bias_relu_cost(x, bias):
+    n = x.numel()
+    return 2 * n, 2 * n * x.element_size() + bias.numel() * 4
+
+
+def _bias_relu_pool_cost(x, bias, window, stride):
+    n, h, w, c = (int(v) for v in x.shape)
+    ho = -(-h // int(stride))
+    wo = -(-w // int(stride))
+    out = n * ho * wo * c
+    return (2 * x.numel() + out * int(window) ** 2,
+            (x.numel() + out) * x.element_size() + c * 4)
+
+
 def _lrn_rows(what: str, x: torch.Tensor, max_c: int) -> Tuple[int, int]:
     c = int(x.shape[-1])
     if c > max_c:
@@ -163,6 +205,7 @@ def _lrn_rows(what: str, x: torch.Tensor, max_c: int) -> Tuple[int, int]:
 
 
 @counted
+@priced("lrn_fwd", _lrn_fwd_cost)
 def lrn_fwd(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
             beta: float = 0.75, k: float = 1.0) -> torch.Tensor:
     """The uncached LRN forward kernel (primal and no-grad forwards)."""
@@ -181,6 +224,7 @@ def lrn_fwd(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
 
 
 @counted
+@priced("lrn_fwd_cached", _lrn_fwd_cached_cost)
 def lrn_fwd_cached(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
                    beta: float = 0.75, k: float = 1.0
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -216,6 +260,7 @@ def _launch_lrn_bwd(what: str, x, g, d, size, alpha, beta, k):
 
 
 @counted
+@priced("lrn_bwd", _lrn_bwd_cost)
 def lrn_bwd(x: torch.Tensor, g: torch.Tensor, size: int = 5,
             alpha: float = 1e-4, beta: float = 0.75,
             k: float = 1.0) -> torch.Tensor:
@@ -228,6 +273,7 @@ def lrn_bwd(x: torch.Tensor, g: torch.Tensor, size: int = 5,
 
 
 @counted
+@priced("lrn_bwd_cached", _lrn_bwd_cached_cost)
 def lrn_bwd_cached(x: torch.Tensor, g: torch.Tensor, d: torch.Tensor,
                    size: int = 5, alpha: float = 1e-4, beta: float = 0.75,
                    k: float = 1.0) -> torch.Tensor:
@@ -299,6 +345,7 @@ def bias_relu_plain(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(y, 0.0).to(x.dtype)
 
 
+@priced("fused_bias_relu", _bias_relu_cost)
 def _bias_relu_fwd(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return bias_relu_plain(x, bias)
@@ -394,6 +441,7 @@ def bias_relu_pool_reference(x: torch.Tensor, bias: torch.Tensor,
     return out.permute(0, 2, 3, 1).to(x.dtype)
 
 
+@priced("fused_bias_relu_pool", _bias_relu_pool_cost)
 def _bias_relu_pool_fwd(x, bias, window, stride):
     if x.device.type == "cpu":
         return bias_relu_pool_plain(x, bias, window, stride)

@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from npairloss_tpu_torch.device import DeviceLike, resolve_device
+from npairloss_tpu_torch.obs.perf import count
 from npairloss_tpu_torch.ops.npair_loss import (
     NPairLossConfig,
     npair_loss_with_aux,
@@ -97,31 +98,34 @@ class Mesh:
         MPI_Allgather's receive-buffer order (cu:31-38)."""
         if not self._comm():
             return t
-        src = t.detach().contiguous()
-        if self._stage:
-            src = src.cpu()
-        out = torch.empty((self.size * src.shape[0],) + tuple(src.shape[1:]),
-                          dtype=src.dtype, device=src.device)
-        with warnings.catch_warnings():
-            # Newer torch renames it; the card's torch has this name.
-            warnings.simplefilter("ignore", FutureWarning)
-            dist.all_gather_into_tensor(out, src, group=self.group)
-        if list(self.ring) != sorted(self.ring):
-            n = src.shape[0]
-            order = sorted(range(self.size), key=lambda p: self.ring[p])
-            pos = {g: i for i, g in enumerate(order)}
-            out = torch.cat([out[pos[p] * n:(pos[p] + 1) * n]
-                             for p in range(self.size)])
-        return out.to(t.device)
+        with count.collective(lambda: _nbytes(t) * self.size):
+            src = t.detach().contiguous()
+            if self._stage:
+                src = src.cpu()
+            out = torch.empty(
+                (self.size * src.shape[0],) + tuple(src.shape[1:]),
+                dtype=src.dtype, device=src.device)
+            with warnings.catch_warnings():
+                # Newer torch renames it; the card's torch has this name.
+                warnings.simplefilter("ignore", FutureWarning)
+                dist.all_gather_into_tensor(out, src, group=self.group)
+            if list(self.ring) != sorted(self.ring):
+                n = src.shape[0]
+                order = sorted(range(self.size), key=lambda p: self.ring[p])
+                pos = {g: i for i, g in enumerate(order)}
+                out = torch.cat([out[pos[p] * n:(pos[p] + 1) * n]
+                                 for p in range(self.size)])
+            return out.to(t.device)
 
     def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         if not self._comm():
             return t
-        buf = t.detach().clone(memory_format=torch.contiguous_format)
-        if self._stage:
-            buf = buf.cpu()
-        dist.all_reduce(buf, op=op, group=self.group)
-        return buf.to(t.device)
+        with count.collective(lambda: _nbytes(t)):
+            buf = t.detach().clone(memory_format=torch.contiguous_format)
+            if self._stage:
+                buf = buf.cpu()
+            dist.all_reduce(buf, op=op, group=self.group)
+            return buf.to(t.device)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of every shard's ``t`` (MPI_Allreduce, cu:462-489):
@@ -153,17 +157,18 @@ class Mesh:
             return list(tensors)
         nxt = self.ring[(self.rank + 1) % self.size]
         prv = self.ring[(self.rank - 1) % self.size]
-        sends = [t.detach().contiguous() for t in tensors]
-        if self._stage:
-            sends = [t.cpu() for t in sends]
-        recvs = [torch.empty_like(t) for t in sends]
-        ops = []
-        for s, r in zip(sends, recvs):
-            ops.append(dist.P2POp(dist.isend, s, nxt, self.group))
-            ops.append(dist.P2POp(dist.irecv, r, prv, self.group))
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return [r.to(t.device) for r, t in zip(recvs, tensors)]
+        with count.collective(lambda: sum(_nbytes(t) for t in tensors)):
+            sends = [t.detach().contiguous() for t in tensors]
+            if self._stage:
+                sends = [t.cpu() for t in sends]
+            recvs = [torch.empty_like(t) for t in sends]
+            ops = []
+            for s, r in zip(sends, recvs):
+                ops.append(dist.P2POp(dist.isend, s, nxt, self.group))
+                ops.append(dist.P2POp(dist.irecv, r, prv, self.group))
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            return [r.to(t.device) for r, t in zip(recvs, tensors)]
 
     def barrier(self) -> None:
         if not self._comm():
@@ -172,6 +177,10 @@ class Mesh:
             dist.barrier(group=self.group, device_ids=[self.device.index])
         else:
             dist.barrier(group=self.group)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _device_kind(dev: torch.device) -> str:

@@ -9,11 +9,12 @@ card's own peaks.
     costs (almost) nothing, which pays across hosts.
 
 ``plan_engine`` is pure arithmetic over the mesh's host topology and
-the peaks below; its :class:`EnginePlan` says why, and ``train`` stamps
-it into the run's record.  ``ring_device_order`` keeps ranks host-major,
+the card's peaks; its :class:`EnginePlan` says why, and ``train``
+stamps it into the run's record.  ``ring_device_order`` keeps ranks host-major,
 so one rotation crosses the network once per host boundary.
 
-The peaks are the H100 SXM's data-sheet figures: dense bf16 989
+The peaks are ``obs.perf.roofline``'s (the one table the roofline and
+the planner share): the H100 SXM's data-sheet figures, dense bf16 989
 TFLOP/s; NVLink 4 at 450 GB/s a direction between the cards of a host;
 50 GB/s a card across hosts (one 400 Gb/s NIC per card).  Any other
 kind is planned with those figures and flagged ``peak_known=False``.
@@ -24,36 +25,18 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Sequence
 
+from npairloss_tpu_torch.obs.perf.roofline import (  # noqa: F401
+    H100_SXM,
+    ChipSpec,
+    chip_peaks,
+    interconnect_peak,
+)
+
 # A dense per-shard similarity block bigger than this routes to the
 # streaming engine even on a single host (memory, not bandwidth).
 DENSE_SIM_BUDGET_BYTES = 2 << 30
 # Bytes of one embedding element on the wire (fp32 features).
 ITEMSIZE = 4
-
-
-@dataclasses.dataclass(frozen=True)
-class ChipPeaks:
-    device_kind: str
-    flops: float                     # dense bf16 FLOP/s
-    links: Dict[str, float]          # link name -> bytes/s a direction
-    known: bool
-
-
-H100_SXM = ChipPeaks("NVIDIA H100 SXM", 989e12,
-                     {"nvlink": 450e9, "network": 50e9}, True)
-
-
-def chip_peaks(device_kind: str = "") -> ChipPeaks:
-    """The peaks of ``device_kind`` (``torch.cuda.get_device_name``);
-    another kind gets the H100 SXM's figures, ``known=False``."""
-    if "H100" in (device_kind or ""):
-        return H100_SXM
-    return dataclasses.replace(H100_SXM, device_kind=device_kind or "unknown",
-                               known=False)
-
-
-def interconnect_peak(spec: ChipPeaks, link: str) -> float:
-    return float(spec.links.get(link, 0.0))
 
 
 def ring_device_order(devices: Sequence) -> List:

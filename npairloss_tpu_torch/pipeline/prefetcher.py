@@ -32,7 +32,7 @@ import contextlib
 import logging
 import queue
 import threading
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Optional
 
 from npairloss_tpu_torch.resilience import failpoints
 
@@ -83,15 +83,19 @@ class DevicePrefetcher:
         ``depth`` extra batches — the price of never waiting on a copy.
       device: the batches' device; a CUDA device gives the staging
         thread its own stream (None or a CPU device: no streams).
+      span: optional ``(name, **args) -> context`` (``Solver._span``,
+        thread-safe): each staging put is recorded as a
+        ``pipeline/stage`` span on the staging thread.
     """
 
     def __init__(self, batches: Iterator, place: Callable, depth: int = 2,
-                 device=None):
+                 device=None, span: Optional[Callable] = None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self._it = batches
         self._place = place
         self._device = device
+        self._span = span
         self._stream = None
         if getattr(device, "type", None) == "cuda":
             import torch
@@ -136,13 +140,18 @@ class DevicePrefetcher:
                         put(_EndOfData())
                         return
                     failpoints.fire("pipeline.stage")
-                    dev = self._place(*host)
-                    event = None
-                    if self._stream is not None:
-                        import torch
+                    ctx = (self._span("pipeline/stage",
+                                      batch_index=self.staged)
+                           if self._span is not None
+                           else contextlib.nullcontext())
+                    with ctx:
+                        dev = self._place(*host)
+                        event = None
+                        if self._stream is not None:
+                            import torch
 
-                        event = torch.cuda.Event()
-                        event.record(self._stream)
+                            event = torch.cuda.Event()
+                            event.record(self._stream)
                     self.staged += 1
                 except BaseException as exc:  # surfaced in get()
                     put(_StageFailure(exc, self.staged))

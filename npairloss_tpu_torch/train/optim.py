@@ -17,6 +17,8 @@ from typing import (Callable, Dict, Mapping, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
+from npairloss_tpu_torch.obs.perf import count
+
 Mults = Tuple[Tuple[float, float], Tuple[float, float]]
 
 _F = np.float32
@@ -111,13 +113,17 @@ def caffe_sgd(params: Mapping[str, torch.Tensor],
     host float or a 0-d fp32 tensor on the parameters' device
     (:func:`scaled_lr`)."""
     mu = float(_F(momentum))
+    # The step counter's regions (obs.perf.count; no-ops otherwise).
+    update, apply = count.scope("optim/update"), count.scope("optim/apply")
     for name, w in params.items():
         lmul, dmul = (mults or {}).get(name, (1.0, 1.0))
-        g = grads.get(name)
-        g = torch.zeros_like(w, dtype=torch.float32) if g is None \
-            else g.float()
-        if weight_decay and dmul:
-            g = g + w.float() * float(_F(weight_decay) * _F(dmul))
-        v = momentum_buf[name]
-        v.mul_(mu).add_(g * scaled_lr(lr, lmul))
-        w.sub_(v.to(w.dtype))
+        with update:
+            g = grads.get(name)
+            g = torch.zeros_like(w, dtype=torch.float32) if g is None \
+                else g.float()
+            if weight_decay and dmul:
+                g = g + w.float() * float(_F(weight_decay) * _F(dmul))
+            v = momentum_buf[name]
+            v.mul_(mu).add_(g * scaled_lr(lr, lmul))
+        with apply:
+            w.sub_(v.to(w.dtype))

@@ -61,8 +61,25 @@ reported loss and metrics are the mean over the ranks.  Rank 0 commits
 the snapshots; a stop request (preemption) is agreed by every rank at
 the step boundary.  On a card the pipelined loop refuses a mesh.
 
-Not yet ported (later slices, ROADMAP Queue 1): telemetry (item 10),
-the WAL and remediation engine (items 9 and 12).
+Run telemetry (``obs``), plain attributes as in JAX: ``health`` (a
+``HealthConfig``) folds training-health signals into the step's metric
+dict as device reductions (no host read, so the pipelined step stays
+sync-free and captured); ``telemetry`` (a ``RunTelemetry``) gets one
+``train`` row per step (the synchronous loop then reads every step's
+metrics — the cost the JAX package documents; the pipelined loop writes
+its rows from the ring at each window read), ``eval`` and ``event``
+rows, and host spans on every loop boundary (``data/next_batch``,
+``step/compile`` for the first step of a key — in the pipelined loop its
+warm-up steps and its capture — ``step/dispatch``, ``step/window_sync``,
+``eval``, ``snapshot``; the ``step/recompile`` and ``resilience/<kind>``
+instants).  ``perf_metrics`` adds one ``perf`` row per display window
+(ms_per_step, emb_per_sec, the step's counted FLOPs and MFU): the first
+eager step of a key is counted (``obs.perf.count``) inside a
+``step/cost_analysis`` span, never inside a capture.  A sink failure
+latches: metric rows stop, training goes on.
+
+Not yet ported (later slices, ROADMAP Queue 1): the WAL and remediation
+engine (items 9 and 12).
 """
 
 from __future__ import annotations
@@ -80,6 +97,14 @@ import numpy as np
 import torch
 
 from npairloss_tpu_torch import device as _device
+from npairloss_tpu_torch.obs.health import (
+    HealthConfig,
+    embedding_health,
+    pair_hardness_health,
+    tree_l2_norm,
+    update_health,
+)
+from npairloss_tpu_torch.obs.perf import count
 from npairloss_tpu_torch.ops.blockwise_npair import (
     blockwise_npair_loss_with_aux,
     blockwise_retrieval_metrics,
@@ -206,6 +231,17 @@ def _first_failure(exc: BaseException) -> str:
     return msg
 
 
+def _host_floats(row: Dict[str, Any]) -> Dict[str, float]:
+    """A step's metrics as host floats, its 0-d fp32 device tensors read
+    in one copy (the synchronous loop's per-step telemetry read); the
+    values are ``float(v)``'s, in the row's key order."""
+    dev = [k for k, v in row.items() if isinstance(v, torch.Tensor)
+           and v.dtype == torch.float32 and v.dim() == 0]
+    got = dict(zip(dev, torch.stack([row[k] for k in dev]).tolist())) \
+        if dev else {}
+    return {k: got[k] if k in got else float(v) for k, v in row.items()}
+
+
 def _fmt(metrics: Dict[str, float]) -> str:
     return " ".join(f"{k}={float(v):.4g}" for k, v in sorted(metrics.items()))
 
@@ -244,6 +280,15 @@ class Solver:
       mesh: a ``parallel.mesh.Mesh``: this process is one of its G
         ranks and trains on its rows of each global batch; None = one
         device.
+      health: a ``HealthConfig``: training-health signals in every
+        step's metrics (None = none, no op added).  Over a mesh the
+        embedding and pair-hardness signals are each rank's, averaged
+        with the other metrics (``emb_mag_max`` too: the mean of the
+        ranks' maxima); the update signals are of the all-reduced
+        gradients.
+      telemetry: a ``RunTelemetry`` (rows and host spans; None = off).
+      perf_metrics: with ``telemetry``, one ``perf`` row per display
+        window with the step's counted FLOPs and MFU.
     """
 
     def __init__(self, model: torch.nn.Module,
@@ -257,7 +302,9 @@ class Solver:
                  pos_topk: Optional[int] = None,
                  snapshot_retry: Optional[RetryPolicy] = None,
                  matmul_precision: Optional[str] = None,
-                 precision=None, mesh=None):
+                 precision=None, mesh=None,
+                 health: Optional[HealthConfig] = None,
+                 telemetry=None, perf_metrics: bool = False):
         if engine not in ("dense", "ring", "blockwise"):
             raise ValueError(f"unknown engine {engine!r}")
         if engine == "ring" and mesh is None:
@@ -317,6 +364,21 @@ class Solver:
         self._ring: Optional[Dict[str, torch.Tensor]] = None
         self._side_stream = None
         self.pipeline_stats: Dict[str, Any] = _new_pipeline_stats()
+        # Run telemetry (obs): plain attributes, assignable after
+        # construction.  A new signature of a step or eval batch is a
+        # new key: its first step is spanned step/compile (eval/compile).
+        self.health = health
+        self.telemetry = telemetry
+        self.perf_metrics = bool(perf_metrics)
+        self._telemetry_failed = False
+        self._seen_step_shapes: set = set()
+        self._seen_eval_shapes: set = set()
+        # The last counted step (obs.perf.count.StepCounter) and its
+        # FLOPs; the previous perf row's (time, step).
+        self.step_count = None
+        self._step_flops: Optional[float] = None
+        self._perf_last: Optional[Tuple[float, int]] = None
+        self._last_batch_size: Optional[int] = None
         self._reset_optimizer()
 
     # -- config (the schedule and the loss window derive from it) ----------
@@ -415,22 +477,31 @@ class Solver:
         ``snapshot_retry``, then apply retention GC
         (``cfg.snapshot_max_keep``)."""
         path = self.snapshot_path(step)
+
+        def on_retry(attempt, delay, exc):
+            self._tel_event("retry", step, op="snapshot.save",
+                            attempt=attempt, delay_s=round(delay, 3),
+                            error=str(exc))
+
         if self._multi():
             # Every rank holds the same state: rank 0 commits, every
             # rank learns whether it landed (npairloss_tpu solver.py:
             # 1715-1724).
-            commit_snapshot_multi(path, self.state_dict(), step,
-                                  primary=self.mesh.is_primary,
-                                  agree=self.mesh.agree,
-                                  policy=self.snapshot_retry)
-            if self.mesh.is_primary:
-                gc_snapshots(self.cfg.snapshot_prefix,
-                             self.cfg.snapshot_max_keep)
-            self.mesh.barrier()
+            with self._span("snapshot", step=step):
+                commit_snapshot_multi(path, self.state_dict(), step,
+                                      primary=self.mesh.is_primary,
+                                      agree=self.mesh.agree,
+                                      policy=self.snapshot_retry,
+                                      on_retry=on_retry)
+                if self.mesh.is_primary:
+                    gc_snapshots(self.cfg.snapshot_prefix,
+                                 self.cfg.snapshot_max_keep)
+                self.mesh.barrier()
             log.info("snapshot -> %s", path)
             return path
-        commit_snapshot(path, self.state_dict(), step,
-                        policy=self.snapshot_retry)
+        with self._span("snapshot", step=step):
+            commit_snapshot(path, self.state_dict(), step,
+                            policy=self.snapshot_retry, on_retry=on_retry)
         log.info("snapshot -> %s", path)
         gc_snapshots(self.cfg.snapshot_prefix, self.cfg.snapshot_max_keep)
         return path
@@ -444,8 +515,14 @@ class Solver:
             failpoints.fire("snapshot.restore.io")
             return read_state(path, self.device)
 
+        def on_retry(attempt, delay, exc):
+            self._tel_event("retry", 0, op="snapshot.restore",
+                            attempt=attempt, delay_s=round(delay, 3),
+                            error=str(exc))
+
         return call_with_retry(do_restore, self.snapshot_retry,
-                               describe=f"snapshot restore ({path})")
+                               describe=f"snapshot restore ({path})",
+                               on_retry=on_retry)
 
     def restore_snapshot(self, path: str) -> str:
         """Restore an explicit snapshot path onto the solver's device
@@ -507,6 +584,8 @@ class Solver:
                 self.load_state(state)
             except Exception as e:  # noqa: BLE001 — skip, try the next
                 log.warning("resume: skipping snapshot %s: %s", path, e)
+                self._tel_event("resume_skip", step, snapshot=path,
+                                reason=str(e))
                 continue
             log.info("resume: restored %s (iteration %d)", path, step)
             return path
@@ -514,6 +593,107 @@ class Solver:
                  "fresh", prefix)
         return None
 
+
+    # -- telemetry ----------------------------------------------------------
+
+    def _span(self, name: str, **args):
+        """A telemetry span, or a no-op context when none is attached."""
+        if self.telemetry is None:
+            return contextlib.nullcontext()
+        return self.telemetry.span(name, **args)
+
+    def _tel_log(self, phase: str, step: int, metrics, **extra) -> None:
+        """A metric row that can never abort training: a sink failure
+        (disk full) is logged once, then rows latch off for the run."""
+        tel = self.telemetry
+        if tel is None or not tel.metrics_enabled or self._telemetry_failed:
+            return
+        try:
+            tel.log(phase, step, metrics, **extra)
+        except Exception as e:  # noqa: BLE001 — telemetry is not the run
+            self._telemetry_failed = True
+            log.error("telemetry metric emission failed (disabling for the "
+                      "rest of the run): %s", e)
+
+    def _tel_event(self, kind: str, step: int, **extra) -> None:
+        """A resilience event: one ``event`` row and a
+        ``resilience/<kind>`` instant (no-ops without telemetry)."""
+        tel = self.telemetry
+        if tel is None:
+            return
+        args = {k: v for k, v in extra.items() if v is not None}
+        tel.instant(f"resilience/{kind}", **args)
+        self._tel_log("event", step, {"event": kind, **args})
+
+    def _want_perf(self) -> bool:
+        tel = self.telemetry
+        return (self.perf_metrics and tel is not None
+                and tel.metrics_enabled and not self._telemetry_failed)
+
+    def _device_kind(self) -> str:
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_name(self.device)
+        return self.device.type
+
+    def _new_step_key(self, x, lab) -> bool:
+        """Record the batch signature; True for one not seen before.  A
+        new key after the first is marked ``step/recompile``."""
+        sig = (tuple(x.shape), tuple(lab.shape))
+        new = sig not in self._seen_step_shapes
+        self._seen_step_shapes.add(sig)
+        self._last_batch_size = int(x.shape[0])
+        if new and len(self._seen_step_shapes) > 1 \
+                and self.telemetry is not None:
+            self.telemetry.instant("step/recompile", batch=int(x.shape[0]))
+        return new
+
+    def _counted(self, body: Callable, *args):
+        """``body(*args)`` counted (``obs.perf.count``) inside a
+        ``step/cost_analysis`` span: the step's FLOPs for the perf rows.
+        The counted step is a real step of the run, bit for bit."""
+        with self._span("step/cost_analysis"):
+            with count.StepCounter() as c:
+                out = body(*args)
+        self.step_count = c
+        self._step_flops = float(c.flops)
+        return out
+
+    def _emit_perf_row(self, step_num: int) -> None:
+        """One ``perf`` row per display window: wall clock between
+        boundary emissions over the steps they cover (in both loops:
+        the pipelined window's deferred emission still spans the
+        window's dispatched steps)."""
+        from npairloss_tpu_torch.obs.perf.costs import mfu_from_timing
+
+        now = time.perf_counter()
+        prev = self._perf_last
+        self._perf_last = (now, step_num)
+        if prev is None:
+            return
+        t0, s0 = prev
+        steps_n = step_num - s0
+        if steps_n <= 0 or now <= t0:
+            return
+        sec = (now - t0) / steps_n
+        row: Dict[str, Any] = {"ms_per_step": round(sec * 1e3, 3)}
+        if self._last_batch_size:
+            row["emb_per_sec"] = round(self._last_batch_size / sec, 1)
+        est = mfu_from_timing(flops=self._step_flops, seconds=sec, steps=1,
+                              device_kind=self._device_kind())
+        if est["mfu"] is not None:
+            row["mfu"] = round(est["mfu"], 4)
+        if self._step_flops is not None:
+            row["step_flops"] = self._step_flops
+        self._tel_log("perf", step_num, row)
+
+    def _flush_telemetry(self) -> None:
+        """Land metrics.jsonl and trace.json at every exit of a loop
+        (the owner may keep logging; flush is idempotent)."""
+        if self.telemetry is not None:
+            try:
+                self.telemetry.flush()
+            except Exception as e:  # noqa: BLE001
+                log.error("telemetry flush failed: %s", e)
 
     # -- one step -----------------------------------------------------------
 
@@ -531,25 +711,41 @@ class Solver:
         embedding for the blockwise engine.  Over a mesh: this rank's
         loss over the mesh's pool and its metrics (the ring's without
         its pair counts, as in JAX); :meth:`_reported` averages them
-        over the ranks."""
+        over the ranks.  With ``health.pair_hardness`` the dense engine
+        adds its mined-pair summaries (the streaming engines have no
+        pair matrix to read them from, as in JAX).  The loss, forward
+        and backward, counts in region ``npair`` (``obs.perf.count``)."""
         if self.mesh is not None:
             loss, metrics = self._sharded_loss(emb, labels)
         elif self.engine == "blockwise":
-            loss, _ = blockwise_npair_loss_with_aux(
-                emb, labels, self.loss_cfg, sim_cache=self.sim_cache,
-                pos_topk=self.pos_topk,
-                matmul_precision=self.matmul_precision)
+            with count.scope("npair", (emb,)) as region:
+                loss, _ = blockwise_npair_loss_with_aux(
+                    emb, labels, self.loss_cfg, sim_cache=self.sim_cache,
+                    pos_topk=self.pos_topk,
+                    matmul_precision=self.matmul_precision)
+                region.outputs(loss)
             metrics = blockwise_retrieval_metrics(emb.detach(), labels,
                                                   self.top_ks)
         else:
-            loss, aux = npair_loss_with_aux(
-                emb, labels, self.loss_cfg,
-                matmul_precision=self.matmul_precision)
-            metrics = retrieval_metrics(aux, labels, emb.detach(),
-                                        self.top_ks)
+            with count.scope("npair", (emb,)) as region:
+                loss, aux = npair_loss_with_aux(
+                    emb, labels, self.loss_cfg,
+                    matmul_precision=self.matmul_precision)
+                region.outputs(loss)
+            metrics = self._dense_metrics(aux, labels, emb)
         if self.loss_weight != 1.0:
             loss = loss * float(np.float32(self.loss_weight))
         return loss, metrics
+
+    def _dense_metrics(self, aux, labels, emb) -> Dict[str, Any]:
+        """The dense engine's metric tops, with the pair-hardness health
+        summaries of its aux when ``health.pair_hardness`` is on."""
+        metrics = retrieval_metrics(aux, labels, emb.detach(), self.top_ks)
+        if self.health is not None and self.health.pair_hardness:
+            with count.scope("health"):
+                metrics.update(pair_hardness_health(
+                    aux, mining=self.health.mining_health))
+        return metrics
 
     def _sharded_loss(self, emb: torch.Tensor, labels: torch.Tensor):
         from npairloss_tpu_torch.parallel.mesh import sharded_npair_loss_fn
@@ -559,17 +755,20 @@ class Solver:
                 ring_npair_loss_and_metrics,
             )
 
-            loss, metrics = ring_npair_loss_and_metrics(
-                emb, labels, self.loss_cfg, self.mesh, self.top_ks,
-                sim_cache=self.sim_cache, pos_topk=self.pos_topk,
-                matmul_precision=self.matmul_precision)
+            with count.scope("npair", (emb,)) as region:
+                loss, metrics = ring_npair_loss_and_metrics(
+                    emb, labels, self.loss_cfg, self.mesh, self.top_ks,
+                    sim_cache=self.sim_cache, pos_topk=self.pos_topk,
+                    matmul_precision=self.matmul_precision)
+                region.outputs(loss)
             return loss, {k: v for k, v in metrics.items()
                           if k not in ("ident_num", "diff_num")}
-        loss, aux = sharded_npair_loss_fn(
-            self.mesh, self.loss_cfg,
-            matmul_precision=self.matmul_precision)(emb, labels)
-        return loss, retrieval_metrics(aux, labels, emb.detach(),
-                                       self.top_ks)
+        with count.scope("npair", (emb,)) as region:
+            loss, aux = sharded_npair_loss_fn(
+                self.mesh, self.loss_cfg,
+                matmul_precision=self.matmul_precision)(emb, labels)
+            region.outputs(loss)
+        return loss, self._dense_metrics(aux, labels, emb)
 
     def _reported(self, loss: torch.Tensor,
                   metrics: Dict[str, Any]) -> Dict[str, Any]:
@@ -610,26 +809,53 @@ class Solver:
         """Forward, loss, backward and the Caffe SGD update at ``lr`` (a
         host float, or the pipelined step's device scalar); the step's
         metrics, sorted as a jitted JAX step returns its dict.  Both
-        loops run this body, so they compute the same bits."""
+        loops run this body, so they compute the same bits.  With
+        ``health``: the embedding magnitude, the pre-update parameter
+        norm, and after the update the gradient norm and the update's
+        (the new Caffe history: the parameter change) — device
+        reductions, no host read."""
+        hcfg = self.health
         self.model.train()
         for p in self.params.values():
             p.grad = None
         emb = self.model(x)
         loss, metrics = self.compute_loss(emb, lab)
+        if hcfg is not None and hcfg.embedding_magnitude:
+            with count.scope("health"):
+                metrics.update(embedding_health(emb))
         loss.backward()
         self._sync_grads()
         metrics = self._reported(loss, metrics)
         metrics["lr"] = lr
-        caffe_sgd(self.params, {n: p.grad for n, p in self.params.items()},
-                  self.momentum, lr, self.cfg.momentum,
+        pnorm = None
+        if hcfg is not None and (hcfg.param_norm or hcfg.update_ratio):
+            with count.scope("health"):
+                pnorm = tree_l2_norm(self.params.values())
+        grads = {n: p.grad for n, p in self.params.items()}
+        caffe_sgd(self.params, grads, self.momentum, lr, self.cfg.momentum,
                   self.cfg.weight_decay, self.mults)
+        if hcfg is not None:
+            with count.scope("health"):
+                metrics.update(update_health(
+                    [g if g is not None else torch.zeros_like(p)
+                     for g, p in zip(grads.values(), self.params.values())],
+                    None, self.momentum.values(), hcfg, param_norm=pnorm))
         return dict(sorted(metrics.items()))
 
     def step(self, inputs, labels) -> Dict[str, Any]:
         """One training iteration; returns the step's metrics (device
-        tensors, and the applied lr as a float)."""
+        tensors, and the applied lr as a float).  Spanned
+        ``step/compile`` (a new batch signature) or ``step/dispatch``;
+        a new signature's step is counted when perf rows are on."""
         x, lab = self._put(inputs, labels)
-        metrics = self._train_body(x, lab, self.rate_fn(self.iteration))
+        new = self._new_step_key(x, lab)
+        lr = self.rate_fn(self.iteration)
+        with self._span("step/compile" if new else "step/dispatch",
+                        batch=int(x.shape[0])):
+            if new and self._want_perf():
+                metrics = self._counted(self._train_body, x, lab, lr)
+            else:
+                metrics = self._train_body(x, lab, lr)
         self.iteration += 1
         return metrics
 
@@ -641,14 +867,23 @@ class Solver:
         self.model.eval()
         acc: Dict[str, float] = collections.defaultdict(float)
         n = 0
-        for _ in range(num_iters):
-            x, lab = self._put(*next(batches))
-            loss, metrics = self.compute_loss(self.model(x), lab)
-            metrics = self._reported(loss, metrics)
-            for k, v in sorted(metrics.items()):
-                acc[k] += float(v)
-            n += 1
-        return {k: v / max(n, 1) for k, v in acc.items()}
+        with self._span("eval", num_iters=num_iters):
+            for _ in range(num_iters):
+                x, lab = self._put(*next(batches))
+                sig = (tuple(x.shape), tuple(lab.shape))
+                new = sig not in self._seen_eval_shapes
+                self._seen_eval_shapes.add(sig)
+                with (self._span("eval/compile", batch=int(x.shape[0]))
+                      if new else contextlib.nullcontext()):
+                    loss, metrics = self.compute_loss(self.model(x), lab)
+                    metrics = self._reported(loss, metrics)
+                for k, v in sorted(metrics.items()):
+                    acc[k] += float(v)
+                n += 1
+        out = {k: v / max(n, 1) for k, v in acc.items()}
+        if n:
+            self._tel_log("eval", self.iteration, out, eval_batches=n)
+        return out
 
     # -- the loop -------------------------------------------------------------
 
@@ -669,15 +904,31 @@ class Solver:
 
             enable_compile_cache(cfg.compile_cache)
         if cfg.pipeline:
-            return self._train_pipelined(train_batches, num_iters,
-                                         test_batches, log_fn, record_fn)
+            try:
+                return self._train_pipelined(train_batches, num_iters,
+                                             test_batches, log_fn, record_fn)
+            finally:
+                self._flush_telemetry()
+        try:
+            return self._train_sync(train_batches, num_iters, test_batches,
+                                    log_fn, record_fn)
+        finally:
+            self._flush_telemetry()
+
+    def _train_sync(self, train_batches, num_iters, test_batches, log_fn,
+                    record_fn) -> Dict[str, float]:
         it = self._train_prologue(num_iters, test_batches, log_fn,
                                   record_fn)
         guard = (DivergenceGuard(self.divergence)
                  if self.divergence is not None else None)
         last: Dict[str, Any] = {}
         while it < num_iters:
-            metrics = self.step(*next(train_batches))
+            with self._span("data/next_batch"):
+                batch = next(train_batches)
+            # With telemetry rows each step's metrics are read on the
+            # host below (_emit_step_row): one sync a step, the cost
+            # the JAX package documents; spans alone read nothing.
+            metrics = self.step(*batch)
             step_num = it + 1
             if failpoints.should_fire("step.nan_loss"):
                 # The observed loss only; the state is untouched.
@@ -731,12 +982,25 @@ class Solver:
         steps flush in the loop)."""
         if failpoints.should_fire("train.collapse"):
             # A degenerate embedding-collapse signal in THIS row only:
-            # the display sees a collapsing space, the state is
-            # untouched.
+            # the telemetry and the display see a collapsing space, the
+            # state is untouched.
             row = {**row, "an_threshold_mean": 1.0}
         cfg = self.cfg
-        if log_fn is not None and cfg.display \
-                and step_num % cfg.display == 0:
+        display = bool(cfg.display) and step_num % cfg.display == 0
+        tel = self.telemetry
+        if tel is not None and tel.metrics_enabled \
+                and not self._telemetry_failed:
+            extra: Dict[str, Any] = {}
+            if display and tel.tracer is not None and tel.tracer.dropped:
+                # The tracer's cap is eating spans: say so in the
+                # display row (absent otherwise, so streams stay equal).
+                extra["spans_dropped"] = tel.tracer.dropped
+            self._tel_log("train", step_num, _host_floats(row), **extra)
+        if display and self._want_perf():
+            # A pending-window flush never holds a display step, so the
+            # log_fn=None path never reaches here.
+            self._emit_perf_row(step_num)
+        if log_fn is not None and display:
             self._display(step_num, row, log_fn, record_fn)
 
     def _boundary_actions(self, step_num, test_batches, log_fn,
@@ -759,6 +1023,8 @@ class Solver:
             path = snapped or self.save_snapshot(step_num)
             log_fn(f"preempted at iter {step_num}: emergency snapshot "
                    f"{path}; relaunch with --resume auto")
+            self._tel_event("preempt", step_num, snapshot=path,
+                            signum=self.preempt.signum)
             if record_fn is not None:
                 record_fn({"event": "preempt", "iteration": step_num,
                            "snapshot": path})
@@ -859,27 +1125,43 @@ class Solver:
         for the first ``PIPELINE_WARMUP_STEPS`` steps of a key, then
         captured once and replayed.  ``guard`` wraps the steady-state
         dispatch (the sync monitor's strict region); warm-up and capture
-        are set-up and stay outside it."""
+        are set-up and stay outside it.  A key's set-up steps (on the
+        CPU its first step) are spanned ``step/compile``, the rest
+        ``step/dispatch``; with perf rows on, the key's first eager step
+        is counted (never a capture)."""
         stats = self.pipeline_stats
         key = self._pipe_key(x, lab, capacity)
         p = self._pipe
         if p is None or p.key != key:
             p = self._pipe = _PipelinedStep(key, x, lab)
+        self._new_step_key(x, lab)
         if self._lr_dev is None or self._lr_dev.device != self.device:
             self._lr_dev = torch.zeros((), dtype=torch.float32,
                                        device=self.device)
         cuda = self.device.type == "cuda"
         steady = p.graph is not None or not cuda
-        with (guard() if steady else contextlib.nullcontext()):
+        setup = p.graph is None if cuda else p.eager_steps == 0
+        count_it = p.eager_steps == 0 and self._want_perf()
+        span = dict(batch=int(x.shape[0]), pipeline=True)
+        if setup and cuda:
+            span["capture"] = True
+        with self._span("step/compile" if setup else "step/dispatch",
+                        **span), \
+                (guard() if steady else contextlib.nullcontext()):
             with torch.no_grad():
                 p.x.copy_(x)
                 p.lab.copy_(lab)
                 self._lr_dev.fill_(self.rate_fn(self.iteration))
             if not cuda:
-                self._pipelined_body(p.x, p.lab, capacity)
+                if count_it:
+                    self._counted(self._pipelined_body, p.x, p.lab,
+                                  capacity)
+                else:
+                    self._pipelined_body(p.x, p.lab, capacity)
+                p.eager_steps += 1
                 stats["eager_steps"] += 1
             elif p.graph is None and p.eager_steps < PIPELINE_WARMUP_STEPS:
-                self._warmup_step(p, capacity)
+                self._warmup_step(p, capacity, count_it)
                 stats["eager_steps"] += 1
             else:
                 if p.graph is None:
@@ -889,15 +1171,19 @@ class Solver:
                 stats["replays"] += 1
         self.iteration += 1
 
-    def _warmup_step(self, p, capacity: int) -> None:
-        """An eager step on a side stream (the CUDA-graph warm-up)."""
+    def _warmup_step(self, p, capacity: int, counted: bool = False) -> None:
+        """An eager step on a side stream (the CUDA-graph warm-up);
+        ``counted``: under the step counter."""
         cur = torch.cuda.current_stream(self.device)
         if self._side_stream is None:
             self._side_stream = torch.cuda.Stream(self.device)
         side = self._side_stream
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            self._pipelined_body(p.x, p.lab, capacity)
+            if counted:
+                self._counted(self._pipelined_body, p.x, p.lab, capacity)
+            else:
+                self._pipelined_body(p.x, p.lab, capacity)
         cur.wait_stream(side)
         p.eager_steps += 1
 
@@ -999,7 +1285,9 @@ class Solver:
         self.pipeline_stats = _new_pipeline_stats()
         controller = DispatchController(depth)
         prefetcher = DevicePrefetcher(train_batches, self._stage_batch,
-                                      depth=depth, device=self.device)
+                                      depth=depth, device=self.device,
+                                      span=(self._span if self.telemetry
+                                            is not None else None))
         last: Dict[str, Any] = {}
         it = start
         window_start = it + 1
@@ -1007,7 +1295,8 @@ class Solver:
         try:
             with (mon if mon is not None else contextlib.nullcontext()):
                 while it < num_iters:
-                    x, lab = prefetcher.get()
+                    with self._span("data/next_batch", staged=True):
+                        x, lab = prefetcher.get()
                     controller.reserve()
                     self._pipelined_step(x, lab, window_cap, dispatch_guard)
                     controller.admit(step_token(self.device))
@@ -1034,8 +1323,10 @@ class Solver:
                         continue
                     # ---- window boundary: the ONE host read ----------
                     with allowed():
-                        host_ring = self._window.fetch(self._ring)
-                        self._window.reset(self._ring)
+                        with self._span("step/window_sync",
+                                        steps=step_num - window_start + 1):
+                            host_ring = self._window.fetch(self._ring)
+                            self._window.reset(self._ring)
                         rows = self._window.read(host_ring)
                         for s in poisoned:
                             rows[s - window_start]["loss"] = \
@@ -1131,6 +1422,7 @@ class Solver:
             why = (reason if dcfg.action != "rollback"
                    else f"{reason} (rollback budget "
                         f"{dcfg.max_rollbacks} exhausted)")
+            self._tel_event("divergence_halt", step_num, reason=why)
             raise DivergenceError(f"training diverged: {why}")
         guard.rollbacks += 1
         # A snapshot taken during the non-finite streak holds poisoned
@@ -1157,6 +1449,9 @@ class Solver:
                f"[rollback {guard.rollbacks}/{dcfg.max_rollbacks}]")
         log.warning(msg)
         log_fn(msg)
+        self._tel_event("rollback", step_num, to_iteration=resumed,
+                        snapshot=restored, base_lr=float(self.cfg.base_lr),
+                        rollback=guard.rollbacks)
         if record_fn is not None:
             record_fn({"event": "rollback", "iteration": step_num,
                        "to_iteration": resumed, "snapshot": restored})
@@ -1217,6 +1512,8 @@ class Solver:
                        f"predates the incident")
                 log.warning(msg)
                 log_fn(msg)
+                self._tel_event("rollback_skip", step_num,
+                                reason=req.reason)
                 return None
             max_step = max(qualifying)
         restored = self.restore_auto(max_step=max_step)
@@ -1225,6 +1522,7 @@ class Solver:
                    f"snapshot at iteration <= {max_step}")
             log.warning(msg)
             log_fn(msg)
+            self._tel_event("rollback_skip", step_num, reason=req.reason)
             return None
         resumed = self._post_restore(req.lr_scale)
         msg = (f"remediation rollback ({req.reason}): rolled back to "
@@ -1232,6 +1530,9 @@ class Solver:
                f"lr={self.cfg.base_lr:.6g}")
         log.warning(msg)
         log_fn(msg)
+        self._tel_event("rollback", step_num, to_iteration=resumed,
+                        snapshot=restored, base_lr=float(self.cfg.base_lr),
+                        requested=True, reason=req.reason)
         if record_fn is not None:
             record_fn({"event": "rollback", "iteration": step_num,
                        "to_iteration": resumed, "snapshot": restored,

@@ -11,9 +11,10 @@ counts only launches of its kernel.
     (a poisoned ``jax.py`` first on PYTHONPATH, the test_staticcheck
     trick), and ``jax`` never reaches ``sys.modules``;
   * an AST scan of every port module and ``chip_smoke.py`` finds no
-    import of ``jax``, ``flax`` or ``npairloss_tpu`` (the ``pipeline/``
-    package and ``resilience/guard.py`` named among the scanned files:
-    the guard is a copy, not an import);
+    import of ``jax``, ``flax`` or ``npairloss_tpu`` (the ``pipeline/``,
+    ``parallel/`` and ``obs/`` packages and ``resilience/guard.py`` named
+    among the scanned files: the guard and the stdlib-only telemetry
+    modules are copies, not imports);
   * entry points called without ``device=`` raise when CUDA is absent,
     the data loaders too;
   * kernel wrappers given CPU tensors leave their launch counters at 0.
@@ -269,7 +270,11 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     "pipeline/syncguard.py", "pipeline/window.py", "resilience/guard.py",
     "parallel/__init__.py", "parallel/distributed.py", "parallel/launch.py",
     "parallel/mesh.py", "parallel/meshcheck.py", "parallel/plan.py",
-    "parallel/ring.py",
+    "parallel/ring.py", "obs/__init__.py", "obs/sinks.py", "obs/tracing.py",
+    "obs/manifest.py", "obs/run.py", "obs/health.py", "obs/fleet/__init__.py",
+    "obs/fleet/stamp.py", "obs/perf/__init__.py", "obs/perf/costs.py",
+    "obs/perf/count.py", "obs/perf/decompose.py", "obs/perf/report.py",
+    "obs/perf/roofline.py",
 ])
 def test_pipeline_and_guard_modules_are_scanned_and_clean(module):
     path = PORT / module
