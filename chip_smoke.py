@@ -213,12 +213,20 @@ Phases (any failure raises, exits nonzero and prints no result line):
    mode: cache on = off and ``pos_topk`` 8 = 0 bit for bit, every kernel
    launched twice the same bits and against its plain sweep on the
    kernel's own sims, each kernel's time beside the fp32 mode's and its
-   bound at the dense bf16 peak;
+   bound at the dense bf16 peak; gq/gdb's tensor-core kernel
+   (``npair_grad_tc_kernel``): HGMMA in the SASS of its four
+   instantiations (``cuobjdump -sass``), both roles at N = M = 1000 with
+   D = 68 (a cluster of 4) and D = 1028 (a cluster of 8) against the
+   plain sweep within 1e-4 of its largest entry, cached = recompute and
+   repeat launches bit for bit, and cuBLAS's bf16 product of the
+   materialised 32,768² weight matrix by the bf16 rows as a yardstick
+   beside them (a timing only);
 7. a ``{"kernels": [...]}`` line (launches of the serving kernels from
    phase 4, of the training kernels from phase 5, of ``lrn_bwd`` from
    the phase-5b recompute step, of the blockwise kernels from phase
    6b; the five blockwise kernels again as ``<name>:bf16``, their bf16
-   mode, with its launches in phase 5f's blockwise run); then the card
+   mode, with its launches in phase 5f's blockwise run; gq/gdb's bf16
+   entries name their tensor-core kernel); then the card
    line; then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2535,12 +2543,18 @@ def _blockwise_size_mode(torch, timer, bw, nl, sortable_key, cfgs, rows, f,
     rec = {"n": n, "d": d, "mode": mode, "hist_loss_splits": splits}
     # The kernels' operands: the bf16 mode's rounded once, as the engine
     # does; the plain sweeps round f themselves.
-    fk = bw.round_bf16(f) if mode == "bf16" else f
+    # gq/gdb's tensor-core product reads the bf16 copy of the same rows.
+    fk, gkw = f, {}
     if mode == "bf16":
-        if not torch.equal(fk.view(torch.int32),
-                           nl.bf16_round(f).view(torch.int32)):
+        fk, fk16 = bw.round_bf16(f)
+        gkw = dict(rows16=fk16)
+        if not (torch.equal(fk.view(torch.int32),
+                            nl.bf16_round(f).view(torch.int32))
+                and torch.equal(fk16.view(torch.int16),
+                                bw._rows16_plain(f).view(torch.int16))):
             fail(f"round_bf16 N={n}: differs from .to(torch.bfloat16)")
-        _same_bits(torch, fk, bw.round_bf16(f), f"round_bf16 N={n}")
+        _same_bits(torch, (fk, fk16), bw.round_bf16(f),
+                   f"round_bf16 N={n}")
     # -- stats, every option on
     st = bw.npair_stats(fk, lab, fk, lab, hist_same=True, hist_diff=True,
                         topk=8, emit_sims=True, **kw)
@@ -2622,12 +2636,14 @@ def _blockwise_size_mode(torch, timer, bw, nl, sortable_key, cfgs, rows, f,
         grads = {}
         for name, kern, pm in (("npair_gq", bw.npair_gq, False),
                                ("npair_gdb", bw.npair_gdb, True)):
-            grads[name] = (kern(*gargs, sims=sims, **kw), kern(*gargs, **kw),
+            grads[name] = (kern(*gargs, sims=sims, **kw, **gkw),
+                           kern(*gargs, **kw, **gkw),
                            bw.grad_plain(*pargs, pm, sims=sims, bn=bn, bm=bm,
                                          **kw))
-            _same_bits(torch, grads[name][0], kern(*gargs, sims=sims, **kw),
+            _same_bits(torch, grads[name][0],
+                       kern(*gargs, sims=sims, **kw, **gkw),
                        f"{name} cached N={n} {mode} {cname}")
-            _same_bits(torch, grads[name][1], kern(*gargs, **kw),
+            _same_bits(torch, grads[name][1], kern(*gargs, **kw, **gkw),
                        f"{name} recompute N={n} {mode} {cname}")
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(l_c, l_r)):
@@ -2702,7 +2718,8 @@ def _blockwise_size_mode(torch, timer, bw, nl, sortable_key, cfgs, rows, f,
     # Bytes: the self-pool's N x D operand read once (feats is pool).
     if mode == "bf16":
         row("round_bf16", lambda: bw.round_bf16(f),
-            lambda: nl.bf16_round(f), 8 * nd, 0.0, 0.0, "N x D")
+            lambda: (nl.bf16_round(f), bw._rows16_plain(f)), 10 * nd, 0.0,
+            0.0, "N x D")
     row("npair_stats",
         lambda: bw.npair_stats(fk, lab, fk, lab, hist_same=True, topk=8,
                                emit_sims=True, **kw),
@@ -2732,7 +2749,7 @@ def _blockwise_size_mode(torch, timer, bw, nl, sortable_key, cfgs, rows, f,
             "cached" if cached else "recompute")
         for name, kern, pm in (("npair_gq", bw.npair_gq, False),
                                ("npair_gdb", bw.npair_gdb, True)):
-            row(name, lambda: kern(*gargs, sims=s_, **kw),
+            row(name, lambda: kern(*gargs, sims=s_, **kw, **gkw),
                 lambda: bw.grad_plain(*pargs, pm, sims=s_, bn=bn, bm=bm,
                                       **kw),
                 (4 * nm + 8 * nd if cached else 8 * nd) + 4 * n * 7,
@@ -3261,6 +3278,85 @@ def check_stretch(torch, timer, detail, seed, n=32768, d=512):
     return out
 
 
+# Off the stretch's round shapes for the bf16 gq/gdb on tensor cores: N =
+# M = 1000 (a partial last tile), D = 68 (a cluster of 4, three blocks
+# without columns, the bf16 rows padded to 72) and D = 1028 (a cluster of
+# 8, a second pass of columns).
+GRAD_TC_EDGES = ((1000, 68), (1000, 1028))
+
+
+def grad_tc_sass(detail):
+    """``cuobjdump -sass`` of the built library: each of the four bf16
+    gq/gdb instantiations (``npair_grad_tc_kernel``) must hold HGMMA,
+    the tensor cores' warp-group product."""
+    from npairloss_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build.build_info["path"]],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    found = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if "npair_grad_tc_kernel" in name:
+            found[name] = block.count("HGMMA")
+    log(f"[grad-tc] HGMMA instructions per bf16 gq/gdb instantiation: "
+        f"{json.dumps(found)}")
+    if len(found) != 4 or not all(found.values()):
+        fail("the bf16 gq/gdb SASS lacks HGMMA (or an instantiation is "
+             f"missing): {found}")
+    detail["grad_tc_hgmma"] = found
+    return found
+
+
+def check_grad_tc_edges(torch, detail, seed):
+    """The bf16 gq/gdb at ``GRAD_TC_EDGES``, both roles, from the engine's
+    own REFERENCE_CONFIG forward: cached and recompute against the plain
+    sweep within 1e-4 of its largest entry (as phase 6c holds the
+    stretch), cached = recompute and repeat launches bit for bit; the
+    engine's bf16 rows equal ``.to(torch.bfloat16)`` zero-padded."""
+    from npairloss_tpu_torch.ops import blockwise_npair as bw
+    from npairloss_tpu_torch.ops import npair_loss as nl
+
+    cfg = nl.REFERENCE_CONFIG
+    kw = {"matmul_precision": "default"}
+    errs = {}
+    for n, d in GRAD_TC_EDGES:
+        f, lab = unit_batch(torch, seed + 11 + d, n, d)
+        _, _, res = bw._forward(f, lab, cfg, 512, 512, True, 8, "default")
+        fk, rows16, sims = res["feats"], res["rows16"], res["sims"]
+        if not torch.equal(rows16.view(torch.int16),
+                           bw._rows16_plain(f).view(torch.int16)):
+            fail(f"round_bf16 rows16 N={n} D={d}: differs from "
+                 ".to(torch.bfloat16) zero-padded")
+        rest = (res["pos_thr"], res["neg_thr"], res["max_all"],
+                res["ident_sum"], res["all_sum"],
+                torch.ones(n, device="cuda"), torch.ones((), device="cuda"),
+                cfg)
+        gkw = dict(rows16=rows16, **kw)
+        for name, kern, pm in (("npair_gq", bw.npair_gq, False),
+                               ("npair_gdb", bw.npair_gdb, True)):
+            gc = kern(fk, lab, fk, lab, *rest, sims=sims, **gkw)
+            gr = kern(fk, lab, fk, lab, *rest, **gkw)
+            _same_bits(torch, gc, kern(fk, lab, fk, lab, *rest, sims=sims,
+                                       **gkw), f"{name} N={n} D={d} cached")
+            _same_bits(torch, gr, kern(fk, lab, fk, lab, *rest, **gkw),
+                       f"{name} N={n} D={d} recompute")
+            gp = bw.grad_plain(f, lab, f, lab, *rest, pm, sims=sims, bn=512,
+                               bm=512, **kw)
+            err = ((gc - gp).abs().max()
+                   / gp.abs().max().clamp_min(1e-30)).item()
+            errs[f"{name}_{n}x{d}"] = err
+            if not torch.equal(gc, gr) or not err <= 1e-4:
+                fail(f"bf16 {name} N={n} D={d}: cached/recompute differ or "
+                     f"{err} of the plain sweep's largest entry")
+    log(f"[grad-tc] edges {GRAD_TC_EDGES}: cached = recompute, repeat "
+        f"launches the same bits, against the plain sweep: "
+        f"{json.dumps(errs)}")
+    detail["grad_tc_edges"] = errs
+    return errs
+
+
 def check_stretch_bf16(torch, timer, detail, seed, n=32768, d=512):
     """The stretch in the kernels' bf16 mode (matmul precision DEFAULT):
     REFERENCE_CONFIG loss + backward with the sim cache on and off and
@@ -3321,10 +3417,13 @@ def check_stretch_bf16(torch, timer, detail, seed, n=32768, d=512):
     thr = (res["pos_thr"], res["neg_thr"], res["max_all"])
     valid = torch.ones(n, device="cuda")
     g = torch.ones((), device="cuda")
-    fk = bw.round_bf16(f)
+    fk, fk16 = bw.round_bf16(f)
     fr = nl.bf16_round(f)
-    if not torch.equal(fk.view(torch.int32), fr.view(torch.int32)):
+    if not (torch.equal(fk.view(torch.int32), fr.view(torch.int32))
+            and torch.equal(fk16.view(torch.int16),
+                            bw._rows16_plain(f).view(torch.int16))):
         fail("stretch bf16: round_bf16 differs from .to(torch.bfloat16)")
+    gkw = dict(rows16=fk16, **kw)
     rest = (*thr, res["ident_sum"], res["all_sum"], valid, g, cfg)
     gargs, pargs = (fk, lab, fk, lab, *rest), (f, lab, f, lab, *rest)
     st_kw = dict(hist_same=True, topk=8, emit_sims=True, **kw)
@@ -3377,11 +3476,11 @@ def check_stretch_bf16(torch, timer, detail, seed, n=32768, d=512):
     del l_p
     for name, kern, pm in (("npair_gq", bw.npair_gq, False),
                            ("npair_gdb", bw.npair_gdb, True)):
-        gc = kern(*gargs, sims=sims, **kw)
-        gr = kern(*gargs, **kw)
-        _same_bits(torch, gc, kern(*gargs, sims=sims, **kw),
+        gc = kern(*gargs, sims=sims, **gkw)
+        gr = kern(*gargs, **gkw)
+        _same_bits(torch, gc, kern(*gargs, sims=sims, **gkw),
                    f"stretch bf16 {name} cached")
-        _same_bits(torch, gr, kern(*gargs, **kw),
+        _same_bits(torch, gr, kern(*gargs, **gkw),
                    f"stretch bf16 {name} recompute")
         gp = bw.grad_plain(*pargs, pm, sims=sims, bn=big, bm=big, **kw)
         errs[f"{name}_err"] = ((gc - gp).abs().max()
@@ -3395,12 +3494,17 @@ def check_stretch_bf16(torch, timer, detail, seed, n=32768, d=512):
         f"launched twice gives the same bits and agrees with its plain "
         f"sweep on the kernel's sims: {json.dumps(errs)}")
     out["errors"] = errs
+    # gq/gdb's tensor cores: HGMMA in their SASS; the shapes off the
+    # stretch's, both cluster sizes.
+    grad_tc_sass(out)
+    check_grad_tc_edges(torch, out, seed)
 
     fp32_ms = detail.get("stretch", {}).get("kernel_ms", {})
     nm, flop = float(n) * n, 2.0 * n * n * d
     times = {}
     for name, fn, nbytes, ops in (
-            ("round_bf16", lambda: bw.round_bf16(f), 8 * n * d, 0.0),
+            ("round_bf16", lambda: bw.round_bf16(f),
+             10 * n * d, 0.0),
             ("npair_stats+emit", lambda: bw.npair_stats(
                 fk, lab, fk, lab, **st_kw), 4 * n * d + 4 * nm, flop),
             ("npair_hist cached", lambda: bw.npair_hist(
@@ -3414,14 +3518,15 @@ def check_stretch_bf16(torch, timer, detail, seed, n=32768, d=512):
             ("npair_loss recompute", lambda: bw.npair_loss(
                 fk, lab, fk, lab, *thr, cfg, **kw), 4 * n * d,
              flop + 3 * nm),
-            ("npair_gq cached", lambda: bw.npair_gq(*gargs, sims=sims, **kw),
+            ("npair_gq cached", lambda: bw.npair_gq(*gargs, sims=sims,
+                                                    **gkw),
              4 * nm + 8 * n * d, flop),
-            ("npair_gq recompute", lambda: bw.npair_gq(*gargs, **kw),
+            ("npair_gq recompute", lambda: bw.npair_gq(*gargs, **gkw),
              8 * n * d, 2 * flop),
             ("npair_gdb cached", lambda: bw.npair_gdb(*gargs, sims=sims,
-                                                      **kw),
+                                                      **gkw),
              4 * nm + 8 * n * d, flop),
-            ("npair_gdb recompute", lambda: bw.npair_gdb(*gargs, **kw),
+            ("npair_gdb recompute", lambda: bw.npair_gdb(*gargs, **gkw),
              8 * n * d, 2 * flop)):
         bms, by = bound_ms(nbytes, ops, "bf16")
         times[name] = {"ms": timer.ms(fn, iters=5, warmup=1),
@@ -3430,12 +3535,29 @@ def check_stretch_bf16(torch, timer, detail, seed, n=32768, d=512):
         log(f"[stretch-bf16] {name} N={n} D={d}: {json.dumps(times[name])}")
     plain = stretch_plain_ms(torch, bw, f, lab, thr, pargs, sims, pre, cfg,
                              splits, **kw)
-    plain["round_bf16"] = timer.ms(lambda: nl.bf16_round(f), iters=5,
-                                   warmup=1)
+    plain["round_bf16"] = timer.ms(
+        lambda: (nl.bf16_round(f), bw._rows16_plain(f)), iters=5, warmup=1)
     for name, ms in plain.items():
         times[name]["plain_ms"] = ms
     log(f"[stretch-bf16] plain sweeps, one call each (ms): "
         f"{json.dumps(plain)}")
+    # A yardstick beside gq/gdb, never called by the port (the kernels
+    # never build W): cuBLAS's bf16 product of the materialised N x N
+    # weight matrix by the bf16 rows, the weights' build not timed.
+    same, diff = bw._tile_masks(lab, lab, (0, n), (0, n), 0)
+    pt, nt = bw._margined(thr[0], thr[1], cfg)
+    a, b = bw._query_terms(res["ident_sum"], res["all_sum"], valid, g, n)
+    w16 = bw._weight_tile(sims, same, diff, pt[:, None], nt[:, None],
+                          thr[2][:, None], a[:, None], b[:, None], cfg,
+                          bf16=True).to(torch.bfloat16)
+    del same, diff
+    for name, w_ in (("npair_gq", w16), ("npair_gdb", w16.T)):
+        ms = timer.ms(lambda: torch.matmul(w_, fk16), iters=5, warmup=1)
+        for variant in ("cached", "recompute"):
+            times[f"{name} {variant}"]["cublas_bf16_w_ms"] = ms
+        log(f"[stretch-bf16] {name}: cuBLAS bf16 W @ rows ({n} x {n} W "
+            f"materialised): {ms:.3f} ms")
+    del w16
     out["kernel_ms"] = times
     out["wall_s"] = time.perf_counter() - t_start
     log(f"[stretch-bf16] {out['wall_s']:.1f} s")
@@ -5047,6 +5169,9 @@ def main() -> int:
             f"{name}:bf16", src, f"npairloss_tpu/ops/pallas_npair.py:{line}",
             path_120(bw_rows[name], variant, "bf16"), f"{name}:bf16",
             bn_launches))
+        if name in ("npair_gq", "npair_gdb"):
+            # Their bf16 mode is its own kernel, on the tensor cores.
+            kernels[-1]["kernel"] = "npair_grad_tc_kernel (wgmma)"
     # The bf16 mode's operand rounding, once per loss: the cast inside the
     # Pallas kernels' DEFAULT-precision sim tile.
     kernels.append(entry(

@@ -9,24 +9,31 @@
 //   npair_loss_kernel  <- _make_loss_kernel (:388), launched by _run_loss (:658)
 //   npair_grad_kernel<query-major> <- _make_gq_kernel (:458), _run_bwd (:683)
 //   npair_grad_kernel<pool-major>  <- _make_gdb_kernel (:483), _run_bwd (:683)
+//   npair_grad_tc_kernel: the same two in the bf16 mode, on tensor cores
 //
 // The single-pass bf16 mode (the Pallas kernels' matmul precision
 // DEFAULT, pallas_npair.py:170-186, :473-478, :498-503): every product
 // reads bf16-rounded operands and accumulates in fp32.  The caller
 // rounds the features once per loss (npl_round_bf16: round to nearest
-// even, widened back to fp32), and the fp32 loops then run on them: a
-// product of two bf16 values is exact in fp32, so each chain computes
-// "bf16 multiply, fp32 accumulate".  So stats, hist and loss are the
-// same kernels in both modes; gq and gdb also round their weight tile
-// w, which never leaves the kernel, where it is stored
-// (npair_grad_kernel<..., kBf16>).
+// even, widened back to fp32, and the same rows as a bf16 copy).  Stats,
+// hist and loss are the same kernels in both modes: their fp32 FMA
+// chains run on the rounded values (a product of two bf16 values is
+// exact in fp32, so each chain computes "bf16 multiply, fp32
+// accumulate"), which keeps one sim function for every kernel.  gq and
+// gdb build their weight tile w from those sims as in the fp32 mode,
+// round it to bf16 and multiply it by the bf16 copy's rows on the tensor
+// cores (npair_grad_tc_kernel: wgmma.m64n128k16, fp32 accumulators).
 //
-// Bound on an H100 SXM (67 TFLOP/s fp32 on the FMA pipes, 3.35 TB/s
-// HBM).  Every sweep that recomputes its sims does 2 N M D flop and is
-// bound by operations (N = M = 32768, D = 512: 16.4 ms); gq and gdb add
-// their own 2 N M D product (16.4 ms with the cache, 32.8 ms
-// recomputing).  The cached hist and loss sweeps read the N x M fp32
-// cache once and are bound by bytes (4.29 GB: 1.28 ms).
+// Bound on an H100 SXM (67 TFLOP/s fp32 on the FMA pipes, 989 TFLOP/s
+// bf16 on the tensor cores, 3.35 TB/s HBM).  Every sweep that recomputes
+// its sims does 2 N M D flop on the FMA pipes and is bound by operations
+// (N = M = 32768, D = 512: 16.4 ms); fp32 gq and gdb add their own 2 N M
+// D product (16.4 ms with the cache, 32.8 ms recomputing).  The cached
+// hist and loss sweeps read the N x M fp32 cache once and are bound by
+// bytes (4.29 GB: 1.28 ms).  The bf16 gq and gdb: cached, the cache's
+// bytes (1.28 ms) bound them, not their product (1.1 ms at the bf16
+// peak); recomputing, their sims on the FMA pipes (16.4 ms), where the
+// card's least time for both products at the bf16 peak is 2.2 ms.
 //
 // One order for every sim, in every kernel: sim(q, i) is one __fmaf_rn
 // chain over k = 0..D-1 in increasing k, starting at +0, whichever
@@ -129,6 +136,37 @@
 //     grid is kS x bands (N = 8192, D = 1024: 512 CTAs; N = 32768, D =
 //     512: 1024).
 //
+// npair_grad_tc_kernel (gq and gdb in the bf16 mode): the same grid,
+// cluster, weight shares and sims, with the product on the tensor cores.
+//   * The weight tile is stored as bf16 where it is built, in wgmma's
+//     128-byte-swizzled layout (32 KB, double-buffered); X comes from the
+//     bf16 copy by 16-byte cp.async straight into a swizzled,
+//     double-buffered tile: half the shared memory and L2 traffic of the
+//     fp32 tiles.
+//   * Each of the block's two warp groups multiplies 64 of the band's
+//     rows by the block's 128 D columns: 8 wgmma.m64n128k16 an other
+//     tile (zero weights and zero-filled rows past the ends), the
+//     accumulators in registers through the sweep, tiles in increasing
+//     order.
+//   * The product overlaps the weight epilogue: tile t's wgmma group is
+//     committed, tile t + 1's share built and pushed while it runs, and
+//     only then wgmma.wait_group and the cluster barrier.  Both warp
+//     groups build and multiply (no producer warp group): the build is
+//     the longer part, and a producer would leave half the threads idle
+//     through it.  The product is issued unconditionally in its pass's
+//     loop and nothing reads its accumulator before the wait, or ptxas
+//     waits for it at once (its C7517 note).
+//   * The epilogue's parts, each measured (tools/kernel_breakdown.py):
+//     the cached share lands [own row][other row] for both roles (pool-
+//     major transposed by its 4-byte copies), so a warp builds one row's
+//     128 weights and its pushes to each rank are 256 contiguous bytes;
+//     labels and pool-major query terms are read 16 bytes for 4 columns;
+//     the async-proxy fence is the reader's, at CTA scope, after the
+//     barrier (a writer's fence at cluster scope is a MEMBAR a tile).
+//   * One tile shape and instruction sequence for the cached and the
+//     recompute variant on equal weight bits, so they agree bit for bit;
+//     no atomics, so repeat launches do too.
+//
 // The 16-byte operand copies need D % 4 == 0 and 16-byte aligned rows:
 // the wrappers zero-pad D (which changes no sim) where it is not.
 
@@ -165,24 +203,67 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// dst[i] = bf16_round(src[i]) for i < count, 16 bytes at a time where
-// both are 16-byte aligned and count % 4 == 0, one element at a time
-// otherwise.
+// dst[i] = bf16_round(src[i]) for i < rows * d, 16 bytes at a time where
+// both are 16-byte aligned and the count % 4 == 0, one element at a time
+// otherwise; dst16 [rows][ld16] the same values as bf16, zero past d,
+// one 16-byte chunk of 8 a thread.  vec == 2 (ld16 == d, a
+// multiple of 8, and every pointer 16-byte aligned): both in one pass, 8
+// elements a thread.
 __global__ void __launch_bounds__(256) round_bf16_kernel(
-    const float* __restrict__ src, float* __restrict__ dst, long long count,
+    const float* __restrict__ src, float* __restrict__ dst,
+    __nv_bfloat16* __restrict__ dst16, long long rows, int d, int ld16,
     int vec) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x +
+                          threadIdx.x;
+  const long long count = rows * d;
+  if (vec == 2) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (long long i = first; i < count / 8; i += stride) {
+      const float4 a = s4[2 * i], b = s4[2 * i + 1];
+      d4[2 * i] = make_float4(bf16_round(a.x), bf16_round(a.y),
+                              bf16_round(a.z), bf16_round(a.w));
+      d4[2 * i + 1] = make_float4(bf16_round(b.x), bf16_round(b.y),
+                                  bf16_round(b.z), bf16_round(b.w));
+      const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      unsigned w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+        w[e] = *reinterpret_cast<const unsigned*>(&h);
+      }
+      reinterpret_cast<uint4*>(dst16)[i] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    return;
+  }
   if (vec) {
     const float4* s4 = reinterpret_cast<const float4*>(src);
     float4* d4 = reinterpret_cast<float4*>(dst);
-    for (; i < count / 4; i += stride) {
+    for (long long i = first; i < count / 4; i += stride) {
       const float4 v = s4[i];
       d4[i] = make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z),
                           bf16_round(v.w));
     }
   } else {
-    for (; i < count; i += stride) dst[i] = bf16_round(src[i]);
+    for (long long i = first; i < count; i += stride)
+      dst[i] = bf16_round(src[i]);
+  }
+  const int per_row = ld16 / 8;
+  for (long long i = first; i < rows * per_row; i += stride) {
+    const long long r = i / per_row;
+    const int c = static_cast<int>(i % per_row) * 8;
+    const float* row = src + r * d;
+    unsigned w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = c + 2 * e;
+      const __nv_bfloat162 v = __floats2bfloat162_rn(
+          k < d ? row[k] : 0.f, k + 1 < d ? row[k + 1] : 0.f);
+      w[e] = *reinterpret_cast<const unsigned*>(&v);
+    }
+    *reinterpret_cast<uint4*>(dst16 + r * ld16 + c) =
+        make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
@@ -994,10 +1075,8 @@ __host__ __device__ constexpr size_t grad_smem_bytes() {
 // rows [s kBT / kS, (s+1) kBT / kS) of every weight tile, which it
 // stores into every rank's double-buffered tile (distributed shared
 // memory stores do not wait); one cluster barrier per other tile then
-// makes the whole tile visible everywhere.  kBf16: each weight is
-// rounded to bf16 before it is stored (the bf16 mode; the operands come
-// rounded already).
-template <bool kCached, int kS, bool kBf16>
+// makes the whole tile visible everywhere.
+template <bool kCached, int kS>
 __global__ void __launch_bounds__(kThreads, 1) npair_grad_kernel(
     const float* __restrict__ feats, const int* __restrict__ labels,
     const float* __restrict__ pool, const int* __restrict__ pool_labels,
@@ -1117,9 +1196,7 @@ __global__ void __launch_bounds__(kThreads, 1) npair_grad_kernel(
     const int i = pm ? sr0 + r : x0 + c;
     const Pair p = pair_bits(q, i, pm ? xl[c] : olab[r],
                              pm ? olab[r] : xl[c], f32, n, m, self_offset);
-    const float w = pair_weight(v, p, ap, an, pm ? xq[c] : oqt[r]);
-    if constexpr (kBf16) return bf16_round(w);
-    return w;
+    return pair_weight(v, p, ap, an, pm ? xq[c] : oqt[r]);
   };
   // The next tile's labels and terms, from the raw rows its first slice
   // brought, into buffer b.
@@ -1289,6 +1366,467 @@ __global__ void __launch_bounds__(kThreads, 1) npair_grad_kernel(
   cluster.sync();  // no block leaves while another may still store to it
 }
 
+// ------------------------------------------ gq and gdb on tensor cores
+
+// The bf16 mode's gq and gdb (npair_grad_tc_kernel): the product on
+// Hopper's tensor cores.  Its operands sit in shared memory as wgmma
+// reads them: bf16 tiles of 128 rows x 128 columns, each two 64-column
+// halves [128 rows][64] one after the other, every 8-row block of 128-byte
+// rows swizzled by 128 bytes (16-byte chunk c of row r at chunk c ^ r % 8,
+// the period 1024 bytes).
+constexpr int kTileBf16 = kBT * kBT;  // elements of one bf16 tile
+
+// Offset (elements) of (row r, column c) in a swizzled bf16 tile.
+__device__ __forceinline__ int sw128(int r, int c) {
+  return (c >> 6) * (kBT * 64) + r * 64 +
+         ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
+}
+
+// A wgmma shared-memory descriptor of the 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ unsigned long long wgmma_desc(unsigned addr,
+                                                         unsigned lbo,
+                                                         unsigned sbo) {
+  return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) |
+         (static_cast<unsigned long long>(lbo >> 4) << 16) |
+         (static_cast<unsigned long long>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 128 fp32, the warp group's accumulator fragment) = a (64 x 16
+// bf16, K-major) @ b (16 x 128 bf16, N-major) + (add ? d : 0),
+// asynchronously.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 unsigned long long a,
+                                                 unsigned long long b,
+                                                 int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(add));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses of the accumulator across the
+// asynchronous product's issue and wait.  Only where no product is in
+// flight: a read of its registers there makes ptxas wait for it.
+__device__ __forceinline__ void pin(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// Generic-proxy writes to this block's shared memory that a barrier made
+// visible to this thread (its own stores and cp.async copies, the
+// cluster's stores into it) before its wgmma reads them through the async
+// proxy.  On the reading side, at CTA scope: a writer's fence at cluster
+// scope costs ~1 ms more at the stretch (a MEMBAR per thread and tile).
+__device__ __forceinline__ void fence_to_wgmma() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Floats of one ring slot's weight source: the cached variant's share of
+// a cache tile (kBT / kS own rows x 128, rows kWStride apart), or the
+// recompute variant's 32-k slice of the block's kBT / kS weight rows and
+// of the 128 other rows.
+template <bool kCached, int kS>
+__host__ __device__ constexpr int tc_source_floats() {
+  return kCached ? kBT / kS * kWStride : (kBT / kS + kBT) * kBK;
+}
+
+// Dynamic shared memory (bytes): 1 KB to align the tiles, two weight and
+// two X tiles, the ring (each slot: a weight source and the next other
+// tile's raw rows), query terms and labels.
+template <bool kCached, int kS>
+__host__ __device__ constexpr size_t grad_tc_smem_bytes() {
+  return 1024 + 4 * kTileBf16 * sizeof(__nv_bfloat16) +
+         sizeof(float) * (kStages * (tc_source_floats<kCached, kS>() + kRaw) +
+                          2 * 5 * kBT) +
+         sizeof(QueryTerms) * (kBT / kS) + sizeof(int) * (2 * kBT + kBT / kS);
+}
+
+// gq (pool_major = 0) or gdb (1) in the bf16 mode: out[band, chunk] =
+// sum over other tiles, in increasing order, of bf16(W tile) @ bf16(X
+// tile), accumulated in fp32 by the tensor cores.  Grid, cluster and the
+// weight tile's construction as npair_grad_kernel's: rank s builds rows
+// [s kBT / kS, (s+1) kBT / kS) of every weight tile (from the cache, or
+// from its own sims: sim_slice, the one sim function), rounds them to
+// bf16 and stores them swizzled into every rank's double-buffered tile.
+// X comes as bf16 rows (x16, row stride ld16, zero past d), streamed by
+// 16-byte cp.async straight into a double-buffered swizzled tile.  Warp
+// group w multiplies band rows [64 w, 64 w + 64) by the 128 columns of
+// the block's D chunk: 8 wgmma.m64n128k16 a tile, the accumulator in
+// registers through the sweep.  The product of tile t runs while the
+// block builds tile t + 1's weights; then wgmma.wait_group and one
+// cluster barrier, after which tile t's buffers are free everywhere.
+template <bool kCached, int kS>
+__global__ void __launch_bounds__(kThreads, 1) npair_grad_tc_kernel(
+    const float* __restrict__ feats, const int* __restrict__ labels,
+    const float* __restrict__ pool, const int* __restrict__ pool_labels,
+    int label_f32, int pool_major, const float* __restrict__ sims, int n,
+    int m, int d, int self_offset, int ap, int an, float margin_ident,
+    float margin_diff, const float* __restrict__ pos_thr,
+    const float* __restrict__ neg_thr, const float* __restrict__ max_all,
+    const float* __restrict__ isum, const float* __restrict__ asum,
+    const float* __restrict__ valid, const float* __restrict__ g,
+    const __nv_bfloat16* __restrict__ x16, int ld16, int vec,
+    float* __restrict__ out) {
+  static_assert(kS == 4 || kS == 8, "a cluster of 4 or 8");
+  constexpr int kRs = kBT / kS;   // weight rows this block builds
+  constexpr int kMA = 8 / kS;     // ... per thread (recompute)
+  constexpr int kSrc = tc_source_floats<kCached, kS>();
+  constexpr int kStage = kSrc + kRaw;
+  constexpr int kQuads = kRs * kBT / 4 / kThreads;  // cached: 4 weights each
+  const bool pm = pool_major != 0;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  // The same offset in every block, so the cluster's stores land alike.
+  __nv_bfloat16* wl = reinterpret_cast<__nv_bfloat16*>(
+      smem_tc + ((1024 - (smem_u32(smem_tc) & 1023)) & 1023));
+  __nv_bfloat16* xs = wl + 2 * kTileBf16;  // 2 X tiles
+  float* ring = reinterpret_cast<float*>(xs + 2 * kTileBf16);
+  // Per other tile, double-buffered: its rows' labels and (pool-major)
+  // query terms, field by field ([2][5][kBT]: four columns' fields are 16
+  // bytes); then this block's own rows' labels and (query-major) terms.
+  float* xterms = ring + kStages * kStage;
+  int* xlab = reinterpret_cast<int*>(xterms + 2 * 5 * kBT);
+  QueryTerms* oqt = reinterpret_cast<QueryTerms*>(xlab + 2 * kBT);
+  int* olab = reinterpret_cast<int*>(oqt + kRs);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const bool f32 = label_f32 != 0;
+  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
+  const int own_rows = pm ? m : n;
+  const int other_rows = pm ? n : m;
+  const float* own_op = pm ? pool : feats;
+  const float* xop = pm ? feats : pool;  // fp32, for the sims
+  const int o0 = blockIdx.y * kBT;
+  const int sr0 = o0 + rank * kRs;  // the weight rows this block builds
+  const float scale_g = __fdiv_rn(g[0], static_cast<float>(n));
+  const int x_tiles = (other_rows + kBT - 1) / kBT;
+  const int nk = (d + kBK - 1) / kBK;
+  const int passes = ((d + kBT - 1) / kBT + kS - 1) / kS;
+  const int tiles = passes * x_tiles;      // other tiles over all passes
+  const int n_a = kCached ? 1 : nk;        // weight-source slots a tile
+  auto chunk0 = [&](int tc) { return ((tc / x_tiles) * kS + rank) * kBT; };
+
+  // Weight-source slot wi (tile wi / n_a, part wi % n_a) into the ring,
+  // with the next tile's raw rows in its first part.
+  auto issue_w = [&](int wi) {
+    if (wi < tiles * n_a) {
+      const int s = wi % n_a, x0 = (wi / n_a % x_tiles) * kBT;
+      float* buf = ring + (wi % kStages) * kStage;
+      const int nx0 = x0 + kBT < other_rows ? x0 + kBT : 0;  // the next tile
+      if (s == 0 && t < kBT) {
+        const int x = nx0 + t;
+        const bool in = x < other_rows, iq = x < n;
+        const int* lab = pm ? labels : pool_labels;
+        cp_async4(buf + kSrc + t,
+                  reinterpret_cast<const float*>(in ? lab + x : lab), in);
+        if (pm) {
+          const float* vec[6] = {pos_thr, neg_thr, max_all, isum, asum, valid};
+#pragma unroll
+          for (int j = 0; j < 6; ++j)
+            cp_async4(buf + kSrc + (1 + j) * kBT + t,
+                      iq ? vec[j] + x : vec[j], iq);
+        }
+      }
+      if constexpr (kCached) {
+        // [r][c], own row r and other row c, rows kWStride apart: query-
+        // major sims[sr0 + r][x0 + c], 16 bytes a copy where the cache's
+        // rows are 16-byte aligned (M % 4 == 0: a copy is then wholly in
+        // or out); pool-major sims[x0 + c][sr0 + r], transposed by 4-byte
+        // copies (consecutive threads on consecutive cache columns).
+        if (vec && !pm) {
+#pragma unroll
+          for (int e = 0; e < kRs * kBT / 4 / kThreads; ++e) {
+            const int idx = t + e * kThreads, r = idx / (kBT / 4);
+            const int c = 4 * (idx % (kBT / 4));
+            const bool in = sr0 + r < n && x0 + c < m;
+            cp_async16(buf + r * kWStride + c,
+                       in ? sims + static_cast<long long>(sr0 + r) * m + x0 +
+                                c
+                          : sims,
+                       in);
+          }
+        } else {
+#pragma unroll 4
+          for (int e = 0; e < kRs * kBT / kThreads; ++e) {
+            const int idx = t + e * kThreads;
+            const int r = pm ? idx % kRs : idx / kBT;
+            const int c = pm ? idx / kRs : idx % kBT;
+            const int q = pm ? x0 + c : sr0 + r, i = pm ? sr0 + r : x0 + c;
+            const bool in = q < n && i < m;
+            cp_async4(buf + r * kWStride + c,
+                      in ? sims + static_cast<long long>(q) * m + i : sims,
+                      in);
+          }
+        }
+      } else {
+        load_operand_slice<kRs>(buf, own_op, own_rows, sr0, d, s * kBK);
+        load_operand_slice<kBT>(buf + kRs * kBK, xop, other_rows, x0, d,
+                                s * kBK);
+      }
+    }
+    cp_async_commit();
+  };
+  // Tile tc's X rows x [x0, x0 + 128) x columns of the block's chunk into
+  // X buffer tc & 1 (nothing where the block's pass has no columns).
+  auto issue_x = [&](int tc) {
+    const int c0 = chunk0(tc);
+    if (tc < tiles && c0 < d) {
+      const int x0 = (tc % x_tiles) * kBT;
+      __nv_bfloat16* dst = xs + (tc & 1) * kTileBf16;
+#pragma unroll
+      for (int e = 0; e < kTileBf16 / 8 / kThreads; ++e) {
+        const int idx = t + e * kThreads, r = idx >> 4, c = (idx & 15) * 8;
+        const int row = x0 + r, col = c0 + c;
+        const bool in = row < other_rows && col < ld16;
+        cp_async16(reinterpret_cast<float*>(dst + sw128(r, c)),
+                   reinterpret_cast<const float*>(
+                       in ? x16 + static_cast<long long>(row) * ld16 + col
+                          : x16),
+                   in);
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int* xl = xlab;
+  const float* xq = xterms;
+  auto set_terms = [&](int b, int c, const QueryTerms& qt) {
+    float* f = xterms + b * 5 * kBT + c;
+    f[0] = qt.pt;
+    f[1 * kBT] = qt.nt;
+    f[2 * kBT] = qt.mx;
+    f[3 * kBT] = qt.a;
+    f[4 * kBT] = qt.b;
+  };
+  // Weights of elements (r, c .. c + 3) of this block's share (c % 4 ==
+  // 0): own row sr0 + r, other rows x0 + c .., from their sims v (rounded
+  // to bf16 when stored).  The four columns' labels and terms are read 16
+  // bytes at a time.
+  auto weights4 = [&](int r, int c, int x0, float4 v) {
+    const int4 lab = *reinterpret_cast<const int4*>(xl + c);
+    float4 f[5] = {};
+    if (pm)
+#pragma unroll
+      for (int j = 0; j < 5; ++j)
+        f[j] = *reinterpret_cast<const float4*>(xq + j * kBT + c);
+    float wv[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int q = pm ? x0 + c + k : sr0 + r;
+      const int i = pm ? sr0 + r : x0 + c + k;
+      const int lc = comp(lab, k);
+      const Pair p = pair_bits(q, i, pm ? lc : olab[r], pm ? olab[r] : lc,
+                               f32, n, m, self_offset);
+      const QueryTerms qt =
+          pm ? QueryTerms{comp(f[0], k), comp(f[1], k), comp(f[2], k),
+                          comp(f[3], k), comp(f[4], k)}
+             : oqt[r];
+      wv[k] = pair_weight(comp(v, k), p, ap, an, qt);
+    }
+    return make_float4(wv[0], wv[1], wv[2], wv[3]);
+  };
+  auto next_terms = [&](const float* raw, int b) {
+    if (t < kBT) {
+      xlab[b * kBT + t] = __float_as_int(raw[t]);
+      if (pm)
+        set_terms(b, t,
+                  make_terms(raw[kBT + t], raw[2 * kBT + t],
+                             raw[3 * kBT + t], raw[4 * kBT + t],
+                             raw[5 * kBT + t], raw[6 * kBT + t],
+                             margin_ident, margin_diff, scale_g));
+    }
+  };
+  // Every rank's weight tiles, mapped once.
+  __nv_bfloat16* wl_at[kS];
+#pragma unroll
+  for (int s = 0; s < kS; ++s)
+    wl_at[s] = s == rank ? wl : cluster.map_shared_rank(wl, s);
+  // Weights of share row r, columns c .. c + 3 (c % 4 == 0: 8 bytes of
+  // one swizzle chunk), rounded to bf16, into every rank's weight tile
+  // (buffer b): a warp's 32 stores are one row's 256 bytes.
+  auto push4 = [&](int b, int r, int c, float4 w) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(w.x, w.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(w.z, w.w);
+    const uint2 v = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                               *reinterpret_cast<const unsigned*>(&hi));
+    const int off = b * kTileBf16 + sw128(rank * kRs + r, c);
+#pragma unroll
+    for (int s = 0; s < kS; ++s)
+      *reinterpret_cast<uint2*>(wl_at[s] + off) = v;
+  };
+
+  if (t < kRs) {
+    const int o = sr0 + t;
+    olab[t] = o < own_rows ? (pm ? pool_labels : labels)[o] : 0;
+    if (!pm && o < n)
+      oqt[t] = query_terms(o, margin_ident, margin_diff, pos_thr, neg_thr,
+                           max_all, isum, asum, valid, scale_g);
+  }
+  if (t < kBT) {  // the first other tile's, into buffer 0
+    xlab[t] = t < other_rows ? (pm ? labels : pool_labels)[t] : 0;
+    if (pm && t < n)
+      set_terms(0, t, query_terms(t, margin_ident, margin_diff, pos_thr,
+                                  neg_thr, max_all, isum, asum, valid,
+                                  scale_g));
+  }
+  for (int s = 0; s < kStages - 1; ++s) issue_w(s);
+  issue_x(0);
+  // Every block of the cluster runs before any stores into it.
+  cluster.sync();
+
+  // Tile tc's weight share into weight buffer tc & 1 of every rank.  That
+  // buffer was read last by tile tc - 2's products, which every block
+  // finished before the last cluster barrier; tile tc - 1's product runs
+  // on meanwhile.
+  int wi = 0;
+  auto build = [&](int tc) {
+    const int x0 = (tc % x_tiles) * kBT;
+    xl = xlab + (tc & 1) * kBT;
+    xq = xterms + (tc & 1) * 5 * kBT;
+    if constexpr (kCached) {
+      cp_async_wait_ring();
+      __syncthreads();  // the cache share is in
+      issue_w(wi + kStages - 1);
+      const float* cs = ring + (wi % kStages) * kStage;
+      ++wi;
+      next_terms(cs + kSrc, (tc + 1) & 1);
+#pragma unroll
+      for (int e = 0; e < kQuads; ++e) {
+        // A warp takes the 128 columns of one row, 4 a thread.
+        const int idx = t + e * kThreads, r = idx / (kBT / 4);
+        const int c = 4 * (idx % (kBT / 4));
+        const float4 v = *reinterpret_cast<const float4*>(cs + r * kWStride +
+                                                          c);
+        push4(tc & 1, r, c, weights4(r, c, x0, v));
+      }
+    } else {
+      float sacc[kMA][8];
+#pragma unroll
+      for (int a = 0; a < kMA; ++a)
+#pragma unroll
+        for (int b = 0; b < 8; ++b) sacc[a][b] = 0.f;
+      for (int s = 0; s < nk; ++s, ++wi) {
+        cp_async_wait_ring();
+        __syncthreads();
+        issue_w(wi + kStages - 1);
+        const float* buf = ring + (wi % kStages) * kStage;
+        if (s == 0) next_terms(buf + kSrc, (tc + 1) & 1);
+        sim_slice<kMA>(buf, buf + kRs * kBK, ty, tx, sacc);
+      }
+#pragma unroll
+      for (int a = 0; a < kMA; ++a) {
+        const int r = arow<kMA>(ty, a);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = h * 64 + tx * 4;
+          push4(tc & 1, r, c,
+                weights4(r, c, x0,
+                         make_float4(sacc[a][4 * h], sacc[a][4 * h + 1],
+                                     sacc[a][4 * h + 2], sacc[a][4 * h + 3])));
+        }
+      }
+    }
+  };
+  // Tile tc's X copies are older than the weight slots issued since; the
+  // block's last product ends; then every rank's share of tile tc is
+  // everywhere, and tile tc - 1's buffers are free.
+  auto tile_sync = [&]() {
+    cp_async_wait_ring();
+    wgmma_wait_all();
+    cluster.sync();  // tile tc's weights everywhere; tile tc - 1's buffers free
+    fence_to_wgmma();
+  };
+
+  // The warp group's 64 x 128 fragment: thread (warp w, lane l) holds
+  // rows 16 w + l / 4 (+ 8) and columns 8 j + 2 (l % 4) (+ 1), j < 16.
+  // Each pass's first product overwrites it (scale-d 0), and a product
+  // in flight is read by nothing but the next product until the wait: so
+  // the loop over a pass's tiles issues one unconditionally, and ptxas
+  // needs no wait of its own.
+  const int wg = t >> 7, lw = (t >> 5) & 3, ln = t & 31;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  auto product = [&](int tc, bool first) {
+    const unsigned wa = smem_u32(wl + (tc & 1) * kTileBf16) + wg * 64 * 128;
+    const unsigned xa = smem_u32(xs + (tc & 1) * kTileBf16);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kBT / 16; ++k)
+      wgmma_m64n128k16(
+          acc,
+          // W: K-major, k16 step k at byte 32 (k % 4) of its half.
+          wgmma_desc(wa + (k >> 2) * kBT * 128 + (k & 3) * 32, 16, 1024),
+          // X: N-major, rows 16 k ..; the column halves 16 KB apart.
+          wgmma_desc(xa + k * 16 * 128, kBT * 128, 1024), k > 0 || !first);
+    wgmma_commit();  // it runs on through the next tile's build
+  };
+  int tc = 0;
+  for (int p = 0; p < passes; ++p) {
+    const int c0 = (p * kS + rank) * kBT;
+    if (c0 >= d) {  // no columns this pass: the weight shares alone
+      for (int xt = 0; xt < x_tiles; ++xt, ++tc) {
+        build(tc);
+        tile_sync();
+        issue_x(tc + 1);
+      }
+      continue;
+    }
+    for (int xt = 0; xt < x_tiles; ++xt, ++tc) {
+      build(tc);
+      tile_sync();
+      product(tc, xt == 0);
+      issue_x(tc + 1);  // its buffer's last product (tile tc - 1) is done
+    }
+    wgmma_wait_all();
+    pin(acc);
+    // Each output element written once.
+    const int r0 = o0 + wg * 64 + lw * 16 + (ln >> 2);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = c0 + 8 * j + 2 * (ln & 3);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        if (row < own_rows && col < d)
+          *reinterpret_cast<float2*>(out + static_cast<long long>(row) * d +
+                                     col) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+  cluster.sync();  // no block leaves while another may still store to it
+}
+
 // ------------------------------------------------------- launchers
 
 inline unsigned tiles128(int rows) {
@@ -1405,36 +1943,45 @@ int launch_loss(const float* feats, const int* labels, const float* pool,
 // stage, and the recompute variant's rows stay 2 or 1 per thread).
 inline int grad_cluster(int d) { return (d + kBT - 1) / kBT <= 4 ? 4 : 8; }
 
-template <bool kCached, int kS, bool kBf16>
+template <bool kCached, int kS>
 int launch_grad_s(const float* feats, const int* labels, const float* pool,
                   const int* pool_labels, int label_f32, int pool_major,
                   const float* sims, int n, int m, int d, int self_offset,
                   int ap, int an, float mi, float md, const float* pos_thr,
                   const float* neg_thr, const float* max_all,
                   const float* isum, const float* asum, const float* valid,
-                  const float* g, float* out, cudaStream_t s) {
+                  const float* g, const __nv_bfloat16* x16, int ld16,
+                  float* out, cudaStream_t s) {
   const dim3 grid(kS, tiles128(pool_major ? m : n));
+  if (x16 != nullptr)
+    return static_cast<int>(launch_cluster(
+        npair_grad_tc_kernel<kCached, kS>, grid, kS,
+        grad_tc_smem_bytes<kCached, kS>(), s, feats, labels, pool,
+        pool_labels, label_f32, pool_major, sims, n, m, d, self_offset, ap,
+        an, mi, md, pos_thr, neg_thr, max_all, isum, asum, valid, g, x16,
+        ld16, sims != nullptr ? vec_rows(sims, m) : 0, out));
   return static_cast<int>(launch_cluster(
-      npair_grad_kernel<kCached, kS, kBf16>, grid, kS,
+      npair_grad_kernel<kCached, kS>, grid, kS,
       grad_smem_bytes<kCached, kS>(),
       s, feats, labels, pool, pool_labels, label_f32, pool_major, sims, n, m,
       d, self_offset, ap, an, mi, md, pos_thr, neg_thr, max_all, isum, asum,
       valid, g, out));
 }
 
-template <bool kCached, bool kBf16>
+template <bool kCached>
 int launch_grad(const float* feats, const int* labels, const float* pool,
                 const int* pool_labels, int label_f32, int pool_major,
                 const float* sims, int n, int m, int d, int self_offset,
                 int ap, int an, float mi, float md, const float* pos_thr,
                 const float* neg_thr, const float* max_all,
                 const float* isum, const float* asum, const float* valid,
-                const float* g, float* out, cudaStream_t s) {
+                const float* g, const __nv_bfloat16* x16, int ld16,
+                float* out, cudaStream_t s) {
 #define NPL_GRAD_S(S)                                                       \
-  return launch_grad_s<kCached, S, kBf16>(                                  \
+  return launch_grad_s<kCached, S>(                                         \
       feats, labels, pool, pool_labels, label_f32, pool_major, sims, n, m,  \
       d, self_offset, ap, an, mi, md, pos_thr, neg_thr, max_all, isum, asum, \
-      valid, g, out, s)
+      valid, g, x16, ld16, out, s)
   if (grad_cluster(d) == 4) NPL_GRAD_S(4);
   NPL_GRAD_S(8);
 #undef NPL_GRAD_S
@@ -1521,51 +2068,60 @@ int npl_npair_loss(const void* feats, const void* labels, const void* pool,
 }
 
 // pool_major = 0: gq [n, d] = w @ pool; 1: gdb [m, d] = w^T @ feats.
-// bf16 = 1: each weight is rounded to bf16 before its product (the bf16
-// mode; feats and pool come rounded).
+// x16 null: the fp32 mode.  Else the bf16 mode on tensor cores: feats and
+// pool come rounded, and x16 holds the product's rows (pool for gq,
+// feats for gdb) as bf16, [rows][ld16], ld16 % 8 == 0, ld16 >= d, zero
+// past d, 16-byte aligned.
 int npl_npair_grad(const void* feats, const void* labels, const void* pool,
                    const void* pool_labels, const void* sims, int n, int m,
                    int d, int self_offset, int label_f32, int ap, int an,
                    float margin_ident, float margin_diff, const void* pos_thr,
                    const void* neg_thr, const void* max_all, const void* isum,
                    const void* asum, const void* valid, const void* g,
-                   int pool_major, void* out, int bf16, void* stream) {
-  if (bad_dims(n, m, d) || d % 4 != 0) return cudaErrorInvalidValue;
+                   int pool_major, void* out, const void* x16, int ld16,
+                   void* stream) {
+  if (bad_dims(n, m, d) || d % 4 != 0 ||
+      (x16 != nullptr && (ld16 % 8 != 0 || ld16 < d ||
+                          reinterpret_cast<uintptr_t>(x16) % 16 != 0)))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto li = [](const void* p) { return static_cast<const int*>(p); };
+  const auto* b = static_cast<const __nv_bfloat16*>(x16);
   float* o = static_cast<float*>(out);
-#define NPL_GRAD(C, B)                                                       \
-  return launch_grad<C, B>(f(feats), li(labels), f(pool), li(pool_labels),   \
-                           label_f32, pool_major, f(sims), n, m, d,          \
-                           self_offset, ap, an, margin_ident, margin_diff,   \
-                           f(pos_thr), f(neg_thr), f(max_all), f(isum),      \
-                           f(asum), f(valid), f(g), o, s)
-  if (sims != nullptr) {
-    if (bf16) NPL_GRAD(true, true);
-    NPL_GRAD(true, false);
-  }
-  if (bf16) NPL_GRAD(false, true);
-  NPL_GRAD(false, false);
+#define NPL_GRAD(C)                                                          \
+  return launch_grad<C>(f(feats), li(labels), f(pool), li(pool_labels),      \
+                        label_f32, pool_major, f(sims), n, m, d, self_offset, \
+                        ap, an, margin_ident, margin_diff, f(pos_thr),       \
+                        f(neg_thr), f(max_all), f(isum), f(asum), f(valid),  \
+                        f(g), b, ld16, o, s)
+  if (sims != nullptr) NPL_GRAD(true);
+  NPL_GRAD(false);
 #undef NPL_GRAD
 }
 
-// dst [count] = src rounded to bf16 (round to nearest even) and widened
-// back to fp32: the bf16 mode's operands, once per loss.
-int npl_round_bf16(const void* src, void* dst, long long count,
-                   void* stream) {
-  if (count < 0) return cudaErrorInvalidValue;
+// The bf16 mode's operands, once per loss: dst [rows * d] = src rounded
+// to bf16 (round to nearest even) and widened back to fp32, and dst16
+// [rows][ld16] = the same as bf16, zero past d (ld16 % 8 == 0, ld16 >= d).
+int npl_round_bf16(const void* src, void* dst, void* dst16, long long rows,
+                   int d, int ld16, void* stream) {
+  if (rows < 0 || d < 1 || dst == nullptr || dst16 == nullptr ||
+      ld16 % 8 != 0 || ld16 < d ||
+      reinterpret_cast<uintptr_t>(dst16) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const long long count = rows * d;
   if (count == 0) return cudaSuccess;
   const float* x = static_cast<const float*>(src);
   float* y = static_cast<float*>(dst);
-  const int vec = count % 4 == 0 &&
-                  reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const long long work = vec ? count / 4 : count;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  int vec = count % 4 == 0 && aligned ? 1 : 0;
+  if (ld16 == d && d % 8 == 0 && aligned) vec = 2;
+  const long long work = vec == 2 ? count / 8 : vec ? count / 4 : count;
   const long long want = (work + 255) / 256;
   const int blocks = static_cast<int>(want < 132 * 8 ? want : 132 * 8);
-  round_bf16_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(
-                                               stream)>>>(x, y, count, vec);
+  round_bf16_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, y, static_cast<__nv_bfloat16*>(dst16), rows, d, ld16, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -77,11 +77,11 @@ _SIGNATURES = {
     # stream
     "npl_npair_loss": [_VP] * 5 + [_I] * 7 + [_F, _F] + [_VP] * 8,
     # ..., margin_diff, pos_thr, neg_thr, max_all, isum, asum, valid, g,
-    # pool_major, out, bf16, stream
+    # pool_major, out, x16, ld16, stream
     "npl_npair_grad": [_VP] * 5 + [_I] * 7 + [_F, _F] + [_VP] * 7
-                      + [_I, _VP, _I, _VP],
-    # src, dst, count, stream
-    "npl_round_bf16": [_VP, _VP, _LL, _VP],
+                      + [_I, _VP, _VP, _I, _VP],
+    # src, dst, dst16, rows, d, ld16, stream
+    "npl_round_bf16": [_VP, _VP, _VP, _LL, _I, _I, _VP],
 }
 
 _lock = threading.Lock()

@@ -32,10 +32,15 @@ their exp.
 mode: every product reads feats and pool rounded to bf16 (round to
 nearest even) and accumulates in fp32, and gq/gdb round their weight
 tile too.  The engine rounds the features once per loss
-(``round_bf16``, one launch on the card) and hands the rounded rows to
-every sweep; on the card stats, hist and loss then run as in the fp32
-mode (a product of two bf16 values is exact in fp32) and gq/gdb launch
-their bf16 instantiations.  The plain sweeps round what they are given
+(``round_bf16``, one launch on the card, which also writes the rows as
+bf16) and hands the rounded rows to every sweep; on the card stats,
+hist and loss then run as in the fp32 mode (a product of two bf16
+values is exact in fp32) and gq/gdb multiply their bf16 weight tile by
+the bf16 rows on the tensor cores (``rows16``, which the caller passes
+in that mode on the card; the tensor cores sum each
+16-deep block of products before the fp32 accumulator takes it, so the
+card's gq/gdb differ from the plain sweeps' order by fp32 rounding).
+The plain sweeps round what they are given
 with ``.to(torch.bfloat16).float()``, which leaves rounded rows as they
 are.  ``None``/``"highest"`` is full fp32.  Each wrapper counts its
 launches in the bf16 mode apart (``bf16_launches``).
@@ -366,10 +371,12 @@ def _weight_tile(s, same, diff, pt, nt, mx, a, b, cfg, bf16=False):
 def grad_plain(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
                isum, asum, valid, g, cfg: NPairLossConfig, pool_major: bool,
                self_offset=0, sims=None, bn=512, bm=512,
-               matmul_precision=None) -> torch.Tensor:
+               matmul_precision=None, rows16=None) -> torch.Tensor:
     """gq = w @ pool (``pool_major=False``) or gdb = w^T @ feats (True) in
     plain PyTorch, over the same tiles as the kernels' sweeps; in the
-    bf16 mode w, feats and pool are rounded to bf16."""
+    bf16 mode w, feats and pool are rounded to bf16.  ``rows16`` is taken
+    as the wrappers take it and not read: the rounded fp32 rows hold the
+    same values."""
     bf16 = resolve_matmul_precision(matmul_precision)
     feats, pool = _operands_in(matmul_precision, feats, pool)
     n, m = feats.shape[0], pool.shape[0]
@@ -575,9 +582,32 @@ def npair_loss(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
     return tuple(outs)
 
 
+def _check_rows16(what, x16, x) -> None:
+    """The bf16 rows of ``x`` as the tensor-core product reads them:
+    [rows, D'] bf16 on x's device, D' % 8 == 0, D' >= D, 16-byte aligned
+    (``round_bf16(x)``'s second result).  Only the form is checked: rows
+    of another tensor give a wrong gradient."""
+    if (x16.device != x.device or x16.dtype != torch.bfloat16
+            or not x16.is_contiguous() or x16.dim() != 2
+            or x16.shape[0] != x.shape[0] or x16.shape[1] % 8
+            or x16.shape[1] < x.shape[1] or x16.data_ptr() % 16):
+        raise ValueError(f"{what}: the bf16 rows must be a contiguous "
+                         f"[{x.shape[0]}, D'] bfloat16 tensor on {x.device}, "
+                         f"D' a multiple of 8 >= {x.shape[1]}; got "
+                         f"{x16.dtype} {tuple(x16.shape)} on {x16.device}")
+
+
 def _launch_grad(what, pool_major, feats, labels, pool, pool_labels,
                  pos_thr, neg_thr, max_all, isum, asum, valid, g, cfg,
-                 self_offset, sims, bf16):
+                 self_offset, sims, bf16, x16):
+    if bf16:
+        name = "feats" if pool_major else "pool"
+        if x16 is None:
+            raise ValueError(f"{what}: the bf16 mode on the card multiplies "
+                             f"bf16 rows: pass rows16=round_bf16({name})[1]")
+        _check_rows16(what, x16, feats if pool_major else pool)
+    else:
+        x16 = None
     vecs = [_vec(v) for v in (pos_thr, neg_thr, max_all, isum, asum, valid,
                               g.reshape(1))]
     lf = _cuda_operands(what, feats, labels, pool, pool_labels, *vecs,
@@ -592,7 +622,8 @@ def _launch_grad(what, pool_major, feats, labels, pool, pool_labels,
         int(cfg.ap_mining_method), int(cfg.an_mining_method),
         _f32(cfg.margin_ident), _f32(cfg.margin_diff),
         *(v.data_ptr() for v in vecs), int(pool_major), out.data_ptr(),
-        int(bf16), stream_ptr(feats.device))
+        _ptr(x16), 0 if x16 is None else x16.shape[1],
+        stream_ptr(feats.device))
     check(err, what)
     return out if d4 == d else out[:, :d].contiguous()
 
@@ -600,10 +631,13 @@ def _launch_grad(what, pool_major, feats, labels, pool, pool_labels,
 @counted
 def npair_gq(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
              isum, asum, valid, g, cfg: NPairLossConfig, *, self_offset=0,
-             sims=None, matmul_precision=None) -> torch.Tensor:
+             sims=None, matmul_precision=None,
+             rows16=None) -> torch.Tensor:
     """Query-role gradient ``w @ pool`` [N, D] (one launch); in the bf16
     mode w is rounded in the kernel, feats and pool come rounded (as
-    ``npair_stats`` takes them)."""
+    ``npair_stats`` takes them) and ``rows16`` must be
+    ``round_bf16(pool)[1]``, pool's rows as bf16, which the card's kernel
+    multiplies; the CPU's plain sweep does not read it."""
     bf16 = resolve_matmul_precision(matmul_precision)
     if feats.device.type == "cpu":
         return grad_plain(feats, labels, pool, pool_labels, pos_thr,
@@ -612,7 +646,7 @@ def npair_gq(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
                           matmul_precision=matmul_precision)
     out = _launch_grad("npair_gq", False, feats, labels, pool, pool_labels,
                        pos_thr, neg_thr, max_all, isum, asum, valid, g, cfg,
-                       self_offset, sims, bf16)
+                       self_offset, sims, bf16, rows16)
     _count(npair_gq, bf16)
     return out
 
@@ -620,9 +654,11 @@ def npair_gq(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
 @counted
 def npair_gdb(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
               isum, asum, valid, g, cfg: NPairLossConfig, *, self_offset=0,
-              sims=None, matmul_precision=None) -> torch.Tensor:
+              sims=None, matmul_precision=None,
+              rows16=None) -> torch.Tensor:
     """Database-role gradient ``w^T @ feats`` [M, D] (one launch); the
-    bf16 mode as in ``npair_gq``."""
+    bf16 mode as in ``npair_gq``, ``rows16`` being
+    ``round_bf16(feats)[1]``."""
     bf16 = resolve_matmul_precision(matmul_precision)
     if feats.device.type == "cpu":
         return grad_plain(feats, labels, pool, pool_labels, pos_thr,
@@ -631,7 +667,7 @@ def npair_gdb(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
                           matmul_precision=matmul_precision)
     out = _launch_grad("npair_gdb", True, feats, labels, pool, pool_labels,
                        pos_thr, neg_thr, max_all, isum, asum, valid, g, cfg,
-                       self_offset, sims, bf16)
+                       self_offset, sims, bf16, rows16)
     _count(npair_gdb, bf16)
     return out
 
@@ -640,22 +676,41 @@ for _fn in (npair_stats, npair_hist, npair_loss, npair_gq, npair_gdb):
     _fn.bf16_launches = 0
 
 
+def _rows16_plain(x: torch.Tensor) -> torch.Tensor:
+    """The rows of 2-D ``x`` as bf16, [rows, D'] with D' = D rounded up to
+    a multiple of 8 and zeros past D: the layout the tensor-core gq/gdb
+    read (16 bytes a copy)."""
+    out = x.new_zeros((x.shape[0], _round_up(x.shape[1], 8)),
+                      dtype=torch.bfloat16)
+    out[:, :x.shape[1]] = x.to(torch.bfloat16)
+    return out
+
+
 @counted
-@count.priced("round_bf16", lambda x: (0, x.numel() * 8))
-def round_bf16(x: torch.Tensor) -> torch.Tensor:
-    """``x`` (float32) rounded to bf16, round to nearest even, and
-    widened back to float32 (one launch): the bf16 mode's operands."""
+@count.priced("round_bf16", lambda x: (0, x.numel() * 10))
+def round_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (float32 [rows, D]) rounded to bf16, round to nearest even,
+    as ``(rounded, rows16)`` from one launch: ``rounded`` widened back to
+    float32, the bf16 mode's operands; ``rows16`` the same values as
+    bf16, the rows the tensor-core gq/gdb multiply (``_rows16_plain``'s
+    layout)."""
+    if x.dim() != 2:
+        raise ValueError(f"round_bf16: expected [rows, D], got "
+                         f"{tuple(x.shape)}")
     if x.device.type == "cpu":
-        return bf16_round(x)
+        return bf16_round(x), _rows16_plain(x)
     if x.device.type != "cuda" or x.dtype != torch.float32 \
             or not x.is_contiguous():
         raise ValueError("round_bf16: expected a contiguous float32 CUDA "
                          f"tensor, got {x.dtype} on {x.device}")
     out = torch.empty_like(x)
-    check(library().npl_round_bf16(x.data_ptr(), out.data_ptr(), x.numel(),
-                                   stream_ptr(x.device)), "round_bf16")
+    out16 = torch.empty((x.shape[0], _round_up(x.shape[1], 8)),
+                        dtype=torch.bfloat16, device=x.device)
+    check(library().npl_round_bf16(
+        x.data_ptr(), out.data_ptr(), out16.data_ptr(), x.shape[0],
+        x.shape[1], out16.shape[1], stream_ptr(x.device)), "round_bf16")
     round_bf16.launches += 1
-    return out
+    return out, out16
 
 
 class _Sweeps(NamedTuple):
@@ -814,8 +869,9 @@ def _forward(features, labels, cfg: NPairLossConfig, bn: int, bm: int,
     mode every sweep, the backward's too, reads the features rounded
     here once."""
     feats = features.float().contiguous()
+    rows16 = None
     if resolve_matmul_precision(matmul_precision):
-        feats = round_bf16(feats)
+        feats, rows16 = round_bf16(feats)
     lab = _canon_labels(labels)
     n = feats.shape[0]
     ap_rel = cfg.ap_mining_method in _RELATIVE
@@ -837,7 +893,7 @@ def _forward(features, labels, cfg: NPairLossConfig, bn: int, bm: int,
            "neg_threshold": neg_thr}
     res = {"feats": feats, "labels": lab, "pos_thr": pos_thr,
            "neg_thr": neg_thr, "max_all": st.max_a, "ident_sum": isum,
-           "all_sum": all_sum, "sims": st.sims}
+           "all_sum": all_sum, "sims": st.sims, "rows16": rows16}
     return loss, aux, res
 
 
@@ -854,8 +910,9 @@ def _backward(res, g: torch.Tensor, cfg: NPairLossConfig, bn: int,
             res["max_all"], res["ident_sum"], res["all_sum"], valid,
             g.float(), cfg)
     sw = _sweeps(feats.device, bn, bm, matmul_precision)
-    gq = sw.gq(*args, sims=res["sims"])
-    gdb = sw.gdb(*args, sims=res["sims"])
+    # feats is pool: one set of bf16 rows serves both products.
+    gq = sw.gq(*args, sims=res["sims"], rows16=res["rows16"])
+    gdb = sw.gdb(*args, sims=res["sims"], rows16=res["rows16"])
     if cfg.grad_mode == "reference":
         # G = 1 of cu:462-497: own rows are the whole database grad.
         return 0.5 * gdb + 0.5 * gq

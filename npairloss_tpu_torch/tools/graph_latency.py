@@ -10,8 +10,8 @@ Captures 20 calls of each kernel wrapper into a CUDA graph and replays
 it between two CUDA events, so no host gap enters the time: the median
 of 15 replays, divided by 20.  The calls are the blockwise training
 step's at this size: the cached variants on REFERENCE_CONFIG thresholds
-of seeded unit features, one hist side, and the hist kernel's early
-return.  Inputs stay in L2 between launches, as they do on the path.
+of seeded unit features, one hist side, the hist kernel's early
+return, and the bf16 mode's once-per-loss rounding of the features.  Inputs stay in L2 between launches, as they do on the path.
 ``--tree`` (default: this checkout) names the checkout whose
 ``npairloss_tpu_torch`` is timed — for example a parent commit unpacked
 with ``git archive`` — so two versions can be compared on one card.
@@ -107,6 +107,7 @@ def main(argv=None) -> int:
                                             sims=sims),
         "npair_gq": lambda: bw.npair_gq(*gargs, sims=sims),
         "npair_gdb": lambda: bw.npair_gdb(*gargs, sims=sims),
+        "round_bf16": lambda: bw.round_bf16(f),
     }
     row = {"card": card, "tree": args.tree, "n": n, "d": d}
     for name, fn in calls.items():

@@ -2,21 +2,31 @@
 
 Run on a machine with one H100, from the repository root:
 
-    python -m npairloss_tpu_torch.tools.kernel_breakdown [--sizes 32768x512,8192x1024]
+    python -m npairloss_tpu_torch.tools.kernel_breakdown [--sizes 32768x512,8192x1024] [--precision highest|default] [--parent DIR] [--variants full,...]
 
 Builds ``csrc/npair_blockwise.cu`` once as it is and once per variant
 with one part of the work taken out (a text edit of the source, checked
 to apply once), each into its own library under
-``build/kernels/variants/``, all nvcc processes started together; then
-times, per size and variant, ``npair_stats`` (digit-0 histogram, 8
-slots, sims emitted), the cached ``npair_gq``/``npair_gdb``, and
-``npair_hist`` (digit 1, two sides) and ``npair_loss``, cached and
-recompute, on REFERENCE_CONFIG thresholds of seeded unit features,
-beside cuBLAS's fp32 ``f @ f.T`` and ``torch.amax`` over the cache (one
-PyTorch read of the same bytes).  A variant's outputs are wrong by construction; only
-its time means anything: full minus variant is what the removed part
-costs where it does not overlap the rest.  Prints one JSON line per
-size with the card's name and power limit.
+``build/kernels/variants/``, and with ``--parent DIR`` once more from
+``DIR/npairloss_tpu_torch/csrc/npair_blockwise.cu`` (a parent commit
+unpacked with ``git archive``; a parent from before the tensor-core
+gq/gdb takes its grad entry's older call), all nvcc processes started
+together.  Then times, per size, every case under every library in
+turn, in one process (builds move by 30-100 % between processes):
+``--precision highest`` (the fp32 mode) ``npair_stats`` (digit-0
+histogram, 8 slots, sims emitted), the cached ``npair_gq``/``npair_gdb``,
+and ``npair_hist`` (digit 1, two sides) and ``npair_loss``, cached and
+recompute; ``--precision default`` (the bf16 mode) ``npair_stats`` and
+``npair_gq``/``npair_gdb`` cached and recompute on ``round_bf16`` rows
+— on REFERENCE_CONFIG thresholds of seeded unit features, beside
+cuBLAS's fp32 ``f @ f.T`` and ``torch.amax`` over the cache (one
+PyTorch read of the same bytes).  The default variants are the
+precision's own (``tc_*`` for the bf16 mode's gq/gdb).  A variant's
+outputs are wrong by construction; only its time means anything: full
+minus variant is what the removed part costs where it does not overlap
+the rest.  The checks of these kernels are chip_smoke.py's phases 6 and
+6c.  Prints one JSON line per size with the card's name and power
+limit.
 
 ``build`` and ``median_ms`` are this tool's, ``stem_bench.py``'s and
 ``probe_bench.py``'s: ``VARIANTS`` holds the edits of each source by its
@@ -32,6 +42,7 @@ import shutil
 import statistics
 import subprocess
 import time
+from functools import partial
 
 _NO_MERGE = ("  cand = cand && key > w.thr;",
              "  cand = cand && key > ~0ull - 1;")
@@ -50,6 +61,21 @@ VARIANTS = {"npair_blockwise.cu": {
         "              const float w = comp(wv[a], e);",
         "            for (int a = 0; a < 0; ++a) {\n"
         "              const float w = comp(wv[a], e);")]),
+    # The bf16 mode's gq/gdb on tensor cores (--precision default).
+    "tc_no_weights": ("the tensor-core grad's weight epilogue (cached)", [(
+        "      for (int e = 0; e < kQuads; ++e) {",
+        "      for (int e = 0; e < 0; ++e) {")]),
+    "tc_no_wgmma": ("the tensor-core grad's wgmma instructions (their "
+                    "fences, waits and barriers stay)", [(
+                        "    for (int k = 0; k < kBT / 16; ++k)\n"
+                        "      wgmma_m64n128k16(",
+                        "    for (int k = 0; k < 0; ++k)\n"
+                        "      wgmma_m64n128k16(")]),
+    "tc_no_cluster_sync": ("the tensor-core grad's per-tile cluster "
+                           "barrier", [(
+                               "    cluster.sync();  // tile tc's weights "
+                               "everywhere; tile tc - 1's buffers free",
+                               "")]),
     "no_stats_epilogue": ("the stats kernel's row-wise epilogue", [(
         "#pragma unroll 1\n    for (int u = 0; u < kBT / 8; ++u) {",
         "#pragma unroll 1\n    for (int u = 0; u < 0; ++u) {")]),
@@ -192,13 +218,115 @@ def median_ms(torch, fn, flush, iters=5, setups=None):
     return meds if setups else meds[0]
 
 
-def main() -> int:
+# A parent's npl_npair_grad from before the tensor-core kernel: ...,
+# pool_major, out, bf16 (a flag), stream.
+_PARENT_GRAD_CALL = "int pool_major, void* out, int bf16, void* stream"
+
+
+def _grad_behind(lib):
+    """Bind a parent's flag-taking npl_npair_grad behind this tree's call
+    (..., out, x16, ld16, stream): the bf16 mode where x16 is given."""
+    from npairloss_tpu_torch.ops import _build
+
+    fn = lib.npl_npair_grad
+    fn.argtypes = _build._SIGNATURES["npl_npair_grad"][:-3] + [
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(*args):
+        *head, x16, _ld16, stream = args
+        return fn(*head, int(x16 is not None), stream)
+
+    lib.npl_npair_grad = call
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sizes", default="32768x512,8192x1024")
-    ap.add_argument("--variants",
-                    default=",".join(VARIANTS["npair_blockwise.cu"]))
+    ap.add_argument("--precision", choices=["highest", "default"],
+                    default="highest",
+                    help="the kernels' fp32 mode or their bf16 mode")
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated variants of npair_blockwise.cu "
+                         "(default: every variant of the precision's "
+                         "kernels)")
+    ap.add_argument("--parent", default=None,
+                    help="checkout whose csrc/npair_blockwise.cu to time "
+                         "in turns")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    if args.variants is None:
+        bf16 = args.precision == "default"
+        args.variants = ",".join(
+            v for v in VARIANTS["npair_blockwise.cu"]
+            if v == "full" or v.startswith("tc_") == bf16)
+    for size in args.sizes.split(","):
+        if len(size.split("x")) != 2 or not all(
+                v.isdigit() for v in size.split("x")):
+            ap.error(f"--sizes: expected NxD, got {size!r}")
+    return args
+
+
+def sources(args):
+    """{library name: (text of npair_blockwise.cu, its header directory)}
+    for the run: the named variants, and ``parent`` from ``--parent``."""
+    from pathlib import Path
+
+    out = {name: edited("npair_blockwise.cu", name)
+           for name in args.variants.split(",")}
+    if args.parent:
+        csrc = Path(args.parent).resolve() / "npairloss_tpu_torch" / "csrc"
+        if not (csrc / "npair_blockwise.cu").is_file():
+            raise SystemExit(f"kernel_breakdown: no npair_blockwise.cu "
+                             f"under {csrc}")
+        out["parent"] = ((csrc / "npair_blockwise.cu").read_text(), csrc)
+    return out
+
+
+def cases(bw, f, lab, res, cfg, precision):
+    """{case name: call} at one size: in the fp32 mode stats, the cached
+    gq/gdb and hist/loss cached and recompute; in the bf16 mode stats and
+    gq/gdb cached and recompute on ``round_bf16`` rows (its bf16 copy
+    handed to gq/gdb)."""
+    import torch
+
+    from npairloss_tpu_torch.ops.rank_select import sortable_key
+
+    n = f.shape[0]
+    sims = res["sims"]
+    thr = (res["pos_thr"], res["neg_thr"], res["max_all"])
+    if precision == "default":
+        mp = {"matmul_precision": "default"}
+        fk = res["feats"]
+        gkw = dict(rows16=res["rows16"], **mp)
+    else:
+        mp, fk, gkw = {}, f, {}
+    gargs = (fk, lab, fk, lab, *thr, res["ident_sum"], res["all_sum"],
+             torch.ones(n, device="cuda"), torch.ones((), device="cuda"),
+             cfg)
+    out = {"stats_emit_ms": lambda: bw.npair_stats(
+        fk, lab, fk, lab, hist_same=True, topk=8, emit_sims=True, **mp)}
+    for name, kern in (("gq", bw.npair_gq), ("gdb", bw.npair_gdb)):
+        out[f"{name}_cached_ms"] = partial(kern, *gargs, sims=sims, **gkw)
+        if precision == "default":
+            out[f"{name}_recompute_ms"] = partial(kern, *gargs, **gkw)
+    if precision == "default":
+        return out
+    # Digit-1 prefixes of real pairs, both sides.
+    hargs = (f, lab, f, lab, [True, False],
+             [sortable_key(sims[:, 1]) >> 28] * 2, 1)
+    out.update({
+        "hist_cached_ms": lambda: bw.npair_hist(*hargs, sims=sims),
+        "hist_recompute_ms": lambda: bw.npair_hist(*hargs),
+        "loss_cached_ms": lambda: bw.npair_loss(f, lab, f, lab, *thr, cfg,
+                                                sims=sims),
+        "loss_recompute_ms": lambda: bw.npair_loss(f, lab, f, lab, *thr,
+                                                   cfg)})
+    return out
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
 
     import torch
 
@@ -206,7 +334,6 @@ def main() -> int:
     from npairloss_tpu_torch.ops import _build
     from npairloss_tpu_torch.ops import blockwise_npair as bw
     from npairloss_tpu_torch.ops import npair_loss as nl
-    from npairloss_tpu_torch.ops.rank_select import sortable_key
 
     if not torch.cuda.is_available():
         print("kernel_breakdown: no CUDA device is available")
@@ -216,13 +343,18 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    names = args.variants.split(",")
+    srcs = sources(args)
     t0 = time.perf_counter()
-    libs = build("npair_blockwise.cu",
-                 {name: edited("npair_blockwise.cu", name) for name in names})
-    print(f"[breakdown] {card}; built {len(libs)} variants in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    libs = build("npair_blockwise.cu", srcs)
+    if "parent" in srcs and _PARENT_GRAD_CALL in srcs["parent"][0]:
+        _grad_behind(libs["parent"])
+    names = list(libs)
+    print(f"[breakdown] {card}; built {len(libs)} libraries "
+          f"({', '.join(names)}) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     flush = torch.empty(32 << 20, device="cuda").zero_  # 128 MB > 50 MB L2
+    # Every case under every library in turn.
+    turns = [partial(setattr, _build, "_lib", libs[name]) for name in names]
     for size in args.sizes.split(","):
         n, d = (int(v) for v in size.split("x"))
         gen = torch.Generator(device="cuda").manual_seed(args.seed + n)
@@ -231,41 +363,22 @@ def main() -> int:
         lab = (torch.randperm(n, generator=gen, device="cuda") // 2).to(
             torch.int32)
         cfg = nl.REFERENCE_CONFIG
-        _build._lib = libs[names[0]]
-        _, _, res = bw._forward(f, lab, cfg, 512, 512, True, 8)
-        sims = res["sims"]
-        thr = (res["pos_thr"], res["neg_thr"], res["max_all"])
-        gargs = (f, lab, f, lab, *thr, res["ident_sum"], res["all_sum"],
-                 torch.ones(n, device="cuda"), torch.ones((), device="cuda"),
-                 cfg)
-        # Digit-1 prefixes of real pairs, both sides.
-        hargs = (f, lab, f, lab, [True, False],
-                 [sortable_key(sims[:, 1]) >> 28] * 2, 1)
-        row = {"card": card, "n": n, "d": d,
+        # Inputs from this tree's library.
+        _build._lib = libs.get("full")
+        mp = "default" if args.precision == "default" else None
+        _, _, res = bw._forward(f, lab, cfg, 512, 512, True, 8, mp)
+        row = {"card": card, "n": n, "d": d, "precision": args.precision,
                "cublas_ms": median_ms(torch, lambda: f @ f.T, flush),
                "amax_cache_ms": median_ms(
-                   torch, lambda: torch.amax(sims, dim=1), flush)}
-        for name in names:
-            _build._lib = libs[name]
-            row[name] = {
-                "stats_emit_ms": median_ms(torch, lambda: bw.npair_stats(
-                    f, lab, f, lab, hist_same=True, topk=8,
-                    emit_sims=True), flush),
-                "gq_cached_ms": median_ms(torch, lambda: bw.npair_gq(
-                    *gargs, sims=res["sims"]), flush),
-                "gdb_cached_ms": median_ms(torch, lambda: bw.npair_gdb(
-                    *gargs, sims=res["sims"]), flush),
-                "hist_cached_ms": median_ms(torch, lambda: bw.npair_hist(
-                    *hargs, sims=sims), flush),
-                "hist_recompute_ms": median_ms(
-                    torch, lambda: bw.npair_hist(*hargs), flush),
-                "loss_cached_ms": median_ms(torch, lambda: bw.npair_loss(
-                    f, lab, f, lab, *thr, cfg, sims=sims), flush),
-                "loss_recompute_ms": median_ms(
-                    torch, lambda: bw.npair_loss(f, lab, f, lab, *thr, cfg),
-                    flush)}
+                   torch, lambda: torch.amax(res["sims"], dim=1), flush),
+               **{name: {} for name in names}}
+        for case, fn in cases(bw, f, lab, res, cfg,
+                              args.precision).items():
+            for name, ms in zip(names, median_ms(torch, fn, flush,
+                                                 setups=turns)):
+                row[name][case] = ms
         print(json.dumps(row), flush=True)
-        del res, gargs, sims
+        del res
     _build._lib = None
     return 0
 

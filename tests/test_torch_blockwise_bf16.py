@@ -244,8 +244,15 @@ def test_round_bf16_on_cpu_is_the_plain_rounding():
     x = torch.cat([x, torch.randn(1000, generator=torch.Generator()
                                   .manual_seed(3))])
     _build.reset_launch_counts()
-    got = bw.round_bf16(x)
+    got, rows16 = bw.round_bf16(x[None])
+    got = got[0]
     assert torch.equal(got.view(torch.int32),
                        x.to(torch.bfloat16).float().view(torch.int32))
-    assert torch.equal(bw.round_bf16(got), got)
+    assert torch.equal(bw.round_bf16(got[None])[0][0], got)
+    # With the bf16 rows the tensor-core gq/gdb read: the same cast,
+    # zero-padded to a multiple of 8 columns.
+    assert rows16.shape == (1, 1008) and rows16.dtype == torch.bfloat16
+    assert torch.equal(rows16[0, :x.numel()].view(torch.int16),
+                       x.to(torch.bfloat16).view(torch.int16))
+    assert not rows16[0, x.numel():].float().any()
     assert _build.launch_counts()["round_bf16"] == 0
