@@ -187,7 +187,9 @@ Phases (any failure raises, exits nonzero and prints no result line):
    kernel's own emitted sims, minima, maxima, counts, histograms and
    the K-slot buffer bit for bit, I/D sums within 1e-4 relative, gq/gdb
    within 1e-5 / 1e-4 of their largest entry; the sims within 1e-5 of
-   cuBLAS's product of the mode's operands; cached and recompute variants
+   cuBLAS's product of the mode's operands (in the bf16 mode its bf16
+   product of the same bf16 rows, which every bf16 kernel that multiplies
+   rows is handed as ``rows16``); cached and recompute variants
    bit for bit; every kernel, cached
    and recompute, launched twice gives the same bits; the plain loss sweep
    in the kernel's I/D order (its cluster split for this card); each timed
@@ -209,24 +211,30 @@ Phases (any failure raises, exits nonzero and prints no result line):
    (cached and recompute) launched twice give the same bits; each
    kernel's time per call (and, as in phase 6, against cuBLAS), the hist
    kernel's early return, and ``torch.amax`` over the cache as a read-rate
-   yardstick for the cached sweeps; then REFERENCE_CONFIG in the bf16
-   mode: cache on = off and ``pos_topk`` 8 = 0 bit for bit, every kernel
+   yardstick for the cached sweeps; then the bf16 mode, every sim on
+   the tensor cores (the shared wgmma sim tile of stats, the recompute
+   hist and loss, and the recompute gq/gdb): in the three configs cache
+   on = off (loss, aux, both gradients) and, for REFERENCE_CONFIG,
+   ``pos_topk`` 8 = 0 bit for bit; every kernel (cached and recompute)
    launched twice the same bits and against its plain sweep on the
-   kernel's own sims, each kernel's time beside the fp32 mode's and its
-   bound at the dense bf16 peak; gq/gdb's tensor-core kernel
-   (``npair_grad_tc_kernel``): HGMMA in the SASS of its four
-   instantiations (``cuobjdump -sass``), both roles at N = M = 1000 with
-   D = 68 (a cluster of 4) and D = 1028 (a cluster of 8) against the
-   plain sweep within 1e-4 of its largest entry, cached = recompute and
-   repeat launches bit for bit, and cuBLAS's bf16 product of the
-   materialised 32,768² weight matrix by the bf16 rows as a yardstick
-   beside them (a timing only);
+   kernel's own sims, the sims within 1e-5 of cuBLAS's bf16 product of
+   the same bf16 rows and never -0; HGMMA in the SASS of every bf16
+   instantiation (stats, the recompute hist and loss, the four gq/gdb;
+   ``cuobjdump -sass``) and in no fp32 stats/hist/loss; the same checks
+   at N = M = 1000 with D = 68 (a gq/gdb cluster of 4) and D = 1028 (a
+   cluster of 8), and on a batch of zero and orthogonal rows; each
+   kernel's time beside the fp32 mode's and its bound at the dense bf16
+   peak, with cuBLAS's bf16 ``rows16 @ rows16.T`` beside stats, hist and
+   loss and its bf16 product of the materialised 32,768² weight matrix by
+   the bf16 rows beside gq/gdb (yardsticks, timings only);
 7. a ``{"kernels": [...]}`` line (launches of the serving kernels from
    phase 4, of the training kernels from phase 5, of ``lrn_bwd`` from
    the phase-5b recompute step, of the blockwise kernels from phase
    6b; the five blockwise kernels again as ``<name>:bf16``, their bf16
-   mode, with its launches in phase 5f's blockwise run; gq/gdb's bf16
-   entries name their tensor-core kernel); then the card
+   mode, with its launches in phase 5f's blockwise run; the bf16 entries
+   name their tensor-core kernels, and stats carries cuBLAS's bf16
+   ``rows16 @ rows16.T`` as ``library_ms``, hist and loss none: the
+   path's cached variants compute no product); then the card
    line; then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2487,6 +2495,15 @@ def _vs_cublas(ms, cublas_ms, flop):
             "fp32_peak_share": flop / (ms * 1e-3) / PEAK_OPS["fp32"]}
 
 
+def bf16_product(torch, a16):
+    """cuBLAS's bf16 product ``a16 @ a16.T`` of bf16 rows with fp32 output
+    (``kernel_breakdown.bf16_gemm``): the emitted sims' reference and the
+    library yardstick of the bf16 stats and recompute hist/loss sweeps."""
+    from npairloss_tpu_torch.tools.kernel_breakdown import bf16_gemm
+
+    return bf16_gemm(torch, a16)
+
+
 def check_blockwise_kernels(torch, timer, detail, seed,
                             sizes=((120, 1024), (8192, 1024)),
                             modes=("fp32", "bf16")):
@@ -2542,12 +2559,13 @@ def _blockwise_size_mode(torch, timer, bw, nl, sortable_key, cfgs, rows, f,
     splits = bw.pool_splits(n, n, sms)
     rec = {"n": n, "d": d, "mode": mode, "hist_loss_splits": splits}
     # The kernels' operands: the bf16 mode's rounded once, as the engine
-    # does; the plain sweeps round f themselves.
-    # gq/gdb's tensor-core product reads the bf16 copy of the same rows.
-    fk, gkw = f, {}
+    # does; the plain sweeps round f themselves.  Every bf16 kernel that
+    # multiplies rows reads their bf16 copy (``rows16``, which the plain
+    # sweeps take and do not read).
+    fk = f
     if mode == "bf16":
         fk, fk16 = bw.round_bf16(f)
-        gkw = dict(rows16=fk16)
+        kw["rows16"] = fk16
         if not (torch.equal(fk.view(torch.int32),
                             nl.bf16_round(f).view(torch.int32))
                 and torch.equal(fk16.view(torch.int16),
@@ -2565,8 +2583,10 @@ def _blockwise_size_mode(torch, timer, bw, nl, sortable_key, cfgs, rows, f,
     _same_bits(torch, st, st_2, f"npair_stats N={n} {mode}")
     del st_2
     sims = st.sims
-    fo = nl.bf16_round(f) if mode == "bf16" else f
-    ref = fo @ fo.T
+    if mode == "bf16":
+        ref = bf16_product(torch, fk16)()
+    else:
+        ref = f @ f.T
     torch.cuda.synchronize()
     rec["sims_vs_cublas"] = (sims - ref).abs().max().item()
     if not rec["sims_vs_cublas"] <= 1e-5:
@@ -2636,14 +2656,14 @@ def _blockwise_size_mode(torch, timer, bw, nl, sortable_key, cfgs, rows, f,
         grads = {}
         for name, kern, pm in (("npair_gq", bw.npair_gq, False),
                                ("npair_gdb", bw.npair_gdb, True)):
-            grads[name] = (kern(*gargs, sims=sims, **kw, **gkw),
-                           kern(*gargs, **kw, **gkw),
+            grads[name] = (kern(*gargs, sims=sims, **kw),
+                           kern(*gargs, **kw),
                            bw.grad_plain(*pargs, pm, sims=sims, bn=bn, bm=bm,
                                          **kw))
             _same_bits(torch, grads[name][0],
-                       kern(*gargs, sims=sims, **kw, **gkw),
+                       kern(*gargs, sims=sims, **kw),
                        f"{name} cached N={n} {mode} {cname}")
-            _same_bits(torch, grads[name][1], kern(*gargs, **kw, **gkw),
+            _same_bits(torch, grads[name][1], kern(*gargs, **kw),
                        f"{name} recompute N={n} {mode} {cname}")
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(l_c, l_r)):
@@ -2690,6 +2710,7 @@ def _blockwise_size_mode(torch, timer, bw, nl, sortable_key, cfgs, rows, f,
     # get one call each (the fp32 mode's the median of 5, as before).
     plain_iters = (5, 1) if n <= 120 or mode == "fp32" else (1, 0)
 
+    gemm16 = None
     if mode == "fp32":
         cublas = rec["cublas_sim_ms"] = timer.ms(lambda: f @ f.T)
         log(f"[kernel] N={n} D={d}: cuBLAS fp32 sim product feats @ "
@@ -2697,6 +2718,10 @@ def _blockwise_size_mode(torch, timer, bw, nl, sortable_key, cfgs, rows, f,
             f"{cublas:.4f} ms")
     else:
         cublas = None
+        # The bf16 stats, hist and loss sweeps' yardstick: the sims alone.
+        gemm16 = rec["cublas_bf16_ms"] = timer.ms(bf16_product(torch, fk16))
+        log(f"[kernel] N={n} D={d}: cuBLAS bf16 rows16 @ rows16.T "
+            f"(fp32 output): {gemm16:.4f} ms")
 
     def row(name, kern, plain, nbytes, ops, err, variant):
         bms, by = bound_ms(nbytes, ops, peak)
@@ -2704,7 +2729,10 @@ def _blockwise_size_mode(torch, timer, bw, nl, sortable_key, cfgs, rows, f,
              "max_abs_err": err, "ms": timer.ms(kern),
              "plain_ms": timer.ms(plain, iters=plain_iters[0],
                                   warmup=plain_iters[1]),
-             "bound_ms": bms, "bound_by": by, "library_ms": None}
+             "bound_ms": bms, "bound_by": by,
+             "library_ms": gemm16 if name == "npair_stats" or (
+                 variant == "recompute"
+                 and name in ("npair_hist", "npair_loss")) else None}
         fp32_row = [x for x in rows[name] if x["n"] == n
                     and x["variant"] == variant and x["mode"] == "fp32"]
         if fp32_row:
@@ -2749,7 +2777,7 @@ def _blockwise_size_mode(torch, timer, bw, nl, sortable_key, cfgs, rows, f,
             "cached" if cached else "recompute")
         for name, kern, pm in (("npair_gq", bw.npair_gq, False),
                                ("npair_gdb", bw.npair_gdb, True)):
-            row(name, lambda: kern(*gargs, sims=s_, **kw, **gkw),
+            row(name, lambda: kern(*gargs, sims=s_, **kw),
                 lambda: bw.grad_plain(*pargs, pm, sims=s_, bn=bn, bm=bm,
                                       **kw),
                 (4 * nm + 8 * nd if cached else 8 * nd) + 4 * n * 7,
@@ -3114,6 +3142,21 @@ def stretch_plain_ms(torch, bw, f, lab, thr, gargs, sims, pre, cfg, splits,
     return out
 
 
+def stretch_configs(nl):
+    """The stretch's mining configs: REFERENCE_CONFIG, LOCAL/RAND, and
+    positives and negatives both GLOBAL/RELATIVE_HARD (the radix path, 7
+    hist sweeps of two sides each)."""
+    ref = nl.REFERENCE_CONFIG
+    return {"reference": ref, "local_rand": nl.NPairLossConfig(),
+            "radix_both": nl.NPairLossConfig(
+                margin_ident=ref.margin_ident, margin_diff=ref.margin_diff,
+                identsn=ref.identsn, diffsn=ref.diffsn,
+                ap_mining_region=nl.MiningRegion.GLOBAL,
+                ap_mining_method=nl.MiningMethod.RELATIVE_HARD,
+                an_mining_region=nl.MiningRegion.GLOBAL,
+                an_mining_method=nl.MiningMethod.RELATIVE_HARD)}
+
+
 def check_stretch(torch, timer, detail, seed, n=32768, d=512):
     """Loss + backward at the 32,768 pool and 512 dims of STRETCH.json on
     synthetic unit features: REFERENCE_CONFIG, LOCAL/RAND and a two-sided
@@ -3147,18 +3190,7 @@ def check_stretch(torch, timer, detail, seed, n=32768, d=512):
                   if k in BLOCKWISE_KERNELS}
         return loss.detach(), aux, x.grad, wall, counts
 
-    ref = nl.REFERENCE_CONFIG
-    # Positives and negatives both GLOBAL/RELATIVE_HARD: the radix path,
-    # 7 hist sweeps of two sides each.
-    radix_both = nl.NPairLossConfig(
-        margin_ident=ref.margin_ident, margin_diff=ref.margin_diff,
-        identsn=ref.identsn, diffsn=ref.diffsn,
-        ap_mining_region=nl.MiningRegion.GLOBAL,
-        ap_mining_method=nl.MiningMethod.RELATIVE_HARD,
-        an_mining_region=nl.MiningRegion.GLOBAL,
-        an_mining_method=nl.MiningMethod.RELATIVE_HARD)
-    for cname, cfg in (("reference", ref), ("local_rand", nl.NPairLossConfig()),
-                       ("radix_both", radix_both)):
+    for cname, cfg in stretch_configs(nl).items():
         on = run(cfg, sim_cache=True)
         off = run(cfg, sim_cache=False)
         if not (torch.equal(on[0], off[0]) and torch.equal(on[2], off[2])
@@ -3278,169 +3310,161 @@ def check_stretch(torch, timer, detail, seed, n=32768, d=512):
     return out
 
 
-# Off the stretch's round shapes for the bf16 gq/gdb on tensor cores: N =
-# M = 1000 (a partial last tile), D = 68 (a cluster of 4, three blocks
-# without columns, the bf16 rows padded to 72) and D = 1028 (a cluster of
-# 8, a second pass of columns).
+# Off the stretch's round shapes for the bf16 mode's tensor cores: N = M =
+# 1000 (a partial last tile), D = 68 (gq/gdb a cluster of 4, three blocks
+# without columns; the bf16 rows padded to 72, two 64-deep sim slices, the
+# second mostly zero) and D = 1028 (a cluster of 8, a second pass of
+# columns; 17 sim slices).
 GRAD_TC_EDGES = ((1000, 68), (1000, 1028))
 
+# The bf16 instantiations that must run on the tensor cores, as their
+# names' templates read (mangled, as cuobjdump -sass prints them, or not):
+# npair_grad_tc_kernel<cached, kS>, npair_stats_kernel<true> and the
+# recompute npair_hist_kernel / npair_loss_kernel<false, L, true>.
+TC_KERNELS = {
+    "npair_grad_tc_kernel": (r"npair_grad_tc_kernel(I|<)", 4),
+    "npair_stats_kernel<true>": (r"npair_stats_kernel(ILb1EE|<true>)", 1),
+    "npair_hist_kernel<false, L, true>": (
+        r"npair_hist_kernel(ILb0E[if]Lb1EE|<false, (int|float), true>)", 2),
+    "npair_loss_kernel<false, L, true>": (
+        r"npair_loss_kernel(ILb0E[if]Lb1EE|<false, (int|float), true>)", 2),
+}
 
-def grad_tc_sass(detail):
-    """``cuobjdump -sass`` of the built library: each of the four bf16
-    gq/gdb instantiations (``npair_grad_tc_kernel``) must hold HGMMA,
-    the tensor cores' warp-group product."""
+
+def tc_sass(detail):
+    """``cuobjdump -sass`` of the built library: every bf16 instantiation
+    of ``TC_KERNELS`` must hold HGMMA, the tensor cores' warp-group
+    product, and no fp32 instantiation of stats, hist or loss may."""
+    import re
+
     from npairloss_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", _build.build_info["path"]],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    found = {}
+    found = {k: {} for k in TC_KERNELS}
+    fp32 = {}
     for block in sass.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
-        if "npair_grad_tc_kernel" in name:
-            found[name] = block.count("HGMMA")
-    log(f"[grad-tc] HGMMA instructions per bf16 gq/gdb instantiation: "
-        f"{json.dumps(found)}")
-    if len(found) != 4 or not all(found.values()):
-        fail("the bf16 gq/gdb SASS lacks HGMMA (or an instantiation is "
-             f"missing): {found}")
-    detail["grad_tc_hgmma"] = found
+        kinds = [k for k, (pat, _) in TC_KERNELS.items()
+                 if re.search(pat, name)]
+        if kinds:
+            found[kinds[0]][name] = block.count("HGMMA")
+        elif re.search(r"npair_(stats|hist|loss)_kernel", name):
+            fp32[name] = block.count("HGMMA")
+    log(f"[tc] HGMMA instructions per bf16 instantiation: "
+        f"{json.dumps(found)}; fp32 stats/hist/loss: {json.dumps(fp32)}")
+    for kind, (_, count) in TC_KERNELS.items():
+        if len(found[kind]) != count or not all(found[kind].values()):
+            fail(f"the bf16 {kind} SASS lacks HGMMA (or an instantiation is "
+                 f"missing): {found[kind]}")
+    if not fp32 or any(fp32.values()):
+        fail(f"the fp32 stats/hist/loss instantiations: {fp32}")
+    detail["tc_hgmma"] = found
     return found
 
 
-def check_grad_tc_edges(torch, detail, seed):
-    """The bf16 gq/gdb at ``GRAD_TC_EDGES``, both roles, from the engine's
-    own REFERENCE_CONFIG forward: cached and recompute against the plain
-    sweep within 1e-4 of its largest entry (as phase 6c holds the
-    stretch), cached = recompute and repeat launches bit for bit; the
-    engine's bf16 rows equal ``.to(torch.bfloat16)`` zero-padded."""
-    from npairloss_tpu_torch.ops import blockwise_npair as bw
-    from npairloss_tpu_torch.ops import npair_loss as nl
-
-    cfg = nl.REFERENCE_CONFIG
-    kw = {"matmul_precision": "default"}
-    errs = {}
-    for n, d in GRAD_TC_EDGES:
-        f, lab = unit_batch(torch, seed + 11 + d, n, d)
-        _, _, res = bw._forward(f, lab, cfg, 512, 512, True, 8, "default")
-        fk, rows16, sims = res["feats"], res["rows16"], res["sims"]
-        if not torch.equal(rows16.view(torch.int16),
-                           bw._rows16_plain(f).view(torch.int16)):
-            fail(f"round_bf16 rows16 N={n} D={d}: differs from "
-                 ".to(torch.bfloat16) zero-padded")
-        rest = (res["pos_thr"], res["neg_thr"], res["max_all"],
-                res["ident_sum"], res["all_sum"],
-                torch.ones(n, device="cuda"), torch.ones((), device="cuda"),
-                cfg)
-        gkw = dict(rows16=rows16, **kw)
-        for name, kern, pm in (("npair_gq", bw.npair_gq, False),
-                               ("npair_gdb", bw.npair_gdb, True)):
-            gc = kern(fk, lab, fk, lab, *rest, sims=sims, **gkw)
-            gr = kern(fk, lab, fk, lab, *rest, **gkw)
-            _same_bits(torch, gc, kern(fk, lab, fk, lab, *rest, sims=sims,
-                                       **gkw), f"{name} N={n} D={d} cached")
-            _same_bits(torch, gr, kern(fk, lab, fk, lab, *rest, **gkw),
-                       f"{name} N={n} D={d} recompute")
-            gp = bw.grad_plain(f, lab, f, lab, *rest, pm, sims=sims, bn=512,
-                               bm=512, **kw)
-            err = ((gc - gp).abs().max()
-                   / gp.abs().max().clamp_min(1e-30)).item()
-            errs[f"{name}_{n}x{d}"] = err
-            if not torch.equal(gc, gr) or not err <= 1e-4:
-                fail(f"bf16 {name} N={n} D={d}: cached/recompute differ or "
-                     f"{err} of the plain sweep's largest entry")
-    log(f"[grad-tc] edges {GRAD_TC_EDGES}: cached = recompute, repeat "
-        f"launches the same bits, against the plain sweep: "
-        f"{json.dumps(errs)}")
-    detail["grad_tc_edges"] = errs
-    return errs
-
-
-def check_stretch_bf16(torch, timer, detail, seed, n=32768, d=512):
-    """The stretch in the kernels' bf16 mode (matmul precision DEFAULT):
-    REFERENCE_CONFIG loss + backward with the sim cache on and off and
-    ``pos_topk`` 8 and 0, bit for bit; all five kernels (cached and
-    recompute) launched twice the same bits; each against its plain
-    sweep on the kernel's own emitted sims (4096-row tiles): minima,
-    maxima, counts, histograms and K-slot buffers bit for bit, the sims
-    within 1e-5 of cuBLAS's product of the bf16-rounded features, I/D
-    sums within 1e-4 relative, gq/gdb within 1e-4 of their largest
-    entry; each kernel's time beside the fp32 mode's (phase 6c) and its
-    bound at the dense bf16 peak.  The kernels get the features rounded
-    once by ``round_bf16`` (bit for bit ``.to(torch.bfloat16)``), the
-    plain sweeps the features as they are."""
+def bf16_engine_bits(torch, bw, nl, f, lab, what):
+    """Loss + backward in the bf16 mode in each of ``stretch_configs``:
+    sim cache on = off bit for bit in the loss, the aux outputs and the
+    gradient (the cached sweeps read stats' sims, the recompute ones and
+    gq/gdb sum their own: both roles, pool-major and query-major), and
+    for REFERENCE_CONFIG ``pos_topk`` 8 = 0; finite.  Returns the walls
+    and launches."""
     import math
 
     from npairloss_tpu_torch.ops import _build
-    from npairloss_tpu_torch.ops import blockwise_npair as bw
-    from npairloss_tpu_torch.ops import npair_loss as nl
-    from npairloss_tpu_torch.ops.rank_select import sortable_key
 
-    t_start = time.perf_counter()
-    mp = "default"
-    kw = {"matmul_precision": mp}
-    f, lab = unit_batch(torch, seed + 3, n, d)
-    cfg = nl.REFERENCE_CONFIG
-    out = {"n": n, "d": d}
-
-    def run(**kw2):
+    def run(cfg, **kw):
         x = f.clone().requires_grad_()
         _build.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, aux = bw.blockwise_npair_loss_with_aux(x, lab, cfg, **kw, **kw2)
+        loss, aux = bw.blockwise_npair_loss_with_aux(
+            x, lab, cfg, matmul_precision="default", **kw)
         loss.backward()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         return (loss.detach(), aux, x.grad, wall,
                 {k: v for k, v in _build.launch_counts().items() if v})
 
-    on = run(sim_cache=True)
-    for tag, other in (("cache off", run(sim_cache=False)),
-                       ("pos_topk 0", run(sim_cache=True, pos_topk=0))):
-        if not (torch.equal(on[0], other[0]) and torch.equal(on[2], other[2])
-                and all(torch.equal(on[1][k], other[1][k]) for k in on[1])):
-            fail(f"stretch bf16: {tag} differs from cache on, pos_topk 8")
-        out[f"wall_ms_{tag.replace(' ', '_')}"] = other[3]
-    if not (math.isfinite(on[0].item()) and bool(torch.isfinite(on[2]).all())):
-        fail("stretch bf16: non-finite loss or gradient")
-    out.update(loss=on[0].item(), wall_ms_cache_on=on[3], launches=on[4])
-    log(f"[stretch-bf16] N={n} D={d} reference: cache on = off and "
-        f"pos_topk 8 = 0 bit for bit; {json.dumps(out)}")
-    del on
+    out = {}
+    for cname, cfg in stretch_configs(nl).items():
+        on = run(cfg, sim_cache=True)
+        others = [("cache off", run(cfg, sim_cache=False))]
+        if cname == "reference":
+            others.append(("pos_topk 0", run(cfg, sim_cache=True,
+                                             pos_topk=0)))
+        rec = {"loss": on[0].item(), "wall_ms_cache_on": on[3],
+               "launches": on[4]}
+        for tag, other in others:
+            if not (torch.equal(on[0], other[0])
+                    and torch.equal(on[2], other[2])
+                    and all(torch.equal(on[1][k], other[1][k])
+                            for k in on[1])):
+                fail(f"{what} bf16 {cname}: {tag} differs from cache on")
+            rec[f"wall_ms_{tag.replace(' ', '_')}"] = other[3]
+        if not (math.isfinite(rec["loss"])
+                and bool(torch.isfinite(on[2]).all())):
+            fail(f"{what} bf16 {cname}: non-finite loss or gradient")
+        out[cname] = rec
+        del on, others
+    log(f"[bf16] {what}: cache on = off bit for bit in {list(out)}, "
+        f"pos_topk 8 = 0; {json.dumps(out)}")
+    return out
 
-    big = 4096
-    splits = bw.pool_splits(n, n, torch.cuda.get_device_properties(
-        0).multi_processor_count)
-    _, _, res = bw._forward(f, lab, cfg, 512, 512, True, 8, mp)
-    thr = (res["pos_thr"], res["neg_thr"], res["max_all"])
-    valid = torch.ones(n, device="cuda")
-    g = torch.ones((), device="cuda")
+
+def bf16_kernel_checks(torch, bw, nl, sortable_key, f, lab, what, big,
+                       splits):
+    """The five kernels in the bf16 mode on ``round_bf16(f)`` and its bf16
+    rows: each launched twice the same bits; the emitted sims within 1e-5
+    of cuBLAS's bf16 product of the same rows and never -0; stats, hist
+    (two sides, digit 1) and loss against their plain sweeps on the
+    kernel's own sims (``big``-row tiles; the loss sweep in the kernels'
+    I/D order at ``splits``): minima, maxima, counts, histograms and K-slot
+    buffers bit for bit, I/D sums within 1e-4 relative; cached =
+    recompute bit for bit for hist, loss, gq and gdb, gq/gdb within 1e-4
+    of the plain sweep's largest entry.  Returns the errors and, for the
+    timings, the inputs."""
+    cfg = nl.REFERENCE_CONFIG
+    n = f.shape[0]
     fk, fk16 = bw.round_bf16(f)
-    fr = nl.bf16_round(f)
-    if not (torch.equal(fk.view(torch.int32), fr.view(torch.int32))
+    if not (torch.equal(fk.view(torch.int32),
+                        nl.bf16_round(f).view(torch.int32))
             and torch.equal(fk16.view(torch.int16),
                             bw._rows16_plain(f).view(torch.int16))):
-        fail("stretch bf16: round_bf16 differs from .to(torch.bfloat16)")
-    gkw = dict(rows16=fk16, **kw)
-    rest = (*thr, res["ident_sum"], res["all_sum"], valid, g, cfg)
+        fail(f"{what} bf16: round_bf16 differs from .to(torch.bfloat16)")
+    kw = {"matmul_precision": "default", "rows16": fk16}
+    _, _, res = bw._forward(f, lab, cfg, 512, 512, True, 8, "default")
+    thr = (res["pos_thr"], res["neg_thr"], res["max_all"])
+    rest = (*thr, res["ident_sum"], res["all_sum"],
+            torch.ones(n, device="cuda"), torch.ones((), device="cuda"), cfg)
     gargs, pargs = (fk, lab, fk, lab, *rest), (f, lab, f, lab, *rest)
-    st_kw = dict(hist_same=True, topk=8, emit_sims=True, **kw)
+    st_kw = dict(hist_same=True, hist_diff=True, topk=8, emit_sims=True,
+                 **kw)
     st = bw.npair_stats(fk, lab, fk, lab, **st_kw)
     _same_bits(torch, st, bw.npair_stats(fk, lab, fk, lab, **st_kw),
-               "stretch bf16 npair_stats")
+               f"{what} bf16 npair_stats")
     sims = st.sims
-    errs = {"sims_vs_cublas": (sims - fr @ fr.T).abs().max().item()}
+    errs = {"sims_vs_cublas":
+            (sims - bf16_product(torch, fk16)()).abs().max().item(),
+            "exact_zero_sims": int((sims == 0).sum().item()),
+            "negative_zero_sims": int(((sims == 0)
+                                       & torch.signbit(sims)).sum().item())}
     if not errs["sims_vs_cublas"] <= 1e-5:
-        fail(f"stretch bf16: emitted sims off cuBLAS by {errs}")
-    pst = bw.stats_plain(f, lab, f, lab, hist_same=True, topk=8, sims=sims,
-                         bn=big, bm=big, **kw)
+        fail(f"{what} bf16: emitted sims off cuBLAS by {errs}")
+    if errs["negative_zero_sims"]:
+        fail(f"{what} bf16: the cache holds -0 sims: {errs}")
+    if not torch.equal(res["sims"], sims):
+        fail(f"{what} bf16: the engine's cache differs from npair_stats'")
+    pst = bw.stats_plain(f, lab, f, lab, sims=sims, bn=big, bm=big,
+                         **{**st_kw, "emit_sims": False})
     for name in bw.Stats._fields[:8]:
         a, b = getattr(st, name), getattr(pst, name)
         if (a is None) != (b is None) or (a is not None
                                           and not torch.equal(a, b)):
-            fail(f"stretch bf16 npair_stats: {name} differs from the plain "
+            fail(f"{what} bf16 npair_stats: {name} differs from the plain "
                  "sweep on the kernel's sims")
     del pst
     pre = [sortable_key(sims[:, 1]) >> 28]  # digit-1 prefixes of real pairs
@@ -3450,57 +3474,140 @@ def check_stretch_bf16(torch, timer, detail, seed, n=32768, d=512):
     h_p = bw.hist_plain(f, lab, f, lab, *hist_args[4:], sims=sims, bn=big,
                         bm=big, **kw)
     _same_bits(torch, h_c, bw.npair_hist(*hist_args, sims=sims, **kw),
-               "stretch bf16 npair_hist cached")
+               f"{what} bf16 npair_hist cached")
     _same_bits(torch, h_r, bw.npair_hist(*hist_args, **kw),
-               "stretch bf16 npair_hist recompute")
+               f"{what} bf16 npair_hist recompute")
     if not all(torch.equal(a, b) and torch.equal(a, c)
                for a, b, c in zip(h_c, h_r, h_p)):
-        fail("stretch bf16 npair_hist: kernel, recompute and plain differ")
+        fail(f"{what} bf16 npair_hist: kernel, recompute and plain differ")
     l_c = bw.npair_loss(fk, lab, fk, lab, *thr, cfg, sims=sims, **kw)
     l_r = bw.npair_loss(fk, lab, fk, lab, *thr, cfg, **kw)
     _same_bits(torch, l_c, bw.npair_loss(fk, lab, fk, lab, *thr, cfg,
                                          sims=sims, **kw),
-               "stretch bf16 npair_loss")
+               f"{what} bf16 npair_loss")
     _same_bits(torch, l_r, bw.npair_loss(fk, lab, fk, lab, *thr, cfg, **kw),
-               "stretch bf16 npair_loss recompute")
+               f"{what} bf16 npair_loss recompute")
     l_p = bw.loss_plain(f, lab, f, lab, *thr, cfg, sims=sims, bn=big,
                         bm=big, splits=splits, **kw)
     if not (all(torch.equal(a, b) for a, b in zip(l_c, l_r))
             and torch.equal(l_c[2], l_p[2]) and torch.equal(l_c[3], l_p[3])):
-        fail("stretch bf16 npair_loss: cached, recompute and plain counts "
+        fail(f"{what} bf16 npair_loss: cached, recompute and plain counts "
              "differ")
     errs["loss_sum_rel_err"] = max(_rel_close(l_c[0], l_p[0]),
                                    _rel_close(l_c[1], l_p[1]))
     if not errs["loss_sum_rel_err"] <= 1e-4:
-        fail(f"stretch bf16 npair_loss: I/D sums off by {errs}")
+        fail(f"{what} bf16 npair_loss: I/D sums off by {errs}")
     del l_p
     for name, kern, pm in (("npair_gq", bw.npair_gq, False),
                            ("npair_gdb", bw.npair_gdb, True)):
-        gc = kern(*gargs, sims=sims, **gkw)
-        gr = kern(*gargs, **gkw)
-        _same_bits(torch, gc, kern(*gargs, sims=sims, **gkw),
-                   f"stretch bf16 {name} cached")
-        _same_bits(torch, gr, kern(*gargs, **gkw),
-                   f"stretch bf16 {name} recompute")
+        gc = kern(*gargs, sims=sims, **kw)
+        gr = kern(*gargs, **kw)
+        _same_bits(torch, gc, kern(*gargs, sims=sims, **kw),
+                   f"{what} bf16 {name} cached")
+        _same_bits(torch, gr, kern(*gargs, **kw),
+                   f"{what} bf16 {name} recompute")
         gp = bw.grad_plain(*pargs, pm, sims=sims, bn=big, bm=big, **kw)
         errs[f"{name}_err"] = ((gc - gp).abs().max()
                                / gp.abs().max().clamp_min(1e-30)).item()
         if not torch.equal(gc, gr) or not errs[f"{name}_err"] <= 1e-4:
-            fail(f"stretch bf16 {name}: cached/recompute differ or "
+            fail(f"{what} bf16 {name}: cached/recompute differ or "
                  f"{errs[f'{name}_err']} off the plain sweep")
         del gc, gr, gp
     torch.cuda.synchronize()
-    log(f"[stretch-bf16] N={n} D={d}: every kernel (cached and recompute) "
-        f"launched twice gives the same bits and agrees with its plain "
-        f"sweep on the kernel's sims: {json.dumps(errs)}")
-    out["errors"] = errs
-    # gq/gdb's tensor cores: HGMMA in their SASS; the shapes off the
-    # stretch's, both cluster sizes.
-    grad_tc_sass(out)
-    check_grad_tc_edges(torch, out, seed)
+    log(f"[bf16] {what}: every kernel (cached and recompute) launched "
+        f"twice gives the same bits and agrees with its plain sweep on the "
+        f"kernel's sims: {json.dumps(errs)}")
+    return errs, dict(fk=fk, fk16=fk16, sims=sims, thr=thr, res=res,
+                      gargs=gargs, pargs=pargs, pre=pre, kw=kw)
 
+
+def signed_zero_batch(torch, seed, n=640, d=64):
+    """n rows in n/2 identities of 2 whose sims hold many exact zeros,
+    signed either way by the FMA chain's rules: rows of +0 and of -0,
+    rows of one sign only (every product with a zero row then -0 or +0
+    alike), and signed basis vectors (orthogonal to each other); the rest
+    unit rows."""
+    f, lab = unit_batch(torch, seed, n, d)
+    k = n // 8
+    f[0:k] = 0.0
+    f[k:2 * k] = -0.0
+    f[2 * k:3 * k] = -(d ** -0.5)
+    f[3 * k:4 * k] = d ** -0.5
+    eye = torch.eye(d, device="cuda")
+    f[4 * k:5 * k] = eye[torch.arange(k, device="cuda") % d]
+    f[5 * k:6 * k] = -eye[torch.arange(k, device="cuda") % d]
+    return f.contiguous(), lab
+
+
+def check_bf16_edges(torch, bw, nl, sortable_key, seed, sms):
+    """The bf16 mode's checks of the stretch (``bf16_engine_bits``,
+    ``bf16_kernel_checks``) at ``GRAD_TC_EDGES`` and on a batch with
+    zero and orthogonal rows (``signed_zero_batch``); the engine's bf16
+    rows equal ``.to(torch.bfloat16)`` zero-padded there."""
+    out = {}
+    batches = [(f"N={n} D={d}", unit_batch(torch, seed + 11 + d, n, d))
+               for n, d in GRAD_TC_EDGES]
+    batches.append(("signed zero N=640 D=64",
+                    signed_zero_batch(torch, seed + 12)))
+    for what, (f, lab) in batches:
+        n = f.shape[0]
+        out[what] = {"engine": bf16_engine_bits(torch, bw, nl, f, lab, what)}
+        out[what]["kernels"] = bf16_kernel_checks(
+            torch, bw, nl, sortable_key, f, lab, what, 512,
+            bw.pool_splits(n, n, sms))[0]
+    return out
+
+
+def check_stretch_bf16(torch, timer, detail, seed, n=32768, d=512):
+    """The stretch in the kernels' bf16 mode (matmul precision DEFAULT),
+    every sim on the tensor cores: ``bf16_engine_bits`` (loss + backward
+    in the three mining configs, cache on = off and ``pos_topk`` 8 = 0
+    bit for bit) and ``bf16_kernel_checks`` (all five kernels, cached and
+    recompute, launched twice the same bits and against their plain
+    sweeps on the kernel's own emitted sims at 4096-row tiles; the sims
+    within 1e-5 of cuBLAS's bf16 product and never -0); HGMMA in every
+    bf16 instantiation (``tc_sass``); the same checks at
+    ``GRAD_TC_EDGES`` and on zero and orthogonal rows
+    (``check_bf16_edges``); each kernel's time beside the fp32 mode's
+    (phase 6c), its bound at the dense bf16 peak and the yardsticks:
+    cuBLAS's bf16 ``rows16 @ rows16.T`` beside stats, hist and loss, its
+    bf16 ``W @ rows`` beside gq/gdb.  The kernels get the features
+    rounded once by ``round_bf16`` (bit for bit ``.to(torch.bfloat16)``),
+    the plain sweeps the features as they are."""
+    from npairloss_tpu_torch.ops import blockwise_npair as bw
+    from npairloss_tpu_torch.ops import npair_loss as nl
+    from npairloss_tpu_torch.ops.rank_select import sortable_key
+
+    t_start = time.perf_counter()
+    f, lab = unit_batch(torch, seed + 3, n, d)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = bw.pool_splits(n, n, sms)
+    out = {"n": n, "d": d,
+           "engine": bf16_engine_bits(torch, bw, nl, f, lab, "stretch")}
+    ref = out["engine"]["reference"]
+    out.update(loss=ref["loss"], wall_ms_cache_on=ref["wall_ms_cache_on"],
+               wall_ms_cache_off=ref["wall_ms_cache_off"],
+               launches=ref["launches"])
+    errs, inp = bf16_kernel_checks(torch, bw, nl, sortable_key, f, lab,
+                                   "stretch", 4096, splits)
+    out["errors"] = errs
+    # Every bf16 instantiation on the tensor cores; the shapes off the
+    # stretch's and the signed zeros.
+    tc_sass(out)
+    out["edges"] = check_bf16_edges(torch, bw, nl, sortable_key, seed, sms)
+
+    fk, fk16, sims, thr = inp["fk"], inp["fk16"], inp["sims"], inp["thr"]
+    res, gargs, pargs, pre, kw = (inp["res"], inp["gargs"], inp["pargs"],
+                                  inp["pre"], inp["kw"])
+    cfg = nl.REFERENCE_CONFIG
     fp32_ms = detail.get("stretch", {}).get("kernel_ms", {})
     nm, flop = float(n) * n, 2.0 * n * n * d
+    st_kw = dict(hist_same=True, topk=8, emit_sims=True, **kw)
+    gemm16 = out["cublas_bf16_ms"] = timer.ms(bf16_product(torch, fk16),
+                                              iters=5, warmup=1)
+    log(f"[stretch-bf16] cuBLAS bf16 rows16 @ rows16.T (fp32 output), the "
+        f"yardstick of stats and the recompute hist and loss: "
+        f"{gemm16:.3f} ms")
     times = {}
     for name, fn, nbytes, ops in (
             ("round_bf16", lambda: bw.round_bf16(f),
@@ -3519,22 +3626,25 @@ def check_stretch_bf16(torch, timer, detail, seed, n=32768, d=512):
                 fk, lab, fk, lab, *thr, cfg, **kw), 4 * n * d,
              flop + 3 * nm),
             ("npair_gq cached", lambda: bw.npair_gq(*gargs, sims=sims,
-                                                    **gkw),
+                                                    **kw),
              4 * nm + 8 * n * d, flop),
-            ("npair_gq recompute", lambda: bw.npair_gq(*gargs, **gkw),
+            ("npair_gq recompute", lambda: bw.npair_gq(*gargs, **kw),
              8 * n * d, 2 * flop),
             ("npair_gdb cached", lambda: bw.npair_gdb(*gargs, sims=sims,
-                                                      **gkw),
+                                                      **kw),
              4 * nm + 8 * n * d, flop),
-            ("npair_gdb recompute", lambda: bw.npair_gdb(*gargs, **gkw),
+            ("npair_gdb recompute", lambda: bw.npair_gdb(*gargs, **kw),
              8 * n * d, 2 * flop)):
         bms, by = bound_ms(nbytes, ops, "bf16")
         times[name] = {"ms": timer.ms(fn, iters=5, warmup=1),
                        "bound_ms": bms, "bound_by": by,
                        "fp32_mode_ms": fp32_ms.get(name, {}).get("ms")}
+        if name.startswith("npair_stats") or name in (
+                "npair_hist recompute", "npair_loss recompute"):
+            times[name]["cublas_bf16_sims_ms"] = gemm16
         log(f"[stretch-bf16] {name} N={n} D={d}: {json.dumps(times[name])}")
     plain = stretch_plain_ms(torch, bw, f, lab, thr, pargs, sims, pre, cfg,
-                             splits, **kw)
+                             splits, matmul_precision="default")
     plain["round_bf16"] = timer.ms(
         lambda: (nl.bf16_round(f), bw._rows16_plain(f)), iters=5, warmup=1)
     for name, ms in plain.items():
@@ -3544,6 +3654,8 @@ def check_stretch_bf16(torch, timer, detail, seed, n=32768, d=512):
     # A yardstick beside gq/gdb, never called by the port (the kernels
     # never build W): cuBLAS's bf16 product of the materialised N x N
     # weight matrix by the bf16 rows, the weights' build not timed.
+    valid = torch.ones(n, device="cuda")
+    g = torch.ones((), device="cuda")
     same, diff = bw._tile_masks(lab, lab, (0, n), (0, n), 0)
     pt, nt = bw._margined(thr[0], thr[1], cfg)
     a, b = bw._query_terms(res["ident_sum"], res["all_sum"], valid, g, n)
@@ -5169,9 +5281,18 @@ def main() -> int:
             f"{name}:bf16", src, f"npairloss_tpu/ops/pallas_npair.py:{line}",
             path_120(bw_rows[name], variant, "bf16"), f"{name}:bf16",
             bn_launches))
-        if name in ("npair_gq", "npair_gdb"):
-            # Their bf16 mode is its own kernel, on the tensor cores.
-            kernels[-1]["kernel"] = "npair_grad_tc_kernel (wgmma)"
+        # The bf16 mode's kernels on the tensor cores (the cached hist
+        # and loss, the path's at N = 120, read the cache alone).
+        kernels[-1]["kernel"] = {
+            "npair_stats": "npair_stats_kernel<true> (wgmma sim tile)",
+            "npair_hist": "npair_hist_kernel<true, L> (cached); "
+                          "npair_hist_kernel<false, L, true> (recompute, "
+                          "wgmma sim tile)",
+            "npair_loss": "npair_loss_kernel<true, L> (cached); "
+                          "npair_loss_kernel<false, L, true> (recompute, "
+                          "wgmma sim tile)",
+            "npair_gq": "npair_grad_tc_kernel (wgmma)",
+            "npair_gdb": "npair_grad_tc_kernel (wgmma)"}[name]
     # The bf16 mode's operand rounding, once per loss: the cast inside the
     # Pallas kernels' DEFAULT-precision sim tile.
     kernels.append(entry(

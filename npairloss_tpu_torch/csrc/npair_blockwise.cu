@@ -15,33 +15,47 @@
 // DEFAULT, pallas_npair.py:170-186, :473-478, :498-503): every product
 // reads bf16-rounded operands and accumulates in fp32.  The caller
 // rounds the features once per loss (npl_round_bf16: round to nearest
-// even, widened back to fp32, and the same rows as a bf16 copy).  Stats,
-// hist and loss are the same kernels in both modes: their fp32 FMA
-// chains run on the rounded values (a product of two bf16 values is
-// exact in fp32, so each chain computes "bf16 multiply, fp32
-// accumulate"), which keeps one sim function for every kernel.  gq and
-// gdb build their weight tile w from those sims as in the fp32 mode,
-// round it to bf16 and multiply it by the bf16 copy's rows on the tensor
-// cores (npair_grad_tc_kernel: wgmma.m64n128k16, fp32 accumulators).
+// even, widened back to fp32, and the same rows as a bf16 copy, [rows]
+// [ld16], zero past d).  Every sim of that mode comes from the tensor
+// cores: one shared tile (sim_tiles_tc, its 64-deep slices by
+// sim_slice_tc: wgmma.m64n128k16 of the bf16 rows, fp32 accumulators),
+// used by stats and the recompute hist and loss sweeps (their bf16
+// instantiations, npair_stats_kernel<true> and npair_*_kernel<false, L,
+// true>), and sim_slice_tc for the recompute gq/gdb's shares; the pair
+// epilogues read its staged tile as they read the FMA tile.  gq and gdb
+// build their weight tile w from those sims as in the fp32 mode, round
+// it to bf16 and multiply it by the bf16 rows on the tensor cores too
+// (npair_grad_tc_kernel).
 //
 // Bound on an H100 SXM (67 TFLOP/s fp32 on the FMA pipes, 989 TFLOP/s
-// bf16 on the tensor cores, 3.35 TB/s HBM).  Every sweep that recomputes
-// its sims does 2 N M D flop on the FMA pipes and is bound by operations
-// (N = M = 32768, D = 512: 16.4 ms); fp32 gq and gdb add their own 2 N M
-// D product (16.4 ms with the cache, 32.8 ms recomputing).  The cached
-// hist and loss sweeps read the N x M fp32 cache once and are bound by
-// bytes (4.29 GB: 1.28 ms).  The bf16 gq and gdb: cached, the cache's
-// bytes (1.28 ms) bound them, not their product (1.1 ms at the bf16
-// peak); recomputing, their sims on the FMA pipes (16.4 ms), where the
-// card's least time for both products at the bf16 peak is 2.2 ms.
+// bf16 on the tensor cores, 3.35 TB/s HBM).  In the fp32 mode every sweep
+// that recomputes its sims does 2 N M D flop on the FMA pipes and is
+// bound by operations (N = M = 32768, D = 512: 16.4 ms); fp32 gq and gdb
+// add their own 2 N M D product (16.4 ms with the cache, 32.8 ms
+// recomputing).  The cached hist and loss sweeps read the N x M fp32
+// cache once and are bound by bytes (4.29 GB: 1.28 ms).  In the bf16
+// mode the same 2 N M D flop run at the bf16 peak: 1.1 ms a recompute
+// sweep, so stats is bound by its cache write (1.28 ms) and the
+// recompute hist and loss by their product (1.1 ms) — in practice by
+// their epilogues and the operand slices' L2 traffic (each block
+// streams its 128 query rows again for every pool tile); the bf16 gq
+// and gdb: cached, the cache's bytes (1.28 ms) bound them, not their
+// product (1.1 ms); recomputing, the card's least time for the sims and
+// the product together is 2.2 ms.
 //
-// One order for every sim, in every kernel: sim(q, i) is one __fmaf_rn
-// chain over k = 0..D-1 in increasing k, starting at +0, whichever
-// operand a block owns (fmaf rounds a*b + c once, so the operands'
-// roles do not matter).  The chain never holds -0, so zero padding past
-// the ends (fmaf(0, 0, acc) == acc) changes no sum.  Each gradient
-// element is one __fmaf_rn chain over the other axis in increasing
-// index.  So the cache the stats kernel writes equals what every
+// One order for every sim, in each mode, in every kernel.  fp32: sim(q,
+// i) is one __fmaf_rn chain over k = 0..D-1 in increasing k, starting at
+// +0, whichever operand a block owns (fmaf rounds a*b + c once, so the
+// operands' roles do not matter); the chain never holds -0, so zero
+// padding past the ends (fmaf(0, 0, acc) == acc) changes no sum.  bf16:
+// sim(q, i) is sim_slice_tc's: A always the query row, B always the pool
+// row, 16-deep blocks of k in increasing order, the first overwriting
+// the accumulator (scale-d 0), the k tail past ld16 zero-filled to a
+// whole 64-deep slice; the finished sim staged as v + 0, so never -0
+// (sortable_key orders -0 below +0).  Each gradient element is one
+// __fmaf_rn chain over the other axis in increasing index (fp32), or the
+// tensor cores' sum over the other tiles in increasing order (bf16).  So
+// in either mode the cache the stats kernel writes equals what every
 // recompute sweep computes, pool-major sims equal query-major ones,
 // cached and recompute variants give the same bits, and no float
 // atomics appear anywhere: repeat runs are bit-identical.
@@ -71,8 +85,24 @@
 //     the ranks' per-row partials through distributed shared memory in
 //     rank order.
 //
+// The tensor-core tile (sim_tiles_tc), the bf16 mode's in their place:
+//   * Both operands K-major bf16 slices of 64 k ([128 rows][64], 128-byte
+//     swizzled), a ring of kStages 32 KB slots (query rows, then pool
+//     rows) filled by 16-byte cp.async, zero past the ends; warp group w
+//     multiplies query rows [64 w, 64 w + 64) by the 128 pool rows, 4
+//     wgmma.m64n128k16 a slice, the accumulators in registers.
+//   * The finished fragment goes to the same staged tile (float2 stores:
+//     a half warp's hit 32 banks) with its labels, and the epilogue reads
+//     it as it reads sim_tiles' tile, but a tile's 16 chunks a thread are
+//     spread over the next tile's slices: each runs between a slice's
+//     wgmma commit and its wait, so the epilogue overlaps the product.
+//     Nothing reads the accumulator between commit and wait.
+//   * The same shared memory as the FMA ring (a 32-k fp32 slice and a
+//     64-k bf16 slice are both 128 bytes a row), 1 KB aligned.
+//
 // npair_stats_kernel: the stats epilogue also writes the tile to the sim
-// cache straight from registers with 16-byte stores; per row it keeps the
+// cache with 16-byte stores, straight from registers (sim_tiles) or from
+// the staged tile (sim_tiles_tc); per row it keeps the
 // running min/max, counts, 16-bin digit-0 histograms (16 compares into
 // registers) and the K-slot buffer (a sorted per-thread buffer in shared
 // memory, duplicates as distinct entries).  Min, max, integer counts,
@@ -85,8 +115,8 @@
 // of one radix digit per active side; the selected pairs' I and D sums of
 // exp(s - max_all) and their counts.  Each has two variants:
 //   * Recompute (no cache): bound by operations, as stats is.  The tiles
-//     come from sim_tiles, the stats kernel's loop, and the epilogue reads
-//     the staged tile row-wise.
+//     come from the stats kernel's loop (sim_tiles; sim_tiles_tc in the
+//     bf16 mode), and the epilogue reads the staged tile row-wise.
 //   * Cached: bound by bytes.  cache_tiles streams the block's rows of the
 //     cache in stages of 128 rows x 32 columns through a kCStages-deep ring
 //     of 16-byte cp.async copies (4-byte where rows are not 16-byte
@@ -137,7 +167,14 @@
 //     512: 1024).
 //
 // npair_grad_tc_kernel (gq and gdb in the bf16 mode): the same grid,
-// cluster, weight shares and sims, with the product on the tensor cores.
+// cluster and weight shares, with the product on the tensor cores.
+//   * The recompute variant's share of sims comes from sim_slice_tc (A the
+//     query rows, B the pool rows, as everywhere): gq's kBT / kS own rows
+//     are queries, padded to warp group 0's 64 rows by the slot's next
+//     rows; gdb's are pool rows, padded to 128 likewise, against both
+//     warp groups' 64 other (query) rows.  The padding's sims are never
+//     read.  The share then lands canonicalised in its ring slot exactly
+//     as a cached share does, and one weight epilogue serves both.
 //   * The weight tile is stored as bf16 where it is built, in wgmma's
 //     128-byte-swizzled layout (32 KB, double-buffered); X comes from the
 //     bf16 copy by 16-byte cp.async straight into a swizzled,
@@ -366,6 +403,144 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                : "memory");
 }
 
+// The bf16 mode on Hopper's tensor cores: the sim tile (sim_tiles_tc,
+// every bf16 sweep's sims) and gq/gdb's product (npair_grad_tc_kernel).
+// Their operands sit in shared memory as wgmma reads them: bf16 tiles of
+// 128 rows x 128 columns, each two 64-column halves [128 rows][64] one
+// after the other, or slices of one such half, every 8-row block of
+// 128-byte rows swizzled by 128 bytes (16-byte chunk c of row r at chunk
+// c ^ r % 8, the period 1024 bytes, so each half or slice starts 1 KB
+// aligned).
+constexpr int kTileBf16 = kBT * kBT;  // elements of one bf16 tile
+constexpr int kK16 = 64;              // depth of one bf16 sim slice
+constexpr int kSlice16 = kBT * kK16;  // elements of one 128-row sim slice
+
+// Offset (elements) of (row r, column c) in a swizzled bf16 tile.
+__device__ __forceinline__ int sw128(int r, int c) {
+  return (c >> 6) * (kBT * 64) + r * 64 +
+         ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
+}
+
+// A wgmma shared-memory descriptor of the 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ unsigned long long wgmma_desc(unsigned addr,
+                                                         unsigned lbo,
+                                                         unsigned sbo) {
+  return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) |
+         (static_cast<unsigned long long>(lbo >> 4) << 16) |
+         (static_cast<unsigned long long>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 128 fp32, the warp group's accumulator fragment) = a (64 x 16
+// bf16, K-major) @ b (16 x 128 bf16; N-major when kBNMajor, else K-major:
+// 128 rows of 16) + (add ? d : 0), asynchronously.
+template <int kBNMajor = 1>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 unsigned long long a,
+                                                 unsigned long long b,
+                                                 int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(add), "n"(kBNMajor));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses of the accumulator across the
+// asynchronous product's issue and wait.  Only where no product is in
+// flight: a read of its registers there makes ptxas wait for it.
+__device__ __forceinline__ void pin(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// Generic-proxy writes to this block's shared memory that a barrier made
+// visible to this thread (its own stores and cp.async copies, the
+// cluster's stores into it) before its wgmma reads them through the async
+// proxy.  On the reading side, at CTA scope: a writer's fence at cluster
+// scope costs ~1 ms more at the stretch (a MEMBAR per thread and tile).
+__device__ __forceinline__ void fence_to_wgmma() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// The shared memory above p from its next 1 KB boundary (the swizzle's
+// period): `p` must leave 1 KB of slack.
+__device__ __forceinline__ float* align1k(void* p) {
+  return reinterpret_cast<float*>(static_cast<unsigned char*>(p) +
+                                  ((1024 - (smem_u32(p) & 1023)) & 1023));
+}
+
+// Rows [r0, r0 + kRows) x k [k0, k0 + 64) of bf16 rows [rows][ld16] into
+// a swizzled [kRows][64] slice (sw128's first half); past the ends
+// zero-filled (ld16 % 8 == 0: a 16-byte copy is wholly in or out).
+template <int kRows>
+__device__ __forceinline__ void load_rows16_slice(
+    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int rows,
+    int r0, int ld16, int k0) {
+  constexpr int kChunks = kRows * (kK16 / 8);
+#pragma unroll
+  for (int e = 0; e < (kChunks + kThreads - 1) / kThreads; ++e) {
+    const int idx = threadIdx.x + e * kThreads;
+    if (kChunks % kThreads == 0 || idx < kChunks) {
+      const int r = idx >> 3, c = (idx & 7) * 8, row = r0 + r, k = k0 + c;
+      const bool in = row < rows && k < ld16;
+      cp_async16(reinterpret_cast<float*>(dst + sw128(r, c)),
+                 reinterpret_cast<const float*>(
+                     in ? src + static_cast<long long>(row) * ld16 + k : src),
+                 in);
+    }
+  }
+}
+
+// The one bf16 sim function: acc (the warp group's 64 x 128 fragment)
+// continues sim(query row, pool row) over one 64-deep slice, 4
+// wgmma.m64n128k16 in increasing k; A is always the 64 query rows (a), B
+// always the 128 pool rows (b), both K-major slices at 1 KB-aligned shared
+// addresses.  The first slice of a tile starts from zero (scale-d 0).
+// Asynchronous: the caller waits (wgmma_wait_all) before it reads acc or
+// refills the slices.
+__device__ __forceinline__ void sim_slice_tc(float (&acc)[64], unsigned a,
+                                             unsigned b, bool first) {
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < kK16 / 16; ++k)
+    wgmma_m64n128k16<0>(acc, wgmma_desc(a + 32 * k, 16, 1024),
+                        wgmma_desc(b + 32 * k, 16, 1024), k > 0 || !first);
+  wgmma_commit();
+}
+
+// A finished sim as it is staged: -0 becomes +0.  A tensor-core sum can
+// end at -0 where the FMA chain (which starts at +0) cannot, and
+// sortable_key orders -0 below +0.
+__device__ __forceinline__ float canon0(float v) { return __fadd_rn(v, 0.f); }
+
 // Row (or column) i in 0..7 of the 8 x 8 micro-tile of lane l (0..15).
 __device__ __forceinline__ int frag(int l, int i) {
   return ((i >> 2) << 6) + l * 4 + (i & 3);
@@ -507,6 +682,85 @@ __device__ __forceinline__ void sim_tiles(
   }
 }
 
+// The bf16 mode's sim tiles on the tensor cores, in place of sim_tiles:
+// the 128 x 128 tiles of query rows [q0, q0 + 128) against pool tiles
+// [ct0, ct1), in order, from the bf16 rows (feats16, pool16: [rows][ld16],
+// zero past d).  Their 64-deep slices stream through a ring of kStages
+// 32 KB slots at `ring` (1 KB aligned: the query rows, then the pool
+// rows), one commit group a slice; warp group wg multiplies query rows
+// [64 wg, 64 wg + 64) by the tile's 128 pool rows (sim_slice_tc).  A
+// finished fragment goes canonicalised (canon0) to `tile` (row stride
+// kSimStride) with its pool labels in plab; epi(i0, u0, u1) then reads
+// the staged tile's 4-column chunks u0 .. u1 - 1 of the 16 each thread
+// takes (sim_tiles' epilogue reads all 16 at once), spread over the next
+// tile's slices, so that it runs while their products do; the last
+// tile's after the sweep.
+template <typename Epi>
+__device__ __forceinline__ void sim_tiles_tc(
+    __nv_bfloat16* ring, float* tile, int* plab,
+    const __nv_bfloat16* __restrict__ feats16,
+    const __nv_bfloat16* __restrict__ pool16, int ld16,
+    const int* __restrict__ pool_labels, int n, int m, int q0, int ct0,
+    int ct1, Epi epi) {
+  const int t = threadIdx.x, wg = t >> 7, lw = (t >> 5) & 3, ln = t & 31;
+  const int nk = (ld16 + kK16 - 1) / kK16;
+  const int total = (ct1 - ct0) * nk;  // ring slices of this block
+
+  // Slice g: k-slice g % nk of the block's (g / nk)-th pool tile.
+  auto issue = [&](int g) {
+    if (g < total) {
+      __nv_bfloat16* buf = ring + (g % kStages) * 2 * kSlice16;
+      const int k0 = (g % nk) * kK16;
+      load_rows16_slice<kBT>(buf, feats16, n, q0, ld16, k0);
+      load_rows16_slice<kBT>(buf + kSlice16, pool16, m,
+                             (ct0 + g / nk) * kBT, ld16, k0);
+    }
+    cp_async_commit();
+  };
+
+  for (int g = 0; g < kStages - 1; ++g) issue(g);
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int staged = -1;  // the staged tile's first pool column, its epilogue due
+  for (int g = 0; g < total; ++g) {
+    const int kk = g % nk;
+    cp_async_wait_ring();
+    // Slice g is in; slice g - 1's products, which every warp group
+    // waited for, are done with its slot, which the next issue refills.
+    __syncthreads();
+    issue(g + kStages - 1);
+    fence_to_wgmma();
+    const unsigned a = smem_u32(ring + (g % kStages) * 2 * kSlice16);
+    sim_slice_tc(acc, a + wg * 64 * 128, a + kSlice16 * 2, kk == 0);
+    // Nothing reads acc until the wait (else ptxas waits at once).
+    if (staged >= 0)
+      epi(staged, kBT / 8 * kk / nk, kBT / 8 * (kk + 1) / nk);
+    wgmma_wait_all();
+    if (kk != nk - 1) continue;
+    pin(acc);
+    __syncthreads();  // the last tile's epilogue is done with `tile`
+    // Thread (warp w, lane l) holds rows 64 wg + 16 w + l / 4 (+ 8) and
+    // columns 8 j + 2 (l % 4) (+ 1): a half warp's float2s hit 32 banks.
+    const int i0 = (ct0 + g / nk) * kBT;
+    const int r0 = wg * 64 + lw * 16 + (ln >> 2);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(tile + (r0 + 8 * h) * kSimStride + 8 * j +
+                                   2 * (ln & 3)) =
+            make_float2(canon0(acc[4 * j + 2 * h]),
+                        canon0(acc[4 * j + 2 * h + 1]));
+    if (t < kBT) plab[t] = i0 + t < m ? pool_labels[i0 + t] : 0;
+    staged = i0;
+  }
+  if (staged >= 0) {
+    __syncthreads();  // the last tile is staged
+    epi(staged, 0, kBT / 8);
+  }
+}
+
 // Offset of 4-column chunk c of row r in a cached stage ([kBT][kCW]
 // floats): XOR-swizzled by (r & 3) << 1, so the 8 lanes of a quarter
 // warp (rows 4a .. 4a + 3, chunks 2u and 2u + 1) read 8 distinct bank
@@ -595,23 +849,47 @@ __device__ __forceinline__ void cache_tiles(
 }
 
 // Shared memory (floats) of a hist or loss sweep before the kernel's own
-// partials: the cached ring, or the recompute ring, tile and labels.
+// partials: the cached ring, or the recompute ring, tile and labels (the
+// fp32 ring's 32-k slices and the bf16 ring's 64-k slices are both 128
+// bytes a row; the bf16 mode's ring starts at the next 1 KB boundary, so
+// its kernels take 1 KB more: kAlignSlack).
 __host__ __device__ constexpr int sweep_smem_floats(bool cached) {
   return cached ? kCStages * (kBT * kCW + kCW)
                 : kStages * 2 * kBT * kBK + kBT * kSimStride + kBT;
 }
+constexpr int kAlignSlack = 1024;
+static_assert(kStages * 2 * kBT * kBK == kStages * kSlice16,
+              "the fp32 and bf16 rings are the same size");
 
 // The block's rows of the pool range [ct0, ct1) through chunk(v, labels,
-// i), from the cache or recomputed: either way thread (r, j) sees row r's
+// i), from the cache or recomputed (kTC: on the tensor cores from the
+// bf16 rows, `smem` 1 KB aligned): either way thread (r, j) sees row r's
 // chunks 2u + j of each 128-column tile, tiles in order.
-template <bool kCached, typename Chunk>
+template <bool kCached, bool kTC, typename Chunk>
 __device__ __forceinline__ void sweep(
     float* smem, const float* __restrict__ feats,
     const float* __restrict__ pool, const int* __restrict__ pool_labels,
-    const float* __restrict__ sims, bool vec, int n, int m, int d, int q0,
-    int ct0, int ct1, Chunk chunk) {
+    const float* __restrict__ sims, bool vec, int n, int m, int d,
+    const __nv_bfloat16* __restrict__ feats16,
+    const __nv_bfloat16* __restrict__ pool16, int ld16, int q0, int ct0,
+    int ct1, Chunk chunk) {
   if constexpr (kCached) {
     cache_tiles(smem, sims, pool_labels, n, m, q0, ct0, ct1, vec, chunk);
+  } else if constexpr (kTC) {
+    float* tile = smem + kStages * 2 * kBT * kBK;
+    int* plab = reinterpret_cast<int*>(tile + kBT * kSimStride);
+    const int r = threadIdx.x >> 1, j = threadIdx.x & 1;
+    sim_tiles_tc(reinterpret_cast<__nv_bfloat16*>(smem), tile, plab,
+                 feats16, pool16, ld16, pool_labels, n, m, q0, ct0, ct1,
+                 [&](int i0, int u0, int u1) {
+                   for (int u = u0; u < u1; ++u) {
+                     const int c0 = 4 * (2 * u + j);
+                     chunk(*reinterpret_cast<const float4*>(
+                               tile + r * kSimStride + c0),
+                           *reinterpret_cast<const int4*>(plab + c0),
+                           i0 + c0);
+                   }
+                 });
   } else {
     float* tile = smem + kStages * 2 * kBT * kBK;
     int* plab = reinterpret_cast<int*>(tile + kBT * kSimStride);
@@ -633,14 +911,16 @@ __device__ __forceinline__ void sweep(
 
 // Dynamic shared memory of the stats kernel (floats): the operand ring,
 // the sim tile (later the per-row partials), the pool tile's labels, the
-// K-slot buffers.
+// K-slot buffers (kTC: after kAlignSlack bytes).
 __host__ __device__ constexpr int stats_smem_floats(int k) {
   return kStages * 2 * kBT * kBK + kBT * kSimStride + kBT + k * kThreads;
 }
 
 // Grid: (splits, row tiles) in clusters of (splits, 1, 1).  Block (s, y)
 // owns queries [128 y, 128 y + 128) and pool tiles [T s / S, T (s+1) / S)
-// of T = ceil(m / 128).
+// of T = ceil(m / 128).  kTC: the bf16 mode, its sims from the bf16 rows
+// on the tensor cores (sim_tiles_tc); else sim_tiles' FMA chains.
+template <bool kTC>
 __global__ void __launch_bounds__(kThreads, 1) npair_stats_kernel(
     const float* __restrict__ feats, const int* __restrict__ labels,
     const float* __restrict__ pool, const int* __restrict__ pool_labels,
@@ -649,9 +929,10 @@ __global__ void __launch_bounds__(kThreads, 1) npair_stats_kernel(
     float* __restrict__ max_a, int* __restrict__ cnt_s,
     int* __restrict__ cnt_d, int* __restrict__ hist_s,
     int* __restrict__ hist_d, float* __restrict__ topk, int k,
-    float* __restrict__ sims_out) {
+    float* __restrict__ sims_out, const __nv_bfloat16* __restrict__ feats16,
+    const __nv_bfloat16* __restrict__ pool16, int ld16) {
   extern __shared__ __align__(16) float smem[];
-  float* ring = smem;
+  float* ring = kTC ? align1k(smem) : smem;
   float* tile = ring + kStages * 2 * kBT * kBK;
   int* plab = reinterpret_cast<int*>(tile + kBT * kSimStride);
   float* topk_buf = reinterpret_cast<float*>(plab + kBT);  // [k][kThreads]
@@ -675,7 +956,8 @@ __global__ void __launch_bounds__(kThreads, 1) npair_stats_kernel(
   for (int b = 0; b < kBins; ++b) hs[b] = hd[b] = 0;
   for (int s = 0; s < k; ++s) topk_buf[s * kThreads + t] = -FLT_MAX;
 
-  // The finished tile also goes to the cache straight from registers.
+  // The finished tile also goes to the cache: straight from registers
+  // (sim_tiles), or in the epilogue from the staged tile (sim_tiles_tc).
   auto emit = [&](int row, int i, float4 v) {
     if (sims_out == nullptr || q0 + row >= n) return;
     float* dst = sims_out + static_cast<long long>(q0 + row) * m + i;
@@ -687,13 +969,17 @@ __global__ void __launch_bounds__(kThreads, 1) npair_stats_kernel(
         if (i + e < m) dst[e] = comp(v, e);
     }
   };
-  auto epi = [&](int i0) {
-    // Thread (r, j) takes columns 4 (2u + j) .. + 3 of row r.
+  auto epi = [&](int i0, int u0 = 0, int u1 = kBT / 8) {
+    // Thread (r, j) takes columns 4 (2u + j) .. + 3 of row r: all 16
+    // chunks at once (sim_tiles, constant bounds), or u0 .. u1 - 1.
 #pragma unroll 1
-    for (int u = 0; u < kBT / 8; ++u) {
+    for (int u = kTC ? u0 : 0; u < (kTC ? u1 : kBT / 8); ++u) {
       const int c0 = 4 * (2 * u + j);
       const float4 v4 =
           *reinterpret_cast<const float4*>(tile + r * kSimStride + c0);
+      // (if constexpr: a plain if keeps emit in the fp32 epilogue's
+      // closure, which cost its kernel 2.8 %.)
+      if constexpr (kTC) emit(r, i0 + c0, v4);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = c0 + e;
@@ -722,8 +1008,12 @@ __global__ void __launch_bounds__(kThreads, 1) npair_stats_kernel(
       }
     }
   };
-  sim_tiles(ring, tile, plab, feats, pool, pool_labels, n, m, d, q0, ct0,
-            ct1, emit, epi);
+  if constexpr (kTC)
+    sim_tiles_tc(reinterpret_cast<__nv_bfloat16*>(ring), tile, plab, feats16,
+                 pool16, ld16, pool_labels, n, m, q0, ct0, ct1, epi);
+  else
+    sim_tiles(ring, tile, plab, feats, pool, pool_labels, n, m, d, q0, ct0,
+              ct1, emit, epi);
 
   // The row's two halves (lanes t, t ^ 1 of one warp).
   mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, 1));
@@ -819,7 +1109,9 @@ __global__ void __launch_bounds__(kThreads, 1) npair_stats_kernel(
 
 // Grid and cluster as the stats kernel's, the pool axis split by
 // pool_splits(n, m, 2) for both variants.  Labels arrive as 32-bit
-// patterns and compare as L (float32: +0 == -0, 0.2 != 0.7).
+// patterns and compare as L (float32: +0 == -0, 0.2 != 0.7).  kTC (with
+// !kCached): the bf16 mode's recompute variant, its sims from the bf16
+// rows on the tensor cores (its shared memory after kAlignSlack bytes).
 
 // Dynamic shared memory (bytes): the sweep's, then per (side, bin, row)
 // counters.
@@ -827,7 +1119,7 @@ __host__ __device__ constexpr size_t hist_smem_bytes(bool cached) {
   return sizeof(float) * (sweep_smem_floats(cached) + 2 * kBins * kBT);
 }
 
-template <bool kCached, typename L>
+template <bool kCached, typename L, bool kTC = false>
 __global__ void __launch_bounds__(kThreads, kCached ? 2 : 1)
     npair_hist_kernel(const float* __restrict__ feats,
                       const int* __restrict__ labels,
@@ -838,8 +1130,11 @@ __global__ void __launch_bounds__(kThreads, kCached ? 2 : 1)
                       int same1, const unsigned* __restrict__ prefix0,
                       const unsigned* __restrict__ prefix1, int digit,
                       const unsigned char* __restrict__ skip,
-                      int* __restrict__ out0, int* __restrict__ out1) {
-  extern __shared__ __align__(16) float smem[];
+                      int* __restrict__ out0, int* __restrict__ out1,
+                      const __nv_bfloat16* __restrict__ feats16,
+                      const __nv_bfloat16* __restrict__ pool16, int ld16) {
+  extern __shared__ __align__(16) float smem_raw[];
+  float* smem = kTC ? align1k(smem_raw) : smem_raw;
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -878,9 +1173,10 @@ __global__ void __launch_bounds__(kThreads, kCached ? 2 : 1)
         atomicAdd(cnt + (kBins + bin) * kBT + r, 1);
     }
   };
-  sweep<kCached>(smem, feats, pool, pool_labels, sims, vec != 0, n, m, d,
-                 q0, col_tiles * rank / splits,
-                 col_tiles * (rank + 1) / splits, chunk);
+  sweep<kCached, kTC>(smem, feats, pool, pool_labels, sims, vec != 0, n, m,
+                      d, feats16, pool16, ld16, q0,
+                      col_tiles * rank / splits,
+                      col_tiles * (rank + 1) / splits, chunk);
 
   if (splits > 1)
     cluster.sync();  // every rank's counters are final
@@ -916,7 +1212,7 @@ __host__ __device__ constexpr size_t loss_smem_bytes(bool cached) {
   return sizeof(float) * (sweep_smem_floats(cached) + 4 * kBT);
 }
 
-template <bool kCached, typename L>
+template <bool kCached, typename L, bool kTC = false>
 __global__ void __launch_bounds__(kThreads, kCached ? 2 : 1)
     npair_loss_kernel(const float* __restrict__ feats,
                       const int* __restrict__ labels,
@@ -929,8 +1225,11 @@ __global__ void __launch_bounds__(kThreads, kCached ? 2 : 1)
                       const float* __restrict__ neg_thr,
                       const float* __restrict__ max_all,
                       float* __restrict__ isum, float* __restrict__ dsum,
-                      float* __restrict__ inum, float* __restrict__ dnum) {
-  extern __shared__ __align__(16) float smem[];
+                      float* __restrict__ inum, float* __restrict__ dnum,
+                      const __nv_bfloat16* __restrict__ feats16,
+                      const __nv_bfloat16* __restrict__ pool16, int ld16) {
+  extern __shared__ __align__(16) float smem_raw[];
+  float* smem = kTC ? align1k(smem_raw) : smem_raw;
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -963,9 +1262,10 @@ __global__ void __launch_bounds__(kThreads, kCached ? 2 : 1)
       dc += sn;
     }
   };
-  sweep<kCached>(smem, feats, pool, pool_labels, sims, vec != 0, n, m, d,
-                 q0, col_tiles * rank / splits,
-                 col_tiles * (rank + 1) / splits, chunk);
+  sweep<kCached, kTC>(smem, feats, pool, pool_labels, sims, vec != 0, n, m,
+                      d, feats16, pool16, ld16, q0,
+                      col_tiles * rank / splits,
+                      col_tiles * (rank + 1) / splits, chunk);
 
   // The row's two chains (lanes t, t ^ 1 of one warp): chain 0 + chain 1.
   is = __fadd_rn(is, __shfl_xor_sync(0xffffffffu, is, 1));
@@ -1368,105 +1668,28 @@ __global__ void __launch_bounds__(kThreads, 1) npair_grad_kernel(
 
 // ------------------------------------------ gq and gdb on tensor cores
 
-// The bf16 mode's gq and gdb (npair_grad_tc_kernel): the product on
-// Hopper's tensor cores.  Its operands sit in shared memory as wgmma
-// reads them: bf16 tiles of 128 rows x 128 columns, each two 64-column
-// halves [128 rows][64] one after the other, every 8-row block of 128-byte
-// rows swizzled by 128 bytes (16-byte chunk c of row r at chunk c ^ r % 8,
-// the period 1024 bytes).
-constexpr int kTileBf16 = kBT * kBT;  // elements of one bf16 tile
-
-// Offset (elements) of (row r, column c) in a swizzled bf16 tile.
-__device__ __forceinline__ int sw128(int r, int c) {
-  return (c >> 6) * (kBT * 64) + r * 64 +
-         ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
-}
-
-// A wgmma shared-memory descriptor of the 128-byte swizzle: start address,
-// leading and stride byte offsets (16-byte units).
-__device__ __forceinline__ unsigned long long wgmma_desc(unsigned addr,
-                                                         unsigned lbo,
-                                                         unsigned sbo) {
-  return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) |
-         (static_cast<unsigned long long>(lbo >> 4) << 16) |
-         (static_cast<unsigned long long>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// d (64 x 128 fp32, the warp group's accumulator fragment) = a (64 x 16
-// bf16, K-major) @ b (16 x 128 bf16, N-major) + (add ? d : 0),
-// asynchronously.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
-                                                 unsigned long long a,
-                                                 unsigned long long b,
-                                                 int add) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(add));
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving accesses of the accumulator across the
-// asynchronous product's issue and wait.  Only where no product is in
-// flight: a read of its registers there makes ptxas wait for it.
-__device__ __forceinline__ void pin(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// Generic-proxy writes to this block's shared memory that a barrier made
-// visible to this thread (its own stores and cp.async copies, the
-// cluster's stores into it) before its wgmma reads them through the async
-// proxy.  On the reading side, at CTA scope: a writer's fence at cluster
-// scope costs ~1 ms more at the stretch (a MEMBAR per thread and tile).
-__device__ __forceinline__ void fence_to_wgmma() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // Floats of one ring slot's weight source: the cached variant's share of
 // a cache tile (kBT / kS own rows x 128, rows kWStride apart), or the
-// recompute variant's 32-k slice of the block's kBT / kS weight rows and
-// of the 128 other rows.
+// recompute variant's 64-deep bf16 sim slice of the block's kBT / kS own
+// rows and the 128 other rows ([rows][64], 128-byte swizzled), whose
+// first kBT / kS x kWStride floats later hold the finished share of sims.
 template <bool kCached, int kS>
 __host__ __device__ constexpr int tc_source_floats() {
-  return kCached ? kBT / kS * kWStride : (kBT / kS + kBT) * kBK;
+  return kCached ? kBT / kS * kWStride : (kBT / kS + kBT) * kK16 / 2;
+}
+// A slot: the weight source, then the next other tile's raw rows (kRaw;
+// recompute: 8 kBT floats, so that every slot starts 1 KB aligned).
+template <bool kCached, int kS>
+__host__ __device__ constexpr int tc_stage_floats() {
+  return tc_source_floats<kCached, kS>() + (kCached ? kRaw : 8 * kBT);
 }
 
 // Dynamic shared memory (bytes): 1 KB to align the tiles, two weight and
-// two X tiles, the ring (each slot: a weight source and the next other
-// tile's raw rows), query terms and labels.
+// two X tiles, the ring, query terms and labels.
 template <bool kCached, int kS>
 __host__ __device__ constexpr size_t grad_tc_smem_bytes() {
   return 1024 + 4 * kTileBf16 * sizeof(__nv_bfloat16) +
-         sizeof(float) * (kStages * (tc_source_floats<kCached, kS>() + kRaw) +
+         sizeof(float) * (kStages * tc_stage_floats<kCached, kS>() +
                           2 * 5 * kBT) +
          sizeof(QueryTerms) * (kBT / kS) + sizeof(int) * (2 * kBT + kBT / kS);
 }
@@ -1476,10 +1699,11 @@ __host__ __device__ constexpr size_t grad_tc_smem_bytes() {
 // tile), accumulated in fp32 by the tensor cores.  Grid, cluster and the
 // weight tile's construction as npair_grad_kernel's: rank s builds rows
 // [s kBT / kS, (s+1) kBT / kS) of every weight tile (from the cache, or
-// from its own sims: sim_slice, the one sim function), rounds them to
-// bf16 and stores them swizzled into every rank's double-buffered tile.
-// X comes as bf16 rows (x16, row stride ld16, zero past d), streamed by
-// 16-byte cp.async straight into a double-buffered swizzled tile.  Warp
+// from its own sims on the tensor cores: sim_slice_tc, the one bf16 sim
+// function), rounds them to bf16 and stores them swizzled into every
+// rank's double-buffered tile.  X comes as bf16 rows (pool16 for gq,
+// feats16 for gdb; row stride ld16, zero past d), streamed by 16-byte
+// cp.async straight into a double-buffered swizzled tile.  Warp
 // group w multiplies band rows [64 w, 64 w + 64) by the 128 columns of
 // the block's D chunk: 8 wgmma.m64n128k16 a tile, the accumulator in
 // registers through the sweep.  The product of tile t runs while the
@@ -1495,14 +1719,14 @@ __global__ void __launch_bounds__(kThreads, 1) npair_grad_tc_kernel(
     const float* __restrict__ neg_thr, const float* __restrict__ max_all,
     const float* __restrict__ isum, const float* __restrict__ asum,
     const float* __restrict__ valid, const float* __restrict__ g,
-    const __nv_bfloat16* __restrict__ x16, int ld16, int vec,
+    const __nv_bfloat16* __restrict__ feats16,
+    const __nv_bfloat16* __restrict__ pool16, int ld16, int vec,
     float* __restrict__ out) {
   static_assert(kS == 4 || kS == 8, "a cluster of 4 or 8");
   constexpr int kRs = kBT / kS;   // weight rows this block builds
-  constexpr int kMA = 8 / kS;     // ... per thread (recompute)
   constexpr int kSrc = tc_source_floats<kCached, kS>();
-  constexpr int kStage = kSrc + kRaw;
-  constexpr int kQuads = kRs * kBT / 4 / kThreads;  // cached: 4 weights each
+  constexpr int kStage = tc_stage_floats<kCached, kS>();
+  constexpr int kQuads = kRs * kBT / 4 / kThreads;  // 4 weights each
   const bool pm = pool_major != 0;
   extern __shared__ __align__(16) unsigned char smem_tc[];
   // The same offset in every block, so the cluster's stores land alike.
@@ -1520,16 +1744,16 @@ __global__ void __launch_bounds__(kThreads, 1) npair_grad_tc_kernel(
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const bool f32 = label_f32 != 0;
-  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
+  const int t = threadIdx.x, wg = t >> 7, lw = (t >> 5) & 3, ln = t & 31;
   const int own_rows = pm ? m : n;
   const int other_rows = pm ? n : m;
-  const float* own_op = pm ? pool : feats;
-  const float* xop = pm ? feats : pool;  // fp32, for the sims
+  const __nv_bfloat16* own16 = pm ? pool16 : feats16;  // for the sims
+  const __nv_bfloat16* x16 = pm ? feats16 : pool16;  // the product's rows
   const int o0 = blockIdx.y * kBT;
   const int sr0 = o0 + rank * kRs;  // the weight rows this block builds
   const float scale_g = __fdiv_rn(g[0], static_cast<float>(n));
   const int x_tiles = (other_rows + kBT - 1) / kBT;
-  const int nk = (d + kBK - 1) / kBK;
+  const int nk = (ld16 + kK16 - 1) / kK16;  // recompute: sim slices a tile
   const int passes = ((d + kBT - 1) / kBT + kS - 1) / kS;
   const int tiles = passes * x_tiles;      // other tiles over all passes
   const int n_a = kCached ? 1 : nk;        // weight-source slots a tile
@@ -1588,9 +1812,10 @@ __global__ void __launch_bounds__(kThreads, 1) npair_grad_tc_kernel(
           }
         }
       } else {
-        load_operand_slice<kRs>(buf, own_op, own_rows, sr0, d, s * kBK);
-        load_operand_slice<kBT>(buf + kRs * kBK, xop, other_rows, x0, d,
-                                s * kBK);
+        __nv_bfloat16* b16 = reinterpret_cast<__nv_bfloat16*>(buf);
+        load_rows16_slice<kRs>(b16, own16, own_rows, sr0, ld16, s * kK16);
+        load_rows16_slice<kBT>(b16 + kRs * kK16, x16, other_rows, x0, ld16,
+                               s * kK16);
       }
     }
     cp_async_commit();
@@ -1712,48 +1937,70 @@ __global__ void __launch_bounds__(kThreads, 1) npair_grad_tc_kernel(
     const int x0 = (tc % x_tiles) * kBT;
     xl = xlab + (tc & 1) * kBT;
     xq = xterms + (tc & 1) * 5 * kBT;
+    const float* cs;  // the share's sims: [own row][other row], kWStride
     if constexpr (kCached) {
       cp_async_wait_ring();
       __syncthreads();  // the cache share is in
       issue_w(wi + kStages - 1);
-      const float* cs = ring + (wi % kStages) * kStage;
+      cs = ring + (wi % kStages) * kStage;
       ++wi;
       next_terms(cs + kSrc, (tc + 1) & 1);
-#pragma unroll
-      for (int e = 0; e < kQuads; ++e) {
-        // A warp takes the 128 columns of one row, 4 a thread.
-        const int idx = t + e * kThreads, r = idx / (kBT / 4);
-        const int c = 4 * (idx % (kBT / 4));
-        const float4 v = *reinterpret_cast<const float4*>(cs + r * kWStride +
-                                                          c);
-        push4(tc & 1, r, c, weights4(r, c, x0, v));
-      }
     } else {
-      float sacc[kMA][8];
+      // The share's sims on the tensor cores (sim_slice_tc: A the query
+      // rows, B the pool rows).  gq: warp group 0 multiplies the kRs own
+      // (query) rows, padded to its 64 by the slot's next rows, whose sims
+      // are not read, by the 128 other rows; gdb: each warp group 64 of
+      // the other (query) rows by the kRs own (pool) rows, padded to 128
+      // likewise.  The main product of the last tile may still run: a
+      // wait here waits for it too.
+      static_assert(kRs * kWStride <= kSrc, "the share fits its slot");
+      const bool mine = pm || wg == 0;
+      float sacc[64];
 #pragma unroll
-      for (int a = 0; a < kMA; ++a)
-#pragma unroll
-        for (int b = 0; b < 8; ++b) sacc[a][b] = 0.f;
+      for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
       for (int s = 0; s < nk; ++s, ++wi) {
         cp_async_wait_ring();
-        __syncthreads();
+        __syncthreads();  // slice s is in; slice s - 1's slot is free
         issue_w(wi + kStages - 1);
         const float* buf = ring + (wi % kStages) * kStage;
         if (s == 0) next_terms(buf + kSrc, (tc + 1) & 1);
-        sim_slice<kMA>(buf, buf + kRs * kBK, ty, tx, sacc);
-      }
-#pragma unroll
-      for (int a = 0; a < kMA; ++a) {
-        const int r = arow<kMA>(ty, a);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int c = h * 64 + tx * 4;
-          push4(tc & 1, r, c,
-                weights4(r, c, x0,
-                         make_float4(sacc[a][4 * h], sacc[a][4 * h + 1],
-                                     sacc[a][4 * h + 2], sacc[a][4 * h + 3])));
+        if (mine) {
+          fence_to_wgmma();
+          const unsigned own = smem_u32(buf), oth = own + kRs * 128;
+          sim_slice_tc(sacc, pm ? oth + wg * 64 * 128 : own, pm ? own : oth,
+                       s == 0);
+          wgmma_wait_all();
         }
       }
+      // Then canonicalised into the last slot as a cached share lands.
+      float* share = ring + ((wi - 1) % kStages) * kStage;
+      if (mine) pin(sacc);
+      __syncthreads();  // every warp group's product is done with the slot
+      if (mine) {
+        const int fr = wg * 64 + lw * 16 + (ln >> 2);
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int row = fr + 8 * h, col = 8 * j + 2 * (ln & 3) + e;
+              if (pm ? col < kRs : row < kRs)
+                share[pm ? col * kWStride + row : row * kWStride + col] =
+                    canon0(sacc[4 * j + 2 * h + e]);
+            }
+      }
+      __syncthreads();  // the share is in
+      cs = share;
+    }
+#pragma unroll
+    for (int e = 0; e < kQuads; ++e) {
+      // A warp takes the 128 columns of one row, 4 a thread.
+      const int idx = t + e * kThreads, r = idx / (kBT / 4);
+      const int c = 4 * (idx % (kBT / 4));
+      const float4 v = *reinterpret_cast<const float4*>(cs + r * kWStride +
+                                                        c);
+      push4(tc & 1, r, c, weights4(r, c, x0, v));
     }
   };
   // Tile tc's X copies are older than the weight slots issued since; the
@@ -1772,7 +2019,6 @@ __global__ void __launch_bounds__(kThreads, 1) npair_grad_tc_kernel(
   // in flight is read by nothing but the next product until the wait: so
   // the loop over a pass's tiles issues one unconditionally, and ptxas
   // needs no wait of its own.
-  const int wg = t >> 7, lw = (t >> 5) & 3, ln = t & 31;
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
@@ -1881,18 +2127,25 @@ cudaError_t launch_cluster(K kernel, dim3 grid, int cluster_x, size_t smem,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// feats16 non-null: the bf16 mode on the tensor cores.
 int launch_stats(const float* feats, const void* labels, const float* pool,
                  const void* pool_labels, int label_f32, int n, int m, int d,
                  int self_offset, float* min_w, float* max_b, float* max_a,
                  int* cnt_s, int* cnt_d, int* hist_s, int* hist_d,
-                 float* topk, int k, float* sims_out, cudaStream_t s) {
+                 float* topk, int k, float* sims_out,
+                 const __nv_bfloat16* feats16, const __nv_bfloat16* pool16,
+                 int ld16, cudaStream_t s) {
   const int splits = pool_splits(n, m, 1);
-  const size_t smem = sizeof(float) * stats_smem_floats(k);
+  const bool tc = feats16 != nullptr;
+  const size_t smem =
+      sizeof(float) * stats_smem_floats(k) + (tc ? kAlignSlack : 0);
   return static_cast<int>(launch_cluster(
-      npair_stats_kernel, dim3(splits, tiles128(n)), splits, smem, s, feats,
+      tc ? npair_stats_kernel<true> : npair_stats_kernel<false>,
+      dim3(splits, tiles128(n)), splits, smem, s, feats,
       static_cast<const int*>(labels), pool,
       static_cast<const int*>(pool_labels), label_f32, n, m, d, self_offset,
-      min_w, max_b, max_a, cnt_s, cnt_d, hist_s, hist_d, topk, k, sims_out));
+      min_w, max_b, max_a, cnt_s, cnt_d, hist_s, hist_d, topk, k, sims_out,
+      feats16, pool16, ld16));
 }
 
 // The cached variants copy 16 bytes at a time where the cache's rows are
@@ -1901,22 +2154,28 @@ inline int vec_rows(const float* sims, int m) {
   return m % 4 == 0 && reinterpret_cast<uintptr_t>(sims) % 16 == 0;
 }
 
+// The recompute variants (sims null) in the bf16 mode (feats16 non-null)
+// run on the tensor cores; the cached variants read only the cache.
 template <typename L>
 int launch_hist(const float* feats, const int* labels, const float* pool,
                 const int* pool_labels, const float* sims, int n, int m,
                 int d, int self_offset, int sides, int same0, int same1,
                 const unsigned* prefix0, const unsigned* prefix1, int digit,
                 const unsigned char* skip, int* out0, int* out1,
-                cudaStream_t s) {
+                const __nv_bfloat16* feats16, const __nv_bfloat16* pool16,
+                int ld16, cudaStream_t s) {
   const int splits = pool_splits(n, m, 2);
   const dim3 grid(splits, tiles128(n));
-  const bool cached = sims != nullptr;
+  const bool cached = sims != nullptr, tc = !cached && feats16 != nullptr;
   return static_cast<int>(launch_cluster(
-      cached ? npair_hist_kernel<true, L> : npair_hist_kernel<false, L>,
-      grid, splits, hist_smem_bytes(cached), s, feats, labels, pool,
-      pool_labels, sims, cached ? vec_rows(sims, m) : 0, n, m, d,
-      self_offset, sides, same0, same1, prefix0, prefix1, digit, skip, out0,
-      out1));
+      cached ? npair_hist_kernel<true, L>
+      : tc   ? npair_hist_kernel<false, L, true>
+             : npair_hist_kernel<false, L>,
+      grid, splits, hist_smem_bytes(cached) + (tc ? kAlignSlack : 0), s,
+      feats, labels, pool, pool_labels, sims,
+      cached ? vec_rows(sims, m) : 0, n, m, d, self_offset, sides, same0,
+      same1, prefix0, prefix1, digit, skip, out0, out1, feats16, pool16,
+      ld16));
 }
 
 template <typename L>
@@ -1925,16 +2184,20 @@ int launch_loss(const float* feats, const int* labels, const float* pool,
                 int d, int self_offset, int ap, int an, float mi, float md,
                 const float* pos_thr, const float* neg_thr,
                 const float* max_all, float* isum, float* dsum, float* inum,
-                float* dnum, cudaStream_t s) {
+                float* dnum, const __nv_bfloat16* feats16,
+                const __nv_bfloat16* pool16, int ld16, cudaStream_t s) {
   const int splits = pool_splits(n, m, 2);
   const dim3 grid(splits, tiles128(n));
-  const bool cached = sims != nullptr;
+  const bool cached = sims != nullptr, tc = !cached && feats16 != nullptr;
   return static_cast<int>(launch_cluster(
-      cached ? npair_loss_kernel<true, L> : npair_loss_kernel<false, L>,
-      grid, splits, loss_smem_bytes(cached), s, feats, labels, pool,
-      pool_labels, sims, cached ? vec_rows(sims, m) : 0, n, m, d,
-      self_offset, ap, an, mi, md, pos_thr, neg_thr, max_all, isum, dsum,
-      inum, dnum));
+      cached ? npair_loss_kernel<true, L>
+      : tc   ? npair_loss_kernel<false, L, true>
+             : npair_loss_kernel<false, L>,
+      grid, splits, loss_smem_bytes(cached) + (tc ? kAlignSlack : 0), s,
+      feats, labels, pool, pool_labels, sims,
+      cached ? vec_rows(sims, m) : 0, n, m, d, self_offset, ap, an, mi, md,
+      pos_thr, neg_thr, max_all, isum, dsum, inum, dnum, feats16, pool16,
+      ld16));
 }
 
 // The cluster of D-chunks: ceil(D / 128) rounded up to 4 or 8.  For D <=
@@ -1950,16 +2213,17 @@ int launch_grad_s(const float* feats, const int* labels, const float* pool,
                   int ap, int an, float mi, float md, const float* pos_thr,
                   const float* neg_thr, const float* max_all,
                   const float* isum, const float* asum, const float* valid,
-                  const float* g, const __nv_bfloat16* x16, int ld16,
-                  float* out, cudaStream_t s) {
+                  const float* g, const __nv_bfloat16* feats16,
+                  const __nv_bfloat16* pool16, int ld16, float* out,
+                  cudaStream_t s) {
   const dim3 grid(kS, tiles128(pool_major ? m : n));
-  if (x16 != nullptr)
+  if (feats16 != nullptr)
     return static_cast<int>(launch_cluster(
         npair_grad_tc_kernel<kCached, kS>, grid, kS,
         grad_tc_smem_bytes<kCached, kS>(), s, feats, labels, pool,
         pool_labels, label_f32, pool_major, sims, n, m, d, self_offset, ap,
-        an, mi, md, pos_thr, neg_thr, max_all, isum, asum, valid, g, x16,
-        ld16, sims != nullptr ? vec_rows(sims, m) : 0, out));
+        an, mi, md, pos_thr, neg_thr, max_all, isum, asum, valid, g, feats16,
+        pool16, ld16, sims != nullptr ? vec_rows(sims, m) : 0, out));
   return static_cast<int>(launch_cluster(
       npair_grad_kernel<kCached, kS>, grid, kS,
       grad_smem_bytes<kCached, kS>(),
@@ -1975,16 +2239,29 @@ int launch_grad(const float* feats, const int* labels, const float* pool,
                 int ap, int an, float mi, float md, const float* pos_thr,
                 const float* neg_thr, const float* max_all,
                 const float* isum, const float* asum, const float* valid,
-                const float* g, const __nv_bfloat16* x16, int ld16,
-                float* out, cudaStream_t s) {
+                const float* g, const __nv_bfloat16* feats16,
+                const __nv_bfloat16* pool16, int ld16, float* out,
+                cudaStream_t s) {
 #define NPL_GRAD_S(S)                                                       \
   return launch_grad_s<kCached, S>(                                         \
       feats, labels, pool, pool_labels, label_f32, pool_major, sims, n, m,  \
       d, self_offset, ap, an, mi, md, pos_thr, neg_thr, max_all, isum, asum, \
-      valid, g, x16, ld16, out, s)
+      valid, g, feats16, pool16, ld16, out, s)
   if (grad_cluster(d) == 4) NPL_GRAD_S(4);
   NPL_GRAD_S(8);
 #undef NPL_GRAD_S
+}
+
+// Checks the bf16 mode's rows: both or neither of feats16 and pool16;
+// ld16 % 8 == 0, ld16 >= d, both 16-byte aligned.
+inline bool bad_rows16(const void* feats16, const void* pool16, int ld16,
+                       int d) {
+  auto off16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  if ((feats16 == nullptr) != (pool16 == nullptr)) return true;
+  return feats16 != nullptr &&
+         (ld16 % 8 != 0 || ld16 < d || off16(feats16) || off16(pool16));
 }
 
 }  // namespace
@@ -1994,8 +2271,14 @@ int launch_grad(const float* feats, const int* labels, const float* pool,
 // Every pointer is device memory; labels are int32 (label_f32 = 0) or
 // float32 (1); a null `sims` selects the recompute variant, a non-null
 // one the cached variant.  Every variant that reads feats and pool needs
-// D % 4 == 0 and 16-byte aligned rows (the wrappers pad).  Entries
-// return the cudaError_t of their launch.
+// D % 4 == 0 and 16-byte aligned rows (the wrappers pad).  feats16 and
+// pool16 null: the fp32 mode.  Else the bf16 mode on the tensor cores:
+// feats and pool come rounded (npl_round_bf16), and feats16 / pool16 hold
+// the same rows as bf16, [rows][ld16], ld16 % 8 == 0, ld16 >= d, zero past
+// d, 16-byte aligned; every sim is then the tensor cores' sum of their
+// products (stats; the recompute hist, loss, gq and gdb), and gq/gdb
+// multiply their weight tile by pool16 / feats16.  Entries return the
+// cudaError_t of their launch.
 
 extern "C" {
 
@@ -2004,18 +2287,20 @@ int npl_npair_stats(const void* feats, const void* labels, const void* pool,
                     int self_offset, int label_f32, void* min_w, void* max_b,
                     void* max_a, void* cnt_s, void* cnt_d, void* hist_s,
                     void* hist_d, void* topk, int k, void* sims_out,
+                    const void* feats16, const void* pool16, int ld16,
                     void* stream) {
   if (bad_dims(n, m, d) || d % 4 != 0 || k < 0 || k > kMaxTopK ||
-      (k > 0) != (topk != nullptr))
+      (k > 0) != (topk != nullptr) || bad_rows16(feats16, pool16, ld16, d))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fo = [](void* p) { return static_cast<float*>(p); };
   auto io = [](void* p) { return static_cast<int*>(p); };
+  auto b = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
   return launch_stats(f(feats), labels, f(pool), pool_labels, label_f32, n,
                       m, d, self_offset, fo(min_w), fo(max_b), fo(max_a),
                       io(cnt_s), io(cnt_d), io(hist_s), io(hist_d), fo(topk),
-                      k, fo(sims_out), s);
+                      k, fo(sims_out), b(feats16), b(pool16), ld16, s);
 }
 
 int npl_npair_hist(const void* feats, const void* labels, const void* pool,
@@ -2023,9 +2308,11 @@ int npl_npair_hist(const void* feats, const void* labels, const void* pool,
                    int d, int self_offset, int label_f32, int sides,
                    int same0, int same1, const void* prefix0,
                    const void* prefix1, int digit, const void* skip,
-                   void* out0, void* out1, void* stream) {
+                   void* out0, void* out1, const void* feats16,
+                   const void* pool16, int ld16, void* stream) {
   if (bad_dims(n, m, d) || sides < 1 || sides > 2 || digit < 1 ||
-      digit > 7 || (sims == nullptr && d % 4 != 0))
+      digit > 7 || (sims == nullptr && d % 4 != 0) ||
+      bad_rows16(feats16, pool16, ld16, d))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* f = static_cast<const float*>(feats);
@@ -2038,11 +2325,15 @@ int npl_npair_hist(const void* feats, const void* labels, const void* pool,
   const unsigned char* sk = static_cast<const unsigned char*>(skip);
   int* o0 = static_cast<int*>(out0);
   int* o1 = static_cast<int*>(out1);
+  const auto* f16 = static_cast<const __nv_bfloat16*>(feats16);
+  const auto* p16 = static_cast<const __nv_bfloat16*>(pool16);
   if (label_f32)
     return launch_hist<float>(f, l, p, pl, c, n, m, d, self_offset, sides,
-                              same0, same1, p0, p1, digit, sk, o0, o1, s);
+                              same0, same1, p0, p1, digit, sk, o0, o1, f16,
+                              p16, ld16, s);
   return launch_hist<int>(f, l, p, pl, c, n, m, d, self_offset, sides, same0,
-                          same1, p0, p1, digit, sk, o0, o1, s);
+                          same1, p0, p1, digit, sk, o0, o1, f16, p16, ld16,
+                          s);
 }
 
 int npl_npair_loss(const void* feats, const void* labels, const void* pool,
@@ -2050,51 +2341,50 @@ int npl_npair_loss(const void* feats, const void* labels, const void* pool,
                    int d, int self_offset, int label_f32, int ap, int an,
                    float margin_ident, float margin_diff, const void* pos_thr,
                    const void* neg_thr, const void* max_all, void* isum,
-                   void* dsum, void* inum, void* dnum, void* stream) {
-  if (bad_dims(n, m, d) || (sims == nullptr && d % 4 != 0))
+                   void* dsum, void* inum, void* dnum, const void* feats16,
+                   const void* pool16, int ld16, void* stream) {
+  if (bad_dims(n, m, d) || (sims == nullptr && d % 4 != 0) ||
+      bad_rows16(feats16, pool16, ld16, d))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fo = [](void* p) { return static_cast<float*>(p); };
   auto li = [](const void* p) { return static_cast<const int*>(p); };
+  auto b = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
 #define NPL_LOSS(L)                                                          \
   return launch_loss<L>(f(feats), li(labels), f(pool), li(pool_labels),      \
                         f(sims), n, m, d, self_offset, ap, an, margin_ident, \
                         margin_diff, f(pos_thr), f(neg_thr), f(max_all),     \
-                        fo(isum), fo(dsum), fo(inum), fo(dnum), s)
+                        fo(isum), fo(dsum), fo(inum), fo(dnum), b(feats16),  \
+                        b(pool16), ld16, s)
   if (label_f32) NPL_LOSS(float);
   NPL_LOSS(int);
 #undef NPL_LOSS
 }
 
 // pool_major = 0: gq [n, d] = w @ pool; 1: gdb [m, d] = w^T @ feats.
-// x16 null: the fp32 mode.  Else the bf16 mode on tensor cores: feats and
-// pool come rounded, and x16 holds the product's rows (pool for gq,
-// feats for gdb) as bf16, [rows][ld16], ld16 % 8 == 0, ld16 >= d, zero
-// past d, 16-byte aligned.
 int npl_npair_grad(const void* feats, const void* labels, const void* pool,
                    const void* pool_labels, const void* sims, int n, int m,
                    int d, int self_offset, int label_f32, int ap, int an,
                    float margin_ident, float margin_diff, const void* pos_thr,
                    const void* neg_thr, const void* max_all, const void* isum,
                    const void* asum, const void* valid, const void* g,
-                   int pool_major, void* out, const void* x16, int ld16,
-                   void* stream) {
+                   int pool_major, void* out, const void* feats16,
+                   const void* pool16, int ld16, void* stream) {
   if (bad_dims(n, m, d) || d % 4 != 0 ||
-      (x16 != nullptr && (ld16 % 8 != 0 || ld16 < d ||
-                          reinterpret_cast<uintptr_t>(x16) % 16 != 0)))
+      bad_rows16(feats16, pool16, ld16, d))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto li = [](const void* p) { return static_cast<const int*>(p); };
-  const auto* b = static_cast<const __nv_bfloat16*>(x16);
+  auto b = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
   float* o = static_cast<float*>(out);
 #define NPL_GRAD(C)                                                          \
   return launch_grad<C>(f(feats), li(labels), f(pool), li(pool_labels),      \
                         label_f32, pool_major, f(sims), n, m, d, self_offset, \
                         ap, an, margin_ident, margin_diff, f(pos_thr),       \
                         f(neg_thr), f(max_all), f(isum), f(asum), f(valid),  \
-                        f(g), b, ld16, o, s)
+                        f(g), b(feats16), b(pool16), ld16, o, s)
   if (sims != nullptr) NPL_GRAD(true);
   NPL_GRAD(false);
 #undef NPL_GRAD

@@ -65,21 +65,27 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _VP],
     "npl_ivf_probe": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                       _I, _I, _I, _I, _I, _I, _VP],
+    # The blockwise entries end in feats16, pool16, ld16 (the bf16 mode's
+    # rows; null in the fp32 mode), stream.
     # feats, labels, pool, pool_labels, n, m, d, self_offset, label_f32,
     # min_w, max_b, max_a, cnt_s, cnt_d, hist_s, hist_d, topk, k, sims,
-    # stream
-    "npl_npair_stats": [_VP] * 4 + [_I] * 5 + [_VP] * 8 + [_I, _VP, _VP],
+    # feats16, pool16, ld16, stream
+    "npl_npair_stats": [_VP] * 4 + [_I] * 5 + [_VP] * 8 + [_I, _VP]
+                       + [_VP, _VP, _I, _VP],
     # ..., sims, n, m, d, self_offset, label_f32, sides, same0, same1,
-    # prefix0, prefix1, digit, skip, out0, out1, stream
-    "npl_npair_hist": [_VP] * 5 + [_I] * 8 + [_VP, _VP, _I] + [_VP] * 4,
+    # prefix0, prefix1, digit, skip, out0, out1, feats16, pool16, ld16,
+    # stream
+    "npl_npair_hist": [_VP] * 5 + [_I] * 8 + [_VP, _VP, _I] + [_VP] * 3
+                      + [_VP, _VP, _I, _VP],
     # ..., sims, n, m, d, self_offset, label_f32, ap, an, margin_ident,
     # margin_diff, pos_thr, neg_thr, max_all, isum, dsum, inum, dnum,
-    # stream
-    "npl_npair_loss": [_VP] * 5 + [_I] * 7 + [_F, _F] + [_VP] * 8,
+    # feats16, pool16, ld16, stream
+    "npl_npair_loss": [_VP] * 5 + [_I] * 7 + [_F, _F] + [_VP] * 7
+                      + [_VP, _VP, _I, _VP],
     # ..., margin_diff, pos_thr, neg_thr, max_all, isum, asum, valid, g,
-    # pool_major, out, x16, ld16, stream
+    # pool_major, out, feats16, pool16, ld16, stream
     "npl_npair_grad": [_VP] * 5 + [_I] * 7 + [_F, _F] + [_VP] * 7
-                      + [_I, _VP, _VP, _I, _VP],
+                      + [_I, _VP] + [_VP, _VP, _I, _VP],
     # src, dst, dst16, rows, d, ld16, stream
     "npl_round_bf16": [_VP, _VP, _VP, _LL, _I, _I, _VP],
 }

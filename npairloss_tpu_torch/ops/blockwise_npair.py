@@ -33,17 +33,19 @@ mode: every product reads feats and pool rounded to bf16 (round to
 nearest even) and accumulates in fp32, and gq/gdb round their weight
 tile too.  The engine rounds the features once per loss
 (``round_bf16``, one launch on the card, which also writes the rows as
-bf16) and hands the rounded rows to every sweep; on the card stats,
-hist and loss then run as in the fp32 mode (a product of two bf16
-values is exact in fp32) and gq/gdb multiply their bf16 weight tile by
-the bf16 rows on the tensor cores (``rows16``, which the caller passes
-in that mode on the card; the tensor cores sum each
-16-deep block of products before the fp32 accumulator takes it, so the
-card's gq/gdb differ from the plain sweeps' order by fp32 rounding).
-The plain sweeps round what they are given
-with ``.to(torch.bfloat16).float()``, which leaves rounded rows as they
-are.  ``None``/``"highest"`` is full fp32.  Each wrapper counts its
-launches in the bf16 mode apart (``bf16_launches``).
+bf16) and hands the rounded rows to every sweep and their bf16 copy as
+``rows16`` (which every wrapper that multiplies rows takes in that mode
+on the card).  On the card every sim of that mode is the tensor cores'
+sum of the bf16 rows' products (stats, the recompute hist and loss
+sweeps, and the recompute gq/gdb alike, so cache on = off bit for bit),
+and gq/gdb multiply their bf16 weight tile by the bf16 rows there too;
+the tensor cores sum each 16-deep block of products before the fp32
+accumulator takes it, so the card's sims and gradients differ from the
+plain sweeps' order by fp32 rounding.  The plain sweeps round what they
+are given with ``.to(torch.bfloat16).float()``, which leaves rounded
+rows as they are, and read no ``rows16``.  ``None``/``"highest"`` is
+full fp32.  Each wrapper counts its launches in the bf16 mode apart
+(``bf16_launches``).
 
 Around them: the thresholds (absolute from the stats; RELATIVE_* by
 radix selection, with the ``pos_topk`` fast path whose overflow fallback
@@ -203,11 +205,12 @@ def _operands_in(matmul_precision, feats, pool):
 def stats_plain(feats, labels, pool, pool_labels, self_offset=0,
                 hist_same=False, hist_diff=False, topk=0, emit_sims=False,
                 bn=512, bm=512, sims=None, splits=1,
-                matmul_precision=None) -> Stats:
+                matmul_precision=None, rows16=None) -> Stats:
     """The stats sweep in plain PyTorch.  ``sims`` (an [N, M] matrix)
     replaces the recomputed tiles — chip_smoke feeds the kernel's own
     emitted sims here.  ``matmul_precision="default"``: the products
-    read bf16-rounded feats and pool.
+    read bf16-rounded feats and pool.  ``rows16`` is taken as the wrapper
+    takes it and not read: the rounded fp32 rows hold the same values.
 
     ``splits``: sweep the pool axis as that many contiguous ranges, each
     from fresh running values, and combine the per-range partials in
@@ -240,9 +243,10 @@ def stats_plain(feats, labels, pool, pool_labels, self_offset=0,
 def hist_plain(feats, labels, pool, pool_labels, sides: Sequence[bool],
                prefixes: Sequence[torch.Tensor], digit: int, self_offset=0,
                sims=None, skip=None, bn=512, bm=512,
-               matmul_precision=None) -> List[torch.Tensor]:
+               matmul_precision=None, rows16=None) -> List[torch.Tensor]:
     """One digit's prefix-matched histogram per side (``True`` = the
-    same-label population) in plain PyTorch; all zeros when ``skip``."""
+    same-label population) in plain PyTorch; all zeros when ``skip``;
+    ``rows16`` not read (as in ``stats_plain``)."""
     feats, pool = _operands_in(matmul_precision, feats, pool)
     n, m = feats.shape[0], pool.shape[0]
     outs = [torch.zeros((n, RADIX_BINS), dtype=torch.int32,
@@ -313,14 +317,15 @@ def chain_sums(vals: torch.Tensor, splits: int = 1,
 def loss_plain(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
                cfg: NPairLossConfig, self_offset=0, sims=None, bn=512,
                splits=1, tile=KERNEL_TILE, matmul_precision=None,
-               bm=512) -> Tuple[torch.Tensor, ...]:
+               bm=512, rows16=None) -> Tuple[torch.Tensor, ...]:
     """(I sum, D sum, selected positives, selected negatives) per query
     in plain PyTorch, ``bn`` queries at a time against the whole pool
     (recomputed sims from the (``bn``, ``bm``) tile products the other
     sweeps make, so they are the cache's bits).
     The I/D sums follow the kernel's order (``chain_sums`` at its
     ``splits``; ``tile`` other than the kernel's for small tests); the
-    counts are exact in any order."""
+    counts are exact in any order; ``rows16`` not read (as in
+    ``stats_plain``)."""
     feats, pool = _operands_in(matmul_precision, feats, pool)
     n, m = feats.shape[0], pool.shape[0]
     dev = feats.device
@@ -475,13 +480,40 @@ def _operands(feats, pool, sims):
     return _rows16(feats, pool)
 
 
+def _bf16_rows(what, rows16, feats, pool, name="feats"):
+    """The one tensor of bf16 rows a bf16-mode launch on the card reads,
+    ``round_bf16(feats)[1]`` with feats being pool (the engine's case):
+    the C entries take it as both operands' rows.  Missing or misshapen
+    rows, or a pool that is not feats, raise: nothing falls back."""
+    if rows16 is None:
+        raise ValueError(f"{what}: the bf16 mode on the card multiplies "
+                         f"bf16 rows: pass rows16=round_bf16({name})[1]")
+    if pool is not feats:
+        raise ValueError(f"{what}: the bf16 mode on the card reads one "
+                         "tensor of bf16 rows for feats and pool: pool "
+                         "must be feats")
+    _check_rows16(what, rows16, feats)
+    return rows16
+
+
+def _rows16_args(rows16) -> Tuple:
+    """The C entries' (feats16, pool16, ld16) arguments: one tensor's
+    rows serve both operands."""
+    if rows16 is None:
+        return None, None, 0
+    return rows16.data_ptr(), rows16.data_ptr(), int(rows16.shape[1])
+
+
 @counted
 def npair_stats(feats, labels, pool, pool_labels, *, self_offset=0,
                 hist_same=False, hist_diff=False, topk=0,
-                emit_sims=False, matmul_precision=None) -> Stats:
+                emit_sims=False, matmul_precision=None,
+                rows16=None) -> Stats:
     """The stats sweep (one launch).  In the bf16 mode the card's kernel
     reads feats and pool as given: pass them rounded (``round_bf16``),
-    as the engine does."""
+    as the engine does, with ``rows16`` their bf16 rows
+    (``round_bf16(feats)[1]``, pool being feats), from which the tensor
+    cores sum its sims; the CPU's plain sweep does not read it."""
     bf16 = resolve_matmul_precision(matmul_precision)
     if not 0 <= topk <= MAX_TOPK:
         raise ValueError(f"npair_stats: {topk} top-k slots exceed the "
@@ -490,6 +522,17 @@ def npair_stats(feats, labels, pool, pool_labels, *, self_offset=0,
         return stats_plain(feats, labels, pool, pool_labels, self_offset,
                            hist_same, hist_diff, topk, emit_sims,
                            matmul_precision=matmul_precision)
+    out = _launch_stats(feats, labels, pool, pool_labels, self_offset,
+                        hist_same, hist_diff, topk, emit_sims, bf16, rows16)
+    _count(npair_stats, bf16)
+    return out
+
+
+def _launch_stats(feats, labels, pool, pool_labels, self_offset, hist_same,
+                  hist_diff, topk, emit_sims, bf16, rows16) -> Stats:
+    """npair_stats' CUDA route: checks, then one launch."""
+    rows16 = _bf16_rows("npair_stats", rows16, feats, pool) if bf16 \
+        else None
     lf = _cuda_operands("npair_stats", feats, labels, pool, pool_labels)
     n, m = feats.shape[0], pool.shape[0]
     feats, pool, d = _rows16(feats, pool)
@@ -507,25 +550,44 @@ def npair_stats(feats, labels, pool, pool_labels, *, self_offset=0,
         feats.data_ptr(), labels.data_ptr(), pool.data_ptr(),
         pool_labels.data_ptr(), n, m, d, int(self_offset), lf,
         *(_ptr(t) for t in out[:8]), int(topk), _ptr(out.sims),
-        stream_ptr(feats.device))
+        *_rows16_args(rows16), stream_ptr(feats.device))
     check(err, "npair_stats")
-    _count(npair_stats, bf16)
     return out
+
+
+def _sweep_rows16(what, bf16, rows16, sims, feats, pool):
+    """The bf16 rows of a hist or loss launch: the recompute variant's
+    in the bf16 mode (checked), none for the cached variants, which read
+    only the cache, or in the fp32 mode."""
+    if not bf16 or sims is not None:
+        return None
+    return _bf16_rows(what, rows16, feats, pool)
 
 
 @counted
 def npair_hist(feats, labels, pool, pool_labels, sides: Sequence[bool],
                prefixes: Sequence[torch.Tensor], digit: int, *,
                self_offset=0, sims=None, skip=None,
-               matmul_precision=None) -> List[torch.Tensor]:
+               matmul_precision=None, rows16=None) -> List[torch.Tensor]:
     """One radix digit's histograms for one or two sides (one launch);
     ``skip`` (a bool tensor on the device) makes it return zeros.  The
-    bf16 mode's operands as ``npair_stats`` takes them."""
+    bf16 mode's operands as ``npair_stats`` takes them (``rows16`` read
+    by the recompute variant only)."""
     bf16 = resolve_matmul_precision(matmul_precision)
     if feats.device.type == "cpu":
         return hist_plain(feats, labels, pool, pool_labels, sides, prefixes,
                           digit, self_offset, sims, skip,
                           matmul_precision=matmul_precision)
+    outs = _launch_hist(feats, labels, pool, pool_labels, sides, prefixes,
+                        digit, self_offset, sims, skip, bf16, rows16)
+    _count(npair_hist, bf16)
+    return outs
+
+
+def _launch_hist(feats, labels, pool, pool_labels, sides, prefixes, digit,
+                 self_offset, sims, skip, bf16, rows16) -> List[torch.Tensor]:
+    """npair_hist's CUDA route: checks, then one launch."""
+    rows16 = _sweep_rows16("npair_hist", bf16, rows16, sims, feats, pool)
     lf = _cuda_operands("npair_hist", feats, labels, pool, pool_labels,
                         *(() if sims is None else (sims,)))
     if len(sides) not in (1, 2) or len(prefixes) != len(sides):
@@ -545,24 +607,35 @@ def npair_hist(feats, labels, pool, pool_labels, sides: Sequence[bool],
         len(sides), int(sides[0]), int(two and sides[1]), pre[0].data_ptr(),
         pre[1].data_ptr() if two else None, int(digit), _ptr(sk),
         outs[0].data_ptr(), outs[1].data_ptr() if two else None,
-        stream_ptr(feats.device))
+        *_rows16_args(rows16), stream_ptr(feats.device))
     check(err, "npair_hist")
-    _count(npair_hist, bf16)
     return outs
 
 
 @counted
 def npair_loss(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
                cfg: NPairLossConfig, *, self_offset=0, sims=None,
-               matmul_precision=None) -> Tuple[torch.Tensor, ...]:
+               matmul_precision=None,
+               rows16=None) -> Tuple[torch.Tensor, ...]:
     """The loss sweep (one launch): (I sum, D sum, selected positives,
     selected negatives) per query.  The bf16 mode's operands as
-    ``npair_stats`` takes them."""
+    ``npair_hist`` takes them."""
     bf16 = resolve_matmul_precision(matmul_precision)
     if feats.device.type == "cpu":
         return loss_plain(feats, labels, pool, pool_labels, pos_thr,
                           neg_thr, max_all, cfg, self_offset, sims,
                           matmul_precision=matmul_precision)
+    outs = _launch_loss(feats, labels, pool, pool_labels, pos_thr, neg_thr,
+                        max_all, cfg, self_offset, sims, bf16, rows16)
+    _count(npair_loss, bf16)
+    return outs
+
+
+def _launch_loss(feats, labels, pool, pool_labels, pos_thr, neg_thr,
+                 max_all, cfg, self_offset, sims, bf16,
+                 rows16) -> Tuple[torch.Tensor, ...]:
+    """npair_loss' CUDA route: checks, then one launch."""
+    rows16 = _sweep_rows16("npair_loss", bf16, rows16, sims, feats, pool)
     vecs = [_vec(v) for v in (pos_thr, neg_thr, max_all)]
     lf = _cuda_operands("npair_loss", feats, labels, pool, pool_labels,
                         *vecs, *(() if sims is None else (sims,)))
@@ -576,9 +649,8 @@ def npair_loss(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
         int(cfg.ap_mining_method), int(cfg.an_mining_method),
         _f32(cfg.margin_ident), _f32(cfg.margin_diff),
         *(v.data_ptr() for v in vecs), *(o.data_ptr() for o in outs),
-        stream_ptr(feats.device))
+        *_rows16_args(rows16), stream_ptr(feats.device))
     check(err, "npair_loss")
-    _count(npair_loss, bf16)
     return tuple(outs)
 
 
@@ -587,25 +659,25 @@ def _check_rows16(what, x16, x) -> None:
     [rows, D'] bf16 on x's device, D' % 8 == 0, D' >= D, 16-byte aligned
     (``round_bf16(x)``'s second result).  Only the form is checked: rows
     of another tensor give a wrong gradient."""
-    if (x16.device != x.device or x16.dtype != torch.bfloat16
+    tensor = isinstance(x16, torch.Tensor)
+    if (not tensor or x16.device != x.device or x16.dtype != torch.bfloat16
             or not x16.is_contiguous() or x16.dim() != 2
             or x16.shape[0] != x.shape[0] or x16.shape[1] % 8
             or x16.shape[1] < x.shape[1] or x16.data_ptr() % 16):
+        got = (f"{x16.dtype} {tuple(x16.shape)} on {x16.device}" if tensor
+               else type(x16).__name__)
         raise ValueError(f"{what}: the bf16 rows must be a contiguous "
                          f"[{x.shape[0]}, D'] bfloat16 tensor on {x.device}, "
-                         f"D' a multiple of 8 >= {x.shape[1]}; got "
-                         f"{x16.dtype} {tuple(x16.shape)} on {x16.device}")
+                         f"D' a multiple of 8 >= {x.shape[1]}; got {got}")
 
 
 def _launch_grad(what, pool_major, feats, labels, pool, pool_labels,
                  pos_thr, neg_thr, max_all, isum, asum, valid, g, cfg,
                  self_offset, sims, bf16, x16):
+    """gq/gdb's CUDA route: checks, then one launch."""
     if bf16:
-        name = "feats" if pool_major else "pool"
-        if x16 is None:
-            raise ValueError(f"{what}: the bf16 mode on the card multiplies "
-                             f"bf16 rows: pass rows16=round_bf16({name})[1]")
-        _check_rows16(what, x16, feats if pool_major else pool)
+        x16 = _bf16_rows(what, x16, feats, pool,
+                         "feats" if pool_major else "pool")
     else:
         x16 = None
     vecs = [_vec(v) for v in (pos_thr, neg_thr, max_all, isum, asum, valid,
@@ -622,8 +694,7 @@ def _launch_grad(what, pool_major, feats, labels, pool, pool_labels,
         int(cfg.ap_mining_method), int(cfg.an_mining_method),
         _f32(cfg.margin_ident), _f32(cfg.margin_diff),
         *(v.data_ptr() for v in vecs), int(pool_major), out.data_ptr(),
-        _ptr(x16), 0 if x16 is None else x16.shape[1],
-        stream_ptr(feats.device))
+        *_rows16_args(x16), stream_ptr(feats.device))
     check(err, what)
     return out if d4 == d else out[:, :d].contiguous()
 
@@ -635,9 +706,10 @@ def npair_gq(feats, labels, pool, pool_labels, pos_thr, neg_thr, max_all,
              rows16=None) -> torch.Tensor:
     """Query-role gradient ``w @ pool`` [N, D] (one launch); in the bf16
     mode w is rounded in the kernel, feats and pool come rounded (as
-    ``npair_stats`` takes them) and ``rows16`` must be
-    ``round_bf16(pool)[1]``, pool's rows as bf16, which the card's kernel
-    multiplies; the CPU's plain sweep does not read it."""
+    ``npair_stats`` takes them, pool being feats) and ``rows16`` must be
+    ``round_bf16(pool)[1]``, the bf16 rows which the card's kernel
+    multiplies (and the recompute variant's sims read); the CPU's plain
+    sweep does not read it."""
     bf16 = resolve_matmul_precision(matmul_precision)
     if feats.device.type == "cpu":
         return grad_plain(feats, labels, pool, pool_labels, pos_thr,
@@ -867,7 +939,7 @@ def _forward(features, labels, cfg: NPairLossConfig, bn: int, bm: int,
              matmul_precision: Optional[str] = None):
     """(loss, aux, residuals) — pallas_npair.py:882-941.  In the bf16
     mode every sweep, the backward's too, reads the features rounded
-    here once."""
+    here once, and their bf16 rows (``rows16``)."""
     feats = features.float().contiguous()
     rows16 = None
     if resolve_matmul_precision(matmul_precision):
@@ -880,10 +952,12 @@ def _forward(features, labels, cfg: NPairLossConfig, bn: int, bm: int,
     st = sw.stats(feats, lab, feats, lab, hist_same=ap_rel, hist_diff=an_rel,
                   # The buffer only pays when AP is the sole relative side.
                   topk=pos_topk if ap_rel and not an_rel else 0,
-                  emit_sims=cache)
-    pos_thr, neg_thr = _thresholds(feats, lab, st, cfg, sw.hist)
+                  emit_sims=cache, rows16=rows16)
+    pos_thr, neg_thr = _thresholds(feats, lab, st, cfg,
+                                   partial(sw.hist, rows16=rows16))
     isum, dsum, inum, dnum = sw.loss(feats, lab, feats, lab, pos_thr,
-                                     neg_thr, st.max_a, cfg, sims=st.sims)
+                                     neg_thr, st.max_a, cfg, sims=st.sims,
+                                     rows16=rows16)
     all_sum = isum + dsum
     valid = (isum != 0) & (all_sum != 0)
     log_q = torch.where(

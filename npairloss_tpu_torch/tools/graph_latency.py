@@ -11,7 +11,11 @@ it between two CUDA events, so no host gap enters the time: the median
 of 15 replays, divided by 20.  The calls are the blockwise training
 step's at this size: the cached variants on REFERENCE_CONFIG thresholds
 of seeded unit features, one hist side, the hist kernel's early
-return, and the bf16 mode's once-per-loss rounding of the features.  Inputs stay in L2 between launches, as they do on the path.
+return, and the bf16 mode's once-per-loss rounding of the features;
+then the bf16 mode's stats, hist and loss (cached and recompute) on the
+rounded features with their bf16 rows (``rows16``, which a tree from
+before the tensor-core sim tile does not take: it is then not passed).
+Inputs stay in L2 between launches, as they do on the path.
 ``--tree`` (default: this checkout) names the checkout whose
 ``npairloss_tpu_torch`` is timed — for example a parent commit unpacked
 with ``git archive`` — so two versions can be compared on one card.
@@ -21,6 +25,7 @@ Prints one JSON line with the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -109,6 +114,26 @@ def main(argv=None) -> int:
         "npair_gdb": lambda: bw.npair_gdb(*gargs, sims=sims),
         "round_bf16": lambda: bw.round_bf16(f),
     }
+    # The bf16 mode on its own forward's sims.
+    _, _, r16 = bw._forward(f, lab, cfg, 512, 512, True, 8, "default")
+    kw = {"matmul_precision": "default"}
+    if "rows16" in inspect.signature(bw.npair_stats).parameters:
+        kw["rows16"] = r16["rows16"]
+    fk, s16 = r16["feats"], r16["sims"]
+    thr16 = (r16["pos_thr"], r16["neg_thr"], r16["max_all"])
+    pre16 = [sortable_key(s16[:, 1]) >> 28]
+    calls.update({
+        "npair_stats_bf16": lambda: bw.npair_stats(
+            fk, lab, fk, lab, hist_same=True, topk=8, emit_sims=True, **kw),
+        "npair_hist_bf16": lambda: bw.npair_hist(
+            fk, lab, fk, lab, [True], pre16, 1, sims=s16, **kw),
+        "npair_hist_bf16_recompute": lambda: bw.npair_hist(
+            fk, lab, fk, lab, [True], pre16, 1, **kw),
+        "npair_loss_bf16": lambda: bw.npair_loss(
+            fk, lab, fk, lab, *thr16, cfg, sims=s16, **kw),
+        "npair_loss_bf16_recompute": lambda: bw.npair_loss(
+            fk, lab, fk, lab, *thr16, cfg, **kw),
+    })
     row = {"card": card, "tree": args.tree, "n": n, "d": d}
     for name, fn in calls.items():
         row[f"{name}_us"] = graph_us(torch, fn)

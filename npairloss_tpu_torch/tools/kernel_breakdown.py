@@ -9,24 +9,27 @@ with one part of the work taken out (a text edit of the source, checked
 to apply once), each into its own library under
 ``build/kernels/variants/``, and with ``--parent DIR`` once more from
 ``DIR/npairloss_tpu_torch/csrc/npair_blockwise.cu`` (a parent commit
-unpacked with ``git archive``; a parent from before the tensor-core
-gq/gdb takes its grad entry's older call), all nvcc processes started
-together.  Then times, per size, every case under every library in
-turn, in one process (builds move by 30-100 % between processes):
-``--precision highest`` (the fp32 mode) ``npair_stats`` (digit-0
-histogram, 8 slots, sims emitted), the cached ``npair_gq``/``npair_gdb``,
-and ``npair_hist`` (digit 1, two sides) and ``npair_loss``, cached and
-recompute; ``--precision default`` (the bf16 mode) ``npair_stats`` and
-``npair_gq``/``npair_gdb`` cached and recompute on ``round_bf16`` rows
-— on REFERENCE_CONFIG thresholds of seeded unit features, beside
-cuBLAS's fp32 ``f @ f.T`` and ``torch.amax`` over the cache (one
-PyTorch read of the same bytes).  The default variants are the
-precision's own (``tc_*`` for the bf16 mode's gq/gdb).  A variant's
-outputs are wrong by construction; only its time means anything: full
-minus variant is what the removed part costs where it does not overlap
-the rest.  The checks of these kernels are chip_smoke.py's phases 6 and
-6c.  Prints one JSON line per size with the card's name and power
-limit.
+unpacked with ``git archive``; a parent from before the tensor-core sim
+tile, whose stats/hist/loss entries take no bf16 rows and whose grad
+entry takes the product's rows alone, is bound behind this tree's calls),
+all nvcc processes started together.  Then times, per size, every case
+under every library in turn, in one process (builds move by 30-100 %
+between processes): ``npair_stats`` (digit-0 histogram, 8 slots, sims
+emitted), ``npair_hist`` (digit 1, two sides) and ``npair_loss``, cached
+and recompute, and the cached ``npair_gq``/``npair_gdb`` — in
+``--precision highest`` (the fp32 mode), or ``--precision default`` (the
+bf16 mode: on ``round_bf16`` rows with their bf16 copy, and the
+recompute gq/gdb too) — on REFERENCE_CONFIG thresholds of seeded unit
+features, beside cuBLAS's fp32 ``f @ f.T``, its bf16 ``rows16 @
+rows16.T`` and ``torch.amax`` over the cache (one PyTorch read of the
+same bytes).  With ``--parent``, each case also reports whether this
+tree's outputs equal the parent's bit for bit (``same_bits``).  The
+default variants are the precision's own (``tc_*`` for the bf16 mode's
+tensor-core sim tile and gq/gdb).  A variant's outputs are wrong by
+construction; only its time means anything: full minus variant is what
+the removed part costs where it does not overlap the rest.  The checks
+of these kernels are chip_smoke.py's phases 6 and 6c.  Prints one JSON
+line per size with the card's name and power limit.
 
 ``build`` and ``median_ms`` are this tool's, ``stem_bench.py``'s and
 ``probe_bench.py``'s: ``VARIANTS`` holds the edits of each source by its
@@ -61,10 +64,26 @@ VARIANTS = {"npair_blockwise.cu": {
         "              const float w = comp(wv[a], e);",
         "            for (int a = 0; a < 0; ++a) {\n"
         "              const float w = comp(wv[a], e);")]),
-    # The bf16 mode's gq/gdb on tensor cores (--precision default).
-    "tc_no_weights": ("the tensor-core grad's weight epilogue (cached)", [(
-        "      for (int e = 0; e < kQuads; ++e) {",
-        "      for (int e = 0; e < 0; ++e) {")]),
+    # The bf16 mode on tensor cores (--precision default): the sim tile
+    # of stats and the recompute sweeps, and gq/gdb.
+    "tc_no_sim_wgmma": ("the bf16 sim tile's wgmma instructions (stats and "
+                        "every recompute sweep; fences, waits and barriers "
+                        "stay)", [(
+                            "  for (int k = 0; k < kK16 / 16; ++k)\n"
+                            "    wgmma_m64n128k16<0>(",
+                            "  for (int k = 0; k < 0; ++k)\n"
+                            "    wgmma_m64n128k16<0>(")]),
+    "tc_no_epilogue": ("the bf16 sim tile's epilogues (stats, recompute "
+                       "hist and loss read no staged tile; stats writes no "
+                       "cache)", [
+                           ("    if (staged >= 0)\n"
+                            "      epi(staged, kBT / 8 * kk / nk, "
+                            "kBT / 8 * (kk + 1) / nk);\n", ""),
+                           ("    epi(staged, 0, kBT / 8);\n", "")]),
+    "tc_no_weights": ("the tensor-core grad's weight epilogue (cached and "
+                      "recompute)", [(
+                          "    for (int e = 0; e < kQuads; ++e) {",
+                          "    for (int e = 0; e < 0; ++e) {")]),
     "tc_no_wgmma": ("the tensor-core grad's wgmma instructions (their "
                     "fences, waits and barriers stay)", [(
                         "    for (int k = 0; k < kBT / 16; ++k)\n"
@@ -77,7 +96,8 @@ VARIANTS = {"npair_blockwise.cu": {
                                "everywhere; tile tc - 1's buffers free",
                                "")]),
     "no_stats_epilogue": ("the stats kernel's row-wise epilogue", [(
-        "#pragma unroll 1\n    for (int u = 0; u < kBT / 8; ++u) {",
+        "#pragma unroll 1\n    for (int u = kTC ? u0 : 0; u < (kTC ? u1 : "
+        "kBT / 8); ++u) {",
         "#pragma unroll 1\n    for (int u = 0; u < 0; ++u) {")]),
     # The cached sweeps then stream the cache and nothing else (the
     # recompute sweeps run the bare sim loop).
@@ -218,26 +238,47 @@ def median_ms(torch, fn, flush, iters=5, setups=None):
     return meds if setups else meds[0]
 
 
-# A parent's npl_npair_grad from before the tensor-core kernel: ...,
-# pool_major, out, bf16 (a flag), stream.
-_PARENT_GRAD_CALL = "int pool_major, void* out, int bf16, void* stream"
+# A parent from before the tensor-core sim tile: its stats, hist and loss
+# entries end in ..., stream (no bf16 rows), its grad entry in ...,
+# pool_major, out, x16, ld16, stream (the product's rows alone).
+_PARENT_SWEEP_CALL = "void* sims_out,\n                    void* stream)"
 
 
-def _grad_behind(lib):
-    """Bind a parent's flag-taking npl_npair_grad behind this tree's call
-    (..., out, x16, ld16, stream): the bf16 mode where x16 is given."""
+def _sweeps_behind(lib):
+    """Bind such a parent's entries behind this tree's calls, which end
+    in feats16, pool16, ld16, stream: stats, hist and loss drop the rows
+    (the parent's kernels sum the rounded fp32 rows on the FMA pipes),
+    grad takes pool16 (gq) or feats16 (gdb)."""
     from npairloss_tpu_torch.ops import _build
 
-    fn = lib.npl_npair_grad
-    fn.argtypes = _build._SIGNATURES["npl_npair_grad"][:-3] + [
-        ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    def bind(name, argtypes):
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
 
-    def call(*args):
-        *head, x16, _ld16, stream = args
-        return fn(*head, int(x16 is not None), stream)
+    def drop(name):
+        sig = _build._SIGNATURES[name]
+        fn = bind(name, sig[:-4] + sig[-1:])
 
-    lib.npl_npair_grad = call
+        def call(*args):
+            *head, _f16, _p16, _ld16, stream = args
+            return fn(*head, stream)
+
+        setattr(lib, name, call)
+
+    for name in ("npl_npair_stats", "npl_npair_hist", "npl_npair_loss"):
+        drop(name)
+    sig = _build._SIGNATURES["npl_npair_grad"]
+    grad = bind("npl_npair_grad",
+                sig[:-4] + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+
+    def grad_call(*args):
+        *head, f16, p16, ld16, stream = args
+        pool_major = head[-2]
+        return grad(*head, f16 if pool_major else p16, ld16, stream)
+
+    lib.npl_npair_grad = grad_call
 
 
 def parse_args(argv=None):
@@ -284,10 +325,10 @@ def sources(args):
 
 
 def cases(bw, f, lab, res, cfg, precision):
-    """{case name: call} at one size: in the fp32 mode stats, the cached
-    gq/gdb and hist/loss cached and recompute; in the bf16 mode stats and
-    gq/gdb cached and recompute on ``round_bf16`` rows (its bf16 copy
-    handed to gq/gdb)."""
+    """{case name: call} at one size: stats, hist and loss cached and
+    recompute, and the cached gq/gdb; in the bf16 mode on ``round_bf16``
+    rows, their bf16 copy handed to every kernel that multiplies rows,
+    and the recompute gq/gdb too."""
     import torch
 
     from npairloss_tpu_torch.ops.rank_select import sortable_key
@@ -295,34 +336,49 @@ def cases(bw, f, lab, res, cfg, precision):
     n = f.shape[0]
     sims = res["sims"]
     thr = (res["pos_thr"], res["neg_thr"], res["max_all"])
-    if precision == "default":
-        mp = {"matmul_precision": "default"}
-        fk = res["feats"]
-        gkw = dict(rows16=res["rows16"], **mp)
-    else:
-        mp, fk, gkw = {}, f, {}
+    bf16 = precision == "default"
+    fk = res["feats"] if bf16 else f
+    kw = dict(matmul_precision="default", rows16=res["rows16"]) if bf16 \
+        else {}
     gargs = (fk, lab, fk, lab, *thr, res["ident_sum"], res["all_sum"],
              torch.ones(n, device="cuda"), torch.ones((), device="cuda"),
              cfg)
-    out = {"stats_emit_ms": lambda: bw.npair_stats(
-        fk, lab, fk, lab, hist_same=True, topk=8, emit_sims=True, **mp)}
-    for name, kern in (("gq", bw.npair_gq), ("gdb", bw.npair_gdb)):
-        out[f"{name}_cached_ms"] = partial(kern, *gargs, sims=sims, **gkw)
-        if precision == "default":
-            out[f"{name}_recompute_ms"] = partial(kern, *gargs, **gkw)
-    if precision == "default":
-        return out
     # Digit-1 prefixes of real pairs, both sides.
-    hargs = (f, lab, f, lab, [True, False],
+    hargs = (fk, lab, fk, lab, [True, False],
              [sortable_key(sims[:, 1]) >> 28] * 2, 1)
-    out.update({
-        "hist_cached_ms": lambda: bw.npair_hist(*hargs, sims=sims),
-        "hist_recompute_ms": lambda: bw.npair_hist(*hargs),
-        "loss_cached_ms": lambda: bw.npair_loss(f, lab, f, lab, *thr, cfg,
-                                                sims=sims),
-        "loss_recompute_ms": lambda: bw.npair_loss(f, lab, f, lab, *thr,
-                                                   cfg)})
+    out = {
+        "stats_emit_ms": lambda: bw.npair_stats(
+            fk, lab, fk, lab, hist_same=True, topk=8, emit_sims=True, **kw),
+        "hist_cached_ms": lambda: bw.npair_hist(*hargs, sims=sims, **kw),
+        "hist_recompute_ms": lambda: bw.npair_hist(*hargs, **kw),
+        "loss_cached_ms": lambda: bw.npair_loss(fk, lab, fk, lab, *thr, cfg,
+                                                sims=sims, **kw),
+        "loss_recompute_ms": lambda: bw.npair_loss(fk, lab, fk, lab, *thr,
+                                                   cfg, **kw)}
+    for name, kern in (("gq", bw.npair_gq), ("gdb", bw.npair_gdb)):
+        out[f"{name}_cached_ms"] = partial(kern, *gargs, sims=sims, **kw)
+        if bf16:
+            out[f"{name}_recompute_ms"] = partial(kern, *gargs, **kw)
     return out
+
+
+def same_bits(torch, a, b) -> bool:
+    """Whether two calls' outputs (tensors, or tuples of tensors and
+    Nones) hold the same bits."""
+    if isinstance(a, torch.Tensor):
+        a, b = (a,), (b,)
+    return all((x is None) == (y is None) and (
+        x is None or torch.equal(x.view(torch.int32)
+                                 if x.dtype == torch.float32 else x,
+                                 y.view(torch.int32)
+                                 if y.dtype == torch.float32 else y))
+        for x, y in zip(a, b))
+
+
+def bf16_gemm(torch, a16):
+    """cuBLAS's bf16 ``a16 @ a16.T`` with fp32 output (``torch.mm(...,
+    out_dtype=torch.float32)``), as a call."""
+    return lambda: torch.mm(a16, a16.T, out_dtype=torch.float32)
 
 
 def main(argv=None) -> int:
@@ -346,8 +402,8 @@ def main(argv=None) -> int:
     srcs = sources(args)
     t0 = time.perf_counter()
     libs = build("npair_blockwise.cu", srcs)
-    if "parent" in srcs and _PARENT_GRAD_CALL in srcs["parent"][0]:
-        _grad_behind(libs["parent"])
+    if "parent" in srcs and _PARENT_SWEEP_CALL in srcs["parent"][0]:
+        _sweeps_behind(libs["parent"])
     names = list(libs)
     print(f"[breakdown] {card}; built {len(libs)} libraries "
           f"({', '.join(names)}) in {time.perf_counter() - t0:.1f} s",
@@ -367,16 +423,29 @@ def main(argv=None) -> int:
         _build._lib = libs.get("full")
         mp = "default" if args.precision == "default" else None
         _, _, res = bw._forward(f, lab, cfg, 512, 512, True, 8, mp)
+        rows16 = bw.round_bf16(f)[1]
+        gemm = bf16_gemm(torch, rows16)
         row = {"card": card, "n": n, "d": d, "precision": args.precision,
                "cublas_ms": median_ms(torch, lambda: f @ f.T, flush),
+               "cublas_bf16_ms": median_ms(torch, gemm, flush),
                "amax_cache_ms": median_ms(
                    torch, lambda: torch.amax(res["sims"], dim=1), flush),
                **{name: {} for name in names}}
+        compare = "parent" in libs and "full" in libs
+        if compare:
+            row["same_bits"] = {}
         for case, fn in cases(bw, f, lab, res, cfg,
                               args.precision).items():
             for name, ms in zip(names, median_ms(torch, fn, flush,
                                                  setups=turns)):
                 row[name][case] = ms
+            if compare:
+                outs = []
+                for name in ("full", "parent"):
+                    _build._lib = libs[name]
+                    outs.append(fn())
+                row["same_bits"][case] = same_bits(torch, *outs)
+                del outs
         print(json.dumps(row), flush=True)
         del res
     _build._lib = None

@@ -5,7 +5,7 @@ tools/stem_bench.py times.  Their timings come from the card; here each
 edit must still apply exactly once to its source, so the tools fail
 loudly, not silently, when the kernels change under them; and the
 breakdown's arguments (each precision's variants, a parent checkout's
-source, an older parent's grad entry) are handled as its run needs."""
+source, a parent's older entries) are handled as its run needs."""
 
 import types
 
@@ -85,22 +85,38 @@ def test_parent_source_is_read_from_its_checkout(tmp_path):
         kb.sources(kb.parse_args(["--parent", str(tmp_path / "none")]))
 
 
-def test_an_older_parent_takes_its_grad_flag():
-    """A parent from before the tensor-core gq/gdb takes a bf16 flag where
-    this tree's entry takes the product's bf16 rows and their stride;
-    this tree's source is not taken for such a parent."""
+def test_a_parent_before_the_tensor_core_sim_tile_is_bound_behind():
+    """A parent whose stats, hist and loss entries take no bf16 rows and
+    whose grad entry takes the product's rows alone is called through
+    this tree's calls (..., feats16, pool16, ld16, stream): the sweeps
+    drop the rows, gq passes pool16 and gdb feats16; this tree's source
+    is not taken for such a parent."""
     src = (_build.CSRC / "npair_blockwise.cu").read_text()
-    assert kb._PARENT_GRAD_CALL not in src
-    calls = []
+    assert kb._PARENT_SWEEP_CALL not in src
+    calls = {}
 
-    def entry(*args):
-        calls.append(args)
-        return 0
+    def entry(name):
+        def fn(*args):
+            calls.setdefault(name, []).append(args)
+            return 0
+        return fn
 
-    lib = types.SimpleNamespace(npl_npair_grad=entry)
-    kb._grad_behind(lib)
-    head = tuple(range(23))
-    assert lib.npl_npair_grad(*head, 1234, 72, "stream") == 0
-    assert lib.npl_npair_grad(*head, None, 0, "stream") == 0
-    assert calls == [head + (1, "stream"), head + (0, "stream")]
-    assert len(entry.argtypes) == len(head) + 2
+    names = ("npl_npair_stats", "npl_npair_hist", "npl_npair_loss",
+             "npl_npair_grad")
+    lib = types.SimpleNamespace(**{n: entry(n) for n in names})
+    raw = {n: getattr(lib, n) for n in names}
+    kb._sweeps_behind(lib)
+    for name in names[:3]:
+        sig = _build._SIGNATURES[name]
+        head = tuple(range(len(sig) - 4))
+        assert getattr(lib, name)(*head, "f16", "p16", 72, "stream") == 0
+        assert calls[name] == [head + ("stream",)]
+        assert len(raw[name].argtypes) == len(sig) - 3
+    sig = _build._SIGNATURES["npl_npair_grad"]
+    head = tuple(range(len(sig) - 6))
+    for pool_major, want in ((0, "p16"), (1, "f16")):
+        assert lib.npl_npair_grad(*head, pool_major, "out", "f16", "p16", 72,
+                                  "stream") == 0
+        assert calls["npl_npair_grad"][-1] == head + (
+            pool_major, "out", want, 72, "stream")
+    assert len(raw["npl_npair_grad"].argtypes) == len(sig) - 1
