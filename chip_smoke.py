@@ -91,6 +91,28 @@ Phases (any failure raises, exits nonzero and prints no result line):
    seeded rows' hits equal to the CPU's outside boundary ties, ``eval
    --nmi`` on 5,924 rows of 100 identities; (e) ``time`` at batch 120,
    each stage positive and trunk forward <= forward <= forward+backward;
+4b. the serving tier (after 5e, whose iter-6 snapshot it serves), under
+   ``build/tier_smoke/``: phase 4's gallery committed flat with ``index
+   --emb/--labels/--out``; ``serve --index-prefix ... --index-kind ivf
+   --ivf-clusters 246 --probe-impl fused --replicas 2 --wal-dir ...
+   --wal-checkpoint-every 4 --snapshot <iter 6> --model googlenet_pallas``
+   built in-process by the CLI's ``build_server`` and run by
+   ``run_http`` on an ephemeral port: 512 single queries, 64 bodies of
+   32 and 16 raw images from 8 client threads, a bad body (400) and an
+   unknown path (404), ``/healthz``; every query answered, each gallery
+   row its own top-1, the probe and three stem kernels launched; the
+   restored trunk on the card against the CPU; ``serve.replica_crash``
+   under load with no client error; 16 ingest records of 256 rows (ids
+   from 10^6) acked with their seq, four checkpoints, the WAL GC'd to
+   the last; each sampled new row its own top-1; the probe kernel
+   against its plain version at the grown cap; then the in-process tier
+   drained and the same configuration as a ``serve --http 0``
+   subprocess: 8 more records acked, SIGKILL before a checkpoint, a
+   restart that loads the watermark-16 checkpoint and replays exactly
+   the 8 records above it, each sampled acked row its own top-1 and
+   present once; SIGTERM under load: exit 75, the drain record, and a
+   final checkpoint that holds every acked row once; HTTP p50/p99,
+   ack, checkpoint, replay and restart times beside the card line;
 5f. the Inception-BN trunk and the precision policies: ``train --model
    googlenet_bn --precision mxu`` in-process on the phase-5 solver cut
    (batch 120, 224², synthetic), on the dense engine, with ``--engine
@@ -929,7 +951,7 @@ def drive_path(torch, seed, index, emb, detail):
     server = RetrievalServer(
         engine,
         BatcherConfig(max_batch=32, max_delay_ms=5.0, max_queue=256),
-        ServerConfig(poll_s=0.01),
+        ServerConfig(poll_s=0.01, explicit_drops=True),
         freshness=Freshness.collect(index=index, index_path="synthetic"))
     out = io.StringIO()
     _build.reset_launch_counts()
@@ -2067,6 +2089,479 @@ def drive_resilience(torch, seed, detail, net_path, emb, labels, step_ms):
     check_time(torch, seed, detail, step_ms, card)
     log(f"[5e] {time.perf_counter() - t0:.1f} s")
     return train_launches, extract_launches
+
+
+# -- phase 4b: the serving tier -----------------------------------------------
+
+TIER_WORK = os.path.join("build", "tier_smoke")
+TIER_CLIENTS = 8
+
+
+def _http_call(port, method, path, body=None, timeout=120.0):
+    """(status, decoded JSON body, wall ms) of one localhost request."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        raw = resp.read()
+        return resp.status, json.loads(raw or b"null"), \
+            (time.perf_counter() - t0) * 1e3
+    finally:
+        conn.close()
+
+
+def _pcts(ms):
+    import numpy as np
+
+    return {"n": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def _tier_args(prefix, wal_dir, snap_path, seed, every=4):
+    return ["serve", "--index-prefix", prefix, "--index-kind", "ivf",
+            "--ivf-clusters", "246", "--probes", "8", "--probe-impl",
+            "fused", "--top-k", "10", "--buckets", "1,8,32", "--replicas",
+            "2", "--wal-dir", wal_dir, "--wal-checkpoint-every", str(every),
+            "--snapshot", snap_path, "--model", "googlenet_pallas",
+            "--input-size", "224", "--poll-s", "0.01", "--explicit-drops",
+            "--seed", str(seed)]
+
+
+def _tier_load(port, emb, rows, bodies, images, extra=()):
+    """Clients on TIER_CLIENTS threads: one query per gallery row in
+    ``rows``, ``bodies`` (lists of rows, 32 each) as bodies of 32, raw
+    ``images``, and ``extra`` (method, path, body) requests.  Returns
+    the replies by kind and the latency lists."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = ([("single", int(r), json.dumps(
+        {"id": f"s{int(r)}", "embedding": emb[r].tolist()}))
+        for r in rows]
+        + [("body", [int(r) for r in b], "\n".join(json.dumps(
+            {"id": f"b{int(r)}", "embedding": emb[r].tolist()}) for r in b))
+           for b in bodies]
+        + [("image", i, json.dumps({"id": f"x{i}",
+                                    "input": images[i].tolist()}))
+           for i in range(len(images))])
+
+    def run(job):
+        kind, key, body = job
+        return kind, key, _http_call(port, "POST", "/query", body)
+
+    with ThreadPoolExecutor(TIER_CLIENTS) as pool:
+        replies = list(pool.map(run, jobs))
+        others = list(pool.map(lambda e: _http_call(port, *e), extra))
+    lat = {"single": [], "body": [], "image": []}
+    for kind, key, (code, out, ms) in replies:
+        if code != 200:
+            fail(f"4b: a {kind} query answered {code}: {out}")
+        lat[kind].append(ms)
+        answers = out if kind == "body" else [out]
+        keys = key if kind == "body" else [key]
+        for k, a in zip(keys, answers):
+            if "neighbors" not in a or len(a["neighbors"]) != 10:
+                fail(f"4b: {kind} query {k} not answered: {a}")
+            if kind != "image" and (a["neighbors"][0]["row"] != k
+                                    or not a["neighbors"][0]["score"]
+                                    > 0.99):
+                fail(f"4b: gallery row {k}: top-1 is {a['neighbors'][0]}")
+    return lat, others
+
+
+def _probe_at_grown_cap(torch, timer, index, queries):
+    """The probe kernel against its plain version on the grown layout
+    (B = 32, probes 8, fp32): (row of numbers)."""
+    import numpy as np
+
+    from npairloss_tpu_torch.ops.ivf_probe import (
+        probe_select,
+        probe_topk,
+        probe_topk_oneshot_plain,
+    )
+
+    layout = index.layout
+    q = torch.as_tensor(queries, device="cuda")
+    _, lids, owned = probe_select(q, layout.centroids, layout.cluster_valid,
+                                  8, 0, layout.packed.shape[0])
+    owned = owned.to(torch.int32).contiguous()
+    kl = min(10, 8 * layout.cap)
+    args = (q, layout.packed, layout.rows, lids, owned, None)
+    _, _, _, _, err, ties = _probe_against_plain(
+        torch, np, args, kl, "fp32", "4b probe at the grown cap")
+    valid_rows = int((layout.rows[lids.long()] >= 0).sum().item())
+    side = (lids.numel() * layout.cap * 4 + q.numel() * 4
+            + 2 * lids.numel() * 4 + 32 * kl * 8)
+    bms, by = bound_ms(valid_rows * index.dim * 4 + side,
+                       2.0 * valid_rows * index.dim, "fp32")
+    return {"batch": 32, "probes": 8, "cap": layout.cap,
+            "probed_rows": valid_rows, "max_abs_err": err,
+            "tol": TOL["probe"], "row_mismatches_in_ties": ties,
+            "ms": timer.ms(lambda: probe_topk(*args, kl=kl, scoring="fp32")),
+            "plain_ms": timer.ms(lambda: probe_topk_oneshot_plain(
+                *args, kl=kl, scoring="fp32")),
+            "bound_ms": bms, "bound_by": by}
+
+
+def _ingest_rows(seed, gallery, n_ids=1536, per_id=4, first_id=10 ** 6):
+    """New identities near the gallery's own (a new product resembles a
+    catalogued one, so it lands in the clusters a probe of it scores
+    highest; a uniformly random direction in 1024 dims is near no
+    centroid, and a probe of 8 would find it only by chance): each
+    centre a random gallery row plus noise, each row its centre plus
+    the synthetic gallery's noise, unit norm; ids from ``first_id``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dim = gallery.shape[1]
+    anchors = rng.choice(gallery.shape[0], size=n_ids, replace=False)
+    centres = gallery[anchors] + rng.standard_normal(
+        (n_ids, dim), dtype=np.float32) * (0.5 / np.sqrt(dim))
+    centres /= np.linalg.norm(centres, axis=1, keepdims=True)
+    labels = np.repeat(np.arange(n_ids, dtype=np.int32) + 20000, per_id)
+    rows = centres[labels - 20000] + rng.standard_normal(
+        (n_ids * per_id, dim), dtype=np.float32) * (0.5 / np.sqrt(dim))
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    return (rows.astype(np.float32), labels,
+            np.arange(first_id, first_id + n_ids * per_id, dtype=np.int64))
+
+
+def _send_ingest(port, rows, labels, ids, first, n_records, per=256):
+    acks, ms = [], []
+    for r in range(n_records):
+        sl = slice(first + r * per, first + (r + 1) * per)
+        body = json.dumps({"id": f"ingest{first // per + r}", "ingest": {
+            "ids": ids[sl].tolist(), "labels": labels[sl].tolist(),
+            "embeddings": rows[sl].tolist()}})
+        code, ack, t = _http_call(port, "POST", "/query", body)
+        if code != 200 or ack.get("ingested") != per \
+                or not isinstance(ack.get("seq"), int):
+            fail(f"4b: ingest record {r} answered {code}: {ack}")
+        acks.append(ack)
+        ms.append(t)
+    return acks, ms
+
+
+class _TierProc:
+    """``python -m npairloss_tpu_torch serve --http 0`` on the card: its
+    port from the ``serve_listening`` line, stderr to a file."""
+
+    def __init__(self, argv, err_path):
+        self.t0 = time.perf_counter()
+        self.err = open(err_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "npairloss_tpu_torch", *argv,
+             "--http", "0"], stdout=subprocess.PIPE, stderr=self.err,
+            text=True)
+        line = self.proc.stdout.readline()
+        if not line:
+            self.proc.wait(timeout=60)
+            self.err.close()
+            fail(f"4b: serve exited {self.proc.returncode} before listening:"
+                 f" {open(err_path).read()[-3000:]}")
+        self.port = json.loads(line)["port"]
+
+    def finish(self, timeout=300):
+        out = self.proc.stdout.read()
+        rc = self.proc.wait(timeout=timeout)
+        self.err.close()
+        return rc, out
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.err.close()
+
+
+def drive_serving_tier(torch, seed, detail, emb, labels, snap_path):
+    """Phase 4b: the serving tier on the card at phase 4's width (see the
+    module docstring): the in-process ``serve --http`` tier with two
+    replicas, a WAL and a restored trunk; a replica crash; ingest with
+    checkpoints; a SIGKILL and a SIGTERM drill on a subprocess."""
+    import shutil
+    import signal
+    import threading
+
+    import numpy as np
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.models import get_model
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.resilience import failpoints
+    from npairloss_tpu_torch.resilience.wal import wal_info
+    from npairloss_tpu_torch.serve.index import index_info, load_newest
+    from npairloss_tpu_torch.train.solver import (
+        load_inference_state,
+        restore_for_inference,
+    )
+
+    card = detail["card"]
+    t_phase = time.perf_counter()
+    work = os.path.abspath(TIER_WORK)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    prefix = os.path.join(work, "g_")
+    wal_dir = os.path.join(work, "wal")
+    np.save(os.path.join(work, "emb.npy"), emb)
+    np.save(os.path.join(work, "labels.npy"), labels)
+    if cli.main(["index", "--emb", os.path.join(work, "emb.npy"),
+                 "--labels", os.path.join(work, "labels.npy"), "--out",
+                 prefix + "0001.gidx", "--no-normalize"]) != 0:
+        fail("4b: index --emb/--labels/--out failed")
+    out = {"card": card}
+
+    # 1. The in-process tier: serve --http through cli.build_server.
+    args = cli.build_parser().parse_args(
+        _tier_args(prefix, wal_dir, snap_path, seed))
+    t0 = time.perf_counter()
+    server, wal = cli.build_server(args)
+    out["build_s"] = time.perf_counter() - t0
+    index = server.engine.index
+    cap0 = index.layout.cap
+    log(f"[4b] tier built in {out['build_s']:.1f} s: {index.size} rows, "
+        f"{index.n_clusters} clusters (cap {cap0}), 2 replicas, trunk from "
+        f"{snap_path}")
+    _build.reset_launch_counts()
+    runner = threading.Thread(target=lambda: out.update(
+        rc_inprocess=server.run_http(0)), daemon=True)
+    runner.start()
+    deadline = time.monotonic() + 60.0
+    while server.http_port is None:
+        if time.monotonic() > deadline or not runner.is_alive():
+            fail("4b: run_http did not start listening")
+        time.sleep(0.01)
+    port = server.http_port
+    rng = np.random.default_rng(seed + 40)
+    singles = rng.choice(emb.shape[0], size=512, replace=False)
+    bodies = rng.choice(emb.shape[0], size=(64, 32), replace=False)
+    images = rng.standard_normal((16, 224, 224, 3), dtype=np.float32)
+    lat2, others = _tier_load(port, emb, singles, bodies, images, extra=[
+        ("POST", "/query", "{this is not json"), ("GET", "/nope", None),
+        ("GET", "/healthz", None)])
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    if others[0][0] != 400 or others[1][0] != 404:
+        fail(f"4b: a bad body / unknown path answered {others[:2]}")
+    code, health, _ = others[2]
+    for key in ("ok", "draining", "queries", "answered", "replicas",
+                "replicas_alive", "ingest", "probe_impl", "p99_ms"):
+        if code != 200 or key not in health:
+            fail(f"4b: /healthz lacks {key}: {code} {health}")
+    for name in ("probe_topk", "lrn_fwd", "fused_bias_relu",
+                 "fused_bias_relu_pool"):
+        if launches.get(name, 0) < 1:
+            fail(f"4b: kernel {name} was not launched by the tier")
+    n_q = 512 + 64 * 32 + 16
+    s = server.summary()
+    if not (s["queries"] == s["answered"] == n_q and s["errors"] == 0
+            and s["queries_dropped"] == 0):
+        fail(f"4b: counters after the load: {s}")
+    out["launches"] = {k: launches[k] for k in (
+        "probe_topk", "lrn_fwd", "fused_bias_relu", "fused_bias_relu_pool")}
+    out["latency_2_replicas"] = {k: _pcts(v) for k, v in lat2.items()}
+    log(f"[4b] {n_q} queries over HTTP from {TIER_CLIENTS} clients, 2 "
+        f"replicas: {json.dumps(out['latency_2_replicas'])}; launches "
+        f"{json.dumps(out['launches'])} ({card})")
+
+    # The restored trunk on the card against the CPU.
+    st_gpu = restore_for_inference(snap_path, device="cuda")
+    st_cpu = restore_for_inference(snap_path, device="cpu")
+    m_gpu = load_inference_state(get_model(
+        "googlenet_pallas", device="cuda", dtype=torch.float32), st_gpu)
+    m_cpu = load_inference_state(get_model(
+        "googlenet_pallas", device="cpu", dtype=torch.float32), st_cpu)
+    x2 = torch.as_tensor(images[:2])
+    with torch.inference_mode():
+        e_gpu = m_gpu(x2.cuda()).cpu()
+        e_cpu = m_cpu(x2)
+    served = torch.as_tensor(server.engine.encode(images[:2]))
+    enc_err = (e_gpu - e_cpu).abs().max().item()
+    cos = (served * torch.nn.functional.normalize(e_cpu, dim=1)).sum(1)
+    out["trunk_fp32_err"] = enc_err
+    out["trunk_served_bf16_cos"] = cos.min().item()
+    log(f"[4b] restored trunk fp32 card vs CPU: max_abs_err {enc_err}; "
+        f"served bf16 vs fp32 CPU: min cosine {cos.min().item()}")
+    if not enc_err <= 1e-4 or not cos.min().item() > 0.99:
+        fail("4b: the restored trunk on the card disagrees with the CPU")
+    del m_gpu, m_cpu, st_gpu, st_cpu
+
+    # 2. A replica crash under load.
+    failpoints.arm("serve.replica_crash", times=1, delay=4)
+    lat1, _ = _tier_load(port, emb, singles[:256], bodies[:32], [])
+    failpoints.reset()
+    s = server.summary()
+    if server.replicaset.alive_count != 1 or s["errors"] != 0 \
+            or s["queries"] != s["answered"] + s["errors"] \
+            - s["errors_refused"] + s["rejected"]:
+        fail(f"4b: after serve.replica_crash: alive "
+             f"{server.replicaset.alive_count}, {s}")
+    out["latency_1_live_replica"] = {k: _pcts(v) for k, v in lat1.items()
+                                     if v}
+    log(f"[4b] serve.replica_crash: 0 client errors, 1 live replica: "
+        f"{json.dumps(out['latency_1_live_replica'])} ({card})")
+
+    # 3. Ingest: 16 records of 256 rows, a checkpoint every 4.
+    new_rows, new_labels, new_ids = _ingest_rows(seed + 41, emb)
+    acks, ack_ms = _send_ingest(port, new_rows, new_labels, new_ids, 0, 16)
+    if [a["seq"] for a in acks] != list(range(1, 17)):
+        fail(f"4b: ingest seqs {[a['seq'] for a in acks]}")
+    ckpts = sorted(n for n in os.listdir(work) if n.startswith("g_w"))
+    want = [f"g_w{w:012d}.gidx" for w in (4, 8, 12, 16)]
+    if ckpts != want:
+        fail(f"4b: checkpoints {ckpts}, want {want}")
+    info = wal_info(wal_dir)
+    if info["segments"] != 1 or info["first_seq"] != 16:
+        fail(f"4b: the WAL is not GC'd to watermark 16: {info}")
+    publish_ms = list(server._checkpoint_fn.__self__.publish_ms)
+    probe_new = rng.choice(4096, size=256, replace=False)
+    jobs = [json.dumps({"id": int(r), "embedding": new_rows[r].tolist()})
+            for r in probe_new]
+    for r, body in zip(probe_new, jobs):
+        code, a, _ = _http_call(port, "POST", "/query", body)
+        top = a["neighbors"][0] if code == 200 else a
+        if code != 200 or top["gallery_id"] != int(new_ids[r]):
+            fail(f"4b: ingested row {int(new_ids[r])}: top-1 {top}")
+    cap1 = index.layout.cap
+    if not cap1 > cap0:
+        fail(f"4b: the ingest did not grow the cap ({cap0} -> {cap1})")
+    timer = Timer(torch)
+    out["probe_grown_cap"] = _probe_at_grown_cap(
+        torch, timer, index, new_rows[probe_new[:32]])
+    del timer
+    out["ingest_ack"] = _pcts(ack_ms)
+    out["checkpoint_publish_ms"] = publish_ms
+    log(f"[4b] 16 ingest records (4,096 rows): ack {json.dumps(out['ingest_ack'])}"
+        f" (append + fsync + apply), checkpoints {ckpts} in "
+        f"{[round(t, 1) for t in publish_ms]} ms, WAL GC'd to seq 16; cap "
+        f"{cap0} -> {cap1}; probe at the grown cap "
+        f"{json.dumps(out['probe_grown_cap'])} ({card})")
+
+    # 4. Drain the in-process tier; then the SIGKILL drill.
+    server.preempt.request()
+    runner.join(timeout=300)
+    wal.close()
+    if out.get("rc_inprocess") != 75:
+        fail(f"4b: run_http returned {out.get('rc_inprocess')}")
+    newest = load_newest(prefix, device="cpu")[0]
+    if not newest.endswith("g_w000000000016.gidx"):
+        fail(f"4b: the newest commit after the drain is {newest}")
+    del server, index
+    _release(torch)
+    argv = _tier_args(prefix, wal_dir, snap_path, seed, every=16)
+    p = _TierProc(argv, os.path.join(work, "serve1.err"))
+    try:
+        acks2, ack2_ms = _send_ingest(p.port, new_rows, new_labels, new_ids,
+                                      16 * 256, 8)
+        if [a["seq"] for a in acks2] != list(range(17, 25)):
+            fail(f"4b: drill seqs {[a['seq'] for a in acks2]}")
+        p.proc.send_signal(signal.SIGKILL)
+        rc, _ = p.finish()
+    finally:
+        p.kill()
+    if rc != -signal.SIGKILL:
+        fail(f"4b: the SIGKILLed serve exited {rc}")
+    t_restart = time.perf_counter()
+    p = _TierProc(argv, os.path.join(work, "serve2.err"))
+    try:
+        code, first, _ = _http_call(p.port, "POST", "/query", json.dumps(
+            {"id": "first", "embedding": new_rows[-1].tolist()}))
+        out["restart_to_first_answer_s"] = time.perf_counter() - t_restart
+        if code != 200 or first["neighbors"][0]["gallery_id"] \
+                != int(new_ids[6143]):
+            fail(f"4b: the first answer after the restart: {code} {first}")
+        code, health, _ = _http_call(p.port, "GET", "/healthz")
+        rec = health["ingest"]["recovery"]
+        if not (rec["index_path"].endswith("g_w000000000016.gidx")
+                and rec["base_watermark"] == 16 and rec["replayed"] == 8
+                and rec["replayed_rows"] == 2048):
+            fail(f"4b: the restart's recovery: {rec}")
+        out["wal_replay_ms"] = rec["replay_ms"]
+        sample = np.concatenate([rng.choice(4096, 120, replace=False),
+                                 4096 + rng.choice(2048, 136,
+                                                   replace=False)])
+        for r in sample:
+            code, a, _ = _http_call(p.port, "POST", "/query", json.dumps(
+                {"id": int(r), "embedding": new_rows[r].tolist()}))
+            nb = a["neighbors"] if code == 200 else [a, a]
+            if nb[0]["gallery_id"] != int(new_ids[r]) \
+                    or nb[1]["gallery_id"] == int(new_ids[r]):
+                fail(f"4b: acked row {int(new_ids[r])} after the restart: "
+                     f"{nb[:2]}")
+
+        # 5. SIGTERM with queries in flight.
+        stop, replies = threading.Event(), []
+
+        def client(k):
+            i = 0
+            while not stop.is_set():
+                r = int(singles[(k * 64 + i) % 512])
+                try:
+                    replies.append((r, _http_call(
+                        p.port, "POST", "/query",
+                        json.dumps({"id": r,
+                                    "embedding": emb[r].tolist()}))))
+                except OSError:
+                    return
+                i += 1
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(TIER_CLIENTS)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 120.0
+        while len(replies) < 64:
+            if time.monotonic() > deadline:
+                fail("4b: the restarted serve answers no load")
+            time.sleep(0.01)
+        p.proc.send_signal(signal.SIGTERM)
+        time.sleep(0.5)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        rc, stdout = p.finish()
+    finally:
+        stop_all = locals().get("stop")
+        if stop_all is not None:
+            stop_all.set()
+        p.kill()
+    drain = json.loads(stdout.strip().splitlines()[-1])
+    ok = [(r, body) for r, (c, body, _) in replies if c == 200]
+    codes = {c for _, (c, _, _) in replies}
+    if rc != 75 or drain.get("event") != "serve_drain":
+        fail(f"4b: SIGTERM: exit {rc}, last line {drain}")
+    if not codes <= {200, 503} or any(
+            b["neighbors"][0]["row"] != r for r, b in ok):
+        fail(f"4b: SIGTERM: replies {codes}")
+    if not (drain["queries"] == drain["answered"] >= len(ok)
+            and drain["queries_dropped"] == 0
+            and drain["ingest"]["checkpoint_watermark"] == 24):
+        fail(f"4b: SIGTERM drain record: {drain}")
+    final_path, final = load_newest(prefix, device="cpu")
+    ids = final.ids
+    if not final_path.endswith("g_w000000000024.gidx") \
+            or np.unique(ids).shape[0] != ids.shape[0] \
+            or ids.shape[0] != emb.shape[0] + 6144 \
+            or not np.isin(new_ids, ids).all():
+        fail(f"4b: the final checkpoint {final_path} holds {ids.shape[0]} "
+             "ids: an acked row is missing or doubled")
+    out["drill"] = {"ack_ms": _pcts(ack2_ms), "sigterm_answered":
+                    drain["answered"], "late_503": 503 in codes,
+                    "final": os.path.basename(final_path),
+                    "final_rows": int(ids.shape[0])}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[4b] SIGKILL after 8 acks -> restart loaded "
+        f"{os.path.basename(rec['index_path'])}, replayed 8 records (2,048 "
+        f"rows) in {out['wal_replay_ms']:.1f} ms, first answer "
+        f"{out['restart_to_first_answer_s']:.1f} s after the restart; "
+        f"SIGTERM under load -> exit 75, {drain['answered']} answered, 503s "
+        f"{503 in codes}, final {out['drill']['final']} "
+        f"({ids.shape[0]} rows, every acked row once) ({card})")
+    log(f"[4b] {out['wall_s']:.1f} s")
+    detail["serving_tier"] = out
+    return out
 
 
 # -- phases 5f and 5g: the Inception-BN trunk, the precision policies -------
@@ -5183,7 +5678,11 @@ def main() -> int:
                                       dense_step_ms)
     drive_resilience(torch, args.seed, detail, list_net, emb, labels,
                      dense_step_ms)
+    tier = drive_serving_tier(
+        torch, args.seed, detail, emb, labels,
+        os.path.abspath(os.path.join(SNAP_WORK, "bits", "m_iter_6.ckpt")))
     del emb, labels
+    _release(torch)
     bn_launches = drive_bn_train(torch, args.seed, detail)
     drive_bn_learning(torch, args.seed, detail)
     drive_pipeline(torch, args.seed, detail, list_net)
@@ -5299,6 +5798,13 @@ def main() -> int:
         "round_bf16", src, "npairloss_tpu/ops/pallas_npair.py:180",
         path_120(bw_rows["round_bf16"], "N x D", "bf16"), "round_bf16",
         bn_launches))
+    # Phase 4b's launches of the four kernels the serving tier runs.
+    for k in kernels:
+        counter = {"lrn_fwd": "lrn_fwd", "bias_relu": "fused_bias_relu",
+                   "bias_relu_pool": "fused_bias_relu_pool",
+                   "ivf_probe": "probe_topk"}.get(k["name"])
+        if counter is not None:
+            k["launches_serving_tier"] = tier["launches"][counter]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         fail(f"kernels not launched on their path: {idle}")

@@ -9,9 +9,18 @@ param tree as ``.npz`` (``models/convert.py``).  A flag of the JAX CLI
 that is not ported is refused by argparse, never accepted and ignored.
 
   index:   build a flat or IVF ``PREFIX.gidx`` from ``PREFIX.emb.npy`` +
-           ``PREFIX.labels.npy``;
-  serve:   load a ``.gidx`` and answer JSONL queries on stdin until EOF,
-           ending with a ``serve_drain`` summary line;
+           ``PREFIX.labels.npy`` (or ``--emb``/``--labels``/``--out``;
+           ``--add-to`` appends to a commit, ``--info`` reads one);
+  serve:   load a ``.gidx`` (``--index``, or the newest valid commit under
+           ``--index-prefix``) and answer JSONL queries on stdin until EOF,
+           or HTTP (``--http PORT``) until SIGTERM, from ``--replicas R``
+           engines, ending with a ``serve_drain`` summary line;
+           ``--snapshot`` encodes raw inputs through a training snapshot's
+           trunk; ``--wal-dir`` acknowledges ingest records only after
+           their fsync and publishes index checkpoints under the prefix,
+           which a restart loads before replaying the log above their
+           watermark.  SIGTERM/SIGINT: every admitted query is answered,
+           a final checkpoint is written, exit 75;
   train:   the Caffe solver loop from a solver prototxt on the net's list
            files (TRAIN and TEST ``source``, decoded by the native
            runtime or PIL per ``--native``, augmented on the device), or
@@ -59,6 +68,7 @@ import json
 import logging
 import os
 import sys
+import time
 from typing import Optional
 
 from npairloss_tpu_torch.ops.ivf_probe import PROBE_IMPLS
@@ -82,83 +92,291 @@ def _unported_model(name: str) -> Optional[str]:
 
 
 def cmd_index(args) -> int:
+    """Build, extend (``--add-to``) or inspect (``--info``) a committed
+    gallery index; commits are atomic either way."""
     import numpy as np
 
-    from npairloss_tpu_torch.serve.index import GalleryIndex
-    from npairloss_tpu_torch.serve.ivf import IVFIndex
+    from npairloss_tpu_torch.serve.index import (
+        GalleryIndex,
+        index_info,
+        load_index,
+    )
+    from npairloss_tpu_torch.serve.ivf import IVFIndex, measure_parity
 
-    emb_path, lab_path = args.prefix + ".emb.npy", args.prefix + ".labels.npy"
+    if args.info:
+        print(json.dumps(index_info(args.info)))
+        return 0
+    emb_path = args.emb or args.prefix + ".emb.npy"
+    lab_path = args.labels or args.prefix + ".labels.npy"
     for p in (emb_path, lab_path):
         if not os.path.exists(p):
-            log.error("missing %s", p)
+            log.error("missing %s (run the extract subcommand first)", p)
             return 2
     emb = np.load(emb_path)
     lab = np.load(lab_path)
-    if args.kind == "ivf":
-        idx = IVFIndex.build_ivf(emb, lab, clusters=args.clusters,
-                                 seed=args.seed, device=args.device)
+    if emb.shape[0] != lab.shape[0]:
+        log.error("embeddings/labels row mismatch: %s vs %s",
+                  emb.shape, lab.shape)
+        return 2
+    if args.add_to:
+        idx = load_index(args.add_to, device=args.device)
+        idx.add(emb, lab, normalize=not args.no_normalize)
+    elif args.kind == "ivf":
+        idx = IVFIndex.build_ivf(
+            emb, lab, normalize=not args.no_normalize,
+            clusters=args.clusters, iters=args.kmeans_iters,
+            seed=args.seed, train_size=args.train_sample,
+            device=args.device)
+        if args.parity_sample:
+            idx.parity = measure_parity(idx, probes=args.parity_probes,
+                                        sample=args.parity_sample)
+            log.info("ivf parity stamped: %s", idx.parity["recall"])
     else:
-        idx = GalleryIndex.build(emb, lab, device=args.device)
-    summary = {"out": idx.save(args.prefix + ".gidx"), "kind": idx.KIND,
-               "rows": idx.size, "dim": idx.dim,
+        idx = GalleryIndex.build(emb, lab, normalize=not args.no_normalize,
+                                 device=args.device)
+    summary = {"out": idx.save(args.out or args.add_to
+                               or args.prefix + ".gidx"),
+               "kind": idx.KIND, "rows": idx.size, "dim": idx.dim,
                "classes": int(np.unique(idx.host_labels).shape[0])}
     if isinstance(idx, IVFIndex):
         summary["clusters"] = idx.n_clusters
         summary["cap"] = idx.layout.cap
+        if idx.parity is not None:
+            summary["parity"] = idx.parity
     print(json.dumps(summary))
     return 0
 
 
-def cmd_serve(args) -> int:
+class _IngestCheckpoints:
+    """The durable-ingest side of ``serve --wal-dir``: every applied
+    record goes into the served index in place and into a pending list;
+    a checkpoint at watermark ``wm`` adds the pending records up to
+    ``wm`` to the last published commit (held on the CPU, loaded from
+    disk at the first publish) and commits it as
+    ``{prefix}w{wm:012d}.gidx`` — the same artifact the JAX package
+    publishes: the committed kind stays the base's, whatever kind is
+    served.  The ``w`` sorts after every digit, so checkpoints win
+    ``load_newest`` over the commits they grew from."""
+
+    def __init__(self, served, base_path: str, prefix: str):
+        self.served = served
+        self.base_path = base_path
+        self.prefix = prefix
+        self.base = None
+        self.pending: list = []
+        self.publish_ms: list = []  # wall ms of each published checkpoint
+
+    def apply(self, payload) -> None:
+        self.apply_many([payload])
+
+    def apply_many(self, payloads) -> None:
+        """Apply records in seq order with one add to the served index
+        (the startup replay's whole backlog re-packs the layout once)."""
+        import numpy as np
+
+        from npairloss_tpu_torch.serve.server import decode_ingest_payload
+
+        if not payloads:
+            return
+        rows = [decode_ingest_payload(p) for p in payloads]
+        self.pending.extend((int(p["seq"]), d)
+                            for p, d in zip(payloads, rows))
+        self.served.add(np.concatenate([d[0] for d in rows]),
+                        np.concatenate([d[1] for d in rows]),
+                        ids=np.concatenate([d[2] for d in rows]))
+        self.served.ingest_watermark = int(payloads[-1]["seq"])
+
+    def publish(self, wm: int):
+        import numpy as np
+
+        from npairloss_tpu_torch.serve.index import INDEX_SUFFIX, load_index
+
+        pending = [d for seq, d in self.pending if seq <= wm]
+        if not pending:
+            return None
+        t0 = time.perf_counter()
+        if self.base is None:
+            self.base = load_index(self.base_path, device="cpu")
+        self.base.add(np.concatenate([d[0] for d in pending]),
+                      np.concatenate([d[1] for d in pending]),
+                      ids=np.concatenate([d[2] for d in pending]))
+        self.base.ingest_watermark = wm
+        path = self.base.save(f"{self.prefix}w{wm:012d}{INDEX_SUFFIX}")
+        self.base_path = path
+        self.pending = [p for p in self.pending if p[0] > wm]
+        self.publish_ms.append((time.perf_counter() - t0) * 1e3)
+        log.info("ingest checkpoint: %s (watermark %d, +%d row(s))", path,
+                 wm, sum(d[0].shape[0] for d in pending))
+        return path
+
+
+def build_server(args):
+    """``serve``'s tier from its parsed arguments: the committed index
+    (the newest under ``--index-prefix``, or ``--index``) reconciled to
+    ``--index-kind``, the WAL recovered and replayed above the commit's
+    watermark, the trunk (``--snapshot``/``--weights``), the warmed
+    engine and its replicas, and the server with its (not yet installed)
+    ``PreemptionSignal``.  Returns ``(server, wal)``, or an exit code
+    when the arguments are refused."""
     from npairloss_tpu_torch.device import resolve_device
+    from npairloss_tpu_torch.resilience.preempt import PreemptionSignal
     from npairloss_tpu_torch.serve.batcher import BatcherConfig
     from npairloss_tpu_torch.serve.engine import EngineConfig, QueryEngine
-    from npairloss_tpu_torch.serve.index import load_index
-    from npairloss_tpu_torch.serve.server import Freshness, RetrievalServer
+    from npairloss_tpu_torch.serve.index import (
+        GalleryIndex,
+        load_index,
+        load_newest,
+    )
+    from npairloss_tpu_torch.serve.ivf import IVFIndex
+    from npairloss_tpu_torch.serve.server import (
+        Freshness,
+        RetrievalServer,
+        ServerConfig,
+    )
 
+    # Arg-only checks first: a misconfigured invocation fails before the
+    # index loads and the buckets warm.
     refusal = _unported_model(args.model) if args.model else None
     if refusal:
         log.error("%s", refusal)
         return 2
+    if args.wal_dir and not args.index_prefix:
+        log.error("--wal-dir needs --index-prefix (ingest checkpoints "
+                  "publish under the prefix, and a restart loads the newest "
+                  "one)")
+        return 2
+    if args.snapshot and args.weights:
+        log.error("--snapshot and --weights both give the trunk's weights; "
+                  "pass one")
+        return 2
+    if args.replicas < 1:
+        log.error("--replicas must be >= 1, got %d", args.replicas)
+        return 2
+    buckets = tuple(int(b) for b in args.buckets.split(","))
     if args.compile_cache:
         from npairloss_tpu_torch.pipeline import enable_compile_cache
 
         enable_compile_cache(args.compile_cache)
     device = resolve_device(args.device)
-    index = load_index(args.index, device=device)
-    kind = "ivf" if index.KIND == "ivf-index" else "flat"
-    if kind != args.index_kind:
-        log.error("%s is a %s index; --index-kind %s needs one built with "
-                  "'index --kind %s'", args.index, kind, args.index_kind,
-                  args.index_kind)
-        return 2
-    model = None
-    input_shape = None
-    if args.model or args.weights:
+    if args.index_prefix:
+        found = load_newest(args.index_prefix, device=device)
+        if found is None:
+            log.error("no valid index under prefix %r", args.index_prefix)
+            return 2
+        index_path, index = found
+        log.warning("serving index %s", index_path)
+    else:
+        index_path = os.path.abspath(args.index)
+        index = load_index(args.index, device=device)
+    # The committed kind never dictates the served one: a flat commit is
+    # clustered at startup, an IVF commit serves through the exact scan.
+    # The watermark rides along either way (the rows are the same).
+    if args.index_kind == "ivf" and not isinstance(index, IVFIndex):
+        index = IVFIndex.from_gallery(index, clusters=args.ivf_clusters,
+                                      seed=args.seed)
+    elif args.index_kind == "flat" and isinstance(index, IVFIndex):
+        flat = GalleryIndex.build(index.host_emb, index.host_labels,
+                                  ids=index.ids, normalize=False,
+                                  device=device)
+        flat.ingest_watermark = index.ingest_watermark
+        index = flat
+
+    wal = ingest = None
+    base_watermark = int(index.ingest_watermark)
+    if args.wal_dir:
+        from npairloss_tpu_torch.resilience.wal import (
+            WalCorruptionError,
+            WriteAheadLog,
+        )
+
+        ingest = _IngestCheckpoints(index, index_path, args.index_prefix)
+        t0 = time.perf_counter()
+        try:
+            wal = WriteAheadLog(
+                args.wal_dir,
+                flush_interval_s=max(args.wal_flush_ms, 0.0) / 1e3)
+            # Exactly once: only the records above the commit's watermark.
+            payloads = list(wal.replay(after_seq=base_watermark))
+        except WalCorruptionError as e:
+            log.error("--wal-dir %s refused: %s", args.wal_dir, e)
+            return 2
+        ingest.apply_many(payloads)
+        st = wal.stats()
+        recovery = {"index_path": index_path,
+                    "base_watermark": base_watermark,
+                    "replayed": len(payloads),
+                    "replayed_rows": sum(len(p["ids"]) for p in payloads),
+                    "replay_ms": (time.perf_counter() - t0) * 1e3,
+                    "torn_records": st["torn_records"]}
+        log.warning("wal: recovered %s — last_seq %d, replayed %d record(s) "
+                    "above watermark %d in %.1f ms, torn_records %d",
+                    args.wal_dir, st["last_seq"], len(payloads),
+                    base_watermark, recovery["replay_ms"],
+                    st["torn_records"])
+
+    model = input_shape = None
+    if args.model or args.weights or args.snapshot:
         from npairloss_tpu_torch.models import get_model
         from npairloss_tpu_torch.models.convert import load_weights_npz
 
+        input_shape = (args.input_size, args.input_size, 3)
         model = get_model(args.model or "googlenet", device=device,
-                          seed=args.seed)
+                          seed=args.seed, input_shape=input_shape)
         if args.weights:
             load_weights_npz(model, args.weights)
-        input_shape = (args.input_size, args.input_size, 3)
-    buckets = tuple(int(b) for b in args.buckets.split(","))
-    engine = QueryEngine(
-        index,
-        EngineConfig(top_k=args.top_k, buckets=buckets,
-                     gallery_block=args.gallery_block, probes=args.probes,
-                     scoring=args.scoring, probe_impl=args.probe_impl),
-        model=model)
-    engine.warmup(input_shape)
+        if args.snapshot:
+            from npairloss_tpu_torch.train.solver import (
+                load_inference_state,
+                restore_for_inference,
+            )
+
+            load_inference_state(
+                model, restore_for_inference(args.snapshot, device=device))
+    cfg = EngineConfig(top_k=args.top_k, buckets=buckets,
+                       gallery_block=args.gallery_block, probes=args.probes,
+                       scoring=args.scoring, probe_impl=args.probe_impl)
+    engine = QueryEngine(index, cfg, model=model)
+    if not args.no_warmup:
+        engine.warmup(input_shape)
+    # Replicas share the primary's index tensors, model and kernels.
+    engines = [engine] + [QueryEngine(index, cfg, share_compiled_with=engine)
+                          for _ in range(args.replicas - 1)]
     server = RetrievalServer(
-        engine,
+        engines,
         BatcherConfig(max_batch=buckets[-1], max_delay_ms=args.deadline_ms,
                       max_queue=args.max_queue),
-        freshness=Freshness.collect(index=index,
-                                    index_path=os.path.abspath(args.index),
-                                    weights_path=args.weights))
-    return server.run_jsonl(sys.stdin, sys.stdout)
+        ServerConfig(metrics_window=args.metrics_window, poll_s=args.poll_s,
+                     explicit_drops=args.explicit_drops),
+        preempt=PreemptionSignal(),
+        freshness=Freshness.collect(index=index, index_path=index_path,
+                                    weights_path=args.weights,
+                                    snapshot_path=args.snapshot))
+    if wal is not None:
+        server.attach_wal(
+            wal, ingest.apply, checkpoint_fn=ingest.publish,
+            checkpoint_every=args.wal_checkpoint_every,
+            watermark=max(base_watermark, wal.last_seq),
+            checkpoint_watermark=base_watermark, recovery=recovery)
+    return server, wal
+
+
+def cmd_serve(args) -> int:
+    """Build the tier (:func:`build_server`) and answer over stdin/JSONL,
+    or localhost HTTP with ``--http``, until EOF or a SIGTERM drain
+    (exit 75)."""
+    built = build_server(args)
+    if isinstance(built, int):
+        return built
+    server, wal = built
+    server.preempt.install()
+    try:
+        if args.http is not None:
+            return server.run_http(args.http, out_stream=sys.stdout)
+        return server.run_jsonl(sys.stdin, sys.stdout)
+    finally:
+        server.preempt.uninstall()
+        if wal is not None:
+            wal.close()
 
 
 def _resolve_net_path(args, net_path: Optional[str]) -> Optional[str]:
@@ -1036,38 +1254,103 @@ def build_parser() -> argparse.ArgumentParser:
     ix.add_argument("--prefix", default="./features",
                     help="reads PREFIX.emb.npy + PREFIX.labels.npy, "
                     "commits PREFIX.gidx")
+    ix.add_argument("--emb", help="explicit embeddings .npy path")
+    ix.add_argument("--labels", help="explicit labels .npy path")
+    ix.add_argument("--out", help="index directory to commit (.gidx)")
+    ix.add_argument("--add-to", dest="add_to", metavar="INDEX",
+                    help="append rows to an existing index and re-commit "
+                    "it instead of building fresh")
+    ix.add_argument("--no-normalize", dest="no_normalize",
+                    action="store_true",
+                    help="trust the rows are already unit-norm")
+    ix.add_argument("--info", metavar="INDEX",
+                    help="print an existing index's manifest summary and "
+                    "exit")
     ix.add_argument("--kind", choices=["flat", "ivf"], default="flat")
     ix.add_argument("--clusters", type=int, default=0,
                     help="ivf cluster count (0 = ~sqrt(N))")
+    ix.add_argument("--kmeans-iters", dest="kmeans_iters", type=int,
+                    default=10, help="ivf k-means Lloyd iterations")
+    ix.add_argument("--train-sample", dest="train_sample", type=int,
+                    default=131072,
+                    help="ivf k-means training subsample bound")
+    ix.add_argument("--parity-sample", dest="parity_sample", type=int,
+                    default=256,
+                    help="gallery rows queried for the build-time recall "
+                    "stamp in the ivf manifest (0 disables)")
+    ix.add_argument("--parity-probes", dest="parity_probes", type=int,
+                    default=8, help="probe count the parity stamp measures")
     common(ix)
     ix.set_defaults(fn=cmd_index)
 
-    sv = sub.add_parser("serve", help="answer JSONL queries on stdin")
-    sv.add_argument("--index", required=True,
-                    help="committed index dir (.gidx)")
+    sv = sub.add_parser("serve", help="answer top-K queries over stdin/JSONL "
+                        "or localhost HTTP")
+    sv_idx = sv.add_mutually_exclusive_group(required=True)
+    sv_idx.add_argument("--index", help="committed index dir (.gidx)")
+    sv_idx.add_argument("--index-prefix", dest="index_prefix",
+                        help="serve the newest valid <prefix>*.gidx (torn "
+                        "and tmp commits skipped)")
+    sv.add_argument("--snapshot",
+                    help="port training snapshot (<prefix>iter_<k>.ckpt) "
+                    "whose trunk encodes raw-'input' queries")
     sv.add_argument("--index-kind", dest="index_kind",
-                    choices=["flat", "ivf"], default="flat")
+                    choices=["flat", "ivf"], default="flat",
+                    help="served structure; a flat commit served as ivf is "
+                    "clustered at startup")
+    sv.add_argument("--ivf-clusters", dest="ivf_clusters", type=int,
+                    default=0,
+                    help="clusters for a flat commit served as ivf (0 = "
+                    "~sqrt(N))")
     sv.add_argument("--probes", type=int, default=8)
     sv.add_argument("--scoring", choices=["fp32", "bf16", "int8"],
                     default="fp32")
     sv.add_argument("--probe-impl", dest="probe_impl",
                     choices=sorted(PROBE_IMPLS), default="scan")
+    sv.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the front end, each with "
+                    "its own batcher, dispatcher thread and CUDA stream")
     sv.add_argument("--top-k", dest="top_k", type=int, default=10)
     sv.add_argument("--buckets", default="1,8,32")
     sv.add_argument("--gallery-block", dest="gallery_block", type=int,
                     default=4096)
     sv.add_argument("--model", help="model registry name for raw-'input' "
-                    "queries (default googlenet when --weights is given)")
+                    "queries (default googlenet with --weights/--snapshot)")
     sv.add_argument("--weights", help="flattened flax param tree (.npz)")
     sv.add_argument("--input-size", dest="input_size", type=int,
                     default=224)
     sv.add_argument("--deadline-ms", dest="deadline_ms", type=float,
                     default=5.0)
     sv.add_argument("--max-queue", dest="max_queue", type=int, default=256)
+    sv.add_argument("--metrics-window", dest="metrics_window", type=int,
+                    default=100,
+                    help="answered queries per logged latency row (0 = none)")
+    sv.add_argument("--poll-s", dest="poll_s", type=float, default=0.1,
+                    help="front-end wakeup period while idle")
+    sv.add_argument("--http", type=int, metavar="PORT",
+                    help="serve localhost HTTP on PORT (0 = ephemeral) "
+                    "instead of stdin/JSONL")
+    sv.add_argument("--no-warmup", dest="no_warmup", action="store_true",
+                    help="skip the per-bucket warmup dispatches")
     sv.add_argument(
         "--compile-cache", dest="compile_cache", metavar="DIR",
         help="shared build directory (see train --compile-cache): replica "
         "restarts load the kernel library instead of rebuilding it")
+    sv.add_argument("--explicit-drops", dest="explicit_drops",
+                    action="store_true",
+                    help="carry queries_dropped in the drain summary and "
+                    "/healthz even at zero")
+    sv.add_argument("--wal-dir", dest="wal_dir", metavar="DIR",
+                    help="durable ingest: acknowledge an ingest record only "
+                    "after it is fsynced to this write-ahead log (needs "
+                    "--index-prefix)")
+    sv.add_argument("--wal-flush-ms", dest="wal_flush_ms", type=float,
+                    default=0.0, metavar="MS",
+                    help="group-commit fsync interval; 0 fsyncs inline on "
+                    "every append")
+    sv.add_argument("--wal-checkpoint-every", dest="wal_checkpoint_every",
+                    type=int, default=8, metavar="N",
+                    help="publish an index checkpoint every N ingest "
+                    "records (one always lands at drain; 0 = drain-only)")
     common(sv)
     sv.set_defaults(fn=cmd_serve)
 

@@ -22,7 +22,10 @@ Python runs once when a CUDA graph captures it and never when the graph
 replays: the capturing code takes the counters' change across the
 capture (:func:`counter_state`), takes it back out, and adds it once per
 replay (:func:`add_counters`), so a counter still counts launches on the
-card.
+card.  Every change to a counter goes through :func:`bump` (or
+:func:`add_counters`) under one lock: replica dispatcher threads launch
+the same kernels at once, and a bare ``+= 1`` from two threads can lose
+a count.
 """
 
 from __future__ import annotations
@@ -96,6 +99,7 @@ _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
 
 _counted: List[Callable] = []
+_count_lock = threading.Lock()
 
 
 def counted(fn: Callable) -> Callable:
@@ -113,10 +117,17 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for fn in _counted:
-        fn.launches = 0
-        if hasattr(fn, "bf16_launches"):
-            fn.bf16_launches = 0
+    with _count_lock:
+        for fn in _counted:
+            fn.launches = 0
+            if hasattr(fn, "bf16_launches"):
+                fn.bf16_launches = 0
+
+
+def bump(fn: Callable, attr: str = "launches", n: int = 1) -> None:
+    """Add ``n`` to one counter of a kernel wrapper (thread-safe)."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + n)
 
 
 # Every counter attribute a wrapper may carry.
@@ -132,8 +143,9 @@ def counter_state() -> Dict[tuple, int]:
 def add_counters(delta: Dict[tuple, int], times: int = 1) -> None:
     """Add ``times`` x ``delta`` (a difference of two
     :func:`counter_state` readings) to the counters."""
-    for (fn, a), n in delta.items():
-        setattr(fn, a, getattr(fn, a) + times * n)
+    with _count_lock:
+        for (fn, a), n in delta.items():
+            setattr(fn, a, getattr(fn, a) + times * n)
 
 
 def _nvcc() -> str:

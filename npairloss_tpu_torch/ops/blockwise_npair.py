@@ -63,7 +63,13 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from npairloss_tpu_torch.obs.perf import count
-from npairloss_tpu_torch.ops._build import check, counted, library, stream_ptr
+from npairloss_tpu_torch.ops._build import (
+    bump,
+    check,
+    counted,
+    library,
+    stream_ptr,
+)
 from npairloss_tpu_torch.ops.npair_loss import (
     FLT_MAX,
     MiningMethod,
@@ -461,8 +467,8 @@ def _rows16(feats, pool):
 
 
 def _count(fn, bf16: bool) -> None:
-    fn.launches += 1
-    fn.bf16_launches += int(bf16)
+    bump(fn)
+    bump(fn, "bf16_launches", int(bf16))
 
 
 def _check_cache(sims, n: int, m: int, what: str) -> None:
@@ -781,7 +787,7 @@ def round_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     check(library().npl_round_bf16(
         x.data_ptr(), out.data_ptr(), out16.data_ptr(), x.shape[0],
         x.shape[1], out16.shape[1], stream_ptr(x.device)), "round_bf16")
-    round_bf16.launches += 1
+    bump(round_bf16)
     return out, out16
 
 

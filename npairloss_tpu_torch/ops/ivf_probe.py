@@ -36,7 +36,13 @@ import numpy as np
 import torch
 
 from npairloss_tpu_torch.obs.perf.count import priced
-from npairloss_tpu_torch.ops._build import check, counted, library, stream_ptr
+from npairloss_tpu_torch.ops._build import (
+    bump,
+    check,
+    counted,
+    library,
+    stream_ptr,
+)
 
 # The probe-impl registry: the CLI's --probe-impl vocabulary.
 # ``dispatch_count`` is the declared number of stages on the probe path
@@ -225,7 +231,7 @@ def probe_topk(q, packed, rows, lids, owned, scale=None, *, kl: int,
         out_s.data_ptr(), out_r.data_ptr(), bq, c, cap, d, int(kl),
         _SCORING_CODES[scoring], stream_ptr(q.device))
     check(err, "probe_topk")
-    probe_topk.launches += 1
+    bump(probe_topk)
     return out_s, out_r
 
 

@@ -31,7 +31,13 @@ import torch
 import torch.nn.functional as F
 
 from npairloss_tpu_torch.obs.perf.count import priced
-from npairloss_tpu_torch.ops._build import check, counted, library, stream_ptr
+from npairloss_tpu_torch.ops._build import (
+    bump,
+    check,
+    counted,
+    library,
+    stream_ptr,
+)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -219,7 +225,7 @@ def lrn_fwd(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
         _f32(alpha / size), float(beta), float(k), code,
         stream_ptr(x.device))
     check(err, "lrn_fwd")
-    lrn_fwd.launches += 1
+    bump(lrn_fwd)
     return out
 
 
@@ -240,7 +246,7 @@ def lrn_fwd_cached(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
         _f32(alpha / size), float(beta), float(k), code,
         stream_ptr(x.device))
     check(err, "lrn_fwd_cached")
-    lrn_fwd_cached.launches += 1
+    bump(lrn_fwd_cached)
     return out, d
 
 
@@ -268,7 +274,7 @@ def lrn_bwd(x: torch.Tensor, g: torch.Tensor, size: int = 5,
     if x.device.type == "cpu":
         return lrn_bwd_plain(x, g, None, size, alpha, beta, k)
     dx = _launch_lrn_bwd("lrn_bwd", x, g, None, size, alpha, beta, k)
-    lrn_bwd.launches += 1
+    bump(lrn_bwd)
     return dx
 
 
@@ -281,7 +287,7 @@ def lrn_bwd_cached(x: torch.Tensor, g: torch.Tensor, d: torch.Tensor,
     if x.device.type == "cpu":
         return lrn_bwd_plain(x, g, d, size, alpha, beta, k)
     dx = _launch_lrn_bwd("lrn_bwd_cached", x, g, d, size, alpha, beta, k)
-    lrn_bwd_cached.launches += 1
+    bump(lrn_bwd_cached)
     return dx
 
 
@@ -362,9 +368,9 @@ def _bias_relu_fwd(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         x.data_ptr(), b.data_ptr(), out.data_ptr(), x.numel(), c, code,
         stream_ptr(x.device))
     check(err, "fused_bias_relu")
-    fused_bias_relu.launches += 1
+    bump(fused_bias_relu)
     if not vector.value:
-        fused_bias_relu.scalar_launches += 1
+        bump(fused_bias_relu, "scalar_launches")
     return out
 
 
@@ -458,7 +464,7 @@ def _bias_relu_pool_fwd(x, bias, window, stride):
         x.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, w, c, ho, wo,
         int(window), int(stride), ph, pw, code, stream_ptr(x.device))
     check(err, "fused_bias_relu_pool")
-    fused_bias_relu_pool.launches += 1
+    bump(fused_bias_relu_pool)
     return out
 
 

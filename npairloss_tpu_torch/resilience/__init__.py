@@ -13,9 +13,11 @@
     (``NPAIRLOSS_FAILPOINTS`` or programmatic);
   * ``resilience.guard`` — the divergence guard (N consecutive
     non-finite losses -> rollback to a valid snapshot, or halt) and the
-    externally requested rollback.
+    externally requested rollback;
+  * ``resilience.wal`` — the ``npairloss-wal-v1`` write-ahead log behind
+    durable ingest (the JAX package's files byte for byte).
 
-The WAL and remediation are ROADMAP Queue 1 item 9's remainder.
+Remediation is ROADMAP Queue 1 item 9's remainder.
 """
 
 from npairloss_tpu_torch.resilience import failpoints

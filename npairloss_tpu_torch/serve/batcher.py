@@ -1,7 +1,9 @@
 """MicroBatcher — deadline-bounded query coalescing with backpressure.
 
 The port's own copy of ``npairloss_tpu/serve/batcher.py`` (the port
-imports nothing of the JAX package), without its failpoint hook.
+imports nothing of the JAX package), with its ``serve.queue_stall``
+failpoint and without its telemetry hooks (``span_fn``, ``on_batch``,
+``on_pick``: serving's spans are ROADMAP Queue 1 entry 4.2).
 
 Serving traffic arrives one query at a time; the accelerator wants
 fixed-shape micro-batches.  The batcher sits between them: callers
@@ -34,6 +36,8 @@ import queue
 import threading
 import time
 from typing import Any, Callable, List, Optional, Sequence
+
+from npairloss_tpu_torch.resilience import failpoints
 
 log = logging.getLogger("npairloss_tpu_torch.serve")
 
@@ -148,6 +152,9 @@ class MicroBatcher:
         fut: concurrent.futures.Future = concurrent.futures.Future()
         with self._admit_lock:
             if self._closed.is_set():
+                # A refusal like a full queue: the front end counted the
+                # query, so it must land in ``rejected``.
+                self.rejected += 1
                 raise QueueFullError("batcher is closed")
             try:
                 self._q.put_nowait((item, fut, time.perf_counter()))
@@ -169,6 +176,12 @@ class MicroBatcher:
                 continue
             if head is _STOP:
                 return
+            if failpoints.should_fire("serve.queue_stall"):
+                # Deterministic dispatcher stall: admissions pile up
+                # behind the held queue (past max_queue, the
+                # QueueFullError backpressure path) without touching the
+                # dispatch math.
+                time.sleep(failpoints.SERVE_QUEUE_STALL_S)
             batch = [head]
             deadline = head[2] + delay
             stop_after = False

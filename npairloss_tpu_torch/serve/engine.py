@@ -15,12 +15,23 @@ Every top-k keeps ``lax.top_k``'s rule that the lowest index wins a tie
 sort), so answers match the JAX engine row for row.  PyTorch runs
 eagerly: there are no compiled programs to count, and the summary keeps
 no compile counters.
+
+A replica engine (``share_compiled_with=primary``) shares the primary's
+index object, model and built kernels: one warmup warms the tier and no
+replica copies the gallery.  On the card every replica dispatches on its
+own CUDA stream (the primary on the current one), so replicas' batches
+overlap; a dispatch reads the
+index's published layout once and holds it until its results are on the
+host, so an ingest that republishes the layout never frees memory a
+dispatch still reads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import threading
 import time
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -170,14 +181,28 @@ def finalize_topk(s: torch.Tensor, r: torch.Tensor, k: int):
 class QueryEngine:
     """Answers ``(B, D)`` query embeddings with the gallery's top-k on
     the index's device.  ``model`` (an ``nn.Module`` on the same device)
-    enables :meth:`encode` for raw-input queries.  Dispatches are
-    serialized by the one batcher thread."""
+    enables :meth:`encode` for raw-input queries.  Dispatches come from
+    the replica's batcher thread, and also from a dead replica's while
+    the server reroutes its batches here; a dispatch keeps no state on
+    the engine but its counter, which takes a lock."""
 
     def __init__(self, index: GalleryIndex,
-                 cfg: EngineConfig = EngineConfig(), model=None):
+                 cfg: EngineConfig = EngineConfig(), model=None,
+                 share_compiled_with: Optional["QueryEngine"] = None):
         if cfg.top_k > index.size:
             raise ValueError(
                 f"top_k={cfg.top_k} exceeds gallery size {index.size}")
+        if share_compiled_with is not None:
+            other = share_compiled_with
+            if other.index is not index or other.cfg != cfg:
+                raise ValueError(
+                    "share_compiled_with requires the same index object "
+                    "and an identical EngineConfig")
+            if model is None:
+                model = other.model
+            elif model is not other.model:
+                raise ValueError(
+                    "share_compiled_with requires the primary's model")
         self.index = index
         self.cfg = cfg
         self.model = model
@@ -192,8 +217,27 @@ class QueryEngine:
             mdev = next(model.parameters()).device
             if mdev.type != self.device.type:
                 raise ValueError(f"model on {mdev}, index on {self.device}")
-        self.warmed = False
-        self.dispatches = 0
+        self.warmed = (share_compiled_with.warmed
+                       if share_compiled_with is not None else False)
+        self.dispatches = 0  # guarded-by: _count_lock
+        self._count_lock = threading.Lock()
+        # A replica dispatches on a stream of its own, so replicas'
+        # batches overlap on the card; a primary keeps the current one
+        # (in turns with it, one engine on its own stream ran 0-14 %
+        # slower on an H100: PERF.md §6).
+        self.stream = None
+        if self.device.type == "cuda" and share_compiled_with is not None:
+            self.stream = torch.cuda.Stream(self.device)
+            # Whatever the current stream has queued (the model's and
+            # the index's uploads) comes before this engine's work.
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    def _on_stream(self):
+        """This engine's CUDA stream as the current one (no-op on the
+        CPU)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
 
     def bucket_for(self, n: int) -> int:
         for b in self.cfg.buckets:
@@ -216,7 +260,7 @@ class QueryEngine:
         if bucket > n:
             x = np.concatenate(
                 [x, np.zeros((bucket - n, *x.shape[1:]), np.float32)])
-        with torch.inference_mode():
+        with torch.inference_mode(), self._on_stream():
             emb = l2_normalize(self.model(torch.as_tensor(
                 x, device=self.device)))
             return emb[:n].cpu().numpy()
@@ -247,11 +291,15 @@ class QueryEngine:
                 for key in outs[0]}
 
     def _topk(self, q: torch.Tensor):
+        """(scores, rows, held): ``held`` keeps the generation's device
+        arrays alive until the caller has the results on the host."""
         cfg = self.cfg
         idx = self.index
         if not self._ivf:
-            return stream_topk(q, idx.emb, idx.valid, cfg.top_k,
+            placed = idx.placed  # read once: one generation per dispatch
+            s, r = stream_topk(q, placed.emb, placed.valid, cfg.top_k,
                                cfg.gallery_block, cfg.scoring)
+            return s, r, placed
         layout = idx.layout  # read once: one generation per dispatch
         slab, scale = idx.scored_arrays(cfg.scoring, layout=layout)
         probe_fn = (fused_probe_topk if self.probe_impl == "fused"
@@ -259,7 +307,8 @@ class QueryEngine:
         s, r = probe_fn(q, slab, layout.rows, layout.centroids,
                         layout.cluster_valid, scale, k=cfg.top_k,
                         probes=cfg.probes, scoring=cfg.scoring, g0=0)
-        return finalize_topk(s, r, cfg.top_k)
+        s, r = finalize_topk(s, r, cfg.top_k)
+        return s, r, (layout, slab, scale)
 
     def _query_bucketed(self, q: np.ndarray) -> Dict[str, np.ndarray]:
         n = q.shape[0]
@@ -267,11 +316,16 @@ class QueryEngine:
         if bucket > n:
             q = np.concatenate(
                 [q, np.zeros((bucket - n, q.shape[1]), np.float32)])
-        with torch.inference_mode():
-            scores, rows = self._topk(torch.as_tensor(q, device=self.device))
+        with torch.inference_mode(), self._on_stream():
+            scores, rows, held = self._topk(
+                torch.as_tensor(q, device=self.device))
             scores = scores[:n].cpu().numpy()
             rows = rows[:n].cpu().numpy()
-        self.dispatches += 1
+        del held  # the results are on the host: the generation may go
+        with self._count_lock:
+            self.dispatches += 1
+        # Host arrays are replaced before a layout is published and only
+        # grow, so they cover every row of the generation just read.
         return {"scores": scores, "rows": rows,
                 "labels": self.index.host_labels[rows],
                 "ids": self.index.ids[rows]}

@@ -6,6 +6,16 @@ item ids on the host.  The ``.gidx`` on-disk layout is the JAX
 package's: ``.npy`` arrays plus ``manifest.json`` with per-array CRC-32
 (``serve/manifest.py``), committed by an atomic directory rename — an
 index saved by either package loads in the other.
+
+``add`` appends rows (the ingest path and ``index --add-to``) and
+republishes the device arrays as ONE :class:`FlatLayout` reference, so
+a dispatch that reads ``placed`` once sees one generation.  The host
+arrays are replaced before the device layout, and rows are only ever
+appended: a dispatch holding an older layout still maps its rows
+through the newer host arrays correctly.  ``ingest_watermark`` (the
+last write-ahead-log sequence number the rows contain) rides in the
+manifest under the JAX package's key, omitted at 0.  ``load_newest``
+scans ``<prefix>*.gidx`` newest first and skips torn or tmp commits.
 """
 
 from __future__ import annotations
@@ -14,12 +24,13 @@ import logging
 import os
 import shutil
 import time
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from npairloss_tpu_torch.device import DeviceLike, resolve_device
+from npairloss_tpu_torch.resilience import failpoints
 from npairloss_tpu_torch.serve.manifest import (
     TMP_MARKER,
     SnapshotValidationError,
@@ -34,6 +45,7 @@ from npairloss_tpu_torch.serve.manifest import (
 log = logging.getLogger("npairloss_tpu_torch.serve")
 
 INDEX_KIND = "gallery-index"
+INDEX_SUFFIX = ".gidx"
 # Committed-index kind -> class; serve/ivf.py registers ``ivf-index``.
 KIND_REGISTRY: Dict[str, type] = {}
 
@@ -44,12 +56,20 @@ def l2_normalize_rows(x: np.ndarray) -> np.ndarray:
     return x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
 
 
+class FlatLayout(NamedTuple):
+    """One published generation of the flat gallery on the device."""
+
+    emb: torch.Tensor     # (N, D) float32
+    labels: torch.Tensor  # (N,) int32
+    valid: torch.Tensor   # (N,) bool
+
+
 class GalleryIndex:
     """Flat gallery.  Build via :meth:`build` or :meth:`load`.
 
-    ``emb`` (N, D) fp32, ``labels`` (N,) int32 and ``valid`` (N,) bool
-    live on ``device``; ``ids`` (N,) int64 and the unpadded master copies
-    ``host_emb``/``host_labels`` live on the host."""
+    ``placed`` holds ``emb`` (N, D) fp32, ``labels`` (N,) int32 and
+    ``valid`` (N,) bool on ``device``; ``ids`` (N,) int64 and the
+    master copies ``host_emb``/``host_labels`` live on the host."""
 
     KIND = INDEX_KIND
     ARRAY_NAMES = ("emb", "labels", "ids")
@@ -63,9 +83,9 @@ class GalleryIndex:
         self.device = device
         self.created = created
         self.size = int(self.host_emb.shape[0])
-        self.emb: Optional[torch.Tensor] = None
-        self.labels: Optional[torch.Tensor] = None
-        self.valid: Optional[torch.Tensor] = None
+        self.placed: Optional[FlatLayout] = None
+        # The last WAL sequence number these rows contain (0 = none).
+        self.ingest_watermark = 0
 
     @staticmethod
     def _validate(embeddings, labels, ids, normalize: bool):
@@ -100,14 +120,71 @@ class GalleryIndex:
         return idx
 
     def _place(self) -> None:
-        self.emb = torch.as_tensor(self.host_emb, device=self.device)
-        self.labels = torch.as_tensor(self.host_labels, device=self.device)
-        self.valid = torch.ones(self.size, dtype=torch.bool,
-                                device=self.device)
+        layout = FlatLayout(
+            emb=torch.as_tensor(self.host_emb, device=self.device),
+            labels=torch.as_tensor(self.host_labels, device=self.device),
+            valid=torch.ones(self.host_emb.shape[0], dtype=torch.bool,
+                             device=self.device))
+        _publish_ready(self.device)
+        self.size = int(self.host_emb.shape[0])
+        self.placed = layout  # the atomic republish
 
     @property
     def dim(self) -> int:
         return int(self.host_emb.shape[1])
+
+    @property
+    def padded_size(self) -> int:
+        """Rows the device holds: one device needs no padding, so the
+        true row count (JAX pads to the mesh width)."""
+        return int(self.size)
+
+    # -- incremental add ---------------------------------------------------
+
+    def _validate_added_rows(self, embeddings, labels, ids,
+                             normalize: bool):
+        """Coerce and check an :meth:`add` payload against this gallery;
+        ``ids`` default to the next ids after the largest one."""
+        emb = np.asarray(embeddings, np.float32)
+        lab = np.asarray(labels, np.int32).reshape(-1)
+        if emb.ndim != 2 or emb.shape[1] != self.host_emb.shape[1]:
+            raise ValueError(
+                f"added embeddings {emb.shape} do not match gallery dim "
+                f"{self.host_emb.shape[1]}")
+        if emb.shape[0] != lab.shape[0]:
+            raise ValueError(
+                f"embeddings {emb.shape} / labels {lab.shape} mismatch")
+        if normalize:
+            emb = l2_normalize_rows(emb)
+        if ids is None:
+            start = int(self.ids.max()) + 1 if self.ids.size else 0
+            ids = np.arange(start, start + emb.shape[0], dtype=np.int64)
+        else:
+            ids = np.asarray(ids, np.int64).reshape(-1)
+            if ids.shape[0] != emb.shape[0]:
+                raise ValueError(
+                    f"ids {ids.shape} / embeddings {emb.shape} mismatch")
+        return emb, lab, ids
+
+    def add(self, embeddings: np.ndarray, labels: np.ndarray,
+            ids: Optional[np.ndarray] = None,
+            normalize: bool = True) -> int:
+        """Append rows and republish the device layout; returns the new
+        ``size``.  O(N) host work and one fresh upload, so adds are for
+        refresh cadence, not the per-query path.  Called from one thread
+        at a time (the server's ingest worker, or the CLI)."""
+        emb, lab, ids = self._validate_added_rows(
+            embeddings, labels, ids, normalize)
+        self._append_host(emb, lab, ids)
+        self._place()
+        # A content refresh is a freshness event.
+        self.created = time.time()
+        return self.size
+
+    def _append_host(self, emb, lab, ids) -> None:
+        self.host_emb = np.concatenate([self.host_emb, emb])
+        self.host_labels = np.concatenate([self.host_labels, lab])
+        self.ids = np.concatenate([self.ids, ids])
 
     # -- persistence -------------------------------------------------------
 
@@ -116,8 +193,13 @@ class GalleryIndex:
                 "ids": self.ids}
 
     def _manifest_extra(self) -> dict:
-        """Subclass hook: extra manifest keys."""
-        return {}
+        """Extra manifest keys; subclasses merge ``super()``'s so the
+        ingest watermark survives every kind.  Omitted at 0, so a
+        WAL-less commit keeps the older manifest's keys."""
+        out: dict = {}
+        if self.ingest_watermark:
+            out["ingest_watermark"] = int(self.ingest_watermark)
+        return out
 
     def save(self, path: str) -> str:
         """Commit atomically: arrays + CRC manifest into a ``.tmp-`` dir,
@@ -139,10 +221,16 @@ class GalleryIndex:
         if os.path.isdir(final):
             old = f"{final}{TMP_MARKER}{nonce}-prev"
             os.replace(final, old)
+        failpoints.fire("index.commit.crash")
         os.replace(tmp, final)
         fsync_dir(parent)
         if old is not None:
             shutil.rmtree(old, ignore_errors=True)
+        # Debris of earlier crashed saves of this path (another nonce).
+        stale_mark = os.path.basename(final) + TMP_MARKER
+        for name in os.listdir(parent):
+            if name.startswith(stale_mark):
+                shutil.rmtree(os.path.join(parent, name), ignore_errors=True)
         log.info("gallery index -> %s (%d rows, dim %d)", final, self.size,
                  self.dim)
         return final
@@ -171,11 +259,67 @@ class GalleryIndex:
                   created=(float(created)
                            if isinstance(created, (int, float)) else None))
         idx._restore_extra(tree, manifest)
+        wm = manifest.get("ingest_watermark")
+        idx.ingest_watermark = int(wm) if isinstance(wm, int) else 0
         idx._place()
         return idx
 
     def _restore_extra(self, tree, manifest) -> None:
         """Subclass hook: take extra arrays from a verified tree."""
+
+
+def _publish_ready(device: torch.device) -> None:
+    """Wait for the uploads of a new layout before it is published:
+    replicas read it from their own CUDA streams, which do not order
+    after the stream that copied it."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+def list_indexes(prefix: str) -> List[Tuple[str, str]]:
+    """Committed candidates ``<prefix>*.gidx`` as (name, path), sorted
+    by name; tmp dirs never match."""
+    prefix = os.path.abspath(prefix)
+    parent, base = os.path.dirname(prefix), os.path.basename(prefix)
+    out: List[Tuple[str, str]] = []
+    try:
+        entries = os.listdir(parent)
+    except OSError:
+        return out
+    for name in entries:
+        if (name.startswith(base) and name.endswith(INDEX_SUFFIX)
+                and TMP_MARKER not in name):
+            path = os.path.join(parent, name)
+            if os.path.isdir(path):
+                out.append((name, path))
+    out.sort()
+    return out
+
+
+def load_newest(prefix: str, device: DeviceLike = None
+                ) -> Optional[Tuple[str, GalleryIndex]]:
+    """The newest ``<prefix>*.gidx`` (by name) that loads, of any kind;
+    torn or corrupt candidates are skipped with a logged reason.
+    Returns (path, index) or None."""
+    for _, path in reversed(list_indexes(prefix)):
+        try:
+            return path, load_index(path, device=device)
+        except Exception as e:  # noqa: BLE001 — skip, try the next
+            log.warning("index load: skipping %s: %s", path, e)
+    return None
+
+
+def index_info(path: str) -> dict:
+    """Manifest summary for tooling (no array loads)."""
+    m = read_manifest(path)
+    return {
+        "path": os.path.abspath(path),
+        "kind": m.get("kind"),
+        "size": m.get("size"),
+        "dim": m.get("dim"),
+        "created": m.get("created"),
+        "ingest_watermark": int(m.get("ingest_watermark", 0) or 0),
+    }
 
 
 def load_index(path: str, device: DeviceLike = None) -> GalleryIndex:

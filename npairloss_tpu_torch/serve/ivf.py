@@ -12,6 +12,13 @@ Unlike the JAX package, ``cap`` is not rounded up to a multiple of 32:
 that alignment was a TPU tiling rule, and the CUDA probe kernel takes
 any ``cap``.  A ``.gidx`` stores centroids and assignments, not the
 slab, so indexes committed by either package load in the other.
+
+``add`` puts each new row in its nearest EXISTING cluster (no
+re-clustering) and republishes the packed layout as one
+:class:`IVFLayout` reference; ``cap`` grows with the largest cluster.
+``from_gallery`` clusters a flat gallery (a flat commit served through
+IVF).  ``measure_parity`` is the build-time recall birth certificate
+that ``index --parity-sample`` stamps into the manifest.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from npairloss_tpu_torch.serve.index import (
     KIND_REGISTRY,
     GalleryIndex,
     SnapshotValidationError,
+    _publish_ready,
 )
 
 log = logging.getLogger("npairloss_tpu_torch.serve")
@@ -72,6 +80,9 @@ class IVFIndex(GalleryIndex):
         self.assign_host: Optional[np.ndarray] = None
         self.layout: Optional[IVFLayout] = None
         self._scored: Dict[str, tuple] = {}
+        # measure_parity's result, stamped into the manifest at build
+        # time and kept through load and re-commit.
+        self.parity: Optional[dict] = None
 
     @classmethod
     def build_ivf(cls, embeddings: np.ndarray, labels: np.ndarray,
@@ -96,6 +107,33 @@ class IVFIndex(GalleryIndex):
         log.info("ivf index built: %d rows -> %d clusters (cap %d, dim %d)",
                  n, idx.layout.n_clusters, idx.layout.cap, idx.dim)
         return idx
+
+    @classmethod
+    def from_gallery(cls, gallery: GalleryIndex, **build_kw) -> "IVFIndex":
+        """Cluster a built or loaded flat gallery (its rows are unit-norm
+        already); the ingest watermark rides along, since the rows are
+        the same."""
+        build_kw.setdefault("device", gallery.device)
+        out = cls.build_ivf(gallery.host_emb, gallery.host_labels,
+                            ids=gallery.ids, normalize=False, **build_kw)
+        out.ingest_watermark = gallery.ingest_watermark
+        return out
+
+    def add(self, embeddings: np.ndarray, labels: np.ndarray,
+            ids: Optional[np.ndarray] = None,
+            normalize: bool = True) -> int:
+        """Append rows, each to its nearest existing centroid, and
+        republish the packed layout (``cap`` may grow); returns the new
+        ``size``."""
+        emb, lab, ids = self._validate_added_rows(
+            embeddings, labels, ids, normalize)
+        new_assign = assign_to_centroids(emb, self.centroids_host,
+                                         device=self.device)
+        self._append_host(emb, lab, ids)
+        self.assign_host = np.concatenate([self.assign_host, new_assign])
+        self._place()
+        self.created = time.time()
+        return self.size
 
     def _place(self) -> None:
         """Pack rows per cluster and publish a fresh layout (one reference
@@ -123,8 +161,9 @@ class IVFIndex(GalleryIndex):
                 np.asarray(self.centroids_host, np.float32), device=dev),
             cluster_valid=torch.as_tensor(sizes > 0, device=dev),
             n_clusters=kc, cap=cap)
+        _publish_ready(dev)
         self.size = n
-        self.layout = layout
+        self.layout = layout  # the atomic republish
 
     def scored_arrays(self, scoring: str,
                       layout: Optional[IVFLayout] = None) -> tuple:
@@ -143,6 +182,8 @@ class IVFIndex(GalleryIndex):
             out = (layout.packed.to(torch.bfloat16), None)
         else:
             out = quantize_int8(layout.packed)
+        # Replicas read the cached slab from their own streams.
+        _publish_ready(layout.packed.device)
         self._scored[scoring] = (layout, out)
         return out
 
@@ -157,9 +198,14 @@ class IVFIndex(GalleryIndex):
                 "assign": self.assign_host}
 
     def _manifest_extra(self) -> dict:
-        return {"n_clusters": int(self.centroids_host.shape[0])}
+        return {**super()._manifest_extra(),
+                "n_clusters": int(self.centroids_host.shape[0]),
+                **({"parity": self.parity} if self.parity else {})}
 
     def _restore_extra(self, tree, manifest) -> None:
+        parity = manifest.get("parity")
+        if isinstance(parity, dict):
+            self.parity = parity
         self.centroids_host = np.asarray(tree["centroids"], np.float32)
         self.assign_host = np.asarray(tree["assign"], np.int32)
         if self.assign_host.shape[0] != self.size:
@@ -185,3 +231,41 @@ def topk_recall(approx_rows: np.ndarray, exact_rows: np.ndarray,
     hits = sum(len(set(a[i, :k].tolist()) & set(e[i, :k].tolist()))
                for i in range(a.shape[0]))
     return hits / float(a.shape[0] * k)
+
+
+def measure_parity(index: IVFIndex, probes: int = 8,
+                   ks: Tuple[int, ...] = (1, 5, 10), sample: int = 256,
+                   scorings: Tuple[str, ...] = SCORINGS,
+                   seed: int = 0) -> dict:
+    """The build-time recall birth certificate: recall@K of the probe
+    path against the flat exact scan, per scoring mode, on ``sample``
+    gallery rows (numpy's generator from ``seed``) used as queries —
+    the JAX package's measurement, on the index's device."""
+    from npairloss_tpu_torch.serve.engine import EngineConfig, QueryEngine
+
+    n = index.size
+    ks = tuple(k for k in ks if k <= n)
+    if not ks:
+        raise ValueError(f"gallery of {n} rows supports none of ks")
+    kmax = max(ks)
+    m = min(int(sample), n)
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(n, size=m, replace=False)
+    queries = index.host_emb[rows]
+    bucket = min(64, m)
+    flat = GalleryIndex.build(index.host_emb, index.host_labels,
+                              ids=index.ids, normalize=False,
+                              device=index.device)
+    oracle = QueryEngine(flat, EngineConfig(top_k=kmax, buckets=(bucket,),
+                                            scoring="fp32"))
+    exact = oracle.query(queries, normalize=False)["rows"]
+    probes = max(1, min(int(probes), index.n_clusters))
+    recall: Dict[str, Dict[str, float]] = {}
+    for scoring in scorings:
+        engine = QueryEngine(index, EngineConfig(
+            top_k=kmax, buckets=(bucket,), probes=probes, scoring=scoring))
+        approx = engine.query(queries, normalize=False)["rows"]
+        recall[scoring] = {f"at_{k}": round(topk_recall(approx, exact, k), 4)
+                           for k in ks}
+    return {"probes": probes, "sample": m, "ks": list(ks), "recall": recall,
+            "measured_at": time.time()}

@@ -1553,3 +1553,70 @@ class _PipelinedStep:
         self.graph = None
         self.delta: Dict[tuple, int] = {}
         self.eager_steps = 0
+
+
+# The running-statistics buffers of the port's BatchNorm
+# (models/layers.py), flax's ``batch_stats`` leaves.
+_BATCH_STAT_LEAVES = ("mean", "var")
+
+
+def restore_for_inference(path: str, device: Optional[_device.DeviceLike]
+                          = None, retry: Optional[RetryPolicy] = None
+                          ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A port training snapshot -> ``{"params", "batch_stats"}`` for the
+    serving path, without a Solver (``npairloss_tpu/train/solver.py:
+    1935-2021``).  Each maps the model's ``state_dict`` names to tensors
+    on ``device`` (default: the card); ``batch_stats`` holds the
+    BatchNorms' running ``mean``/``var`` (empty for a BN-free trunk).
+
+    The read retries as restores do; only the model subset of the
+    commit manifest is checked (the momentum buffers and the iteration
+    are neither read by inference nor verified), and a mismatch raises
+    ``SnapshotValidationError``.  A manifest-less directory restores
+    unverified; a manifest that cannot be read is corruption."""
+    path = os.path.abspath(path)
+    dev = _device.resolve_device(device)
+
+    def do_restore():
+        failpoints.fire("snapshot.restore.io")
+        return read_state(path, dev)
+
+    state = call_with_retry(do_restore,
+                            retry if retry is not None else RetryPolicy(),
+                            describe=f"inference restore ({path})")
+    model = ({k: v for k, v in state.items() if k.startswith("model/")}
+             if isinstance(state, dict) else {})
+    if not model:
+        raise SnapshotValidationError(
+            f"{path} does not look like a training snapshot (no "
+            "'model/' tensors)")
+    try:
+        manifest = read_manifest(path)
+    except FileNotFoundError:
+        log.info("restored %s for inference without checksum "
+                 "verification (no commit manifest)", path)
+    except (OSError, ValueError) as e:
+        raise SnapshotValidationError(
+            f"unreadable manifest in {path}: {e}") from e
+    else:
+        subset = {k: v for k, v in manifest.get("arrays", {}).items()
+                  if k.startswith("model/")}
+        verify_restored(model, {"arrays": subset})
+    out: Dict[str, Dict[str, torch.Tensor]] = {"params": {},
+                                               "batch_stats": {}}
+    for key, t in model.items():
+        name = key[len("model/"):]
+        group = ("batch_stats" if name.rsplit(".", 1)[-1]
+                 in _BATCH_STAT_LEAVES else "params")
+        out[group][name] = t
+    return out
+
+
+def load_inference_state(model: torch.nn.Module,
+                         state: Dict[str, Dict[str, torch.Tensor]]
+                         ) -> torch.nn.Module:
+    """Copy :func:`restore_for_inference`'s tensors into ``model`` (every
+    name must match; dtypes follow the model's)."""
+    model.load_state_dict({**state["params"], **state["batch_stats"]},
+                          strict=True)
+    return model.eval()

@@ -53,7 +53,7 @@ import io, json, sys
 import numpy as np
 from npairloss_tpu_torch.serve.engine import EngineConfig, QueryEngine
 from npairloss_tpu_torch.serve.ivf import IVFIndex
-from npairloss_tpu_torch.serve.server import RetrievalServer
+from npairloss_tpu_torch.serve.server import RetrievalServer, ServerConfig
 from npairloss_tpu_torch.models import get_model
 rng = np.random.default_rng(0)
 emb = rng.standard_normal((64, 1024)).astype(np.float32)
@@ -64,7 +64,8 @@ eng = QueryEngine(idx, EngineConfig(top_k=3, buckets=(2,), probes=4,
 lines = [json.dumps({"id": 0, "embedding": emb[5].tolist()}),
          json.dumps({"id": 1, "input": np.zeros((32, 32, 3)).tolist()})]
 out = io.StringIO()
-RetrievalServer(eng).run_jsonl(io.StringIO("\n".join(lines) + "\n"), out)
+RetrievalServer(eng, cfg=ServerConfig(explicit_drops=True)).run_jsonl(
+    io.StringIO("\n".join(lines) + "\n"), out)
 ans = [json.loads(x) for x in out.getvalue().splitlines()]
 assert ans[0]["neighbors"][0]["row"] == 5, ans[0]
 assert "neighbors" in ans[1], ans[1]

@@ -200,7 +200,7 @@ def test_run_jsonl_answers_and_drain_invariant(committed):
     lines.append(json.dumps({"id": "empty"}))
     lines.append(json.dumps({"id": "img", "input": [[[0.0] * 3] * 4] * 4}))
     server = RetrievalServer(eng, BatcherConfig(max_batch=8),
-                             ServerConfig(poll_s=0.01),
+                             ServerConfig(poll_s=0.01, explicit_drops=True),
                              freshness=Freshness.collect(idx, path))
     out = io.StringIO()
     assert server.run_jsonl(io.StringIO("\n".join(lines) + "\n"), out) == 0
@@ -255,7 +255,8 @@ def test_cli_index_and_serve_subprocess(tmp_path):
                     for r in rows) + "{oops\n"
     sv = run(["serve", "--index", prefix + ".gidx", "--index-kind", "ivf",
               "--probes", "6", "--probe-impl", "fused", "--top-k", "3",
-              "--buckets", "1,4", "--device", "cpu"], input=stdin)
+              "--buckets", "1,4", "--explicit-drops", "--device", "cpu"],
+             input=stdin)
     assert sv.returncode == 0, sv.stderr
     out = [json.loads(ln) for ln in sv.stdout.strip().splitlines()]
     by_id = {a["id"]: a for a in out[:-1]}
