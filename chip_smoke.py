@@ -249,15 +249,51 @@ Phases (any failure raises, exits nonzero and prints no result line):
    peak, with cuBLAS's bf16 ``rows16 @ rows16.T`` beside stats, hist and
    loss and its bf16 product of the materialised 32,768² weight matrix by
    the bf16 rows beside gq/gdb (yardsticks, timings only);
-7. a ``{"kernels": [...]}`` line (launches of the serving kernels from
+7. the ResNet and ViT trunk families and Caffe interchange, under
+   ``build/trunk_smoke/`` (cuDNN deterministic): (a) ``train`` in-process
+   on ``examples/resnet50_sop_solver.prototxt`` cut to 6 iterations
+   (display 1, snapshot 3; ResNet-50 at batch 128 = 64 x 2, 224², pre-made
+   synthetic batches) under ``mxu``, dense and ``--engine blockwise``
+   (the net's mining swapped for the reference's, as in 6b), each
+   synchronously and with ``--pipeline``: finite losses, display
+   lines and ``--log-json`` records byte for byte, the final state bit
+   for bit, one capture and 4 replays, the blockwise run's bf16 five and
+   ``round_bf16`` launched; step ms over steps 2-6 and peak memory; a
+   ``--resume`` from the dense run's iter-3 snapshot ends on its state bit
+   for bit; (b) ``resnet50`` under ``fp32_parity`` on 4 images of 224²,
+   card against CPU on weights carried by ``models/convert.py``: the
+   training-mode forward and one backward within ``P7_TOL``; (c) ``train
+   --model vit_b16 --precision mxu --engine blockwise`` on the
+   GoogLeNet/CUB cut with the reference's mining (batch 120, 224²):
+   finite losses, the five launched,
+   step ms; the ``fp32_parity`` forward of 2 images card against CPU;
+   ``prof --step train`` for ``vit_b16`` and ``resnet50``: at batch 8
+   (``fp32_parity``) the card's step FLOPs equal to the CPU's count, at
+   batch 120 / 128 (``mxu``) the report and its MFU; (d)
+   ``tools.vit_stretch --batch 4096 --image 64 --steps 3 --mining
+   flagship``: ms/step, embeddings/s, peak memory, the five launched;
+   (e) ``.caffemodel`` files of a random ``resnet50`` and a plain
+   ``googlenet`` written by the port's codec, ``import-caffemodel`` ->
+   ``train --weights`` -> ``export-caffemodel --snapshot`` ->
+   ``import-caffemodel`` bit for bit; GoogLeNet also through ``test
+   --caffe-pad`` and ``train --caffe-solverstate`` (iteration 3 resumed,
+   steps 4-5, the exported solverstate's momentum and iteration equal to
+   the snapshot's); (f) ``serve --model resnet50`` and ``--model
+   vit_b16`` (``cli.build_server``, buckets of 1, the fused probe) over
+   an IVF gallery of 2,048 of the trunk's own embeddings: 38 raw 224²
+   queries answered, each equal to a direct forward plus the scan
+   engine (the probe's plain version; scores within ``TOL["serve_trunk"]``,
+   rows outside ties), the probe launched once a query;
+8. a ``{"kernels": [...]}`` line (launches of the serving kernels from
    phase 4, of the training kernels from phase 5, of ``lrn_bwd`` from
    the phase-5b recompute step, of the blockwise kernels from phase
    6b; the five blockwise kernels again as ``<name>:bf16``, their bf16
    mode, with its launches in phase 5f's blockwise run; the bf16 entries
    name their tensor-core kernels, and stats carries cuBLAS's bf16
    ``rows16 @ rows16.T`` as ``library_ms``, hist and loss none: the
-   path's cached variants compute no product); then the card
-   line; then the last line
+   path's cached variants compute no product; phase 7's launches of the
+   bf16 five, ``round_bf16`` and the probe as ``launches_phase7``); then
+   the card line; then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -298,6 +334,14 @@ TOL = {
     "step_grad_rel": 1e-3,
     # REFERENCE_CONFIG loss, card vs CPU, each from its own matmul.
     "mining_loss": 1e-5,
+    # A served answer's scores against a direct bf16 trunk forward of
+    # the same image and the plain probe: cuBLAS may take another bf16
+    # GEMM algorithm for one call than for another of the same shape, so
+    # a ViT-B/16 embedding at batch 1 is reproducible to bf16 noise only
+    # (served vs direct: a self-score of 0.99994, so |dq| = 0.011 bounds
+    # every score's move; 3.7e-3 seen on an H100); ResNet's cuDNN
+    # convolutions agreed within 6e-7.
+    "serve_trunk": 2e-2,
 }
 
 
@@ -673,7 +717,8 @@ def check_stem_scalar_paths(torch, detail, seed: int = 5):
 # -- phase 3: probe kernel ----------------------------------------------------
 
 
-def _rows_agree_outside_ties(np, s_p, r_k, r_p, real, what):
+def _rows_agree_outside_ties(np, s_p, r_k, r_p, real, what,
+                             tol=TOL["probe"]):
     """Rows must agree except inside a score tie (within 2 tol); returns
     the number of rows that differ inside ties."""
     sp = s_p.cpu().numpy()
@@ -682,7 +727,7 @@ def _rows_agree_outside_ties(np, s_p, r_k, r_p, real, what):
     diff = np.abs(np.diff(sp, axis=1))
     gap[:, 1:] = np.minimum(gap[:, 1:], diff)
     gap[:, :-1] = np.minimum(gap[:, :-1], diff)
-    if (mism & (gap > 2 * TOL["probe"])).any():
+    if (mism & (gap > 2 * tol)).any():
         fail(f"{what}: rows differ outside score ties")
     return int(mism.sum())
 
@@ -1061,15 +1106,18 @@ def drive_path(torch, seed, index, emb, detail):
 # -- phase 5: the training path -----------------------------------------------
 
 
-def cut_solver(work: str, name: str = "solver.prototxt", **over) -> str:
-    """The GoogLeNet/CUB solver cut to 6 iterations (test_iter 2, display
-    1, snapshot 0; ``over`` replaces these or other keys), written under
-    ``work`` as ``name``; returns its path."""
+def cut_solver(work: str, name: str = "solver.prototxt",
+               source: str = os.path.join("examples",
+                                          "googlenet_cub_solver.prototxt"),
+               **over) -> str:
+    """The GoogLeNet/CUB solver (or the solver at ``source``) cut to 6
+    iterations (test_iter 2, display 1, snapshot 0; ``over`` replaces
+    these or other keys), written under ``work`` as ``name``; returns its
+    path."""
     import re
 
     os.makedirs(work, exist_ok=True)
-    text = open(os.path.join("examples", "googlenet_cub_solver.prototxt")
-                ).read()
+    text = open(source).read()
     keys = {"max_iter": 6, "test_iter": 2, "display": 1, "snapshot": 0}
     keys.update(over)
     for key, val in keys.items():
@@ -3293,13 +3341,15 @@ def _blockwise_size_mode(torch, timer, bw, nl, sortable_key, cfgs, rows, f,
 # -- phase 6b: the blockwise training path ------------------------------------
 
 
-def blockwise_net(work):
-    """examples/googlenet_cub.prototxt with its mining swapped for the
-    reference's shipped config (examples/resnet50_global_relhard.prototxt:
-    48-59, usage/def.prototxt's values)."""
+def blockwise_net(work, source=os.path.join("examples",
+                                            "googlenet_cub.prototxt")):
+    """examples/googlenet_cub.prototxt (or the net at ``source``) with its
+    mining swapped for the reference's shipped config
+    (examples/resnet50_global_relhard.prototxt: 48-59,
+    usage/def.prototxt's values)."""
     import re
 
-    net = open(os.path.join("examples", "googlenet_cub.prototxt")).read()
+    net = open(source).read()
     mining = ("npair_loss_param {\n        margin_ident: 0\n"
               "        margin_diff: -0.05\n        identsn: -0.0\n"
               "        diffsn: -0.3\n        ap_mining_region: GLOBAL\n"
@@ -3308,8 +3358,10 @@ def blockwise_net(work):
               "        an_mining_method: HARD\n    }")
     net, k = re.subn(r"npair_loss_param \{[^}]*\}", mining, net)
     if k != 1:
-        fail(f"googlenet_cub.prototxt has {k} npair_loss_param blocks")
-    path = os.path.join(work, "googlenet_cub_relhard.prototxt")
+        fail(f"{source} has {k} npair_loss_param blocks")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, os.path.basename(source).replace(
+        ".prototxt", "_relhard.prototxt"))
     with open(path, "w") as fh:
         fh.write(net)
     return path
@@ -4544,12 +4596,13 @@ class _TrainBatches:
     fed by it measures the generator.  A resumed run takes them from its
     snapshot's index."""
 
-    def __init__(self, n=PIPE_ITERS):
+    def __init__(self, n=PIPE_ITERS, ids=60):
         from npairloss_tpu_torch.data.synthetic import (
             synthetic_identity_batches,
         )
 
-        gen = synthetic_identity_batches(240, 60, 2, (224, 224, 3), seed=0)
+        gen = synthetic_identity_batches(4 * ids, ids, 2, (224, 224, 3),
+                                         seed=0)
         self._made = [next(gen) for _ in range(n)]
 
     def __getitem__(self, i):
@@ -5603,6 +5656,642 @@ def drive_distribution(torch, seed, detail):
                               "wall_s": wall}
 
 
+# -- phase 7: the ResNet and ViT trunk families, Caffe interchange -------------
+
+TRUNK_WORK = os.path.join("build", "trunk_smoke")
+RESNET_SOLVER = os.path.join("examples", "resnet50_sop_solver.prototxt")
+RESNET_NET = os.path.join("examples", "resnet50_sop.prototxt")
+P7_ITERS = 6
+P7_KERNELS = tuple(f"{k}:bf16" for k in BLOCKWISE_KERNELS) + ("round_bf16",)
+# (pool rows, embedding width) of the new trunks' blockwise losses.
+P7_WIDTHS = ((128, 2048), (120, 768), (4096, 768))
+P7_TOL = {
+    # fp32_parity, card (cuDNN/cuBLAS, TF32 off) vs CPU: unit embeddings,
+    # and each parameter's gradient error against the whole gradient's
+    # norm (53 BatchNorms and 53 convolutions summed in other orders).
+    "emb": 1e-4,
+    "grad_rel": 1e-3,
+}
+
+
+def _cli(argv):
+    """``cli.main(argv)`` in-process: (rc, stdout lines)."""
+    from npairloss_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue().splitlines()
+
+
+def _finite_events(events, what):
+    for rec in events:
+        bad = {k: v for k, v in rec.items()
+               if isinstance(v, float) and not math.isfinite(v)}
+        if bad:
+            fail(f"{what}: non-finite values in {rec.get('event')}: {bad}")
+
+
+def _p7_run(torch, seed, tag, argv, pipeline, batches, start=0, **cut):
+    """One phase-7 ``train`` on the ResNet-50/SOP solver cut to 6
+    iterations (display 1, snapshot 3), fed the pre-made batches from
+    ``start``; the peak allocated bytes beside ``_pipe_train``'s
+    record."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cut = {"max_iter": P7_ITERS, "display": 1, "snapshot": 3,
+           "source": RESNET_SOLVER, **cut}
+    r = _pipe_train(torch, seed, tag, argv, pipeline,
+                    batches=batches.from_index(start), **cut)
+    r["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if r["rc"] != 0:
+        fail(f"7 {tag} {'pipe' if pipeline else 'sync'}: train returned "
+             f"{r['rc']}: {r['lines'][-5:]}")
+    _finite_events(r["events"], f"7 {tag}")
+    for ln in r["lines"]:
+        log(f"[7 {tag}{' pipe' if pipeline else ''}] {ln}")
+    return r
+
+
+def drive_resnet_train(torch, seed, detail):
+    """7 (a): ``examples/resnet50_sop_solver.prototxt`` (ResNet-50, batch
+    128 = 64 x 2, 224²) under ``mxu``, dense (the SOP net's mining) and
+    blockwise (the reference's), synchronous and ``--pipeline``, and a
+    resume from the dense run's iter-3 snapshot.  Returns the blockwise
+    run's launches."""
+    from npairloss_tpu_torch.train.solver import PIPELINE_WARMUP_STEPS
+
+    card = detail["card"]
+    t0 = time.perf_counter()
+    batches = _TrainBatches(P7_ITERS, ids=64)
+    log(f"[7a] {P7_ITERS} synthetic batches of 128 made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rec, finals = {}, {}
+    launches = None
+    # The blockwise runs take the reference's mining (GLOBAL/RELATIVE_HARD
+    # AP: the hist kernel's path), the SOP net's LOCAL/RAND AP needs no
+    # selection sweep.
+    nets = {"dense": [], "blockwise": [
+        "--net", blockwise_net(TRUNK_WORK, RESNET_NET)]}
+    for engine in ("dense", "blockwise"):
+        runs = {}
+        for pipe in (False, True):
+            runs[pipe] = _p7_run(torch, seed, f"r50_{engine}",
+                                 ["--precision", "mxu", "--engine", engine,
+                                  *nets[engine]], pipe, batches)
+        s, p = runs[False], runs[True]
+        disp = [e["iteration"] for e in s["events"]
+                if e["event"] == "display"]
+        if disp != list(range(1, P7_ITERS + 1)):
+            fail(f"7a {engine}: display iterations {disp}")
+        if s["solver"].model.__class__.__name__ != "ResNetEmbedding" or \
+                s["solver"].model.embedding_dim != 2048:
+            fail(f"7a {engine}: the solver's trunk is not ResNet-50")
+        if _masked_lines(s) != _masked_lines(p):
+            fail(f"7a {engine}: display lines differ sync vs pipelined")
+        if _masked_events(s["events"], s["work"]) != \
+                _masked_events(p["events"], p["work"]):
+            fail(f"7a {engine}: --log-json records differ")
+        differ, n = _state_equal(torch, s["solver"], p["solver"])
+        if differ:
+            fail(f"7a {engine}: final state differs in {differ[:5]}")
+        st = p["stats"]
+        if st["captures"] != 1 or \
+                st["replays"] != P7_ITERS - PIPELINE_WARMUP_STEPS:
+            fail(f"7a {engine}: expected one capture and "
+                 f"{P7_ITERS - PIPELINE_WARMUP_STEPS} replays: {st}")
+        if s["launches"] != p["launches"]:
+            fail(f"7a {engine}: launches sync {s['launches']} pipelined "
+                 f"{p['launches']}")
+        if engine == "blockwise":
+            short = [k for k in P7_KERNELS if s["launches"].get(k, 0) < 1]
+            if short:
+                fail(f"7a: the blockwise mxu steps did not launch {short}: "
+                     f"{s['launches']}")
+            launches = s["launches"]
+        finals[engine] = {k: v.clone()
+                          for k, v in s["solver"].state_dict().items()}
+        rec[engine] = {
+            "sync_step_ms": s["step_ms"], "pipe_step_ms": p["step_ms"],
+            "sync_median_ms": statistics.median(s["step_ms"]),
+            "pipe_median_ms": statistics.median(p["step_ms"]),
+            "sync_peak_bytes": s["peak_bytes"],
+            "pipe_peak_bytes": p["peak_bytes"],
+            "launches": s["launches"], "tensors_equal": n,
+            "capture_ms": st["capture_ms"][0],
+            "pool_bytes": st["pool_bytes"][0], "replays": st["replays"],
+            "final_loss": [e for e in s["events"]
+                           if e["event"] == "display"][-1].get("loss")}
+        log(f"[7a {engine}] ResNet-50 batch 128 224² mxu: median step ms "
+            f"over steps 2-6 sync {rec[engine]['sync_median_ms']:.3f} "
+            f"pipelined {rec[engine]['pipe_median_ms']:.3f} "
+            f"({128 / rec[engine]['sync_median_ms'] * 1e3:.1f} images/s "
+            f"sync); peak {s['peak_bytes'] / 2**30:.2f} / "
+            f"{p['peak_bytes'] / 2**30:.2f} GiB; records byte for byte, "
+            f"{n} tensors bit for bit, {st['replays']} replays of one "
+            f"capture; launches {json.dumps(s['launches'])} ({card})")
+        snap3 = os.path.join(s["work"], "snap_iter_3.ckpt")
+        del runs, s, p
+        _release(torch)
+    # Resume from the dense run's iter-3 snapshot: steps 4-6 on batches
+    # 3-5 end on the uninterrupted run's state bit for bit.
+    r = _p7_run(torch, seed, "r50_resume",
+                ["--precision", "mxu", "--engine", "dense", "--resume",
+                 snap3], False, batches, start=3)
+    disp = [e["iteration"] for e in r["events"] if e["event"] == "display"]
+    if disp != list(range(4, P7_ITERS + 1)):
+        fail(f"7a resume: display iterations {disp}, wanted 4-6")
+    differ, n = _state_equal(torch, r["solver"].state_dict(),
+                             finals["dense"])
+    if differ:
+        fail(f"7a resume: state after resuming at 3 differs from the "
+             f"uninterrupted run in {differ[:5]}")
+    log(f"[7a] resumed at iteration 3 and trained to 6: {n} tensors bit "
+        f"for bit against the uninterrupted run")
+    rec["resume_tensors_equal"] = n
+    del r, finals
+    _release(torch)
+    return rec, launches
+
+
+def _grad_rel(torch, got, want):
+    """Largest per-parameter gradient error against the norm of the
+    whole gradient."""
+    norm = math.sqrt(sum(float((g.double() ** 2).sum())
+                         for g in want.values()))
+    return max(float((got[k].cpu() - want[k]).abs().max())
+               for k in want) / norm
+
+
+def check_trunk_parity(torch, seed, name, n, backward, detail_key, detail):
+    """7 (b)/(c): ``name`` under ``fp32_parity`` on ``n`` images of 224²,
+    the card against the CPU on the same weights carried across by
+    ``models/convert.py``: the training-mode forward, and with
+    ``backward`` one backward of a probe objective."""
+    import numpy as np
+
+    from npairloss_tpu_torch.models import convert, get_model
+
+    rng = np.random.default_rng(seed + 70)
+    x = torch.from_numpy(rng.uniform(-1, 1, (n, 224, 224, 3))
+                         .astype(np.float32))
+    m_gpu = get_model(name, device="cuda", seed=seed + 1,
+                      policy="fp32_parity", input_shape=(224, 224, 3)).train()
+    m_cpu = get_model(name, device="cpu", seed=seed + 2,
+                      policy="fp32_parity", input_shape=(224, 224, 3)).train()
+    params, stats = convert.to_jax_params(m_gpu, with_batch_stats=True)
+    convert.load_jax_params(m_cpu, params, stats)
+    probe = torch.from_numpy(rng.standard_normal(
+        (n, m_gpu.embedding_dim)).astype(np.float32))
+    t0 = time.perf_counter()
+    out = {}
+    for dev, m in (("cuda", m_gpu), ("cpu", m_cpu)):
+        with torch.set_grad_enabled(backward):
+            emb = m(x.to(dev))
+            if backward:
+                (emb * probe.to(dev)).sum().backward()
+        out[dev] = (emb.detach().cpu(),
+                    {k: p.grad.detach().cpu() for k, p in
+                     m.named_parameters()} if backward else None)
+    emb_err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    rec = {"emb_err": emb_err, "images": n, "wall_s": time.perf_counter()
+           - t0}
+    if backward:
+        rec["grad_rel"] = _grad_rel(torch, out["cuda"][1], out["cpu"][1])
+    log(f"[7 parity {name}] fp32_parity, {n} images 224², card vs CPU: "
+        f"embedding max_abs_err {emb_err:.3g}"
+        + (f", gradient error {rec['grad_rel']:.3g} of the gradient's norm"
+           if backward else "") + f" (tolerances {P7_TOL})")
+    if not emb_err <= P7_TOL["emb"] or \
+            (backward and not rec["grad_rel"] <= P7_TOL["grad_rel"]):
+        fail(f"7 parity {name}: card vs CPU beyond {P7_TOL}: {rec}")
+    detail[detail_key] = rec
+    del m_gpu, m_cpu, out
+    _release(torch)
+
+
+def drive_vit_train(torch, seed, card, rec):
+    """7 (c): ``train --model vit_b16 --precision mxu --engine blockwise``
+    on the GoogLeNet/CUB solver cut to 6 iterations (batch 120 = 60 x 2,
+    224², pre-made batches).  Returns the launches of its steps."""
+    batches = _TrainBatches(P7_ITERS)
+    # The reference's mining (the CUB net's needs no selection sweep).
+    r = _p7_run(torch, seed, "vit_blockwise",
+                ["--net", blockwise_net(TRUNK_WORK), "--model",
+                 "vit_b16", "--precision", "mxu", "--engine", "blockwise"],
+                False, batches, source=os.path.join(
+                    "examples", "googlenet_cub_solver.prototxt"),
+                snapshot=0)
+    model = r["solver"].model
+    if model.__class__.__name__ != "ViTEmbedding" or \
+            tuple(model.pos_embed.shape) != (1, 197, 768) or \
+            len(model.blocks) != 12:
+        fail("7c: the solver's trunk is not ViT-B/16 at 224²")
+    short = [k for k in P7_KERNELS if r["launches"].get(k, 0) < 1]
+    if short:
+        fail(f"7c: the ViT blockwise steps did not launch {short}")
+    med = statistics.median(r["step_ms"])
+    log(f"[7c] ViT-B/16 batch 120 224² mxu blockwise: median step ms over "
+        f"steps 2-6 {med:.3f} ({120 / med * 1e3:.1f} images/s); peak "
+        f"{r['peak_bytes'] / 2**30:.2f} GiB; launches "
+        f"{json.dumps(r['launches'])} ({card})")
+    rec["vit_train"] = {"step_ms": r["step_ms"], "median_ms": med,
+                           "peak_bytes": r["peak_bytes"],
+                           "launches": r["launches"]}
+    launches = r["launches"]
+    del r, model
+    _release(torch)
+    return launches
+
+
+def check_trunk_widths(torch, seed, card):
+    """7 (c): the blockwise kernels in the bf16 mode (the ``mxu`` path's)
+    at the new trunks' embedding widths and pools — N = 128, D = 2048
+    (ResNet-50), N = 120 and 4096, D = 768 (ViT-B/16) — against their
+    plain sweeps (``bf16_engine_bits``, ``bf16_kernel_checks``)."""
+    from npairloss_tpu_torch.ops import blockwise_npair as bw
+    from npairloss_tpu_torch.ops import npair_loss as nl
+    from npairloss_tpu_torch.ops.rank_select import sortable_key
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for n, d in P7_WIDTHS:
+        what = f"N={n} D={d}"
+        f, lab = unit_batch(torch, seed + 13 + d, n, d)
+        out[what] = {
+            "engine": bf16_engine_bits(torch, bw, nl, f, lab, what),
+            "kernels": bf16_kernel_checks(
+                torch, bw, nl, sortable_key, f, lab, what, 512,
+                bw.pool_splits(n, n, sms))[0]}
+        del f, lab
+    log(f"[7 widths] the bf16 five at {[w for w in out]}: kernel = plain "
+        f"({card})")
+    _release(torch)
+    return out
+
+
+def check_trunk_prof(torch, name, batch, card):
+    """7 (c): ``prof --step train`` for ``name``: at batch 8 under
+    ``fp32_parity`` the card's step FLOPs equal the CPU's count of the
+    same configuration; at ``batch`` under ``mxu`` the report, its MFU
+    and its top regions."""
+    from npairloss_tpu_torch.obs.perf.report import validate_report
+
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        out_dir = os.path.join(TRUNK_WORK, f"prof_{name}_{dev}8")
+        rc, lines = _cli(["prof", "--step", "train", "--model", name,
+                          "--precision", "fp32_parity", "--batch", "8",
+                          "--steps", "1" if dev == "cpu" else "2",
+                          "--device", dev, "--out", out_dir])
+        if rc != 0:
+            fail(f"7 prof {name} {dev}: rc {rc}: {lines[-3:]}")
+        counts[dev] = json.load(open(os.path.join(
+            out_dir, "perf_report.json")))["totals"]["flops_counted"]
+    if counts["cuda"] != counts["cpu"]:
+        fail(f"7 prof {name}: step FLOPs card {counts['cuda']} != CPU "
+             f"{counts['cpu']}")
+    out_dir = os.path.join(TRUNK_WORK, f"prof_{name}")
+    rc, lines = _cli(["prof", "--step", "train", "--model", name,
+                      "--precision", "mxu", "--batch", str(batch),
+                      "--steps", "4", "--out", out_dir])
+    if rc != 0:
+        fail(f"7 prof {name}: rc {rc}: {lines[-3:]}")
+    report = json.load(open(os.path.join(out_dir, "perf_report.json")))
+    err = validate_report(report)
+    if err:
+        fail(f"7 prof {name}: {err}")
+    mfu = report["timing"].get("mfu")
+    if not report["peaks"]["known"] or mfu is None or not 0.0 < mfu < 1.0:
+        fail(f"7 prof {name}: no MFU in {report['timing']}")
+    top = [(r["region"], f"{r['flops']:.3e}", f"{r['bytes']:.3e}",
+            r["bound"]) for r in report["regions"][:6]]
+    log(f"[7 prof {name}] batch 8 fp32_parity step FLOPs card = CPU = "
+        f"{counts['cpu']:.6e}; batch {batch} mxu {report['timing']}; "
+        f"totals flops {report['totals']['flops_counted']:.6e} bytes "
+        f"{report['totals']['bytes_counted']:.6e}; top regions {top} "
+        f"({card})")
+    return {"flops_batch8": counts["cpu"], "timing": report["timing"],
+            "totals": {k: report["totals"][k] for k in
+                       ("flops_counted", "bytes_counted")},
+            "regions": report["regions"][:12]}
+
+
+def check_vit_stretch(torch, seed, card):
+    """7 (d): the stretch's ViT path, ``tools.vit_stretch --batch 4096
+    --image 64 --steps 3 --mining flagship`` (a 4096-row pool through the
+    bf16 blockwise engine, ViT-B/16 at full width, trunk backward)."""
+    from npairloss_tpu_torch.tools import vit_stretch
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = vit_stretch.main(["--batch", "4096", "--image", "64", "--steps",
+                               "3", "--mining", "flagship", "--seed",
+                               str(seed)])
+    if rc != 0:
+        fail(f"7d: vit_stretch returned {rc}")
+    rec = json.loads(out.getvalue().strip().splitlines()[-1])
+    if not math.isfinite(rec["loss"]) or rec["batch"] != 4096 or \
+            rec["tokens"] != 17:
+        fail(f"7d: {rec}")
+    short = [k for k in P7_KERNELS if rec["launches"].get(k, 0) < 1]
+    if short:
+        fail(f"7d: the stretch steps did not launch {short}")
+    log(f"[7d] ViT-B/16 stretch 4096 x 64² ({rec['tokens']} tokens), "
+        f"flagship mining, bf16 blockwise: {rec['ms_per_step']:.3f} ms/step, "
+        f"{rec['emb_per_sec']:.1f} embeddings/s, peak "
+        f"{rec['peak_bytes'] / 2**30:.2f} GiB, loss {rec['loss']}; launches "
+        f"{json.dumps(rec['launches'])} ({card})")
+    _release(torch)
+    return rec
+
+
+def _trees_equal(a, b, what):
+    from npairloss_tpu_torch.models.convert import flatten_params
+
+    fa, fb = flatten_params(a), flatten_params(b)
+    if fa.keys() != fb.keys():
+        fail(f"{what}: trees differ in names: "
+             f"{sorted(set(fa) ^ set(fb))[:5]}")
+    bad = [k for k in fa if not (fa[k].shape == fb[k].shape
+                                 and (fa[k] == fb[k]).all())]
+    if bad:
+        fail(f"{what}: leaves differ bit for bit: {bad[:5]}")
+    return len(fa)
+
+
+def check_caffe_interchange(torch, seed, card):
+    """7 (e): a random ``resnet50`` and a plain ``googlenet`` written as
+    ``.caffemodel`` files by the port's codec, then ``import-caffemodel``
+    -> ``train --weights`` (2 steps) -> ``export-caffemodel --snapshot``
+    -> ``import-caffemodel``; GoogLeNet also through ``test
+    --caffe-pad`` and ``train --caffe-solverstate``."""
+    import shutil
+
+    import numpy as np
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.config.caffemodel import (
+        parse_solverstate,
+        write_caffemodel,
+        write_solverstate,
+    )
+    from npairloss_tpu_torch.models import caffe_import, convert, get_model
+
+    work = os.path.join(TRUNK_WORK, "caffe")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(seed + 71)
+    rec = {}
+
+    def cli_ok(argv, what):
+        rc, lines = _cli(argv)
+        if rc != 0:
+            fail(f"7e {what}: rc {rc}: {lines[-3:]}")
+        return lines
+
+    def path(name):
+        return os.path.join(work, name)
+
+    for family in ("resnet50", "googlenet"):
+        t0 = time.perf_counter()
+        model = get_model(family, device="cpu", seed=seed + 3)
+        params, stats = convert.to_jax_params(model, with_batch_stats=True)
+        if stats:
+            # Running statistics off their init, so the BN map shows.
+            stats = convert.unflatten_params({
+                k: rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+                for k, v in convert.flatten_params(stats).items()})
+            layers = caffe_import.caffemodel_layers_from_resnet50_params(
+                params, stats)
+        else:
+            layers = caffe_import.caffemodel_layers_from_googlenet_params(
+                params)
+        with open(path(f"{family}.caffemodel"), "wb") as f:
+            f.write(write_caffemodel(layers))
+        del model
+        cli_ok(["import-caffemodel", "--weights", path(f"{family}.caffemodel"),
+                "--model", family, "--out", path(f"{family}.npz")],
+               f"{family} import")
+        imported = convert.read_weights_npz(path(f"{family}.npz"))
+        _trees_equal(imported, {"params": params, "batch_stats": stats}
+                     if stats else params, f"7e {family} import")
+        if family == "resnet50":
+            solver = cut_solver(work, "r50_solver.prototxt",
+                                source=RESNET_SOLVER, max_iter=2,
+                                snapshot=2, test_initialization="false")
+            extra = ["--precision", "mxu"]
+        else:
+            solver = cut_solver(work, "g_solver.prototxt", max_iter=5,
+                                snapshot=5, test_initialization="false")
+            extra = ["--model", "googlenet", "--precision", "fp32_parity"]
+            # test --caffe-pad on the imported weights.
+            lines = cli_ok(["test", "--solver", solver, "--weights",
+                            path(f"{family}.npz"), "--caffe-pad",
+                            "--synthetic", "--iterations", "1", *extra],
+                           "googlenet test --caffe-pad")
+            res = json.loads(lines[-1])
+            if not all(math.isfinite(v) for v in res.values()):
+                fail(f"7e test --caffe-pad: {res}")
+            rec["googlenet_test_caffe_pad"] = res
+            # A Caffe solverstate at iteration 3: momentum and iteration
+            # resume, then steps 4-5.
+            mom = convert.unflatten_params({
+                k: rng.standard_normal(v.shape).astype(np.float32) * 1e-3
+                for k, v in convert.flatten_params(params).items()})
+            with open(path("g.solverstate"), "wb") as f:
+                f.write(write_solverstate(
+                    3, caffe_import.googlenet_history_from_momentum(mom)))
+            extra += ["--caffe-solverstate", path("g.solverstate")]
+        events = path(f"{family}_events.jsonl")
+        cli_ok(["train", "--solver", solver, "--weights",
+                path(f"{family}.npz"), "--synthetic", "--snapshot_prefix",
+                path(f"{family}_snap_"), "--log-json", events, *extra],
+               f"{family} train --weights")
+        evs = [json.loads(ln) for ln in open(events)]
+        _finite_events(evs, f"7e {family}")
+        disp = [e["iteration"] for e in evs if e["event"] == "display"]
+        want = [1, 2] if family == "resnet50" else [4, 5]
+        if disp != want:
+            fail(f"7e {family}: display iterations {disp}, wanted {want}")
+        last = 2 if family == "resnet50" else 5
+        snap = path(f"{family}_snap_iter_{last}.ckpt")
+        export = ["export-caffemodel", "--snapshot", snap, "--model",
+                  family, "--out", path(f"{family}_out.caffemodel")]
+        if family == "googlenet":
+            export += ["--solverstate-out", path("g_out.solverstate")]
+        cli_ok(export, f"{family} export")
+        cli_ok(["import-caffemodel", "--weights",
+                path(f"{family}_out.caffemodel"), "--model", family,
+                "--out", path(f"{family}_back.npz")], f"{family} re-import")
+        s_params, s_stats, s_mom, step = cli._read_snapshot_trees(snap)
+        back = convert.read_weights_npz(path(f"{family}_back.npz"))
+        n = _trees_equal(back, {"params": s_params, "batch_stats": s_stats}
+                         if s_stats else s_params, f"7e {family} round trip")
+        before = convert.flatten_params(params)
+        moved = any(not np.array_equal(v, before[k]) for k, v in
+                    convert.flatten_params(s_params).items())
+        if not moved:
+            fail(f"7e {family}: training did not move the weights")
+        if family == "googlenet":
+            ss = parse_solverstate(open(path("g_out.solverstate"),
+                                        "rb").read())
+            got, _ = caffe_import.googlenet_momentum_from_history(
+                ss["history"], s_mom, strict=True)
+            _trees_equal(got, s_mom, "7e googlenet solverstate")
+            if ss["iter"] != 5 or step != 5:
+                fail(f"7e googlenet: solverstate iteration {ss['iter']}, "
+                     f"snapshot {step}")
+        rec[family] = {"leaves": n, "wall_s": time.perf_counter() - t0,
+                       "caffemodel_bytes": os.path.getsize(
+                           path(f"{family}_out.caffemodel"))}
+        log(f"[7e {family}] .caffemodel -> import -> train {disp} -> "
+            f"export -> import: {n} leaves bit for bit"
+            + (", the solverstate's momentum and iteration 5 too"
+               if family == "googlenet" else "")
+            + f" in {rec[family]['wall_s']:.1f} s ({card})")
+    _release(torch)
+    return rec
+
+
+def check_trunk_serving(torch, seed, name, card):
+    """7 (f): ``serve --model name`` (``cli.build_server``, buckets of 1,
+    the fused probe) over an IVF gallery of the trunk's own embeddings of
+    2,048 images, answering 38 raw-image queries (gallery images) over
+    JSONL; each answer equal to a direct trunk forward of the query at
+    batch 1 plus the scan engine (the probe's plain version)."""
+    import numpy as np
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.models import get_model
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.ops.normalize import l2_normalize
+    from npairloss_tpu_torch.serve.engine import EngineConfig, QueryEngine
+    from npairloss_tpu_torch.serve.ivf import IVFIndex
+
+    t0 = time.perf_counter()
+    model = get_model(name, device="cuda", seed=seed,
+                      input_shape=(224, 224, 3))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 72)
+    embs, queries = [], None
+    with torch.inference_mode():
+        for i in range(16):
+            x = torch.randint(-128, 128, (128, 224, 224, 3), generator=gen,
+                              device="cuda").float()
+            if i == 0:
+                queries = x[:38].cpu().numpy()
+            embs.append(model(x).float().cpu().numpy())
+    emb = np.concatenate(embs)
+    labels = np.arange(emb.shape[0]) // 2
+    index = IVFIndex.build_ivf(emb, labels, normalize=True, iters=10,
+                               seed=seed, device="cuda")
+    index_path = os.path.join(TRUNK_WORK, f"serve_{name}.gidx")
+    index.save(index_path)
+    args = cli.build_parser().parse_args(
+        ["serve", "--index", index_path, "--model", name, "--index-kind",
+         "ivf", "--probe-impl", "fused", "--probes", "8", "--top-k", "10",
+         "--buckets", "1", "--seed", str(seed)])
+    built = cli.build_server(args)
+    if isinstance(built, int):
+        fail(f"7f {name}: serve refused ({built})")
+    server, _ = built
+    # The direct forward at the served batch (1), before serving.
+    with torch.inference_mode():
+        direct = np.concatenate([
+            l2_normalize(model(torch.as_tensor(q[None], device="cuda")))
+            .cpu().numpy() for q in queries])
+    lines = [json.dumps({"id": f"q{i}", "input": q.tolist()})
+             for i, q in enumerate(queries)]
+    out = io.StringIO()
+    _build.reset_launch_counts()
+    t1 = time.perf_counter()
+    rc = server.run_jsonl(io.StringIO("\n".join(lines) + "\n"), out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _build.launch_counts()
+    answers = {a.get("id"): a for a in map(json.loads,
+                                           out.getvalue().splitlines())}
+    summary = answers.pop(None, None) or answers.pop("serve_drain", None)
+    if rc != 0 or launches.get("probe_topk", 0) < len(queries):
+        fail(f"7f {name}: rc {rc}, probe launches "
+             f"{launches.get('probe_topk')} for {len(queries)} queries")
+    # The plain probe on the direct forward's embeddings.
+    plain = QueryEngine(server.engine.index, EngineConfig(
+        top_k=10, buckets=(1,), probes=8, probe_impl="scan"))
+    want = plain.query(direct)
+    self_top1, err = 0, 0.0
+    for i in range(len(queries)):
+        a = answers.get(f"q{i}")
+        if a is None or "error" in a:
+            fail(f"7f {name}: query {i} not answered: {a}")
+        rows = np.array([nb["row"] for nb in a["neighbors"]])
+        scores = np.array([nb["score"] for nb in a["neighbors"]],
+                          np.float32)
+        err = max(err, float(np.abs(scores - want["scores"][i]).max()))
+        if not err <= TOL["serve_trunk"]:
+            fail(f"7f {name}: query {i} scores {scores} != direct + plain "
+                 f"{want['scores'][i]}")
+        _rows_agree_outside_ties(
+            np, torch.as_tensor(want["scores"][i][None]),
+            torch.as_tensor(rows[None]), torch.as_tensor(
+                want["rows"][i][None]),
+            torch.ones((1, rows.size), dtype=torch.bool), f"7f {name} q{i}",
+            TOL["serve_trunk"])
+        self_top1 += int(rows[0] == i)
+    rec = {"queries": len(queries), "wall_s": wall, "score_err": err,
+           "probe_launches": launches["probe_topk"],
+           "self_top1": self_top1, "gallery": int(emb.shape[0]),
+           "clusters": index.n_clusters, "summary": summary,
+           "total_s": time.perf_counter() - t0}
+    log(f"[7f {name}] serve over {emb.shape[0]} own embeddings "
+        f"({index.n_clusters} clusters): {len(queries)} raw 224² queries "
+        f"answered in {wall:.2f} s, equal to a direct forward + the plain "
+        f"probe (scores within {err:.3g}); probe launches {launches['probe_topk']}; self top-1 "
+        f"{self_top1}/{len(queries)} ({card})")
+    del server, model, plain
+    _release(torch)
+    return rec
+
+
+def drive_trunks(torch, seed, detail):
+    """Phase 7 (see the module docstring); returns the launches of its
+    blockwise and probe kernels."""
+    card = detail["card"]
+    t_start = time.perf_counter()
+    os.makedirs(TRUNK_WORK, exist_ok=True)
+    cudnn = torch.backends.cudnn
+    det, bench = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    rec = {}
+    try:
+        rec["resnet_train"], r50_launches = drive_resnet_train(torch, seed,
+                                                               detail)
+        check_trunk_parity(torch, seed, "resnet50", 4, True,
+                           "resnet_parity", rec)
+        vit_launches = drive_vit_train(torch, seed, card, rec)
+        check_trunk_parity(torch, seed, "vit_b16", 2, False, "vit_parity",
+                           rec)
+        rec["widths"] = check_trunk_widths(torch, seed, card)
+        rec["prof"] = {name: check_trunk_prof(torch, name, batch, card)
+                       for name, batch in (("vit_b16", 120),
+                                           ("resnet50", 128))}
+        rec["stretch"] = check_vit_stretch(torch, seed, card)
+        rec["caffe"] = check_caffe_interchange(torch, seed, card)
+        rec["serve"] = {name: check_trunk_serving(torch, seed, name, card)
+                        for name in ("resnet50", "vit_b16")}
+    finally:
+        cudnn.deterministic, cudnn.benchmark = det, bench
+    launches = {k: r50_launches.get(k, 0) + vit_launches.get(k, 0)
+                + rec["stretch"]["launches"].get(k, 0) for k in P7_KERNELS}
+    launches["probe_topk"] = sum(v["probe_launches"]
+                                 for v in rec["serve"].values())
+    wall = time.perf_counter() - t_start
+    log(f"[7] {wall:.1f} s; launches in phase 7 {json.dumps(launches)}")
+    rec["launches"], rec["wall_s"] = launches, wall
+    detail["trunks"] = rec
+    return launches
+
+
 def _release(torch):
     import gc
 
@@ -5695,6 +6384,8 @@ def main() -> int:
     check_stretch_bf16(torch, Timer(torch), detail, args.seed)
     detail["pipeline"]["refusals"] = check_pipeline_refusals(
         torch, detail["card"])
+    _release(torch)
+    p7_launches = drive_trunks(torch, args.seed, detail)
 
     def entry(name, source, replaces, rows, counter, path=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -5798,6 +6489,13 @@ def main() -> int:
         "round_bf16", src, "npairloss_tpu/ops/pallas_npair.py:180",
         path_120(bw_rows["round_bf16"], "N x D", "bf16"), "round_bf16",
         bn_launches))
+    # Phase 7's launches: the bf16 five and the rounding in the ResNet-50,
+    # ViT-B/16 and stretch runs; the probe under serve --model
+    # resnet50|vit_b16.
+    for k in kernels:
+        counter = ("probe_topk" if k["name"] == "ivf_probe" else k["name"])
+        if counter in p7_launches:
+            k["launches_phase7"] = p7_launches[counter]
     # Phase 4b's launches of the four kernels the serving tier runs.
     for k in kernels:
         counter = {"lrn_fwd": "lrn_fwd", "bias_relu": "fused_bias_relu",

@@ -1,12 +1,15 @@
 """``python -m npairloss_tpu_torch
-index|serve|train|test|extract|eval|time|prof`` — the port's CLI.
+index|serve|train|test|extract|eval|time|prof|import-caffemodel|
+export-caffemodel`` — the port's CLI.
 
 Flag names follow ``npairloss_tpu``'s CLI for the ported subset; the
 port adds ``--device`` (default: the card; ``cpu`` to run without one)
 and ``--seed`` (the k-means seed, and the trunk's initialization when
 no weights are given), and its ``--weights`` reads a flattened flax
-param tree as ``.npz`` (``models/convert.py``).  A flag of the JAX CLI
-that is not ported is refused by argparse, never accepted and ignored.
+param tree as ``.npz`` (``models/convert.py``), where the JAX CLI reads
+flax msgpack.  A flag of the JAX CLI that is not ported is refused by
+argparse, never accepted and ignored.  Every trunk of the JAX registry
+is here (GoogLeNet, Inception-BN, the ResNets, ViT-B/16, the MLP).
 
   index:   build a flat or IVF ``PREFIX.gidx`` from ``PREFIX.emb.npy`` +
            ``PREFIX.labels.npy`` (or ``--emb``/``--labels``/``--out``;
@@ -44,7 +47,11 @@ that is not ported is refused by argparse, never accepted and ignored.
            one metrics row per step, the host span trace) and
            ``--trace-dir DIR`` the trace alone; ``--fleet`` stamps rank
            identity (automatic over several processes: every rank writes
-           its own ``*.r<k>.*`` files); ``--health-metrics`` and
+           its own ``*.r<k>.*`` files); ``--caffe-solverstate S``
+           resumes momentum and iteration from a Caffe ``.solverstate``
+           (with ``--weights``; plain ``googlenet``); ``--caffe-pad``
+           (train/test/extract/time) pads the GoogLeNet stem as Caffe
+           does; ``--health-metrics`` and
            ``--mining-health`` add the health signals to every step's
            metrics; ``--perf-metrics`` adds one ``perf`` row (step FLOPs,
            MFU) per display window;
@@ -58,7 +65,12 @@ that is not ported is refused by argparse, never accepted and ignored.
   prof:    ``--step train``: a few real training steps of a synthetic
            batch with their host spans, the step's FLOPs and bytes per
            region against the card's roofline, and the step-time
-           decomposition, as ``npairloss-perf-report-v1`` JSON + table.
+           decomposition, as ``npairloss-perf-report-v1`` JSON + table;
+  import-caffemodel: a ``.caffemodel``'s GoogLeNet or ResNet-50 blobs to a
+           ``--weights`` ``.npz``;
+  export-caffemodel: a ``.npz`` or a port snapshot back to a
+           ``.caffemodel`` (and, from a snapshot of plain ``googlenet``,
+           its momentum as a ``.solverstate``).
 """
 
 from __future__ import annotations
@@ -81,14 +93,13 @@ _PRECISION_CHOICES = ("bf16", "fp32_parity", "mxu")
 
 
 def _unported_model(name: str) -> Optional[str]:
-    """The refusal for a trunk the port's registry lacks, else None."""
+    """The refusal for a trunk the registry lacks (it holds every name of
+    the JAX registry), else None."""
     from npairloss_tpu_torch.models import available_models
 
     if name.lower() in available_models():
         return None
-    return (f"model {name!r} is not ported yet (have "
-            f"{available_models()}): the ResNet and ViT trunks are ROADMAP "
-            "Queue 1 item 2 (its remainder)")
+    return f"unknown model {name!r}; have {available_models()}"
 
 
 def cmd_index(args) -> int:
@@ -587,6 +598,8 @@ def _build_solver(args, phases=()):
     model_kw = {}
     if getattr(args, "remat", False):
         model_kw["remat"] = True  # GoogLeNet trunks; others refuse it
+    if getattr(args, "caffe_pad", False):
+        model_kw["caffe_pad"] = True  # GoogLeNet trunks; others refuse it
     precision = getattr(args, "precision", None)
     if precision:
         # The policy names the trunk's dtypes and the loss engines' gemm
@@ -598,8 +611,10 @@ def _build_solver(args, phases=()):
         model = get_model(model_name, device=device, seed=seed,
                           input_shape=input_shape, **model_kw)
     except TypeError as e:
+        flags = [f"--{k.replace('_', '-')}" for k in ("remat", "caffe_pad")
+                 if k in model_kw]
         log.error("model %r does not take %s: %s", model_name,
-                  "--remat" if "remat" in model_kw else "these options", e)
+                  " ".join(flags) or "these options", e)
         return 2
     plan = None
     if mesh is not None and engine != "blockwise":
@@ -683,10 +698,36 @@ def _train(args) -> int:
         TrainingPreempted,
     )
 
+    if args.caffe_solverstate:
+        # Checked before _build_solver, which restores --resume.
+        if args.resume:
+            log.error("--caffe-solverstate conflicts with --resume "
+                      "(pick the Caffe snapshot or the port's)")
+            return 2
+        if not args.weights:
+            # Momentum of a long run over random weights would be a
+            # corrupt trajectory.
+            log.error(
+                "--caffe-solverstate needs --weights (the paired "
+                ".caffemodel, converted by import-caffemodel) — resuming "
+                "momentum over random-init weights would be a corrupt "
+                "trajectory")
+            return 2
     built = _build_solver(args, phases=("TRAIN", "TEST"))
     if isinstance(built, int):
         return built
     solver, net_cfg, input_shape = built
+    if args.caffe_solverstate:
+        from npairloss_tpu_torch.models import model_for_net
+
+        try:
+            it = solver.load_caffe_solverstate(
+                args.caffe_solverstate, args.model or model_for_net(net_cfg))
+        except NotImplementedError as e:
+            log.error("%s", e)
+            return 2
+        log.info("resumed optimizer from %s at iteration %d",
+                 args.caffe_solverstate, it)
     if net_cfg.data.get("TRAIN") is None:
         log.error("net has no TRAIN MultibatchData layer")
         return 2
@@ -1223,6 +1264,168 @@ def _prof_train(args, tel, steps, obsperf):
                "mesh_devices": mesh.size if mesh is not None else 1})
 
 
+def _template(model_name: str):
+    """(params, batch_stats) zero trees in the flax layout of
+    ``model_name``: shapes only (the trunk is built on the CPU and never
+    run)."""
+    import numpy as np
+    import torch
+
+    from npairloss_tpu_torch.models import get_model
+    from npairloss_tpu_torch.models.convert import to_jax_params
+
+    model = get_model(model_name, device="cpu", dtype=torch.float32)
+    params, stats = to_jax_params(model, with_batch_stats=True)
+
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict)
+                else np.zeros(v.shape, np.float32) for k, v in tree.items()}
+
+    return zeros(params), zeros(stats or {})
+
+
+def cmd_import_caffemodel(args) -> int:
+    """Migrate a trained ``.caffemodel`` trunk: binary NetParameter blobs
+    -> the GoogLeNet (or, for a ``resnet`` model, ResNet-50) tree -> a
+    weights ``.npz`` that ``train``/``test``/``serve --weights`` read
+    (the JAX CLI writes flax msgpack; the mapping is the same)."""
+    import json as _json
+
+    from npairloss_tpu_torch.config.caffemodel import parse_caffemodel
+    from npairloss_tpu_torch.models.caffe_import import (
+        caffe_layer_map,
+        googlenet_params_from_caffemodel,
+        resnet50_params_from_caffemodel,
+    )
+    from npairloss_tpu_torch.models.convert import (
+        flatten_params,
+        save_weights_npz,
+    )
+
+    refusal = _unported_model(args.model)
+    if refusal:
+        log.error("%s", refusal)
+        return 2
+    with open(args.weights, "rb") as f:
+        blobs = parse_caffemodel(f.read())
+    log.info("caffemodel: %d layers with blobs", len(blobs))
+    params, batch_stats = _template(args.model)
+    try:
+        if "resnet" in args.model.lower():
+            params, batch_stats = resnet50_params_from_caffemodel(
+                blobs, params, batch_stats)
+            mapped = len(flatten_params(params))
+        else:
+            params = googlenet_params_from_caffemodel(blobs, params)
+            batch_stats = {}
+            mapped = len(caffe_layer_map())
+    except (KeyError, ValueError) as e:
+        log.error("%s: %s", args.weights, e)
+        return 2
+    save_weights_npz(params, args.out, batch_stats or None)
+    print(_json.dumps({"out": args.out, "caffemodel_layers": len(blobs),
+                       "mapped_convs": mapped}))
+    return 0
+
+
+def _read_snapshot_trees(path: str):
+    """A port snapshot (``npairloss-snapshot-v1``) on the CPU, checked
+    against its manifest: (params, batch_stats, momentum tree,
+    iteration) in the flax layout."""
+    import torch
+
+    from npairloss_tpu_torch.models.convert import tree_from_state
+    from npairloss_tpu_torch.resilience.snapshot import (
+        read_state,
+        validate_snapshot,
+        verify_restored,
+    )
+
+    manifest = validate_snapshot(path)
+    state = read_state(path, torch.device("cpu"))
+    verify_restored(state, manifest)
+    model = {k[len("model/"):]: v for k, v in state.items()
+             if k.startswith("model/")}
+    stats = {k for k in model if k.rsplit(".", 1)[-1] in ("mean", "var")}
+    params, batch_stats = tree_from_state(model, stats)
+    momentum, _ = tree_from_state(
+        {k[len("momentum/"):]: v for k, v in state.items()
+         if k.startswith("momentum/")}, ())
+    return params, batch_stats or {}, momentum, int(state["iteration"])
+
+
+def cmd_export_caffemodel(args) -> int:
+    """The reverse migration: a trunk trained here (a weights ``.npz`` or
+    a port snapshot) -> ``.caffemodel`` bytes a Caffe deployment reads;
+    from a snapshot of plain ``googlenet``, ``--solverstate-out`` also
+    writes its momentum and iteration as a ``.solverstate``.  Every
+    refusal comes before any file is written."""
+    import json as _json
+
+    from npairloss_tpu_torch.config.caffemodel import (
+        write_caffemodel,
+        write_solverstate,
+    )
+    from npairloss_tpu_torch.models.caffe_import import (
+        caffemodel_layers_from_googlenet_params,
+        caffemodel_layers_from_resnet50_params,
+        googlenet_history_from_momentum,
+    )
+    from npairloss_tpu_torch.models.convert import (
+        read_weights_npz,
+        split_variables,
+    )
+    from npairloss_tpu_torch.resilience.snapshot import (
+        SnapshotValidationError,
+    )
+
+    if not args.weights and not args.snapshot:
+        log.error("pass --weights (.npz) or --snapshot (.ckpt dir)")
+        return 2
+    if args.solverstate_out and args.model.lower() != "googlenet":
+        log.error("--solverstate-out supports the plain 'googlenet' trunk "
+                  "only (history blob order is pinned by the plain-trunk "
+                  "layer map)")
+        return 2
+    momentum = step = None
+    if args.snapshot:
+        try:
+            params, batch_stats, momentum, step = _read_snapshot_trees(
+                args.snapshot)
+        except (OSError, SnapshotValidationError) as e:
+            log.error("--snapshot %s: %s", args.snapshot, e)
+            return 2
+    else:
+        params, batch_stats = split_variables(read_weights_npz(args.weights))
+    if args.solverstate_out and momentum is None:
+        log.error("--solverstate-out needs a training snapshot (--snapshot) "
+                  "carrying optimizer state; --weights files hold "
+                  "parameters only")
+        return 2
+    try:
+        if "resnet" in args.model.lower():
+            layers = caffemodel_layers_from_resnet50_params(
+                params, batch_stats or {})
+        else:
+            layers = caffemodel_layers_from_googlenet_params(params)
+    except KeyError as e:
+        log.error("the weights are not a %s tree: missing %s", args.model, e)
+        return 2
+    blob = write_caffemodel(layers)
+    with open(args.out, "wb") as f:
+        f.write(blob)
+    rec = {"out": args.out, "layers": len(layers), "bytes": len(blob)}
+    if args.solverstate_out:
+        ss = write_solverstate(step, googlenet_history_from_momentum(momentum),
+                               learned_net=os.path.basename(args.out))
+        with open(args.solverstate_out, "wb") as f:
+            f.write(ss)
+        rec["solverstate_out"] = args.solverstate_out
+        rec["solverstate_iter"] = step
+    print(_json.dumps(rec))
+    return 0
+
+
 def _pos_topk_arg(v: str):
     """argparse type for --pos-topk: 'auto' or any K >= 0, as in JAX."""
     if v == "auto":
@@ -1391,8 +1594,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "none found = fresh start)")
         sp.add_argument("--weights",
                         help="pretrained params (a flattened flax tree as "
-                        ".npz) — fresh optimizer state, iteration 0 "
-                        "(--resume wins when both are given)")
+                        ".npz, e.g. from import-caffemodel) — fresh "
+                        "optimizer state, iteration 0 (--resume wins when "
+                        "both are given)")
+        sp.add_argument(
+            "--caffe-pad", dest="caffe_pad", action="store_true",
+            help="evaluate conv1 at Caffe's exact pad-3 geometry (GoogLeNet "
+            "trunks; use with imported .caffemodel weights — SAME samples "
+            "a phase-shifted grid at stride 2)")
         sp.add_argument("--device", default=None,
                         help="torch device (default: cuda; raises without "
                         "a card unless 'cpu' is asked for)")
@@ -1459,6 +1668,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="parameter sharding rules (not ported yet)")
     pos_topk_flag(tr)
     train_precision_flags(tr)
+    tr.add_argument(
+        "--caffe-solverstate", dest="caffe_solverstate", metavar="PATH",
+        help="resume the optimizer (momentum + iteration) from a Caffe "
+        ".solverstate — the `caffe train --snapshot` semantics; pair with "
+        "--weights for the matching .caffemodel parameters (plain "
+        "googlenet)")
     tr.add_argument("--max_iter", type=int, help="override solver max_iter")
     tr.add_argument("--snapshot_prefix", help="override snapshot prefix")
     tr.add_argument("--snapshot-keep", dest="snapshot_keep", type=int,
@@ -1644,6 +1859,39 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device (default: cuda; raises without "
                     "a card unless 'cpu' is asked for)")
     pr.set_defaults(fn=cmd_prof)
+
+    im = sub.add_parser(
+        "import-caffemodel",
+        help="migrate a trained .caffemodel trunk to a --weights .npz")
+    im.add_argument("--weights", required=True, help=".caffemodel path")
+    im.add_argument(
+        "--model", default="googlenet",
+        help="target model (plain googlenet, or resnet50; train --weights "
+        "converts to the s2d/fused layouts itself)")
+    im.add_argument("--out", default="./pretrained.npz",
+                    help="weights file to write (.npz, the port's "
+                    "--weights format)")
+    im.set_defaults(fn=cmd_import_caffemodel)
+
+    exp = sub.add_parser(
+        "export-caffemodel",
+        help="write a trunk trained here back out as .caffemodel")
+    exp.add_argument("--weights",
+                     help="weights .npz (from import-caffemodel or "
+                     "save_weights_npz)")
+    exp.add_argument(
+        "--snapshot",
+        help="export straight from a port training snapshot "
+        "(<prefix>iter_<k>.ckpt) instead of --weights")
+    exp.add_argument(
+        "--model", default="googlenet",
+        help="trunk family the weights belong to (googlenet | resnet50)")
+    exp.add_argument("--out", default="./model.caffemodel")
+    exp.add_argument(
+        "--solverstate-out", dest="solverstate_out", metavar="PATH",
+        help="also write the optimizer state (momentum + iteration) as a "
+        "Caffe .solverstate (plain googlenet; needs --snapshot)")
+    exp.set_defaults(fn=cmd_export_caffemodel)
     return p
 
 

@@ -1,13 +1,15 @@
 """Embedding model zoo of the port — ``get_model(name, policy=...)``
-mirrors ``npairloss_tpu.models.get_model`` for the trunks ported so far:
-the GoogLeNet bias/LRN trunks, Inception-BN (``googlenet_bn``,
-``inception_bn``, ``googlenet_bn_s2d``) and the MLP smoke model.
-Without a precision policy the JAX GoogLeNet computes in bf16 over fp32
-parameters and the MLP in fp32, and so do these.  A policy
-(``models.precision``: ``"mxu"``, ``"bf16"``, ``"fp32_parity"`` or a
-``PrecisionPolicy``) supplies the default compute dtype, and the
-GoogLeNet trunks (``_POLICY_AWARE``) resolve it per module.  The
-flagship pair is ``googlenet_mxu`` under ``"mxu"`` (``FLAGSHIP_TRUNK``,
+mirrors ``npairloss_tpu.models.get_model`` name for name: the GoogLeNet
+bias/LRN trunks, Inception-BN (``googlenet_bn``, ``inception_bn``,
+``googlenet_bn_s2d``), the ResNets (``resnet50``, ``resnet50_s2d``,
+``resnet18`` — bottleneck blocks at (2, 2, 2, 2), as in JAX), ViT-B/16
+(``vit_b16``) and the MLP smoke model.  Without a precision policy the
+JAX GoogLeNet, ResNet and ViT compute in bf16 over fp32 parameters and
+the MLP in fp32, and so do these.  A policy (``models.precision``:
+``"mxu"``, ``"bf16"``, ``"fp32_parity"`` or a ``PrecisionPolicy``)
+supplies the default compute dtype, and the GoogLeNet trunks and ViT
+(``_POLICY_AWARE``) resolve it per module.  The flagship pair is
+``googlenet_mxu`` under ``"mxu"`` (``FLAGSHIP_TRUNK``,
 ``FLAGSHIP_POLICY``), as in JAX."""
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from npairloss_tpu_torch.models.precision import (
     PrecisionPolicy,
     get_policy,
 )
+from npairloss_tpu_torch.models.resnet import ResNetEmbedding
+from npairloss_tpu_torch.models.vit import ViTEmbedding
 
 FLAGSHIP_TRUNK = "googlenet_mxu"
 FLAGSHIP_POLICY = DEFAULT_POLICY
@@ -46,6 +50,12 @@ _REGISTRY: Dict[str, Callable[..., torch.nn.Module]] = {
         stem_s2d=True, fuse_1x1=True, pallas_stem=True, **kw),
     # Resolved through FLAGSHIP_TRUNK at call time.
     "flagship": lambda **kw: _REGISTRY[FLAGSHIP_TRUNK](**kw),
+    "resnet50": lambda **kw: ResNetEmbedding(stage_sizes=(3, 4, 6, 3), **kw),
+    "resnet50_s2d": lambda **kw: ResNetEmbedding(
+        stage_sizes=(3, 4, 6, 3), stem_s2d=True, **kw),
+    "resnet18": lambda **kw: ResNetEmbedding(stage_sizes=(2, 2, 2, 2),
+                                             width=64, **kw),
+    "vit_b16": ViTEmbedding,
     "mlp": MLPEmbedding,
 }
 
@@ -54,7 +64,7 @@ _REGISTRY: Dict[str, Callable[..., torch.nn.Module]] = {
 _POLICY_AWARE = {
     "googlenet", "googlenet_embedding", "googlenet_bn", "inception_bn",
     "googlenet_s2d", "googlenet_bn_s2d", "googlenet_fused",
-    "googlenet_mxu", "googlenet_pallas", "flagship",
+    "googlenet_mxu", "googlenet_pallas", "flagship", "vit_b16",
 }
 
 
@@ -68,10 +78,12 @@ def get_model(name: str, *, device: DeviceLike = None, seed: int = 0,
               **kwargs) -> torch.nn.Module:
     """Build ``name`` on ``device`` (default: the card) in eval mode,
     initialized from ``seed``.  ``dtype`` defaults to the policy's
-    compute dtype, else bf16 for the GoogLeNet trunks and fp32 for
-    ``mlp``, as in JAX.  ``mlp`` needs ``input_shape`` (one example's
-    shape) for its first layer's width, which flax infers at init.  An
-    option a trunk lacks (``remat=True`` for ``mlp``) raises
+    compute dtype, else fp32 for ``mlp`` and bf16 for the others, as in
+    JAX.  ``mlp`` needs ``input_shape`` (one example's shape) for its
+    first layer's width, and ``vit_b16`` takes its image side from it
+    (default 224) for ``pos_embed``'s token count: flax infers both at
+    init.  An option a trunk lacks (``remat=True`` for ``mlp``, a ResNet
+    or ViT; ``caffe_pad`` for any but the GoogLeNet trunks) raises
     ``TypeError``."""
     key = name.lower()
     if key not in _REGISTRY:
@@ -87,6 +99,8 @@ def get_model(name: str, *, device: DeviceLike = None, seed: int = 0,
             raise ValueError("get_model('mlp') needs input_shape")
         kwargs.setdefault("in_features", int(np.prod(input_shape)))
     else:
+        if key == "vit_b16" and input_shape is not None:
+            kwargs.setdefault("image_size", int(input_shape[0]))
         kwargs.setdefault("dtype", torch.bfloat16)
     model = _REGISTRY[key](**kwargs)
     model.reset_parameters(seed)

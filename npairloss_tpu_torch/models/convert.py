@@ -1,4 +1,4 @@
-"""Carry flax GoogLeNet weights into the port.
+"""Carry flax weights into the port (GoogLeNet, ResNet, ViT, MLP).
 
 The flax tree is ``{block: {..., "Conv_0": {"kernel", "bias"}}}`` with
 HWIO kernels; the port's modules carry the same names, so
@@ -20,6 +20,14 @@ it beside the params (``from_jax_params``, ``load_jax_params``,
 1x1 layout concatenates the statistics too, as JAX's
 ``fuse_inception_1x1_params`` does.
 
+The ResNet tree has no ``Conv_0`` level (``conv_stem/kernel``,
+``stage1_block1/conv1/kernel``, ``bn_stem/scale``); its stem is 7x7 or
+space-to-depth 4x4 (:func:`adapt_resnet_params`).  ViT adds flax's
+``DenseGeneral`` leaves — 3-D kernels ((768, 12, 64) for ``query``,
+``key``, ``value``; (12, 64, 768) for ``out``) and 2-D biases, which
+keep flax's layout as torch parameters — and the top-level ``cls`` and
+``pos_embed`` parameters, state_dict keys of those names.
+
 A weights file (``serve --weights W.npz``, ``train --weights W.npz``)
 is the flattened tree: one array per ``"/"``-joined path; a file with
 running statistics holds the wrapped ``{"params", "batch_stats"}`` form
@@ -37,10 +45,12 @@ import torch
 from npairloss_tpu_torch.models.layers import conv1_kernel_to_s2d
 
 __all__ = [
-    "adapt_params", "conv1_kernel_to_s2d", "flatten_params",
+    "adapt_params", "adapt_resnet_params", "conv1_kernel_to_s2d",
+    "flatten_params",
     "from_jax_params", "fuse_inception_1x1_params", "load_jax_params",
     "load_weights_npz", "read_weights_npz", "save_weights_npz",
-    "to_jax_params", "unflatten_params",
+    "split_variables", "to_jax_params", "tree_from_state",
+    "unflatten_params",
 ]
 
 
@@ -91,7 +101,7 @@ def fuse_inception_1x1_params(params: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def _split_variables(tree: Mapping[str, Any]
+def split_variables(tree: Mapping[str, Any]
                     ) -> Tuple[Mapping[str, Any], Optional[Mapping[str, Any]]]:
     """(params, batch_stats or None) of a bare params tree or of the
     wrapped ``{"params", "batch_stats"}`` form."""
@@ -123,6 +133,23 @@ def adapt_params(params: Mapping[str, Any], stem_s2d: bool,
     return _adapt_1x1(tree, fuse_1x1)
 
 
+def adapt_resnet_params(params: Mapping[str, Any],
+                        stem_s2d: bool) -> Dict[str, Any]:
+    """A ResNet tree in the stem layout the trunk expects: a 7x7
+    ``conv_stem`` kernel becomes the 4x4x12 space-to-depth one under
+    ``stem_s2d`` (``conv1_kernel_to_s2d``); an s2d kernel cannot feed
+    the plain stem."""
+    tree = dict(params)
+    kernel = np.asarray(tree["conv_stem"]["kernel"])
+    if stem_s2d and kernel.shape[:2] == (7, 7):
+        tree["conv_stem"] = dict(tree["conv_stem"],
+                                 kernel=conv1_kernel_to_s2d(kernel))
+    elif not stem_s2d and kernel.shape[:2] != (7, 7):
+        raise ValueError("a space-to-depth stem kernel cannot feed the "
+                         "plain 7x7 stem")
+    return tree
+
+
 def _adapt_1x1(tree: Mapping[str, Any], fuse_1x1: bool) -> Dict[str, Any]:
     if fuse_1x1 and not _has_fused(tree):
         return fuse_inception_1x1_params(tree)
@@ -131,12 +158,18 @@ def _adapt_1x1(tree: Mapping[str, Any], fuse_1x1: bool) -> Dict[str, Any]:
     return dict(tree)
 
 
+# ViT's top-level parameters: state_dict keys of the same names.
+_TOP_LEAVES = ("cls", "pos_embed")
+
+
 def _leaf_key(path: str, arr: np.ndarray, buffers: bool):
     """(state_dict key, torch array) of one flax leaf."""
     parts = path.split("/")
     leaf = parts[-1]
     base = ".".join(parts[:-1])
     a = np.asarray(arr, np.float32)
+    if not base and not buffers and leaf in _TOP_LEAVES:
+        return leaf, a.copy()
     if buffers:
         if leaf not in ("mean", "var"):
             raise ValueError(f"{path}: unknown batch_stats leaf {leaf!r}")
@@ -146,9 +179,9 @@ def _leaf_key(path: str, arr: np.ndarray, buffers: bool):
             a = a.transpose(3, 2, 0, 1)
         elif a.ndim == 2:  # Dense: (in, out) -> Linear (out, in)
             a = a.T
-        else:
-            raise ValueError(f"{path}: expected an HWIO or (in, out) "
-                             f"kernel, got {a.shape}")
+        elif a.ndim != 3:  # DenseGeneral keeps flax's layout
+            raise ValueError(f"{path}: expected an HWIO, (in, out) or "
+                             f"DenseGeneral kernel, got {a.shape}")
         return f"{base}.weight", np.ascontiguousarray(a)
     if leaf in ("bias", "scale"):
         return f"{base}.{leaf}", a.copy()
@@ -174,17 +207,20 @@ def from_jax_params(params: Mapping[str, Any],
 def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any],
                     batch_stats: Optional[Mapping[str, Any]] = None
                     ) -> torch.nn.Module:
-    """Load a flax tree (any GoogLeNet layout, or the MLP's; bare or
-    wrapped with its ``batch_stats``) into ``model`` in place.  Without
+    """Load a flax tree (any GoogLeNet or ResNet layout, ViT's or the
+    MLP's; bare or wrapped with its ``batch_stats``) into ``model`` in
+    place.  Without
     ``batch_stats`` a BN trunk keeps its running statistics, as JAX's
     ``Solver.load_params`` does."""
-    tree, wrapped_stats = _split_variables(params)
+    tree, wrapped_stats = split_variables(params)
     if batch_stats is None:
         batch_stats = wrapped_stats
-    if hasattr(model, "stem_s2d"):
+    if hasattr(model, "fuse_1x1"):  # the GoogLeNet layouts
         tree = adapt_params(tree, model.stem_s2d, model.fuse_1x1)
         if batch_stats is not None:
             batch_stats = _adapt_1x1(batch_stats, model.fuse_1x1)
+    elif hasattr(model, "stem_s2d"):  # the ResNet layouts
+        tree = adapt_resnet_params(tree, model.stem_s2d)
     sd = from_jax_params(tree, batch_stats)
     buffers = dict(model.named_buffers())
     missing = [k for k in model.state_dict() if k not in sd]
@@ -199,23 +235,39 @@ def to_jax_params(model: torch.nn.Module, with_batch_stats: bool = False):
     a flax-style params tree with numpy leaves (OIHW -> HWIO, Linear ->
     (in, out)); with ``with_batch_stats``, ``(params, batch_stats)``
     (``batch_stats`` None for a trunk without running statistics)."""
+    params, stats = tree_from_state(
+        model.state_dict(), {k for k, _ in model.named_buffers()})
+    if not with_batch_stats:
+        return params
+    return params, stats
+
+
+def tree_from_state(state: Mapping[str, torch.Tensor], buffers
+                    ) -> Tuple[Dict[str, Any], Optional[Dict[str, Any]]]:
+    """(params, batch_stats or None) flax trees of a state_dict, the
+    names in ``buffers`` (running statistics) going to ``batch_stats``
+    — what :func:`to_jax_params` returns for the model the state is
+    of."""
     flat: Dict[str, np.ndarray] = {}
     stats: Dict[str, np.ndarray] = {}
-    buffers = {k for k, _ in model.named_buffers()}
-    for key, t in model.state_dict().items():
-        path, leaf = key.rsplit(".", 1)
+    for key, t in state.items():
         a = t.detach().float().cpu().numpy()
+        if "." not in key:  # ViT's top-level cls / pos_embed
+            flat[key] = a.copy()
+            continue
+        path, leaf = key.rsplit(".", 1)
         if key in buffers:
             stats[path.replace(".", "/") + "/" + leaf] = a.copy()
             continue
         if leaf == "weight":
-            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            if a.ndim == 4:
+                a = a.transpose(2, 3, 1, 0)
+            elif a.ndim == 2:
+                a = a.T
             leaf = "kernel"
         flat[path.replace(".", "/") + "/" + leaf] = np.ascontiguousarray(a)
-    params = unflatten_params(flat)
-    if not with_batch_stats:
-        return params
-    return params, (unflatten_params(stats) if stats else None)
+    return unflatten_params(flat), (unflatten_params(stats) if stats
+                                    else None)
 
 
 def read_weights_npz(path: str) -> Dict[str, Any]:

@@ -122,7 +122,10 @@ class GoogLeNetEmbedding(nn.Module):
     once per step and the gradients are the same bits as without it.
     ``policy`` (``models.precision``) resolves every conv block's dtypes
     by its flax path, and the trunk's entry and exit casts from its
-    ``compute_dtype`` and ``output_dtype``."""
+    ``compute_dtype`` and ``output_dtype``.  ``caffe_pad`` pads the plain
+    7x7/s2 stem (3, 3) on each side, Caffe's geometry (``pad: 3``),
+    where SAME pads (2, 3) at 224: for imported ``.caffemodel`` weights;
+    the s2d stem ignores it, as in JAX."""
 
     # The pool5 width (what engine planning reads as the embedding width).
     embedding_dim = 1024
@@ -131,7 +134,8 @@ class GoogLeNetEmbedding(nn.Module):
                  normalize: bool = True, fuse_1x1: bool = False,
                  stem_s2d: bool = False, pallas_stem: bool = False,
                  use_bn: bool = False, remat: bool = False,
-                 policy: Optional[PrecisionPolicy] = None):
+                 policy: Optional[PrecisionPolicy] = None,
+                 caffe_pad: bool = False):
         super().__init__()
         self.dtype = dtype
         self.normalize = normalize
@@ -139,6 +143,7 @@ class GoogLeNetEmbedding(nn.Module):
         self.stem_s2d = stem_s2d
         self.use_bn = use_bn
         self.remat = remat
+        self.caffe_pad = caffe_pad
         self.policy = policy
         self.pallas_stem = pallas_stem and not use_bn
         fuse = self.pallas_stem
@@ -151,6 +156,8 @@ class GoogLeNetEmbedding(nn.Module):
                                    path="conv1", **block)
         else:
             self.conv1 = ConvBlock(3, 64, (7, 7), (2, 2),
+                                   padding=(((3, 3), (3, 3)) if caffe_pad
+                                            else "SAME"),
                                    fused_epilogue=fuse, fuse_pool=pool,
                                    path="conv1", **block)
         self.conv2_reduce = ConvBlock(64, 64, (1, 1), fused_epilogue=fuse,

@@ -430,6 +430,46 @@ class Solver:
         load_jax_params(self.model, params, batch_stats)
         self._reset_optimizer()
 
+    def load_caffe_solverstate(self, path: str,
+                               model_name: str = "googlenet") -> int:
+        """Resume the optimizer from a Caffe ``.solverstate`` — momentum
+        history and iteration, the ``caffe train --snapshot`` semantics
+        (``npairloss_tpu/train/solver.py:1770``).  The weights come
+        separately (the paired ``.caffemodel`` through ``load_params``),
+        so call this after them.  Plain ``googlenet`` only: history blobs
+        are unnamed and positional, in the plain trunk's layer order;
+        another trunk raises ``NotImplementedError``, as in JAX.  Returns
+        the iteration."""
+        if model_name.lower() != "googlenet":
+            raise NotImplementedError(
+                "solverstate migration is defined for the plain "
+                f"GoogLeNet trunk only (got model {model_name!r}): "
+                "Caffe history blobs are unnamed and positional; resume "
+                "with --model googlenet")
+        from npairloss_tpu_torch.config.caffemodel import parse_solverstate
+        from npairloss_tpu_torch.models.caffe_import import (
+            googlenet_momentum_from_history,
+        )
+        from npairloss_tpu_torch.models.convert import (
+            from_jax_params,
+            tree_from_state,
+        )
+
+        with open(path, "rb") as f:
+            st = parse_solverstate(f.read())
+        template, _ = tree_from_state(self.momentum, ())
+        mom, skipped = googlenet_momentum_from_history(st["history"],
+                                                       template)
+        if skipped:
+            log.info("solverstate: skipped %d non-trunk history blobs "
+                     "(aux-classifier params of the full training net)",
+                     skipped)
+        with torch.no_grad():
+            for name, t in from_jax_params(mom).items():
+                self.momentum[name].copy_(t)
+        self.iteration = int(st["iter"])
+        return self.iteration
+
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """The solver's state as one flat name -> tensor dict: the
         model's parameters and buffers (``model/<name>``), the momentum

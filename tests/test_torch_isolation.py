@@ -111,6 +111,12 @@ for engine in ("dense", "blockwise"):
                     np.array([0, 0, 1, 1]))
     assert np.isfinite(float(m["loss"]))
     assert solver.params["conv1.Conv_0.weight"].grad is not None
+# The ResNet trunk family (resnet18) at a tiny input, on both engines.
+for engine in ("dense", "blockwise"):
+    rc = cli.main(["train", "--solver", "examples/tiny_solver.prototxt",
+                   "--synthetic", "--device", "cpu", "--max_iter", "2",
+                   "--engine", engine, "--model", "resnet18"])
+    assert rc == 0, rc
 # Snapshots and resume, then extract and eval on what they wrote.
 work = sys.argv[1]
 solver_path = work + "/solver.prototxt"
@@ -147,7 +153,8 @@ print("ISOLATED-TRAIN-OK")
 def test_cpu_train_path_runs_with_jax_poisoned(tmp_path):
     """The train CLI (config, data, solver, loss, metrics) and one
     ``googlenet_pallas`` training step through the stem Functions, on the
-    dense and the blockwise engine; then ``train --resume auto`` (a fresh
+    dense and the blockwise engine; ``train --model resnet18`` at the tiny
+    net's 8x8 crop on both engines; then ``train --resume auto`` (a fresh
     start, then a restore), ``extract`` and ``eval`` on its output."""
     poison = tmp_path / "poison"
     poison.mkdir()
@@ -275,7 +282,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     "obs/manifest.py", "obs/run.py", "obs/health.py", "obs/fleet/__init__.py",
     "obs/fleet/stamp.py", "obs/perf/__init__.py", "obs/perf/costs.py",
     "obs/perf/count.py", "obs/perf/decompose.py", "obs/perf/report.py",
-    "obs/perf/roofline.py",
+    "obs/perf/roofline.py", "models/resnet.py", "models/vit.py",
+    "models/caffe_import.py", "config/caffemodel.py", "tools/vit_stretch.py",
 ])
 def test_pipeline_and_guard_modules_are_scanned_and_clean(module):
     path = PORT / module

@@ -183,16 +183,29 @@ def test_train_without_synthetic_exits_2(tmp_path, caplog):
 
 
 def test_unported_trunk_exits_2_naming_its_queue_item(caplog):
-    """The ResNet solver names ``resnet50``, which the port's registry
-    lacks: a refusal naming the queue item, not a traceback."""
+    """A trunk name that neither registry has (the ResNet and ViT trunks
+    are in both now): train exits 2 with the "unknown model" refusal,
+    not a traceback, and ``get_model`` raises ``KeyError`` as JAX's
+    does."""
     rc = cli.main(["train", "--solver",
                    "examples/resnet50_sop_solver.prototxt", "--synthetic",
-                   "--device", "cpu", "--max_iter", "1"])
+                   "--device", "cpu", "--max_iter", "1", "--model",
+                   "resnet101"])
     assert rc == 2
-    assert "'resnet50' is not ported" in caplog.text
-    assert "Queue 1 item 2" in caplog.text
-    with pytest.raises(KeyError, match="resnet50"):
-        get_model("resnet50", device="cpu")
+    assert "unknown model 'resnet101'" in caplog.text
+    with pytest.raises(KeyError, match="resnet101"):
+        get_model("resnet101", device="cpu")
+    with pytest.raises(KeyError, match="resnet101"):
+        jax_get_model("resnet101")
+
+
+def test_port_registry_equals_the_jax_registry():
+    from npairloss_tpu.models import available_models as jax_available
+    from npairloss_tpu_torch.models import available_models
+
+    assert available_models() == jax_available()
+    assert {"resnet50", "resnet50_s2d", "resnet18", "vit_b16"} <= set(
+        available_models())
 
 
 def test_snapshot_cadence_fires_as_in_jax(tmp_path):
