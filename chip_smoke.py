@@ -284,7 +284,37 @@ Phases (any failure raises, exits nonzero and prints no result line):
    queries answered, each equal to a direct forward plus the scan
    engine (the probe's plain version; scores within ``TOL["serve_trunk"]``,
    rows outside ties), the probe launched once a query;
-8. a ``{"kernels": [...]}`` line (launches of the serving kernels from
+8. observability of serving and the fleet, under ``build/obs_smoke/``:
+   (a) ``serve --telemetry-dir`` through ``cli.build_server`` at phase
+   4's configuration (IVF 246 clusters, probes 8, the fused probe, top-k
+   10, buckets 1/8/32, ``googlenet_pallas`` bf16 at 224²) with 2
+   replicas and metrics window 16, over HTTP, beside the same index and
+   trunk without telemetry: phase 4's 38 queries in one body, 3 turns
+   each in alternation; the first turn's answers equal without the
+   freshness ages, the run dir's manifest, row envelopes and trace
+   valid, every ``serve/*`` span present, one dispatch lane per replica,
+   ⌊38/16⌋ window rows after the first turn, the drain's latency split
+   equal to the split of the spans after the server's construction (no
+   warm-up span among them), the probe and the three stem kernels
+   launched (their counts printed), per-query p50/p99 with and without
+   telemetry; (b) ``prof --step serve --gallery 60502 --dim 1024
+   --buckets 1,8,32``: the report valid, its regions with their bound
+   class, ms per query at bucket 32 and its MFU; (c) 5i (b)'s two
+   spawned ranks on cuda:0 over gloo take 4 more googlenet_bn mxu dense
+   steps under fleet telemetry (in 5i's pool, before the later phases
+   fill the card), then ``prof --fleet`` and ``timeline`` over that run
+   dir: the fleet report, the merged trace and the timeline
+   valid, both ranks present, ``fleet_comms.json``'s gradient
+   all-reduce claim equal to the parameter bytes; the straggler, the
+   skew and the all-reduce's rate printed; (d) ``device-query``:
+   platform ``gpu``, the card's name, ``bytes_limit`` > 0; (e) ``train
+   --debug-checks`` on the phase-5h cut (googlenet_pallas fp32, 6
+   steps): records byte for byte with the run without it; with
+   ``step.nan_loss`` armed the run ends rc 0 with the NaN in its display
+   row, as the JAX CLI's does (the check precedes the loop's poison); a
+   parameter set to NaN before step 3 stops the run with the JAX CLI's
+   ``FloatingPointError`` naming the metric;
+9. a ``{"kernels": [...]}`` line (launches of the serving kernels from
    phase 4, of the training kernels from phase 5, of ``lrn_bwd`` from
    the phase-5b recompute step, of the blockwise kernels from phase
    6b; the five blockwise kernels again as ``<name>:bf16``, their bf16
@@ -292,8 +322,9 @@ Phases (any failure raises, exits nonzero and prints no result line):
    name their tensor-core kernels, and stats carries cuBLAS's bf16
    ``rows16 @ rows16.T`` as ``library_ms``, hist and loss none: the
    path's cached variants compute no product; phase 7's launches of the
-   bf16 five, ``round_bf16`` and the probe as ``launches_phase7``); then
-   the card line; then the last line
+   bf16 five, ``round_bf16`` and the probe as ``launches_phase7``; phase
+   8 (a)'s launches of the probe and the three stem kernels as
+   ``launches_phase8``); then the card line; then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -5519,6 +5550,9 @@ def check_dist_two_ranks(torch, seed, detail):
             out[engine] = pool.run(_dist_rank_train, seed, engine,
                                    solver_path)
         bn = pool.run(_dist_rank_bn_forward, seed)
+        # Phase 8 (c)'s run: the same ranks under fleet telemetry (its
+        # report and timeline are read in phase 8).
+        detail["fleet_run"] = fleet_ranks(pool, seed, solver_path)
     for engine, ranks in out.items():
         for step in range(DIST_STEPS):
             if ranks[0][1][step] != ranks[1][1][step]:
@@ -6292,6 +6326,507 @@ def drive_trunks(torch, seed, detail):
     return launches
 
 
+# -- phase 8: observability of serving and the fleet ---------------------------
+
+OBS_WORK = os.path.join("build", "obs_smoke")
+OBS_WINDOW = 16
+OBS_TURNS = 3
+SERVE_SPANS = ("serve/admit", "serve/batch", "serve/dispatch",
+               "serve/encode", "serve/topk", "serve/warmup")
+SERVE_KERNELS = ("probe_topk", "lrn_fwd", "fused_bias_relu",
+                 "fused_bias_relu_pool")
+
+
+def _obs_records(seed, emb):
+    """Phase 4's 38 queries: 30 gallery rows, 8 raw 224² images."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    images = rng.standard_normal((8, 224, 224, 3), dtype=np.float32)
+    gal_rows = rng.choice(emb.shape[0], size=30, replace=False)
+    records = []
+    for i, r in enumerate(gal_rows):
+        records.append({"id": f"g{i}", "embedding": emb[r].tolist()})
+        if i % 4 == 0 and i // 4 < len(images):
+            records.append({"id": f"x{i // 4}",
+                            "input": images[i // 4].tolist()})
+    return records, gal_rows
+
+
+def _http_server(server):
+    """``server.run_http(0)`` on a thread; (thread, port, result)."""
+    import threading
+
+    res: dict = {}
+    th = threading.Thread(target=lambda: res.update(rc=server.run_http(0)),
+                          daemon=True)
+    th.start()
+    deadline = time.monotonic() + 60.0
+    while server.http_port is None:
+        if time.monotonic() > deadline or not th.is_alive():
+            fail("8a: run_http did not start listening")
+        time.sleep(0.01)
+    return th, server.http_port, res
+
+
+def _strip_ages(answer):
+    return json.dumps({k: v for k, v in answer.items()
+                       if k not in ("index_age_s", "model_age_s")})
+
+
+def check_serve_telemetry(torch, seed, detail, emb, labels):
+    """8 (a): ``serve --telemetry-dir`` at phase 4's configuration through
+    ``cli.build_server`` (IVF 246 clusters, probes 8, the fused probe,
+    top-k 10, buckets 1/8/32, ``googlenet_pallas`` bf16 at 224², 2
+    replicas, metrics window 16) over HTTP, beside the same index and
+    trunk served without telemetry; the 38 queries in one body, in turns
+    off/on."""
+    import shutil
+
+    import numpy as np
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.obs import REQUIRED_KEYS, validate_chrome_trace
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.serve.batcher import BatcherConfig
+    from npairloss_tpu_torch.serve.engine import QueryEngine
+    from npairloss_tpu_torch.serve.server import RetrievalServer, ServerConfig
+
+    card = detail["card"]
+    work = os.path.abspath(os.path.join(OBS_WORK, "serve"))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    np.save(os.path.join(work, "emb.npy"), emb)
+    np.save(os.path.join(work, "labels.npy"), labels)
+    gidx = os.path.join(work, "g.gidx")
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli.main(["index", "--emb", os.path.join(work, "emb.npy"),
+                     "--labels", os.path.join(work, "labels.npy"), "--out",
+                     gidx, "--no-normalize"]) != 0:
+            fail("8a: index failed")
+    tel_dir = os.path.join(work, "tel")
+    args = cli.build_parser().parse_args([
+        "serve", "--index", gidx, "--index-kind", "ivf", "--ivf-clusters",
+        "246", "--probes", "8", "--probe-impl", "fused", "--top-k", "10",
+        "--buckets", "1,8,32", "--replicas", "2", "--model",
+        "googlenet_pallas", "--input-size", "224", "--metrics-window",
+        str(OBS_WINDOW), "--poll-s", "0.01", "--explicit-drops", "--seed",
+        str(seed), "--telemetry-dir", tel_dir])
+    t0 = time.perf_counter()
+    on, _ = cli.build_server(args)
+    build_s = time.perf_counter() - t0
+    tel = on.telemetry
+    # The same index, trunk and kernels without telemetry.
+    primary = QueryEngine(on.engine.index, on.engine.cfg,
+                          model=on.engine.model)
+    primary.warmup((224, 224, 3))
+    off = RetrievalServer(
+        [primary, QueryEngine(on.engine.index, on.engine.cfg,
+                              share_compiled_with=primary)],
+        BatcherConfig(max_batch=32, max_delay_ms=args.deadline_ms,
+                      max_queue=args.max_queue),
+        ServerConfig(metrics_window=OBS_WINDOW, poll_s=0.01,
+                     explicit_drops=True),
+        preempt=type(on.preempt)(), freshness=on.freshness)
+    records, gal_rows = _obs_records(seed, emb)
+    body = "\n".join(json.dumps(r) for r in records)
+    runs = {"off": off, "on": on}
+    http = {k: _http_server(s) for k, s in runs.items()}
+    answers, lat = {}, {"off": [], "on": []}
+    turns = {"off": [], "on": []}
+    launches = None
+    try:
+        for turn in range(OBS_TURNS):
+            for key in ("off", "on"):
+                server = runs[key]
+                n0 = len(server._lat)
+                b0 = [r.batcher.batches for r in server.replicaset.replicas]
+                t_turn = time.perf_counter()
+                if key == "on" and turn == 0:
+                    torch.cuda.synchronize()
+                    _build.reset_launch_counts()
+                code, out, _ = _http_call(http[key][1], "POST", "/query",
+                                          body)
+                if code != 200 or len(out) != len(records):
+                    fail(f"8a: {key} turn {turn} answered {code}: "
+                         f"{str(out)[:300]}")
+                if key == "on" and turn == 0:
+                    torch.cuda.synchronize()
+                    launches = _build.launch_counts()
+                    rows = [r for r in tel.ring.records()
+                            if r.get("phase") == "serve"]
+                    if len(rows) != len(records) // OBS_WINDOW:
+                        fail(f"8a: {len(rows)} window rows after "
+                             f"{len(records)} answers, want "
+                             f"{len(records) // OBS_WINDOW}")
+                if turn == 0:
+                    answers[key] = [_strip_ages(a) for a in out]
+                lat[key].extend(list(server._lat)[n0:])
+                turns[key].append({
+                    "wall_ms": (time.perf_counter() - t_turn) * 1e3,
+                    "batches": [r.batcher.batches - b for r, b in zip(
+                        server.replicaset.replicas, b0)]})
+    finally:
+        for key, server in runs.items():
+            server.preempt.request()
+            http[key][0].join(timeout=120)
+        tel.close()
+    for key in runs:
+        if http[key][0].is_alive() or http[key][2].get("rc") != 75:
+            fail(f"8a: the {key} server did not drain: {http[key][2]}")
+    if answers["on"] != answers["off"]:
+        bad = [i for i, (a, b) in enumerate(zip(answers["on"],
+                                                answers["off"])) if a != b]
+        fail(f"8a: answers with telemetry differ at {bad[:5]}")
+    for i, r in enumerate(gal_rows):
+        top = json.loads(answers["on"][[x["id"] for x in records]
+                                       .index(f"g{i}")])["neighbors"][0]
+        if top["row"] != int(r):
+            fail(f"8a: gallery row {r}: top-1 is {top}")
+    for name in SERVE_KERNELS:
+        if launches.get(name, 0) < 1:
+            fail(f"8a: kernel {name} was not launched")
+    # The run directory: manifest, envelopes, trace, spans, lanes, split.
+    man = json.load(open(os.path.join(tel_dir, "manifest.json")))
+    if not (man.get("run_id") and man.get("created")
+            and man["config"].get("serve") and man["config"]["replicas"]
+            == 2):
+        fail(f"8a: manifest {man}")
+    rows = _tel_rows(tel_dir)
+    bad = [r for r in rows if any(k not in r for k in REQUIRED_KEYS)]
+    n_ans = len(records) * OBS_TURNS
+    windows = [r for r in rows if r.get("event") != "serve_drain"]
+    if bad or len(windows) != n_ans // OBS_WINDOW \
+            or rows[-1].get("event") != "serve_drain":
+        fail(f"8a: rows: {len(windows)} windows for {n_ans} answers, "
+             f"{len(bad)} without the envelope, last {rows[-1]}")
+    trace = json.load(open(os.path.join(tel_dir, "trace.json")))
+    err = validate_chrome_trace(trace)
+    if err:
+        fail(f"8a: trace.json: {err}")
+    evs = trace["traceEvents"]
+    names = {e["name"] for e in evs}
+    missing = [s for s in SERVE_SPANS if s not in names]
+    lanes = {e["tid"] for e in evs if e["name"] == "serve/dispatch"}
+    busy = [r.name for r in on.replicaset.replicas if r.batcher.batches]
+    if missing or len(lanes) != len(busy) or len(busy) != 2:
+        fail(f"8a: spans missing {missing}; dispatch lanes {len(lanes)} for "
+             f"replicas that dispatched {busy}")
+    drain = rows[-1]
+    split = {k: drain[k] for k in drain
+             if k.endswith(("_p50_ms", "_p99_ms")) and k.split("_")[0] in
+             ("admit", "batch", "dispatch", "encode", "topk")}
+    if set(k.split("_")[0] for k in split) != {
+            "admit", "batch", "dispatch", "encode", "topk"}:
+        fail(f"8a: the drain split lacks a stage: {split}")
+    # The drain's split is the one of every span after the server's
+    # construction, and no warm-up span is among them.
+    start = on._events_start_idx
+    if RetrievalServer._latency_split(evs[start:]) != split or any(
+            e["name"] == "serve/warmup" for e in evs[start:]) or not any(
+            e["name"] == "serve/warmup" for e in evs[:start]):
+        fail(f"8a: the drain split does not reconcile with the spans after "
+             f"construction (warm-up excluded): {split}")
+    n_topk = sum(1 for e in evs if e["name"] == "serve/topk")
+    n_warm_topk = sum(1 for e in evs if e["name"] == "serve/warmup"
+                      and (e.get("args") or {}).get("kind") == "topk")
+    recompiles = sum(1 for e in evs if e["name"] == "serve/recompile")
+    pct = {k: _pcts(v) for k, v in lat.items()}
+    out = {"build_s": build_s, "launches": {k: launches[k]
+                                            for k in SERVE_KERNELS},
+           "windows": len(windows), "drain_split": split,
+           "latency": pct, "dispatch_lanes": len(lanes),
+           "topk_spans": n_topk, "warmup_topk_spans": n_warm_topk,
+           "recompile_instants": recompiles,
+           "replica_batches": {r.name: r.batcher.batches
+                               for r in on.replicaset.replicas},
+           "turns": turns, "rows": rows}
+    log(f"[8a] serve --telemetry-dir at phase 4's config over HTTP, 2 "
+        f"replicas (built in {build_s:.1f} s): {len(records)} answers equal "
+        f"to the server without telemetry (ages stripped); {len(windows)} "
+        f"window rows for {n_ans} answers (window {OBS_WINDOW}); spans "
+        f"{sorted(s for s in names if s.startswith('serve/'))}; dispatch "
+        f"lanes {len(lanes)} (batches {out['replica_batches']}; per turn "
+        f"{json.dumps(turns)}); "
+        f"recompile instants {recompiles}; drain split {json.dumps(split)}; "
+        f"launches of one 38-query turn {json.dumps(out['launches'])}; "
+        f"per-query ms over {OBS_TURNS} turns each (off, on in turn): "
+        f"off p50 {pct['off']['p50_ms']:.3f} p99 {pct['off']['p99_ms']:.3f}"
+        f", on p50 {pct['on']['p50_ms']:.3f} p99 {pct['on']['p99_ms']:.3f} "
+        f"({card})")
+    del on, off, primary, runs
+    _release(torch)
+    return out
+
+
+def check_prof_serve(torch, detail):
+    """8 (b): ``prof --step serve --gallery 60502 --dim 1024 --buckets
+    1,8,32``."""
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.obs.perf.report import validate_report
+
+    out_dir = os.path.join(OBS_WORK, "prof_serve")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["prof", "--step", "serve", "--gallery", "60502",
+                       "--dim", "1024", "--buckets", "1,8,32", "--steps",
+                       "12", "--out", out_dir])
+    if rc != 0:
+        fail(f"8b: prof --step serve rc {rc}: {buf.getvalue()[-500:]}")
+    report = json.load(open(os.path.join(out_dir, "perf_report.json")))
+    err = validate_report(report)
+    if err or not report["peaks"]["known"]:
+        fail(f"8b: report {err}; peaks {report['peaks']}")
+    t = report["timing"]
+    if not 0.0 < t.get("mfu", -1.0) < 1.0 or \
+            set(report["serve_latency"]) != {"topk"}:
+        fail(f"8b: timing {t}, split {report['serve_latency']}")
+    top = [(r["region"], f"{r['flops']:.3e}", f"{r['bytes']:.3e}",
+            r["bound"], r["est_ms_at_roofline"])
+           for r in report["regions"][:4]]
+    ms_q = t["ms_per_step"] / report["batch"]
+    log(f"[8b] prof --step serve (flat 60,502 x 1024, buckets 1/8/32): "
+        f"{t['ms_per_step']:.4f} ms per bucket-32 dispatch, {ms_q:.5f} ms "
+        f"per query, mfu {t['mfu']}; regions (region, flops, bytes, bound, "
+        f"roofline ms) {top}; split {json.dumps(report['serve_latency'])}; "
+        f"decomposition {json.dumps(report['decomposition'])} "
+        f"({detail['card']})")
+    return {"timing": t, "ms_per_query": ms_q, "regions": report["regions"],
+            "serve_latency": report["serve_latency"],
+            "decomposition": report["decomposition"]}
+
+
+def _fleet_rank_train(mesh, seed, solver_path, run_dir):
+    """Rank task of 8 (c): ``DIST_STEPS`` dense steps of googlenet_bn mxu
+    on this rank's 60 rows of each 120-row global batch through
+    ``Solver.train``, under fleet telemetry in ``run_dir``; returns the
+    parameter bytes."""
+    import torch
+
+    from npairloss_tpu_torch.obs import RunTelemetry
+    from npairloss_tpu_torch.parallel import shard_batch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    tel = RunTelemetry(run_dir, fleet=True)
+    solver = _dist_solver(torch, seed, "mxu", "dense", mesh, solver_path)
+    solver.telemetry = tel
+    batches = [shard_batch(mesh, b) for b in _dist_batches(seed, DIST_STEPS)]
+    try:
+        solver.train(iter(batches), DIST_STEPS, log_fn=lambda line: None)
+    finally:
+        tel.close()
+    return sum(p.numel() * p.element_size() for p in solver.params.values())
+
+
+def fleet_ranks(pool, seed, solver_path):
+    """8 (c)'s run on a pool of two ranks on cuda:0 over gloo (5i (b)'s):
+    ``DIST_STEPS`` dense steps each under fleet telemetry; returns the
+    run dir, the ranks' parameter bytes and the wall seconds."""
+    import shutil
+
+    run_dir = os.path.abspath(os.path.join(OBS_WORK, "fleet", "run"))
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    t0 = time.perf_counter()
+    param_bytes = pool.run(_fleet_rank_train, seed, solver_path, run_dir)
+    return {"run_dir": run_dir, "param_bytes": param_bytes,
+            "ranks_s": time.perf_counter() - t0}
+
+
+def check_fleet(detail):
+    """8 (c): ``prof --fleet`` and ``timeline`` over the run directory of
+    two ranks on cuda:0 over gloo under fleet telemetry (``fleet_ranks``,
+    run in 5i (b)'s pool, where the card's memory is free of the later
+    phases')."""
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.obs import validate_chrome_trace
+    from npairloss_tpu_torch.obs.fleet import (
+        COMMS_FILENAME,
+        grad_sync_claim_bytes,
+        validate_fleet_report,
+    )
+
+    card = detail["card"]
+    run = detail["fleet_run"]
+    run_dir, param_bytes, ranks_s = (run["run_dir"], run["param_bytes"],
+                                     run["ranks_s"])
+    if param_bytes[0] != param_bytes[1]:
+        fail(f"8c: the ranks' parameter bytes differ {param_bytes}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["prof", "--fleet", run_dir])
+    if rc != 0:
+        fail(f"8c: prof --fleet rc {rc}: {buf.getvalue()[-800:]}")
+    report = json.load(open(os.path.join(run_dir, "fleet_report.json")))
+    err = validate_fleet_report(report)
+    if err or report["ranks_present"] != [0, 1]:
+        fail(f"8c: fleet report {err}; ranks {report['ranks_present']}")
+    payload = json.load(open(os.path.join(run_dir, COMMS_FILENAME)))
+    claim = grad_sync_claim_bytes(float(param_bytes[0]), 2)
+    priced = payload["per_kind"].get("allreduce", {}).get("bytes", 0)
+    comms = report["comms"]
+    kinds = {k["kind"]: k for k in comms.get("kinds", [])}
+    if payload["extra_claims"] != claim or priced < param_bytes[0] \
+            or not comms.get("available") or comms["unattributed_bytes"] \
+            or "allreduce" not in kinds:
+        fail(f"8c: comms {payload['extra_claims']} vs claim {claim}, "
+             f"priced all-reduce {priced}, block {comms}")
+    merged = json.load(open(os.path.join(run_dir, "fleet_trace.json")))
+    err = validate_chrome_trace(merged)
+    if err or merged["otherData"]["merged_ranks"] != [0, 1]:
+        fail(f"8c: merged trace {err}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["timeline", run_dir])
+    tl = json.load(open(json.loads(buf.getvalue().strip())["timeline"]))
+    err = validate_chrome_trace(tl)
+    if rc != 0 or err or tl["otherData"]["sources"]["trainer_ranks"] != [
+            0, 1]:
+        fail(f"8c: timeline rc {rc}: {err}")
+    skew = report["skew"]
+    ar = kinds["allreduce"]
+    out = {"ranks_s": ranks_s, "param_bytes": param_bytes[0],
+           "skew": skew, "ranks": report["ranks"],
+           "comms": {"link": comms["link"],
+                     "ms_per_step": comms["ms_per_step"],
+                     "kinds": comms["kinds"]}}
+    log(f"[8c] two ranks on cuda:0 over gloo, googlenet_bn mxu dense, "
+        f"{DIST_STEPS} steps ({ranks_s:.1f} s, in 5i (b)'s pool): fleet report "
+        f"valid, ranks {report['ranks_present']}; skew over "
+        f"{skew['steps_analyzed']} steps [{skew['source']}]: dispatch "
+        f"spread p50 {skew['dispatch_spread_ms_p50']} ms p99 "
+        f"{skew['dispatch_spread_ms_p99']} ms, end spread p50 "
+        f"{skew['end_spread_ms_p50']} ms; slowest {skew['slowest']}; "
+        f"ms/step p50 by rank "
+        f"{[r['ms_per_step_p50'] for r in report['ranks']]}, barrier wait "
+        f"{[r['barrier_wait_share'] for r in report['ranks']]}; all-reduce "
+        f"claim {claim['allreduce']:.0f} B (the parameter bytes), priced "
+        f"{ar['bytes_per_step']:.0f} B/step, effective "
+        f"{(ar['effective_bytes_per_s'] or 0) / 1e9:.3f} GB/s over "
+        f"{comms['link']} (no published peak); all-gather "
+        f"{kinds.get('all_gather', {}).get('bytes_per_step')} B/step; "
+        f"merged trace and timeline valid ({card})")
+    return out
+
+
+def check_device_query(torch, detail):
+    """8 (d): ``device-query`` on the card."""
+    from npairloss_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["device-query"])
+    rec = json.loads(buf.getvalue())
+    dev = rec["devices"][0]
+    if rc != 0 or rec["default_backend"] != "gpu" \
+            or dev["platform"] != "gpu" \
+            or dev["device_kind"] != torch.cuda.get_device_name(0) \
+            or not dev["bytes_limit"] > 0:
+        fail(f"8d: device-query {rec}")
+    log(f"[8d] device-query: {json.dumps(rec)}")
+    return rec
+
+
+def check_debug_checks(torch, seed, detail):
+    """8 (e): ``train --debug-checks`` on the phase-5h cut (googlenet_pallas
+    fp32 dense, 6 iterations): records equal to the run without it;
+    with ``step.nan_loss`` armed the run goes on as the JAX CLI's does
+    (the check precedes the loop's host poison); a non-finite step (a
+    parameter set to NaN before step 3) stops it with JAX's
+    ``FloatingPointError``."""
+    import math
+
+    from npairloss_tpu_torch.resilience import failpoints
+    from npairloss_tpu_torch.utils.debug import enable_debug_checks
+
+    card = detail["card"]
+    argv = ["--model", "googlenet_pallas"]
+    batches = _TrainBatches(n=6)
+    cut = {"max_iter": 6, "display": 2, "average_loss": 2, "snapshot": 0,
+           **NO_TEST}
+    cudnn = torch.backends.cudnn
+    det, bench = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for tag, extra, arm in (("plain", [], False),
+                                ("debug", ["--debug-checks"], False),
+                                ("debug_nan_loss", ["--debug-checks"], True)):
+            if arm:
+                failpoints.arm("step.nan_loss", times=1, delay=2)
+            try:
+                runs[tag] = _pipe_train(torch, seed, f"dbg_{tag}",
+                                        argv + extra, False,
+                                        batches=batches.from_index(0), **cut)
+            finally:
+                failpoints.reset()
+                enable_debug_checks(False)
+            if runs[tag]["rc"] != 0:
+                fail(f"8e: {tag} rc {runs[tag]['rc']}")
+            _release(torch)
+
+        def poison(solver, loop, n):
+            if n == 3:
+                with torch.no_grad():
+                    next(iter(solver.params.values())).fill_(float("nan"))
+
+        raised = None
+        try:
+            _pipe_train(torch, seed, "dbg_nonfinite", argv + [
+                "--debug-checks"], False, batches=batches.from_index(0),
+                hook=poison, **cut)
+        except FloatingPointError as e:
+            raised = str(e)
+        finally:
+            enable_debug_checks(False)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = det, bench
+    _release(torch)
+    same = (_masked_events(runs["plain"]["events"], runs["plain"]["work"])
+            == _masked_events(runs["debug"]["events"], runs["debug"]["work"])
+            and _masked_lines(runs["plain"]) == _masked_lines(runs["debug"]))
+    nan_rows = [e["iteration"] for e in runs["debug_nan_loss"]["events"]
+                if e.get("event") == "display"
+                and not math.isfinite(e.get("loss_avg", 0.0))]
+    if not same:
+        fail("8e: --debug-checks changed the records")
+    if nan_rows != [4]:
+        fail(f"8e: step.nan_loss under --debug-checks: NaN display rows "
+             f"at {nan_rows}, want [4] (the run goes on, as JAX's)")
+    if raised is None or not raised.startswith("non-finite step metrics["):
+        fail(f"8e: a non-finite step under --debug-checks raised {raised!r}")
+    log(f"[8e] train --debug-checks (googlenet_pallas fp32, 6 steps): "
+        f"records and display lines byte for byte with the run without it; "
+        f"step.nan_loss at step 3: the run ends rc 0 with the NaN in the "
+        f"iteration-4 display row, as the JAX CLI's (its check runs before "
+        f"the loop's poison); a NaN parameter before step 3: "
+        f"FloatingPointError {raised!r} ({card})")
+    return {"records_equal": same, "nan_loss_rows": nan_rows,
+            "nonfinite_error": raised}
+
+
+def drive_observability(torch, seed, detail):
+    """Phase 8 (see the module docstring); returns 8 (a)'s launches."""
+    t_start = time.perf_counter()
+    log(f"[8] this process's card memory at the start: allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, free "
+        f"{torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB")
+    emb, labels = synthetic_gallery(seed)
+    out = {"serve": check_serve_telemetry(torch, seed, detail, emb, labels)}
+    del emb, labels
+    out["prof_serve"] = check_prof_serve(torch, detail)
+    _release(torch)
+    out["fleet"] = check_fleet(detail)
+    out["device_query"] = check_device_query(torch, detail)
+    out["debug_checks"] = check_debug_checks(torch, seed, detail)
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"[8] {out['wall_s']:.1f} s")
+    detail["observability"] = out
+    return out["serve"]["launches"]
+
+
 def _release(torch):
     import gc
 
@@ -6386,6 +6921,8 @@ def main() -> int:
         torch, detail["card"])
     _release(torch)
     p7_launches = drive_trunks(torch, args.seed, detail)
+    _release(torch)
+    p8_launches = drive_observability(torch, args.seed, detail)
 
     def entry(name, source, replaces, rows, counter, path=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -6503,6 +7040,9 @@ def main() -> int:
                    "ivf_probe": "probe_topk"}.get(k["name"])
         if counter is not None:
             k["launches_serving_tier"] = tier["launches"][counter]
+            # Phase 8 (a): one turn of 38 queries under serve
+            # --telemetry-dir, 2 replicas.
+            k["launches_phase8"] = p8_launches[counter]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         fail(f"kernels not launched on their path: {idle}")

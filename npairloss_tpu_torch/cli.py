@@ -1,6 +1,6 @@
 """``python -m npairloss_tpu_torch
-index|serve|train|test|extract|eval|time|prof|import-caffemodel|
-export-caffemodel`` — the port's CLI.
+index|serve|train|test|extract|eval|time|prof|timeline|device-query|
+parse|import-caffemodel|export-caffemodel`` — the port's CLI.
 
 Flag names follow ``npairloss_tpu``'s CLI for the ported subset; the
 port adds ``--device`` (default: the card; ``cpu`` to run without one)
@@ -22,7 +22,10 @@ is here (GoogLeNet, Inception-BN, the ResNets, ViT-B/16, the MLP).
            trunk; ``--wal-dir`` acknowledges ingest records only after
            their fsync and publishes index checkpoints under the prefix,
            which a restart loads before replaying the log above their
-           watermark.  SIGTERM/SIGINT: every admitted query is answered,
+           watermark; ``--telemetry-dir DIR`` writes the run directory
+           (manifest, one ``serve`` row per metrics window and the drain
+           summary, the span trace) and ``--trace-dir DIR`` the trace
+           alone.  SIGTERM/SIGINT: every admitted query is answered,
            a final checkpoint is written, exit 75;
   train:   the Caffe solver loop from a solver prototxt on the net's list
            files (TRAIN and TEST ``source``, decoded by the native
@@ -54,7 +57,8 @@ is here (GoogLeNet, Inception-BN, the ResNets, ViT-B/16, the MLP).
            does; ``--health-metrics`` and
            ``--mining-health`` add the health signals to every step's
            metrics; ``--perf-metrics`` adds one ``perf`` row (step FLOPs,
-           MFU) per display window;
+           MFU) per display window; ``--debug-checks`` checks every
+           step's metric scalars on the host (synchronous loop);
   test:    the TEST phase from a snapshot or weights (``caffe test``);
   extract: eval-mode embeddings of a phase's batches to
            ``OUT.emb.npy`` + ``OUT.labels.npy``;
@@ -66,6 +70,13 @@ is here (GoogLeNet, Inception-BN, the ResNets, ViT-B/16, the MLP).
            batch with their host spans, the step's FLOPs and bytes per
            region against the card's roofline, and the step-time
            decomposition, as ``npairloss-perf-report-v1`` JSON + table;
+           ``--step serve``: the same for query dispatches over a
+           synthetic gallery; ``--fleet RUNDIR``: the offline
+           ``npairloss-fleet-report-v1`` (straggler, skew, comms) and
+           the merged per-rank trace of a fleet run directory;
+  timeline: every trace under a run directory on one Perfetto timeline;
+  device-query: the card(s) and the process topology as JSON;
+  parse:   a prototxt parsed and printed back (``--json``: as JSON);
   import-caffemodel: a ``.caffemodel``'s GoogLeNet or ResNet-50 blobs to a
            ``--weights`` ``.npz``;
   export-caffemodel: a ``.npz`` or a port snapshot back to a
@@ -346,7 +357,8 @@ def build_server(args):
     cfg = EngineConfig(top_k=args.top_k, buckets=buckets,
                        gallery_block=args.gallery_block, probes=args.probes,
                        scoring=args.scoring, probe_impl=args.probe_impl)
-    engine = QueryEngine(index, cfg, model=model)
+    telemetry = _serve_telemetry(args, index_path, buckets)
+    engine = QueryEngine(index, cfg, model=model, telemetry=telemetry)
     if not args.no_warmup:
         engine.warmup(input_shape)
     # Replicas share the primary's index tensors, model and kernels.
@@ -361,7 +373,8 @@ def build_server(args):
         preempt=PreemptionSignal(),
         freshness=Freshness.collect(index=index, index_path=index_path,
                                     weights_path=args.weights,
-                                    snapshot_path=args.snapshot))
+                                    snapshot_path=args.snapshot),
+        telemetry=telemetry)
     if wal is not None:
         server.attach_wal(
             wal, ingest.apply, checkpoint_fn=ingest.publish,
@@ -369,6 +382,33 @@ def build_server(args):
             watermark=max(base_watermark, wal.last_seq),
             checkpoint_watermark=base_watermark, recovery=recovery)
     return server, wal
+
+
+def _serve_telemetry(args, index_path: str, buckets):
+    """``serve``'s ``RunTelemetry``: ``--telemetry-dir`` (manifest, one
+    ``serve`` row per metrics window and the drain summary, the span
+    trace) or ``--trace-dir`` (the trace alone); None without either."""
+    tel_dir, trace_dir = args.telemetry_dir, args.trace_dir
+    if not (tel_dir or trace_dir):
+        return None
+    from npairloss_tpu_torch.obs import RunTelemetry
+
+    telemetry = RunTelemetry(tel_dir or trace_dir, metrics=bool(tel_dir))
+    if tel_dir:
+        telemetry.write_manifest(config={
+            "serve": True,
+            "index": index_path,
+            "index_kind": args.index_kind,
+            "probes": args.probes,
+            "scoring": args.scoring,
+            "probe_impl": args.probe_impl,
+            "replicas": args.replicas,
+            "top_k": args.top_k,
+            "buckets": list(buckets),
+            "deadline_ms": args.deadline_ms,
+            "max_queue": args.max_queue,
+        })
+    return telemetry
 
 
 def cmd_serve(args) -> int:
@@ -388,6 +428,11 @@ def cmd_serve(args) -> int:
         server.preempt.uninstall()
         if wal is not None:
             wal.close()
+        if server.telemetry is not None:
+            try:
+                server.telemetry.close()
+            except Exception as e:  # noqa: BLE001 — the answers stand
+                log.error("telemetry close failed: %s", e)
 
 
 def _resolve_net_path(args, net_path: Optional[str]) -> Optional[str]:
@@ -713,6 +758,10 @@ def _train(args) -> int:
                 "momentum over random-init weights would be a corrupt "
                 "trajectory")
             return 2
+    if args.debug_checks:
+        from npairloss_tpu_torch.utils.debug import enable_debug_checks
+
+        enable_debug_checks(True)
     built = _build_solver(args, phases=("TRAIN", "TEST"))
     if isinstance(built, int):
         return built
@@ -1140,14 +1189,22 @@ def _time(args) -> int:
 
 
 def cmd_prof(args) -> int:
-    """Perf observatory, training side (``prof --step train``): one
-    on-disk report per run — the step's FLOPs, bytes, arithmetic
-    intensity and roofline bound class per region (``obs.perf.count``;
-    the JAX package reads compiled HLO), and the span-derived step-time
-    decomposition of the measured loop reconciled against its wall time
-    (``step/device_wait`` spans the synchronize after each step, so
-    device time is attributed, not absorbed).  ``--mesh N`` under
-    ``torchrun``."""
+    """Perf observatory (``prof --step train|serve``): one on-disk report
+    per run — the step's FLOPs, bytes, arithmetic intensity and roofline
+    bound class per region (``obs.perf.count``; the JAX package reads
+    compiled HLO), and the span-derived time decomposition of the
+    measured loop reconciled against its wall time.  ``--step train``
+    spans the synchronize after each step (``step/device_wait``), so
+    device time is attributed, not absorbed; ``--mesh N`` under
+    ``torchrun``.  ``--step serve`` drives a warmed ``QueryEngine`` over a
+    synthetic flat gallery.
+
+    ``--fleet RUNDIR`` is the offline mode: aggregate a run directory's
+    per-rank telemetry streams into the ``npairloss-fleet-report-v1``
+    straggler/skew/comms report plus one merged Perfetto timeline — no
+    device is touched."""
+    if args.fleet:
+        return _prof_fleet(args)
     return _in_process_group(args, _prof)
 
 
@@ -1166,7 +1223,10 @@ def _prof(args) -> int:
     tel = RunTelemetry(os.path.join(out_dir, "run"), metrics=True,
                        trace=True, fleet=process_count() > 1)
     try:
-        report = _prof_train(args, tel, steps, obsperf)
+        if args.step == "train":
+            report = _prof_train(args, tel, steps, obsperf)
+        else:
+            report = _prof_serve(args, tel, steps, obsperf)
     finally:
         tel.close()
     if isinstance(report, int):
@@ -1182,6 +1242,112 @@ def _prof(args) -> int:
     print(json.dumps({"report": paths["json"], "table": paths["txt"],
                       "telemetry": tel.run_dir}))
     return 0
+
+
+def _prof_fleet(args) -> int:
+    """``prof --fleet RUNDIR``: offline fleet aggregation (touches no
+    device; the streams on disk are the input).  Writes
+    ``fleet_report.json``/``.txt`` and the merged ``fleet_trace.json``
+    to ``--out`` (default: the run dir itself), prints the table, and
+    fails on a report or merged trace that does not validate."""
+    from npairloss_tpu_torch.obs.fleet import (
+        build_fleet_report,
+        merge_run_traces,
+        render_fleet_table,
+        validate_fleet_report,
+        write_fleet_report,
+    )
+    from npairloss_tpu_torch.obs.tracing import validate_chrome_trace
+
+    run_dir = os.path.abspath(args.fleet)
+    if not os.path.isdir(run_dir):
+        log.error("prof --fleet: %s is not a directory", run_dir)
+        return 2
+    out_dir = args.out if args.out is not None else run_dir
+    os.makedirs(out_dir, exist_ok=True)
+    report = build_fleet_report(run_dir)
+    trace_path, merged = merge_run_traces(
+        run_dir, os.path.join(out_dir, "fleet_trace.json")
+        if os.path.abspath(out_dir) != run_dir else None)
+    if trace_path is not None:
+        terr = validate_chrome_trace(merged)
+        if terr is not None:
+            # The report is independent evidence: land it, then fail.
+            write_fleet_report(report, out_dir)
+            log.error("merged fleet trace failed validation: %s", terr)
+            return 1
+        report.setdefault("notes", []).append(
+            f"merged timeline: {trace_path} "
+            f"({len(merged['traceEvents'])} events, "
+            f"{len(merged['otherData']['merged_ranks'])} rank lane(s))")
+    err = validate_fleet_report(report)
+    if err is not None:
+        write_fleet_report(report, out_dir)
+        log.error("fleet report failed its own schema check: %s", err)
+        return 1
+    paths = write_fleet_report(report, out_dir)
+    print(render_fleet_table(report))
+    print(json.dumps({"report": paths["json"], "table": paths["txt"],
+                      "trace": trace_path}))
+    return 0
+
+
+def _prof_serve(args, tel, steps, obsperf):
+    """Serve-query profile: a synthetic flat gallery and a warmed
+    ``QueryEngine`` with the run's spans; ``steps`` query dispatches
+    cycling the buckets largest first (every bucket contributes spans to
+    the latency split), timing only the largest bucket's; then one
+    counted dispatch of the largest bucket prices its top-k."""
+    import numpy as np
+    import torch
+
+    from npairloss_tpu_torch.obs.perf import count
+    from npairloss_tpu_torch.serve.engine import EngineConfig, QueryEngine
+    from npairloss_tpu_torch.serve.index import GalleryIndex
+
+    device = _run_device(args)
+    rng = np.random.default_rng(0)
+    gallery, dim = int(args.gallery), int(args.dim)
+    emb = rng.standard_normal((gallery, dim)).astype(np.float32)
+    index = GalleryIndex.build(
+        emb, (np.arange(gallery) % max(gallery // 8, 1)).astype(np.int32),
+        device=device)
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    engine = QueryEngine(
+        index, EngineConfig(top_k=int(args.top_k), buckets=buckets),
+        telemetry=tel)
+    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else device.type)
+    log.info("prof serve: gallery=%d dim=%d buckets=%s steps=%d device=%s",
+             gallery, dim, buckets, steps, kind)
+    engine.warmup()
+    t0_us = tel.tracer.now_us()
+    t0 = time.perf_counter()
+    q = rng.standard_normal((buckets[-1], dim)).astype(np.float32)
+    # Time ONLY the largest bucket's dispatches: the MFU line prices the
+    # largest bucket's top-k, and a wall averaged over smaller batches
+    # would inflate it by the bucket-size spread.
+    big_walls = []
+    for i in range(steps):
+        b = buckets[-1 - (i % len(buckets))]
+        s0 = time.perf_counter()
+        engine.query(q[:b])  # answers land on the host: the work is done
+        if b == buckets[-1]:
+            big_walls.append(time.perf_counter() - s0)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in tel.tracer.to_chrome_trace()["traceEvents"]
+              if e.get("ts", 0) >= t0_us]
+    bucket = buckets[-1]
+    with count.StepCounter() as c:
+        engine.query(q[:bucket])
+    return obsperf.build_report(
+        step="serve", device_kind=kind, batch=bucket, count=c,
+        span_events=events, wall_ms=wall_ms,
+        ms_per_step=min(big_walls) * 1e3 if big_walls else None,
+        steps=len(big_walls), serve_spans=True,
+        region_depth=int(args.region_depth),
+        extra={"gallery": gallery, "dim": dim,
+               "engine_stats": engine.stats()})
 
 
 def _prof_train(args, tel, steps, obsperf):
@@ -1262,6 +1428,93 @@ def _prof_train(args, tel, steps, obsperf):
         extra={"model": args.model, "engine": solver.engine,
                "policy": policy or None,
                "mesh_devices": mesh.size if mesh is not None else 1})
+
+
+def cmd_timeline(args) -> int:
+    """``timeline RUNDIR`` — merge every timeline source under a run
+    directory (trainer rank traces, the serve host trace, and the
+    query-trace exemplars, alert/remediation logs and chaos schedule when
+    present) into one Perfetto-loadable ``timeline.json``.  Touches no
+    device."""
+    from npairloss_tpu_torch.obs.fleet.merge_traces import merge_timeline
+    from npairloss_tpu_torch.obs.tracing import validate_chrome_trace
+
+    run_dir = os.path.abspath(args.run_dir)
+    if not os.path.isdir(run_dir):
+        log.error("timeline: %s is not a directory", run_dir)
+        return 2
+    path, merged = merge_timeline(run_dir, out_path=args.out)
+    if path is None:
+        log.error(
+            "timeline: no mergeable source under %s (looked for rank "
+            "traces, serve_tel/trace.json, qtrace.json, alerts.jsonl, "
+            "remediation.jsonl, gameday.json)", run_dir)
+        return 1
+    err = validate_chrome_trace(merged)
+    if err is not None:
+        log.error("merged timeline failed trace validation: %s", err)
+        return 1
+    sources = merged["otherData"]["sources"]
+    log.info("timeline: %d event(s) from %s", len(merged["traceEvents"]),
+             ", ".join(k for k, v in sources.items() if v))
+    print(json.dumps({"timeline": path,
+                      "events": len(merged["traceEvents"]),
+                      "sources": sources}))
+    return 0
+
+
+def cmd_parse(args) -> int:
+    """Parse a prototxt and print it back (text format, or ``--json``)."""
+    from npairloss_tpu_torch.config.prototxt import dumps, parse_file
+
+    msg = parse_file(args.file)
+    if args.json:
+        print(json.dumps(msg.to_dict(), indent=2, default=str))
+    else:
+        print(dumps(msg))
+    return 0
+
+
+def cmd_device_query(args) -> int:
+    """The ``caffe device_query`` counterpart, with the JAX CLI's keys:
+    the device(s) this process sees (the card's name, the allocator's
+    bytes in use and the card's memory as ``bytes_limit``) and the
+    process topology.  ``--device cpu`` lists the CPU."""
+    import torch
+
+    from npairloss_tpu_torch.device import resolve_device
+    from npairloss_tpu_torch.parallel.distributed import (
+        process_count,
+        process_index,
+    )
+
+    dev = resolve_device(args.device)
+    devices = []
+    if dev.type == "cuda":
+        for i in range(torch.cuda.device_count()):
+            devices.append({
+                "id": i,
+                "platform": "gpu",
+                "device_kind": torch.cuda.get_device_name(i),
+                "process_index": process_index(),
+                "bytes_in_use": int(torch.cuda.memory_allocated(i)),
+                "bytes_limit": int(
+                    torch.cuda.get_device_properties(i).total_memory),
+            })
+    else:
+        devices.append({"id": 0, "platform": dev.type,
+                        "device_kind": dev.type,
+                        "process_index": process_index(),
+                        "bytes_in_use": None, "bytes_limit": None})
+    print(json.dumps({
+        "device_count": len(devices) * process_count(),
+        "local_device_count": len(devices),
+        "process_index": process_index(),
+        "process_count": process_count(),
+        "default_backend": "gpu" if dev.type == "cuda" else dev.type,
+        "devices": devices,
+    }, indent=2))
+    return 0
 
 
 def _template(model_name: str):
@@ -1550,6 +1803,14 @@ def build_parser() -> argparse.ArgumentParser:
                     default=0.0, metavar="MS",
                     help="group-commit fsync interval; 0 fsyncs inline on "
                     "every append")
+    sv_tel = sv.add_mutually_exclusive_group()
+    sv_tel.add_argument(
+        "--telemetry-dir", dest="telemetry_dir", metavar="DIR",
+        help="run-telemetry directory (manifest + per-window serve metric "
+        "rows + the drain summary + span trace)")
+    sv_tel.add_argument(
+        "--trace-dir", dest="trace_dir", metavar="DIR",
+        help="span tracing only (serve/admit|batch|dispatch|encode|topk)")
     sv.add_argument("--wal-checkpoint-every", dest="wal_checkpoint_every",
                     type=int, default=8, metavar="N",
                     help="publish an index checkpoint every N ingest "
@@ -1764,6 +2025,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="one phase=\"perf\" row per display window (ms_per_step, "
         "emb_per_sec, the step's counted FLOPs and MFU); needs "
         "--telemetry-dir")
+    tr.add_argument(
+        "--debug-checks", dest="debug_checks", action="store_true",
+        help="validate every step's loss/metric scalars are finite on "
+        "host (utils.debug.enable_debug_checks; also settable via "
+        "NPAIRLOSS_DEBUG_CHECKS=1)")
     tr.set_defaults(fn=cmd_train)
 
     tt = sub.add_parser("test", help="TEST phase only from a snapshot "
@@ -1827,10 +2093,18 @@ def build_parser() -> argparse.ArgumentParser:
     tm.set_defaults(fn=cmd_time)
 
     pr = sub.add_parser(
-        "prof", help="perf observatory: the training step's FLOPs/bytes "
-        "per region, roofline bound class and step-time decomposition")
-    pr.add_argument("--step", choices=["train"], default="train",
+        "prof", help="perf observatory: the training step's or a serve "
+        "query's FLOPs/bytes per region, roofline bound class and "
+        "time decomposition; --fleet: the offline fleet report")
+    pr.add_argument("--step", choices=["train", "serve"], default="train",
                     help="which step to profile")
+    pr.add_argument(
+        "--fleet", metavar="RUNDIR",
+        help="offline fleet aggregation: read a fleet run directory's "
+        "per-rank telemetry (telemetry.r<k>.jsonl + trace.r<k>.json), "
+        "emit the npairloss-fleet-report-v1 straggler/skew/comms report "
+        "and a merged Perfetto timeline (ignores the live-profiling "
+        "flags; no device touched)")
     pr.add_argument("--model", default="googlenet",
                     help="model registry name")
     pr.add_argument("--batch", type=int, default=8,
@@ -1850,15 +2124,49 @@ def build_parser() -> argparse.ArgumentParser:
                     default=None,
                     help="mixed-precision policy for the profiled trunk "
                     "(see train --precision)")
+    pr.add_argument("--gallery", type=int, default=2048,
+                    help="synthetic gallery rows (serve)")
+    pr.add_argument("--dim", type=int, default=64,
+                    help="embedding dim (serve)")
+    pr.add_argument("--top-k", dest="top_k", type=int, default=10)
+    pr.add_argument("--buckets", default="1,8,32",
+                    help="query padding buckets (serve)")
     pr.add_argument("--region-depth", dest="region_depth", type=int,
                     default=2,
                     help="module-path depth to aggregate regions at")
     pr.add_argument("--out", default=None,
-                    help="report output directory (default perf_reports)")
+                    help="report output directory (default perf_reports; "
+                    "--fleet: the run dir)")
     pr.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without "
                     "a card unless 'cpu' is asked for)")
     pr.set_defaults(fn=cmd_prof)
+
+    tl = sub.add_parser(
+        "timeline",
+        help="merge a run directory's timeline sources (trainer rank "
+        "traces, serve host spans; query-trace exemplars, alert/"
+        "remediation/chaos instants when present) into one "
+        "Perfetto-loadable timeline.json")
+    tl.add_argument("run_dir", metavar="RUNDIR",
+                    help="run/telemetry directory (serve_tel/ + "
+                    "train_tel/ subdirectories work as-is)")
+    tl.add_argument("--out", default=None, metavar="PATH",
+                    help="output path (default: RUNDIR/timeline.json)")
+    tl.set_defaults(fn=cmd_timeline)
+
+    dq = sub.add_parser(
+        "device-query",
+        help="enumerate accelerators (the caffe device_query action)")
+    dq.add_argument("--device", default=None,
+                    help="torch device (default: cuda; raises without a "
+                    "card unless 'cpu' is asked for)")
+    dq.set_defaults(fn=cmd_device_query)
+
+    pp = sub.add_parser("parse", help="parse + dump a prototxt file")
+    pp.add_argument("file")
+    pp.add_argument("--json", action="store_true")
+    pp.set_defaults(fn=cmd_parse)
 
     im = sub.add_parser(
         "import-caffemodel",

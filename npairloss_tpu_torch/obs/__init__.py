@@ -1,5 +1,6 @@
 """Run telemetry — port of ``npairloss_tpu/obs`` (its core and the
-training side of its perf observatory):
+training and serving sides of its perf observatory and its fleet
+observatory):
 
   * ``obs.sinks`` — structured metric sinks (JSONL / CSV / ring buffer /
     multiplex) behind the ``MetricLogger`` protocol;
@@ -8,7 +9,8 @@ training side of its perf observatory):
   * ``obs.health`` — training-health signals inside the step (grad /
     param / update norms, embedding magnitude, mined-pair hardness),
     gated by ``HealthConfig``;
-  * ``obs.fleet`` — the rank stamp and per-rank file streams;
+  * ``obs.fleet`` — the rank stamp, per-rank file streams, the comms
+    pricing, the fleet report and the merged timelines;
   * ``obs.perf`` — the step's FLOPs and bytes per region, the roofline,
     MFU, the step-time decomposition and the ``prof`` report;
 

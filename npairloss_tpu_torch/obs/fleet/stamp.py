@@ -1,7 +1,6 @@
 """Rank identity for fleet telemetry — who wrote this row/span/file?
-Port of ``npairloss_tpu/obs/fleet/stamp.py`` (a copy of its stamp and
-path scheme; the aggregator, comms pricing and trace merge are not
-ported yet).
+Port of ``npairloss_tpu/obs/fleet/stamp.py`` (a copy of its stamp,
+its path scheme and its tolerant JSON reader).
 
 ``FleetStamp`` is the identity every fleet-aware artifact carries:
 ``{process_index, process_count, local_device_ids}`` stamped on metric
@@ -26,10 +25,25 @@ Stdlib only at import time.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import re
 import sys
 from typing import Any, Dict, List, Optional
+
+
+def load_json(path: str) -> Optional[Dict[str, Any]]:
+    """Tolerant JSON-object load for fleet artifacts: unreadable,
+    unparseable or non-object content is None, never fatal — the
+    aggregation and merge readers report what is missing instead of
+    dying on one rank's torn file."""
+    try:
+        with open(path) as f:
+            obj = json.load(f)
+        return obj if isinstance(obj, dict) else None
+    except (OSError, ValueError):
+        return None
+
 
 # Env override: "<rank>/<count>", e.g. "1/2".
 FLEET_PROCESS_ENV = "NPAIRLOSS_FLEET_PROCESS"

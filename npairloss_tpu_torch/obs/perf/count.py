@@ -18,7 +18,10 @@ below autograd, on the CPU and on the card alike.
     inside it — its plain version on the CPU — are not counted, so one
     configuration counts the same on the CPU and on the card.
   * ``parallel.mesh``'s collectives declare their payload
-    (:func:`collective`) as ``collective_bytes``.
+    (:func:`collective`) as ``collective_bytes``, and by their op
+    (``all_gather``, ``all_reduce_sum``, ...) in ``c.collectives``: the
+    source of the fleet observatory's comms pricing
+    (``obs.fleet.comms``), where the JAX package parses HLO.
   * With ``--remat`` the recompute is counted, as XLA counts it.
 
 Regions are the module path that produced an op: the flax-style
@@ -162,7 +165,10 @@ class StepCounter:
     ``c.scopes`` maps each scope (None: unscoped) to ``[flops, bytes,
     collective_bytes, ops]``; ``c.kernels`` maps each priced kernel and
     ``c.ops`` each counted aten op (``aten.convolution``, ...) to
-    ``[calls, flops, bytes]``.  One counter at a time."""
+    ``[calls, flops, bytes]``; ``c.collectives`` maps each declared
+    collective op to ``{"bytes", "count", "regions": {region: bytes}}``
+    (region: the scope path, then ``comm/<op>``).
+    One counter at a time."""
 
     def __init__(self):
         from torch.utils.flop_counter import flop_registry
@@ -171,6 +177,7 @@ class StepCounter:
         self.scopes: Dict[Optional[str], List[int]] = {}
         self.kernels: Dict[str, List[int]] = {}
         self.ops: Dict[str, List[int]] = {}
+        self.collectives: Dict[str, Dict[str, object]] = {}
         self._fw: List[str] = []
         self._bw: List[str] = []
         self._suppress = 0
@@ -232,7 +239,14 @@ class StepCounter:
     def _op(self, func, args, kwargs, out) -> None:
         packet = func._overloadpacket
         fn = self._flops.get(packet)
-        flops = fn(*args, **kwargs, out_val=out) if fn is not None else 0
+        if fn is not None:
+            flops = fn(*args, **kwargs, out_val=out)
+        elif packet is _aten.matmul:
+            # Under inference_mode matmul reaches the mode undecomposed
+            # (no mm/bmm below it): 2 x each output element's inner dim.
+            flops = 2 * out.numel() * int(args[0].shape[-1])
+        else:
+            flops = 0
         if getattr(func, "is_view", False) or packet in _NO_BYTES:
             nbytes = 0
         else:
@@ -244,6 +258,19 @@ class StepCounter:
             row[0] += 1
             row[1] += int(flops)
             row[2] += int(nbytes)
+
+    def _collective(self, op: Optional[str], nbytes: int) -> None:
+        self._add(0, 0, coll=nbytes)
+        scope = self.current()
+        region = "/".join(p for p in (
+            scope, f"comm/{op}" if op else None) if p) or UNSCOPED
+        with self._lock:
+            row = self.collectives.setdefault(
+                op or "(undeclared)", {"bytes": 0, "count": 0, "regions": {}})
+            row["bytes"] += int(nbytes)
+            row["count"] += 1
+            row["regions"][region] = row["regions"].get(region, 0) \
+                + int(nbytes)
 
     def _kernel(self, name: str, flops: int, nbytes: int):
         k = self.kernels.setdefault(name, [0, 0, 0])
@@ -388,13 +415,15 @@ def kernel(name: str, cost: Callable[[], Tuple[int, int]]):
     return c._kernel(name, flops, nbytes)
 
 
-def collective(nbytes: Callable[[], int]):
+def collective(nbytes: Callable[[], int], op: Optional[str] = None):
     """Around a collective of ``parallel.mesh``: ``nbytes()`` is the
-    payload this rank receives; the ops inside are not counted."""
+    payload this rank receives (the output's bytes, the JAX package's
+    HLO convention); ``op`` names the collective (the mesh method), its
+    ``comm/<op>`` claim.  The ops inside are not counted."""
     c = _ACTIVE
     if c is None:
         return _NULL
-    c._add(0, 0, coll=nbytes())
+    c._collective(op, nbytes())
     return _Suppressed(c)
 
 

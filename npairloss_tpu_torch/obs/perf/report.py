@@ -220,15 +220,17 @@ def render_table(report: Dict[str, Any]) -> str:
     return "\n".join(lines) + "\n"
 
 
-def write_report(report: Dict[str, Any], out_dir: str,
-                 name: str = "perf_report") -> Dict[str, str]:
-    """Write ``<out_dir>/<name>.json`` + ``.txt`` (atomic tmp+rename);
-    returns the paths."""
+def write_json_txt(report: Dict[str, Any], out_dir: str, name: str,
+                   renderer) -> Dict[str, str]:
+    """The one report-artifact writer: ``<out_dir>/<name>.json`` +
+    ``.txt`` (atomic tmp+rename), the ``.txt`` rendered by
+    ``renderer(report)``.  Shared by the perf report and the fleet
+    report (``obs.fleet.aggregate``); returns the paths."""
     os.makedirs(out_dir, exist_ok=True)
     paths = {}
     for ext, payload in (
         ("json", json.dumps(report, indent=1, default=str) + "\n"),
-        ("txt", render_table(report)),
+        ("txt", renderer(report)),
     ):
         path = os.path.join(out_dir, f"{name}.{ext}")
         tmp = path + ".tmp"
@@ -237,3 +239,10 @@ def write_report(report: Dict[str, Any], out_dir: str,
         os.replace(tmp, path)
         paths[ext] = path
     return paths
+
+
+def write_report(report: Dict[str, Any], out_dir: str,
+                 name: str = "perf_report") -> Dict[str, str]:
+    """Write ``<out_dir>/<name>.json`` + ``.txt`` (atomic tmp+rename);
+    returns the paths."""
+    return write_json_txt(report, out_dir, name, render_table)

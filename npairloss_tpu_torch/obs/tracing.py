@@ -21,7 +21,7 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 
 class SpanTracer:
@@ -64,6 +64,19 @@ class SpanTracer:
         compare span timestamps against (e.g. the ``prof`` CLI keeps
         only the spans of its measured loop)."""
         return self._now_us()
+
+    def events_since(self, index: int
+                     ) -> Tuple[List[Dict[str, Any]], int, int]:
+        """``(events[index:], next_index, dropped)`` — the incremental
+        read for windowed consumers (the serve window rows).  Spans are
+        appended at span END, so the tail slice is exactly the spans
+        that *finished* since the last read: a span in flight across
+        the boundary lands in the next window instead of vanishing.
+        O(new events) per read; ``dropped`` > 0 means the ``max_events``
+        cap is eating spans and the split is partial."""
+        with self._lock:
+            tail = self._events[index:]
+            return tail, index + len(tail), self._dropped
 
     def _append(self, ev: Dict[str, Any]) -> None:
         with self._lock:

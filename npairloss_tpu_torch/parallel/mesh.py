@@ -98,7 +98,8 @@ class Mesh:
         MPI_Allgather's receive-buffer order (cu:31-38)."""
         if not self._comm():
             return t
-        with count.collective(lambda: _nbytes(t) * self.size):
+        with count.collective(lambda: _nbytes(t) * self.size,
+                              op="all_gather"):
             src = t.detach().contiguous()
             if self._stage:
                 src = src.cpu()
@@ -117,10 +118,10 @@ class Mesh:
                                  for p in range(self.size)])
             return out.to(t.device)
 
-    def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+    def _all_reduce(self, t: torch.Tensor, op, name: str) -> torch.Tensor:
         if not self._comm():
             return t
-        with count.collective(lambda: _nbytes(t)):
+        with count.collective(lambda: _nbytes(t), op=name):
             buf = t.detach().clone(memory_format=torch.contiguous_format)
             if self._stage:
                 buf = buf.cpu()
@@ -130,11 +131,11 @@ class Mesh:
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of every shard's ``t`` (MPI_Allreduce, cu:462-489):
         the same bits on every rank."""
-        return self._all_reduce(t, dist.ReduceOp.SUM)
+        return self._all_reduce(t, dist.ReduceOp.SUM, "all_reduce_sum")
 
     def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the shards (exact in any order)."""
-        return self._all_reduce(t, dist.ReduceOp.MAX)
+        return self._all_reduce(t, dist.ReduceOp.MAX, "all_reduce_max")
 
     def agree(self, flag: bool) -> bool:
         """True iff ``flag`` holds on every rank."""
@@ -157,7 +158,8 @@ class Mesh:
             return list(tensors)
         nxt = self.ring[(self.rank + 1) % self.size]
         prv = self.ring[(self.rank - 1) % self.size]
-        with count.collective(lambda: sum(_nbytes(t) for t in tensors)):
+        with count.collective(lambda: sum(_nbytes(t) for t in tensors),
+                              op="shift"):
             sends = [t.detach().contiguous() for t in tensors]
             if self._stage:
                 sends = [t.cpu() for t in sends]

@@ -18,7 +18,8 @@ and builds the mesh; then
    ``barrier`` against what they must give, the sum's bits the same on
    every rank;
 2. their times at the flagship's sizes: the flattened gradient's
-   all-reduce, the embeddings' gather and one ring hop;
+   all-reduce, the embeddings' gather, one ring hop, and the synced
+   BatchNorm's sums (one layer's, and a step's worth back to back);
 3. ``--steps`` steps of googlenet_bn under ``mxu`` on the CUB net's
    loss, global batch ``2 * --ids`` rows at ``--size``², dense and ring
    on the same batches: the ranks' parameters bit for bit after every
@@ -114,11 +115,20 @@ def check_collectives(mesh, fails: List[str]) -> Dict[str, object]:
     return got
 
 
-def time_collectives(mesh, grad_numel: int, rows: int,
-                     dim: int) -> Dict[str, float]:
+def time_collectives(mesh, grad_numel: int, rows: int, dim: int,
+                     bn_features: List[int]) -> Dict[str, float]:
     dev = mesh.device
     grad = torch.ones(grad_numel, device=dev)
     emb = torch.ones(rows, dim, device=dev)
+    # A synced BatchNorm all-reduces its (2, C) fp32 sums in the forward
+    # and their gradient in the backward: two sums a layer and step.
+    bn = [torch.ones(2, c, device=dev) for c in bn_features]
+    one = sorted(bn, key=torch.Tensor.numel)[len(bn) // 2]
+
+    def bn_sums():
+        for t in bn + bn:
+            mesh.all_reduce_sum(t)
+
     return {
         "grad_all_reduce_ms": _median_ms(lambda: mesh.all_reduce_sum(grad),
                                          dev),
@@ -126,6 +136,12 @@ def time_collectives(mesh, grad_numel: int, rows: int,
         "emb_all_gather_ms": _median_ms(lambda: mesh.all_gather(emb), dev),
         "emb_bytes": rows * dim * 4,
         "ring_hop_ms": _median_ms(lambda: mesh.shift([emb]), dev),
+        "bn_all_reduce_ms": _median_ms(lambda: mesh.all_reduce_sum(one),
+                                       dev),
+        "bn_all_reduce_bytes": one.numel() * 4,
+        "bn_sums_ms": _median_ms(bn_sums, dev),
+        "bn_sums": 2 * len(bn),
+        "bn_sums_bytes": 2 * sum(t.numel() for t in bn) * 4,
     }
 
 
@@ -160,6 +176,7 @@ def check_training(args, mesh, fails: List[str]) -> Dict[str, object]:
     import torch.distributed as dist
 
     from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+    from npairloss_tpu_torch.models.layers import BatchNorm
     from npairloss_tpu_torch.parallel import shard_batch
 
     gen = synthetic_identity_batches(4 * args.ids, args.ids, 2,
@@ -193,6 +210,9 @@ def check_training(args, mesh, fails: List[str]) -> Dict[str, object]:
         if engine == "dense":
             out["grad_numel"] = sum(p.numel()
                                     for p in solver.params.values())
+            out["bn_features"] = [m.scale.numel()
+                                  for m in solver.model.modules()
+                                  if isinstance(m, BatchNorm)]
         del solver
     loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(
         out["ring"]["losses"], out["dense"]["losses"]))
@@ -304,7 +324,8 @@ def main(argv=None) -> int:
         train = check_training(args, mesh, fails)
         rec["training"] = train
         rec["collective_ms"] = time_collectives(
-            mesh, train["grad_numel"], 2 * args.ids // mesh.size, 1024)
+            mesh, train["grad_numel"], 2 * args.ids // mesh.size, 1024,
+            train["bn_features"])
         rec["cli"] = check_cli(args, mesh, args.work, fails)
         ok = mesh.agree(not fails)
         rec.update({"fails": fails, "ok": ok,

@@ -2,8 +2,10 @@
 
 The port's own copy of ``npairloss_tpu/serve/batcher.py`` (the port
 imports nothing of the JAX package), with its ``serve.queue_stall``
-failpoint and without its telemetry hooks (``span_fn``, ``on_batch``,
-``on_pick``: serving's spans are ROADMAP Queue 1 entry 4.2).
+failpoint and its telemetry hooks ``span_fn`` (``serve/batch`` around
+the coalescing wait, ``serve/dispatch`` with its ``size`` around the
+dispatch) and ``on_batch`` (per-batch stats); the query tracer's
+``on_pick`` is not ported.
 
 Serving traffic arrives one query at a time; the accelerator wants
 fixed-shape micro-batches.  The batcher sits between them: callers
@@ -35,7 +37,7 @@ import logging
 import queue
 import threading
 import time
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from npairloss_tpu_torch.resilience import failpoints
 
@@ -72,15 +74,23 @@ class MicroBatcher:
     ``dispatch_fn(items)`` receives the coalesced list and must return
     one result per item, in order; an exception fails every future in
     the batch (the server answers each with an error record).
+
+    ``on_batch`` (optional) receives a stats dict per dispatched batch;
+    ``span_fn`` (optional) is a telemetry ``span(name, **args)`` factory
+    for the ``serve/batch``/``serve/dispatch`` spans.
     """
 
     def __init__(
         self,
         dispatch_fn: Callable[[List[Any]], Sequence[Any]],
         cfg: BatcherConfig = BatcherConfig(),
+        span_fn=None,
+        on_batch: Optional[Callable[[Dict[str, Any]], None]] = None,
     ):
         self.cfg = cfg
         self._dispatch_fn = dispatch_fn
+        self._span_fn = span_fn
+        self._on_batch = on_batch
         self._q: queue.Queue = queue.Queue(maxsize=cfg.max_queue)
         self._thread: Optional[threading.Thread] = None
         self._closed = threading.Event()
@@ -167,6 +177,11 @@ class MicroBatcher:
 
     # -- dispatcher --------------------------------------------------------
 
+    def _span(self, name: str, **args):
+        if self._span_fn is None:
+            return contextlib.nullcontext()
+        return self._span_fn(name, **args)
+
     def _loop(self) -> None:
         delay = max(self.cfg.max_delay_ms, 0.0) / 1e3
         while True:
@@ -185,26 +200,29 @@ class MicroBatcher:
             batch = [head]
             deadline = head[2] + delay
             stop_after = False
-            while len(batch) < self.cfg.max_batch:
-                remaining = deadline - time.perf_counter()
-                if remaining <= 0:
-                    break
-                try:
-                    item = self._q.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                if item is _STOP:
-                    stop_after = True
-                    break
-                batch.append(item)
+            with self._span("serve/batch"):
+                while len(batch) < self.cfg.max_batch:
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0:
+                        break
+                    try:
+                        item = self._q.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    if item is _STOP:
+                        stop_after = True
+                        break
+                    batch.append(item)
             self._run_batch(batch)
             if stop_after:
                 return
 
     def _run_batch(self, batch) -> None:
         items = [b[0] for b in batch]
+        t0 = time.perf_counter()
         try:
-            results = self._dispatch_fn(items)
+            with self._span("serve/dispatch", size=len(items)):
+                results = self._dispatch_fn(items)
             if len(results) != len(items):
                 raise RuntimeError(
                     f"dispatch_fn returned {len(results)} results for "
@@ -217,7 +235,15 @@ class MicroBatcher:
             log.error("batch dispatch failed (%d queries): %s",
                       len(items), e)
             return
+        now = time.perf_counter()
         for (_, fut, _), res in zip(batch, results):
             fut.set_result(res)
         self.batches += 1
         self.dispatched += len(items)
+        if self._on_batch is not None:
+            self._on_batch({
+                "size": len(items),
+                "dispatch_ms": (now - t0) * 1e3,
+                "oldest_wait_ms": (t0 - batch[0][2]) * 1e3,
+                "queue_depth": self._q.qsize(),
+            })

@@ -16,6 +16,18 @@ sort), so answers match the JAX engine row for row.  PyTorch runs
 eagerly: there are no compiled programs to count, and the summary keeps
 no compile counters.
 
+With ``telemetry`` (a ``RunTelemetry``; replicas share the primary's)
+every dispatch is spanned as in JAX: ``serve/topk`` and ``serve/encode``
+(``batch``, ``bucket``) around the device work AND the copy of its
+results to the host — the engine already makes that copy, so a span
+closes when the work is done and adds no sync — ``serve/warmup``
+(``bucket``, ``kind``) around each warm-up dispatch, and a
+``serve/recompile`` instant when a dispatch after warmup meets a shape
+no dispatch has met (a new IVF layout after an ingest, an unwarmed input
+shape: new kernels' first launches, cuDNN's algorithm search), the
+port's counterpart of a post-warmup XLA compile.  Without telemetry the
+engine records nothing.
+
 A replica engine (``share_compiled_with=primary``) shares the primary's
 index object, model and built kernels: one warmup warms the tier and no
 replica copies the gallery.  On the card every replica dispatches on its
@@ -38,6 +50,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from npairloss_tpu_torch.obs.perf import count
 from npairloss_tpu_torch.ops.ivf_probe import (
     NEG_FILL,
     PROBE_IMPLS,
@@ -188,7 +201,8 @@ class QueryEngine:
 
     def __init__(self, index: GalleryIndex,
                  cfg: EngineConfig = EngineConfig(), model=None,
-                 share_compiled_with: Optional["QueryEngine"] = None):
+                 share_compiled_with: Optional["QueryEngine"] = None,
+                 telemetry=None):
         if cfg.top_k > index.size:
             raise ValueError(
                 f"top_k={cfg.top_k} exceeds gallery size {index.size}")
@@ -221,6 +235,15 @@ class QueryEngine:
                        if share_compiled_with is not None else False)
         self.dispatches = 0  # guarded-by: _count_lock
         self._count_lock = threading.Lock()
+        # Spans (telemetry only) and the shapes dispatched so far, shared
+        # with the primary, so a replica's first dispatch of a warmed
+        # bucket is not a new shape.
+        if telemetry is None and share_compiled_with is not None:
+            telemetry = share_compiled_with.telemetry
+        self.telemetry = telemetry
+        self._seen_sigs: set = (share_compiled_with._seen_sigs
+                                if share_compiled_with is not None
+                                else set())  # guarded-by: _count_lock
         # A replica dispatches on a stream of its own, so replicas'
         # batches overlap on the card; a primary keeps the current one
         # (in turns with it, one engine on its own stream ran 0-14 %
@@ -231,6 +254,24 @@ class QueryEngine:
             # Whatever the current stream has queued (the model's and
             # the index's uploads) comes before this engine's work.
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    def _span(self, name: str, **args):
+        if self.telemetry is None:
+            return contextlib.nullcontext()
+        return self.telemetry.span(name, **args)
+
+    def _note_shape(self, sig: tuple) -> None:
+        """Record a dispatch's shape (telemetry only); a shape first met
+        after warmup is marked ``serve/recompile``."""
+        if self.telemetry is None:
+            return
+        with self._count_lock:
+            fresh = sig not in self._seen_sigs
+            self._seen_sigs.add(sig)
+        if fresh and self.warmed:
+            self.telemetry.instant("serve/recompile", sig=str(sig))
+            log.warning("serve: post-warmup dispatch of a new shape "
+                        "(sig=%s)", sig)
 
     def _on_stream(self):
         """This engine's CUDA stream as the current one (no-op on the
@@ -260,10 +301,13 @@ class QueryEngine:
         if bucket > n:
             x = np.concatenate(
                 [x, np.zeros((bucket - n, *x.shape[1:]), np.float32)])
-        with torch.inference_mode(), self._on_stream():
+        with self._span("serve/encode", batch=n, bucket=bucket), \
+                torch.inference_mode(), self._on_stream():
             emb = l2_normalize(self.model(torch.as_tensor(
                 x, device=self.device)))
-            return emb[:n].cpu().numpy()
+            out = emb[:n].cpu().numpy()
+        self._note_shape(("encode", tuple(x.shape)))
+        return out
 
     # -- query -------------------------------------------------------------
 
@@ -310,17 +354,30 @@ class QueryEngine:
         s, r = finalize_topk(s, r, cfg.top_k)
         return s, r, (layout, slab, scale)
 
+    def _topk_sig(self, bucket: int, held) -> tuple:
+        """The shapes a top-k dispatch ran at: the bucket and the
+        generation it read."""
+        if not self._ivf:
+            return ("topk", bucket, tuple(held.emb.shape))
+        layout = held[0]
+        return ("ivf", bucket, tuple(layout.packed.shape), self.cfg.scoring,
+                self.probe_impl)
+
     def _query_bucketed(self, q: np.ndarray) -> Dict[str, np.ndarray]:
         n = q.shape[0]
         bucket = self.bucket_for(n)
         if bucket > n:
             q = np.concatenate(
                 [q, np.zeros((bucket - n, q.shape[1]), np.float32)])
-        with torch.inference_mode(), self._on_stream():
-            scores, rows, held = self._topk(
-                torch.as_tensor(q, device=self.device))
+        with self._span("serve/topk", batch=n, bucket=bucket), \
+                torch.inference_mode(), self._on_stream():
+            q_dev = torch.as_tensor(q, device=self.device)
+            with count.scope("serve/topk"):  # obs.perf.count's region
+                scores, rows, held = self._topk(q_dev)
             scores = scores[:n].cpu().numpy()
             rows = rows[:n].cpu().numpy()
+        if self.telemetry is not None:
+            self._note_shape(self._topk_sig(bucket, held))
         del held  # the results are on the host: the generation may go
         with self._count_lock:
             self.dispatches += 1
@@ -339,14 +396,17 @@ class QueryEngine:
         wall seconds spent."""
         t0 = time.perf_counter()
         for bucket in self.cfg.buckets:
-            self._query_bucketed(np.zeros((bucket, self.index.dim),
-                                          np.float32))
+            with self._span("serve/warmup", bucket=bucket, kind="topk"):
+                self._query_bucketed(np.zeros((bucket, self.index.dim),
+                                              np.float32))
             if self.model is not None:
                 if input_shape is None:
                     raise ValueError("warmup needs input_shape to warm the "
                                      "encode path")
-                self.encode(np.zeros((bucket, *tuple(input_shape)),
-                                     np.float32))
+                with self._span("serve/warmup", bucket=bucket,
+                                kind="encode"):
+                    self.encode(np.zeros((bucket, *tuple(input_shape)),
+                                         np.float32))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.warmed = True

@@ -61,7 +61,9 @@ class ReplicaSet:
 
     ``dispatch_factory(replica)`` returns the batcher dispatch callable
     for that replica (the server wires per-replica crash containment
-    and the shared answer logic there).
+    and the shared answer logic there); ``span_fn`` and ``on_batch`` go
+    to every replica's batcher, whose dispatcher thread is that
+    replica's lane in the trace.
     """
 
     def __init__(
@@ -69,13 +71,16 @@ class ReplicaSet:
         engines: List[Any],
         batcher_cfg: BatcherConfig,
         dispatch_factory: Callable[[Replica], Callable],
+        span_fn=None,
+        on_batch=None,
     ):
         if not engines:
             raise ValueError("ReplicaSet needs at least one engine")
         self.replicas: List[Replica] = []
         for i, engine in enumerate(engines):
             rep = Replica(name=f"r{i}", engine=engine)
-            rep.batcher = MicroBatcher(dispatch_factory(rep), batcher_cfg)
+            rep.batcher = MicroBatcher(dispatch_factory(rep), batcher_cfg,
+                                       span_fn=span_fn, on_batch=on_batch)
             self.replicas.append(rep)
         # Rejections that never reached a batcher (no live replica) —
         # part of the aggregate ``rejected`` so the front-end invariant

@@ -50,6 +50,19 @@ admitted query is answered, a final ingest checkpoint is written, the
 counts records refused before admission (bad JSON), which are errors
 but never queries; ``queries_dropped`` is the residual, present when
 nonzero or with ``explicit_drops``.
+
+Telemetry (``telemetry``: a ``RunTelemetry``, ``serve --telemetry-dir``
+or ``--trace-dir``), as in JAX: ``serve/admit`` around each admission on
+the submitting thread, ``serve/batch`` (the coalescing wait) and
+``serve/dispatch`` (``size``) on each replica's dispatcher thread (one
+lane a replica), ``serve/encode``/``serve/topk``/``serve/warmup`` and the
+``serve/recompile`` instant from the engine.  Every ``metrics_window``
+answers one ``serve`` row goes to the metrics stream (the window's own
+qps, p50/p99, queue depth, batches, rejected, the last batch's stats,
+and the window's per-stage p50/p99 split from the spans that finished
+since the previous window), and the drain summary adds the whole run's
+split.  Both splits start at the server's construction, so warm-up
+spans never count.  Without telemetry every stream is what it was.
 """
 
 from __future__ import annotations
@@ -57,6 +70,7 @@ from __future__ import annotations
 import base64
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import logging
@@ -212,7 +226,8 @@ class RetrievalServer:
     def __init__(self, engine, batcher_cfg: BatcherConfig = BatcherConfig(),
                  cfg: ServerConfig = ServerConfig(),
                  preempt: Optional[PreemptionSignal] = None,
-                 freshness: Optional[Freshness] = None):
+                 freshness: Optional[Freshness] = None,
+                 telemetry=None):
         engines = (list(engine) if isinstance(engine, (list, tuple))
                    else [engine])
         self.engines: List[QueryEngine] = engines
@@ -220,8 +235,25 @@ class RetrievalServer:
         self.cfg = cfg
         self.preempt = preempt
         self.freshness = freshness
+        self.telemetry = telemetry
         self.replicaset = ReplicaSet(engines, batcher_cfg,
-                                     self._replica_dispatch)
+                                     self._replica_dispatch,
+                                     span_fn=self._span,
+                                     on_batch=self._record_batch)
+        self._last_batch: Dict[str, Any] = {}
+        # Tracer event-index cursors for the latency splits: a window
+        # reads only the spans appended (= finished) since the previous
+        # window, so a span straddling two windows lands in exactly one.
+        # Windows close on whichever request thread crosses the
+        # threshold, outside _lock: the cursor's read-advance holds its
+        # own lock, or two threads closing windows at once would count
+        # one window's spans twice.  Both cursors start here, after the
+        # engines' warmup, whose spans never enter a split.
+        tracer = self._tracer()
+        baseline = tracer.num_events if tracer is not None else 0
+        self._events_start_idx = baseline
+        self._window_events_idx = baseline  # guarded-by: _window_events_lock
+        self._window_events_lock = threading.Lock()
         self._lock = threading.Lock()
         self._lat = collections.deque(maxlen=LATENCY_WINDOW)
         self._window_lat: List[float] = []  # guarded-by: _lock
@@ -301,6 +333,48 @@ class RetrievalServer:
                     dead.name, target.name)
         return self._dispatch_core(items, engine=target.engine)
 
+    # -- telemetry ---------------------------------------------------------
+
+    def _span(self, name: str, **args):
+        if self.telemetry is None:
+            return contextlib.nullcontext()
+        return self.telemetry.span(name, **args)
+
+    def _record_batch(self, stats: Dict[str, Any]) -> None:
+        self._last_batch = stats
+
+    def _tracer(self):
+        tel = self.telemetry
+        return getattr(tel, "tracer", None) if tel is not None else None
+
+    @staticmethod
+    def _latency_split(events) -> Dict[str, float]:
+        """Per-stage p50/p99 (admit/batch/dispatch/encode/topk) from
+        ``serve/*`` span events, flattened to ``<stage>_p50_ms`` /
+        ``<stage>_p99_ms`` row keys (``obs.perf.decompose``)."""
+        from npairloss_tpu_torch.obs.perf.decompose import (
+            serve_latency_decomposition,
+        )
+
+        split = serve_latency_decomposition(events)
+        return {f"{stage}_{q}": v for stage, row in split.items()
+                for q, v in row.items() if q != "count"}
+
+    def _window_latency_split(self) -> Dict[str, float]:
+        """The current window's split: the spans that finished since the
+        last window read.  ``spans_dropped`` shows the tracer's cap in
+        the row itself (the split is partial then)."""
+        tracer = self._tracer()
+        if tracer is None:
+            return {}
+        with self._window_events_lock:
+            events, self._window_events_idx, dropped = tracer.events_since(
+                self._window_events_idx)
+        out = self._latency_split(events)
+        if dropped:
+            out["spans_dropped"] = dropped
+        return out
+
     # -- serving core ------------------------------------------------------
 
     def _dispatch_core(self, items: List[Dict[str, Any]],
@@ -371,9 +445,11 @@ class RetrievalServer:
         """Admit one record; returns (future, t_submit).  Raises
         :class:`QueueFullError` on backpressure or a whole-tier loss
         (counted in rejected)."""
-        with self._lock:
-            self.queries += 1
-        return self.replicaset.submit(record), time.perf_counter()
+        with self._span("serve/admit"):
+            with self._lock:
+                self.queries += 1
+            fut = self.replicaset.submit(record)
+            return fut, time.perf_counter()
 
     def _record_latency(self, seconds: float) -> None:
         row = None
@@ -394,14 +470,24 @@ class RetrievalServer:
             self._emit_window(*row)
 
     def _emit_window(self, qps: float, lat: List[float]) -> None:
-        """One latency/throughput/queue-depth log row per window."""
+        """One latency/throughput/queue-depth row per window: logged, and
+        a ``serve`` metrics row with telemetry.  The counters were read
+        under the lock; the math and the I/O here run outside it."""
         row = {"qps": round(qps, 1),
                **{k: round(v, 3) for k, v in self._percentiles(lat).items()},
                "queue_depth": self.replicaset.queue_depth,
                "batches": self.replicaset.batches,
-               "rejected": self.replicaset.rejected}
+               "rejected": self.replicaset.rejected,
+               **self._window_latency_split(),
+               **{f"batch_{k}": round(v, 3) if isinstance(v, float) else v
+                  for k, v in self._last_batch.items()}}
         if len(self.engines) > 1:
             row["replicas_alive"] = self.replicaset.alive_count
+        if self.telemetry is not None and self.telemetry.metrics_enabled:
+            try:
+                self.telemetry.log("serve", self.answered, row)
+            except Exception as e:  # noqa: BLE001 — telemetry is not the run
+                log.error("serve metrics emission failed: %s", e)
         log.info("serve window: %s", row)
 
     def _account(self, answer: Dict[str, Any], t0: float) -> Dict[str, Any]:
@@ -654,6 +740,11 @@ class RetrievalServer:
             **({"ingest": self.ingest_stats()}
                if self.wal is not None else {}),
             **{k: round(v, 3) for k, v in self._percentiles().items()},
+            # The whole run's split (from the construction-time cursor:
+            # warm-up spans never count as serving latency).
+            **(self._latency_split(
+                self._tracer().events_since(self._events_start_idx)[0])
+               if self._tracer() is not None else {}),
             **stats[0],
             "dispatches": sum(s["dispatches"] for s in stats),
         }
@@ -677,6 +768,11 @@ class RetrievalServer:
         if self._ingest_worker is not None:
             self._ingest_worker.shutdown(wait=True)
         s = self.summary()
+        if self.telemetry is not None:
+            with contextlib.suppress(Exception):
+                if self.telemetry.metrics_enabled:
+                    self.telemetry.log("serve", self.answered, s)
+                self.telemetry.flush()
         log.info("serve drain: %s", s)
         return s
 

@@ -76,7 +76,15 @@ instants).  ``perf_metrics`` adds one ``perf`` row per display window
 (ms_per_step, emb_per_sec, the step's counted FLOPs and MFU): the first
 eager step of a key is counted (``obs.perf.count``) inside a
 ``step/cost_analysis`` span, never inside a capture.  A sink failure
-latches: metric rows stop, training goes on.
+latches: metric rows stop, training goes on.  Under fleet telemetry on
+a mesh the dispatch spans carry the step number, the first eager step
+of a key is counted to price its collectives per kind (a ``comm/price``
+span; rank 0 writes ``fleet_comms.json``; a new batch signature or a
+new captured graph prices anew), and every step leaves ``comm/<kind>``
+instants with the priced bytes.  With ``utils.debug``'s switch on
+(``train --debug-checks``), :meth:`Solver.step` checks every step's
+metric scalars on the host, as the JAX step does; the pipelined loop
+does not call it, as JAX's does not.
 
 Not yet ported (later slices, ROADMAP Queue 1): the WAL and remediation
 engine (items 9 and 12).
@@ -87,6 +95,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import json
 import logging
 import os
 import threading
@@ -141,6 +150,10 @@ from npairloss_tpu_torch.resilience.snapshot import (
     validate_snapshot,
     validate_snapshot_wait,
     verify_restored,
+)
+from npairloss_tpu_torch.utils.debug import (
+    assert_all_finite,
+    debug_checks_enabled,
 )
 from npairloss_tpu_torch.train.optim import (
     Mults,
@@ -379,6 +392,12 @@ class Solver:
         self._step_flops: Optional[float] = None
         self._perf_last: Optional[Tuple[float, int]] = None
         self._last_batch_size: Optional[int] = None
+        # Fleet observatory: under fleet-stamped telemetry on a mesh the
+        # first step of a key is counted and its collectives priced per
+        # kind (rank 0 writes fleet_comms.json for `prof --fleet`);
+        # every step then leaves comm/<kind> marks with those bytes.
+        # None: to be priced at the next eager step.
+        self._comm_kinds: Optional[list] = None
         self._reset_optimizer()
 
     # -- config (the schedule and the loss window derive from it) ----------
@@ -675,6 +694,80 @@ class Solver:
             return torch.cuda.get_device_name(self.device)
         return self.device.type
 
+    def _fleet_stamp(self):
+        """The attached telemetry's FleetStamp, or None — every fleet
+        hook gates on this, so runs without a fleet keep their trace and
+        stream byte for byte."""
+        tel = self.telemetry
+        return getattr(tel, "fleet", None) if tel is not None else None
+
+    def _step_span_args(self, batch: int, **extra) -> Dict[str, Any]:
+        """step/dispatch|compile span args: under a fleet the step
+        number too, so the aggregator joins one step's spans across
+        ranks."""
+        args: Dict[str, Any] = {"batch": batch, **extra}
+        if self._fleet_stamp() is not None:
+            args["step"] = self.iteration + 1
+        return args
+
+    def _comms_due(self) -> bool:
+        """True when this step must be counted to price the fleet's
+        collectives: fleet telemetry on a mesh, and no pricing of the
+        current key yet (also when telemetry was attached after the key
+        was first run)."""
+        return (self._comm_kinds is None and self.mesh is not None
+                and self._fleet_stamp() is not None)
+
+    def _price_comms(self, c) -> None:
+        """Fold the counted step's collectives into per-kind rows
+        (``obs.fleet.comms``), claim the gradient all-reduce at the
+        parameter tree's bytes, and (rank 0) write ``fleet_comms.json``
+        for ``prof --fleet``: the JAX package's HLO pricing, from the
+        count of a real step instead of a second compile."""
+        from npairloss_tpu_torch.obs.fleet import comms as comms_mod
+        from npairloss_tpu_torch.obs.fleet.aggregate import COMMS_FILENAME
+
+        stamp = self._fleet_stamp()
+        mesh = self.mesh
+        with self._span("comm/price"):
+            per_kind = comms_mod.per_kind_from_counts(c.collectives)
+            param_bytes = float(sum(p.numel() * p.element_size()
+                                    for p in self.params.values()))
+            extra = (comms_mod.grad_sync_claim_bytes(
+                param_bytes, stamp.process_count) if mesh.size > 1 else {})
+            link = mesh.backend or ("nccl" if self.device.type == "cuda"
+                                    else "gloo")
+            payload = {
+                "per_kind": per_kind,
+                "extra_claims": extra,
+                "device_kind": self._device_kind(),
+                "link": link,
+                "hosts": len(set(mesh.hosts)),
+                "batch": self._last_batch_size,
+                "engine": self.engine,
+                "mesh_devices": int(mesh.size),
+            }
+            rows = comms_mod.comm_rows_from_counts(per_kind, extra)
+            self._comm_kinds = [(k["kind"], k["bytes_per_step"], k["claimed"])
+                                for k in rows["kinds"]]
+            if stamp.process_index == 0 and self.telemetry is not None:
+                path = os.path.join(self.telemetry.run_dir, COMMS_FILENAME)
+                tmp = path + f".tmp-{os.getpid()}"
+                with open(tmp, "w") as f:
+                    json.dump(payload, f)
+                os.replace(tmp, path)
+
+    def _emit_comm_marks(self, step_num: int) -> None:
+        """Per-step ``comm/<kind>`` instants carrying the priced bytes:
+        accounting marks on the timeline, not durations (the host does
+        not time a collective; the bandwidth math is offline)."""
+        tel = self.telemetry
+        if tel is None or not self._comm_kinds:
+            return
+        for kind, nbytes, claimed in self._comm_kinds:
+            tel.instant(f"comm/{kind}", bytes=nbytes, claimed=claimed,
+                        step=step_num)
+
     def _new_step_key(self, x, lab) -> bool:
         """Record the batch signature; True for one not seen before.  A
         new key after the first is marked ``step/recompile``."""
@@ -689,13 +782,16 @@ class Solver:
 
     def _counted(self, body: Callable, *args):
         """``body(*args)`` counted (``obs.perf.count``) inside a
-        ``step/cost_analysis`` span: the step's FLOPs for the perf rows.
-        The counted step is a real step of the run, bit for bit."""
+        ``step/cost_analysis`` span: the step's FLOPs for the perf rows
+        and, when due, the fleet's collective pricing.  The counted step
+        is a real step of the run, bit for bit."""
         with self._span("step/cost_analysis"):
             with count.StepCounter() as c:
                 out = body(*args)
         self.step_count = c
         self._step_flops = float(c.flops)
+        if self._comms_due():
+            self._price_comms(c)
         return out
 
     def _emit_perf_row(self, step_num: int) -> None:
@@ -889,14 +985,23 @@ class Solver:
         a new signature's step is counted when perf rows are on."""
         x, lab = self._put(inputs, labels)
         new = self._new_step_key(x, lab)
+        if new:
+            # A new batch signature has new collective payloads.
+            self._comm_kinds = None
         lr = self.rate_fn(self.iteration)
         with self._span("step/compile" if new else "step/dispatch",
-                        batch=int(x.shape[0])):
-            if new and self._want_perf():
+                        **self._step_span_args(int(x.shape[0]))):
+            if (new and self._want_perf()) or self._comms_due():
                 metrics = self._counted(self._train_body, x, lab, lr)
             else:
                 metrics = self._train_body(x, lab, lr)
         self.iteration += 1
+        self._emit_comm_marks(self.iteration)
+        if debug_checks_enabled():
+            # utils.debug: every step's scalars checked on the host, where
+            # the JAX step checks them (before the loop's step.nan_loss
+            # poison, which only the observed row sees).
+            assert_all_finite(metrics, "step metrics")
         return metrics
 
     @torch.no_grad()
@@ -1174,6 +1279,8 @@ class Solver:
         p = self._pipe
         if p is None or p.key != key:
             p = self._pipe = _PipelinedStep(key, x, lab)
+            # A new captured graph has new collective payloads.
+            self._comm_kinds = None
         self._new_step_key(x, lab)
         if self._lr_dev is None or self._lr_dev.device != self.device:
             self._lr_dev = torch.zeros((), dtype=torch.float32,
@@ -1181,8 +1288,11 @@ class Solver:
         cuda = self.device.type == "cuda"
         steady = p.graph is not None or not cuda
         setup = p.graph is None if cuda else p.eager_steps == 0
-        count_it = p.eager_steps == 0 and self._want_perf()
-        span = dict(batch=int(x.shape[0]), pipeline=True)
+        eager = not cuda or (p.graph is None
+                             and p.eager_steps < PIPELINE_WARMUP_STEPS)
+        count_it = eager and ((p.eager_steps == 0 and self._want_perf())
+                              or self._comms_due())
+        span = self._step_span_args(int(x.shape[0]), pipeline=True)
         if setup and cuda:
             span["capture"] = True
         with self._span("step/compile" if setup else "step/dispatch",
@@ -1210,6 +1320,7 @@ class Solver:
                 _build.add_counters(p.delta)
                 stats["replays"] += 1
         self.iteration += 1
+        self._emit_comm_marks(self.iteration)
 
     def _warmup_step(self, p, capacity: int, counted: bool = False) -> None:
         """An eager step on a side stream (the CUDA-graph warm-up);

@@ -2,7 +2,9 @@
 its entry points refuse to drop to the CPU unasked, and a kernel wrapper
 counts only launches of its kernel.
 
-  * the CPU serve path, the train CLI (dense and ``--engine
+  * the CPU serve path (and with telemetry: the fleet report, the
+    merged traces, ``prof --fleet``, ``timeline``, ``parse``,
+    ``device-query`` and ``prof --step serve``), the train CLI (dense and ``--engine
     blockwise``) with one ``googlenet_pallas`` training step on each
     engine, ``train --resume auto`` with snapshots, ``extract`` and
     ``eval``, ``train --pipeline`` with the divergence guard armed, and
@@ -70,6 +72,37 @@ ans = [json.loads(x) for x in out.getvalue().splitlines()]
 assert ans[0]["neighbors"][0]["row"] == 5, ans[0]
 assert "neighbors" in ans[1], ans[1]
 assert ans[-1]["queries_dropped"] == 0 and ans[-1]["answered"] == 2
+# Serving's telemetry, the fleet observatory and the small commands.
+import contextlib, os
+from npairloss_tpu_torch import cli
+from npairloss_tpu_torch.obs import RunTelemetry
+from npairloss_tpu_torch.obs.fleet import (
+    build_fleet_report, merge_run_traces, merge_timeline,
+    validate_fleet_report)
+from npairloss_tpu_torch.obs.fleet.comms import (
+    comm_rows_from_counts, effective_bandwidth)
+from npairloss_tpu_torch.utils.debug import assert_all_finite, checked
+from npairloss_tpu_torch.tools import e2e_real_jpeg
+tel = RunTelemetry("tel")
+eng2 = QueryEngine(idx, EngineConfig(top_k=3, buckets=(2,), probes=4),
+                   telemetry=tel)
+eng2.warmup()
+RetrievalServer(eng2, cfg=ServerConfig(metrics_window=1),
+                telemetry=tel).run_jsonl(io.StringIO(lines[0] + "\n"),
+                                         io.StringIO())
+tel.close()
+report = build_fleet_report("tel")
+assert validate_fleet_report(report) is None, report
+assert merge_run_traces("tel")[0] and merge_timeline("tel")[0]
+assert effective_bandwidth(comm_rows_from_counts({}), 1.0, "cpu", "gloo")
+assert_all_finite({"loss": 1.0})
+with contextlib.redirect_stdout(io.StringIO()):
+    for argv in (["parse", os.environ["TINY_SOLVER"], "--json"],
+                 ["device-query", "--device", "cpu"],
+                 ["prof", "--fleet", "tel"], ["timeline", "tel"],
+                 ["prof", "--step", "serve", "--gallery", "64", "--dim", "8",
+                  "--device", "cpu", "--out", "prof"]):
+        assert cli.main(argv) == 0, argv
 assert not any(m == "jax" or m.startswith(("jax.", "flax", "npairloss_tpu."))
                for m in sys.modules), sorted(sys.modules)
 print("ISOLATED-OK")
@@ -84,6 +117,7 @@ def test_cpu_serve_path_runs_with_jax_poisoned(tmp_path):
             f'raise ImportError("{mod} imported by the torch port")\n')
     env = dict(os.environ)
     env["PYTHONPATH"] = f"{poison}{os.pathsep}{REPO}"
+    env["TINY_SOLVER"] = str(REPO / "examples" / "tiny_solver.prototxt")
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run([sys.executable, "-c", SERVE_SCRIPT],
                           capture_output=True, text=True, env=env,
@@ -284,6 +318,9 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     "obs/perf/count.py", "obs/perf/decompose.py", "obs/perf/report.py",
     "obs/perf/roofline.py", "models/resnet.py", "models/vit.py",
     "models/caffe_import.py", "config/caffemodel.py", "tools/vit_stretch.py",
+    "obs/fleet/aggregate.py", "obs/fleet/comms.py",
+    "obs/fleet/merge_traces.py", "utils/__init__.py", "utils/debug.py",
+    "tools/e2e_real_jpeg.py", "tools/phase_times.py",
 ])
 def test_pipeline_and_guard_modules_are_scanned_and_clean(module):
     path = PORT / module

@@ -370,5 +370,5 @@ def test_prof_report_passes_the_jax_validator(tmp_path, capsys):
     bad = json.loads(json.dumps(report))
     bad["decomposition"]["unattributed_ms"] += 5.0
     assert "reconcile" in validate_report(bad) == jvalidate(bad)
-    with pytest.raises(SystemExit):
-        cli.main(["prof", "--step", "serve", "--device", "cpu"])
+    with pytest.raises(SystemExit):  # the quality observatory is not ported
+        cli.main(["prof", "--quality", str(out), "--device", "cpu"])

@@ -241,3 +241,7 @@ def test_meshcheck_holds_over_gloo_at_two_ranks(tmp_path):
         assert rec["training"][engine]["ranks_bit_equal_every_step"]
     assert rec["cli"]["rc"] == 0 and rec["cli"]["plan"]["devices"] == 2
     assert rec["cli"]["snapshots"]
+    # The synced BatchNorm's sums were timed: two a layer and step.
+    ms = rec["collective_ms"]
+    assert ms["bn_sums"] == 2 * len(rec["training"]["bn_features"]) > 0
+    assert ms["bn_all_reduce_ms"] > 0 and ms["bn_sums_ms"] > 0

@@ -1322,7 +1322,7 @@ def test_serving_flags_match_the_jax_cli(cmd, dest, monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--mesh", "--tenant-config", "--admission",
                                   "--live-obs", "--shadow-rate", "--qtrace",
-                                  "--telemetry-dir", "--watch-snapshots",
+                                  "--slo-config", "--watch-snapshots",
                                   "--remediate"])
 def test_unported_serve_flags_are_refused(flag, capsys):
     from npairloss_tpu_torch import cli

@@ -174,8 +174,25 @@ def test_plain_sweeps_on_the_model_sims_match_jax_default(n, d):
     np.testing.assert_array_equal(inum.numpy(), jin)
     np.testing.assert_array_equal(dnum.numpy(), jdn)
     np.testing.assert_array_equal(inum.numpy(), st.cnt_s.numpy())
-    for got, want in ((isum, ji), (dsum, jd)):
-        np.testing.assert_allclose(got.numpy(), want, rtol=CARD_TOL)
+    for name, got, want in (("isum", isum, ji), ("dsum", dsum, jd)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=CARD_TOL,
+                                   err_msg=_sum_diff(name, got.numpy(), want))
+
+
+def _sum_diff(name, got, want, rows=8):
+    """The failure's evidence: the first differing rows, then JAX's
+    ``want`` and the port's ``got`` whole (the tolerance is the
+    assertion's own)."""
+    bad = np.nonzero(~np.isclose(got, want, rtol=CARD_TOL, atol=0))[0]
+    lines = [f"{name}: {bad.size} row(s) differ beyond rtol={CARD_TOL}"]
+    for i in bad[:rows]:
+        g, w = float(got[i]), float(want[i])
+        rel = abs(g - w) / max(abs(w), 1e-30)
+        lines.append(f"  row {i}: got {g!r} want {w!r} rel {rel:.3e}")
+    full = dict(threshold=np.inf, precision=9)
+    lines.append(f"{name} want (JAX) = {np.array2string(want, **full)}")
+    lines.append(f"{name} got (port) = {np.array2string(got, **full)}")
+    return "\n".join(lines)
 
 
 @pytest.mark.parametrize("precision", [DEFAULT, None])
