@@ -314,7 +314,30 @@ Phases (any failure raises, exits nonzero and prints no result line):
    row, as the JAX CLI's does (the check precedes the loop's poison); a
    parameter set to NaN before step 3 stops the run with the JAX CLI's
    ``FloatingPointError`` naming the metric;
-9. a ``{"kernels": [...]}`` line (launches of the serving kernels from
+9. the quality observatory and query tracing, under
+   ``build/quality_smoke/``, in this process (no process is spawned): phase
+   4's gallery committed by ``index --kind ivf --clusters 246
+   --parity-sample 1024 --parity-probes 8`` (the parity stamp), then
+   ``serve --shadow-rate 0.25 --shadow-window 8 --qtrace --telemetry-dir``
+   at phase 4's configuration (probes 8, the fused probe, top-k 10,
+   buckets 1/8/32, ``googlenet_pallas`` at 224², 2 replicas; a 50 ms
+   batch deadline) through ``cli.build_server``, over HTTP, beside the
+   same index and trunk with neither: (a) phase 4's 38 queries in one
+   body, 3 turns each in alternation, the first turn's answers bit for bit equal (ages
+   stripped), the probe and the three stem kernels launched by the first
+   body (printed), per-query p50/p99 of both; (b) ``quality.jsonl`` valid
+   with the stamp as its baseline; (c) 512 gallery rows as queries: every
+   sampled query's recall@1/5/10 equal to a direct computation on the card
+   (its served rows against an exact fp32 top-10 over the whole gallery,
+   the lowest index winning a tie), and the mean recall@10 of the whole
+   windows of these queries within 0.05 of the stamp's; (d) 96 more under
+   ``serve.recall_drop``: the first whole window of them below half the
+   stamp's recall@10, and ``prof --quality`` reporting that minimum beside
+   the baseline; (e) ``qtrace.json`` valid, with exemplars, each one's
+   stage self times summing to at most its total, ``probe_fused`` spans
+   present; (f) ``timeline`` over the run dir with each exemplar's replica
+   lane; the phase's wall time;
+10. a ``{"kernels": [...]}`` line (launches of the serving kernels from
    phase 4, of the training kernels from phase 5, of ``lrn_bwd`` from
    the phase-5b recompute step, of the blockwise kernels from phase
    6b; the five blockwise kernels again as ``<name>:bf16``, their bf16
@@ -324,8 +347,11 @@ Phases (any failure raises, exits nonzero and prints no result line):
    path's cached variants compute no product; phase 7's launches of the
    bf16 five, ``round_bf16`` and the probe as ``launches_phase7``; phase
    8 (a)'s launches of the probe and the three stem kernels as
-   ``launches_phase8``); then the card line; then the last line
-   ``{"ok": true, "device": {...}}``.
+   ``launches_phase8``, and phase 9 (a)'s as ``launches_phase9``); then
+   the card line; then the last line ``{"ok": true, "device": {...}}``.
+
+A phase that raises prints one line naming the phase and the error's
+first line, and the run exits non-zero.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -378,6 +404,14 @@ TOL = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# The phase running now, named in the line printed when one raises.
+PHASE = ["startup"]
+
+
+def phase(name: str) -> None:
+    PHASE[0] = name
 
 
 def fail(msg: str) -> None:
@@ -6827,11 +6861,389 @@ def drive_observability(torch, seed, detail):
     return out["serve"]["launches"]
 
 
+# -- phase 9: the quality observatory and query tracing ----------------------
+
+QUALITY_WORK = os.path.join("build", "quality_smoke")
+QUALITY_RATE = 0.25
+QUALITY_WINDOW = 8
+QUALITY_TURNS = 3
+# (c)'s gallery-row queries and (d)'s under serve.recall_drop, in bodies
+# of 32.
+QUALITY_C_QUERIES = 512
+QUALITY_D_QUERIES = 96
+PARITY_SAMPLE = 1024
+# Both servers' batch deadline: one body's queries reach the replicas
+# within it, so each replica's first batch takes its whole share on both
+# servers and the encode and top-k run at the same bucket shapes (a
+# batch of one image encodes at bucket 1, whose convolutions may round
+# otherwise than bucket 8's).
+QUALITY_DEADLINE_MS = 50.0
+# How far the shadow's recall@10 over whole windows of gallery-row
+# queries may sit from the parity stamp's: two samples of the same
+# population (~128 queries against 1,024).
+QUALITY_PARITY_TOL = 0.05
+
+
+def _spy_shadow(shadow):
+    """Record, in scoring order, each sample the scorer scored and the
+    per-sample recall dicts its windows were made of."""
+    samples, per_sample = [], []
+    score, emit = shadow._score_batch, shadow._emit_window
+
+    def score_batch(batch):
+        samples.extend(batch)
+        score(batch)
+
+    def emit_window(window, now):
+        per_sample.extend(window)
+        emit(window, now)
+
+    shadow._score_batch = score_batch
+    shadow._emit_window = emit_window
+    return samples, per_sample
+
+
+def _wait_scored(shadow, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        with shadow._lock:
+            done = shadow.sampled_total + shadow.dropped \
+                >= shadow.offered_total
+        if done and shadow._q.empty():
+            return
+        time.sleep(0.02)
+    fail("9: the shadow scorer did not catch up with its offers")
+
+
+def _exact_top10(torch, gallery, q):
+    """Exact fp32 top-10 rows of each query over the whole gallery on
+    the card: one product, then a stable descending sort (the lowest
+    index wins a tie)."""
+    from npairloss_tpu_torch.serve.index import l2_normalize_rows
+
+    # Normalized on the host as the oracle engine normalizes.
+    qn = torch.as_tensor(l2_normalize_rows(q), device="cuda")
+    sims = qn @ gallery.T
+    return torch.sort(sims, dim=1, descending=True,
+                      stable=True).indices[:, :10].cpu().numpy()
+
+
+def _stage_self_ms(ex):
+    """An exemplar's six stage self times, summed (score and topk_merge
+    nest inside dispatch), and its root span, in ms."""
+    dur = {}
+    for e in ex["events"]:
+        dur[e["name"]] = dur.get(e["name"], 0.0) + e.get("dur", 0.0)
+    stages = sum(dur.get(f"qtrace/{s}", 0.0) for s in (
+        "admit_wait", "queue_wait", "batch_assemble", "dispatch", "score",
+        "topk_merge")) - dur.get("qtrace/score", 0.0) \
+        - dur.get("qtrace/topk_merge", 0.0)
+    return stages / 1e3, dur["qtrace/query"] / 1e3
+
+
+def check_quality_and_qtrace(torch, seed, detail):
+    """Phase 9 (see the module docstring): ``serve --shadow-rate 0.25
+    --shadow-window 8 --qtrace`` at phase 4's configuration through
+    ``cli.build_server``, in-process over HTTP, beside the same index
+    and trunk served with neither; returns the launches of the first
+    38-query body."""
+    import shutil
+
+    import numpy as np
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.obs.qtrace import report as qreport
+    from npairloss_tpu_torch.obs.quality import report as quality
+    from npairloss_tpu_torch.obs.quality.shadow import recall_against
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.resilience import failpoints
+    from npairloss_tpu_torch.serve.batcher import BatcherConfig
+    from npairloss_tpu_torch.serve.engine import QueryEngine
+    from npairloss_tpu_torch.serve.server import RetrievalServer, ServerConfig
+
+    card = detail["card"]
+    t_start = time.perf_counter()
+    log(f"[9] this process's card memory at the start: allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, free "
+        f"{torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB")
+    work = os.path.abspath(QUALITY_WORK)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    emb, labels = synthetic_gallery(seed)
+    np.save(os.path.join(work, "emb.npy"), emb)
+    np.save(os.path.join(work, "labels.npy"), labels)
+    gidx = os.path.join(work, "g.gidx")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["index", "--emb", os.path.join(work, "emb.npy"),
+                       "--labels", os.path.join(work, "labels.npy"), "--out",
+                       gidx, "--no-normalize", "--kind", "ivf", "--clusters",
+                       "246", "--parity-sample", str(PARITY_SAMPLE),
+                       "--parity-probes", "8", "--seed", str(seed)])
+    if rc != 0:
+        fail(f"9: index --kind ivf --parity-sample failed: {buf.getvalue()}")
+    index_s = time.perf_counter() - t0
+    _release(torch)
+    parity = json.loads(buf.getvalue().strip().splitlines()[-1])["parity"]
+    base10 = parity["recall"]["fp32"]["at_10"]
+    tel_dir = os.path.join(work, "tel")
+    args = cli.build_parser().parse_args([
+        "serve", "--index", gidx, "--index-kind", "ivf", "--probes", "8",
+        "--probe-impl", "fused", "--top-k", "10", "--buckets", "1,8,32",
+        "--replicas", "2", "--model", "googlenet_pallas", "--input-size",
+        "224", "--metrics-window", str(OBS_WINDOW), "--poll-s", "0.01",
+        "--explicit-drops", "--seed", str(seed), "--telemetry-dir", tel_dir,
+        "--shadow-rate", str(QUALITY_RATE), "--shadow-window",
+        str(QUALITY_WINDOW), "--qtrace", "--deadline-ms",
+        str(QUALITY_DEADLINE_MS)])
+    t0 = time.perf_counter()
+    on, _ = cli.build_server(args)
+    build_s = time.perf_counter() - t0
+    shadow = on.shadow
+    if shadow is None or on.qtrace is None or shadow.baseline != parity:
+        fail(f"9: build_server armed shadow {shadow}, qtrace {on.qtrace}, "
+             f"baseline {getattr(shadow, 'baseline', None)}")
+    samples, per_sample = _spy_shadow(shadow)
+    # The oracle's flat copy of the gallery (238 MiB) is built here, on
+    # this thread's stream, before the replicas' streams take what the
+    # card has free (the scorer builds it at its first batch otherwise;
+    # it rebuilds only when the served index changes).
+    shadow._oracle_engine()
+    # The same index, trunk and kernels with neither observatory.
+    primary = QueryEngine(on.engine.index, on.engine.cfg,
+                          model=on.engine.model)
+    primary.warmup((224, 224, 3))
+    off = RetrievalServer(
+        [primary, QueryEngine(on.engine.index, on.engine.cfg,
+                              share_compiled_with=primary)],
+        BatcherConfig(max_batch=32, max_delay_ms=args.deadline_ms,
+                      max_queue=args.max_queue),
+        ServerConfig(metrics_window=OBS_WINDOW, poll_s=0.01,
+                     explicit_drops=True),
+        preempt=type(on.preempt)(), freshness=on.freshness)
+    records, _ = _obs_records(seed, emb)
+    body = "\n".join(json.dumps(r) for r in records)
+    runs = {"off": off, "on": on}
+    http = {k: _http_server(s) for k, s in runs.items()}
+    answers, lat = {}, {"off": [], "on": []}
+    served = {}
+    launches = None
+    rng = np.random.default_rng(seed + 9)
+    picks = rng.choice(emb.shape[0], QUALITY_C_QUERIES + QUALITY_D_QUERIES,
+                       replace=False)
+
+    def rows_body(prefix, rows):
+        return "\n".join(json.dumps({"id": f"{prefix}{i}",
+                                     "embedding": emb[r].tolist()})
+                         for i, r in enumerate(rows))
+
+    def post_rows(prefix, rows):
+        for s in range(0, len(rows), 32):
+            part = rows[s:s + 32]
+            code, out, _ = _http_call(http["on"][1], "POST", "/query",
+                                      rows_body(f"{prefix}{s // 32}-", part))
+            if code != 200 or len(out) != len(part):
+                fail(f"9: {prefix} body {s // 32} answered {code}: "
+                     f"{str(out)[:300]}")
+            served.update((a["id"], [n["row"] for n in a["neighbors"]])
+                          for a in out)
+
+    try:
+        # (a) one 38-query body, off and on in turns.
+        for turn in range(QUALITY_TURNS):
+            for key in ("off", "on"):
+                server = runs[key]
+                n0 = len(server._lat)
+                if key == "on" and turn == 0:
+                    torch.cuda.synchronize()
+                    _build.reset_launch_counts()
+                code, out, _ = _http_call(http[key][1], "POST", "/query",
+                                          body)
+                if code != 200 or len(out) != len(records):
+                    fail(f"9a: {key} turn {turn} answered {code}: "
+                         f"{str(out)[:300]}")
+                if key == "on" and turn == 0:
+                    torch.cuda.synchronize()
+                    launches = _build.launch_counts()
+                    served.update((a["id"], [n["row"] for n in
+                                             a["neighbors"]]) for a in out)
+                if turn == 0:
+                    answers[key] = [_strip_ages(a) for a in out]
+                lat[key].extend(list(server._lat)[n0:])
+        # (c) gallery rows as queries, then (d) the same under
+        # serve.recall_drop.
+        post_rows("c", picks[:QUALITY_C_QUERIES])
+        _wait_scored(shadow)
+        failpoints.arm("serve.recall_drop", times=None)
+        try:
+            post_rows("d", picks[QUALITY_C_QUERIES:])
+            _wait_scored(shadow)
+        finally:
+            failpoints.disarm("serve.recall_drop")
+    finally:
+        for key, server in runs.items():
+            server.preempt.request()
+            http[key][0].join(timeout=120)
+        on.shadow.close()
+        on.telemetry.close()
+    for key in runs:
+        if http[key][0].is_alive() or http[key][2].get("rc") != 75:
+            fail(f"9: the {key} server did not drain: {http[key][2]}")
+    # (a) bit for bit, and the kernels launched.
+    if answers["on"] != answers["off"]:
+        bad = [i for i, (a, b) in enumerate(zip(answers["on"],
+                                                answers["off"])) if a != b]
+        fail(f"9a: answers with shadow and qtrace differ at {bad[:5]}: "
+             f"on {answers['on'][bad[0]][:400]} off "
+             f"{answers['off'][bad[0]][:400]}")
+    for name in SERVE_KERNELS:
+        if launches.get(name, 0) < 1:
+            fail(f"9a: kernel {name} was not launched")
+    # (b) the quality log.
+    recs = quality.load_quality_report(os.path.join(tel_dir,
+                                                    "quality.jsonl"))
+    err = quality.validate_quality_report(recs)
+    windows = [r for r in recs if r["kind"] == "window"]
+    if err or recs[0].get("baseline") != parity or not windows \
+            or shadow.dropped:
+        fail(f"9b: quality.jsonl: {err}; {len(windows)} windows, "
+             f"{shadow.dropped} samples dropped (a failed scoring batch "
+             f"counts as dropped: see the log); config {recs[0]}")
+    # (c) each sampled query's recall against a direct exact top-10 on
+    # the card, the served rows those of its answer.
+    if len(per_sample) != len(samples):
+        fail(f"9c: {len(samples)} samples scored, {len(per_sample)} in "
+             f"windows")
+    gallery = torch.as_tensor(emb, device="cuda")
+    exact = _exact_top10(torch, gallery,
+                         np.stack([s.embedding for s in samples]))
+    mismatch = []
+    for s, rec, ex in zip(samples, per_sample, exact):
+        want = {f"recall_at_{k}": recall_against(s.served_rows, ex, k)
+                for k in (1, 5, 10)}
+        got = {k: rec[k] for k in want}
+        if got != want or (s.qid in served and list(s.served_rows)
+                           != served[s.qid]):
+            mismatch.append((s.qid, got, want))
+    if mismatch:
+        fail(f"9c: {len(mismatch)} of {len(samples)} samples differ from the "
+             f"direct computation: {mismatch[:3]}")
+    del gallery
+
+    def pure(prefix):
+        """The whole windows whose samples all came from ``prefix``
+        queries, in order (a window holds the next QUALITY_WINDOW
+        samples in scoring order)."""
+        return [windows[w] for w in range(len(samples) // QUALITY_WINDOW)
+                if all(str(s.qid).startswith(prefix) for s in samples[
+                    w * QUALITY_WINDOW:(w + 1) * QUALITY_WINDOW])]
+
+    clean = pure("c")
+    poisoned = pure("d")
+    if len(clean) < 4 or not poisoned:
+        fail(f"9c/d: {len(clean)} whole windows of gallery queries, "
+             f"{len(poisoned)} under the failpoint")
+    mean10 = sum(w["recall_at_10"] for w in clean) / len(clean)
+    if abs(mean10 - base10) > QUALITY_PARITY_TOL:
+        fail(f"9c: the shadow's recall@10 {mean10:.4f} over {len(clean)} "
+             f"windows is not within {QUALITY_PARITY_TOL} of the parity "
+             f"stamp's {base10}")
+    # (d) the next whole window under the failpoint, and prof --quality.
+    drop10 = poisoned[0]["recall_at_10"]
+    if not drop10 < 0.5 * base10:
+        fail(f"9d: recall@10 under serve.recall_drop {drop10} is not below "
+             f"half the baseline {base10}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["prof", "--quality", tel_dir])
+    text = buf.getvalue().strip().splitlines()
+    prof = json.loads(text[-1]) if rc == 0 and text else {}
+    prof_min = prof.get("recall", {}).get("at_10", {}).get("min", 1.0)
+    if rc != 0 or not prof_min < 0.5 * base10 or not any(
+            ln.startswith("  recall@10: min") for ln in text) or not any(
+            "committed baseline" in ln for ln in text):
+        fail(f"9d: prof --quality rc {rc}: {text[-4:]}")
+    # (e) the trace.
+    rep = qreport.load_qtrace_report(os.path.join(tel_dir, "qtrace.json"))
+    err = qreport.validate_qtrace_report(rep)
+    exemplars = rep.get("exemplars", [])
+    over = [(ex["trace_id"], s, t) for ex in exemplars
+            for s, t in [_stage_self_ms(ex)]
+            if s > t + qreport.NEST_SLACK_US / 1e3]
+    fused = sum(any(e["name"] == qreport.PROBE_FUSED_SPAN
+                    for e in ex["events"]) for ex in exemplars)
+    if err or not exemplars or over or not fused \
+            or qreport.qtrace_p99_consistency(rep):
+        fail(f"9e: qtrace.json: {err}; {len(exemplars)} exemplars, stage "
+             f"sums over their total {over[:3]}, {fused} with probe_fused")
+    # (f) the timeline's exemplar lanes.
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["timeline", tel_dir])
+    timeline = json.load(open(os.path.join(tel_dir, "timeline.json"))) \
+        if rc == 0 else {"traceEvents": []}
+    lanes = {e["args"]["name"] for e in timeline["traceEvents"]
+             if e.get("ph") == "M" and e["name"] == "process_name"}
+    want_lanes = {f"serve queries {ex['replica']}" for ex in exemplars}
+    if rc != 0 or not want_lanes <= lanes:
+        fail(f"9f: timeline rc {rc}: lanes {sorted(lanes)}, want "
+             f"{sorted(want_lanes)}")
+    pct = {k: _pcts(v) for k, v in lat.items()}
+    out = {"index_s": index_s, "build_s": build_s, "parity": parity,
+           "launches": {k: launches[k] for k in SERVE_KERNELS},
+           "latency": pct, "samples": len(samples),
+           "windows": len(windows), "clean_windows": len(clean),
+           "recall10_clean": mean10, "recall10_drop": drop10,
+           "oracle_build_s": shadow.oracle_build_s,
+           "oracle_builds": shadow.oracle_builds,
+           "dropped": shadow.dropped, "prof_quality": prof,
+           "exemplars": len(exemplars), "exemplars_fused": fused,
+           "qtrace_totals": rep["totals"], "qtrace_budget": rep["budget"],
+           "lanes": sorted(lanes),
+           "wall_s": time.perf_counter() - t_start}
+    log(f"[9] serve --shadow-rate {QUALITY_RATE} --shadow-window "
+        f"{QUALITY_WINDOW} --qtrace at phase 4's config over HTTP, 2 "
+        f"replicas (index with parity stamp {index_s:.1f} s, tier built "
+        f"{build_s:.1f} s): (a) {len(records)} answers equal bit for bit to "
+        f"the server without them (ages stripped); launches of one 38-query "
+        f"body {json.dumps(out['launches'])}; per-query ms over "
+        f"{QUALITY_TURNS} turns each (off, on in turn): off p50 "
+        f"{pct['off']['p50_ms']:.3f} p99 {pct['off']['p99_ms']:.3f}, on p50 "
+        f"{pct['on']['p50_ms']:.3f} p99 {pct['on']['p99_ms']:.3f}; (b) "
+        f"quality.jsonl valid, {len(windows)} windows; (c) {len(samples)} "
+        f"samples' recall@1/5/10 equal to the direct exact top-10 on the "
+        f"card; recall@10 over {len(clean)} whole windows of gallery "
+        f"queries {mean10:.4f} against the parity stamp's {base10} "
+        f"(fp32, probes 8, {PARITY_SAMPLE} rows); the oracle built "
+        f"{shadow.oracle_builds} time(s), the last in "
+        f"{shadow.oracle_build_s:.3f} s, {shadow.dropped} dropped; (d) "
+        f"under serve.recall_drop recall@10 {drop10} (< {0.5 * base10:.4f}), "
+        f"prof --quality min {prof_min}; (e) qtrace.json valid, "
+        f"{len(exemplars)} exemplars ({fused} with probe_fused), totals "
+        f"{json.dumps(rep['totals'])}, budget p99 {rep['budget']['p99_ms']} "
+        f"ms dominated by {rep['budget']['dominant']}; (f) timeline lanes "
+        f"{sorted(want_lanes)}; {out['wall_s']:.1f} s ({card})")
+    detail["quality"] = out
+    del on, off, primary, runs, server, shadow, samples, emb, labels
+    _release(torch)
+    return launches
+
+
 def _release(torch):
+    """Return the card's cached memory between phases.  cuBLAS keeps a
+    workspace for every stream it ran on (32 MiB each on this card),
+    allocated through the caching allocator and never freed: after the
+    phases' replica, loader and side streams they held ~1.5 GiB at phase
+    9, where a 238 MiB allocation then failed with 2 MiB of the card
+    free.  Nothing runs between phases, and the next cuBLAS call makes a
+    new workspace, so they are cleared here before ``empty_cache``."""
     import gc
 
     gc.collect()
     torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
 
 
@@ -6842,6 +7254,7 @@ def main() -> int:
 
     import torch
 
+    phase("1 (the card)")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -6859,6 +7272,7 @@ def main() -> int:
     from npairloss_tpu_torch.serve.ivf import IVFIndex
 
     resolve_device("cuda")  # TF32 off for fp32 parity
+    phase("2 (build)")
     t0 = time.perf_counter()
     _build.library()
     info = _build.build_info
@@ -6881,6 +7295,7 @@ def main() -> int:
         f"clusters, cap {index.layout.cap}, built in "
         f"{time.perf_counter() - t0:.3f} s")
 
+    phase("3 (kernels against their plain versions)")
     timer = Timer(torch)
     stem_rows = check_stem(torch, timer, detail)
     rng_rows = torch.Generator().manual_seed(args.seed)
@@ -6889,40 +7304,62 @@ def main() -> int:
     check_probe_duplicates(torch, detail)
     probe_rows = check_probe(torch, timer, index, emb[pick], detail)
     check_probe_large_cap(torch, timer, detail)
+    phase("3b (LRN training kernels)")
     train_rows = check_lrn_train(torch, timer, detail)
     check_stem_scalar_paths(torch, detail)
     check_stem(torch, timer, detail, batch=120, key="stem_train")
     del timer
+    phase("4 (serving)")
     launches, summary, qps = drive_path(torch, args.seed, index, emb, detail)
     del index
+    phase("5 (training)")
     train_launches, dense_step_ms = drive_train(torch, args.seed, detail)
+    phase("5b (cache on/off, card vs CPU)")
     recompute_launches = check_train_step(torch, args.seed, detail)
+    phase("5c (mining)")
     check_reference_mining(torch, args.seed, detail)
+    phase("5d (list files)")
     _, _, list_net = drive_list_train(torch, args.seed, detail,
                                       dense_step_ms)
+    phase("5e (snapshots, eval)")
     drive_resilience(torch, args.seed, detail, list_net, emb, labels,
                      dense_step_ms)
+    phase("4b (serving tier)")
     tier = drive_serving_tier(
         torch, args.seed, detail, emb, labels,
         os.path.abspath(os.path.join(SNAP_WORK, "bits", "m_iter_6.ckpt")))
     del emb, labels
     _release(torch)
+    phase("5f (Inception-BN)")
     bn_launches = drive_bn_train(torch, args.seed, detail)
+    phase("5g (learning)")
     drive_bn_learning(torch, args.seed, detail)
+    phase("5h (sync-free stepping)")
     drive_pipeline(torch, args.seed, detail, list_net)
+    phase("5i (distribution)")
     drive_distribution(torch, args.seed, detail)
+    phase("5j (telemetry)")
     drive_telemetry(torch, args.seed, detail)
+    phase("6 (blockwise kernels)")
     bw_rows = check_blockwise_kernels(torch, Timer(torch), detail, args.seed)
+    phase("6b (blockwise training)")
     bw_launches, bw_radix_launches, _ = drive_blockwise_train(
         torch, args.seed, detail, dense_step_ms)
+    phase("6c (stretch, fp32 and bf16)")
     check_stretch(torch, Timer(torch), detail, args.seed)
     check_stretch_bf16(torch, Timer(torch), detail, args.seed)
     detail["pipeline"]["refusals"] = check_pipeline_refusals(
         torch, detail["card"])
     _release(torch)
+    phase("7 (ResNet and ViT trunks)")
     p7_launches = drive_trunks(torch, args.seed, detail)
     _release(torch)
+    phase("8 (observability)")
     p8_launches = drive_observability(torch, args.seed, detail)
+    _release(torch)
+    phase("9 (quality observatory, query tracing)")
+    p9_launches = check_quality_and_qtrace(torch, args.seed, detail)
+    phase("the kernels line")
 
     def entry(name, source, replaces, rows, counter, path=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -7041,8 +7478,10 @@ def main() -> int:
         if counter is not None:
             k["launches_serving_tier"] = tier["launches"][counter]
             # Phase 8 (a): one turn of 38 queries under serve
-            # --telemetry-dir, 2 replicas.
+            # --telemetry-dir, 2 replicas; phase 9: the same under
+            # --shadow-rate 0.25 --qtrace.
             k["launches_phase8"] = p8_launches[counter]
+            k["launches_phase9"] = p9_launches[counter]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         fail(f"kernels not launched on their path: {idle}")
@@ -7065,4 +7504,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception as e:
+        # A message only: the exception still ends the run non-zero.
+        first = (str(e).strip().splitlines() or [""])[0]
+        print(f"chip_smoke: phase {PHASE[0]} raised {type(e).__name__}: "
+              f"{first}", flush=True)
+        raise

@@ -25,8 +25,14 @@ is here (GoogLeNet, Inception-BN, the ResNets, ViT-B/16, the MLP).
            watermark; ``--telemetry-dir DIR`` writes the run directory
            (manifest, one ``serve`` row per metrics window and the drain
            summary, the span trace) and ``--trace-dir DIR`` the trace
-           alone.  SIGTERM/SIGINT: every admitted query is answered,
-           a final checkpoint is written, exit 75;
+           alone; with it, ``--shadow-rate R`` re-scores a seeded sample of
+           the answered queries against the flat exact oracle off the hot
+           path (recall@{1,5,10} rows and ``quality.jsonl``, the index's
+           parity stamp as the baseline) and ``--qtrace`` traces every
+           query's stages (``qtrace.json``: the p99 budget and exemplar
+           span trees, rewritten every 2 s and at the end).
+           SIGTERM/SIGINT: every admitted query is answered, a final
+           checkpoint is written, the shadow queue is scored, exit 75;
   train:   the Caffe solver loop from a solver prototxt on the net's list
            files (TRAIN and TEST ``source``, decoded by the native
            runtime or PIL per ``--native``, augmented on the device), or
@@ -74,6 +80,8 @@ is here (GoogLeNet, Inception-BN, the ResNets, ViT-B/16, the MLP).
            synthetic gallery; ``--fleet RUNDIR``: the offline
            ``npairloss-fleet-report-v1`` (straggler, skew, comms) and
            the merged per-rank trace of a fleet run directory;
+           ``--quality RUNDIR``: a serving run's ``quality.jsonl``
+           validated and its recall trend beside the committed baseline;
   timeline: every trace under a run directory on one Perfetto timeline;
   device-query: the card(s) and the process topology as JSON;
   parse:   a prototxt parsed and printed back (``--json``: as JSON);
@@ -274,6 +282,17 @@ def build_server(args):
     if args.replicas < 1:
         log.error("--replicas must be >= 1, got %d", args.replicas)
         return 2
+    if not 0.0 <= args.shadow_rate <= 1.0:
+        log.error("--shadow-rate must be in [0, 1], got %g", args.shadow_rate)
+        return 2
+    if args.shadow_rate > 0 and not args.telemetry_dir:
+        log.error("--shadow-rate needs --telemetry-dir (the recall rows ride "
+                  "the telemetry rows, and quality.jsonl lands there)")
+        return 2
+    if args.qtrace and not args.telemetry_dir:
+        log.error("--qtrace needs --telemetry-dir (the exemplar artifact "
+                  "qtrace.json lands there)")
+        return 2
     buckets = tuple(int(b) for b in args.buckets.split(","))
     if args.compile_cache:
         from npairloss_tpu_torch.pipeline import enable_compile_cache
@@ -364,6 +383,18 @@ def build_server(args):
     # Replicas share the primary's index tensors, model and kernels.
     engines = [engine] + [QueryEngine(index, cfg, share_compiled_with=engine)
                           for _ in range(args.replicas - 1)]
+    qtracer = None
+    if args.qtrace:
+        from npairloss_tpu_torch.obs.qtrace import QTraceConfig, QueryTracer
+
+        # Without the live observatory's p99 watchdog to borrow a target
+        # from, the per-query SLO defaults to 250 ms, as JAX's does.
+        slo_ms = args.qtrace_slo_ms if args.qtrace_slo_ms > 0 else 250.0
+        qtracer = QueryTracer(
+            QTraceConfig(exemplars=args.qtrace_exemplars, slo_ms=slo_ms),
+            out_path=os.path.join(args.telemetry_dir, "qtrace.json"))
+        log.info("query tracing armed: slo %.1f ms, %d exemplars", slo_ms,
+                 args.qtrace_exemplars)
     server = RetrievalServer(
         engines,
         BatcherConfig(max_batch=buckets[-1], max_delay_ms=args.deadline_ms,
@@ -374,7 +405,9 @@ def build_server(args):
         freshness=Freshness.collect(index=index, index_path=index_path,
                                     weights_path=args.weights,
                                     snapshot_path=args.snapshot),
-        telemetry=telemetry)
+        telemetry=telemetry, qtrace=qtracer)
+    if args.shadow_rate > 0:
+        server.shadow = _shadow_scorer(args, server, index_path, telemetry)
     if wal is not None:
         server.attach_wal(
             wal, ingest.apply, checkpoint_fn=ingest.publish,
@@ -382,6 +415,68 @@ def build_server(args):
             watermark=max(base_watermark, wal.last_seq),
             checkpoint_watermark=base_watermark, recovery=recovery)
     return server, wal
+
+
+def _shadow_scorer(args, server, index_path: str, telemetry):
+    """``serve --shadow-rate``'s started ``ShadowScorer``: a seeded
+    sample of the answered queries re-scored against the flat exact
+    oracle of the served index, off the hot path, into ``quality.jsonl``
+    beside the run's rows.  The baseline is the served commit's parity
+    stamp (``index --parity-sample``; absent for a flat commit).  A
+    recall floor comes with the live observatory's SLOs, not ported."""
+    from npairloss_tpu_torch.obs.quality.shadow import (
+        ShadowConfig,
+        ShadowScorer,
+    )
+    from npairloss_tpu_torch.serve.manifest import read_manifest
+
+    try:
+        raw = read_manifest(index_path).get("parity")
+        baseline = raw if isinstance(raw, dict) else None
+    except Exception:  # noqa: BLE001 — the baseline is optional evidence
+        baseline = None
+    shadow = ShadowScorer(
+        lambda: server.engine.index,
+        ShadowConfig(rate=args.shadow_rate,
+                     ks=tuple(k for k in (1, 5, 10) if k <= args.top_k),
+                     window=args.shadow_window, seed=args.shadow_seed),
+        telemetry=telemetry,
+        out_path=os.path.join(args.telemetry_dir, "quality.jsonl"),
+        baseline=baseline).start()
+    log.info("shadow scoring armed: rate %g, window %d", args.shadow_rate,
+             args.shadow_window)
+    return shadow
+
+
+class _QTraceCheckpoints:
+    """``serve --qtrace``'s artifact kept current while the tier runs:
+    ``qtrace.json`` rewritten every ``every_s`` seconds on a daemon
+    thread (atomic, and serialized with the drain's write by the
+    tracer), so a killed process loses at most that much."""
+
+    def __init__(self, tracer, every_s: float = 2.0):
+        import threading
+
+        self.tracer = tracer
+        self.every_s = every_s
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="serve-qtrace-checkpoint")
+
+    def start(self) -> "_QTraceCheckpoints":
+        self._thread.start()
+        return self
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.every_s):
+            try:
+                self.tracer.write()
+            except OSError as e:
+                log.error("qtrace checkpoint failed: %s", e)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=30.0)
 
 
 def _serve_telemetry(args, index_path: str, buckets):
@@ -419,6 +514,8 @@ def cmd_serve(args) -> int:
     if isinstance(built, int):
         return built
     server, wal = built
+    checkpoints = (_QTraceCheckpoints(server.qtrace).start()
+                   if server.qtrace is not None else None)
     server.preempt.install()
     try:
         if args.http is not None:
@@ -428,6 +525,15 @@ def cmd_serve(args) -> int:
         server.preempt.uninstall()
         if wal is not None:
             wal.close()
+        if checkpoints is not None:
+            checkpoints.stop()
+        if server.shadow is not None:
+            try:
+                # Every accepted sample is scored, the final window and
+                # the summary record written, before telemetry closes.
+                server.shadow.close()
+            except Exception as e:  # noqa: BLE001 — the answers stand
+                log.error("shadow scorer close failed: %s", e)
         if server.telemetry is not None:
             try:
                 server.telemetry.close()
@@ -1202,9 +1308,14 @@ def cmd_prof(args) -> int:
     ``--fleet RUNDIR`` is the offline mode: aggregate a run directory's
     per-rank telemetry streams into the ``npairloss-fleet-report-v1``
     straggler/skew/comms report plus one merged Perfetto timeline — no
-    device is touched."""
+    device is touched.  ``--quality RUNDIR`` is its quality-observatory
+    sibling: validate and render a serving run's ``npairloss-quality-v1``
+    shadow-recall log against its committed baseline (no device
+    either)."""
     if args.fleet:
         return _prof_fleet(args)
+    if args.quality:
+        return _prof_quality(args)
     return _in_process_group(args, _prof)
 
 
@@ -1241,6 +1352,62 @@ def _prof(args) -> int:
     print(obsperf.render_table(report))
     print(json.dumps({"report": paths["json"], "table": paths["txt"],
                       "telemetry": tel.run_dir}))
+    return 0
+
+
+def _prof_quality(args) -> int:
+    """``prof --quality RUNDIR``: validate the run's ``quality.jsonl``
+    against the ``npairloss-quality-v1`` contract and print the
+    per-window recall trend beside the committed parity baseline, as
+    the JAX CLI's text and JSON line: exit 2 without a log, 1 on a log
+    that fails its schema.  Reads files only."""
+    from npairloss_tpu_torch.obs.quality import (
+        load_quality_report,
+        quality_breaches,
+        quality_summary,
+        stale_shadow,
+        validate_quality_report,
+    )
+
+    run_dir = os.path.abspath(args.quality)
+    path = (run_dir if run_dir.endswith(".jsonl")
+            else os.path.join(run_dir, "quality.jsonl"))
+    if not os.path.exists(path):
+        log.error("prof --quality: no quality log at %s (serve with "
+                  "--shadow-rate > 0 to produce one)", path)
+        return 2
+    records = load_quality_report(path)
+    err = validate_quality_report(records)
+    if err is not None:
+        log.error("quality log failed its own schema check: %s", err)
+        return 1
+    summary = quality_summary(records)
+    lines = [f"quality observatory — {path}",
+             f"  windows {summary['windows']}, samples "
+             f"{summary['sampled_total']}, shadow rate "
+             f"{summary['shadow_rate']:g}"]
+    for key, row in sorted(summary.get("recall", {}).items()):
+        lines.append(
+            f"  recall@{key[3:]}: min {row['min']:.4f}  mean "
+            f"{row['mean']:.4f}  last {row['last']:.4f}")
+    base = summary.get("baseline")
+    if base:
+        lines.append(f"  committed baseline (probes {base.get('probes')},"
+                     f" sample {base.get('sample')}): "
+                     + json.dumps(base.get("recall", {})))
+    if "recall_floor" in summary:
+        lines.append(f"  declared floor: {summary['recall_floor']:g} on "
+                     f"{summary['floor_metric']} — "
+                     f"{summary['breaches']} breaching window(s)")
+    for i, metric, r, floor in quality_breaches(records):
+        lines.append(f"    breach: record {i} {metric} {r:.4f} < "
+                     f"{floor:g}")
+    stale = stale_shadow(records)
+    if stale:
+        lines.append(f"  WARNING: {stale}")
+    print("\n".join(lines))
+    print(json.dumps({"log": path, **summary,
+                      **({"stale": stale} if stale else {})}))
     return 0
 
 
@@ -1811,6 +1978,34 @@ def build_parser() -> argparse.ArgumentParser:
     sv_tel.add_argument(
         "--trace-dir", dest="trace_dir", metavar="DIR",
         help="span tracing only (serve/admit|batch|dispatch|encode|topk)")
+    sv.add_argument(
+        "--shadow-rate", dest="shadow_rate", type=float, default=0.0,
+        metavar="FRAC",
+        help="fraction of answered queries shadow-scored off the hot path "
+        "against the flat exact oracle (deterministic by query id): "
+        "recall_at_{1,5,10} and score-gap rows and the npairloss-quality-v1 "
+        "log quality.jsonl; 0 (default) disables; needs --telemetry-dir")
+    sv.add_argument("--shadow-window", dest="shadow_window", type=int,
+                    default=32,
+                    help="shadow samples per emitted quality window row "
+                    "(default 32)")
+    sv.add_argument("--shadow-seed", dest="shadow_seed", type=int, default=0,
+                    help="shadow sampling seed (same seed = same shadow set)")
+    sv.add_argument(
+        "--qtrace", action="store_true",
+        help="per-query tracing: per-stage spans from admission to answer, "
+        "the p99 budget decomposition, and the npairloss-qtrace-v1 "
+        "exemplar artifact (qtrace.json in the telemetry dir; "
+        "SLO-violating and slowest-tail queries keep full span trees); "
+        "needs --telemetry-dir")
+    sv.add_argument("--qtrace-exemplars", dest="qtrace_exemplars", type=int,
+                    default=64, metavar="N",
+                    help="exemplar store capacity (default 64; the fastest "
+                    "retained exemplar is evicted when full)")
+    sv.add_argument("--qtrace-slo-ms", dest="qtrace_slo_ms", type=float,
+                    default=0.0, metavar="MS",
+                    help="per-query latency SLO for exemplar retention and "
+                    "the violations counter (default 0 = 250)")
     sv.add_argument("--wal-checkpoint-every", dest="wal_checkpoint_every",
                     type=int, default=8, metavar="N",
                     help="publish an index checkpoint every N ingest "
@@ -2105,6 +2300,12 @@ def build_parser() -> argparse.ArgumentParser:
         "emit the npairloss-fleet-report-v1 straggler/skew/comms report "
         "and a merged Perfetto timeline (ignores the live-profiling "
         "flags; no device touched)")
+    pr.add_argument(
+        "--quality", metavar="RUNDIR",
+        help="offline quality report: validate a serving run's "
+        "npairloss-quality-v1 shadow-recall log (quality.jsonl) and render "
+        "the recall trend against the committed parity baseline (no "
+        "device touched)")
     pr.add_argument("--model", default="googlenet",
                     help="model registry name")
     pr.add_argument("--batch", type=int, default=8,

@@ -13,10 +13,14 @@ observatory):
     pricing, the fleet report and the merged timelines;
   * ``obs.perf`` — the step's FLOPs and bytes per region, the roofline,
     MFU, the step-time decomposition and the ``prof`` report;
+  * ``obs.quality`` — serving's shadow recall against the flat exact
+    oracle and the ``npairloss-quality-v1`` log (``prof --quality``);
+  * ``obs.qtrace`` — per-query stage tracing and the
+    ``npairloss-qtrace-v1`` exemplar artifact;
 
 tied together per run by ``obs.run.RunTelemetry`` (run dir with
-``manifest.json`` + ``metrics.jsonl`` + ``trace.json``).  The live,
-quality and query-trace observatories are not ported yet.
+``manifest.json`` + ``metrics.jsonl`` + ``trace.json``).  The live
+observatory is not ported yet.
 """
 
 from npairloss_tpu_torch.obs.fleet.stamp import FleetStamp, fleet_stamp

@@ -25,8 +25,13 @@ The vocabulary is the JAX package's (docs/RESILIENCE.md), so one
 the five ``snapshot.*`` seams (``resilience/snapshot.py``,
 ``train/solver.py``), ``data.worker`` (``data/loader.py``),
 ``pipeline.stage`` (``pipeline/prefetcher.py``), ``step.nan_loss`` and
-``train.collapse`` (``train/solver.py``); the others arrive with the
-modules that fire them.
+``train.collapse`` (``train/solver.py``), ``index.commit.crash``
+(``serve/index.py``), the three ``wal.*`` seams (``resilience/wal.py``),
+``serve.latency``, ``serve.queue_stall`` and ``serve.replica_crash``
+(``serve/server.py``, ``serve/batcher.py``) and ``serve.recall_drop``
+(``serve/engine.py``); ``serve.stale_model`` and
+``serve.compile_storm`` arrive with the live observatory and hot-swap
+that read them.
 
   ==========================  =============================================
   ``snapshot.save.io``        transient OSError inside the snapshot write

@@ -2,10 +2,10 @@
 
 The port's own copy of ``npairloss_tpu/serve/batcher.py`` (the port
 imports nothing of the JAX package), with its ``serve.queue_stall``
-failpoint and its telemetry hooks ``span_fn`` (``serve/batch`` around
-the coalescing wait, ``serve/dispatch`` with its ``size`` around the
-dispatch) and ``on_batch`` (per-batch stats); the query tracer's
-``on_pick`` is not ported.
+failpoint and its hooks ``span_fn`` (``serve/batch`` around the
+coalescing wait, ``serve/dispatch`` with its ``size`` around the
+dispatch), ``on_batch`` (per-batch stats) and ``on_pick`` (the query
+tracer's queue-wait/assemble boundary).
 
 Serving traffic arrives one query at a time; the accelerator wants
 fixed-shape micro-batches.  The batcher sits between them: callers
@@ -77,7 +77,10 @@ class MicroBatcher:
 
     ``on_batch`` (optional) receives a stats dict per dispatched batch;
     ``span_fn`` (optional) is a telemetry ``span(name, **args)`` factory
-    for the ``serve/batch``/``serve/dispatch`` spans.
+    for the ``serve/batch``/``serve/dispatch`` spans; ``on_pick``
+    (optional) receives each item the instant the dispatcher pulls it
+    off the queue into the forming batch — the queue-wait/assemble
+    boundary per-query tracing needs (``obs.qtrace``).
     """
 
     def __init__(
@@ -86,11 +89,13 @@ class MicroBatcher:
         cfg: BatcherConfig = BatcherConfig(),
         span_fn=None,
         on_batch: Optional[Callable[[Dict[str, Any]], None]] = None,
+        on_pick: Optional[Callable[[Any], None]] = None,
     ):
         self.cfg = cfg
         self._dispatch_fn = dispatch_fn
         self._span_fn = span_fn
         self._on_batch = on_batch
+        self._on_pick = on_pick
         self._q: queue.Queue = queue.Queue(maxsize=cfg.max_queue)
         self._thread: Optional[threading.Thread] = None
         self._closed = threading.Event()
@@ -197,6 +202,10 @@ class MicroBatcher:
                 # QueueFullError backpressure path) without touching the
                 # dispatch math.
                 time.sleep(failpoints.SERVE_QUEUE_STALL_S)
+            if self._on_pick is not None:
+                # After the stall, before coalescing: a stalled
+                # dispatcher is queue wait, not assemble time.
+                self._on_pick(head[0])
             batch = [head]
             deadline = head[2] + delay
             stop_after = False
@@ -212,6 +221,8 @@ class MicroBatcher:
                     if item is _STOP:
                         stop_after = True
                         break
+                    if self._on_pick is not None:
+                        self._on_pick(item[0])
                     batch.append(item)
             self._run_batch(batch)
             if stop_after:

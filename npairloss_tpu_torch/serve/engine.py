@@ -28,6 +28,15 @@ shape: new kernels' first launches, cuDNN's algorithm search), the
 port's counterpart of a post-warmup XLA compile.  Without telemetry the
 engine records nothing.
 
+``query(..., stages={})`` fills a per-call accumulator for the query
+tracer (``obs/qtrace``): ``score_us`` from the dispatch's launch
+through the host copy of its scores and rows (the copy is the one sync
+point the engine already has), ``merge_us`` the host gather of labels
+and ids.  The ``serve.recall_drop`` failpoint, on a warmed IVF engine
+only, runs a dispatch against the negated query (the worst clusters are
+probed and recall collapses; shapes stay the same); a flat engine, the
+shadow scorer's oracle among them, never consumes it.
+
 A replica engine (``share_compiled_with=primary``) shares the primary's
 index object, model and built kernels: one warmup warms the tier and no
 replica copies the gallery.  On the card every replica dispatches on its
@@ -60,6 +69,7 @@ from npairloss_tpu_torch.ops.ivf_probe import (
     score_query,
 )
 from npairloss_tpu_torch.ops.normalize import l2_normalize
+from npairloss_tpu_torch.resilience import failpoints
 from npairloss_tpu_torch.serve.index import GalleryIndex, l2_normalize_rows
 from npairloss_tpu_torch.serve.ivf import SCORINGS, IVFIndex
 
@@ -311,11 +321,14 @@ class QueryEngine:
 
     # -- query -------------------------------------------------------------
 
-    def query(self, embeddings: np.ndarray,
-              normalize: bool = True) -> Dict[str, np.ndarray]:
+    def query(self, embeddings: np.ndarray, normalize: bool = True,
+              stages: Optional[Dict[str, float]] = None
+              ) -> Dict[str, np.ndarray]:
         """Top-k for (B, D) query embeddings: ``{"scores", "rows",
         "labels", "ids"}``, each (B, top_k).  Batches above the largest
-        bucket are chunked."""
+        bucket are chunked.  ``stages`` (optional, per call: a crash
+        reroute dispatches two batches on one engine at once) sums the
+        chunks' ``score_us`` and ``merge_us``."""
         q = np.asarray(embeddings, np.float32)
         if q.ndim != 2 or q.shape[1] != self.index.dim:
             raise ValueError(f"queries {q.shape} do not match gallery dim "
@@ -329,7 +342,7 @@ class QueryEngine:
         if normalize:
             q = l2_normalize_rows(q)
         max_b = self.cfg.buckets[-1]
-        outs = [self._query_bucketed(q[i:i + max_b])
+        outs = [self._query_bucketed(q[i:i + max_b], stages=stages)
                 for i in range(0, q.shape[0], max_b)]
         return {key: np.concatenate([o[key] for o in outs])
                 for key in outs[0]}
@@ -363,12 +376,23 @@ class QueryEngine:
         return ("ivf", bucket, tuple(layout.packed.shape), self.cfg.scoring,
                 self.probe_impl)
 
-    def _query_bucketed(self, q: np.ndarray) -> Dict[str, np.ndarray]:
+    def _query_bucketed(self, q: np.ndarray,
+                        stages: Optional[Dict[str, float]] = None
+                        ) -> Dict[str, np.ndarray]:
         n = q.shape[0]
         bucket = self.bucket_for(n)
         if bucket > n:
             q = np.concatenate(
                 [q, np.zeros((bucket - n, q.shape[1]), np.float32)])
+        # serve.recall_drop: this dispatch probes for the NEGATED query,
+        # so the worst clusters are scored and recall collapses while
+        # every shape stays the same.  Warmed engines only (warm-up
+        # never consumes an armed fire), IVF only (a flat engine, the
+        # shadow oracle among them, leaves the arming untouched).
+        if self._ivf and self.warmed and \
+                failpoints.should_fire("serve.recall_drop"):
+            q = -q
+        t_score = time.perf_counter()
         with self._span("serve/topk", batch=n, bucket=bucket), \
                 torch.inference_mode(), self._on_stream():
             q_dev = torch.as_tensor(q, device=self.device)
@@ -381,11 +405,20 @@ class QueryEngine:
         del held  # the results are on the host: the generation may go
         with self._count_lock:
             self.dispatches += 1
+        t_merge = time.perf_counter()
         # Host arrays are replaced before a layout is published and only
         # grow, so they cover every row of the generation just read.
-        return {"scores": scores, "rows": rows,
-                "labels": self.index.host_labels[rows],
-                "ids": self.index.ids[rows]}
+        out = {"scores": scores, "rows": rows,
+               "labels": self.index.host_labels[rows],
+               "ids": self.index.ids[rows]}
+        if stages is not None:
+            # The qtrace score/topk_merge split: device top-k through
+            # its host copy, then the host gather.
+            stages["score_us"] = stages.get("score_us", 0.0) \
+                + (t_merge - t_score) * 1e6
+            stages["merge_us"] = stages.get("merge_us", 0.0) \
+                + (time.perf_counter() - t_merge) * 1e6
+        return out
 
     # -- warmup ------------------------------------------------------------
 

@@ -61,9 +61,9 @@ class ReplicaSet:
 
     ``dispatch_factory(replica)`` returns the batcher dispatch callable
     for that replica (the server wires per-replica crash containment
-    and the shared answer logic there); ``span_fn`` and ``on_batch`` go
-    to every replica's batcher, whose dispatcher thread is that
-    replica's lane in the trace.
+    and the shared answer logic there); ``span_fn``, ``on_batch`` and
+    ``on_pick`` go to every replica's batcher, whose dispatcher thread
+    is that replica's lane in the trace.
     """
 
     def __init__(
@@ -73,6 +73,7 @@ class ReplicaSet:
         dispatch_factory: Callable[[Replica], Callable],
         span_fn=None,
         on_batch=None,
+        on_pick=None,
     ):
         if not engines:
             raise ValueError("ReplicaSet needs at least one engine")
@@ -80,7 +81,8 @@ class ReplicaSet:
         for i, engine in enumerate(engines):
             rep = Replica(name=f"r{i}", engine=engine)
             rep.batcher = MicroBatcher(dispatch_factory(rep), batcher_cfg,
-                                       span_fn=span_fn, on_batch=on_batch)
+                                       span_fn=span_fn, on_batch=on_batch,
+                                       on_pick=on_pick)
             self.replicas.append(rep)
         # Rejections that never reached a batcher (no live replica) —
         # part of the aggregate ``rejected`` so the front-end invariant

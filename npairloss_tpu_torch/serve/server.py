@@ -63,6 +63,22 @@ and the window's per-stage p50/p99 split from the spans that finished
 since the previous window), and the drain summary adds the whole run's
 split.  Both splits start at the server's construction, so warm-up
 spans never count.  Without telemetry every stream is what it was.
+
+Query tracing (``qtrace``: an ``obs.qtrace.QueryTracer``, ``serve
+--qtrace``): a trace id is assigned at ingestion on both front ends and
+rides the record (``rec["_qt"]``) through admission (``admit_wait``),
+the replica's queue (``queue_wait``, ended by the batcher's
+``on_pick``), coalescing (``batch_assemble``) and the dispatch
+(``dispatch``, with the engine's ``score`` and ``topk_merge`` split back
+out of it, wrapped in ``probe_fused`` on the fused probe path); a
+replica crash leaves a ``crash_reroute`` marker; window rows gain
+``qtrace_dominant``/``qtrace_dominant_ms`` and the summary a ``qtrace``
+block; the drain writes the tracer's artifact.  Shadow scoring
+(``shadow``: an ``obs.quality.shadow.ShadowScorer``, ``serve
+--shadow-rate``): each answered query is offered to the scorer after
+the answers exist (a hash and a bounded put; a failed offer never fails
+an answer), and the summary gains a ``quality`` block.  With neither
+attached every stream is what it was.
 """
 
 from __future__ import annotations
@@ -227,7 +243,7 @@ class RetrievalServer:
                  cfg: ServerConfig = ServerConfig(),
                  preempt: Optional[PreemptionSignal] = None,
                  freshness: Optional[Freshness] = None,
-                 telemetry=None):
+                 telemetry=None, qtrace=None):
         engines = (list(engine) if isinstance(engine, (list, tuple))
                    else [engine])
         self.engines: List[QueryEngine] = engines
@@ -236,10 +252,14 @@ class RetrievalServer:
         self.preempt = preempt
         self.freshness = freshness
         self.telemetry = telemetry
-        self.replicaset = ReplicaSet(engines, batcher_cfg,
-                                     self._replica_dispatch,
-                                     span_fn=self._span,
-                                     on_batch=self._record_batch)
+        # The query tracer and the shadow scorer (set after construction,
+        # as JAX's): None keeps every stream what it was without them.
+        self.qtrace = qtrace
+        self.shadow = None
+        self.replicaset = ReplicaSet(
+            engines, batcher_cfg, self._replica_dispatch,
+            span_fn=self._span, on_batch=self._record_batch,
+            on_pick=self._qtrace_pick if qtrace is not None else None)
         self._last_batch: Dict[str, Any] = {}
         # Tracer event-index cursors for the latency splits: a window
         # reads only the spans appended (= finished) since the previous
@@ -309,7 +329,8 @@ class RetrievalServer:
                           "replica(s) remain — rerouting its work",
                           replica.name, self.replicaset.alive_count)
                 return self._reroute(replica, items)
-            return self._dispatch_core(items, engine=replica.engine)
+            return self._dispatch_core(items, engine=replica.engine,
+                                       replica=replica.name)
 
         return dispatch
 
@@ -331,7 +352,13 @@ class RetrievalServer:
         log.warning("rerouting %d quer%s from dead replica %s to %s",
                     len(items), "y" if len(items) == 1 else "ies",
                     dead.name, target.name)
-        return self._dispatch_core(items, engine=target.engine)
+        if self.qtrace is not None:
+            # The reroute instant explains the detour in any exemplar
+            # that rode it.
+            self.qtrace.marker("crash_reroute", dead=dead.name,
+                               target=target.name, queries=len(items))
+        return self._dispatch_core(items, engine=target.engine,
+                                   replica=target.name)
 
     # -- telemetry ---------------------------------------------------------
 
@@ -342,6 +369,32 @@ class RetrievalServer:
 
     def _record_batch(self, stats: Dict[str, Any]) -> None:
         self._last_batch = stats
+
+    # -- qtrace glue (no-ops unless a QueryTracer is attached) -------------
+
+    def _qtrace_begin(self, rec):
+        """Assign a trace id at ingestion; the context rides the record
+        itself, so the batcher and replica threads need no side
+        channel."""
+        if self.qtrace is None or not isinstance(rec, dict):
+            return None
+        qt = self.qtrace.begin(rec.get("id"))
+        rec["_qt"] = qt
+        return qt
+
+    def _qtrace_pick(self, item) -> None:
+        """The batcher's ``on_pick``: the dispatcher pulled this record
+        off its replica's queue — ``queue_wait`` ends."""
+        qt = item.get("_qt") if isinstance(item, dict) else None
+        if qt is not None:
+            self.qtrace.picked(qt)
+
+    def _qtrace_drop(self, qt, error: bool = False) -> None:
+        """A query that will never be answered: counted by the tracer,
+        kept out of both aggregation populations (as out of the latency
+        rings)."""
+        if qt is not None and self.qtrace is not None:
+            self.qtrace.drop(qt, error=error)
 
     def _tracer(self):
         tel = self.telemetry
@@ -378,13 +431,23 @@ class RetrievalServer:
     # -- serving core ------------------------------------------------------
 
     def _dispatch_core(self, items: List[Dict[str, Any]],
-                       engine: Optional[QueryEngine] = None
+                       engine: Optional[QueryEngine] = None,
+                       replica: Optional[str] = None
                        ) -> List[Dict[str, Any]]:
         """Coalesced records -> per-record answers.  A malformed record
         answers ``{"id", "error"}`` without failing its co-riders; raw
         inputs encode as one stacked batch, then join the embedding rows
         for one top-k dispatch."""
         engine = self.engine if engine is None else engine
+        qts = ([qt for it in items
+                if isinstance(it, dict) and (qt := it.get("_qt")) is not None]
+               if self.qtrace is not None else [])
+        if qts:
+            # batch_assemble ends here; everything from here to the
+            # answers is the dispatch stage (score and topk_merge are
+            # split back out of it below).
+            self.qtrace.dispatch_begin(qts, replica=replica)
+        stages: Optional[Dict[str, float]] = {} if qts else None
         if failpoints.should_fire("serve.latency"):
             # A deterministic latency fault for the whole batch, sited
             # here (not in the engine) so warmup stays fast.
@@ -421,8 +484,11 @@ class RetrievalServer:
                 # records only; a device fault fails the whole batch.
                 for i, _ in enc_rows:
                     answers[i] = {"id": items[i].get("id"), "error": str(e)}
+        t_merge = 0.0
         if emb_rows:
-            out = engine.query(np.stack([x for _, x in emb_rows]))
+            out = engine.query(np.stack([x for _, x in emb_rows]),
+                               stages=stages)
+            t_asm0 = time.perf_counter()
             ages = self.freshness.ages() if self.freshness else {}
             for j, (i, _) in enumerate(emb_rows):
                 answers[i] = {
@@ -437,6 +503,26 @@ class RetrievalServer:
                         for r in range(out["scores"].shape[1])
                     ],
                 }
+            # Answer assembly joins the device top-k with labels, ids
+            # and freshness: merge work, so topk_merge, not dispatch.
+            t_merge = time.perf_counter() - t_asm0
+            if self.shadow is not None:
+                # After the answers exist: a hash and a bounded put per
+                # sampled query, never a wait; the raw query row (the
+                # oracle normalizes it as the engine did).
+                try:
+                    for j, (i, row) in enumerate(emb_rows):
+                        self.shadow.offer(items[i].get("id"), row,
+                                          out["rows"][j], out["scores"][j])
+                except Exception as e:  # noqa: BLE001 — shadow must not fail answers
+                    log.error("shadow offer failed: %s", e)
+        if qts:
+            self.qtrace.dispatch_end(
+                qts, score_us=(stages or {}).get("score_us", 0.0),
+                merge_us=(stages or {}).get("merge_us", 0.0) + t_merge * 1e6,
+                # The fused probe: score and merge came out of one
+                # kernel, wrapped in a probe_fused span.
+                fused=getattr(engine, "probe_impl", None) == "fused")
         return answers
 
     # -- admission and accounting ------------------------------------------
@@ -445,13 +531,24 @@ class RetrievalServer:
         """Admit one record; returns (future, t_submit).  Raises
         :class:`QueueFullError` on backpressure or a whole-tier loss
         (counted in rejected)."""
+        qt = (record.get("_qt")
+              if self.qtrace is not None and isinstance(record, dict)
+              else None)
         with self._span("serve/admit"):
             with self._lock:
                 self.queries += 1
+            if qt is not None:
+                # admit_wait closes BEFORE the enqueue: the queue put is
+                # the only ordering edge between this thread and picked.
+                self.qtrace.admitted(qt)
             fut = self.replicaset.submit(record)
             return fut, time.perf_counter()
 
-    def _record_latency(self, seconds: float) -> None:
+    def _record_latency(self, seconds: float, qt=None) -> None:
+        if qt is not None and self.qtrace is not None:
+            # Before the window check, so the query that closes a window
+            # lands in that window's stage decomposition too.
+            self.qtrace.finish(qt)
         row = None
         with self._lock:
             self._lat.append(seconds * 1e3)
@@ -479,6 +576,10 @@ class RetrievalServer:
                "batches": self.replicaset.batches,
                "rejected": self.replicaset.rejected,
                **self._window_latency_split(),
+               # This window's dominant stage among its worst queries
+               # (absent with qtrace off).
+               **(self.qtrace.window_row()
+                  if self.qtrace is not None else {}),
                **{f"batch_{k}": round(v, 3) if isinstance(v, float) else v
                   for k, v in self._last_batch.items()}}
         if len(self.engines) > 1:
@@ -490,12 +591,14 @@ class RetrievalServer:
                 log.error("serve metrics emission failed: %s", e)
         log.info("serve window: %s", row)
 
-    def _account(self, answer: Dict[str, Any], t0: float) -> Dict[str, Any]:
+    def _account(self, answer: Dict[str, Any], t0: float,
+                 qt=None) -> Dict[str, Any]:
         if "error" in answer:
             with self._lock:
                 self.errors += 1
+            self._qtrace_drop(qt, error=True)
         else:
-            self._record_latency(time.perf_counter() - t0)
+            self._record_latency(time.perf_counter() - t0, qt)
         return answer
 
     def _refuse(self, rec_id, message: str) -> Dict[str, Any]:
@@ -514,21 +617,23 @@ class RetrievalServer:
         for rec in records:
             if not isinstance(rec, dict):
                 staged.append((None, self._refuse(
-                    None, "a request must be a JSON object"), None))
+                    None, "a request must be a JSON object"), None, None))
                 continue
             if "ingest" in rec:
-                staged.append((rec, self._handle_ingest(rec), None))
+                staged.append((rec, self._handle_ingest(rec), None, None))
                 self._maybe_checkpoint()
                 continue
+            qt = self._qtrace_begin(rec)
             try:
                 fut, t0 = self.submit(rec)
-                staged.append((rec, fut, t0))
+                staged.append((rec, fut, t0, qt))
             except QueueFullError as e:
                 # Counted in rejected, never also in errors.
+                self._qtrace_drop(qt)
                 staged.append((rec, {"id": rec.get("id"),
-                                     "error": str(e)}, None))
+                                     "error": str(e)}, None, None))
         answers = []
-        for rec, fut, t0 in staged:
+        for rec, fut, t0, qt in staged:
             if t0 is None:
                 answers.append(fut)
                 continue
@@ -537,9 +642,10 @@ class RetrievalServer:
             except Exception as e:  # noqa: BLE001 — answer the failure
                 with self._lock:
                     self.errors += 1
+                self._qtrace_drop(qt, error=True)
                 answers.append({"id": rec.get("id"), "error": str(e)})
                 continue
-            answers.append(self._account(answer, t0))
+            answers.append(self._account(answer, t0, qt))
         return answers
 
     # -- durable ingest ----------------------------------------------------
@@ -739,6 +845,12 @@ class RetrievalServer:
             **(self.freshness.ages() if self.freshness else {}),
             **({"ingest": self.ingest_stats()}
                if self.wal is not None else {}),
+            # The online recall estimate and the per-stage p99 budget:
+            # each block absent when its observatory is off.
+            **({"quality": self.shadow.stats()}
+               if self.shadow is not None else {}),
+            **({"qtrace": self.qtrace.summary_block()}
+               if self.qtrace is not None else {}),
             **{k: round(v, 3) for k, v in self._percentiles().items()},
             # The whole run's split (from the construction-time cursor:
             # warm-up spans never count as serving latency).
@@ -768,6 +880,11 @@ class RetrievalServer:
         if self._ingest_worker is not None:
             self._ingest_worker.shutdown(wait=True)
         s = self.summary()
+        if self.qtrace is not None and self.qtrace.out_path:
+            try:
+                self.qtrace.write()
+            except Exception as e:  # noqa: BLE001 — the artifact is not the run
+                log.error("qtrace artifact write failed: %s", e)
         if self.telemetry is not None:
             with contextlib.suppress(Exception):
                 if self.telemetry.metrics_enabled:
@@ -791,14 +908,15 @@ class RetrievalServer:
 
         def flush_ready(block: bool) -> None:
             while pending:
-                rec_id, fut, t0 = pending[0]
+                rec_id, fut, t0, qt = pending[0]
                 if not block and not fut.done():
                     return
                 try:
-                    answer = self._account(fut.result(timeout=120.0), t0)
+                    answer = self._account(fut.result(timeout=120.0), t0, qt)
                 except Exception as e:  # noqa: BLE001 — answer the failure
                     with self._lock:
                         self.errors += 1
+                    self._qtrace_drop(qt, error=True)
                     answer = {"id": rec_id, "error": str(e)}
                 pending.popleft()
                 emit(answer)
@@ -850,10 +968,12 @@ class RetrievalServer:
                     emit(self._handle_ingest(rec))
                     self._maybe_checkpoint()
                     continue
+                qt = self._qtrace_begin(rec)
                 try:
                     fut, t0 = self.submit(rec)
-                    pending.append((rec.get("id"), fut, t0))
+                    pending.append((rec.get("id"), fut, t0, qt))
                 except QueueFullError as e:
+                    self._qtrace_drop(qt)
                     flush_ready(block=True)
                     emit({"id": rec.get("id"), "error": str(e)})
                 flush_ready(block=False)

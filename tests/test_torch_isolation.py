@@ -2,7 +2,8 @@
 its entry points refuse to drop to the CPU unasked, and a kernel wrapper
 counts only launches of its kernel.
 
-  * the CPU serve path (and with telemetry: the fleet report, the
+  * the CPU serve path (and with telemetry: shadow scoring and query
+    tracing with ``prof --quality``, the fleet report, the
     merged traces, ``prof --fleet``, ``timeline``, ``parse``,
     ``device-query`` and ``prof --step serve``), the train CLI (dense and ``--engine
     blockwise``) with one ``googlenet_pallas`` training step on each
@@ -14,9 +15,10 @@ counts only launches of its kernel.
     trick), and ``jax`` never reaches ``sys.modules``;
   * an AST scan of every port module and ``chip_smoke.py`` finds no
     import of ``jax``, ``flax`` or ``npairloss_tpu`` (the ``pipeline/``,
-    ``parallel/`` and ``obs/`` packages and ``resilience/guard.py`` named
-    among the scanned files: the guard and the stdlib-only telemetry
-    modules are copies, not imports);
+    ``parallel/`` and ``obs/`` packages — ``obs/quality`` and
+    ``obs/qtrace`` among them — and ``resilience/guard.py`` named among
+    the scanned files: the guard and the stdlib-only telemetry modules
+    are copies, not imports);
   * entry points called without ``device=`` raise when CUDA is absent,
     the data loaders too;
   * kernel wrappers given CPU tensors leave their launch counters at 0.
@@ -91,6 +93,17 @@ RetrievalServer(eng2, cfg=ServerConfig(metrics_window=1),
                 telemetry=tel).run_jsonl(io.StringIO(lines[0] + "\n"),
                                          io.StringIO())
 tel.close()
+# Shadow scoring and query tracing through the CLI, then prof --quality.
+ix = idx.save("g.gidx")
+args = cli.build_parser().parse_args([
+    "serve", "--index", ix, "--index-kind", "ivf", "--probes", "4",
+    "--device", "cpu", "--shadow-rate", "1", "--shadow-window", "1",
+    "--qtrace", "--telemetry-dir", "qtel"])
+srv, _ = cli.build_server(args)
+srv.run_jsonl(io.StringIO(lines[0] + "\n"), io.StringIO())
+srv.shadow.close()
+srv.telemetry.close()
+assert os.path.exists("qtel/qtrace.json")
 report = build_fleet_report("tel")
 assert validate_fleet_report(report) is None, report
 assert merge_run_traces("tel")[0] and merge_timeline("tel")[0]
@@ -100,6 +113,7 @@ with contextlib.redirect_stdout(io.StringIO()):
     for argv in (["parse", os.environ["TINY_SOLVER"], "--json"],
                  ["device-query", "--device", "cpu"],
                  ["prof", "--fleet", "tel"], ["timeline", "tel"],
+                 ["prof", "--quality", "qtel"], ["timeline", "qtel"],
                  ["prof", "--step", "serve", "--gallery", "64", "--dim", "8",
                   "--device", "cpu", "--out", "prof"]):
         assert cli.main(argv) == 0, argv
@@ -321,6 +335,9 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     "obs/fleet/aggregate.py", "obs/fleet/comms.py",
     "obs/fleet/merge_traces.py", "utils/__init__.py", "utils/debug.py",
     "tools/e2e_real_jpeg.py", "tools/phase_times.py",
+    "obs/quality/__init__.py", "obs/quality/report.py",
+    "obs/quality/shadow.py", "obs/qtrace/__init__.py",
+    "obs/qtrace/core.py", "obs/qtrace/report.py",
 ])
 def test_pipeline_and_guard_modules_are_scanned_and_clean(module):
     path = PORT / module

@@ -1302,7 +1302,8 @@ INDEX_FLAGS = ("emb", "labels", "out", "add_to", "no_normalize", "info",
 SERVE_FLAGS = ("http", "replicas", "index_prefix", "snapshot", "model",
                "ivf_clusters", "metrics_window", "poll_s", "no_warmup",
                "explicit_drops", "wal_dir", "wal_flush_ms",
-               "wal_checkpoint_every")
+               "wal_checkpoint_every", "shadow_rate", "shadow_window",
+               "shadow_seed", "qtrace", "qtrace_exemplars", "qtrace_slo_ms")
 NEW_FLAGS = ([("index", d) for d in INDEX_FLAGS]
              + [("serve", d) for d in SERVE_FLAGS])
 
@@ -1321,9 +1322,9 @@ def test_serving_flags_match_the_jax_cli(cmd, dest, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["--mesh", "--tenant-config", "--admission",
-                                  "--live-obs", "--shadow-rate", "--qtrace",
-                                  "--slo-config", "--watch-snapshots",
-                                  "--remediate"])
+                                  "--live-obs", "--slo-tick",
+                                  "--remediate-dry-run", "--slo-config",
+                                  "--watch-snapshots", "--remediate"])
 def test_unported_serve_flags_are_refused(flag, capsys):
     from npairloss_tpu_torch import cli
 
