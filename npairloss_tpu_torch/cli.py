@@ -1,6 +1,7 @@
 """``python -m npairloss_tpu_torch
-index|serve|train|test|extract|eval|time|prof|timeline|device-query|
-parse|import-caffemodel|export-caffemodel`` — the port's CLI.
+index|serve|train|test|extract|eval|time|prof|timeline|watch|
+device-query|parse|import-caffemodel|export-caffemodel`` — the port's
+CLI.
 
 Flag names follow ``npairloss_tpu``'s CLI for the ported subset; the
 port adds ``--device`` (default: the card; ``cpu`` to run without one)
@@ -30,7 +31,11 @@ is here (GoogLeNet, Inception-BN, the ResNets, ViT-B/16, the MLP).
            path (recall@{1,5,10} rows and ``quality.jsonl``, the index's
            parity stamp as the baseline) and ``--qtrace`` traces every
            query's stages (``qtrace.json``: the p99 budget and exemplar
-           span trees, rewritten every 2 s and at the end).
+           span trees, rewritten every 2 s and at the end), and
+           ``--live-obs`` evaluates SLOs (``--slo-config``, else the serve
+           watchdogs; every ``--slo-tick`` s) over the run's rows into
+           ``alerts.jsonl``, with ``GET /metrics`` and the SLO status on
+           ``/healthz``.
            SIGTERM/SIGINT: every admitted query is answered, a final
            checkpoint is written, the shadow queue is scored, exit 75;
   train:   the Caffe solver loop from a solver prototxt on the net's list
@@ -65,6 +70,10 @@ is here (GoogLeNet, Inception-BN, the ResNets, ViT-B/16, the MLP).
            metrics; ``--perf-metrics`` adds one ``perf`` row (step FLOPs,
            MFU) per display window; ``--debug-checks`` checks every
            step's metric scalars on the host (synchronous loop);
+           ``--live-obs`` evaluates the train watchdogs (or
+           ``--slo-config``) over the run's rows into ``alerts.jsonl``,
+           and ``--metrics-port P`` serves ``/metrics`` and ``/healthz``
+           on localhost while it trains;
   test:    the TEST phase from a snapshot or weights (``caffe test``);
   extract: eval-mode embeddings of a phase's batches to
            ``OUT.emb.npy`` + ``OUT.labels.npy``;
@@ -83,6 +92,8 @@ is here (GoogLeNet, Inception-BN, the ResNets, ViT-B/16, the MLP).
            ``--quality RUNDIR``: a serving run's ``quality.jsonl``
            validated and its recall trend beside the committed baseline;
   timeline: every trace under a run directory on one Perfetto timeline;
+  watch:   a run directory's telemetry through the same SLO engine,
+           offline (``--follow`` tails it), into ``alerts.watch.jsonl``;
   device-query: the card(s) and the process topology as JSON;
   parse:   a prototxt parsed and printed back (``--json``: as JSON);
   import-caffemodel: a ``.caffemodel``'s GoogLeNet or ResNet-50 blobs to a
@@ -293,6 +304,10 @@ def build_server(args):
         log.error("--qtrace needs --telemetry-dir (the exemplar artifact "
                   "qtrace.json lands there)")
         return 2
+    specs = _live_specs(args, "serve",
+                        max_queue=args.max_queue * args.replicas)
+    if isinstance(specs, int):
+        return specs
     buckets = tuple(int(b) for b in args.buckets.split(","))
     if args.compile_cache:
         from npairloss_tpu_torch.pipeline import enable_compile_cache
@@ -376,7 +391,12 @@ def build_server(args):
     cfg = EngineConfig(top_k=args.top_k, buckets=buckets,
                        gallery_block=args.gallery_block, probes=args.probes,
                        scoring=args.scoring, probe_impl=args.probe_impl)
-    telemetry = _serve_telemetry(args, index_path, buckets)
+    live = None
+    if specs is not None:
+        from npairloss_tpu_torch.obs.live import LiveObservatory
+
+        live = LiveObservatory(specs, out_dir=args.telemetry_dir)
+    telemetry = _serve_telemetry(args, index_path, buckets, live)
     engine = QueryEngine(index, cfg, model=model, telemetry=telemetry)
     if not args.no_warmup:
         engine.warmup(input_shape)
@@ -387,11 +407,19 @@ def build_server(args):
     if args.qtrace:
         from npairloss_tpu_torch.obs.qtrace import QTraceConfig, QueryTracer
 
-        # Without the live observatory's p99 watchdog to borrow a target
-        # from, the per-query SLO defaults to 250 ms, as JAX's does.
-        slo_ms = args.qtrace_slo_ms if args.qtrace_slo_ms > 0 else 250.0
+        # The per-query SLO defaults to the armed p99 watchdog's target
+        # (one latency bar, two enforcement points: the pager on the
+        # aggregate, the exemplar on the query), else to 250 ms, as JAX's.
+        slo_ms = args.qtrace_slo_ms
+        if slo_ms <= 0 and live is not None:
+            slo_ms = next((float(s.target) for s in specs
+                           if s.metric == "serve_p99_ms" and s.op == "<="),
+                          0.0)
+        if slo_ms <= 0:
+            slo_ms = 250.0
         qtracer = QueryTracer(
             QTraceConfig(exemplars=args.qtrace_exemplars, slo_ms=slo_ms),
+            registry=live.registry if live is not None else None,
             out_path=os.path.join(args.telemetry_dir, "qtrace.json"))
         log.info("query tracing armed: slo %.1f ms, %d exemplars", slo_ms,
                  args.qtrace_exemplars)
@@ -405,7 +433,7 @@ def build_server(args):
         freshness=Freshness.collect(index=index, index_path=index_path,
                                     weights_path=args.weights,
                                     snapshot_path=args.snapshot),
-        telemetry=telemetry, qtrace=qtracer)
+        telemetry=telemetry, qtrace=qtracer, live=live)
     if args.shadow_rate > 0:
         server.shadow = _shadow_scorer(args, server, index_path, telemetry)
     if wal is not None:
@@ -414,7 +442,52 @@ def build_server(args):
             checkpoint_every=args.wal_checkpoint_every,
             watermark=max(base_watermark, wal.last_seq),
             checkpoint_watermark=base_watermark, recovery=recovery)
+    if live is not None:
+        live.add_probe(lambda: _serve_probe(live, server, wal))
+        # Started after warmup: the first windows reflect serving, not
+        # the kernels' build.
+        live.start(period_s=args.slo_tick)
     return server, wal
+
+
+def _live_specs(args, kind: str, max_queue: int = 256):
+    """``--live-obs``'s SLO specs (``--slo-config``, else the standard
+    ``kind`` watchdogs); None without ``--live-obs``, an exit code when
+    the arguments are refused.  The registry is fed by the run's metric
+    rows, so live obs without ``--telemetry-dir`` would watch nothing."""
+    if not args.live_obs:
+        return None
+    if not args.telemetry_dir:
+        log.error("--live-obs needs --telemetry-dir (the registry is fed "
+                  "by the run's metric rows)")
+        return 2
+    from npairloss_tpu_torch.obs.live import default_watchdogs, load_slo_config
+
+    if not args.slo_config:
+        return default_watchdogs(kind, max_queue=max_queue)
+    try:
+        return load_slo_config(args.slo_config)
+    except (OSError, ValueError) as e:
+        log.error("--slo-config refused: %s", e)
+        return 2
+
+
+def _serve_probe(live, server, wal) -> None:
+    """The serve observatory's per-tick probe: the ingest-durability
+    gauges (what the tier has acked vs made durable, and the torn tail
+    recovery counted) and the freshness ages — server state, not metric
+    rows, republished every tick so the staleness watchdogs see a
+    continuous stream."""
+    if wal is not None:
+        st = wal.stats()
+        live.registry.set("serve_ingest_watermark",
+                          float(server.ingest_watermark))
+        live.registry.set("serve_wal_durable_seq", float(st["durable_seq"]))
+        live.registry.set("serve_wal_torn_records",
+                          float(st["torn_records"]))
+    if server.freshness is not None:
+        for key, v in server.freshness.ages().items():
+            live.registry.set(f"serve_{key}", v)
 
 
 def _shadow_scorer(args, server, index_path: str, telemetry):
@@ -422,8 +495,9 @@ def _shadow_scorer(args, server, index_path: str, telemetry):
     sample of the answered queries re-scored against the flat exact
     oracle of the served index, off the hot path, into ``quality.jsonl``
     beside the run's rows.  The baseline is the served commit's parity
-    stamp (``index --parity-sample``; absent for a flat commit).  A
-    recall floor comes with the live observatory's SLOs, not ported."""
+    stamp (``index --parity-sample``; absent for a flat commit).  The
+    declared recall floor is the first ``serve_recall_at_K >=`` SLO the
+    live observatory armed whose K the scorer samples."""
     from npairloss_tpu_torch.obs.quality.shadow import (
         ShadowConfig,
         ShadowScorer,
@@ -435,16 +509,34 @@ def _shadow_scorer(args, server, index_path: str, telemetry):
         baseline = raw if isinstance(raw, dict) else None
     except Exception:  # noqa: BLE001 — the baseline is optional evidence
         baseline = None
+    ks = tuple(k for k in (1, 5, 10) if k <= args.top_k)
+    floor = floor_metric = None
+    for spec in (server.live.evaluator.specs if server.live else ()):
+        if not (spec.metric.startswith("serve_recall_at_")
+                and spec.op == ">="):
+            continue
+        tail = spec.metric.rsplit("_", 1)[-1]
+        if tail.isdigit() and int(tail) in ks:
+            floor, floor_metric = spec.target, spec.metric
+            break
+        # A floor on a K the shadow never samples (--top-k below it)
+        # would be silently inert: say so.
+        log.warning("recall SLO %s targets %s but --top-k %d samples only "
+                    "recall@{%s} — that floor can never see a sample (raise "
+                    "--top-k or lower the SLO's K)", spec.name, spec.metric,
+                    args.top_k, ",".join(str(k) for k in ks))
     shadow = ShadowScorer(
         lambda: server.engine.index,
-        ShadowConfig(rate=args.shadow_rate,
-                     ks=tuple(k for k in (1, 5, 10) if k <= args.top_k),
+        ShadowConfig(rate=args.shadow_rate, ks=ks,
                      window=args.shadow_window, seed=args.shadow_seed),
         telemetry=telemetry,
         out_path=os.path.join(args.telemetry_dir, "quality.jsonl"),
-        baseline=baseline).start()
-    log.info("shadow scoring armed: rate %g, window %d", args.shadow_rate,
-             args.shadow_window)
+        baseline=baseline, recall_floor=floor,
+        floor_metric=floor_metric).start()
+    log.info("shadow scoring armed: rate %g, window %d%s", args.shadow_rate,
+             args.shadow_window,
+             f", floor {floor} on {floor_metric}" if floor is not None
+             else "")
     return shadow
 
 
@@ -479,16 +571,19 @@ class _QTraceCheckpoints:
         self._thread.join(timeout=30.0)
 
 
-def _serve_telemetry(args, index_path: str, buckets):
+def _serve_telemetry(args, index_path: str, buckets, live=None):
     """``serve``'s ``RunTelemetry``: ``--telemetry-dir`` (manifest, one
     ``serve`` row per metrics window and the drain summary, the span
-    trace) or ``--trace-dir`` (the trace alone); None without either."""
+    trace) or ``--trace-dir`` (the trace alone); None without either.
+    A live observatory's sink rides the sink chain."""
     tel_dir, trace_dir = args.telemetry_dir, args.trace_dir
     if not (tel_dir or trace_dir):
         return None
     from npairloss_tpu_torch.obs import RunTelemetry
 
-    telemetry = RunTelemetry(tel_dir or trace_dir, metrics=bool(tel_dir))
+    telemetry = RunTelemetry(
+        tel_dir or trace_dir, metrics=bool(tel_dir),
+        extra_sinks=(live.sink,) if live is not None else ())
     if tel_dir:
         telemetry.write_manifest(config={
             "serve": True,
@@ -502,6 +597,8 @@ def _serve_telemetry(args, index_path: str, buckets):
             "buckets": list(buckets),
             "deadline_ms": args.deadline_ms,
             "max_queue": args.max_queue,
+            "live_obs": live is not None,
+            "slo_config": args.slo_config,
         })
     return telemetry
 
@@ -527,18 +624,30 @@ def cmd_serve(args) -> int:
             wal.close()
         if checkpoints is not None:
             checkpoints.stop()
-        if server.shadow is not None:
-            try:
-                # Every accepted sample is scored, the final window and
-                # the summary record written, before telemetry closes.
-                server.shadow.close()
-            except Exception as e:  # noqa: BLE001 — the answers stand
-                log.error("shadow scorer close failed: %s", e)
-        if server.telemetry is not None:
-            try:
-                server.telemetry.close()
-            except Exception as e:  # noqa: BLE001 — the answers stand
-                log.error("telemetry close failed: %s", e)
+        close_observers(server)
+
+
+def close_observers(server) -> None:
+    """Close what :func:`build_server` attached to a drained server, in
+    order: the shadow scorer (every accepted sample scored, the final
+    window and summary written), then the live observatory (its final
+    tick sees those last rows and lands a pending alert transition in
+    ``alerts.jsonl``), then the telemetry."""
+    if server.shadow is not None:
+        try:
+            server.shadow.close()
+        except Exception as e:  # noqa: BLE001 — the answers stand
+            log.error("shadow scorer close failed: %s", e)
+    if server.live is not None:
+        try:
+            server.live.stop()
+        except Exception as e:  # noqa: BLE001 — the answers stand
+            log.error("live-obs stop failed: %s", e)
+    if server.telemetry is not None:
+        try:
+            server.telemetry.close()
+        except Exception as e:  # noqa: BLE001 — the answers stand
+            log.error("telemetry close failed: %s", e)
 
 
 def _resolve_net_path(args, net_path: Optional[str]) -> Optional[str]:
@@ -837,10 +946,20 @@ def _in_process_group(args, body) -> int:
 
 
 def cmd_train(args) -> int:
-    return _in_process_group(args, _train)
+    # Arg-only refusals before the process group and the solver build.
+    if args.metrics_port and not args.live_obs:
+        log.error("--metrics-port needs --live-obs (there is no metric "
+                  "registry to export without it)")
+        return 2
+    specs = _live_specs(args, "train")
+    if isinstance(specs, int):
+        return specs
+    return _in_process_group(args, lambda a: _train(a, specs))
 
 
-def _train(args) -> int:
+def _train(args, specs=None) -> int:
+    """The ``train`` command's body; ``specs`` are ``--live-obs``'s SLOs
+    (None: no live observatory)."""
     from npairloss_tpu_torch.resilience import (
         EXIT_PREEMPTED,
         DivergenceConfig,
@@ -918,9 +1037,17 @@ def _train(args) -> int:
     loaders = []
     preempted = None
     mesh = solver.mesh
-    telemetry = None
+    telemetry = live = exporter = None
     try:
-        telemetry = _open_telemetry(args, solver, net_cfg)
+        # The observatory lives on the rank that writes the run dir's
+        # alerts.jsonl: rank 0 (the others' rows reach it through
+        # `watch` over their per-rank streams).
+        if specs is not None and (mesh is None or mesh.is_primary):
+            from npairloss_tpu_torch.obs.live import LiveObservatory
+
+            live = LiveObservatory(specs, out_dir=args.telemetry_dir)
+            live.add_probe(lambda: _snapshot_age_probe(live, solver))
+        telemetry = _open_telemetry(args, solver, net_cfg, live)
         # Over a mesh rank 0 alone writes the records: every rank's
         # reported values are the same means.
         if args.log_json and (mesh is None or mesh.is_primary):
@@ -937,6 +1064,17 @@ def _train(args) -> int:
         for phase, seed in (("TRAIN", 0), ("TEST", 1)):
             loaders.append(_build_data(args, net_cfg, phase, input_shape,
                                        seed, solver.device))
+        if live is not None:
+            live.start(period_s=args.slo_tick)
+            if args.metrics_port:
+                from npairloss_tpu_torch.obs.live import start_http_exporter
+
+                # Training has no HTTP surface of its own: an opt-in
+                # localhost exporter serves /metrics (and /healthz with
+                # the SLO status).
+                exporter = start_http_exporter(
+                    live.registry, args.metrics_port,
+                    health_fn=lambda: {"ok": True, **live.health()})
         streams = list(loaders)
         if mesh is not None and mesh.size > 1:
             # Every rank builds the same loaders and keeps its rows of
@@ -962,6 +1100,17 @@ def _train(args) -> int:
             preempt.uninstall()
         for it in loaders:
             _close(it)
+        if exporter is not None:
+            try:
+                exporter.shutdown()
+                exporter.server_close()
+            except Exception as e:  # noqa: BLE001 — the run's result stands
+                log.error("metrics exporter shutdown failed: %s", e)
+        if live is not None:
+            try:
+                live.stop()  # the final tick lands a pending transition
+            except Exception as e:  # noqa: BLE001 — the run's result stands
+                log.error("live-obs stop failed: %s", e)
         if log_file is not None:
             log_file.close()
         if telemetry is not None:
@@ -981,13 +1130,32 @@ def _train(args) -> int:
     return 0
 
 
-def _open_telemetry(args, solver, net_cfg):
+def _snapshot_age_probe(live, solver) -> None:
+    """The train observatory's per-tick probe: the newest committed
+    snapshot's manifest age (``train_snapshot_age_s``), state already on
+    disk."""
+    from npairloss_tpu_torch.resilience.snapshot import (
+        list_snapshots,
+        snapshot_info,
+    )
+
+    snaps = list_snapshots(solver.cfg.snapshot_prefix)
+    if not snaps:
+        return
+    created = snapshot_info(snaps[-1][1])["created"]
+    if created is not None:
+        live.registry.set("train_snapshot_age_s",
+                          max(time.time() - created, 0.0))
+
+
+def _open_telemetry(args, solver, net_cfg, live=None):
     """The run's ``RunTelemetry`` from ``--telemetry-dir`` (the run
     directory: manifest, metrics rows, trace) or ``--trace-dir`` (the
     trace alone), attached to the solver; None without either.  Fleet
     stamping (every rank writes its own ``*.r<k>.*`` files) is automatic
     over several processes and forced by ``--fleet``; otherwise only
-    rank 0 writes, in the single-process layout."""
+    rank 0 writes, in the single-process layout.  A live observatory's
+    sink rides the sink chain."""
     import dataclasses
 
     from npairloss_tpu_torch.obs import RunTelemetry, fleet_stamp
@@ -1001,8 +1169,9 @@ def _open_telemetry(args, solver, net_cfg):
     mesh = solver.mesh
     if not fleet_on and mesh is not None and not mesh.is_primary:
         return None
-    telemetry = RunTelemetry(tel_dir or trace_dir, metrics=bool(tel_dir),
-                             fleet=fleet_on)
+    telemetry = RunTelemetry(
+        tel_dir or trace_dir, metrics=bool(tel_dir), fleet=fleet_on,
+        extra_sinks=(live.sink,) if live is not None else ())
     if tel_dir:
         from npairloss_tpu_torch.models import model_for_net
         from npairloss_tpu_torch.parallel.mesh import mesh_topology
@@ -1630,6 +1799,61 @@ def cmd_timeline(args) -> int:
     return 0
 
 
+def cmd_watch(args) -> int:
+    """``watch RUNDIR`` — the live observatory's offline feed: a run
+    directory's telemetry streams (``metrics.jsonl`` and the per-rank
+    ``telemetry.r<k>.jsonl`` alike) through the same SLO engine the
+    in-process path runs, each record evaluated at its own wall_time.
+    Alert events print as they happen, then the summary; exit 1 when a
+    critical alert is still active at the end.  Touches no device."""
+    from npairloss_tpu_torch.obs.live import (
+        default_watchdogs,
+        load_slo_config,
+        watch_run_dir,
+    )
+
+    if args.slo_config:
+        try:
+            specs = load_slo_config(args.slo_config)
+        except (OSError, ValueError) as e:
+            log.error("--slo-config refused: %s", e)
+            return 2
+    else:
+        specs = []
+        seen = set()
+        for kind in filter(None, (k.strip()
+                                  for k in args.watchdogs.split(","))):
+            try:
+                presets = default_watchdogs(kind)
+            except ValueError as e:
+                log.error("%s", e)
+                return 2
+            for spec in presets:
+                if spec.name not in seen:
+                    seen.add(spec.name)
+                    specs.append(spec)
+        if not specs:
+            log.error("--watchdogs %r names no presets", args.watchdogs)
+            return 2
+
+    def emit(event) -> None:
+        print(json.dumps(event), flush=True)
+
+    try:
+        summary = watch_run_dir(args.run_dir, specs, follow=args.follow,
+                                poll_s=args.poll_s, out_path=args.out,
+                                emit=emit, stop_after_s=args.for_s)
+    except FileNotFoundError as e:
+        log.error("%s", e)
+        return 2
+    except KeyboardInterrupt:
+        print("", file=sys.stderr)
+        return 0
+    print(json.dumps(summary, default=str))
+    return 1 if any(a["severity"] == "critical"
+                    for a in summary["active"].values()) else 0
+
+
 def cmd_parse(args) -> int:
     """Parse a prototxt and print it back (text format, or ``--json``)."""
     from npairloss_tpu_torch.config.prototxt import dumps, parse_file
@@ -2005,7 +2229,24 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--qtrace-slo-ms", dest="qtrace_slo_ms", type=float,
                     default=0.0, metavar="MS",
                     help="per-query latency SLO for exemplar retention and "
-                    "the violations counter (default 0 = 250)")
+                    "the violations counter (default 0 = the armed p99 "
+                    "SLO's target under --live-obs, else 250)")
+    sv.add_argument(
+        "--live-obs", dest="live_obs", action="store_true",
+        help="live observatory: SLO watchdogs over the serve window rows, "
+        "alerts.jsonl (npairloss-alerts-v1) in the telemetry dir, "
+        "/metrics and SLO-enriched /healthz on the --http front end; "
+        "needs --telemetry-dir; the telemetry streams stay byte-identical")
+    sv.add_argument(
+        "--slo-config", dest="slo_config", metavar="PATH",
+        help="SLO config (JSON; TOML where tomllib exists): watchdog "
+        "presets by name plus explicit SLO entries — default: the standard "
+        "serve watchdogs (p99, queue saturation at --max-queue x "
+        "--replicas, post-warmup compiles, index/model staleness, shadow "
+        "recall floor and score gap)")
+    sv.add_argument(
+        "--slo-tick", dest="slo_tick", type=float, default=1.0, metavar="S",
+        help="live-obs evaluation period in seconds (default 1.0)")
     sv.add_argument("--wal-checkpoint-every", dest="wal_checkpoint_every",
                     type=int, default=8, metavar="N",
                     help="publish an index checkpoint every N ingest "
@@ -2225,6 +2466,25 @@ def build_parser() -> argparse.ArgumentParser:
         help="validate every step's loss/metric scalars are finite on "
         "host (utils.debug.enable_debug_checks; also settable via "
         "NPAIRLOSS_DEBUG_CHECKS=1)")
+    tr.add_argument(
+        "--live-obs", dest="live_obs", action="store_true",
+        help="live observatory: feed this run's telemetry rows into the "
+        "in-process metric registry, evaluate SLO watchdogs continuously, "
+        "and append firing/resolved alerts to <telemetry-dir>/alerts.jsonl "
+        "(npairloss-alerts-v1); needs --telemetry-dir; the telemetry "
+        "streams stay byte-identical")
+    tr.add_argument(
+        "--slo-config", dest="slo_config", metavar="PATH",
+        help="SLO config (JSON; TOML where tomllib exists): watchdog "
+        "presets by name plus explicit SLO entries — default: the standard "
+        "train watchdogs")
+    tr.add_argument(
+        "--slo-tick", dest="slo_tick", type=float, default=1.0, metavar="S",
+        help="live-obs evaluation period in seconds (default 1.0)")
+    tr.add_argument(
+        "--metrics-port", dest="metrics_port", type=int, metavar="PORT",
+        help="with --live-obs: serve Prometheus /metrics (and /healthz "
+        "with SLO status) on this localhost port (0 = off)")
     tr.set_defaults(fn=cmd_train)
 
     tt = sub.add_parser("test", help="TEST phase only from a snapshot "
@@ -2355,6 +2615,35 @@ def build_parser() -> argparse.ArgumentParser:
     tl.add_argument("--out", default=None, metavar="PATH",
                     help="output path (default: RUNDIR/timeline.json)")
     tl.set_defaults(fn=cmd_timeline)
+
+    w = sub.add_parser(
+        "watch",
+        help="evaluate SLO watchdogs over a run directory's telemetry "
+        "offline (the live observatory's second feed; no device)")
+    w.add_argument("run_dir", metavar="RUNDIR",
+                   help="run directory holding metrics.jsonl or per-rank "
+                   "telemetry.r<k>.jsonl streams")
+    w.add_argument("--slo-config", dest="slo_config", metavar="PATH",
+                   help="SLO config (JSON/TOML); default: the --watchdogs "
+                   "presets")
+    w.add_argument("--watchdogs", default="train,serve",
+                   help="comma-separated watchdog preset kinds when no "
+                   "--slo-config (default train,serve — a kind whose "
+                   "metrics never appear just stays ok)")
+    w.add_argument("--follow", action="store_true",
+                   help="keep tailing the streams instead of one replay "
+                   "pass")
+    w.add_argument("--poll-s", dest="poll_s", type=float, default=1.0,
+                   help="--follow poll period (default 1.0)")
+    w.add_argument("--for", dest="for_s", type=float, default=None,
+                   metavar="S",
+                   help="stop --follow after S seconds (default: until "
+                   "interrupted)")
+    w.add_argument("--out", metavar="PATH",
+                   help="alert JSONL output (default RUNDIR/"
+                   "alerts.watch.jsonl — never the in-process engine's "
+                   "alerts.jsonl)")
+    w.set_defaults(fn=cmd_watch)
 
     dq = sub.add_parser(
         "device-query",

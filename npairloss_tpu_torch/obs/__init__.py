@@ -17,10 +17,14 @@ observatory):
     oracle and the ``npairloss-quality-v1`` log (``prof --quality``);
   * ``obs.qtrace`` — per-query stage tracing and the
     ``npairloss-qtrace-v1`` exemplar artifact;
+  * ``obs.live`` — the online layer: an in-process metric registry fed
+    by the telemetry rows (``RunTelemetry(extra_sinks=)``), declarative
+    SLOs with burn-rate alerts (``npairloss-alerts-v1``), Prometheus
+    ``/metrics`` and the offline ``watch`` — imported explicitly, not
+    re-exported here, so a run without it pays nothing;
 
 tied together per run by ``obs.run.RunTelemetry`` (run dir with
-``manifest.json`` + ``metrics.jsonl`` + ``trace.json``).  The live
-observatory is not ported yet.
+``manifest.json`` + ``metrics.jsonl`` + ``trace.json``).
 """
 
 from npairloss_tpu_torch.obs.fleet.stamp import FleetStamp, fleet_stamp

@@ -12,10 +12,11 @@ Perfetto next to the host spans and fleet lanes (``timeline``).
 Two consumers sit on top of the raw spans:
 
 * **always-on aggregation** — every answered query lands its stage
-  durations in a rolling ring (JAX's also feeds the live observatory's
-  per-stage histograms, which the port does not have yet); the ring
-  yields the p99 budget decomposition (which stage dominates the worst-window
-  queries) for ``/healthz``, window rows, and the drain summary;
+  durations in a rolling ring (and, when a live registry is attached,
+  in per-stage ``qtrace_<stage>_ms`` histograms on ``/metrics``); the
+  ring yields the p99 budget decomposition (which stage dominates the
+  worst-window queries) for ``/healthz``, window rows, and the drain
+  summary;
 * **exemplar sampling** — the FULL span tree is retained only for
   SLO-violating queries and the slowest tail (rolling
   ``tail_quantile``), in a bounded store that evicts the fastest
@@ -136,10 +137,11 @@ class QueryTracer:
     """
 
     def __init__(self, cfg: QTraceConfig = QTraceConfig(),
-                 out_path: Optional[str] = None,
+                 registry=None, out_path: Optional[str] = None,
                  clock: Callable[[], float] = time.perf_counter,
                  wall: Callable[[], float] = time.time):
         self.cfg = cfg
+        self.registry = registry
         self.out_path = out_path
         self._clock = clock
         self._wall = wall
@@ -328,6 +330,10 @@ class QueryTracer:
                          **({"probe": True} if qt.probe else {}),
                          **({"tenant": qt.tenant} if qt.tenant
                             else {}))
+        if self.registry is not None:
+            for stage, ms in stage_ms.items():
+                self.registry.observe(f"qtrace_{stage}_ms", ms)
+            self.registry.observe("qtrace_total_ms", total_ms)
         with self._lock:
             self._queries += 1
             violating = self.cfg.slo_ms > 0 and total_ms > self.cfg.slo_ms

@@ -122,25 +122,34 @@ class ShadowScorer:
 
     ``index_fn`` returns the CURRENTLY served index (the server's
     ``lambda: server.engine.index``); ``telemetry`` routes the
-    per-window row through the run's sink chain; ``out_path`` lands
-    ``quality.jsonl`` (None = in-memory history only).  ``baseline`` is
-    the served IVF commit's ``parity`` manifest block, stamped into the
-    config record so ``prof --quality`` reads the stream beside it.
-    JAX's ``registry`` gauges and declared recall floor come with the
-    live observatory's SLOs, not ported."""
+    per-window row through the run's sink chain (and so into a live
+    observatory's registry when one rides it); with no telemetry,
+    ``registry`` gets the window's gauges set directly (the
+    freshness-probe pattern); ``out_path`` lands ``quality.jsonl``
+    (None = in-memory history only).  ``baseline`` is the served IVF
+    commit's ``parity`` manifest block; ``recall_floor``/``floor_metric``
+    the armed SLO's declared floor — both are stamped into the config
+    record so ``prof --quality`` judges the stream without the serving
+    process."""
 
     def __init__(
         self,
         index_fn: Callable[[], Any],
         cfg: ShadowConfig = ShadowConfig(),
         telemetry=None,
+        registry=None,
         out_path: Optional[str] = None,
         baseline: Optional[Dict[str, Any]] = None,
+        recall_floor: Optional[float] = None,
+        floor_metric: Optional[str] = None,
     ):
         self.index_fn = index_fn
         self.cfg = cfg
         self.telemetry = telemetry
+        self.registry = registry
         self.baseline = baseline
+        self.recall_floor = recall_floor
+        self.floor_metric = floor_metric
         self._q: queue.Queue = queue.Queue(maxsize=cfg.max_queue)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -179,6 +188,9 @@ class ShadowScorer:
             "wall_time": time.time(),
             "stale_after_s": cfg.stale_after_s,
             **({"baseline": baseline} if baseline else {}),
+            **({"recall_floor": recall_floor,
+                "floor_metric": floor_metric}
+               if recall_floor is not None else {}),
         })
 
     # -- the hot-path side (dispatch thread) -------------------------------
@@ -300,11 +312,18 @@ class ShadowScorer:
         if self.telemetry is not None and self.telemetry.metrics_enabled:
             try:
                 # THE emission: one serve row in the run's metrics
-                # stream, as JAX's (whose live registry turns
-                # recall_at_10 into the serve_recall_at_10 gauge).
+                # stream — a live observatory's RegistrySink turns
+                # recall_at_10 into the serve_recall_at_10 gauge, and
+                # the row replays through `watch`.
                 self.telemetry.log("serve", total, row)
             except Exception as e:  # noqa: BLE001 — observing must not kill serving
                 log.error("shadow window emission failed: %s", e)
+        if self.registry is not None and self.telemetry is None:
+            # Registry-only mode (no telemetry stream to ride): set the
+            # gauges directly, the freshness-probe pattern.
+            for key, v in row.items():
+                if isinstance(v, (int, float)):
+                    self.registry.set(f"serve_{key}", float(v), now)
         self._emit({
             "schema": QUALITY_SCHEMA,
             "kind": "window",

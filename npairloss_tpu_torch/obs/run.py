@@ -19,7 +19,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 from npairloss_tpu_torch.obs.manifest import RunManifest
 from npairloss_tpu_torch.obs.sinks import (
@@ -51,8 +51,11 @@ class RunTelemetry:
 
     ``metrics=False`` gives a trace-only instance (the CLI's
     ``--trace-dir``); ``trace=False`` a metrics-only one.  ``ring``
-    records stay readable via ``.ring.records()`` for live
-    introspection either way.
+    records (the last ``ring_capacity``) stay readable via
+    ``.ring.records()`` for live introspection either way.
+    ``extra_sinks`` get every row after the file and the ring: the live
+    observatory's ``RegistrySink`` rides here, and never changes a byte
+    of the file.
 
     ``fleet`` opts into rank-stamped multi-process telemetry: ``True``
     resolves the ambient rank identity (the process group's, or the
@@ -73,6 +76,8 @@ class RunTelemetry:
         run_id: Optional[str] = None,
         metrics: bool = True,
         trace: bool = True,
+        ring_capacity: int = 1024,
+        extra_sinks: Sequence[MetricLogger] = (),
         fleet=None,
     ):
         from npairloss_tpu_torch.obs.fleet.stamp import resolve_fleet
@@ -87,13 +92,14 @@ class RunTelemetry:
         # materializing metric scalars costs — it would distort the very
         # host timeline the tracer exists to capture.
         self.metrics_enabled = bool(metrics)
-        self.ring = RingBufferSink(1024)
+        self.ring = RingBufferSink(ring_capacity)
         children: list = [self.ring]
         if metrics:
             children.insert(
                 0, JsonlSink(os.path.join(self.run_dir,
                                           self._metrics_filename()))
             )
+        children.extend(extra_sinks)
         self.sink: MetricLogger = MultiSink(children)
         self.tracer: Optional[SpanTracer] = SpanTracer() if trace else None
         if self.tracer is not None and self._stamp is not None:

@@ -11,8 +11,10 @@ encode raw inputs, then one top-k dispatch -> answer):
     /query`` with one JSON record (answered as one object) or a body of
     newline-separated records (answered as a list), ``GET /healthz``;
     a 400 for bad JSON or an empty body, a 404 for other paths, and
-    ``GET /metrics`` answers 404 until the live observatory is ported
-    (ROADMAP Queue 1 entry 4.3), as JAX's does without ``--live-obs``.
+    ``GET /metrics``: the live observatory's registry in Prometheus
+    text when the server has one (``live=``, ``serve --live-obs``),
+    else a 404, as JAX's.  With ``live`` set, ``/healthz`` also carries
+    the per-SLO status and the active alerts.
     Request threads never touch the card: queries run on the replicas'
     dispatcher threads, ingest on the ingest worker.
 
@@ -243,7 +245,7 @@ class RetrievalServer:
                  cfg: ServerConfig = ServerConfig(),
                  preempt: Optional[PreemptionSignal] = None,
                  freshness: Optional[Freshness] = None,
-                 telemetry=None, qtrace=None):
+                 telemetry=None, qtrace=None, live=None):
         engines = (list(engine) if isinstance(engine, (list, tuple))
                    else [engine])
         self.engines: List[QueryEngine] = engines
@@ -252,6 +254,9 @@ class RetrievalServer:
         self.preempt = preempt
         self.freshness = freshness
         self.telemetry = telemetry
+        # The optional LiveObservatory (obs.live): /metrics exposition
+        # and SLO status on /healthz.  None keeps the server as it was.
+        self.live = live
         # The query tracer and the shadow scorer (set after construction,
         # as JAX's): None keeps every stream what it was without them.
         self.qtrace = qtrace
@@ -862,8 +867,13 @@ class RetrievalServer:
         }
 
     def healthz(self) -> Dict[str, Any]:
-        """The /healthz payload: liveness and the summary so far."""
-        return {"ok": True, "draining": self._preempted(), **self.summary()}
+        """The /healthz payload: liveness and the summary so far, with
+        the per-SLO status and the active alerts when a LiveObservatory
+        is attached."""
+        out = {"ok": True, "draining": self._preempted(), **self.summary()}
+        if self.live is not None:
+            out.update(self.live.health())
+        return out
 
     def _preempted(self) -> bool:
         return self.preempt is not None and self.preempt.requested
@@ -1014,9 +1024,20 @@ class RetrievalServer:
                 if self.path == "/healthz":
                     self._send(200, server_ref.healthz())
                 elif self.path == "/metrics":
-                    self._send(404, {
-                        "error": "live observatory not enabled "
-                                 "(serve --live-obs)"})
+                    if server_ref.live is None:
+                        self._send(404, {
+                            "error": "live observatory not enabled "
+                                     "(serve --live-obs)"})
+                        return
+                    from npairloss_tpu_torch.obs.live import prometheus_text
+
+                    body = prometheus_text(server_ref.live.registry).encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "text/plain; version=0.0.4")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
                 else:
                     self._send(404, {"error": "unknown path"})
 

@@ -3,20 +3,23 @@ its entry points refuse to drop to the CPU unasked, and a kernel wrapper
 counts only launches of its kernel.
 
   * the CPU serve path (and with telemetry: shadow scoring and query
-    tracing with ``prof --quality``, the fleet report, the
+    tracing under ``--live-obs`` with ``prof --quality`` and ``watch``,
+    the fleet report, the
     merged traces, ``prof --fleet``, ``timeline``, ``parse``,
     ``device-query`` and ``prof --step serve``), the train CLI (dense and ``--engine
     blockwise``) with one ``googlenet_pallas`` training step on each
     engine, ``train --resume auto`` with snapshots, ``extract`` and
-    ``eval``, ``train --pipeline`` with the divergence guard armed, and
+    ``eval``, ``train --pipeline --live-obs`` with the divergence guard
+    armed, and
     the train CLI on a PPM list file (the Python loader and the native
     runtime) run in subprocesses whose ``import jax`` raises
     (a poisoned ``jax.py`` first on PYTHONPATH, the test_staticcheck
     trick), and ``jax`` never reaches ``sys.modules``;
   * an AST scan of every port module and ``chip_smoke.py`` finds no
     import of ``jax``, ``flax`` or ``npairloss_tpu`` (the ``pipeline/``,
-    ``parallel/`` and ``obs/`` packages — ``obs/quality`` and
-    ``obs/qtrace`` among them — and ``resilience/guard.py`` named among
+    ``parallel/`` and ``obs/`` packages — ``obs/quality``,
+    ``obs/qtrace`` and ``obs/live`` among them — and
+    ``resilience/guard.py`` named among
     the scanned files: the guard and the stdlib-only telemetry modules
     are copies, not imports);
   * entry points called without ``device=`` raise when CUDA is absent,
@@ -93,17 +96,21 @@ RetrievalServer(eng2, cfg=ServerConfig(metrics_window=1),
                 telemetry=tel).run_jsonl(io.StringIO(lines[0] + "\n"),
                                          io.StringIO())
 tel.close()
-# Shadow scoring and query tracing through the CLI, then prof --quality.
+# Shadow scoring and query tracing under the live observatory through
+# the CLI, then prof --quality and watch.
 ix = idx.save("g.gidx")
 args = cli.build_parser().parse_args([
     "serve", "--index", ix, "--index-kind", "ivf", "--probes", "4",
     "--device", "cpu", "--shadow-rate", "1", "--shadow-window", "1",
-    "--qtrace", "--telemetry-dir", "qtel"])
+    "--qtrace", "--telemetry-dir", "qtel", "--live-obs", "--slo-tick",
+    "0.05"])
 srv, _ = cli.build_server(args)
 srv.run_jsonl(io.StringIO(lines[0] + "\n"), io.StringIO())
-srv.shadow.close()
-srv.telemetry.close()
+from npairloss_tpu_torch.obs.live import prometheus_text
+assert "npairloss_serve_rows_total" in prometheus_text(srv.live.registry)
+cli.close_observers(srv)
 assert os.path.exists("qtel/qtrace.json")
+assert os.path.exists("qtel/alerts.jsonl")
 report = build_fleet_report("tel")
 assert validate_fleet_report(report) is None, report
 assert merge_run_traces("tel")[0] and merge_timeline("tel")[0]
@@ -114,6 +121,7 @@ with contextlib.redirect_stdout(io.StringIO()):
                  ["device-query", "--device", "cpu"],
                  ["prof", "--fleet", "tel"], ["timeline", "tel"],
                  ["prof", "--quality", "qtel"], ["timeline", "qtel"],
+                 ["watch", "qtel", "--watchdogs", "serve"],
                  ["prof", "--step", "serve", "--gallery", "64", "--dim", "8",
                   "--device", "cpu", "--out", "prof"]):
         assert cli.main(argv) == 0, argv
@@ -184,14 +192,18 @@ rc = cli.main(["extract", "--solver", solver_path, "--synthetic", "--device",
 assert rc == 0, rc
 rc = cli.main(["eval", "--prefix", work + "/f", "--device", "cpu", "--nmi"])
 assert rc == 0, rc
-# The pipelined loop with the divergence guard armed, on both engines.
+# The pipelined loop with the divergence guard and the live observatory
+# armed, on both engines.
+import os
 for engine in ("dense", "blockwise"):
     rc = cli.main(["train", "--solver", solver_path, "--synthetic",
                    "--device", "cpu", "--max_iter", "4", "--pipeline",
                    "--divergence-patience", "2", "--engine", engine,
                    "--snapshot_prefix", work + "/p_" + engine + "_",
-                   "--compile-cache", work + "/cc"])
+                   "--compile-cache", work + "/cc", "--live-obs",
+                   "--telemetry-dir", work + "/tel_" + engine])
     assert rc == 0, rc
+    assert os.path.exists(work + "/tel_" + engine + "/alerts.jsonl")
 assert not any(k == "jax" or k.startswith(("jax.", "flax", "npairloss_tpu."))
                for k in sys.modules), sorted(sys.modules)
 print("ISOLATED-TRAIN-OK")
@@ -338,6 +350,9 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     "obs/quality/__init__.py", "obs/quality/report.py",
     "obs/quality/shadow.py", "obs/qtrace/__init__.py",
     "obs/qtrace/core.py", "obs/qtrace/report.py",
+    "obs/live/__init__.py", "obs/live/alerts.py", "obs/live/export.py",
+    "obs/live/live.py", "obs/live/registry.py", "obs/live/slo.py",
+    "obs/live/watch.py", "obs/live/watchdogs.py",
 ])
 def test_pipeline_and_guard_modules_are_scanned_and_clean(module):
     path = PORT / module

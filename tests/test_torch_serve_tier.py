@@ -1322,8 +1322,8 @@ def test_serving_flags_match_the_jax_cli(cmd, dest, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["--mesh", "--tenant-config", "--admission",
-                                  "--live-obs", "--slo-tick",
-                                  "--remediate-dry-run", "--slo-config",
+                                  "--admission-slos", "--remediate-dry-run",
+                                  "--remediation-config",
                                   "--watch-snapshots", "--remediate"])
 def test_unported_serve_flags_are_refused(flag, capsys):
     from npairloss_tpu_torch import cli
