@@ -359,7 +359,38 @@ Phases (any failure raises, exits nonzero and prints no result line):
    gone after it, the four training kernels launched, the alert log
    valid and ``watch`` over the run dir giving its transitions; no
    thread of the phase outlives it;
-11. a ``{"kernels": [...]}`` line (launches of the serving kernels from
+11. remediation, under ``build/remediate_smoke/``, in this process (no
+   process is spawned; the card's memory printed at its start), with
+   1 s SLO windows and 3 s cooldowns: (a) ``serve --live-obs --slo-tick
+   0.2 --remediate --remediation-config --telemetry-dir`` at phase 4's
+   configuration (phase 9's committed index, probes 8, the fused probe,
+   2 replicas, ``googlenet_pallas`` at 224²) through
+   ``cli.build_server`` over HTTP: clean single queries leave
+   ``alerts.jsonl`` and ``remediation.jsonl`` empty; one
+   ``serve.compile_storm`` fires ``serve_post_warmup_compile``, the
+   ``rewarm`` attempt re-dispatches every bucket (its probe and stem
+   launches and seconds read with queries held off), later rows carry
+   ``compiles_after_warmup`` 0, the alert resolves and the attempt
+   succeeds; ``serve.queue_stall`` under four clients' bodies of 8 fires
+   ``serve_queue_saturation``, ``load_shed`` engages (``/metrics``
+   ``serve_shedding 1``), queries are refused by the shed, the stall is
+   lifted, the alert resolves, the shed is released (``serve_shedding
+   0``) and the attempt succeeds; the drain invariant with the sheds in
+   ``rejected``; the summary and ``/healthz`` carry ``remediation``;
+   ``remediation.jsonl`` valid against ``alerts.jsonl`` (the port's
+   validator), and ``watch`` reconciling both incidents; (b) the same
+   tier with ``--remediate-dry-run`` under one ``serve.compile_storm``:
+   ``attempted`` records with ``dry_run`` true and no outcome, no
+   re-warm (no stem launch, one probe launch an answer) and
+   ``compiles_after_warmup`` still above 0; (c) ``train --live-obs
+   --health-metrics --remediate`` on the CUB solver cut to 8 iterations
+   with snapshots every 2 and ``train.collapse`` from the third row: the
+   ``embedding_collapse`` alert (4 rows at least) requests a rollback,
+   the log shows "remediation rollback (...): rolled back to iteration
+   k" with k's snapshot committed before the alert fired, the four
+   training kernels launched after it, the audit log valid; no thread
+   of the phase outlives it; the phase's wall time;
+12. a ``{"kernels": [...]}`` line (launches of the serving kernels from
    phase 4, of the training kernels from phase 5, of ``lrn_bwd`` from
    the phase-5b recompute step, of the blockwise kernels from phase
    6b; the five blockwise kernels again as ``<name>:bf16``, their bf16
@@ -369,8 +400,9 @@ Phases (any failure raises, exits nonzero and prints no result line):
    path's cached variants compute no product; phase 7's launches of the
    bf16 five, ``round_bf16`` and the probe as ``launches_phase7``; phase
    8 (a)'s launches of the probe and the three stem kernels as
-   ``launches_phase8``, phase 9 (a)'s as ``launches_phase9``, and phase
-   10's (both parts) as ``launches_phase10``); then
+   ``launches_phase8``, phase 9 (a)'s as ``launches_phase9``, phase
+   10's (both parts) as ``launches_phase10``, and phase 11's (all three
+   parts) as ``launches_phase11``); then
    the card line; then the last line ``{"ok": true, "device": {...}}``.
 
 A phase that raises prints one line naming the phase and the error's
@@ -7596,6 +7628,545 @@ def check_live_observatory(torch, seed, detail):
     return launches
 
 
+# -- phase 11: remediation ----------------------------------------------------
+
+
+REM_WORK = os.path.join("build", "remediate_smoke")
+REM_TICK_S = 0.2
+REM_WINDOW = 4             # answered queries per serve window row
+REM_GAP_S = 0.05           # between single queries
+REM_STALL_THREADS = 4      # clients posting bodies under serve.queue_stall
+REM_STALL_BODY = 8
+REM_QUEUE_TARGET = 4.0
+# One-second SLO windows, so a fixed fault's bad rows leave them within
+# about a second; a cooldown must outlast the action plus that window, or
+# a working action is marked failed before its alert can resolve.
+REM_SLO = {"slos": [
+    {"name": "serve_post_warmup_compile",
+     "metric": "serve_compiles_after_warmup", "op": "<=", "target": 0.0,
+     "window_s": 1.0, "burn_threshold": 0.01, "min_samples": 1,
+     "severity": "warning"},
+    {"name": "serve_queue_saturation", "metric": "serve_queue_depth",
+     "op": "<=", "target": REM_QUEUE_TARGET, "window_s": 1.0,
+     "burn_threshold": 0.5, "min_samples": 1, "severity": "warning"}]}
+REM_POLICIES = {"policies": [
+    {"name": "rewarm", "slo": "serve_post_warmup_compile",
+     "action": "rewarm", "cooldown_s": 3.0, "max_attempts": 2},
+    {"name": "load_shed", "slo": "serve_queue_saturation",
+     "action": "load_shed", "cooldown_s": 3.0, "max_attempts": 2}]}
+# The trainer: the collapse watchdog over 4 rows at least, so it fires
+# after iteration 4's row, with iteration 2's snapshot committed.
+REM_TRAIN_SLO = {"slos": [
+    {"name": "embedding_collapse", "metric": "train_an_threshold_mean",
+     "op": "<=", "target": 0.98, "window_s": 60.0, "burn_threshold": 0.5,
+     "min_samples": 4, "severity": "warning"}]}
+REM_TRAIN_POLICIES = {"policies": [
+    {"name": "trainer_rollback", "slo": "embedding_collapse",
+     "action": "trainer_rollback", "cooldown_s": 30.0, "max_attempts": 1}]}
+
+
+def _rem_logs(tel, what):
+    """(alert records, remediation records) of a run dir, the audit log
+    valid against the alert log by the port's validator."""
+    from npairloss_tpu_torch.obs.live import load_alert_log, validate_alert_log
+    from npairloss_tpu_torch.resilience.remediate import (
+        load_remediation_log,
+        validate_remediation_log,
+    )
+
+    alerts = load_alert_log(os.path.join(tel, "alerts.jsonl"))
+    rem = load_remediation_log(os.path.join(tel, "remediation.jsonl"))
+    err = validate_alert_log(alerts) or validate_remediation_log(
+        rem, alert_records=alerts)
+    if err:
+        fail(f"11{what}: {tel}: {err}")
+    return alerts, rem
+
+
+def _rem_tier(gidx, tel, seed, *extra):
+    """Phase 4's tier (phase 9's committed IVF index, probes 8, the fused
+    probe, 2 replicas, ``googlenet_pallas`` at 224²) under ``serve
+    --live-obs --remediate`` through ``cli.build_server``, with a gated
+    ``rewarm``: (server, gate, calls) — a query taken under ``gate``
+    never overlaps a re-warm, so the re-warm's own launches and seconds
+    are read exactly."""
+    import threading
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.ops import _build
+
+    slo = os.path.join(REM_WORK, "slo.json")
+    rem = os.path.join(REM_WORK, "remediation.json")
+    args = cli.build_parser().parse_args([
+        "serve", "--index", gidx, "--index-kind", "ivf", "--probes", "8",
+        "--probe-impl", "fused", "--top-k", "10", "--buckets", "1,8,32",
+        "--replicas", "2", "--model", "googlenet_pallas", "--input-size",
+        "224", "--metrics-window", str(REM_WINDOW), "--poll-s", "0.01",
+        "--seed", str(seed), "--telemetry-dir", tel, "--live-obs",
+        "--slo-config", slo, "--slo-tick", str(REM_TICK_S),
+        "--remediation-config", rem, *extra])
+    t0 = time.perf_counter()
+    server, _ = cli.build_server(args)
+    build_s = time.perf_counter() - t0
+    if server.remediation is None or server.admission is None:
+        fail(f"11: build_server armed remediation {server.remediation}, "
+             f"admission {server.admission}")
+    gate = threading.Lock()
+    calls = []
+    real = server.rewarm
+
+    def rewarm():
+        import torch
+
+        with gate:
+            torch.cuda.synchronize()
+            before = _build.launch_counts()
+            t = time.perf_counter()
+            out = real()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            after = _build.launch_counts()
+        calls.append({"wall_s": wall, "warmup_s": out["warmup_s"],
+                      "launches": {k: after.get(k, 0) - before.get(k, 0)
+                                   for k in SERVE_KERNELS}})
+        return out
+
+    server.rewarm = rewarm  # the action looks it up at call time
+    return server, gate, calls, build_s
+
+
+def _rem_query(port, rec, what, shed_ok=False):
+    code, out, _ = _http_call(port, "POST", "/query", json.dumps(rec))
+    if code != 200:
+        fail(f"11{what}: query {rec.get('id')} answered {code}")
+    if "neighbors" in out:
+        return True
+    if shed_ok and "load shed" in str(out.get("error", "")):
+        return False
+    fail(f"11{what}: query {rec.get('id')} failed: {str(out)[:300]}")
+
+
+def _rem_serve(torch, seed, emb, gidx, card):
+    """11 (a): the re-warm and the load shed under ``serve --remediate``;
+    returns (summary, launches)."""
+    import threading
+
+    import numpy as np
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.resilience import failpoints
+
+    tel = os.path.join(REM_WORK, "serve")
+    server, gate, calls, build_s = _rem_tier(gidx, tel, seed, "--remediate")
+    live, remediation = server.live, server.remediation
+    alerts_path = os.path.join(tel, "alerts.jsonl")
+    rem_path = os.path.join(tel, "remediation.jsonl")
+    rng = np.random.default_rng(seed + 11)
+    rows = iter(rng.permutation(emb.shape[0]).tolist())
+    th, port, res = _http_server(server)
+    sent = [0]
+
+    def single(prefix):
+        with gate:
+            _rem_query(port, {"id": f"{prefix}{sent[0]}",
+                              "embedding": emb[next(rows)].tolist()}, "a")
+            sent[0] += 1
+        time.sleep(REM_GAP_S)
+
+    def outcome(policy):
+        return remediation.last_by_policy().get(policy, {}).get("outcome")
+
+    def until(cond, what, seconds=30.0, fn=None):
+        deadline = time.perf_counter() + seconds
+        while not cond():
+            if time.perf_counter() > deadline:
+                fail(f"11a: {what} within {seconds} s; alerts "
+                     f"{[(e['slo'], e['state']) for e in live.alerts.history]}"
+                     f", remediation {remediation.last_by_policy()}")
+            if fn is not None:
+                fn()
+            else:
+                time.sleep(0.05)
+
+    out = {"build_s": build_s}
+    try:
+        for _ in range(8):
+            single("w")
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        for _ in range(16):
+            single("c")
+        time.sleep(2 * REM_TICK_S)
+        if open(alerts_path).read() or open(rem_path).read():
+            fail("11a: clean single queries left alerts.jsonl or "
+                 "remediation.jsonl non-empty")
+        # The compile storm: one phantom post-warmup compile, then clean
+        # queries until the re-warm's attempt has succeeded (its alert
+        # resolved on the explicit zeros).
+        t_storm = time.perf_counter()
+        failpoints.arm("serve.compile_storm", times=1)
+        until(lambda: outcome("rewarm") == "succeeded",
+              "the rewarm attempt did not succeed",
+              fn=lambda: single("s"))
+        out["storm_s"] = time.perf_counter() - t_storm
+        if len(calls) != 1:
+            fail(f"11a: {len(calls)} re-warms, want 1")
+        # Queue saturation: serve.queue_stall on every dispatch while
+        # clients post bodies, until load_shed engages; the stall is then
+        # lifted and the clients go on until the attempt has succeeded.
+        stop = threading.Event()
+        tally = {"answered": 0, "shed": 0}
+        lock = threading.Lock()
+
+        def client(k):
+            n = 0
+            while not stop.is_set():
+                body = "\n".join(json.dumps(
+                    {"id": f"q{k}_{n}_{j}",
+                     "embedding": emb[(k * 997 + n * 31 + j)
+                                      % emb.shape[0]].tolist()})
+                    for j in range(REM_STALL_BODY))
+                code, ans, _ = _http_call(port, "POST", "/query", body)
+                n += 1
+                if code != 200 or not isinstance(ans, list):
+                    tally["bad"] = f"{code} {str(ans)[:200]}"
+                    return
+                with lock:
+                    for a in ans:
+                        if "neighbors" in a:
+                            tally["answered"] += 1
+                        elif "load shed" in str(a.get("error", "")):
+                            tally["shed"] += 1
+                        else:
+                            tally["bad"] = str(a)[:200]
+
+        t_stall = time.perf_counter()
+        failpoints.arm("serve.queue_stall", times=None)
+        clients = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(REM_STALL_THREADS)]
+        for c in clients:
+            c.start()
+        try:
+            until(lambda: server.admission.forced,
+                  "load_shed did not engage")
+            out["engage_s"] = time.perf_counter() - t_stall
+            code, text = _scrape(port, "/metrics")
+            out["shedding_scrape"] = [ln for ln in text.splitlines()
+                                      if ln.startswith("npairloss_serve_shed")]
+            failpoints.disarm("serve.queue_stall")
+            until(lambda: outcome("load_shed") == "succeeded",
+                  "the load_shed attempt did not succeed")
+        finally:
+            failpoints.disarm("serve.queue_stall")
+            stop.set()
+            for c in clients:
+                c.join(timeout=120)
+        if "bad" in tally or any(c.is_alive() for c in clients):
+            fail(f"11a: a client under the stall: {tally}")
+        code2, text2 = _scrape(port, "/metrics")
+        out["released_scrape"] = [ln for ln in text2.splitlines()
+                                  if ln.startswith("npairloss_serve_shed")]
+        hcode, health = _scrape(port, "/healthz")
+        health = json.loads(health)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+    finally:
+        failpoints.disarm("serve.compile_storm")
+        server.preempt.request()
+        th.join(timeout=120)
+        cli.close_observers(server)
+    if th.is_alive() or res.get("rc") != 75:
+        fail(f"11a: the server did not drain: {res}")
+    if live._thread is not None:
+        fail("11a: the evaluator thread outlived close")
+    if "npairloss_serve_shedding 1" not in out["shedding_scrape"] or \
+            "npairloss_serve_shedding 0" not in out["released_scrape"]:
+        fail(f"11a: /metrics shedding {out['shedding_scrape']} then "
+             f"{out['released_scrape']}")
+    if tally["shed"] < 1:
+        fail(f"11a: the load shed refused no query: {tally}")
+    s = server.summary()
+    if s["queries"] != s["answered"] + (s["errors"] - s["errors_refused"]) \
+            + s["rejected"] or s.get("shed", 0) != tally["shed"] \
+            or s["rejected"] < s["shed"]:
+        fail(f"11a: the drain invariant: {json.dumps(s)[:600]}")
+    if set(s.get("remediation", {})) != {"rewarm", "load_shed"} or \
+            hcode != 200 or set(health.get("remediation", {})) != {
+                "rewarm", "load_shed"}:
+        fail(f"11a: remediation block: summary {s.get('remediation')}, "
+             f"/healthz {health.get('remediation')}")
+    alerts, rem = _rem_logs(tel, "a")
+    if [(r["slo"], r["state"]) for r in alerts] != [
+            ("serve_post_warmup_compile", "firing"),
+            ("serve_post_warmup_compile", "resolved"),
+            ("serve_queue_saturation", "firing"),
+            ("serve_queue_saturation", "resolved")]:
+        fail(f"11a: alerts {[(r['slo'], r['state']) for r in alerts]}")
+    if [(r["policy"], r["state"]) for r in rem] != [
+            ("rewarm", "attempted"), ("rewarm", "succeeded"),
+            ("load_shed", "attempted"), ("load_shed", "succeeded")]:
+        fail(f"11a: remediation {[(r['policy'], r['state']) for r in rem]}")
+    rw = calls[0]
+    for name in SERVE_KERNELS:
+        if rw["launches"].get(name, 0) < 1:
+            fail(f"11a: the re-warm launched no {name}: {rw['launches']}")
+    rows_ = [json.loads(ln) for ln in open(os.path.join(tel, "metrics.jsonl"))]
+    compiles = [r.get("compiles_after_warmup") for r in rows_
+                if "p99_ms" in r and "event" not in r]
+    first = next((i for i, c in enumerate(compiles) if c), None)
+    if first is None or 0 not in compiles[first:] or \
+            any(c is None for c in compiles[compiles.index(0, first):]):
+        fail(f"11a: the rows' compiles_after_warmup {compiles}")
+    replay, wsum = _live_watch(tel, "--slo-config",
+                               os.path.join(REM_WORK, "slo.json"))
+    rec = wsum.get("remediation", {})
+    if not rec.get("valid") or len(rec.get("matched", [])) != 2:
+        fail(f"11a: watch's reconciliation {rec}")
+    out.update(
+        launches={k: launches.get(k, 0) for k in SERVE_KERNELS},
+        rewarm=rw, alerts=[(r["slo"], r["state"], r.get("duration_s"))
+                           for r in alerts],
+        remediation=[(r["policy"], r["state"], r.get("duration_s"),
+                      r.get("detail")) for r in rem],
+        tally=tally, shed=s["shed"], rejected=s["rejected"],
+        queries=s["queries"], answered=s["answered"],
+        watch=rec, rows_compiles=compiles)
+    log(f"[11a] serve --live-obs --remediate --slo-tick {REM_TICK_S} at phase "
+        f"4's config over HTTP, 2 replicas (built {build_s:.1f} s): "
+        f"{sent[0]} single queries; serve.compile_storm x1: "
+        f"{alerts[0]['slo']} fired and resolved after "
+        f"{alerts[1]['duration_s']} s, the rewarm attempt succeeded "
+        f"(re-warm {rw['wall_s']:.3f} s, its launches "
+        f"{json.dumps(rw['launches'])}), later rows carry "
+        f"compiles_after_warmup 0; serve.queue_stall under "
+        f"{REM_STALL_THREADS} clients' bodies of {REM_STALL_BODY}: "
+        f"load_shed engaged after {out['engage_s']:.2f} s, "
+        f"{alerts[2]['slo']} resolved after {alerts[3]['duration_s']} s, "
+        f"{tally['shed']} queries shed and {tally['answered']} answered, "
+        f"/metrics {out['shedding_scrape']} then {out['released_scrape']}; "
+        f"drain: {s['queries']} queries = {s['answered']} answered + "
+        f"{s['rejected']} rejected; watch matched {rec.get('matched')}; "
+        f"launches {json.dumps(out['launches'])} ({card})")
+    return out, launches
+
+
+def _rem_dry_run(torch, seed, emb, gidx, card):
+    """11 (b): the same tier under ``--remediate-dry-run`` and one
+    ``serve.compile_storm``; returns (summary, launches)."""
+    import numpy as np
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.resilience import failpoints
+
+    tel = os.path.join(REM_WORK, "dry_run")
+    server, gate, calls, build_s = _rem_tier(gidx, tel, seed,
+                                             "--remediate-dry-run")
+    remediation = server.remediation
+    rng = np.random.default_rng(seed + 12)
+    rows = iter(rng.permutation(emb.shape[0]).tolist())
+    th, port, res = _http_server(server)
+    sent = [0]
+
+    def single(prefix):
+        _rem_query(port, {"id": f"{prefix}{sent[0]}",
+                          "embedding": emb[next(rows)].tolist()}, "b")
+        sent[0] += 1
+        time.sleep(REM_GAP_S)
+
+    try:
+        for _ in range(8):
+            single("w")
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        answered0 = server.answered
+        failpoints.arm("serve.compile_storm", times=1)
+        deadline = time.perf_counter() + 30.0
+        while not remediation.history:
+            if time.perf_counter() > deadline:
+                fail("11b: no dry-run attempt within 30 s")
+            single("d")
+        # A cooldown's worth more: a rehearsal never acts.
+        t_more = time.perf_counter() + 1.0
+        while time.perf_counter() < t_more:
+            single("d")
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        answered = server.answered - answered0
+        compiles = server._compiles_after_warmup()
+    finally:
+        failpoints.disarm("serve.compile_storm")
+        server.preempt.request()
+        th.join(timeout=120)
+        cli.close_observers(server)
+    if th.is_alive() or res.get("rc") != 75:
+        fail(f"11b: the server did not drain: {res}")
+    alerts, rem = _rem_logs(tel, "b")
+    if not rem or any(r["state"] != "attempted" or r["dry_run"] is not True
+                      or r["policy"] != "rewarm" for r in rem):
+        fail(f"11b: remediation.jsonl {rem}")
+    stem = {k: launches.get(k, 0) for k in SERVE_KERNELS
+            if k != "probe_topk"}
+    if calls or server._explicit_compile_key or compiles < 1 or \
+            any(stem.values()) or launches.get("probe_topk", 0) != answered:
+        fail(f"11b: the dry run acted: {len(calls)} re-warms, "
+             f"compiles_after_warmup {compiles}, stem launches {stem}, "
+             f"probe launches {launches.get('probe_topk')} for {answered} "
+             f"answers")
+    out = {"build_s": build_s, "attempts": len(rem),
+           "compiles_after_warmup": compiles, "answered": answered,
+           "launches": {k: launches.get(k, 0) for k in SERVE_KERNELS},
+           "alerts": [(r["slo"], r["state"]) for r in alerts]}
+    log(f"[11b] serve --remediate-dry-run, serve.compile_storm x1: "
+        f"{len(rem)} attempted record(s), dry_run true, no outcome; no "
+        f"re-warm (stem launches {json.dumps(stem)}, probe launches "
+        f"{launches.get('probe_topk')} = {answered} answers); "
+        f"compiles_after_warmup {compiles} ({card})")
+    return out, launches
+
+
+def _rem_train(torch, seed, card):
+    """11 (c): ``train --live-obs --health-metrics --remediate`` on the CUB
+    solver cut to 8 iterations with snapshots every 2; returns (summary,
+    launches)."""
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.resilience import failpoints
+    from npairloss_tpu_torch.resilience.snapshot import snapshot_info
+    from npairloss_tpu_torch.train import solver as tsolver
+
+    work = os.path.join(REM_WORK, "train")
+    solver = cut_solver(work, name="rem_solver.prototxt", max_iter=8,
+                        test_iter=1, snapshot=2)
+    tel = os.path.join(work, "tel")
+    slo = os.path.join(work, "slo.json")
+    rem = os.path.join(work, "remediation.json")
+    with open(slo, "w") as f:
+        json.dump(REM_TRAIN_SLO, f)
+    with open(rem, "w") as f:
+        json.dump(REM_TRAIN_POLICIES, f)
+    at_rollback = {}
+    real = tsolver.Solver._handle_requested_rollback
+
+    def handle(self, *a, **kw):
+        resumed = real(self, *a, **kw)
+        torch.cuda.synchronize()
+        at_rollback.update(launches=_build.launch_counts(), to=resumed)
+        return resumed
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    # The collapse from the third row on, whatever the trunk's own rows
+    # say: iteration 2's snapshot is committed before a fourth row exists.
+    failpoints.arm("train.collapse", times=None, delay=2)
+    tsolver.Solver._handle_requested_rollback = handle
+    t0 = time.perf_counter()
+    try:
+        rc, lines = _cli(["train", "--solver", solver, "--net",
+                          "examples/googlenet_cub.prototxt", "--model",
+                          "googlenet_pallas", "--synthetic", "--seed",
+                          str(seed), "--health-metrics", "--snapshot_prefix",
+                          os.path.join(work, "snap", "m_"),
+                          "--telemetry-dir", tel, "--live-obs",
+                          "--slo-config", slo, "--slo-tick", "0.05",
+                          "--remediate", "--remediation-config", rem])
+        torch.cuda.synchronize()
+    finally:
+        tsolver.Solver._handle_requested_rollback = real
+        failpoints.disarm("train.collapse")
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    if rc != 0:
+        fail(f"11c: train --remediate returned {rc}: {lines[-3:]}")
+    done = [ln for ln in lines if ln.startswith("remediation rollback (")
+            and "rolled back to iteration " in ln]
+    if len(done) != 1 or at_rollback.get("to") is None:
+        fail(f"11c: rollback lines {done}, handler {at_rollback.get('to')}")
+    k = int(done[0].split("rolled back to iteration ")[1].split()[0])
+    alerts, recs = _rem_logs(tel, "c")
+    fired = next((r for r in alerts if r["slo"] == "embedding_collapse"
+                  and r["state"] == "firing"), None)
+    if fired is None or not recs or recs[0]["alert_id"] != fired["alert_id"]:
+        fail(f"11c: alerts {alerts}, remediation {recs}")
+    snap = os.path.join(work, "snap", f"m_iter_{k}.ckpt")
+    created = snapshot_info(snap)["created"]
+    if k != at_rollback["to"] or created is None or \
+            not created < fired["fired_at"]:
+        fail(f"11c: rolled back to {k} ({snap} created {created}), the "
+             f"alert fired at {fired['fired_at']}")
+    after = {name: launches.get(name, 0) - at_rollback["launches"].get(name, 0)
+             for name in ("lrn_fwd_cached", "lrn_bwd_cached",
+                          "fused_bias_relu", "fused_bias_relu_pool")}
+    if min(after.values()) < 1:
+        fail(f"11c: training kernels after the rollback {after}")
+    rows = [json.loads(ln) for ln in open(os.path.join(tel, "metrics.jsonl"))]
+    natural = [r.get("an_threshold_mean") for r in rows
+               if r.get("phase") == "train" and "loss" in r][:2]
+    out = {"to_iteration": k, "snapshot_created": created,
+           "fired_at": fired["fired_at"], "alert_id": fired["alert_id"],
+           "natural_an_threshold_mean": natural, "after_rollback": after,
+           "remediation": [(r["policy"], r["state"]) for r in recs],
+           "launches": {name: launches.get(name, 0) for name in (
+               "lrn_fwd_cached", "lrn_bwd_cached", "fused_bias_relu",
+               "fused_bias_relu_pool", "lrn_fwd")},
+           "wall_s": wall}
+    log(f"[11c] train --live-obs --health-metrics --remediate on the CUB "
+        f"solver cut to 8 iterations (snapshot 2; googlenet_pallas fp32, "
+        f"batch 120, 224²): embedding_collapse fired (rows 1-2's own "
+        f"an_threshold_mean {natural}), {done[0]!r}; iteration {k}'s "
+        f"snapshot committed {fired['fired_at'] - created:.3f} s before "
+        f"the firing; kernels after the rollback {json.dumps(after)}; "
+        f"{wall:.1f} s ({card})")
+    return out, launches
+
+
+def check_remediation(torch, seed, detail):
+    """Phase 11 (see the module docstring): (a) ``serve --remediate``, (b)
+    ``serve --remediate-dry-run``, (c) ``train --remediate``, in this
+    process; returns the launches of the three parts, summed."""
+    import shutil
+    import threading
+
+    card = detail["card"]
+    t_start = time.perf_counter()
+    log(f"[11] this process's card memory at the start: allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, free "
+        f"{torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB")
+    before = {t.ident for t in threading.enumerate()}
+    work = os.path.abspath(REM_WORK)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with open(os.path.join(work, "slo.json"), "w") as f:
+        json.dump(REM_SLO, f)
+    with open(os.path.join(work, "remediation.json"), "w") as f:
+        json.dump(REM_POLICIES, f)
+    gidx = os.path.abspath(os.path.join(QUALITY_WORK, "g.gidx"))
+    if not os.path.exists(gidx):
+        fail(f"11: phase 9's index {gidx} is missing")
+    emb, _ = synthetic_gallery(seed)
+    parts, launches = {}, {}
+    for name, fn in (("serve", _rem_serve), ("dry_run", _rem_dry_run)):
+        parts[name], got = fn(torch, seed, emb, gidx, card)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        _release(torch)
+    del emb
+    parts["train"], got = _rem_train(torch, seed, card)
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    time.sleep(0.5)
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in before and t.is_alive()]
+    if left:
+        fail(f"11: threads outlived the phase: {left}")
+    parts["wall_s"] = time.perf_counter() - t_start
+    detail["remediation"] = parts
+    log(f"[11] remediation: {parts['wall_s']:.1f} s ({card})")
+    _release(torch)
+    return launches
+
+
 def _release(torch):
     """Return the card's cached memory between phases.  cuBLAS keeps a
     workspace for every stream it ran on (32 MiB each on this card),
@@ -7727,6 +8298,8 @@ def main() -> int:
     _release(torch)
     phase("10 (live observatory)")
     p10_launches = check_live_observatory(torch, args.seed, detail)
+    phase("11 (remediation)")
+    p11_launches = check_remediation(torch, args.seed, detail)
     phase("the kernels line")
 
     def entry(name, source, replaces, rows, counter, path=None):
@@ -7857,6 +8430,10 @@ def main() -> int:
                    "ivf_probe": "probe_topk"}.get(k["name"], k["name"])
         if p10_launches.get(counter, 0):
             k["launches_phase10"] = p10_launches[counter]
+        # Phase 11: (a) serve --remediate with its re-warm, (b) the dry
+        # run, (c) train --remediate with its rollback.
+        if p11_launches.get(counter, 0):
+            k["launches_phase11"] = p11_launches[counter]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         fail(f"kernels not launched on their path: {idle}")

@@ -35,7 +35,11 @@ is here (GoogLeNet, Inception-BN, the ResNets, ViT-B/16, the MLP).
            ``--live-obs`` evaluates SLOs (``--slo-config``, else the serve
            watchdogs; every ``--slo-tick`` s) over the run's rows into
            ``alerts.jsonl``, with ``GET /metrics`` and the SLO status on
-           ``/healthz``.
+           ``/healthz``; ``--admission slo`` sheds queries while a watched
+           SLO burns (``--admission-slos``), and ``--remediate`` acts on
+           the alerts (re-warm on a post-warmup compile storm, load shed
+           on queue saturation; ``--remediation-config``,
+           ``--remediate-dry-run``) into ``remediation.jsonl``.
            SIGTERM/SIGINT: every admitted query is answered, a final
            checkpoint is written, the shadow queue is scored, exit 75;
   train:   the Caffe solver loop from a solver prototxt on the net's list
@@ -73,7 +77,9 @@ is here (GoogLeNet, Inception-BN, the ResNets, ViT-B/16, the MLP).
            ``--live-obs`` evaluates the train watchdogs (or
            ``--slo-config``) over the run's rows into ``alerts.jsonl``,
            and ``--metrics-port P`` serves ``/metrics`` and ``/healthz``
-           on localhost while it trains;
+           on localhost while it trains; ``--remediate`` rolls the
+           trainer back to a snapshot committed before an embedding-
+           collapse alert fired (``remediation.jsonl``);
   test:    the TEST phase from a snapshot or weights (``caffe test``);
   extract: eval-mode embeddings of a phase's batches to
            ``OUT.emb.npy`` + ``OUT.labels.npy``;
@@ -304,6 +310,14 @@ def build_server(args):
         log.error("--qtrace needs --telemetry-dir (the exemplar artifact "
                   "qtrace.json lands there)")
         return 2
+    if args.admission != "off" and not args.live_obs:
+        log.error("--admission %s needs --live-obs (admission is driven by "
+                  "the SLO burn-rate engine)", args.admission)
+        return 2
+    policies = _remediation_policies(
+        args, "serve", lambda pols: _serve_actions(args, pols))
+    if isinstance(policies, int):
+        return policies
     specs = _live_specs(args, "serve",
                         max_queue=args.max_queue * args.replicas)
     if isinstance(specs, int):
@@ -403,6 +417,13 @@ def build_server(args):
     # Replicas share the primary's index tensors, model and kernels.
     engines = [engine] + [QueryEngine(index, cfg, share_compiled_with=engine)
                           for _ in range(args.replicas - 1)]
+    admission = None
+    if args.admission == "slo":
+        from npairloss_tpu_torch.serve.admission import controller_from_args
+
+        admission = controller_from_args(args.admission_slos,
+                                         registry=live.registry)
+        live.add_listener(admission.on_statuses)
     qtracer = None
     if args.qtrace:
         from npairloss_tpu_torch.obs.qtrace import QTraceConfig, QueryTracer
@@ -433,7 +454,8 @@ def build_server(args):
         freshness=Freshness.collect(index=index, index_path=index_path,
                                     weights_path=args.weights,
                                     snapshot_path=args.snapshot),
-        telemetry=telemetry, qtrace=qtracer, live=live)
+        telemetry=telemetry, qtrace=qtracer, live=live, admission=admission,
+        input_shape=input_shape)
     if args.shadow_rate > 0:
         server.shadow = _shadow_scorer(args, server, index_path, telemetry)
     if wal is not None:
@@ -442,6 +464,8 @@ def build_server(args):
             checkpoint_every=args.wal_checkpoint_every,
             watermark=max(base_watermark, wal.last_seq),
             checkpoint_watermark=base_watermark, recovery=recovery)
+    if policies is not None:
+        _arm_serve_remediation(args, server, live, policies)
     if live is not None:
         live.add_probe(lambda: _serve_probe(live, server, wal))
         # Started after warmup: the first windows reflect serving, not
@@ -470,6 +494,98 @@ def _live_specs(args, kind: str, max_queue: int = 256):
     except (OSError, ValueError) as e:
         log.error("--slo-config refused: %s", e)
         return 2
+
+
+def _serve_actions(args, policies):
+    """The remediation actions ``serve`` registers: ``rewarm`` always,
+    ``load_shed`` with an admission controller to engage (``--admission
+    slo``, or the forced-only one a ``load_shed`` policy brings), as
+    JAX's CLI.  Snapshot hot-swap and probe escalation build a second
+    engine tier and are not ported (ROADMAP Queue 1, item 9's
+    remainder)."""
+    actions = {"rewarm"}
+    if args.admission == "slo" or any(p.action == "load_shed"
+                                      for p in policies):
+        actions.add("load_shed")
+    return actions
+
+
+def _remediation_policies(args, kind: str, actions_for):
+    """``--remediate``'s policy table, checked before anything is built:
+    ``--remediation-config`` (parsed whenever given, exit 2 when
+    refused), else the shipped ``kind`` table filtered to the actions
+    this invocation registers (``actions_for(policies)``), as JAX's CLI
+    filters its default.  An explicit table is never filtered: a policy
+    whose action has no actuator exits 2 with the engine's message.
+    ``--remediate-dry-run`` implies ``--remediate``; both need
+    ``--live-obs``.  None without ``--remediate``."""
+    from npairloss_tpu_torch.resilience.remediate import (
+        RemediationEngine,
+        default_policies,
+        load_policies,
+    )
+
+    policies = None
+    if args.remediation_config:
+        try:
+            policies = load_policies(args.remediation_config)
+        except (OSError, ValueError) as e:
+            log.error("--remediation-config %s: %s",
+                      args.remediation_config, e)
+            return 2
+    if args.remediate_dry_run:
+        args.remediate = True  # a dry-run IS a remediation run
+    if not args.remediate:
+        return None
+    if not args.live_obs:
+        log.error("--remediate needs --live-obs (remediation is driven by "
+                  "the alert engine)")
+        return 2
+    if policies is None:
+        policies = default_policies(kind)
+        actions = actions_for(policies)
+        policies = [p for p in policies if p.action in actions]
+    else:
+        actions = actions_for(policies)
+    try:
+        RemediationEngine(policies, dict.fromkeys(actions, lambda a: None))
+    except ValueError as e:
+        log.error("--remediation-config %s: %s", args.remediation_config, e)
+        return 2
+    return policies
+
+
+def _arm_serve_remediation(args, server, live, policies) -> None:
+    """Bind the live alerts to the tier's actuators, audited to
+    ``remediation.jsonl`` in the telemetry dir: ``rewarm`` re-dispatches
+    every bucket (on the evaluator thread, through the primary engine's
+    stream), ``load_shed`` engages the admission controller until the
+    alert resolves — a forced-only one (no burn listener) when
+    ``--admission`` is off."""
+    from npairloss_tpu_torch.resilience.remediate import RemediationEngine
+
+    actions = {"rewarm": lambda alert: server.rewarm()}
+    if "load_shed" in _serve_actions(args, policies):
+        if server.admission is None:
+            from npairloss_tpu_torch.serve.admission import (
+                AdmissionConfig,
+                AdmissionController,
+            )
+
+            server.admission = AdmissionController(AdmissionConfig(),
+                                                   registry=live.registry)
+        actions["load_shed"] = (server.admission.engage,
+                                server.admission.release)
+    remediation = RemediationEngine(
+        policies, actions,
+        log_path=os.path.join(args.telemetry_dir, "remediation.jsonl"),
+        dry_run=args.remediate_dry_run)
+    server.remediation = remediation
+    live.set_remediation(remediation)
+    log.info("remediation armed: %s%s",
+             ", ".join(f"{p.name}({p.slo}->{p.action})" for p in policies)
+             or "no policies",
+             " [DRY-RUN]" if remediation.dry_run else "")
 
 
 def _serve_probe(live, server, wal) -> None:
@@ -593,12 +709,14 @@ def _serve_telemetry(args, index_path: str, buckets, live=None):
             "scoring": args.scoring,
             "probe_impl": args.probe_impl,
             "replicas": args.replicas,
+            "admission": args.admission,
             "top_k": args.top_k,
             "buckets": list(buckets),
             "deadline_ms": args.deadline_ms,
             "max_queue": args.max_queue,
             "live_obs": live is not None,
             "slo_config": args.slo_config,
+            "remediate": bool(args.remediate),
         })
     return telemetry
 
@@ -951,15 +1069,20 @@ def cmd_train(args) -> int:
         log.error("--metrics-port needs --live-obs (there is no metric "
                   "registry to export without it)")
         return 2
+    policies = _remediation_policies(args, "train",
+                                     lambda pols: {"trainer_rollback"})
+    if isinstance(policies, int):
+        return policies
     specs = _live_specs(args, "train")
     if isinstance(specs, int):
         return specs
-    return _in_process_group(args, lambda a: _train(a, specs))
+    return _in_process_group(args, lambda a: _train(a, specs, policies))
 
 
-def _train(args, specs=None) -> int:
+def _train(args, specs=None, policies=None) -> int:
     """The ``train`` command's body; ``specs`` are ``--live-obs``'s SLOs
-    (None: no live observatory)."""
+    (None: no live observatory), ``policies`` ``--remediate``'s table
+    (None: no remediation)."""
     from npairloss_tpu_torch.resilience import (
         EXIT_PREEMPTED,
         DivergenceConfig,
@@ -1047,6 +1170,8 @@ def _train(args, specs=None) -> int:
 
             live = LiveObservatory(specs, out_dir=args.telemetry_dir)
             live.add_probe(lambda: _snapshot_age_probe(live, solver))
+            if policies is not None:
+                _arm_train_remediation(args, solver, live, policies)
         telemetry = _open_telemetry(args, solver, net_cfg, live)
         # Over a mesh rank 0 alone writes the records: every rank's
         # reported values are the same means.
@@ -1128,6 +1253,32 @@ def _train(args, specs=None) -> int:
         return EXIT_PREEMPTED
     print(json.dumps({k: float(v) for k, v in final.items()}))
     return 0
+
+
+def _arm_train_remediation(args, solver, live, policies) -> None:
+    """Alert→actuation for training: a health-signal alert (embedding
+    collapse) requests a rollback to a snapshot committed before the
+    alert fired, which the train loop takes at its next safe point
+    (``Solver.request_rollback``), audited to ``remediation.jsonl``.
+    Over a mesh of several processes the request is refused by name and
+    the attempt is recorded as failed."""
+    from npairloss_tpu_torch.resilience.guard import RollbackRequest
+    from npairloss_tpu_torch.resilience.remediate import RemediationEngine
+
+    def rollback(alert):
+        solver.request_rollback(RollbackRequest(
+            reason=f"{alert.get('slo')} alert {alert.get('alert_id')}",
+            before_wall_time=alert.get("fired_at")))
+        return {"requested": True}
+
+    remediation = RemediationEngine(
+        policies, {"trainer_rollback": rollback},
+        log_path=os.path.join(args.telemetry_dir, "remediation.jsonl"),
+        dry_run=args.remediate_dry_run)
+    live.set_remediation(remediation)
+    log.info("remediation armed: %s%s",
+             ", ".join(f"{p.name}({p.slo}->{p.action})" for p in policies),
+             " [DRY-RUN]" if remediation.dry_run else "")
 
 
 def _snapshot_age_probe(live, solver) -> None:
@@ -2156,6 +2307,15 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--replicas", type=int, default=1,
                     help="engine replicas behind the front end, each with "
                     "its own batcher, dispatcher thread and CUDA stream")
+    sv.add_argument(
+        "--admission", choices=["off", "slo"], default="off",
+        help="admission control: 'slo' sheds load (fast-reject, counted "
+        "in rejected) while a watched SLO burns and admits again on "
+        "clear; needs --live-obs")
+    sv.add_argument(
+        "--admission-slos", dest="admission_slos", metavar="NAMES",
+        help="comma-separated SLO names driving admission (default "
+        "serve_p99,serve_queue_saturation)")
     sv.add_argument("--top-k", dest="top_k", type=int, default=10)
     sv.add_argument("--buckets", default="1,8,32")
     sv.add_argument("--gallery-block", dest="gallery_block", type=int,
@@ -2247,6 +2407,19 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument(
         "--slo-tick", dest="slo_tick", type=float, default=1.0, metavar="S",
         help="live-obs evaluation period in seconds (default 1.0)")
+    sv.add_argument(
+        "--remediate", action="store_true",
+        help="alert→actuation: bind the live alerts to guarded actions — "
+        "load-shed on queue saturation, re-warm on a post-warmup compile "
+        "storm — audited to remediation.jsonl; needs --live-obs")
+    sv.add_argument(
+        "--remediation-config", dest="remediation_config", metavar="PATH",
+        help="remediation policy table (JSON; default: the shipped serve "
+        "policies filtered to the actions this invocation can perform)")
+    sv.add_argument(
+        "--remediate-dry-run", dest="remediate_dry_run", action="store_true",
+        help="log every remediation the policies WOULD run (budgets "
+        "included) without acting — implies --remediate")
     sv.add_argument("--wal-checkpoint-every", dest="wal_checkpoint_every",
                     type=int, default=8, metavar="N",
                     help="publish an index checkpoint every N ingest "
@@ -2485,6 +2658,20 @@ def build_parser() -> argparse.ArgumentParser:
         "--metrics-port", dest="metrics_port", type=int, metavar="PORT",
         help="with --live-obs: serve Prometheus /metrics (and /healthz "
         "with SLO status) on this localhost port (0 = off)")
+    tr.add_argument(
+        "--remediate", action="store_true",
+        help="alert→actuation: a health-signal alert (embedding collapse) "
+        "requests a rollback to a pre-incident snapshot, executed at the "
+        "loop's next safe point and audited to "
+        "<telemetry-dir>/remediation.jsonl; needs --live-obs")
+    tr.add_argument(
+        "--remediation-config", dest="remediation_config", metavar="PATH",
+        help="remediation policy table (JSON; default: the shipped train "
+        "policies)")
+    tr.add_argument(
+        "--remediate-dry-run", dest="remediate_dry_run", action="store_true",
+        help="log every remediation the policies WOULD run without acting "
+        "— implies --remediate")
     tr.set_defaults(fn=cmd_train)
 
     tt = sub.add_parser("test", help="TEST phase only from a snapshot "

@@ -62,6 +62,11 @@ class LiveObservatory:
                                   clock=clock)
         self.probes: List[Callable[[], None]] = []
         self.listeners: List[Callable[[List[Any]], None]] = []
+        # Optional RemediationEngine (resilience/remediate.py): ticked
+        # AFTER the alert update with the SAME now, so actuation and
+        # the pager can never disagree about the alert state.  Duck-
+        # typed on purpose — this package stays stdlib-only/jax-free.
+        self.remediation = None
         self._clock = clock
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -78,6 +83,13 @@ class LiveObservatory:
         never disagree about the burn state).  A listener raising is
         logged, never fatal."""
         self.listeners.append(fn)
+
+    def set_remediation(self, engine) -> None:
+        """Attach the alert→actuation engine: its ``tick(active, now)``
+        runs after every alert update (actions run on the evaluator
+        thread — a slow action pauses evaluation, bounded by the action
+        itself), and ``stop()`` closes its audit log."""
+        self.remediation = engine
 
     # -- evaluation --------------------------------------------------------
 
@@ -99,6 +111,11 @@ class LiveObservatory:
                 fn(statuses)
             except Exception as e:  # noqa: BLE001 — actuation best-effort
                 log.error("live-obs listener failed: %s", e)
+        if self.remediation is not None:
+            try:
+                self.remediation.tick(self.alerts.active(), now)
+            except Exception as e:  # noqa: BLE001 — must not kill the tick
+                log.error("remediation tick failed: %s", e)
         return events
 
     def health(self) -> Dict[str, Any]:
@@ -139,3 +156,8 @@ class LiveObservatory:
             except Exception as e:  # noqa: BLE001
                 log.error("live-obs final tick failed: %s", e)
         self.alerts.close()
+        if self.remediation is not None:
+            try:
+                self.remediation.close()
+            except Exception as e:  # noqa: BLE001
+                log.error("remediation close failed: %s", e)

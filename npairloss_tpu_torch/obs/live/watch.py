@@ -17,9 +17,7 @@ sees the interleaved frontier.  Torn tail lines (a rank mid-write) are
 skipped, never fatal — the fleet aggregator's contract.
 
 Device-free: watch must run on the box where the artifacts are,
-whether or not a card is there.  The port has
-no remediation engine yet, so a run dir's ``remediation.jsonl`` is not
-read here; :func:`reconcile_remediation` is kept for when it comes.
+whether or not a card is there.
 """
 
 from __future__ import annotations
@@ -34,6 +32,7 @@ from npairloss_tpu_torch.obs.live.live import LiveObservatory
 from npairloss_tpu_torch.obs.live.slo import SLOSpec
 
 WATCH_ALERTS_FILENAME = "alerts.watch.jsonl"
+REMEDIATION_FILENAME = "remediation.jsonl"
 QUALITY_FILENAME = "quality.jsonl"
 
 
@@ -208,6 +207,23 @@ def watch_run_dir(
         drain_once()
     obs.alerts.close()
     active = obs.alerts.active()
+    remediation: Optional[Dict[str, Any]] = None
+    rem_path = os.path.join(run_dir, REMEDIATION_FILENAME)
+    if os.path.exists(rem_path):
+        # The run remediated: validate its audit log and reconcile it
+        # against the alert lifecycle the replay just reproduced — a
+        # resolved alert with no action and an action with no
+        # resolution are both reported.
+        from npairloss_tpu_torch.resilience import remediate as rem
+
+        rem_records = rem.load_remediation_log(rem_path)
+        err = rem.validate_remediation_log(rem_records)
+        remediation = {
+            "log": rem_path,
+            "valid": err is None,
+            **({"error": err} if err else {}),
+            **reconcile_remediation(rem_records, events),
+        }
     quality: Optional[Dict[str, Any]] = None
     q_path = os.path.join(run_dir, QUALITY_FILENAME)
     if os.path.exists(q_path):
@@ -239,7 +255,10 @@ def watch_run_dir(
         # empty window and print every SLO as ok right next to an
         # active alert in the same summary.
         "slo": obs.evaluator.status_dict(last_t[0]),
-        # The quality view only when the run shadow-scored (the
-        # absent-key contract: no log, no block).
+        # Remediation reconciliation only when the run remediated, and
+        # the quality view only when it shadow-scored (the absent-key
+        # contract: no log, no block).
+        **({"remediation": remediation}
+           if remediation is not None else {}),
         **({"quality": quality} if quality is not None else {}),
     }

@@ -55,9 +55,9 @@ def serve_queue_saturation(max_queue: int = 256,
 
 def post_warmup_compile(window_s: float = 3600.0) -> SLOSpec:
     """ANY post-warmup compile in the serving hot path is an SLO burn
-    (a window row that carries ``compiles_after_warmup`` > 0).  The
-    port builds its kernels before warmup and its window rows carry no
-    such key, so this watchdog sees no sample and stays ok; the spec
+    (the window row carries ``compiles_after_warmup`` only when > 0, and
+    at 0 too after a re-warm).  The port's "compile" is a dispatch
+    signature first met after warmup (``serve/engine.py``); the spec
     matches the JAX package's so one SLO config serves both."""
     return SLOSpec(
         name="serve_post_warmup_compile",

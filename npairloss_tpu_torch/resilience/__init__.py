@@ -15,9 +15,12 @@
     non-finite losses -> rollback to a valid snapshot, or halt) and the
     externally requested rollback;
   * ``resilience.wal`` — the ``npairloss-wal-v1`` write-ahead log behind
-    durable ingest (the JAX package's files byte for byte).
+    durable ingest (the JAX package's files byte for byte);
+  * ``resilience.remediate`` — alert→actuation policies and the
+    ``npairloss-remediation-v1`` audit log (a copy of the JAX module).
 
-Remediation is ROADMAP Queue 1 item 9's remainder.
+The actuators that build a second engine tier (snapshot hot-swap, probe
+escalation) are ROADMAP Queue 1 item 9's remainder.
 """
 
 from npairloss_tpu_torch.resilience import failpoints
@@ -33,6 +36,12 @@ from npairloss_tpu_torch.resilience.preempt import (
     EXIT_PREEMPTED,
     PreemptionSignal,
     TrainingPreempted,
+)
+from npairloss_tpu_torch.resilience.remediate import (
+    RemediationEngine,
+    RemediationPolicy,
+    load_remediation_log,
+    validate_remediation_log,
 )
 from npairloss_tpu_torch.resilience.retrying import (
     RetryPolicy,
@@ -60,6 +69,8 @@ __all__ = [
     "EXIT_PREEMPTED",
     "InjectedFault",
     "PreemptionSignal",
+    "RemediationEngine",
+    "RemediationPolicy",
     "RetryPolicy",
     "RollbackRequest",
     "SnapshotError",
@@ -70,10 +81,12 @@ __all__ = [
     "failpoints",
     "gc_snapshots",
     "list_snapshots",
+    "load_remediation_log",
     "quarantine_snapshots",
     "read_manifest",
     "snapshot_info",
     "state_checksums",
+    "validate_remediation_log",
     "validate_snapshot",
     "verify_restored",
 ]

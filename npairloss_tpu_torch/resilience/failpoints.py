@@ -29,9 +29,9 @@ the five ``snapshot.*`` seams (``resilience/snapshot.py``,
 (``serve/index.py``), the three ``wal.*`` seams (``resilience/wal.py``),
 ``serve.latency``, ``serve.queue_stall`` and ``serve.replica_crash``
 (``serve/server.py``, ``serve/batcher.py``) and ``serve.recall_drop``
-(``serve/engine.py``); ``serve.stale_model`` and
-``serve.compile_storm`` arrive with the live observatory and hot-swap
-that read them.
+(``serve/engine.py``), and ``serve.compile_storm`` (``serve/engine.py``'s
+compile accounting); ``serve.stale_model`` arrives with the hot-swap that
+reads it.
 
   ==========================  =============================================
   ``snapshot.save.io``        transient OSError inside the snapshot write

@@ -12,21 +12,28 @@ paths, chosen by the index kind and ``EngineConfig.probe_impl``:
 
 Every top-k keeps ``lax.top_k``'s rule that the lowest index wins a tie
 (``torch.topk`` promises no order, so merges use a stable descending
-sort), so answers match the JAX engine row for row.  PyTorch runs
-eagerly: there are no compiled programs to count, and the summary keeps
-no compile counters.
+sort), so answers match the JAX engine row for row.
+
+Compile accounting, as JAX's (``compiles_total``,
+``compiles_after_warmup``, ``warmed``, :meth:`compile_stats`).  PyTorch
+runs eagerly and has no executables to count, so the port's "compile" is
+a dispatch signature first met by the tier: a new IVF layout after an
+ingest, an unwarmed input shape (new kernels' first launches, cuDNN's
+algorithm search).  Replicas share the primary's signature set, so a
+replica's first dispatch of a warmed bucket is no compile.  A compile
+after warmup also counts in ``compiles_after_warmup`` (the window rows'
+key the post-warmup-compile watchdog reads) and, with telemetry, marks a
+``serve/recompile`` instant.  The ``serve.compile_storm`` failpoint
+counts a phantom one on a warmed engine.  :meth:`rewarm` re-dispatches
+every bucket and resets ``compiles_after_warmup`` when it succeeds.
 
 With ``telemetry`` (a ``RunTelemetry``; replicas share the primary's)
 every dispatch is spanned as in JAX: ``serve/topk`` and ``serve/encode``
 (``batch``, ``bucket``) around the device work AND the copy of its
 results to the host — the engine already makes that copy, so a span
-closes when the work is done and adds no sync — ``serve/warmup``
-(``bucket``, ``kind``) around each warm-up dispatch, and a
-``serve/recompile`` instant when a dispatch after warmup meets a shape
-no dispatch has met (a new IVF layout after an ingest, an unwarmed input
-shape: new kernels' first launches, cuDNN's algorithm search), the
-port's counterpart of a post-warmup XLA compile.  Without telemetry the
-engine records nothing.
+closes when the work is done and adds no sync — and ``serve/warmup``
+(``bucket``, ``kind``) around each warm-up dispatch.  Without telemetry
+the engine records no spans.
 
 ``query(..., stages={})`` fills a per-call accumulator for the query
 tracer (``obs/qtrace``): ``score_us`` from the dispatch's launch
@@ -244,16 +251,21 @@ class QueryEngine:
         self.warmed = (share_compiled_with.warmed
                        if share_compiled_with is not None else False)
         self.dispatches = 0  # guarded-by: _count_lock
+        self.compiles_total = 0  # guarded-by: _count_lock
+        self.compiles_after_warmup = 0  # guarded-by: _count_lock
         self._count_lock = threading.Lock()
-        # Spans (telemetry only) and the shapes dispatched so far, shared
-        # with the primary, so a replica's first dispatch of a warmed
-        # bucket is not a new shape.
+        # Spans (telemetry only) and the signatures dispatched so far,
+        # shared with the primary (with the lock that guards them), so a
+        # replica's first dispatch of a warmed bucket is not a new one.
         if telemetry is None and share_compiled_with is not None:
             telemetry = share_compiled_with.telemetry
         self.telemetry = telemetry
-        self._seen_sigs: set = (share_compiled_with._seen_sigs
-                                if share_compiled_with is not None
-                                else set())  # guarded-by: _count_lock
+        if share_compiled_with is not None:
+            self._seen_sigs = share_compiled_with._seen_sigs
+            self._sig_lock = share_compiled_with._sig_lock
+        else:
+            self._seen_sigs: set = set()  # guarded-by: _sig_lock
+            self._sig_lock = threading.Lock()
         # A replica dispatches on a stream of its own, so replicas'
         # batches overlap on the card; a primary keeps the current one
         # (in turns with it, one engine on its own stream ran 0-14 %
@@ -270,18 +282,29 @@ class QueryEngine:
             return contextlib.nullcontext()
         return self.telemetry.span(name, **args)
 
-    def _note_shape(self, sig: tuple) -> None:
-        """Record a dispatch's shape (telemetry only); a shape first met
-        after warmup is marked ``serve/recompile``."""
-        if self.telemetry is None:
-            return
-        with self._count_lock:
+    def _count_compiles(self, sig: tuple) -> None:
+        """JAX's ``_count_compiles`` for the port: a signature first met
+        by the tier counts in ``compiles_total``, and after warmup in
+        ``compiles_after_warmup`` with a ``serve/recompile`` instant.
+        ``serve.compile_storm`` counts a PHANTOM post-warmup compile so
+        the re-warm remediation is drivable; the order matters, as in
+        JAX: an unwarmed (re-warming) engine never consumes an armed
+        fire."""
+        with self._sig_lock:
             fresh = sig not in self._seen_sigs
             self._seen_sigs.add(sig)
-        if fresh and self.warmed:
+        storm = self.warmed and failpoints.should_fire("serve.compile_storm")
+        if not (fresh or storm):
+            return
+        with self._count_lock:
+            self.compiles_total += 1
+            if not self.warmed:
+                return
+            self.compiles_after_warmup += 1
+        if self.telemetry is not None:
             self.telemetry.instant("serve/recompile", sig=str(sig))
-            log.warning("serve: post-warmup dispatch of a new shape "
-                        "(sig=%s)", sig)
+        log.warning("serve: post-warmup dispatch of a new signature "
+                    "(sig=%s)", sig)
 
     def _on_stream(self):
         """This engine's CUDA stream as the current one (no-op on the
@@ -316,7 +339,7 @@ class QueryEngine:
             emb = l2_normalize(self.model(torch.as_tensor(
                 x, device=self.device)))
             out = emb[:n].cpu().numpy()
-        self._note_shape(("encode", tuple(x.shape)))
+        self._count_compiles(("encode", tuple(x.shape)))
         return out
 
     # -- query -------------------------------------------------------------
@@ -400,8 +423,7 @@ class QueryEngine:
                 scores, rows, held = self._topk(q_dev)
             scores = scores[:n].cpu().numpy()
             rows = rows[:n].cpu().numpy()
-        if self.telemetry is not None:
-            self._note_shape(self._topk_sig(bucket, held))
+        self._count_compiles(self._topk_sig(bucket, held))
         del held  # the results are on the host: the generation may go
         with self._count_lock:
             self.dispatches += 1
@@ -447,6 +469,37 @@ class QueryEngine:
         log.info("serve warmup: %d bucket(s) in %.2fs",
                  len(self.cfg.buckets), dt)
         return dt
+
+    def rewarm(self, input_shape: Optional[Sequence[int]] = None) -> float:
+        """Re-prime every padding bucket and RESET the post-warmup
+        compile counter — the compile-storm remediation action, as JAX's.
+        The re-warm dispatches run with ``warmed`` cleared, so whatever
+        they meet counts as warmup, and ``compiles_after_warmup``
+        restarts at zero so the post-warmup-compile watchdog can observe
+        recovery.  They take this engine's stream, as its serving
+        dispatches do, and each reads the published index layout once.
+        Returns wall seconds.
+
+        A re-warm that RAISES resets nothing: ``warmed`` is restored so
+        accounting stays armed, and the storm evidence in
+        ``compiles_after_warmup`` survives for the alert that triggered
+        the failed remediation."""
+        self.warmed = False
+        try:
+            dt = self.warmup(input_shape)  # sets warmed=True on success
+        except BaseException:
+            self.warmed = True
+            raise
+        with self._count_lock:
+            self.compiles_after_warmup = 0
+        return dt
+
+    def compile_stats(self) -> Dict[str, object]:
+        """JAX's counters (there is no executable cache to size)."""
+        with self._count_lock:
+            return {"warmed": self.warmed,
+                    "compiles_total": self.compiles_total,
+                    "compiles_after_warmup": self.compiles_after_warmup}
 
     def stats(self) -> Dict[str, object]:
         return {"warmed": self.warmed, "dispatches": self.dispatches,

@@ -53,6 +53,15 @@ counts records refused before admission (bad JSON), which are errors
 but never queries; ``queries_dropped`` is the residual, present when
 nonzero or with ``explicit_drops``.
 
+Admission control (``admission``: a ``serve.admission.
+AdmissionController``, ``serve --admission slo`` or the forced-only one
+that ``--remediate``'s ``load_shed`` engages): a shed query is refused
+with :class:`QueueFullError` before the batcher and counted in
+``rejected``; window rows gain ``shed`` and the summary ``shed`` and
+``shedding``.  :meth:`RetrievalServer.rewarm` is the re-warm action; the
+summary and ``/healthz`` carry the attached remediation engine's last
+action per policy (``remediation``).
+
 Telemetry (``telemetry``: a ``RunTelemetry``, ``serve --telemetry-dir``
 or ``--trace-dir``), as in JAX: ``serve/admit`` around each admission on
 the submitting thread, ``serve/batch`` (the coalescing wait) and
@@ -245,7 +254,8 @@ class RetrievalServer:
                  cfg: ServerConfig = ServerConfig(),
                  preempt: Optional[PreemptionSignal] = None,
                  freshness: Optional[Freshness] = None,
-                 telemetry=None, qtrace=None, live=None):
+                 telemetry=None, qtrace=None, live=None, admission=None,
+                 input_shape=None):
         engines = (list(engine) if isinstance(engine, (list, tuple))
                    else [engine])
         self.engines: List[QueryEngine] = engines
@@ -261,6 +271,20 @@ class RetrievalServer:
         # as JAX's): None keeps every stream what it was without them.
         self.qtrace = qtrace
         self.shadow = None
+        # SLO-burn-driven admission control (serve/admission.py): when
+        # set, submits consult it BEFORE routing; a shed is a fast-reject
+        # counted in ``rejected``.
+        self.admission = admission
+        # The raw-input shape encode-path re-warms need (None: embedding
+        # queries only), and the optional RemediationEngine whose last
+        # action per policy the summary and /healthz carry.
+        self.input_shape = (tuple(input_shape)
+                            if input_shape is not None else None)
+        self.remediation = None
+        # Set by a re-warm: from then on the window rows carry
+        # compiles_after_warmup even at zero, so the watchdog sees the
+        # recovery (a clean run keeps the key absent at zero).
+        self._explicit_compile_key = False
         self.replicaset = ReplicaSet(
             engines, batcher_cfg, self._replica_dispatch,
             span_fn=self._span, on_batch=self._record_batch,
@@ -534,14 +558,19 @@ class RetrievalServer:
 
     def submit(self, record: Dict[str, Any]):
         """Admit one record; returns (future, t_submit).  Raises
-        :class:`QueueFullError` on backpressure or a whole-tier loss
-        (counted in rejected)."""
+        :class:`QueueFullError` on backpressure, a whole-tier loss or an
+        admission shed (all counted in rejected)."""
         qt = (record.get("_qt")
               if self.qtrace is not None and isinstance(record, dict)
               else None)
         with self._span("serve/admit"):
             with self._lock:
                 self.queries += 1
+            if self.admission is not None and \
+                    not self.admission.admit(trace=qt):
+                raise QueueFullError(
+                    "load shed: SLO burning (admission control); retry "
+                    "after backoff")
             if qt is not None:
                 # admit_wait closes BEFORE the enqueue: the queue put is
                 # the only ordering edge between this thread and picked.
@@ -579,7 +608,7 @@ class RetrievalServer:
                **{k: round(v, 3) for k, v in self._percentiles(lat).items()},
                "queue_depth": self.replicaset.queue_depth,
                "batches": self.replicaset.batches,
-               "rejected": self.replicaset.rejected,
+               "rejected": self._rejected_total(),
                **self._window_latency_split(),
                # This window's dominant stage among its worst queries
                # (absent with qtrace off).
@@ -589,6 +618,19 @@ class RetrievalServer:
                   for k, v in self._last_batch.items()}}
         if len(self.engines) > 1:
             row["replicas_alive"] = self.replicaset.alive_count
+        compiles = self._compiles_after_warmup()
+        if compiles or self._explicit_compile_key:
+            # Present only when > 0 (clean streams stay what they were),
+            # or at 0 too after a re-warm: the live-obs post-warmup-
+            # compile watchdog reads exactly this key, and absent at 0
+            # would starve it of the good samples a resolve needs.
+            row["compiles_after_warmup"] = compiles
+        if self.admission is not None and self.admission.sheds:
+            # Last: the registry sink maps it to gauge ``serve_shed``,
+            # the name the controller's shed counter already holds, and
+            # stops the row there (JAX's row puts it before the compile
+            # key, which the watchdog then never sees once a shed ran).
+            row["shed"] = self.admission.sheds
         if self.telemetry is not None and self.telemetry.metrics_enabled:
             try:
                 self.telemetry.log("serve", self.answered, row)
@@ -827,7 +869,38 @@ class RetrievalServer:
         accounts for (refusals before admission excluded)."""
         return (self.queries - self.answered
                 - (self.errors - self.errors_refused)
-                - self.replicaset.rejected)
+                - self._rejected_total())
+
+    def _rejected_total(self) -> int:
+        """Every rejection source, once each: batcher backpressure, a
+        whole-tier loss and admission sheds — the ``rejected`` term of
+        the drain invariant."""
+        total = self.replicaset.rejected
+        if self.admission is not None:
+            total += self.admission.sheds
+        return total
+
+    def _compiles_after_warmup(self) -> int:
+        # Replicas share one signature set, so the sum never counts a
+        # signature twice.
+        return sum(e.compiles_after_warmup for e in self.engines)
+
+    # -- remediation actuators ---------------------------------------------
+
+    def rewarm(self) -> Dict[str, Any]:
+        """Re-warm every padding bucket and reset the tier's post-warmup
+        compile counters — the compile-storm remediation action, as
+        JAX's.  The primary re-dispatches (its stream, the layout read
+        once a dispatch); replicas share its signatures and only reset
+        their counters.  From here on the window rows carry an EXPLICIT
+        ``compiles_after_warmup`` (including 0) so the watchdog sees
+        recovery."""
+        dt = self.engine.rewarm(self.input_shape)
+        for e in self.engines[1:]:
+            with e._count_lock:
+                e.compiles_after_warmup = 0
+        self._explicit_compile_key = True
+        return {"warmup_s": round(dt, 3)}
 
     def summary(self) -> Dict[str, Any]:
         dropped = self._queries_dropped()
@@ -838,16 +911,24 @@ class RetrievalServer:
             "answered": self.answered,
             "errors": self.errors,
             "errors_refused": self.errors_refused,
-            "rejected": self.replicaset.rejected,
+            "rejected": self._rejected_total(),
             **({"queries_dropped": dropped}
                if (dropped or self.cfg.explicit_drops) else {}),
             "batches": self.replicaset.batches,
             **({"replicas": len(self.engines),
                 "replicas_alive": self.replicaset.alive_count}
                if len(self.engines) > 1 else {}),
+            **({"shed": self.admission.sheds,
+                "shedding": (self.admission.shedding
+                             or self.admission.forced)}
+               if self.admission is not None else {}),
             "device": str(self.engine.device),
             **(self.freshness.identity() if self.freshness else {}),
             **(self.freshness.ages() if self.freshness else {}),
+            # The last remediation per policy (key absent = the policy
+            # never fired; block absent = no engine attached).
+            **({"remediation": self.remediation.last_by_policy()}
+               if self.remediation is not None else {}),
             **({"ingest": self.ingest_stats()}
                if self.wal is not None else {}),
             # The online recall estimate and the per-stage p99 budget:
@@ -871,6 +952,8 @@ class RetrievalServer:
         the per-SLO status and the active alerts when a LiveObservatory
         is attached."""
         out = {"ok": True, "draining": self._preempted(), **self.summary()}
+        if self.admission is not None:
+            out["admission"] = self.admission.stats()
         if self.live is not None:
             out.update(self.live.health())
         return out

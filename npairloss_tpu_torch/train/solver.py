@@ -86,8 +86,9 @@ instants with the priced bytes.  With ``utils.debug``'s switch on
 metric scalars on the host, as the JAX step does; the pipelined loop
 does not call it, as JAX's does not.
 
-Not yet ported (later slices, ROADMAP Queue 1): the WAL and remediation
-engine (items 9 and 12).
+:meth:`Solver.request_rollback` is the actuator of ``train --remediate``
+(``resilience/remediate.py``): the live observatory's evaluator thread
+asks, and the loop restores at its next safe point.
 """
 
 from __future__ import annotations

@@ -3,14 +3,15 @@ its entry points refuse to drop to the CPU unasked, and a kernel wrapper
 counts only launches of its kernel.
 
   * the CPU serve path (and with telemetry: shadow scoring and query
-    tracing under ``--live-obs`` with ``prof --quality`` and ``watch``,
+    tracing under ``--live-obs`` with admission, remediation and a
+    re-warm, ``prof --quality`` and ``watch``,
     the fleet report, the
     merged traces, ``prof --fleet``, ``timeline``, ``parse``,
     ``device-query`` and ``prof --step serve``), the train CLI (dense and ``--engine
     blockwise``) with one ``googlenet_pallas`` training step on each
     engine, ``train --resume auto`` with snapshots, ``extract`` and
-    ``eval``, ``train --pipeline --live-obs`` with the divergence guard
-    armed, and
+    ``eval``, ``train --pipeline --live-obs --remediate`` with the
+    divergence guard armed, and
     the train CLI on a PPM list file (the Python loader and the native
     runtime) run in subprocesses whose ``import jax`` raises
     (a poisoned ``jax.py`` first on PYTHONPATH, the test_staticcheck
@@ -19,7 +20,8 @@ counts only launches of its kernel.
     import of ``jax``, ``flax`` or ``npairloss_tpu`` (the ``pipeline/``,
     ``parallel/`` and ``obs/`` packages — ``obs/quality``,
     ``obs/qtrace`` and ``obs/live`` among them — and
-    ``resilience/guard.py`` named among
+    ``resilience/guard.py``, ``resilience/remediate.py`` and
+    ``serve/admission.py`` named among
     the scanned files: the guard and the stdlib-only telemetry modules
     are copies, not imports);
   * entry points called without ``device=`` raise when CUDA is absent,
@@ -103,14 +105,17 @@ args = cli.build_parser().parse_args([
     "serve", "--index", ix, "--index-kind", "ivf", "--probes", "4",
     "--device", "cpu", "--shadow-rate", "1", "--shadow-window", "1",
     "--qtrace", "--telemetry-dir", "qtel", "--live-obs", "--slo-tick",
-    "0.05"])
+    "0.05", "--admission", "slo", "--remediate"])
 srv, _ = cli.build_server(args)
+assert srv.admission is not None and srv.remediation is not None
 srv.run_jsonl(io.StringIO(lines[0] + "\n"), io.StringIO())
+assert srv.rewarm()["warmup_s"] >= 0.0
 from npairloss_tpu_torch.obs.live import prometheus_text
 assert "npairloss_serve_rows_total" in prometheus_text(srv.live.registry)
 cli.close_observers(srv)
 assert os.path.exists("qtel/qtrace.json")
 assert os.path.exists("qtel/alerts.jsonl")
+assert os.path.exists("qtel/remediation.jsonl")
 report = build_fleet_report("tel")
 assert validate_fleet_report(report) is None, report
 assert merge_run_traces("tel")[0] and merge_timeline("tel")[0]
@@ -201,9 +206,10 @@ for engine in ("dense", "blockwise"):
                    "--divergence-patience", "2", "--engine", engine,
                    "--snapshot_prefix", work + "/p_" + engine + "_",
                    "--compile-cache", work + "/cc", "--live-obs",
-                   "--telemetry-dir", work + "/tel_" + engine])
+                   "--remediate", "--telemetry-dir", work + "/tel_" + engine])
     assert rc == 0, rc
     assert os.path.exists(work + "/tel_" + engine + "/alerts.jsonl")
+    assert os.path.exists(work + "/tel_" + engine + "/remediation.jsonl")
 assert not any(k == "jax" or k.startswith(("jax.", "flax", "npairloss_tpu."))
                for k in sys.modules), sorted(sys.modules)
 print("ISOLATED-TRAIN-OK")
@@ -353,6 +359,7 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     "obs/live/__init__.py", "obs/live/alerts.py", "obs/live/export.py",
     "obs/live/live.py", "obs/live/registry.py", "obs/live/slo.py",
     "obs/live/watch.py", "obs/live/watchdogs.py",
+    "resilience/remediate.py", "serve/admission.py",
 ])
 def test_pipeline_and_guard_modules_are_scanned_and_clean(module):
     path = PORT / module

@@ -1303,9 +1303,13 @@ SERVE_FLAGS = ("http", "replicas", "index_prefix", "snapshot", "model",
                "ivf_clusters", "metrics_window", "poll_s", "no_warmup",
                "explicit_drops", "wal_dir", "wal_flush_ms",
                "wal_checkpoint_every", "shadow_rate", "shadow_window",
-               "shadow_seed", "qtrace", "qtrace_exemplars", "qtrace_slo_ms")
+               "shadow_seed", "qtrace", "qtrace_exemplars", "qtrace_slo_ms",
+               "admission", "admission_slos", "remediate",
+               "remediate_dry_run", "remediation_config")
+TRAIN_FLAGS = ("remediate", "remediate_dry_run", "remediation_config")
 NEW_FLAGS = ([("index", d) for d in INDEX_FLAGS]
-             + [("serve", d) for d in SERVE_FLAGS])
+             + [("serve", d) for d in SERVE_FLAGS]
+             + [("train", d) for d in TRAIN_FLAGS])
 
 
 @pytest.mark.parametrize("cmd,dest", NEW_FLAGS,
@@ -1321,10 +1325,8 @@ def test_serving_flags_match_the_jax_cli(cmd, dest, monkeypatch):
     assert mine.type == theirs.type
 
 
-@pytest.mark.parametrize("flag", ["--mesh", "--tenant-config", "--admission",
-                                  "--admission-slos", "--remediate-dry-run",
-                                  "--remediation-config",
-                                  "--watch-snapshots", "--remediate"])
+@pytest.mark.parametrize("flag", ["--mesh", "--tenant-config",
+                                  "--watch-snapshots"])
 def test_unported_serve_flags_are_refused(flag, capsys):
     from npairloss_tpu_torch import cli
 
