@@ -390,7 +390,37 @@ Phases (any failure raises, exits nonzero and prints no result line):
    k" with k's snapshot committed before the alert fired, the four
    training kernels launched after it, the audit log valid; no thread
    of the phase outlives it; the phase's wall time;
-12. a ``{"kernels": [...]}`` line (launches of the serving kernels from
+12. hot-swap and probe escalation, under ``build/hotswap_smoke/``, in this
+   process (no process is spawned): (a) this process's card memory at
+   phase 11's end and after ``_release``, by pool and stream from
+   ``torch.cuda.memory_snapshot()``, the bytes a second tier needs (the
+   IVF layout, the trunk, a bucket-32 warm-up's conv1 output, the flat
+   index and the shadow oracle's rebuild), and a hard check that three
+   times that is free (the pools printed if it is not); then ``serve --index-prefix --snapshot <iter 3>
+   --watch-snapshots --live-obs --remediate --qtrace --shadow-rate
+   0.25`` at phase 4's configuration (phase 9's IVF commit, probes 8, the
+   fused probe, 2 replicas, ``googlenet_pallas`` at 224², a 50 ms
+   deadline), 1 s SLO windows and 3 s cooldowns: (b) under 8 clients
+   (one posting raw images), a newer snapshot and ``serve.stale_model``:
+   ``model_staleness`` fires, ``hotswap_model`` swaps the model, the
+   alert resolves; no client error, every gallery row its own top-1,
+   ``model_age_s`` drops at the flip; phase 4's 38-query body equals a
+   server built fresh on the newer snapshot bit for bit; (c) under the
+   clients again, a newer flat commit with 64 more rows: the swap
+   clusters it into 246 (``index_transform``), the new rows answer with
+   themselves, ``/healthz`` ``hot_swaps`` 2, no post-warmup compile,
+   p50/p99 before, during the warm-ups and after; (d) a torn step 9 is
+   skipped for step 8, then nothing newer is a ``failed`` attempt with
+   ``NothingNewerError``'s text; (e) ``serve.recall_drop`` fires the
+   recall floor and ``probe_escalation`` widens 8 to 16 probes, then
+   ``ProbeEscalator.escalate`` walks 32, 64, 128, 246, the flat fallback
+   and exhaustion; at each IVF rung the probe kernel against its plain
+   version in fp32/bf16/int8 at B = 32, timed beside its bound with each
+   probed cluster read once; the flat rung's answers equal the exact
+   oracle; the drain invariant, 9 hot swaps and 9 ``hotswap_flip``
+   markers, both logs valid, the four serving kernels launched; no thread
+   of the phase outlives it;
+13. a ``{"kernels": [...]}`` line (launches of the serving kernels from
    phase 4, of the training kernels from phase 5, of ``lrn_bwd`` from
    the phase-5b recompute step, of the blockwise kernels from phase
    6b; the five blockwise kernels again as ``<name>:bf16``, their bf16
@@ -401,8 +431,9 @@ Phases (any failure raises, exits nonzero and prints no result line):
    bf16 five, ``round_bf16`` and the probe as ``launches_phase7``; phase
    8 (a)'s launches of the probe and the three stem kernels as
    ``launches_phase8``, phase 9 (a)'s as ``launches_phase9``, phase
-   10's (both parts) as ``launches_phase10``, and phase 11's (all three
-   parts) as ``launches_phase11``); then
+   10's (both parts) as ``launches_phase10``, phase 11's (all three
+   parts) as ``launches_phase11``, and phase 12's serving path as
+   ``launches_phase12``); then
    the card line; then the last line ``{"ok": true, "device": {...}}``.
 
 A phase that raises prints one line naming the phase and the error's
@@ -4645,9 +4676,14 @@ def check_pipeline_list_files(torch, seed, net_path, card):
 def check_pipeline_refusals(torch, card):
     """No fallback: a step that cannot be captured (a host read inside
     it) raises ``PipelineCaptureError`` after the warm-up steps and never
-    runs eagerly in the graph's place; a staging-thread error surfaces
+    runs eagerly in the graph's place, and hands its graph pool back (a
+    block freed afterwards leaves with ``empty_cache``); an error raised
+    inside a capture that stays valid leaves the pool to its graph, which
+    releases it once when freed; a staging-thread error surfaces
     from the loop as ``PrefetchStageError`` with its batch index.  A
     small mlp on the card; run last, after every other phase."""
+    import gc
+
     from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
     from npairloss_tpu_torch.models import get_model
     from npairloss_tpu_torch.pipeline import PrefetchStageError
@@ -4688,7 +4724,49 @@ def check_pipeline_refusals(torch, card):
     if st["eager_steps"] != PIPELINE_WARMUP_STEPS or st["replays"] \
             or s.iteration != PIPELINE_WARMUP_STEPS:
         fail(f"the refused capture ran steps anyway: {st}")
-    torch.cuda.synchronize()
+
+    def pool_handed_back(what):
+        # empty_cache returns a block freed on a fresh stream (it
+        # returned none while the caching allocator still counted a
+        # capture under way, and every later phase's cache then stayed
+        # reserved).
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        with torch.cuda.stream(torch.cuda.Stream()):
+            block = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+            block.fill_(1)
+        del block
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        if torch.cuda.memory_reserved() > r0:
+            fail(f"after {what} empty_cache keeps "
+                 f"{torch.cuda.memory_reserved() - r0} bytes of a freed "
+                 f"block")
+
+    pool_handed_back("the refused capture")
+    # An error raised inside a capture that stays valid: PyTorch ends the
+    # capture, the graph owns its pool and releases it once, when freed
+    # (a second release would abort the process here).
+    s = solver()
+    orig = s.compute_loss
+
+    def raising(emb, labels):
+        out = orig(emb, labels)
+        if torch.cuda.is_current_stream_capturing():
+            raise ValueError("raised inside the capture")
+        return out
+
+    s.compute_loss = raising
+    try:
+        s.train(batches(), num_iters=6, log_fn=lambda m: None)
+        fail("an error inside the capture was not raised")
+    except PipelineCaptureError as e:
+        if "ValueError: raised inside the capture" not in str(e):
+            fail(f"the capture error does not name the ValueError: {e}")
+    del s, orig, raising
+    gc.collect()
+    pool_handed_back("an error inside a valid capture")
     s = solver()
     failpoints.reset()
     failpoints.arm("pipeline.stage", times=1, delay=4)
@@ -4703,7 +4781,10 @@ def check_pipeline_refusals(torch, card):
         failpoints.reset()
     torch.cuda.synchronize()
     log(f"[5h refusals] a host read in the step: PipelineCaptureError "
-        f"after {PIPELINE_WARMUP_STEPS} warm-up steps, no replay ({msg}); "
+        f"after {PIPELINE_WARMUP_STEPS} warm-up steps, no replay ({msg}), "
+        f"its pool handed back (empty_cache returns a freed 256 MiB "
+        f"block); a ValueError inside a valid capture: "
+        f"PipelineCaptureError, its graph freed, the pool handed back; "
         f"pipeline.stage at batch 4: PrefetchStageError(batch_index=4) "
         f"at iteration 4 ({card})")
     return {"capture_error": msg}
@@ -8167,6 +8248,670 @@ def check_remediation(torch, seed, detail):
     return launches
 
 
+# -- phase 12: hot-swap and probe escalation ----------------------------------
+
+
+HS_WORK = os.path.join("build", "hotswap_smoke")
+HS_TICK_S = 0.2
+HS_CLIENTS = 8
+HS_DEADLINE_MS = 50.0
+HS_NEW_ROWS = 64           # rows the newer index commit adds
+HS_DROP_QUERIES = 16       # sampled single queries under serve.recall_drop
+HS_RUNG_QUERIES = 32       # the probe kernel's bucket at each rung
+# One-second windows and 3 s cooldowns, as phase 11's: a fault's one bad
+# sample fires its alert and leaves the window a second later.
+HS_SLO = {"slos": [
+    {"name": "model_staleness", "metric": "serve_model_age_s", "op": "<=",
+     "target": 3600.0, "window_s": 1.0, "burn_threshold": 0.01,
+     "min_samples": 1, "severity": "warning"},
+    {"name": "serve_recall_floor", "metric": "serve_recall_at_10",
+     "op": ">=", "target": 0.1, "window_s": 1.0, "burn_threshold": 0.01,
+     "min_samples": 1, "severity": "critical"}]}
+HS_POLICIES = {"policies": [
+    {"name": "hotswap_model", "slo": "model_staleness",
+     "action": "snapshot_hotswap", "cooldown_s": 3.0, "max_attempts": 1},
+    {"name": "probe_escalation", "slo": "serve_recall_floor",
+     "action": "escalate_probes", "cooldown_s": 3.0, "max_attempts": 1}]}
+
+
+def card_memory(torch):
+    """This process's card memory: GiB allocated, reserved (and how much
+    of it CUDA graphs' private pools hold) and free, and the reserved
+    bytes by (memory pool, stream) summed over
+    ``torch.cuda.memory_snapshot()``'s segments, largest first (pool
+    (0, 0) is the caching allocator's own; any other is a CUDA graph's,
+    which ``empty_cache`` cannot return while its graph lives)."""
+    pools: dict = {}
+    for seg in torch.cuda.memory_snapshot():
+        key = (f"pool {tuple(seg.get('segment_pool_id', (0, 0)))} "
+               f"stream {seg.get('stream', 0)}")
+        p = pools.setdefault(key, {"segments": 0, "reserved": 0,
+                                   "allocated": 0, "free_segments": 0,
+                                   "free_segment_bytes": 0})
+        p["segments"] += 1
+        p["reserved"] += int(seg["total_size"])
+        p["allocated"] += int(seg["allocated_size"])
+        if int(seg.get("active_size", seg["allocated_size"])) == 0:
+            # Wholly free: empty_cache returns such a segment unless a
+            # capture under way or a live graph holds its pool.
+            p["free_segments"] += 1
+            p["free_segment_bytes"] += int(seg["total_size"])
+    free, _ = torch.cuda.mem_get_info()
+    private = sum(p["reserved"] for k, p in pools.items()
+                  if not k.startswith("pool (0, 0)"))
+    return {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+            "free_gib": free / 2**30, "private_pool_gib": private / 2**30,
+            "pools": sorted(pools.items(), key=lambda kv: -kv[1]["reserved"])}
+
+
+def _mem_line(mem):
+    top = "; ".join(
+        f"{k}: {p['segments']} segments {p['reserved'] / 2**30:.2f} GiB "
+        f"({p['free_segments']} wholly free, "
+        f"{p['free_segment_bytes'] / 2**30:.2f} GiB)"
+        for k, p in mem["pools"][:3])
+    return (f"allocated {mem['allocated_gib']:.2f} GiB, reserved "
+            f"{mem['reserved_gib']:.2f} GiB (CUDA graphs' private pools "
+            f"{mem['private_pool_gib']:.2f}), free {mem['free_gib']:.2f} "
+            f"GiB; largest pools: {top}")
+
+
+def _hs_reckon(torch, gidx, snap):
+    """The bytes a second serving tier takes beside the first: the IVF
+    layout (clusters x cap x D fp32, from the commit's assignments), the
+    trunk (its snapshot's fp32 tensors), a bucket-32 bf16 224² warm-up
+    (conv1's output alone), and for the flat rung the flat index and the
+    shadow oracle's rebuild (N x D fp32 each)."""
+    import numpy as np
+
+    from npairloss_tpu_torch.resilience import snapshot as snapmod
+
+    assign = np.load(os.path.join(gidx, "assign.npy"), mmap_mode="r")
+    counts = np.bincount(np.asarray(assign))
+    n, d = np.load(os.path.join(gidx, "emb.npy"), mmap_mode="r").shape
+    state = torch.load(os.path.join(snap, snapmod.STATE_NAME),
+                       map_location="cpu", weights_only=True, mmap=True)
+    trunk = sum(v.numel() * 4 for k, v in state.items()
+                if k.startswith("model/"))
+    del state
+    out = {"ivf_layout": int(len(counts) * counts.max() * d * 4),
+           "trunk": int(trunk),
+           "warmup_conv1_bucket32": 32 * 112 * 112 * 64 * 2,
+           "flat_index": int(n * d * 4), "shadow_oracle": int(n * d * 4),
+           "clusters": int(len(counts)), "cap": int(counts.max()),
+           "rows": int(n), "dim": int(d)}
+    out["total"] = sum(out[k] for k in ("ivf_layout", "trunk",
+                                        "warmup_conv1_bucket32",
+                                        "flat_index", "shadow_oracle"))
+    return out
+
+
+def _hs_commit(torch, src, prefix, step):
+    """The model tensors of snapshot ``src`` committed again as
+    ``{prefix}iter_{step}.ckpt``, created now (the trainer's next
+    commit)."""
+    from npairloss_tpu_torch.resilience import snapshot as snapmod
+
+    state = snapmod.read_state(src, torch.device("cpu"))
+    return snapmod.commit_snapshot(
+        f"{prefix}iter_{step}.ckpt",
+        {k: v for k, v in state.items() if k.startswith("model/")}, step)
+
+
+def _hs_rung(torch, timer, index, queries, probes, card):
+    """The probe kernel at one rung of the ladder (B = 32 gallery rows,
+    the served layout, ``probes`` clusters each, k 10) against its plain
+    version in fp32/bf16/int8: max abs error, rows agreeing outside ties;
+    its time against the bound with each probed cluster read once, and
+    the plain version's.  The bf16 and int8 slabs are made here, not on
+    the served index."""
+    import numpy as np
+
+    from npairloss_tpu_torch.ops.ivf_probe import (
+        probe_select,
+        probe_topk,
+        probe_topk_oneshot_plain,
+    )
+    from npairloss_tpu_torch.serve.ivf import quantize_int8
+
+    layout = index.layout
+    cap, d, k = layout.cap, index.dim, 10
+    q = torch.as_tensor(queries, device="cuda")
+    bq = q.shape[0]
+    _, lids, owned = probe_select(q, layout.centroids, layout.cluster_valid,
+                                  probes, 0, layout.packed.shape[0])
+    owned = owned.to(torch.int32).contiguous()
+    c = int(lids.shape[1])
+    kl = min(k, c * cap)
+    valid_rows = int((layout.rows[lids.long()] >= 0).sum().item())
+    uniq = torch.unique(lids.long())
+    unique_rows = int((layout.rows[uniq] >= 0).sum().item())
+    slabs = {"fp32": (layout.packed, None),
+             "bf16": (layout.packed.to(torch.bfloat16), None),
+             "int8": quantize_int8(layout.packed)}
+    rows = []
+    for scoring, (slab, scale) in slabs.items():
+        args = (q, slab, layout.rows, lids, owned, scale)
+        what = f"12e probe B={bq} probes {c} {scoring}"
+        _, _, _, _, err, ties = _probe_against_plain(torch, np, args, kl,
+                                                     scoring, what)
+        el = slab.element_size()
+        side = (q.numel() * 4 + 2 * lids.numel() * 4 + bq * kl * 8
+                + int(uniq.numel()) * cap * 4
+                + (int(uniq.numel()) * 4 if scale is not None else 0))
+        bms, by = bound_ms(unique_rows * d * el + side,
+                           2.0 * valid_rows * d, scoring)
+        row = {"batch": bq, "probes": c, "k": k, "cap": cap, "dim": d,
+               "scoring": scoring, "probed_rows": valid_rows,
+               "probed_unique_rows": unique_rows, "max_abs_err": err,
+               "tol": TOL["probe"], "row_mismatches_in_ties": ties,
+               "ms": timer.ms(lambda: probe_topk(*args, kl=kl,
+                                                 scoring=scoring)),
+               "plain_ms": timer.ms(lambda: probe_topk_oneshot_plain(
+                   *args, kl=kl, scoring=scoring), iters=5, warmup=1),
+               "bound_ms": bms, "bound_by": by,
+               # Each (query, probe)'s rows read on their own, as the
+               # kernel streams them.
+               "bound_each_query_ms": bound_ms(
+                   valid_rows * d * el + side, 2.0 * valid_rows * d,
+                   scoring)[0],
+               "library_ms": None}
+        rows.append(row)
+        log(f"[12e] ivf_probe {what}: {json.dumps(row)} ({card})")
+    del slabs
+    return rows
+
+
+def check_hotswap(torch, seed, detail):
+    """Phase 12 (see the module docstring): the two actuators that build a
+    second engine tier, under ``serve --watch-snapshots --index-prefix
+    --live-obs --remediate`` in this process; returns the launches of the
+    serving path (the kernel-against-plain comparisons and the fresh
+    reference server excluded)."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.obs.live import load_alert_log, validate_alert_log
+    from npairloss_tpu_torch.obs.quality.escalate import (
+        EscalationExhaustedError,
+        ProbeEscalator,
+    )
+    from npairloss_tpu_torch.obs.quality.shadow import shadow_sampled
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.resilience import failpoints
+    from npairloss_tpu_torch.resilience.remediate import (
+        load_remediation_log,
+        validate_remediation_log,
+    )
+    from npairloss_tpu_torch.serve.index import GalleryIndex
+    from npairloss_tpu_torch.serve.ivf import IVFIndex
+
+    card = detail["card"]
+    t_start = time.perf_counter()
+    before_threads = {t.ident for t in threading.enumerate()}
+    gidx = os.path.abspath(os.path.join(QUALITY_WORK, "g.gidx"))
+    older_src = os.path.abspath(os.path.join(SNAP_WORK, "bits",
+                                             "m_iter_3.ckpt"))
+    newer_src = os.path.abspath(os.path.join(SNAP_WORK, "bits",
+                                             "m_iter_6.ckpt"))
+    for p in (gidx, older_src, newer_src):
+        if not os.path.isdir(p):
+            fail(f"12: {p} (phases 9 and 5e) is missing")
+    # (a) The card's memory first: what holds it, and room for a second
+    # tier three times over.
+    log(f"[12a] at phase 11's end: {_mem_line(card_memory(torch))}")
+    _release(torch)
+    mem = card_memory(torch)
+    log(f"[12a] after _release: {_mem_line(mem)}")
+    reckon = _hs_reckon(torch, gidx, newer_src)
+    need = 3 * reckon["total"]
+    log(f"[12a] a second tier's bytes: {json.dumps(reckon)}; three times "
+        f"that is {need / 2**30:.2f} GiB, free {mem['free_gib']:.2f} GiB")
+    if mem["free_gib"] * 2**30 < need:
+        fail(f"12a: {mem['free_gib']:.2f} GiB free, a second tier needs "
+             f"{need / 2**30:.2f} GiB three times over; "
+             f"{json.dumps(mem['pools'][:8])}")
+    out = {"memory_start": {k: v for k, v in mem.items() if k != "pools"},
+           "pools_start": mem["pools"][:8], "reckon": reckon}
+
+    work = os.path.abspath(HS_WORK)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    slo = os.path.join(work, "slo.json")
+    rem = os.path.join(work, "remediation.json")
+    with open(slo, "w") as f:
+        json.dump(HS_SLO, f)
+    with open(rem, "w") as f:
+        json.dump(HS_POLICIES, f)
+    iprefix = os.path.join(work, "idx", "g.")
+    sprefix = os.path.join(work, "snap", "m_")
+    os.makedirs(os.path.dirname(iprefix))
+    shutil.copytree(gidx, iprefix + "000.gidx")
+    older = _hs_commit(torch, older_src, sprefix, 3)
+    tel = os.path.join(work, "tel")
+    base_argv = [
+        "serve", "--index-kind", "ivf", "--ivf-clusters", "246", "--probes",
+        "8", "--probe-impl", "fused", "--top-k", "10", "--buckets",
+        "1,8,32", "--replicas", "2", "--model", "googlenet_pallas",
+        "--input-size", "224", "--poll-s", "0.01", "--explicit-drops",
+        "--seed", str(seed), "--deadline-ms", str(HS_DEADLINE_MS)]
+    args = cli.build_parser().parse_args([
+        *base_argv, "--index-prefix", iprefix, "--snapshot", older,
+        "--watch-snapshots", sprefix, "--metrics-window", str(OBS_WINDOW),
+        "--telemetry-dir", tel, "--live-obs", "--slo-config", slo,
+        "--slo-tick", str(HS_TICK_S), "--remediate", "--remediation-config",
+        rem, "--qtrace", "--shadow-rate", str(QUALITY_RATE),
+        "--shadow-window", str(QUALITY_WINDOW)])
+    t0 = time.perf_counter()
+    server, _ = cli.build_server(args)
+    out["build_s"] = time.perf_counter() - t0
+    remediation, live = server.remediation, server.live
+    if remediation is None or set(remediation._actions) != {
+            "rewarm", "snapshot_hotswap", "escalate_probes"}:
+        fail(f"12: build_server armed {remediation and remediation._actions}")
+    server.shadow._oracle_engine()  # built here, as in phase 9
+    emb, labels = synthetic_gallery(seed)
+    # The flips and the swaps' starts, by the clock the clients read.
+    flips, starts = [], []
+    real_swap_engines = server.swap_engines
+
+    def swap_engines(*a, **kw):
+        real_swap_engines(*a, **kw)
+        flips.append(time.perf_counter())
+
+    server.swap_engines = swap_engines  # looked up at call time
+    fn, undo = remediation._actions["snapshot_hotswap"]
+
+    def timed_swap(alert):
+        starts.append(time.perf_counter())
+        return fn(alert)
+
+    remediation._actions["snapshot_hotswap"] = (timed_swap, undo)
+    th, port, res = _http_server(server)
+
+    def history(policy, n0):
+        return [r for r in remediation.history[n0:] if r["policy"] == policy]
+
+    def until_outcome(policy, n0, what, fn=None, seconds=60.0):
+        deadline = time.perf_counter() + seconds
+        while True:
+            done = [r for r in history(policy, n0)
+                    if r["state"] in ("succeeded", "failed")]
+            if done:
+                return done[-1]
+            if time.perf_counter() > deadline:
+                fail(f"12{what}: no {policy} outcome within {seconds} s; "
+                     f"alerts {[(e['slo'], e['state']) for e in live.alerts.history]}, "
+                     f"remediation {remediation.last_by_policy()}")
+            if fn is not None:
+                fn()
+            else:
+                time.sleep(0.05)
+
+    # The 8 clients: gallery rows as single queries, every answer's
+    # top-1 its own row; one client sends raw 224² images instead.
+    stop = threading.Event()
+    seen_lock = threading.Lock()
+    samples, bad = [], []
+    img_rng = np.random.default_rng(seed + 12)
+    image = json.dumps(img_rng.standard_normal(
+        (224, 224, 3), dtype=np.float32).tolist())
+
+    def client(k):
+        rng = np.random.default_rng(seed + 100 + k)
+        n = 0
+        while not stop.is_set():
+            if k == HS_CLIENTS - 1:
+                qid, row = f"i{k}_{n}", None
+                req = f'{{"id": "{qid}", "input": {image}}}'
+            else:
+                qid, row = f"c{k}_{n}", int(rng.integers(emb.shape[0]))
+                req = json.dumps({"id": qid, "embedding": emb[row].tolist()})
+            t_send = time.perf_counter()
+            try:
+                code, ans, ms = _http_call(port, "POST", "/query", req)
+            except Exception as e:  # noqa: BLE001 — a client error is a finding
+                with seen_lock:
+                    bad.append(f"{qid}: {e}")
+                return
+            n += 1
+            ok = code == 200 and "neighbors" in ans and (
+                row is None or ans["neighbors"][0]["row"] == row)
+            with seen_lock:
+                samples.append((t_send, time.perf_counter(), ms,
+                                ans.get("model_age_s") if code == 200
+                                else None, row is None))
+                if not ok:
+                    bad.append(f"{qid}: {code} {str(ans)[:200]}")
+
+    def start_clients():
+        stop.clear()
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(HS_CLIENTS)]
+        for c in threads:
+            c.start()
+        return threads
+
+    def stop_clients(threads, what):
+        stop.set()
+        for c in threads:
+            c.join(timeout=120)
+        if any(c.is_alive() for c in threads) or bad:
+            fail(f"12{what}: client errors {bad[:5]}")
+
+    def cooled(policy):
+        """Wait out the policy's cooldown since its last attempt: an
+        alert that fires inside it is never acted on."""
+        last = [r["ts"] for r in remediation.history
+                if r["policy"] == policy and r["state"] == "attempted"]
+        if last:
+            time.sleep(max(0.0, last[-1] + 3.3 - time.time()))
+
+    compare_launches: dict = {}
+
+    def comparing(body):
+        torch.cuda.synchronize()
+        c0 = _build.launch_counts()
+        r = body()
+        torch.cuda.synchronize()
+        c1 = _build.launch_counts()
+        for key in c1:
+            compare_launches[key] = compare_launches.get(key, 0) + \
+                c1[key] - c0.get(key, 0)
+        return r
+
+    records, _ = _obs_records(seed, emb)
+    body = "\n".join(json.dumps(r) for r in records)
+    rungs = []
+    threads = []
+    try:
+        for i in range(8):
+            _http_call(port, "POST", "/query", json.dumps(
+                {"id": f"w{i}", "embedding": emb[i].tolist()}))
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        # (b) The model hot-swap under load.
+        threads = start_clients()
+        time.sleep(1.5)
+        if open(os.path.join(tel, "alerts.jsonl")).read():
+            fail("12b: the clean load left alerts.jsonl non-empty")
+        newer = _hs_commit(torch, newer_src, sprefix, 6)
+        n0 = len(remediation.history)
+        failpoints.arm("serve.stale_model", times=1)
+        done = until_outcome("hotswap_model", n0, "b")
+        time.sleep(0.5)
+        stop_clients(threads, "b")
+        if done["state"] != "succeeded" or \
+                done["detail"]["swapped"] != ["model"] or \
+                done["detail"]["snapshot_step"] != 6:
+            fail(f"12b: {done}")
+        out["model_swap"] = {"detail": done["detail"],
+                             "duration_s": done["duration_s"],
+                             "swap_s": flips[0] - starts[0]}
+        # After the flip: the swapped tier against a server built fresh
+        # on the newer snapshot and the served commit, with the same
+        # batching (phase 4's 38-query body, 50 ms deadline): bit for bit.
+        code, swapped_ans, _ = _http_call(port, "POST", "/query", body)
+        if code != 200 or len(swapped_ans) != len(records):
+            fail(f"12b: the body answered {code}: {str(swapped_ans)[:300]}")
+
+        def fresh_answers():
+            fargs = cli.build_parser().parse_args([
+                *base_argv, "--index", iprefix + "000.gidx", "--snapshot",
+                newer, "--metrics-window", "0"])
+            fresh, _ = cli.build_server(fargs)
+            fth, fport, fres = _http_server(fresh)
+            try:
+                fcode, fans, _ = _http_call(fport, "POST", "/query", body)
+            finally:
+                fresh.preempt.request()
+                fth.join(timeout=120)
+                cli.close_observers(fresh)
+            if fcode != 200 or fres.get("rc") != 75:
+                fail(f"12b: the fresh server answered {fcode}, rc {fres}")
+            return fans
+
+        fresh_ans = comparing(fresh_answers)
+        _release(torch)
+        if [_strip_ages(a) for a in swapped_ans] != \
+                [_strip_ages(a) for a in fresh_ans]:
+            diff = [i for i, (a, b) in enumerate(zip(swapped_ans, fresh_ans))
+                    if _strip_ages(a) != _strip_ages(b)]
+            fail(f"12b: the swapped tier's answers differ from a fresh "
+                 f"server's at {diff[:8]}")
+        # (c) The index hot-swap under load: a newer FLAT commit of the
+        # same rows plus HS_NEW_ROWS more, which the swap's --index-kind
+        # reconciliation clusters into 246 again.
+        threads = start_clients()
+        new_rows = synthetic_gallery(seed + 12, n=HS_NEW_ROWS, ids=8)[0]
+        flat = GalleryIndex(
+            *(np.load(os.path.join(gidx, f"{a}.npy"))
+              for a in ("emb", "labels", "ids")),
+            torch.device("cpu"), created=time.time())
+        flat.add(new_rows, np.arange(HS_NEW_ROWS, dtype=np.int32) + 10**6,
+                 ids=np.arange(HS_NEW_ROWS, dtype=np.int64) + 10**7,
+                 normalize=False)
+        ipath2 = flat.save(iprefix + "001.gidx")
+        del flat
+        time.sleep(1.0)
+        cooled("hotswap_model")
+        n0 = len(remediation.history)
+        failpoints.arm("serve.stale_model", times=1)
+        done = until_outcome("hotswap_model", n0, "c")
+        time.sleep(0.5)
+        stop_clients(threads, "c")
+        idx = server.engine.index
+        if done["state"] != "succeeded" or \
+                done["detail"]["swapped"] != ["index"] or \
+                done["detail"]["index_path"] != ipath2 or \
+                not isinstance(idx, IVFIndex) or idx.n_clusters != 246 or \
+                idx.size != emb.shape[0] + HS_NEW_ROWS or \
+                server.engine.probe_impl != "fused":
+            fail(f"12c: {done}; served {type(idx).__name__} "
+                 f"{getattr(idx, 'n_clusters', None)} clusters, "
+                 f"{idx.size} rows, {server.engine.probe_impl}")
+        out["index_swap"] = {"detail": done["detail"],
+                             "duration_s": done["duration_s"],
+                             "swap_s": flips[1] - starts[1]}
+        # The new rows answer with themselves.
+        code, ans, _ = _http_call(port, "POST", "/query", "\n".join(
+            json.dumps({"id": f"n{i}", "embedding": new_rows[i].tolist()})
+            for i in range(8)))
+        if code != 200 or [a["neighbors"][0]["gallery_id"] for a in ans] \
+                != list(range(10**7, 10**7 + 8)):
+            fail(f"12c: the new rows' top-1 {str(ans)[:300]}")
+        # Latency of the single embedding queries before the first swap,
+        # during the two warm-ups, and after.
+        emb_s = [x for x in samples if not x[4]]
+        windows = [(starts[i], flips[i]) for i in range(2)]
+        during = [x[2] for x in emb_s
+                  if any(a <= x[1] and x[0] <= b for a, b in windows)]
+        pre = [x[2] for x in emb_s if x[1] < starts[0]]
+        post = [x[2] for x in emb_s if x[0] > flips[1]]
+        ages_before = [x[3] for x in emb_s
+                       if x[1] < flips[0] and x[3] is not None]
+        ages_after = [x[3] for x in emb_s
+                      if flips[0] < x[0] < starts[1] and x[3] is not None]
+        if not ages_before or not ages_after or \
+                not ages_after[0] < ages_before[-1]:
+            fail(f"12b: model_age_s did not drop at the flip: before "
+                 f"{ages_before[-3:]}, after {ages_after[:3]}")
+        out["load"] = {"clients": HS_CLIENTS, "answers": len(samples),
+                       "raw_images": sum(1 for x in samples if x[4]),
+                       "before": _pcts(pre) if pre else None,
+                       "during_warmup": _pcts(during) if during else None,
+                       "after": _pcts(post) if post else None,
+                       "model_age_before": ages_before[-1],
+                       "model_age_after": ages_after[0]}
+        hcode, health = _scrape(port, "/healthz")
+        health = json.loads(health)
+        compiles = server._compiles_after_warmup()
+        if health.get("hot_swaps") != 2 or compiles != 0:
+            fail(f"12b/c: /healthz hot_swaps {health.get('hot_swaps')}, "
+                 f"compiles after warmup {compiles}")
+        # (d) A torn newer snapshot is skipped for an older one still newer
+        # than the served; then nothing newer: a failed attempt.
+        _hs_commit(torch, newer_src, sprefix, 8)
+        failpoints.arm("snapshot.commit.torn", times=1)
+        _hs_commit(torch, newer_src, sprefix, 9)
+        cooled("hotswap_model")
+        n0 = len(remediation.history)
+        failpoints.arm("serve.stale_model", times=1)
+        done = until_outcome("hotswap_model", n0, "d")
+        if done["state"] != "succeeded" or \
+                done["detail"]["snapshot_step"] != 8 or \
+                done["detail"]["swapped"] != ["model"]:
+            fail(f"12d: the torn step 9 was not skipped for step 8: {done}")
+        out["torn_skip"] = done["detail"]
+        # Past the cooldown, the next incident.
+        cooled("hotswap_model")
+        n0 = len(remediation.history)
+        failpoints.arm("serve.stale_model", times=1)
+        done = until_outcome("hotswap_model", n0, "d")
+        if done["state"] != "failed" or "no committed snapshot/index newer " \
+                "than the served one" not in done.get("error", ""):
+            fail(f"12d: nothing newer gave {done}")
+        out["nothing_newer"] = done["error"]
+        # (e) The escalation ladder: serve.recall_drop under sampled
+        # single queries fires the recall floor; probe_escalation widens
+        # the probes 8 -> 16 through the remediation engine.
+        time.sleep(1.2)
+        ids = (f"e{i}" for i in range(10**6)
+               if shadow_sampled(f"e{i}", QUALITY_RATE, 0))
+        rng = np.random.default_rng(seed + 13)
+
+        def single():
+            qid = next(ids)
+            row = int(rng.integers(emb.shape[0]))
+            code, ans, _ = _http_call(port, "POST", "/query", json.dumps(
+                {"id": qid, "embedding": emb[row].tolist()}))
+            if code != 200 or "neighbors" not in ans:
+                fail(f"12e: {qid} answered {code}: {str(ans)[:200]}")
+
+        n0 = len(remediation.history)
+        failpoints.arm("serve.recall_drop", times=HS_DROP_QUERIES)
+        for _ in range(HS_DROP_QUERIES):
+            single()
+        done = until_outcome("probe_escalation", n0, "e", fn=single)
+        if done["state"] != "succeeded" or done["detail"]["probes"] != 16:
+            fail(f"12e: probe_escalation {done}")
+        out["escalation"] = [dict(done["detail"], via="remediation")]
+        escalator = ProbeEscalator(server, telemetry=server.telemetry)
+        pick = np.random.default_rng(seed + 14).choice(
+            emb.shape[0], HS_RUNG_QUERIES, replace=False)
+        queries = emb[pick]
+        timer = Timer(torch)
+        while True:
+            eng = server.engine
+            if isinstance(eng.index, IVFIndex):
+                rungs += comparing(lambda: _hs_rung(
+                    torch, timer, eng.index, queries, eng.cfg.probes, card))
+            try:
+                d = escalator.escalate()
+            except EscalationExhaustedError as e:
+                out["exhausted"] = str(e)
+                break
+            out["escalation"].append(d)
+        del timer
+        if [d.get("probes", d.get("fallback")) for d in out["escalation"]] \
+                != [16, 32, 64, 128, 246, "flat"]:
+            fail(f"12e: the ladder {out['escalation']}")
+        # The flat rung against the flat exact oracle.
+        code, ans, _ = _http_call(port, "POST", "/query", "\n".join(
+            json.dumps({"id": f"f{i}", "embedding": q.tolist()})
+            for i, q in enumerate(queries)))
+        gallery = torch.as_tensor(server.engine.index.host_emb, device="cuda")
+        exact = comparing(lambda: _exact_top10(torch, gallery, queries))
+        sims = (torch.as_tensor(queries, device="cuda") @ gallery.T).cpu()
+        del gallery
+        served = np.asarray([[n["row"] for n in a["neighbors"]] for a in ans])
+        mism = served != exact
+        if code != 200 or mism.any() and not all(
+                abs(float(sims[i, served[i, j]]) - float(sims[i, exact[i, j]]))
+                <= 2 * TOL["probe"] for i, j in zip(*np.nonzero(mism))):
+            fail(f"12e: the flat rung's answers differ from the exact "
+                 f"oracle outside ties: {np.argwhere(mism)[:8].tolist()}")
+        out["flat_vs_exact_mismatches_in_ties"] = int(mism.sum())
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        launches = {k: launches.get(k, 0) - compare_launches.get(k, 0)
+                    for k in SERVE_KERNELS}
+        summary_qtrace = server.qtrace.summary_block()
+    finally:
+        stop.set()
+        for c in threads:
+            c.join(timeout=120)
+        for key in ("serve.stale_model", "serve.recall_drop",
+                    "snapshot.commit.torn"):
+            failpoints.disarm(key)
+        server.preempt.request()
+        th.join(timeout=120)
+        cli.close_observers(server)
+    if th.is_alive() or res.get("rc") != 75:
+        fail(f"12: the server did not drain: {res}")
+    s = server.summary()
+    if s["queries"] != s["answered"] + (s["errors"] - s["errors_refused"]) \
+            + s["rejected"] or s.get("queries_dropped", 0) or \
+            s["hot_swaps"] != 9 or summary_qtrace.get("hotswap_flips") != 9:
+        fail(f"12: the drain {json.dumps(s)[:600]}, qtrace "
+             f"{summary_qtrace}")
+    alerts = load_alert_log(os.path.join(tel, "alerts.jsonl"))
+    recs = load_remediation_log(os.path.join(tel, "remediation.jsonl"))
+    err = validate_alert_log(alerts) or validate_remediation_log(
+        recs, alert_records=alerts)
+    if err:
+        fail(f"12: {tel}: {err}")
+    states = [(r["policy"], r["state"]) for r in recs]
+    want = [("hotswap_model", "attempted"), ("hotswap_model", "succeeded")] \
+        * 3 + [("hotswap_model", "attempted"), ("hotswap_model", "failed"),
+               ("probe_escalation", "attempted"),
+               ("probe_escalation", "succeeded")]
+    if states != want:
+        fail(f"12: remediation.jsonl {states}")
+    for name in SERVE_KERNELS:
+        if launches.get(name, 0) < 1:
+            fail(f"12: the serving path launched no {name}: {launches}")
+    time.sleep(0.5)
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in before_threads and t.is_alive()]
+    if left:
+        fail(f"12: threads outlived the phase: {left}")
+    _release(torch)
+    out.update(
+        launches=launches, probe_rungs=rungs,
+        alerts=[(r["slo"], r["state"], r.get("duration_s")) for r in alerts],
+        remediation=[(r["policy"], r["state"], r.get("duration_s"),
+                      r.get("detail"), r.get("error")) for r in recs],
+        queries=s["queries"], answered=s["answered"],
+        rejected=s["rejected"], hot_swaps=s["hot_swaps"],
+        memory_end=_mem_line(card_memory(torch)),
+        wall_s=time.perf_counter() - t_start)
+    detail["hotswap"] = out
+    log(f"[12] hot-swap and escalation under serve --watch-snapshots "
+        f"--index-prefix --live-obs --remediate --qtrace --shadow-rate "
+        f"{QUALITY_RATE} (built {out['build_s']:.1f} s): {HS_CLIENTS} "
+        f"clients, {len(samples)} answers, no client error; model swap "
+        f"3 -> 6 in {out['model_swap']['swap_s']:.3f} s "
+        f"(warm-up {out['model_swap']['detail']['warmup_s']} s), "
+        f"model_age_s {out['load']['model_age_before']} -> "
+        f"{out['load']['model_age_after']}; index swap to a flat commit "
+        f"re-clustered into 246 in {out['index_swap']['swap_s']:.3f} s; "
+        f"p50/p99 ms before {json.dumps(out['load']['before'])}, during "
+        f"the warm-ups {json.dumps(out['load']['during_warmup'])}, after "
+        f"{json.dumps(out['load']['after'])}; compiles after warmup 0; "
+        f"38-query body equal to a fresh server's bit for bit; torn step "
+        f"9 skipped for 8; nothing newer: failed; ladder "
+        f"{[d.get('probes', d.get('fallback')) for d in out['escalation']]}"
+        f", then exhausted; flat rung = exact oracle; hot_swaps "
+        f"{s['hot_swaps']}; launches {json.dumps(launches)}; "
+        f"{out['wall_s']:.1f} s ({card})")
+    return launches
+
+
 def _release(torch):
     """Return the card's cached memory between phases.  cuBLAS keeps a
     workspace for every stream it ran on (32 MiB each on this card),
@@ -8300,6 +9045,8 @@ def main() -> int:
     p10_launches = check_live_observatory(torch, args.seed, detail)
     phase("11 (remediation)")
     p11_launches = check_remediation(torch, args.seed, detail)
+    phase("12 (hot-swap, probe escalation)")
+    p12_launches = check_hotswap(torch, args.seed, detail)
     phase("the kernels line")
 
     def entry(name, source, replaces, rows, counter, path=None):
@@ -8434,6 +9181,9 @@ def main() -> int:
         # run, (c) train --remediate with its rollback.
         if p11_launches.get(counter, 0):
             k["launches_phase11"] = p11_launches[counter]
+        # Phase 12: the hot-swaps and the escalation ladder's tiers.
+        if p12_launches.get(counter, 0):
+            k["launches_phase12"] = p12_launches[counter]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         fail(f"kernels not launched on their path: {idle}")

@@ -38,8 +38,11 @@ is here (GoogLeNet, Inception-BN, the ResNets, ViT-B/16, the MLP).
            ``/healthz``; ``--admission slo`` sheds queries while a watched
            SLO burns (``--admission-slos``), and ``--remediate`` acts on
            the alerts (re-warm on a post-warmup compile storm, load shed
-           on queue saturation; ``--remediation-config``,
-           ``--remediate-dry-run``) into ``remediation.jsonl``.
+           on queue saturation, a hot-swap to the newest snapshot under
+           ``--watch-snapshots`` or index under ``--index-prefix`` on
+           staleness, wider IVF probes then the flat scan on a recall
+           burn; ``--remediation-config``, ``--remediate-dry-run``) into
+           ``remediation.jsonl``.
            SIGTERM/SIGINT: every admitted query is answered, a final
            checkpoint is written, the shadow queue is scored, exit 75;
   train:   the Caffe solver loop from a solver prototxt on the net's list
@@ -203,15 +206,42 @@ class _IngestCheckpoints:
     ``{prefix}w{wm:012d}.gidx`` — the same artifact the JAX package
     publishes: the committed kind stays the base's, whatever kind is
     served.  The ``w`` sorts after every digit, so checkpoints win
-    ``load_newest`` over the commits they grew from."""
+    ``load_newest`` over the commits they grew from.  Once ``server`` is
+    set, records apply into the server's current tier, so a hot-swap's
+    new index takes the records acked after it, and :meth:`on_flip`
+    re-applies the pending records its commit lacks."""
 
     def __init__(self, served, base_path: str, prefix: str):
         self.served = served
+        self.server = None
         self.base_path = base_path
         self.prefix = prefix
         self.base = None
         self.pending: list = []
         self.publish_ms: list = []  # wall ms of each published checkpoint
+
+    def _index(self):
+        return (self.server.engine.index if self.server is not None
+                else self.served)
+
+    def _add(self, index, records) -> None:
+        import numpy as np
+
+        index.add(np.concatenate([d[0] for _, d in records]),
+                  np.concatenate([d[1] for _, d in records]),
+                  ids=np.concatenate([d[2] for _, d in records]))
+        index.ingest_watermark = int(records[-1][0])
+
+    def on_flip(self, index) -> None:
+        """A hot-swap's new index, at the flip (under the server's
+        ingest lock): the applied records above its commit's watermark
+        that no checkpoint has published yet go into it, in seq order."""
+        missing = [p for p in self.pending
+                   if p[0] > int(index.ingest_watermark)]
+        if missing:
+            self._add(index, missing)
+            log.warning("hot-swap: re-applied %d ingest record(s) above "
+                        "the new index's watermark", len(missing))
 
     def apply(self, payload) -> None:
         self.apply_many([payload])
@@ -219,19 +249,14 @@ class _IngestCheckpoints:
     def apply_many(self, payloads) -> None:
         """Apply records in seq order with one add to the served index
         (the startup replay's whole backlog re-packs the layout once)."""
-        import numpy as np
-
         from npairloss_tpu_torch.serve.server import decode_ingest_payload
 
         if not payloads:
             return
-        rows = [decode_ingest_payload(p) for p in payloads]
-        self.pending.extend((int(p["seq"]), d)
-                            for p, d in zip(payloads, rows))
-        self.served.add(np.concatenate([d[0] for d in rows]),
-                        np.concatenate([d[1] for d in rows]),
-                        ids=np.concatenate([d[2] for d in rows]))
-        self.served.ingest_watermark = int(payloads[-1]["seq"])
+        records = [(int(p["seq"]), decode_ingest_payload(p))
+                   for p in payloads]
+        self.pending.extend(records)
+        self._add(self._index(), records)
 
     def publish(self, wm: int):
         import numpy as np
@@ -296,6 +321,11 @@ def build_server(args):
         log.error("--snapshot and --weights both give the trunk's weights; "
                   "pass one")
         return 2
+    if args.watch_snapshots and not args.snapshot:
+        log.error("--watch-snapshots needs --snapshot (the hot-swap restores "
+                  "new params INTO the served model; embedding-only serving "
+                  "can only watch --index-prefix)")
+        return 2
     if args.replicas < 1:
         log.error("--replicas must be >= 1, got %d", args.replicas)
         return 2
@@ -340,16 +370,25 @@ def build_server(args):
         index = load_index(args.index, device=device)
     # The committed kind never dictates the served one: a flat commit is
     # clustered at startup, an IVF commit serves through the exact scan.
-    # The watermark rides along either way (the rows are the same).
-    if args.index_kind == "ivf" and not isinstance(index, IVFIndex):
-        index = IVFIndex.from_gallery(index, clusters=args.ivf_clusters,
-                                      seed=args.seed)
-    elif args.index_kind == "flat" and isinstance(index, IVFIndex):
-        flat = GalleryIndex.build(index.host_emb, index.host_labels,
-                                  ids=index.ids, normalize=False,
-                                  device=device)
-        flat.ingest_watermark = index.ingest_watermark
-        index = flat
+    # The watermark rides along either way (the rows are the same).  One
+    # function, because a hot-swap applies the same reconciliation to
+    # every index it swaps in.
+    def reconcile_index(idx):
+        if args.index_kind == "ivf" and not isinstance(idx, IVFIndex):
+            log.info("clustering flat index into IVF (%s clusters)...",
+                     args.ivf_clusters or "auto")
+            return IVFIndex.from_gallery(idx, clusters=args.ivf_clusters,
+                                         seed=args.seed)
+        if args.index_kind == "flat" and isinstance(idx, IVFIndex):
+            log.info("serving ivf commit through the flat exact scan")
+            flat = GalleryIndex.build(idx.host_emb, idx.host_labels,
+                                      ids=idx.ids, normalize=False,
+                                      device=idx.device)
+            flat.ingest_watermark = idx.ingest_watermark
+            return flat
+        return idx
+
+    index = reconcile_index(index)
 
     wal = ingest = None
     base_watermark = int(index.ingest_watermark)
@@ -459,13 +498,24 @@ def build_server(args):
     if args.shadow_rate > 0:
         server.shadow = _shadow_scorer(args, server, index_path, telemetry)
     if wal is not None:
+        ingest.server = server
         server.attach_wal(
             wal, ingest.apply, checkpoint_fn=ingest.publish,
             checkpoint_every=args.wal_checkpoint_every,
             watermark=max(base_watermark, wal.last_seq),
             checkpoint_watermark=base_watermark, recovery=recovery)
     if policies is not None:
-        _arm_serve_remediation(args, server, live, policies)
+        swapper = None
+        if "snapshot_hotswap" in _serve_actions(args, policies):
+            from npairloss_tpu_torch.serve.hotswap import SnapshotSwapper
+
+            swapper = SnapshotSwapper(
+                server, index_prefix=args.index_prefix,
+                snapshot_prefix=args.watch_snapshots, model=model,
+                input_shape=input_shape, telemetry=telemetry,
+                index_transform=reconcile_index,
+                on_flip=ingest.on_flip if ingest is not None else None)
+        _arm_serve_remediation(args, server, live, policies, swapper)
     if live is not None:
         live.add_probe(lambda: _serve_probe(live, server, wal))
         # Started after warmup: the first windows reflect serving, not
@@ -497,13 +547,18 @@ def _live_specs(args, kind: str, max_queue: int = 256):
 
 
 def _serve_actions(args, policies):
-    """The remediation actions ``serve`` registers: ``rewarm`` always,
-    ``load_shed`` with an admission controller to engage (``--admission
-    slo``, or the forced-only one a ``load_shed`` policy brings), as
-    JAX's CLI.  Snapshot hot-swap and probe escalation build a second
-    engine tier and are not ported (ROADMAP Queue 1, item 9's
-    remainder)."""
+    """The remediation actions ``serve`` registers, as JAX's CLI:
+    ``rewarm`` always; ``snapshot_hotswap`` when a prefix is watched
+    (``--index-prefix`` or ``--watch-snapshots``); ``escalate_probes``
+    when the served index is IVF (``--index-kind ivf``: the served kind
+    is always the requested one); ``load_shed`` with an admission
+    controller to engage (``--admission slo``, or the forced-only one a
+    ``load_shed`` policy brings)."""
     actions = {"rewarm"}
+    if args.index_prefix or args.watch_snapshots:
+        actions.add("snapshot_hotswap")
+    if args.index_kind == "ivf":
+        actions.add("escalate_probes")
     if args.admission == "slo" or any(p.action == "load_shed"
                                       for p in policies):
         actions.add("load_shed")
@@ -555,17 +610,28 @@ def _remediation_policies(args, kind: str, actions_for):
     return policies
 
 
-def _arm_serve_remediation(args, server, live, policies) -> None:
+def _arm_serve_remediation(args, server, live, policies,
+                           swapper=None) -> None:
     """Bind the live alerts to the tier's actuators, audited to
-    ``remediation.jsonl`` in the telemetry dir: ``rewarm`` re-dispatches
-    every bucket (on the evaluator thread, through the primary engine's
-    stream), ``load_shed`` engages the admission controller until the
-    alert resolves — a forced-only one (no burn listener) when
+    ``remediation.jsonl`` in the telemetry dir, all run on the evaluator
+    thread: ``rewarm`` re-dispatches every bucket (through the primary
+    engine's stream); ``snapshot_hotswap`` (``swapper``'s swap) and
+    ``escalate_probes`` (a ``ProbeEscalator``) build and warm a new tier
+    there and publish it; ``load_shed`` engages the admission controller
+    until the alert resolves — a forced-only one (no burn listener) when
     ``--admission`` is off."""
     from npairloss_tpu_torch.resilience.remediate import RemediationEngine
 
+    registered = _serve_actions(args, policies)
     actions = {"rewarm": lambda alert: server.rewarm()}
-    if "load_shed" in _serve_actions(args, policies):
+    if "snapshot_hotswap" in registered:
+        actions["snapshot_hotswap"] = swapper.swap
+    if "escalate_probes" in registered:
+        from npairloss_tpu_torch.obs.quality.escalate import ProbeEscalator
+
+        actions["escalate_probes"] = ProbeEscalator(
+            server, telemetry=server.telemetry).escalate
+    if "load_shed" in registered:
         if server.admission is None:
             from npairloss_tpu_torch.serve.admission import (
                 AdmissionConfig,
@@ -593,7 +659,12 @@ def _serve_probe(live, server, wal) -> None:
     gauges (what the tier has acked vs made durable, and the torn tail
     recovery counted) and the freshness ages — server state, not metric
     rows, republished every tick so the staleness watchdogs see a
-    continuous stream."""
+    continuous stream.  It reads the server's freshness at each tick, so
+    a hot-swap's new identity shows at the next one; ``serve.stale_model``
+    adds ``STALE_AGE_FAULT_S`` to the published model age, as JAX's
+    probe does."""
+    from npairloss_tpu_torch.resilience import failpoints
+
     if wal is not None:
         st = wal.stats()
         live.registry.set("serve_ingest_watermark",
@@ -602,7 +673,13 @@ def _serve_probe(live, server, wal) -> None:
         live.registry.set("serve_wal_torn_records",
                           float(st["torn_records"]))
     if server.freshness is not None:
-        for key, v in server.freshness.ages().items():
+        ages = server.freshness.ages()
+        if failpoints.should_fire("serve.stale_model"):
+            # A model that looks days old: the staleness watchdog fires
+            # without waiting, and drives the snapshot hot-swap.
+            ages["model_age_s"] = (ages.get("model_age_s", 0.0)
+                                   + failpoints.STALE_AGE_FAULT_S)
+        for key, v in ages.items():
             live.registry.set(f"serve_{key}", v)
 
 
@@ -2291,6 +2368,11 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--snapshot",
                     help="port training snapshot (<prefix>iter_<k>.ckpt) "
                     "whose trunk encodes raw-'input' queries")
+    sv.add_argument(
+        "--watch-snapshots", dest="watch_snapshots", metavar="PREFIX",
+        help="training snapshot_prefix the hot-swap remediation watches "
+        "for newer committed snapshots (the snapshot_hotswap action of "
+        "--remediate; needs --snapshot for the initial model)")
     sv.add_argument("--index-kind", dest="index_kind",
                     choices=["flat", "ivf"], default="flat",
                     help="served structure; a flat commit served as ivf is "
@@ -2411,7 +2493,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--remediate", action="store_true",
         help="alert→actuation: bind the live alerts to guarded actions — "
         "load-shed on queue saturation, re-warm on a post-warmup compile "
-        "storm — audited to remediation.jsonl; needs --live-obs")
+        "storm, snapshot/index hot-swap on staleness (with --index-prefix "
+        "or --watch-snapshots), probe escalation on a recall burn (with "
+        "--index-kind ivf) — audited to remediation.jsonl; needs --live-obs")
     sv.add_argument(
         "--remediation-config", dest="remediation_config", metavar="PATH",
         help="remediation policy table (JSON; default: the shipped serve "

@@ -1,7 +1,5 @@
 """Quality observatory — online ANSWER-QUALITY observation for serving.
-Port of ``npairloss_tpu/obs/quality`` without its probe escalator
-(``escalate.py``, a remediation actuator that waits for the live
-observatory):
+Port of ``npairloss_tpu/obs/quality``:
 
   * :mod:`report` — the versioned ``npairloss-quality-v1`` JSONL
     contract (``validate_quality_report`` IS the contract) and the
@@ -9,9 +7,12 @@ observatory):
   * :mod:`shadow` — the ShadowScorer: deterministic sampling of live
     queries, off-hot-path re-scoring against the flat exact oracle on
     the served index's device, per-window recall@{1,5,10} and score-gap
-    rows through the run's telemetry and into ``quality.jsonl``.
+    rows through the run's telemetry and into ``quality.jsonl``;
+  * :mod:`escalate` — the ProbeEscalator, the recall-burn remediation
+    actuator: wider IVF probes per attempt, then the flat exact scan,
+    each a fresh tier warmed off the serving path and hot-swapped in.
 
-``shadow`` needs torch (it builds a serve engine) and is imported by
+``shadow`` and ``escalate`` need torch (it builds a serve engine) and is imported by
 its consumers; this ``__init__`` re-exports only the stdlib contract,
 as JAX's does.
 """

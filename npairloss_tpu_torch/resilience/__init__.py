@@ -18,9 +18,9 @@
     durable ingest (the JAX package's files byte for byte);
   * ``resilience.remediate`` — alert→actuation policies and the
     ``npairloss-remediation-v1`` audit log (a copy of the JAX module).
-
-The actuators that build a second engine tier (snapshot hot-swap, probe
-escalation) are ROADMAP Queue 1 item 9's remainder.
+    Its actuators live beside what they act on: the re-warm and the
+    hot-swap (``serve/hotswap.py``) in ``serve/``, probe escalation in
+    ``obs/quality/escalate.py``, the trainer rollback in the solver.
 """
 
 from npairloss_tpu_torch.resilience import failpoints

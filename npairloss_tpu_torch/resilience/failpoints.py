@@ -29,9 +29,9 @@ the five ``snapshot.*`` seams (``resilience/snapshot.py``,
 (``serve/index.py``), the three ``wal.*`` seams (``resilience/wal.py``),
 ``serve.latency``, ``serve.queue_stall`` and ``serve.replica_crash``
 (``serve/server.py``, ``serve/batcher.py``) and ``serve.recall_drop``
-(``serve/engine.py``), and ``serve.compile_storm`` (``serve/engine.py``'s
-compile accounting); ``serve.stale_model`` arrives with the hot-swap that
-reads it.
+(``serve/engine.py``), ``serve.compile_storm`` (``serve/engine.py``'s
+compile accounting) and ``serve.stale_model`` (``cli.py``'s serve probe,
+which publishes the ages the staleness watchdogs and the hot-swap read).
 
   ==========================  =============================================
   ``snapshot.save.io``        transient OSError inside the snapshot write

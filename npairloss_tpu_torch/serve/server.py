@@ -62,6 +62,20 @@ with :class:`QueueFullError` before the batcher and counted in
 summary and ``/healthz`` carry the attached remediation engine's last
 action per policy (``remediation``).
 
+Hot-swap (:meth:`RetrievalServer.swap_engines`, driven by
+``serve/hotswap.py`` and ``obs/quality/escalate.py``): a fresh tier,
+built and warmed off the serving path, is published by flipping each
+replica's engine pointer under the ingest lock and then the server lock;
+each replica's next batch runs on the new tier, a batch in flight
+finishes on the engine it started with, and the freshness identity flips
+with the tier.  ``hot_swaps`` joins the summary and ``/healthz`` once a
+swap happened, and qtrace marks each flip (``hotswap_flip``).  The old
+tier's memory outlives every batch that started on it: a dispatch holds
+its engine, and through it the old index and model, until its results
+are on the host, the engine's one sync point, which also completes the
+replica stream's reads; only then can the caching allocator hand those
+blocks to the new tier.
+
 Telemetry (``telemetry``: a ``RunTelemetry``, ``serve --telemetry-dir``
 or ``--trace-dir``), as in JAX: ``serve/admit`` around each admission on
 the submitting thread, ``serve/batch`` (the coalescing wait) and
@@ -281,6 +295,9 @@ class RetrievalServer:
         self.input_shape = (tuple(input_shape)
                             if input_shape is not None else None)
         self.remediation = None
+        # Engine-tier republishes (swap_engines): absent from the summary
+        # until the first.
+        self.swaps = 0  # guarded-by: _lock
         # Set by a re-warm: from then on the window rows carry
         # compiles_after_warmup even at zero, so the watchdog sees the
         # recovery (a clean run keeps the key absent at zero).
@@ -902,6 +919,44 @@ class RetrievalServer:
         self._explicit_compile_key = True
         return {"warmup_s": round(dt, 3)}
 
+    def swap_engines(self, engines, freshness: Optional[Freshness] = None,
+                     prepare: Optional[Callable[[], None]] = None) -> None:
+        """Atomically publish a fresh engine tier, as JAX's: the hot-swap
+        commit point.  The caller built AND warmed the new primary off
+        the serving path (``serve/hotswap.py`` and
+        ``obs/quality/escalate.py`` do); here each replica's engine
+        pointer flips, so its next batch dispatches on the new engine
+        while a batch in flight finishes on the one it started with.
+        ``freshness`` flips with the tier (None keeps the served
+        identity: a probe escalation is no freshness event);
+        ``prepare`` runs under the ingest lock, at the flip."""
+        engines = list(engines)
+        if len(engines) != len(self.engines):
+            raise ValueError(
+                f"swap must preserve the replica count: got "
+                f"{len(engines)}, tier has {len(self.engines)}")
+        # Under the ingest lock, so a durable-ingest apply or checkpoint
+        # never races the republish; _lock nests inside it, as always.
+        with self._ingest_lock:
+            if prepare is not None:
+                prepare()
+            with self._lock:
+                self.engines = engines
+                self.engine = engines[0]
+                if freshness is not None:
+                    self.freshness = freshness
+                self.swaps += 1
+                generation = self.swaps
+            for rep, eng in zip(self.replicaset.replicas, engines):
+                rep.engine = eng
+        if self.qtrace is not None:
+            # Answers after this marker come from the new tier: a tail
+            # spike beside it is swap cost, not load.
+            self.qtrace.marker("hotswap_flip", generation=generation)
+        log.warning("hot-swap %d: serving tier republished (%s)",
+                    generation,
+                    freshness.identity() if freshness else "same identity")
+
     def summary(self) -> Dict[str, Any]:
         dropped = self._queries_dropped()
         stats = [e.stats() for e in self.engines]
@@ -925,6 +980,8 @@ class RetrievalServer:
             "device": str(self.engine.device),
             **(self.freshness.identity() if self.freshness else {}),
             **(self.freshness.ages() if self.freshness else {}),
+            # The hot-swap count (absent until the tier swapped).
+            **({"hot_swaps": self.swaps} if self.swaps else {}),
             # The last remediation per policy (key absent = the policy
             # never fired; block absent = no engine attached).
             **({"remediation": self.remediation.last_by_policy()}

@@ -245,6 +245,27 @@ def _first_failure(exc: BaseException) -> str:
     return msg
 
 
+def _abandon_capture(device: torch.device, pool) -> None:
+    """Close the caching allocator's side of a capture that failed.  When
+    a capture is invalidated (a host read inside it), PyTorch's
+    ``capture_end`` raises at ``cudaStreamEndCapture`` before it ends the
+    allocator's allocation to the graph's pool: the allocator then counts
+    a capture under way for good, so ``empty_cache`` never again returns
+    a cached block, and every stream's cache only grows (on an H100 the
+    process held 74-76 GiB of wholly free blocks on three streams).
+    Ending it here and releasing the pool, which no graph then owns, lets
+    both go.  When the end raises, ``capture_end`` got past it (the body
+    raised inside a capture that stayed valid): the graph owns the pool
+    and releases it itself when it is freed, so it is left alone."""
+    idx = (device.index if device.index is not None
+           else torch.cuda.current_device())
+    try:
+        torch._C._cuda_endAllocateToPool(idx, pool)
+    except RuntimeError:
+        return
+    torch._C._cuda_releasePool(idx, pool)
+
+
 def _host_floats(row: Dict[str, Any]) -> Dict[str, float]:
     """A step's metrics as host floats, its 0-d fp32 device tensors read
     in one copy (the synchronous loop's per-step telemetry read); the
@@ -1353,13 +1374,18 @@ class Solver:
         reserved0 = torch.cuda.memory_reserved(dev)
         before = _build.counter_state()
         graph = torch.cuda.CUDAGraph()
+        # The graph's own pool, named here so that a failed capture can
+        # give it back (_abandon_capture).
+        pool = torch.cuda.graph_pool_handle()
         t0 = time.perf_counter()
         try:
             # thread_local: the staging thread's copies and allocations
             # on its own stream stay legal while this thread captures.
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
                 self._pipelined_body(p.x, p.lab, capacity)
         except Exception as e:
+            _abandon_capture(dev, pool)
             raise PipelineCaptureError(
                 f"the pipelined step ({self.engine} engine, batch "
                 f"{tuple(p.x.shape)}) cannot be captured as one CUDA "

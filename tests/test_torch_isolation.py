@@ -3,8 +3,9 @@ its entry points refuse to drop to the CPU unasked, and a kernel wrapper
 counts only launches of its kernel.
 
   * the CPU serve path (and with telemetry: shadow scoring and query
-    tracing under ``--live-obs`` with admission, remediation and a
-    re-warm, ``prof --quality`` and ``watch``,
+    tracing under ``--live-obs`` with admission, remediation, a re-warm,
+    an index hot-swap and probe escalation, ``prof --quality`` and
+    ``watch``,
     the fleet report, the
     merged traces, ``prof --fleet``, ``timeline``, ``parse``,
     ``device-query`` and ``prof --step serve``), the train CLI (dense and ``--engine
@@ -20,8 +21,9 @@ counts only launches of its kernel.
     import of ``jax``, ``flax`` or ``npairloss_tpu`` (the ``pipeline/``,
     ``parallel/`` and ``obs/`` packages — ``obs/quality``,
     ``obs/qtrace`` and ``obs/live`` among them — and
-    ``resilience/guard.py``, ``resilience/remediate.py`` and
-    ``serve/admission.py`` named among
+    ``resilience/guard.py``, ``resilience/remediate.py``,
+    ``serve/admission.py``, ``serve/hotswap.py`` and
+    ``obs/quality/escalate.py`` named among
     the scanned files: the guard and the stdlib-only telemetry modules
     are copies, not imports);
   * entry points called without ``device=`` raise when CUDA is absent,
@@ -110,6 +112,14 @@ srv, _ = cli.build_server(args)
 assert srv.admission is not None and srv.remediation is not None
 srv.run_jsonl(io.StringIO(lines[0] + "\n"), io.StringIO())
 assert srv.rewarm()["warmup_s"] >= 0.0
+# The two actuators that build a second tier: an index hot-swap, then
+# probe escalation (4 of 4 clusters probed: the flat fallback).
+from npairloss_tpu_torch.obs.quality.escalate import ProbeEscalator
+from npairloss_tpu_torch.serve.hotswap import SnapshotSwapper
+idx.save("g.z.gidx")
+assert SnapshotSwapper(srv, index_prefix="g.").swap()["swapped"] == ["index"]
+assert ProbeEscalator(srv).escalate()["fallback"] == "flat"
+assert srv.summary()["hot_swaps"] == 2
 from npairloss_tpu_torch.obs.live import prometheus_text
 assert "npairloss_serve_rows_total" in prometheus_text(srv.live.registry)
 cli.close_observers(srv)
@@ -359,7 +369,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     "obs/live/__init__.py", "obs/live/alerts.py", "obs/live/export.py",
     "obs/live/live.py", "obs/live/registry.py", "obs/live/slo.py",
     "obs/live/watch.py", "obs/live/watchdogs.py",
-    "resilience/remediate.py", "serve/admission.py",
+    "resilience/remediate.py", "serve/admission.py", "serve/hotswap.py",
+    "obs/quality/escalate.py",
 ])
 def test_pipeline_and_guard_modules_are_scanned_and_clean(module):
     path = PORT / module

@@ -712,3 +712,64 @@ def test_train_compile_cache_flag_sets_the_build_dirs(tmp_path):
         assert _build.BUILD_DIR == tmp_path / "cc" / "kernels"
     finally:
         pipeline.disable_compile_cache()
+
+
+@pytest.mark.parametrize("already_ended", [False, True])
+def test_a_failed_capture_hands_its_pool_back(monkeypatch, already_ended):
+    """A capture that fails (a host read inside it) must end the caching
+    allocator's allocation to the graph's pool and release the pool:
+    PyTorch's own ``capture_end`` raises before it ends it, and until it
+    is ended ``empty_cache`` returns no cached block.  Where the end
+    raises (``capture_end`` ended it: the body raised inside a capture
+    that stayed valid, ``already_ended``), the graph owns the pool and
+    releases it when freed, so a release here would be a second one.
+    The card's side is ``chip_smoke.py``'s refusal drill; here the CUDA
+    calls are fakes that record what ``Solver._capture`` asks of them."""
+    import contextlib
+    import types
+
+    from npairloss_tpu_torch.train.solver import PipelineCaptureError
+
+    calls = []
+    handle = (0, 7)
+    for name in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: handle)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+
+    @contextlib.contextmanager
+    def graph(g, pool=None, capture_error_mode=None):
+        calls.append(("capture", pool, capture_error_mode))
+        yield
+
+    def end(idx, pool):
+        calls.append(("end", idx, pool))
+        if already_ended:
+            raise RuntimeError("endAllocatePool: not currently recording")
+
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch._C, "_cuda_endAllocateToPool", end,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_releasePool",
+                        lambda idx, pool: calls.append(("release", idx, pool)),
+                        raising=False)
+    solver, _ = _make_solver(True)
+    solver.device = torch.device("cuda", 0)
+
+    def body(*a):
+        if already_ended:
+            raise ValueError("a shape the step does not take")
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    solver._pipelined_body = body
+    p = types.SimpleNamespace(x=torch.zeros(2, 16), lab=torch.zeros(2))
+    with pytest.raises(PipelineCaptureError,
+                       match="does not take" if already_ended
+                       else "not permitted"):
+        solver._capture(p, 4)
+    want = [("capture", handle, "thread_local"), ("end", 0, handle)]
+    if not already_ended:
+        want.append(("release", 0, handle))
+    assert calls == want
+    assert solver.pipeline_stats["captures"] == 0

@@ -1330,8 +1330,15 @@ def test_serving_flags_match_the_jax_cli(cmd, dest, monkeypatch):
 def test_unported_serve_flags_are_refused(flag, capsys):
     from npairloss_tpu_torch import cli
 
+    argv = ["serve", "--index", "x", flag, "1"]
+    if flag == "--watch-snapshots":
+        # Ported with the hot-swap: it parses, and without --snapshot
+        # the tier is refused before anything loads (exit 2, as JAX's).
+        args = cli.build_parser().parse_args(argv + ["--device", "cpu"])
+        assert cli.build_server(args) == 2
+        return
     with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["serve", "--index", "x", flag, "1"])
+        cli.build_parser().parse_args(argv)
     assert "unrecognized arguments" in capsys.readouterr().err
 
 
