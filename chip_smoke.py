@@ -97,22 +97,26 @@ Phases (any failure raises, exits nonzero and prints no result line):
    --ivf-clusters 246 --probe-impl fused --replicas 2 --wal-dir ...
    --wal-checkpoint-every 4 --snapshot <iter 6> --model googlenet_pallas``
    built in-process by the CLI's ``build_server`` and run by
-   ``run_http`` on an ephemeral port: 512 single queries, 64 bodies of
+   ``run_http`` on an ephemeral port: 256 single queries, 32 bodies of
    32 and 16 raw images from 8 client threads, a bad body (400) and an
    unknown path (404), ``/healthz``; every query answered, each gallery
    row its own top-1, the probe and three stem kernels launched; the
    restored trunk on the card against the CPU; ``serve.replica_crash``
-   under load with no client error; 16 ingest records of 256 rows (ids
-   from 10^6) acked with their seq, four checkpoints, the WAL GC'd to
-   the last; each sampled new row its own top-1; the probe kernel
-   against its plain version at the grown cap; then the in-process tier
-   drained and the same configuration as a ``serve --http 0``
-   subprocess: 8 more records acked, SIGKILL before a checkpoint, a
-   restart that loads the watermark-16 checkpoint and replays exactly
-   the 8 records above it, each sampled acked row its own top-1 and
-   present once; SIGTERM under load: exit 75, the drain record, and a
-   final checkpoint that holds every acked row once; HTTP p50/p99,
-   ack, checkpoint, replay and restart times beside the card line;
+   under half that load with no client error; 16 ingest records of 256
+   rows (ids from 10^6) acked with their seq, four checkpoints, the WAL
+   GC'd to the last; as in JAX, the acked rows only wait for a
+   checkpoint: 32 sampled new rows are not answered, and the served
+   index is unchanged; then the in-process tier drained and the same
+   configuration as a ``serve --http 0`` subprocess: 8 more records
+   acked, SIGKILL before a checkpoint, a restart that loads the
+   watermark-16 checkpoint and replays exactly the 8 records above it
+   into its pending list: each sampled row of the checkpoint its own
+   top-1 and present once, no sampled replayed row answered; SIGTERM
+   under load: exit 75, the drain record, and a final checkpoint that
+   holds every acked row once; the probe kernel against its plain
+   version at the restarted tier's layout (the watermark-16 commit
+   clustered into 246 as its reconciliation does); HTTP p50/p99, ack,
+   checkpoint, replay and restart times beside the card line;
 5f. the Inception-BN trunk and the precision policies: ``train --model
    googlenet_bn --precision mxu`` in-process on the phase-5 solver cut
    (batch 120, 224², synthetic), on the dense engine, with ``--engine
@@ -280,7 +284,7 @@ Phases (any failure raises, exits nonzero and prints no result line):
    steps 4-5, the exported solverstate's momentum and iteration equal to
    the snapshot's); (f) ``serve --model resnet50`` and ``--model
    vit_b16`` (``cli.build_server``, buckets of 1, the fused probe) over
-   an IVF gallery of 2,048 of the trunk's own embeddings: 38 raw 224²
+   an IVF gallery of 2,048 of the trunk's own embeddings: 19 raw 224²
    queries answered, each equal to a direct forward plus the scan
    engine (the probe's plain version; scores within ``TOL["serve_trunk"]``,
    rows outside ties), the probe launched once a query;
@@ -420,7 +424,51 @@ Phases (any failure raises, exits nonzero and prints no result line):
    oracle; the drain invariant, 9 hot swaps and 9 ``hotswap_flip``
    markers, both logs valid, the four serving kernels launched; no thread
    of the phase outlives it;
-13. a ``{"kernels": [...]}`` line (launches of the serving kernels from
+13. multi-tenant serving, under ``build/tenant_smoke/``, in this process
+   (no process is spawned): four SOP-size galleries (``synthetic_gallery``
+   at seeds + 0..3, ids from 10^7 k so an id names its tenant), acme and
+   bcorp committed as IVF (246 clusters), ccorp and dcorp flat, each
+   under its own prefix; the phase's card bytes reckoned (the IVF
+   layouts, the flat galleries, four shadow oracles, bcorp's second tier
+   and a reference server) and three times that required free; then
+   ``serve --tenant-config`` (acme: the fused probe, a 50 qps quota with
+   a 1 s burst, a 250 ms p99 SLO, admission; bcorp: the fused probe;
+   ccorp and dcorp flat) with ``--wal-dir --wal-checkpoint-every 4
+   --live-obs --slo-tick 0.5 --telemetry-dir --shadow-rate 0.25
+   --replicas 2 --top-k 10 --probes 8`` and a 50 ms deadline through
+   ``cli.build_server`` over HTTP: (a) 64 sampled rows a tenant each its
+   own top-1 in its own tenant, every answer stamped with its tenant;
+   acme's body of 32 bit for bit equal to a single-tenant ``serve
+   --index-prefix`` server on acme's commit built in this process; mixed
+   bodies of 32 split by tenant; (b) dcorp's warm-up adds no compile (it
+   shares ccorp's signatures), whether acme and bcorp share theirs
+   printed with their caps; (d) under 8 clients on bcorp, 4 ingest
+   records of 256 rows to bcorp acked with their seqs, new rows pending
+   (not answered) before the checkpoint, the 4th ack publishing
+   ``bcorp-w000000000004.gidx``, the 2 s sweep swapping bcorp (its
+   ``index_path`` and ``hot_swaps`` 1) within ``TN_FLIP_S``, 64 new rows
+   then each bcorp's own top-1, fixed queries of acme/ccorp/dcorp (one a
+   request, acme's every 0.5 s, alone in their tenants' groups, so at
+   bucket 1) equal bit
+   for bit before, during and after the flip, the other WALs empty,
+   bcorp's worst single query before, during and after printed; (c)
+   acme under its quota for 5 s beside 7 clients on the others, then 4
+   of 8 clients on acme (two with bodies of 32) until ``/metrics`` shows
+   ``serve_quota_exhausted{tenant="acme"} 1`` and ``/healthz``
+   ``tenant_quota@acme`` firing (15 s limit): acme's sheds all its own
+   (the quota's message, and its admission's once the alert burns), no
+   other tenant shed, failed or paged, no client error, per-tenant
+   p50/p99 before and during the burst; (f) an unknown and a missing
+   tenant answered as in-band errors, the drain: ``errors_unattributed``
+   2, the per-tenant counters summing to the aggregates, the drain
+   invariant, no post-warmup compile over every engine; (e)
+   ``quality.<tid>.jsonl`` valid with window rows for all four (their
+   oracles built before the traffic), the flat tenants' shadow recall@10
+   >= 0.999, ``serve_recall_at_10{tenant=
+   "acme"}`` exported; (g) the probe against its plain version at acme's
+   layout (B = 32, fp32) and its launches in the phase at least the IVF
+   tenants' dispatches; no thread of the phase outlives it;
+14. a ``{"kernels": [...]}`` line (launches of the serving kernels from
    phase 4, of the training kernels from phase 5, of ``lrn_bwd`` from
    the phase-5b recompute step, of the blockwise kernels from phase
    6b; the five blockwise kernels again as ``<name>:bf16``, their bf16
@@ -432,8 +480,8 @@ Phases (any failure raises, exits nonzero and prints no result line):
    8 (a)'s launches of the probe and the three stem kernels as
    ``launches_phase8``, phase 9 (a)'s as ``launches_phase9``, phase
    10's (both parts) as ``launches_phase10``, phase 11's (all three
-   parts) as ``launches_phase11``, and phase 12's serving path as
-   ``launches_phase12``); then
+   parts) as ``launches_phase11``, phase 12's serving path as
+   ``launches_phase12``, and phase 13's as ``launches_phase13``); then
    the card line; then the last line ``{"ok": true, "device": {...}}``.
 
 A phase that raises prints one line naming the phase and the error's
@@ -446,6 +494,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import math
@@ -2294,6 +2343,8 @@ def drive_resilience(torch, seed, detail, net_path, emb, labels, step_ms):
 
 TIER_WORK = os.path.join("build", "tier_smoke")
 TIER_CLIENTS = 8
+TIER_SINGLES = 256         # single queries in the first load (half after)
+TIER_BODIES = 32           # bodies of 32 in the first load (half after)
 
 
 def _http_call(port, method, path, body=None, timeout=120.0):
@@ -2370,8 +2421,8 @@ def _tier_load(port, emb, rows, bodies, images, extra=()):
     return lat, others
 
 
-def _probe_at_grown_cap(torch, timer, index, queries):
-    """The probe kernel against its plain version on the grown layout
+def _probe_at_grown_cap(torch, timer, index, queries, what="4b"):
+    """The probe kernel against its plain version on a served layout
     (B = 32, probes 8, fp32): (row of numbers)."""
     import numpy as np
 
@@ -2389,7 +2440,7 @@ def _probe_at_grown_cap(torch, timer, index, queries):
     kl = min(10, 8 * layout.cap)
     args = (q, layout.packed, layout.rows, lids, owned, None)
     _, _, _, _, err, ties = _probe_against_plain(
-        torch, np, args, kl, "fp32", "4b probe at the grown cap")
+        torch, np, args, kl, "fp32", f"{what} probe at cap {layout.cap}")
     valid_rows = int((layout.rows[lids.long()] >= 0).sum().item())
     side = (lids.numel() * layout.cap * 4 + q.numel() * 4
             + 2 * lids.numel() * 4 + 32 * kl * 8)
@@ -2491,7 +2542,8 @@ def drive_serving_tier(torch, seed, detail, emb, labels, snap_path):
     from npairloss_tpu_torch.ops import _build
     from npairloss_tpu_torch.resilience import failpoints
     from npairloss_tpu_torch.resilience.wal import wal_info
-    from npairloss_tpu_torch.serve.index import index_info, load_newest
+    from npairloss_tpu_torch.serve.index import load_index, load_newest
+    from npairloss_tpu_torch.serve.ivf import IVFIndex
     from npairloss_tpu_torch.train.solver import (
         load_inference_state,
         restore_for_inference,
@@ -2534,8 +2586,8 @@ def drive_serving_tier(torch, seed, detail, emb, labels, snap_path):
         time.sleep(0.01)
     port = server.http_port
     rng = np.random.default_rng(seed + 40)
-    singles = rng.choice(emb.shape[0], size=512, replace=False)
-    bodies = rng.choice(emb.shape[0], size=(64, 32), replace=False)
+    singles = rng.choice(emb.shape[0], size=TIER_SINGLES, replace=False)
+    bodies = rng.choice(emb.shape[0], size=(TIER_BODIES, 32), replace=False)
     images = rng.standard_normal((16, 224, 224, 3), dtype=np.float32)
     lat2, others = _tier_load(port, emb, singles, bodies, images, extra=[
         ("POST", "/query", "{this is not json"), ("GET", "/nope", None),
@@ -2553,7 +2605,7 @@ def drive_serving_tier(torch, seed, detail, emb, labels, snap_path):
                  "fused_bias_relu_pool"):
         if launches.get(name, 0) < 1:
             fail(f"4b: kernel {name} was not launched by the tier")
-    n_q = 512 + 64 * 32 + 16
+    n_q = TIER_SINGLES + TIER_BODIES * 32 + 16
     s = server.summary()
     if not (s["queries"] == s["answered"] == n_q and s["errors"] == 0
             and s["queries_dropped"] == 0):
@@ -2589,7 +2641,8 @@ def drive_serving_tier(torch, seed, detail, emb, labels, snap_path):
 
     # 2. A replica crash under load.
     failpoints.arm("serve.replica_crash", times=1, delay=4)
-    lat1, _ = _tier_load(port, emb, singles[:256], bodies[:32], [])
+    lat1, _ = _tier_load(port, emb, singles[:TIER_SINGLES // 2],
+                         bodies[:TIER_BODIES // 2], [])
     failpoints.reset()
     s = server.summary()
     if server.replicaset.alive_count != 1 or s["errors"] != 0 \
@@ -2602,7 +2655,9 @@ def drive_serving_tier(torch, seed, detail, emb, labels, snap_path):
     log(f"[4b] serve.replica_crash: 0 client errors, 1 live replica: "
         f"{json.dumps(out['latency_1_live_replica'])} ({card})")
 
-    # 3. Ingest: 16 records of 256 rows, a checkpoint every 4.
+    # 3. Ingest: 16 records of 256 rows, a checkpoint every 4.  As in JAX,
+    # an acked record waits in the pending list for a checkpoint: the
+    # served index stays as it was, and no new row is answered yet.
     new_rows, new_labels, new_ids = _ingest_rows(seed + 41, emb)
     acks, ack_ms = _send_ingest(port, new_rows, new_labels, new_ids, 0, 16)
     if [a["seq"] for a in acks] != list(range(1, 17)):
@@ -2615,28 +2670,25 @@ def drive_serving_tier(torch, seed, detail, emb, labels, snap_path):
     if info["segments"] != 1 or info["first_seq"] != 16:
         fail(f"4b: the WAL is not GC'd to watermark 16: {info}")
     publish_ms = list(server._checkpoint_fn.__self__.publish_ms)
-    probe_new = rng.choice(4096, size=256, replace=False)
-    jobs = [json.dumps({"id": int(r), "embedding": new_rows[r].tolist()})
-            for r in probe_new]
-    for r, body in zip(probe_new, jobs):
-        code, a, _ = _http_call(port, "POST", "/query", body)
-        top = a["neighbors"][0] if code == 200 else a
-        if code != 200 or top["gallery_id"] != int(new_ids[r]):
-            fail(f"4b: ingested row {int(new_ids[r])}: top-1 {top}")
-    cap1 = index.layout.cap
-    if not cap1 > cap0:
-        fail(f"4b: the ingest did not grow the cap ({cap0} -> {cap1})")
-    timer = Timer(torch)
-    out["probe_grown_cap"] = _probe_at_grown_cap(
-        torch, timer, index, new_rows[probe_new[:32]])
-    del timer
+    probe_new = rng.choice(4096, size=32, replace=False)
+    code, ans, _ = _http_call(port, "POST", "/query", "\n".join(
+        json.dumps({"id": int(r), "embedding": new_rows[r].tolist()})
+        for r in probe_new))
+    if code != 200 or any(
+            int(new_ids[r]) in [n["gallery_id"] for n in a["neighbors"]]
+            for r, a in zip(probe_new, ans)):
+        fail(f"4b: a pending row was answered: {code} {str(ans)[:300]}")
+    if index.size != emb.shape[0] or index.layout.cap != cap0 \
+            or index.ingest_watermark != 0:
+        fail(f"4b: the served index changed in place: {index.size} rows, "
+             f"cap {index.layout.cap}, watermark {index.ingest_watermark}")
     out["ingest_ack"] = _pcts(ack_ms)
     out["checkpoint_publish_ms"] = publish_ms
     log(f"[4b] 16 ingest records (4,096 rows): ack {json.dumps(out['ingest_ack'])}"
-        f" (append + fsync + apply), checkpoints {ckpts} in "
-        f"{[round(t, 1) for t in publish_ms]} ms, WAL GC'd to seq 16; cap "
-        f"{cap0} -> {cap1}; probe at the grown cap "
-        f"{json.dumps(out['probe_grown_cap'])} ({card})")
+        f" (append + fsync + pending), checkpoints {ckpts} in "
+        f"{[round(t, 1) for t in publish_ms]} ms, WAL GC'd to seq 16; 32 "
+        f"sampled new rows pending (none answered), the served index as it "
+        f"was ({card})")
 
     # 4. Drain the in-process tier; then the SIGKILL drill.
     server.preempt.request()
@@ -2666,10 +2718,10 @@ def drive_serving_tier(torch, seed, detail, emb, labels, snap_path):
     p = _TierProc(argv, os.path.join(work, "serve2.err"))
     try:
         code, first, _ = _http_call(p.port, "POST", "/query", json.dumps(
-            {"id": "first", "embedding": new_rows[-1].tolist()}))
+            {"id": "first", "embedding": new_rows[4095].tolist()}))
         out["restart_to_first_answer_s"] = time.perf_counter() - t_restart
         if code != 200 or first["neighbors"][0]["gallery_id"] \
-                != int(new_ids[6143]):
+                != int(new_ids[4095]):
             fail(f"4b: the first answer after the restart: {code} {first}")
         code, health, _ = _http_call(p.port, "GET", "/healthz")
         rec = health["ingest"]["recovery"]
@@ -2678,15 +2730,20 @@ def drive_serving_tier(torch, seed, detail, emb, labels, snap_path):
                 and rec["replayed_rows"] == 2048):
             fail(f"4b: the restart's recovery: {rec}")
         out["wal_replay_ms"] = rec["replay_ms"]
-        sample = np.concatenate([rng.choice(4096, 120, replace=False),
-                                 4096 + rng.choice(2048, 136,
+        # The 4,096 rows of the watermark-16 checkpoint are each their own
+        # top-1 once; the 2,048 replayed above it are pending (JAX's
+        # rule): none is answered.
+        sample = np.concatenate([rng.choice(4096, 128, replace=False),
+                                 4096 + rng.choice(2048, 64,
                                                    replace=False)])
         for r in sample:
             code, a, _ = _http_call(p.port, "POST", "/query", json.dumps(
                 {"id": int(r), "embedding": new_rows[r].tolist()}))
             nb = a["neighbors"] if code == 200 else [a, a]
-            if nb[0]["gallery_id"] != int(new_ids[r]) \
-                    or nb[1]["gallery_id"] == int(new_ids[r]):
+            got = [n.get("gallery_id") for n in nb]
+            if (r < 4096 and (got[0] != int(new_ids[r])
+                              or int(new_ids[r]) in got[1:])) \
+                    or (r >= 4096 and int(new_ids[r]) in got):
                 fail(f"4b: acked row {int(new_ids[r])} after the restart: "
                      f"{nb[:2]}")
 
@@ -2696,7 +2753,7 @@ def drive_serving_tier(torch, seed, detail, emb, labels, snap_path):
         def client(k):
             i = 0
             while not stop.is_set():
-                r = int(singles[(k * 64 + i) % 512])
+                r = int(singles[(k * 64 + i) % len(singles)])
                 try:
                     replies.append((r, _http_call(
                         p.port, "POST", "/query",
@@ -2750,6 +2807,20 @@ def drive_serving_tier(torch, seed, detail, emb, labels, snap_path):
                     drain["answered"], "late_503": 503 in codes,
                     "final": os.path.basename(final_path),
                     "final_rows": int(ids.shape[0])}
+    # The probe kernel at the restarted tier's layout: the watermark-16
+    # commit clustered as its --index-kind reconciliation clusters it.
+    t0 = time.perf_counter()
+    index = IVFIndex.from_gallery(
+        load_index(os.path.join(work, "g_w000000000016.gidx"),
+                   device="cuda"), clusters=246, seed=seed)
+    cap1 = index.layout.cap
+    timer = Timer(torch)
+    out["probe_restarted_cap"] = _probe_at_grown_cap(
+        torch, timer, index, new_rows[probe_new])
+    del timer, index
+    log(f"[4b] the restarted tier's layout (w16 re-clustered into 246 in "
+        f"{time.perf_counter() - t0:.1f} s): cap {cap0} -> {cap1}; probe "
+        f"{json.dumps(out['probe_restarted_cap'])} ({card})")
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[4b] SIGKILL after 8 acks -> restart loaded "
         f"{os.path.basename(rec['index_path'])}, replayed 8 records (2,048 "
@@ -2967,10 +3038,7 @@ def profile_bn_step(torch, solver, step_ms):
     device's busy time against the unprofiled median step of the same
     run, whose complement is the step's idle share.  None where the
     profiler recorded no device time."""
-    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
-
-    x, lab = next(synthetic_identity_batches(240, 60, 2, (224, 224, 3),
-                                             seed=32))
+    x, lab = _profile_batch()
     prof = profile_train_step(torch, lambda: solver.step(x, lab))
     if prof is None:
         return None
@@ -4512,14 +4580,22 @@ def _state_equal(torch, a, b):
     return differ + sorted(set(sb) - set(sa)), len(sa)
 
 
+@functools.cache
+def _profile_batch():
+    """The profiles' one synthetic batch (240 at 224², seed 32), made
+    once: the host's generator takes ~0.5 s a batch."""
+    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
+
+    return next(synthetic_identity_batches(240, 60, 2, (224, 224, 3),
+                                           seed=32))
+
+
 def _profile_pipe_step(torch, solver, step_ms):
     """Three more replays of the captured step under ``torch.profiler``
     (``profile_train_step``); the idle share against the run's median."""
-    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
     from npairloss_tpu_torch.device import upload
 
-    x, lab = next(synthetic_identity_batches(240, 60, 2, (224, 224, 3),
-                                             seed=32))
+    x, lab = _profile_batch()
     x, lab = upload(x, solver.device), upload(lab, solver.device)
     cap = solver._window.capacity
     solver._clear_ring()
@@ -4531,10 +4607,7 @@ def _profile_pipe_step(torch, solver, step_ms):
 
 
 def _profile_sync_step(torch, solver, step_ms):
-    from npairloss_tpu_torch.data.synthetic import synthetic_identity_batches
-
-    x, lab = next(synthetic_identity_batches(240, 60, 2, (224, 224, 3),
-                                             seed=32))
+    x, lab = _profile_batch()
     prof = profile_train_step(torch, lambda: solver.step(x, lab))
     if prof is not None:
         prof["idle_share"] = 1.0 - prof["busy_ms"] / step_ms
@@ -5863,6 +5936,7 @@ def drive_distribution(torch, seed, detail):
 # -- phase 7: the ResNet and ViT trunk families, Caffe interchange -------------
 
 TRUNK_WORK = os.path.join("build", "trunk_smoke")
+TRUNK_SERVE_QUERIES = 19   # raw 224² queries a trunk in 7 (f)
 RESNET_SOLVER = os.path.join("examples", "resnet50_sop_solver.prototxt")
 RESNET_NET = os.path.join("examples", "resnet50_sop.prototxt")
 P7_ITERS = 6
@@ -6361,7 +6435,7 @@ def check_caffe_interchange(torch, seed, card):
 def check_trunk_serving(torch, seed, name, card):
     """7 (f): ``serve --model name`` (``cli.build_server``, buckets of 1,
     the fused probe) over an IVF gallery of the trunk's own embeddings of
-    2,048 images, answering 38 raw-image queries (gallery images) over
+    2,048 images, answering 19 raw-image queries (gallery images) over
     JSONL; each answer equal to a direct trunk forward of the query at
     batch 1 plus the scan engine (the probe's plain version)."""
     import numpy as np
@@ -6383,7 +6457,7 @@ def check_trunk_serving(torch, seed, name, card):
             x = torch.randint(-128, 128, (128, 224, 224, 3), generator=gen,
                               device="cuda").float()
             if i == 0:
-                queries = x[:38].cpu().numpy()
+                queries = x[:TRUNK_SERVE_QUERIES].cpu().numpy()
             embs.append(model(x).float().cpu().numpy())
     emb = np.concatenate(embs)
     labels = np.arange(emb.shape[0]) // 2
@@ -8912,6 +8986,632 @@ def check_hotswap(torch, seed, detail):
     return launches
 
 
+# -- phase 13: multi-tenant serving -----------------------------------------
+
+TN_WORK = os.path.join("build", "tenant_smoke")
+TN_TICK_S = 0.5
+TN_CLIENTS = 8
+TN_DEADLINE_MS = 50.0      # one batch a body of 32, as phase 12's servers
+TN_SAMPLE = 64             # sampled rows a tenant in (a), new rows in (d)
+TN_STEADY_S = 5.0          # (c): acme under its quota ...
+TN_BURST_S = 5.0           # ... then half the clients on acme
+TN_ALERT_S = 15.0          # the limit on the quota alert's firing
+TN_FLIP_S = 8.0            # two 2 s sweeps plus the swap's load and warm-up
+TN_ACME_QPS = 50.0
+TENANTS = (("acme", "ivf"), ("bcorp", "ivf"), ("ccorp", "flat"),
+           ("dcorp", "flat"))
+
+
+def _tn_manifest(work):
+    """Four tenants in one ``npairloss-tenants-v1`` manifest: acme (IVF,
+    the fused probe, a 50 qps quota with a 1 s burst, a 250 ms p99 SLO,
+    admission), bcorp (IVF, the fused probe: the ingest and swap
+    tenant), ccorp and dcorp (flat, one N x D)."""
+    def prefix(tid):
+        return os.path.join(work, "idx", f"{tid}-")
+
+    return {"schema": "npairloss-tenants-v1", "tenants": [
+        {"tenant_id": "acme", "index_prefix": prefix("acme"),
+         "index_kind": "ivf", "probe_impl": "fused",
+         "quota_qps": TN_ACME_QPS, "quota_burst_s": 1.0, "p99_ms": 250.0,
+         "admission": True},
+        {"tenant_id": "bcorp", "index_prefix": prefix("bcorp"),
+         "index_kind": "ivf", "probe_impl": "fused"},
+        {"tenant_id": "ccorp", "index_prefix": prefix("ccorp")},
+        {"tenant_id": "dcorp", "index_prefix": prefix("dcorp")}]}
+
+
+def check_tenants(torch, seed, detail):
+    """Phase 13 (see the module docstring): ``serve --tenant-config``
+    with four SOP-size galleries through ``cli.build_server`` in this
+    process, over HTTP; returns the serving path's launches (the
+    reference server's and the kernel check's excluded)."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.obs.quality.report import (
+        load_quality_report,
+        validate_quality_report,
+    )
+    from npairloss_tpu_torch.ops import _build
+    from npairloss_tpu_torch.resilience.wal import wal_info
+    from npairloss_tpu_torch.serve.index import GalleryIndex
+    from npairloss_tpu_torch.serve.ivf import IVFIndex
+    from npairloss_tpu_torch.serve.tenants import tenant_of_slo
+
+    card = detail["card"]
+    t_start, w_start = time.perf_counter(), time.time()
+    before_threads = {t.ident for t in threading.enumerate()}
+    work = os.path.abspath(TN_WORK)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "idx"))
+    # The galleries, each committed under its own prefix (the IVF ones
+    # as IVF commits); ids from 10^7 k, so a gallery_id names its tenant.
+    gals, caps = {}, {}
+    t0 = time.perf_counter()
+    for k, (tid, kind) in enumerate(TENANTS):
+        emb, labels = synthetic_gallery(seed + k)
+        ids = np.arange(emb.shape[0], dtype=np.int64) + 10 ** 7 * k
+        if kind == "ivf":
+            idx = IVFIndex.build_ivf(emb, labels, ids=ids, normalize=False,
+                                     seed=seed + k, device="cuda")
+            caps[tid] = (idx.n_clusters, idx.layout.cap)
+        else:
+            idx = GalleryIndex.build(emb, labels, ids=ids, normalize=False,
+                                     device="cpu")
+        idx.save(os.path.join(work, "idx", f"{tid}-0001.gidx"))
+        del idx
+        gals[tid] = (emb, ids)
+    n, d = gals["acme"][0].shape
+    commit_s = time.perf_counter() - t0
+    # Memory first: the phase's bytes, and three times that free.
+    layout = {tid: c * cap * d * 4 for tid, (c, cap) in caps.items()}
+    reckon = {"ivf_layouts": sum(layout.values()),
+              "flat_galleries": 2 * n * d * 4,
+              "shadow_oracles": 4 * n * d * 4,
+              # bcorp's second tier at the swap (its cap can grow with
+              # the ingest), and the single-tenant reference server.
+              "swap_tier": int(layout["bcorp"] * 1.1),
+              "reference_server": layout["acme"]}
+    reckon["total"] = sum(reckon.values())
+    _release(torch)
+    mem = card_memory(torch)
+    need = 3 * reckon["total"]
+    log(f"[13] the phase's bytes {json.dumps(reckon)}: three times that is "
+        f"{need / 2**30:.2f} GiB, free {mem['free_gib']:.2f} GiB "
+        f"({_mem_line(mem)})")
+    if mem["free_gib"] * 2**30 < need:
+        fail(f"13: {mem['free_gib']:.2f} GiB free, the phase needs "
+             f"{need / 2**30:.2f} GiB three times over; "
+             f"{json.dumps(mem['pools'][:8])}")
+    man_path = os.path.join(work, "tenants.json")
+    with open(man_path, "w") as f:
+        json.dump(_tn_manifest(work), f)
+    wal = os.path.join(work, "wal")
+    tel = os.path.join(work, "tel")
+    common = ["--probes", "8", "--top-k", "10", "--buckets", "1,8,32",
+              "--replicas", "2", "--deadline-ms", str(TN_DEADLINE_MS),
+              "--poll-s", "0.01", "--explicit-drops", "--seed", str(seed)]
+    args = cli.build_parser().parse_args([
+        "serve", "--tenant-config", man_path, "--wal-dir", wal,
+        "--wal-checkpoint-every", "4", "--live-obs", "--slo-tick",
+        str(TN_TICK_S), "--telemetry-dir", tel, "--shadow-rate",
+        str(QUALITY_RATE), "--shadow-window", str(QUALITY_WINDOW), *common])
+    t0 = time.perf_counter()
+    server, _ = cli.build_server(args)
+    out = {"commit_s": commit_s, "build_s": time.perf_counter() - t0,
+           "reckon": reckon, "memory_free_gib": mem["free_gib"]}
+    tenants = [tid for tid, _ in TENANTS]
+    primaries = {tid: server.tenants[tid].engines[0] for tid in tenants}
+    # (b) Shared signatures: dcorp's warm-up met only ccorp's.
+    if primaries["dcorp"].compiles_total != 0 or \
+            primaries["ccorp"].compiles_total < 1:
+        fail(f"13b: dcorp's warm-up compiled "
+             f"{primaries['dcorp'].compiles_total} (ccorp "
+             f"{primaries['ccorp'].compiles_total})")
+    shared_ivf = primaries["bcorp"].compiles_total == 0
+    out["signatures"] = {tid: e.compiles_total for tid, e in primaries.items()}
+    out["ivf_caps"] = caps
+    log(f"[13b] built in {out['build_s']:.1f} s (commits {commit_s:.1f} s); "
+        f"warm-up compiles by tenant {json.dumps(out['signatures'])}: dcorp "
+        f"shares ccorp's set; acme and bcorp (caps "
+        f"{caps['acme'][1]} / {caps['bcorp'][1]}) "
+        f"{'share theirs' if shared_ivf else 'do not share (caps differ)'}")
+    t0 = time.perf_counter()
+    for tid in tenants:
+        # The four shadow oracles, built here before any traffic (phase
+        # 12's order), not on the scorers' threads beside serving.
+        server.tenants[tid].shadow._oracle_engine()
+    out["oracles_s"] = time.perf_counter() - t0
+    gate = server.tenants["acme"].quota
+    th, port, res = _http_server(server)
+
+    def tenant_rows(tid):
+        """(wall_time, p99_ms) of the tenant's window rows so far."""
+        rows = []
+        with open(os.path.join(tel, "metrics.jsonl")) as f:
+            for line in f:
+                r = json.loads(line)
+                if r.get("tenant") == tid and "p99_ms" in r:
+                    rows.append((r["wall_time"], r["p99_ms"]))
+        return rows
+
+    def rec(tid, row, qid=None, rows=None):
+        emb = gals[tid][0] if rows is None else rows
+        return {"id": qid or f"{tid}-{row}", "tenant": tid,
+                "embedding": emb[row].tolist()}
+
+    def ask(recs):
+        code, ans, ms = _http_call(port, "POST", "/query",
+                                   "\n".join(json.dumps(r) for r in recs))
+        if code != 200:
+            fail(f"13: a body of {len(recs)} answered {code}: {ans}")
+        return (ans if isinstance(ans, list) else [ans]), ms
+
+    def acme_room(k):
+        """Wait until acme's bucket holds k tokens."""
+        with gate._lock:
+            have = min(gate.capacity,
+                       gate._tokens + (gate._clock() - gate._last) * gate.qps)
+        time.sleep(max(0.0, (k - have) / gate.qps) + 0.02)
+
+    def own_top1(tid, row, a, what):
+        if a.get("tenant") != tid or "neighbors" not in a or \
+                a["neighbors"][0]["gallery_id"] != int(gals[tid][1][row]):
+            fail(f"13{what}: {tid} row {row}: {str(a)[:300]}")
+
+    ref_launches: dict = {}
+
+    def excluded(body):
+        torch.cuda.synchronize()
+        c0 = _build.launch_counts()
+        r = body()
+        torch.cuda.synchronize()
+        for key, v in _build.launch_counts().items():
+            ref_launches[key] = ref_launches.get(key, 0) + v - c0.get(key, 0)
+        return r
+
+    rng = np.random.default_rng(seed + 130)
+    lat = {"before": {t: [] for t in tenants},
+           "during": {t: [] for t in tenants}}
+    threads = []
+    stop = threading.Event()
+    bad: list = []
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        # (a) Routing: 64 sampled rows a tenant, each its own top-1 in its
+        # own tenant; acme's body of 32 against a single-tenant server on
+        # acme's commit, bit for bit; mixed bodies through the split.
+        picks = {tid: rng.choice(n, TN_SAMPLE, replace=False)
+                 for tid in tenants}
+        for tid in tenants:
+            for half in (picks[tid][:32], picks[tid][32:]):
+                if tid == "acme":
+                    acme_room(32)
+                ans, _ = ask([rec(tid, int(r)) for r in half])
+                for r, a in zip(half, ans):
+                    own_top1(tid, int(r), a, "a")
+        ref_rows = rng.choice(n, 32, replace=False)
+        acme_room(32)
+        tenant_ref, _ = ask([rec("acme", int(r), qid=f"ref{i}")
+                             for i, r in enumerate(ref_rows)])
+
+        def reference():
+            rargs = cli.build_parser().parse_args([
+                "serve", "--index-prefix", os.path.join(work, "idx", "acme-"),
+                "--index-kind", "ivf", "--probe-impl", "fused",
+                "--metrics-window", "0", *common])
+            ref, _ = cli.build_server(rargs)
+            rth, rport, rres = _http_server(ref)
+            try:
+                code, ans, _ = _http_call(rport, "POST", "/query", "\n".join(
+                    json.dumps({"id": f"ref{i}", "embedding":
+                                gals["acme"][0][r].tolist()})
+                    for i, r in enumerate(ref_rows)))
+            finally:
+                ref.preempt.request()
+                rth.join(timeout=120)
+                cli.close_observers(ref)
+            if code != 200 or rres.get("rc") != 75:
+                fail(f"13a: the reference server answered {code}, {rres}")
+            return ans
+
+        single = excluded(reference)
+        if [a["neighbors"] for a in tenant_ref] != \
+                [a["neighbors"] for a in single]:
+            diff = [i for i, (a, b) in enumerate(zip(tenant_ref, single))
+                    if a["neighbors"] != b["neighbors"]]
+            fail(f"13a: acme's answers differ from a single-tenant server's "
+                 f"at {diff[:8]}")
+        for b in range(4):
+            acme_room(8)
+            mixed = [(tid, int(picks[tid][8 * b + j]))
+                     for j in range(8) for tid in tenants]
+            ans, _ = ask([rec(tid, r, qid=f"m{b}-{i}")
+                          for i, (tid, r) in enumerate(mixed)])
+            for (tid, r), a in zip(mixed, ans):
+                own_top1(tid, r, a, "a")
+        log(f"[13a] {4 * TN_SAMPLE} sampled rows each their own top-1 in "
+            f"their own tenant; acme's body of 32 equal to a single-tenant "
+            f"server's bit for bit; 4 mixed bodies of 32 split by tenant")
+
+        # (d) Ingest to bcorp and the sweep, under 8 clients on bcorp (its
+        # queries in flight across its own flip); fixed queries of acme,
+        # ccorp and dcorp before, during and after the flip, one a
+        # request and their tenants' only queries: each runs alone in its
+        # tenant's group, at bucket 1, whatever else its batch holds (a
+        # group's bucket decides its GEMM's shape, and so its bits).
+        new_rows, new_labels, new_ids = _ingest_rows(
+            seed + 131, gals["bcorp"][0], n_ids=256, per_id=4,
+            first_id=10 ** 7 + 10 ** 6)
+        fixed = {tid: [rec(tid, int(r), qid=f"f{tid}{i}")
+                       for i, r in enumerate(picks[tid][:8])]
+                 for tid in ("acme", "ccorp", "dcorp")}
+        seen: dict = {tid: [] for tid in fixed}
+        swaps: list = []
+        real_swap_one = server.tenant_swapper.swap_one
+
+        def timed_swap(tid):
+            t0 = time.perf_counter()
+            detail_ = real_swap_one(tid)
+            swaps.append((tid, t0, time.perf_counter(), detail_))
+            return detail_
+
+        server.tenant_swapper.swap_one = timed_swap
+
+        # The load's requests, serialized once: 64 singles a tenant and 8
+        # bodies of 32 for acme's burst (the clients run in this process,
+        # so their JSON work would share the server's interpreter).
+        pool = {}
+        for tid in tenants:
+            rows = rng.choice(n, 64, replace=False)
+            pool[tid, 1] = [([int(x)], json.dumps(rec(tid, int(x))))
+                            for x in rows]
+        pool["acme", 32] = [
+            (rows.tolist(), "\n".join(json.dumps(rec("acme", int(x)))
+                                      for x in rows))
+            for rows in rng.choice(n, (8, 32), replace=False)]
+
+        def load_client(k, tids, paced=0.0, phase_of=None, size=1):
+            """Requests in turn until ``stop``: singles, or (``size`` 32)
+            bodies of 32; every answer checked, acme's sheds collected,
+            single queries' ms kept by phase."""
+            i = 0
+            while not stop.is_set():
+                tid = tids[i % len(tids)]
+                reqs = pool[tid, size]
+                rows, body = reqs[(k * 7 + i) % len(reqs)]
+                try:
+                    code, ans, ms = _http_call(port, "POST", "/query", body)
+                except Exception as e:  # noqa: BLE001 — a client error is a finding
+                    bad.append(f"client {k}: {e}")
+                    return
+                ans = ans if isinstance(ans, list) else [ans]
+                ph = phase_of() if phase_of is not None else None
+                for x, a in zip(rows, ans):
+                    if code != 200:
+                        bad.append(f"{tid}: HTTP {code}")
+                    elif "error" in a:
+                        if tid != "acme":
+                            bad.append(f"{tid}: {a['error']}")
+                        else:
+                            sheds.append(a["error"])
+                    elif a.get("tenant") != tid or a["neighbors"][0][
+                            "gallery_id"] != int(gals[tid][1][x]):
+                        bad.append(f"{tid} row {x}: {str(a)[:200]}")
+                    elif size == 1 and ph is not None:
+                        lat[ph][tid].append(ms)
+                    elif size == 1:
+                        stamped.append((time.perf_counter() - ms / 1e3,
+                                        ms))
+                i += 1
+                if paced:
+                    time.sleep(paced)
+
+        def fixed_client():
+            # The three tenants' queries in turn, one request at a time,
+            # so each tenant has one in flight every few batches; acme's
+            # at most every 0.5 s, so that few of its window rows (the
+            # samples its p99 SLO burns on) meet the ingest's stalls.
+            last_acme = 0.0
+            while not stop.is_set():
+                for j in range(8):
+                    for tid in fixed:
+                        if tid == "acme":
+                            if time.perf_counter() - last_acme < 0.5:
+                                continue
+                            last_acme = time.perf_counter()
+                        t_send = time.perf_counter()
+                        try:
+                            a = ask([fixed[tid][j]])[0][0]
+                        except Exception as e:  # noqa: BLE001
+                            bad.append(f"fixed {tid}: {e}")
+                            return
+                        seen[tid].append((t_send, time.perf_counter(), j, a))
+
+        sheds: list = []
+        stamped: list = []  # (send time, ms) of (d)'s single queries
+        others = ["bcorp", "ccorp", "dcorp"]
+        before = {tid: [ask([r])[0][0] for r in fixed[tid]] for tid in fixed}
+        threads = [threading.Thread(target=load_client, args=(k, ["bcorp"]),
+                                    daemon=True) for k in range(TN_CLIENTS)]
+        threads.append(threading.Thread(target=fixed_client, daemon=True))
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        acks, ack_ms = [], []
+        for r in range(4):
+            t_pub = time.perf_counter()
+            sl = slice(256 * r, 256 * (r + 1))
+            code, ack, ms = _http_call(port, "POST", "/query", json.dumps({
+                "id": f"ingest{r}", "tenant": "bcorp", "ingest": {
+                    "ids": new_ids[sl].tolist(),
+                    "labels": new_labels[sl].tolist(),
+                    "embeddings": new_rows[sl].tolist()}}))
+            if code != 200 or ack.get("seq") != r + 1 or \
+                    ack.get("ingested") != 256 or ack.get("tenant") != "bcorp":
+                fail(f"13d: ingest record {r} answered {code}: {ack}")
+            acks.append(ack)
+            ack_ms.append(ms)
+            if r == 0:
+                ans, _ = ask([rec("bcorp", x, qid=f"p{x}", rows=new_rows)
+                              for x in range(8)])
+                if any(int(new_ids[x]) in [nb["gallery_id"]
+                                           for nb in a["neighbors"]]
+                       for x, a in enumerate(ans)):
+                    fail("13d: a pending row was answered before the "
+                         "checkpoint")
+        t_ack = time.perf_counter()
+        ckpt = os.path.join(work, "idx", "bcorp-w000000000004.gidx")
+        if not os.path.isdir(ckpt):
+            fail(f"13d: the 4th ack published no {ckpt}")
+        while not str(server.tenants["bcorp"].freshness.index_path
+                      ).endswith("bcorp-w000000000004.gidx"):
+            if time.perf_counter() - t_ack > TN_FLIP_S:
+                fail(f"13d: bcorp's index_path unchanged {TN_FLIP_S} s after "
+                     f"the checkpoint")
+            time.sleep(0.02)
+        flip_s = time.perf_counter() - t_ack
+        time.sleep(1.5)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        if bad or any(t.is_alive() for t in threads):
+            fail(f"13d: client errors {bad[:5]}")
+        stop.clear()
+        after = {tid: [ask([r])[0][0] for r in fixed[tid]] for tid in fixed}
+        flips = [x for x in swaps if x[0] == "bcorp"]
+        if len(swaps) != 1 or len(flips) != 1:
+            fail(f"13d: swaps {[(x[0], x[3]) for x in swaps]}")
+        _, s0, s1, sdet = flips[0]
+        # "During the flip": between the checkpoint's publication and the
+        # flip (the sweep's wait, then the swap's load and warm-up);
+        # in_swap counts those inside swap_one itself.
+        overlap, in_swap = {}, {}
+        for tid, got in seen.items():
+            want = [_strip_ages(a) for a in after[tid]]
+            overlap[tid] = sum(1 for x in got if x[0] <= s1 and x[1] >= t_ack)
+            in_swap[tid] = sum(1 for x in got if x[0] <= s1 and x[1] >= s0)
+            got = got + [(0.0, 0.0, j, a) for j, a in enumerate(before[tid])]
+            differ = [(j, a) for _, _, j, a in got
+                      if _strip_ages(a) != want[j]]
+            if differ or not overlap[tid]:
+                j, a = differ[0] if differ else (0, {})
+                fail(f"13d: {tid}'s fixed queries across bcorp's swap: "
+                     f"{len(got)} sent, {overlap[tid]} during it, "
+                     f"{len(differ)} answers differ (query {j}: "
+                     f"{_strip_ages(a)[:300]} against {want[j][:300]})")
+        block = server.summary()["tenants"]["bcorp"]
+        if block.get("hot_swaps") != 1 or \
+                not block["index_path"].endswith("bcorp-w000000000004.gidx"):
+            fail(f"13d: bcorp's block {block}")
+        pick_new = rng.choice(1024, TN_SAMPLE, replace=False)
+        for half in (pick_new[:32], pick_new[32:]):
+            ans, _ = ask([rec("bcorp", int(x), qid=f"n{x}", rows=new_rows)
+                          for x in half])
+            for x, a in zip(half, ans):
+                if a["neighbors"][0]["gallery_id"] != int(new_ids[x]):
+                    fail(f"13d: new row {int(new_ids[x])}: {str(a)[:300]}")
+        for tid in ("acme", "ccorp", "dcorp"):
+            info = wal_info(os.path.join(wal, tid))
+            if info["records"] != 0:
+                fail(f"13d: {tid}'s WAL holds {info}")
+        t_flip = t_ack + flip_s
+
+        def worst(a, b):
+            ms = [x for t, x in stamped if t <= b and t + x / 1e3 >= a]
+            return (max(ms), len(ms)) if ms else (None, 0)
+
+        tail = {"before_4th_ack": worst(0.0, t_pub),
+                "4th_ack_publish": worst(t_pub, t_ack),
+                "until_flip": worst(t_ack, t_flip),
+                "after_flip": worst(t_flip, time.perf_counter())}
+        out["ingest"] = {"ack_ms": _pcts(ack_ms), "flip_after_ack_s": flip_s,
+                         "bcorp_single_worst_ms": tail,
+                         "swap_s": s1 - s0, "warmup_s": sdet["warmup_s"],
+                         "fixed_sends": {t: len(v) for t, v in seen.items()},
+                         "fixed_during_flip": overlap,
+                         "fixed_inside_swap_one": in_swap}
+        log(f"[13d] under {TN_CLIENTS} clients on bcorp, 4 ingest records of "
+            f"256 rows to bcorp acked with seqs "
+            f"1-4 (ack {json.dumps(out['ingest']['ack_ms'])}), pending until "
+            f"the 4th published bcorp-w000000000004.gidx; the sweep swapped "
+            f"bcorp {flip_s:.2f} s after that ack (swap {s1 - s0:.3f} s, "
+            f"warm-up {sdet['warmup_s']} s); {TN_SAMPLE} new rows their own "
+            f"top-1; acme/ccorp/dcorp fixed queries bit for bit across the "
+            f"flip ({json.dumps(out['ingest']['fixed_sends'])} sends, "
+            f"{json.dumps(overlap)} from the checkpoint to the flip, "
+            f"{json.dumps(in_swap)} inside the swap itself); bcorp's worst "
+            f"single query (ms, count) {json.dumps(tail)}; their "
+            f"WALs empty ({card})")
+
+        # (c) Quota isolation: acme under its quota while 7 clients load
+        # the others, then half the clients on acme until its quota alert
+        # fires.
+        phase = ["before"]
+        threads = [threading.Thread(
+            target=load_client, args=(0, ["acme"], 0.05, lambda: phase[0]),
+            daemon=True)]
+        threads += [threading.Thread(
+            target=load_client, args=(k, others, 0.0, lambda: phase[0]),
+            daemon=True) for k in range(1, TN_CLIENTS)]
+        for t in threads:
+            t.start()
+        time.sleep(TN_STEADY_S)
+        sheds_before = len(sheds)
+        phase[0] = "during"
+        # Half the clients on acme: three more join client 0, two of them
+        # with bodies of 32 (the quota counts each query of a body).
+        burst = [threading.Thread(
+            target=load_client, args=(100 + k, ["acme"], 0.0,
+                                      lambda: phase[0], 32 if k else 1),
+            daemon=True) for k in range(3)]
+        for t in burst:
+            t.start()
+        threads += burst
+        time.sleep(TN_BURST_S)
+        t_poll = time.perf_counter()
+        while True:
+            _, metrics = _scrape(port, "/metrics")
+            _, health = _scrape(port, "/healthz")
+            health = json.loads(health)
+            firing = sorted(health.get("alerts", {}))  # {slo: summary}
+            if 'serve_quota_exhausted{tenant="acme"} 1' in metrics and \
+                    "tenant_quota@acme" in firing:
+                break
+            if time.perf_counter() - t_poll > TN_ALERT_S:
+                fail(f"13c: no tenant_quota@acme firing within {TN_ALERT_S}"
+                     f" s: alerts {firing}, acme's quota {gate.stats()}, "
+                     f"{len(sheds)} sheds seen, client errors {bad[:3]}, its SLO "
+                     f"{health.get('slo', {}).get('tenant_quota@acme')}; "
+                     f"acme's window rows (s, p99 ms) "
+                     f"{[(round(t - w_start, 1), p) for t, p in tenant_rows('acme')]}")
+            time.sleep(0.25)
+        alert_s = time.perf_counter() - t_poll
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        if bad or any(t.is_alive() for t in threads):
+            fail(f"13c: client errors {bad[:5]}")
+        summ = server.summary()["tenants"]
+        quota_msg = "quota exceeded for tenant 'acme'"
+        adm_msg = "load shed: tenant 'acme' SLO burning"
+        n_quota = sum(1 for e in sheds if e.startswith(quota_msg))
+        n_adm = sum(1 for e in sheds if e.startswith(adm_msg))
+        if sheds_before or not n_quota or n_quota + n_adm != len(sheds) \
+                or summ["acme"]["rejected"] < len(sheds) \
+                or summ["acme"]["quota"]["sheds"] < n_quota:
+            fail(f"13c: acme's sheds: {sheds_before} before the burst, "
+                 f"{n_quota} quota, {n_adm} admission of {len(sheds)}; "
+                 f"block {summ['acme']}")
+        for tid in others:
+            if summ[tid]["rejected"] or summ[tid]["errors"]:
+                fail(f"13c: {tid} was shed or failed: {summ[tid]}")
+        leaked = [a for a in firing if tenant_of_slo(a) not in (None, "acme")]
+        gauge = 'serve_recall_at_10{tenant="acme"}' in metrics
+        if leaked or not gauge:
+            fail(f"13c: alerts {firing}; acme's recall gauge exported: "
+                 f"{gauge}")
+        acme_rows = [p for _, p in tenant_rows("acme")]
+        out["quota"] = {
+            "sheds_quota": n_quota, "sheds_admission": n_adm,
+            "acme_window_rows": len(acme_rows),
+            "acme_rows_p99_over_250": sum(p > 250.0 for p in acme_rows),
+            "rejected": summ["acme"]["rejected"],
+            "alert_after_burst_s": alert_s,
+            "latency": {ph: {t: _pcts(v) for t, v in lat[ph].items() if v}
+                        for ph in lat}}
+        log(f"[13c] acme under its {TN_ACME_QPS:.0f} qps quota for "
+            f"{TN_STEADY_S:.0f} s, then 4 of 8 clients on it: "
+            f"{n_quota} quota sheds (\"{quota_msg}\"), "
+            f"{n_adm} by its admission once tenant_quota@acme burned; the "
+            f"alert fired {alert_s:.1f} s after the {TN_BURST_S:.0f} s burst,"
+            f" no other tenant shed or paged; acme's window rows with a p99 "
+            f"over its 250 ms SLO: {out['quota']['acme_rows_p99_over_250']} "
+            f"of {len(acme_rows)}; per-tenant p50/p99 ms before "
+            f"{json.dumps(out['quota']['latency']['before'])} and during "
+            f"{json.dumps(out['quota']['latency']['during'])} ({card})")
+
+        # (f) Refusals, then the drain.
+        for r in ({"id": "ghost", "tenant": "ghost",
+                   "embedding": gals["acme"][0][0].tolist()},
+                  {"id": "nobody", "embedding": gals["acme"][0][0].tolist()}):
+            code, a, _ = _http_call(port, "POST", "/query", json.dumps(r))
+            if code != 200 or "unknown tenant" not in a.get("error", ""):
+                fail(f"13f: {r['id']} answered {code}: {a}")
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        launches = {k: launches.get(k, 0) - ref_launches.get(k, 0)
+                    for k in ("probe_topk",)}
+        dispatches = sum(e.dispatches for tid in ("acme", "bcorp")
+                         for e in server.tenants[tid].engines)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        server.preempt.request()
+        th.join(timeout=120)
+        cli.close_observers(server)
+    if th.is_alive() or res.get("rc") != 75:
+        fail(f"13f: the server did not drain: {res}")
+    s = server.summary()
+    per = s["tenants"]
+    sums = {k: sum(row[k] for row in per.values()) for k in
+            ("queries", "answered", "errors", "rejected")}
+    sums["errors"] += s["errors_unattributed"]
+    if s["errors_unattributed"] != 2 or s["errors"] != 2 or any(
+            sums[k] != s[k] for k in sums) or s["queries"] != s["answered"] \
+            + (s["errors"] - s["errors_refused"]) + s["rejected"] or \
+            s["queries_dropped"] != 0 or server._compiles_after_warmup():
+        fail(f"13f: the drain {json.dumps(s)[:800]}")
+    recalls = {}
+    for tid in tenants:
+        path = os.path.join(tel, f"quality.{tid}.jsonl")
+        recs = load_quality_report(path) if os.path.exists(path) else []
+        err = validate_quality_report(recs) if recs else "missing"
+        windows = [r for r in recs if r.get("kind") == "window"]
+        if err or not windows:
+            fail(f"13e: {path}: {err or 'no window row'}")
+        recalls[tid] = min(w["recall_at_10"] for w in windows)
+    if min(recalls["ccorp"], recalls["dcorp"]) < 0.999:
+        fail(f"13e: the flat tenants' shadow recall@10 {recalls}")
+    # (g) The probe against its plain version at acme's layout.
+    if launches["probe_topk"] < dispatches:
+        fail(f"13g: {launches} probe launches for {dispatches} IVF "
+             "dispatches")
+    timer = Timer(torch)
+    acme_index = server.tenants["acme"].engines[0].index
+    probe = _probe_at_grown_cap(torch, timer, acme_index,
+                                gals["acme"][0][picks["acme"][:32]], "13g")
+    del timer, acme_index, server
+    time.sleep(0.5)
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in before_threads and t.is_alive()]
+    if left:
+        fail(f"13: threads outlived the phase: {left}")
+    _release(torch)
+    out.update(launches=launches, ivf_dispatches=dispatches,
+               shadow_recall_at_10_min=recalls, probe=probe,
+               drain={k: s[k] for k in ("queries", "answered", "errors",
+                                        "rejected", "errors_unattributed",
+                                        "hot_swaps")},
+               wall_s=time.perf_counter() - t_start)
+    detail["tenants"] = out
+    log(f"[13g] ivf_probe at acme's layout (B = 32, probes 8, fp32, cap "
+        f"{probe['cap']}): max_abs_err {probe['max_abs_err']}, "
+        f"{probe['ms']:.4f} ms (plain {probe['plain_ms']:.4f}, bound "
+        f"{probe['bound_ms']:.4f}); {launches['probe_topk']} probe launches "
+        f"for {dispatches} IVF dispatches ({card})")
+    log(f"[13] four tenants behind one tier: drain {json.dumps(out['drain'])},"
+        f" shadow recall@10 minima {json.dumps(recalls)}; "
+        f"{out['wall_s']:.1f} s ({card})")
+    return out
+
+
 def _release(torch):
     """Return the card's cached memory between phases.  cuBLAS keeps a
     workspace for every stream it ran on (32 MiB each on this card),
@@ -9047,6 +9747,8 @@ def main() -> int:
     p11_launches = check_remediation(torch, args.seed, detail)
     phase("12 (hot-swap, probe escalation)")
     p12_launches = check_hotswap(torch, args.seed, detail)
+    phase("13 (multi-tenant serving)")
+    p13 = check_tenants(torch, args.seed, detail)
     phase("the kernels line")
 
     def entry(name, source, replaces, rows, counter, path=None):
@@ -9184,6 +9886,9 @@ def main() -> int:
         # Phase 12: the hot-swaps and the escalation ladder's tiers.
         if p12_launches.get(counter, 0):
             k["launches_phase12"] = p12_launches[counter]
+        # Phase 13: four tenants behind one tier, the IVF two on the probe.
+        if p13["launches"].get(counter, 0):
+            k["launches_phase13"] = p13["launches"][counter]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         fail(f"kernels not launched on their path: {idle}")

@@ -23,7 +23,15 @@ is here (GoogLeNet, Inception-BN, the ResNets, ViT-B/16, the MLP).
            trunk; ``--wal-dir`` acknowledges ingest records only after
            their fsync and publishes index checkpoints under the prefix,
            which a restart loads before replaying the log above their
-           watermark; ``--telemetry-dir DIR`` writes the run directory
+           watermark (as in JAX, an acked row reaches answers through a
+           checkpoint and then a hot-swap or a restart);
+           ``--tenant-config PATH`` (instead of ``--index``/
+           ``--index-prefix``) serves the galleries of a
+           ``npairloss-tenants-v1`` manifest behind one tier: each record
+           names its ``tenant``, and each tenant has its own index,
+           freshness, quota, SLOs, admission, shadow scorer, WAL under
+           ``--wal-dir/<tenant>`` and hot-swap (a sweep every 2 s over its
+           prefix); ``--telemetry-dir DIR`` writes the run directory
            (manifest, one ``serve`` row per metrics window and the drain
            summary, the span trace) and ``--trace-dir DIR`` the trace
            alone; with it, ``--shadow-rate R`` re-scores a seeded sample of
@@ -198,65 +206,35 @@ def cmd_index(args) -> int:
 
 
 class _IngestCheckpoints:
-    """The durable-ingest side of ``serve --wal-dir``: every applied
-    record goes into the served index in place and into a pending list;
-    a checkpoint at watermark ``wm`` adds the pending records up to
+    """The durable-ingest side of ``serve --wal-dir``, as JAX's
+    ``_apply_ingest``/``_publish_checkpoint``: an applied record only
+    joins a pending list, and the served index never changes in place.
+    A checkpoint at watermark ``wm`` adds the pending records up to
     ``wm`` to the last published commit (held on the CPU, loaded from
     disk at the first publish) and commits it as
-    ``{prefix}w{wm:012d}.gidx`` — the same artifact the JAX package
+    ``{prefix}w{wm:012d}.gidx``, the same artifact the JAX package
     publishes: the committed kind stays the base's, whatever kind is
     served.  The ``w`` sorts after every digit, so checkpoints win
-    ``load_newest`` over the commits they grew from.  Once ``server`` is
-    set, records apply into the server's current tier, so a hot-swap's
-    new index takes the records acked after it, and :meth:`on_flip`
-    re-applies the pending records its commit lacks."""
+    ``load_newest`` over the commits they grew from.  Acked rows reach
+    answers through a checkpoint and then a hot-swap or a restart, which
+    loads the newest commit and replays the WAL above its watermark into
+    this list again.  ``tenant`` names the tenant in the log lines
+    (``serve --tenant-config``: one instance per tenant)."""
 
-    def __init__(self, served, base_path: str, prefix: str):
-        self.served = served
-        self.server = None
+    def __init__(self, base_path: str, prefix: str,
+                 tenant: Optional[str] = None):
         self.base_path = base_path
         self.prefix = prefix
+        self.tenant = tenant
         self.base = None
         self.pending: list = []
         self.publish_ms: list = []  # wall ms of each published checkpoint
 
-    def _index(self):
-        return (self.server.engine.index if self.server is not None
-                else self.served)
-
-    def _add(self, index, records) -> None:
-        import numpy as np
-
-        index.add(np.concatenate([d[0] for _, d in records]),
-                  np.concatenate([d[1] for _, d in records]),
-                  ids=np.concatenate([d[2] for _, d in records]))
-        index.ingest_watermark = int(records[-1][0])
-
-    def on_flip(self, index) -> None:
-        """A hot-swap's new index, at the flip (under the server's
-        ingest lock): the applied records above its commit's watermark
-        that no checkpoint has published yet go into it, in seq order."""
-        missing = [p for p in self.pending
-                   if p[0] > int(index.ingest_watermark)]
-        if missing:
-            self._add(index, missing)
-            log.warning("hot-swap: re-applied %d ingest record(s) above "
-                        "the new index's watermark", len(missing))
-
     def apply(self, payload) -> None:
-        self.apply_many([payload])
-
-    def apply_many(self, payloads) -> None:
-        """Apply records in seq order with one add to the served index
-        (the startup replay's whole backlog re-packs the layout once)."""
         from npairloss_tpu_torch.serve.server import decode_ingest_payload
 
-        if not payloads:
-            return
-        records = [(int(p["seq"]), decode_ingest_payload(p))
-                   for p in payloads]
-        self.pending.extend(records)
-        self._add(self._index(), records)
+        self.pending.append((int(payload["seq"]),
+                             decode_ingest_payload(payload)))
 
     def publish(self, wm: int):
         import numpy as np
@@ -277,9 +255,64 @@ class _IngestCheckpoints:
         self.base_path = path
         self.pending = [p for p in self.pending if p[0] > wm]
         self.publish_ms.append((time.perf_counter() - t0) * 1e3)
-        log.info("ingest checkpoint: %s (watermark %d, +%d row(s))", path,
-                 wm, sum(d[0].shape[0] for d in pending))
+        log.info("%singest checkpoint: %s (watermark %d, +%d row(s))",
+                 f"tenant {self.tenant!r} " if self.tenant else "", path, wm,
+                 sum(d[0].shape[0] for d in pending))
         return path
+
+
+def _tenant_registry(args):
+    """``--tenant-config``'s parsed ``TenantRegistry`` (None without the
+    flag), loaded and checked before any index loads, as JAX's: exit 2
+    on a bad manifest, with a trunk (tenant mode serves embedding queries
+    only) or with ``--remediate`` (per-tenant hot-swap and admission
+    replace it)."""
+    if not args.tenant_config:
+        return None
+    from npairloss_tpu_torch.serve.tenants import TenantRegistry
+
+    try:
+        registry = TenantRegistry.load(args.tenant_config)
+    except (OSError, ValueError) as e:
+        log.error("--tenant-config %s: %s", args.tenant_config, e)
+        return 2
+    if args.snapshot or args.watch_snapshots or args.weights:
+        log.error("--tenant-config serves embedding queries only "
+                  "(per-tenant model snapshots are not a thing yet) "
+                  "— drop --snapshot/--watch-snapshots%s",
+                  "/--weights" if args.weights else "")
+        return 2
+    if args.remediate:
+        log.error("--tenant-config does not compose with "
+                  "--remediate: per-tenant hot-swap is armed "
+                  "automatically and per-tenant admission replaces "
+                  "load_shed (docs/SERVING.md §Multi-tenant)")
+        return 2
+    return registry
+
+
+def _query_tracer(args, specs, live):
+    """``serve --qtrace``'s ``QueryTracer`` (None without it).  The
+    per-query SLO defaults to the armed p99 watchdog's target (one
+    latency bar, two enforcement points: the pager on the aggregate, the
+    exemplar on the query), else to 250 ms, as JAX's."""
+    if not args.qtrace:
+        return None
+    from npairloss_tpu_torch.obs.qtrace import QTraceConfig, QueryTracer
+
+    slo_ms = args.qtrace_slo_ms
+    if slo_ms <= 0 and live is not None:
+        slo_ms = next((float(s.target) for s in specs
+                       if s.metric == "serve_p99_ms" and s.op == "<="), 0.0)
+    if slo_ms <= 0:
+        slo_ms = 250.0
+    tracer = QueryTracer(
+        QTraceConfig(exemplars=args.qtrace_exemplars, slo_ms=slo_ms),
+        registry=live.registry if live is not None else None,
+        out_path=os.path.join(args.telemetry_dir, "qtrace.json"))
+    log.info("query tracing armed: slo %.1f ms, %d exemplars", slo_ms,
+             args.qtrace_exemplars)
+    return tracer
 
 
 def build_server(args):
@@ -288,8 +321,10 @@ def build_server(args):
     ``--index-kind``, the WAL recovered and replayed above the commit's
     watermark, the trunk (``--snapshot``/``--weights``), the warmed
     engine and its replicas, and the server with its (not yet installed)
-    ``PreemptionSignal``.  Returns ``(server, wal)``, or an exit code
-    when the arguments are refused."""
+    ``PreemptionSignal``; with ``--tenant-config``, one such gallery per
+    tenant behind one tier (:func:`_build_tenant_server`).  Returns
+    ``(server, wal)``, or an exit code when the arguments are
+    refused."""
     from npairloss_tpu_torch.device import resolve_device
     from npairloss_tpu_torch.resilience.preempt import PreemptionSignal
     from npairloss_tpu_torch.serve.batcher import BatcherConfig
@@ -307,24 +342,34 @@ def build_server(args):
     )
 
     # Arg-only checks first: a misconfigured invocation fails before the
-    # index loads and the buckets warm.
-    refusal = _unported_model(args.model) if args.model else None
-    if refusal:
-        log.error("%s", refusal)
-        return 2
-    if args.wal_dir and not args.index_prefix:
-        log.error("--wal-dir needs --index-prefix (ingest checkpoints "
-                  "publish under the prefix, and a restart loads the newest "
-                  "one)")
-        return 2
-    if args.snapshot and args.weights:
-        log.error("--snapshot and --weights both give the trunk's weights; "
-                  "pass one")
-        return 2
+    # index loads and the buckets warm.  The hot-swap, remediation and
+    # tenant checks come in JAX's order, so a refusal names the same
+    # fault as JAX's.
     if args.watch_snapshots and not args.snapshot:
         log.error("--watch-snapshots needs --snapshot (the hot-swap restores "
                   "new params INTO the served model; embedding-only serving "
                   "can only watch --index-prefix)")
+        return 2
+    policies = _remediation_policies(
+        args, "serve", lambda pols: _serve_actions(args, pols))
+    if isinstance(policies, int):
+        return policies
+    registry = _tenant_registry(args)
+    if isinstance(registry, int):
+        return registry
+    refusal = _unported_model(args.model) if args.model else None
+    if refusal:
+        log.error("%s", refusal)
+        return 2
+    if args.wal_dir and not args.index_prefix and registry is None:
+        log.error("--wal-dir needs --index-prefix (ingest checkpoints "
+                  "publish under the prefix, and a restart loads the newest "
+                  "one); in tenant mode each tenant's index_prefix plays "
+                  "that role")
+        return 2
+    if args.snapshot and args.weights:
+        log.error("--snapshot and --weights both give the trunk's weights; "
+                  "pass one")
         return 2
     if args.replicas < 1:
         log.error("--replicas must be >= 1, got %d", args.replicas)
@@ -344,10 +389,6 @@ def build_server(args):
         log.error("--admission %s needs --live-obs (admission is driven by "
                   "the SLO burn-rate engine)", args.admission)
         return 2
-    policies = _remediation_policies(
-        args, "serve", lambda pols: _serve_actions(args, pols))
-    if isinstance(policies, int):
-        return policies
     specs = _live_specs(args, "serve",
                         max_queue=args.max_queue * args.replicas)
     if isinstance(specs, int):
@@ -358,6 +399,8 @@ def build_server(args):
 
         enable_compile_cache(args.compile_cache)
     device = resolve_device(args.device)
+    if registry is not None:
+        return _build_tenant_server(args, registry, specs, buckets, device)
     if args.index_prefix:
         found = load_newest(args.index_prefix, device=device)
         if found is None:
@@ -398,7 +441,7 @@ def build_server(args):
             WriteAheadLog,
         )
 
-        ingest = _IngestCheckpoints(index, index_path, args.index_prefix)
+        ingest = _IngestCheckpoints(index_path, args.index_prefix)
         t0 = time.perf_counter()
         try:
             wal = WriteAheadLog(
@@ -409,7 +452,8 @@ def build_server(args):
         except WalCorruptionError as e:
             log.error("--wal-dir %s refused: %s", args.wal_dir, e)
             return 2
-        ingest.apply_many(payloads)
+        for payload in payloads:
+            ingest.apply(payload)
         st = wal.stats()
         recovery = {"index_path": index_path,
                     "base_watermark": base_watermark,
@@ -463,26 +507,7 @@ def build_server(args):
         admission = controller_from_args(args.admission_slos,
                                          registry=live.registry)
         live.add_listener(admission.on_statuses)
-    qtracer = None
-    if args.qtrace:
-        from npairloss_tpu_torch.obs.qtrace import QTraceConfig, QueryTracer
-
-        # The per-query SLO defaults to the armed p99 watchdog's target
-        # (one latency bar, two enforcement points: the pager on the
-        # aggregate, the exemplar on the query), else to 250 ms, as JAX's.
-        slo_ms = args.qtrace_slo_ms
-        if slo_ms <= 0 and live is not None:
-            slo_ms = next((float(s.target) for s in specs
-                           if s.metric == "serve_p99_ms" and s.op == "<="),
-                          0.0)
-        if slo_ms <= 0:
-            slo_ms = 250.0
-        qtracer = QueryTracer(
-            QTraceConfig(exemplars=args.qtrace_exemplars, slo_ms=slo_ms),
-            registry=live.registry if live is not None else None,
-            out_path=os.path.join(args.telemetry_dir, "qtrace.json"))
-        log.info("query tracing armed: slo %.1f ms, %d exemplars", slo_ms,
-                 args.qtrace_exemplars)
+    qtracer = _query_tracer(args, specs, live)
     server = RetrievalServer(
         engines,
         BatcherConfig(max_batch=buckets[-1], max_delay_ms=args.deadline_ms,
@@ -498,7 +523,6 @@ def build_server(args):
     if args.shadow_rate > 0:
         server.shadow = _shadow_scorer(args, server, index_path, telemetry)
     if wal is not None:
-        ingest.server = server
         server.attach_wal(
             wal, ingest.apply, checkpoint_fn=ingest.publish,
             checkpoint_every=args.wal_checkpoint_every,
@@ -513,8 +537,7 @@ def build_server(args):
                 server, index_prefix=args.index_prefix,
                 snapshot_prefix=args.watch_snapshots, model=model,
                 input_shape=input_shape, telemetry=telemetry,
-                index_transform=reconcile_index,
-                on_flip=ingest.on_flip if ingest is not None else None)
+                index_transform=reconcile_index)
         _arm_serve_remediation(args, server, live, policies, swapper)
     if live is not None:
         live.add_probe(lambda: _serve_probe(live, server, wal))
@@ -522,6 +545,222 @@ def build_server(args):
         # the kernels' build.
         live.start(period_s=args.slo_tick)
     return server, wal
+
+
+def _build_tenant_server(args, registry, specs, buckets, device):
+    """``serve --tenant-config``'s tier, after JAX's ``cmd_serve``: one
+    index per tenant (the newest under its ``index_prefix``, reconciled
+    to its ``index_kind``), one WAL per tenant under ``--wal-dir/<id>``
+    replayed into its pending list, the tenants' SLOs beside
+    ``--live-obs``'s, one engine set per tenant through a shared
+    ``ProgramCache`` (each warmed off the serving path; replicas share
+    their primary), each tenant's quota, admission controller and
+    ``TenantEntry``, the server with the first tenant's engines as its
+    replica anchors, the per-tenant hot-swap sweep every 2 s and, with
+    ``--shadow-rate``, one shadow scorer per tenant.  Returns ``(server,
+    None)``: the tenants' WALs ride their entries, and
+    :func:`close_observers` closes them; an exit code when refused."""
+    from npairloss_tpu_torch.resilience.preempt import PreemptionSignal
+    from npairloss_tpu_torch.serve.batcher import BatcherConfig
+    from npairloss_tpu_torch.serve.engine import EngineConfig, QueryEngine
+    from npairloss_tpu_torch.serve.index import load_newest
+    from npairloss_tpu_torch.serve.server import (
+        Freshness,
+        RetrievalServer,
+        ServerConfig,
+    )
+    from npairloss_tpu_torch.serve.tenants import (
+        ProgramCache,
+        QuotaGate,
+        TenantEntry,
+        TenantIngest,
+        TenantSwapper,
+        TenantTelemetry,
+        reconcile_index_kind,
+        tenant_slo_specs,
+    )
+
+    indexes = {}
+    for spec in registry:
+        found = load_newest(spec.index_prefix, device=device)
+        if found is None:
+            log.error("tenant %r: no valid index under prefix %r",
+                      spec.tenant_id, spec.index_prefix)
+            return 2
+        path, idx = found
+        indexes[spec.tenant_id] = (path, reconcile_index_kind(
+            idx, spec.index_kind, clusters=args.ivf_clusters,
+            seed=args.seed))
+        log.info("tenant %r: serving index %s (%s)", spec.tenant_id, path,
+                 spec.index_kind)
+    # One durability domain a tenant: its own WAL under --wal-dir/<id>,
+    # replayed above its commit's watermark into its pending list, and
+    # checkpoints under its own prefix.
+    ingests = {}
+    if args.wal_dir:
+        from npairloss_tpu_torch.resilience.wal import (
+            WalCorruptionError,
+            WriteAheadLog,
+        )
+
+        for spec in registry:
+            tid = spec.tenant_id
+            path, idx = indexes[tid]
+            wm = int(idx.ingest_watermark)
+            pending = _IngestCheckpoints(path, spec.index_prefix, tenant=tid)
+            wal_dir = os.path.join(args.wal_dir, tid)
+            try:
+                wal = WriteAheadLog(
+                    wal_dir,
+                    flush_interval_s=max(args.wal_flush_ms, 0.0) / 1e3)
+                replayed = 0
+                for payload in wal.replay(after_seq=wm):
+                    pending.apply(payload)
+                    replayed += 1
+            except WalCorruptionError as e:
+                log.error("--wal-dir %s (tenant %r) refused: %s", wal_dir,
+                          tid, e)
+                for ing in ingests.values():
+                    ing.wal.close()
+                return 2
+            ingests[tid] = TenantIngest(
+                wal, pending.apply, checkpoint_fn=pending.publish,
+                checkpoint_every=args.wal_checkpoint_every,
+                watermark=max(wm, wal.last_seq), checkpoint_watermark=wm)
+            log.info("tenant %r durable ingest armed: wal %s, replayed %d "
+                     "record(s) above watermark %d", tid, wal_dir, replayed,
+                     wm)
+    live = None
+    if specs is not None:
+        from npairloss_tpu_torch.obs.live import LiveObservatory
+
+        # The tenants' SLOs over their labeled streams: one evaluator, one
+        # alert engine, tenant-scoped tenant_*@<id> alert names.
+        specs = list(specs)
+        for spec in registry:
+            specs.extend(tenant_slo_specs(spec))
+        live = LiveObservatory(specs, out_dir=args.telemetry_dir)
+    telemetry = _serve_telemetry(args, None, buckets, live,
+                                 tenants=registry.ids())
+    programs = ProgramCache()
+    entries = {}
+    for spec in registry:
+        tid = spec.tenant_id
+        path, idx = indexes[tid]
+        cfg = EngineConfig(top_k=args.top_k, buckets=buckets,
+                           gallery_block=args.gallery_block,
+                           probes=args.probes, scoring=args.scoring,
+                           probe_impl=spec.probe_impl or args.probe_impl)
+        t_tel = (TenantTelemetry(telemetry, tid)
+                 if telemetry is not None else None)
+        primary = programs.engine_for(idx, cfg, telemetry=t_tel)
+        if not args.no_warmup:
+            primary.warmup(None)
+        engines = [primary] + [
+            QueryEngine(idx, cfg, telemetry=t_tel, share_compiled_with=primary)
+            for _ in range(args.replicas - 1)]
+        quota = None
+        if spec.quota_qps > 0:
+            quota = QuotaGate(spec.quota_qps, burst_s=spec.quota_burst_s,
+                              registry=(live.registry.view(tenant=tid)
+                                        if live is not None else None))
+        t_adm = None
+        t_slos = tenant_slo_specs(spec)
+        if spec.admission and live is not None and t_slos:
+            from npairloss_tpu_torch.serve.admission import (
+                AdmissionConfig,
+                AdmissionController,
+            )
+
+            t_adm = AdmissionController(
+                AdmissionConfig(slo_names=tuple(s.name for s in t_slos),
+                                probe_every=spec.probe_every),
+                registry=live.registry.view(tenant=tid))
+            live.add_listener(t_adm.on_statuses)
+        entries[tid] = TenantEntry(
+            spec, engines,
+            freshness=Freshness.collect(index=idx, index_path=path),
+            quota=quota, admission=t_adm, ingest=ingests.get(tid))
+    admission = None
+    if args.admission == "slo":
+        from npairloss_tpu_torch.serve.admission import controller_from_args
+
+        admission = controller_from_args(args.admission_slos,
+                                         registry=live.registry)
+        live.add_listener(admission.on_statuses)
+    server = RetrievalServer(
+        next(iter(entries.values())).engines,
+        BatcherConfig(max_batch=buckets[-1], max_delay_ms=args.deadline_ms,
+                      max_queue=args.max_queue),
+        ServerConfig(metrics_window=args.metrics_window, poll_s=args.poll_s,
+                     explicit_drops=args.explicit_drops),
+        preempt=PreemptionSignal(),
+        # Every freshness fact is the tenant's own in tenant mode.
+        freshness=None, telemetry=telemetry,
+        qtrace=_query_tracer(args, specs, live), live=live,
+        admission=admission)
+    server.enable_tenants(entries)
+    # The per-tenant hot-swap sweep, always on: "nothing newer" costs a
+    # directory listing a tenant, and a commit published under any
+    # tenant's prefix swaps that tenant while its neighbors answer.
+    server.tenant_swapper = TenantSwapper(
+        server, programs=programs, telemetry=telemetry,
+        ivf_clusters=args.ivf_clusters, seed=args.seed).start(period_s=2.0)
+    log.info("multi-tenant serving: %d tenant(s) %s; hot-swap sweep every "
+             "2.0s", len(entries), sorted(entries))
+    if args.shadow_rate > 0:
+        for i, (tid, entry) in enumerate(entries.items()):
+            entry.shadow = _tenant_shadow(args, entry, indexes[tid][0], i,
+                                          telemetry)
+        log.info("per-tenant shadow scoring armed: rate %g, window %d, %d "
+                 "scorer(s)", args.shadow_rate, args.shadow_window,
+                 len(entries))
+    if live is not None:
+        live.add_probe(lambda: _serve_probe(live, server, None))
+        # Started after warmup: the first windows reflect serving.
+        live.start(period_s=args.slo_tick)
+    return server, None
+
+
+def _tenant_shadow(args, entry, index_path: str, i: int, telemetry):
+    """One tenant's started ``ShadowScorer``, as JAX's: its own seeded
+    sampler (``--shadow-seed + i``), the oracle of its served gallery,
+    its recall floor and ``quality.<tenant>.jsonl``; ``TenantTelemetry``
+    stamps the tenant into every quality row, so the recall gauges land
+    on ``serve_recall_at_K{tenant=...}``, where its recall SLO reads
+    them."""
+    from npairloss_tpu_torch.obs.quality.shadow import (
+        ShadowConfig,
+        ShadowScorer,
+    )
+    from npairloss_tpu_torch.serve.manifest import read_manifest
+    from npairloss_tpu_torch.serve.tenants import TenantTelemetry
+
+    spec, tid = entry.spec, entry.tenant_id
+    try:
+        raw = read_manifest(index_path).get("parity")
+        baseline = raw if isinstance(raw, dict) else None
+    except Exception:  # noqa: BLE001 — the baseline is optional evidence
+        baseline = None
+    ks = tuple(k for k in (1, 5, 10) if k <= args.top_k)
+    floor = floor_metric = None
+    if spec.recall_floor is not None:
+        if spec.recall_k in ks:
+            floor = spec.recall_floor
+            floor_metric = f"serve_recall_at_{spec.recall_k}"
+        else:
+            log.warning("tenant %r recall floor targets recall@%d but --top-k "
+                        "%d samples only recall@{%s} — that floor can never "
+                        "see a sample", tid, spec.recall_k, args.top_k,
+                        ",".join(str(k) for k in ks))
+    return ShadowScorer(
+        lambda: entry.engines[0].index,
+        ShadowConfig(rate=args.shadow_rate, ks=ks, window=args.shadow_window,
+                     seed=args.shadow_seed + i),
+        telemetry=TenantTelemetry(telemetry, tid),
+        out_path=os.path.join(args.telemetry_dir, f"quality.{tid}.jsonl"),
+        baseline=baseline, recall_floor=floor,
+        floor_metric=floor_metric).start()
 
 
 def _live_specs(args, kind: str, max_queue: int = 256):
@@ -672,6 +911,21 @@ def _serve_probe(live, server, wal) -> None:
         live.registry.set("serve_wal_durable_seq", float(st["durable_seq"]))
         live.registry.set("serve_wal_torn_records",
                           float(st["torn_records"]))
+    tenants = getattr(server, "tenants", None) or {}
+    for tid in sorted(tenants):
+        # Each tenant's staleness and durability watermark is its own
+        # labeled stream.
+        entry = tenants[tid]
+        view = live.registry.view(tenant=tid)
+        if entry.ingest is not None:
+            ist = entry.ingest.stats()
+            view.set("serve_ingest_watermark", float(ist["watermark"]))
+            wst = ist.get("wal") or {}
+            if "durable_seq" in wst:
+                view.set("serve_wal_durable_seq", float(wst["durable_seq"]))
+        if entry.freshness is not None:
+            for key, v in entry.freshness.ages().items():
+                view.set(f"serve_{key}", v)
     if server.freshness is not None:
         ages = server.freshness.ages()
         if failpoints.should_fire("serve.stale_model"):
@@ -764,11 +1018,13 @@ class _QTraceCheckpoints:
         self._thread.join(timeout=30.0)
 
 
-def _serve_telemetry(args, index_path: str, buckets, live=None):
+def _serve_telemetry(args, index_path: Optional[str], buckets, live=None,
+                     tenants=None):
     """``serve``'s ``RunTelemetry``: ``--telemetry-dir`` (manifest, one
     ``serve`` row per metrics window and the drain summary, the span
     trace) or ``--trace-dir`` (the trace alone); None without either.
-    A live observatory's sink rides the sink chain."""
+    A live observatory's sink rides the sink chain; ``tenants`` (tenant
+    mode's ids) joins the manifest's config."""
     tel_dir, trace_dir = args.telemetry_dir, args.trace_dir
     if not (tel_dir or trace_dir):
         return None
@@ -794,6 +1050,7 @@ def _serve_telemetry(args, index_path: str, buckets, live=None):
             "live_obs": live is not None,
             "slo_config": args.slo_config,
             "remediate": bool(args.remediate),
+            **({"tenants": list(tenants)} if tenants is not None else {}),
         })
     return telemetry
 
@@ -824,13 +1081,30 @@ def cmd_serve(args) -> int:
 
 def close_observers(server) -> None:
     """Close what :func:`build_server` attached to a drained server, in
-    order: the shadow scorer (every accepted sample scored, the final
-    window and summary written), then the live observatory (its final
-    tick sees those last rows and lands a pending alert transition in
-    ``alerts.jsonl``), then the telemetry."""
-    if server.shadow is not None:
+    order: the tenant hot-swap sweep and the tenants' WALs, the shadow
+    scorers (every accepted sample scored, the final window and summary
+    written), then the live observatory (its final tick sees those last
+    rows and lands a pending alert transition in ``alerts.jsonl``), then
+    the telemetry."""
+    if server.tenant_swapper is not None:
         try:
-            server.shadow.close()
+            server.tenant_swapper.stop()
+        except Exception as e:  # noqa: BLE001 — the answers stand
+            log.error("tenant swapper stop failed: %s", e)
+    for tid in sorted(server.tenants):
+        ing = server.tenants[tid].ingest
+        if ing is not None:
+            try:
+                ing.wal.close()
+            except Exception as e:  # noqa: BLE001 — the answers stand
+                log.error("tenant %r wal close failed: %s", tid, e)
+    shadows = [server.shadow] + [server.tenants[tid].shadow
+                                 for tid in sorted(server.tenants)]
+    for shadow in shadows:
+        if shadow is None:
+            continue
+        try:
+            shadow.close()
         except Exception as e:  # noqa: BLE001 — the answers stand
             log.error("shadow scorer close failed: %s", e)
     if server.live is not None:
@@ -2365,6 +2639,15 @@ def build_parser() -> argparse.ArgumentParser:
     sv_idx.add_argument("--index-prefix", dest="index_prefix",
                         help="serve the newest valid <prefix>*.gidx (torn "
                         "and tmp commits skipped)")
+    sv_idx.add_argument(
+        "--tenant-config", dest="tenant_config", metavar="PATH",
+        help="multi-tenant serving: a npairloss-tenants-v1 JSON manifest "
+        "mapping tenant ids to index prefixes, per-tenant index kind/probe "
+        "impl, qps quota, recall floor and admission params; every "
+        "query/ingest record must carry a registered 'tenant' id, and "
+        "freshness, quotas, SLOs and shadow scoring split per tenant "
+        "behind one front end and one replica tier (replaces "
+        "--index/--index-prefix)")
     sv.add_argument("--snapshot",
                     help="port training snapshot (<prefix>iter_<k>.ckpt) "
                     "whose trunk encodes raw-'input' queries")

@@ -16,9 +16,10 @@ the probe budget spent (probing every cluster is the exact answer set,
 only slower) the next attempt **falls back to flat scoring**: the tier
 republishes on a flat ``GalleryIndex`` of the same gallery rows, in the
 same row order (so the flat scan's lowest-index tie rule picks what
-JAX's picks), with the same ``created`` stamp and ingest watermark (rows
-acked during the warm-up join at the flip), scored in fp32 where the
-tier scored int8 (the per-cluster scale has no flat equivalent).  A
+JAX's picks), with the same ``created`` stamp and ingest watermark
+(the served index never changes in place: acked rows wait in the
+ingest's pending list for the next checkpoint, as in JAX), scored in
+fp32 where the tier scored int8 (the per-cluster scale has no flat equivalent).  A
 further attempt on a flat tier raises :class:`EscalationExhaustedError`,
 which the remediation engine records as a FAILED attempt, as
 ``NothingNewerError``.  Every rung runs the fused probe kernel when the
@@ -75,7 +76,7 @@ class ProbeEscalator:
         if effective < kc:
             new_probes = min(effective * self.factor, kc)
             cfg = dataclasses.replace(old.cfg, probes=new_probes)
-            new_index, prepare = index, None
+            new_index = index
             detail: Dict[str, Any] = {"probes": new_probes,
                                       "probes_before": effective}
             log.warning("recall remediation: escalating IVF probes "
@@ -89,26 +90,12 @@ class ProbeEscalator:
                 old.cfg,
                 scoring=("fp32" if old.cfg.scoring == "int8"
                          else old.cfg.scoring))
-            # Ingest only appends, and each host array is replaced whole,
-            # so the shortest of the three is a consistent prefix; rows
-            # acked past it during the warm-up join at the flip.
-            emb, lab, ids = index.host_emb, index.host_labels, index.ids
-            n = min(len(emb), len(lab), len(ids))
             new_index = GalleryIndex.build(
-                emb[:n], lab[:n], ids=ids[:n], normalize=False,
-                device=index.device)
-
-            def prepare() -> None:
-                # Under the server's ingest lock, so no apply races it:
-                # the flat tier takes the rows the served one gained
-                # since the build, its watermark and its ``created``
-                # (same content, same age).
-                if index.size > n:
-                    new_index.add(index.host_emb[n:], index.host_labels[n:],
-                                  ids=index.ids[n:], normalize=False)
-                new_index.created = index.created
-                new_index.ingest_watermark = index.ingest_watermark
-
+                index.host_emb, index.host_labels, ids=index.ids,
+                normalize=False, device=index.device)
+            # Same content, same age, same watermark.
+            new_index.created = index.created
+            new_index.ingest_watermark = index.ingest_watermark
             detail = {"fallback": "flat", "probes_before": effective}
             log.warning("recall remediation: probe budget exhausted "
                         "(%d/%d) — falling back to the flat exact scan",
@@ -122,7 +109,7 @@ class ProbeEscalator:
             for _ in range(len(server.engines) - 1)]
         # Same gallery content, same freshness identity: None keeps the
         # served ages (a recall remediation is no freshness event).
-        server.swap_engines(engines, None, prepare=prepare)
+        server.swap_engines(engines, None)
         detail["warmup_s"] = round(warmup_s, 3)
         if self.telemetry is not None:
             self.telemetry.instant("serve/probe_escalation", **detail)

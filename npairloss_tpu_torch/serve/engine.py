@@ -46,7 +46,14 @@ shadow scorer's oracle among them, never consumes it.
 
 A replica engine (``share_compiled_with=primary``) shares the primary's
 index object, model and built kernels: one warmup warms the tier and no
-replica copies the gallery.  On the card every replica dispatches on its
+replica copies the gallery.  An engine over ANOTHER index
+(``share_programs_with=other``, multi-tenant serving through
+``serve/tenants.py``'s ``ProgramCache``) shares only ``other``'s
+signature set and its lock, so tenants at one geometry count a signature
+once: two flat galleries of the same N x D share every signature, two
+IVF galleries only when their packed layouts have the same shape.  It
+refuses, with JAX's messages, whatever its dispatch depends on: another
+``EngineConfig``, index kind, device or model object.  On the card every replica dispatches on its
 own CUDA stream (the primary on the current one), so replicas' batches
 overlap; a dispatch reads the
 index's published layout once and holds it until its results are on the
@@ -219,10 +226,34 @@ class QueryEngine:
     def __init__(self, index: GalleryIndex,
                  cfg: EngineConfig = EngineConfig(), model=None,
                  share_compiled_with: Optional["QueryEngine"] = None,
-                 telemetry=None):
+                 telemetry=None,
+                 share_programs_with: Optional["QueryEngine"] = None):
         if cfg.top_k > index.size:
             raise ValueError(
                 f"top_k={cfg.top_k} exceeds gallery size {index.size}")
+        if share_compiled_with is not None and \
+                share_programs_with is not None:
+            raise ValueError("share_compiled_with and share_programs_with "
+                             "are mutually exclusive")
+        if share_programs_with is not None:
+            other = share_programs_with
+            if other.cfg != cfg:
+                raise ValueError(
+                    "share_programs_with requires an identical "
+                    f"EngineConfig (got {cfg} vs {other.cfg})")
+            if other._ivf != isinstance(index, IVFIndex):
+                raise ValueError(
+                    "share_programs_with requires the same index kind "
+                    "(flat vs IVF programs differ)")
+            if other.device != index.device:
+                raise ValueError(
+                    "share_programs_with requires the same device (the "
+                    "dispatch runs where the index lives)")
+            if other.model is not model:
+                raise ValueError(
+                    "share_programs_with requires the same model object "
+                    "(the encode program captures it; state is an "
+                    "argument)")
         if share_compiled_with is not None:
             other = share_compiled_with
             if other.index is not index or other.cfg != cfg:
@@ -260,16 +291,18 @@ class QueryEngine:
         if telemetry is None and share_compiled_with is not None:
             telemetry = share_compiled_with.telemetry
         self.telemetry = telemetry
-        if share_compiled_with is not None:
-            self._seen_sigs = share_compiled_with._seen_sigs
-            self._sig_lock = share_compiled_with._sig_lock
+        shared = share_compiled_with or share_programs_with
+        if shared is not None:
+            self._seen_sigs = shared._seen_sigs
+            self._sig_lock = shared._sig_lock
         else:
             self._seen_sigs: set = set()  # guarded-by: _sig_lock
             self._sig_lock = threading.Lock()
         # A replica dispatches on a stream of its own, so replicas'
         # batches overlap on the card; a primary keeps the current one
         # (in turns with it, one engine on its own stream ran 0-14 %
-        # slower on an H100: PERF.md §6).
+        # slower on an H100: PERF.md §6).  An engine that shares programs
+        # is a primary too.
         self.stream = None
         if self.device.type == "cuda" and share_compiled_with is not None:
             self.stream = torch.cuda.Stream(self.device)

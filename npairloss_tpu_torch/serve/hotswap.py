@@ -66,10 +66,10 @@ class SnapshotSwapper:
     ``server.freshness`` at each swap, so repeated swaps chain.
     ``index_transform`` is ``serve``'s ``--index-kind`` reconciliation,
     applied to every swapped-in index (without it a flat commit would
-    demote an IVF tier to the exact scan at the first swap).
-    ``on_flip(index)`` runs under the server's ingest lock at the flip
-    when the index changed (``serve --wal-dir`` re-applies the acked
-    records the new commit lacks).  ``swap(alert=None)`` is the
+    demote an IVF tier to the exact scan at the first swap).  Under
+    ``serve --wal-dir`` the WAL records above a swapped-in commit's
+    watermark stay pending for the next checkpoint, as in JAX: a swap
+    never adds rows to the index it publishes.  ``swap(alert=None)`` is the
     remediation-action signature (the alert is named in the error, not
     consumed).
     """
@@ -83,7 +83,6 @@ class SnapshotSwapper:
         input_shape: Optional[Sequence[int]] = None,
         telemetry=None,
         index_transform: Optional[Callable[[Any], Any]] = None,
-        on_flip: Optional[Callable[[Any], None]] = None,
     ):
         if not index_prefix and not snapshot_prefix:
             raise ValueError(
@@ -102,7 +101,6 @@ class SnapshotSwapper:
                             if input_shape is not None else None)
         self.telemetry = telemetry
         self.index_transform = index_transform
-        self.on_flip = on_flip
 
     # -- discovery ---------------------------------------------------------
 
@@ -193,15 +191,15 @@ class SnapshotSwapper:
 
         def _prepare() -> None:
             # Under the server's ingest lock, at the flip itself: the
-            # watermark the tier answers from changes here.  Logged, so a
-            # watermark regression at swap time is visible evidence.
+            # watermark the tier answers from changes here, and the WAL
+            # records above it stay pending (they reach a served index
+            # through the next checkpoint).  Logged, so a watermark
+            # regression at swap time is visible evidence.
             if old_wm or new_wm:
                 log.info(
                     "hot-swap: ingest watermark %d -> %d (WAL records "
                     "above %d remain pending for the next checkpoint)",
                     old_wm, new_wm, new_wm)
-            if new_index is not None and self.on_flip is not None:
-                self.on_flip(index)
 
         self.server.swap_engines(engines, freshness, prepare=_prepare)
         detail: Dict[str, Any] = {

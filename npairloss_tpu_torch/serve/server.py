@@ -35,13 +35,15 @@ goes encode -> WAL append -> ``wait_durable`` (the fsync) -> apply ->
 ingest records never enter the query counts.  Records are applied in
 their WAL order whatever order concurrent HTTP requests reach the fsync
 in, so the applied watermark only grows and a checkpoint at watermark
-``w`` holds every acked record up to ``w``.  The port applies a
-durable record to the served index in place (``index.add`` republishes
-the layout; there is no compile to avoid on this path), and every
-``checkpoint_every`` records publishes an index checkpoint at the
-applied watermark, after which the WAL segments it covers are GC'd.
-The HTTP front end takes ingest records in a ``POST /query`` body as the
-JSONL front end takes them on stdin.
+``w`` holds every acked record up to ``w``.  As in JAX, applying a
+record only adds it to the pending rows of the next checkpoint (``serve
+--wal-dir``'s ``_IngestCheckpoints``): the served index never changes in
+place, and acked rows reach answers through a published checkpoint and
+then a hot-swap or a restart.  Every ``checkpoint_every`` records an
+index checkpoint is published at the applied watermark, after which the
+WAL segments it covers are GC'd.  The HTTP front end takes ingest
+records in a ``POST /query`` body as the JSONL front end takes them on
+stdin.
 
 Shutdown: SIGTERM/SIGINT set the ``PreemptionSignal``; the front end
 stops admitting (HTTP answers 503 ``{"error": "draining"}``), every
@@ -89,6 +91,20 @@ since the previous window), and the drain summary adds the whole run's
 split.  Both splits start at the server's construction, so warm-up
 spans never count.  Without telemetry every stream is what it was.
 
+Tenant mode (:meth:`RetrievalServer.enable_tenants`, ``serve
+--tenant-config``; ``serve/tenants.py``), as JAX's: one front end and one
+replica tier serve many galleries.  Every query and ingest record names
+a registered ``tenant``; an unknown or missing one is refused as a
+malformed request (an error, never a query).  A micro-batch is split by
+tenant and each group runs on its tenant's engine for that replica; the
+answers carry ``tenant``, the tenant's freshness ages and go to the
+tenant's shadow scorer.  Each tenant has its own counters, latency
+rings, quota (a token bucket: "quota exceeded for tenant ..."),
+admission controller, WAL and hot-swap (:meth:`swap_tenant_engines`);
+one tenant-stamped ``serve`` row per tenant that answered closes each
+window, and the summary gains a ``tenants`` block and
+``errors_unattributed`` (the refusals no tenant owns).
+
 Query tracing (``qtrace``: an ``obs.qtrace.QueryTracer``, ``serve
 --qtrace``): a trace id is assigned at ingestion on both front ends and
 rides the record (``rec["_qt"]``) through admission (``admit_wait``),
@@ -133,6 +149,13 @@ from npairloss_tpu_torch.serve.engine import NoModelError, QueryEngine
 from npairloss_tpu_torch.serve.replicas import ReplicaCrashError, ReplicaSet
 
 log = logging.getLogger("npairloss_tpu_torch.serve")
+
+
+class UnknownTenantError(ValueError):
+    """A record named a tenant the registry does not know.  Raised from
+    ``submit`` BEFORE the query is counted: an unregistered id is a
+    malformed request (the bad-JSON accounting: errors, never
+    queries/rejected), not admitted-then-shed traffic."""
 
 
 def encode_ingest_body(ingest: Dict[str, Any]) -> Dict[str, Any]:
@@ -295,6 +318,10 @@ class RetrievalServer:
         self.input_shape = (tuple(input_shape)
                             if input_shape is not None else None)
         self.remediation = None
+        # serve --tenant-config's per-tenant hot-swap sweep (a
+        # ``serve.tenants.TenantSwapper``), stopped by the CLI's
+        # close_observers.
+        self.tenant_swapper = None
         # Engine-tier republishes (swap_engines): absent from the summary
         # until the first.
         self.swaps = 0  # guarded-by: _lock
@@ -348,6 +375,13 @@ class RetrievalServer:
         self._ckpt_watermark = 0  # guarded-by: _ingest_lock
         self._ingest_since_ckpt = 0  # guarded-by: _ingest_lock
         self._recovery: Optional[Dict[str, Any]] = None
+        # Tenant mode: empty until ``enable_tenants`` installs the map,
+        # so a single-tenant server keeps every stream as it was.  One
+        # commit lock a tenant: a tenant's ingests commit one at a time,
+        # so they apply in seq order.
+        self.tenants: Dict[str, Any] = {}
+        self._replica_idx: Dict[str, int] = {}
+        self._tenant_commit_locks: Dict[str, threading.Lock] = {}
         self.http_port: Optional[int] = None
         # HTTP requests between their handler's start and its reply.
         self._inflight = 0  # guarded-by: _inflight_cv
@@ -375,8 +409,8 @@ class RetrievalServer:
                           "replica(s) remain — rerouting its work",
                           replica.name, self.replicaset.alive_count)
                 return self._reroute(replica, items)
-            return self._dispatch_core(items, engine=replica.engine,
-                                       replica=replica.name)
+            return self._dispatch(items, engine=replica.engine,
+                                  replica=replica.name)
 
         return dispatch
 
@@ -403,8 +437,8 @@ class RetrievalServer:
             # that rode it.
             self.qtrace.marker("crash_reroute", dead=dead.name,
                                target=target.name, queries=len(items))
-        return self._dispatch_core(items, engine=target.engine,
-                                   replica=target.name)
+        return self._dispatch(items, engine=target.engine,
+                              replica=target.name)
 
     # -- telemetry ---------------------------------------------------------
 
@@ -476,15 +510,50 @@ class RetrievalServer:
 
     # -- serving core ------------------------------------------------------
 
+    def _dispatch(self, items: List[Dict[str, Any]],
+                  engine: Optional[QueryEngine] = None,
+                  replica: Optional[str] = None) -> List[Dict[str, Any]]:
+        """The replicas' dispatch.  Single-tenant: straight to the core.
+        Tenant mode: a micro-batch may hold queries for several tenants
+        (the batchers are shared), so it splits by tenant and each group
+        runs on its tenant's engine for THIS replica; the answers keep
+        the items' order."""
+        if not self.tenants:
+            return self._dispatch_core(items, engine=engine, replica=replica)
+        ridx = self._replica_idx.get(replica, 0)
+        groups: Dict[Any, List[int]] = {}
+        for i, rec in enumerate(items):
+            tid = rec.get("tenant") if isinstance(rec, dict) else None
+            groups.setdefault(tid, []).append(i)
+        answers: List[Optional[Dict[str, Any]]] = [None] * len(items)
+        for tid, idxs in groups.items():
+            entry = self.tenants.get(tid)
+            if entry is None:
+                # submit() refuses unknown tenants; a record that lost its
+                # id since still answers instead of failing its co-riders.
+                for i in idxs:
+                    answers[i] = {"id": items[i].get("id"), "tenant": tid,
+                                  "error": f"unknown tenant {tid!r}"}
+                continue
+            eng = entry.engines[ridx if ridx < len(entry.engines) else 0]
+            group = self._dispatch_core([items[i] for i in idxs], engine=eng,
+                                        replica=replica, entry=entry)
+            for i, ans in zip(idxs, group):
+                answers[i] = ans
+        return answers
+
     def _dispatch_core(self, items: List[Dict[str, Any]],
                        engine: Optional[QueryEngine] = None,
-                       replica: Optional[str] = None
-                       ) -> List[Dict[str, Any]]:
+                       replica: Optional[str] = None,
+                       entry=None) -> List[Dict[str, Any]]:
         """Coalesced records -> per-record answers.  A malformed record
         answers ``{"id", "error"}`` without failing its co-riders; raw
         inputs encode as one stacked batch, then join the embedding rows
-        for one top-k dispatch."""
+        for one top-k dispatch.  ``entry`` (tenant mode) scopes the
+        answers' ``tenant`` key, the freshness stamps and the shadow
+        offer to one tenant."""
         engine = self.engine if engine is None else engine
+        tstamp = {"tenant": entry.tenant_id} if entry is not None else {}
         qts = ([qt for it in items
                 if isinstance(it, dict) and (qt := it.get("_qt")) is not None]
                if self.qtrace is not None else [])
@@ -517,7 +586,7 @@ class RetrievalServer:
                     raise ValueError(
                         "query record needs an 'embedding' or 'input' field")
             except (ValueError, TypeError) as e:
-                answers[i] = {"id": rec.get("id"), "error": str(e)}
+                answers[i] = {"id": rec.get("id"), **tstamp, "error": str(e)}
         if enc_rows:
             try:
                 enc = engine.encode(np.stack([x for _, x in enc_rows]))
@@ -529,16 +598,20 @@ class RetrievalServer:
                 # A ragged stack or a model-less engine fails these
                 # records only; a device fault fails the whole batch.
                 for i, _ in enc_rows:
-                    answers[i] = {"id": items[i].get("id"), "error": str(e)}
+                    answers[i] = {"id": items[i].get("id"), **tstamp,
+                                  "error": str(e)}
         t_merge = 0.0
         if emb_rows:
             out = engine.query(np.stack([x for _, x in emb_rows]),
                                stages=stages)
             t_asm0 = time.perf_counter()
-            ages = self.freshness.ages() if self.freshness else {}
+            # The tenant's freshness in tenant mode.
+            fresh = entry.freshness if entry is not None else self.freshness
+            ages = fresh.ages() if fresh is not None else {}
             for j, (i, _) in enumerate(emb_rows):
                 answers[i] = {
                     "id": items[i].get("id"),
+                    **tstamp,
                     **ages,
                     "neighbors": [
                         {"rank": r,
@@ -552,14 +625,17 @@ class RetrievalServer:
             # Answer assembly joins the device top-k with labels, ids
             # and freshness: merge work, so topk_merge, not dispatch.
             t_merge = time.perf_counter() - t_asm0
-            if self.shadow is not None:
+            # The tenant's own scorer in tenant mode: its oracle is that
+            # tenant's gallery.
+            shadow = entry.shadow if entry is not None else self.shadow
+            if shadow is not None:
                 # After the answers exist: a hash and a bounded put per
                 # sampled query, never a wait; the raw query row (the
                 # oracle normalizes it as the engine did).
                 try:
                     for j, (i, row) in enumerate(emb_rows):
-                        self.shadow.offer(items[i].get("id"), row,
-                                          out["rows"][j], out["scores"][j])
+                        shadow.offer(items[i].get("id"), row,
+                                     out["rows"][j], out["scores"][j])
                 except Exception as e:  # noqa: BLE001 — shadow must not fail answers
                     log.error("shadow offer failed: %s", e)
         if qts:
@@ -580,11 +656,40 @@ class RetrievalServer:
         qt = (record.get("_qt")
               if self.qtrace is not None and isinstance(record, dict)
               else None)
+        # The tenant is resolved before any counting: an unknown one is a
+        # malformed request (UnknownTenantError -> errors, as bad JSON),
+        # never an admitted-then-shed query.
+        entry = self._tenant_entry(record) if self.tenants else None
+        if entry is not None and qt is not None:
+            qt.tenant = entry.tenant_id
         with self._span("serve/admit"):
             with self._lock:
                 self.queries += 1
+                if entry is not None:
+                    entry.queries += 1
+            if entry is not None and entry.quota is not None and \
+                    not entry.quota.admit():
+                # This tenant's token bucket ran dry: its neighbors'
+                # queues and counters never see the query.
+                with self._lock:
+                    entry.rejected += 1
+                raise QueueFullError(
+                    f"quota exceeded for tenant {entry.tenant_id!r}; retry "
+                    "after backoff")
+            if entry is not None and entry.admission is not None and \
+                    not entry.admission.admit(trace=qt):
+                with self._lock:
+                    entry.rejected += 1
+                raise QueueFullError(
+                    f"load shed: tenant {entry.tenant_id!r} SLO burning "
+                    "(admission control); retry after backoff")
             if self.admission is not None and \
                     not self.admission.admit(trace=qt):
+                if entry is not None:
+                    # A tier-wide shed, attributed to the tenant whose
+                    # query it refused.
+                    with self._lock:
+                        entry.rejected += 1
                 raise QueueFullError(
                     "load shed: SLO burning (admission control); retry "
                     "after backoff")
@@ -592,10 +697,17 @@ class RetrievalServer:
                 # admit_wait closes BEFORE the enqueue: the queue put is
                 # the only ordering edge between this thread and picked.
                 self.qtrace.admitted(qt)
-            fut = self.replicaset.submit(record)
+            try:
+                fut = self.replicaset.submit(record)
+            except QueueFullError:
+                if entry is not None:
+                    # Backpressure lands on the submitting tenant too.
+                    with self._lock:
+                        entry.rejected += 1
+                raise
             return fut, time.perf_counter()
 
-    def _record_latency(self, seconds: float, qt=None) -> None:
+    def _record_latency(self, seconds: float, qt=None, entry=None) -> None:
         if qt is not None and self.qtrace is not None:
             # Before the window check, so the query that closes a window
             # lands in that window's stage decomposition too.
@@ -604,6 +716,12 @@ class RetrievalServer:
         with self._lock:
             self._lat.append(seconds * 1e3)
             self.answered += 1
+            if entry is not None:
+                # The tenant's own rings: its p99 SLO burns on its tail.
+                entry.answered += 1
+                entry.lat.append(seconds * 1e3)
+                if self.cfg.metrics_window:
+                    entry.window_lat.append(seconds * 1e3)
             if self.cfg.metrics_window:
                 self._window_lat.append(seconds * 1e3)
                 self._window_n += 1
@@ -654,15 +772,57 @@ class RetrievalServer:
             except Exception as e:  # noqa: BLE001 — telemetry is not the run
                 log.error("serve metrics emission failed: %s", e)
         log.info("serve window: %s", row)
+        if self.tenants:
+            self._emit_tenant_windows()
+
+    def _emit_tenant_windows(self) -> None:
+        """One tenant-stamped row per tenant that answered this window:
+        the ``tenant`` key makes the registry sink land its metrics on
+        labeled series (``serve_p99_ms{tenant="a"}``), the streams the
+        tenant's SLOs burn on; a quiet tenant emits nothing."""
+        snaps: List[tuple] = []
+        with self._lock:
+            for tid in sorted(self.tenants):
+                entry = self.tenants[tid]
+                lat = entry.take_window()
+                if lat:
+                    snaps.append((tid, entry, lat))
+        for tid, entry, lat in snaps:
+            trow = {"tenant": tid, "queries": len(lat),
+                    **{k: round(v, 3)
+                       for k, v in self._percentiles(lat).items()}}
+            if entry.quota is not None and entry.quota.sheds:
+                trow["quota_sheds"] = entry.quota.sheds
+            if entry.rejected:
+                trow["rejected"] = entry.rejected
+            if entry.admission is not None and entry.admission.sheds:
+                # Last, as in the tier's row: the sink stops a row at
+                # ``shed`` (the controller's ``serve_shed`` counter holds
+                # that name), so a key after it would never land.
+                trow["shed"] = entry.admission.sheds
+            if self.telemetry is not None and self.telemetry.metrics_enabled:
+                try:
+                    self.telemetry.log("serve", self.answered, trow)
+                except Exception as e:  # noqa: BLE001 — telemetry is not the run
+                    log.error("tenant %r metrics emission failed: %s", tid,
+                              e)
+            log.info("serve tenant window: %s", trow)
 
     def _account(self, answer: Dict[str, Any], t0: float,
                  qt=None) -> Dict[str, Any]:
+        """An ``{"id", "error"}`` answer counts as an error, any other as
+        an answered query with its latency, attributed in tenant mode to
+        the answer's ``tenant``."""
+        entry = (self.tenants.get(answer.get("tenant"))
+                 if self.tenants and isinstance(answer, dict) else None)
         if "error" in answer:
             with self._lock:
                 self.errors += 1
+                if entry is not None:
+                    entry.errors += 1
             self._qtrace_drop(qt, error=True)
         else:
-            self._record_latency(time.perf_counter() - t0, qt)
+            self._record_latency(time.perf_counter() - t0, qt, entry=entry)
         return answer
 
     def _refuse(self, rec_id, message: str) -> Dict[str, Any]:
@@ -691,6 +851,11 @@ class RetrievalServer:
             try:
                 fut, t0 = self.submit(rec)
                 staged.append((rec, fut, t0, qt))
+            except UnknownTenantError as e:
+                # Never admitted: an error, never a query.
+                self._qtrace_drop(qt, error=True)
+                staged.append((rec, self._refuse(rec.get("id"), str(e)),
+                               None, None))
             except QueueFullError as e:
                 # Counted in rejected, never also in errors.
                 self._qtrace_drop(qt)
@@ -750,16 +915,26 @@ class RetrievalServer:
         with self._ingest_lock:
             return self._ingest_watermark
 
-    def _ingest_error(self, rid, message: str) -> Dict[str, Any]:
+    def _ingest_error(self, rid, message: str,
+                      tenant: Optional[str] = None) -> Dict[str, Any]:
         with self._lock:
             self.ingest_errors += 1
-        return {"id": rid, "error": message}
+        return {"id": rid, **({"tenant": tenant} if tenant else {}),
+                "error": message}
 
     def _handle_ingest(self, rec: Dict[str, Any]) -> Dict[str, Any]:
         """One ingest record, start to ack: encode -> WAL append ->
         durability barrier -> apply -> ack.  The ack never precedes the
         fsync covering the record."""
         rid = rec.get("id")
+        if self.tenants:
+            # Tenant mode: the record goes to its tenant's own WAL and
+            # watermark.
+            try:
+                entry = self._tenant_entry(rec)
+            except UnknownTenantError as e:
+                return self._ingest_error(rid, str(e))
+            return self._tenant_ingest(entry, rec)
         if self.wal is None or self._ingest_apply is None:
             return self._ingest_error(
                 rid, "ingest requires a WAL (serve --wal-dir)")
@@ -792,6 +967,47 @@ class RetrievalServer:
             self.ingest_batches += 1
             self.ingest_vectors += n
         return {"id": rid, "ingested": n, "seq": seq}
+
+    def _tenant_ingest(self, entry, rec: Dict[str, Any]) -> Dict[str, Any]:
+        """One tenant's ingest record through its own durability domain
+        (``serve/tenants.py`` ``TenantIngest``): encode -> WAL append ->
+        fsync -> apply -> ack, as the single-tenant path, against the
+        tenant's WAL and watermark; the tier's ingest counters tick too.
+        The tenant's commits run one at a time, so its records apply in
+        seq order (concurrent commits would let seq 2's apply overtake
+        seq 1's, and a checkpoint between them pass an acked row)."""
+        rid = rec.get("id")
+        tid = entry.tenant_id
+        ing = entry.ingest
+        if ing is None:
+            return self._ingest_error(
+                rid, f"tenant {tid!r} ingest requires a WAL (serve "
+                "--wal-dir)", tid)
+        try:
+            body = encode_ingest_body(rec.get("ingest"))
+            dim = entry.engines[0].index.dim
+            if body["dim"] != dim:
+                # Refused before the append: a logged record that can
+                # never apply would fail every later checkpoint.
+                raise ValueError(f"ingest dim {body['dim']} does not match "
+                                 f"gallery dim {dim}")
+        except (ValueError, TypeError) as e:
+            ing.note_error()
+            return self._ingest_error(rid, f"bad ingest record: {e}", tid)
+        try:
+            with self._tenant_commit_locks[tid]:
+                seq = ing.commit(body)
+        except Exception as e:  # noqa: BLE001 — the client must hear "not durable"
+            ing.note_error()
+            log.error("tenant %r ingest %r failed before durability: %s",
+                      tid, rid, e)
+            return self._ingest_error(rid, f"ingest not durable: {e}", tid)
+        n = len(body["ids"])
+        with self._lock:
+            self.ingest_batches += 1
+            self.ingest_vectors += n
+        ing.maybe_checkpoint()
+        return {"id": rid, "tenant": tid, "ingested": n, "seq": seq}
 
     def _not_durable(self, rid, e: Exception) -> Dict[str, Any]:
         log.error("ingest %r failed before durability: %s", rid, e)
@@ -895,12 +1111,101 @@ class RetrievalServer:
         total = self.replicaset.rejected
         if self.admission is not None:
             total += self.admission.sheds
+        for entry in self.tenants.values():
+            # A tenant's quota and admission sheds reach neither the
+            # replica set nor the tier's controller, so adding them counts
+            # nothing twice; backpressure and tier-wide sheds were counted
+            # above and only attributed to entry.rejected.
+            if entry.quota is not None:
+                total += entry.quota.sheds
+            if entry.admission is not None:
+                total += entry.admission.sheds
         return total
 
     def _compiles_after_warmup(self) -> int:
-        # Replicas share one signature set, so the sum never counts a
-        # signature twice.
-        return sum(e.compiles_after_warmup for e in self.engines)
+        # Replicas, and tenants of one geometry, share one signature set,
+        # so the sum never counts a signature twice.
+        return sum(e.compiles_after_warmup for e in self._all_engines())
+
+    # -- tenant mode (serve/tenants.py) -------------------------------------
+
+    def enable_tenants(self, entries: Dict[str, Any]) -> None:
+        """Install the tenant map (at startup, before the front end): one
+        ``TenantEntry`` per tenant id, each with one engine per replica
+        (replica r serves tenant t from ``entry.engines[r]``, so the
+        tier's batchers stay shared while every tenant answers from its
+        own gallery)."""
+        if self.tenants:
+            raise ValueError("tenant map already installed")
+        entries = dict(entries)
+        if not entries:
+            raise ValueError("enable_tenants needs >= 1 tenant entry")
+        for tid, entry in entries.items():
+            if len(entry.engines) != len(self.engines):
+                raise ValueError(
+                    f"tenant {tid!r} has {len(entry.engines)} engine(s); "
+                    f"the replica tier has {len(self.engines)}")
+        self.tenants = entries
+        self._tenant_commit_locks = {tid: threading.Lock()
+                                     for tid in entries}
+        self._replica_idx = {rep.name: i for i, rep
+                             in enumerate(self.replicaset.replicas)}
+
+    def _tenant_entry(self, record) -> Any:
+        """The entry a record routes to (tenant mode only); raises
+        :class:`UnknownTenantError` for a missing or unregistered id."""
+        tid = record.get("tenant") if isinstance(record, dict) else None
+        entry = self.tenants.get(tid)
+        if entry is None:
+            raise UnknownTenantError(
+                f"unknown tenant {tid!r} (registered: "
+                f"{sorted(self.tenants)})")
+        return entry
+
+    def swap_tenant_engines(self, tenant_id: str, engines,
+                            freshness: Optional[Freshness] = None) -> None:
+        """Atomically republish ONE tenant's engine set: ``swap_engines``
+        scoped to an entry.  Every other tenant's engines are untouched;
+        a batch in flight finishes on the engines it started with (the
+        dispatch reads ``entry.engines`` once a batch).  The flip holds
+        the tenant's ingest lock, then the server lock, as the tier's."""
+        entry = self.tenants.get(tenant_id)
+        if entry is None:
+            raise UnknownTenantError(
+                f"unknown tenant {tenant_id!r} (registered: "
+                f"{sorted(self.tenants)})")
+        engines = list(engines)
+        if len(engines) != len(entry.engines):
+            raise ValueError(
+                f"tenant {tenant_id!r} swap must preserve the replica "
+                f"count: got {len(engines)}, entry has "
+                f"{len(entry.engines)}")
+        ingest_lock = (entry.ingest.lock if entry.ingest is not None
+                       else contextlib.nullcontext())
+        with ingest_lock:
+            with self._lock:
+                entry.engines = engines
+                if freshness is not None:
+                    entry.freshness = freshness
+                entry.swaps += 1
+                self.swaps += 1
+                generation = self.swaps
+        if self.qtrace is not None:
+            self.qtrace.marker("hotswap_flip", generation=generation,
+                               tenant=tenant_id)
+        log.warning("hot-swap %d: tenant %r republished (%s)", generation,
+                    tenant_id,
+                    freshness.identity() if freshness else "same identity")
+
+    def _all_engines(self) -> List[QueryEngine]:
+        """Every distinct engine behind the tier: the replica anchors and
+        each tenant's set, deduplicated (the first tenant's engines are
+        ``self.engines`` until it swaps); compile counts sum over it."""
+        seen: Dict[int, QueryEngine] = {id(e): e for e in self.engines}
+        for entry in self.tenants.values():
+            for e in entry.engines:
+                seen.setdefault(id(e), e)
+        return list(seen.values())
 
     # -- remediation actuators ---------------------------------------------
 
@@ -916,6 +1221,15 @@ class RetrievalServer:
         for e in self.engines[1:]:
             with e._count_lock:
                 e.compiles_after_warmup = 0
+        for entry in self.tenants.values():
+            # Each tenant's primary re-dispatches its buckets (a shared
+            # signature set makes repeats free); replicas reset counters.
+            if entry.engines[0] is not self.engine:
+                dt += entry.engines[0].rewarm(self.input_shape)
+            for e in entry.engines[1:]:
+                if e is not self.engine:
+                    with e._count_lock:
+                        e.compiles_after_warmup = 0
         self._explicit_compile_key = True
         return {"warmup_s": round(dt, 3)}
 
@@ -959,7 +1273,7 @@ class RetrievalServer:
 
     def summary(self) -> Dict[str, Any]:
         dropped = self._queries_dropped()
-        stats = [e.stats() for e in self.engines]
+        stats = [e.stats() for e in self._all_engines()]
         return {
             "event": "serve_drain",
             "queries": self.queries,
@@ -994,6 +1308,16 @@ class RetrievalServer:
                if self.shadow is not None else {}),
             **({"qtrace": self.qtrace.summary_block()}
                if self.qtrace is not None else {}),
+            # Tenant mode: one block per tenant (counters, freshness,
+            # quota, shed, ingest, quality), and the errors no tenant owns
+            # (unknown-tenant refusals, bad JSON), so the per-tenant
+            # counters cross-sum exactly into the aggregates.
+            **({"tenants": {tid: self.tenants[tid].stats_block()
+                            for tid in sorted(self.tenants)}}
+               if self.tenants else {}),
+            **({"errors_unattributed": self.errors - sum(
+                e.errors for e in self.tenants.values())}
+               if self.tenants else {}),
             **{k: round(v, 3) for k, v in self._percentiles().items()},
             # The whole run's split (from the construction-time cursor:
             # warm-up spans never count as serving latency).
@@ -1027,6 +1351,16 @@ class RetrievalServer:
                 self.checkpoint_now()
             except Exception as e:  # noqa: BLE001 — drain must finish
                 log.error("drain-time ingest checkpoint failed: %s", e)
+        for tid in sorted(self.tenants):
+            # Each tenant's durability domain, one failure contained.
+            ing = self.tenants[tid].ingest
+            if ing is None:
+                continue
+            try:
+                ing.checkpoint_now()
+            except Exception as e:  # noqa: BLE001 — drain must finish
+                log.error("drain-time tenant %r checkpoint failed: %s", tid,
+                          e)
         if self._ingest_worker is not None:
             self._ingest_worker.shutdown(wait=True)
         s = self.summary()
@@ -1122,6 +1456,11 @@ class RetrievalServer:
                 try:
                     fut, t0 = self.submit(rec)
                     pending.append((rec.get("id"), fut, t0, qt))
+                except UnknownTenantError as e:
+                    # Never admitted: an error, never a query.
+                    self._qtrace_drop(qt, error=True)
+                    flush_ready(block=True)
+                    emit(self._refuse(rec.get("id"), str(e)))
                 except QueueFullError as e:
                     self._qtrace_drop(qt)
                     flush_ready(block=True)

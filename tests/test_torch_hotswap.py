@@ -563,10 +563,11 @@ def test_default_policy_table_keeps_the_registered_actions(
     assert ("probe_escalation" in names) == ("ivf" in argv)
 
 
-def test_acked_rows_survive_an_index_swap(tmp_path):
-    """``serve --wal-dir`` applies acked rows to the served index in
-    place; an index swap to a commit without them re-applies them at the
-    flip, and rows acked after it land in the new tier."""
+def test_acked_rows_survive_an_index_swap(tmp_path, caplog):
+    """``serve --wal-dir`` keeps acked rows pending, as JAX's: an index
+    swap to another writer's newer commit serves that commit as it is
+    (the rows stay pending, and the swap logs it), and the rows reach
+    answers through the next checkpoint, which the next swap serves."""
     from npairloss_tpu_torch.serve.index import GalleryIndex
 
     rng = np.random.default_rng(4)
@@ -584,6 +585,7 @@ def test_acked_rows_survive_an_index_swap(tmp_path):
     server, wal = cli.build_server(args)
     server.replicaset.start()
     new = _unit(rng, 4, 8)
+    swap = server.remediation._actions["snapshot_hotswap"][0]
 
     def ingest(i, rows):
         ack = server.handle_many([{"id": f"in{i}", "ingest": {
@@ -599,17 +601,32 @@ def test_acked_rows_survive_an_index_swap(tmp_path):
 
     try:
         assert ingest(0, [0, 1]) == 1
+        assert 900 not in (top1(0), top1(1))
         # A newer commit without the acked rows (another writer's build).
         other = GalleryIndex.build(emb, lab, normalize=False, device="cpu")
         other.add(_unit(rng, 3, 8), np.zeros(3, np.int32))
         other.save(prefix + "001.gidx")
-        fn = server.remediation._actions["snapshot_hotswap"][0]
-        assert fn(None)["swapped"] == ["index"]
-        assert server.engine.index.size == 48 + 3 + 2
+        assert swap(None)["swapped"] == ["index"]
+        assert server.engine.index.size == 48 + 3
+        assert 900 not in (top1(0), top1(1))
+        # The checkpoint grows from the last published commit, as JAX's.
+        assert server.checkpoint_now().endswith("g.w000000000001.gidx")
+        assert swap(None)["swapped"] == ["index"]
+        assert server.engine.index.size == 48 + 2
         assert [top1(0), top1(1)] == [900, 901]
-        assert ingest(1, [2, 3]) == 2
+        assert ingest(1, [2]) == 2
+        assert server.checkpoint_now().endswith("g.w000000000002.gidx")
+        assert ingest(2, [3]) == 3
+        with caplog.at_level(logging.INFO, "npairloss_tpu_torch.serve"):
+            assert swap(None)["swapped"] == ["index"]
+        # The record above the swapped-in commit's watermark stays pending.
+        assert "ingest watermark 1 -> 2 (WAL records above 2 remain " \
+            "pending for the next checkpoint)" in caplog.text
+        assert top1(2) == 902 and top1(3) != 903
+        assert server.checkpoint_now().endswith("g.w000000000003.gidx")
+        assert swap(None)["swapped"] == ["index"]
         assert [top1(2), top1(3)] == [902, 903]
-        assert server.engine.index.ingest_watermark == 2
+        assert server.engine.index.ingest_watermark == 3
     finally:
         server.replicaset.close(drain=True)
         wal.close()
@@ -617,11 +634,10 @@ def test_acked_rows_survive_an_index_swap(tmp_path):
 
 
 def test_acked_rows_survive_a_flat_escalation(tmp_path, monkeypatch):
-    """The flat rung builds its index from the served rows before its
-    warm-up; a row acked during the warm-up goes into the served IVF
-    index and joins the flat one at the flip, which also carries the
-    ingest watermark and ``created``; rows acked after it land in the
-    flat tier."""
+    """The flat rung is built from the served rows, with their ingest
+    watermark and ``created``; a row acked during its warm-up stays
+    pending, as JAX's, and reaches answers through the next checkpoint
+    and swap."""
     from npairloss_tpu_torch.serve.engine import QueryEngine
     from npairloss_tpu_torch.serve.index import GalleryIndex
     from npairloss_tpu_torch.serve.ivf import IVFIndex
@@ -642,6 +658,7 @@ def test_acked_rows_survive_a_flat_escalation(tmp_path, monkeypatch):
     server, wal = cli.build_server(args)
     server.replicaset.start()
     new = _unit(rng, 4, 8)
+    swap = server.remediation._actions["snapshot_hotswap"][0]
 
     def ingest(i, rows):
         ack = server.handle_many([{"id": f"in{i}", "ingest": {
@@ -665,8 +682,11 @@ def test_acked_rows_survive_a_flat_escalation(tmp_path, monkeypatch):
 
     try:
         assert ingest(0, [0, 1]) == 1
+        server.checkpoint_now()
+        assert swap(None)["swapped"] == ["index"]
         served = server.engine.index
-        assert isinstance(served, IVFIndex)
+        assert isinstance(served, IVFIndex) and served.size == 48 + 2
+        assert [top1(0), top1(1)] == [900, 901]
         monkeypatch.setattr(QueryEngine, "warmup", warmup)
         fn = server.remediation._actions["escalate_probes"][0]
         assert fn(None)["fallback"] == "flat"
@@ -674,14 +694,17 @@ def test_acked_rows_survive_a_flat_escalation(tmp_path, monkeypatch):
         flat = server.engine.index
         assert during == [2]
         assert not isinstance(flat, IVFIndex)
-        assert flat.size == served.size == 48 + 3
-        assert flat.ingest_watermark == 2
+        assert flat.size == served.size == 48 + 2
+        assert flat.ingest_watermark == served.ingest_watermark == 1
         assert flat.created == served.created
         np.testing.assert_array_equal(flat.ids, served.ids)
-        assert [top1(0), top1(1), top1(2)] == [900, 901, 902]
+        assert [top1(0), top1(1)] == [900, 901]
+        assert top1(2) != 902
         assert ingest(2, [3]) == 3
-        assert top1(3) == 903
-        assert flat.ingest_watermark == 3
+        assert server.checkpoint_now().endswith("g.w000000000003.gidx")
+        assert swap(None)["swapped"] == ["index"]
+        assert [top1(2), top1(3)] == [902, 903]
+        assert server.engine.index.ingest_watermark == 3
     finally:
         server.replicaset.close(drain=True)
         wal.close()

@@ -4,8 +4,9 @@ counts only launches of its kernel.
 
   * the CPU serve path (and with telemetry: shadow scoring and query
     tracing under ``--live-obs`` with admission, remediation, a re-warm,
-    an index hot-swap and probe escalation, ``prof --quality`` and
-    ``watch``,
+    an index hot-swap and probe escalation, a two-tenant ``serve
+    --tenant-config`` with ingest, shadows and the hot-swap sweep,
+    ``prof --quality`` and ``watch``,
     the fleet report, the
     merged traces, ``prof --fleet``, ``timeline``, ``parse``,
     ``device-query`` and ``prof --step serve``), the train CLI (dense and ``--engine
@@ -22,8 +23,8 @@ counts only launches of its kernel.
     ``parallel/`` and ``obs/`` packages — ``obs/quality``,
     ``obs/qtrace`` and ``obs/live`` among them — and
     ``resilience/guard.py``, ``resilience/remediate.py``,
-    ``serve/admission.py``, ``serve/hotswap.py`` and
-    ``obs/quality/escalate.py`` named among
+    ``serve/admission.py``, ``serve/hotswap.py``, ``serve/tenants.py``
+    and ``obs/quality/escalate.py`` named among
     the scanned files: the guard and the stdlib-only telemetry modules
     are copies, not imports);
   * entry points called without ``device=`` raise when CUDA is absent,
@@ -126,6 +127,41 @@ cli.close_observers(srv)
 assert os.path.exists("qtel/qtrace.json")
 assert os.path.exists("qtel/alerts.jsonl")
 assert os.path.exists("qtel/remediation.jsonl")
+# Two tenants behind one tier: an IVF and a flat gallery, ingest to the
+# flat one, its checkpoint swapped in by the sweep, per-tenant shadows.
+from npairloss_tpu_torch.serve.index import GalleryIndex
+os.makedirs("tn")
+idx.save("tn/a-0001.gidx")
+GalleryIndex.build(emb[:32], np.arange(32), ids=np.arange(32) + 10**6,
+                   device="cpu").save("tn/b-0001.gidx")
+with open("tenants.json", "w") as f:
+    json.dump({"schema": "npairloss-tenants-v1", "tenants": [
+        {"tenant_id": "a", "index_prefix": "tn/a-", "index_kind": "ivf",
+         "probe_impl": "fused", "quota_qps": 100.0, "p99_ms": 500.0},
+        {"tenant_id": "b", "index_prefix": "tn/b-"}]}, f)
+args = cli.build_parser().parse_args([
+    "serve", "--tenant-config", "tenants.json", "--probes", "4",
+    "--device", "cpu", "--wal-dir", "twal", "--wal-checkpoint-every", "1",
+    "--shadow-rate", "1", "--shadow-window", "1", "--telemetry-dir", "ttel",
+    "--live-obs", "--slo-tick", "0.05"])
+srv, _ = cli.build_server(args)
+recs = [{"id": 0, "tenant": "a", "embedding": emb[5].tolist()},
+        {"id": 1, "tenant": "b", "embedding": emb[7].tolist()},
+        {"id": 2, "tenant": "b", "ingest": {"ids": [7], "labels": [0],
+                                            "embeddings": [emb[40].tolist()]}},
+        {"id": 3, "tenant": "ghost", "embedding": emb[5].tolist()}]
+out = io.StringIO()
+srv.run_jsonl(io.StringIO("".join(json.dumps(r) + "\n" for r in recs)), out)
+ans = [json.loads(x) for x in out.getvalue().splitlines()]
+assert ans[0]["tenant"] == "a" and ans[0]["neighbors"][0]["row"] == 5, ans
+assert ans[1]["neighbors"][0]["gallery_id"] == 10**6 + 7, ans
+assert ans[2]["seq"] == 1 and "unknown tenant" in ans[3]["error"], ans
+assert ans[-1]["errors_unattributed"] == 1, ans[-1]
+assert srv.tenant_swapper.sweep()["b"]["index_path"].endswith(
+    "b-w000000000001.gidx")
+cli.close_observers(srv)
+assert os.path.exists("ttel/quality.a.jsonl")
+assert os.path.exists("ttel/quality.b.jsonl")
 report = build_fleet_report("tel")
 assert validate_fleet_report(report) is None, report
 assert merge_run_traces("tel")[0] and merge_timeline("tel")[0]
@@ -370,7 +406,7 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     "obs/live/live.py", "obs/live/registry.py", "obs/live/slo.py",
     "obs/live/watch.py", "obs/live/watchdogs.py",
     "resilience/remediate.py", "serve/admission.py", "serve/hotswap.py",
-    "obs/quality/escalate.py",
+    "obs/quality/escalate.py", "serve/tenants.py",
 ])
 def test_pipeline_and_guard_modules_are_scanned_and_clean(module):
     path = PORT / module

@@ -10,7 +10,8 @@ from npairloss_tpu_torch.tools import phase_times as pt
 @pytest.mark.parametrize("tag,phase", [
     ("card", "start"), ("path", "4"), ("5i", "5i"), ("7a", "7"),
     ("8e", "8"), ("9", "9"), ("10", "10"), ("10a", "10"), ("10b", "10"),
-    ("11a", "11"), ("12", "12"), ("12e", "12"), ("mem", None),
+    ("11a", "11"), ("12", "12"), ("12e", "12"), ("13", "13"),
+    ("13d", "13"), ("mem", None),
     ("profile", None), ("kernel", "3"),
     ("zzz", None)])
 def test_phase_of_tags(tag, phase):

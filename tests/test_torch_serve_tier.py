@@ -789,14 +789,17 @@ def test_http_drain_answers_in_flight_and_refuses_late_requests(rng):
 
 def test_http_ingest_acks_after_the_wal_and_serves_the_rows(rng, tmp_path):
     """An ingest record in a POST body is appended, made durable and
-    applied before its ack; the next query finds the row."""
+    applied before its ack.  As in JAX, applying only adds the rows to
+    the next checkpoint: the served index does not change, and the rows
+    reach answers once a hot-swap publishes the newest checkpoint."""
     from npairloss_tpu_torch import cli
     from npairloss_tpu_torch.resilience.wal import WriteAheadLog
+    from npairloss_tpu_torch.serve.hotswap import SnapshotSwapper
 
     emb, server = _tier(rng, n_replicas=2)
     index = server.engine.index
     base = index.save(str(tmp_path / "g_0001.gidx"))
-    ingest = cli._IngestCheckpoints(index, base, str(tmp_path / "g_"))
+    ingest = cli._IngestCheckpoints(base, str(tmp_path / "g_"))
     wal = WriteAheadLog(str(tmp_path / "wal"))
     server.attach_wal(wal, ingest.apply, checkpoint_fn=ingest.publish,
                       checkpoint_every=2)
@@ -813,35 +816,43 @@ def test_http_ingest_acks_after_the_wal_and_serves_the_rows(rng, tmp_path):
         assert code == 200
         acks.append(ack)
         assert wal.durable_seq >= ack["seq"]
-    code, ans = _http(run.port, "POST", "/query", json.dumps(
-        {"id": "q", "embedding": new[2][1].tolist()}))
+    query = json.dumps({"id": "q", "embedding": new[2][1].tolist()})
+    _, pending = _http(run.port, "POST", "/query", query)
+    assert server.checkpoint_now().endswith("g_w000000000003.gidx")
+    swapped = SnapshotSwapper(server, index_prefix=str(tmp_path / "g_")).swap()
+    _, ans = _http(run.port, "POST", "/query", query)
     assert run.stop() == EXIT_PREEMPTED
     wal.close()
     assert [a["seq"] for a in acks] == [1, 2, 3]
+    assert 905 not in [n["gallery_id"] for n in pending["neighbors"]]
+    assert index.size == 72 and index.ingest_watermark == 0
+    assert swapped["index_path"].endswith("g_w000000000003.gidx")
     assert ans["neighbors"][0]["gallery_id"] == 905
     names = sorted(n for n in os.listdir(tmp_path) if n.startswith("g_w"))
     assert names == ["g_w000000000002.gidx", "g_w000000000003.gidx"]
     newest = jindex.load_newest(str(tmp_path / "g_"))
     assert newest[0].endswith("g_w000000000003.gidx")
     assert newest[1].ingest_watermark == 3
-    assert sorted(newest[1].ids[-6:]) == list(range(900, 906))
+    assert newest[1].ids[-6:].tolist() == list(range(900, 906))
     s = server.summary()
-    assert s["ingest"]["vectors"] == 6 and s["queries"] == 1
+    assert s["ingest"]["vectors"] == 6 and s["queries"] == 2
 
 
 @pytest.mark.parametrize("every", [1, 0])
 def test_concurrent_ingests_apply_in_seq_order(rng, tmp_path, every):
     """Two request threads ingest at once and seq 1's fsync wait ends
-    after seq 2 is appended: the records still apply in seq order, the
-    watermark only grows, and the newest checkpoint holds every acked
-    row (``every`` 0: one checkpoint after both acks)."""
+    after seq 2 is appended: the records still apply in seq order (the
+    pending list and the published commit hold their rows in that
+    order), the watermark only grows, the served index stays as it was
+    (JAX's rule), and the newest checkpoint holds every acked row
+    (``every`` 0: one checkpoint after both acks)."""
     from npairloss_tpu_torch import cli
     from npairloss_tpu_torch.resilience.wal import WriteAheadLog
 
     emb, server = _tier(rng, n_replicas=1)
     index = server.engine.index
     base = index.save(str(tmp_path / "g_0001.gidx"))
-    ingest = cli._IngestCheckpoints(index, base, str(tmp_path / "g_"))
+    ingest = cli._IngestCheckpoints(base, str(tmp_path / "g_"))
     wal = WriteAheadLog(str(tmp_path / "wal"), flush_interval_s=0.002)
     appended = {1: threading.Event(), 2: threading.Event()}
     real_append, real_wait = wal.append, wal.wait_durable
@@ -857,11 +868,12 @@ def test_concurrent_ingests_apply_in_seq_order(rng, tmp_path, every):
             time.sleep(0.05)
         real_wait(seq, timeout)
 
-    applied, marks = [], []
+    applied, marks, pending = [], [], []
 
     def apply(payload):
         applied.append(payload["seq"])
         ingest.apply(payload)
+        pending.append([seq for seq, _ in ingest.pending])
         marks.append(server._ingest_watermark)
 
     wal.append, wal.wait_durable = append, wait_durable
@@ -887,11 +899,81 @@ def test_concurrent_ingests_apply_in_seq_order(rng, tmp_path, every):
     wal.close()
     assert sorted(a["seq"] for a in acks.values()) == [1, 2], acks
     assert applied == [1, 2] and marks == sorted(marks)
-    assert server.ingest_watermark == index.ingest_watermark == 2
+    assert pending[0] == [1] and pending[1][-1] == 2
+    assert server.ingest_watermark == 2 and ingest.pending == []
+    assert index.ingest_watermark == 0 and index.size == 72
     path, newest = load_newest(str(tmp_path / "g_"), device="cpu")
     assert path.endswith("g_w000000000002.gidx")
     assert newest.ingest_watermark == 2
-    assert sorted(newest.ids[-4:].tolist()) == [900, 901, 902, 903]
+    assert newest.ids[-4:].tolist() == [900, 901, 902, 903]
+
+
+def _jsonl_serve(main, argv, records):
+    """One in-process ``serve`` over JSONL: ``records`` on stdin, then
+    EOF; returns the output records (the drain summary last)."""
+    import contextlib
+
+    out = io.StringIO()
+    stdin = io.StringIO("".join(json.dumps(r) + "\n" for r in records))
+    with contextlib.redirect_stdout(out), \
+            pytest.MonkeyPatch.context() as mp:
+        mp.setattr("sys.stdin", stdin)
+        assert main(argv) == 0
+    return [json.loads(ln) for ln in out.getvalue().splitlines()]
+
+
+def _neighbors_equal(got, want):
+    assert [n["gallery_id"] for n in got["neighbors"]] == \
+        [n["gallery_id"] for n in want["neighbors"]]
+    for g, w in zip(got["neighbors"], want["neighbors"]):
+        assert (g["rank"], g["row"], g["label"]) == \
+            (w["rank"], w["row"], w["label"])
+        assert abs(g["score"] - w["score"]) <= ATOL
+
+
+def test_acked_ingest_rows_reach_answers_as_jaxs_do(rng, tmp_path):
+    """Both CLIs serve one committed flat index with ``--wal-dir`` over
+    JSONL: a query for a freshly acked row answers alike, without it
+    (the row is pending); the drain publishes a checkpoint holding the
+    rows at the same watermark in both; served again from that
+    checkpoint, both answer the row."""
+    from npairloss_tpu import cli as jax_cli
+    from npairloss_tpu_torch import cli
+
+    emb, lab = make_gallery(rng)
+    new = rng.standard_normal((2, 16)).astype(np.float32)
+    base = str(tmp_path / "base.gidx")
+    JGalleryIndex.build(emb, lab).save(base)
+    ingest = {"id": "in", "ingest": {"ids": [5000, 5001], "labels": [90, 90],
+                                     "embeddings": new.tolist()}}
+    query = {"id": "q", "embedding": new[1].tolist()}
+    runs = {}
+    for name, main, extra in (("jax", jax_cli.main, ["--mesh", "1"]),
+                              ("port", cli.main, ["--device", "cpu"])):
+        d = tmp_path / name
+        d.mkdir()
+        shutil.copytree(base, str(d / "g_0001.gidx"))
+        argv = ["serve", "--index-prefix", str(d / "g_"), "--wal-dir",
+                str(d / "wal"), "--top-k", "3", "--buckets", "1,4",
+                "--poll-s", "0.01", *extra]
+        first = _jsonl_serve(main, argv, [ingest, query])
+        commits = sorted(n for n in os.listdir(d) if n.endswith(".gidx"))
+        published = load_newest(str(d / "g_"), device="cpu")[1]
+        second = _jsonl_serve(main, argv, [query])
+        runs[name] = (first, commits, published, second)
+    (jf, jc, jp, js), (pf, pc, pp, ps) = runs["jax"], runs["port"]
+    assert {k: pf[0][k] for k in ("id", "ingested", "seq")} == \
+        {k: jf[0][k] for k in ("id", "ingested", "seq")} == \
+        {"id": "in", "ingested": 2, "seq": 1}
+    _neighbors_equal(pf[1], jf[1])
+    assert 5001 not in [n["gallery_id"] for n in pf[1]["neighbors"]]
+    assert pc == jc == ["g_0001.gidx", "g_w000000000001.gidx"]
+    assert pp.ingest_watermark == jp.ingest_watermark == 1
+    np.testing.assert_array_equal(pp.ids, jp.ids)
+    np.testing.assert_array_equal(pp.host_emb, jp.host_emb)
+    assert pp.ids[-2:].tolist() == [5000, 5001]
+    _neighbors_equal(ps[0], js[0])
+    assert ps[0]["neighbors"][0]["gallery_id"] == 5001
 
 
 # -- (g) the SIGTERM drain on a serve subprocess ------------------------------
@@ -1024,7 +1106,9 @@ def test_sigterm_drains_the_http_front_end(served_gallery):
 def test_sigkill_drill_zero_acked_loss(tmp_path):
     """Three SIGKILLs at seeded offsets, then a SIGTERM: every acked row
     is in the final checkpoint exactly once, the WAL replays only above
-    each restart's watermark, and the JAX package loads the result."""
+    each restart's watermark, and the JAX package loads the result.  A
+    row acked in a run is pending, as in JAX: that run never answers
+    it."""
     rng = np.random.default_rng(1234)
     dim, kills = 16, 3
     base = rng.normal(size=(32, dim)).astype(np.float32)
@@ -1036,7 +1120,7 @@ def test_sigkill_drill_zero_acked_loss(tmp_path):
            "--wal-dir", str(tmp_path / "wal"), "--wal-flush-ms", "2",
            "--wal-checkpoint-every", "3", "--top-k", "5", "--buckets", "1,8",
            "--device", "cpu"]
-    acked, sent = {}, {}
+    acked, sent, rows = {}, {}, {}
     batch_no = 0
 
     def batch():
@@ -1046,7 +1130,7 @@ def test_sigkill_drill_zero_acked_loss(tmp_path):
         ids = [100000 + 10 * b + j for j in range(2)]
         emb = rng.normal(size=(2, dim)).astype(np.float32)
         rid = f"drill-{b}"
-        sent[rid] = ids
+        sent[rid], rows[rid] = ids, emb
         return json.dumps({"id": rid, "ingest": {
             "ids": ids, "labels": [9, 9], "embeddings": emb.tolist()}}) + "\n"
 
@@ -1061,6 +1145,12 @@ def test_sigkill_drill_zero_acked_loss(tmp_path):
                 ack = json.loads(proc.stdout.readline())
                 assert ack["ingested"] == 2, ack
                 acked[ack["id"]] = sent[ack["id"]]
+            proc.stdin.write(json.dumps({"id": "q", "embedding": rows[
+                ack["id"]][0].tolist()}) + "\n")
+            proc.stdin.flush()
+            answer = json.loads(proc.stdout.readline())
+            assert sent[ack["id"]][0] not in [
+                n["gallery_id"] for n in answer["neighbors"]], answer
             if k < kills:
                 proc.stdin.write(batch())  # never acked: may or may not land
                 proc.stdin.flush()
@@ -1095,7 +1185,9 @@ def test_sigkill_drill_zero_acked_loss(tmp_path):
 def test_sigkill_after_concurrent_http_ingests_loses_no_acked_row(tmp_path):
     """8 threads POST ingests to ``serve --http`` with a checkpoint after
     every record, then SIGKILL: the restart's newest checkpoint plus
-    its WAL replay hold every acked id exactly once."""
+    its WAL replay hold every acked id exactly once.  The restart answers
+    an acked row exactly when its newest checkpoint holds it (the
+    replayed records are pending, as in JAX)."""
     rng = np.random.default_rng(77)
     dim = 8
     idx_dir = tmp_path / "idx"
@@ -1108,7 +1200,7 @@ def test_sigkill_after_concurrent_http_ingests_loses_no_acked_row(tmp_path):
            "--wal-checkpoint-every", "1", "--top-k", "3", "--buckets", "1,4",
            "--device", "cpu"]
     proc = _serve(["--http", "0", *cmd])
-    acks, failures = [], []
+    acks, failures, sent = [], [], {}
     try:
         port = json.loads(proc.stdout.readline())["port"]
 
@@ -1117,6 +1209,7 @@ def test_sigkill_after_concurrent_http_ingests_loses_no_acked_row(tmp_path):
                 ids = [10000 + 100 * k + 2 * b, 10001 + 100 * k + 2 * b]
                 rows = np.random.default_rng(k * 10 + b).normal(
                     size=(2, dim)).astype(np.float32)
+                sent[ids[0]] = rows[0]
                 code, ack = _http(port, "POST", "/query", json.dumps(
                     {"id": f"{k}-{b}", "ingest": {
                         "ids": ids, "labels": [3, 3],
@@ -1141,9 +1234,17 @@ def test_sigkill_after_concurrent_http_ingests_loses_no_acked_row(tmp_path):
     assert sorted(a["seq"] for _, a in acks) == list(range(1, 33))
     # The restart replays above its checkpoint and, at EOF, publishes a
     # final checkpoint: every acked id must be in it exactly once.
+    _, at_kill = load_newest(str(idx_dir / "g_"), device="cpu")
     proc = _serve(cmd)
+    proc.stdin.write("".join(json.dumps({"id": i, "embedding": r.tolist()})
+                             + "\n" for i, r in sent.items()))
     out, err = _finish(proc)
     assert proc.returncode == 0, err[-2000:]
+    answers = [json.loads(ln) for ln in out.splitlines()][:-1]
+    assert len(answers) == len(sent) == 32
+    for a in answers:
+        top1 = a["neighbors"][0]["gallery_id"]
+        assert (top1 == a["id"]) == (a["id"] in at_kill.ids), a
     path, final = load_newest(str(idx_dir / "g_"), device="cpu")
     assert final.ingest_watermark == 32, path
     ids = final.ids.tolist()
@@ -1305,7 +1406,7 @@ SERVE_FLAGS = ("http", "replicas", "index_prefix", "snapshot", "model",
                "wal_checkpoint_every", "shadow_rate", "shadow_window",
                "shadow_seed", "qtrace", "qtrace_exemplars", "qtrace_slo_ms",
                "admission", "admission_slos", "remediate",
-               "remediate_dry_run", "remediation_config")
+               "remediate_dry_run", "remediation_config", "tenant_config")
 TRAIN_FLAGS = ("remediate", "remediate_dry_run", "remediation_config")
 NEW_FLAGS = ([("index", d) for d in INDEX_FLAGS]
              + [("serve", d) for d in SERVE_FLAGS]
@@ -1336,6 +1437,15 @@ def test_unported_serve_flags_are_refused(flag, capsys):
         # the tier is refused before anything loads (exit 2, as JAX's).
         args = cli.build_parser().parse_args(argv + ["--device", "cpu"])
         assert cli.build_server(args) == 2
+        return
+    if flag == "--tenant-config":
+        # Ported with multi-tenant serving: it parses alone, and beside
+        # --index it is refused by the mutually exclusive group, as JAX's.
+        args = cli.build_parser().parse_args(["serve", flag, "t.json"])
+        assert args.tenant_config == "t.json" and args.index is None
+        with pytest.raises(SystemExit):
+            cli.build_parser().parse_args(argv)
+        assert "not allowed with argument --index" in capsys.readouterr().err
         return
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(argv)
