@@ -10,7 +10,9 @@ Phases (any failure raises, exits nonzero and prints no result line):
 1. the card: ``nvidia-smi`` name and power limit, torch version and
    compute capability (must be 9.0); TF32 off for fp32 parity;
 2. build the CUDA kernels from ``npairloss_tpu_torch/csrc/`` with nvcc
-   (one process per source, started together);
+   (one process per source, started together), with phase 14's two
+   gameday scenarios running beside the build, while the card is
+   otherwise idle; they are joined before phase 3 times anything;
 3. hold each kernel against its plain PyTorch version on the card at
    the serving path's shapes — LRN and bias+ReLU at (32,56,56,64) and
    (32,56,56,192), bias+ReLU+pool at (32,112,112,64), in fp32 and bf16
@@ -468,7 +470,28 @@ Phases (any failure raises, exits nonzero and prints no result line):
    "acme"}`` exported; (g) the probe against its plain version at acme's
    layout (B = 32, fp32) and its launches in the phase at least the IVF
    tenants' dispatches; no thread of the phase outlives it;
-14. a ``{"kernels": [...]}`` line (launches of the serving kernels from
+14. the composed gameday (``gameday.runner``, under
+   ``build/gameday_smoke/``): JAX's two scenarios at its defaults (seed
+   0, a 75 s window, 2 replicas), each supervised from a thread of this
+   process, every child the port's CLI on the card — ``day``: the seed
+   ``train --model mlp``, then the chaos ``train --resume auto`` (its
+   SIGTERM relaunch), ``serve --watch-snapshots --index-prefix
+   --remediate --wal-dir ...`` (its SIGKILL cold restart) and ``watch``
+   under the compressed day's schedule; ``tenant_skew``: one ``serve
+   --tenant-config`` tier of three galleries through acme's burst.  Both
+   verdicts ``pass`` and accepted by the port's validator, each report's
+   copy with the schema at ``-v0`` and one with ``queries_dropped`` 7
+   under its verdict refused, no client error, ``queries_dropped`` 0,
+   nothing built under either ``--compile-cache`` in the window; the
+   day: at least 3 hot swaps, every fault fired and remediated, exit 75
+   and a resumed trainer segment, no acked ingest vector lost or
+   doubled across the SIGKILL; the skew: acme shed and paged; printed:
+   the fault rows with each alert's fired-to-resolved seconds and the
+   remediation's outcome, the SLO blocks, ``host_crash``, the tenant
+   block, the trainer's segments and exit codes, its steps a second
+   and snapshots, the tiers' dispatches a second, the seconds; (c)
+   ``staticcheck`` over this checkout: no finding;
+15. a ``{"kernels": [...]}`` line (launches of the serving kernels from
    phase 4, of the training kernels from phase 5, of ``lrn_bwd`` from
    the phase-5b recompute step, of the blockwise kernels from phase
    6b; the five blockwise kernels again as ``<name>:bf16``, their bf16
@@ -9612,6 +9635,272 @@ def check_tenants(torch, seed, detail):
     return out
 
 
+GD_WORK = os.path.join("build", "gameday_smoke")
+GD_DURATION_S = 75.0       # JAX's default window, both scenarios
+GD_REPLICAS = 2
+
+
+def _gd_rows(path, phase=None):
+    """A run directory's JSONL rows (torn lines skipped)."""
+    out = []
+    if not os.path.exists(path):
+        return out
+    with open(path, encoding="utf-8", errors="replace") as f:
+        for line in f:
+            try:
+                row = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(row, dict) and (phase is None
+                                          or row.get("phase") == phase):
+                out.append(row)
+    return out
+
+
+def _gd_rates(run_dir):
+    """What the children did, from their run directories: the trainer's
+    steps a second in each segment (its metric rows by run id), the
+    snapshots the last segment committed (its trace's ``snapshot``
+    spans), and the tier's dispatches a second over its window rows."""
+    out = {}
+    segs = {}
+    for row in _gd_rows(os.path.join(run_dir, "train_tel", "metrics.jsonl"),
+                        "train"):
+        segs.setdefault(row.get("run_id"), []).append(
+            (int(row["step"]), float(row["wall_time"])))
+    rates = []
+    for rows in segs.values():
+        (s0, t0), (s1, t1) = min(rows), max(rows)
+        rates.append({"steps": s1 - s0, "seconds": round(t1 - t0, 3),
+                      "steps_per_s": round((s1 - s0) / max(t1 - t0, 1e-9),
+                                           1)})
+    if rates:
+        out["trainer_segments"] = rates
+    trace = os.path.join(run_dir, "train_tel", "trace.json")
+    if os.path.exists(trace):
+        with open(trace) as f:
+            tr = json.load(f)
+        events = tr["traceEvents"] if isinstance(tr, dict) else tr
+        out["snapshots_last_segment"] = sum(
+            1 for e in events if e.get("name") == "snapshot")
+    # A window row's ``batches`` counts the tier's dispatches so far
+    # (its warm-up's included); a restarted tier starts again at 0.
+    tiers = {}
+    for r in _gd_rows(os.path.join(run_dir, "serve_tel", "metrics.jsonl")):
+        if "batches" in r and "wall_time" in r:
+            tiers.setdefault(r.get("run_id"), []).append(
+                (float(r["wall_time"]), int(r["batches"])))
+    if tiers:
+        out["tier_dispatches"] = sum(max(b for _, b in rows)
+                                     for rows in tiers.values())
+        span = sum(max(rows)[0] - min(rows)[0] for rows in tiers.values())
+        out["tier_dispatches_per_s"] = round(
+            out["tier_dispatches"] / max(span, 1e-9), 2)
+    return out
+
+
+def _gd_fault_lines(report, run_dir):
+    """Each scripted fault: fired, its alert's fired-to-resolved seconds
+    (from the alert logs) and its remediation's outcome."""
+    alerts = (_gd_rows(os.path.join(run_dir, "serve_tel", "alerts.jsonl"))
+              + _gd_rows(os.path.join(run_dir, "train_tel",
+                                      "alerts.jsonl")))
+    spans = {}
+    for a in alerts:
+        if a.get("state") == "resolved" and "fired_at" in a:
+            spans.setdefault(a.get("slo"), []).append(
+                round(float(a["ts"]) - float(a["fired_at"]), 2))
+    out = []
+    for f in report["faults"]:
+        out.append({"name": f["name"], "target": f["target"],
+                    "fired": f["fired"], "observed": f["observed_fires"],
+                    "alert": f["alert"],
+                    "fired_to_resolved_s": spans.get(f["alert"], []),
+                    "remediation": f["remediation"],
+                    "outcome": f["remediation_state"],
+                    "checks": f["checks"], "ok": f["ok"]})
+    return out
+
+
+def _gd_tampered_refused(verdict, report, what):
+    """The gate's teeth: the schema tag at -v0, and queries_dropped
+    doctored to 7 under the verdict left as it was, both refused by the
+    validator that accepted the report."""
+    err = verdict.validate_gameday_report(report)
+    if err is not None:
+        fail(f"[14] {what}: the validator refuses the run's own report: "
+             f"{err}")
+    bad_schema = json.loads(json.dumps(report).replace(
+        verdict.GAMEDAY_SCHEMA, "npairloss-gameday-v0"))
+    doctored = json.loads(json.dumps(report))
+    doctored["zero_drop"]["queries_dropped"] = 7
+    for name, bad in (("schema -v0", bad_schema),
+                      ("queries_dropped 7", doctored)):
+        if verdict.validate_gameday_report(bad) is None:
+            fail(f"[14] {what}: the validator accepted the report with "
+                 f"{name}")
+    return ["schema -v0", "queries_dropped 7"]
+
+
+class GamedayRuns:
+    """The gameday's two scenarios (JAX's defaults, the children the
+    port's CLI on cuda:0), each in a thread of this process whose
+    supervisor only launches, feeds and waits on its children.  They run
+    beside the kernel build (phase 2), when the card is otherwise idle,
+    and are joined before phase 3 times anything; phase 14 checks them."""
+
+    def __init__(self, seed):
+        self.seed = seed
+        self.results = {}
+        self.threads = []
+        self.t0 = self.seconds = None
+
+    def start(self):
+        import shutil
+        import threading
+
+        from npairloss_tpu_torch.gameday import runner
+
+        shutil.rmtree(GD_WORK, ignore_errors=True)
+        os.makedirs(GD_WORK)
+        self.t0 = time.perf_counter()
+        for scenario, fn in (("day", runner.run_gameday),
+                             ("tenant_skew", runner.run_tenant_skew)):
+            th = threading.Thread(target=self._run, args=(scenario, fn),
+                                  name=f"gameday-{scenario}")
+            th.start()
+            self.threads.append(th)
+        return self
+
+    def _run(self, scenario, fn):
+        t0 = time.perf_counter()
+        try:
+            self.results[scenario] = (fn(
+                os.path.abspath(os.path.join(GD_WORK, scenario)),
+                seed=self.seed, duration_s=GD_DURATION_S,
+                replicas=GD_REPLICAS), time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 — raised in phase 14
+            self.results[scenario] = (e, time.perf_counter() - t0)
+
+    def join(self):
+        for th in self.threads:
+            th.join()
+        self.seconds = time.perf_counter() - self.t0
+        return self
+
+
+def check_gameday(torch, seed, detail, runs):
+    """Phase 14: the composed gameday's reports (``runs``, a joined
+    :class:`GamedayRuns`) held to the verdict and its teeth, then the
+    static checker over this checkout."""
+    from npairloss_tpu_torch.gameday import runner, verdict
+
+    card = detail["card"]
+    t_start = time.perf_counter()
+    out = {"wall_s": round(runs.seconds, 1)}
+    results = runs.results
+    for scenario in ("day", "tenant_skew"):
+        report, secs = results[scenario]
+        if isinstance(report, BaseException):
+            raise RuntimeError(f"[14] {scenario} broke after {secs:.1f} s: "
+                               f"{type(report).__name__}: {report}")
+        run_dir = os.path.join(GD_WORK, scenario)
+        zd, tr = report["zero_drop"], report["traffic"]
+        row = {"verdict": report["verdict"], "failures": report["failures"],
+               "seconds": round(secs, 1),
+               "faults": _gd_fault_lines(report, run_dir),
+               "hot_swaps": zd["hot_swaps"],
+               "queries_dropped": zd["queries_dropped"],
+               "answered": tr["answered"], "fed": tr["fed"],
+               "planned": tr["planned"], "errors": tr["errors"],
+               "rejected": tr["rejected"], "slo": report["slo"],
+               "host_crash": report["host_crash"],
+               "trainer": report["trainer"],
+               "tenants": report["tenants"], **_gd_rates(run_dir)}
+        row["refused"] = _gd_tampered_refused(verdict, report, scenario)
+        # The tier's --compile-cache: nothing may build inside the window
+        # (no kernel lies on this path).
+        built = [os.path.join(d, f) for d, _, fs in os.walk(
+            os.path.join(run_dir, "xla_cache")) for f in fs]
+        if built:
+            fail(f"[14] {scenario}: built inside the window: {built[:4]}")
+        out[scenario] = row
+        log(f"[14] {scenario}: verdict {row['verdict']}, failures "
+            f"{row['failures']}; answered {row['answered']} / fed "
+            f"{row['fed']} / planned {row['planned']}, errors "
+            f"{row['errors']}, rejected {row['rejected']}, hot_swaps "
+            f"{row['hot_swaps']}, queries_dropped {row['queries_dropped']};"
+            f" {row['seconds']} s ({card})")
+        for f in row["faults"]:
+            log(f"[14] {scenario} fault {json.dumps(f)}")
+        log(f"[14] {scenario} slo {json.dumps(row['slo'])}")
+        if scenario == "day":
+            log(f"[14] day host_crash {json.dumps(row['host_crash'])}; "
+                f"trainer {json.dumps(row['trainer'])}; segments "
+                f"{json.dumps(row.get('trainer_segments'))}, snapshots "
+                f"committed by the last segment "
+                f"{row.get('snapshots_last_segment')}; tier "
+                f"{row.get('tier_dispatches')} dispatches, "
+                f"{row.get('tier_dispatches_per_s')} a second ({card})")
+        else:
+            log(f"[14] tenant_skew tenants {json.dumps(row['tenants'])}; "
+                f"tier {row.get('tier_dispatches')} dispatches, "
+                f"{row.get('tier_dispatches_per_s')} a second ({card})")
+        if report["verdict"] != "pass":
+            fail(f"[14] {scenario}: verdict {report['verdict']}: "
+                 f"{report['failures']}")
+        if tr["errors"] or zd["queries_dropped"] != 0:
+            fail(f"[14] {scenario}: {tr['errors']} client errors, "
+                 f"queries_dropped {zd['queries_dropped']}")
+    day = out["day"]
+    if day["hot_swaps"] < runner.MIN_HOT_SWAPS:
+        fail(f"[14] day: {day['hot_swaps']} hot swaps < "
+             f"{runner.MIN_HOT_SWAPS}")
+    if not all(f["fired"] and f["ok"] for f in day["faults"]):
+        fail(f"[14] day: a fault not fired or not remediated: "
+             f"{day['faults']}")
+    if day["trainer"]["exit_codes"][:1] != [75] \
+            or not day["trainer"]["resumed"]:
+        fail(f"[14] day: trainer {day['trainer']}")
+    hc = day["host_crash"]
+    if not (hc.get("available") and hc["lost"] == 0
+            and hc["duplicates"] == 0):
+        fail(f"[14] day: acked ingest across the SIGKILL: {hc}")
+    tb = out["tenant_skew"]["tenants"]["tenants"]
+    hot = tb[out["tenant_skew"]["tenants"]["hot"]]
+    if not (hot["shed"] > 0 and hot["alerted"]):
+        fail(f"[14] tenant_skew: the hot tenant not shed and paged: {hot}")
+
+    # (c) the static checker over this checkout.
+    from npairloss_tpu_torch.analysis import (
+        run_suite,
+        validate_staticcheck_report,
+    )
+
+    t0 = time.perf_counter()
+    report = run_suite(os.path.dirname(os.path.abspath(__file__)))
+    err = validate_staticcheck_report(report)
+    sc = {"findings": report["summary"]["findings"],
+          "allowlisted": report["summary"]["allowlisted"],
+          "files_scanned": report["summary"]["files_scanned"],
+          "passes": {p["name"]: ("skipped" if p["skipped"]
+                                 else p["findings"])
+                     for p in report["passes"]},
+          "seconds": round(time.perf_counter() - t0, 2)}
+    log(f"[14c] staticcheck over the checkout: {json.dumps(sc)}")
+    if err is not None or report["findings"]:
+        fail(f"[14c] staticcheck: {err} "
+             f"{[r['message'] for r in report['findings']]}")
+    out["staticcheck"] = sc
+    out["check_s"] = round(time.perf_counter() - t_start, 1)
+    detail["gameday"] = out
+    log(f"[14] the gameday on the card: day {day['seconds']} s, "
+        f"tenant_skew {out['tenant_skew']['seconds']} s, both "
+        f"{out['wall_s']} s beside the build; the checks "
+        f"{out['check_s']} s ({card})")
+    return out
+
+
 def _release(torch):
     """Return the card's cached memory between phases.  cuBLAS keeps a
     workspace for every stream it ran on (32 MiB each on this card),
@@ -9653,12 +9942,17 @@ def main() -> int:
     from npairloss_tpu_torch.serve.ivf import IVFIndex
 
     resolve_device("cuda")  # TF32 off for fp32 parity
-    phase("2 (build)")
+    phase("2 (build; the gameday beside it)")
+    gameday = GamedayRuns(args.seed).start()
     t0 = time.perf_counter()
     _build.library()
     info = _build.build_info
     log(f"[build] {info['path']} in {time.perf_counter() - t0:.2f} s "
         f"(cached: {info['cached']})")
+    # Nothing is timed while the gameday's children hold the card.
+    gameday.join()
+    log(f"[build] the gameday's two scenarios joined "
+        f"{time.perf_counter() - t0:.1f} s after the build began")
     # ptxas -v: each kernel's name, then its spills, registers and shared
     # memory.
     for ln in str(info.get("log", "")).splitlines():
@@ -9749,6 +10043,8 @@ def main() -> int:
     p12_launches = check_hotswap(torch, args.seed, detail)
     phase("13 (multi-tenant serving)")
     p13 = check_tenants(torch, args.seed, detail)
+    phase("14 (the gameday, the static checker)")
+    check_gameday(torch, args.seed, detail, gameday)
     phase("the kernels line")
 
     def entry(name, source, replaces, rows, counter, path=None):

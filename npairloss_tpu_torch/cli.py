@@ -1,7 +1,7 @@
 """``python -m npairloss_tpu_torch
-index|serve|train|test|extract|eval|time|prof|timeline|watch|
-device-query|parse|import-caffemodel|export-caffemodel`` — the port's
-CLI.
+index|serve|train|test|extract|eval|time|prof|timeline|watch|gameday|
+staticcheck|device-query|parse|import-caffemodel|export-caffemodel`` —
+the port's CLI.
 
 Flag names follow ``npairloss_tpu``'s CLI for the ported subset; the
 port adds ``--device`` (default: the card; ``cpu`` to run without one)
@@ -111,6 +111,13 @@ is here (GoogLeNet, Inception-BN, the ResNets, ViT-B/16, the MLP).
   timeline: every trace under a run directory on one Perfetto timeline;
   watch:   a run directory's telemetry through the same SLO engine,
            offline (``--follow`` tails it), into ``alerts.watch.jsonl``;
+  gameday: the composed trainer / serving tier / watch group, each a
+           child of this CLI, through a deterministic compressed day
+           under a chaos schedule (``--scenario day``) or a hot
+           tenant's burst (``tenant_skew``), judged by the
+           ``npairloss-gameday-v1`` verdict;
+  staticcheck: the invariant linter over this package's tree (imports
+           no torch);
   device-query: the card(s) and the process topology as JSON;
   parse:   a prototxt parsed and printed back (``--json``: as JSON);
   import-caffemodel: a ``.caffemodel``'s GoogLeNet or ResNet-50 blobs to a
@@ -130,13 +137,23 @@ import sys
 import time
 from typing import Optional
 
-from npairloss_tpu_torch.ops.ivf_probe import PROBE_IMPLS
-
 log = logging.getLogger("npairloss_tpu_torch")
 
-# --precision's choices: models.precision.available_policies(), pinned
-# by tests/test_torch_precision_policy.py.
+# The parser is built from literals and imports nothing of torch, so
+# ``--help``, ``staticcheck`` and ``gameday``'s argument checks run
+# without it.  --precision's choices: models.precision's registry,
+# pinned by the staticcheck vocab pass and
+# tests/test_torch_precision_policy.py.
 _PRECISION_CHOICES = ("bf16", "fp32_parity", "mxu")
+
+# The staticcheck pass vocabulary, pinned == analysis.runner.PASS_NAMES
+# by tests/test_torch_staticcheck.py.
+_STATICCHECK_PASSES = ("purity", "scopes", "locks", "contracts",
+                       "vocab", "markers")
+
+# --probe-impl's choices, pinned == ops.ivf_probe.PROBE_IMPLS by the
+# staticcheck vocab pass.
+_PROBE_IMPL_CHOICES = ("scan", "fused", "auto")
 
 
 def _unported_model(name: str) -> Optional[str]:
@@ -712,9 +729,11 @@ def _build_tenant_server(args, registry, specs, buckets, device):
         for i, (tid, entry) in enumerate(entries.items()):
             entry.shadow = _tenant_shadow(args, entry, indexes[tid][0], i,
                                           telemetry)
-        log.info("per-tenant shadow scoring armed: rate %g, window %d, %d "
-                 "scorer(s)", args.shadow_rate, args.shadow_window,
-                 len(entries))
+        # A warning, so it reaches the log at the CLI's level: the
+        # gameday supervisor waits for it before it feeds the tier.
+        log.warning("per-tenant shadow scoring armed: rate %g, window %d, "
+                    "%d scorer(s)", args.shadow_rate, args.shadow_window,
+                    len(entries))
     if live is not None:
         live.add_probe(lambda: _serve_probe(live, server, None))
         # Started after warmup: the first windows reflect serving.
@@ -980,10 +999,10 @@ def _shadow_scorer(args, server, index_path: str, telemetry):
         out_path=os.path.join(args.telemetry_dir, "quality.jsonl"),
         baseline=baseline, recall_floor=floor,
         floor_metric=floor_metric).start()
-    log.info("shadow scoring armed: rate %g, window %d%s", args.shadow_rate,
-             args.shadow_window,
-             f", floor {floor} on {floor_metric}" if floor is not None
-             else "")
+    log.warning("shadow scoring armed: rate %g, window %d%s",
+                args.shadow_rate, args.shadow_window,
+                f", floor {floor} on {floor_metric}" if floor is not None
+                else "")
     return shadow
 
 
@@ -2356,6 +2375,112 @@ def cmd_watch(args) -> int:
                     for a in summary["active"].values()) else 0
 
 
+def _add_staticcheck_options(sc) -> None:
+    """The staticcheck option vocabulary, restated here so building the
+    parser imports nothing (as ``_PRECISION_CHOICES``).  Option strings,
+    choices and defaults are pinned equal to ``analysis.runner``'s own
+    parser and to JAX's by tests/test_torch_staticcheck.py — both front
+    doors feed one ``run_from_args``."""
+    sc.add_argument("root", nargs="?", default=None,
+                    help="tree to scan (default: this repo)")
+    sc.add_argument("--pass", dest="passes", action="append",
+                    choices=list(_STATICCHECK_PASSES), metavar="NAME",
+                    help="run only the named pass(es); repeatable "
+                    f"(default: all of {list(_STATICCHECK_PASSES)})")
+    sc.add_argument("--diff", metavar="BASE",
+                    help="restrict findings to files changed since the "
+                    "git ref (the fast incremental check)")
+    sc.add_argument("--allowlist", metavar="PATH",
+                    help="allowlist JSON (default: <root>/npairloss_tpu_"
+                    "torch/analysis/staticcheck_allow.json)")
+    sc.add_argument("--out", metavar="PATH",
+                    default="staticcheck_report.json",
+                    help="where the npairloss-staticcheck-v1 report "
+                    "lands (default %(default)s; '-' disables)")
+    sc.add_argument("--update-timings", dest="update_timings",
+                    metavar="PYTEST_LOG",
+                    help="regenerate npairloss_tpu_torch/analysis/"
+                    "timing_history.json from a pytest --durations=0 "
+                    "log, then exit")
+    sc.add_argument("--threshold-s", dest="threshold_s", type=float,
+                    default=10.0,
+                    help="slow-marker threshold recorded by "
+                    "--update-timings (default %(default)s)")
+
+
+def cmd_gameday(args) -> int:
+    """``gameday --out DIR`` — the production gameday
+    (docs/RESILIENCE.md §Gameday) over the port's composed system: a
+    trainer snapshotting under ``--resume auto``, a replicated serving
+    tier with live-obs + remediation + snapshot/index watching, and the
+    watch evaluator, each a ``python -m npairloss_tpu_torch`` child on
+    the card (``--device cpu``: on the CPU), driven through one
+    deterministic compressed day of traffic while the chaos schedule
+    injects every scripted fault; the ``npairloss-gameday-v1`` verdict
+    lands in ``<out>/gameday.json``.  Exit 0 iff the verdict passes.
+    The argument checks run before anything imports torch."""
+    if args.duration <= 0:
+        log.error("--duration must be > 0, got %s", args.duration)
+        return 1
+    scenario = args.scenario
+    if scenario == "day" and args.replicas < 2:
+        log.error("--replicas must be >= 2 (the replica-crash entry "
+                  "needs a survivor to reroute to), got %s",
+                  args.replicas)
+        return 1
+    if args.schedule and scenario != "day":
+        log.error("--schedule is the day scenario's knob; tenant_skew "
+                  "ships its own schedule (the hot-tenant burst)")
+        return 1
+    if args.schedule and not os.path.exists(args.schedule):
+        log.error("--schedule not found: %s", args.schedule)
+        return 1
+
+    from npairloss_tpu_torch.gameday.runner import (
+        GamedayError,
+        run_gameday,
+        run_tenant_skew,
+    )
+
+    try:
+        if scenario == "tenant_skew":
+            report = run_tenant_skew(
+                args.out, seed=args.seed, duration_s=args.duration,
+                replicas=args.replicas, device=args.device)
+        else:
+            report = run_gameday(
+                args.out, seed=args.seed, duration_s=args.duration,
+                schedule_path=args.schedule, replicas=args.replicas,
+                device=args.device)
+    except GamedayError as e:
+        log.error("gameday run broke: %s", e)
+        return 1
+    print(json.dumps({
+        "verdict": report["verdict"],
+        "failures": report["failures"],
+        "faults": len(report["faults"]),
+        "hot_swaps": report["zero_drop"]["hot_swaps"],
+        "queries_dropped": report["zero_drop"]["queries_dropped"],
+        "answered": report["traffic"]["answered"],
+        "report": os.path.join(os.path.abspath(args.out),
+                               "gameday.json"),
+    }))
+    return 0 if report["verdict"] == "pass" else 1
+
+
+def cmd_staticcheck(args) -> int:
+    """``staticcheck [ROOT]`` — the invariant linter over the port's
+    tree (``analysis/``): purity proofs for the stdlib contract
+    modules, collectives inside their ``count.collective`` scope,
+    guarded-by lock discipline, versioned-contract drift, vocabulary
+    drift, and tier-1 marker discipline.  Free of torch end to end:
+    this function imports only ``npairloss_tpu_torch.analysis``."""
+    from npairloss_tpu_torch.analysis.runner import run_from_args
+
+    return run_from_args(args, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+
 def cmd_parse(args) -> int:
     """Parse a prototxt and print it back (text format, or ``--json``)."""
     from npairloss_tpu_torch.config.prototxt import dumps, parse_file
@@ -2668,7 +2793,7 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--scoring", choices=["fp32", "bf16", "int8"],
                     default="fp32")
     sv.add_argument("--probe-impl", dest="probe_impl",
-                    choices=sorted(PROBE_IMPLS), default="scan")
+                    choices=list(_PROBE_IMPL_CHOICES), default="scan")
     sv.add_argument("--replicas", type=int, default=1,
                     help="engine replicas behind the front end, each with "
                     "its own batcher, dispatcher thread and CUDA stream")
@@ -3198,6 +3323,50 @@ def build_parser() -> argparse.ArgumentParser:
                    "alerts.watch.jsonl — never the in-process engine's "
                    "alerts.jsonl)")
     w.set_defaults(fn=cmd_watch)
+
+    gd = sub.add_parser(
+        "gameday",
+        help="production gameday (docs/RESILIENCE.md §Gameday): "
+        "deterministic traffic + scripted chaos over the composed "
+        "trainer/server/watch group of the port's CLI on the card, "
+        "verdict-gated (npairloss-gameday-v1)")
+    gd.add_argument("--out", required=True, metavar="DIR",
+                    help="run directory for every artifact (answers, "
+                    "telemetry, logs, gameday.json)")
+    gd.add_argument("--seed", type=int, default=0,
+                    help="traffic seed — same seed, same compressed "
+                    "day, byte for byte (default 0)")
+    gd.add_argument("--duration", type=float, default=75.0,
+                    metavar="S",
+                    help="traffic window in seconds (default 75)")
+    gd.add_argument("--schedule", metavar="PATH",
+                    help="chaos schedule JSON (default: the shipped "
+                    "compressed-day schedule; day scenario only)")
+    gd.add_argument("--replicas", type=int, default=2,
+                    help="serving replicas (default 2; >= 2 so the "
+                    "day scenario's replica-crash entry has a "
+                    "survivor)")
+    gd.add_argument("--scenario", choices=("day", "tenant_skew"),
+                    default="day",
+                    help="'day' = the full compressed-day chaos drill; "
+                    "'tenant_skew' = the multi-tenant noisy-neighbor "
+                    "drill (docs/SERVING.md §Multi-tenant): one tier, "
+                    "three tenant galleries, a hot-tenant burst that "
+                    "must quota-shed and page WITHOUT degrading the "
+                    "other tenants (default %(default)s)")
+    gd.add_argument("--device", default=None,
+                    help="the children's torch device (default: the "
+                    "card, and the command fails without one; 'cpu' "
+                    "runs them on the CPU)")
+    gd.set_defaults(fn=cmd_gameday)
+
+    sc = sub.add_parser(
+        "staticcheck",
+        help="invariant linter over the port's tree (no torch, no "
+        "device): the contracts the runtime gates can only catch "
+        "after the fact")
+    _add_staticcheck_options(sc)
+    sc.set_defaults(fn=cmd_staticcheck)
 
     dq = sub.add_parser(
         "device-query",

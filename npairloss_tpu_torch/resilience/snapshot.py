@@ -52,11 +52,13 @@ from npairloss_tpu_torch.resilience.retrying import (
     RetryPolicy,
     call_with_retry,
 )
+# One definition of the format string: the index commits' stdlib-and-
+# numpy half holds it (with its validator), and snapshots share it.
+from npairloss_tpu_torch.serve.manifest import SNAPSHOT_FORMAT
 
 log = logging.getLogger("npairloss_tpu_torch.resilience")
 
 MANIFEST_NAME = "manifest.json"
-SNAPSHOT_FORMAT = "npairloss-snapshot-v1"
 TMP_MARKER = ".tmp-"
 QUARANTINE_SUFFIX = ".quarantined"
 # The tensors of a snapshot: one torch.save file beside the manifest.

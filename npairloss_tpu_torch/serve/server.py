@@ -899,8 +899,11 @@ class RetrievalServer:
         self._ingest_apply = apply_fn
         self._checkpoint_fn = checkpoint_fn
         self._checkpoint_every = int(checkpoint_every)
-        self._ingest_watermark = int(watermark)
-        self._ckpt_watermark = int(checkpoint_watermark)
+        # Before the front end starts: no ingest thread exists yet, so
+        # the watermarks are set without their lock.
+        self._ingest_watermark = int(watermark)  # unguarded-ok: startup
+        self._ckpt_watermark = int(  # unguarded-ok: startup
+            checkpoint_watermark)
         self._recovery = recovery
         self._ingest_worker = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="serve-ingest")

@@ -30,7 +30,7 @@ from typing import Dict, List, Optional, Tuple
 # chip_smoke.main's order.
 ORDER = ["start", "3", "4", "5", "5b", "5c", "5d", "5e", "4b", "5f", "5g",
          "5h", "5i", "5j", "6", "6b", "6c", "7", "8", "9", "10", "11", "12",
-         "13", "done"]
+         "13", "14", "done"]
 PHASE_OF = {
     "card": "start", "build": "start", "index": "3", "kernel": "3",
     "path": "4", "train": "5", "upload": "5", "step": "5b", "mining": "5c",
@@ -40,7 +40,7 @@ PHASE_OF = {
     "5h": "5h", "5i": "5i", "rank0": "5i", "rank1": "5i", "5j": "5j",
     "blockwise": "6", "blockwise-train": "6b", "stretch": "6c",
     "stretch-bf16": "6c", "7": "7", "8": "8", "9": "9", "10": "10",
-    "11": "11", "12": "12", "13": "13", "done": "done",
+    "11": "11", "12": "12", "13": "13", "14": "14", "done": "done",
 }
 TAG = re.compile(r"^\[([^\]\s]+)")
 
@@ -49,10 +49,11 @@ def phase_of(tag: str) -> Optional[str]:
     """The phase a ``[tag]`` opens, or None for a shared or unknown tag
     (``7a``..``7f`` are phase 7, ``8a``..``8e`` phase 8, ``10a``/``10b``
     phase 10, ``11a``..``11c`` phase 11, ``12a``..``12e`` phase 12,
-    ``13a``..``13g`` phase 13)."""
+    ``13a``..``13g`` phase 13, ``14c`` phase 14).  Phase 14's gameday
+    runs beside the build, so its seconds there count to ``start``."""
     if tag in PHASE_OF:
         return PHASE_OF[tag]
-    m = re.fullmatch(r"(7|8|10|11|12|13)[a-z]", tag)
+    m = re.fullmatch(r"(7|8|10|11|12|13|14)[a-z]", tag)
     return m.group(1) if m else None
 
 

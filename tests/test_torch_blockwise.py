@@ -269,7 +269,7 @@ def test_negative_pos_topk_is_refused():
                                 pos_topk=-1)
 
 
-def test_pos_topk_above_the_kernel_limit_is_refused():
+def test_pos_topk_above_the_kernel_limit_is_refused():  # slow-ok: the radix fallback past the kernel's 32 slots, against JAX
     """The kernel's K-slot limit, kMaxTopK, is refused by its wrapper on
     every device; the engine takes any K >= 0, as JAX does, and gives the
     kernel at most that many slots.  40 images per identity give 39

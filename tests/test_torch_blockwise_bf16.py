@@ -146,7 +146,7 @@ def test_plain_sweeps_in_bf16_mode_match_a_float64_oracle():
 
 
 @pytest.mark.parametrize("name", ["reference", "hard_true"])
-def test_default_mode_against_jax_blockwise_on_prerounded_features(name):
+def test_default_mode_against_jax_blockwise_on_prerounded_features(name):  # slow-ok: the bf16 mode against JAX's Pallas kernels in interpret mode
     cfg = CONFIGS[name]
     f, l = unit_batch(5, num_ids=5, imgs=2)
     fr = bf16_np(f)

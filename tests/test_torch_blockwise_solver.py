@@ -88,7 +88,7 @@ def _mask(line):
     return re.sub(r"-?\d+(\.\d+)?(e[-+]?\d+)?", "#", line)
 
 
-def test_cli_blockwise_event_stream_matches_jax_cli(tmp_path):
+def test_cli_blockwise_event_stream_matches_jax_cli(tmp_path):  # slow-ok: both CLIs' blockwise event streams, end to end
     """``train --engine blockwise --pos-topk 0 --sim-cache off``: the
     same events, keys, key order, display lines and final line's keys as
     the JAX CLI with the same flags."""

@@ -115,7 +115,7 @@ def solvers():
         torch.backends.mkldnn.enabled = True
 
 
-def test_three_bn_steps_match_the_jax_solver(solvers):
+def test_three_bn_steps_match_the_jax_solver(solvers):  # slow-ok: the BN solver's steps against JAX's, in fp64
     js, ts, trace, _ = solvers
     assert ts.matmul_precision is None
     assert ts.precision_policy.describe() == js.precision_policy.describe()
@@ -133,7 +133,7 @@ def test_three_bn_steps_match_the_jax_solver(solvers):
     _check_stats(ts, js)
 
 
-def test_test_phase_uses_the_running_statistics(solvers):
+def test_test_phase_uses_the_running_statistics(solvers):  # slow-ok: the BN TEST phase against JAX's solver
     """``evaluate`` runs the trunk in eval mode: the running statistics
     stay as they are and the metrics match JAX's TEST step, which
     normalizes by them too; a forward on batch statistics differs."""
@@ -154,7 +154,7 @@ def test_test_phase_uses_the_running_statistics(solvers):
     assert not torch.allclose(emb_eval, emb_train, atol=1e-3)
 
 
-def test_snapshot_resume_is_bit_for_bit_with_bn_buffers(tmp_path):
+def test_snapshot_resume_is_bit_for_bit_with_bn_buffers(tmp_path):  # slow-ok: the only BN-buffer resume check
     kw = dict(KW, snapshot=2, snapshot_prefix=str(tmp_path / "bn_"))
 
     def solver():
@@ -179,7 +179,7 @@ def test_snapshot_resume_is_bit_for_bit_with_bn_buffers(tmp_path):
         assert torch.equal(sa[k], sb[k]), k
 
 
-def test_bn_cli_event_stream_matches_jax_cli(tmp_path, monkeypatch):
+def test_bn_cli_event_stream_matches_jax_cli(tmp_path, monkeypatch):  # slow-ok: both CLIs' googlenet_bn event streams, end to end
     """``train --model googlenet_bn --precision fp32_parity`` on the tiny
     solver (8x8 crops; the JAX CLI shards over the 8 test devices):
     the same events, iterations and keys, the same final line's keys."""

@@ -85,7 +85,7 @@ def _assert_trees_equal(got, want):
         assert np.array_equal(got[k], v), k
 
 
-def test_codec_writes_the_jax_bytes(trees):
+def test_codec_writes_the_jax_bytes(trees):  # slow-ok: the .caffemodel codec byte for byte against JAX
     layers = trees["resnet50"][2]
     data = tcodec.write_caffemodel(layers)
     assert data == jcodec.write_caffemodel(layers)
@@ -110,7 +110,7 @@ def test_codec_writes_the_jax_bytes(trees):
 
 
 @pytest.mark.parametrize("family", ["googlenet", "resnet50"])
-def test_import_equals_jax_and_export_is_byte_equal(trees, family):
+def test_import_equals_jax_and_export_is_byte_equal(trees, family):  # slow-ok: Caffe import/export of a whole trunk against JAX
     params, stats, layers = trees[family]
     tp, ts = cli._template(family)
     jp, js = _jax_template(family)
@@ -158,7 +158,7 @@ def test_solverstate_history_round_trips_as_in_jax(trees):
     _assert_trees_equal(got[0], jax.tree_util.tree_map(np.asarray, want[0]))
 
 
-def test_caffe_pad_equals_the_jax_stem(monkeypatch):
+def test_caffe_pad_equals_the_jax_stem(monkeypatch):  # slow-ok: Caffe's pad-3 stem against JAX's
     monkeypatch.setattr(torch.backends.mkldnn, "enabled", False)
     rng = np.random.default_rng(4)
     x = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
@@ -195,7 +195,7 @@ def _run(main, argv):
 
 
 @pytest.mark.parametrize("family", ["googlenet", "resnet50"])
-def test_cli_import_export_round_trip(tmp_path, trees, family):
+def test_cli_import_export_round_trip(tmp_path, trees, family):  # slow-ok: both Caffe commands through the CLI
     _, _, layers = trees[family]
     src = tmp_path / "in.caffemodel"
     src.write_bytes(tcodec.write_caffemodel(layers))
@@ -268,7 +268,7 @@ def test_caffe_solverstate_refusals(tmp_path, caplog):
     assert cli.main(["export-caffemodel", "--out", str(tmp_path / "y")]) == 2
 
 
-def test_train_resumes_momentum_and_iteration_from_a_solverstate(tmp_path,
+def test_train_resumes_momentum_and_iteration_from_a_solverstate(tmp_path,  # slow-ok: the .solverstate resume path
                                                                   trees):
     """``train --weights W --caffe-solverstate S`` on plain ``googlenet``
     (crop 32, batch 8): the momentum is the history's, as JAX's map

@@ -133,7 +133,7 @@ def test_extract_then_eval_match_jax(weights):
 
 
 @pytest.mark.parametrize("forward_only", [False, True])
-def test_time_record_keys_match_jax(weights, forward_only):
+def test_time_record_keys_match_jax(weights, forward_only):  # slow-ok: time's record against the JAX CLI's
     extra = ["--iterations", "2", "--batch", "8"] + (
         ["--forward-only"] if forward_only else [])
     (jrc, jout), (prc, pout) = _both(weights, "time", extra)

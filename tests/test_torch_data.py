@@ -139,7 +139,7 @@ def _jax_warp_draws(key, n, h, w, cfg):
 
 
 @pytest.mark.parametrize("name", sorted(TRANSFORMERS))
-def test_data_transformer_matches_jax_given_its_draws(name):
+def test_data_transformer_matches_jax_given_its_draws(name):  # slow-ok: the data transformer against JAX's on its draws
     imgs = _images()
     n, h, w, _ = imgs.shape
     jcfg = jschema.TransformerConfig(**TRANSFORMERS[name])

@@ -57,7 +57,7 @@ def list_file_solver(tmp_path):
 
 
 @pytest.mark.parametrize("native", ["never", "require"])
-def test_list_file_train_event_stream_matches_jax_cli(tmp_path, native):
+def test_list_file_train_event_stream_matches_jax_cli(tmp_path, native):  # slow-ok: list-file training through both CLIs
     solver = list_file_solver(tmp_path)
     streams, outs = {}, {}
     for name, main, extra in (("jax", jax_cli.main, []),

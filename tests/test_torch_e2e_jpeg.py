@@ -136,7 +136,7 @@ def _check(port, jax, geometry, tol):
     return r_port, r_jax
 
 
-def test_jpeg_chain_recall_matches_jax_cli_tiny(tmp_path):
+def test_jpeg_chain_recall_matches_jax_cli_tiny(tmp_path):  # slow-ok: the real-JPEG chain through both CLIs
     port, jax, geometry = _both(tmp_path, steps=20, side=32, crop=32,
                                 mirror=False)
     _check(port, jax, geometry, tol=2 / 32 + 1e-6)

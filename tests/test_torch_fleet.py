@@ -403,7 +403,7 @@ def _fleet_task(mesh, run_dir, mode):
 
 
 @pytest.mark.parametrize("mode", ["train", "late_attach"])
-def test_solver_fleet_path_on_two_ranks(pool, tmp_path, mode):
+def test_solver_fleet_path_on_two_ranks(pool, tmp_path, mode):  # slow-ok: the fleet path over two gloo ranks
     run = tmp_path / "run"
     outs = pool.run(_fleet_task, str(run), mode)
     for k in range(G):

@@ -69,7 +69,7 @@ def _jax_params(name, tree):
 
 @pytest.mark.parametrize("name", ["googlenet", "googlenet_mxu",
                                   "googlenet_pallas"])
-def test_trunk_matches_flax_fp32(name, tree, images):
+def test_trunk_matches_flax_fp32(name, tree, images):  # slow-ok: the GoogLeNet trunks' fp32 forward against flax
     jm = jax_get_model(name, dtype=jnp.float32)
     want = np.asarray(jax.jit(lambda p, x: jm.apply({"params": p}, x))(
         _jax_params(name, tree), jnp.asarray(images)))
@@ -81,7 +81,7 @@ def test_trunk_matches_flax_fp32(name, tree, images):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
-def test_trunk_bf16_default_matches_flax(tree, images):
+def test_trunk_bf16_default_matches_flax(tree, images):  # slow-ok: the GoogLeNet trunk's bf16 forward against flax
     """Without a policy both trunks compute in bf16 over fp32 params."""
     jm = jax_get_model("googlenet_pallas")
     assert jm.dtype == jnp.bfloat16
@@ -130,7 +130,7 @@ def test_from_jax_params_covers_every_layout(name, tree):
         w, tree["conv2"]["Conv_0"]["kernel"].transpose(3, 2, 0, 1))
 
 
-def test_weights_npz_round_trip(tree, images, tmp_path):
+def test_weights_npz_round_trip(tree, images, tmp_path):  # slow-ok: the --weights format against flax's tree
     path = str(tmp_path / "w.npz")
     convert.save_weights_npz(tree, path)
     a = get_model("googlenet_mxu", device="cpu", dtype=torch.float32)

@@ -116,7 +116,7 @@ def _close(got, want, tol, what, scale=None):
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-def test_bn_trunk_train_step_matches_flax(flax_run, dtype, monkeypatch):
+def test_bn_trunk_train_step_matches_flax(flax_run, dtype, monkeypatch):  # slow-ok: the BN trunk's step against flax in fp64
     run = flax_run
     tol = F64 if dtype == "float64" else F32
     # PyTorch's own convolutions (oneDNN's first call may pick another
@@ -156,7 +156,7 @@ def test_bn_trunk_train_step_matches_flax(flax_run, dtype, monkeypatch):
         assert np.array_equal(v, got[k]), k
 
 
-def test_remat_equals_no_remat_bit_for_bit(flax_run):
+def test_remat_equals_no_remat_bit_for_bit(flax_run):  # slow-ok: the only remat bit-identity check
     """Checkpointed blocks re-run their forward in the backward: the
     embeddings, every gradient and the running statistics are the same
     bits as without remat, and the statistics moved once (equal to one

@@ -66,7 +66,7 @@ def _close(got, want, what):
 
 
 @pytest.mark.parametrize("objective", ["probe", "npair"])
-def test_pallas_trunk_gradients_match_flax(setup, objective, monkeypatch):
+def test_pallas_trunk_gradients_match_flax(setup, objective, monkeypatch):  # slow-ok: the stem kernels' trunk gradients against flax
     tree, images, labels, probe = setup
     jm = jax_get_model("googlenet_pallas", dtype=jnp.float32)
 

@@ -189,7 +189,7 @@ def test_divergence_rollback_restores_and_scales_lr(tmp_path, pipeline):
         assert validate(path)["step"] == step
 
 
-def test_divergence_rollback_events_match_the_jax_solver(tmp_path):
+def test_divergence_rollback_events_match_the_jax_solver(tmp_path):  # slow-ok: the divergence rollback against JAX's solver
     """The same drill on the JAX Solver and the port's (both loops): the
     same rollback records, log line shape and final iteration."""
     kw = dict(snapshot=2, divergence=None)

@@ -27,8 +27,12 @@ counts only launches of its kernel.
     and ``obs/quality/escalate.py`` named among
     the scanned files: the guard and the stdlib-only telemetry modules
     are copies, not imports);
+  * ``python -m npairloss_tpu_torch --help`` and ``staticcheck`` run in
+    subprocesses whose ``import jax`` AND ``import torch`` raise (the
+    parser is built from literals; the analysis suite is stdlib-only),
+    and the gameday's and the analysis suite's modules are in the scan;
   * entry points called without ``device=`` raise when CUDA is absent,
-    the data loaders too;
+    the data loaders and the gameday runner too;
   * kernel wrappers given CPU tensors leave their launch counters at 0.
 """
 
@@ -182,7 +186,7 @@ print("ISOLATED-OK")
 """
 
 
-def test_cpu_serve_path_runs_with_jax_poisoned(tmp_path):
+def test_cpu_serve_path_runs_with_jax_poisoned(tmp_path):  # slow-ok: the serving path with jax poisoned
     poison = tmp_path / "poison"
     poison.mkdir()
     for mod in ("jax", "flax"):
@@ -262,7 +266,7 @@ print("ISOLATED-TRAIN-OK")
 """
 
 
-def test_cpu_train_path_runs_with_jax_poisoned(tmp_path):
+def test_cpu_train_path_runs_with_jax_poisoned(tmp_path):  # slow-ok: the training path with jax poisoned
     """The train CLI (config, data, solver, loss, metrics) and one
     ``googlenet_pallas`` training step through the stem Functions, on the
     dense and the blockwise engine; ``train --model resnet18`` at the tiny
@@ -407,12 +411,63 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     "obs/live/watch.py", "obs/live/watchdogs.py",
     "resilience/remediate.py", "serve/admission.py", "serve/hotswap.py",
     "obs/quality/escalate.py", "serve/tenants.py",
+    "gameday/__init__.py", "gameday/traffic.py", "gameday/schedule.py",
+    "gameday/verdict.py", "gameday/runner.py", "analysis/__init__.py",
+    "analysis/findings.py", "analysis/tree.py", "analysis/report.py",
+    "analysis/locks.py", "analysis/markers.py", "analysis/purity.py",
+    "analysis/scopes.py", "analysis/contracts.py", "analysis/vocab.py",
+    "analysis/runner.py",
 ])
 def test_pipeline_and_guard_modules_are_scanned_and_clean(module):
     path = PORT / module
     assert path in _port_files()
     roots = {name.split(".")[0] for name in _imports(path)}
     assert not roots & set(FORBIDDEN), roots
+
+
+@pytest.mark.parametrize("argv", [
+    ["--help"], ["gameday", "--help"],
+    ["staticcheck", "--out", "report.json"],
+    ["gameday", "--out", "gd", "--replicas", "1"],
+], ids=["help", "gameday-help", "staticcheck", "gameday-refusal"])
+def test_cli_runs_with_jax_and_torch_poisoned(argv, tmp_path):
+    """The parser imports nothing of torch, ``staticcheck`` is free of it
+    end to end, and ``gameday``'s argument checks run before the runner
+    is imported."""
+    poison = tmp_path / "poison"
+    poison.mkdir()
+    for mod in ("jax", "torch", "numpy"):
+        (poison / f"{mod}.py").write_text(
+            f'raise ImportError("{mod} imported by a torch-free path")\n')
+    env = dict(os.environ)
+    env["PYTHONPATH"] = f"{poison}{os.pathsep}{REPO}"
+    env.pop("JAX_PLATFORMS", None)
+    proc = subprocess.run([sys.executable, "-m", "npairloss_tpu_torch"]
+                          + argv, capture_output=True, text=True, env=env,
+                          cwd=str(tmp_path), timeout=120)
+    want = 1 if "--replicas" in argv else 0
+    assert proc.returncode == want, proc.stdout + proc.stderr
+    assert "imported by a torch-free path" not in proc.stderr
+    if argv[0] == "staticcheck":
+        assert "staticcheck OK" in proc.stdout
+        report = (tmp_path / "report.json").read_text()
+        assert '"findings": []' in report
+
+
+def test_gameday_raises_without_cuda(monkeypatch, tmp_path):
+    from npairloss_tpu_torch import cli
+    from npairloss_tpu_torch.gameday import runner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.run_gameday(str(tmp_path / "day"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.run_tenant_skew(str(tmp_path / "skew"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["gameday", "--out", str(tmp_path / "cli")])
+    assert not (tmp_path / "day").exists()
+    assert not (tmp_path / "skew").exists()
+    assert runner._device_args("cpu") == ["--device", "cpu"]
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -158,7 +158,7 @@ def test_loss_weight_scales_the_reference_gradient():
                                   "no_positive"])
 @pytest.mark.parametrize("cfg", [tnl.REFERENCE_CONFIG, tnl.NPairLossConfig()],
                          ids=_cfg_id)
-def test_edge_batches(case, cfg):
+def test_edge_batches(case, cfg):  # slow-ok: the loss's edge batches against JAX
     """Loss 0 (not NaN) with no pairs, finite reference gradients, and
     the JAX package's values in both grad modes (NaN where it has NaN)."""
     rng = np.random.default_rng(3)

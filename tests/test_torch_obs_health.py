@@ -222,7 +222,7 @@ def test_mlp_solver_health_matches_jax(mining):
     assert trace[-1][1]["update_norm"] > 0
 
 
-def test_googlenet_bn_solver_health_matches_jax():
+def test_googlenet_bn_solver_health_matches_jax():  # slow-ok: the BN solver's health rows against JAX's
     tpol = tprec.PrecisionPolicy(name="fp32_parity_f64",
                                  compute_dtype=torch.float64)
     jpol = jprec.PrecisionPolicy(name="fp32_parity_f64",

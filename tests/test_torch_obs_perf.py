@@ -270,7 +270,7 @@ def _solver(engine="dense", model="mlp", perf=False, tmp=None, **kw):
 @pytest.mark.parametrize("engine,model", [
     ("dense", "mlp"), ("blockwise", "mlp"),
     ("dense", "googlenet_pallas")])
-def test_counted_step_is_bit_identical(tmp_path, engine, model):
+def test_counted_step_is_bit_identical(tmp_path, engine, model):  # slow-ok: counting leaves the step bit for bit
     batches = {}
     states = []
     for perf in (False, True):
@@ -298,7 +298,7 @@ def test_counted_step_is_bit_identical(tmp_path, engine, model):
     assert all(torch.equal(s0[k], s1[k]) for k in s0)
 
 
-def test_remat_recompute_is_counted():
+def test_remat_recompute_is_counted():  # slow-ok: remat's recompute in the count
     torch.backends.mkldnn.enabled = False
     try:
         flops = {}
@@ -316,7 +316,7 @@ def test_remat_recompute_is_counted():
     assert flops[False] < flops[True] < 1.5 * flops[False]
 
 
-def test_googlenet_bn_count_against_xla_cost_analysis():
+def test_googlenet_bn_count_against_xla_cost_analysis():  # slow-ok: the step count against XLA's cost analysis
     import jax
 
     from npairloss_tpu.models import get_model as jax_get_model

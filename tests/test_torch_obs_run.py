@@ -327,7 +327,7 @@ def _rank_mesh_train(mesh, run_dir):
     return mesh.rank
 
 
-def test_fleet_streams_of_two_ranks_over_gloo(tmp_path):
+def test_fleet_streams_of_two_ranks_over_gloo(tmp_path):  # slow-ok: the fleet streams of two gloo ranks
     run = str(tmp_path / "fleet")
     mesh_run = str(tmp_path / "mesh")
     with RankPool(2, f"file://{tmp_path}/pg", device="cpu",

@@ -212,7 +212,7 @@ def test_partial_launch_flags_are_refused():
         initialize_distributed("localhost:1", None, 0, device="cpu")
 
 
-def test_meshcheck_holds_over_gloo_at_two_ranks(tmp_path):
+def test_meshcheck_holds_over_gloo_at_two_ranks(tmp_path):  # slow-ok: meshcheck over two gloo ranks
     """``parallel.meshcheck`` under torchrun, two gloo ranks on the CPU,
     a 64² googlenet_bn: every check holds (its collectives, ranks' bits,
     ring vs dense, the first loss vs one process, ``train --mesh 2``

@@ -142,7 +142,7 @@ def _cli_twin_task(mesh):
 
 
 @pytest.mark.parametrize("engine", ["dense", "ring"])
-def test_mesh_solver_matches_jax_mesh_solver(pool, engine):
+def test_mesh_solver_matches_jax_mesh_solver(pool, engine):  # slow-ok: the mesh solver against JAX's mesh
     import jax
 
     from npairloss_tpu.config import load_net as jax_load_net
@@ -182,7 +182,7 @@ def test_mesh_solver_matches_jax_mesh_solver(pool, engine):
     assert ranks[0][-1][1]["iteration"] == 3
 
 
-def test_cross_rank_batch_norm_equals_one_rank_on_the_whole_batch(pool):
+def test_cross_rank_batch_norm_equals_one_rank_on_the_whole_batch(pool):  # slow-ok: cross-rank BatchNorm over gloo
     """googlenet_bn at 64 x 64 in fp64: the two ranks' synced forward,
     running statistics and (all-reduced) parameter gradients of a probe
     objective equal one rank's on the concatenated batch, and both ranks
@@ -293,7 +293,7 @@ def test_pipelined_loop_equals_sync_loop_at_two_ranks(pool, tmp_path,
                                   sync[1][3]["model/head.weight"])
 
 
-def test_two_cli_processes_match_the_in_process_solver(pool, tmp_path):
+def test_two_cli_processes_match_the_in_process_solver(pool, tmp_path):  # slow-ok: two CLI processes in one group
     """``train --coordinator file://... --num-processes 2 --process-id i``
     in two processes: both exit 0, rank 0 alone writes ``--log-json``
     (the engine plan, then the Solver's records), equal to the

@@ -11,7 +11,7 @@ from npairloss_tpu_torch.tools import phase_times as pt
     ("card", "start"), ("path", "4"), ("5i", "5i"), ("7a", "7"),
     ("8e", "8"), ("9", "9"), ("10", "10"), ("10a", "10"), ("10b", "10"),
     ("11a", "11"), ("12", "12"), ("12e", "12"), ("13", "13"),
-    ("13d", "13"), ("mem", None),
+    ("13d", "13"), ("14", "14"), ("14c", "14"), ("mem", None),
     ("profile", None), ("kernel", "3"),
     ("zzz", None)])
 def test_phase_of_tags(tag, phase):

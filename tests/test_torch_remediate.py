@@ -646,7 +646,7 @@ def _rollback_targets(lines):
     return out
 
 
-def test_cpu_train_remediate_rolls_back_as_the_jax_cli(tmp_path, caplog):
+def test_cpu_train_remediate_rolls_back_as_the_jax_cli(tmp_path, caplog):  # slow-ok: train --remediate through both CLIs
     """``train --live-obs --remediate`` on the tiny cut: snapshots every 20
     iterations, ``train.collapse`` on iterations 21–26 (the only snapshot
     before the firing is iteration 20's, and the next is not due before

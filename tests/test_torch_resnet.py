@@ -132,7 +132,7 @@ def _port(run, dtype):
     return tm
 
 
-def test_shallow_trunk_train_step_matches_flax_in_fp64(shallow_run,
+def test_shallow_trunk_train_step_matches_flax_in_fp64(shallow_run,  # slow-ok: the ResNet step against flax in fp64
                                                        monkeypatch):
     run = shallow_run
     monkeypatch.setattr(torch.backends.mkldnn, "enabled", False)
@@ -178,7 +178,7 @@ def test_shallow_trunk_in_bf16_within_a_bf16_tolerance(shallow_run, train):
 
 
 @pytest.mark.parametrize("name", ["resnet50", "resnet50_s2d", "resnet18"])
-def test_trunk_tree_names_and_shapes_equal_flax(name):
+def test_trunk_tree_names_and_shapes_equal_flax(name):  # slow-ok: each ResNet tree against flax's
     x = jnp.zeros((1, 64, 64, 3), jnp.float32)
     shapes = jax.eval_shape(
         lambda: jax_get_model(name, dtype=jnp.float32).init(
@@ -194,7 +194,7 @@ def test_trunk_tree_names_and_shapes_equal_flax(name):
     assert tm.embedding_dim == 2048
 
 
-def test_s2d_stem_equals_the_plain_stem_on_converted_weights(monkeypatch):
+def test_s2d_stem_equals_the_plain_stem_on_converted_weights(monkeypatch):  # slow-ok: the s2d stem on converted weights
     monkeypatch.setattr(torch.backends.mkldnn, "enabled", False)
     plain = get_model("resnet50", device="cpu", dtype=torch.float32, seed=4)
     s2d = get_model("resnet50_s2d", device="cpu", dtype=torch.float32)

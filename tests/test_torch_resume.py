@@ -315,7 +315,7 @@ def _run(main, argv):
     return rc, buf.getvalue().splitlines()
 
 
-def test_cli_resume_auto_fresh_then_restore_matches_jax(tmp_path,
+def test_cli_resume_auto_fresh_then_restore_matches_jax(tmp_path,  # slow-ok: --resume auto through both CLIs
                                                         monkeypatch):
     """The supervisor contract on both CLIs: the same command line
     starts fresh and then restores, with one transient save fault

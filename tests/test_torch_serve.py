@@ -154,7 +154,7 @@ def test_ivf_build_matches_jax_from_the_same_first_point(committed):
     np.testing.assert_array_equal(idx.assign_host, jidx.assign_host)
 
 
-def test_encode_with_converted_weights_matches_jax(committed):
+def test_encode_with_converted_weights_matches_jax(committed):  # slow-ok: the encode on converted weights against JAX
     from test_torch_googlenet import plain_tree
 
     from npairloss_tpu.models import googlenet as jgoog
@@ -235,7 +235,7 @@ def test_topk_recall_matches_jax():
     assert topk_recall(a, a) == 1.0
 
 
-def test_cli_index_and_serve_subprocess(tmp_path):
+def test_cli_index_and_serve_subprocess(tmp_path):  # slow-ok: index and serve as subprocesses
     emb, labels = gallery(seed=8)
     prefix = str(tmp_path / "f")
     np.save(prefix + ".emb.npy", emb)

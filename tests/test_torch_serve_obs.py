@@ -135,7 +135,7 @@ def test_spans_and_window_rows_match_jax(tmp_path, kind):
     assert psum["event"] == "serve_drain" and psum["answered"] == N_QUERIES
 
 
-def test_replicas_dispatch_on_their_own_lanes(tmp_path):
+def test_replicas_dispatch_on_their_own_lanes(tmp_path):  # slow-ok: the replicas' trace lanes
     emb, lab = _gallery()
     tel = RunTelemetry(str(tmp_path / "run"))
     server = _port_server(emb, lab, "flat", tel, replicas=2, window=0)

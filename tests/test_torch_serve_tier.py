@@ -1103,7 +1103,7 @@ def test_sigterm_drains_the_http_front_end(served_gallery):
 # -- (h) SIGKILLs against serve --wal-dir -------------------------------------
 
 
-def test_sigkill_drill_zero_acked_loss(tmp_path):
+def test_sigkill_drill_zero_acked_loss(tmp_path):  # slow-ok: the SIGKILL drill
     """Three SIGKILLs at seeded offsets, then a SIGTERM: every acked row
     is in the final checkpoint exactly once, the WAL replays only above
     each restart's watermark, and the JAX package loads the result.  A
@@ -1182,7 +1182,7 @@ def test_sigkill_drill_zero_acked_loss(tmp_path):
     np.testing.assert_array_equal(jfinal[1].ids, final.ids)
 
 
-def test_sigkill_after_concurrent_http_ingests_loses_no_acked_row(tmp_path):
+def test_sigkill_after_concurrent_http_ingests_loses_no_acked_row(tmp_path):  # slow-ok: the SIGKILL drill after concurrent ingests
     """8 threads POST ingests to ``serve --http`` with a checkpoint after
     every record, then SIGKILL: the restart's newest checkpoint plus
     its WAL replay hold every acked id exactly once.  The restart answers

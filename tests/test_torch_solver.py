@@ -208,7 +208,7 @@ def test_port_registry_equals_the_jax_registry():
         available_models())
 
 
-def test_snapshot_cadence_fires_as_in_jax(tmp_path):
+def test_snapshot_cadence_fires_as_in_jax(tmp_path):  # slow-ok: the snapshot cadence against JAX's
     """``snapshot: 5`` within ``max_iter 10`` commits iter 5 and iter 10
     in both CLIs (the JAX one shards over the 8 test devices), each with
     a ``snapshot`` event after the step's display and test events; the

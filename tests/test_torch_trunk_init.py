@@ -27,7 +27,7 @@ def _offdiag_cosines(emb: np.ndarray) -> np.ndarray:
     return sims[~np.eye(len(e), dtype=bool)]
 
 
-def test_random_trunk_collapses_in_the_reference_and_the_port_alike():
+def test_random_trunk_collapses_in_the_reference_and_the_port_alike():  # slow-ok: the init collapse in both packages
     x = np.random.default_rng(0).standard_normal(
         (8, 64, 64, 3)).astype(np.float32)
     jm = jax_get_model("googlenet", dtype=jnp.float32)

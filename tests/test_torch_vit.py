@@ -79,7 +79,7 @@ def vit_run():
             "mxu": np.asarray(mxu)}
 
 
-def test_fp32_forward_and_gradients_match_flax(vit_run):
+def test_fp32_forward_and_gradients_match_flax(vit_run):  # slow-ok: ViT's fp32 forward and gradients against flax
     run = vit_run
     tm = ViTEmbedding(dtype=torch.float32, image_size=32, **SMALL)
     convert.load_jax_params(tm, run["params"])
@@ -120,7 +120,7 @@ def test_mxu_policy_forward_within_a_bf16_tolerance(vit_run):
     assert err <= BF16_EMB, err
 
 
-def test_vit_b16_tree_round_trips_through_convert():
+def test_vit_b16_tree_round_trips_through_convert():  # slow-ok: ViT-B/16's tree through convert
     x = jnp.zeros((1, 224, 224, 3), jnp.float32)
     shapes = jax.eval_shape(
         lambda: jax_get_model("vit_b16", dtype=jnp.float32).init(
